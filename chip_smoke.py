@@ -1,0 +1,454 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port (hydra_tpu_torch) on one NVIDIA card.
+
+Run from the repository root on a machine with a CUDA card:
+
+    python3 chip_smoke.py
+
+Phases, each printing its wall time:
+  1. the card (nvidia-smi name and power limit), torch and CUDA versions;
+     builds the sweep kernels from hydra_tpu_torch/csrc with nvcc.
+  2. sweep_stale / sweep_exact against their plain PyTorch versions on the
+     card at main-path shapes (M=4,096 x N=50,000, W=64 and 128, complete
+     and missing genotypes, block window permutation); bitwise repeatability.
+  3. the CLI end to end (``hydra_tpu_torch.cli --mpibayes bayesMPI``) at
+     M=10,000 x N=5,000, exact default then --stale, 50 iterations each;
+     the sweep kernels' launch counts must move. One sweep of the CUDA
+     sampler is held against the CPU sampler with the same noise.
+  4. real size M=100,000 x N=50,000 (1.25 GB of packed genotypes made on
+     the card): ms/sweep and markers/s, exact W=128 and stale W=64.
+The line before the last is the kernels' JSON record; the last line is
+{"ok": true, "device": {...}}. Any failure raises before those lines. JAX is
+blocked: the port must run without it.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+sys.modules["jax"] = None          # the port must never import JAX
+REPO = os.path.dirname(os.path.abspath(__file__))
+K = 4
+MS = (0.0, 1e-4, 1e-3, 1e-2)       # mixture variances incl. the zero class
+SIGMA_E, SIGMA_G = 0.5, 0.5
+
+
+@contextlib.contextmanager
+def phase(name):
+    t0 = time.perf_counter()
+    print(f"== {name}", flush=True)
+    yield
+    print(f"== {name}: {time.perf_counter() - t0:.1f} s wall", flush=True)
+
+
+def device_genotypes(torch, m, n, n_pad, gen, missing=0.0, chunk=8192):
+    """h-packed (m, n_pad/4) uint8 genotypes made on the card: g ~
+    Binomial(2, p) with per-marker p ~ U(0.05, 0.5); pads (individuals >= n)
+    are missing. Returns (packed, mave, mstd, nm) with the reference's
+    marker statistics (BayesRRm.cpp:1502-1508)."""
+    dev = gen.device
+    out = torch.empty((m, n_pad // 4), dtype=torch.uint8, device=dev)
+    mave = torch.empty(m, dtype=torch.float64, device=dev)
+    mstd = torch.empty(m, dtype=torch.float64, device=dev)
+    nm = torch.empty(m, dtype=torch.float64, device=dev)
+    for r0 in range(0, m, chunk):
+        r1 = min(m, r0 + chunk)
+        p = 0.05 + 0.45 * torch.rand((r1 - r0, 1), generator=gen, device=dev)
+        g = ((torch.rand((r1 - r0, n_pad), generator=gen, device=dev) < p)
+             .to(torch.uint8)
+             + (torch.rand((r1 - r0, n_pad), generator=gen, device=dev) < p)
+             .to(torch.uint8))
+        h = 2 - g
+        if missing:
+            h[torch.rand((r1 - r0, n_pad), generator=gen, device=dev)
+              < missing] = 3
+        h[:, n:] = 3
+        real = h[:, :n]
+        n1 = (real == 1).sum(1).double()
+        n2 = (real == 0).sum(1).double()
+        nmiss = (real == 3).sum(1).double()
+        mu = (n1 + 2 * n2) / (n - nmiss)
+        var = (n1 * (1 - mu) ** 2 + n2 * (2 - mu) ** 2
+               + (n - n1 - n2 - nmiss) * mu ** 2)
+        mave[r0:r1], mstd[r0:r1], nm[r0:r1] = mu, torch.sqrt((n - 1) / var), nmiss
+        h4 = h.view(r1 - r0, n_pad // 4, 4)
+        out[r0:r1] = (h4[..., 0] | (h4[..., 1] << 2) | (h4[..., 2] << 4)
+                      | (h4[..., 3] << 6))
+    return out, mave.float(), mstd.float(), nm
+
+
+def kernel_rows(torch, mave, mstd, gen, n, pads):
+    """mrow rows as the sampler builds them (sweep_kernel.py column layout)
+    for sigmaE = sigmaG = 0.5, pi = (0.5, rest prop. to the variances)."""
+    from hydra_tpu_torch.ops.sweep_kernel import mrow_width
+    dev = mave.device
+    m = mave.shape[0]
+    cva = torch.tensor(MS[1:], device=dev)
+    pi = torch.cat([torch.tensor([0.5], device=dev), 0.5 * cva / cva.sum()])
+    dnm1 = float(n - 1)
+    denom = dnm1 + (SIGMA_E / SIGMA_G) / cva
+    invd = (1.0 / denom).expand(m, K - 1)
+    sd = torch.sqrt(SIGMA_E * invd)
+    logl = torch.cat([torch.log(pi[:1]), torch.log(pi[1:])
+                      - 0.5 * torch.log(SIGMA_G / SIGMA_E * dnm1 * cva + 1.0)])
+    bold = torch.where(torch.rand(m, generator=gen, device=dev) < 0.2,
+                       0.01 * torch.randn(m, generator=gen, device=dev), 0.0)
+    act = torch.ones(m, device=dev)
+    mave, mstd = mave.clone(), mstd.clone()
+    mave[pads] = 0.0
+    mstd[pads] = 0.0
+    bold[pads] = 0.0
+    act[pads] = 0.0
+    rows = torch.cat([mave[:, None], mstd[:, None], bold[:, None],
+                      torch.rand(m, 1, generator=gen, device=dev),
+                      torch.randn(m, 1, generator=gen, device=dev),
+                      act[:, None], logl.expand(m, K), invd, sd], dim=1)
+    assert rows.shape[1] == mrow_width(K)
+    return rows.contiguous()
+
+
+def cuda_ms(torch, fn, reps):
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        res = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps, res
+
+
+def phase_kernels(torch, sk, card):
+    """Kernel vs plain version at main-path shapes."""
+    import numpy as np
+    dev = torch.device("cuda")
+    m, n = 4096, 50_000
+    n_pad = padded_individuals(np, n)
+    rec = {"sweep_stale": dict(err=0.0), "sweep_exact": dict(err=0.0)}
+    for missing in (0.0, 0.02):
+        gen = torch.Generator(device=dev).manual_seed(11)
+        pk, mave, mstd, _ = device_genotypes(torch, m, n, n_pad, gen, missing)
+        pads = torch.randperm(m, generator=gen, device=dev)[:37]
+        pk[pads] = 0xFF
+        mrow = kernel_rows(torch, mave, mstd, gen, n, pads)
+        eps = 0.8 * torch.randn(n_pad, generator=gen, device=dev)
+        eps[n:] = 0.0
+        mask = torch.zeros(n_pad, device=dev)
+        mask[:n] = 1.0
+        for window in (64, 128):
+            order = sk.block_order(torch.randperm(
+                m // window, generator=gen, device=dev), window)
+            kw = dict(window=window, n_mix=K, complete=not missing,
+                      ind_mask=mask if not missing else None, order=order)
+            for name, fn, ref in (
+                    ("sweep_stale", sk.sweep_stale, sk.sweep_stale_ref),
+                    ("sweep_exact", sk.sweep_exact, sk.sweep_exact_ref)):
+                def run():
+                    return fn(pk, eps, mrow, 1.0 / (2 * SIGMA_E),
+                              float(n - 1), **kw)
+                def plain():
+                    return ref(pk, eps, mrow, 1.0 / (2 * SIGMA_E),
+                               float(n - 1), **kw)
+                e0, o0 = run()                         # build + warm up
+                ms, (e1, o1) = cuda_ms(torch, run, 5)
+                plain()                                # warm up
+                plain_ms, (er, orf) = cuda_ms(torch, plain, 1)
+                if not (torch.equal(e0, e1) and torch.equal(o0, o1)):
+                    raise AssertionError(f"{name} is not bitwise repeatable")
+                d_eps = (e1 - er).abs().max().item()
+                d_beta = (o1[:, 0] - orf[:, 0]).abs().max().item()
+                n_comp = int((o1[:, 1] != orf[:, 1]).sum().item())
+                n_used = int(torch.unique(o1[:, 1]).numel())
+                print(f"{name:11s} W={window:3d} {'missing ' if missing else 'complete'}"
+                      f" kernel {ms:9.3f} ms  plain {plain_ms:9.3f} ms  "
+                      f"max|d eps| {d_eps:.3e}  max|d beta| {d_beta:.3e}  "
+                      f"comp mismatches {n_comp}  components used {n_used}"
+                      f"  [{card}]", flush=True)
+                torch.testing.assert_close(e1, er, atol=5e-4, rtol=1e-3)
+                torch.testing.assert_close(o1[:, 0], orf[:, 0], atol=5e-4,
+                                           rtol=1e-3)
+                if n_comp:
+                    raise AssertionError(f"{name}: {n_comp} component "
+                                         "mismatches against the plain version")
+                if n_used < 2:
+                    raise AssertionError(f"{name}: degenerate draws")
+                r = rec[name]
+                r["err"] = max(r["err"], d_eps, d_beta)
+                main_w = 128 if name == "sweep_exact" else 64
+                if window == main_w and not missing:
+                    r["ms"], r["plain_ms"] = ms, plain_ms
+    return rec
+
+
+def write_plink(np, base, m, n, seed):
+    """Synthetic .bed/.bim/.fam/.phen with h2 = 0.5 over 1% causal markers."""
+    from hydra_tpu.io.plink import write_bed
+    rs = np.random.RandomState(seed)
+    p = rs.uniform(0.05, 0.5, (m, 1))
+    geno = ((rs.random_sample((m, n)) < p).astype(np.int8)
+            + (rs.random_sample((m, n)) < p).astype(np.int8))
+    write_bed(base + ".bed", geno)
+    with open(base + ".fam", "w") as fh:
+        fh.writelines(f"f{i} i{i} 0 0 0 -9\n" for i in range(n))
+    with open(base + ".bim", "w") as fh:
+        fh.writelines(f"1 rs{j} 0 {j + 1} A C\n" for j in range(m))
+    causal = rs.choice(m, m // 100, replace=False)
+    x = geno[causal].astype(np.float64)
+    x = (x - x.mean(1, keepdims=True)) / x.std(1, keepdims=True)
+    g = x.T @ (rs.randn(len(causal)) * np.sqrt(0.5 / len(causal)))
+    y = g + rs.randn(n) * np.sqrt(0.5)
+    with open(base + ".phen", "w") as fh:
+        fh.writelines(f"f{i} i{i} {y[i]:.8f}\n" for i in range(n))
+
+
+def check_outputs(np, base, m, n_rows):
+    """hydra formats: .csv rows (it, nG, sigmaG[nG], sigmaE, h2, ...) and
+    .bet/.cpn = [u32 Mtot] then [u32 it][Mtot values] per thinned row."""
+    rows = [ln.split(",") for ln in open(base + ".csv") if ln.strip()]
+    if len(rows) != n_rows:
+        raise AssertionError(f"{base}.csv has {len(rows)} rows, want {n_rows}")
+    its = [int(r[0]) for r in rows]
+    for ext, dt in ((".bet", np.float64), (".cpn", np.int32)):
+        raw = np.fromfile(base + ext, dtype=np.uint8)
+        if int(raw[:4].view(np.uint32)[0]) != m:
+            raise AssertionError(f"{base}{ext}: bad Mtot header")
+        rec = raw[4:].reshape(n_rows, 4 + m * np.dtype(dt).itemsize)
+        if (rec[:, :4].copy().view(np.uint32)[:, 0].tolist() != its
+                or not np.isfinite(rec[:, 4:].copy().view(dt)).all()):
+            raise AssertionError(f"{base}{ext}: bad records")
+    h2 = np.array([float(r[3 + int(r[1])]) for r in rows])
+    if not np.all(np.isfinite(h2) & (h2 > 0) & (h2 < 1)):
+        raise AssertionError(f"{base}.csv: h2 outside (0, 1): {h2}")
+    return float(h2[len(h2) // 2:].mean())
+
+
+def padded_individuals(np, n):
+    """n_pad as the reference data layout pads n individuals."""
+    from hydra_tpu.data.genotypes import GenotypeData
+    return GenotypeData.from_packed(np.zeros((1, (n + 3) // 4), np.uint8), n,
+                                    np.zeros(0, np.int64)).n_pad
+
+
+def phase_cli(torch, np, sk, tmp):
+    """The main path through the CLI, counted; then one CUDA sweep against
+    the CPU sampler with identical noise."""
+    from hydra_tpu_torch import cli
+    from hydra_tpu_torch.samplers.bayesrrm import (BayesRRm, state_from_numpy,
+                                                   state_to_numpy)
+    from hydra_tpu_torch.runner import dataset_from_options
+    from hydra_tpu.options import parse_args
+    m, n = 10_000, 5_000
+    base = os.path.join(tmp, "t_M10K_N_5K")
+    write_plink(np, base, m, n, seed=3)
+    common = ["--mpibayes", "bayesMPI", "--bfile", base, "--pheno",
+              base + ".phen", "--S", "0.0001,0.001,0.01", "--chain-length",
+              "50", "--thin", "5", "--save", "10", "--seed", "7",
+              "--mcmc-out-dir", os.path.join(tmp, "out")]
+    sk.reset_launches()
+    rc = [cli.main(common + ["--mcmc-out-name", "exact"]),
+          cli.main(common + ["--mcmc-out-name", "stale", "--stale",
+                             "--window", "64"])]
+    torch.cuda.synchronize()
+    launches = dict(sk.launches)
+    print(f"main-path kernel launches: {json.dumps(launches)}", flush=True)
+    if rc != [0, 0]:
+        raise AssertionError(f"CLI exit codes {rc}")
+    for name in ("sweep_exact", "sweep_stale"):
+        if launches[name] != 50:
+            raise AssertionError(f"{name} launched {launches[name]} times "
+                                 "in the main-path run, want 50")
+    for name in ("exact", "stale"):
+        h2 = check_outputs(np, os.path.join(tmp, "out", name), m, 10)
+        print(f"{name}: 10 thinned records, mean h2 over the last 5 = "
+              f"{h2:.4f} (simulated 0.5)", flush=True)
+
+    # one sweep, CUDA sampler vs CPU sampler, same state and noise
+    opt = parse_args(common + ["--window", "64"])
+    ds = dataset_from_options(opt)
+    for exact in (True, False):
+        cpu = BayesRRm(ds, window=64, exact=exact, seed=7, device="cpu")
+        gpu = BayesRRm(ds, window=64, exact=exact, seed=7, device="cuda")
+        s_cpu = cpu.init_state()
+        s_gpu = state_from_numpy(state_to_numpy(s_cpu), "cuda")
+        g = torch.Generator().manual_seed(5)
+        noise = dict(mu=torch.randn((), generator=g),
+                     u=torch.rand(cpu.cfg.m_loc, generator=g),
+                     nrm=torch.randn(cpu.cfg.m_loc, generator=g),
+                     wperm=torch.randperm(cpu.cfg.n_windows, generator=g))
+        a, _ = cpu.step(s_cpu, 0, noise=noise)
+        b, _ = gpu.step(s_gpu, 0, noise={k: v.cuda() for k, v in noise.items()})
+        a, b = state_to_numpy(a), state_to_numpy(b)
+        d_eps = float(np.abs(a["eps"] - b["eps"]).max())
+        d_beta = float(np.abs(a["beta"] - b["beta"]).max())
+        n_comp = int((a["components"] != b["components"]).sum())
+        print(f"one {'exact' if exact else 'stale'} sweep, CUDA vs CPU "
+              f"sampler: max|d eps| {d_eps:.3e}  max|d beta| {d_beta:.3e}  "
+              f"comp mismatches {n_comp}", flush=True)
+        np.testing.assert_allclose(b["eps"], a["eps"], atol=5e-4, rtol=1e-3)
+        np.testing.assert_allclose(b["beta"], a["beta"], atol=5e-4, rtol=1e-3)
+        if n_comp:
+            raise AssertionError("component mismatches CUDA vs CPU sampler")
+    return launches
+
+
+def phase_real_size(torch, np, sk, card):
+    from hydra_tpu.data.genotypes import (Dataset, GenotypeData,
+                                          make_default_groups)
+    from hydra_tpu_torch.samplers.bayesrrm import BayesRRm
+    dev = torch.device("cuda")
+    m, n = 100_000, 50_000
+    n_pad = padded_individuals(np, n)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(2)
+    pk, mave, mstd, nm = device_genotypes(torch, m, n, n_pad, gen)
+    torch.cuda.synchronize()
+    print(f"generated {pk.numel() / 1e9:.3f} GB of packed genotypes on the "
+          f"card in {time.perf_counter() - t0:.1f} s", flush=True)
+    mave_h, mstd_h = mave.cpu().numpy(), mstd.cpu().numpy()
+    geno = GenotypeData(packed=np.zeros((0, n_pad // 4), np.uint8), n=n,
+                        n_pad=n_pad, m=m, mave=mave_h, mstd=mstd_h,
+                        msd=1.0 / mstd_h, n1=None, n2=None,
+                        nm=nm.cpu().numpy())
+    groups, mS = make_default_groups(m, list(MS[1:]))
+    y = np.random.RandomState(0).randn(n)
+    ds = Dataset(geno=geno, y=y, groups=groups, num_groups=1, mS=mS)
+    for exact, window in ((True, 128), (False, 64)):
+        torch.cuda.reset_peak_memory_stats()
+        s = BayesRRm(ds, window=window, exact=exact, seed=1, device=dev,
+                     packed_device=pk)
+        st = s.init_state()
+        for it in range(2):
+            st, _ = s.step(st, it)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for it in range(2, 12):
+            st, stats = s.step(st, it)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 100.0
+        if not bool(torch.isfinite(st.eps).all()):
+            raise AssertionError("non-finite residual at real size")
+        sg, se = float(st.sigma_g.sum()), float(st.sigma_e)
+        print(f"real size M=100,000 x N=50,000 {'exact' if exact else 'stale'}"
+              f" W={window} block: {ms:.2f} ms/sweep, {m / ms * 1e3:,.0f} "
+              f"markers/s (10 sweeps after 2 warm-up), h2 {sg / (sg + se):.4f},"
+              f" peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB  "
+              f"[{card}]", flush=True)
+        profile_sweep(torch, sk, s, st, card)
+        del s, st
+
+
+def profile_sweep(torch, sk, s, st, card):
+    """Where one sweep's time goes: host time to enqueue its launches
+    against the time to finish on the card, and device time by kernel
+    (torch.profiler; CUDA events time the whole sweep as a cross-check)."""
+    cfg = s.cfg
+    dev = s.device
+    active = (st.sigma_g[s.groups] > 0) & (s.valid > 0) & (s.mstd > 0)
+    mrow = s.build_mrow(st, torch.rand(cfg.m_loc, device=dev),
+                        torch.randn(cfg.m_loc, device=dev), active)
+    order = s.sweep_order(0)
+    fn = sk.sweep_exact if cfg.exact else sk.sweep_stale
+    kw = dict(window=cfg.window, n_mix=cfg.k, complete=cfg.complete,
+              ind_mask=s.ind_mask if cfg.complete else None, order=order)
+
+    def run():
+        return fn(s.packed, st.eps, mrow, 0.5 / st.sigma_e,
+                  float(cfg.n_real - 1), **kw)
+
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    ev_ms, _ = cuda_ms(torch, run, 3)
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    per = {}
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", 0.0) or 0.0
+        if t > 0:
+            per[e.key] = (e.count, t / 1000.0)
+    busy = sum(v[1] for v in per.values())
+    launches = cfg.n_windows * (5 if cfg.exact else 3)
+    print(f"  sweep {'exact' if cfg.exact else 'stale'} W={cfg.window}: "
+          f"{launches} kernel launches; host enqueue {1e3 * (t1 - t0):.2f} ms,"
+          f" done after {1e3 * (t2 - t0):.2f} ms; CUDA events "
+          f"{ev_ms:.2f} ms/sweep; profiler device time {busy:.2f} ms "
+          f"({100.0 * busy / ev_ms:.1f}% busy)  [{card}]", flush=True)
+    for k, (cnt, ms) in sorted(per.items(), key=lambda kv: -kv[1][1])[:8]:
+        print(f"    {ms:9.3f} ms  {cnt:6d} x  {k[:90]}", flush=True)
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this smoke "
+              "test needs a CUDA card", file=sys.stderr)
+        return 2
+    sys.path.insert(0, REPO)
+    try:
+        import numpy as np
+        from hydra_tpu_torch.ops import _build
+        from hydra_tpu_torch.ops import sweep_kernel as sk
+    except ImportError as e:
+        print(f"chip_smoke: cannot import the port ({e}); run this script "
+              "from the repository root", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    with phase("1: card and build"):
+        card = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True, timeout=60).stdout.strip().splitlines()[0]
+        print(card, flush=True)
+        print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+              f"{torch.cuda.get_device_name(0)}", flush=True)
+        t0 = time.perf_counter()
+        log = _build.build(ptxas_verbose=True)
+        _build.load()
+        print(f"kernels built in {time.perf_counter() - t0:.1f} s: "
+              f"{_build.library_path()}", flush=True)
+        for ln in log.splitlines():
+            if "registers" in ln or "spill" in ln or "Compiling" in ln:
+                print("  ptxas:", ln.strip().replace("ptxas info    : ", ""))
+    with phase("2: kernels vs plain versions (M=4,096 x N=50,000)"):
+        rec = phase_kernels(torch, sk, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        with phase("3: CLI end to end (M=10,000 x N=5,000)"):
+            launches = phase_cli(torch, np, sk, tmp)
+    with phase("4: real size (M=100,000 x N=50,000)"):
+        phase_real_size(torch, np, sk, card)
+
+    src = "hydra_tpu_torch/csrc/sweep_kernel.cu"
+    kernels = [dict(name=name, route="cuda", source=src, replaces=replaces,
+                    launches=launches[name], max_abs_err=rec[name]["err"],
+                    ms=rec[name]["ms"], plain_ms=rec[name]["plain_ms"])
+               for name, replaces in (
+                   ("sweep_stale", "hydra_tpu/ops/sweep_kernel.py:836"),
+                   ("sweep_exact", "hydra_tpu/ops/sweep_kernel.py:567"))]
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,612 @@
+// BayesRRm whole-sweep kernels for Hopper (sm_90a): stale and exact windows.
+//
+// Replaces the Pallas mega-kernels of hydra_tpu/ops/sweep_kernel.py:
+//   hydra_sweep_stale  <- sweep_stale  (_sweep_kernel)
+//   hydra_sweep_exact  <- sweep_exact  (_sweep_exact_kernel)
+//
+// What they compute, per window of W markers (slots order[w*W .. w*W+W)):
+//   stats : s1 = sum g*eps, s2 = sum m*eps over all individuals
+//   gram  : (exact) the window Gram of standardized genotypes
+//   draw  : the mixture/beta draw of every marker from its mrow row
+//           (stale: all W at once; exact: the W-step sequential recurrence
+//           num_j = num0_j + sum_{k<j} dbeta_k * G_jk)
+//   axpy  : eps += sum_r c1_r * g_r + c2_r * m_r
+//
+// Design. On the TPU the grid (window, phase, tile) runs in order on one
+// core with eps resident in VMEM. Here blocks run in parallel and in no
+// order, so every phase of every window is its own launch on the caller's
+// stream, and the launch boundary is the barrier between stats -> draw ->
+// axpy. The window loop runs on the host; the slot permutation is read on
+// the device (order[]), so a sweep never syncs with the host.
+//
+// What bounds it on this card: every window reads its W packed rows twice
+// (stats, axpy) plus once more in the exact Gram, all from HBM/L2, and the
+// exact draw is a serial chain of W steps in one block. The design keeps
+// the decode in registers (no decoded planes in memory), reads eps as one
+// float4 per packed byte, runs the complete-data Gram as exact int8 dot
+// products (__dp4a) and the recurrence as a rank-1 update per step (one
+// __syncthreads per marker). Launch overhead (3 or 5 launches per window)
+// is left for a later change.
+//
+// Determinism: no float atomics. Partial sums land in per-tile scratch and
+// are reduced in a fixed order, so equal inputs give bitwise-equal outputs.
+
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "sweep_kernel.cuh"
+
+namespace hydra {
+
+constexpr int STATS_TB = 512;      // packed bytes per stats block
+constexpr int STATS_ROWS = 8;      // rows per stats block (one per warp)
+constexpr int GRAM_TW = 32;        // Gram tile edge
+constexpr int GRAM_CB = 512;       // packed bytes per Gram chunk (partial)
+constexpr int GRAM_SB = 32;        // packed bytes per shared-memory step
+constexpr int AXPY_THREADS = 256;
+
+// stats modes
+constexpr int MODE_MISSING = 0;    // s1 = sum g*eps, s2 = sum m*eps
+constexpr int MODE_STALE_COMPLETE = 1;  // s1 = sum h*eps, s2 = sum eps
+constexpr int MODE_EXACT_COMPLETE = 2;  // s1 = sum g*eps, s2 = sum eps, v = sum g
+
+inline int cdiv(long long a, long long b) { return static_cast<int>((a + b - 1) / b); }
+
+// ---------------------------------------------------------------- stats --
+// grid (n_tiles, ceil(W / STATS_ROWS)), 256 threads. Warp = one row of the
+// window over one tile of STATS_TB bytes; lane reads one 32-bit word (4
+// bytes = 16 individuals) per step. Partials go to part[tile * W + row].
+__global__ void stats_kernel(const uint8_t* __restrict__ pk, int nb,
+                             const float* __restrict__ eps,
+                             const int* __restrict__ order_w, int W, int mode,
+                             float* __restrict__ part_s1,
+                             float* __restrict__ part_s2,
+                             float* __restrict__ part_v) {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int r = blockIdx.y * STATS_ROWS + warp;
+    if (r >= W) return;
+    const int t = blockIdx.x;
+    const uint32_t* row = reinterpret_cast<const uint32_t*>(
+        pk + static_cast<size_t>(order_w[r]) * nb);
+    const float4* e4 = reinterpret_cast<const float4*>(eps);
+    const int w0 = t * (STATS_TB / 4);
+    const int w1 = min(w0 + STATS_TB / 4, nb / 4);
+    float a = 0.f, b = 0.f;
+    int v = 0;
+    for (int wd = w0 + lane; wd < w1; wd += 32) {
+        const uint32_t word = row[wd];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+            const uint32_t byte = (word >> (8 * q)) & 0xffu;
+            const float4 e = e4[wd * 4 + q];
+            const float ek[4] = {e.x, e.y, e.z, e.w};
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {
+                const int c = crumb(byte, k);
+                if (mode == MODE_STALE_COMPLETE) {
+                    a = fmaf(static_cast<float>(c), ek[k], a);
+                    b += ek[k];
+                } else {
+                    const int m = crumb_mask(c);
+                    const int g = (2 - c) * m;
+                    a = fmaf(static_cast<float>(g), ek[k], a);
+                    if (mode == MODE_EXACT_COMPLETE) {
+                        b += ek[k];
+                        v += g;
+                    } else {
+                        b = fmaf(static_cast<float>(m), ek[k], b);
+                    }
+                }
+            }
+        }
+    }
+    a = warp_sum(a);
+    b = warp_sum(b);
+    if (mode == MODE_EXACT_COMPLETE) v = warp_sum(v);
+    if (lane == 0) {
+        part_s1[t * W + r] = a;
+        part_s2[t * W + r] = b;
+        if (mode == MODE_EXACT_COMPLETE) part_v[t * W + r] = static_cast<float>(v);
+    }
+}
+
+// ----------------------------------------------------------------- gram --
+// grid (nt * nt, n_chunks), block (32, 8). Block (ti, tj, chunk) computes
+// the 32x32 tile of the window Gram over GRAM_CB packed bytes; thread
+// (tx, ty) owns rows ty + 8q (q < 4) of column tx.
+//   COMPLETE: exact int32 Gram of g planes by __dp4a on int8x4 genotypes.
+//   else    : f32 Gram of x = (g - mave*m) * mstd.
+// Partials: part[chunk * W * W + i * W + j] (int32 bits when COMPLETE).
+template <bool COMPLETE>
+__global__ void gram_kernel(const uint8_t* __restrict__ pk, int nb,
+                            const int* __restrict__ order_w, int W,
+                            const float* __restrict__ mrow, int C,
+                            float* __restrict__ part) {
+    const int nt = (W + GRAM_TW - 1) / GRAM_TW;
+    const int ti = blockIdx.x / nt, tj = blockIdx.x % nt;
+    const int b0 = blockIdx.y * GRAM_CB;
+    const int b1 = min(b0 + GRAM_CB, nb);
+    const int tx = threadIdx.x, ty = threadIdx.y;
+    const int tid = ty * 32 + tx;
+    const size_t ww = static_cast<size_t>(W) * W;
+    if constexpr (COMPLETE) {
+        __shared__ int As[GRAM_TW][GRAM_SB + 1];
+        __shared__ int Bs[GRAM_TW][GRAM_SB + 1];
+        int acc[4] = {0, 0, 0, 0};
+        for (int sb = b0; sb < b1; sb += GRAM_SB) {
+            for (int i = tid; i < GRAM_TW * GRAM_SB; i += 256) {
+                const int rr = i / GRAM_SB, bb = i % GRAM_SB;
+                const int ra = ti * GRAM_TW + rr, rb = tj * GRAM_TW + rr;
+                const bool inb = sb + bb < b1;
+                As[rr][bb] = (ra < W && inb)
+                    ? geno_x4(pk[static_cast<size_t>(order_w[ra]) * nb + sb + bb]) : 0;
+                Bs[rr][bb] = (rb < W && inb)
+                    ? geno_x4(pk[static_cast<size_t>(order_w[rb]) * nb + sb + bb]) : 0;
+            }
+            __syncthreads();
+#pragma unroll 8
+            for (int kk = 0; kk < GRAM_SB; ++kk) {
+                const int bv = Bs[tx][kk];
+#pragma unroll
+                for (int q = 0; q < 4; ++q) acc[q] = __dp4a(As[ty + 8 * q][kk], bv, acc[q]);
+            }
+            __syncthreads();
+        }
+        int* out = reinterpret_cast<int*>(part) + blockIdx.y * ww;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+            const int i = ti * GRAM_TW + ty + 8 * q, j = tj * GRAM_TW + tx;
+            if (i < W && j < W) out[static_cast<size_t>(i) * W + j] = acc[q];
+        }
+    } else {
+        constexpr int SI = GRAM_SB * 4;   // individuals per step
+        __shared__ float Af[GRAM_TW][SI + 1];
+        __shared__ float Bf[GRAM_TW][SI + 1];
+        float acc[4] = {0.f, 0.f, 0.f, 0.f};
+        for (int sb = b0; sb < b1; sb += GRAM_SB) {
+            for (int i = tid; i < GRAM_TW * GRAM_SB; i += 256) {
+                const int rr = i / GRAM_SB, bb = i % GRAM_SB;
+                const bool inb = sb + bb < b1;
+#pragma unroll
+                for (int side = 0; side < 2; ++side) {
+                    const int ra = (side == 0 ? ti : tj) * GRAM_TW + rr;
+                    float x[4] = {0.f, 0.f, 0.f, 0.f};
+                    if (ra < W && inb) {
+                        const int slot = order_w[ra];
+                        const float mave = mrow[static_cast<size_t>(slot) * C + 0];
+                        const float mstd = mrow[static_cast<size_t>(slot) * C + 1];
+                        const uint32_t byte = pk[static_cast<size_t>(slot) * nb + sb + bb];
+#pragma unroll
+                        for (int k = 0; k < 4; ++k) {
+                            const int c = crumb(byte, k);
+                            const float m = static_cast<float>(crumb_mask(c));
+                            const float g = static_cast<float>(crumb_geno(c));
+                            x[k] = (g - mave * m) * mstd;
+                        }
+                    }
+                    float (*dst)[SI + 1] = side == 0 ? Af : Bf;
+#pragma unroll
+                    for (int k = 0; k < 4; ++k) dst[rr][4 * bb + k] = x[k];
+                }
+            }
+            __syncthreads();
+#pragma unroll 8
+            for (int kk = 0; kk < SI; ++kk) {
+                const float bv = Bf[tx][kk];
+#pragma unroll
+                for (int q = 0; q < 4; ++q) acc[q] = fmaf(Af[ty + 8 * q][kk], bv, acc[q]);
+            }
+            __syncthreads();
+        }
+        float* out = part + blockIdx.y * ww;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+            const int i = ti * GRAM_TW + ty + 8 * q, j = tj * GRAM_TW + tx;
+            if (i < W && j < W) out[static_cast<size_t>(i) * W + j] = acc[q];
+        }
+    }
+}
+
+// Fixed-order sum of the Gram partials over chunks -> G (W, W) f32. The
+// complete-data integer Gram stays raw here; the draw standardizes it.
+__global__ void gram_reduce_kernel(const float* __restrict__ part, int n_chunks,
+                                   int W, int complete, float* __restrict__ G) {
+    const size_t ww = static_cast<size_t>(W) * W;
+    const size_t e = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+    if (e >= ww) return;
+    if (complete) {
+        const int* p = reinterpret_cast<const int*>(part);
+        int s = 0;
+        for (int c = 0; c < n_chunks; ++c) s += p[c * ww + e];
+        G[e] = static_cast<float>(s);
+    } else {
+        float s = 0.f;
+        for (int c = 0; c < n_chunks; ++c) s += part[c * ww + e];
+        G[e] = s;
+    }
+}
+
+// Fixed-order reduction of one row's stats partials.
+__device__ __forceinline__ float reduce_tiles(const float* part, int n_tiles,
+                                              int W, int r) {
+    float s = 0.f;
+    for (int t = 0; t < n_tiles; ++t) s += part[t * W + r];
+    return s;
+}
+
+// ----------------------------------------------------------- stale draw --
+// One block, one thread per marker of the window. The vectorized stale-mode
+// draw of _sweep_kernel._sample (hydra_tpu/ops/sweep_kernel.py:733-803):
+// normalized probs, comp = #{cumulative probs exceeded by u}.
+__global__ void stale_draw_kernel(const float* __restrict__ mrow, int C, int K,
+                                  const int* __restrict__ order_w, int W,
+                                  const float* __restrict__ part_s1,
+                                  const float* __restrict__ part_s2, int n_tiles,
+                                  int complete, const float* __restrict__ sc,
+                                  float* __restrict__ out, float* __restrict__ coef) {
+    extern __shared__ float sh[];          // c1[W], c2[W]
+    const int r = threadIdx.x;
+    if (r < W) {
+        const float i2se = sc[0], dNm1 = sc[1];
+        const int slot = order_w[r];
+        const float* row = mrow + static_cast<size_t>(slot) * C;
+        const float s1 = reduce_tiles(part_s1, n_tiles, W, r);
+        const float s2 = reduce_tiles(part_s2, n_tiles, W, r);
+        const float s1v = complete ? 2.0f * s2 - s1 : s1;   // h-decode
+        const float mave = row[0], mstd = row[1], bold = row[2];
+        const float u = row[3], nrm = row[4], act = row[5];
+        const float num0 = mstd * (s1v - mave * s2) + bold * dNm1;
+        const int bl = N_FIXED, bi = N_FIXED + K, bs = N_FIXED + 2 * K - 1;
+        const int km1 = K - 1;
+        float l[K_MAX], muk[K_MAX];
+        l[0] = row[bl];
+        float mx = l[0];
+        for (int j = 0; j < km1; ++j) {
+            muk[j] = num0 * row[bi + j];
+            l[j + 1] = row[bl + 1 + j] + muk[j] * num0 * i2se;
+            mx = fmaxf(mx, l[j + 1]);
+        }
+        float sm = 0.f;
+        for (int j = 0; j < K; ++j) {
+            l[j] = expf(l[j] - mx);
+            sm = j == 0 ? l[0] : sm + l[j];
+        }
+        float cum = l[0] / sm;
+        const float p0 = cum;
+        float compf = u > cum ? 1.f : 0.f;
+        for (int j = 1; j < km1; ++j) {
+            cum = cum + l[j] / sm;
+            compf += u > cum ? 1.f : 0.f;
+        }
+        float bnz = 0.f;
+        for (int j = 0; j < km1; ++j)
+            if (compf == static_cast<float>(j + 1)) bnz = muk[j] + nrm * row[bs + j];
+        const float pos = compf > 0.f ? 1.f : 0.f;
+        const float bnew = bnz * pos * act;
+        const float dbeta = bold - bnew;
+        float* o = out + static_cast<size_t>(slot) * 4;
+        o[0] = bnew;
+        o[1] = compf * act;
+        o[2] = p0 * act + (1.f - act);
+        o[3] = dbeta;
+        const float c1 = dbeta * mstd;
+        sh[r] = c1;
+        sh[W + r] = -c1 * mave;
+    }
+    __syncthreads();
+    if (r < W) {
+        coef[r] = sh[r];
+        coef[W + r] = sh[W + r];
+    }
+    if (r == 0 && complete) {
+        // h-decode axpy constant: 2 * sum(c1) + sum(c2), in slot order
+        float a = 0.f, b = 0.f;
+        for (int j = 0; j < W; ++j) a += sh[j];
+        for (int j = 0; j < W; ++j) b += sh[W + j];
+        coef[2 * W] = 2.0f * a + b;
+    }
+}
+
+// ----------------------------------------------------------- exact draw --
+// One block, one thread per marker. Thread i keeps num_i; at step j thread j
+// draws with the exact-mode formula of _sweep_exact_kernel.step
+// (hydra_tpu/ops/sweep_kernel.py:452-517: clamp max(l - mx, -60),
+// unnormalized u*s against the running cum), publishes dbeta_j through
+// shared memory, and every thread applies num_i += G_ij * dbeta_j. The
+// complete-data integer Gram is standardized on the fly with the rank-1
+// correction of :435-442.
+__global__ void exact_draw_kernel(const float* __restrict__ mrow, int C, int K,
+                                  const int* __restrict__ order_w, int W,
+                                  const float* __restrict__ part_s1,
+                                  const float* __restrict__ part_s2,
+                                  const float* __restrict__ part_v, int n_tiles,
+                                  int complete, const float* __restrict__ G,
+                                  const float* __restrict__ sc,
+                                  float* __restrict__ out, float* __restrict__ coef) {
+    extern __shared__ float sh[];          // db[W], mave[W], mstd[W], v[W]
+    float* s_db = sh;
+    float* s_mave = sh + W;
+    float* s_mstd = sh + 2 * W;
+    float* s_v = sh + 3 * W;
+    const int r = threadIdx.x;
+    const float i2se = sc[0], dNm1 = sc[1], n_real = sc[2];
+    const int bl = N_FIXED, bi = N_FIXED + K, bs = N_FIXED + 2 * K - 1;
+    const int km1 = K - 1;
+    float numv = 0.f, mave = 0.f, mstd = 0.f, v = 0.f;
+    int slot = 0;
+    const float* row = mrow;
+    if (r < W) {
+        slot = order_w[r];
+        row = mrow + static_cast<size_t>(slot) * C;
+        const float s1 = reduce_tiles(part_s1, n_tiles, W, r);
+        const float s2 = reduce_tiles(part_s2, n_tiles, W, r);
+        mave = row[0];
+        mstd = row[1];
+        v = complete ? reduce_tiles(part_v, n_tiles, W, r) : 0.f;
+        numv = mstd * (s1 - mave * s2) + row[2] * dNm1;
+        s_mave[r] = mave;
+        s_mstd[r] = mstd;
+        s_v[r] = v;
+    }
+    __syncthreads();
+    for (int j = 0; j < W; ++j) {
+        if (r == j) {
+            const float num = numv;
+            const float logl0 = row[bl];
+            float mx = logl0;
+            float muk[K_MAX], pr[K_MAX];
+            for (int k = 0; k < km1; ++k) {
+                muk[k] = num * row[bi + k];
+                pr[k] = row[bl + 1 + k] + muk[k] * num * i2se;
+                mx = fmaxf(mx, pr[k]);
+            }
+            const float pr0 = expf(fmaxf(logl0 - mx, -60.0f));
+            float s = pr0;
+            for (int k = 0; k < km1; ++k) {
+                pr[k] = expf(fmaxf(pr[k] - mx, -60.0f));
+                s = s + pr[k];
+            }
+            const float us = row[3] * s;
+            float cum = pr0, compf = 0.f;
+            for (int k = 0; k < km1; ++k) {
+                compf += us > cum ? 1.f : 0.f;
+                cum = cum + pr[k];
+            }
+            float mu_sel = 0.f, sd_sel = 0.f;
+            for (int k = 0; k < km1; ++k)
+                if (compf == static_cast<float>(k + 1)) {
+                    mu_sel = muk[k];
+                    sd_sel = row[bs + k];
+                }
+            const float act = row[5];
+            const float pos = compf > 0.f ? 1.f : 0.f;
+            const float bnew = pos * act * (mu_sel + row[4] * sd_sel);
+            const float dbeta = row[2] - bnew;
+            float* o = out + static_cast<size_t>(slot) * 4;
+            o[0] = bnew;
+            o[1] = compf * act;
+            o[2] = (pr0 / s) * act + (1.f - act);
+            o[3] = dbeta;
+            s_db[j] = dbeta;
+        }
+        __syncthreads();
+        if (r < W) {
+            float g = G[static_cast<size_t>(j) * W + r];   // G symmetric
+            if (complete) {
+                const float mj = s_mave[j];
+                g = (mstd * s_mstd[j])
+                    * (g - mave * s_v[j] - v * mj + n_real * (mave * mj));
+            }
+            numv = fmaf(g, s_db[j], numv);
+        }
+    }
+    __syncthreads();
+    if (r < W) {
+        const float c1 = s_db[r] * mstd;
+        coef[r] = c1;
+        coef[W + r] = -c1 * mave;
+        s_v[r] = -c1 * mave;          // c2, for the complete-data constant
+    }
+    __syncthreads();
+    if (r == 0 && complete) {
+        float b = 0.f;
+        for (int j = 0; j < W; ++j) b += s_v[j];
+        coef[2 * W] = b;              // sum(c2), broadcast on real lanes
+    }
+}
+
+// ----------------------------------------------------------------- axpy --
+// One thread per packed byte (4 individuals): loops over the window's rows
+// and applies eps[4b + k] += d_k. Complete data multiplies by ind_mask,
+// which nulls pad individuals (h = 3 / the c2 constant on pads).
+__global__ void axpy_kernel(const uint8_t* __restrict__ pk, int nb,
+                            const int* __restrict__ order_w, int W, int mode,
+                            const float* __restrict__ coef,
+                            const float* __restrict__ mask,
+                            float* __restrict__ eps) {
+    extern __shared__ float sh[];          // c1[W], c2[W], slot[W]
+    float* s_c1 = sh;
+    float* s_c2 = sh + W;
+    int* s_slot = reinterpret_cast<int*>(sh + 2 * W);
+    for (int i = threadIdx.x; i < W; i += blockDim.x) {
+        s_c1[i] = coef[i];
+        s_c2[i] = coef[W + i];
+        s_slot[i] = order_w[i];
+    }
+    __syncthreads();
+    const int b = blockIdx.x * blockDim.x + threadIdx.x;
+    if (b >= nb) return;
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int r = 0; r < W; ++r) {
+        const uint32_t byte = pk[static_cast<size_t>(s_slot[r]) * nb + b];
+        const float c1 = s_c1[r];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+            const int c = crumb(byte, k);
+            if (mode == MODE_STALE_COMPLETE) {
+                acc[k] = fmaf(c1, static_cast<float>(c), acc[k]);
+            } else if (mode == MODE_EXACT_COMPLETE) {
+                acc[k] = fmaf(c1, static_cast<float>(crumb_geno(c)), acc[k]);
+            } else {
+                acc[k] = fmaf(c1, static_cast<float>(crumb_geno(c)), acc[k]);
+                acc[k] = fmaf(s_c2[r], static_cast<float>(crumb_mask(c)), acc[k]);
+            }
+        }
+    }
+    float4* e4 = reinterpret_cast<float4*>(eps);
+    float4 e = e4[b];
+    if (mode == MODE_MISSING) {
+        e.x += acc[0]; e.y += acc[1]; e.z += acc[2]; e.w += acc[3];
+    } else {
+        const float cst = coef[2 * W];
+        const float4 m = reinterpret_cast<const float4*>(mask)[b];
+        float d[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+            d[k] = mode == MODE_STALE_COMPLETE ? cst - acc[k] : acc[k] + cst;
+        e.x += d[0] * m.x; e.y += d[1] * m.y; e.z += d[2] * m.z; e.w += d[3] * m.w;
+    }
+    e4[b] = e;
+}
+
+// ------------------------------------------------------------ workspace --
+struct Workspace {
+    float* part_s1;
+    float* part_s2;
+    float* part_v;
+    float* coef;
+    float* gram;
+    float* gram_part;
+    size_t bytes;
+};
+
+inline size_t align256(size_t x) { return (x + 255) & ~static_cast<size_t>(255); }
+
+inline Workspace layout(void* base, int nb, int W, bool exact) {
+    const size_t n_tiles = cdiv(nb, STATS_TB);
+    const size_t n_chunks = cdiv(nb, GRAM_CB);
+    size_t off = 0;
+    Workspace ws{};
+    char* p = static_cast<char*>(base);
+    auto take = [&](size_t floats) {
+        float* out = reinterpret_cast<float*>(p + off);
+        off += align256(floats * sizeof(float));
+        return out;
+    };
+    ws.part_s1 = take(n_tiles * W);
+    ws.part_s2 = take(n_tiles * W);
+    ws.part_v = take(n_tiles * W);
+    ws.coef = take(2 * static_cast<size_t>(W) + 1);
+    if (exact) {
+        ws.gram = take(static_cast<size_t>(W) * W);
+        ws.gram_part = take(n_chunks * W * W);
+    }
+    ws.bytes = off;
+    return ws;
+}
+
+inline bool shapes_ok(int m_loc, int nb, int W, int K) {
+    return W >= 1 && W <= 1024 && m_loc > 0 && m_loc % W == 0 && nb > 0 &&
+           nb % 128 == 0 && K >= 2 && K <= K_MAX;
+}
+
+#define HYDRA_CHECK_LAUNCH()                          \
+    do {                                              \
+        cudaError_t e_ = cudaGetLastError();          \
+        if (e_ != cudaSuccess) return static_cast<int>(e_); \
+    } while (0)
+
+int run_sweep(bool exact, const uint8_t* pk, float* eps, const float* mrow,
+              const int* order, const float* mask, const float* sc, float* out,
+              void* ws_base, int m_loc, int nb, int W, int K, int complete,
+              cudaStream_t stream) {
+    if (!shapes_ok(m_loc, nb, W, K) || (complete && mask == nullptr))
+        return static_cast<int>(cudaErrorInvalidValue);
+    const int C = N_FIXED + 3 * K - 2;
+    const Workspace ws = layout(ws_base, nb, W, exact);
+    const int n_windows = m_loc / W;
+    const int n_tiles = cdiv(nb, STATS_TB);
+    const int n_chunks = cdiv(nb, GRAM_CB);
+    const int nt = cdiv(W, GRAM_TW);
+    const int draw_threads = cdiv(W, 32) * 32;
+    const int mode = !complete ? MODE_MISSING
+                               : (exact ? MODE_EXACT_COMPLETE : MODE_STALE_COMPLETE);
+    const dim3 stats_grid(n_tiles, cdiv(W, STATS_ROWS));
+    const dim3 gram_grid(nt * nt, n_chunks);
+    const int axpy_blocks = cdiv(nb, AXPY_THREADS);
+    const size_t axpy_smem = 3 * sizeof(float) * W;
+    for (int w = 0; w < n_windows; ++w) {
+        const int* order_w = order + static_cast<size_t>(w) * W;
+        stats_kernel<<<stats_grid, STATS_ROWS * 32, 0, stream>>>(
+            pk, nb, eps, order_w, W, mode, ws.part_s1, ws.part_s2, ws.part_v);
+        HYDRA_CHECK_LAUNCH();
+        if (exact) {
+            if (complete)
+                gram_kernel<true><<<gram_grid, dim3(32, 8), 0, stream>>>(
+                    pk, nb, order_w, W, mrow, C, ws.gram_part);
+            else
+                gram_kernel<false><<<gram_grid, dim3(32, 8), 0, stream>>>(
+                    pk, nb, order_w, W, mrow, C, ws.gram_part);
+            HYDRA_CHECK_LAUNCH();
+            gram_reduce_kernel<<<cdiv(static_cast<long long>(W) * W, 256), 256, 0, stream>>>(
+                ws.gram_part, n_chunks, W, complete, ws.gram);
+            HYDRA_CHECK_LAUNCH();
+            exact_draw_kernel<<<1, draw_threads, 4 * sizeof(float) * W, stream>>>(
+                mrow, C, K, order_w, W, ws.part_s1, ws.part_s2, ws.part_v, n_tiles,
+                complete, ws.gram, sc, out, ws.coef);
+        } else {
+            stale_draw_kernel<<<1, draw_threads, 2 * sizeof(float) * W, stream>>>(
+                mrow, C, K, order_w, W, ws.part_s1, ws.part_s2, n_tiles, complete,
+                sc, out, ws.coef);
+        }
+        HYDRA_CHECK_LAUNCH();
+        axpy_kernel<<<axpy_blocks, AXPY_THREADS, axpy_smem, stream>>>(
+            pk, nb, order_w, W, mode, ws.coef, mask, eps);
+        HYDRA_CHECK_LAUNCH();
+    }
+    return 0;
+}
+
+}  // namespace hydra
+
+extern "C" {
+
+// Bytes of device scratch one sweep needs (the caller allocates it).
+long long hydra_sweep_workspace_bytes(int nb, int window, int exact) {
+    return static_cast<long long>(hydra::layout(nullptr, nb, window, exact != 0).bytes);
+}
+
+// A whole stale-window sweep. eps (4*nb,) is updated in place; out
+// (m_loc, 4) receives [beta_new, comp, acum0, dbeta] per SLOT; order
+// (m_loc,) maps sweep position -> slot; sc = [1/(2 sigma_e), N-1, N].
+int hydra_sweep_stale(const void* pk, void* eps, const void* mrow, const void* order,
+                      const void* mask, const void* sc, void* out, void* ws,
+                      int m_loc, int nb, int window, int n_mix, int complete,
+                      void* stream) {
+    return hydra::run_sweep(false, static_cast<const uint8_t*>(pk),
+                            static_cast<float*>(eps), static_cast<const float*>(mrow),
+                            static_cast<const int*>(order), static_cast<const float*>(mask),
+                            static_cast<const float*>(sc), static_cast<float*>(out), ws,
+                            m_loc, nb, window, n_mix, complete,
+                            static_cast<cudaStream_t>(stream));
+}
+
+// A whole exact (Gram-corrected sequential Gibbs) sweep; same contract.
+int hydra_sweep_exact(const void* pk, void* eps, const void* mrow, const void* order,
+                      const void* mask, const void* sc, void* out, void* ws,
+                      int m_loc, int nb, int window, int n_mix, int complete,
+                      void* stream) {
+    return hydra::run_sweep(true, static_cast<const uint8_t*>(pk),
+                            static_cast<float*>(eps), static_cast<const float*>(mrow),
+                            static_cast<const int*>(order), static_cast<const float*>(mask),
+                            static_cast<const float*>(sc), static_cast<float*>(out), ws,
+                            m_loc, nb, window, n_mix, complete,
+                            static_cast<cudaStream_t>(stream));
+}
+
+const char* hydra_sweep_error_string(int err) {
+    return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"

@@ -1,0 +1,197 @@
+"""Chain runner: Options -> Dataset -> BayesRRm on one device -> hydra files.
+
+Port of ``hydra_tpu/runner.py::run_bayesrrm`` (main.cpp:47-177 and the
+in-sampler output blocks, BayesRRm.cpp:2736-2877) without restart. The
+sweeps run on the device; at each thin/save/log boundary the values the
+writers need come to the host in ONE batched copy.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from hydra_tpu.data.genotypes import Dataset
+from hydra_tpu.io import groups as groups_io
+from hydra_tpu.io import pheno as pheno_io
+from hydra_tpu.io import plink
+from hydra_tpu.options import Options
+from hydra_tpu.outputs.writers import McmcWriter
+from hydra_tpu_torch.data.genotypes import load_dataset
+from hydra_tpu_torch.samplers.bayesrrm import (MIN_WINDOW, BayesRRm,
+                                               resolve_device)
+from hydra_tpu_torch.utils import telemetry
+
+
+def check_supported(opt: Options) -> None:
+    """Raise NotImplementedError for every path the port does not have."""
+    missing = []
+    if opt.bayes_type in ("bayesFHMPI", "bayesWMPI"):
+        missing.append(f"--mpibayes {opt.bayes_type}")
+    if opt.multi_phen:
+        missing.append("multi-trait (--pheno with several files)")
+    if opt.covariates:
+        missing.append("--covariates")
+    if opt.restart:
+        missing.append("--restart")
+    if opt.check_ram:
+        missing.append("--check-RAM")
+    if opt.bed_to_sparse:
+        missing.append("--bed-to-sparse")
+    if opt.read_from_sparse_files:
+        missing.append("sparse input (--sparse-dir/--sparse-basename)")
+    if opt.n_devices > 1 or opt.ind_shards > 1 or opt.dcn_slices > 1:
+        missing.append("more than one device (--n-devices/--ind-shards/"
+                       "--dcn-slices)")
+    if opt.dtype == "float64":
+        missing.append("--dtype float64")
+    if opt.plane_cache == "on":
+        missing.append("--cache-planes on")
+    if opt.window < MIN_WINDOW:
+        missing.append(f"--window {opt.window} (below {MIN_WINDOW}: the "
+                       "per-marker path; --stale defaults to --sync-rate, "
+                       "so pass e.g. --window 64)")
+    if opt.mega == "off":
+        missing.append("--mega off (the port has only the whole-sweep "
+                       "kernels)")
+    if missing:
+        raise NotImplementedError(
+            "not ported to hydra_tpu_torch yet: " + "; ".join(missing)
+            + " — use python -m hydra_tpu.cli for these")
+
+
+def autosize_exact_window(opt: Options, n: int) -> None:
+    """The JAX runner's rule (hydra_tpu/runner.py:307-319): the auto exact
+    default W=64 becomes 128 for N > 16384. Under the block schedule the
+    chain depends on W, so the port takes the same W for the same flags."""
+    if opt.window_auto and opt.exact and n > 16384 and opt.window == 64:
+        opt.window = 128
+        print("INFO   : exact mode: window auto-sized to 128 for N > 16384",
+              flush=True)
+
+
+def dataset_from_options(opt: Options) -> Dataset:
+    """Input dispatch of main.cpp:60-157 for a .bed without covariates."""
+    n, m = opt.number_individuals, opt.number_markers
+    if n == 0 or m == 0:
+        n = plink.read_fam(opt.bed_file + ".fam").n
+        m = plink.read_bim(opt.bed_file + ".bim").m
+    ph = pheno_io.read_phenotype_file(opt.phenotype_files[0], expected_n=n)
+    grp = mS = None
+    if opt.group_index_file:
+        grp = groups_io.read_group_file(opt.group_index_file)
+        mS = groups_io.read_ms_file(opt.group_mixture_file)
+    priors = (groups_io.read_group_priors(opt.priors_file)
+              if opt.priors_file else None)
+    d_priors = (groups_io.read_dirichlet_priors(opt.d_priors_file)
+                if opt.d_priors_file else None)
+    blocks = (groups_io.read_marker_blocks_file(opt.marker_blocks_file)
+              if opt.marker_blocks_file else None)
+    return load_dataset(opt.bed_file, ph, n=n, m=m, groups=grp, mS=mS,
+                        S=opt.S, priors=priors, d_priors=d_priors,
+                        blocks=blocks)
+
+
+def iter_blocks(start_it: int, chain_length: int, thin: int, save: int,
+                verbose: bool):
+    """Yield (it, k): run k sweeps landing exactly ON event iteration it
+    (hydra_tpu/runner.py::_iter_blocks)."""
+    def is_event(i):
+        return (i % thin == 0 or (i > 0 and i % save == 0)
+                or (verbose and i % 10 == 0) or i == chain_length - 1)
+
+    it = start_it
+    while it < chain_length:
+        e = it
+        while not is_event(e):
+            e += 1
+        yield e, e - it + 1
+        it = e + 1
+
+
+def fetch_host(pulls: dict) -> dict:
+    """Copy a dict of device tensors to the host in ONE transfer: flattened
+    into one float64 buffer (exact for the f32 and int32 values here)."""
+    names = list(pulls)
+    flat = torch.cat([pulls[k].reshape(-1).to(torch.float64) for k in names])
+    host = flat.cpu().numpy()
+    out, off = {}, 0
+    for k in names:
+        t = pulls[k]
+        n = t.numel()
+        out[k] = host[off:off + n].reshape(tuple(t.shape))
+        off += n
+    return out
+
+
+def run_bayesrrm(opt: Options, dataset: Optional[Dataset] = None,
+                 verbose: bool = True) -> dict:
+    """BayesRRm chain with hydra-format outputs, on ``opt.device``."""
+    check_supported(opt)
+    device = resolve_device(opt.device)
+    if device.type == "cuda":
+        # reference matmuls (plain versions, hyper updates) stay true f32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    ds = dataset if dataset is not None else dataset_from_options(opt)
+    autosize_exact_window(opt, ds.n)
+    sampler = BayesRRm(ds, window=opt.window, exact=opt.exact,
+                       shuffle=bool(opt.shuffle_markers), seed=opt.seed,
+                       schedule=opt.schedule, device=device)
+    state = sampler.init_state()
+    writer = McmcWriter(opt.mcmc_out, ds.m, ds.n, ds.num_groups,
+                        ds.mS.shape[1], opt.thin, opt.save, opt.seed,
+                        window=opt.window, exact=opt.exact,
+                        schedule=sampler.cfg.schedule)
+    marker_order = sampler.slot_to_marker[
+        sampler.slot_to_marker >= 0].astype(np.int32)
+
+    tot_proc = 0.0
+    stats = None
+    for it, k in iter_blocks(0, opt.chain_length, opt.thin, opt.save,
+                             verbose):
+        t0 = time.time()
+        for i in range(it - k + 1, it + 1):
+            state, stats = sampler.step(state, i)
+        on_thin = it % opt.thin == 0
+        on_save = it > 0 and it % opt.save == 0
+        on_log = verbose and it % 10 == 0
+        pulls = dict(sigma_g=state.sigma_g, sigma_e=state.sigma_e,
+                     mu=state.mu, m0=stats.m0)
+        if on_thin or on_save:
+            pulls.update(beta=state.beta, components=state.components)
+        if on_thin:
+            pulls.update(est_pi=state.est_pi, acum=state.acum)
+        if on_save:
+            pulls.update(eps=state.eps)
+        if on_log:
+            pulls.update(beta_sqn=stats.beta_sqn, cass=stats.cass)
+        h = fetch_host(pulls)
+        if on_thin or on_save:
+            beta_g = sampler.to_marker_order(h["beta"])
+            comp_g = sampler.to_marker_order(
+                h["components"].astype(np.int64)).astype(np.int32)
+        if on_thin:
+            sg = h["sigma_g"]
+            row = writer.csv_row_brr(it, sg, float(h["sigma_e"]),
+                                     int(h["m0"].sum()), h["est_pi"])
+            writer.on_thin(it, beta_g, comp_g, row, float(h["mu"]),
+                           acum=sampler.to_marker_order(h["acum"]))
+        if on_save:
+            writer.on_save(it, h["eps"][:ds.n], marker_order, beta_g, comp_g,
+                           gamma=np.zeros(0))
+        dt = time.time() - t0
+        tot_proc += dt
+        if on_log:
+            print(telemetry.result_line(
+                it, dt / k, float(h["sigma_g"].sum()), float(h["sigma_e"]),
+                float(h["beta_sqn"].sum()), int(h["m0"].sum())), flush=True)
+            print(telemetry.cass_table(it, sampler.mtot_grp, h["sigma_g"],
+                                       h["cass"]), flush=True)
+    if verbose and opt.chain_length > 0:
+        print(telemetry.exit_line(tot_proc, opt.chain_length), flush=True)
+    return dict(state=state, stats=stats, sampler=sampler,
+                total_seconds=tot_proc, mcmc_out=opt.mcmc_out)

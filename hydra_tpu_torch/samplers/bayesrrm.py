@@ -1,0 +1,442 @@
+"""BayesRRm on one device: spike + Gaussian-mixture Gibbs sampler.
+
+Port of ``hydra_tpu/samplers/bayesrrm.py`` (reference BayesRRm::runMpiGibbs,
+src/BayesRRm.cpp:933-2939) for the main path: one device, h-packed
+genotypes, the whole-sweep kernels (``ops/sweep_kernel.py``), no
+covariates, no horseshoe. A sweep is
+
+  mu update -> per-marker noise -> mrow build -> one sweep_exact /
+  sweep_stale call over all windows -> cass -> sigmaG, pi, sigmaE updates
+
+with everything per marker kept in SLOT order. The schedule permutes the
+slots a sweep visits: "block" (the default) keeps a one-time setup
+permutation of marker -> slot (the JAX sampler's, same RandomState seed, so
+``slot_to_marker`` matches it exactly) and shuffles whole windows each
+sweep; "marker" shuffles every slot each sweep.
+
+Randomness is counter-based, one ``torch.Generator`` per (seed, iteration,
+site) with the JAX sampler's site ids, and the per-marker u/nrm are drawn
+over all slots and indexed by slot. ``step(..., noise=...)`` takes the
+draws from the caller instead, which is how the tests hold one sweep
+against the JAX sampler.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+import torch
+
+from hydra_tpu.data.genotypes import Dataset, shard_layout
+from hydra_tpu.io.pheno import center_and_scale
+from hydra_tpu_torch.ops.decode import hpack_bytes
+from hydra_tpu_torch.ops.sweep_kernel import (K_MAX, W_MAX, block_order,
+                                              mrow_width, sweep_exact,
+                                              sweep_stale)
+from hydra_tpu_torch.utils import dist
+
+f32 = torch.float32
+
+# Hyper-priors (BayesRRm.h:29-34)
+V0E = 1e-4
+S02E = 1e-4
+V0G_DEFAULT = 1e-4
+S02G_DEFAULT = 1e-4
+
+# RNG site ids, as in the JAX sampler (hydra_tpu/samplers/bayesrrm.py:79-82)
+_S_MU, _S_UNIF, _S_NORM, _S_SIGMAG, _S_PI, _S_SIGMAE = 0, 1, 2, 3, 4, 5
+_S_PERM = 6
+_S_INIT_SIGMAG = 100
+_INIT_ITERATION = -1     # init-time draws sit outside the chain's iterations
+
+# W < 8 runs the JAX package's per-marker path (its whole-sweep kernels are
+# gated at W >= 8), which is not ported.
+MIN_WINDOW = 8
+
+
+def resolve_device(name: str) -> torch.device:
+    """``--device``: empty means cuda. A CUDA request without a card raises;
+    the CPU path runs only when asked for."""
+    name = name or "cuda"
+    if name == "tpu":
+        raise ValueError("--device tpu is the JAX package's (hydra_tpu.cli); "
+                         "this port runs on cuda or cpu")
+    dev = torch.device(name)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA device requested but torch.cuda.is_available() "
+                           "is false; pass --device cpu to run the plain "
+                           "PyTorch path on the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {name!r}")
+    return dev
+
+
+@dataclass(frozen=True)
+class BayesRRmConfig:
+    n_real: int          # individuals after NA correction (dN)
+    n_pad: int
+    m_tot: int           # real markers
+    m_loc: int           # padded marker slots (multiple of window)
+    window: int
+    k: int               # mixture components incl. zero
+    num_groups: int
+    exact: bool
+    shuffle: bool
+    schedule: str        # "block" | "marker"
+    complete: bool       # no missing genotypes among real individuals
+
+    @property
+    def n_windows(self) -> int:
+        return self.m_loc // self.window
+
+
+@dataclass
+class BayesRRmState:
+    eps: torch.Tensor          # (n_pad,) residual
+    beta: torch.Tensor         # (m_loc,) per slot
+    components: torch.Tensor   # (m_loc,) int32 per slot
+    acum: torch.Tensor         # (m_loc,) P(zero component), per slot
+    mu: torch.Tensor           # ()
+    sigma_e: torch.Tensor      # ()
+    sigma_g: torch.Tensor      # (G,)
+    est_pi: torch.Tensor       # (G, K)
+
+
+STATE_FIELDS = tuple(f.name for f in dataclasses.fields(BayesRRmState))
+
+
+@dataclass
+class IterStats:
+    m0: torch.Tensor             # (G,) non-zero markers per group
+    cass: torch.Tensor           # (G, K)
+    beta_sqn: torch.Tensor       # (G,)
+    sum_abs_dbeta: torch.Tensor  # ()
+
+
+def state_from_numpy(x, device) -> BayesRRmState:
+    """A state from numpy arrays: a JAX ``BayesRRmState`` converted with
+    ``np.asarray`` per field, or a dict with the same field names."""
+    get = x.get if isinstance(x, dict) else (lambda k: getattr(x, k))
+    out = {}
+    for name in STATE_FIELDS:
+        dt = torch.int32 if name == "components" else f32
+        out[name] = torch.as_tensor(np.array(get(name)), dtype=dt,
+                                    device=device)
+    return BayesRRmState(**out)
+
+
+def state_to_numpy(state: BayesRRmState) -> dict:
+    """Field name -> numpy array (the JAX state's names and dtypes)."""
+    return {name: getattr(state, name).cpu().numpy() for name in STATE_FIELDS}
+
+
+class BayesRRm:
+    """Data layout, state init and the Gibbs sweep on one device."""
+
+    def __init__(self, dataset: Dataset, *, window: int, exact: bool = True,
+                 shuffle: bool = True, seed: int = 0, schedule: str = "auto",
+                 device="cuda", packed_device: Optional[torch.Tensor] = None):
+        """packed_device: the genotypes already h-packed on the device,
+        (M, NB) uint8 in marker order, for data generated there; then
+        ``dataset.geno`` supplies only n, n_pad and the marker statistics."""
+        self.ds = dataset
+        self.seed = int(seed)
+        self.device = (device if isinstance(device, torch.device)
+                       else resolve_device(device))
+        geno = dataset.geno
+        K = int(dataset.mS.shape[1])
+        if window < MIN_WINDOW:
+            raise NotImplementedError(
+                f"--window {window}: windows below {MIN_WINDOW} run the JAX "
+                "package's per-marker path, which the port does not have")
+        if window > W_MAX:
+            raise ValueError(f"--window {window} exceeds {W_MAX}")
+        if K > K_MAX:
+            raise ValueError(f"{K} mixture components exceed {K_MAX}")
+        if schedule not in ("auto", "marker", "block"):
+            raise ValueError(f"schedule must be auto/marker/block, "
+                             f"got {schedule!r}")
+        # the whole-sweep kernels host every schedule on every device, so
+        # auto is block regardless of the device (CPU and CUDA runs of the
+        # same flags take the same chain schedule)
+        schedule = "block" if schedule == "auto" else schedule
+        if schedule == "block" and exact:
+            print("INFO   : exact run — block schedule (exact sequential-"
+                  "Gibbs semantics preserved; scan order depends on the "
+                  "window partition — --schedule marker restores "
+                  "window-invariant chains)", flush=True)
+        starts, lengths, m_loc = shard_layout(geno.m_global, 1, window,
+                                              dataset.blocks)
+        self.cfg = cfg = BayesRRmConfig(
+            n_real=geno.n, n_pad=geno.n_pad, m_tot=geno.m_global, m_loc=m_loc,
+            window=window, k=K, num_groups=dataset.num_groups, exact=exact,
+            shuffle=shuffle, schedule=schedule,
+            complete=bool(geno.nm_global_sum == 0))
+        nb = (geno.packed if packed_device is None else packed_device).shape[1]
+        if self.device.type == "cuda":
+            self._check_memory(nb)
+
+        # ---- slot layout: slot = marker, then the block setup permutation
+        s, ln = int(starts[0]), int(lengths[0])
+        groups_g = np.zeros(m_loc, dtype=np.int32)
+        mave_g = np.zeros(m_loc, dtype=np.float32)
+        mstd_g = np.zeros(m_loc, dtype=np.float32)
+        valid_g = np.zeros(m_loc, dtype=np.float32)
+        slot_to_marker = np.full(m_loc, -1, dtype=np.int64)
+        mave_g[:ln] = geno.mave[s:s + ln]
+        mstd_g[:ln] = geno.mstd[s:s + ln]
+        groups_g[:ln] = dataset.groups[s:s + ln]
+        valid_g[:ln] = 1.0
+        slot_to_marker[:ln] = np.arange(s, s + ln)
+        p = np.arange(m_loc)
+        if schedule == "block":
+            # same stream as the JAX sampler (bayesrrm.py:1192-1215)
+            rs = np.random.RandomState((self.seed ^ 0x5EED1) & 0x7FFFFFFF)
+            p = rs.permutation(m_loc)
+        groups_g, mave_g, mstd_g = groups_g[p], mave_g[p], mstd_g[p]
+        valid_g, slot_to_marker = valid_g[p], slot_to_marker[p]
+        self.slot_to_marker = slot_to_marker
+
+        dev = self.device
+        if packed_device is None:
+            # pad slots are all-missing: PLINK 0x55, h-packed 0xFF
+            packed_g = np.full((m_loc, nb), 0b01010101, dtype=np.uint8)
+            packed_g[:ln] = geno.packed[s:s + ln]
+            self.packed = torch.from_numpy(hpack_bytes(packed_g[p])).to(dev)
+            del packed_g
+        else:
+            rows = torch.full((m_loc, nb), 0xFF, dtype=torch.uint8,
+                              device=dev)
+            rows[:ln] = packed_device[s:s + ln]
+            self.packed = rows[torch.from_numpy(p).to(dev)]
+            del rows
+        self.groups = torch.from_numpy(groups_g).to(dev, torch.int64)
+        self.mave = torch.from_numpy(mave_g).to(dev)
+        self.mstd = torch.from_numpy(mstd_g).to(dev)
+        self.valid = torch.from_numpy(valid_g).to(dev)
+        G = cfg.num_groups
+        self.group_onehot = (self.groups[None, :] == torch.arange(
+            G, device=dev)[:, None]).to(f32)                    # (G, m_loc)
+
+        # mixture grids (BayesRRm.cpp:1004-1108) and priors
+        mS = dataset.mS.astype(np.float32)
+        cvai = np.zeros_like(mS)
+        cvai[:, 1:] = 1.0 / mS[:, 1:]
+        dirc = (dataset.d_priors if dataset.d_priors is not None
+                else np.ones((G, K)))
+        sp = (dataset.priors if dataset.priors is not None
+              else np.full((G, 2), (V0G_DEFAULT, S02G_DEFAULT)))
+        self.mtot_grp = np.bincount(dataset.groups, minlength=G)
+        ind_mask = np.zeros(cfg.n_pad, dtype=np.float32)
+        ind_mask[:cfg.n_real] = 1.0
+
+        def put(a, dt=f32):
+            return torch.as_tensor(np.asarray(a), dtype=dt, device=dev)
+
+        self.cva = put(mS)
+        self.cvai = put(cvai)
+        self.dirc = put(dirc)
+        self.sigma_priors = put(sp)
+        self.mtot = put(self.mtot_grp)
+        self.ind_mask = put(ind_mask)
+        self.dN = put(float(cfg.n_real))
+        self.dNm1 = put(float(cfg.n_real - 1))
+        self.tiny = put(1e-30)
+
+    def _check_memory(self, nb: int) -> None:
+        """Refuse a run whose device arrays cannot fit before allocating
+        them: packed bytes, per-slot rows and the exact-mode Gram scratch,
+        against the card's free memory (torch.cuda.mem_get_info)."""
+        from hydra_tpu_torch.ops import _build
+
+        cfg = self.cfg
+        workspace = _build.load().hydra_sweep_workspace_bytes(
+            nb, cfg.window, int(cfg.exact))
+        need = (2 * cfg.m_loc * nb      # packed rows + one copy while laid out
+                + cfg.m_loc * 4 * (mrow_width(cfg.k) + 16 + cfg.num_groups)
+                + workspace + 8 * cfg.n_pad * 4 + (256 << 20))
+        free, total = torch.cuda.mem_get_info(self.device)
+        if need > free:
+            raise MemoryError(
+                f"BayesRRm needs ~{need / 1e9:.2f} GB on {self.device} "
+                f"({cfg.m_loc} slots x {nb} packed bytes), "
+                f"{free / 1e9:.2f} GB of {total / 1e9:.2f} GB are free")
+
+    # ------------------------------------------------------------------
+    def _gen(self, it: int, site: int) -> torch.Generator:
+        return dist.site_generator(self.seed, it, site, self.device)
+
+    def init_state(self) -> BayesRRmState:
+        """init_from_scratch (BayesRRm.cpp:1224-1240, :1564-1584)."""
+        cfg, dev = self.cfg, self.device
+        y = center_and_scale(self.ds.y)
+        eps = np.zeros(cfg.n_pad, dtype=np.float32)
+        eps[:cfg.n_real] = y
+        sigma_e = float(np.sum(y * y) / cfg.n_real * 0.5)
+        G, K = cfg.num_groups, cfg.k
+        one = torch.ones(G, dtype=f32, device=dev)
+        # sigmaG ~ Beta(1, 1) per group, empty groups zeroed (:1231-1240)
+        sg = dist.beta_rng(self._gen(_INIT_ITERATION, _S_INIT_SIGMAG), one, one)
+        sg = torch.where(self.mtot == 0, 0.0, sg)
+        # priorPi: col0 = 0.5, the rest proportional to cVa (:1097-1107)
+        mS = self.ds.mS
+        pi0 = np.zeros((G, K))
+        pi0[:, 0] = 0.5
+        pi0[:, 1:] = 0.5 * mS[:, 1:] / mS[:, 1:].sum(axis=1, keepdims=True)
+        zeros = torch.zeros(cfg.m_loc, dtype=f32, device=dev)
+        return BayesRRmState(
+            eps=torch.from_numpy(eps).to(dev),
+            beta=zeros.clone(),
+            components=torch.zeros(cfg.m_loc, dtype=torch.int32, device=dev),
+            acum=zeros.clone(),
+            mu=torch.zeros((), dtype=f32, device=dev),
+            sigma_e=torch.tensor(sigma_e, dtype=f32, device=dev),
+            sigma_g=sg.to(f32),
+            est_pi=torch.as_tensor(pi0, dtype=f32, device=dev))
+
+    # ------------------------------------------------------------------
+    def sweep_order(self, it: int, noise: Optional[dict] = None
+                    ) -> torch.Tensor:
+        """Slots in the order sweep `it` visits them (int32)."""
+        cfg, dev = self.cfg, self.device
+        noise = noise or {}
+        if not cfg.shuffle:
+            return torch.arange(cfg.m_loc, dtype=torch.int32, device=dev)
+        if cfg.schedule == "block":
+            wperm = noise.get("wperm")
+            if wperm is None:
+                wperm = torch.randperm(cfg.n_windows, device=dev,
+                                       generator=self._gen(it, _S_PERM))
+            return block_order(wperm.to(dev), cfg.window)
+        perm = noise.get("perm")
+        if perm is None:
+            perm = torch.randperm(cfg.m_loc, device=dev,
+                                  generator=self._gen(it, _S_PERM))
+        return perm.to(dev, torch.int32)
+
+    def build_mrow(self, state: BayesRRmState, u: torch.Tensor,
+                   nrm: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
+        """Per-slot kernel rows (sweep_kernel.py:51-56 layout; the JAX
+        sampler's :701-725, non-FH)."""
+        cfg = self.cfg
+        tiny, dNm1 = self.tiny, self.dNm1
+        grp = self.groups
+        sigma_e, sigma_g = state.sigma_e, state.sigma_g
+        log_pi = torch.log(torch.maximum(state.est_pi[grp], tiny))   # (m, K)
+        safe_g = torch.maximum(sigma_g[grp], tiny)
+        denomk = dNm1 + (sigma_e / safe_g)[:, None] * self.cvai[grp][:, 1:]
+        log_detk = torch.log((sigma_g[grp] / sigma_e)[:, None] * dNm1
+                             * self.cva[grp][:, 1:] + 1.0)
+        inv_denomk = 1.0 / denomk
+        sd_k = torch.sqrt(sigma_e * inv_denomk)
+        logl_static = torch.cat(
+            [log_pi[:, :1], log_pi[:, 1:] - 0.5 * log_detk], dim=1)
+        mrow = torch.cat(
+            [self.mave[:, None], self.mstd[:, None], state.beta[:, None],
+             u[:, None], nrm[:, None], active.to(f32)[:, None],
+             logl_static, inv_denomk, sd_k], dim=1).contiguous()
+        assert mrow.shape[1] == mrow_width(cfg.k)
+        return mrow
+
+    def step(self, state: BayesRRmState, it: int,
+             noise: Optional[dict] = None):
+        """One Gibbs sweep. `noise` (tests) may supply the standard-normal
+        draw of mu ("mu"), the per-slot "u"/"nrm" and the "wperm"/"perm"."""
+        cfg, dev = self.cfg, self.device
+        noise = noise or {}
+        G, K = cfg.num_groups, cfg.k
+        dN, dNm1, tiny = self.dN, self.dNm1, self.tiny
+
+        # ---- mu update (BayesRRm.cpp:1675-1686) ----
+        eps = state.eps + state.mu * self.ind_mask
+        z = noise.get("mu")
+        if z is None:
+            z = torch.randn((), dtype=f32, device=dev,
+                            generator=self._gen(it, _S_MU))
+        mu = eps.sum() / dN + torch.sqrt(state.sigma_e / dN) * z.to(dev)
+        eps = eps - mu * self.ind_mask
+
+        # ---- schedule and per-slot randomness ----
+        order = self.sweep_order(it, noise)
+        u = noise.get("u")
+        if u is None:
+            u = torch.rand(cfg.m_loc, dtype=f32, device=dev,
+                           generator=self._gen(it, _S_UNIF))
+        nrm = noise.get("nrm")
+        if nrm is None:
+            nrm = torch.randn(cfg.m_loc, dtype=f32, device=dev,
+                              generator=self._gen(it, _S_NORM))
+        # adaV: markers of zeroed groups are skipped (BayesRRm.cpp:1589-1597)
+        active = ((state.sigma_g[self.groups] > 0.0) & (self.valid > 0.0)
+                  & (self.mstd > 0.0))
+        mrow = self.build_mrow(state, u.to(dev), nrm.to(dev), active)
+
+        # ---- the whole sweep, every window, in slot order ----
+        sweep = sweep_exact if cfg.exact else sweep_stale
+        eps, out = sweep(self.packed, eps.contiguous(), mrow,
+                         0.5 / state.sigma_e, dNm1, window=cfg.window,
+                         n_mix=K, complete=cfg.complete,
+                         ind_mask=self.ind_mask if cfg.complete else None,
+                         order=order)
+        beta = out[:, 0].contiguous()
+        comps = out[:, 1].to(torch.int32)
+        acum = out[:, 2].contiguous()
+        act = active.to(f32)
+        # component counts over active markers (BayesRRm.cpp:1904): 0/1
+        # weights, so the sums are exact integers in any order (and, unlike
+        # bincount, index_add_ does not wait for the device)
+        cass = torch.zeros(G * K, dtype=f32, device=dev).index_add_(
+            0, self.groups * K + comps.to(torch.int64), act).reshape(G, K)
+        # fixed-order per-group reductions (no float atomics)
+        beta_sqn = (self.group_onehot * (beta * beta)[None, :]).sum(dim=1)
+        sum_abs_db = out[:, 3].abs().sum()
+
+        # ---- per-group hyper-parameter updates (BayesRRm.cpp:2525-2578) ----
+        m0 = self.mtot - cass[:, 0]
+        skip = (self.mtot == 0) | (m0 == 0) | (cass.sum(dim=1) == 0)
+        v0g, s02g = self.sigma_priors[:, 0], self.sigma_priors[:, 1]
+        sg_draw = dist.inv_scaled_chisq_rng(
+            self._gen(it, _S_SIGMAG), v0g + m0,
+            (beta_sqn * m0 + v0g * s02g) / torch.maximum(v0g + m0, tiny))
+        sigma_g = torch.where(skip, 0.0, sg_draw)
+        # pi | Dirichlet(cass + dirc) (:2576-2577); skipped groups keep theirs
+        pi_draw = dist.dirichlet_rng(self._gen(it, _S_PI), cass + self.dirc)
+        est_pi = torch.where(skip[:, None], state.est_pi, pi_draw)
+
+        # ---- sigmaE (BayesRRm.cpp:2685-2690) ----
+        e_sqn = (eps * eps).sum()
+        sigma_e = dist.inv_scaled_chisq_rng(
+            self._gen(it, _S_SIGMAE), V0E + dN,
+            (e_sqn + V0E * S02E) / (V0E + dN))
+
+        new = BayesRRmState(eps=eps, beta=beta, components=comps, acum=acum,
+                            mu=mu, sigma_e=sigma_e, sigma_g=sigma_g,
+                            est_pi=est_pi)
+        return new, IterStats(m0=m0, cass=cass, beta_sqn=beta_sqn,
+                              sum_abs_dbeta=sum_abs_db)
+
+    # ------------------------------------------------------------------
+    def to_marker_order(self, flat: np.ndarray) -> np.ndarray:
+        """Per-slot values -> reference marker order (Mtot,)."""
+        out = np.zeros(self.cfg.m_tot, dtype=flat.dtype)
+        sel = self.slot_to_marker >= 0
+        out[self.slot_to_marker[sel]] = flat[sel]
+        return out
+
+    def beta_global(self, state: BayesRRmState) -> np.ndarray:
+        return self.to_marker_order(state.beta.cpu().numpy().astype(np.float64))
+
+    def run(self, n_iterations: int, state: Optional[BayesRRmState] = None,
+            start_iteration: int = 0, callback=None):
+        """Plain chain loop; the runner adds the output cadence."""
+        if state is None:
+            state = self.init_state()
+        stats = None
+        for it in range(start_iteration, n_iterations):
+            state, stats = self.step(state, it)
+            if callback is not None:
+                callback(it, state, stats)
+        return state, stats

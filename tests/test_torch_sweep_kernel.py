@@ -1,0 +1,96 @@
+"""Port sweep kernels vs the JAX Pallas kernels (interpret mode, CPU).
+
+The same numpy inputs (``tests/test_torch_cuda.make_inputs``) go through
+``hydra_tpu.ops.sweep_kernel`` (plane-major residual, ``interpret=True``)
+and the port's plain versions, which the wrappers take for CPU tensors. Tolerances are those of
+tests/test_sweep_kernel.py: eps and beta at atol=5e-4, rtol=1e-3 (f32
+summation order differs), components exactly equal.
+"""
+
+import numpy as np
+import pytest
+import jax.numpy as jnp
+import torch
+
+from hydra_tpu.ops import sweep_kernel as jsk
+from hydra_tpu.ops.decode import hpack_bytes as jax_hpack_bytes
+from hydra_tpu.ops.window_kernels import deinterleave, interleave
+from hydra_tpu_torch.ops import sweep_kernel as tsk
+from hydra_tpu_torch.ops.decode import decode_planes, decode_planes_hp, hpack_bytes
+
+from tests.test_torch_cuda import K, make_inputs
+
+CASES = [
+    # (exact, missing, win_perm, pad markers, window)
+    (False, False, True, 11, 32),
+    (False, True, True, 11, 32),
+    (True, False, True, 11, 32),
+    (True, True, True, 11, 32),
+    (False, False, False, 0, 32),
+    (True, True, False, 5, 32),
+    (True, False, True, 5, 8),
+]
+
+
+@pytest.mark.parametrize("exact,missing,use_perm,n_pads,window", CASES)
+def test_sweep_matches_jax(exact, missing, use_perm, n_pads, window):
+    m, nb = (128, 128) if window == 32 else (64, 128)
+    pk, eps, mask, mrow, n = make_inputs(m, nb, 3 + window + n_pads,
+                                         missing, n_pads)
+    wp = (np.random.RandomState(5).permutation(m // window).astype(np.int32)
+          if use_perm else None)
+    i2se, dnm1 = 0.7, float(n - 1)
+    kw = dict(window=window, n_mix=K, complete=not missing,
+              ind_mask4=jnp.asarray(deinterleave(mask)), interpret=True,
+              win_perm=None if wp is None else jnp.asarray(wp))
+    args = (jnp.asarray(pk), deinterleave(jnp.asarray(eps)), jnp.asarray(mrow))
+    if exact:
+        e_j, o_j = jsk.sweep_exact(*args, jnp.asarray(mrow[:, :2]),
+                                   jnp.float32(i2se), jnp.float32(dnm1), **kw)
+    else:
+        e_j, o_j = jsk.sweep_stale(*args, jnp.asarray(i2se, jnp.float32),
+                                   jnp.float32(dnm1), **kw)
+    e_j, o_j = np.asarray(interleave(e_j)), np.asarray(o_j)
+
+    fn = tsk.sweep_exact if exact else tsk.sweep_stale
+    before = dict(tsk.launches)
+    e_t, o_t = fn(torch.from_numpy(pk), torch.from_numpy(eps),
+                  torch.from_numpy(mrow), i2se, dnm1, window=window, n_mix=K,
+                  complete=not missing, ind_mask=torch.from_numpy(mask),
+                  order=(None if wp is None
+                         else tsk.block_order(torch.from_numpy(wp), window)))
+    assert tsk.launches == before        # CPU tensors: plain version only
+    e_t, o_t = e_t.numpy(), o_t.numpy()
+    np.testing.assert_allclose(e_t, e_j, atol=5e-4, rtol=1e-3)
+    np.testing.assert_allclose(o_t[:, 0], o_j[:, 0], atol=5e-4, rtol=1e-3)
+    np.testing.assert_array_equal(o_t[:, 1], o_j[:, 1])
+    np.testing.assert_allclose(o_t[:, 2:], o_j[:, 2:], atol=5e-4, rtol=1e-3)
+    # the draws did something: several components in use, pads stay zero
+    assert len(np.unique(o_t[:, 1])) >= 3
+    assert np.all(e_t[n:] == 0.0)
+
+
+def test_hpack_and_decode_match_jax():
+    from hydra_tpu.ops.decode import decode_planes as jdp, \
+        decode_planes_hp as jdph
+    rs = np.random.RandomState(0)
+    pk = rs.randint(0, 256, (7, 32)).astype(np.uint8)
+    np.testing.assert_array_equal(hpack_bytes(pk), jax_hpack_bytes(pk))
+    for tf, jf, x in ((decode_planes, jdp, pk),
+                      (decode_planes_hp, jdph, jax_hpack_bytes(pk))):
+        gt, mt = tf(torch.from_numpy(x))
+        gj, mj = jf(jnp.asarray(x))
+        np.testing.assert_array_equal(gt.numpy(), np.asarray(gj))
+        np.testing.assert_array_equal(mt.numpy(), np.asarray(mj))
+
+
+def test_wrappers_reject_bad_operands():
+    pk, eps, mask, mrow, n = make_inputs(64, 128, 1, False, 0)
+    args = [torch.from_numpy(a) for a in (pk, eps, mrow)]
+    with pytest.raises(ValueError, match="multiple of window"):
+        tsk.sweep_stale(*args, 0.5, 10.0, window=48, n_mix=K, complete=False)
+    with pytest.raises(ValueError, match="ind_mask"):
+        tsk.sweep_exact(*args, 0.5, 10.0, window=32, n_mix=K, complete=True)
+    with pytest.raises(ValueError, match="no sweep kernel"):
+        tsk.sweep_stale(*[a.to("meta") for a in args], 0.5, 10.0, window=32,
+                        n_mix=K, complete=False)
