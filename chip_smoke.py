@@ -7,19 +7,29 @@ Run from the repository root on a machine with a CUDA card:
 
 Phases, each printing its wall time:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
-     builds the sweep kernels from hydra_tpu_torch/csrc with nvcc.
+     builds the kernels from hydra_tpu_torch/csrc with nvcc (one nvcc per
+     source, started together).
   2. sweep_stale / sweep_exact against their plain PyTorch versions on the
      card at main-path shapes (M=4,096 x N=50,000, W=64 and 128, complete
      and missing genotypes, block window permutation); bitwise repeatability.
-  3. the CLI end to end (``hydra_tpu_torch.cli --mpibayes bayesMPI``) at
-     M=10,000 x N=5,000, exact default then --stale, 50 iterations each;
-     the sweep kernels' launch counts must move. One sweep of the CUDA
-     sampler is held against the CPU sampler with the same noise.
+  2b. the BayesW kernels against their plain versions: sweep_stale_bw at
+     M=4,096 x N=50,000, W=64 (complete and 2% missing) and at W=1 with
+     M=512; window_level_sums and window_axpy at W=64 x N=50,000.
+  3. the BayesRRm CLI end to end (``--mpibayes bayesMPI``) at M=10,000 x
+     N=5,000, exact default then --stale, 50 iterations each; the sweep
+     kernels' launch counts must move. One sweep of the CUDA sampler is
+     held against the CPU sampler with the same noise.
+  3b. the BayesW CLI end to end (``--mpibayes bayesWMPI``) at M=10,000 x
+     N=5,000, the W=1 default and --window 64, 20 iterations each; the
+     BayesW kernels' launch counts must move. One CUDA sweep is held
+     against the CPU sampler with the same noise.
   4. real size M=100,000 x N=50,000 (1.25 GB of packed genotypes made on
      the card): ms/sweep and markers/s, exact W=128 and stale W=64.
+  4b. BayesW W=64 block at the same size, and W=1 at M=10,000 x N=5,000:
+     ms/sweep, markers/s, per-kernel device time, host enqueue time.
 The line before the last is the kernels' JSON record; the last line is
-{"ok": true, "device": {...}}. Any failure raises before those lines. JAX is
-blocked: the port must run without it.
+{"ok": true, "device": {...}}. Any failure raises before those lines. JAX
+and the JAX package are blocked: the port must run without them.
 """
 
 from __future__ import annotations
@@ -32,11 +42,38 @@ import sys
 import tempfile
 import time
 
-sys.modules["jax"] = None          # the port must never import JAX
+sys.modules["jax"] = None          # the port imports neither JAX
+sys.modules["hydra_tpu"] = None    # nor the JAX package
 REPO = os.path.dirname(os.path.abspath(__file__))
 K = 4
 MS = (0.0, 1e-4, 1e-3, 1e-2)       # mixture variances incl. the zero class
 SIGMA_E, SIGMA_G = 0.5, 0.5
+EULER_MASCHERONI = 0.577215664901532
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
+PEAK_OPS_PER_S = {"f32": 67e12, "int8": 1979e12}
+
+
+def bound(nbytes, ops):
+    """(ms, "bytes" | "operations"): the least time the card could take,
+    the larger of the bytes moved over HBM bandwidth and the operations
+    ({type: count}) over the peak rate of their type."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = sum(v / PEAK_OPS_PER_S[k] for k, v in ops.items()) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def reset_all_launches():
+    from hydra_tpu_torch.ops import sweep_kernel, sweep_kernel_bw
+    from hydra_tpu_torch.ops import window_kernels
+    for mod in (sweep_kernel, sweep_kernel_bw, window_kernels):
+        mod.reset_launches()
+
+
+def all_launches():
+    from hydra_tpu_torch.ops import sweep_kernel, sweep_kernel_bw
+    from hydra_tpu_torch.ops import window_kernels
+    return {**sweep_kernel.launches, **sweep_kernel_bw.launches,
+            **window_kernels.launches}
 
 
 @contextlib.contextmanager
@@ -183,12 +220,24 @@ def phase_kernels(torch, sk, card):
                 main_w = 128 if name == "sweep_exact" else 64
                 if window == main_w and not missing:
                     r["ms"], r["plain_ms"] = ms, plain_ms
+                    # packed rows, eps, mrow, order, mask in; eps, out out.
+                    # Ops: s1 and the axpy, one FMA each per genotype; the
+                    # exact Gram adds W int8 multiply-adds per genotype
+                    nbytes = (pk.numel() + 3 * 4 * n_pad + mrow.numel() * 4
+                              + 4 * m + 16 * m)
+                    ops = {"f32": 4.0 * m * n_pad}
+                    if name == "sweep_exact":
+                        ops["int8"] = 2.0 * window * m * n_pad
+                    r["bound_ms"], r["bound_by"] = bound(nbytes, ops)
     return rec
 
 
-def write_plink(np, base, m, n, seed):
-    """Synthetic .bed/.bim/.fam/.phen with h2 = 0.5 over 1% causal markers."""
-    from hydra_tpu.io.plink import write_bed
+def write_plink(np, base, m, n, seed, weibull=False):
+    """Synthetic .bed/.bim/.fam/.phen with h2 = 0.5 over 1% causal markers.
+    weibull: the .phen holds log-times mu + g + (log E + EuMasc)/alpha with
+    alpha 8, mu 4, E ~ Exp(1) (tests/test_bayesw.py::simulate_weibull's
+    model), and a .fail marks 10% of individuals as censored."""
+    from hydra_tpu_torch.io.plink import write_bed
     rs = np.random.RandomState(seed)
     p = rs.uniform(0.05, 0.5, (m, 1))
     geno = ((rs.random_sample((m, n)) < p).astype(np.int8)
@@ -202,14 +251,24 @@ def write_plink(np, base, m, n, seed):
     x = geno[causal].astype(np.float64)
     x = (x - x.mean(1, keepdims=True)) / x.std(1, keepdims=True)
     g = x.T @ (rs.randn(len(causal)) * np.sqrt(0.5 / len(causal)))
-    y = g + rs.randn(n) * np.sqrt(0.5)
+    if weibull:
+        alpha = 8.0
+        noise_var = np.pi ** 2 / 6.0 / alpha ** 2
+        y = (4.0 + g * np.sqrt(noise_var)
+             + (np.log(rs.exponential(1.0, n)) + EULER_MASCHERONI) / alpha)
+        with open(base + ".fail", "w") as fh:
+            fh.writelines(f"{int(v)}\n" for v in rs.random_sample(n) > 0.1)
+    else:
+        y = g + rs.randn(n) * np.sqrt(0.5)
     with open(base + ".phen", "w") as fh:
         fh.writelines(f"f{i} i{i} {y[i]:.8f}\n" for i in range(n))
 
 
-def check_outputs(np, base, m, n_rows):
-    """hydra formats: .csv rows (it, nG, sigmaG[nG], sigmaE, h2, ...) and
-    .bet/.cpn = [u32 Mtot] then [u32 it][Mtot values] per thinned row."""
+def check_outputs(np, base, m, n_rows, survival=False):
+    """hydra formats: .csv rows (BayesRRm: it, nG, sigmaG[nG], sigmaE, h2,
+    ...; BayesW: it, mu, sigmaG, alpha, h2w, ...) and .bet/.cpn =
+    [u32 Mtot] then [u32 it][Mtot values] per thinned row. Returns the mean
+    h2 (BayesW: the mean alpha) over the second half of the rows."""
     rows = [ln.split(",") for ln in open(base + ".csv") if ln.strip()]
     if len(rows) != n_rows:
         raise AssertionError(f"{base}.csv has {len(rows)} rows, want {n_rows}")
@@ -222,6 +281,13 @@ def check_outputs(np, base, m, n_rows):
         if (rec[:, :4].copy().view(np.uint32)[:, 0].tolist() != its
                 or not np.isfinite(rec[:, 4:].copy().view(dt)).all()):
             raise AssertionError(f"{base}{ext}: bad records")
+    if survival:
+        alpha = np.array([float(r[3]) for r in rows])
+        h2w = np.array([float(r[4]) for r in rows])
+        if not (np.all(np.isfinite(alpha) & (alpha > 0))
+                and np.all((h2w >= 0) & (h2w < 1))):
+            raise AssertionError(f"{base}.csv: bad alpha {alpha} or h2w {h2w}")
+        return float(alpha[len(alpha) // 2:].mean())
     h2 = np.array([float(r[3 + int(r[1])]) for r in rows])
     if not np.all(np.isfinite(h2) & (h2 > 0) & (h2 < 1)):
         raise AssertionError(f"{base}.csv: h2 outside (0, 1): {h2}")
@@ -229,10 +295,9 @@ def check_outputs(np, base, m, n_rows):
 
 
 def padded_individuals(np, n):
-    """n_pad as the reference data layout pads n individuals."""
-    from hydra_tpu.data.genotypes import GenotypeData
-    return GenotypeData.from_packed(np.zeros((1, (n + 3) // 4), np.uint8), n,
-                                    np.zeros(0, np.int64)).n_pad
+    """n_pad as the data layout pads n individuals."""
+    from hydra_tpu_torch.data.genotypes import pad_individuals
+    return pad_individuals(n)
 
 
 def phase_cli(torch, np, sk, tmp):
@@ -242,7 +307,7 @@ def phase_cli(torch, np, sk, tmp):
     from hydra_tpu_torch.samplers.bayesrrm import (BayesRRm, state_from_numpy,
                                                    state_to_numpy)
     from hydra_tpu_torch.runner import dataset_from_options
-    from hydra_tpu.options import parse_args
+    from hydra_tpu_torch.options import parse_args
     m, n = 10_000, 5_000
     base = os.path.join(tmp, "t_M10K_N_5K")
     write_plink(np, base, m, n, seed=3)
@@ -250,12 +315,12 @@ def phase_cli(torch, np, sk, tmp):
               base + ".phen", "--S", "0.0001,0.001,0.01", "--chain-length",
               "50", "--thin", "5", "--save", "10", "--seed", "7",
               "--mcmc-out-dir", os.path.join(tmp, "out")]
-    sk.reset_launches()
+    reset_all_launches()
     rc = [cli.main(common + ["--mcmc-out-name", "exact"]),
           cli.main(common + ["--mcmc-out-name", "stale", "--stale",
                              "--window", "64"])]
     torch.cuda.synchronize()
-    launches = dict(sk.launches)
+    launches = all_launches()
     print(f"main-path kernel launches: {json.dumps(launches)}", flush=True)
     if rc != [0, 0]:
         raise AssertionError(f"CLI exit codes {rc}")
@@ -298,8 +363,8 @@ def phase_cli(torch, np, sk, tmp):
 
 
 def phase_real_size(torch, np, sk, card):
-    from hydra_tpu.data.genotypes import (Dataset, GenotypeData,
-                                          make_default_groups)
+    from hydra_tpu_torch.data.genotypes import (Dataset, GenotypeData,
+                                                make_default_groups)
     from hydra_tpu_torch.samplers.bayesrrm import BayesRRm
     dev = torch.device("cuda")
     m, n = 100_000, 50_000
@@ -344,9 +409,7 @@ def phase_real_size(torch, np, sk, card):
 
 
 def profile_sweep(torch, sk, s, st, card):
-    """Where one sweep's time goes: host time to enqueue its launches
-    against the time to finish on the card, and device time by kernel
-    (torch.profiler; CUDA events time the whole sweep as a cross-check)."""
+    """Where one BayesRRm sweep's time goes (see profile_run)."""
     cfg = s.cfg
     dev = s.device
     active = (st.sigma_g[s.groups] > 0) & (s.valid > 0) & (s.mstd > 0)
@@ -361,6 +424,15 @@ def profile_sweep(torch, sk, s, st, card):
         return fn(s.packed, st.eps, mrow, 0.5 / st.sigma_e,
                   float(cfg.n_real - 1), **kw)
 
+    profile_run(torch, run, f"{'exact' if cfg.exact else 'stale'} "
+                f"W={cfg.window}", cfg.n_windows * (5 if cfg.exact else 3),
+                card)
+
+
+def profile_run(torch, run, label, launches, card):
+    """Host time to enqueue one sweep's launches against the time to
+    finish on the card, and device time by kernel (torch.profiler; CUDA
+    events time the whole sweep as a cross-check)."""
     run()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -380,14 +452,285 @@ def profile_sweep(torch, sk, s, st, card):
         if t > 0:
             per[e.key] = (e.count, t / 1000.0)
     busy = sum(v[1] for v in per.values())
-    launches = cfg.n_windows * (5 if cfg.exact else 3)
-    print(f"  sweep {'exact' if cfg.exact else 'stale'} W={cfg.window}: "
-          f"{launches} kernel launches; host enqueue {1e3 * (t1 - t0):.2f} ms,"
-          f" done after {1e3 * (t2 - t0):.2f} ms; CUDA events "
-          f"{ev_ms:.2f} ms/sweep; profiler device time {busy:.2f} ms "
-          f"({100.0 * busy / ev_ms:.1f}% busy)  [{card}]", flush=True)
+    print(f"  sweep {label}: {launches} kernel launches; host enqueue "
+          f"{1e3 * (t1 - t0):.2f} ms, done after {1e3 * (t2 - t0):.2f} ms; "
+          f"CUDA events {ev_ms:.2f} ms/sweep; profiler device time "
+          f"{busy:.2f} ms ({100.0 * busy / ev_ms:.1f}% busy)  [{card}]",
+          flush=True)
     for k, (cnt, ms) in sorted(per.items(), key=lambda kv: -kv[1][1])[:8]:
         print(f"    {ms:9.3f} ms  {cnt:6d} x  {k[:90]}", flush=True)
+
+
+def bw_sampler(torch, np, m, n, seed, window, missing=0.0):
+    """A BayesW sampler (block schedule, K=4, Q=25) on genotypes made on
+    the card, Weibull log-times (alpha 8, mu 4) and 10% censoring."""
+    from hydra_tpu_torch.data.genotypes import (Dataset, GenotypeData,
+                                                make_default_groups)
+    from hydra_tpu_torch.samplers.bayesw import BayesW
+    dev = torch.device("cuda")
+    n_pad = padded_individuals(np, n)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    pk, mave, mstd, nm = device_genotypes(torch, m, n, n_pad, gen, missing)
+    mave_h = mave.double().cpu().numpy()
+    mstd_h = mstd.double().cpu().numpy()
+    geno = GenotypeData(packed=np.zeros((0, n_pad // 4), np.uint8), n=n,
+                        n_pad=n_pad, m=m, mave=mave_h, mstd=mstd_h,
+                        msd=1.0 / mstd_h, n1=None, n2=None,
+                        nm=nm.cpu().numpy())
+    groups, mS = make_default_groups(m, list(MS[1:]))
+    rs = np.random.RandomState(seed)
+    y = 4.0 + (np.log(rs.exponential(1.0, n)) + EULER_MASCHERONI) / 8.0
+    fail = (rs.random_sample(n) > 0.1).astype(np.float64)
+    ds = Dataset(geno=geno, y=y, groups=groups, num_groups=1, mS=mS,
+                 fail=fail)
+    return BayesW(ds, window=window, seed=seed, quad_points=25, device=dev,
+                  packed_device=pk)
+
+
+def phase_bw_kernels(torch, np, card):
+    """The BayesW kernels against their plain versions on the card. The
+    plain versions repeat the kernels' arithmetic in their order, so the
+    outputs are compared bit for bit as well as within the sweep tolerance
+    (atol 5e-4, rtol 1e-3), and components must agree exactly."""
+    from hydra_tpu_torch.ops import sweep_kernel_bw as skbw
+    from hydra_tpu_torch.ops import window_kernels as wk
+    dev = torch.device("cuda")
+    n = 50_000
+    rec = {k: dict(err=0.0) for k in ("sweep_stale_bw", "window_level_sums",
+                                      "window_axpy")}
+    for m, window, missing in ((4096, 64, 0.0), (4096, 64, 0.02),
+                               (512, 1, 0.0)):
+        s = bw_sampler(torch, np, m, n, 11, window, missing)
+        cfg = s.cfg
+        st = s.init_state()
+        gen = torch.Generator(device=dev).manual_seed(3)
+        # a state with 20% non-zero effects and a loose pi, so that every
+        # component and the slice sampler are exercised
+        nz = torch.rand(cfg.m_loc, generator=gen, device=dev) < 0.2
+        st.beta = torch.where(nz, 0.02 * torch.randn(
+            cfg.m_loc, generator=gen, device=dev), 0.0) * s.valid
+        st.pi_l = torch.tensor([[0.5, 0.2, 0.2, 0.1]], device=dev)
+        alpha = st.alpha
+        vi = torch.exp(alpha * st.eps - EULER_MASCHERONI) * s.ind_mask
+        mrow = s.build_mrow(st, alpha, s.slot_noise(0))
+        args = (s.packed, st.eps, vi, mrow, s.gh_x, s.gh_w, alpha)
+        kw = dict(window=window, n_mix=cfg.k, complete=cfg.complete,
+                  ind_mask=s.ind_mask, order=s.sweep_order(0))
+
+        def run():
+            return skbw.sweep_stale_bw(*args, **kw)
+
+        def plain():
+            return skbw.sweep_stale_bw_ref(*args, **kw)
+
+        e0, o0 = run()                               # build + warm up
+        ms, (e1, o1) = cuda_ms(torch, run, 5)
+        plain()
+        plain_ms, (er, orf) = cuda_ms(torch, plain, 1)
+        if not (torch.equal(e0, e1) and torch.equal(o0, o1)):
+            raise AssertionError("sweep_stale_bw is not bitwise repeatable")
+        d_eps = (e1 - er).abs().max().item()
+        d_beta = (o1[:, 0] - orf[:, 0]).abs().max().item()
+        n_comp = int((o1[:, 1] != orf[:, 1]).sum().item())
+        used = torch.unique(o1[:, 1]).numel()
+        bitwise = torch.equal(e1, er) and torch.equal(o1, orf)
+        data = "missing 2%" if missing else "complete"
+        print(f"sweep_stale_bw M={m} W={window:2d} {data:10s} kernel "
+              f"{ms:9.3f} ms  plain {plain_ms:9.3f} ms  max|d eps| "
+              f"{d_eps:.3e}  max|d beta| {d_beta:.3e}  comp mismatches "
+              f"{n_comp}  components used {used}  non-zero "
+              f"{int((o1[:, 1] > 0).sum())}  bitwise equal to plain "
+              f"{bitwise}  [{card}]", flush=True)
+        torch.testing.assert_close(e1, er, atol=5e-4, rtol=1e-3)
+        torch.testing.assert_close(o1[:, 0], orf[:, 0], atol=5e-4, rtol=1e-3)
+        if n_comp:
+            raise AssertionError(f"sweep_stale_bw: {n_comp} component "
+                                 "mismatches against the plain version")
+        if used < 3:
+            raise AssertionError("sweep_stale_bw: degenerate draws")
+        r = rec["sweep_stale_bw"]
+        r["err"] = max(r["err"], d_eps, d_beta)
+        n_pad, nb = cfg.n_pad, s.packed.shape[1]
+        if window == 64 and not missing:
+            r["ms"], r["plain_ms"] = ms, plain_ms
+            # packed rows, eps, vi, mask, mrow, order, GH in; eps, out out.
+            # Ops: the two level-sum FMAs and the axpy FMA per genotype,
+            # the vi refresh per window, ~2,700 for each marker's draw
+            nbytes = (m * nb + 4 * 4 * n_pad + mrow.numel() * 4 + 4 * m
+                      + 8 * 25 + 16 * m)
+            ops = {"f32": 6.0 * m * n_pad + 4.0 * (m // window) * n_pad
+                   + 2700.0 * m}
+            r["bound_ms"], r["bound_by"] = bound(nbytes, ops)
+
+        if window != 64:
+            continue
+        # the standalone window kernels on the first window's rows
+        pk_w = s.packed[:window].contiguous()
+        c1 = 0.05 * torch.randn(window, generator=gen, device=dev)
+        c2 = -c1 * s.mave[:window]
+        complete = cfg.complete
+        for name, fn, ref, ops_per in (
+                ("window_level_sums",
+                 lambda: wk.window_level_sums(pk_w, vi, complete),
+                 lambda: wk.window_level_sums_ref(pk_w, vi, complete),
+                 4.0 if complete else 6.0),
+                ("window_axpy",
+                 lambda: wk.window_axpy(pk_w, c1, c2, complete),
+                 lambda: wk.window_axpy_ref(pk_w, c1, c2, complete),
+                 2.0 if complete else 4.0)):
+            k0 = fn()
+            kms, k1 = cuda_ms(torch, fn, 20)
+            ref()
+            pms, p1 = cuda_ms(torch, ref, 1)
+            k0, k1, p1 = ([t for t in x if t is not None]
+                          if isinstance(x, tuple) else [x]
+                          for x in (k0, k1, p1))
+            if not all(torch.equal(a, b) for a, b in zip(k0, k1)):
+                raise AssertionError(f"{name} is not bitwise repeatable")
+            err = max((a - b).abs().max().item() for a, b in zip(k1, p1))
+            bitwise = all(torch.equal(a, b) for a, b in zip(k1, p1))
+            print(f"{name:17s} W={window} {data:10s} kernel {kms:8.4f} ms  "
+                  f"plain {pms:9.3f} ms  max|diff| {err:.3e}  bitwise equal "
+                  f"to plain {bitwise}  [{card}]", flush=True)
+            for a, b in zip(k1, p1):
+                torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+            r = rec[name]
+            r["err"] = max(r["err"], err)
+            if complete:
+                r["ms"], r["plain_ms"] = kms, pms
+                # packed rows plus vi in, 3 sums out; or packed rows plus
+                # c1, c2 in, d eps out
+                nbytes = window * nb + (16 * nb + 12 * window
+                                        if name == "window_level_sums"
+                                        else 8 * window + 16 * nb)
+                r["bound_ms"], r["bound_by"] = bound(
+                    nbytes, {"f32": ops_per * window * n_pad})
+        del s, st, args
+    return rec
+
+
+def phase_bw_cli(torch, np, tmp):
+    """The BayesW main path through the CLI, counted: the W=1 default and
+    --window 64; then one CUDA sweep against the CPU sampler."""
+    from hydra_tpu_torch import cli
+    from hydra_tpu_torch.options import parse_args
+    from hydra_tpu_torch.runner import dataset_from_options
+    from hydra_tpu_torch.samplers.bayesw import (BayesW, state_from_numpy,
+                                                 state_to_numpy)
+    m, n, iters = 10_000, 5_000, 20
+    base = os.path.join(tmp, "weibull_M10K_N_5K")
+    write_plink(np, base, m, n, seed=4, weibull=True)
+    common = ["--mpibayes", "bayesWMPI", "--bfile", base, "--pheno",
+              base + ".phen", "--failure", base + ".fail", "--S",
+              "0.0001,0.001,0.01", "--chain-length", str(iters), "--thin",
+              "5", "--save", "10", "--seed", "7", "--mcmc-out-dir",
+              os.path.join(tmp, "out")]
+    reset_all_launches()
+    t0 = time.perf_counter()
+    rc = [cli.main(common + ["--mcmc-out-name", "bw_w1"])]
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    rc.append(cli.main(common + ["--mcmc-out-name", "bw_w64", "--window",
+                                 "64"]))
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = all_launches()
+    print(f"main-path kernel launches: {json.dumps(launches)}; CLI wall "
+          f"W=1 {t1 - t0:.1f} s, W=64 {t2 - t1:.1f} s ({iters} iterations "
+          "each, data load included)", flush=True)
+    if rc != [0, 0]:
+        raise AssertionError(f"CLI exit codes {rc}")
+    per_window = iters * (m + m // 64 + (m % 64 > 0))
+    want = {"sweep_stale_bw": 2 * iters, "window_level_sums": per_window,
+            "window_axpy": per_window, "sweep_stale": 0, "sweep_exact": 0}
+    for name, count in want.items():
+        if launches[name] != count:
+            raise AssertionError(f"{name} launched {launches[name]} times "
+                                 f"in the BayesW run, want {count}")
+    for name in ("bw_w1", "bw_w64"):
+        a = check_outputs(np, os.path.join(tmp, "out", name), m, 4,
+                          survival=True)
+        print(f"{name}: 4 thinned records, mean alpha over the last 2 = "
+              f"{a:.3f} (simulated 8)", flush=True)
+
+    # one W=64 sweep, CUDA sampler vs CPU sampler, same state and noise
+    ds = dataset_from_options(parse_args(common + ["--window", "64"]))
+    cpu = BayesW(ds, window=64, seed=7, device="cpu")
+    gpu = BayesW(ds, window=64, seed=7, device="cuda")
+    s_cpu = cpu.init_state()
+    s_gpu = state_from_numpy(state_to_numpy(s_cpu), "cuda")
+    g = torch.Generator().manual_seed(5)
+    ml = cpu.cfg.m_loc
+    noise = dict(u=torch.rand(ml, generator=g),
+                 le=torch.empty(ml).exponential_(generator=g),
+                 ub=torch.rand(ml, generator=g),
+                 uu=torch.rand(ml, 24, generator=g),
+                 wperm=torch.randperm(cpu.cfg.n_windows, generator=g))
+    for k in ("mu", "alpha"):
+        noise[k] = (torch.empty(()).exponential_(generator=g),
+                    torch.rand((), generator=g), torch.rand(24, generator=g))
+    a, _ = cpu.step(s_cpu, 0, noise=noise)
+    b, _ = gpu.step(s_gpu, 0, noise=noise)
+    a, b = state_to_numpy(a), state_to_numpy(b)
+    d_eps = float(np.abs(a["eps"] - b["eps"]).max())
+    d_beta = float(np.abs(a["beta"] - b["beta"]).max())
+    n_comp = int((a["components"] != b["components"]).sum())
+    print(f"one BayesW W=64 sweep, CUDA vs CPU sampler: max|d eps| "
+          f"{d_eps:.3e}  max|d beta| {d_beta:.3e}  comp mismatches {n_comp}"
+          f"  d mu {float(b['mu'] - a['mu']):.3e}  d alpha "
+          f"{float(b['alpha'] - a['alpha']):.3e}", flush=True)
+    np.testing.assert_allclose(b["eps"], a["eps"], atol=5e-4, rtol=1e-3)
+    np.testing.assert_allclose(b["beta"], a["beta"], atol=5e-4, rtol=1e-3)
+    np.testing.assert_allclose(b["mu"], a["mu"], rtol=1e-5)
+    np.testing.assert_allclose(b["alpha"], a["alpha"], rtol=1e-5)
+    if n_comp:
+        raise AssertionError("component mismatches CUDA vs CPU sampler")
+    return launches
+
+
+def phase_bw_real_size(torch, np, card):
+    """BayesW W=64 at M=100,000 x N=50,000 and W=1 at M=10,000 x N=5,000:
+    ms/sweep, markers/s and where a sweep's time goes."""
+    from hydra_tpu_torch.ops import sweep_kernel_bw as skbw
+    for m, n, window, n_time in ((100_000, 50_000, 64, 10),
+                                 (10_000, 5_000, 1, 3)):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        s = bw_sampler(torch, np, m, n, 2, window)
+        torch.cuda.synchronize()
+        print(f"BayesW M={m:,} x N={n:,}: data and sampler set up in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        st = s.init_state()
+        for it in range(2):
+            st, _ = s.step(st, it)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for it in range(2, 2 + n_time):
+            st, stats = s.step(st, it)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / n_time
+        if not bool(torch.isfinite(st.eps).all()):
+            raise AssertionError("non-finite residual at real size")
+        print(f"real size BayesW M={m:,} x N={n:,} W={window} block: "
+              f"{ms:.2f} ms/sweep, {m / ms * 1e3:,.0f} markers/s ({n_time} "
+              f"sweeps after 2 warm-up), alpha {float(st.alpha):.3f}, m0 "
+              f"{int(stats.m0.sum())}, peak "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB  [{card}]",
+              flush=True)
+        cfg = s.cfg
+        alpha = st.alpha
+        vi = torch.exp(alpha * st.eps - EULER_MASCHERONI) * s.ind_mask
+        mrow = s.build_mrow(st, alpha, s.slot_noise(0))
+        kw = dict(window=window, n_mix=cfg.k, complete=cfg.complete,
+                  ind_mask=s.ind_mask, order=s.sweep_order(0))
+
+        def run():
+            return skbw.sweep_stale_bw(s.packed, st.eps, vi, mrow, s.gh_x,
+                                       s.gh_w, alpha, **kw)
+
+        profile_run(torch, run, f"BayesW W={window} M={m:,}",
+                    cfg.n_windows * 3, card)
+        del s, st, vi, mrow
 
 
 def main() -> int:
@@ -422,27 +765,53 @@ def main() -> int:
               f"{torch.cuda.get_device_name(0)}", flush=True)
         t0 = time.perf_counter()
         log = _build.build(ptxas_verbose=True)
-        _build.load()
+        libs = [_build.library_path(src) for src in _build.SOURCES]
+        for src in _build.SOURCES:
+            _build.load(src)
         print(f"kernels built in {time.perf_counter() - t0:.1f} s: "
-              f"{_build.library_path()}", flush=True)
+              f"{', '.join(libs)}", flush=True)
         for ln in log.splitlines():
-            if "registers" in ln or "spill" in ln or "Compiling" in ln:
+            if ("registers" in ln or "spill" in ln or "Compiling" in ln
+                    or ln.endswith(".cu:")):
                 print("  ptxas:", ln.strip().replace("ptxas info    : ", ""))
     with phase("2: kernels vs plain versions (M=4,096 x N=50,000)"):
         rec = phase_kernels(torch, sk, card)
+    with phase("2b: BayesW kernels vs plain versions (N=50,000)"):
+        rec.update(phase_bw_kernels(torch, np, card))
     with tempfile.TemporaryDirectory() as tmp:
-        with phase("3: CLI end to end (M=10,000 x N=5,000)"):
+        with phase("3: BayesRRm CLI end to end (M=10,000 x N=5,000)"):
             launches = phase_cli(torch, np, sk, tmp)
+        with phase("3b: BayesW CLI end to end (M=10,000 x N=5,000)"):
+            bw_launches = phase_bw_cli(torch, np, tmp)
+    for name in ("sweep_stale_bw", "window_level_sums", "window_axpy"):
+        launches[name] = bw_launches[name]
     with phase("4: real size (M=100,000 x N=50,000)"):
         phase_real_size(torch, np, sk, card)
+    with phase("4b: BayesW real size"):
+        phase_bw_real_size(torch, np, card)
 
-    src = "hydra_tpu_torch/csrc/sweep_kernel.cu"
-    kernels = [dict(name=name, route="cuda", source=src, replaces=replaces,
+    table = (
+        ("sweep_stale", "sweep_kernel.cu", "hydra_tpu/ops/sweep_kernel.py:836"),
+        ("sweep_exact", "sweep_kernel.cu", "hydra_tpu/ops/sweep_kernel.py:567"),
+        ("sweep_stale_bw", "sweep_kernel_bw.cu",
+         "hydra_tpu/ops/sweep_kernel_bw.py:330"),
+        ("window_level_sums", "sweep_kernel_bw.cu",
+         "hydra_tpu/ops/window_kernels.py:356"),
+        ("window_axpy", "sweep_kernel_bw.cu",
+         "hydra_tpu/ops/window_kernels.py:284"))
+    # library_ms is null throughout: no single PyTorch call decodes the
+    # 2-bit packed genotypes these kernels read, so none computes the same
+    # function on the same inputs
+    kernels = [dict(name=name, route="cuda",
+                    source=f"hydra_tpu_torch/csrc/{src}", replaces=replaces,
                     launches=launches[name], max_abs_err=rec[name]["err"],
-                    ms=rec[name]["ms"], plain_ms=rec[name]["plain_ms"])
-               for name, replaces in (
-                   ("sweep_stale", "hydra_tpu/ops/sweep_kernel.py:836"),
-                   ("sweep_exact", "hydra_tpu/ops/sweep_kernel.py:567"))]
+                    ms=rec[name]["ms"], plain_ms=rec[name]["plain_ms"],
+                    bound_ms=rec[name]["bound_ms"],
+                    bound_by=rec[name]["bound_by"], library_ms=None)
+               for name, src, replaces in table]
+    for k in kernels:
+        if k["launches"] <= 0:
+            raise AssertionError(f"{k['name']} never launched on the main path")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

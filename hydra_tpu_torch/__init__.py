@@ -1,20 +1,27 @@
-"""hydra_tpu_torch — BayesRRm on PyTorch + hand-written CUDA for NVIDIA Hopper.
+"""hydra_tpu_torch — BayesRRm and BayesW on PyTorch + hand-written CUDA for
+NVIDIA Hopper.
 
 The PyTorch/CUDA port of ``hydra_tpu``. The JAX package stays the reference;
 this package mirrors its module names so each counterpart is easy to find:
 
-  hydra_tpu_torch.data.genotypes   load_dataset (jax-free rebuild)
+  hydra_tpu_torch.options          the reference's CLI surface (own copy)
+  hydra_tpu_torch.io               PLINK, phenotype/failure and group readers
+  hydra_tpu_torch.data.genotypes   GenotypeData, Dataset, load_dataset
+  hydra_tpu_torch.outputs.writers  hydra-format McmcWriter
   hydra_tpu_torch.ops.decode       h-pack + plain torch decode
-  hydra_tpu_torch.ops.sweep_kernel sweep_stale / sweep_exact (CUDA kernels
-                                   in csrc/sweep_kernel.cu, plain versions
-                                   beside them)
+  hydra_tpu_torch.ops.sweep_kernel     sweep_stale / sweep_exact (BayesRRm)
+  hydra_tpu_torch.ops.sweep_kernel_bw  sweep_stale_bw (BayesW)
+  hydra_tpu_torch.ops.window_kernels   window_level_sums / window_axpy
+                                   (CUDA kernels in csrc/, plain versions
+                                   beside their wrappers)
   hydra_tpu_torch.utils.dist       torch.Generator distributions
-  hydra_tpu_torch.samplers.bayesrrm  one-device BayesRRm sampler
-  hydra_tpu_torch.runner / .cli    hydra-format chain runner and CLI
+  hydra_tpu_torch.utils.slice_sampler  fixed-budget slice sampling
+  hydra_tpu_torch.samplers.bayesrrm / .bayesw  one-device samplers
+  hydra_tpu_torch.runner / .cli    hydra-format chain runners and CLI
 
-File formats, options and readers are reused from the jax-free modules of
-``hydra_tpu`` (io, options, outputs, native, data.genotypes types). Nothing
-here imports JAX.
+Nothing here imports JAX or ``hydra_tpu``: the modules the port shares with
+the JAX package in behaviour (options, io, data, outputs) are its own
+copies, held against the originals by tests/test_torch_isolation.py.
 """
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"

@@ -1,7 +1,8 @@
 """Command-line entry point: ``python -m hydra_tpu_torch.cli <hydra flags>``.
 
-The flags are ``hydra_tpu.options``'s (the reference's). This port runs
-``--mpibayes bayesMPI`` on one device: ``--device`` empty means cuda,
+The flags are the reference's (``hydra_tpu_torch.options``). This port runs
+``--mpibayes bayesMPI`` (BayesRRm) and ``--mpibayes bayesWMPI`` (BayesW,
+with ``--failure``) on one device: ``--device`` empty means cuda,
 ``--device cpu`` runs the plain PyTorch path. Everything else raises
 NotImplementedError naming what is missing (``runner.check_supported``).
 """
@@ -10,19 +11,21 @@ from __future__ import annotations
 
 import sys
 
-from hydra_tpu.options import parse_args
+from hydra_tpu_torch.options import parse_args
 
 
 def main(argv=None) -> int:
-    from hydra_tpu_torch.runner import check_supported, run_bayesrrm
+    from hydra_tpu_torch.runner import (check_supported, run_bayesrrm,
+                                        run_bayesw)
 
     opt = parse_args(argv)
     check_supported(opt)
-    if opt.bayes_type != "bayesMPI":
+    runners = {"bayesMPI": run_bayesrrm, "bayesWMPI": run_bayesw}
+    if opt.bayes_type not in runners:
         print(f"FATAL  : Wrong analysis requested: {opt.bayes_type!r} "
-              f"(expected bayesMPI)", file=sys.stderr)
+              f"(expected bayesMPI | bayesWMPI)", file=sys.stderr)
         return 1
-    run_bayesrrm(opt)
+    runners[opt.bayes_type](opt)
     return 0
 
 

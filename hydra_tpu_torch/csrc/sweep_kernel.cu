@@ -10,7 +10,8 @@
 //   draw  : the mixture/beta draw of every marker from its mrow row
 //           (stale: all W at once; exact: the W-step sequential recurrence
 //           num_j = num0_j + sum_{k<j} dbeta_k * G_jk)
-//   axpy  : eps += sum_r c1_r * g_r + c2_r * m_r
+//   axpy  : eps += sum_r c1_r * g_r + c2_r * m_r (axpy_kernel, shared with
+//           the BayesW sweep in sweep_kernel.cuh)
 //
 // Design. On the TPU the grid (window, phase, tile) runs in order on one
 // core with eps resident in VMEM. Here blocks run in parallel and in no
@@ -31,8 +32,6 @@
 // Determinism: no float atomics. Partial sums land in per-tile scratch and
 // are reduced in a fixed order, so equal inputs give bitwise-equal outputs.
 
-#include <cuda_runtime.h>
-
 #include <cstdint>
 
 #include "sweep_kernel.cuh"
@@ -44,14 +43,7 @@ constexpr int STATS_ROWS = 8;      // rows per stats block (one per warp)
 constexpr int GRAM_TW = 32;        // Gram tile edge
 constexpr int GRAM_CB = 512;       // packed bytes per Gram chunk (partial)
 constexpr int GRAM_SB = 32;        // packed bytes per shared-memory step
-constexpr int AXPY_THREADS = 256;
 
-// stats modes
-constexpr int MODE_MISSING = 0;    // s1 = sum g*eps, s2 = sum m*eps
-constexpr int MODE_STALE_COMPLETE = 1;  // s1 = sum h*eps, s2 = sum eps
-constexpr int MODE_EXACT_COMPLETE = 2;  // s1 = sum g*eps, s2 = sum eps, v = sum g
-
-inline int cdiv(long long a, long long b) { return static_cast<int>((a + b - 1) / b); }
 
 // ---------------------------------------------------------------- stats --
 // grid (n_tiles, ceil(W / STATS_ROWS)), 256 threads. Warp = one row of the
@@ -225,14 +217,6 @@ __global__ void gram_reduce_kernel(const float* __restrict__ part, int n_chunks,
         for (int c = 0; c < n_chunks; ++c) s += part[c * ww + e];
         G[e] = s;
     }
-}
-
-// Fixed-order reduction of one row's stats partials.
-__device__ __forceinline__ float reduce_tiles(const float* part, int n_tiles,
-                                              int W, int r) {
-    float s = 0.f;
-    for (int t = 0; t < n_tiles; ++t) s += part[t * W + r];
-    return s;
 }
 
 // ----------------------------------------------------------- stale draw --
@@ -416,60 +400,6 @@ __global__ void exact_draw_kernel(const float* __restrict__ mrow, int C, int K,
     }
 }
 
-// ----------------------------------------------------------------- axpy --
-// One thread per packed byte (4 individuals): loops over the window's rows
-// and applies eps[4b + k] += d_k. Complete data multiplies by ind_mask,
-// which nulls pad individuals (h = 3 / the c2 constant on pads).
-__global__ void axpy_kernel(const uint8_t* __restrict__ pk, int nb,
-                            const int* __restrict__ order_w, int W, int mode,
-                            const float* __restrict__ coef,
-                            const float* __restrict__ mask,
-                            float* __restrict__ eps) {
-    extern __shared__ float sh[];          // c1[W], c2[W], slot[W]
-    float* s_c1 = sh;
-    float* s_c2 = sh + W;
-    int* s_slot = reinterpret_cast<int*>(sh + 2 * W);
-    for (int i = threadIdx.x; i < W; i += blockDim.x) {
-        s_c1[i] = coef[i];
-        s_c2[i] = coef[W + i];
-        s_slot[i] = order_w[i];
-    }
-    __syncthreads();
-    const int b = blockIdx.x * blockDim.x + threadIdx.x;
-    if (b >= nb) return;
-    float acc[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int r = 0; r < W; ++r) {
-        const uint32_t byte = pk[static_cast<size_t>(s_slot[r]) * nb + b];
-        const float c1 = s_c1[r];
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-            const int c = crumb(byte, k);
-            if (mode == MODE_STALE_COMPLETE) {
-                acc[k] = fmaf(c1, static_cast<float>(c), acc[k]);
-            } else if (mode == MODE_EXACT_COMPLETE) {
-                acc[k] = fmaf(c1, static_cast<float>(crumb_geno(c)), acc[k]);
-            } else {
-                acc[k] = fmaf(c1, static_cast<float>(crumb_geno(c)), acc[k]);
-                acc[k] = fmaf(s_c2[r], static_cast<float>(crumb_mask(c)), acc[k]);
-            }
-        }
-    }
-    float4* e4 = reinterpret_cast<float4*>(eps);
-    float4 e = e4[b];
-    if (mode == MODE_MISSING) {
-        e.x += acc[0]; e.y += acc[1]; e.z += acc[2]; e.w += acc[3];
-    } else {
-        const float cst = coef[2 * W];
-        const float4 m = reinterpret_cast<const float4*>(mask)[b];
-        float d[4];
-#pragma unroll
-        for (int k = 0; k < 4; ++k)
-            d[k] = mode == MODE_STALE_COMPLETE ? cst - acc[k] : acc[k] + cst;
-        e.x += d[0] * m.x; e.y += d[1] * m.y; e.z += d[2] * m.z; e.w += d[3] * m.w;
-    }
-    e4[b] = e;
-}
-
 // ------------------------------------------------------------ workspace --
 struct Workspace {
     float* part_s1;
@@ -480,8 +410,6 @@ struct Workspace {
     float* gram_part;
     size_t bytes;
 };
-
-inline size_t align256(size_t x) { return (x + 255) & ~static_cast<size_t>(255); }
 
 inline Workspace layout(void* base, int nb, int W, bool exact) {
     const size_t n_tiles = cdiv(nb, STATS_TB);
@@ -510,12 +438,6 @@ inline bool shapes_ok(int m_loc, int nb, int W, int K) {
     return W >= 1 && W <= 1024 && m_loc > 0 && m_loc % W == 0 && nb > 0 &&
            nb % 128 == 0 && K >= 2 && K <= K_MAX;
 }
-
-#define HYDRA_CHECK_LAUNCH()                          \
-    do {                                              \
-        cudaError_t e_ = cudaGetLastError();          \
-        if (e_ != cudaSuccess) return static_cast<int>(e_); \
-    } while (0)
 
 int run_sweep(bool exact, const uint8_t* pk, float* eps, const float* mrow,
               const int* order, const float* mask, const float* sc, float* out,
@@ -561,8 +483,8 @@ int run_sweep(bool exact, const uint8_t* pk, float* eps, const float* mrow,
                 sc, out, ws.coef);
         }
         HYDRA_CHECK_LAUNCH();
-        axpy_kernel<<<axpy_blocks, AXPY_THREADS, axpy_smem, stream>>>(
-            pk, nb, order_w, W, mode, ws.coef, mask, eps);
+        axpy_kernel<false><<<axpy_blocks, AXPY_THREADS, axpy_smem, stream>>>(
+            pk, nb, order_w, W, mode, ws.coef, mask, eps, nullptr, nullptr);
         HYDRA_CHECK_LAUNCH();
     }
     return 0;

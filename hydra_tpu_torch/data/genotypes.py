@@ -1,22 +1,175 @@
-"""Dataset assembly for the port: ``load_dataset`` on the reused readers.
+"""Dataset assembly: packed genotypes + phenotypes + groups, padded.
 
-Counterpart of ``hydra_tpu.data.genotypes.load_dataset`` for one process.
-The JAX version logs its load bandwidth through ``jax.process_index()`` on the
-plain ``.bed`` path and has a multi-process branch; this one does neither, so
-it runs where JAX is not installed. Types and helpers (``GenotypeData``,
-``Dataset``, ``make_default_groups``) are the reference's own.
+The port's own copy of ``hydra_tpu/data/genotypes.py`` for one process:
+read the ``.bed`` bytes, apply the missing-phenotype correction (C8,
+data.cpp:1112-1158 — drop individual columns and re-pack), compute marker
+statistics (C9, BayesRRm.cpp:1502-1508) and pad individuals so the packed
+width is a whole number of 128-byte tiles (pad codes = missing, so decoded
+planes are zero there and contribute nothing to any reduction).
+
+``GenotypeData``, ``Dataset``, ``make_default_groups``, ``shard_layout`` and
+``pad_individuals`` keep the JAX package's names and behaviour. The host
+passes use the numpy paths (``io/plink.py``); the JAX package's optional
+OpenMP helper is not loaded. ``load_dataset`` reads ``.bed`` input only, on
+one process.
 """
 
 from __future__ import annotations
 
 import time
+from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
 import numpy as np
 
-from hydra_tpu.data.genotypes import Dataset, GenotypeData, make_default_groups
-from hydra_tpu.io import plink
-from hydra_tpu.io.pheno import PhenoData
+from hydra_tpu_torch.io import plink
+from hydra_tpu_torch.io.groups import assign_blocks_to_tasks
+from hydra_tpu_torch.io.pheno import PhenoData
+
+IND_ALIGN = 512          # individuals padded to multiple of this (128 bytes packed)
+_PAD_BYTE = 0b01010101   # 4 missing codes
+
+
+def pad_individuals(n: int) -> int:
+    """Padded individual count: a multiple of IND_ALIGN whose packed width
+    NB = 128*q has a divisor k in [4, 9] (the JAX package's tiling rule,
+    ``hydra_tpu/data/genotypes.py::pad_individuals``). The port keeps it so
+    both packages lay out the same n_pad for the same data; pads are
+    missing-coded and masked everywhere, so it changes shapes only."""
+    q0 = -(-n // IND_ALIGN)
+    if q0 <= 36:
+        return q0 * IND_ALIGN
+
+    def best_k(q):
+        return max((k for k in range(4, 10) if q % k == 0), default=0)
+
+    cands = [(q, best_k(q)) for q in range(q0, q0 + 8)]
+    for q, k in cands:
+        if k >= 7:
+            return q * IND_ALIGN
+    for q, k in cands:
+        if k:
+            return q * IND_ALIGN
+    return q0 * IND_ALIGN
+
+
+def _pad_packed_columns(packed: np.ndarray, n: int, n_pad: int) -> np.ndarray:
+    """Pad individuals to n_pad with missing codes (decode to zero planes)."""
+    m, nbytes = packed.shape
+    nbytes_pad = n_pad // 4
+    out = np.full((m, nbytes_pad), _PAD_BYTE, dtype=np.uint8)
+    out[:, :nbytes] = packed
+    # Mark the tail of the last partially-used byte as missing
+    rem = n % 4
+    if rem:
+        last = n // 4
+        keep_mask = (1 << (2 * rem)) - 1
+        out[:, last] = (packed[:, last] & keep_mask) | (_PAD_BYTE & ~keep_mask & 0xFF)
+    return out
+
+
+def marker_counts(packed: np.ndarray, n: int, block_bytes: int = 1 << 24
+                  ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(n1, n2, nm) per marker over the first n individuals: genotype-1,
+    genotype-2 and missing counts, decoded a block of rows at a time so the
+    host never holds a dense (M, N) plane."""
+    m, nb = packed.shape
+    out = np.zeros((3, m), dtype=np.float64)
+    step = max(1, block_bytes // max(4 * nb, 1))
+    for r0 in range(0, m, step):
+        geno, mask = plink.decode_bed_numpy(packed[r0:r0 + step], n)
+        out[0, r0:r0 + step] = ((geno == 1.0) & (mask == 1.0)).sum(axis=1)
+        out[1, r0:r0 + step] = (geno == 2.0).sum(axis=1)
+        out[2, r0:r0 + step] = (mask == 0.0).sum(axis=1)
+    return out[0], out[1], out[2]
+
+
+@dataclass
+class GenotypeData:
+    """Packed genotypes for the full marker range."""
+    packed: np.ndarray        # (M, N_pad // 4) uint8, NA-corrected, padded
+    n: int                    # individuals after NA correction (Ntot - numNAs)
+    n_pad: int
+    m: int                    # markers (unpadded)
+    mave: np.ndarray          # (M,) per-marker mean      (BayesRRm.cpp:1503)
+    mstd: np.ndarray          # (M,) 1/sd                 (BayesRRm.cpp:1507)
+    msd: np.ndarray           # (M,) sd                   (BayesW.cpp:1220)
+    n1: np.ndarray
+    n2: np.ndarray
+    nm: np.ndarray
+    # kept for field parity with the JAX package's per-host loading; one
+    # process always holds all markers here
+    marker_offset: int = 0
+    m_tot: Optional[int] = None
+    nm_tot: Optional[float] = None
+
+    @property
+    def m_global(self) -> int:
+        return self.m if self.m_tot is None else self.m_tot
+
+    @property
+    def nm_global_sum(self) -> float:
+        return (float(np.asarray(self.nm).sum())
+                if self.nm_tot is None else self.nm_tot)
+
+    @staticmethod
+    def from_packed(packed: np.ndarray, n: int, na_indices: np.ndarray) -> "GenotypeData":
+        if len(na_indices):
+            packed = plink.remove_individuals_packed(packed, n, na_indices)
+            n = n - len(na_indices)
+        m = packed.shape[0]
+        n_pad = pad_individuals(n)
+        packed = _pad_packed_columns(packed, n, n_pad)
+        n1, n2, nm = marker_counts(packed, n)
+        dn = float(n)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            mave = (n1 + 2.0 * n2) / (dn - nm)
+            var = (
+                n1 * (1.0 - mave) ** 2
+                + n2 * (2.0 - mave) ** 2
+                + (dn - n1 - n2 - nm) * mave**2
+            )
+            mstd = np.sqrt((dn - 1.0) / var)
+            msd = np.sqrt(var / (dn - 1.0))
+        # Monomorphic markers have undefined std in the reference; disable them
+        # cleanly here (zero weight) instead of propagating inf.
+        bad = ~np.isfinite(mstd)
+        mave[bad] = 0.0
+        mstd[bad] = 0.0
+        msd[bad] = 0.0
+        return GenotypeData(packed, n, n_pad, m, mave, mstd, msd, n1, n2, nm)
+
+
+@dataclass
+class Dataset:
+    geno: GenotypeData
+    y: np.ndarray                       # (N,) phenotype, NA-compacted (not yet scaled)
+    groups: np.ndarray                  # (M,) int32 marker -> group
+    num_groups: int
+    mS: np.ndarray                      # (G, K) mixture grid incl. 0.0 column
+    fail: Optional[np.ndarray] = None   # (N,) failure indicators (BayesW)
+    X: Optional[np.ndarray] = None      # (N, F) covariates
+    priors: Optional[np.ndarray] = None     # (G, 2) sigmaG (v0, s0) priors
+    d_priors: Optional[np.ndarray] = None   # (G, K) Dirichlet priors
+    num_nas: int = 0
+    blocks: Optional[Tuple[np.ndarray, np.ndarray]] = None  # custom shard blocks
+
+    @property
+    def n(self) -> int:
+        return self.geno.n
+
+    @property
+    def m(self) -> int:
+        return self.geno.m_global
+
+
+def make_default_groups(m: int, S: List[float]) -> Tuple[np.ndarray, np.ndarray]:
+    """Single group 0 with the --S grid, 0.0 prepended (BayesRRm.cpp:984-996)."""
+    groups = np.zeros(m, dtype=np.int32)
+    mS = np.asarray([[0.0] + list(S)], dtype=np.float64)
+    if any(s <= 0.0 for s in S):
+        raise ValueError("mixture value can only be strictly positive")
+    return groups, mS
 
 
 def load_dataset(
@@ -34,8 +187,8 @@ def load_dataset(
     """Read a PLINK trio and assemble a Dataset (main.cpp:60-136, .bed only).
 
     Missing-phenotype individuals are dropped and re-packed, marker
-    statistics computed and individuals padded exactly as the reference
-    package does (``GenotypeData.from_packed``)."""
+    statistics computed and individuals padded exactly as the JAX package
+    does (``GenotypeData.from_packed``)."""
     if not bed_basename:
         raise ValueError("a .bed basename is required")
     if n == 0 or m == 0:
@@ -69,3 +222,26 @@ def load_dataset(
         num_nas=pheno.num_nas,
         blocks=blocks,
     )
+
+
+def shard_layout(
+    mtot: int, n_dev: int, window: int,
+    blocks: Optional[Tuple[np.ndarray, np.ndarray]] = None,
+) -> Tuple[np.ndarray, np.ndarray, int]:
+    """Compute (starts, lengths, m_loc_pad) for marker sharding.
+
+    Equal split like mpi_define_blocks_of_markers (BayesRRm.cpp:396-413), or a
+    user block file (mpi_assign_blocks_to_tasks :781-827). Every shard is
+    padded to the same m_loc_pad = ceil(max_len / window) * window so the
+    windowed sweep is uniform (pad slots contribute zero deltas, mirroring
+    BayesRRm.cpp:2029-2034).
+    """
+    if blocks is not None:
+        starts, lengths = assign_blocks_to_tasks(
+            len(blocks[0]), blocks[0], blocks[1], mtot, n_dev
+        )
+    else:
+        starts, lengths = assign_blocks_to_tasks(0, None, None, mtot, n_dev)
+    max_len = int(lengths.max())
+    m_loc_pad = ((max_len + window - 1) // window) * window
+    return starts, lengths, m_loc_pad

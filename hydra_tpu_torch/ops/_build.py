@@ -1,9 +1,10 @@
-"""Build and load the CUDA sweep kernels (``csrc/*.cu``) with nvcc + ctypes.
+"""Build and load the CUDA kernels (``csrc/*.cu``) with nvcc + ctypes.
 
-The sources compile at first use into ``hydra_tpu_torch/_build/`` (listed in
-``.gitignore``) as a shared library with a plain C interface, named by the
-hash of the sources, so an edit rebuilds and an unchanged tree reuses the
-library. Nothing here runs at import time.
+Each source compiles at first use into its own shared library with a plain
+C interface under ``hydra_tpu_torch/_build/`` (listed in ``.gitignore``),
+named by the hash of the source, the shared header and the flags, so an
+edit rebuilds and an unchanged tree reuses the library. ``build`` starts
+one nvcc per source at once. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -14,18 +15,39 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Optional
+from typing import Dict
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("sweep_kernel.cu",)
 HEADERS = ("sweep_kernel.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
+# source -> its own extra flags. The BayesW draw follows the plain PyTorch
+# version operation by operation, so that file forbids contraction into FMA.
+SOURCES = {"sweep_kernel.cu": (), "sweep_kernel_bw.cu": ("-fmad=false",)}
+
+_p, _i = ctypes.c_void_p, ctypes.c_int
+# C entry point -> (argtypes, restype)
+_SIGNATURES = {
+    "sweep_kernel.cu": {
+        "hydra_sweep_stale": ([_p] * 8 + [_i] * 5 + [_p], _i),
+        "hydra_sweep_exact": ([_p] * 8 + [_i] * 5 + [_p], _i),
+        "hydra_sweep_workspace_bytes": ([_i] * 3, ctypes.c_longlong),
+        "hydra_sweep_error_string": ([_i], ctypes.c_char_p),
+    },
+    "sweep_kernel_bw.cu": {
+        "hydra_sweep_stale_bw": ([_p] * 8 + [_i] + [_p] * 3 + [_i] * 7 + [_p],
+                                 _i),
+        "hydra_window_level_sums": ([_p] * 7 + [_i] * 3 + [_p], _i),
+        "hydra_window_axpy": ([_p] * 4 + [_i] * 3 + [_p], _i),
+        "hydra_bw_workspace_bytes": ([_i] * 2, ctypes.c_longlong),
+        "hydra_bw_error_string": ([_i], ctypes.c_char_p),
+    },
+}
 
 _lock = threading.Lock()
-_lib: Optional[ctypes.CDLL] = None
+_libs: Dict[str, ctypes.CDLL] = {}
 
 
 def _nvcc() -> str:
@@ -34,50 +56,64 @@ def _nvcc() -> str:
         if cand and os.path.isfile(cand):
             return cand
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH); "
-                       "the CUDA sweep kernels are built from csrc/ at first use")
+                       "the CUDA kernels are built from csrc/ at first use")
 
 
-def library_path() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES + HEADERS:
+def _flags(source: str):
+    return NVCC_FLAGS + SOURCES[source]
+
+
+def library_path(source: str) -> str:
+    h = hashlib.sha256(" ".join(_flags(source)).encode())
+    for name in (source,) + HEADERS:
         with open(os.path.join(CSRC, name), "rb") as fh:
             h.update(name.encode() + fh.read())
-    return os.path.join(BUILD_DIR, f"libhydra_sweep_{h.hexdigest()[:16]}.so")
+    stem = os.path.splitext(source)[0]
+    return os.path.join(BUILD_DIR, f"libhydra_{stem}_{h.hexdigest()[:16]}.so")
 
 
 def build(ptxas_verbose: bool = False) -> str:
-    """Compile the kernels unless a library for these sources exists.
+    """Compile every source whose library is missing, one nvcc per source,
+    all started together.
 
-    Returns the compiler's stderr (with ``-Xptxas -v``: registers, shared
-    memory and spills per kernel) or "" when the cached library was used."""
-    path = library_path()
-    if os.path.exists(path):
-        return ""
+    Returns the compilers' stderr (with ``-Xptxas -v``: registers, shared
+    memory and spills per kernel); "" when every library was cached."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if ptxas_verbose else []),
-           "-o", tmp, *(os.path.join(CSRC, s) for s in SOURCES)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    os.replace(tmp, path)
-    return res.stderr
+    jobs = []
+    for source in SOURCES:
+        path = library_path(source)
+        if os.path.exists(path):
+            continue
+        tmp = f"{path}.{os.getpid()}.tmp"
+        cmd = [_nvcc(), *_flags(source),
+               *(["-Xptxas", "-v"] if ptxas_verbose else []),
+               "-o", tmp, os.path.join(CSRC, source)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+        jobs.append((source, path, tmp, proc))
+    logs, failed = [], []
+    for source, path, tmp, proc in jobs:
+        _, err = proc.communicate()
+        logs.append(f"{source}:\n{err}")
+        if proc.returncode != 0:
+            failed.append(f"nvcc {source} failed ({proc.returncode}):\n{err}")
+        else:
+            os.replace(tmp, path)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return "\n".join(logs)
 
 
-def load() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
-    global _lib
+def load(source: str = "sweep_kernel.cu") -> ctypes.CDLL:
+    """The loaded kernel library of one source (all are built on the first
+    call)."""
     with _lock:
-        if _lib is None:
+        if source not in _libs:
             build()
-            lib = ctypes.CDLL(library_path())
-            p, i = ctypes.c_void_p, ctypes.c_int
-            for fn in (lib.hydra_sweep_stale, lib.hydra_sweep_exact):
-                fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, p]
-                fn.restype = i
-            lib.hydra_sweep_workspace_bytes.argtypes = [i, i, i]
-            lib.hydra_sweep_workspace_bytes.restype = ctypes.c_longlong
-            lib.hydra_sweep_error_string.argtypes = [i]
-            lib.hydra_sweep_error_string.restype = ctypes.c_char_p
-            _lib = lib
-        return _lib
+            lib = ctypes.CDLL(library_path(source))
+            for name, (argtypes, restype) in _SIGNATURES[source].items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = restype
+            _libs[source] = lib
+        return _libs[source]

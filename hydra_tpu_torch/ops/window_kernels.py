@@ -1,0 +1,228 @@
+"""BayesW per-window passes: level sums and the residual axpy.
+
+Port of ``hydra_tpu/ops/window_kernels.py``'s ``window_level_sums`` and
+``window_axpy``. Both take the window's packed rows (W, NB) uint8
+(h-packed, ``ops/decode.py``) and work in individual order: vi, the
+residual and dε are (4*NB,) f32 with crumb k of byte b at 4b + k (no
+plane-major layout).
+
+  window_level_sums(pk, vi) -> (s1, s2, sb): sum_{g=1} vi, sum_{g=2} vi and
+      the mask dot sum_{g not missing} vi per marker (partial_sum,
+      BayesW.cpp:49-65); complete data returns sb = None (the caller uses
+      sum(vi), which is zero on pads).
+  window_axpy(pk, c1, c2) -> dε = sum_m c1_m G_m + c2_m M_m; complete data
+      returns only the genotype part (the caller adds sum(c2) and masks):
+          d_eps = (window_axpy(..., complete=True) + c2.sum()) * ind_mask
+
+For CUDA tensors the wrappers launch the kernels of
+``csrc/sweep_kernel_bw.cu`` (``levels_kernel``, the shared
+``axpy_kernel``); for CPU tensors they run the plain versions
+``window_level_sums_ref`` / ``window_axpy_ref``. The same CUDA kernels run
+inside every window of ``sweep_stale_bw``, and ``launches`` counts them
+there as well.
+
+The plain versions add in the kernels' order: the level sums per 512-byte
+tile, each of its 32 lanes sequentially over its words, then the warp's
+xor butterfly and the tiles in order; the axpy row by row. BayesW's
+component and slice decisions are discontinuous in these sums over N, so
+on the card the plain version and the kernel then agree bit for bit
+instead of within a rounding tolerance.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from hydra_tpu_torch.ops.decode import crumbs
+
+f32 = torch.float32
+LEVELS_TB = 512        # packed bytes per levels tile (csrc/sweep_kernel_bw.cu)
+_LANES = 32
+_WORD_STEPS = LEVELS_TB // 4 // _LANES    # 32-bit words per lane per tile
+
+# Kernel launches per name: one per standalone wrapper call, plus one per
+# window of each sweep_stale_bw call (the sweep launches the same kernels).
+launches = {"window_level_sums": 0, "window_axpy": 0}
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+def _check(pk: torch.Tensor, vec: torch.Tensor, name: str) -> None:
+    if pk.dtype != torch.uint8 or pk.dim() != 2:
+        raise ValueError(f"pk must be (W, NB) uint8, got {pk.dtype} "
+                         f"{tuple(pk.shape)}")
+    nb = pk.shape[1]
+    if vec.dtype != f32 or tuple(vec.shape) != (4 * nb,):
+        raise ValueError(f"{name} must be ({4 * nb},) float32, got "
+                         f"{vec.dtype} {tuple(vec.shape)}")
+
+
+def seq_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last dim, left to right (a kernel's serial loop)."""
+    s = x[..., 0]
+    for i in range(1, x.shape[-1]):
+        s = s + x[..., i]
+    return s
+
+
+def tile_sums(x: torch.Tensor) -> torch.Tensor:
+    """(..., 4*NB) -> (..., n_tiles): per-tile sums in levels_kernel's
+    order. Tile t holds words 128t..128t+127 (16 individuals each); lane l
+    adds its words 128t + l + 32j (j = 0..3) crumb by crumb, then the warp
+    combines lanes by the xor butterfly. Zero padding to whole tiles adds
+    exact zeros."""
+    n = x.shape[-1]
+    per_tile = 4 * LEVELS_TB
+    n_tiles = -(-n // per_tile)
+    x = torch.nn.functional.pad(x, (0, n_tiles * per_tile - n))
+    x = x.reshape(*x.shape[:-1], n_tiles, _WORD_STEPS, _LANES, 16)
+    x = x.movedim(-2, -3)                       # (..., t, lane, j, crumb)
+    acc = seq_sum(x.reshape(*x.shape[:-2], _WORD_STEPS * 16))
+    lane = torch.arange(_LANES, device=x.device)
+    for off in (16, 8, 4, 2, 1):
+        acc = acc + acc[..., lane ^ off]
+    return acc[..., 0]
+
+
+def level_partials(pk: torch.Tensor, vi: torch.Tensor, complete: bool):
+    """Per-tile partials (W, n_tiles) of s1, s2, the mask dot (None when
+    complete) and (n_tiles,) of sum(vi), as levels_kernel writes them.
+    Complete data uses the h-decode indicators i1 = h(2-h),
+    i2 = (1-h)(1-h/2) (pads, h = 3, must meet vi == 0); missing data
+    decodes g, m with i1 = g(2-g), i2 = g(g-1)/2."""
+    c = crumbs(pk)
+    if complete:
+        i1, i2, m = c * (2 - c), ((1 - c) * (2 - c)) // 2, None
+    else:
+        m = 1 - ((c + 1) >> 2)
+        g = (2 - c) * m
+        i1, i2 = g * (2 - g), (g * (g - 1)) // 2
+    planes = [i1, i2] + ([] if complete else [m])
+    parts = tile_sums(torch.stack(planes).to(f32) * vi)
+    return (parts[0], parts[1], None if complete else parts[2],
+            tile_sums(vi))
+
+
+def window_level_sums_ref(pk: torch.Tensor, vi: torch.Tensor,
+                          complete: bool = False
+                          ) -> Tuple[torch.Tensor, torch.Tensor,
+                                     Optional[torch.Tensor]]:
+    """Plain PyTorch level sums (same contract as ``window_level_sums``)."""
+    _check(pk, vi, "vi")
+    p1, p2, pb, _ = level_partials(pk, vi, complete)
+    return seq_sum(p1), seq_sum(p2), (None if complete else seq_sum(pb))
+
+
+def axpy_rows(pk: torch.Tensor, c1: torch.Tensor, c2: torch.Tensor,
+              complete: bool) -> torch.Tensor:
+    """axpy_kernel's accumulator (4*NB,), row by row: complete data
+    sum c1*h, missing data sum c1*g + c2*m (products of c by 0, 1 or 2 are
+    exact, so each step rounds once as the kernel's fmaf does)."""
+    c = crumbs(pk).to(f32)
+    acc = torch.zeros(c.shape[1], dtype=f32, device=pk.device)
+    if complete:
+        for r in range(c.shape[0]):
+            acc = acc + c1[r] * c[r]
+        return acc
+    m = 1.0 - (c == 3.0).to(f32)
+    g = (2.0 - c) * m
+    for r in range(c.shape[0]):
+        acc = acc + c1[r] * g[r]
+        acc = acc + c2[r] * m[r]
+    return acc
+
+
+def window_axpy_ref(pk: torch.Tensor, c1: torch.Tensor, c2: torch.Tensor,
+                    complete: bool = False) -> torch.Tensor:
+    """Plain PyTorch axpy (same contract as ``window_axpy``)."""
+    acc = axpy_rows(pk, c1, c2, complete)
+    # h-decode: sum c1*g = 2*sum(c1) - sum c1*h
+    return 2.0 * c1.sum() - acc if complete else acc
+
+
+def _on_card(pk: torch.Tensor, what: str) -> None:
+    if pk.device.type != "cuda":
+        raise ValueError(f"no {what} kernel for device {pk.device}")
+    if pk.shape[1] % 128:
+        raise ValueError(f"packed width {pk.shape[1]} is not a multiple of "
+                         "128 bytes (individuals pad to 512)")
+    if not 1 <= pk.shape[0] <= 1024:
+        raise ValueError(f"the CUDA kernels take 1..1024 rows, got "
+                         f"{pk.shape[0]}")
+    if not pk.is_contiguous():
+        raise ValueError("pk must be contiguous")
+
+
+def _raise(lib, what, err):
+    raise RuntimeError(f"{what} kernel launch failed: "
+                       f"{lib.hydra_bw_error_string(err).decode()}")
+
+
+def window_level_sums(pk: torch.Tensor, vi: torch.Tensor,
+                      complete: bool = False):
+    """(s1, s2, sb) per window marker: the CUDA kernel on CUDA tensors, the
+    plain version on CPU tensors."""
+    _check(pk, vi, "vi")
+    if pk.device.type == "cpu":
+        return window_level_sums_ref(pk, vi, complete)
+    _on_card(pk, "window_level_sums")
+    from hydra_tpu_torch.ops import _build
+
+    dev = pk.device
+    if vi.device != dev or not vi.is_contiguous():
+        raise ValueError(f"vi must be contiguous and on {dev}")
+    lib = _build.load("sweep_kernel_bw.cu")
+    W, nb = pk.shape
+    order = torch.arange(W, dtype=torch.int32, device=dev)
+    out = torch.empty((3, W), dtype=f32, device=dev)
+    ws = torch.empty(lib.hydra_bw_workspace_bytes(nb, W), dtype=torch.uint8,
+                     device=dev)
+    with torch.cuda.device(dev):
+        err = lib.hydra_window_level_sums(
+            pk.data_ptr(), vi.data_ptr(), order.data_ptr(), out[0].data_ptr(),
+            out[1].data_ptr(), out[2].data_ptr(), ws.data_ptr(), W, nb,
+            int(complete), torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        _raise(lib, "window_level_sums", err)
+    launches["window_level_sums"] += 1
+    return out[0], out[1], (None if complete else out[2])
+
+
+def window_axpy(pk: torch.Tensor, c1: torch.Tensor, c2: torch.Tensor,
+                complete: bool = False) -> torch.Tensor:
+    """dε (4*NB,): the CUDA kernel on CUDA tensors, the plain version on
+    CPU tensors."""
+    if pk.dtype != torch.uint8 or pk.dim() != 2:
+        raise ValueError(f"pk must be (W, NB) uint8, got {pk.dtype} "
+                         f"{tuple(pk.shape)}")
+    W = pk.shape[0]
+    for name, c in (("c1", c1), ("c2", c2)):
+        if c.dtype != f32 or tuple(c.shape) != (W,):
+            raise ValueError(f"{name} must be ({W},) float32, got {c.dtype} "
+                             f"{tuple(c.shape)}")
+    if pk.device.type == "cpu":
+        return window_axpy_ref(pk, c1, c2, complete)
+    _on_card(pk, "window_axpy")
+    from hydra_tpu_torch.ops import _build
+
+    dev = pk.device
+    if c1.device != dev or c2.device != dev:
+        raise ValueError(f"c1 and c2 must be on {dev}")
+    lib = _build.load("sweep_kernel_bw.cu")
+    nb = pk.shape[1]
+    order = torch.arange(W, dtype=torch.int32, device=dev)
+    coef = torch.cat([c1, c2, (2.0 * c1.sum()).reshape(1)]).contiguous()
+    out = torch.zeros(4 * nb, dtype=f32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.hydra_window_axpy(
+            pk.data_ptr(), order.data_ptr(), coef.data_ptr(), out.data_ptr(),
+            W, nb, int(complete), torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        _raise(lib, "window_axpy", err)
+    launches["window_axpy"] += 1
+    return out

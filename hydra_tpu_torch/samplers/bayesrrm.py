@@ -30,8 +30,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from hydra_tpu.data.genotypes import Dataset, shard_layout
-from hydra_tpu.io.pheno import center_and_scale
+from hydra_tpu_torch.data.genotypes import Dataset, shard_layout
+from hydra_tpu_torch.io.pheno import center_and_scale
 from hydra_tpu_torch.ops.decode import hpack_bytes
 from hydra_tpu_torch.ops.sweep_kernel import (K_MAX, W_MAX, block_order,
                                               mrow_width, sweep_exact,

@@ -1,0 +1,474 @@
+"""BayesW on one device: Weibull survival-model Gibbs sampler.
+
+Port of ``hydra_tpu/samplers/bayesw.py`` (reference BayesW::runMpiGibbs_bW,
+src/BayesW.cpp:905-2151) for one device, no covariates: log-time phenotype
+y, failure indicators, Weibull shape alpha, spike + Gaussian-mixture marker
+effects whose marginal likelihoods come from adaptive Gauss-Hermite
+quadrature. A sweep is
+
+  mu slice draw -> alpha slice draw -> vi refresh -> per-slot noise ->
+  mrow build -> one sweep_stale_bw call over all windows -> cass ->
+  sigmaG, pi draws
+
+with everything per marker kept in SLOT order. W = 1 is exact sequential
+BayesW; W > 1 runs the reference's stale windows (--sync-rate). The
+"block" schedule (the port's ``auto``) keeps the JAX sampler's one-time
+marker -> slot permutation (same RandomState seed, so ``slot_to_marker``
+matches) and shuffles whole windows each sweep; "marker" shuffles every
+slot each sweep.
+
+Randomness is counter-based: one ``torch.Generator`` per (seed, iteration,
+site) with the JAX sampler's site ids, and the per-slot draws (component
+uniform, slice exponential, bracket and shrink uniforms) are made over all
+slots and indexed by slot. ``step(..., noise=...)`` takes them from the
+caller instead, which is how the tests hold one sweep against the JAX
+sampler. The densities use the expm1 form of the JAX sampler's module
+docstring.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from hydra_tpu_torch.data.genotypes import Dataset, shard_layout
+from hydra_tpu_torch.ops.decode import crumbs, hpack_bytes
+from hydra_tpu_torch.ops.sweep_kernel import K_MAX, W_MAX, block_order
+from hydra_tpu_torch.ops.sweep_kernel_bw import (EULER_MASCHERONI, Q_MAX,
+                                                 bw_mrow_width,
+                                                 sweep_stale_bw)
+from hydra_tpu_torch.samplers.bayesrrm import resolve_device
+from hydra_tpu_torch.utils import dist
+from hydra_tpu_torch.utils.slice_sampler import (N_SHRINK, slice_noise,
+                                                 slice_sample,
+                                                 slice_sample_noise)
+
+f32 = torch.float32
+SQRT_PI = 1.77245385090552
+
+# priors (BayesW.hpp:85-89)
+ALPHA_0 = 0.01
+KAPPA_0 = 0.01
+SIGMA_MU = 100.0
+ALPHA_SIGMA = 1.0
+BETA_SIGMA = 0.0001
+
+# RNG site ids, as in the JAX sampler (hydra_tpu/samplers/bayesw.py:69-70)
+_S_MU, _S_ALPHA, _S_MARKER, _S_SIGMAG, _S_PI, _S_PERM = 0, 1, 2, 3, 4, 5
+
+
+def gh_table(n: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Gauss-Hermite nodes and *adjusted* weights w~ = w exp(x^2): the
+    reference's hard-coded tables for n in {3..25} (BayesW.cpp:174-712)."""
+    x, w = np.polynomial.hermite.hermgauss(n)
+    return x, w * np.exp(x * x)
+
+
+@dataclass(frozen=True)
+class BayesWConfig:
+    n_real: int
+    n_pad: int
+    m_tot: int
+    m_loc: int
+    window: int
+    k: int                    # mixtures incl. zero component
+    num_groups: int
+    quad_n: int
+    shuffle: bool
+    schedule: str             # "block" | "marker"
+    complete: bool            # no missing genotypes among real individuals
+
+    @property
+    def n_windows(self) -> int:
+        return self.m_loc // self.window
+
+
+@dataclass
+class BayesWState:
+    eps: torch.Tensor          # (n_pad,) residual y - mu - X beta
+    beta: torch.Tensor         # (m_loc,) per slot
+    components: torch.Tensor   # (m_loc,) int32 per slot
+    mu: torch.Tensor           # ()
+    alpha: torch.Tensor        # () Weibull shape
+    sigma_g: torch.Tensor      # (G,)
+    pi_l: torch.Tensor         # (G, K)
+    gamma: torch.Tensor        # (0,) fixed effects (covariates not ported)
+
+
+STATE_FIELDS = tuple(f.name for f in dataclasses.fields(BayesWState))
+
+
+@dataclass
+class BayesWStats:
+    m0: torch.Tensor           # (G,)
+    cass: torch.Tensor         # (G, K)
+    beta_sqn: torch.Tensor     # (G,)
+
+
+def state_from_numpy(x, device) -> BayesWState:
+    """A state from numpy arrays: a JAX ``BayesWState`` converted with
+    ``np.asarray`` per field, or a dict with the same field names."""
+    get = x.get if isinstance(x, dict) else (lambda k: getattr(x, k))
+    out = {}
+    for name in STATE_FIELDS:
+        dt = torch.int32 if name == "components" else f32
+        out[name] = torch.as_tensor(np.array(get(name)), dtype=dt,
+                                    device=device)
+    return BayesWState(**out)
+
+
+def state_to_numpy(state: BayesWState) -> dict:
+    """Field name -> numpy array (the JAX state's names and dtypes)."""
+    return {name: getattr(state, name).cpu().numpy() for name in STATE_FIELDS}
+
+
+class BayesW:
+    """Data layout, state init and the Gibbs sweep on one device."""
+
+    def __init__(self, dataset: Dataset, *, window: int = 1,
+                 shuffle: bool = True, seed: int = 0, quad_points: int = 25,
+                 schedule: str = "auto", device="cuda",
+                 packed_device: Optional[torch.Tensor] = None):
+        """packed_device: the genotypes already h-packed on the device,
+        (M, NB) uint8 in marker order, for data generated there; then
+        ``dataset.geno`` supplies only n, n_pad and the marker statistics."""
+        if dataset.fail is None:
+            raise ValueError("BayesW requires failure indicators (--failure)")
+        if dataset.X is not None:
+            raise NotImplementedError("covariates with BayesW are not ported")
+        self.ds = dataset
+        self.seed = int(seed)
+        self.device = (device if isinstance(device, torch.device)
+                       else resolve_device(device))
+        geno = dataset.geno
+        K = int(dataset.mS.shape[1])
+        if not 1 <= window <= W_MAX:
+            raise ValueError(f"--window {window}: BayesW takes 1..{W_MAX}")
+        if not 2 <= K <= K_MAX:
+            raise ValueError(f"{K} mixture components: BayesW takes "
+                             f"2..{K_MAX}")
+        if not 1 <= quad_points <= Q_MAX:
+            raise ValueError(f"--quad_points {quad_points}: takes 1..{Q_MAX}")
+        if schedule not in ("auto", "marker", "block"):
+            raise ValueError(f"schedule must be auto/marker/block, "
+                             f"got {schedule!r}")
+        # the whole-sweep kernel hosts every schedule on every device, so
+        # auto is block regardless of the device
+        schedule = "block" if schedule == "auto" else schedule
+        if schedule == "block":
+            print("INFO   : BayesW block schedule (the whole-sweep kernel "
+                  "reads windows in place; --schedule marker restores the "
+                  "per-sweep marker shuffle)", flush=True)
+        starts, lengths, m_loc = shard_layout(geno.m_global, 1, window,
+                                              dataset.blocks)
+        self.cfg = cfg = BayesWConfig(
+            n_real=geno.n, n_pad=geno.n_pad, m_tot=geno.m_global, m_loc=m_loc,
+            window=window, k=K, num_groups=dataset.num_groups,
+            quad_n=quad_points, shuffle=shuffle, schedule=schedule,
+            complete=bool(geno.nm_global_sum == 0))
+        nb = (geno.packed if packed_device is None else packed_device).shape[1]
+        if self.device.type == "cuda":
+            self._check_memory(nb)
+
+        # ---- slot layout: slot = marker, then the block setup permutation
+        s, ln = int(starts[0]), int(lengths[0])
+        groups_g = np.zeros(m_loc, dtype=np.int32)
+        mave_g = np.zeros(m_loc, dtype=np.float64)
+        msd_g = np.zeros(m_loc, dtype=np.float64)
+        valid_g = np.zeros(m_loc, dtype=np.float32)
+        slot_to_marker = np.full(m_loc, -1, dtype=np.int64)
+        mave_g[:ln] = geno.mave[s:s + ln]
+        msd_g[:ln] = geno.msd[s:s + ln]
+        groups_g[:ln] = dataset.groups[s:s + ln]
+        valid_g[:ln] = 1.0
+        slot_to_marker[:ln] = np.arange(s, s + ln)
+        p = np.arange(m_loc)
+        if schedule == "block":
+            # same stream as the JAX sampler (bayesw.py:695-711)
+            rs = np.random.RandomState((self.seed ^ 0x5EED1) & 0x7FFFFFFF)
+            p = rs.permutation(m_loc)
+        groups_g, mave_g, msd_g = groups_g[p], mave_g[p], msd_g[p]
+        valid_g, slot_to_marker = valid_g[p], slot_to_marker[p]
+        self.slot_to_marker = slot_to_marker
+
+        dev = self.device
+        if packed_device is None:
+            # pad slots are all-missing: PLINK 0x55, h-packed 0xFF
+            packed_g = np.full((m_loc, nb), 0b01010101, dtype=np.uint8)
+            packed_g[:ln] = geno.packed[s:s + ln]
+            self.packed = torch.from_numpy(hpack_bytes(packed_g[p])).to(dev)
+            del packed_g
+        else:
+            rows = torch.full((m_loc, nb), 0xFF, dtype=torch.uint8,
+                              device=dev)
+            rows[:ln] = packed_device[s:s + ln]
+            self.packed = rows[torch.from_numpy(p).to(dev)]
+            del rows
+
+        G = cfg.num_groups
+        ind_mask = np.zeros(cfg.n_pad, dtype=np.float32)
+        ind_mask[:cfg.n_real] = 1.0
+        fail = np.zeros(cfg.n_pad, dtype=np.float32)
+        fail[:cfg.n_real] = dataset.fail
+
+        def put(a, dt=f32):
+            return torch.as_tensor(np.asarray(a), dtype=dt, device=dev)
+
+        self.groups = put(groups_g, torch.int64)
+        self.mave = put(mave_g)
+        self.msd = put(msd_g)
+        self.valid = put(valid_g)
+        self.ind_mask = put(ind_mask)
+        self.fail = put(fail)
+        self.sum_fail = put(self._sum_fail(mave_g, msd_g, dataset.fail))
+        self.group_onehot = (self.groups[None, :] == torch.arange(
+            G, device=dev)[:, None]).to(f32)                    # (G, m_loc)
+        # non-zero mixture values only (cVa in bW, BayesW.cpp:781-786)
+        self.cva_nz = put(dataset.mS[:, 1:])
+        self.mtot_grp = np.bincount(dataset.groups, minlength=G)
+        self.mtot = put(self.mtot_grp)
+        gh_x, gh_w = gh_table(cfg.quad_n)
+        self.gh_x, self.gh_w = put(gh_x), put(gh_w)
+        self.d_events = self.fail.sum()
+        self.dN = put(float(cfg.n_real))
+
+    def _check_memory(self, nb: int) -> None:
+        """Refuse a run whose device arrays cannot fit before allocating
+        them: packed bytes (twice while laid out), per-slot rows and the
+        residual-length vectors, against torch.cuda.mem_get_info."""
+        from hydra_tpu_torch.ops import _build
+
+        cfg = self.cfg
+        ws = _build.load("sweep_kernel_bw.cu").hydra_bw_workspace_bytes(
+            nb, cfg.window)
+        need = (2 * cfg.m_loc * nb
+                + cfg.m_loc * 4 * (bw_mrow_width(cfg.k) + 16 + cfg.num_groups)
+                + ws + 16 * cfg.n_pad * 4 + (256 << 20))
+        free, total = torch.cuda.mem_get_info(self.device)
+        if need > free:
+            raise MemoryError(
+                f"BayesW needs ~{need / 1e9:.2f} GB on {self.device} "
+                f"({cfg.m_loc} slots x {nb} packed bytes), "
+                f"{free / 1e9:.2f} GB of {total / 1e9:.2f} GB are free")
+
+    def _sum_fail(self, mave: np.ndarray, msd: np.ndarray,
+                  fail_real: np.ndarray) -> np.ndarray:
+        """Per slot (sum_{g=1} f + 2 sum_{g=2} f - mave * sum f) / sd
+        (BayesW.cpp:1222-1229), the counts taken blockwise from the device
+        rows (0/1 sums, exact in f32) and finished in float64 on the host
+        as the JAX sampler does."""
+        cfg = self.cfg
+        counts = []
+        step = max(1, (64 << 20) // (16 * self.packed.shape[1]))
+        for r0 in range(0, cfg.m_loc, step):
+            c = crumbs(self.packed[r0:r0 + step])
+            ind = torch.stack([(c == 1), (c == 0)]).to(f32)   # g = 1, g = 2
+            counts.append(ind @ self.fail)
+        s12 = torch.cat(counts, dim=1).cpu().numpy().astype(np.float64)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            out = (s12[0] + 2.0 * s12[1] - mave * fail_real.sum()) / msd
+        out[~np.isfinite(out)] = 0.0
+        return out.astype(np.float32)
+
+    # ------------------------------------------------------------------
+    def _gen(self, it: int, site: int) -> torch.Generator:
+        return dist.site_generator(self.seed, it, site, self.device)
+
+    def init_state(self) -> BayesWState:
+        """BayesW::init (BayesW.cpp:728-853)."""
+        cfg, dev = self.cfg, self.device
+        y = self.ds.y
+        mu = float(y.mean())
+        denominator = 6.0 * np.sum((y - mu) ** 2) / (len(y) - 1)
+        alpha = float(np.pi / np.sqrt(denominator))
+        G, K = cfg.num_groups, cfg.k
+        sigma_g = np.full(G, np.pi**2 / (6.0 * alpha**2) / G)
+        mtot = cfg.m_tot
+        pi_l = np.full((G, K), 1.0 / mtot)
+        pi_l[:, 0] = 0.99
+        pi_l[:, 1] = 1.0 - pi_l[:, 0] - (K - 2) / mtot
+        eps = np.zeros(cfg.n_pad, dtype=np.float32)
+        eps[:cfg.n_real] = y - mu
+        return state_from_numpy(dict(
+            eps=eps, beta=np.zeros(cfg.m_loc, np.float32),
+            components=np.zeros(cfg.m_loc, np.int32), mu=np.float32(mu),
+            alpha=np.float32(alpha), sigma_g=sigma_g.astype(np.float32),
+            pi_l=pi_l.astype(np.float32), gamma=np.zeros(0, np.float32)), dev)
+
+    # ------------------------------------------------------------------
+    def sweep_order(self, it: int, noise: Optional[dict] = None
+                    ) -> torch.Tensor:
+        """Slots in the order sweep `it` visits them (int32)."""
+        cfg, dev = self.cfg, self.device
+        noise = noise or {}
+        if not cfg.shuffle:
+            return torch.arange(cfg.m_loc, dtype=torch.int32, device=dev)
+        if cfg.schedule == "block":
+            wperm = noise.get("wperm")
+            if wperm is None:
+                wperm = torch.randperm(cfg.n_windows, device=dev,
+                                       generator=self._gen(it, _S_PERM))
+            return block_order(wperm.to(dev), cfg.window)
+        perm = noise.get("perm")
+        if perm is None:
+            perm = torch.randperm(cfg.m_loc, device=dev,
+                                  generator=self._gen(it, _S_PERM))
+        return perm.to(dev, torch.int32)
+
+    def slot_noise(self, it: int, noise: Optional[dict] = None) -> dict:
+        """Per-slot draws of sweep `it`: the component uniform "u" and the
+        slice noise "le", "ub" (m_loc,) and "uu" (m_loc, n_shrink)."""
+        noise = noise or {}
+        if all(k in noise for k in ("u", "le", "ub", "uu")):
+            return {k: noise[k].to(self.device) for k in ("u", "le", "ub",
+                                                          "uu")}
+        g = self._gen(it, _S_MARKER)
+        m = self.cfg.m_loc
+        u = torch.rand(m, generator=g, device=self.device)
+        le, ub, uu = slice_noise(g, (m,), N_SHRINK, self.device)
+        return dict(u=u, le=le, ub=ub, uu=uu.T)
+
+    def build_mrow(self, state: BayesWState, alpha: torch.Tensor,
+                   slot: dict) -> torch.Tensor:
+        """Per-slot kernel rows (sweep_kernel_bw.py column layout; the JAX
+        sampler's :474-498)."""
+        grp = self.groups
+        act = (self.valid > 0) & (self.msd > 0)
+        inv_sd = torch.where(act, 1.0 / torch.clamp(self.msd, min=1e-30), 0.0)
+        mave, bold = self.mave, state.beta
+        ab = alpha * bold
+        e0 = torch.exp(ab * (0.0 - mave) * inv_sd)
+        e1 = torch.exp(ab * (1.0 - mave) * inv_sd)
+        e2 = torch.exp(ab * (2.0 - mave) * inv_sd)
+        th0 = alpha * mave * inv_sd
+        th1 = alpha * (mave - 1.0) * inv_sd
+        th2 = alpha * (mave - 2.0) * inv_sd
+        cva = self.cva_nz[grp]                                 # (m, K-1)
+        sig = state.sigma_g[grp]
+        pj = torch.exp(torch.log(torch.clamp(state.pi_l, min=1e-30))[grp])
+        ml0 = pj[:, 0] * SQRT_PI
+        sqrt2ck = torch.sqrt(2.0 * cva * sig[:, None])
+        adc = alpha * alpha * sig[:, None] * cva
+        two_ck_sg = 2.0 * cva * torch.clamp(sig, min=1e-30)[:, None]
+        slim = 2.0 * torch.sqrt(state.sigma_g.sum() * cva)
+        cols = [mave, inv_sd, bold, slot["u"], act.to(f32), self.sum_fail,
+                th0, th1, th2, e0, e1, e2, ml0]
+        mrow = torch.cat([torch.stack(cols, dim=1), pj[:, 1:], sqrt2ck, adc,
+                          two_ck_sg, slim, slot["le"][:, None],
+                          slot["ub"][:, None], slot["uu"]], dim=1)
+        assert mrow.shape[1] == bw_mrow_width(self.cfg.k)
+        return mrow.contiguous()
+
+    def _slice(self, logf, x0, it, site, noise_key, noise, width,
+               lower=-float("inf")):
+        """One scalar slice draw, its noise from the caller or site."""
+        given = noise.get(noise_key)
+        if given is None:
+            return slice_sample(logf, x0, self._gen(it, site), width,
+                                lower=lower)
+        le, ub, uu = (t.to(self.device) for t in given)
+        return slice_sample_noise(logf, x0, le, ub, uu, width, lower=lower)
+
+    def step(self, state: BayesWState, it: int,
+             noise: Optional[dict] = None):
+        """One Gibbs sweep. `noise` (tests) may supply the slice noise
+        (le, ub, uu) of "mu" and "alpha", the per-slot "u", "le", "ub",
+        "uu" (slot_noise) and the "wperm"/"perm"."""
+        cfg = self.cfg
+        noise = noise or {}
+        mask, fail = self.ind_mask, self.fail
+        d_events = self.d_events
+        eps, alpha, mu_old = state.eps, state.alpha, state.mu
+
+        # ---- mu (mu_dens, BayesW.cpp:77-88), w0 at the current residual
+        w0 = (torch.exp(alpha * eps - EULER_MASCHERONI) * mask).sum()
+
+        def mu_logf(x):
+            return (-alpha * d_events * x
+                    - w0 * torch.expm1(-alpha * (x - mu_old))
+                    - x * x / (2.0 * SIGMA_MU))
+
+        # the location's conditional sd is ~ 1/(alpha sqrt(N))
+        mu_width = torch.clamp(2.0 / (alpha * torch.sqrt(self.dN)), min=1e-3)
+        mu = self._slice(mu_logf, mu_old, it, _S_MU, "mu", noise, mu_width)
+        eps = eps + (mu_old - mu) * mask
+
+        # ---- Weibull shape alpha (alpha_dens, BayesW.cpp:132-142)
+        vi_cur = torch.exp(alpha * eps - EULER_MASCHERONI) * mask
+        c_lin = (eps * fail).sum() - KAPPA_0
+
+        def alpha_logf(x):
+            dx = x - alpha
+            return ((ALPHA_0 + d_events - 1.0)
+                    * (torch.log(torch.clamp(x, min=1e-30)) - torch.log(alpha))
+                    + dx * c_lin
+                    - (vi_cur * torch.expm1(eps * dx)).sum())
+
+        # shape-parameter sd ~ 0.78 alpha / sqrt(n_events): bracket ~2 sd
+        alpha_width = torch.clamp(
+            1.6 * alpha / torch.sqrt(torch.clamp(d_events, min=4.0)),
+            min=1e-3)
+        alpha = self._slice(alpha_logf, alpha, it, _S_ALPHA, "alpha", noise,
+                            alpha_width, lower=1e-6)
+
+        # ---- vi (BayesW.cpp:1452-1455), schedule, per-slot noise, sweep
+        vi = torch.exp(alpha * eps - EULER_MASCHERONI) * mask
+        order = self.sweep_order(it, noise)
+        mrow = self.build_mrow(state, alpha, self.slot_noise(it, noise))
+        eps, out = sweep_stale_bw(
+            self.packed, eps.contiguous(), vi.contiguous(), mrow, self.gh_x,
+            self.gh_w, alpha, window=cfg.window, n_mix=cfg.k,
+            complete=cfg.complete, ind_mask=mask, order=order)
+        beta = out[:, 0].contiguous()
+        comps = out[:, 1].to(torch.int32)
+
+        # ---- cass over active markers (0/1 weights: exact in any order)
+        G, K = cfg.num_groups, cfg.k
+        act = ((self.valid > 0) & (self.msd > 0)).to(f32)
+        cass = torch.zeros(G * K, dtype=f32, device=self.device).index_add_(
+            0, self.groups * K + comps.to(torch.int64), act).reshape(G, K)
+        beta_sqn = (self.group_onehot * (beta * beta)[None, :]).sum(dim=1)
+
+        # ---- hypers (BayesW.cpp:1885-1905)
+        m0 = self.mtot - cass[:, 0]
+        sigma_g = dist.inv_gamma_rng(self._gen(it, _S_SIGMAG),
+                                     ALPHA_SIGMA + 0.5 * m0,
+                                     BETA_SIGMA + 0.5 * m0 * beta_sqn)
+        sigma_g = torch.where(self.mtot == 0, 0.0, sigma_g)
+        pi_l = dist.dirichlet_rng(self._gen(it, _S_PI), cass + 1.0)
+
+        new = BayesWState(eps=eps, beta=beta, components=comps, mu=mu,
+                          alpha=alpha, sigma_g=sigma_g, pi_l=pi_l,
+                          gamma=state.gamma)
+        return new, BayesWStats(m0=m0, cass=cass, beta_sqn=beta_sqn)
+
+    # ------------------------------------------------------------------
+    def to_marker_order(self, flat: np.ndarray) -> np.ndarray:
+        """Per-slot values -> reference marker order (Mtot,)."""
+        out = np.zeros(self.cfg.m_tot, dtype=flat.dtype)
+        sel = self.slot_to_marker >= 0
+        out[self.slot_to_marker[sel]] = flat[sel]
+        return out
+
+    def beta_global(self, state: BayesWState) -> np.ndarray:
+        return self.to_marker_order(
+            state.beta.cpu().numpy().astype(np.float64))
+
+    def components_global(self, state: BayesWState) -> np.ndarray:
+        return self.to_marker_order(state.components.cpu().numpy())
+
+    def run(self, n_iterations: int, state: Optional[BayesWState] = None,
+            start_iteration: int = 0, callback=None):
+        """Plain chain loop; the runner adds the output cadence."""
+        if state is None:
+            state = self.init_state()
+        stats = None
+        for it in range(start_iteration, n_iterations):
+            state, stats = self.step(state, it)
+            if callback is not None:
+                callback(it, state, stats)
+        return state, stats

@@ -1,5 +1,6 @@
-"""The port's CLI on the CPU: hydra-format outputs, a run with JAX absent,
-and NotImplementedError for every path the port does not have."""
+"""The port's CLI on the CPU: hydra-format outputs of BayesRRm and BayesW, a
+run with JAX and the JAX package absent, and NotImplementedError for every
+path the port does not have."""
 
 import os
 import subprocess
@@ -13,8 +14,11 @@ from hydra_tpu import postproc
 from hydra_tpu.outputs.restart import read_restart
 from hydra_tpu_torch import cli
 
+from tests.conftest import make_synthetic_bed
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 M, N = 200, 500
+MW, NW = 40, 400          # BayesW: the CLI default W = 1 visits markers singly
 
 
 @pytest.fixture
@@ -30,6 +34,34 @@ def bed(synthetic_bed_factory, tmp_path):
         for i in range(N):
             fh.write(f"per{i} per{i} {y[i]:.6f}\n")
     return base
+
+
+@pytest.fixture
+def bw_bed(tmp_path):
+    """Weibull log-times (alpha 8, mu 4) with 20% censoring."""
+    (tmp_path / "bw").mkdir()
+    base, geno = make_synthetic_bed(tmp_path / "bw", MW, NW, seed=6)
+    rs = np.random.RandomState(7)
+    x = (geno - geno.mean(axis=1, keepdims=True)) / geno.std(axis=1,
+                                                             keepdims=True)
+    beta = np.zeros(MW)
+    causal = rs.choice(MW, 8, replace=False)
+    beta[causal] = rs.randn(8) * 0.05
+    y = 4.0 + x.T @ beta + (np.log(rs.exponential(1.0, NW)) + 0.5772) / 8.0
+    fail = (rs.random_sample(NW) > 0.2).astype(int)
+    with open(base + ".phen", "w") as fh:
+        fh.writelines(f"per{i} per{i} {y[i]:.6f}\n" for i in range(NW))
+    with open(base + ".fail", "w") as fh:
+        fh.writelines(f"{f}\n" for f in fail)
+    return base
+
+
+def _bw_argv(base, out_dir, *extra):
+    return ["--mpibayes", "bayesWMPI", "--bfile", base, "--pheno",
+            base + ".phen", "--failure", base + ".fail", "--S",
+            "0.001,0.01,0.1", "--quad_points", "7", "--chain-length", "6",
+            "--thin", "2", "--save", "4", "--seed", "3", "--mcmc-out-dir",
+            str(out_dir), "--mcmc-out-name", "bw", *extra]
 
 
 def _argv(base, out_dir, *extra):
@@ -63,22 +95,55 @@ def test_cli_writes_hydra_outputs(bed, tmp_path, extra):
     assert np.isfinite(rd.eps).all() and len(rd.eps) == N
 
 
-def test_cli_runs_without_jax(bed, tmp_path):
-    """The card's machine has no JAX: block it before anything imports."""
+@pytest.mark.parametrize("extra", [[], ["--window", "16", "--schedule",
+                                          "marker"]])
+def test_cli_bayesw_writes_hydra_outputs(bw_bed, tmp_path, extra):
+    out = tmp_path / "out"
+    assert cli.main(["--device", "cpu", *_bw_argv(bw_bed, out, *extra)]) == 0
+    base = str(out / "bw")
+    rows = [ln.split(",") for ln in open(base + ".csv") if ln.strip()]
+    assert [int(r[0]) for r in rows] == [0, 2, 4]
+    # it, mu, sigmaG sum, alpha, h2w, m0, piRows, piCols, sigmaG[G], pi[G*K]
+    mu, alpha, h2w = (np.array([float(r[i]) for r in rows]) for i in (1, 3, 4))
+    assert np.all(np.abs(mu - 4.0) < 0.5) and np.all((alpha > 1) & (alpha < 50))
+    assert np.all((h2w >= 0) & (h2w < 1))
+    assert all(len(r) == 8 + 1 + 4 for r in rows)
+    for ext, dt in ((".bet", np.float64), (".cpn", np.int32)):
+        recs = list(postproc._read_records(base + ext, dt))
+        assert [it for it, _ in recs] == [0, 2, 4]
+        assert all(len(v) == MW and np.isfinite(v).all() for _, v in recs)
+    assert all(((c >= 0) & (c < 4)).all()
+               for _, c in postproc._read_records(base + ".cpn", np.int32))
+    raw = np.fromfile(base + ".mrk.0", np.uint32)
+    assert raw[0] == 4 and raw[1] == MW
+    assert sorted(raw[2:].view(np.int32).tolist()) == list(range(MW))
+    raw = open(base + ".eps.0", "rb").read()
+    assert np.frombuffer(raw[:8], np.uint32).tolist() == [4, NW]
+    assert np.isfinite(np.frombuffer(raw[8:], np.float64)).all()
+    assert not os.path.exists(base + ".acu")          # BayesW writes no .acu
+
+
+def test_cli_runs_without_jax(bed, bw_bed, tmp_path):
+    """The card's machine has no JAX: block it, and the JAX package, before
+    anything imports, then run BayesRRm and BayesW."""
     out = tmp_path / "nojax"
     code = ("import sys; sys.modules['jax'] = None\n"
+            "sys.modules['hydra_tpu'] = None\n"
             "from hydra_tpu_torch import cli\n"
-            f"sys.exit(cli.main({['--device', 'cpu', *_argv(bed, out)]!r}))\n")
+            f"assert cli.main({['--device', 'cpu', *_argv(bed, out)]!r}) == 0\n"
+            f"sys.exit(cli.main({['--device', 'cpu', *_bw_argv(bw_bed, out)]!r}))\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
     assert "RESULT : it   10" in res.stdout
+    assert "0. m0=" in res.stdout and "alpha=" in res.stdout
     assert len([ln for ln in open(out / "run.csv") if ln.strip()]) == 4
+    assert len([ln for ln in open(out / "bw.csv") if ln.strip()]) == 3
 
 
 @pytest.mark.parametrize("extra", [
     ["--mpibayes", "bayesFHMPI"],
-    ["--mpibayes", "bayesWMPI"],
+    ["--mpibayes", "bayesWMPI", "--restart"],
     ["--restart"],
     ["--check-RAM"],
     ["--bed-to-sparse"],

@@ -1,7 +1,8 @@
-"""Tests that need a CUDA card: the port's kernels and sampler on the card
-against their plain versions and the CPU sampler.
+"""Tests that need a CUDA card: the port's kernels and samplers (BayesRRm and
+BayesW) on the card against their plain versions and the CPU samplers.
 
-This file imports no JAX, so it also runs on a machine without it:
+This file imports neither JAX nor the JAX package, so it also runs on a
+machine without them:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
@@ -15,6 +16,8 @@ import pytest
 import torch
 
 from hydra_tpu_torch.ops import sweep_kernel as tsk
+from hydra_tpu_torch.ops import sweep_kernel_bw as tskbw
+from hydra_tpu_torch.ops import window_kernels as twk
 from hydra_tpu_torch.ops.decode import hpack_bytes
 
 K = 4
@@ -89,11 +92,12 @@ def _card():
     return torch.device("cuda")
 
 
-def _dataset(m, n, seed, missing_frac):
-    """A small simulated Dataset (complete or with missing genotypes)."""
-    from hydra_tpu.data.genotypes import Dataset, GenotypeData, \
-        make_default_groups
-    from hydra_tpu.io.plink import MISSING_CODE, bed_bytes_per_marker
+def _dataset(m, n, seed, missing_frac, weibull=False):
+    """A small simulated Dataset (complete or with missing genotypes);
+    weibull adds log-times and 20% censoring for BayesW."""
+    from hydra_tpu_torch.data.genotypes import (Dataset, GenotypeData,
+                                                make_default_groups)
+    from hydra_tpu_torch.io.plink import MISSING_CODE, bed_bytes_per_marker
     rs = np.random.RandomState(seed)
     p = rs.uniform(0.05, 0.5, (m, 1))
     geno = rs.binomial(1, p, (m, n)) + rs.binomial(1, p, (m, n))
@@ -107,6 +111,10 @@ def _dataset(m, n, seed, missing_frac):
     gd = GenotypeData.from_packed(packed.astype(np.uint8), n,
                                   np.zeros(0, np.int64))
     groups, mS = make_default_groups(m, [0.001, 0.01, 0.1])
+    if weibull:
+        y = 4.0 + (np.log(rs.exponential(1.0, n)) + 0.5772) / 8.0
+        return Dataset(geno=gd, y=y, groups=groups, num_groups=1, mS=mS,
+                       fail=(rs.random_sample(n) > 0.2).astype(np.float64))
     return Dataset(geno=gd, y=rs.randn(n), groups=groups, num_groups=1, mS=mS)
 
 
@@ -135,6 +143,102 @@ def test_cuda_sampler_sweep_matches_cpu(exact, missing_frac):
     name = "sweep_exact" if exact else "sweep_stale"
     assert tsk.launches[name] == before[name] + 1
     a, b = state_to_numpy(a), state_to_numpy(b)
+    np.testing.assert_allclose(b["eps"], a["eps"], atol=5e-4, rtol=1e-3)
+    np.testing.assert_allclose(b["beta"], a["beta"], atol=5e-4, rtol=1e-3)
+    np.testing.assert_array_equal(b["components"], a["components"])
+    np.testing.assert_array_equal(sb.cass.cpu().numpy(), sa.cass.numpy())
+
+
+def _bw_noise(cfg, seed):
+    g = torch.Generator().manual_seed(seed)
+    m = cfg.m_loc
+    noise = dict(u=torch.rand(m, generator=g),
+                 le=torch.empty(m).exponential_(generator=g),
+                 ub=torch.rand(m, generator=g),
+                 uu=torch.rand(m, 24, generator=g),
+                 wperm=torch.randperm(cfg.n_windows, generator=g))
+    for k in ("mu", "alpha"):
+        noise[k] = (torch.empty(()).exponential_(generator=g),
+                    torch.rand((), generator=g), torch.rand(24, generator=g))
+    return noise
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [1, 16])
+@pytest.mark.parametrize("missing_frac", [0.0, 0.03])
+def test_cuda_bw_sweep_matches_plain(window, missing_frac):
+    """On the card: the BayesW sweep kernel against its plain version on
+    the card from a sampler's own rows, and bitwise-repeatable."""
+    from hydra_tpu_torch.samplers.bayesw import BayesW
+    dev = _card()
+    s = BayesW(_dataset(96, 700, 4, missing_frac, weibull=True),
+               window=window, seed=3, quad_points=9, device=dev)
+    st = s.init_state()
+    st.pi_l = torch.tensor([[0.5, 0.2, 0.2, 0.1]], device=dev)
+    vi = torch.exp(st.alpha * st.eps - tskbw.EULER_MASCHERONI) * s.ind_mask
+    mrow = s.build_mrow(st, st.alpha, s.slot_noise(0))
+    args = (s.packed, st.eps, vi, mrow, s.gh_x, s.gh_w, st.alpha)
+    kw = dict(window=window, n_mix=4, complete=s.cfg.complete,
+              ind_mask=s.ind_mask, order=s.sweep_order(0))
+    e_k, o_k = tskbw.sweep_stale_bw(*args, **kw)
+    e_k2, o_k2 = tskbw.sweep_stale_bw(*args, **kw)
+    e_r, o_r = tskbw.sweep_stale_bw_ref(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(e_k, e_k2) and torch.equal(o_k, o_k2)
+    torch.testing.assert_close(e_k, e_r, atol=5e-4, rtol=1e-3)
+    torch.testing.assert_close(o_k[:, 0], o_r[:, 0], atol=5e-4, rtol=1e-3)
+    assert torch.equal(o_k[:, 1], o_r[:, 1])
+    assert int((o_k[:, 1] > 0).sum()) >= 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("missing", [False, True])
+def test_cuda_window_kernels_match_plain(missing):
+    dev = _card()
+    pk, eps, mask, _, n = make_inputs(64, 256, 9, missing, 0)
+    pk = torch.from_numpy(pk).to(dev)
+    vi = torch.from_numpy(np.abs(eps) * mask).to(dev)
+    g = torch.Generator(device=dev).manual_seed(2)
+    c1 = 0.05 * torch.randn(64, generator=g, device=dev)
+    c2 = 0.05 * torch.randn(64, generator=g, device=dev)
+    before = dict(twk.launches)
+    sums_k = twk.window_level_sums(pk, vi, not missing)
+    sums_r = twk.window_level_sums_ref(pk, vi, not missing)
+    d_k = twk.window_axpy(pk, c1, c2, not missing)
+    d_r = twk.window_axpy_ref(pk, c1, c2, not missing)
+    torch.cuda.synchronize()
+    assert twk.launches == {k: v + 1 for k, v in before.items()}
+    assert (sums_k[2] is None) == (sums_r[2] is None) == (not missing)
+    for a, b in zip(sums_k, sums_r):
+        if b is not None:
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(d_k, d_r, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [1, 32])
+def test_cuda_bw_sampler_sweep_matches_cpu(window):
+    """One BayesW sweep of the CUDA sampler against the CPU sampler from the
+    same state with the same noise; the launch counters move."""
+    from hydra_tpu_torch.samplers.bayesw import (BayesW, state_from_numpy,
+                                                 state_to_numpy)
+    dev = _card()
+    ds = _dataset(200, 600, 8, 0.02, weibull=True)
+    cpu = BayesW(ds, window=window, seed=5, quad_points=9, device="cpu")
+    gpu = BayesW(ds, window=window, seed=5, quad_points=9, device=dev)
+    s_cpu = cpu.init_state()
+    s_gpu = state_from_numpy(state_to_numpy(s_cpu), dev)
+    noise = _bw_noise(cpu.cfg, 1)
+    before = {**tskbw.launches, **twk.launches}
+    a, sa = cpu.step(s_cpu, 0, noise=noise)
+    b, sb = gpu.step(s_gpu, 0, noise=noise)
+    after = {**tskbw.launches, **twk.launches}
+    assert after["sweep_stale_bw"] == before["sweep_stale_bw"] + 1
+    for name in ("window_level_sums", "window_axpy"):
+        assert after[name] == before[name] + gpu.cfg.n_windows
+    a, b = state_to_numpy(a), state_to_numpy(b)
+    np.testing.assert_allclose(b["mu"], a["mu"], rtol=1e-5)
+    np.testing.assert_allclose(b["alpha"], a["alpha"], rtol=1e-5)
     np.testing.assert_allclose(b["eps"], a["eps"], atol=5e-4, rtol=1e-3)
     np.testing.assert_allclose(b["beta"], a["beta"], atol=5e-4, rtol=1e-3)
     np.testing.assert_array_equal(b["components"], a["components"])

@@ -1,0 +1,141 @@
+"""The port stands alone: no module of ``hydra_tpu_torch`` (nor
+``chip_smoke.py``) imports JAX or the JAX package, and the port's own copies
+of the option parser, readers, dataset assembly and writers behave as the
+JAX package's do on the same inputs."""
+
+import ast
+import dataclasses
+import os
+
+import numpy as np
+import pytest
+
+import hydra_tpu.data.genotypes as jgeno
+import hydra_tpu.io.groups as jgroups
+import hydra_tpu.io.pheno as jpheno
+import hydra_tpu.io.plink as jplink
+import hydra_tpu.options as jopt
+import hydra_tpu.outputs.writers as jwriters
+import hydra_tpu_torch.data.genotypes as tgeno
+import hydra_tpu_torch.io.groups as tgroups
+import hydra_tpu_torch.io.pheno as tpheno
+import hydra_tpu_torch.io.plink as tplink
+import hydra_tpu_torch.options as topt
+import hydra_tpu_torch.outputs.writers as twriters
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _port_sources():
+    root = os.path.join(REPO, "hydra_tpu_torch")
+    for d, _, files in os.walk(root):
+        for f in sorted(files):
+            if f.endswith(".py"):
+                yield os.path.join(d, f)
+    yield os.path.join(REPO, "chip_smoke.py")
+
+
+def _forbidden(module: str) -> bool:
+    top = module.split(".")[0]
+    return top in ("hydra_tpu", "jax", "jaxlib")
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    bad = []
+    for path in _port_sources():
+        tree = ast.parse(open(path).read(), filename=path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            bad += [f"{os.path.relpath(path, REPO)}:{node.lineno} {n}"
+                    for n in names if _forbidden(n)]
+    assert not bad, bad
+
+
+@pytest.mark.parametrize("argv", [
+    ["--mpibayes", "bayesWMPI", "--bfile", "x", "--pheno", "x.phen",
+     "--failure", "x.fail", "--quad_points", "9", "--window", "128",
+     "--schedule", "marker", "--seed", "4"],
+    ["--mpibayes", "bayesMPI", "--bfile", "x", "--pheno", "a.phen",
+     "--groupIndexFile", "g", "--groupMixtureFile", "m", "--S", "0.1,0.2",
+     "--thin", "3", "--save", "7", "--stale", "--sync-rate", "8",
+     "--seed", "9"],
+])
+def test_parse_args_matches_jax(argv, tmp_path):
+    argv = argv + ["--mcmc-out-dir", str(tmp_path)]
+    assert (dataclasses.asdict(topt.parse_args(argv))
+            == dataclasses.asdict(jopt.parse_args(argv)))
+
+
+def test_readers_and_dataset_match_jax(synthetic_bed_factory, tmp_path):
+    m, n = 30, 50
+    base, _ = synthetic_bed_factory(m, n, seed=2, missing_rate=0.05)
+    rs = np.random.RandomState(0)
+    with open(base + ".phen", "w") as fh:
+        for i in range(n):
+            v = "NA" if i in (3, 17) else f"{rs.randn():.5f}"
+            fh.write(f"per{i} per{i} {v}\n")
+    with open(base + ".fail", "w") as fh:
+        fh.writelines(f"{int(rs.rand() > 0.3)}\n" for _ in range(n))
+    pt = tpheno.read_phen_fail_files(base + ".phen", base + ".fail", n)
+    pj = jpheno.read_phen_fail_files(base + ".phen", base + ".fail", n)
+    for name in ("y", "na_indices", "fail"):
+        np.testing.assert_array_equal(getattr(pt, name), getattr(pj, name))
+    np.testing.assert_array_equal(tpheno.read_failure_file(base + ".fail"),
+                                  jpheno.read_failure_file(base + ".fail"))
+    bt = tplink.read_bed(base + ".bed", n, m)
+    np.testing.assert_array_equal(bt, jplink.read_bed(base + ".bed", n, m))
+    assert tplink.read_bim(base + ".bim").snp_id == \
+        jplink.read_bim(base + ".bim").snp_id
+    gt = tgeno.GenotypeData.from_packed(bt, n, pt.na_indices)
+    gj = jgeno.GenotypeData.from_packed(bt, n, pj.na_indices)
+    for f in dataclasses.fields(gj):
+        a, b = getattr(gt, f.name), getattr(gj, f.name)
+        if isinstance(b, np.ndarray):
+            np.testing.assert_array_equal(a, b)
+        else:
+            assert a == b, f.name
+    for m_tot, w in ((1000, 64), (37, 1)):
+        for a, b in zip(tgeno.shard_layout(m_tot, 1, w),
+                        jgeno.shard_layout(m_tot, 1, w)):
+            np.testing.assert_array_equal(a, b)
+    ms = tmp_path / "g.mS"
+    ms.write_text("0.001,0.01;0.002,0.02")
+    np.testing.assert_array_equal(tgroups.read_ms_file(str(ms)),
+                                  jgroups.read_ms_file(str(ms)))
+
+
+@pytest.mark.parametrize("survival", [False, True])
+def test_writers_are_byte_identical(survival, tmp_path):
+    rs = np.random.RandomState(1)
+    m, n, G, K = 12, 20, 2, 4
+    outs = {}
+    for name, mod in (("t", twriters), ("j", jwriters)):
+        base = str(tmp_path / name / "run")
+        w = mod.McmcWriter(base, m, n, G, K, thin=2, save=4, seed=5,
+                           survival=survival, window=16, exact=False,
+                           schedule="block")
+        rows = []
+        r2 = np.random.RandomState(7)
+        for it in (0, 2, 4):
+            beta, comp = r2.randn(m), r2.randint(0, K, m).astype(np.int32)
+            sg, pi = r2.rand(G), r2.dirichlet(np.ones(K), G)
+            row = (w.csv_row_bw(it, 4.1, sg, 9.5, 3, pi) if survival
+                   else w.csv_row_brr(it, sg, 0.7, 3, pi))
+            rows.append(row)
+            w.on_thin(it, beta, comp, row, 0.25,
+                      acum=None if survival else r2.rand(m))
+            if it == 4:
+                w.on_save(it, r2.randn(n), np.arange(m, dtype=np.int32),
+                          beta, comp)
+        outs[name] = (base, rows)
+    (bt, rows_t), (bj, rows_j) = outs["t"], outs["j"]
+    assert rows_t == rows_j
+    for ext in (".bet", ".cpn", ".csv", ".mus.0", ".eps.0", ".mrk.0",
+                ".xbet", ".xcpn", ".rng.0") + (() if survival else (".acu",)):
+        assert open(bt + ext, "rb").read() == open(bj + ext, "rb").read(), ext
+    assert os.path.exists(bt + ".acu") == (not survival)
