@@ -27,6 +27,20 @@ Phases, each printing its wall time:
      the card): ms/sweep and markers/s, exact W=128 and stale W=64.
   4b. BayesW W=64 block at the same size, and W=1 at M=10,000 x N=5,000:
      ms/sweep, markers/s, per-kernel device time, host enqueue time.
+Multi-trait BayesRRm (T=4 traits):
+  2c. sweep_stale_mt (W=64) and sweep_exact_mt (W=128) against their plain
+     versions at M=4,096 x N=50,000 with full phenotypes, sweep_stale_mt
+     with 2% missing genotypes and 10% NaN per trait; window_stats_mt,
+     window_axpy_mt and mt_window_recurrence at W=128 with and without NaN.
+  3c. the multi-trait CLI (``--pheno t0,t1,t2,t3``) at M=10,000 x N=5,000:
+     exact with full phenotypes, --stale --window 64, and exact with 10% NaN
+     per trait (the per-window path), 40 iterations each; every mt launch
+     count must move, .t0-.t3 outputs exist with posterior h2 near the
+     simulated 0.5. One sweep of each branch is held against the CPU
+     sampler with the same state and noise.
+  4c. M=100,000 x N=50,000: exact W=128 and stale W=64 (block, full
+     phenotypes) and the per-window path with 10% NaN (marker schedule):
+     ms/sweep, markers/s, per-kernel device time.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Any failure raises before those lines. JAX
 and the JAX package are blocked: the port must run without them.
@@ -62,18 +76,22 @@ def bound(nbytes, ops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _launch_modules():
+    from hydra_tpu_torch.ops import (sweep_kernel, sweep_kernel_bw,
+                                     sweep_kernel_mt, window_kernels)
+    return (sweep_kernel, sweep_kernel_bw, sweep_kernel_mt, window_kernels)
+
+
 def reset_all_launches():
-    from hydra_tpu_torch.ops import sweep_kernel, sweep_kernel_bw
-    from hydra_tpu_torch.ops import window_kernels
-    for mod in (sweep_kernel, sweep_kernel_bw, window_kernels):
+    for mod in _launch_modules():
         mod.reset_launches()
 
 
 def all_launches():
-    from hydra_tpu_torch.ops import sweep_kernel, sweep_kernel_bw
-    from hydra_tpu_torch.ops import window_kernels
-    return {**sweep_kernel.launches, **sweep_kernel_bw.launches,
-            **window_kernels.launches}
+    out = {}
+    for mod in _launch_modules():
+        out.update(mod.launches)
+    return out
 
 
 @contextlib.contextmanager
@@ -446,11 +464,16 @@ def profile_run(torch, run, label, launches, card):
                              ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
+    from torch.autograd import DeviceType
     per = {}
     for e in prof.key_averages():
+        # device activities only: an aten op's self device time repeats
+        # that of the kernels it launched
         t = getattr(e, "self_device_time_total", 0.0) or 0.0
-        if t > 0:
+        if t > 0 and getattr(e, "device_type", None) == DeviceType.CUDA:
             per[e.key] = (e.count, t / 1000.0)
+    if not per:
+        raise AssertionError(f"{label}: the profiler saw no device activity")
     busy = sum(v[1] for v in per.values())
     print(f"  sweep {label}: {launches} kernel launches; host enqueue "
           f"{1e3 * (t1 - t0):.2f} ms, done after {1e3 * (t2 - t0):.2f} ms; "
@@ -733,6 +756,385 @@ def phase_bw_real_size(torch, np, card):
         del s, st, vi, mrow
 
 
+def mt_phenotypes(np, n, n_traits, seed, na_frac=0.0):
+    """(T, n) phenotypes with NaN for a fraction of each trait."""
+    rs = np.random.RandomState(seed)
+    ph = rs.randn(n_traits, n)
+    ph[rs.random_sample(ph.shape) < na_frac] = np.nan
+    return ph
+
+
+def mt_kernel_rows(torch, mave, mstd, gen, n, pads, T):
+    """Multi-trait mrow rows (sweep_kernel_mt.py column blocks of T) as the
+    sampler builds them for sigmaE = sigmaG = 0.5: the single-trait rows of
+    ``kernel_rows`` with per-trait beta_old, u and nrm."""
+    from hydra_tpu_torch.ops.sweep_kernel_mt import mt_mrow_width
+    per = [kernel_rows(torch, mave, mstd, gen, n, pads) for _ in range(T)]
+    out = torch.stack(per, dim=2).reshape(mave.shape[0], -1).contiguous()
+    assert out.shape[1] == mt_mrow_width(K, T)
+    return out
+
+
+def print_bound(name, r):
+    print(f"{name:20s} recorded: kernel {r['ms']:.4f} ms, plain "
+          f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.6f} ms "
+          f"({r['bound_by']})", flush=True)
+
+
+def phase_mt_kernels(torch, np, card):
+    """The multi-trait kernels against their plain versions at main-path
+    shapes (M=4,096 x N=50,000, T=4): sweep_stale_mt W=64 and
+    sweep_exact_mt W=128 on complete data with full phenotypes,
+    sweep_stale_mt with 2% missing genotypes and 10% NaN per trait; the
+    per-window kernels at W=128 with and without NaN."""
+    from hydra_tpu_torch.ops import sweep_kernel_mt as skmt
+    from hydra_tpu_torch.ops import window_kernels as wk
+    from hydra_tpu_torch.ops.decode import decode_planes_hp
+    from hydra_tpu_torch.ops.sweep_kernel import block_order
+    dev = torch.device("cuda")
+    m, n, T = 4096, 50_000, 4
+    n_pad = padded_individuals(np, n)
+    nb = n_pad // 4
+    rec = {k: dict(err=0.0) for k in ("sweep_stale_mt", "sweep_exact_mt",
+                                      "window_stats_mt", "window_axpy_mt",
+                                      "mt_window_recurrence")}
+    i2se = torch.full((T,), 1.0 / (2 * SIGMA_E), device=dev)
+
+    def compare(name, label, fn, ref, reps, comp_of=None):
+        k0 = fn()                                  # build + warm up
+        ms, k1 = cuda_ms(torch, fn, reps)
+        ref()
+        plain_ms, r1 = cuda_ms(torch, ref, 1)
+        k0, k1, r1 = ([t for t in x if t is not None] for x in (k0, k1, r1))
+        if not all(torch.equal(a, b) for a, b in zip(k0, k1)):
+            raise AssertionError(f"{name} is not bitwise repeatable")
+        err = max((a - b).abs().max().item() for a, b in zip(k1, r1))
+        n_comp = (int((comp_of(k1) != comp_of(r1)).sum().item())
+                  if comp_of else 0)
+        used = (int(torch.unique(comp_of(k1)).numel()) if comp_of else 0)
+        print(f"{name:20s} {label:34s} kernel {ms:9.3f} ms  plain "
+              f"{plain_ms:9.3f} ms  max|diff| {err:.3e}  comp mismatches "
+              f"{n_comp}  components used {used}  [{card}]", flush=True)
+        for a, b in zip(k1, r1):
+            torch.testing.assert_close(a, b, atol=5e-4, rtol=1e-3)
+        if n_comp:
+            raise AssertionError(f"{name}: {n_comp} component mismatches "
+                                 "against the plain version")
+        if comp_of and used < 2:
+            raise AssertionError(f"{name}: degenerate draws")
+        rec[name]["err"] = max(rec[name]["err"], err)
+        return ms, plain_ms, k1
+
+    for missing, na_frac in ((0.0, 0.0), (0.02, 0.1), (0.0, 0.1)):
+        gen = torch.Generator(device=dev).manual_seed(13)
+        pk, mave, mstd, _ = device_genotypes(torch, m, n, n_pad, gen, missing)
+        pads = torch.randperm(m, generator=gen, device=dev)[:37]
+        pk[pads] = 0xFF
+        mrow = mt_kernel_rows(torch, mave, mstd, gen, n, pads, T)
+        tm = torch.zeros((n_pad, T), device=dev)
+        tm[:n] = (torch.rand((n, T), generator=gen, device=dev)
+                  >= na_frac).float()
+        eps = 0.8 * torch.randn((n_pad, T), generator=gen, device=dev) * tm
+        dnm1 = tm.sum(dim=0) - 1.0
+        data = (f"{'missing 2%' if missing else 'complete'}"
+                f"{', NaN 10%' if na_frac else ''}")
+        full = na_frac == 0.0
+        sweeps = [("sweep_stale_mt", 64)] + ([("sweep_exact_mt", 128)]
+                                             if full and not missing else [])
+        if missing or full:
+            for name, window in sweeps:
+                order = block_order(torch.randperm(
+                    m // window, generator=gen, device=dev), window)
+                kw = dict(window=window, n_mix=K, order=order)
+                if name == "sweep_stale_mt":
+                    fn, ref = skmt.sweep_stale_mt, skmt.sweep_stale_mt_ref
+                    kw["complete"] = not missing
+                else:
+                    fn, ref = skmt.sweep_exact_mt, skmt.sweep_exact_mt_ref
+                ms, plain_ms, _ = compare(
+                    name, f"W={window} {data}",
+                    lambda: fn(pk, eps, tm, mrow, i2se, dnm1, **kw),
+                    lambda: ref(pk, eps, tm, mrow, i2se, dnm1, **kw), 5,
+                    comp_of=lambda o: o[1][:, T:2 * T])
+                if full:
+                    r = rec[name]
+                    r["ms"], r["plain_ms"] = ms, plain_ms
+                    # packed rows, eps, tm, mrow, order in; eps, out out.
+                    # Ops: s1 and the axpy, one FMA each per genotype and
+                    # trait; the exact Gram adds W int8 multiply-adds per
+                    # genotype (shared by the traits)
+                    nbytes = (pk.numel() + 3 * 4 * T * n_pad
+                              + mrow.numel() * 4 + 4 * m + 12 * T * m)
+                    ops = {"f32": 4.0 * T * m * n_pad}
+                    if name == "sweep_exact_mt":
+                        ops["int8"] = 2.0 * window * m * n_pad
+                    r["bound_ms"], r["bound_by"] = bound(nbytes, ops)
+                    print_bound(name, r)
+        if missing:
+            continue
+        # the per-window kernels on one window of W=128 rows: complete
+        # genotypes with and without NaN phenotypes (the branch-3 main
+        # path is complete genotypes with NaN)
+        W = 128
+        rows = torch.randperm(m, generator=gen, device=dev)[:W].to(
+            torch.int32)
+        slots = rows.long()
+        c1 = 0.01 * torch.randn((T, W), generator=gen, device=dev)
+        c2 = -c1 * mave[slots][None, :]
+        compare("window_stats_mt", f"W={W} {data}",
+                lambda: wk.window_stats_mt(pk, eps, True, rows),
+                lambda: wk.window_stats_mt_ref(pk, eps, True, rows), 20)
+        compare("window_axpy_mt", f"W={W} {data}",
+                lambda: (wk.window_axpy_mt(pk, c1, c2, True, rows),),
+                lambda: (wk.window_axpy_mt_ref(pk, c1, c2, True, rows),), 20)
+        # a real window: num0 from the stats, the standardized Gram of the
+        # decoded rows ((W, W) shared without NaN, (T, W, W) masked with)
+        b = mrow[slots].reshape(W, -1, T)
+        s1, _ = wk.window_stats_mt(pk, eps, True, rows)
+        num0 = (b[:, 1] * (s1 - b[:, 0] * eps.sum(dim=0)) + b[:, 2] * dnm1
+                ).contiguous()
+        g, mk = decode_planes_hp(pk[slots])
+        xt = (g - b[:, 0, :1] * mk) * b[:, 1, :1]
+        gram = (xt @ xt.T if full else
+                torch.bmm(xt[None] * tm.T[:, None, :],
+                          xt[None].expand(T, -1, -1).transpose(1, 2)))
+        del g, mk, xt
+        ms, plain_ms, _ = compare(
+            "mt_window_recurrence", f"W={W} {'shared' if full else 'per-trait'}"
+            " Gram", lambda: skmt.mt_window_recurrence(
+                gram, num0, mrow, i2se, n_mix=K, rows=rows),
+            lambda: skmt.mt_window_recurrence_ref(
+                gram, num0, mrow, i2se, n_mix=K, rows=rows), 20,
+            comp_of=lambda o: o[1])
+        if full:
+            continue
+        # branch-3 shapes (complete genotypes, NaN): the recorded times
+        for name, fn, ref, nbytes, ops in (
+                ("window_stats_mt",
+                 lambda: wk.window_stats_mt(pk, eps, True, rows),
+                 lambda: wk.window_stats_mt_ref(pk, eps, True, rows),
+                 W * nb + 4 * T * n_pad + 4 * W + 8 * W * T,
+                 {"f32": 2.0 * T * W * n_pad}),
+                ("window_axpy_mt",
+                 lambda: (wk.window_axpy_mt(pk, c1, c2, True, rows),),
+                 lambda: (wk.window_axpy_mt_ref(pk, c1, c2, True, rows),),
+                 W * nb + 4 * W + 8 * T * W + 4 * T * n_pad,
+                 {"f32": 2.0 * T * W * n_pad}),
+                ("mt_window_recurrence",
+                 lambda: skmt.mt_window_recurrence(
+                     gram, num0, mrow, i2se, n_mix=K, rows=rows),
+                 lambda: skmt.mt_window_recurrence_ref(
+                     gram, num0, mrow, i2se, n_mix=K, rows=rows),
+                 gram.numel() * 4 + 4 * W * T + b.numel() * 4 + 16 * W * T,
+                 # the rank-1 update per step and trait; ~100 ops per draw
+                 {"f32": 2.0 * T * W * W + 100.0 * W * T})):
+            r = rec[name]
+            if name == "mt_window_recurrence":
+                r["ms"], r["plain_ms"] = ms, plain_ms
+            else:
+                fn()
+                r["ms"], _ = cuda_ms(torch, fn, 20)
+                ref()
+                r["plain_ms"], _ = cuda_ms(torch, ref, 1)
+            r["bound_ms"], r["bound_by"] = bound(nbytes, ops)
+            print_bound(name, r)
+        del pk, mrow, eps, tm, gram
+    return rec
+
+
+def write_mt_phenos(np, base, m, n, n_traits, seed, na_frac=0.0):
+    """T phenotype files next to a .bed written by ``write_plink``: each
+    trait h2 = 0.5 over its own 1% causal markers, "NA" for a fraction
+    ``na_frac`` of individuals per trait. Returns the comma-joined paths."""
+    from hydra_tpu_torch.io.plink import decode_bed_numpy, read_bed
+    rs = np.random.RandomState(seed)
+    g, _ = decode_bed_numpy(read_bed(base + ".bed", n, m), n)
+    paths = []
+    for t in range(n_traits):
+        causal = rs.choice(m, m // 100, replace=False)
+        x = g[causal]
+        x = (x - x.mean(1, keepdims=True)) / x.std(1, keepdims=True)
+        y = (x.T @ (rs.randn(len(causal)) * np.sqrt(0.5 / len(causal)))
+             + rs.randn(n) * np.sqrt(0.5))
+        path = f"{base}.t{t}{'_na' if na_frac else ''}.phen"
+        with open(path, "w") as fh:
+            fh.writelines(
+                f"f{i} i{i} {'NA' if rs.rand() < na_frac else f'{y[i]:.8f}'}\n"
+                for i in range(n))
+        paths.append(path)
+    return ",".join(paths)
+
+
+def phase_mt_cli(torch, np, tmp):
+    """The multi-trait main path through the CLI, counted, at M=10,000 x
+    N=5,000 with T=4: exact with full phenotypes (sweep_exact_mt), --stale
+    --window 64 (sweep_stale_mt) and exact with 10% NaN per trait (the
+    per-window path); then one CUDA sweep of each branch against the CPU
+    sampler with identical state and noise."""
+    from hydra_tpu_torch import cli
+    from hydra_tpu_torch.options import parse_args
+    from hydra_tpu_torch.runner import mt_dataset_from_options
+    from hydra_tpu_torch.samplers.bayesrrm_mt import (BayesRRmMT,
+                                                      state_from_numpy,
+                                                      state_to_numpy)
+    m, n, T, iters = 10_000, 5_000, 4, 40
+    base = os.path.join(tmp, "mt_M10K_N_5K")
+    write_plink(np, base, m, n, seed=5)
+    full = write_mt_phenos(np, base, m, n, T, seed=6)
+    nan = write_mt_phenos(np, base, m, n, T, seed=7, na_frac=0.1)
+
+    def argv(phen, name, *extra):
+        return ["--mpibayes", "bayesMPI", "--bfile", base, "--pheno", phen,
+                "--S", "0.0001,0.001,0.01", "--chain-length", str(iters),
+                "--thin", "5", "--save", "10", "--seed", "7",
+                "--mcmc-out-dir", os.path.join(tmp, "out"),
+                "--mcmc-out-name", name, *extra]
+
+    runs = (("mt_exact", full, ()), ("mt_stale", full,
+                                     ("--stale", "--window", "64")),
+            ("mt_nan", nan, ()))
+    reset_all_launches()
+    rc, wall = [], []
+    for name, phen, extra in runs:
+        t0 = time.perf_counter()
+        rc.append(cli.main(argv(phen, name, *extra)))
+        torch.cuda.synchronize()
+        wall.append(time.perf_counter() - t0)
+    launches = all_launches()
+    print(f"main-path kernel launches: {json.dumps(launches)}; CLI wall "
+          + ", ".join(f"{r[0]} {w:.1f} s" for r, w in zip(runs, wall))
+          + f" ({iters} iterations each, data load included)", flush=True)
+    if rc != [0, 0, 0]:
+        raise AssertionError(f"CLI exit codes {rc}")
+    n_win = -(-m // 64)
+    want = {"sweep_exact_mt": iters, "sweep_stale_mt": iters,
+            "window_stats_mt": iters * n_win, "window_axpy_mt": iters * n_win,
+            "mt_window_recurrence": iters * n_win}
+    for name, count in want.items():
+        if launches[name] != count:
+            raise AssertionError(f"{name} launched {launches[name]} times in "
+                                 f"the multi-trait run, want {count}")
+    for name, _, _ in runs:
+        h2 = [check_outputs(np, os.path.join(tmp, "out", f"{name}.t{t}"), m,
+                            iters // 5) for t in range(T)]
+        print(f"{name}: .t0-.t3 with {iters // 5} thinned records each; mean "
+              f"h2 over the last {iters // 10} per trait "
+              f"{[round(v, 4) for v in h2]} (simulated 0.5)", flush=True)
+        if not all(abs(v - 0.5) < 0.25 for v in h2):
+            raise AssertionError(f"{name}: posterior h2 {h2} far from 0.5")
+
+    # one sweep of each branch, CUDA sampler vs CPU sampler
+    for name, phen, extra in runs:
+        opt = parse_args(argv(phen, name, *extra))
+        ds, phenos = mt_dataset_from_options(opt)
+        window, exact = opt.window, opt.exact
+        cpu = BayesRRmMT(ds, phenos, window=window, exact=exact, seed=7,
+                         device="cpu")
+        gpu = BayesRRmMT(ds, phenos, window=window, exact=exact, seed=7,
+                         device="cuda")
+        s_cpu = cpu.init_state()
+        s_gpu = state_from_numpy(state_to_numpy(s_cpu), "cuda")
+        g = torch.Generator().manual_seed(5)
+        ml = cpu.cfg.m_loc
+        noise = dict(mu=torch.randn(T, generator=g),
+                     u=torch.rand(ml, T, generator=g),
+                     nrm=torch.randn(ml, T, generator=g),
+                     wperm=torch.randperm(cpu.cfg.n_windows, generator=g),
+                     perm=torch.randperm(ml, generator=g))
+        a, sa = cpu.step(s_cpu, 0, noise=noise)
+        b, sb = gpu.step(s_gpu, 0, noise={k: v.cuda() for k, v in noise.items()})
+        a, b = state_to_numpy(a), state_to_numpy(b)
+        d_eps = float(np.abs(a["eps"] - b["eps"]).max())
+        d_beta = float(np.abs(a["beta"] - b["beta"]).max())
+        n_comp = int((a["components"] != b["components"]).sum())
+        print(f"one {name} sweep (W={window}, {cpu.cfg.schedule}), CUDA vs "
+              f"CPU sampler: max|d eps| {d_eps:.3e}  max|d beta| "
+              f"{d_beta:.3e}  comp mismatches {n_comp}", flush=True)
+        np.testing.assert_allclose(b["eps"], a["eps"], atol=5e-4, rtol=1e-3)
+        np.testing.assert_allclose(b["beta"], a["beta"], atol=5e-4, rtol=1e-3)
+        if n_comp or not np.array_equal(sa.cass.numpy(), sb.cass.cpu().numpy()):
+            raise AssertionError("component mismatches CUDA vs CPU sampler")
+    return launches
+
+
+def phase_mt_real_size(torch, np, card):
+    """Multi-trait at M=100,000 x N=50,000, T=4: exact W=128 and stale W=64
+    on the block schedule with full phenotypes, and the per-window path
+    (exact W=128, marker schedule) with 10% NaN per trait."""
+    from hydra_tpu_torch.data.genotypes import (Dataset, GenotypeData,
+                                                make_default_groups)
+    from hydra_tpu_torch.ops import sweep_kernel_mt as skmt
+    from hydra_tpu_torch.samplers.bayesrrm_mt import BayesRRmMT
+    dev = torch.device("cuda")
+    m, n, T = 100_000, 50_000, 4
+    n_pad = padded_individuals(np, n)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(3)
+    pk, mave, mstd, nm = device_genotypes(torch, m, n, n_pad, gen)
+    torch.cuda.synchronize()
+    print(f"generated {pk.numel() / 1e9:.3f} GB of packed genotypes on the "
+          f"card in {time.perf_counter() - t0:.1f} s", flush=True)
+    mave_h, mstd_h = mave.double().cpu().numpy(), mstd.double().cpu().numpy()
+    geno = GenotypeData(packed=np.zeros((0, n_pad // 4), np.uint8), n=n,
+                        n_pad=n_pad, m=m, mave=mave_h, mstd=mstd_h,
+                        msd=1.0 / mstd_h, n1=None, n2=None,
+                        nm=nm.cpu().numpy())
+    groups, mS = make_default_groups(m, list(MS[1:]))
+    ds = Dataset(geno=geno, y=np.zeros(n), groups=groups, num_groups=1, mS=mS)
+    for label, exact, window, na_frac, n_time in (
+            ("exact", True, 128, 0.0, 5), ("stale", False, 64, 0.0, 10),
+            ("exact NaN 10%", True, 128, 0.1, 3)):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        s = BayesRRmMT(ds, mt_phenotypes(np, n, T, 4, na_frac), window=window,
+                       exact=exact, seed=1, device=dev, packed_device=pk)
+        torch.cuda.synchronize()
+        setup = time.perf_counter() - t0
+        st = s.init_state()
+        for it in range(2):
+            st, _ = s.step(st, it)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for it in range(2, 2 + n_time):
+            st, stats = s.step(st, it)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / n_time
+        if not bool(torch.isfinite(st.eps).all()):
+            raise AssertionError("non-finite residual at real size")
+        print(f"real size mt T={T} M=100,000 x N=50,000 {label} W={window} "
+              f"{s.cfg.schedule}: {ms:.2f} ms/sweep, {m / ms * 1e3:,.0f} "
+              f"markers/s ({n_time} sweeps after 2 warm-up; sampler set up "
+              f"in {setup:.1f} s), peak "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB  [{card}]",
+              flush=True)
+        cfg = s.cfg
+        mrow = s.build_mrow(st, torch.rand((cfg.m_loc, T), device=dev),
+                            torch.randn((cfg.m_loc, T), device=dev),
+                            s.active(st))
+        order = s.sweep_order(0)
+        i2se = 0.5 / st.sigma_e
+        if not exact:
+            def run():
+                return skmt.sweep_stale_mt(
+                    s.packed, st.eps, s.trait_mask, mrow, i2se, s.dNm1,
+                    window=window, n_mix=cfg.k, complete=cfg.complete,
+                    order=order)
+            n_launch = 3 * cfg.n_windows
+        elif na_frac == 0.0:
+            def run():
+                return skmt.sweep_exact_mt(
+                    s.packed, st.eps, s.trait_mask, mrow, i2se, s.dNm1,
+                    window=window, n_mix=cfg.k, order=order)
+            n_launch = 5 * cfg.n_windows
+        else:
+            def run():
+                return s.window_sweep(st.eps, mrow, order, i2se)
+            n_launch = "4 kernel + torch"
+        profile_run(torch, run, f"mt {label} W={window}", n_launch, card)
+        del s, st, mrow
+    del pk
+
+
 def main() -> int:
     try:
         import torch
@@ -778,17 +1180,28 @@ def main() -> int:
         rec = phase_kernels(torch, sk, card)
     with phase("2b: BayesW kernels vs plain versions (N=50,000)"):
         rec.update(phase_bw_kernels(torch, np, card))
+    with phase("2c: multi-trait kernels vs plain versions (M=4,096 x "
+               "N=50,000, T=4)"):
+        rec.update(phase_mt_kernels(torch, np, card))
     with tempfile.TemporaryDirectory() as tmp:
         with phase("3: BayesRRm CLI end to end (M=10,000 x N=5,000)"):
             launches = phase_cli(torch, np, sk, tmp)
         with phase("3b: BayesW CLI end to end (M=10,000 x N=5,000)"):
             bw_launches = phase_bw_cli(torch, np, tmp)
+        with phase("3c: multi-trait CLI end to end (M=10,000 x N=5,000, "
+                   "T=4)"):
+            mt_launches = phase_mt_cli(torch, np, tmp)
     for name in ("sweep_stale_bw", "window_level_sums", "window_axpy"):
         launches[name] = bw_launches[name]
+    for name in ("sweep_stale_mt", "sweep_exact_mt", "window_stats_mt",
+                 "window_axpy_mt", "mt_window_recurrence"):
+        launches[name] = mt_launches[name]
     with phase("4: real size (M=100,000 x N=50,000)"):
         phase_real_size(torch, np, sk, card)
     with phase("4b: BayesW real size"):
         phase_bw_real_size(torch, np, card)
+    with phase("4c: multi-trait real size (M=100,000 x N=50,000, T=4)"):
+        phase_mt_real_size(torch, np, card)
 
     table = (
         ("sweep_stale", "sweep_kernel.cu", "hydra_tpu/ops/sweep_kernel.py:836"),
@@ -798,10 +1211,22 @@ def main() -> int:
         ("window_level_sums", "sweep_kernel_bw.cu",
          "hydra_tpu/ops/window_kernels.py:356"),
         ("window_axpy", "sweep_kernel_bw.cu",
-         "hydra_tpu/ops/window_kernels.py:284"))
+         "hydra_tpu/ops/window_kernels.py:284"),
+        ("sweep_stale_mt", "sweep_kernel_mt.cu",
+         "hydra_tpu/ops/sweep_kernel_mt.py:214"),
+        ("sweep_exact_mt", "sweep_kernel_mt.cu",
+         "hydra_tpu/ops/sweep_kernel_mt.py:499"),
+        ("window_stats_mt", "sweep_kernel_mt.cu",
+         "hydra_tpu/ops/window_kernels.py:451"),
+        ("window_axpy_mt", "sweep_kernel_mt.cu",
+         "hydra_tpu/ops/window_kernels.py:534"),
+        # not a Pallas kernel: the JAX sampler's lax.scan recurrence
+        ("mt_window_recurrence", "sweep_kernel_mt.cu",
+         "hydra_tpu/samplers/bayesrrm_mt.py:439"))
     # library_ms is null throughout: no single PyTorch call decodes the
-    # 2-bit packed genotypes these kernels read, so none computes the same
-    # function on the same inputs
+    # 2-bit packed genotypes these kernels read, or runs the recurrence's
+    # sequential chain of draws, so none computes the same function on the
+    # same inputs
     kernels = [dict(name=name, route="cuda",
                     source=f"hydra_tpu_torch/csrc/{src}", replaces=replaces,
                     launches=launches[name], max_abs_err=rec[name]["err"],

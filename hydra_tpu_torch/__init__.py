@@ -1,5 +1,5 @@
-"""hydra_tpu_torch — BayesRRm and BayesW on PyTorch + hand-written CUDA for
-NVIDIA Hopper.
+"""hydra_tpu_torch — BayesRRm (single- and multi-trait) and BayesW on
+PyTorch + hand-written CUDA for NVIDIA Hopper.
 
 The PyTorch/CUDA port of ``hydra_tpu``. The JAX package stays the reference;
 this package mirrors its module names so each counterpart is easy to find:
@@ -11,12 +11,16 @@ this package mirrors its module names so each counterpart is easy to find:
   hydra_tpu_torch.ops.decode       h-pack + plain torch decode
   hydra_tpu_torch.ops.sweep_kernel     sweep_stale / sweep_exact (BayesRRm)
   hydra_tpu_torch.ops.sweep_kernel_bw  sweep_stale_bw (BayesW)
-  hydra_tpu_torch.ops.window_kernels   window_level_sums / window_axpy
+  hydra_tpu_torch.ops.sweep_kernel_mt  sweep_stale_mt / sweep_exact_mt /
+                                   mt_window_recurrence (multi-trait)
+  hydra_tpu_torch.ops.window_kernels   window_level_sums / window_axpy,
+                                   window_stats_mt / window_axpy_mt
                                    (CUDA kernels in csrc/, plain versions
                                    beside their wrappers)
   hydra_tpu_torch.utils.dist       torch.Generator distributions
   hydra_tpu_torch.utils.slice_sampler  fixed-budget slice sampling
-  hydra_tpu_torch.samplers.bayesrrm / .bayesw  one-device samplers
+  hydra_tpu_torch.samplers.bayesrrm / .bayesrrm_mt / .bayesw  one-device
+                                   samplers
   hydra_tpu_torch.runner / .cli    hydra-format chain runners and CLI
 
 Nothing here imports JAX or ``hydra_tpu``: the modules the port shares with
@@ -24,4 +28,4 @@ the JAX package in behaviour (options, io, data, outputs) are its own
 copies, held against the originals by tests/test_torch_isolation.py.
 """
 
-__version__ = "0.2.0"
+__version__ = "0.3.0"

@@ -1,5 +1,6 @@
-// Device helpers and the residual axpy shared by the BayesRRm sweep kernels
-// (sweep_kernel.cu) and the BayesW kernels (sweep_kernel_bw.cu).
+// Device helpers, the window Gram and the residual axpy shared by the
+// BayesRRm sweep kernels (sweep_kernel.cu), the multi-trait kernels
+// (sweep_kernel_mt.cu) and the BayesW kernels (sweep_kernel_bw.cu).
 //
 // Genotypes arrive h-packed (hydra_tpu/ops/decode.py): each 2-bit crumb
 // holds h = 2 - genotype, 3 = missing, and crumb k of byte b is individual
@@ -19,6 +20,7 @@ namespace hydra {
 //   6..6+K-1 logl_static, 6+K..6+2K-2 inv_denom_k, 6+2K-1..6+3K-3 sd_k
 constexpr int N_FIXED = 6;
 constexpr int K_MAX = 16;      // mixture components a draw thread can hold
+constexpr int T_MAX = 16;      // traits a multi-trait thread holds in registers
 
 // genotype modes of the stats and axpy passes
 constexpr int MODE_MISSING = 0;         // s1 = sum g*x, s2 = sum m*x
@@ -75,6 +77,127 @@ __device__ __forceinline__ float reduce_tiles(const float* part, int n_tiles,
     float s = 0.f;
     for (int t = 0; t < n_tiles; ++t) s += part[t * W + r];
     return s;
+}
+
+// ----------------------------------------------------------------- gram --
+// The window Gram of the exact sweeps (sweep_kernel.cu, sweep_kernel_mt.cu).
+// grid (nt * nt, n_chunks), block (32, 8). Block (ti, tj, chunk) computes
+// the 32x32 tile of the window Gram over GRAM_CB packed bytes; thread
+// (tx, ty) owns rows ty + 8q (q < 4) of column tx.
+//   COMPLETE: exact int32 Gram of g planes by __dp4a on int8x4 genotypes.
+//   else    : f32 Gram of x = (g - mave*m) * mstd (mrow columns 0 and 1).
+// Partials: part[chunk * W * W + i * W + j] (int32 bits when COMPLETE).
+constexpr int GRAM_TW = 32;        // Gram tile edge
+constexpr int GRAM_CB = 512;       // packed bytes per Gram chunk (partial)
+constexpr int GRAM_SB = 32;        // packed bytes per shared-memory step
+
+template <bool COMPLETE>
+__global__ void gram_kernel(const uint8_t* __restrict__ pk, int nb,
+                            const int* __restrict__ order_w, int W,
+                            const float* __restrict__ mrow, int C,
+                            float* __restrict__ part) {
+    const int nt = (W + GRAM_TW - 1) / GRAM_TW;
+    const int ti = blockIdx.x / nt, tj = blockIdx.x % nt;
+    const int b0 = blockIdx.y * GRAM_CB;
+    const int b1 = min(b0 + GRAM_CB, nb);
+    const int tx = threadIdx.x, ty = threadIdx.y;
+    const int tid = ty * 32 + tx;
+    const size_t ww = static_cast<size_t>(W) * W;
+    if constexpr (COMPLETE) {
+        __shared__ int As[GRAM_TW][GRAM_SB + 1];
+        __shared__ int Bs[GRAM_TW][GRAM_SB + 1];
+        int acc[4] = {0, 0, 0, 0};
+        for (int sb = b0; sb < b1; sb += GRAM_SB) {
+            for (int i = tid; i < GRAM_TW * GRAM_SB; i += 256) {
+                const int rr = i / GRAM_SB, bb = i % GRAM_SB;
+                const int ra = ti * GRAM_TW + rr, rb = tj * GRAM_TW + rr;
+                const bool inb = sb + bb < b1;
+                As[rr][bb] = (ra < W && inb)
+                    ? geno_x4(pk[static_cast<size_t>(order_w[ra]) * nb + sb + bb]) : 0;
+                Bs[rr][bb] = (rb < W && inb)
+                    ? geno_x4(pk[static_cast<size_t>(order_w[rb]) * nb + sb + bb]) : 0;
+            }
+            __syncthreads();
+#pragma unroll 8
+            for (int kk = 0; kk < GRAM_SB; ++kk) {
+                const int bv = Bs[tx][kk];
+#pragma unroll
+                for (int q = 0; q < 4; ++q) acc[q] = __dp4a(As[ty + 8 * q][kk], bv, acc[q]);
+            }
+            __syncthreads();
+        }
+        int* out = reinterpret_cast<int*>(part) + blockIdx.y * ww;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+            const int i = ti * GRAM_TW + ty + 8 * q, j = tj * GRAM_TW + tx;
+            if (i < W && j < W) out[static_cast<size_t>(i) * W + j] = acc[q];
+        }
+    } else {
+        constexpr int SI = GRAM_SB * 4;   // individuals per step
+        __shared__ float Af[GRAM_TW][SI + 1];
+        __shared__ float Bf[GRAM_TW][SI + 1];
+        float acc[4] = {0.f, 0.f, 0.f, 0.f};
+        for (int sb = b0; sb < b1; sb += GRAM_SB) {
+            for (int i = tid; i < GRAM_TW * GRAM_SB; i += 256) {
+                const int rr = i / GRAM_SB, bb = i % GRAM_SB;
+                const bool inb = sb + bb < b1;
+#pragma unroll
+                for (int side = 0; side < 2; ++side) {
+                    const int ra = (side == 0 ? ti : tj) * GRAM_TW + rr;
+                    float x[4] = {0.f, 0.f, 0.f, 0.f};
+                    if (ra < W && inb) {
+                        const int slot = order_w[ra];
+                        const float mave = mrow[static_cast<size_t>(slot) * C + 0];
+                        const float mstd = mrow[static_cast<size_t>(slot) * C + 1];
+                        const uint32_t byte = pk[static_cast<size_t>(slot) * nb + sb + bb];
+#pragma unroll
+                        for (int k = 0; k < 4; ++k) {
+                            const int c = crumb(byte, k);
+                            const float m = static_cast<float>(crumb_mask(c));
+                            const float g = static_cast<float>(crumb_geno(c));
+                            x[k] = (g - mave * m) * mstd;
+                        }
+                    }
+                    float (*dst)[SI + 1] = side == 0 ? Af : Bf;
+#pragma unroll
+                    for (int k = 0; k < 4; ++k) dst[rr][4 * bb + k] = x[k];
+                }
+            }
+            __syncthreads();
+#pragma unroll 8
+            for (int kk = 0; kk < SI; ++kk) {
+                const float bv = Bf[tx][kk];
+#pragma unroll
+                for (int q = 0; q < 4; ++q) acc[q] = fmaf(Af[ty + 8 * q][kk], bv, acc[q]);
+            }
+            __syncthreads();
+        }
+        float* out = part + blockIdx.y * ww;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+            const int i = ti * GRAM_TW + ty + 8 * q, j = tj * GRAM_TW + tx;
+            if (i < W && j < W) out[static_cast<size_t>(i) * W + j] = acc[q];
+        }
+    }
+}
+
+// Fixed-order sum of the Gram partials over chunks -> G (W, W) f32. The
+// complete-data integer Gram stays raw here; the draw standardizes it.
+__global__ void gram_reduce_kernel(const float* __restrict__ part, int n_chunks,
+                                   int W, int complete, float* __restrict__ G) {
+    const size_t ww = static_cast<size_t>(W) * W;
+    const size_t e = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+    if (e >= ww) return;
+    if (complete) {
+        const int* p = reinterpret_cast<const int*>(part);
+        int s = 0;
+        for (int c = 0; c < n_chunks; ++c) s += p[c * ww + e];
+        G[e] = static_cast<float>(s);
+    } else {
+        float s = 0.f;
+        for (int c = 0; c < n_chunks; ++c) s += part[c * ww + e];
+        G[e] = s;
+    }
 }
 
 // ----------------------------------------------------------------- axpy --

@@ -1,0 +1,720 @@
+// Multi-trait BayesRRm kernels for Hopper (sm_90a).
+//
+// Replaces the Pallas kernels of the JAX package's multi-trait path:
+//   hydra_sweep_stale_mt   <- sweep_stale_mt  (hydra_tpu/ops/sweep_kernel_mt.py:214)
+//   hydra_sweep_exact_mt   <- sweep_exact_mt  (hydra_tpu/ops/sweep_kernel_mt.py:499)
+//   hydra_window_stats_mt  <- window_stats_mt (hydra_tpu/ops/window_kernels.py:451)
+//   hydra_window_axpy_mt   <- window_axpy_mt  (hydra_tpu/ops/window_kernels.py:534)
+// and runs the exact per-window recurrence of the sampler's per-window path,
+// which the JAX package leaves to a lax.scan (hydra_tpu/samplers/
+// bayesrrm_mt.py:439-456), as one kernel: hydra_mt_window_recurrence.
+//
+// Layouts. The residual eps and the trait mask tm are (n_pad, T) f32 in
+// individual order (individual i, trait t at i*T + t; crumb k of packed
+// byte b is individual 4b + k): no plane-major (4T, NB) rows. mrow is
+// (m_loc, T*(3K+4)), column blocks of T (block b, trait t at b*T + t):
+//   0 mave, 1 mstd, 2 beta_old, 3 u, 4 nrm, 5 act, 6.. logl_static (K),
+//   6+K.. inv_denom_k (K-1), 6+2K-1.. sd_k (K-1)
+// as hydra_tpu/ops/sweep_kernel_mt.py:47-56. order (m_loc,) maps sweep
+// position -> slot; out (m_loc, 3T) = [beta_new (T), comp (T), acum (T)]
+// per SLOT.
+//
+// A sweep is sweep_kernel.cu's design with a trait axis: the host loops
+// over windows and launches per window on one stream, the launch boundary
+// being the barrier between phases:
+//   stale: stats_mt -> stale_draw_mt -> axpy_mt                (3 launches)
+//   exact: stats_mt -> gram -> gram_reduce -> exact_mt_draw -> axpy_mt (5)
+// The exact sweep is valid for complete genotypes and full phenotypes only
+// (the trait-shared integer Gram, standardized with trait 0's statistics
+// and n_real; hydra_tpu/samplers/bayesrrm_mt.py:748-749 gates it the same).
+//
+// What bounds it on this card, per window: stats_mt and axpy_mt each read
+// the W packed rows and the (n_pad, T) residual once, ~W*NB + 4*T*n_pad*
+// (2 for the axpy) bytes -> bytes-bound, but at W=64..128 and N=50,000 a
+// window is ~1-2 MB, so each launch is latency-bound (tens of us against
+// ~0.5 us of HBM time). The decode stays in registers and is shared by the
+// T traits (one byte load serves T fused multiply-adds); T partial sums per
+// thread live in registers (T <= T_MAX). The exact recurrence is a serial
+// chain of W steps; its T traits draw in parallel threads, two barriers per
+// step. Speed is later work; this is the simple, right version.
+//
+// Determinism: no float atomics. Partials land in per-tile scratch and are
+// reduced in a fixed order, so equal inputs give bitwise-equal outputs.
+
+#include <cstdint>
+
+#include "sweep_kernel.cuh"
+
+namespace hydra {
+
+constexpr int MT_STATS_TB = 512;     // packed bytes per stats block
+constexpr int MT_STATS_ROWS = 8;     // rows per stats block (one per warp)
+constexpr int MT_AXPY_THREADS = 128;
+constexpr int MT_DRAW_THREADS = 256;
+
+// ---------------------------------------------------------------- stats --
+// grid (n_tiles, ceil(W / MT_STATS_ROWS)), 256 threads. Warp = one row of
+// the window over one tile of MT_STATS_TB bytes, lane = one byte per step
+// (4 individuals x T traits of eps, contiguous). Per trait:
+//   MODE_MISSING        s1 = sum g*e, s2 = sum m*e
+//   MODE_STALE_COMPLETE s1 = sum h*e (h-decode), s2 = sum e
+//   MODE_EXACT_COMPLETE s1 = sum g*e, s2 = sum e, and v = sum g per row
+// Partials: part[(tile * W + r) * T + t], part_v[tile * W + r].
+__global__ void stats_mt_kernel(const uint8_t* __restrict__ pk, int nb,
+                                const float* __restrict__ eps, int T,
+                                const int* __restrict__ order_w, int W, int mode,
+                                float* __restrict__ part_s1,
+                                float* __restrict__ part_s2,
+                                float* __restrict__ part_v) {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int r = blockIdx.y * MT_STATS_ROWS + warp;
+    if (r >= W) return;
+    const int tile = blockIdx.x;
+    const uint8_t* row = pk + static_cast<size_t>(order_w[r]) * nb;
+    const int b1 = min((tile + 1) * MT_STATS_TB, nb);
+    float a[T_MAX], s[T_MAX];
+#pragma unroll
+    for (int t = 0; t < T_MAX; ++t) {
+        a[t] = 0.f;
+        s[t] = 0.f;
+    }
+    int v = 0;
+    for (int b = tile * MT_STATS_TB + lane; b < b1; b += 32) {
+        const uint32_t byte = row[b];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+            const int c = crumb(byte, k);
+            const float* e = eps + (4 * static_cast<size_t>(b) + k) * T;
+            if (mode == MODE_STALE_COMPLETE) {
+                const float h = static_cast<float>(c);
+#pragma unroll
+                for (int t = 0; t < T_MAX; ++t) {
+                    if (t < T) {
+                        const float x = e[t];
+                        a[t] = fmaf(h, x, a[t]);
+                        s[t] += x;
+                    }
+                }
+            } else {
+                const int m = crumb_mask(c);
+                const int gi = (2 - c) * m;
+                const float g = static_cast<float>(gi);
+                const float mf = static_cast<float>(m);
+                if (mode == MODE_EXACT_COMPLETE) v += gi;
+#pragma unroll
+                for (int t = 0; t < T_MAX; ++t) {
+                    if (t < T) {
+                        const float x = e[t];
+                        a[t] = fmaf(g, x, a[t]);
+                        s[t] = mode == MODE_EXACT_COMPLETE ? s[t] + x : fmaf(mf, x, s[t]);
+                    }
+                }
+            }
+        }
+    }
+    const size_t base = (static_cast<size_t>(tile) * W + r) * T;
+#pragma unroll
+    for (int t = 0; t < T_MAX; ++t) {
+        if (t < T) {
+            const float at = warp_sum(a[t]);
+            const float st = warp_sum(s[t]);
+            if (lane == 0) {
+                part_s1[base + t] = at;
+                part_s2[base + t] = st;
+            }
+        }
+    }
+    if (mode == MODE_EXACT_COMPLETE) {
+        v = warp_sum(v);
+        if (lane == 0) part_v[static_cast<size_t>(tile) * W + r] = static_cast<float>(v);
+    }
+}
+
+// Fixed-order sum over tiles of one (row, trait) partial; e = r * T + t.
+__device__ __forceinline__ float reduce_tiles_mt(const float* part, int n_tiles,
+                                                 size_t wt, size_t e) {
+    float s = 0.f;
+    for (int tile = 0; tile < n_tiles; ++tile) s += part[tile * wt + e];
+    return s;
+}
+
+// window_stats_mt's output: s1, s2 (W, T). Complete data reconstructs
+// s1 = 2 sum(e) - sum(h e) and leaves s2 to the caller (per-trait sum(eps)).
+__global__ void stats_mt_reduce_kernel(const float* __restrict__ part_s1,
+                                       const float* __restrict__ part_s2,
+                                       int n_tiles, int W, int T, int complete,
+                                       float* __restrict__ s1,
+                                       float* __restrict__ s2) {
+    const size_t wt = static_cast<size_t>(W) * T;
+    const size_t e = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+    if (e >= wt) return;
+    const float a = reduce_tiles_mt(part_s1, n_tiles, wt, e);
+    const float b = reduce_tiles_mt(part_s2, n_tiles, wt, e);
+    if (complete) {
+        s1[e] = 2.0f * b - a;
+    } else {
+        s1[e] = a;
+        s2[e] = b;
+    }
+}
+
+// ----------------------------------------------------------------- draw --
+// The mixture/beta draw of one (marker, trait) from its mrow row and num.
+// NORMALIZED: the stale kernel's form (sweep_kernel_mt.py:140-161), which
+// is also the sampler's draw_rows (bayesrrm_mt.py:348-368): probs = p/sum,
+// comp = #{k < K-1 : u > cum_k}. Otherwise the exact kernel's form
+// (sweep_kernel_mt.py:430-455): exp(max(l - mx, -60)), unnormalized u*s
+// against the running cum, advanced after each compare.
+template <bool NORMALIZED>
+__device__ __forceinline__ void draw_mt(const float* row, int T, int t, int K,
+                                        float num, float i2se, float& bnew,
+                                        float& compf, float& acum) {
+    const int bl = N_FIXED, bi = N_FIXED + K, bs = N_FIXED + 2 * K - 1;
+    const int km1 = K - 1;
+    float l[K_MAX], muk[K_MAX];
+    l[0] = row[bl * T + t];
+    float mx = l[0];
+    for (int k = 0; k < km1; ++k) {
+        muk[k] = num * row[(bi + k) * T + t];
+        l[k + 1] = row[(bl + 1 + k) * T + t] + muk[k] * num * i2se;
+        mx = fmaxf(mx, l[k + 1]);
+    }
+    const float u = row[3 * T + t], nrm = row[4 * T + t], act = row[5 * T + t];
+    float p0, cf = 0.f;
+    if (NORMALIZED) {
+        float sm = 0.f;
+        for (int k = 0; k < K; ++k) {
+            l[k] = expf(l[k] - mx);
+            sm = k == 0 ? l[0] : sm + l[k];
+        }
+        float cum = l[0] / sm;
+        p0 = cum;
+        cf = u > cum ? 1.f : 0.f;
+        for (int k = 1; k < km1; ++k) {
+            cum = cum + l[k] / sm;
+            cf += u > cum ? 1.f : 0.f;
+        }
+    } else {
+        for (int k = 0; k < K; ++k) l[k] = expf(fmaxf(l[k] - mx, -60.0f));
+        float s = l[0];
+        for (int k = 1; k < K; ++k) s = s + l[k];
+        const float us = u * s;
+        float cum = l[0];
+        for (int k = 0; k < km1; ++k) {
+            cf += us > cum ? 1.f : 0.f;
+            cum = cum + l[k + 1];
+        }
+        p0 = l[0] / s;
+    }
+    float mu_sel = 0.f, sd_sel = 0.f;
+    for (int k = 0; k < km1; ++k)
+        if (cf == static_cast<float>(k + 1)) {
+            mu_sel = muk[k];
+            sd_sel = row[(bs + k) * T + t];
+        }
+    const float pos = cf > 0.f ? 1.f : 0.f;
+    bnew = pos * act * (mu_sel + nrm * sd_sel);
+    compf = cf * act;
+    acum = p0 * act + (1.f - act);
+}
+
+// Stale draw: one thread per (marker r, trait t), e = r * T + t.
+__global__ void stale_draw_mt_kernel(const float* __restrict__ mrow, int C, int K,
+                                     int T, const int* __restrict__ order_w, int W,
+                                     const float* __restrict__ part_s1,
+                                     const float* __restrict__ part_s2, int n_tiles,
+                                     int complete, const float* __restrict__ sc,
+                                     float* __restrict__ out, float* __restrict__ coef) {
+    const size_t wt = static_cast<size_t>(W) * T;
+    const int e = blockIdx.x * blockDim.x + threadIdx.x;
+    if (e >= static_cast<int>(wt)) return;
+    const int r = e / T, t = e % T;
+    const int slot = order_w[r];
+    const float* row = mrow + static_cast<size_t>(slot) * C;
+    const float s1 = reduce_tiles_mt(part_s1, n_tiles, wt, e);
+    const float s2 = reduce_tiles_mt(part_s2, n_tiles, wt, e);
+    const float s1v = complete ? 2.0f * s2 - s1 : s1;     // h-decode
+    const float mave = row[t], mstd = row[T + t], bold = row[2 * T + t];
+    const float num0 = mstd * (s1v - mave * s2) + bold * sc[T + t];
+    float bnew, compf, acum;
+    draw_mt<true>(row, T, t, K, num0, sc[t], bnew, compf, acum);
+    float* o = out + static_cast<size_t>(slot) * 3 * T;
+    o[t] = bnew;
+    o[T + t] = compf;
+    o[2 * T + t] = acum;
+    const float c1 = (bold - bnew) * mstd;
+    coef[static_cast<size_t>(t) * W + r] = c1;
+    coef[wt + static_cast<size_t>(t) * W + r] = -c1 * mave;
+}
+
+// ----------------------------------------------------------- recurrence --
+// The exact W-step recurrence for all T traits, in one place for the exact
+// sweep (trait-shared integer Gram) and the per-window path (f32 Gram,
+// shared (W, W) or per trait (T, W, W)). num[t * W + i] lives in shared
+// memory. Step j: threads t < T draw (marker j, trait t) in parallel and
+// publish dbeta_j[t]; then thread i applies num[t*W + i] += G_t(i, j) *
+// dbeta_j[t] (the rank-1 form of num_i = num0_i + sum_{k<i} G_ik dbeta_k).
+template <bool SHARED, bool NORMALIZED, class Gram, class Emit>
+__device__ void mt_recurrence(int W, int T, int K, const float* __restrict__ mrow,
+                              int C, const int* __restrict__ order_w,
+                              const float* __restrict__ i2se, float* s_num,
+                              float* s_db, const Gram& gram, const Emit& emit) {
+    const int tid = threadIdx.x;
+    for (int j = 0; j < W; ++j) {
+        if (tid < T) {
+            const int t = tid;
+            const int slot = order_w[j];
+            const float* row = mrow + static_cast<size_t>(slot) * C;
+            float bnew, compf, acum;
+            draw_mt<NORMALIZED>(row, T, t, K, s_num[t * W + j], i2se[t], bnew,
+                                compf, acum);
+            const float db = row[2 * T + t] - bnew;
+            emit(j, slot, t, row, bnew, compf, acum, db);
+            s_db[t] = db;
+        }
+        __syncthreads();
+        for (int i = tid; i < W; i += blockDim.x) {
+            if (SHARED) {
+                const float g = gram(i, j, 0);
+#pragma unroll
+                for (int t = 0; t < T_MAX; ++t)
+                    if (t < T) s_num[t * W + i] = fmaf(g, s_db[t], s_num[t * W + i]);
+            } else {
+#pragma unroll
+                for (int t = 0; t < T_MAX; ++t)
+                    if (t < T)
+                        s_num[t * W + i] = fmaf(gram(i, j, t), s_db[t], s_num[t * W + i]);
+            }
+        }
+        __syncthreads();
+    }
+}
+
+// The raw integer Gram of the window's g planes, standardized on the fly
+// with trait 0's mave/mstd, v = sum g and n_real (sweep_kernel_mt.py:391-399).
+struct IntSharedGram {
+    const float* G;
+    int W;
+    const float* mave;
+    const float* mstd;
+    const float* v;
+    float n_real;
+    __device__ float operator()(int i, int j, int) const {
+        const float g = G[static_cast<size_t>(j) * W + i];   // symmetric
+        return (mstd[i] * mstd[j])
+               * (g - mave[i] * v[j] - v[i] * mave[j] + n_real * (mave[i] * mave[j]));
+    }
+};
+
+// A standardized f32 Gram: (W, W) shared, or (T, W, W) per trait.
+struct F32Gram {
+    const float* G;
+    int W;
+    __device__ float operator()(int i, int j, int t) const {
+        return G[(static_cast<size_t>(t) * W + i) * W + j];
+    }
+};
+
+// Sweep outputs: out per slot, and the axpy coefficients c1, c2 (T, W).
+struct SweepEmit {
+    float* out;
+    float* coef;
+    int W;
+    int T;
+    __device__ void operator()(int j, int slot, int t, const float* row, float bnew,
+                               float compf, float acum, float db) const {
+        float* o = out + static_cast<size_t>(slot) * 3 * T;
+        o[t] = bnew;
+        o[T + t] = compf;
+        o[2 * T + t] = acum;
+        const float c1 = db * row[T + t];
+        coef[static_cast<size_t>(t) * W + j] = c1;
+        coef[static_cast<size_t>(W) * T + static_cast<size_t>(t) * W + j] = -c1 * row[t];
+    }
+};
+
+// Per-window outputs: [bnew, comp, acum, dbeta], each (W, T).
+struct WindowEmit {
+    float* out;
+    int W;
+    int T;
+    __device__ void operator()(int j, int, int t, const float*, float bnew, float compf,
+                               float acum, float db) const {
+        const size_t wt = static_cast<size_t>(W) * T;
+        const size_t e = static_cast<size_t>(j) * T + t;
+        out[e] = bnew;
+        out[wt + e] = compf;
+        out[2 * wt + e] = acum;
+        out[3 * wt + e] = db;
+    }
+};
+
+// Exact sweep draw: one block. num0 from the stats partials (complete data:
+// s2 = sum e per trait), then the recurrence with the exact-kernel draw.
+__global__ void exact_mt_draw_kernel(const float* __restrict__ mrow, int C, int K,
+                                     int T, const int* __restrict__ order_w, int W,
+                                     const float* __restrict__ part_s1,
+                                     const float* __restrict__ part_s2,
+                                     const float* __restrict__ part_v, int n_tiles,
+                                     const float* __restrict__ G,
+                                     const float* __restrict__ sc,
+                                     float* __restrict__ out, float* __restrict__ coef) {
+    extern __shared__ float sh[];   // num[T*W], db[T_MAX], mave0[W], mstd0[W], v[W]
+    float* s_num = sh;
+    float* s_db = sh + static_cast<size_t>(T) * W;
+    float* s_mave = s_db + T_MAX;
+    float* s_mstd = s_mave + W;
+    float* s_v = s_mstd + W;
+    const size_t wt = static_cast<size_t>(W) * T;
+    for (int i = threadIdx.x; i < W; i += blockDim.x) {
+        const float* row = mrow + static_cast<size_t>(order_w[i]) * C;
+        for (int t = 0; t < T; ++t) {
+            const size_t e = static_cast<size_t>(i) * T + t;
+            const float s1 = reduce_tiles_mt(part_s1, n_tiles, wt, e);
+            const float s2 = reduce_tiles_mt(part_s2, n_tiles, wt, e);
+            s_num[t * W + i] = row[T + t] * (s1 - row[t] * s2) + row[2 * T + t] * sc[T + t];
+        }
+        s_mave[i] = row[0];
+        s_mstd[i] = row[T];
+        s_v[i] = reduce_tiles(part_v, n_tiles, W, i);
+    }
+    __syncthreads();
+    const IntSharedGram gram{G, W, s_mave, s_mstd, s_v, sc[2 * T]};
+    mt_recurrence<true, false>(W, T, K, mrow, C, order_w, sc, s_num, s_db, gram,
+                               SweepEmit{out, coef, W, T});
+}
+
+// The per-window recurrence: num0 (W, T) and a standardized f32 Gram in,
+// the sampler's draw_rows form (bayesrrm_mt.py:384-388).
+template <bool SHARED>
+__global__ void window_recurrence_mt_kernel(const float* __restrict__ G,
+                                            const float* __restrict__ num0,
+                                            const float* __restrict__ mrow, int C,
+                                            int K, int T,
+                                            const int* __restrict__ order_w, int W,
+                                            const float* __restrict__ i2se,
+                                            float* __restrict__ out) {
+    extern __shared__ float sh[];   // num[T*W], db[T_MAX]
+    float* s_num = sh;
+    float* s_db = sh + static_cast<size_t>(T) * W;
+    for (int i = threadIdx.x; i < W; i += blockDim.x)
+        for (int t = 0; t < T; ++t) s_num[t * W + i] = num0[static_cast<size_t>(i) * T + t];
+    __syncthreads();
+    mt_recurrence<SHARED, true>(W, T, K, mrow, C, order_w, i2se, s_num, s_db,
+                                F32Gram{G, W}, WindowEmit{out, W, T});
+}
+
+// ----------------------------------------------------------------- axpy --
+// d[i, t] for individual i = 4b + k, one thread per packed byte, T x 4
+// accumulators in registers, the window's coefficients in shared memory:
+//   COMPLETE d = cst_t - sum_r c1[t, r] * h_r,  cst_t = 2 sum c1 + (add_c2 ?
+//            sum c2 : 0)   (sum c1*g = 2 sum c1 - sum c1*h)
+//   else     d = sum_r c1[t, r] * g_r + c2[t, r] * m_r
+// out[i*T + t] += d * tm[i*T + t]; a null tm reads as 1 (the standalone
+// window_axpy_mt contract: the caller adds sum(c2) and masks).
+template <bool COMPLETE>
+__global__ void axpy_mt_kernel(const uint8_t* __restrict__ pk, int nb,
+                               const int* __restrict__ order_w, int W, int T,
+                               const float* __restrict__ coef, int add_c2,
+                               const float* __restrict__ tm, float* __restrict__ out) {
+    extern __shared__ float sh[];   // c1[T*W], c2[T*W], cst[T_MAX], slot[W]
+    const int tw = T * W;
+    float* s_c1 = sh;
+    float* s_c2 = sh + tw;
+    float* s_cst = sh + 2 * tw;
+    int* s_slot = reinterpret_cast<int*>(s_cst + T_MAX);
+    for (int i = threadIdx.x; i < tw; i += blockDim.x) {
+        s_c1[i] = coef[i];
+        s_c2[i] = coef[tw + i];
+    }
+    for (int i = threadIdx.x; i < W; i += blockDim.x) s_slot[i] = order_w[i];
+    __syncthreads();
+    if (COMPLETE && threadIdx.x < T) {
+        const int t = threadIdx.x;
+        float a = 0.f, c = 0.f;
+        for (int r = 0; r < W; ++r) a += s_c1[t * W + r];
+        if (add_c2)
+            for (int r = 0; r < W; ++r) c += s_c2[t * W + r];
+        s_cst[t] = 2.0f * a + c;
+    }
+    __syncthreads();
+    const int b = blockIdx.x * blockDim.x + threadIdx.x;
+    if (b >= nb) return;
+    float acc[T_MAX][4];
+#pragma unroll
+    for (int t = 0; t < T_MAX; ++t)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) acc[t][k] = 0.f;
+    for (int r = 0; r < W; ++r) {
+        const uint32_t byte = pk[static_cast<size_t>(s_slot[r]) * nb + b];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+            const int c = crumb(byte, k);
+            if (COMPLETE) {
+                const float h = static_cast<float>(c);
+#pragma unroll
+                for (int t = 0; t < T_MAX; ++t)
+                    if (t < T) acc[t][k] = fmaf(s_c1[t * W + r], h, acc[t][k]);
+            } else {
+                const float m = static_cast<float>(crumb_mask(c));
+                const float g = static_cast<float>(crumb_geno(c));
+#pragma unroll
+                for (int t = 0; t < T_MAX; ++t)
+                    if (t < T) {
+                        acc[t][k] = fmaf(s_c1[t * W + r], g, acc[t][k]);
+                        acc[t][k] = fmaf(s_c2[t * W + r], m, acc[t][k]);
+                    }
+            }
+        }
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+        const size_t i = (4 * static_cast<size_t>(b) + k) * T;
+#pragma unroll
+        for (int t = 0; t < T_MAX; ++t)
+            if (t < T) {
+                const float d = COMPLETE ? s_cst[t] - acc[t][k] : acc[t][k];
+                const float mk = tm != nullptr ? tm[i + t] : 1.f;
+                out[i + t] += d * mk;
+            }
+    }
+}
+
+// ------------------------------------------------------------ workspace --
+struct MtWorkspace {
+    float* part_s1;
+    float* part_s2;
+    float* part_v;
+    float* coef;
+    float* gram;
+    float* gram_part;
+    size_t bytes;
+};
+
+inline MtWorkspace layout_mt(void* base, int nb, int W, int T, bool exact) {
+    const size_t n_tiles = cdiv(nb, MT_STATS_TB);
+    const size_t n_chunks = cdiv(nb, GRAM_CB);
+    const size_t wt = static_cast<size_t>(W) * T;
+    size_t off = 0;
+    MtWorkspace ws{};
+    char* p = static_cast<char*>(base);
+    auto take = [&](size_t floats) {
+        float* out = reinterpret_cast<float*>(p + off);
+        off += align256(floats * sizeof(float));
+        return out;
+    };
+    ws.part_s1 = take(n_tiles * wt);
+    ws.part_s2 = take(n_tiles * wt);
+    ws.part_v = take(n_tiles * W);
+    ws.coef = take(2 * wt);
+    if (exact) {
+        ws.gram = take(static_cast<size_t>(W) * W);
+        ws.gram_part = take(n_chunks * W * W);
+    }
+    ws.bytes = off;
+    return ws;
+}
+
+inline bool shapes_ok_mt(int nb, int W, int T) {
+    return W >= 1 && W <= 1024 && T >= 1 && T <= T_MAX && nb > 0 && nb % 128 == 0;
+}
+
+inline size_t axpy_smem(int W, int T) {
+    return sizeof(float) * (2 * static_cast<size_t>(T) * W + T_MAX + W);
+}
+
+inline int rec_threads(int W, int T) { return cdiv(W > T ? W : T, 32) * 32; }
+
+// Dynamic shared memory above the 48 KB default needs an opt-in per kernel.
+template <class F>
+inline cudaError_t allow_smem(F* kernel, size_t bytes) {
+    if (bytes <= 48 * 1024) return cudaSuccess;
+    return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                static_cast<int>(bytes));
+}
+
+#define HYDRA_CHECK(call)                                  \
+    do {                                                   \
+        cudaError_t e_ = (call);                           \
+        if (e_ != cudaSuccess) return static_cast<int>(e_); \
+    } while (0)
+
+int launch_axpy_mt(const uint8_t* pk, int nb, const int* order_w, int W, int T,
+                   const float* coef, int add_c2, int complete, const float* tm,
+                   float* out, cudaStream_t stream) {
+    const size_t smem = axpy_smem(W, T);
+    const int blocks = cdiv(nb, MT_AXPY_THREADS);
+    if (complete) {
+        HYDRA_CHECK(allow_smem(axpy_mt_kernel<true>, smem));
+        axpy_mt_kernel<true><<<blocks, MT_AXPY_THREADS, smem, stream>>>(
+            pk, nb, order_w, W, T, coef, add_c2, tm, out);
+    } else {
+        HYDRA_CHECK(allow_smem(axpy_mt_kernel<false>, smem));
+        axpy_mt_kernel<false><<<blocks, MT_AXPY_THREADS, smem, stream>>>(
+            pk, nb, order_w, W, T, coef, add_c2, tm, out);
+    }
+    HYDRA_CHECK_LAUNCH();
+    return 0;
+}
+
+int run_sweep_mt(bool exact, const uint8_t* pk, float* eps, const float* tm,
+                 const float* mrow, const int* order, const float* sc, float* out,
+                 void* ws_base, int m_loc, int nb, int W, int K, int T, int complete,
+                 cudaStream_t stream) {
+    if (!shapes_ok_mt(nb, W, T) || m_loc <= 0 || m_loc % W || K < 2 || K > K_MAX ||
+        tm == nullptr || (exact && !complete))
+        return static_cast<int>(cudaErrorInvalidValue);
+    const int C = T * (N_FIXED + 3 * K - 2);
+    const MtWorkspace ws = layout_mt(ws_base, nb, W, T, exact);
+    const int n_windows = m_loc / W;
+    const int n_tiles = cdiv(nb, MT_STATS_TB);
+    const int n_chunks = cdiv(nb, GRAM_CB);
+    const int nt = cdiv(W, GRAM_TW);
+    const int mode = !complete ? MODE_MISSING
+                               : (exact ? MODE_EXACT_COMPLETE : MODE_STALE_COMPLETE);
+    const dim3 stats_grid(n_tiles, cdiv(W, MT_STATS_ROWS));
+    const dim3 gram_grid(nt * nt, n_chunks);
+    const size_t draw_smem = sizeof(float) * (static_cast<size_t>(T) * W + T_MAX + 3 * W);
+    if (exact) HYDRA_CHECK(allow_smem(exact_mt_draw_kernel, draw_smem));
+    for (int w = 0; w < n_windows; ++w) {
+        const int* order_w = order + static_cast<size_t>(w) * W;
+        stats_mt_kernel<<<stats_grid, MT_STATS_ROWS * 32, 0, stream>>>(
+            pk, nb, eps, T, order_w, W, mode, ws.part_s1, ws.part_s2, ws.part_v);
+        HYDRA_CHECK_LAUNCH();
+        if (exact) {
+            gram_kernel<true><<<gram_grid, dim3(32, 8), 0, stream>>>(
+                pk, nb, order_w, W, mrow, C, ws.gram_part);
+            HYDRA_CHECK_LAUNCH();
+            gram_reduce_kernel<<<cdiv(static_cast<long long>(W) * W, 256), 256, 0, stream>>>(
+                ws.gram_part, n_chunks, W, 1, ws.gram);
+            HYDRA_CHECK_LAUNCH();
+            exact_mt_draw_kernel<<<1, rec_threads(W, T), draw_smem, stream>>>(
+                mrow, C, K, T, order_w, W, ws.part_s1, ws.part_s2, ws.part_v, n_tiles,
+                ws.gram, sc, out, ws.coef);
+        } else {
+            stale_draw_mt_kernel<<<cdiv(static_cast<long long>(W) * T, MT_DRAW_THREADS),
+                                   MT_DRAW_THREADS, 0, stream>>>(
+                mrow, C, K, T, order_w, W, ws.part_s1, ws.part_s2, n_tiles, complete, sc,
+                out, ws.coef);
+        }
+        HYDRA_CHECK_LAUNCH();
+        const int err = launch_axpy_mt(pk, nb, order_w, W, T, ws.coef, 1, complete, tm,
+                                       eps, stream);
+        if (err) return err;
+    }
+    return 0;
+}
+
+}  // namespace hydra
+
+extern "C" {
+
+// Bytes of device scratch one sweep or one window_stats_mt call needs.
+long long hydra_mt_workspace_bytes(int nb, int window, int n_traits, int exact) {
+    return static_cast<long long>(
+        hydra::layout_mt(nullptr, nb, window, n_traits, exact != 0).bytes);
+}
+
+// A whole stale multi-trait sweep. eps (n_pad, T) is updated in place; tm
+// (n_pad, T) is the trait mask; out (m_loc, 3T) receives [beta_new, comp,
+// acum] per SLOT; sc = [1/(2 sigma_e) (T), dN - 1 (T), n_real].
+int hydra_sweep_stale_mt(const void* pk, void* eps, const void* tm, const void* mrow,
+                         const void* order, const void* sc, void* out, void* ws,
+                         int m_loc, int nb, int window, int n_mix, int n_traits,
+                         int complete, void* stream) {
+    return hydra::run_sweep_mt(
+        false, static_cast<const uint8_t*>(pk), static_cast<float*>(eps),
+        static_cast<const float*>(tm), static_cast<const float*>(mrow),
+        static_cast<const int*>(order), static_cast<const float*>(sc),
+        static_cast<float*>(out), ws, m_loc, nb, window, n_mix, n_traits, complete,
+        static_cast<cudaStream_t>(stream));
+}
+
+// A whole exact multi-trait sweep (complete genotypes, full phenotypes);
+// same contract.
+int hydra_sweep_exact_mt(const void* pk, void* eps, const void* tm, const void* mrow,
+                         const void* order, const void* sc, void* out, void* ws,
+                         int m_loc, int nb, int window, int n_mix, int n_traits,
+                         int complete, void* stream) {
+    return hydra::run_sweep_mt(
+        true, static_cast<const uint8_t*>(pk), static_cast<float*>(eps),
+        static_cast<const float*>(tm), static_cast<const float*>(mrow),
+        static_cast<const int*>(order), static_cast<const float*>(sc),
+        static_cast<float*>(out), ws, m_loc, nb, window, n_mix, n_traits, complete,
+        static_cast<cudaStream_t>(stream));
+}
+
+// s1, s2 (W, T) of the window rows pk[rows[r]] against eps (n_pad, T);
+// complete data writes s1 only (s2 is the caller's per-trait sum(eps)).
+int hydra_window_stats_mt(const void* pk, const void* eps, const void* rows, void* s1,
+                          void* s2, void* ws, int window, int nb, int n_traits,
+                          int complete, void* stream) {
+    using namespace hydra;
+    const int W = window, T = n_traits;
+    if (!shapes_ok_mt(nb, W, T) || (!complete && s2 == nullptr))
+        return static_cast<int>(cudaErrorInvalidValue);
+    const MtWorkspace w = layout_mt(ws, nb, W, T, false);
+    const int n_tiles = cdiv(nb, MT_STATS_TB);
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    stats_mt_kernel<<<dim3(n_tiles, cdiv(W, MT_STATS_ROWS)), MT_STATS_ROWS * 32, 0, st>>>(
+        static_cast<const uint8_t*>(pk), nb, static_cast<const float*>(eps), T,
+        static_cast<const int*>(rows), W, complete ? MODE_STALE_COMPLETE : MODE_MISSING,
+        w.part_s1, w.part_s2, w.part_v);
+    HYDRA_CHECK_LAUNCH();
+    stats_mt_reduce_kernel<<<cdiv(static_cast<long long>(W) * T, 256), 256, 0, st>>>(
+        w.part_s1, w.part_s2, n_tiles, W, T, complete, static_cast<float*>(s1),
+        static_cast<float*>(s2));
+    HYDRA_CHECK_LAUNCH();
+    return 0;
+}
+
+// out (n_pad, T) += sum_r c1[t, r] G_r + c2[t, r] M_r over the rows
+// pk[rows[r]]; coef = [c1 (T, W), c2 (T, W)]. Complete data: the genotype
+// part only (the caller adds sum(c2) and masks).
+int hydra_window_axpy_mt(const void* pk, const void* rows, const void* coef, void* out,
+                         int window, int nb, int n_traits, int complete, void* stream) {
+    using namespace hydra;
+    if (!shapes_ok_mt(nb, window, n_traits)) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_axpy_mt(static_cast<const uint8_t*>(pk), nb,
+                          static_cast<const int*>(rows), window, n_traits,
+                          static_cast<const float*>(coef), 0, complete, nullptr,
+                          static_cast<float*>(out), static_cast<cudaStream_t>(stream));
+}
+
+// The exact recurrence of one window: G (W, W) if shared else (T, W, W),
+// num0 (W, T), the window's mrow rows mrow[rows[j]], i2se (T,); out (4, W,
+// T) = [beta_new, comp, acum, dbeta].
+int hydra_mt_window_recurrence(const void* G, const void* num0, const void* mrow,
+                               const void* rows, const void* i2se, void* out, int window,
+                               int n_mix, int n_traits, int shared, void* stream) {
+    using namespace hydra;
+    const int W = window, T = n_traits, K = n_mix;
+    if (W < 1 || W > 1024 || T < 1 || T > T_MAX || K < 2 || K > K_MAX)
+        return static_cast<int>(cudaErrorInvalidValue);
+    const int C = T * (N_FIXED + 3 * K - 2);
+    const size_t smem = sizeof(float) * (static_cast<size_t>(T) * W + T_MAX);
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const float* g = static_cast<const float*>(G);
+    const float* n0 = static_cast<const float*>(num0);
+    const float* mr = static_cast<const float*>(mrow);
+    const int* ro = static_cast<const int*>(rows);
+    const float* is = static_cast<const float*>(i2se);
+    float* o = static_cast<float*>(out);
+    if (shared) {
+        HYDRA_CHECK(allow_smem(window_recurrence_mt_kernel<true>, smem));
+        window_recurrence_mt_kernel<true><<<1, rec_threads(W, T), smem, st>>>(
+            g, n0, mr, C, K, T, ro, W, is, o);
+    } else {
+        HYDRA_CHECK(allow_smem(window_recurrence_mt_kernel<false>, smem));
+        window_recurrence_mt_kernel<false><<<1, rec_threads(W, T), smem, st>>>(
+            g, n0, mr, C, K, T, ro, W, is, o);
+    }
+    HYDRA_CHECK_LAUNCH();
+    return 0;
+}
+
+const char* hydra_mt_error_string(int err) {
+    return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"

@@ -25,7 +25,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 # source -> its own extra flags. The BayesW draw follows the plain PyTorch
 # version operation by operation, so that file forbids contraction into FMA.
-SOURCES = {"sweep_kernel.cu": (), "sweep_kernel_bw.cu": ("-fmad=false",)}
+SOURCES = {"sweep_kernel.cu": (), "sweep_kernel_bw.cu": ("-fmad=false",),
+           "sweep_kernel_mt.cu": ()}
 
 _p, _i = ctypes.c_void_p, ctypes.c_int
 # C entry point -> (argtypes, restype)
@@ -43,6 +44,15 @@ _SIGNATURES = {
         "hydra_window_axpy": ([_p] * 4 + [_i] * 3 + [_p], _i),
         "hydra_bw_workspace_bytes": ([_i] * 2, ctypes.c_longlong),
         "hydra_bw_error_string": ([_i], ctypes.c_char_p),
+    },
+    "sweep_kernel_mt.cu": {
+        "hydra_sweep_stale_mt": ([_p] * 8 + [_i] * 6 + [_p], _i),
+        "hydra_sweep_exact_mt": ([_p] * 8 + [_i] * 6 + [_p], _i),
+        "hydra_window_stats_mt": ([_p] * 6 + [_i] * 4 + [_p], _i),
+        "hydra_window_axpy_mt": ([_p] * 4 + [_i] * 4 + [_p], _i),
+        "hydra_mt_window_recurrence": ([_p] * 6 + [_i] * 4 + [_p], _i),
+        "hydra_mt_workspace_bytes": ([_i] * 4, ctypes.c_longlong),
+        "hydra_mt_error_string": ([_i], ctypes.c_char_p),
     },
 }
 

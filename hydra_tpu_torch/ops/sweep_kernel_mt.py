@@ -1,0 +1,410 @@
+"""Multi-trait whole-sweep kernels (stale and exact) and the per-window exact
+recurrence.
+
+Port of ``hydra_tpu/ops/sweep_kernel_mt.py`` (``sweep_stale_mt``,
+``sweep_exact_mt``) plus the recurrence that the JAX sampler's per-window
+path runs as a ``lax.scan`` (``hydra_tpu/samplers/bayesrrm_mt.py:439-456``).
+A sweep walks the markers window by window; per window it computes the
+per-(marker, trait) dots s1 = sum g*eps_t and s2 = sum m*eps_t with one
+decode shared by the T traits, draws every (marker, trait) from its
+``mrow`` columns, and applies the trait-masked residual update. The exact
+sweep adds the trait-shared window Gram and the W-step recurrence, for
+complete genotypes and full phenotypes only (the sampler gates it).
+
+Layouts at this interface:
+  pk    (m_loc, NB) uint8      h-packed genotypes in SLOT order
+  eps   (n_pad, T) f32         residual in individual order, one column per
+                               trait (the JAX ``MtState.eps`` layout; no
+                               plane-major (4T, NB) rows). Zero on pad
+                               individuals and on each trait's NaN entries.
+  tm    (n_pad, T) f32         trait mask: 1 where trait t of individual i
+                               is observed, 0 on NaN entries and pads
+  mrow  (m_loc, T*(3K+4)) f32  per-slot rows, column blocks of T (below)
+  order (m_loc,) int32         sweep position -> slot (``block_order``)
+Returns (eps', out) with out (m_loc, 3T) = [beta_new (T), comp (T),
+acum (T)] per slot, the JAX ``out`` columns.
+
+``sweep_stale_mt`` / ``sweep_exact_mt`` / ``mt_window_recurrence`` launch
+the CUDA kernels of ``csrc/sweep_kernel_mt.cu`` for CUDA tensors and raise
+on what the kernels do not take; for CPU tensors they run the plain
+versions ``*_ref``, which the tests hold against the JAX kernels in
+interpret mode.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from hydra_tpu_torch.ops.decode import decode_h, decode_planes_hp
+from hydra_tpu_torch.ops.sweep_kernel import K_MAX, W_MAX
+
+f32 = torch.float32
+
+# mrow column blocks (T columns each; hydra_tpu/ops/sweep_kernel_mt.py:47-56):
+#   0 mave, 1 mstd, 2 bold, 3 u, 4 nrm, 5 act,
+#   6..6+K-1 logl_static, 6+K..6+2K-2 inv_denomk, 6+2K-1..6+3K-3 sd_k
+N_FIXED_BLOCKS = 6
+T_MAX = 16        # csrc/sweep_kernel.cuh
+
+
+def mt_mrow_width(k: int, t: int) -> int:
+    return t * (N_FIXED_BLOCKS + 3 * k - 2)
+
+
+# Kernel launches through each wrapper (one per sweep, one per window
+# recurrence). The sampler's main path must move these; comparisons against
+# the plain versions call the kernels through the same wrappers, so callers
+# reset and read around the run they want to count.
+launches = {"sweep_stale_mt": 0, "sweep_exact_mt": 0,
+            "mt_window_recurrence": 0}
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+def _blocks(rows: torch.Tensor, T: int) -> torch.Tensor:
+    """(..., T*(3K+4)) rows -> (..., 3K+4, T) column blocks."""
+    return rows.reshape(*rows.shape[:-1], -1, T)
+
+
+def draw_normalized(b: torch.Tensor, num: torch.Tensor, i2se: torch.Tensor,
+                    K: int):
+    """The stale kernel's draw (sweep_kernel_mt.py:140-161), which is also
+    the sampler's draw_rows (bayesrrm_mt.py:348-368). b (..., 3K+4, T),
+    num (..., T) -> (beta_new, comp, acum), each (..., T)."""
+    n0 = N_FIXED_BLOCKS
+    logl, invd, sd = (b[..., n0:n0 + K, :], b[..., n0 + K:n0 + 2 * K - 1, :],
+                      b[..., n0 + 2 * K - 1:n0 + 3 * K - 2, :])
+    u, nrm, act = b[..., 3, :], b[..., 4, :], b[..., 5, :]
+    muk = num[..., None, :] * invd                              # (..., K-1, T)
+    ls = torch.cat([logl[..., :1, :],
+                    logl[..., 1:, :] + muk * num[..., None, :] * i2se], dim=-2)
+    prs = torch.exp(ls - ls.max(dim=-2, keepdim=True).values)
+    sm = prs[..., 0, :]
+    for j in range(1, K):
+        sm = sm + prs[..., j, :]
+    probs = prs / sm[..., None, :]
+    cum = probs[..., 0, :]
+    compf = (u > cum).to(f32)
+    for j in range(1, K - 1):
+        cum = cum + probs[..., j, :]
+        compf = compf + (u > cum).to(f32)
+    ks = torch.arange(1, K, device=b.device, dtype=f32)[:, None]
+    sel = (compf[..., None, :] == ks).to(f32)
+    bnz = (sel * (muk + nrm[..., None, :] * sd)).sum(dim=-2)
+    bnew = (compf > 0).to(f32) * act * bnz
+    return bnew, compf * act, probs[..., 0, :] * act + (1.0 - act)
+
+
+def draw_clamped(b: torch.Tensor, num: torch.Tensor, i2se: torch.Tensor,
+                 K: int):
+    """The exact kernel's draw (sweep_kernel_mt.py:430-455) for one marker,
+    all traits: exp(max(l - mx, -60)), unnormalized u*s against the running
+    cum. b (3K+4, T), num (T,) -> (beta_new, comp, acum), each (T,)."""
+    n0 = N_FIXED_BLOCKS
+    logl, invd, sd = (b[n0:n0 + K], b[n0 + K:n0 + 2 * K - 1],
+                      b[n0 + 2 * K - 1:n0 + 3 * K - 2])
+    muk = num * invd                                            # (K-1, T)
+    ls = logl[1:] + muk * num * i2se
+    mx = torch.maximum(logl[0], ls.max(dim=0).values)
+    pr0 = torch.exp(torch.clamp(logl[0] - mx, min=-60.0))
+    prs = torch.exp(torch.clamp(ls - mx, min=-60.0))
+    cs = torch.cumsum(torch.cat([pr0[None], prs]), dim=0)       # running cum
+    s = cs[-1]
+    compf = (b[3] * s > cs[:-1]).to(f32).sum(dim=0)
+    ks = torch.arange(1, K, device=b.device, dtype=f32)[:, None]
+    sel = (ks == compf).to(f32)
+    act = b[5]
+    bnew = (compf > 0).to(f32) * act * ((sel * muk).sum(dim=0)
+                                        + b[4] * (sel * sd).sum(dim=0))
+    return bnew, compf * act, (pr0 / s) * act + (1.0 - act)
+
+
+def _check(pk, eps, tm, mrow, i_2se, dNm1, window, n_mix, order):
+    if pk.dtype != torch.uint8 or pk.dim() != 2:
+        raise ValueError(f"pk must be (m_loc, NB) uint8, got {pk.dtype} "
+                         f"{tuple(pk.shape)}")
+    m_loc, nb = pk.shape
+    if eps.dtype != f32 or eps.dim() != 2 or eps.shape[0] != 4 * nb:
+        raise ValueError(f"eps must be ({4 * nb}, T) float32, got {eps.dtype} "
+                         f"{tuple(eps.shape)}")
+    T = eps.shape[1]
+    if tm is None or tuple(tm.shape) != tuple(eps.shape) or tm.dtype != f32:
+        raise ValueError(f"tm must be ({4 * nb}, {T}) float32")
+    if mrow.dtype != f32 or tuple(mrow.shape) != (m_loc, mt_mrow_width(n_mix, T)):
+        raise ValueError(f"mrow must be ({m_loc}, {mt_mrow_width(n_mix, T)}) "
+                         f"float32, got {mrow.dtype} {tuple(mrow.shape)}")
+    for name, v in (("i_2se", i_2se), ("dNm1", dNm1)):
+        if tuple(v.shape) != (T,):
+            raise ValueError(f"{name} must be ({T},), got {tuple(v.shape)}")
+    if window < 1 or m_loc % window:
+        raise ValueError(f"m_loc {m_loc} is not a multiple of window {window}")
+    if order is not None and tuple(order.shape) != (m_loc,):
+        raise ValueError(f"order must be ({m_loc},), got {tuple(order.shape)}")
+
+
+def _order(order, m_loc, device):
+    if order is None:
+        return torch.arange(m_loc, device=device)
+    return order.to(device=device, dtype=torch.int64)
+
+
+@torch.inference_mode()
+def sweep_stale_mt_ref(pk, eps, tm, mrow, i_2se, dNm1, *, window: int,
+                       n_mix: int, complete: bool,
+                       order: Optional[torch.Tensor] = None):
+    """Plain PyTorch stale multi-trait sweep (same math as the kernel)."""
+    _check(pk, eps, tm, mrow, i_2se, dNm1, window, n_mix, order)
+    m_loc, T = pk.shape[0], eps.shape[1]
+    W, K = window, n_mix
+    i2se, dnm1 = i_2se.to(f32), dNm1.to(f32)
+    order = _order(order, m_loc, pk.device)
+    eps = eps.clone()
+    out = torch.zeros((m_loc, 3 * T), dtype=f32, device=pk.device)
+    for w in range(m_loc // W):
+        slots = order[w * W:(w + 1) * W]
+        b = _blocks(mrow[slots], T)
+        mave, mstd, bold = b[:, 0], b[:, 1], b[:, 2]
+        if complete:
+            # h-decode: s1 = 2*sum(eps) - h.eps; pads (h = 3) meet eps == 0
+            # here and tm == 0 in the update
+            h = decode_h(pk[slots])
+            s2 = eps.sum(dim=0)
+            s1 = 2.0 * s2 - h @ eps
+        else:
+            g, m = decode_planes_hp(pk[slots])
+            s1, s2 = g @ eps, m @ eps
+        num0 = mstd * (s1 - mave * s2) + bold * dnm1
+        bnew, comp, acum = draw_normalized(b, num0, i2se, K)
+        c1 = (bold - bnew) * mstd                                # (W, T)
+        c2 = -c1 * mave
+        if complete:
+            csum = 2.0 * c1.sum(dim=0) + c2.sum(dim=0)
+            eps = eps + (csum - h.T @ c1) * tm
+        else:
+            eps = eps + (g.T @ c1 + m.T @ c2) * tm
+        out[slots] = torch.cat([bnew, comp, acum], dim=1)
+    return eps, out
+
+
+@torch.inference_mode()
+def sweep_exact_mt_ref(pk, eps, tm, mrow, i_2se, dNm1, *, window: int,
+                       n_mix: int, order: Optional[torch.Tensor] = None):
+    """Plain PyTorch exact multi-trait sweep (complete genotypes, full
+    phenotypes): the trait-shared integer Gram standardized with trait 0's
+    mave/mstd and n_real = dNm1[0] + 1 (sweep_kernel_mt.py:391-399), then
+    the recurrence as the kernel's rank-1 update num_i += G_ij * dbeta_j."""
+    _check(pk, eps, tm, mrow, i_2se, dNm1, window, n_mix, order)
+    m_loc, T = pk.shape[0], eps.shape[1]
+    W, K = window, n_mix
+    i2se, dnm1 = i_2se.to(f32), dNm1.to(f32)
+    n_real = dnm1[0] + 1.0
+    order = _order(order, m_loc, pk.device)
+    eps = eps.clone()
+    out = torch.zeros((m_loc, 3 * T), dtype=f32, device=pk.device)
+    for w in range(m_loc // W):
+        slots = order[w * W:(w + 1) * W]
+        b = _blocks(mrow[slots], T)
+        mave, mstd, bold = b[:, 0], b[:, 1], b[:, 2]
+        g, _ = decode_planes_hp(pk[slots])
+        s1 = g @ eps
+        s2 = eps.sum(dim=0)
+        v = g.sum(dim=1)
+        ma, ms = mave[:, 0], mstd[:, 0]
+        gram = (ms[:, None] * ms[None, :]) * (
+            g @ g.T - ma[:, None] * v[None, :] - v[:, None] * ma[None, :]
+            + n_real * (ma[:, None] * ma[None, :]))
+        numv = mstd * (s1 - mave * s2) + bold * dnm1              # (W, T)
+        res = []
+        for j in range(W):
+            bnew, comp, acum = draw_clamped(b[j], numv[j], i2se, K)
+            db = bold[j] - bnew
+            numv = numv + gram[:, j:j + 1] * db[None, :]
+            res.append(torch.stack([bnew, comp, acum, db]))
+        res = torch.stack(res)                                    # (W, 4, T)
+        c1 = res[:, 3] * mstd
+        c2 = -c1 * mave
+        csum = 2.0 * c1.sum(dim=0) + c2.sum(dim=0)
+        eps = eps + (csum - decode_h(pk[slots]).T @ c1) * tm
+        out[slots] = res[:, :3].reshape(W, 3 * T)
+    return eps, out
+
+
+def _check_recurrence(gram, num0, mrow, i_2se, n_mix, rows):
+    if num0.dtype != f32 or num0.dim() != 2:
+        raise ValueError(f"num0 must be (W, T) float32, got {num0.dtype} "
+                         f"{tuple(num0.shape)}")
+    W, T = num0.shape
+    if gram.dtype != f32 or tuple(gram.shape) not in ((W, W), (T, W, W)):
+        raise ValueError(f"gram must be ({W}, {W}) or ({T}, {W}, {W}) "
+                         f"float32, got {gram.dtype} {tuple(gram.shape)}")
+    n_rows = W if rows is None else mrow.shape[0]
+    if mrow.dtype != f32 or tuple(mrow.shape) != (n_rows,
+                                                  mt_mrow_width(n_mix, T)):
+        raise ValueError(f"mrow must be ({n_rows}, {mt_mrow_width(n_mix, T)})"
+                         f" float32, got {mrow.dtype} {tuple(mrow.shape)}")
+    if rows is not None and tuple(rows.shape) != (W,):
+        raise ValueError(f"rows must be ({W},), got {tuple(rows.shape)}")
+    if tuple(i_2se.shape) != (T,):
+        raise ValueError(f"i_2se must be ({T},), got {tuple(i_2se.shape)}")
+
+
+@torch.inference_mode()
+def mt_window_recurrence_ref(gram, num0, mrow, i_2se, *, n_mix: int,
+                             rows: Optional[torch.Tensor] = None):
+    """Plain PyTorch exact recurrence of one window (the sampler's scan,
+    bayesrrm_mt.py:439-456, with its draw_rows form). gram (W, W) shared or
+    (T, W, W) per trait, standardized; num0 (W, T); mrow the window's rows
+    (W, C), or all rows with ``rows`` selecting the window's slots.
+    Returns (beta_new, comp, acum, dbeta), each (W, T)."""
+    _check_recurrence(gram, num0, mrow, i_2se, n_mix, rows)
+    W, T = num0.shape
+    b = _blocks(mrow if rows is None else mrow[rows.to(torch.int64)], T)
+    i2se = i_2se.to(f32)
+    numv = num0.clone()
+    res = []
+    for j in range(W):
+        bnew, comp, acum = draw_normalized(b[j], numv[j], i2se, n_mix)
+        db = b[j, 2] - bnew
+        col = gram[:, :, j].T if gram.dim() == 3 else gram[:, j:j + 1]
+        numv = numv + col * db[None, :]
+        res.append(torch.stack([bnew, comp, acum, db]))
+    res = torch.stack(res, dim=1)                                 # (4, W, T)
+    return res[0], res[1], res[2], res[3]
+
+
+def _lib():
+    from hydra_tpu_torch.ops import _build
+    return _build.load("sweep_kernel_mt.cu")
+
+
+def _stream(dev):
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _raise(lib, what, err):
+    raise RuntimeError(f"{what} kernel launch failed: "
+                       f"{lib.hydra_mt_error_string(err).decode()}")
+
+
+def check_card_shapes(nb: int, window: int, n_traits: int) -> None:
+    """What the CUDA kernels take (csrc/sweep_kernel_mt.cu)."""
+    if not 1 <= window <= W_MAX:
+        raise ValueError(f"the CUDA kernels take 1 <= window <= {W_MAX}, "
+                         f"got {window}")
+    if not 1 <= n_traits <= T_MAX:
+        raise ValueError(f"the CUDA kernels take 1..{T_MAX} traits, got "
+                         f"{n_traits}")
+    if nb % 128:
+        raise ValueError(f"packed width {nb} is not a multiple of 128 bytes "
+                         "(individuals pad to 512, data/genotypes.py)")
+
+
+def on_device(dev, **tensors) -> None:
+    for name, t in tensors.items():
+        if t is not None and (t.device != dev or not t.is_contiguous()):
+            raise ValueError(f"{name} must be contiguous and on {dev}")
+
+
+def _launch(name, exact, pk, eps, tm, mrow, i_2se, dNm1, window, n_mix,
+            complete, order):
+    dev = pk.device
+    m_loc, nb = pk.shape
+    T = eps.shape[1]
+    check_card_shapes(nb, window, T)
+    if not 2 <= n_mix <= K_MAX:
+        raise ValueError(f"the CUDA sweep takes 2..{K_MAX} mixture "
+                         f"components, got {n_mix}")
+    if order is None:
+        order = torch.arange(m_loc, device=dev, dtype=torch.int32)
+    if order.dtype != torch.int32:
+        raise ValueError(f"order must be int32, got {order.dtype}")
+    on_device(dev, pk=pk, eps=eps, tm=tm, mrow=mrow, order=order)
+    lib = _lib()
+    i2se = i_2se.to(device=dev, dtype=f32)
+    dnm1 = dNm1.to(device=dev, dtype=f32)
+    sc = torch.cat([i2se, dnm1, dnm1[:1] + 1.0]).contiguous()
+    ws = torch.empty(lib.hydra_mt_workspace_bytes(nb, window, T, int(exact)),
+                     dtype=torch.uint8, device=dev)
+    eps_out = eps.clone()
+    out = torch.zeros((m_loc, 3 * T), dtype=f32, device=dev)
+    fn = lib.hydra_sweep_exact_mt if exact else lib.hydra_sweep_stale_mt
+    with torch.cuda.device(dev):
+        err = fn(pk.data_ptr(), eps_out.data_ptr(), tm.data_ptr(),
+                 mrow.data_ptr(), order.data_ptr(), sc.data_ptr(),
+                 out.data_ptr(), ws.data_ptr(), m_loc, nb, window, n_mix, T,
+                 int(complete), _stream(dev))
+    if err:
+        _raise(lib, name, err)
+    launches[name] += 1
+    return eps_out, out
+
+
+def sweep_stale_mt(pk, eps, tm, mrow, i_2se, dNm1, *, window: int, n_mix: int,
+                   complete: bool, order: Optional[torch.Tensor] = None):
+    """Stale multi-trait sweep: the CUDA kernel on CUDA tensors, the plain
+    version on CPU tensors."""
+    _check(pk, eps, tm, mrow, i_2se, dNm1, window, n_mix, order)
+    if pk.device.type == "cpu":
+        return sweep_stale_mt_ref(pk, eps, tm, mrow, i_2se, dNm1,
+                                  window=window, n_mix=n_mix,
+                                  complete=complete, order=order)
+    if pk.device.type != "cuda":
+        raise ValueError(f"no sweep kernel for device {pk.device}")
+    return _launch("sweep_stale_mt", False, pk, eps, tm, mrow, i_2se, dNm1,
+                   window, n_mix, complete, order)
+
+
+def sweep_exact_mt(pk, eps, tm, mrow, i_2se, dNm1, *, window: int, n_mix: int,
+                   order: Optional[torch.Tensor] = None):
+    """Exact multi-trait sweep (complete genotypes and full phenotypes only;
+    dNm1 is the same for every trait): the CUDA kernel on CUDA tensors, the
+    plain version on CPU tensors."""
+    _check(pk, eps, tm, mrow, i_2se, dNm1, window, n_mix, order)
+    if pk.device.type == "cpu":
+        return sweep_exact_mt_ref(pk, eps, tm, mrow, i_2se, dNm1,
+                                  window=window, n_mix=n_mix, order=order)
+    if pk.device.type != "cuda":
+        raise ValueError(f"no sweep kernel for device {pk.device}")
+    return _launch("sweep_exact_mt", True, pk, eps, tm, mrow, i_2se, dNm1,
+                   window, n_mix, True, order)
+
+
+def mt_window_recurrence(gram, num0, mrow, i_2se, *, n_mix: int,
+                         rows: Optional[torch.Tensor] = None):
+    """The exact recurrence of one window: the CUDA kernel on CUDA tensors,
+    the plain version on CPU tensors. Returns (beta_new, comp, acum,
+    dbeta), each (W, T)."""
+    _check_recurrence(gram, num0, mrow, i_2se, n_mix, rows)
+    if num0.device.type == "cpu":
+        return mt_window_recurrence_ref(gram, num0, mrow, i_2se,
+                                        n_mix=n_mix, rows=rows)
+    if num0.device.type != "cuda":
+        raise ValueError(f"no recurrence kernel for device {num0.device}")
+    dev = num0.device
+    W, T = num0.shape
+    if not 1 <= W <= W_MAX or not 1 <= T <= T_MAX or not 2 <= n_mix <= K_MAX:
+        raise ValueError(f"the CUDA recurrence takes W <= {W_MAX}, T <= "
+                         f"{T_MAX} and 2..{K_MAX} components, got W={W}, "
+                         f"T={T}, K={n_mix}")
+    if rows is None:
+        rows = torch.arange(W, device=dev, dtype=torch.int32)
+    if rows.dtype != torch.int32:
+        raise ValueError(f"rows must be int32, got {rows.dtype}")
+    i2se = i_2se.to(device=dev, dtype=f32).contiguous()
+    on_device(dev, gram=gram, num0=num0, mrow=mrow, rows=rows)
+    lib = _lib()
+    out = torch.empty((4, W, T), dtype=f32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.hydra_mt_window_recurrence(
+            gram.data_ptr(), num0.data_ptr(), mrow.data_ptr(),
+            rows.data_ptr(), i2se.data_ptr(), out.data_ptr(), W, n_mix, T,
+            int(gram.dim() == 2), _stream(dev))
+    if err:
+        _raise(lib, "mt_window_recurrence", err)
+    launches["mt_window_recurrence"] += 1
+    return out[0], out[1], out[2], out[3]

@@ -27,6 +27,26 @@ xor butterfly and the tiles in order; the axpy row by row. BayesW's
 component and slice decisions are discontinuous in these sums over N, so
 on the card the plain version and the kernel then agree bit for bit
 instead of within a rounding tolerance.
+
+Multi-trait (ports of ``window_stats_mt`` and ``window_axpy_mt``, the
+per-window passes of the multi-trait sampler's exact path): the residual
+and dε are (n_pad, T) f32 in individual order, one column per trait (the
+JAX ``MtState.eps`` layout), not the TPU's plane-major (4T, NB) rows.
+
+  window_stats_mt(pk, eps) -> (s1, s2), each (W, T): s1 = sum g*eps_t,
+      s2 = sum m*eps_t per (marker, trait); complete data returns s2 = None
+      (the caller uses the per-trait sum(eps), zero on pads and NaN
+      entries).
+  window_axpy_mt(pk, c1, c2) -> dε (n_pad, T) = sum_m c1[t,m] G_m +
+      c2[t,m] M_m with c1, c2 (T, W); complete data returns the genotype
+      part only (the caller adds the per-trait sum(c2) and applies the
+      trait mask):
+          d_eps = (window_axpy_mt(..., complete=True) + c2.sum(1)) * tm
+
+Both take an optional ``rows`` (W,) int32: the window's slots in a larger
+pk, read on the device instead of gathered. Their CUDA kernels live in
+``csrc/sweep_kernel_mt.cu`` and are the same ones the multi-trait sweeps
+launch per window; ``launches`` counts the standalone calls.
 """
 
 from __future__ import annotations
@@ -35,7 +55,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from hydra_tpu_torch.ops.decode import crumbs
+from hydra_tpu_torch.ops.decode import crumbs, decode_h, decode_planes_hp
 
 f32 = torch.float32
 LEVELS_TB = 512        # packed bytes per levels tile (csrc/sweep_kernel_bw.cu)
@@ -44,7 +64,8 @@ _WORD_STEPS = LEVELS_TB // 4 // _LANES    # 32-bit words per lane per tile
 
 # Kernel launches per name: one per standalone wrapper call, plus one per
 # window of each sweep_stale_bw call (the sweep launches the same kernels).
-launches = {"window_level_sums": 0, "window_axpy": 0}
+launches = {"window_level_sums": 0, "window_axpy": 0,
+            "window_stats_mt": 0, "window_axpy_mt": 0}
 
 
 def reset_launches() -> None:
@@ -225,4 +246,143 @@ def window_axpy(pk: torch.Tensor, c1: torch.Tensor, c2: torch.Tensor,
     if err:
         _raise(lib, "window_axpy", err)
     launches["window_axpy"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Multi-trait passes (module docstring)
+# ---------------------------------------------------------------------------
+
+
+def _window_rows(pk: torch.Tensor, rows: Optional[torch.Tensor]) -> torch.Tensor:
+    return pk if rows is None else pk[rows.to(torch.int64)]
+
+
+def _check_mt(pk, rows, n_rows_name: str):
+    if pk.dtype != torch.uint8 or pk.dim() != 2:
+        raise ValueError(f"pk must be (rows, NB) uint8, got {pk.dtype} "
+                         f"{tuple(pk.shape)}")
+    if rows is not None and (rows.dim() != 1 or rows.dtype not in (
+            torch.int32, torch.int64)):
+        raise ValueError(f"rows must be ({n_rows_name},) int32")
+    return pk.shape[0] if rows is None else rows.shape[0]
+
+
+def _check_stats_mt(pk, eps, rows):
+    W = _check_mt(pk, rows, "W")
+    nb = pk.shape[1]
+    if eps.dtype != f32 or eps.dim() != 2 or eps.shape[0] != 4 * nb:
+        raise ValueError(f"eps must be ({4 * nb}, T) float32, got {eps.dtype} "
+                         f"{tuple(eps.shape)}")
+    return W, eps.shape[1]
+
+
+def _check_axpy_mt(pk, c1, c2, rows):
+    W = _check_mt(pk, rows, "W")
+    if c1.dim() != 2 or c1.shape[1] != W:
+        raise ValueError(f"c1 must be (T, {W}) float32, got {c1.dtype} "
+                         f"{tuple(c1.shape)}")
+    for name, c in (("c1", c1), ("c2", c2)):
+        if c.dtype != f32 or tuple(c.shape) != tuple(c1.shape):
+            raise ValueError(f"{name} must be ({c1.shape[0]}, {W}) float32, "
+                             f"got {c.dtype} {tuple(c.shape)}")
+    return W, c1.shape[0]
+
+
+def window_stats_mt_ref(pk: torch.Tensor, eps: torch.Tensor,
+                        complete: bool = False,
+                        rows: Optional[torch.Tensor] = None
+                        ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Plain PyTorch multi-trait stats (same contract as
+    ``window_stats_mt``)."""
+    _check_stats_mt(pk, eps, rows)
+    pk = _window_rows(pk, rows)
+    if complete:
+        # h-decode, as the kernel: s1 = 2*sum(eps) - h.eps
+        return 2.0 * eps.sum(dim=0) - decode_h(pk) @ eps, None
+    g, m = decode_planes_hp(pk)
+    return g @ eps, m @ eps
+
+
+def window_axpy_mt_ref(pk: torch.Tensor, c1: torch.Tensor, c2: torch.Tensor,
+                       complete: bool = False,
+                       rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain PyTorch multi-trait axpy (same contract as
+    ``window_axpy_mt``)."""
+    _check_axpy_mt(pk, c1, c2, rows)
+    pk = _window_rows(pk, rows)
+    if complete:
+        # h-decode: sum c1*g = 2*sum(c1) - sum c1*h
+        return 2.0 * c1.sum(dim=1) - decode_h(pk).T @ c1.T
+    g, m = decode_planes_hp(pk)
+    return g.T @ c1.T + m.T @ c2.T
+
+
+def _mt_card(pk, rows, W, T, what):
+    from hydra_tpu_torch.ops.sweep_kernel_mt import check_card_shapes
+    if pk.device.type != "cuda":
+        raise ValueError(f"no {what} kernel for device {pk.device}")
+    check_card_shapes(pk.shape[1], W, T)
+    if rows is None:
+        rows = torch.arange(W, dtype=torch.int32, device=pk.device)
+    if rows.dtype != torch.int32:
+        raise ValueError(f"rows must be int32, got {rows.dtype}")
+    return rows
+
+
+def window_stats_mt(pk: torch.Tensor, eps: torch.Tensor,
+                    complete: bool = False,
+                    rows: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """(s1, s2) each (W, T): the CUDA kernel on CUDA tensors, the plain
+    version on CPU tensors."""
+    W, T = _check_stats_mt(pk, eps, rows)
+    if pk.device.type == "cpu":
+        return window_stats_mt_ref(pk, eps, complete, rows)
+    rows = _mt_card(pk, rows, W, T, "window_stats_mt")
+    from hydra_tpu_torch.ops import sweep_kernel_mt as skmt
+
+    dev = pk.device
+    skmt.on_device(dev, pk=pk, eps=eps, rows=rows)
+    lib = skmt._lib()
+    nb = pk.shape[1]
+    s1 = torch.empty((W, T), dtype=f32, device=dev)
+    s2 = None if complete else torch.empty((W, T), dtype=f32, device=dev)
+    ws = torch.empty(lib.hydra_mt_workspace_bytes(nb, W, T, 0),
+                     dtype=torch.uint8, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.hydra_window_stats_mt(
+            pk.data_ptr(), eps.data_ptr(), rows.data_ptr(), s1.data_ptr(),
+            None if s2 is None else s2.data_ptr(), ws.data_ptr(), W, nb, T,
+            int(complete), skmt._stream(dev))
+    if err:
+        skmt._raise(lib, "window_stats_mt", err)
+    launches["window_stats_mt"] += 1
+    return s1, s2
+
+
+def window_axpy_mt(pk: torch.Tensor, c1: torch.Tensor, c2: torch.Tensor,
+                   complete: bool = False,
+                   rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """dε (n_pad, T): the CUDA kernel on CUDA tensors, the plain version on
+    CPU tensors."""
+    W, T = _check_axpy_mt(pk, c1, c2, rows)
+    if pk.device.type == "cpu":
+        return window_axpy_mt_ref(pk, c1, c2, complete, rows)
+    rows = _mt_card(pk, rows, W, T, "window_axpy_mt")
+    from hydra_tpu_torch.ops import sweep_kernel_mt as skmt
+
+    dev = pk.device
+    skmt.on_device(dev, pk=pk, c1=c1, c2=c2, rows=rows)
+    lib = skmt._lib()
+    nb = pk.shape[1]
+    coef = torch.cat([c1.reshape(-1), c2.reshape(-1)])
+    out = torch.zeros((4 * nb, T), dtype=f32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.hydra_window_axpy_mt(
+            pk.data_ptr(), rows.data_ptr(), coef.data_ptr(), out.data_ptr(),
+            W, nb, T, int(complete), skmt._stream(dev))
+    if err:
+        skmt._raise(lib, "window_axpy_mt", err)
+    launches["window_axpy_mt"] += 1
     return out

@@ -1,0 +1,586 @@
+"""Multi-trait BayesRRm on one device.
+
+Port of ``hydra_tpu/samplers/bayesrrm_mt.py`` (``BayesRRmMT``; reference
+BayesRRm_mt::runMpiGibbsMultiTraits, src/BayesRRm_mt.cpp:290-1426). T traits
+share one genotype shard; each keeps its own residual column, mu, sigmaE,
+sigmaG and pi per group, and beta column. Missing phenotypes are per-trait
+NaN masks, not removals: a masked individual contributes nothing to that
+trait's dot products, residual updates or statistics, and the marker
+statistics are per (marker, trait) under the trait's mask.
+
+The residual is (n_pad, T) in individual order, one column per trait (the
+JAX ``MtState`` layout), held at 0 on pad individuals and on each trait's
+NaN entries. A sweep is
+
+  per-trait mu -> per-slot noise (m_loc, T) -> mrow -> one of three
+  branches -> cass -> per-(trait, group) sigmaG and pi, per-trait sigmaE
+
+with the branch chosen as the JAX sampler does (without its TPU gates):
+
+  stale (``exact=False``)                   sweep_stale_mt
+  exact, complete genotypes, no NaN trait    sweep_exact_mt (shared Gram)
+  exact otherwise                            per window: window_stats_mt ->
+      the window Gram (a plain matmul of decoded planes; (W, W) from trait
+      0's statistics when no phenotype is NaN, else T masked (T, W, W)
+      Grams, bayesrrm_mt.py:137-184) -> mt_window_recurrence ->
+      window_axpy_mt
+
+``schedule="auto"`` is block for stale and for exact with complete
+genotypes and full phenotypes, marker otherwise (bayesrrm_mt.py:715-726),
+so the same flags take the same chain in both packages. The block setup
+permutation and the RNG site ids are the JAX sampler's; ``step(...,
+noise=...)`` takes the draws from the caller. The Gram is a float32 matmul:
+on CUDA, TF32 must be off (``torch.backends.cuda.matmul.allow_tf32``; the
+runner turns it off). Covariates are not ported.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Optional, Union
+
+import numpy as np
+import torch
+
+from hydra_tpu_torch.data.genotypes import Dataset, shard_layout
+from hydra_tpu_torch.ops.decode import decode_planes_hp, hpack_bytes
+from hydra_tpu_torch.ops.sweep_kernel import K_MAX, W_MAX, block_order
+from hydra_tpu_torch.ops.sweep_kernel_mt import (T_MAX, mt_mrow_width,
+                                                 mt_window_recurrence,
+                                                 sweep_exact_mt,
+                                                 sweep_stale_mt)
+from hydra_tpu_torch.ops.window_kernels import window_axpy_mt, window_stats_mt
+from hydra_tpu_torch.samplers.bayesrrm import (MIN_WINDOW, S02E,
+                                               S02G_DEFAULT, V0E, V0G_DEFAULT,
+                                               resolve_device)
+from hydra_tpu_torch.utils import dist
+
+f32 = torch.float32
+
+# RNG site ids, as in the JAX sampler (hydra_tpu/samplers/bayesrrm_mt.py:57-59)
+_S_MU, _S_UNIF, _S_NORM, _S_SIGMAG, _S_PI, _S_SIGMAE, _S_PERM = range(7)
+_S_INIT = 100
+_INIT_ITERATION = -1     # init-time draws sit outside the chain's iterations
+
+
+@dataclass(frozen=True)
+class MtConfig:
+    n_pad: int
+    m_tot: int
+    m_loc: int
+    window: int
+    k: int
+    num_groups: int
+    n_traits: int
+    shuffle: bool
+    schedule: str        # "block" | "marker"
+    complete: bool       # no missing genotypes
+    exact: bool
+    full_pheno: bool     # no NaN phenotype: trait-shared statistics
+
+    @property
+    def n_windows(self) -> int:
+        return self.m_loc // self.window
+
+
+@dataclass
+class MtState:
+    eps: torch.Tensor          # (n_pad, T), masked entries held at 0
+    beta: torch.Tensor         # (m_loc, T) per slot
+    components: torch.Tensor   # (m_loc, T) int32
+    acum: torch.Tensor         # (m_loc, T) P(zero component)
+    mu: torch.Tensor           # (T,)
+    sigma_e: torch.Tensor      # (T,)
+    sigma_g: torch.Tensor      # (T, G)
+    est_pi: torch.Tensor       # (T, G, K)
+    gamma: torch.Tensor        # (0, T): no covariates in the port
+
+
+STATE_FIELDS = tuple(f.name for f in dataclasses.fields(MtState))
+
+
+@dataclass
+class MtStats:
+    m0: torch.Tensor           # (T, G)
+    cass: torch.Tensor         # (T, G, K)
+    beta_sqn: torch.Tensor     # (T, G)
+
+
+def state_from_numpy(x, device) -> MtState:
+    """A state from numpy arrays: a JAX ``MtState`` converted with
+    ``np.asarray`` per field, or a dict with the same field names."""
+    get = x.get if isinstance(x, dict) else (lambda k: getattr(x, k))
+    out = {}
+    for name in STATE_FIELDS:
+        dt = torch.int32 if name == "components" else f32
+        out[name] = torch.as_tensor(np.array(get(name)), dtype=dt,
+                                    device=device)
+    return MtState(**out)
+
+
+def state_to_numpy(state: MtState) -> dict:
+    """Field name -> numpy array (the JAX state's names, shapes and dtypes)."""
+    return {name: getattr(state, name).cpu().numpy() for name in STATE_FIELDS}
+
+
+def scaled_phenotypes(phenos: np.ndarray):
+    """Per-trait NaN masks and centred, scaled phenotypes
+    (bayesrrm_mt.py:770-780; data.cpp:1495-1529 under the mask): returns
+    (y, mask, nonas), y and mask (T, N) float64, y zero where masked."""
+    mask = np.isfinite(phenos).astype(np.float64)
+    y = np.where(mask > 0, phenos, 0.0)
+    nonas = mask.sum(axis=1)
+    mean = (y * mask).sum(axis=1) / nonas
+    y = (y - mean[:, None]) * mask
+    y = y * np.sqrt((nonas - 1) / (y * y).sum(axis=1))[:, None]
+    return y, mask, nonas
+
+
+def masked_marker_stats(packed: Union[np.ndarray, torch.Tensor], n: int,
+                        mask: torch.Tensor, block_bytes: int = 1 << 27):
+    """Per-(marker, trait) mean and 1/sd over the individuals each trait
+    observes (BayesRRm_mt.cpp:604-665; bayesrrm_mt.py:782-810), in float64,
+    a block of markers at a time on ``mask``'s device.
+
+    packed: (M, NB) PLINK-coded numpy bytes (host data) or h-packed bytes
+    already on the device. mask: (T, n) float64. Returns (mave, mstd), each
+    (M, T) float64 on the device; markers with no variance under a mask
+    get 0, 0. Blocks hold ~block_bytes per decoded float64 plane."""
+    dev = mask.device
+    m, nb = packed.shape
+    blk = max(1, block_bytes // (32 * nb))       # 4*nb individuals x 8 bytes
+    mt = mask.T.contiguous()                                       # (n, T)
+    mave = torch.empty((m, mask.shape[0]), dtype=torch.float64, device=dev)
+    mstd = torch.empty_like(mave)
+    for r0 in range(0, m, blk):
+        rows = packed[r0:r0 + blk]
+        if isinstance(rows, np.ndarray):
+            rows = torch.from_numpy(hpack_bytes(rows))
+        g, mk = decode_planes_hp(rows.to(dev), torch.float64)
+        g, mk = g[:, :n], mk[:, :n]
+        cnt = mk @ mt
+        s = g @ mt                      # g is 0 where missing
+        sq = (g * g) @ mt
+        ave = s / torch.clamp(cnt, min=1.0)
+        var = sq - 2.0 * ave * s + ave * ave * cnt
+        sd = torch.sqrt(torch.clamp(cnt - 1.0, min=1.0) / var)
+        bad = ~torch.isfinite(sd)
+        mave[r0:r0 + blk] = torch.where(bad, 0.0, ave)
+        mstd[r0:r0 + blk] = torch.where(bad, 0.0, sd)
+    return mave, mstd
+
+
+def gram_chunks(n_pad: int) -> int:
+    """Chunks S of whole 512-individual blocks that the window Gram's long
+    axis is cut into (``BayesRRmMT.window_gram``)."""
+    blocks = n_pad // 512 if n_pad % 512 == 0 else 1
+    return max(d for d in (16, 14, 8, 7, 4, 2, 1) if blocks % d == 0)
+
+
+class BayesRRmMT:
+    """Data layout, state init and the multi-trait Gibbs sweep on one
+    device."""
+
+    def __init__(self, dataset: Dataset, phenos: np.ndarray, *, window: int,
+                 exact: bool = True, shuffle: bool = True, seed: int = 0,
+                 schedule: str = "auto", device="cuda",
+                 packed_device: Optional[torch.Tensor] = None):
+        """phenos: (T, N) raw phenotypes with NaN for missing.
+        packed_device: the genotypes already h-packed on the device, (M, NB)
+        uint8 in marker order, for data generated there; then
+        ``dataset.geno`` supplies only n, n_pad and the marker statistics."""
+        self.ds = dataset
+        self.seed = int(seed)
+        self.device = dev = (device if isinstance(device, torch.device)
+                             else resolve_device(device))
+        geno = dataset.geno
+        T, n = phenos.shape
+        K = int(dataset.mS.shape[1])
+        if n != geno.n:
+            raise ValueError("phenotype matrix does not match genotype N")
+        if dataset.X is not None:
+            raise NotImplementedError("multi-trait covariates are not ported "
+                                      "to hydra_tpu_torch")
+        if window < MIN_WINDOW:
+            raise NotImplementedError(
+                f"--window {window}: multi-trait windows below {MIN_WINDOW} "
+                "run the JAX package's per-marker path, which the port does "
+                "not have")
+        if window > W_MAX or K > K_MAX or T > T_MAX:
+            raise ValueError(f"the port takes W <= {W_MAX}, K <= {K_MAX} and "
+                             f"T <= {T_MAX}; got W={window}, K={K}, T={T}")
+        if schedule not in ("auto", "marker", "block"):
+            raise ValueError(f"schedule must be auto/marker/block, "
+                             f"got {schedule!r}")
+        complete = bool(geno.nm_global_sum == 0)
+        full_ph = bool(np.isfinite(phenos).all())
+        shared_gram = complete and full_ph
+        if schedule == "auto":
+            schedule = "block" if (not exact or shared_gram) else "marker"
+            if schedule == "block":
+                print("INFO   : mt block schedule (whole-sweep kernel streams "
+                      "windows in place; --schedule marker restores the "
+                      "per-sweep marker shuffle"
+                      + (" and window-invariant exact chains" if exact
+                         else "") + ")", flush=True)
+        elif schedule == "block" and exact:
+            print("INFO   : mt exact mode with --schedule block: exact "
+                  "sequential-Gibbs semantics preserved; the window-width "
+                  "invariance is waived (scan order depends on the window "
+                  "partition)", flush=True)
+        starts, lengths, m_loc = shard_layout(geno.m_global, 1, window,
+                                              dataset.blocks)
+        self.cfg = cfg = MtConfig(
+            n_pad=geno.n_pad, m_tot=geno.m_global, m_loc=m_loc, window=window,
+            k=K, num_groups=dataset.num_groups, n_traits=T, shuffle=shuffle,
+            schedule=schedule, complete=complete, exact=exact,
+            full_pheno=full_ph)
+        nb = (geno.packed if packed_device is None else packed_device).shape[1]
+        if dev.type == "cuda":
+            self._check_memory(nb)
+
+        # masks and per-trait centred/scaled phenotypes
+        self._y, mask, self._nonas = scaled_phenotypes(phenos)
+
+        # per-(marker, trait) masked statistics; full phenotypes take the
+        # genotype statistics every trait shares
+        s, ln = int(starts[0]), int(lengths[0])
+        if full_ph:
+            mave = np.tile(geno.mave[s:s + ln, None], (1, T))
+            mstd = np.tile(geno.mstd[s:s + ln, None], (1, T))
+        else:
+            src = (geno.packed if packed_device is None
+                   else packed_device)[s:s + ln]
+            mv, ms = masked_marker_stats(
+                src, n, torch.as_tensor(mask, dtype=torch.float64,
+                                        device=dev))
+            mave, mstd = mv.cpu().numpy(), ms.cpu().numpy()
+
+        # ---- slot layout: slot = marker, then the block setup permutation
+        groups_g = np.zeros(m_loc, dtype=np.int32)
+        mave_g = np.zeros((m_loc, T), dtype=np.float32)
+        mstd_g = np.zeros((m_loc, T), dtype=np.float32)
+        valid_g = np.zeros(m_loc, dtype=np.float32)
+        slot_to_marker = np.full(m_loc, -1, dtype=np.int64)
+        mave_g[:ln] = mave
+        mstd_g[:ln] = mstd
+        groups_g[:ln] = dataset.groups[s:s + ln]
+        valid_g[:ln] = 1.0
+        slot_to_marker[:ln] = np.arange(s, s + ln)
+        p = np.arange(m_loc)
+        if schedule == "block":
+            # same stream as the JAX sampler (bayesrrm_mt.py:845-860)
+            rs = np.random.RandomState((self.seed ^ 0x5EED1) & 0x7FFFFFFF)
+            p = rs.permutation(m_loc)
+        groups_g, mave_g, mstd_g = groups_g[p], mave_g[p], mstd_g[p]
+        valid_g, slot_to_marker = valid_g[p], slot_to_marker[p]
+        self.slot_to_marker = slot_to_marker
+
+        if packed_device is None:
+            # pad slots are all-missing: PLINK 0x55, h-packed 0xFF
+            packed_g = np.full((m_loc, nb), 0b01010101, dtype=np.uint8)
+            packed_g[:ln] = geno.packed[s:s + ln]
+            self.packed = torch.from_numpy(hpack_bytes(packed_g[p])).to(dev)
+            del packed_g
+        else:
+            rows = torch.full((m_loc, nb), 0xFF, dtype=torch.uint8,
+                              device=dev)
+            rows[:ln] = packed_device[s:s + ln]
+            self.packed = rows[torch.from_numpy(p).to(dev)]
+            del rows
+
+        def put(a, dt=f32):
+            return torch.as_tensor(np.asarray(a), dtype=dt, device=dev)
+
+        G = cfg.num_groups
+        self.groups = put(groups_g, torch.int64)
+        self.mave = put(mave_g)
+        self.mstd = put(mstd_g)
+        self.valid = put(valid_g)
+        self.group_onehot = (self.groups[None, :] == torch.arange(
+            G, device=dev)[:, None]).to(f32)                    # (G, m_loc)
+        mS = dataset.mS.astype(np.float32)
+        cvai = np.zeros_like(mS)
+        cvai[:, 1:] = 1.0 / mS[:, 1:]
+        self.cva = put(mS)
+        self.cvai = put(cvai)
+        self.mtot_grp = np.bincount(dataset.groups, minlength=G)
+        self.mtot = put(self.mtot_grp)
+        tm = np.zeros((cfg.n_pad, T), dtype=np.float32)
+        tm[:n] = mask.T
+        self.trait_mask = put(tm)
+        self.gram_chunks = S = gram_chunks(cfg.n_pad)
+        self.trait_mask_chunks = self.trait_mask.T.contiguous().view(
+            T, S, 1, cfg.n_pad // S)
+        self.dN = put(self._nonas)
+        self.dNm1 = self.dN - 1.0
+        self.tiny = put(1e-30)
+
+    def _check_memory(self, nb: int) -> None:
+        """Refuse a run whose device arrays cannot fit before allocating
+        them: packed bytes (twice while laid out), per-slot rows and the
+        residual-sized buffers, the window Gram scratch and the decoded
+        planes of one window's Gram (torch.cuda.mem_get_info)."""
+        from hydra_tpu_torch.ops import _build
+
+        cfg = self.cfg
+        T, W = cfg.n_traits, cfg.window
+        workspace = _build.load("sweep_kernel_mt.cu").hydra_mt_workspace_bytes(
+            nb, W, T, int(cfg.exact))
+        need = (2 * cfg.m_loc * nb
+                + cfg.m_loc * 4 * (mt_mrow_width(cfg.k, T) + 8 * T
+                                   + cfg.num_groups)
+                + workspace + 16 * cfg.n_pad * T * 4
+                + 3 * T * W * cfg.n_pad * 4 + (256 << 20))
+        free, total = torch.cuda.mem_get_info(self.device)
+        if need > free:
+            raise MemoryError(
+                f"BayesRRmMT needs ~{need / 1e9:.2f} GB on {self.device} "
+                f"({cfg.m_loc} slots x {nb} packed bytes, {T} traits), "
+                f"{free / 1e9:.2f} GB of {total / 1e9:.2f} GB are free")
+
+    # ------------------------------------------------------------------
+    def _gen(self, it: int, site: int) -> torch.Generator:
+        return dist.site_generator(self.seed, it, site, self.device)
+
+    def init_state(self) -> MtState:
+        """bayesrrm_mt.py:926-957: eps = the scaled phenotypes, sigmaE half
+        their variance, sigmaG ~ Beta(1, 1) per (trait, group), pi with
+        column 0 = 0.5 and the rest proportional to the variances."""
+        cfg, dev = self.cfg, self.device
+        T, G, K = cfg.n_traits, cfg.num_groups, cfg.k
+        eps = np.zeros((cfg.n_pad, T), dtype=np.float32)
+        eps[:self.ds.geno.n] = self._y.T
+        sigma_e = (self._y ** 2).sum(axis=1) / self._nonas * 0.5
+        one = torch.ones((T, G), dtype=f32, device=dev)
+        sg = dist.beta_rng(self._gen(_INIT_ITERATION, _S_INIT), one, one)
+        mS = self.ds.mS
+        pi0 = np.zeros((T, G, K))
+        pi0[:, :, 0] = 0.5
+        pi0[:, :, 1:] = 0.5 * (mS[:, 1:] / mS[:, 1:].sum(
+            axis=1, keepdims=True))[None, :, :]
+        zeros = torch.zeros((cfg.m_loc, T), dtype=f32, device=dev)
+        return MtState(
+            eps=torch.from_numpy(eps).to(dev),
+            beta=zeros.clone(),
+            components=torch.zeros((cfg.m_loc, T), dtype=torch.int32,
+                                   device=dev),
+            acum=zeros.clone(),
+            mu=torch.zeros(T, dtype=f32, device=dev),
+            sigma_e=torch.as_tensor(sigma_e, dtype=f32, device=dev),
+            sigma_g=sg.to(f32),
+            est_pi=torch.as_tensor(pi0, dtype=f32, device=dev),
+            gamma=torch.zeros((0, T), dtype=f32, device=dev))
+
+    # ------------------------------------------------------------------
+    def sweep_order(self, it: int, noise: Optional[dict] = None
+                    ) -> torch.Tensor:
+        """Slots in the order sweep `it` visits them (int32)."""
+        cfg, dev = self.cfg, self.device
+        noise = noise or {}
+        if not cfg.shuffle:
+            return torch.arange(cfg.m_loc, dtype=torch.int32, device=dev)
+        if cfg.schedule == "block":
+            wperm = noise.get("wperm")
+            if wperm is None:
+                wperm = torch.randperm(cfg.n_windows, device=dev,
+                                       generator=self._gen(it, _S_PERM))
+            return block_order(wperm.to(dev), cfg.window)
+        perm = noise.get("perm")
+        if perm is None:
+            perm = torch.randperm(cfg.m_loc, device=dev,
+                                  generator=self._gen(it, _S_PERM))
+        return perm.to(dev, torch.int32)
+
+    def active(self, state: MtState) -> torch.Tensor:
+        """(m_loc, T): sigma_g[t, group] > 0, a real slot, mstd > 0
+        (bayesrrm_mt.py:293)."""
+        return ((state.sigma_g.T[self.groups] > 0.0)
+                & (self.valid[:, None] > 0.0) & (self.mstd > 0.0))
+
+    def build_mrow(self, state: MtState, u: torch.Tensor, nrm: torch.Tensor,
+                   active: torch.Tensor) -> torch.Tensor:
+        """Per-slot kernel rows (sweep_kernel_mt.py:47-56 layout; the JAX
+        sampler's :526-546)."""
+        cfg = self.cfg
+        grp = self.groups
+        sigma_e = state.sigma_e                                  # (T,)
+        sig_g = state.sigma_g.T[grp]                             # (m, T)
+        cva = self.cva[grp][:, None, 1:]                         # (m, 1, K-1)
+        cvai = self.cvai[grp][:, None, 1:]
+        log_pi = torch.log(torch.maximum(
+            state.est_pi.permute(1, 0, 2)[grp], self.tiny))      # (m, T, K)
+        safe_g = torch.maximum(sig_g, self.tiny)[:, :, None]
+        denomk = (self.dNm1[None, :, None]
+                  + (sigma_e[None, :, None] / safe_g) * cvai)
+        inv_denomk = 1.0 / denomk                                # (m, T, K-1)
+        sd_k = torch.sqrt(sigma_e[None, :, None] * inv_denomk)
+        log_detk = torch.log((sig_g[:, :, None] / sigma_e[None, :, None])
+                             * self.dNm1[None, :, None] * cva + 1.0)
+        logl_static = torch.cat([log_pi[:, :, :1],
+                                 log_pi[:, :, 1:] - 0.5 * log_detk], dim=2)
+        mrow = torch.cat(
+            [self.mave, self.mstd, state.beta, u, nrm, active.to(f32),
+             logl_static.transpose(1, 2).reshape(cfg.m_loc, -1),
+             inv_denomk.transpose(1, 2).reshape(cfg.m_loc, -1),
+             sd_k.transpose(1, 2).reshape(cfg.m_loc, -1)],
+            dim=1).contiguous()
+        assert mrow.shape[1] == mt_mrow_width(cfg.k, cfg.n_traits)
+        return mrow
+
+    def window_gram(self, slots: torch.Tensor, mave_w: torch.Tensor,
+                    mstd_w: torch.Tensor) -> torch.Tensor:
+        """The standardized Gram of one window (bayesrrm_mt.py:137-184,
+        local_only): (W, W) from trait 0's statistics when no phenotype is
+        NaN, else (T, W, W) Grams xm_t . x~_t^T under each trait's mask.
+
+        The individual axis is cut into S chunks and the S partial Grams
+        come from one batched matmul, summed in order: a (W, n) x (n, W)
+        product per trait has too few output tiles to fill the card
+        (measured 1.48 ms per window at T=4, W=128, N=50,000 on an H100
+        80GB HBM3, 700 W, chip_smoke.py)."""
+        cfg = self.cfg
+        W, n, S = slots.shape[0], cfg.n_pad, self.gram_chunks
+        g, m = decode_planes_hp(self.packed[slots])               # (W, n_pad)
+        g, m = (x.view(W, S, n // S).transpose(0, 1).contiguous()
+                for x in (g, m))                                  # (S, W, n/S)
+        if cfg.full_pheno:
+            xt = (g - mave_w[:, :1] * m) * mstd_w[:, :1]
+            return torch.bmm(xt, xt.transpose(1, 2)).sum(dim=0)
+        T = cfg.n_traits
+        # contiguous (T, W) statistics keep every product in (T, S, W, n/S)
+        # order, so the reshapes below are views
+        mave_t, mstd_t = (x.T.contiguous()[:, None, :, None]
+                          for x in (mave_w, mstd_w))
+        xt = (g[None] - mave_t * m[None]) * mstd_t                # (T, S, W, n/S)
+        xm = xt * self.trait_mask_chunks
+        return torch.bmm(xm.reshape(T * S, W, -1),
+                         xt.reshape(T * S, W, -1).transpose(1, 2)
+                         ).reshape(T, S, W, W).sum(dim=1)
+
+    def window_sweep(self, eps: torch.Tensor, mrow: torch.Tensor,
+                     order: torch.Tensor, i2se: torch.Tensor):
+        """The exact per-window path (bayesrrm_mt.py:298-492 with its
+        Pallas window kernels): stats -> Gram -> recurrence -> axpy, per
+        window. Returns (eps', out (m_loc, 3T))."""
+        cfg = self.cfg
+        W, T = cfg.window, cfg.n_traits
+        out = torch.zeros((cfg.m_loc, 3 * T), dtype=f32, device=self.device)
+        for w in range(cfg.n_windows):
+            rows = order[w * W:(w + 1) * W]
+            slots = rows.to(torch.int64)
+            s1, s2 = window_stats_mt(self.packed, eps, cfg.complete,
+                                     rows=rows)
+            if s2 is None:
+                # complete genotypes: the mask dot is the per-trait sum(eps)
+                s2 = eps.sum(dim=0)[None, :]
+            mave_w, mstd_w = self.mave[slots], self.mstd[slots]
+            num0 = (mstd_w * (s1 - mave_w * s2)
+                    + mrow[slots, 2 * T:3 * T] * self.dNm1)
+            gram = self.window_gram(slots, mave_w, mstd_w)
+            bnew, comp, acum, db = mt_window_recurrence(
+                gram, num0.contiguous(), mrow, i2se, n_mix=cfg.k, rows=rows)
+            c1 = (db * mstd_w).T.contiguous()                        # (T, W)
+            c2 = -(c1 * mave_w.T)
+            d_eps = window_axpy_mt(self.packed, c1, c2, cfg.complete,
+                                   rows=rows)
+            if cfg.complete:
+                d_eps = d_eps + c2.sum(dim=1)[None, :]
+            eps = eps + d_eps * self.trait_mask
+            out[slots] = torch.cat([bnew, comp, acum], dim=1)
+        return eps, out
+
+    def step(self, state: MtState, it: int, noise: Optional[dict] = None):
+        """One Gibbs sweep. `noise` (tests) may supply the standard-normal
+        draws of mu ("mu", (T,)), the per-slot "u"/"nrm" (m_loc, T) and
+        the "wperm"/"perm"."""
+        cfg, dev = self.cfg, self.device
+        noise = noise or {}
+        T, G, K = cfg.n_traits, cfg.num_groups, cfg.k
+        dN, tm, tiny = self.dN, self.trait_mask, self.tiny
+
+        # ---- per-trait mu (bayesrrm_mt.py:266-270) ----
+        eps = state.eps + state.mu[None, :] * tm
+        z = noise.get("mu")
+        if z is None:
+            z = torch.randn(T, dtype=f32, device=dev,
+                            generator=self._gen(it, _S_MU))
+        mu = eps.sum(dim=0) / dN + torch.sqrt(state.sigma_e / dN) * z.to(dev)
+        eps = (eps - mu[None, :] * tm).contiguous()
+
+        # ---- schedule and per-(slot, trait) randomness ----
+        order = self.sweep_order(it, noise)
+        u = noise.get("u")
+        if u is None:
+            u = torch.rand((cfg.m_loc, T), dtype=f32, device=dev,
+                           generator=self._gen(it, _S_UNIF))
+        nrm = noise.get("nrm")
+        if nrm is None:
+            nrm = torch.randn((cfg.m_loc, T), dtype=f32, device=dev,
+                              generator=self._gen(it, _S_NORM))
+        active = self.active(state)
+        mrow = self.build_mrow(state, u.to(dev), nrm.to(dev), active)
+        i2se = 0.5 / state.sigma_e
+
+        # ---- the sweep: one of three branches (module docstring) ----
+        if not cfg.exact:
+            eps, out = sweep_stale_mt(self.packed, eps, tm, mrow, i2se,
+                                      self.dNm1, window=cfg.window, n_mix=K,
+                                      complete=cfg.complete, order=order)
+        elif cfg.complete and cfg.full_pheno:
+            eps, out = sweep_exact_mt(self.packed, eps, tm, mrow, i2se,
+                                      self.dNm1, window=cfg.window, n_mix=K,
+                                      order=order)
+        else:
+            eps, out = self.window_sweep(eps, mrow, order, i2se)
+        beta = out[:, :T].contiguous()
+        comps = out[:, T:2 * T].to(torch.int32)
+        acum = out[:, 2 * T:].contiguous()
+
+        # component counts over active (slot, trait): 0/1 weights, exact in
+        # any order (bayesrrm_mt.py:576-583)
+        idx = (torch.arange(T, device=dev)[None, :] * (G * K)
+               + self.groups[:, None] * K + comps.to(torch.int64))
+        cass = torch.zeros(T * G * K, dtype=f32, device=dev).index_add_(
+            0, idx.reshape(-1), active.to(f32).reshape(-1)).reshape(T, G, K)
+        # fixed-order per-(trait, group) reductions (no float atomics)
+        beta_sqn = (self.group_onehot[:, :, None]
+                    * (beta * beta)[None]).sum(dim=1).T            # (T, G)
+
+        # ---- per-(trait, group) hypers (bayesrrm_mt.py:603-613) ----
+        mtot = self.mtot[None, :]
+        m0 = mtot - cass[:, :, 0]
+        skip = (mtot == 0) | (m0 == 0) | (cass.sum(dim=2) == 0)
+        dof = V0G_DEFAULT + m0
+        scale = (beta_sqn * m0 + V0G_DEFAULT * S02G_DEFAULT) / torch.maximum(
+            dof, tiny)
+        sg_draw = dist.inv_scaled_chisq_rng(self._gen(it, _S_SIGMAG), dof,
+                                            scale)
+        sigma_g = torch.where(skip, 0.0, sg_draw)
+        pi_draw = dist.dirichlet_rng(self._gen(it, _S_PI), cass + 1.0)
+        est_pi = torch.where(skip[:, :, None], state.est_pi, pi_draw)
+
+        # ---- per-trait sigmaE (bayesrrm_mt.py:645-648) ----
+        e_sqn = (eps * eps).sum(dim=0)
+        sigma_e = dist.inv_scaled_chisq_rng(
+            self._gen(it, _S_SIGMAE), V0E + dN,
+            (e_sqn + V0E * S02E) / (V0E + dN))
+
+        new = MtState(eps=eps, beta=beta, components=comps, acum=acum, mu=mu,
+                      sigma_e=sigma_e, sigma_g=sigma_g, est_pi=est_pi,
+                      gamma=state.gamma)
+        return new, MtStats(m0=m0, cass=cass, beta_sqn=beta_sqn)
+
+    # ------------------------------------------------------------------
+    def to_marker_order(self, flat: np.ndarray, fill=0) -> np.ndarray:
+        """Per-slot values (m_loc, ...) -> reference marker order (Mtot,
+        ...); pad slots dropped."""
+        out = np.full((self.cfg.m_tot,) + flat.shape[1:], fill,
+                      dtype=flat.dtype)
+        sel = self.slot_to_marker >= 0
+        out[self.slot_to_marker[sel]] = flat[sel]
+        return out
+
+    def beta_global(self, state: MtState) -> np.ndarray:
+        return self.to_marker_order(state.beta.cpu().numpy().astype(np.float64))

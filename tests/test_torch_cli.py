@@ -56,6 +56,29 @@ def bw_bed(tmp_path):
     return base
 
 
+def write_mt_phenos(base, n_traits, na_frac, seed):
+    """T phenotype files <base>.t<k>.phen over the bed's individuals, "NA"
+    for a fraction of each trait; returns their comma-joined paths."""
+    rs = np.random.RandomState(seed)
+    paths = []
+    for t in range(n_traits):
+        y = rs.randn(N) + 0.3 * t
+        path = f"{base}.t{t}.phen"
+        with open(path, "w") as fh:
+            for i in range(N):
+                v = "NA" if rs.rand() < na_frac else f"{y[i]:.6f}"
+                fh.write(f"per{i} per{i} {v}\n")
+        paths.append(path)
+    return ",".join(paths)
+
+
+def _mt_argv(base, out_dir, phen, *extra):
+    return ["--mpibayes", "bayesMPI", "--bfile", base, "--pheno", phen,
+            "--S", "0.001,0.01,0.1", "--chain-length", "12", "--thin", "5",
+            "--save", "10", "--seed", "3", "--mcmc-out-dir", str(out_dir),
+            "--mcmc-out-name", "mt", *extra]
+
+
 def _bw_argv(base, out_dir, *extra):
     return ["--mpibayes", "bayesWMPI", "--bfile", base, "--pheno",
             base + ".phen", "--failure", base + ".fail", "--S",
@@ -123,21 +146,63 @@ def test_cli_bayesw_writes_hydra_outputs(bw_bed, tmp_path, extra):
     assert not os.path.exists(base + ".acu")          # BayesW writes no .acu
 
 
+@pytest.mark.parametrize("extra,na_frac,schedule", [
+    ([], 0.0, "block"),                               # sweep_exact_mt
+    (["--stale", "--window", "16"], 0.1, "block"),    # sweep_stale_mt
+    ([], 0.1, "marker"),                              # the per-window path
+])
+def test_cli_mt_writes_per_trait_outputs(bed, tmp_path, extra, na_frac,
+                                         schedule, capsys):
+    phen = write_mt_phenos(bed, 3, na_frac, seed=8)
+    out = tmp_path / "out"
+    assert cli.main(["--device", "cpu", *_mt_argv(bed, out, phen,
+                                                   *extra)]) == 0
+    assert "h2 per trait = [" in capsys.readouterr().out
+    for t in range(3):
+        base = str(out / f"mt.t{t}")
+        h2 = postproc._parse_chain_csv(base + ".csv")["h2"]
+        assert len(h2) == 3 and np.all((h2 > 0) & (h2 < 1))   # 0, 5, 10
+        recs = list(postproc._read_records(base + ".bet", np.float64))
+        assert [it for it, _ in recs] == [0, 5, 10]
+        assert all(len(v) == M and np.isfinite(v).all() for _, v in recs)
+        cpn = list(postproc._read_records(base + ".cpn", np.int32))
+        assert all(((c >= 0) & (c < 4)).all() for _, c in cpn)
+        assert os.path.exists(base + ".acu")
+        rd = read_restart(base, M, N, 10)
+        assert rd.iteration == 10 and rd.rng_schedule == schedule
+        assert np.isfinite(rd.eps).all() and len(rd.eps) == N
+
+
+@pytest.mark.parametrize("extra", [["--restart"], ["--window", "4"],
+                                   ["--n-devices", "2"]])
+def test_cli_mt_unsupported_paths_raise(bed, tmp_path, extra):
+    phen = write_mt_phenos(bed, 2, 0.0, seed=1)
+    with pytest.raises(NotImplementedError, match="multi-trait"):
+        cli.main(["--device", "cpu", *_mt_argv(bed, tmp_path / "x", phen),
+                  *extra])
+
+
 def test_cli_runs_without_jax(bed, bw_bed, tmp_path):
     """The card's machine has no JAX: block it, and the JAX package, before
-    anything imports, then run BayesRRm and BayesW."""
+    anything imports, then run BayesRRm, multi-trait BayesRRm and BayesW."""
     out = tmp_path / "nojax"
+    mt = _mt_argv(bed, out, write_mt_phenos(bed, 2, 0.1, seed=2))
     code = ("import sys; sys.modules['jax'] = None\n"
             "sys.modules['hydra_tpu'] = None\n"
             "from hydra_tpu_torch import cli\n"
             f"assert cli.main({['--device', 'cpu', *_argv(bed, out)]!r}) == 0\n"
+            f"assert cli.main({['--device', 'cpu', *mt]!r}) == 0\n"
             f"sys.exit(cli.main({['--device', 'cpu', *_bw_argv(bw_bed, out)]!r}))\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
     assert "RESULT : it   10" in res.stdout
+    assert "h2 per trait = [" in res.stdout
     assert "0. m0=" in res.stdout and "alpha=" in res.stdout
     assert len([ln for ln in open(out / "run.csv") if ln.strip()]) == 4
+    for t in range(2):
+        assert len([ln for ln in open(out / f"mt.t{t}.csv")
+                    if ln.strip()]) == 3
     assert len([ln for ln in open(out / "bw.csv") if ln.strip()]) == 3
 
 

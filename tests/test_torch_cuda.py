@@ -1,5 +1,6 @@
-"""Tests that need a CUDA card: the port's kernels and samplers (BayesRRm and
-BayesW) on the card against their plain versions and the CPU samplers.
+"""Tests that need a CUDA card: the port's kernels and samplers (BayesRRm,
+BayesW and multi-trait BayesRRm) on the card against their plain versions
+and the CPU samplers.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 machine without them:
@@ -7,8 +8,8 @@ machine without them:
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
 (``tests/conftest.py`` imports jax). Without a card every test skips; the
-decision is made inside each test. ``make_inputs`` also feeds the CPU parity
-tests in test_torch_sweep_kernel.py.
+decision is made inside each test. ``make_inputs`` and ``make_mt_inputs``
+also feed the CPU parity tests in test_torch_sweep_kernel{,_mt}.py.
 """
 
 import numpy as np
@@ -57,6 +58,45 @@ def make_inputs(m, nb, seed, missing, n_pad_markers):
     mrow[pads, :3] = 0.0
     mrow[pads, 5] = 0.0
     return pk, eps, mask, mrow, n
+
+
+def make_mt_inputs(m, nb, T, seed, missing, n_pad_markers, na_frac=0.0,
+                   shared_stats=False):
+    """Multi-trait kernel inputs: packed genotypes as ``make_inputs``, the
+    (n_pad, T) residual and trait mask (0 on the 37 pad individuals and on
+    a fraction ``na_frac`` of NaN entries per trait, where eps is 0 too),
+    mrow rows (m, T*(3K+4)) and per-trait dNm1. shared_stats repeats
+    trait 0's mave/mstd for every trait (full phenotypes)."""
+    from hydra_tpu_torch.ops.sweep_kernel_mt import mt_mrow_width
+    pk, _, _, _, n = make_inputs(m, nb, seed, missing, 0)
+    rs = np.random.RandomState(seed + 1)
+    pads = rs.choice(m, n_pad_markers, replace=False)
+    pk[pads] = 0xFF
+    tm = np.zeros((4 * nb, T), np.float32)
+    tm[:n] = rs.random_sample((n, T)) >= na_frac
+    eps = (rs.randn(4 * nb, T) * tm).astype(np.float32)
+
+    def per_trait(lo, hi):
+        x = rs.uniform(lo, hi, (m, T))
+        return np.repeat(x[:, :1], T, axis=1) if shared_stats else x
+
+    blocks = np.zeros((m, 3 * K + 4, T))
+    blocks[:, 0] = per_trait(0.2, 1.8)                    # mave
+    blocks[:, 1] = per_trait(0.8, 1.6)                    # mstd
+    blocks[:, 2] = rs.randn(m, T) * 0.02                  # beta_old
+    blocks[:, 3] = rs.uniform(0, 1, (m, T))               # u
+    blocks[:, 4] = rs.randn(m, T)                         # nrm
+    blocks[:, 5] = 1.0                                    # act
+    blocks[:, 6:6 + K] = np.log(rs.dirichlet(np.ones(K), (m, T))).transpose(
+        0, 2, 1)
+    blocks[:, 6 + K:5 + 2 * K] = rs.uniform(8e-4, 1.2e-3, (m, K - 1, T))
+    blocks[:, 5 + 2 * K:] = rs.uniform(0.02, 0.04, (m, K - 1, T))
+    blocks[pads, :3] = 0.0
+    blocks[pads, 5] = 0.0
+    mrow = blocks.reshape(m, -1).astype(np.float32)
+    assert mrow.shape[1] == mt_mrow_width(K, T)
+    dnm1 = (tm.sum(axis=0) - 1.0).astype(np.float32)
+    return pk, eps, tm, mrow, dnm1
 
 
 @pytest.mark.cuda
@@ -207,7 +247,8 @@ def test_cuda_window_kernels_match_plain(missing):
     d_k = twk.window_axpy(pk, c1, c2, not missing)
     d_r = twk.window_axpy_ref(pk, c1, c2, not missing)
     torch.cuda.synchronize()
-    assert twk.launches == {k: v + 1 for k, v in before.items()}
+    for name in ("window_level_sums", "window_axpy"):
+        assert twk.launches[name] == before[name] + 1
     assert (sums_k[2] is None) == (sums_r[2] is None) == (not missing)
     for a, b in zip(sums_k, sums_r):
         if b is not None:
@@ -239,6 +280,137 @@ def test_cuda_bw_sampler_sweep_matches_cpu(window):
     a, b = state_to_numpy(a), state_to_numpy(b)
     np.testing.assert_allclose(b["mu"], a["mu"], rtol=1e-5)
     np.testing.assert_allclose(b["alpha"], a["alpha"], rtol=1e-5)
+    np.testing.assert_allclose(b["eps"], a["eps"], atol=5e-4, rtol=1e-3)
+    np.testing.assert_allclose(b["beta"], a["beta"], atol=5e-4, rtol=1e-3)
+    np.testing.assert_array_equal(b["components"], a["components"])
+    np.testing.assert_array_equal(sb.cass.cpu().numpy(), sa.cass.numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exact,missing,na_frac", [
+    (False, False, 0.0), (False, True, 0.1), (True, False, 0.0)])
+def test_cuda_mt_sweep_matches_plain(exact, missing, na_frac):
+    """On the card: the multi-trait sweep kernels against their plain
+    versions (f32 reduction order only), and bitwise-repeatable."""
+    from hydra_tpu_torch.ops import sweep_kernel_mt as tskmt
+    dev = _card()
+    T = 4
+    pk, eps, tm, mrow, dnm1 = make_mt_inputs(256, 256, T, 7, missing, 9,
+                                             na_frac, shared_stats=exact)
+    t = [torch.from_numpy(a).to(dev) for a in (pk, eps, tm, mrow, dnm1)]
+    i2se = torch.tensor([0.6, 0.7, 0.8, 0.9], device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    order = tsk.block_order(torch.randperm(256 // 32, generator=gen,
+                                           device=dev), 32)
+    kw = dict(window=32, n_mix=K, order=order)
+    if exact:
+        fn, ref = tskmt.sweep_exact_mt, tskmt.sweep_exact_mt_ref
+    else:
+        kw["complete"] = not missing
+        fn, ref = tskmt.sweep_stale_mt, tskmt.sweep_stale_mt_ref
+    before = dict(tskmt.launches)
+    e_k, o_k = fn(t[0], t[1], t[2], t[3], i2se, t[4], **kw)
+    e_k2, o_k2 = fn(t[0], t[1], t[2], t[3], i2se, t[4], **kw)
+    e_r, o_r = ref(t[0], t[1], t[2], t[3], i2se, t[4], **kw)
+    torch.cuda.synchronize()
+    name = "sweep_exact_mt" if exact else "sweep_stale_mt"
+    assert tskmt.launches[name] == before[name] + 2
+    assert torch.equal(e_k, e_k2) and torch.equal(o_k, o_k2)
+    torch.testing.assert_close(e_k, e_r, atol=5e-4, rtol=1e-3)
+    torch.testing.assert_close(o_k[:, :T], o_r[:, :T], atol=5e-4, rtol=1e-3)
+    assert torch.equal(o_k[:, T:2 * T], o_r[:, T:2 * T])
+    assert torch.all(e_k[t[2] == 0.0] == 0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("missing,na_frac", [(False, 0.1), (True, 0.0)])
+def test_cuda_mt_window_kernels_match_plain(missing, na_frac):
+    """window_stats_mt, window_axpy_mt and the recurrence (shared and
+    per-trait Gram) on the card against their plain versions."""
+    from hydra_tpu_torch.ops import sweep_kernel_mt as tskmt
+    dev = _card()
+    T, W = 4, 32
+    pk, eps, tm, mrow, dnm1 = make_mt_inputs(96, 256, T, 9, missing, 3,
+                                             na_frac)
+    pk, eps, tm, mrow = (torch.from_numpy(a).to(dev)
+                         for a in (pk, eps, tm, mrow))
+    rows = torch.randperm(96, device=dev)[:W].to(torch.int32)
+    g = torch.Generator(device=dev).manual_seed(2)
+    c1 = 0.05 * torch.randn(T, W, generator=g, device=dev)
+    c2 = 0.05 * torch.randn(T, W, generator=g, device=dev)
+    num0 = torch.randn(W, T, generator=g, device=dev) * 20.0
+    x = torch.randn(T, W, 600, generator=g, device=dev)
+    gram_t = x @ x.transpose(1, 2)
+    i2se = torch.tensor([0.6, 0.7, 0.8, 0.9], device=dev)
+    before = {**twk.launches, **tskmt.launches}
+    s_k = twk.window_stats_mt(pk, eps, not missing, rows)
+    s_r = twk.window_stats_mt_ref(pk, eps, not missing, rows)
+    d_k = twk.window_axpy_mt(pk, c1, c2, not missing, rows)
+    d_r = twk.window_axpy_mt_ref(pk, c1, c2, not missing, rows)
+    rec = [(tskmt.mt_window_recurrence(gr, num0, mrow, i2se, n_mix=K,
+                                       rows=rows),
+            tskmt.mt_window_recurrence_ref(gr, num0, mrow, i2se, n_mix=K,
+                                           rows=rows))
+           for gr in (gram_t, gram_t[0].contiguous())]
+    torch.cuda.synchronize()
+    after = {**twk.launches, **tskmt.launches}
+    for name, count in (("window_stats_mt", 1), ("window_axpy_mt", 1),
+                        ("mt_window_recurrence", 2)):
+        assert after[name] == before[name] + count
+    assert (s_k[1] is None) == (s_r[1] is None) == (not missing)
+    for a, b in zip(s_k, s_r):
+        if b is not None:
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(d_k, d_r, rtol=1e-5, atol=1e-5)
+    for k_out, r_out in rec:
+        assert torch.equal(k_out[1], r_out[1])
+        for a, b in zip(k_out, r_out):
+            torch.testing.assert_close(a, b, atol=5e-4, rtol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exact,na_frac", [(False, 0.1), (True, 0.0),
+                                           (True, 0.1)])
+def test_cuda_mt_sampler_sweep_matches_cpu(exact, na_frac):
+    """One multi-trait sweep of the CUDA sampler against the CPU sampler
+    from the same state with the same noise, for each branch; the branch's
+    launch counters move."""
+    from hydra_tpu_torch.ops import sweep_kernel_mt as tskmt
+    from hydra_tpu_torch.samplers.bayesrrm_mt import (BayesRRmMT,
+                                                      state_from_numpy,
+                                                      state_to_numpy)
+    dev = _card()
+    ds = _dataset(300, 700, 3, 0.0)
+    rs = np.random.RandomState(4)
+    phenos = rs.randn(3, 700)
+    phenos[rs.random_sample(phenos.shape) < na_frac] = np.nan
+    cpu = BayesRRmMT(ds, phenos, window=32, exact=exact, seed=5,
+                     device="cpu")
+    gpu = BayesRRmMT(ds, phenos, window=32, exact=exact, seed=5, device=dev)
+    s_cpu = cpu.init_state()
+    s_gpu = state_from_numpy(state_to_numpy(s_cpu), dev)
+    g = torch.Generator().manual_seed(1)
+    m = cpu.cfg.m_loc
+    noise = dict(mu=torch.randn(3, generator=g),
+                 u=torch.rand(m, 3, generator=g),
+                 nrm=torch.randn(m, 3, generator=g),
+                 wperm=torch.randperm(cpu.cfg.n_windows, generator=g),
+                 perm=torch.randperm(m, generator=g))
+    before = {**twk.launches, **tskmt.launches}
+    a, sa = cpu.step(s_cpu, 0, noise=noise)
+    b, sb = gpu.step(s_gpu, 0, noise={k: v.to(dev) for k, v in noise.items()})
+    after = {**twk.launches, **tskmt.launches}
+    if not exact:
+        moved = {"sweep_stale_mt": 1}
+    elif na_frac == 0.0:
+        moved = {"sweep_exact_mt": 1}
+    else:
+        moved = {k: gpu.cfg.n_windows for k in (
+            "window_stats_mt", "mt_window_recurrence", "window_axpy_mt")}
+    for name, count in moved.items():
+        assert after[name] == before[name] + count, name
+    a, b = state_to_numpy(a), state_to_numpy(b)
+    np.testing.assert_allclose(b["mu"], a["mu"], rtol=1e-5)
     np.testing.assert_allclose(b["eps"], a["eps"], atol=5e-4, rtol=1e-3)
     np.testing.assert_allclose(b["beta"], a["beta"], atol=5e-4, rtol=1e-3)
     np.testing.assert_array_equal(b["components"], a["components"])

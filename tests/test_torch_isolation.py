@@ -109,6 +109,29 @@ def test_readers_and_dataset_match_jax(synthetic_bed_factory, tmp_path):
                                   jgroups.read_ms_file(str(ms)))
 
 
+def test_read_multi_phenos_matches_jax(tmp_path):
+    """The port's copy of the multi-trait phenotype reader (NaN masks)."""
+    import hydra_tpu.runner as jrunner
+    import hydra_tpu_torch.runner as trunner
+
+    rs = np.random.RandomState(3)
+    paths = []
+    for t in range(3):
+        p = tmp_path / f"t{t}.phen"
+        p.write_text("".join(
+            f"f{i} i{i} {'NA' if rs.rand() < 0.2 else f'{rs.randn():.6f}'}\n"
+            for i in range(40)) + "\n")
+        paths.append(str(p))
+    argv = ["--mpibayes", "bayesMPI", "--bfile", "x", "--pheno",
+            ",".join(paths), "--mcmc-out-dir", str(tmp_path)]
+    got = trunner.read_multi_phenos(topt.parse_args(argv), 40)
+    want = jrunner.read_multi_phenos(jopt.parse_args(argv), 40)
+    assert got.shape == (3, 40) and np.isnan(got).any()
+    np.testing.assert_array_equal(got, want)
+    with pytest.raises(ValueError, match="expected 41"):
+        trunner.read_multi_phenos(topt.parse_args(argv), 41)
+
+
 @pytest.mark.parametrize("survival", [False, True])
 def test_writers_are_byte_identical(survival, tmp_path):
     rs = np.random.RandomState(1)

@@ -1,0 +1,182 @@
+"""Port multi-trait kernels vs the JAX Pallas kernels (interpret mode, CPU).
+
+The same numpy inputs (``tests/test_torch_cuda.make_mt_inputs``) go through
+the JAX kernels (plane-major residual and trait mask, converted with
+``deinterleave_mt`` / ``interleave_mt`` on the JAX side only,
+``interpret=True``) and the port's plain versions, which the wrappers take
+for CPU tensors. Tolerances are those of tests/test_sweep_kernel_mt.py:
+eps and beta at atol 5e-4 / rtol 1e-3 (f32 summation order differs),
+components exactly equal. The window kernels compare at rtol 1e-5 /
+atol 1e-4 (a handful of f32 sums over 512 individuals).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from hydra_tpu.ops import sweep_kernel_mt as jskmt
+from hydra_tpu.ops import window_kernels as jwk
+from hydra_tpu.ops.gibbs_kernel import window_gibbs
+from hydra_tpu.ops.window_kernels import deinterleave_mt, interleave_mt
+from hydra_tpu_torch.ops import sweep_kernel_mt as tskmt
+from hydra_tpu_torch.ops import window_kernels as twk
+from hydra_tpu_torch.ops.decode import decode_planes_hp
+from hydra_tpu_torch.ops.sweep_kernel import block_order
+
+from tests.test_torch_cuda import K, make_mt_inputs
+
+T = 3
+
+SWEEP_CASES = [
+    # (exact, missing genotypes, NaN fraction, win_perm, pad markers, W)
+    (False, False, 0.0, True, 5, 16),
+    (False, True, 0.1, True, 5, 16),
+    (False, False, 0.1, False, 0, 32),
+    (True, False, 0.0, True, 5, 16),
+    (True, False, 0.0, False, 3, 32),
+]
+
+
+@pytest.mark.parametrize("exact,missing,na_frac,use_perm,n_pads,window",
+                         SWEEP_CASES)
+def test_sweep_mt_matches_jax(exact, missing, na_frac, use_perm, n_pads,
+                              window):
+    m, nb = 64, 128
+    pk, eps, tm, mrow, dnm1 = make_mt_inputs(m, nb, T, 3 + window, missing,
+                                             n_pads, na_frac,
+                                             shared_stats=exact)
+    i2se = np.array([0.6, 0.7, 0.8], np.float32)
+    wp = (np.random.RandomState(5).permutation(m // window).astype(np.int32)
+          if use_perm else None)
+    kw = dict(window=window, n_mix=K, n_traits=T, interpret=True,
+              win_perm=None if wp is None else jnp.asarray(wp))
+    args = (jnp.asarray(pk), deinterleave_mt(jnp.asarray(eps)),
+            deinterleave_mt(jnp.asarray(tm)), jnp.asarray(mrow),
+            jnp.asarray(i2se), jnp.asarray(dnm1))
+    if exact:
+        e_j, o_j = jskmt.sweep_exact_mt(*args, **kw)
+    else:
+        e_j, o_j = jskmt.sweep_stale_mt(*args, complete=not missing, **kw)
+    e_j, o_j = np.asarray(interleave_mt(e_j, T)), np.asarray(o_j)
+
+    t_args = [torch.from_numpy(a) for a in (pk, eps, tm, mrow, i2se, dnm1)]
+    order = None if wp is None else block_order(torch.from_numpy(wp), window)
+    before = dict(tskmt.launches)
+    if exact:
+        e_t, o_t = tskmt.sweep_exact_mt(*t_args, window=window, n_mix=K,
+                                        order=order)
+    else:
+        e_t, o_t = tskmt.sweep_stale_mt(*t_args, window=window, n_mix=K,
+                                        complete=not missing, order=order)
+    assert tskmt.launches == before      # CPU tensors: plain version only
+    e_t, o_t = e_t.numpy(), o_t.numpy()
+    np.testing.assert_allclose(e_t, e_j, atol=5e-4, rtol=1e-3)
+    np.testing.assert_allclose(o_t[:, :T], o_j[:, :T], atol=5e-4, rtol=1e-3)
+    np.testing.assert_array_equal(o_t[:, T:2 * T], o_j[:, T:2 * T])
+    np.testing.assert_allclose(o_t[:, 2 * T:], o_j[:, 2 * T:], atol=5e-4,
+                               rtol=1e-3)
+    # the draws did something; pads and NaN entries stay zero
+    assert len(np.unique(o_t[:, T:2 * T])) >= 3
+    assert np.all(e_t[tm == 0.0] == 0.0)
+
+
+@pytest.mark.parametrize("missing,na_frac", [(False, 0.1), (True, 0.0)])
+def test_window_stats_mt_matches_jax(missing, na_frac):
+    pk, eps, tm, _, _ = make_mt_inputs(48, 128, T, 7, missing, 0, na_frac)
+    rows = np.random.RandomState(1).permutation(48)[:16].astype(np.int32)
+    s_j = jwk.window_stats_mt(jnp.asarray(pk[rows]),
+                              deinterleave_mt(jnp.asarray(eps)), T,
+                              interpret=True, complete=not missing)
+    before = dict(twk.launches)
+    s_t = twk.window_stats_mt(torch.from_numpy(pk), torch.from_numpy(eps),
+                              complete=not missing,
+                              rows=torch.from_numpy(rows))
+    assert twk.launches == before
+    for a, b in zip(s_t, s_j):
+        if b is None:
+            assert a is None
+            continue
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5,
+                                   atol=1e-4)
+
+
+@pytest.mark.parametrize("missing", [False, True])
+def test_window_axpy_mt_matches_jax(missing):
+    pk, _, _, _, _ = make_mt_inputs(16, 128, T, 9, missing, 0)
+    rs = np.random.RandomState(2)
+    c1 = (rs.randn(T, 16) * 0.05).astype(np.float32)
+    c2 = (rs.randn(T, 16) * 0.05).astype(np.float32)
+    d_j = interleave_mt(jwk.window_axpy_mt(
+        jnp.asarray(pk), jnp.asarray(c1), jnp.asarray(c2), interpret=True,
+        complete=not missing), T)
+    d_t = twk.window_axpy_mt(torch.from_numpy(pk), torch.from_numpy(c1),
+                             torch.from_numpy(c2), complete=not missing)
+    np.testing.assert_allclose(d_t.numpy(), np.asarray(d_j), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("shared", [False, True])
+def test_recurrence_matches_window_gibbs(shared):
+    """The per-window recurrence against the JAX window_gibbs kernel, trait
+    by trait: a standardized Gram of real genotypes under the trait masks,
+    num0 from the residual. window_gibbs draws in the exact-kernel form,
+    the recurrence in the sampler's normalized form; the two agree to
+    rounding, and components exactly on these inputs."""
+    W = 16
+    pk, eps, tm, mrow, dnm1 = make_mt_inputs(W, 128, T, 11, True, 2, 0.1,
+                                             shared_stats=shared)
+    if shared:
+        tm[:] = tm[:, :1]
+        eps = (eps * tm).astype(np.float32)
+    b = mrow.reshape(W, -1, T)
+    g, msk = decode_planes_hp(torch.from_numpy(pk))
+    g, msk = g.numpy(), msk.numpy()
+    xt = (g[None] - b[:, 0].T[:, :, None] * msk[None]) * b[:, 1].T[:, :, None]
+    gram = np.einsum("twn,tvn->twv", xt * tm.T[:, None, :], xt)
+    num0 = (np.einsum("twn,nt->wt", xt, eps) + b[:, 2] * dnm1).astype(
+        np.float32)
+    i2se = np.array([0.6, 0.7, 0.8], np.float32)
+    gram_t = torch.from_numpy((gram[0] if shared else gram).astype(np.float32))
+    before = dict(tskmt.launches)
+    bnew, comp, acum, db = tskmt.mt_window_recurrence(
+        gram_t, torch.from_numpy(num0), torch.from_numpy(mrow),
+        torch.from_numpy(i2se), n_mix=K)
+    assert tskmt.launches == before
+    for t in range(T):
+        bt = b[:, :, t]
+        db_j, b_j, c_j, a_j = window_gibbs(
+            jnp.asarray(gram[0 if shared else t]), jnp.asarray(num0[:, t]),
+            jnp.asarray(bt[:, 6:6 + K]), jnp.asarray(bt[:, 6 + K:5 + 2 * K]),
+            jnp.asarray(bt[:, 5 + 2 * K:]), jnp.asarray(bt[:, 3]),
+            jnp.asarray(bt[:, 4]), jnp.asarray(bt[:, 5]),
+            jnp.asarray(bt[:, 2]), float(i2se[t]), interpret=True)
+        np.testing.assert_array_equal(comp[:, t].numpy(), np.asarray(c_j))
+        for x, y in ((bnew, b_j), (acum, a_j), (db, db_j)):
+            np.testing.assert_allclose(x[:, t].numpy(), np.asarray(y),
+                                       atol=5e-4, rtol=1e-3)
+    assert len(np.unique(comp.numpy())) >= 3
+
+
+def test_wrappers_reject_bad_operands():
+    pk, eps, tm, mrow, dnm1 = (torch.from_numpy(a) for a in
+                               make_mt_inputs(32, 128, T, 1, False, 0))
+    i2se = torch.full((T,), 0.5)
+    kw = dict(n_mix=K, complete=True)
+    with pytest.raises(ValueError, match="multiple of window"):
+        tskmt.sweep_stale_mt(pk, eps, tm, mrow, i2se, dnm1, window=24, **kw)
+    with pytest.raises(ValueError, match="tm must be"):
+        tskmt.sweep_stale_mt(pk, eps, tm[:, :2], mrow, i2se, dnm1, window=16,
+                             **kw)
+    with pytest.raises(ValueError, match="i_2se"):
+        tskmt.sweep_exact_mt(pk, eps, tm, mrow, i2se[:2], dnm1, window=16,
+                             n_mix=K)
+    with pytest.raises(ValueError, match="no sweep kernel"):
+        tskmt.sweep_stale_mt(*(a.to("meta") for a in (pk, eps, tm, mrow,
+                                                      i2se, dnm1)),
+                             window=16, **kw)
+    with pytest.raises(ValueError, match="c1 must be"):
+        twk.window_axpy_mt(pk[:16], torch.zeros(T, 8), torch.zeros(T, 8))
+    with pytest.raises(ValueError, match="gram must be"):
+        tskmt.mt_window_recurrence(torch.zeros(8, 8), torch.zeros(16, T),
+                                   mrow[:16], i2se, n_mix=K)
