@@ -41,6 +41,21 @@ Multi-trait BayesRRm (T=4 traits):
   4c. M=100,000 x N=50,000: exact W=128 and stale W=64 (block, full
      phenotypes) and the per-window path with 10% NaN (marker schedule):
      ms/sweep, markers/s, per-kernel device time.
+BayesRRm's per-window branch (--mega off, --cache-planes on) and W < 8:
+  2d. window_stats (W=128; exact and stale, complete and 2% missing),
+     window_gibbs (W=128, on a real window's Gram), window_stats_planes and
+     window_axpy_planes (W=64) against their plain versions at N=50,000,
+     bitwise repeatable; the planes kernels beside torch.mv on the cast
+     planes.
+  3d. the CLI at M=10,000 x N=5,000, 20 iterations each: --mega off (exact
+     W=64), --mega off --stale --window 64, --cache-planes on --stale
+     --window 64 and --stale (W=1, the whole-sweep kernel on the marker
+     schedule); each run's kernels' launch counts must move; one CUDA sweep
+     of each against the CPU sampler with the same state and noise.
+  4d. M=100,000 x N=50,000: --mega off exact W=128 and stale W=64, and
+     --cache-planes on stale W=64 (5.0 GB of int8 planes); stale W=1 at
+     M=10,000 x N=5,000: ms/sweep, busy share, host enqueue, device time
+     per kernel.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Any failure raises before those lines. JAX
 and the JAX package are blocked: the port must run without them.
@@ -77,9 +92,11 @@ def bound(nbytes, ops):
 
 
 def _launch_modules():
-    from hydra_tpu_torch.ops import (sweep_kernel, sweep_kernel_bw,
-                                     sweep_kernel_mt, window_kernels)
-    return (sweep_kernel, sweep_kernel_bw, sweep_kernel_mt, window_kernels)
+    from hydra_tpu_torch.ops import (gibbs_kernel, planes, sweep_kernel,
+                                     sweep_kernel_bw, sweep_kernel_mt,
+                                     window_kernels)
+    return (sweep_kernel, sweep_kernel_bw, sweep_kernel_mt, window_kernels,
+            gibbs_kernel, planes)
 
 
 def reset_all_launches():
@@ -177,6 +194,39 @@ def cuda_ms(torch, fn, reps):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps, res
+
+
+def compare_outputs(torch, name, label, fn, ref, reps, tol, card, rec,
+                    comp_of=None):
+    """Kernel wrapper vs plain version on the same inputs: bitwise
+    repeatable, within ``tol`` (per output: (rtol, atol)), components equal
+    where ``comp_of`` picks them. Returns (kernel ms, plain ms)."""
+    k0 = fn()                                  # build + warm up
+    ms, k1 = cuda_ms(torch, fn, reps)
+    ref()
+    plain_ms, r1 = cuda_ms(torch, ref, 1)
+    k0, k1, r1 = ([t for t in x if t is not None] for x in (k0, k1, r1))
+    if not all(torch.equal(a, b) for a, b in zip(k0, k1)):
+        raise AssertionError(f"{name} is not bitwise repeatable")
+    err = max((a.float() - b.float()).abs().max().item()
+              for a, b in zip(k1, r1))
+    bitwise = all(torch.equal(a, b) for a, b in zip(k1, r1))
+    n_comp = (int((comp_of(k1) != comp_of(r1)).sum().item()) if comp_of
+              else 0)
+    used = int(torch.unique(comp_of(k1)).numel()) if comp_of else 0
+    print(f"{name:19s} {label:28s} kernel {ms:8.4f} ms  plain {plain_ms:9.3f}"
+          f" ms  max|diff| {err:.3e}  bitwise equal to plain {bitwise}"
+          + (f"  comp mismatches {n_comp}  components used {used}"
+             if comp_of else "") + f"  [{card}]", flush=True)
+    for a, b, (rtol, atol) in zip(k1, r1, tol):
+        torch.testing.assert_close(a.float(), b.float(), rtol=rtol, atol=atol)
+    if n_comp:
+        raise AssertionError(f"{name}: {n_comp} component mismatches "
+                             "against the plain version")
+    if comp_of and used < 2:
+        raise AssertionError(f"{name}: degenerate draws")
+    rec[name]["err"] = max(rec[name]["err"], err)
+    return ms, plain_ms
 
 
 def phase_kernels(torch, sk, card):
@@ -475,7 +525,9 @@ def profile_run(torch, run, label, launches, card):
     if not per:
         raise AssertionError(f"{label}: the profiler saw no device activity")
     busy = sum(v[1] for v in per.values())
-    print(f"  sweep {label}: {launches} kernel launches; host enqueue "
+    n_dev = sum(v[0] for v in per.values())
+    print(f"  sweep {label}: {launches} kernel launches ({n_dev} device "
+          f"kernels in the profile); host enqueue "
           f"{1e3 * (t1 - t0):.2f} ms, done after {1e3 * (t2 - t0):.2f} ms; "
           f"CUDA events {ev_ms:.2f} ms/sweep; profiler device time "
           f"{busy:.2f} ms ({100.0 * busy / ev_ms:.1f}% busy)  [{card}]",
@@ -799,31 +851,11 @@ def phase_mt_kernels(torch, np, card):
                                       "window_stats_mt", "window_axpy_mt",
                                       "mt_window_recurrence")}
     i2se = torch.full((T,), 1.0 / (2 * SIGMA_E), device=dev)
+    tol = [(1e-3, 5e-4)] * 4
 
     def compare(name, label, fn, ref, reps, comp_of=None):
-        k0 = fn()                                  # build + warm up
-        ms, k1 = cuda_ms(torch, fn, reps)
-        ref()
-        plain_ms, r1 = cuda_ms(torch, ref, 1)
-        k0, k1, r1 = ([t for t in x if t is not None] for x in (k0, k1, r1))
-        if not all(torch.equal(a, b) for a, b in zip(k0, k1)):
-            raise AssertionError(f"{name} is not bitwise repeatable")
-        err = max((a - b).abs().max().item() for a, b in zip(k1, r1))
-        n_comp = (int((comp_of(k1) != comp_of(r1)).sum().item())
-                  if comp_of else 0)
-        used = (int(torch.unique(comp_of(k1)).numel()) if comp_of else 0)
-        print(f"{name:20s} {label:34s} kernel {ms:9.3f} ms  plain "
-              f"{plain_ms:9.3f} ms  max|diff| {err:.3e}  comp mismatches "
-              f"{n_comp}  components used {used}  [{card}]", flush=True)
-        for a, b in zip(k1, r1):
-            torch.testing.assert_close(a, b, atol=5e-4, rtol=1e-3)
-        if n_comp:
-            raise AssertionError(f"{name}: {n_comp} component mismatches "
-                                 "against the plain version")
-        if comp_of and used < 2:
-            raise AssertionError(f"{name}: degenerate draws")
-        rec[name]["err"] = max(rec[name]["err"], err)
-        return ms, plain_ms, k1
+        return compare_outputs(torch, name, label, fn, ref, reps, tol, card,
+                               rec, comp_of)
 
     for missing, na_frac in ((0.0, 0.0), (0.02, 0.1), (0.0, 0.1)):
         gen = torch.Generator(device=dev).manual_seed(13)
@@ -851,7 +883,7 @@ def phase_mt_kernels(torch, np, card):
                     kw["complete"] = not missing
                 else:
                     fn, ref = skmt.sweep_exact_mt, skmt.sweep_exact_mt_ref
-                ms, plain_ms, _ = compare(
+                ms, plain_ms = compare(
                     name, f"W={window} {data}",
                     lambda: fn(pk, eps, tm, mrow, i2se, dnm1, **kw),
                     lambda: ref(pk, eps, tm, mrow, i2se, dnm1, **kw), 5,
@@ -899,7 +931,7 @@ def phase_mt_kernels(torch, np, card):
                 torch.bmm(xt[None] * tm.T[:, None, :],
                           xt[None].expand(T, -1, -1).transpose(1, 2)))
         del g, mk, xt
-        ms, plain_ms, _ = compare(
+        ms, plain_ms = compare(
             "mt_window_recurrence", f"W={W} {'shared' if full else 'per-trait'}"
             " Gram", lambda: skmt.mt_window_recurrence(
                 gram, num0, mrow, i2se, n_mix=K, rows=rows),
@@ -1135,6 +1167,283 @@ def phase_mt_real_size(torch, np, card):
     del pk
 
 
+def phase_window_kernels(torch, np, card):
+    """The per-window branch's kernels against their plain versions at
+    N=50,000, rows read in place from M=4,096 packed rows (a pad slot at
+    the window's head): window_stats at W=128 (exact and stale, complete
+    and 2% missing), window_gibbs on the complete exact window's own Gram
+    and num0, window_stats_planes and window_axpy_planes at W=64 (complete
+    data). Tolerances: the stats rtol 1e-4, atol 1e-6 N (the plain versions
+    add in the kernels' order, so s1, s2, the complete Gram and the planes
+    come out bit for bit, but for a pad row's 3*eps products in complete
+    stale data, which the kernel fuses into its multiply-add; the
+    missing-data Gram's f32 sums of N products run in another order, 2.8e-5
+    of the diagonal apart); the recurrence atol 5e-4, rtol 1e-3 and 0
+    component mismatches."""
+    from hydra_tpu_torch.ops import gibbs_kernel as gk
+    from hydra_tpu_torch.ops import planes as tpl
+    from hydra_tpu_torch.ops import window_kernels as wk
+    dev = torch.device("cuda")
+    m, n = 4096, 50_000
+    n_pad = padded_individuals(np, n)
+    nb = n_pad // 4
+    rec = {k: dict(err=0.0) for k in ("window_stats", "window_gibbs",
+                                      "window_stats_planes",
+                                      "window_axpy_planes")}
+    stats_tol = [(1e-4, 1e-6 * n)] * 3
+    for missing in (0.0, 0.02):
+        gen = torch.Generator(device=dev).manual_seed(17)
+        pk, mave, mstd, _ = device_genotypes(torch, m, n, n_pad, gen, missing)
+        pads = torch.randperm(m, generator=gen, device=dev)[:37]
+        pk[pads] = 0xFF
+        mrow = kernel_rows(torch, mave, mstd, gen, n, pads)
+        eps = 0.8 * torch.randn(n_pad, generator=gen, device=dev)
+        eps[n:] = 0.0
+        complete = not missing
+        data = "complete" if complete else "missing 2%"
+        W = 128
+        rest = torch.randperm(m, generator=gen, device=dev)
+        rest = rest[rest != pads[0]]
+        rows = torch.cat([pads[:1], rest[:W - 1]]).to(torch.int32)
+        b = mrow[rows.long()]
+        mave_w, mstd_w = b[:, 0].contiguous(), b[:, 1].contiguous()
+        for exact in (True, False):
+            args = (pk, eps, mave_w, mstd_w, exact, complete, float(n), rows)
+            ms, plain_ms = compare_outputs(
+                torch, "window_stats", f"W={W} {'exact' if exact else 'stale'}"
+                f" {data}", lambda: wk.window_stats(*args),
+                lambda: wk.window_stats_ref(*args), 20, stats_tol, card, rec)
+            if not (exact and complete):
+                continue
+            r = rec["window_stats"]
+            r["ms"], r["plain_ms"] = ms, plain_ms
+            # packed rows, eps, mave, mstd, rows, n in; s1 and the Gram out.
+            # Ops: s1 one FMA per genotype, sum(eps) once; the integer Gram
+            # W multiply-adds and v one add per genotype
+            nbytes = W * nb + 4 * n_pad + 12 * W + 4 + 4 * W + 4 * W * W
+            r["bound_ms"], r["bound_by"] = bound(
+                nbytes, {"f32": 2.0 * W * n_pad + n_pad,
+                         "int8": 2.0 * W * W * n_pad + W * n_pad})
+            print_bound("window_stats", r)
+            # the same window's recurrence
+            s1, _, gram = wk.window_stats(*args)
+            num0 = mstd_w * (s1 - mave_w * eps.sum()) + b[:, 2] * float(n - 1)
+            cols = [c.contiguous() for c in (
+                b[:, 6:6 + K], b[:, 6 + K:5 + 2 * K], b[:, 5 + 2 * K:],
+                b[:, 3], b[:, 4], b[:, 5], b[:, 2])]
+            gargs = [gram, num0] + cols + [1.0 / (2 * SIGMA_E)]
+            r = rec["window_gibbs"]
+            r["ms"], r["plain_ms"] = compare_outputs(
+                torch, "window_gibbs", f"W={W} {data}",
+                lambda: gk.window_gibbs(*gargs),
+                lambda: gk.window_gibbs_ref(*gargs), 20,
+                [(1e-3, 5e-4)] * 4, card, rec, comp_of=lambda o: o[2])
+            # Gram and the per-marker inputs in; four (W,) outputs. Ops:
+            # the rank-1 update, one FMA per (step, marker); ~100 per draw
+            nbytes = 4 * W * W + 4 * W * (5 + K + 2 * (K - 1)) + 4 + 16 * W
+            r["bound_ms"], r["bound_by"] = bound(
+                nbytes, {"f32": 2.0 * W * W + 100.0 * W})
+            print_bound("window_gibbs", r)
+        if not complete:
+            continue
+        W = 64
+        planes = tpl.build_planes(pk)
+        rows = torch.cat([pads[:1], rest[W:2 * W - 1]]).to(torch.int32)
+        c1 = 0.05 * torch.randn(W, generator=gen, device=dev)
+        pw = planes[rows.long()]                  # the library's input
+        for name, fn, ref, lib in (
+                ("window_stats_planes",
+                 lambda: (tpl.window_stats_planes(planes, eps, rows),),
+                 lambda: (tpl.window_stats_planes_ref(planes, eps, rows),),
+                 lambda: torch.mv(pw.float(), eps)),
+                ("window_axpy_planes",
+                 lambda: (tpl.window_axpy_planes(planes, c1, rows),),
+                 lambda: (tpl.window_axpy_planes_ref(planes, c1, rows),),
+                 lambda: torch.mv(pw.float().t(), c1))):
+            r = rec[name]
+            r["ms"], r["plain_ms"] = compare_outputs(
+                torch, name, f"W={W} {data}", fn, ref, 20,
+                [(1e-5, 1e-6 * n)], card, rec)
+            lib()
+            r["library_ms"], want = cuda_ms(torch, lib, 20)
+            torch.testing.assert_close(fn()[0], want, rtol=1e-5,
+                                       atol=1e-6 * n)
+            # the window's int8 rows, eps or the coefficients, rows in;
+            # s1 or d eps out. Ops: one FMA per genotype
+            nbytes = W * n_pad + 8 * W + 4 * n_pad + (
+                4 * W if name == "window_stats_planes" else 0)
+            r["bound_ms"], r["bound_by"] = bound(
+                nbytes, {"f32": 2.0 * W * n_pad})
+            print(f"{name:19s} library torch.mv on the cast rows "
+                  f"{r['library_ms']:.4f} ms  [{card}]", flush=True)
+            print_bound(name, r)
+        del planes, pw
+    return rec
+
+
+WINDOW_RUNS = (("off_exact", ("--mega", "off")),
+               ("off_stale", ("--mega", "off", "--stale", "--window", "64")),
+               ("planes", ("--cache-planes", "on", "--stale", "--window",
+                           "64")),
+               ("stale_w1", ("--stale",)))
+
+
+def phase_window_cli(torch, np, tmp):
+    """The per-window branch and W = 1 through the CLI at M=10,000 x
+    N=5,000 (phase 3's bed), 20 iterations each (WINDOW_RUNS), each run's
+    launches counted on its own; then one CUDA sweep of each against the
+    CPU sampler with the same state and noise."""
+    from hydra_tpu_torch import cli
+    from hydra_tpu_torch.options import parse_args
+    from hydra_tpu_torch.runner import dataset_from_options
+    from hydra_tpu_torch.samplers.bayesrrm import (BayesRRm, state_from_numpy,
+                                                   state_to_numpy)
+    m, n, iters = 10_000, 5_000, 20
+    base = os.path.join(tmp, "t_M10K_N_5K")
+    common = ["--mpibayes", "bayesMPI", "--bfile", base, "--pheno",
+              base + ".phen", "--S", "0.0001,0.001,0.01", "--chain-length",
+              str(iters), "--thin", "5", "--save", "10", "--seed", "7",
+              "--mcmc-out-dir", os.path.join(tmp, "out")]
+    n_win = -(-m // 64)
+    moved = {"off_exact": ("window_stats", "window_gibbs", "window_axpy"),
+             "off_stale": ("window_stats", "window_axpy"),
+             "planes": ("window_stats_planes", "window_axpy_planes"),
+             "stale_w1": ("sweep_stale",)}
+    total = {}
+    for name, extra in WINDOW_RUNS:
+        reset_all_launches()
+        t0 = time.perf_counter()
+        rc = cli.main(common + ["--mcmc-out-name", name, *extra])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: v for k, v in all_launches().items() if v}
+        print(f"{name} ({' '.join(extra)}): exit {rc}, {wall:.1f} s wall for "
+              f"{iters} iterations, launches {json.dumps(launches)}",
+              flush=True)
+        if rc != 0:
+            raise AssertionError(f"CLI exit code {rc}")
+        want = {k: (iters if name == "stale_w1" else iters * n_win)
+                for k in moved[name]}
+        if launches != want:
+            raise AssertionError(f"{name}: launches {launches}, want {want}")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        h2 = check_outputs(np, os.path.join(tmp, "out", name), m, iters // 5)
+        print(f"{name}: {iters // 5} thinned records, mean h2 over the last "
+              f"{iters // 10} = {h2:.4f} (simulated 0.5)", flush=True)
+
+    # one sweep of each, CUDA sampler vs CPU sampler, same state and noise
+    for name, extra in WINDOW_RUNS:
+        opt = parse_args(common + list(extra))
+        ds = dataset_from_options(opt)
+        kw = dict(window=opt.window, exact=opt.exact, seed=7, mega=opt.mega,
+                  plane_cache=opt.plane_cache)
+        cpu = BayesRRm(ds, device="cpu", **kw)
+        gpu = BayesRRm(ds, device="cuda", **kw)
+        s_cpu = cpu.init_state()
+        s_gpu = state_from_numpy(state_to_numpy(s_cpu), "cuda")
+        g = torch.Generator().manual_seed(5)
+        ml = cpu.cfg.m_loc
+        noise = dict(mu=torch.randn((), generator=g),
+                     u=torch.rand(ml, generator=g),
+                     nrm=torch.randn(ml, generator=g),
+                     perm=torch.randperm(ml, generator=g))
+        t0 = time.perf_counter()
+        a, sa = cpu.step(s_cpu, 0, noise=noise)
+        t1 = time.perf_counter()
+        b, sb = gpu.step(s_gpu, 0, noise={k: v.cuda() for k, v in noise.items()})
+        a, b = state_to_numpy(a), state_to_numpy(b)
+        d_eps = float(np.abs(a["eps"] - b["eps"]).max())
+        d_beta = float(np.abs(a["beta"] - b["beta"]).max())
+        n_comp = int((a["components"] != b["components"]).sum())
+        print(f"one {name} sweep (W={opt.window}, {gpu.cfg.schedule}, "
+              f"{'per-window' if gpu.cfg.per_window else 'whole-sweep'}"
+              f"{', planes' if gpu.cfg.planes else ''}), CUDA vs CPU sampler "
+              f"({t1 - t0:.1f} s on the CPU): max|d eps| {d_eps:.3e}  max|d "
+              f"beta| {d_beta:.3e}  comp mismatches {n_comp}", flush=True)
+        if gpu.cfg.schedule != "marker":
+            raise AssertionError(f"{name}: schedule {gpu.cfg.schedule}")
+        np.testing.assert_allclose(b["eps"], a["eps"], atol=5e-4, rtol=1e-3)
+        np.testing.assert_allclose(b["beta"], a["beta"], atol=5e-4, rtol=1e-3)
+        if n_comp or not np.array_equal(sa.cass.numpy(), sb.cass.cpu().numpy()):
+            raise AssertionError("component mismatches CUDA vs CPU sampler")
+    return total
+
+
+def phase_window_real_size(torch, np, sk, card):
+    """The per-window branch at M=100,000 x N=50,000 (--mega off exact
+    W=128, --mega off stale W=64, --cache-planes on stale W=64) and the
+    whole-sweep stale kernel at W=1 at M=10,000 x N=5,000: ms/sweep,
+    markers/s, busy share, host enqueue, device time per kernel."""
+    from hydra_tpu_torch.data.genotypes import (Dataset, GenotypeData,
+                                                make_default_groups)
+    from hydra_tpu_torch.samplers.bayesrrm import BayesRRm
+    dev = torch.device("cuda")
+    for m, n, runs in (
+            (100_000, 50_000, (("--mega off exact", True, 128, "off", "off"),
+                               ("--mega off stale", False, 64, "off", "off"),
+                               ("--cache-planes on stale", False, 64, "auto",
+                                "on"))),
+            (10_000, 5_000, (("--stale", False, 1, "auto", "off"),))):
+        n_pad = padded_individuals(np, n)
+        gen = torch.Generator(device=dev).manual_seed(2)
+        pk, mave, mstd, nm = device_genotypes(torch, m, n, n_pad, gen)
+        mave_h, mstd_h = mave.cpu().numpy(), mstd.cpu().numpy()
+        geno = GenotypeData(packed=np.zeros((0, n_pad // 4), np.uint8), n=n,
+                            n_pad=n_pad, m=m, mave=mave_h, mstd=mstd_h,
+                            msd=1.0 / mstd_h, n1=None, n2=None,
+                            nm=nm.cpu().numpy())
+        groups, mS = make_default_groups(m, list(MS[1:]))
+        y = np.random.RandomState(0).randn(n)
+        ds = Dataset(geno=geno, y=y, groups=groups, num_groups=1, mS=mS)
+        for label, exact, window, mega, pc in runs:
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            s = BayesRRm(ds, window=window, exact=exact, seed=1, device=dev,
+                         mega=mega, plane_cache=pc, packed_device=pk)
+            torch.cuda.synchronize()
+            setup = time.perf_counter() - t0
+            st = s.init_state()
+            for it in range(2):
+                st, _ = s.step(st, it)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for it in range(2, 5):
+                st, stats = s.step(st, it)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3 / 3
+            if not bool(torch.isfinite(st.eps).all()):
+                raise AssertionError("non-finite residual at real size")
+            sg, se = float(st.sigma_g.sum()), float(st.sigma_e)
+            print(f"real size M={m:,} x N={n:,} {label} W={window} "
+                  f"{s.cfg.schedule}: {ms:.2f} ms/sweep, {m / ms * 1e3:,.0f} "
+                  f"markers/s (3 sweeps after 2 warm-up; set up in "
+                  f"{setup:.1f} s), h2 {sg / (sg + se):.4f}, peak "
+                  f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB  [{card}]",
+                  flush=True)
+            if not s.cfg.per_window:
+                profile_sweep(torch, sk, s, st, card)
+            else:
+                cfg = s.cfg
+                active = ((st.sigma_g[s.groups] > 0) & (s.valid > 0)
+                          & (s.mstd > 0))
+                mrow = s.build_mrow(st, torch.rand(cfg.m_loc, device=dev),
+                                    torch.randn(cfg.m_loc, device=dev),
+                                    active)
+                order = s.sweep_order(0)
+                i2se = 0.5 / st.sigma_e
+                # complete data: exact 5 stats launches + window_gibbs +
+                # the axpy; stale 2 stats launches (or the planes') + axpy
+                per = 7 if exact else 3
+                profile_run(torch, lambda: s.window_sweep(st.eps, mrow, order,
+                                                          i2se),
+                            f"{label} W={window}",
+                            f"{per}/window = {per * cfg.n_windows} CUDA-kernel",
+                            card)
+            del s, st
+        del pk
+
+
 def main() -> int:
     try:
         import torch
@@ -1183,6 +1492,8 @@ def main() -> int:
     with phase("2c: multi-trait kernels vs plain versions (M=4,096 x "
                "N=50,000, T=4)"):
         rec.update(phase_mt_kernels(torch, np, card))
+    with phase("2d: per-window kernels vs plain versions (N=50,000)"):
+        rec.update(phase_window_kernels(torch, np, card))
     with tempfile.TemporaryDirectory() as tmp:
         with phase("3: BayesRRm CLI end to end (M=10,000 x N=5,000)"):
             launches = phase_cli(torch, np, sk, tmp)
@@ -1191,17 +1502,26 @@ def main() -> int:
         with phase("3c: multi-trait CLI end to end (M=10,000 x N=5,000, "
                    "T=4)"):
             mt_launches = phase_mt_cli(torch, np, tmp)
+        with phase("3d: per-window branch and W=1 through the CLI "
+                   "(M=10,000 x N=5,000)"):
+            window_launches = phase_window_cli(torch, np, tmp)
     for name in ("sweep_stale_bw", "window_level_sums", "window_axpy"):
         launches[name] = bw_launches[name]
     for name in ("sweep_stale_mt", "sweep_exact_mt", "window_stats_mt",
                  "window_axpy_mt", "mt_window_recurrence"):
         launches[name] = mt_launches[name]
+    for name in ("window_stats", "window_gibbs", "window_stats_planes",
+                 "window_axpy_planes"):
+        launches[name] = window_launches[name]
     with phase("4: real size (M=100,000 x N=50,000)"):
         phase_real_size(torch, np, sk, card)
     with phase("4b: BayesW real size"):
         phase_bw_real_size(torch, np, card)
     with phase("4c: multi-trait real size (M=100,000 x N=50,000, T=4)"):
         phase_mt_real_size(torch, np, card)
+    with phase("4d: per-window branch real size (M=100,000 x N=50,000) and "
+               "stale W=1"):
+        phase_window_real_size(torch, np, sk, card)
 
     table = (
         ("sweep_stale", "sweep_kernel.cu", "hydra_tpu/ops/sweep_kernel.py:836"),
@@ -1222,9 +1542,17 @@ def main() -> int:
          "hydra_tpu/ops/window_kernels.py:534"),
         # not a Pallas kernel: the JAX sampler's lax.scan recurrence
         ("mt_window_recurrence", "sweep_kernel_mt.cu",
-         "hydra_tpu/samplers/bayesrrm_mt.py:439"))
-    # library_ms is null throughout: no single PyTorch call decodes the
-    # 2-bit packed genotypes these kernels read, or runs the recurrence's
+         "hydra_tpu/samplers/bayesrrm_mt.py:439"),
+        ("window_stats", "sweep_kernel.cu",
+         "hydra_tpu/ops/window_kernels.py:180"),
+        ("window_gibbs", "sweep_kernel.cu", "hydra_tpu/ops/gibbs_kernel.py:112"),
+        ("window_stats_planes", "planes_kernel.cu",
+         "hydra_tpu/ops/planes.py:138"),
+        ("window_axpy_planes", "planes_kernel.cu",
+         "hydra_tpu/ops/planes.py:196"))
+    # library_ms is null except for the planes kernels (torch.mv on the
+    # window's int8 rows cast to f32): no single PyTorch call decodes the
+    # 2-bit packed genotypes the others read, or runs a recurrence's
     # sequential chain of draws, so none computes the same function on the
     # same inputs
     kernels = [dict(name=name, route="cuda",
@@ -1232,7 +1560,8 @@ def main() -> int:
                     launches=launches[name], max_abs_err=rec[name]["err"],
                     ms=rec[name]["ms"], plain_ms=rec[name]["plain_ms"],
                     bound_ms=rec[name]["bound_ms"],
-                    bound_by=rec[name]["bound_by"], library_ms=None)
+                    bound_by=rec[name]["bound_by"],
+                    library_ms=rec[name].get("library_ms"))
                for name, src, replaces in table]
     for k in kernels:
         if k["launches"] <= 0:

@@ -1,8 +1,11 @@
 // BayesRRm whole-sweep kernels for Hopper (sm_90a): stale and exact windows.
 //
-// Replaces the Pallas mega-kernels of hydra_tpu/ops/sweep_kernel.py:
+// Replaces the Pallas mega-kernels of hydra_tpu/ops/sweep_kernel.py and the
+// per-window kernels of the single-trait per-window branch:
 //   hydra_sweep_stale  <- sweep_stale  (_sweep_kernel)
 //   hydra_sweep_exact  <- sweep_exact  (_sweep_exact_kernel)
+//   hydra_window_stats <- window_stats (hydra_tpu/ops/window_kernels.py)
+//   hydra_window_gibbs <- window_gibbs (hydra_tpu/ops/gibbs_kernel.py)
 //
 // What they compute, per window of W markers (slots order[w*W .. w*W+W)):
 //   stats : s1 = sum g*eps, s2 = sum m*eps over all individuals
@@ -174,13 +177,56 @@ __global__ void stale_draw_kernel(const float* __restrict__ mrow, int C, int K,
 }
 
 // ----------------------------------------------------------- exact draw --
+struct Draw {
+    float bnew, comp, acum, dbeta;
+};
+
+// One marker of the exact recurrence, given its corrected dot product num:
+// the draw of _sweep_exact_kernel.step (hydra_tpu/ops/sweep_kernel.py:
+// 452-517) and of window_gibbs (hydra_tpu/ops/gibbs_kernel.py:57-107):
+// clamp max(l - mx, -60), unnormalized u*s against the running cum. logl
+// (K), invd and sd (K-1) are the marker's mixture constants.
+__device__ __forceinline__ Draw exact_draw(float num, const float* logl,
+                                           const float* invd, const float* sd,
+                                           int K, float u, float nrm, float act,
+                                           float bold, float i2se) {
+    const int km1 = K - 1;
+    const float logl0 = logl[0];
+    float mx = logl0;
+    float muk[K_MAX], pr[K_MAX];
+    for (int k = 0; k < km1; ++k) {
+        muk[k] = num * invd[k];
+        pr[k] = logl[1 + k] + muk[k] * num * i2se;
+        mx = fmaxf(mx, pr[k]);
+    }
+    const float pr0 = expf(fmaxf(logl0 - mx, -60.0f));
+    float s = pr0;
+    for (int k = 0; k < km1; ++k) {
+        pr[k] = expf(fmaxf(pr[k] - mx, -60.0f));
+        s = s + pr[k];
+    }
+    const float us = u * s;
+    float cum = pr0, compf = 0.f;
+    for (int k = 0; k < km1; ++k) {
+        compf += us > cum ? 1.f : 0.f;
+        cum = cum + pr[k];
+    }
+    float mu_sel = 0.f, sd_sel = 0.f;
+    for (int k = 0; k < km1; ++k)
+        if (compf == static_cast<float>(k + 1)) {
+            mu_sel = muk[k];
+            sd_sel = sd[k];
+        }
+    const float pos = compf > 0.f ? 1.f : 0.f;
+    const float bnew = pos * act * (mu_sel + nrm * sd_sel);
+    return {bnew, compf * act, (pr0 / s) * act + (1.f - act), bold - bnew};
+}
+
 // One block, one thread per marker. Thread i keeps num_i; at step j thread j
-// draws with the exact-mode formula of _sweep_exact_kernel.step
-// (hydra_tpu/ops/sweep_kernel.py:452-517: clamp max(l - mx, -60),
-// unnormalized u*s against the running cum), publishes dbeta_j through
-// shared memory, and every thread applies num_i += G_ij * dbeta_j. The
-// complete-data integer Gram is standardized on the fly with the rank-1
-// correction of :435-442.
+// draws (exact_draw), publishes dbeta_j through shared memory, and every
+// thread applies num_i += G_ij * dbeta_j. The complete-data integer Gram is
+// standardized on the fly with the rank-1 correction of
+// hydra_tpu/ops/sweep_kernel.py:435-442.
 __global__ void exact_draw_kernel(const float* __restrict__ mrow, int C, int K,
                                   const int* __restrict__ order_w, int W,
                                   const float* __restrict__ part_s1,
@@ -197,7 +243,6 @@ __global__ void exact_draw_kernel(const float* __restrict__ mrow, int C, int K,
     const int r = threadIdx.x;
     const float i2se = sc[0], dNm1 = sc[1], n_real = sc[2];
     const int bl = N_FIXED, bi = N_FIXED + K, bs = N_FIXED + 2 * K - 1;
-    const int km1 = K - 1;
     float numv = 0.f, mave = 0.f, mstd = 0.f, v = 0.f;
     int slot = 0;
     const float* row = mrow;
@@ -217,43 +262,14 @@ __global__ void exact_draw_kernel(const float* __restrict__ mrow, int C, int K,
     __syncthreads();
     for (int j = 0; j < W; ++j) {
         if (r == j) {
-            const float num = numv;
-            const float logl0 = row[bl];
-            float mx = logl0;
-            float muk[K_MAX], pr[K_MAX];
-            for (int k = 0; k < km1; ++k) {
-                muk[k] = num * row[bi + k];
-                pr[k] = row[bl + 1 + k] + muk[k] * num * i2se;
-                mx = fmaxf(mx, pr[k]);
-            }
-            const float pr0 = expf(fmaxf(logl0 - mx, -60.0f));
-            float s = pr0;
-            for (int k = 0; k < km1; ++k) {
-                pr[k] = expf(fmaxf(pr[k] - mx, -60.0f));
-                s = s + pr[k];
-            }
-            const float us = row[3] * s;
-            float cum = pr0, compf = 0.f;
-            for (int k = 0; k < km1; ++k) {
-                compf += us > cum ? 1.f : 0.f;
-                cum = cum + pr[k];
-            }
-            float mu_sel = 0.f, sd_sel = 0.f;
-            for (int k = 0; k < km1; ++k)
-                if (compf == static_cast<float>(k + 1)) {
-                    mu_sel = muk[k];
-                    sd_sel = row[bs + k];
-                }
-            const float act = row[5];
-            const float pos = compf > 0.f ? 1.f : 0.f;
-            const float bnew = pos * act * (mu_sel + row[4] * sd_sel);
-            const float dbeta = row[2] - bnew;
+            const Draw d = exact_draw(numv, row + bl, row + bi, row + bs, K, row[3],
+                                      row[4], row[5], row[2], i2se);
             float* o = out + static_cast<size_t>(slot) * 4;
-            o[0] = bnew;
-            o[1] = compf * act;
-            o[2] = (pr0 / s) * act + (1.f - act);
-            o[3] = dbeta;
-            s_db[j] = dbeta;
+            o[0] = d.bnew;
+            o[1] = d.comp;
+            o[2] = d.acum;
+            o[3] = d.dbeta;
+            s_db[j] = d.dbeta;
         }
         __syncthreads();
         if (r < W) {
@@ -347,10 +363,10 @@ int run_sweep(bool exact, const uint8_t* pk, float* eps, const float* mrow,
         if (exact) {
             if (complete)
                 gram_kernel<true><<<gram_grid, dim3(32, 8), 0, stream>>>(
-                    pk, nb, order_w, W, mrow, C, ws.gram_part);
+                    pk, nb, order_w, W, nullptr, nullptr, 0, 0, ws.gram_part);
             else
                 gram_kernel<false><<<gram_grid, dim3(32, 8), 0, stream>>>(
-                    pk, nb, order_w, W, mrow, C, ws.gram_part);
+                    pk, nb, order_w, W, mrow, mrow + 1, C, 1, ws.gram_part);
             HYDRA_CHECK_LAUNCH();
             gram_reduce_kernel<<<cdiv(static_cast<long long>(W) * W, 256), 256, 0, stream>>>(
                 ws.gram_part, n_chunks, W, complete, ws.gram);
@@ -369,6 +385,159 @@ int run_sweep(bool exact, const uint8_t* pk, float* eps, const float* mrow,
         HYDRA_CHECK_LAUNCH();
     }
     return 0;
+}
+
+// ---------------------------------------------------------- window_stats --
+// Port of window_stats (hydra_tpu/ops/window_kernels.py:180-248) for the
+// per-window branch: the window's rows are read in place through rows[]
+// (no gather). stats_kernel's tile partials are reduced in tile order;
+// complete stale data turns hs1 = sum h*eps into s1 = 2 sum(eps) - hs1 with
+// the row's own sum(eps).
+__global__ void window_stats_finish_kernel(const float* __restrict__ part_s1,
+                                           const float* __restrict__ part_s2,
+                                           const float* __restrict__ part_v,
+                                           int n_tiles, int W, int mode,
+                                           float* __restrict__ s1,
+                                           float* __restrict__ s2,
+                                           float* __restrict__ v) {
+    const int r = blockIdx.x * blockDim.x + threadIdx.x;
+    if (r >= W) return;
+    const float a = reduce_tiles(part_s1, n_tiles, W, r);
+    const float b = reduce_tiles(part_s2, n_tiles, W, r);
+    s1[r] = mode == MODE_STALE_COMPLETE ? __fsub_rn(2.0f * b, a) : a;
+    s2[r] = b;
+    if (mode == MODE_EXACT_COMPLETE) v[r] = reduce_tiles(part_v, n_tiles, W, r);
+}
+
+// The complete-data Gram's rank-1 standardization (window_kernels.py:
+// 239-246), in place on the raw integer Gram, one rounding per operation
+// (no contraction), so the plain version repeats it bit for bit:
+//   G_ij = (mstd_i mstd_j) ((G_ij - mave_i v_j - v_i mave_j) + n mave_i mave_j)
+__global__ void gram_standardize_kernel(float* __restrict__ G, int W,
+                                        const float* __restrict__ mave,
+                                        const float* __restrict__ mstd,
+                                        const float* __restrict__ v,
+                                        const float* __restrict__ n_real) {
+    const size_t e = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+    if (e >= static_cast<size_t>(W) * W) return;
+    const int i = static_cast<int>(e / W), j = static_cast<int>(e % W);
+    float t = __fsub_rn(G[e], __fmul_rn(mave[i], v[j]));
+    t = __fsub_rn(t, __fmul_rn(v[i], mave[j]));
+    t = __fadd_rn(t, __fmul_rn(n_real[0], __fmul_rn(mave[i], mave[j])));
+    G[e] = __fmul_rn(__fmul_rn(mstd[i], mstd[j]), t);
+}
+
+struct WindowWorkspace {
+    float* part_s1;
+    float* part_s2;
+    float* part_v;
+    float* v;
+    float* gram_part;
+    size_t bytes;
+};
+
+inline WindowWorkspace window_layout(void* base, int nb, int W, bool exact) {
+    const size_t n_tiles = cdiv(nb, STATS_TB);
+    size_t off = 0;
+    WindowWorkspace ws{};
+    char* p = static_cast<char*>(base);
+    auto take = [&](size_t floats) {
+        float* out = reinterpret_cast<float*>(p + off);
+        off += align256(floats * sizeof(float));
+        return out;
+    };
+    ws.part_s1 = take(n_tiles * W);
+    ws.part_s2 = take(n_tiles * W);
+    ws.part_v = take(n_tiles * W);
+    ws.v = take(W);
+    if (exact) ws.gram_part = take(static_cast<size_t>(cdiv(nb, GRAM_CB)) * W * W);
+    ws.bytes = off;
+    return ws;
+}
+
+int run_window_stats(const uint8_t* pk, const float* eps, const int* rows,
+                     const float* mave, const float* mstd, const float* n_real,
+                     float* s1, float* s2, float* gram, void* ws_base, int W, int nb,
+                     bool exact, int complete, cudaStream_t stream) {
+    if (W < 1 || W > 1024 || nb <= 0 || nb % 128 || (exact && gram == nullptr) ||
+        (exact && complete && n_real == nullptr))
+        return static_cast<int>(cudaErrorInvalidValue);
+    const WindowWorkspace ws = window_layout(ws_base, nb, W, exact);
+    const int n_tiles = cdiv(nb, STATS_TB);
+    const int mode = !complete ? MODE_MISSING
+                               : (exact ? MODE_EXACT_COMPLETE : MODE_STALE_COMPLETE);
+    stats_kernel<<<dim3(n_tiles, cdiv(W, STATS_ROWS)), STATS_ROWS * 32, 0, stream>>>(
+        pk, nb, eps, rows, W, mode, ws.part_s1, ws.part_s2, ws.part_v);
+    HYDRA_CHECK_LAUNCH();
+    window_stats_finish_kernel<<<cdiv(W, 256), 256, 0, stream>>>(
+        ws.part_s1, ws.part_s2, ws.part_v, n_tiles, W, mode, s1, s2, ws.v);
+    HYDRA_CHECK_LAUNCH();
+    if (!exact) return 0;
+    const int n_chunks = cdiv(nb, GRAM_CB);
+    const int nt = cdiv(W, GRAM_TW);
+    const dim3 gram_grid(nt * nt, n_chunks);
+    if (complete)
+        gram_kernel<true><<<gram_grid, dim3(32, 8), 0, stream>>>(
+            pk, nb, rows, W, nullptr, nullptr, 0, 0, ws.gram_part);
+    else
+        gram_kernel<false><<<gram_grid, dim3(32, 8), 0, stream>>>(
+            pk, nb, rows, W, mave, mstd, 1, 0, ws.gram_part);
+    HYDRA_CHECK_LAUNCH();
+    const int ww_blocks = cdiv(static_cast<long long>(W) * W, 256);
+    gram_reduce_kernel<<<ww_blocks, 256, 0, stream>>>(ws.gram_part, n_chunks, W,
+                                                      complete, gram);
+    HYDRA_CHECK_LAUNCH();
+    if (complete) {
+        gram_standardize_kernel<<<ww_blocks, 256, 0, stream>>>(gram, W, mave, mstd,
+                                                               ws.v, n_real);
+        HYDRA_CHECK_LAUNCH();
+    }
+    return 0;
+}
+
+// ---------------------------------------------------------- window_gibbs --
+// Port of window_gibbs (hydra_tpu/ops/gibbs_kernel.py:112-140): the exact
+// W-step recurrence of one window on separate inputs, as the TPU kernel
+// takes them: num0, u, nrm, act, bold (W,), logl (W, K), invd and sd
+// (W, K-1), a standardized Gram (W, W) and i2se. One block, one thread per
+// marker; the step is exact_draw, shared with the exact sweep. The Gram is
+// symmetric, so thread i reads column j of row j, G[j * W + i], coalesced.
+// Bound by the W serial steps (one draw and one __syncthreads each), not by
+// memory: the Gram is read once, from L2.
+__global__ void window_gibbs_kernel(const float* __restrict__ G,
+                                    const float* __restrict__ num0,
+                                    const float* __restrict__ logl,
+                                    const float* __restrict__ invd,
+                                    const float* __restrict__ sd,
+                                    const float* __restrict__ u,
+                                    const float* __restrict__ nrm,
+                                    const float* __restrict__ act,
+                                    const float* __restrict__ bold,
+                                    const float* __restrict__ i2se_p, int W, int K,
+                                    float* __restrict__ dbeta,
+                                    float* __restrict__ bnew,
+                                    int* __restrict__ comp,
+                                    float* __restrict__ acum) {
+    extern __shared__ float s_db[];        // dbeta[W]
+    const int r = threadIdx.x;
+    const float i2se = i2se_p[0];
+    const int km1 = K - 1;
+    float numv = r < W ? num0[r] : 0.f;
+    for (int j = 0; j < W; ++j) {
+        if (r == j) {
+            const Draw d = exact_draw(numv, logl + static_cast<size_t>(j) * K,
+                                      invd + static_cast<size_t>(j) * km1,
+                                      sd + static_cast<size_t>(j) * km1, K, u[j],
+                                      nrm[j], act[j], bold[j], i2se);
+            dbeta[j] = d.dbeta;
+            bnew[j] = d.bnew;
+            comp[j] = static_cast<int>(d.comp);
+            acum[j] = d.acum;
+            s_db[j] = d.dbeta;
+        }
+        __syncthreads();
+        if (r < W) numv = fmaf(G[static_cast<size_t>(j) * W + r], s_db[j], numv);
+    }
 }
 
 }  // namespace hydra
@@ -406,6 +575,50 @@ int hydra_sweep_exact(const void* pk, void* eps, const void* mrow, const void* o
                             static_cast<const float*>(sc), static_cast<float*>(out), ws,
                             m_loc, nb, window, n_mix, complete,
                             static_cast<cudaStream_t>(stream));
+}
+
+// Bytes of device scratch one window_stats call needs.
+long long hydra_window_workspace_bytes(int nb, int window, int exact) {
+    return static_cast<long long>(hydra::window_layout(nullptr, nb, window, exact != 0).bytes);
+}
+
+// (s1, s2[, gram]) of the window rows[0..W) of pk against eps (4*nb,):
+// s1 = sum g*eps (complete stale: 2 sum(eps) - sum h*eps), s2 = sum m*eps
+// (complete: sum(eps)); exact adds the standardized Gram (W, W) from
+// mave/mstd (W,) in window order and n_real (1,).
+int hydra_window_stats(const void* pk, const void* eps, const void* rows,
+                       const void* mave, const void* mstd, const void* n_real,
+                       void* s1, void* s2, void* gram, void* ws, int window, int nb,
+                       int exact, int complete, void* stream) {
+    return hydra::run_window_stats(
+        static_cast<const uint8_t*>(pk), static_cast<const float*>(eps),
+        static_cast<const int*>(rows), static_cast<const float*>(mave),
+        static_cast<const float*>(mstd), static_cast<const float*>(n_real),
+        static_cast<float*>(s1), static_cast<float*>(s2), static_cast<float*>(gram), ws,
+        window, nb, exact != 0, complete, static_cast<cudaStream_t>(stream));
+}
+
+// The exact recurrence of one window (window_gibbs): outputs dbeta, bnew,
+// acum (W,) f32 and comp (W,) int32.
+int hydra_window_gibbs(const void* gram, const void* num0, const void* logl,
+                       const void* invd, const void* sd, const void* u,
+                       const void* nrm, const void* act, const void* bold,
+                       const void* i2se, void* dbeta, void* bnew, void* comp,
+                       void* acum, int window, int n_mix, void* stream) {
+    using namespace hydra;
+    if (window < 1 || window > 1024 || n_mix < 2 || n_mix > K_MAX)
+        return static_cast<int>(cudaErrorInvalidValue);
+    window_gibbs_kernel<<<1, cdiv(window, 32) * 32, sizeof(float) * window,
+                          static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(gram), static_cast<const float*>(num0),
+        static_cast<const float*>(logl), static_cast<const float*>(invd),
+        static_cast<const float*>(sd), static_cast<const float*>(u),
+        static_cast<const float*>(nrm), static_cast<const float*>(act),
+        static_cast<const float*>(bold), static_cast<const float*>(i2se), window,
+        n_mix, static_cast<float*>(dbeta), static_cast<float*>(bnew),
+        static_cast<int*>(comp), static_cast<float*>(acum));
+    HYDRA_CHECK_LAUNCH();
+    return 0;
 }
 
 const char* hydra_sweep_error_string(int err) {

@@ -85,7 +85,10 @@ __device__ __forceinline__ float reduce_tiles(const float* part, int n_tiles,
 // the 32x32 tile of the window Gram over GRAM_CB packed bytes; thread
 // (tx, ty) owns rows ty + 8q (q < 4) of column tx.
 //   COMPLETE: exact int32 Gram of g planes by __dp4a on int8x4 genotypes.
-//   else    : f32 Gram of x = (g - mave*m) * mstd (mrow columns 0 and 1).
+//   else    : f32 Gram of x = (g - mave*m) * mstd, with row r's statistics
+//             at mave[i * ld], mstd[i * ld], i = order_w[r] when by_slot
+//             (the sweeps' mrow columns 0 and 1), else i = r (window_stats'
+//             window-ordered vectors). COMPLETE reads none of them.
 // Partials: part[chunk * W * W + i * W + j] (int32 bits when COMPLETE).
 constexpr int GRAM_TW = 32;        // Gram tile edge
 constexpr int GRAM_CB = 512;       // packed bytes per Gram chunk (partial)
@@ -94,7 +97,8 @@ constexpr int GRAM_SB = 32;        // packed bytes per shared-memory step
 template <bool COMPLETE>
 __global__ void gram_kernel(const uint8_t* __restrict__ pk, int nb,
                             const int* __restrict__ order_w, int W,
-                            const float* __restrict__ mrow, int C,
+                            const float* __restrict__ mave,
+                            const float* __restrict__ mstd, int ld, int by_slot,
                             float* __restrict__ part) {
     const int nt = (W + GRAM_TW - 1) / GRAM_TW;
     const int ti = blockIdx.x / nt, tj = blockIdx.x % nt;
@@ -147,15 +151,16 @@ __global__ void gram_kernel(const uint8_t* __restrict__ pk, int nb,
                     float x[4] = {0.f, 0.f, 0.f, 0.f};
                     if (ra < W && inb) {
                         const int slot = order_w[ra];
-                        const float mave = mrow[static_cast<size_t>(slot) * C + 0];
-                        const float mstd = mrow[static_cast<size_t>(slot) * C + 1];
+                        const size_t si = static_cast<size_t>(by_slot ? slot : ra) * ld;
+                        const float av = mave[si];
+                        const float sd = mstd[si];
                         const uint32_t byte = pk[static_cast<size_t>(slot) * nb + sb + bb];
 #pragma unroll
                         for (int k = 0; k < 4; ++k) {
                             const int c = crumb(byte, k);
                             const float m = static_cast<float>(crumb_mask(c));
                             const float g = static_cast<float>(crumb_geno(c));
-                            x[k] = (g - mave * m) * mstd;
+                            x[k] = (g - av * m) * sd;
                         }
                     }
                     float (*dst)[SI + 1] = side == 0 ? Af : Bf;

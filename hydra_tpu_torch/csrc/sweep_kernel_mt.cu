@@ -583,7 +583,7 @@ int run_sweep_mt(bool exact, const uint8_t* pk, float* eps, const float* tm,
         HYDRA_CHECK_LAUNCH();
         if (exact) {
             gram_kernel<true><<<gram_grid, dim3(32, 8), 0, stream>>>(
-                pk, nb, order_w, W, mrow, C, ws.gram_part);
+                pk, nb, order_w, W, nullptr, nullptr, 0, 0, ws.gram_part);
             HYDRA_CHECK_LAUNCH();
             gram_reduce_kernel<<<cdiv(static_cast<long long>(W) * W, 256), 256, 0, stream>>>(
                 ws.gram_part, n_chunks, W, 1, ws.gram);

@@ -26,7 +26,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # source -> its own extra flags. The BayesW draw follows the plain PyTorch
 # version operation by operation, so that file forbids contraction into FMA.
 SOURCES = {"sweep_kernel.cu": (), "sweep_kernel_bw.cu": ("-fmad=false",),
-           "sweep_kernel_mt.cu": ()}
+           "sweep_kernel_mt.cu": (), "planes_kernel.cu": ()}
 
 _p, _i = ctypes.c_void_p, ctypes.c_int
 # C entry point -> (argtypes, restype)
@@ -35,6 +35,9 @@ _SIGNATURES = {
         "hydra_sweep_stale": ([_p] * 8 + [_i] * 5 + [_p], _i),
         "hydra_sweep_exact": ([_p] * 8 + [_i] * 5 + [_p], _i),
         "hydra_sweep_workspace_bytes": ([_i] * 3, ctypes.c_longlong),
+        "hydra_window_stats": ([_p] * 10 + [_i] * 4 + [_p], _i),
+        "hydra_window_gibbs": ([_p] * 14 + [_i] * 2 + [_p], _i),
+        "hydra_window_workspace_bytes": ([_i] * 3, ctypes.c_longlong),
         "hydra_sweep_error_string": ([_i], ctypes.c_char_p),
     },
     "sweep_kernel_bw.cu": {
@@ -53,6 +56,12 @@ _SIGNATURES = {
         "hydra_mt_window_recurrence": ([_p] * 6 + [_i] * 4 + [_p], _i),
         "hydra_mt_workspace_bytes": ([_i] * 4, ctypes.c_longlong),
         "hydra_mt_error_string": ([_i], ctypes.c_char_p),
+    },
+    "planes_kernel.cu": {
+        "hydra_window_stats_planes": ([_p] * 5 + [_i] * 2 + [_p], _i),
+        "hydra_window_axpy_planes": ([_p] * 4 + [_i] * 2 + [_p], _i),
+        "hydra_planes_workspace_bytes": ([_i] * 2, ctypes.c_longlong),
+        "hydra_planes_error_string": ([_i], ctypes.c_char_p),
     },
 }
 

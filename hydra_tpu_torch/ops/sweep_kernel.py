@@ -79,11 +79,13 @@ def _cols(rows: torch.Tensor, K: int):
             rows[..., bs:bs + K - 1])
 
 
-def _draw_stale(rows, s1v, s2v, i2se, dNm1, K):
-    """Vectorized stale-window draw (sweep_kernel.py:733-803)."""
-    mave, mstd, bold, u, nrm, act = rows[:, :N_FIXED].unbind(1)
+def stale_draw(rows, num0, i2se, K):
+    """Vectorized stale-window draw (sweep_kernel.py:733-803, the sampler's
+    draw_rows, bayesrrm.py:383-406) of W markers from their mrow rows
+    (W, C) and dot products num0 (W,): normalized probs, comp = #{cumulative
+    probs exceeded by u}. Returns (beta_new, comp, acum0, dbeta)."""
+    bold, u, nrm, act = rows[:, 2], rows[:, 3], rows[:, 4], rows[:, 5]
     logl, invd, sd = _cols(rows, K)
-    num0 = mstd * (s1v - mave * s2v) + bold * dNm1
     muks = num0[:, None] * invd                                 # (W, K-1)
     logls = torch.cat([logl[:, :1], logl[:, 1:] + muks * num0[:, None] * i2se],
                       dim=1)
@@ -103,10 +105,12 @@ def _draw_stale(rows, s1v, s2v, i2se, dNm1, K):
     return bnew, compf * act, probs[:, 0] * act + (1.0 - act), bold - bnew
 
 
-def _draw_exact(row, num, i2se, K):
-    """One marker of the exact recurrence (sweep_kernel.py:452-517):
-    clamp max(l - mx, -60), unnormalized u*s against the running cum."""
-    logl, invd, sd = _cols(row, K)
+def exact_draw(num, logl, invd, sd, u, nrm, act, bold, i2se):
+    """One marker of the exact recurrence (sweep_kernel.py:452-517 and
+    gibbs_kernel.py:57-107; ``exact_draw`` in csrc/sweep_kernel.cu): clamp
+    max(l - mx, -60), unnormalized u*s against the running cum. logl (K,),
+    invd and sd (K-1,). Returns (beta_new, comp, acum0, dbeta)."""
+    K = logl.shape[0]
     muk = num * invd
     ls = logl[1:] + muk * num * i2se
     mx = torch.maximum(logl[0], ls.max())
@@ -114,12 +118,11 @@ def _draw_exact(row, num, i2se, K):
     prs = torch.exp(torch.clamp(ls - mx, min=-60.0))
     cs = torch.cumsum(torch.cat([pr0.reshape(1), prs]), 0)  # running cum
     s = cs[-1]
-    compf = (row[3] * s > cs[:-1]).to(f32).sum()
-    sel = (torch.arange(1, K, device=row.device, dtype=f32) == compf).to(f32)
-    act = row[5]
+    compf = (u * s > cs[:-1]).to(f32).sum()
+    sel = (torch.arange(1, K, device=logl.device, dtype=f32) == compf).to(f32)
     bnew = (compf > 0).to(f32) * act * ((sel * muk).sum()
-                                        + row[4] * (sel * sd).sum())
-    return bnew, compf * act, (pr0 / s) * act + (1.0 - act), row[2] - bnew
+                                        + nrm * (sel * sd).sum())
+    return bnew, compf * act, (pr0 / s) * act + (1.0 - act), bold - bnew
 
 
 def _check(pk, eps, mrow, window, n_mix, complete, ind_mask, order):
@@ -172,7 +175,8 @@ def sweep_stale_ref(pk, eps, mrow, i_2se, dNm1, *, window: int, n_mix: int,
         else:
             g, m = decode_planes_hp(pk[slots])
             s1, s2 = g @ eps, m @ eps
-        bnew, comp, acum, dbeta = _draw_stale(rows, s1, s2, i2se, dnm1, K)
+        num0 = rows[:, 1] * (s1 - rows[:, 0] * s2) + rows[:, 2] * dnm1
+        bnew, comp, acum, dbeta = stale_draw(rows, num0, i2se, K)
         c1 = dbeta * rows[:, 1]
         c2 = -c1 * rows[:, 0]
         if complete:
@@ -217,9 +221,11 @@ def sweep_exact_ref(pk, eps, mrow, i_2se, dNm1, *, window: int, n_mix: int,
             x = (g - mave[:, None] * m) * mstd[:, None]
             gram = x @ x.T
         numv = mstd * (s1 - mave * s2) + rows[:, 2] * dnm1
+        logl, invd, sd = _cols(rows, K)
         res = []
         for j in range(W):
-            r = _draw_exact(rows[j], numv[j], i2se, K)
+            r = exact_draw(numv[j], logl[j], invd[j], sd[j], rows[j, 3],
+                           rows[j, 4], rows[j, 5], rows[j, 2], i2se)
             numv = numv + gram[:, j] * r[3]
             res.append(torch.stack(r))
         res = torch.stack(res)                               # (W, 4)

@@ -1,11 +1,21 @@
-"""BayesW per-window passes: level sums and the residual axpy.
+"""Per-window passes over a window's packed rows: BayesRRm's stats, the
+residual axpy and BayesW's level sums.
 
-Port of ``hydra_tpu/ops/window_kernels.py``'s ``window_level_sums`` and
-``window_axpy``. Both take the window's packed rows (W, NB) uint8
-(h-packed, ``ops/decode.py``) and work in individual order: vi, the
-residual and dε are (4*NB,) f32 with crumb k of byte b at 4b + k (no
-plane-major layout).
+Port of ``hydra_tpu/ops/window_kernels.py``'s ``window_stats``,
+``window_axpy`` and ``window_level_sums``. Each takes the packed rows
+(W, NB) uint8 (h-packed, ``ops/decode.py``), or all rows (m_loc, NB) with
+``rows`` (W,) int32 naming the window's slots (read in place on the device,
+not gathered), and works in individual order: eps, vi and dε are (4*NB,)
+f32 with crumb k of byte b at 4b + k (no plane-major layout).
 
+  window_stats(pk, eps, mave, mstd, exact, complete, n_real) -> (s1, s2,
+      gram): s1 = sum g*eps and s2 = sum m*eps per marker (BayesRRm's
+      per-window branch). Complete data returns s2 = None (the caller uses
+      sum(eps), zero on pads); complete stale data computes s1 by the
+      h-decode 2*sum(eps) - sum h*eps. exact adds the standardized window
+      Gram (W, W): complete data the raw integer Gram of the g planes with
+      the rank-1 correction from v = sum g and ``n_real``, missing data the
+      f32 Gram of x = (g - mave*m) * mstd.
   window_level_sums(pk, vi) -> (s1, s2, sb): sum_{g=1} vi, sum_{g=2} vi and
       the mask dot sum_{g not missing} vi per marker (partial_sum,
       BayesW.cpp:49-65); complete data returns sb = None (the caller uses
@@ -14,39 +24,22 @@ plane-major layout).
       returns only the genotype part (the caller adds sum(c2) and masks):
           d_eps = (window_axpy(..., complete=True) + c2.sum()) * ind_mask
 
-For CUDA tensors the wrappers launch the kernels of
-``csrc/sweep_kernel_bw.cu`` (``levels_kernel``, the shared
-``axpy_kernel``); for CPU tensors they run the plain versions
-``window_level_sums_ref`` / ``window_axpy_ref``. The same CUDA kernels run
-inside every window of ``sweep_stale_bw``, and ``launches`` counts them
-there as well.
+For CUDA tensors the wrappers launch the kernels (``window_stats``:
+``hydra_window_stats`` of ``csrc/sweep_kernel.cu``, which reuses the sweep's
+``stats_kernel`` and Gram kernels; the others ``csrc/sweep_kernel_bw.cu``'s
+``levels_kernel`` and the shared ``axpy_kernel``); for CPU tensors they run
+the plain versions ``*_ref``. The same BayesW kernels run inside every
+window of ``sweep_stale_bw``, and ``launches`` counts them there as well.
 
-The plain versions add in the kernels' order: the level sums per 512-byte
-tile, each of its 32 lanes sequentially over its words, then the warp's
-xor butterfly and the tiles in order; the axpy row by row. BayesW's
-component and slice decisions are discontinuous in these sums over N, so
-on the card the plain version and the kernel then agree bit for bit
-instead of within a rounding tolerance.
-
-Multi-trait (ports of ``window_stats_mt`` and ``window_axpy_mt``, the
-per-window passes of the multi-trait sampler's exact path): the residual
-and dε are (n_pad, T) f32 in individual order, one column per trait (the
-JAX ``MtState.eps`` layout), not the TPU's plane-major (4T, NB) rows.
-
-  window_stats_mt(pk, eps) -> (s1, s2), each (W, T): s1 = sum g*eps_t,
-      s2 = sum m*eps_t per (marker, trait); complete data returns s2 = None
-      (the caller uses the per-trait sum(eps), zero on pads and NaN
-      entries).
-  window_axpy_mt(pk, c1, c2) -> dε (n_pad, T) = sum_m c1[t,m] G_m +
-      c2[t,m] M_m with c1, c2 (T, W); complete data returns the genotype
-      part only (the caller adds the per-trait sum(c2) and applies the
-      trait mask):
-          d_eps = (window_axpy_mt(..., complete=True) + c2.sum(1)) * tm
-
-Both take an optional ``rows`` (W,) int32: the window's slots in a larger
-pk, read on the device instead of gathered. Their CUDA kernels live in
-``csrc/sweep_kernel_mt.cu`` and are the same ones the multi-trait sweeps
-launch per window; ``launches`` counts the standalone calls.
+The plain versions add in the kernels' order: the stats and level sums per
+512-byte tile, each of its 32 lanes sequentially over its words, then the
+warp's xor butterfly and the tiles in order; the axpy row by row; the
+complete-data Gram is exact integers standardized with one rounding per
+operation. On the card the plain version and the kernel then agree bit for
+bit, but for the missing-data Gram (the kernel's fused multiply-adds run
+over 2,048-individual chunks) and a pad row's h = 3 products in complete
+stale data (3*eps rounds in the plain version, not in the kernel's fused
+multiply-add; pad rows have mstd = 0).
 """
 
 from __future__ import annotations
@@ -58,13 +51,12 @@ import torch
 from hydra_tpu_torch.ops.decode import crumbs, decode_h, decode_planes_hp
 
 f32 = torch.float32
-LEVELS_TB = 512        # packed bytes per levels tile (csrc/sweep_kernel_bw.cu)
+LEVELS_TB = 512        # packed bytes per levels and stats tile (csrc/*.cu)
 _LANES = 32
-_WORD_STEPS = LEVELS_TB // 4 // _LANES    # 32-bit words per lane per tile
 
 # Kernel launches per name: one per standalone wrapper call, plus one per
 # window of each sweep_stale_bw call (the sweep launches the same kernels).
-launches = {"window_level_sums": 0, "window_axpy": 0,
+launches = {"window_stats": 0, "window_level_sums": 0, "window_axpy": 0,
             "window_stats_mt": 0, "window_axpy_mt": 0}
 
 
@@ -91,19 +83,22 @@ def seq_sum(x: torch.Tensor) -> torch.Tensor:
     return s
 
 
-def tile_sums(x: torch.Tensor) -> torch.Tensor:
-    """(..., 4*NB) -> (..., n_tiles): per-tile sums in levels_kernel's
-    order. Tile t holds words 128t..128t+127 (16 individuals each); lane l
-    adds its words 128t + l + 32j (j = 0..3) crumb by crumb, then the warp
-    combines lanes by the xor butterfly. Zero padding to whole tiles adds
-    exact zeros."""
+def tile_sums(x: torch.Tensor, word: int = 16) -> torch.Tensor:
+    """(..., 4*NB) -> (..., n_tiles): per-tile sums in the order of
+    levels_kernel and stats_kernel (word = 16: a tile holds 128 32-bit words
+    of 16 individuals each) or of the planes' stats_planes_kernel (word = 4:
+    512 char4 words of 4). Every tile holds 2,048 individuals; lane l adds
+    its words l, l + 32, ... of the tile individual by individual, then the
+    warp combines lanes by the xor butterfly. Zero padding to whole tiles
+    adds exact zeros."""
     n = x.shape[-1]
     per_tile = 4 * LEVELS_TB
+    steps = per_tile // (_LANES * word)
     n_tiles = -(-n // per_tile)
     x = torch.nn.functional.pad(x, (0, n_tiles * per_tile - n))
-    x = x.reshape(*x.shape[:-1], n_tiles, _WORD_STEPS, _LANES, 16)
+    x = x.reshape(*x.shape[:-1], n_tiles, steps, _LANES, word)
     x = x.movedim(-2, -3)                       # (..., t, lane, j, crumb)
-    acc = seq_sum(x.reshape(*x.shape[:-2], _WORD_STEPS * 16))
+    acc = seq_sum(x.reshape(*x.shape[:-2], steps * word))
     lane = torch.arange(_LANES, device=x.device)
     for off in (16, 8, 4, 2, 1):
         acc = acc + acc[..., lane ^ off]
@@ -158,30 +153,158 @@ def axpy_rows(pk: torch.Tensor, c1: torch.Tensor, c2: torch.Tensor,
     return acc
 
 
+def _window_rows(pk: torch.Tensor, rows: Optional[torch.Tensor]) -> torch.Tensor:
+    return pk if rows is None else pk[rows.to(torch.int64)]
+
+
+def _check_rows(pk, rows, n_rows_name: str):
+    if pk.dtype != torch.uint8 or pk.dim() != 2:
+        raise ValueError(f"pk must be (rows, NB) uint8, got {pk.dtype} "
+                         f"{tuple(pk.shape)}")
+    if rows is not None and (rows.dim() != 1 or rows.dtype not in (
+            torch.int32, torch.int64)):
+        raise ValueError(f"rows must be ({n_rows_name},) int32")
+    return pk.shape[0] if rows is None else rows.shape[0]
+
+
+def stats_partials(pk: torch.Tensor, eps: torch.Tensor, exact: bool,
+                   complete: bool):
+    """Per-tile partials (W, n_tiles) of stats_kernel's three sums: s1
+    (complete stale data: sum h*eps), s2 (complete data: sum eps, the same
+    for every row) and v = sum g (exact complete data only, else None)."""
+    c = crumbs(pk)
+    if complete and not exact:
+        return tile_sums(c.to(f32) * eps), tile_sums(eps).expand(
+            pk.shape[0], -1), None
+    m = 1 - ((c + 1) >> 2)
+    g = ((2 - c) * m).to(f32)
+    if complete:
+        return (tile_sums(g * eps), tile_sums(eps).expand(pk.shape[0], -1),
+                tile_sums(g))
+    return tile_sums(g * eps), tile_sums(m.to(f32) * eps), None
+
+
+def _check_stats(pk, eps, mave, mstd, exact, complete, n_real, rows):
+    W = _check_rows(pk, rows, "W")
+    _check(pk, eps, "eps")
+    for name, x in (("mave", mave), ("mstd", mstd)):
+        if x.dtype != f32 or tuple(x.shape) != (W,):
+            raise ValueError(f"{name} must be ({W},) float32, got {x.dtype} "
+                             f"{tuple(x.shape)}")
+    if exact and complete and n_real is None:
+        raise ValueError("exact complete window_stats needs n_real")
+    return W
+
+
+def window_stats_ref(pk: torch.Tensor, eps: torch.Tensor, mave: torch.Tensor,
+                     mstd: torch.Tensor, exact: bool, complete: bool = False,
+                     n_real=None, rows: Optional[torch.Tensor] = None
+                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
+                                Optional[torch.Tensor]]:
+    """Plain PyTorch window stats (same contract as ``window_stats``)."""
+    _check_stats(pk, eps, mave, mstd, exact, complete, n_real, rows)
+    pk = _window_rows(pk, rows)
+    p1, p2, pv = stats_partials(pk, eps, exact, complete)
+    s1, s2 = seq_sum(p1), seq_sum(p2)
+    if complete and not exact:
+        s1 = 2.0 * s2 - s1                     # h-decode
+    gram = None
+    if exact and complete:
+        # raw integer Gram (exact in f32) and its rank-1 standardization,
+        # one rounding per operation as gram_standardize_kernel
+        g, _ = decode_planes_hp(pk)
+        v = seq_sum(pv)
+        n = torch.as_tensor(n_real, dtype=f32, device=pk.device)
+        am = mave[:, None]
+        t = g @ g.T - am * v[None, :]
+        t = t - v[:, None] * mave[None, :]
+        t = t + n * (am * mave[None, :])
+        gram = (mstd[:, None] * mstd[None, :]) * t
+    elif exact:
+        g, m = decode_planes_hp(pk)
+        x = (g - mave[:, None] * m) * mstd[:, None]
+        gram = x @ x.T
+    return s1, (None if complete else s2), gram
+
+
 def window_axpy_ref(pk: torch.Tensor, c1: torch.Tensor, c2: torch.Tensor,
-                    complete: bool = False) -> torch.Tensor:
+                    complete: bool = False,
+                    rows: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain PyTorch axpy (same contract as ``window_axpy``)."""
-    acc = axpy_rows(pk, c1, c2, complete)
+    acc = axpy_rows(_window_rows(pk, rows), c1, c2, complete)
     # h-decode: sum c1*g = 2*sum(c1) - sum c1*h
     return 2.0 * c1.sum() - acc if complete else acc
 
 
-def _on_card(pk: torch.Tensor, what: str) -> None:
+def _card_rows(pk: torch.Tensor, rows: Optional[torch.Tensor], W: int,
+               what: str) -> torch.Tensor:
+    """What the CUDA kernels take; returns the window's rows as int32 on
+    the card (0..W-1 when ``rows`` is None)."""
     if pk.device.type != "cuda":
         raise ValueError(f"no {what} kernel for device {pk.device}")
     if pk.shape[1] % 128:
         raise ValueError(f"packed width {pk.shape[1]} is not a multiple of "
                          "128 bytes (individuals pad to 512)")
-    if not 1 <= pk.shape[0] <= 1024:
-        raise ValueError(f"the CUDA kernels take 1..1024 rows, got "
-                         f"{pk.shape[0]}")
+    if not 1 <= W <= 1024:
+        raise ValueError(f"the CUDA kernels take 1..1024 rows, got {W}")
     if not pk.is_contiguous():
         raise ValueError("pk must be contiguous")
+    if rows is None:
+        return torch.arange(W, dtype=torch.int32, device=pk.device)
+    if (rows.dtype != torch.int32 or rows.device != pk.device
+            or not rows.is_contiguous()):
+        raise ValueError(f"rows must be contiguous int32 on {pk.device}")
+    return rows
 
 
 def _raise(lib, what, err):
     raise RuntimeError(f"{what} kernel launch failed: "
                        f"{lib.hydra_bw_error_string(err).decode()}")
+
+
+def _stream(dev) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def window_stats(pk: torch.Tensor, eps: torch.Tensor, mave: torch.Tensor,
+                 mstd: torch.Tensor, exact: bool, complete: bool = False,
+                 n_real=None, rows: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
+                            Optional[torch.Tensor]]:
+    """(s1, s2, gram) of one window: the CUDA kernels on CUDA tensors, the
+    plain version on CPU tensors. mave, mstd (W,) in window order; n_real
+    (a number or a one-element tensor) for exact complete data."""
+    W = _check_stats(pk, eps, mave, mstd, exact, complete, n_real, rows)
+    if pk.device.type == "cpu":
+        return window_stats_ref(pk, eps, mave, mstd, exact, complete, n_real,
+                                rows)
+    rows = _card_rows(pk, rows, W, "window_stats")
+    from hydra_tpu_torch.ops import _build
+
+    dev = pk.device
+    for name, x in (("eps", eps), ("mave", mave), ("mstd", mstd)):
+        if x.device != dev or not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous and on {dev}")
+    lib = _build.load()
+    nb = pk.shape[1]
+    nr = (torch.as_tensor(n_real, dtype=f32, device=dev).reshape(1)
+          if exact and complete else None)
+    out = torch.empty((2, W), dtype=f32, device=dev)
+    gram = torch.empty((W, W), dtype=f32, device=dev) if exact else None
+    ws = torch.empty(lib.hydra_window_workspace_bytes(nb, W, int(exact)),
+                     dtype=torch.uint8, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.hydra_window_stats(
+            pk.data_ptr(), eps.data_ptr(), rows.data_ptr(), mave.data_ptr(),
+            mstd.data_ptr(), None if nr is None else nr.data_ptr(),
+            out[0].data_ptr(), out[1].data_ptr(),
+            None if gram is None else gram.data_ptr(), ws.data_ptr(), W, nb,
+            int(exact), int(complete), _stream(dev))
+    if err:
+        raise RuntimeError("window_stats kernel launch failed: "
+                           f"{lib.hydra_sweep_error_string(err).decode()}")
+    launches["window_stats"] += 1
+    return out[0], (None if complete else out[1]), gram
 
 
 def window_level_sums(pk: torch.Tensor, vi: torch.Tensor,
@@ -191,15 +314,14 @@ def window_level_sums(pk: torch.Tensor, vi: torch.Tensor,
     _check(pk, vi, "vi")
     if pk.device.type == "cpu":
         return window_level_sums_ref(pk, vi, complete)
-    _on_card(pk, "window_level_sums")
+    W, nb = pk.shape
+    order = _card_rows(pk, None, W, "window_level_sums")
     from hydra_tpu_torch.ops import _build
 
     dev = pk.device
     if vi.device != dev or not vi.is_contiguous():
         raise ValueError(f"vi must be contiguous and on {dev}")
     lib = _build.load("sweep_kernel_bw.cu")
-    W, nb = pk.shape
-    order = torch.arange(W, dtype=torch.int32, device=dev)
     out = torch.empty((3, W), dtype=f32, device=dev)
     ws = torch.empty(lib.hydra_bw_workspace_bytes(nb, W), dtype=torch.uint8,
                      device=dev)
@@ -207,7 +329,7 @@ def window_level_sums(pk: torch.Tensor, vi: torch.Tensor,
         err = lib.hydra_window_level_sums(
             pk.data_ptr(), vi.data_ptr(), order.data_ptr(), out[0].data_ptr(),
             out[1].data_ptr(), out[2].data_ptr(), ws.data_ptr(), W, nb,
-            int(complete), torch.cuda.current_stream(dev).cuda_stream)
+            int(complete), _stream(dev))
     if err:
         _raise(lib, "window_level_sums", err)
     launches["window_level_sums"] += 1
@@ -215,20 +337,18 @@ def window_level_sums(pk: torch.Tensor, vi: torch.Tensor,
 
 
 def window_axpy(pk: torch.Tensor, c1: torch.Tensor, c2: torch.Tensor,
-                complete: bool = False) -> torch.Tensor:
+                complete: bool = False,
+                rows: Optional[torch.Tensor] = None) -> torch.Tensor:
     """dε (4*NB,): the CUDA kernel on CUDA tensors, the plain version on
     CPU tensors."""
-    if pk.dtype != torch.uint8 or pk.dim() != 2:
-        raise ValueError(f"pk must be (W, NB) uint8, got {pk.dtype} "
-                         f"{tuple(pk.shape)}")
-    W = pk.shape[0]
+    W = _check_rows(pk, rows, "W")
     for name, c in (("c1", c1), ("c2", c2)):
         if c.dtype != f32 or tuple(c.shape) != (W,):
             raise ValueError(f"{name} must be ({W},) float32, got {c.dtype} "
                              f"{tuple(c.shape)}")
     if pk.device.type == "cpu":
-        return window_axpy_ref(pk, c1, c2, complete)
-    _on_card(pk, "window_axpy")
+        return window_axpy_ref(pk, c1, c2, complete, rows)
+    rows = _card_rows(pk, rows, W, "window_axpy")
     from hydra_tpu_torch.ops import _build
 
     dev = pk.device
@@ -236,13 +356,12 @@ def window_axpy(pk: torch.Tensor, c1: torch.Tensor, c2: torch.Tensor,
         raise ValueError(f"c1 and c2 must be on {dev}")
     lib = _build.load("sweep_kernel_bw.cu")
     nb = pk.shape[1]
-    order = torch.arange(W, dtype=torch.int32, device=dev)
     coef = torch.cat([c1, c2, (2.0 * c1.sum()).reshape(1)]).contiguous()
     out = torch.zeros(4 * nb, dtype=f32, device=dev)
     with torch.cuda.device(dev):
         err = lib.hydra_window_axpy(
-            pk.data_ptr(), order.data_ptr(), coef.data_ptr(), out.data_ptr(),
-            W, nb, int(complete), torch.cuda.current_stream(dev).cuda_stream)
+            pk.data_ptr(), rows.data_ptr(), coef.data_ptr(), out.data_ptr(),
+            W, nb, int(complete), _stream(dev))
     if err:
         _raise(lib, "window_axpy", err)
     launches["window_axpy"] += 1
@@ -254,22 +373,8 @@ def window_axpy(pk: torch.Tensor, c1: torch.Tensor, c2: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def _window_rows(pk: torch.Tensor, rows: Optional[torch.Tensor]) -> torch.Tensor:
-    return pk if rows is None else pk[rows.to(torch.int64)]
-
-
-def _check_mt(pk, rows, n_rows_name: str):
-    if pk.dtype != torch.uint8 or pk.dim() != 2:
-        raise ValueError(f"pk must be (rows, NB) uint8, got {pk.dtype} "
-                         f"{tuple(pk.shape)}")
-    if rows is not None and (rows.dim() != 1 or rows.dtype not in (
-            torch.int32, torch.int64)):
-        raise ValueError(f"rows must be ({n_rows_name},) int32")
-    return pk.shape[0] if rows is None else rows.shape[0]
-
-
 def _check_stats_mt(pk, eps, rows):
-    W = _check_mt(pk, rows, "W")
+    W = _check_rows(pk, rows, "W")
     nb = pk.shape[1]
     if eps.dtype != f32 or eps.dim() != 2 or eps.shape[0] != 4 * nb:
         raise ValueError(f"eps must be ({4 * nb}, T) float32, got {eps.dtype} "
@@ -278,7 +383,7 @@ def _check_stats_mt(pk, eps, rows):
 
 
 def _check_axpy_mt(pk, c1, c2, rows):
-    W = _check_mt(pk, rows, "W")
+    W = _check_rows(pk, rows, "W")
     if c1.dim() != 2 or c1.shape[1] != W:
         raise ValueError(f"c1 must be (T, {W}) float32, got {c1.dtype} "
                          f"{tuple(c1.shape)}")
@@ -320,13 +425,8 @@ def window_axpy_mt_ref(pk: torch.Tensor, c1: torch.Tensor, c2: torch.Tensor,
 
 def _mt_card(pk, rows, W, T, what):
     from hydra_tpu_torch.ops.sweep_kernel_mt import check_card_shapes
-    if pk.device.type != "cuda":
-        raise ValueError(f"no {what} kernel for device {pk.device}")
+    rows = _card_rows(pk, rows, W, what)
     check_card_shapes(pk.shape[1], W, T)
-    if rows is None:
-        rows = torch.arange(W, dtype=torch.int32, device=pk.device)
-    if rows.dtype != torch.int32:
-        raise ValueError(f"rows must be int32, got {rows.dtype}")
     return rows
 
 

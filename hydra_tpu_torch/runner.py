@@ -22,9 +22,8 @@ from hydra_tpu_torch.io import pheno as pheno_io
 from hydra_tpu_torch.io import plink
 from hydra_tpu_torch.options import Options
 from hydra_tpu_torch.outputs.writers import McmcWriter
-from hydra_tpu_torch.samplers.bayesrrm import (MIN_WINDOW, BayesRRm,
-                                               resolve_device)
-from hydra_tpu_torch.samplers.bayesrrm_mt import BayesRRmMT
+from hydra_tpu_torch.samplers.bayesrrm import BayesRRm, resolve_device
+from hydra_tpu_torch.samplers.bayesrrm_mt import MIN_WINDOW, BayesRRmMT
 from hydra_tpu_torch.samplers.bayesw import BayesW
 from hydra_tpu_torch.utils import telemetry
 
@@ -53,16 +52,19 @@ def check_supported(opt: Options) -> None:
                        "--dcn-slices)" + mt)
     if opt.dtype == "float64":
         missing.append("--dtype float64")
-    if opt.plane_cache == "on":
-        missing.append("--cache-planes on")
-    if opt.window < MIN_WINDOW and not is_bw:
-        # BayesW runs every W >= 1 through its whole-sweep kernel
+    # single-trait BayesRRm runs the per-window branch (--mega off, --cache-
+    # planes on) and every W >= 1; BayesW runs every W >= 1 through its
+    # whole-sweep kernel
+    other = " with BayesW" if is_bw else mt
+    if (is_bw or opt.multi_phen) and opt.plane_cache == "on":
+        missing.append("--cache-planes on" + other)
+    if opt.multi_phen and opt.window < MIN_WINDOW:
         missing.append(f"--window {opt.window}{mt} (below {MIN_WINDOW}: the "
                        "per-marker path; --stale defaults to --sync-rate, "
                        "so pass e.g. --window 64)")
-    if opt.mega == "off":
-        missing.append("--mega off (the port has only the whole-sweep "
-                       "kernels)")
+    if (is_bw or opt.multi_phen) and opt.mega == "off":
+        missing.append("--mega off" + other + " (the per-window path of "
+                       "this sampler)")
     if missing:
         raise NotImplementedError(
             "not ported to hydra_tpu_torch yet: " + "; ".join(missing)
@@ -159,7 +161,8 @@ def run_bayesrrm(opt: Options, dataset: Optional[Dataset] = None,
     autosize_exact_window(opt, ds.n)
     sampler = BayesRRm(ds, window=opt.window, exact=opt.exact,
                        shuffle=bool(opt.shuffle_markers), seed=opt.seed,
-                       schedule=opt.schedule, device=device)
+                       schedule=opt.schedule, mega=opt.mega,
+                       plane_cache=opt.plane_cache, device=device)
     state = sampler.init_state()
     writer = McmcWriter(opt.mcmc_out, ds.m, ds.n, ds.num_groups,
                         ds.mS.shape[1], opt.thin, opt.save, opt.seed,

@@ -51,12 +51,15 @@ from hydra_tpu_torch.ops.sweep_kernel_mt import (T_MAX, mt_mrow_width,
                                                  sweep_exact_mt,
                                                  sweep_stale_mt)
 from hydra_tpu_torch.ops.window_kernels import window_axpy_mt, window_stats_mt
-from hydra_tpu_torch.samplers.bayesrrm import (MIN_WINDOW, S02E,
-                                               S02G_DEFAULT, V0E, V0G_DEFAULT,
-                                               resolve_device)
+from hydra_tpu_torch.samplers.bayesrrm import (S02E, S02G_DEFAULT, V0E,
+                                               V0G_DEFAULT, resolve_device)
 from hydra_tpu_torch.utils import dist
 
 f32 = torch.float32
+
+# Multi-trait windows below 8 run the JAX package's per-marker path, which
+# the port does not have for multi-trait.
+MIN_WINDOW = 8
 
 # RNG site ids, as in the JAX sampler (hydra_tpu/samplers/bayesrrm_mt.py:57-59)
 _S_MU, _S_UNIF, _S_NORM, _S_SIGMAG, _S_PI, _S_SIGMAE, _S_PERM = range(7)

@@ -1,6 +1,7 @@
-"""The port's CLI on the CPU: hydra-format outputs of BayesRRm and BayesW, a
-run with JAX and the JAX package absent, and NotImplementedError for every
-path the port does not have."""
+"""The port's CLI on the CPU: hydra-format outputs of BayesRRm (the
+whole-sweep and per-window branches, windows below 8) and BayesW, a run
+with JAX and the JAX package absent, and NotImplementedError for every path
+the port does not have."""
 
 import os
 import subprocess
@@ -174,7 +175,7 @@ def test_cli_mt_writes_per_trait_outputs(bed, tmp_path, extra, na_frac,
 
 
 @pytest.mark.parametrize("extra", [["--restart"], ["--window", "4"],
-                                   ["--n-devices", "2"]])
+                                   ["--n-devices", "2"], ["--mega", "off"]])
 def test_cli_mt_unsupported_paths_raise(bed, tmp_path, extra):
     phen = write_mt_phenos(bed, 2, 0.0, seed=1)
     with pytest.raises(NotImplementedError, match="multi-trait"):
@@ -191,6 +192,8 @@ def test_cli_runs_without_jax(bed, bw_bed, tmp_path):
             "sys.modules['hydra_tpu'] = None\n"
             "from hydra_tpu_torch import cli\n"
             f"assert cli.main({['--device', 'cpu', *_argv(bed, out)]!r}) == 0\n"
+            f"assert cli.main({['--device', 'cpu', '--mega', 'off',
+                                *_argv(bed, out / 'off')]!r}) == 0\n"
             f"assert cli.main({['--device', 'cpu', *mt]!r}) == 0\n"
             f"sys.exit(cli.main({['--device', 'cpu', *_bw_argv(bw_bed, out)]!r}))\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -199,7 +202,8 @@ def test_cli_runs_without_jax(bed, bw_bed, tmp_path):
     assert "RESULT : it   10" in res.stdout
     assert "h2 per trait = [" in res.stdout
     assert "0. m0=" in res.stdout and "alpha=" in res.stdout
-    assert len([ln for ln in open(out / "run.csv") if ln.strip()]) == 4
+    for d in (out, out / "off"):
+        assert len([ln for ln in open(d / "run.csv") if ln.strip()]) == 4
     for t in range(2):
         assert len([ln for ln in open(out / f"mt.t{t}.csv")
                     if ln.strip()]) == 3
@@ -212,16 +216,45 @@ def test_cli_runs_without_jax(bed, bw_bed, tmp_path):
     ["--restart"],
     ["--check-RAM"],
     ["--bed-to-sparse"],
-    ["--window", "4"],
-    ["--stale"],                     # window defaults to --sync-rate 1
     ["--dtype", "float64"],
     ["--n-devices", "2"],
-    ["--cache-planes", "on"],
-    ["--mega", "off"],
+    ["--mpibayes", "bayesWMPI", "--mega", "off"],
+    ["--mpibayes", "bayesWMPI", "--cache-planes", "on"],
 ])
 def test_cli_unsupported_paths_raise(bed, tmp_path, extra):
     with pytest.raises(NotImplementedError, match="not ported"):
         cli.main(["--device", "cpu", *_argv(bed, tmp_path / "x"), *extra])
+
+
+@pytest.mark.parametrize("extra,window,exact", [
+    (["--mega", "off"], 64, True),                    # per-window, exact
+    (["--mega", "off", "--stale", "--window", "64"], 64, False),
+    (["--cache-planes", "on", "--stale", "--window", "64"], 64, False),
+    (["--stale"], 1, False),         # window defaults to --sync-rate 1
+    (["--window", "4"], 4, True),
+])
+def test_cli_window_paths_write_outputs(bed, tmp_path, extra, window, exact,
+                                        capsys):
+    """The per-window branch and windows below 8: hydra outputs, and the
+    marker schedule the JAX CLI resolves for the same flags (its
+    whole-sweep kernel is off: --mega off, forced planes, W < 8)."""
+    out = tmp_path / "out"
+    assert cli.main(["--device", "cpu", *_argv(bed, out, *extra)]) == 0
+    assert ("INFO   : --cache-planes on ignored"
+            not in capsys.readouterr().out)
+    base = str(out / "run")
+    recs = list(postproc._read_records(base + ".bet", np.float64))
+    assert [it for it, _ in recs] == [0, 5, 10, 15]
+    assert all(len(v) == M and np.isfinite(v).all() for _, v in recs)
+    cpn = list(postproc._read_records(base + ".cpn", np.int32))
+    assert all(((c >= 0) & (c < 4)).all() for _, c in cpn)
+    assert any((c > 0).any() for _, c in cpn)
+    h2 = postproc._parse_chain_csv(base + ".csv")["h2"]
+    assert len(h2) == 4 and np.all((h2 > 0) & (h2 < 1))
+    rd = read_restart(base, M, N, 10)
+    assert rd.rng_schedule == "marker"
+    assert rd.rng_window == window and rd.rng_exact == exact
+    assert np.isfinite(rd.eps).all() and len(rd.eps) == N
 
 
 def test_cli_covariates_and_sparse_raise(bed, tmp_path):

@@ -1,6 +1,6 @@
-"""Tests that need a CUDA card: the port's kernels and samplers (BayesRRm,
-BayesW and multi-trait BayesRRm) on the card against their plain versions
-and the CPU samplers.
+"""Tests that need a CUDA card: the port's kernels and samplers (BayesRRm
+with its whole-sweep and per-window branches, BayesW and multi-trait
+BayesRRm) on the card against their plain versions and the CPU samplers.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 machine without them:
@@ -411,6 +411,114 @@ def test_cuda_mt_sampler_sweep_matches_cpu(exact, na_frac):
         assert after[name] == before[name] + count, name
     a, b = state_to_numpy(a), state_to_numpy(b)
     np.testing.assert_allclose(b["mu"], a["mu"], rtol=1e-5)
+    np.testing.assert_allclose(b["eps"], a["eps"], atol=5e-4, rtol=1e-3)
+    np.testing.assert_allclose(b["beta"], a["beta"], atol=5e-4, rtol=1e-3)
+    np.testing.assert_array_equal(b["components"], a["components"])
+    np.testing.assert_array_equal(sb.cass.cpu().numpy(), sa.cass.numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exact", [False, True])
+@pytest.mark.parametrize("missing", [False, True])
+def test_cuda_window_path_kernels_match_plain(exact, missing):
+    """The per-window branch's kernels on the card against their plain
+    versions: window_stats (rows read in place), window_gibbs on its Gram,
+    and, for complete data, the planes' stats and axpy. The stats and the
+    planes add in the plain versions' order (bitwise for s1, s2, the
+    complete Gram and the planes, but for pad rows in complete stale data,
+    whose 3*eps products the kernel fuses into its multiply-add); the
+    missing-data Gram and the recurrence within f32 rounding; components
+    equal."""
+    from hydra_tpu_torch.ops import gibbs_kernel as tgk
+    from hydra_tpu_torch.ops import planes as tpl
+    dev = _card()
+    pk, eps, _, mrow, n = make_inputs(96, 256, 11, missing, 3)
+    pk, eps, mrow = (torch.from_numpy(a).to(dev) for a in (pk, eps, mrow))
+    W = 32
+    rows = torch.randperm(96, device=dev)[:W].to(torch.int32)
+    b = mrow[rows.long()]
+    mave, mstd = b[:, 0].contiguous(), b[:, 1].contiguous()
+    complete = not missing
+    before = {**twk.launches, **tgk.launches, **tpl.launches}
+    got = twk.window_stats(pk, eps, mave, mstd, exact, complete, float(n),
+                           rows)
+    got2 = twk.window_stats(pk, eps, mave, mstd, exact, complete, float(n),
+                            rows)
+    want = twk.window_stats_ref(pk, eps, mave, mstd, exact, complete,
+                                float(n), rows)
+    torch.cuda.synchronize()
+    for a, a2, r in zip(got, got2, want):
+        assert (a is None) == (r is None)
+        if r is None:
+            continue
+        assert torch.equal(a, a2)
+        if (r.dim() == 1 and (missing or exact)
+                or r.dim() == 2 and complete):
+            assert torch.equal(a, r)
+        torch.testing.assert_close(a, r, rtol=1e-4, atol=1e-3)
+    if exact:
+        s2 = got[1] if got[1] is not None else eps.sum()
+        num0 = mstd * (got[0] - mave * s2) + b[:, 2] * float(n - 1)
+        cols = (b[:, 6:6 + K], b[:, 6 + K:5 + 2 * K], b[:, 5 + 2 * K:],
+                b[:, 3], b[:, 4], b[:, 5], b[:, 2])
+        args = [got[2], num0] + [c.contiguous() for c in cols] + [0.7]
+        k_out = tgk.window_gibbs(*args)
+        r_out = tgk.window_gibbs_ref(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(k_out[2], r_out[2])
+        for a, r in zip(k_out, r_out):
+            torch.testing.assert_close(a.float(), r.float(), atol=5e-4,
+                                       rtol=1e-3)
+    if complete and not exact:
+        planes = tpl.build_planes(pk)
+        c1 = 0.05 * torch.randn(W, device=dev)
+        s_k = tpl.window_stats_planes(planes, eps, rows)
+        d_k = tpl.window_axpy_planes(planes, c1, rows)
+        torch.cuda.synchronize()
+        assert torch.equal(s_k, tpl.window_stats_planes_ref(planes, eps, rows))
+        assert torch.equal(d_k, tpl.window_axpy_planes_ref(planes, c1, rows))
+    after = {**twk.launches, **tgk.launches, **tpl.launches}
+    assert after["window_stats"] == before["window_stats"] + 2
+    assert after["window_gibbs"] == before["window_gibbs"] + int(exact)
+    for name in ("window_stats_planes", "window_axpy_planes"):
+        assert after[name] == before[name] + int(complete and not exact)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["exact", "stale", "planes"])
+def test_cuda_mega_off_sweep_matches_cpu(kind):
+    """One sweep of the per-window branch (--mega off; planes: --cache-planes
+    on) on the card against the CPU sampler from the same state with the
+    same noise; the branch's kernels launch once per window."""
+    from hydra_tpu_torch.ops import gibbs_kernel as tgk
+    from hydra_tpu_torch.ops import planes as tpl
+    from hydra_tpu_torch.samplers.bayesrrm import (BayesRRm, state_from_numpy,
+                                                   state_to_numpy)
+    dev = _card()
+    ds = _dataset(300, 700, 3, 0.0 if kind == "planes" else 0.03)
+    kw = dict(window=32, exact=kind == "exact", seed=5,
+              mega="auto" if kind == "planes" else "off",
+              plane_cache="on" if kind == "planes" else "off")
+    cpu = BayesRRm(ds, device="cpu", **kw)
+    gpu = BayesRRm(ds, device=dev, **kw)
+    assert gpu.cfg.per_window and gpu.cfg.planes == (kind == "planes")
+    s_cpu = cpu.init_state()
+    s_gpu = state_from_numpy(state_to_numpy(s_cpu), dev)
+    g = torch.Generator().manual_seed(1)
+    noise = dict(mu=torch.randn((), generator=g),
+                 u=torch.rand(cpu.cfg.m_loc, generator=g),
+                 nrm=torch.randn(cpu.cfg.m_loc, generator=g),
+                 perm=torch.randperm(cpu.cfg.m_loc, generator=g))
+    before = {**twk.launches, **tgk.launches, **tpl.launches}
+    a, sa = cpu.step(s_cpu, 0, noise=noise)
+    b, sb = gpu.step(s_gpu, 0, noise={k: v.to(dev) for k, v in noise.items()})
+    after = {**twk.launches, **tgk.launches, **tpl.launches}
+    moved = {"planes": ("window_stats_planes", "window_axpy_planes"),
+             "exact": ("window_stats", "window_gibbs", "window_axpy"),
+             "stale": ("window_stats", "window_axpy")}[kind]
+    for name in moved:
+        assert after[name] == before[name] + gpu.cfg.n_windows, name
+    a, b = state_to_numpy(a), state_to_numpy(b)
     np.testing.assert_allclose(b["eps"], a["eps"], atol=5e-4, rtol=1e-3)
     np.testing.assert_allclose(b["beta"], a["beta"], atol=5e-4, rtol=1e-3)
     np.testing.assert_array_equal(b["components"], a["components"])

@@ -132,6 +132,21 @@ def test_read_multi_phenos_matches_jax(tmp_path):
         trunner.read_multi_phenos(topt.parse_args(argv), 41)
 
 
+def test_plane_lut_is_a_copy():
+    """The port's copy of the plane LUT (hydra_tpu/ops/planes.py::_lut),
+    and its h-packed form, which build_planes uses, against the decode."""
+    import torch
+
+    import hydra_tpu.ops.planes as jplanes
+    import hydra_tpu_torch.ops.planes as tplanes
+    from hydra_tpu_torch.ops.decode import decode_planes_hp
+
+    np.testing.assert_array_equal(tplanes._lut(), jplanes._lut())
+    g, _ = decode_planes_hp(torch.arange(256, dtype=torch.uint8)[:, None])
+    np.testing.assert_array_equal(tplanes.hpack_lut(),
+                                  g.numpy().astype(np.int8))
+
+
 @pytest.mark.parametrize("survival", [False, True])
 def test_writers_are_byte_identical(survival, tmp_path):
     rs = np.random.RandomState(1)
