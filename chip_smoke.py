@@ -56,6 +56,18 @@ BayesRRm's per-window branch (--mega off, --cache-planes on) and W < 8:
      --cache-planes on stale W=64 (5.0 GB of int8 planes); stale W=1 at
      M=10,000 x N=5,000: ms/sweep, busy share, host enqueue, device time
      per kernel.
+BayesFH (--mpibayes bayesFHMPI) and the single-decode stale sweep
+(HYDRA_TPU_SD, --stale --schedule marker):
+  2e. sweep_stale_sd against its plain version at M=4,096 x N=50,000, W=64,
+     sub-windows 64 and 16, complete and 2% missing, marker-schedule order;
+     bitwise repeatable; sweep_stale on the same inputs beside it.
+  3e. the CLI at M=10,000 x N=5,000, 20 iterations each: BayesFH exact
+     default, --stale --window 64 and --mega off; HYDRA_TPU_SD=16 --stale
+     --window 64 --schedule marker for bayesMPI and bayesFHMPI; launch
+     counts, .fh.npz, h2; one CUDA sweep of each against the CPU sampler.
+  4e. M=100,000 x N=50,000: BayesFH exact W=128 (block); stale W=64 marker
+     through sweep_stale and sweep_stale_sd (sub-windows 64 and 16):
+     ms/sweep, markers/s, busy share, device time per kernel.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Any failure raises before those lines. JAX
 and the JAX package are blocked: the port must run without them.
@@ -487,14 +499,20 @@ def profile_sweep(torch, sk, s, st, card):
     fn = sk.sweep_exact if cfg.exact else sk.sweep_stale
     kw = dict(window=cfg.window, n_mix=cfg.k, complete=cfg.complete,
               ind_mask=s.ind_mask if cfg.complete else None, order=order)
+    per_window = 5 if cfg.exact else 3
+    if cfg.sub_window:
+        fn = sk.sweep_stale_sd
+        kw["sub_window"] = cfg.sub_window
+        per_window = 3 * (cfg.window // cfg.sub_window)
 
     def run():
         return fn(s.packed, st.eps, mrow, 0.5 / st.sigma_e,
                   float(cfg.n_real - 1), **kw)
 
     profile_run(torch, run, f"{'exact' if cfg.exact else 'stale'} "
-                f"W={cfg.window}", cfg.n_windows * (5 if cfg.exact else 3),
-                card)
+                f"W={cfg.window}"
+                + (f" Wt={cfg.sub_window}" if cfg.sub_window else ""),
+                cfg.n_windows * per_window, card)
 
 
 def profile_run(torch, run, label, launches, card):
@@ -1444,6 +1462,252 @@ def phase_window_real_size(torch, np, sk, card):
         del pk
 
 
+@contextlib.contextmanager
+def sd_env(value):
+    """HYDRA_TPU_SD set to ``value`` ("" unsets it) inside the block."""
+    old = os.environ.get("HYDRA_TPU_SD")
+    os.environ["HYDRA_TPU_SD"] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["HYDRA_TPU_SD"]
+        else:
+            os.environ["HYDRA_TPU_SD"] = old
+
+
+def phase_sd_kernels(torch, np, sk, card):
+    """sweep_stale_sd against its plain version at M=4,096 x N=50,000, W=64,
+    sub-windows 64 and 16, complete and 2% missing genotypes, on a
+    marker-schedule order (a fresh permutation of every slot): bitwise
+    repeatable, eps and the outputs within atol 5e-4 / rtol 1e-3, components
+    equal; beside it sweep_stale on the same inputs (components equal; bit
+    for bit at one sub-window a window, the same sums in the same order)."""
+    dev = torch.device("cuda")
+    m, n, W = 4096, 50_000, 64
+    n_pad = padded_individuals(np, n)
+    rec = {"sweep_stale_sd": dict(err=0.0)}
+    tol = [(1e-3, 5e-4)] * 2
+    for missing in (0.0, 0.02):
+        gen = torch.Generator(device=dev).manual_seed(23)
+        pk, mave, mstd, _ = device_genotypes(torch, m, n, n_pad, gen, missing)
+        pads = torch.randperm(m, generator=gen, device=dev)[:37]
+        pk[pads] = 0xFF
+        mrow = kernel_rows(torch, mave, mstd, gen, n, pads)
+        eps = 0.8 * torch.randn(n_pad, generator=gen, device=dev)
+        eps[n:] = 0.0
+        mask = torch.zeros(n_pad, device=dev)
+        mask[:n] = 1.0
+        order = torch.randperm(m, generator=gen, device=dev).to(torch.int32)
+        complete = not missing
+        kw = dict(window=W, n_mix=K, complete=complete,
+                  ind_mask=mask if complete else None, order=order)
+        args = (pk, eps, mrow, 1.0 / (2 * SIGMA_E), float(n - 1))
+        data = "complete" if complete else "missing 2%"
+        two_phase = sk.sweep_stale(*args, **kw)
+        two_ms, _ = cuda_ms(torch, lambda: sk.sweep_stale(*args, **kw), 5)
+        for wt in (W, 16):
+            def run():
+                return sk.sweep_stale_sd(*args, sub_window=wt, **kw)
+
+            def plain():
+                return sk.sweep_stale_sd_ref(*args, sub_window=wt, **kw)
+
+            ms, plain_ms = compare_outputs(
+                torch, "sweep_stale_sd", f"W={W} Wt={wt} {data}", run, plain,
+                5, tol, card, rec, comp_of=lambda o: o[1][:, 1])
+            e_k, o_k = run()
+            same = torch.equal(e_k, two_phase[0]) and torch.equal(
+                o_k, two_phase[1])
+            n_comp = int((o_k[:, 1] != two_phase[1][:, 1]).sum().item())
+            print(f"  beside sweep_stale on the same inputs ({two_ms:.4f} ms): "
+                  f"comp mismatches {n_comp}, bitwise equal {same}  [{card}]",
+                  flush=True)
+            if n_comp:
+                raise AssertionError("sweep_stale_sd and sweep_stale disagree "
+                                     "on components")
+            if wt == 16 and complete:
+                # the CLI main path's sub-window (phase 3e)
+                r = rec["sweep_stale_sd"]
+                r["ms"], r["plain_ms"] = ms, plain_ms
+                # as sweep_stale's: packed rows, eps, mrow, order, mask in;
+                # eps, out out; the stats and the update one FMA each per
+                # genotype
+                nbytes = (pk.numel() + 3 * 4 * n_pad + mrow.numel() * 4
+                          + 4 * m + 16 * m)
+                r["bound_ms"], r["bound_by"] = bound(
+                    nbytes, {"f32": 4.0 * m * n_pad})
+                print_bound("sweep_stale_sd", r)
+        del pk, mrow, two_phase
+    return rec
+
+
+# (name, HYDRA_TPU_SD, extra CLI flags, {kernel: launches per iteration})
+SD_RUNS = (("fh_exact", "", ("--mpibayes", "bayesFHMPI"), {"sweep_exact": 1}),
+           ("fh_stale", "", ("--mpibayes", "bayesFHMPI", "--stale",
+                             "--window", "64"), {"sweep_stale": 1}),
+           ("fh_mega_off", "", ("--mpibayes", "bayesFHMPI", "--mega", "off"),
+            {"window_stats": 157, "window_gibbs": 157, "window_axpy": 157}),
+           ("sd_bayesmpi", "16", ("--stale", "--window", "64", "--schedule",
+                                  "marker"), {"sweep_stale_sd": 1}),
+           ("sd_fh", "16", ("--mpibayes", "bayesFHMPI", "--stale", "--window",
+                            "64", "--schedule", "marker"),
+            {"sweep_stale_sd": 1}))
+
+
+def phase_sd_cli(torch, np, tmp):
+    """BayesFH (exact default, --stale --window 64, --mega off) and the
+    single-decode stale sweep (HYDRA_TPU_SD=16 --stale --window 64
+    --schedule marker, BayesRRm and BayesFH) through the CLI at M=10,000 x
+    N=5,000 (phase 3's bed), 20 iterations each (SD_RUNS), each run's
+    launches counted on its own; .fh.npz written by the FH runs; then one
+    CUDA sweep of each against the CPU sampler with the same state and
+    noise."""
+    from hydra_tpu_torch import cli
+    from hydra_tpu_torch.options import parse_args
+    from hydra_tpu_torch.runner import dataset_from_options
+    from hydra_tpu_torch.samplers.bayesrrm import (BayesRRm, state_from_numpy,
+                                                   state_to_numpy)
+    m, iters = 10_000, 20
+    base = os.path.join(tmp, "t_M10K_N_5K")
+    common = ["--mpibayes", "bayesMPI", "--bfile", base, "--pheno",
+              base + ".phen", "--S", "0.0001,0.001,0.01", "--chain-length",
+              str(iters), "--thin", "5", "--save", "10", "--seed", "7",
+              "--mcmc-out-dir", os.path.join(tmp, "out")]
+    total = {}
+    for name, sd, extra, per_it in SD_RUNS:
+        reset_all_launches()
+        t0 = time.perf_counter()
+        with sd_env(sd):
+            rc = cli.main(common + ["--mcmc-out-name", name, *extra])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: v for k, v in all_launches().items() if v}
+        print(f"{name} (HYDRA_TPU_SD={sd or 'unset'} {' '.join(extra)}): exit "
+              f"{rc}, {wall:.1f} s wall for {iters} iterations, launches "
+              f"{json.dumps(launches)}", flush=True)
+        if rc != 0:
+            raise AssertionError(f"CLI exit code {rc}")
+        want = {k: v * iters for k, v in per_it.items()}
+        if launches != want:
+            raise AssertionError(f"{name}: launches {launches}, want {want}")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        out = os.path.join(tmp, "out", name)
+        h2 = check_outputs(np, out, m, iters // 5)
+        fh = "bayesFHMPI" in extra
+        if os.path.exists(out + ".fh.npz") != fh:
+            raise AssertionError(f"{name}: .fh.npz present {not fh}")
+        if fh:
+            st = np.load(out + ".fh.npz")
+            if not (st["lambda_var"].shape == (m,)
+                    and np.isfinite(st["lambda_var"]).all()
+                    and float(st["tau"]) > 0):
+                raise AssertionError(f"{name}: bad .fh.npz")
+        print(f"{name}: {iters // 5} thinned records, mean h2 over the last "
+              f"{iters // 10} = {h2:.4f} (simulated 0.5)"
+              f"{', .fh.npz tau %.4g' % float(st['tau']) if fh else ''}",
+              flush=True)
+
+    # one sweep of each, CUDA sampler vs CPU sampler, same state and noise
+    for name, sd, extra, _ in SD_RUNS:
+        opt = parse_args(common + list(extra))
+        ds = dataset_from_options(opt)
+        kw = dict(window=opt.window, exact=opt.exact, seed=7, mega=opt.mega,
+                  schedule=opt.schedule, fh=opt.bayes_type == "bayesFHMPI")
+        with sd_env(sd):
+            cpu = BayesRRm(ds, device="cpu", **kw)
+            gpu = BayesRRm(ds, device="cuda", **kw)
+        s_cpu = cpu.init_state()
+        s_gpu = state_from_numpy(state_to_numpy(s_cpu), "cuda")
+        g = torch.Generator().manual_seed(5)
+        ml = cpu.cfg.m_loc
+        shape = torch.full((ml,), 2.0)
+        noise = dict(mu=torch.randn((), generator=g),
+                     u=torch.rand(ml, generator=g),
+                     nrm=torch.randn(ml, generator=g),
+                     wperm=torch.randperm(cpu.cfg.n_windows, generator=g),
+                     perm=torch.randperm(ml, generator=g),
+                     g_nu=torch._standard_gamma(shape, generator=g),
+                     g_lam=torch._standard_gamma(shape, generator=g),
+                     fh_gamma=torch._standard_gamma(torch.full((1, 3), 3.0),
+                                                    generator=g))
+        t0 = time.perf_counter()
+        a, sa = cpu.step(s_cpu, 0, noise=noise)
+        t1 = time.perf_counter()
+        b, sb = gpu.step(s_gpu, 0, noise={k: v.cuda() for k, v in noise.items()})
+        a, b = state_to_numpy(a), state_to_numpy(b)
+        diffs = {f: float(np.abs(a[f] - b[f]).max())
+                 for f in ("eps", "beta", "lambda_var", "tau", "c_slab")}
+        n_comp = int((a["components"] != b["components"]).sum())
+        print(f"one {name} sweep (W={opt.window}, {gpu.cfg.schedule}, "
+              f"sub-window {gpu.cfg.sub_window}, fh {gpu.cfg.fh}), CUDA vs CPU"
+              f" sampler ({t1 - t0:.1f} s on the CPU): max|d| "
+              f"{json.dumps({k: float(f'{v:.3e}') for k, v in diffs.items()})}"
+              f"  comp mismatches {n_comp}", flush=True)
+        for f in ("eps", "beta", "lambda_var", "nu_var"):
+            np.testing.assert_allclose(b[f], a[f], atol=5e-4, rtol=1e-3,
+                                       err_msg=f)
+        for f in ("tau", "hyp_tau", "c_slab", "sigma_g") if kw["fh"] else ():
+            np.testing.assert_allclose(b[f], a[f], rtol=1e-4, err_msg=f)
+        if n_comp or not np.array_equal(sa.cass.numpy(), sb.cass.cpu().numpy()):
+            raise AssertionError("component mismatches CUDA vs CPU sampler")
+    return total
+
+
+def phase_sd_real_size(torch, np, sk, card):
+    """M=100,000 x N=50,000: BayesFH exact W=128 (block schedule) and stale
+    W=64 --schedule marker through sweep_stale and through sweep_stale_sd
+    (sub-window 64 and 16): ms/sweep, markers/s, busy share, host enqueue,
+    device time per kernel."""
+    from hydra_tpu_torch.data.genotypes import (Dataset, GenotypeData,
+                                                make_default_groups)
+    from hydra_tpu_torch.samplers.bayesrrm import BayesRRm
+    dev = torch.device("cuda")
+    m, n = 100_000, 50_000
+    n_pad = padded_individuals(np, n)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    pk, mave, mstd, nm = device_genotypes(torch, m, n, n_pad, gen)
+    mave_h, mstd_h = mave.cpu().numpy(), mstd.cpu().numpy()
+    geno = GenotypeData(packed=np.zeros((0, n_pad // 4), np.uint8), n=n,
+                        n_pad=n_pad, m=m, mave=mave_h, mstd=mstd_h,
+                        msd=1.0 / mstd_h, n1=None, n2=None,
+                        nm=nm.cpu().numpy())
+    groups, mS = make_default_groups(m, list(MS[1:]))
+    y = np.random.RandomState(0).randn(n)
+    ds = Dataset(geno=geno, y=y, groups=groups, num_groups=1, mS=mS)
+    for label, sd, exact, window, schedule, fh in (
+            ("BayesFH exact", "", True, 128, "block", True),
+            ("stale sweep_stale", "", False, 64, "marker", False),
+            ("stale sweep_stale_sd Wt=64", "64", False, 64, "marker", False),
+            ("stale sweep_stale_sd Wt=16", "16", False, 64, "marker", False)):
+        torch.cuda.reset_peak_memory_stats()
+        with sd_env(sd):
+            s = BayesRRm(ds, window=window, exact=exact, seed=1, device=dev,
+                         schedule=schedule, fh=fh, packed_device=pk)
+        st = s.init_state()
+        for it in range(2):
+            st, _ = s.step(st, it)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for it in range(2, 5):
+            st, stats = s.step(st, it)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / 3
+        if not bool(torch.isfinite(st.eps).all()):
+            raise AssertionError("non-finite residual at real size")
+        sg, se = float(st.sigma_g.sum()), float(st.sigma_e)
+        print(f"real size M={m:,} x N={n:,} {label} W={window} "
+              f"{s.cfg.schedule} (sub-window {s.cfg.sub_window}): {ms:.2f} "
+              f"ms/sweep, {m / ms * 1e3:,.0f} markers/s (3 sweeps after 2 "
+              f"warm-up), h2 {sg / (sg + se):.4f}, peak "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB  [{card}]",
+              flush=True)
+        profile_sweep(torch, sk, s, st, card)
+        del s, st
+    del pk
+
+
 def main() -> int:
     try:
         import torch
@@ -1494,6 +1758,9 @@ def main() -> int:
         rec.update(phase_mt_kernels(torch, np, card))
     with phase("2d: per-window kernels vs plain versions (N=50,000)"):
         rec.update(phase_window_kernels(torch, np, card))
+    with phase("2e: single-decode stale sweep vs its plain version "
+               "(M=4,096 x N=50,000)"):
+        rec.update(phase_sd_kernels(torch, np, sk, card))
     with tempfile.TemporaryDirectory() as tmp:
         with phase("3: BayesRRm CLI end to end (M=10,000 x N=5,000)"):
             launches = phase_cli(torch, np, sk, tmp)
@@ -1505,6 +1772,9 @@ def main() -> int:
         with phase("3d: per-window branch and W=1 through the CLI "
                    "(M=10,000 x N=5,000)"):
             window_launches = phase_window_cli(torch, np, tmp)
+        with phase("3e: BayesFH and the single-decode sweep through the CLI "
+                   "(M=10,000 x N=5,000)"):
+            sd_launches = phase_sd_cli(torch, np, tmp)
     for name in ("sweep_stale_bw", "window_level_sums", "window_axpy"):
         launches[name] = bw_launches[name]
     for name in ("sweep_stale_mt", "sweep_exact_mt", "window_stats_mt",
@@ -1513,6 +1783,7 @@ def main() -> int:
     for name in ("window_stats", "window_gibbs", "window_stats_planes",
                  "window_axpy_planes"):
         launches[name] = window_launches[name]
+    launches["sweep_stale_sd"] = sd_launches["sweep_stale_sd"]
     with phase("4: real size (M=100,000 x N=50,000)"):
         phase_real_size(torch, np, sk, card)
     with phase("4b: BayesW real size"):
@@ -1522,10 +1793,15 @@ def main() -> int:
     with phase("4d: per-window branch real size (M=100,000 x N=50,000) and "
                "stale W=1"):
         phase_window_real_size(torch, np, sk, card)
+    with phase("4e: BayesFH and the single-decode sweep real size "
+               "(M=100,000 x N=50,000)"):
+        phase_sd_real_size(torch, np, sk, card)
 
     table = (
         ("sweep_stale", "sweep_kernel.cu", "hydra_tpu/ops/sweep_kernel.py:836"),
         ("sweep_exact", "sweep_kernel.cu", "hydra_tpu/ops/sweep_kernel.py:567"),
+        ("sweep_stale_sd", "sweep_kernel.cu",
+         "hydra_tpu/ops/sweep_kernel.py:255"),
         ("sweep_stale_bw", "sweep_kernel_bw.cu",
          "hydra_tpu/ops/sweep_kernel_bw.py:330"),
         ("window_level_sums", "sweep_kernel_bw.cu",

@@ -1,5 +1,5 @@
-"""hydra_tpu_torch — BayesRRm (single- and multi-trait) and BayesW on
-PyTorch + hand-written CUDA for NVIDIA Hopper.
+"""hydra_tpu_torch — BayesRRm (single- and multi-trait), BayesFH and BayesW
+on PyTorch + hand-written CUDA for NVIDIA Hopper.
 
 The PyTorch/CUDA port of ``hydra_tpu``. The JAX package stays the reference;
 this package mirrors its module names so each counterpart is easy to find:
@@ -9,7 +9,8 @@ this package mirrors its module names so each counterpart is easy to find:
   hydra_tpu_torch.data.genotypes   GenotypeData, Dataset, load_dataset
   hydra_tpu_torch.outputs.writers  hydra-format McmcWriter
   hydra_tpu_torch.ops.decode       h-pack + plain torch decode
-  hydra_tpu_torch.ops.sweep_kernel     sweep_stale / sweep_exact (BayesRRm)
+  hydra_tpu_torch.ops.sweep_kernel     sweep_stale / sweep_exact /
+                                   sweep_stale_sd (BayesRRm, BayesFH)
   hydra_tpu_torch.ops.sweep_kernel_bw  sweep_stale_bw (BayesW)
   hydra_tpu_torch.ops.sweep_kernel_mt  sweep_stale_mt / sweep_exact_mt /
                                    mt_window_recurrence (multi-trait)

@@ -2,8 +2,10 @@
 
 The flags are the reference's (``hydra_tpu_torch.options``). This port runs
 ``--mpibayes bayesMPI`` (BayesRRm; multi-trait BayesRRm when ``--pheno``
-names several comma-separated files) and ``--mpibayes bayesWMPI`` (BayesW,
-with ``--failure``) on one device: ``--device`` empty means cuda,
+names several comma-separated files), ``--mpibayes bayesFHMPI`` (BayesFH;
+with several phenotypes the JAX CLI, and so this one, runs multi-trait
+BayesRRm) and ``--mpibayes bayesWMPI`` (BayesW, with ``--failure``) on one
+device: ``--device`` empty means cuda,
 ``--device cpu`` runs the plain PyTorch path. Everything else raises
 NotImplementedError naming what is missing (``runner.check_supported``).
 """
@@ -21,11 +23,11 @@ def main(argv=None) -> int:
 
     opt = parse_args(argv)
     check_supported(opt)
-    runners = {"bayesMPI": run_bayesrrm_mt if opt.multi_phen else run_bayesrrm,
-               "bayesWMPI": run_bayesw}
+    rrm = run_bayesrrm_mt if opt.multi_phen else run_bayesrrm
+    runners = {"bayesMPI": rrm, "bayesFHMPI": rrm, "bayesWMPI": run_bayesw}
     if opt.bayes_type not in runners:
         print(f"FATAL  : Wrong analysis requested: {opt.bayes_type!r} "
-              f"(expected bayesMPI | bayesWMPI)", file=sys.stderr)
+              f"(expected bayesMPI | bayesWMPI | bayesFHMPI)", file=sys.stderr)
         return 1
     runners[opt.bayes_type](opt)
     return 0

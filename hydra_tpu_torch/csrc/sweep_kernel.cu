@@ -6,6 +6,8 @@
 //   hydra_sweep_exact  <- sweep_exact  (_sweep_exact_kernel)
 //   hydra_window_stats <- window_stats (hydra_tpu/ops/window_kernels.py)
 //   hydra_window_gibbs <- window_gibbs (hydra_tpu/ops/gibbs_kernel.py)
+//   hydra_sweep_stale_sd <- sweep_stale_sd (_sweep_sd_kernel, the
+//                           single-decode stale sweep)
 //
 // What they compute, per window of W markers (slots order[w*W .. w*W+W)):
 //   stats : s1 = sum g*eps, s2 = sum m*eps over all individuals
@@ -45,16 +47,26 @@ constexpr int STATS_TB = 512;      // packed bytes per stats block
 constexpr int STATS_ROWS = 8;      // rows per stats block (one per warp)
 
 
+// a packed byte's four crumbs as the four bytes of a word (byte k = crumb k)
+__device__ __forceinline__ uint32_t spread_crumbs(uint32_t byte) {
+    return (byte & 0x3u) | ((byte & 0xcu) << 6) | ((byte & 0x30u) << 12) |
+           ((byte & 0xc0u) << 18);
+}
+
 // ---------------------------------------------------------------- stats --
 // grid (n_tiles, ceil(W / STATS_ROWS)), 256 threads. Warp = one row of the
 // window over one tile of STATS_TB bytes; lane reads one 32-bit word (4
 // bytes = 16 individuals) per step. Partials go to part[tile * W + row].
+// STORE (the single-decode sweep) also writes the row's crumbs, one byte
+// per individual, to dec[r * 4 * nb + i]: a word's 16 as one 16-byte store.
+template <bool STORE>
 __global__ void stats_kernel(const uint8_t* __restrict__ pk, int nb,
                              const float* __restrict__ eps,
                              const int* __restrict__ order_w, int W, int mode,
                              float* __restrict__ part_s1,
                              float* __restrict__ part_s2,
-                             float* __restrict__ part_v) {
+                             float* __restrict__ part_v,
+                             uint8_t* __restrict__ dec) {
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     const int r = blockIdx.y * STATS_ROWS + warp;
     if (r >= W) return;
@@ -68,6 +80,11 @@ __global__ void stats_kernel(const uint8_t* __restrict__ pk, int nb,
     int v = 0;
     for (int wd = w0 + lane; wd < w1; wd += 32) {
         const uint32_t word = row[wd];
+        if constexpr (STORE) {
+            reinterpret_cast<uint4*>(dec + static_cast<size_t>(r) * 4 * nb)[wd] =
+                make_uint4(spread_crumbs(word & 0xffu), spread_crumbs((word >> 8) & 0xffu),
+                           spread_crumbs((word >> 16) & 0xffu), spread_crumbs(word >> 24));
+        }
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
             const uint32_t byte = (word >> (8 * q)) & 0xffu;
@@ -357,8 +374,8 @@ int run_sweep(bool exact, const uint8_t* pk, float* eps, const float* mrow,
     const size_t axpy_smem = 3 * sizeof(float) * W;
     for (int w = 0; w < n_windows; ++w) {
         const int* order_w = order + static_cast<size_t>(w) * W;
-        stats_kernel<<<stats_grid, STATS_ROWS * 32, 0, stream>>>(
-            pk, nb, eps, order_w, W, mode, ws.part_s1, ws.part_s2, ws.part_v);
+        stats_kernel<false><<<stats_grid, STATS_ROWS * 32, 0, stream>>>(
+            pk, nb, eps, order_w, W, mode, ws.part_s1, ws.part_s2, ws.part_v, nullptr);
         HYDRA_CHECK_LAUNCH();
         if (exact) {
             if (complete)
@@ -383,6 +400,143 @@ int run_sweep(bool exact, const uint8_t* pk, float* eps, const float* mrow,
         axpy_kernel<false><<<axpy_blocks, AXPY_THREADS, axpy_smem, stream>>>(
             pk, nb, order_w, W, mode, ws.coef, mask, eps, nullptr, nullptr);
         HYDRA_CHECK_LAUNCH();
+    }
+    return 0;
+}
+
+// ------------------------------------------------ single-decode stale sweep --
+// Port of sweep_stale_sd (hydra_tpu/ops/sweep_kernel.py:255-332): the stale
+// sweep with each window's packed bytes decoded once. A window of W markers
+// runs as W / Wt sub-windows; per sub-window
+//   stats_kernel<true>   s1, s2 (stats_kernel's tile order) and the rows'
+//                        crumbs to dec (Wt x n_pad bytes, one a genotype)
+//   stale_draw_kernel    the draw of its Wt markers
+//   axpy_decoded_kernel  the update from dec, not from the packed bytes,
+//                        accumulated in dacc over the sub-windows and added
+//                        to eps at the window's last one
+// so every marker of the window reads the same stale eps for any Wt, and
+// with Wt = W the sweep is hydra_sweep_stale's bit for bit.
+//
+// Bound: bytes, W * NB packed bytes and 3 x 4 * NB * 4 of eps per window
+// (read by the stats, read and written by the axpy); two multiply-adds per
+// genotype are far below the f32 peak. The axpy of the two-phase sweep
+// runs a thread per packed byte, 12,500 threads at N=50,000 (3 warps an
+// SM), each decoding its byte of every row again: latency-bound. Here the
+// stats kernel writes the decoded crumbs to a scratch (3.2 MB at W=64 x
+// N=50,000, resident in the 50 MB L2) and the axpy runs a thread per
+// individual (4x the warps) that loads one decoded byte per row, with the
+// per-individual sum in the two-phase axpy's order. The TPU kernel's bf16
+// hi/lo split of c1/c2 (a matrix-unit device) is not carried over: the
+// update multiplies in f32. Launches stay per sub-window on one stream.
+//
+// Missing data needs no second plane: a decoded byte is the crumb c, and
+// g = (2 - c) * m, m = (c != 3) come from it as in axpy_kernel. Complete
+// data: d = cst - sum c1 * h per sub-window, times the mask at the end.
+template <int MODE>
+__global__ void axpy_decoded_kernel(const uint8_t* __restrict__ dec, int n_pad, int W,
+                                    const float* __restrict__ coef,
+                                    const float* __restrict__ mask,
+                                    float* __restrict__ eps, float* __restrict__ dacc,
+                                    int first, int last) {
+    extern __shared__ float sh[];          // c1[W], c2[W]
+    float* s_c1 = sh;
+    float* s_c2 = sh + W;
+    for (int i = threadIdx.x; i < W; i += blockDim.x) {
+        s_c1[i] = coef[i];
+        s_c2[i] = coef[W + i];
+    }
+    __syncthreads();
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= n_pad) return;
+    float acc = 0.f;
+#pragma unroll 8
+    for (int r = 0; r < W; ++r) {
+        const int c = dec[static_cast<size_t>(r) * n_pad + i];
+        if constexpr (MODE == MODE_STALE_COMPLETE) {
+            acc = fmaf(s_c1[r], static_cast<float>(c), acc);
+        } else {
+            acc = fmaf(s_c1[r], static_cast<float>(crumb_geno(c)), acc);
+            acc = fmaf(s_c2[r], static_cast<float>(crumb_mask(c)), acc);
+        }
+    }
+    float d = MODE == MODE_STALE_COMPLETE ? coef[2 * W] - acc : acc;
+    if (!first) d = dacc[i] + d;
+    if (!last) {
+        dacc[i] = d;
+        return;
+    }
+    if constexpr (MODE == MODE_STALE_COMPLETE)
+        eps[i] += d * mask[i];
+    else
+        eps[i] += d;
+}
+
+struct SdWorkspace {
+    float* part_s1;
+    float* part_s2;
+    float* coef;
+    float* dacc;          // the window's update over its sub-windows
+    uint8_t* dec;         // a sub-window's decoded rows, Wt x 4 * nb bytes
+    size_t bytes;
+};
+
+inline SdWorkspace sd_layout(void* base, int nb, int Wt, bool accumulate) {
+    const size_t n_tiles = cdiv(nb, STATS_TB);
+    size_t off = 0;
+    SdWorkspace ws{};
+    char* p = static_cast<char*>(base);
+    auto take = [&](size_t bytes) {
+        char* out = p + off;
+        off += align256(bytes);
+        return out;
+    };
+    ws.part_s1 = reinterpret_cast<float*>(take(sizeof(float) * n_tiles * Wt));
+    ws.part_s2 = reinterpret_cast<float*>(take(sizeof(float) * n_tiles * Wt));
+    ws.coef = reinterpret_cast<float*>(take(sizeof(float) * (2 * static_cast<size_t>(Wt) + 1)));
+    ws.dacc = accumulate ? reinterpret_cast<float*>(take(sizeof(float) * 4 * static_cast<size_t>(nb)))
+                         : nullptr;
+    ws.dec = reinterpret_cast<uint8_t*>(take(static_cast<size_t>(Wt) * 4 * nb));
+    ws.bytes = off;
+    return ws;
+}
+
+int run_sweep_sd(const uint8_t* pk, float* eps, const float* mrow, const int* order,
+                 const float* mask, const float* sc, float* out, void* ws_base, int m_loc,
+                 int nb, int W, int Wt, int K, int complete, cudaStream_t stream) {
+    if (!shapes_ok(m_loc, nb, W, K) || Wt < 1 || W % Wt || (complete && mask == nullptr))
+        return static_cast<int>(cudaErrorInvalidValue);
+    const int C = N_FIXED + 3 * K - 2;
+    const int n_sub = W / Wt;
+    const SdWorkspace ws = sd_layout(ws_base, nb, Wt, n_sub > 1);
+    const int n_windows = m_loc / W;
+    const int n_tiles = cdiv(nb, STATS_TB);
+    const int mode = complete ? MODE_STALE_COMPLETE : MODE_MISSING;
+    const dim3 stats_grid(n_tiles, cdiv(Wt, STATS_ROWS));
+    const int draw_threads = cdiv(Wt, 32) * 32;
+    const int axpy_blocks = cdiv(4LL * nb, AXPY_THREADS);
+    const size_t coef_smem = 2 * sizeof(float) * Wt;
+    for (int w = 0; w < n_windows; ++w) {
+        for (int s = 0; s < n_sub; ++s) {
+            const int* order_s = order + static_cast<size_t>(w) * W + s * Wt;
+            stats_kernel<true><<<stats_grid, STATS_ROWS * 32, 0, stream>>>(
+                pk, nb, eps, order_s, Wt, mode, ws.part_s1, ws.part_s2, nullptr, ws.dec);
+            HYDRA_CHECK_LAUNCH();
+            stale_draw_kernel<<<1, draw_threads, coef_smem, stream>>>(
+                mrow, C, K, order_s, Wt, ws.part_s1, ws.part_s2, n_tiles, complete, sc,
+                out, ws.coef);
+            HYDRA_CHECK_LAUNCH();
+            if (complete)
+                axpy_decoded_kernel<MODE_STALE_COMPLETE>
+                    <<<axpy_blocks, AXPY_THREADS, coef_smem, stream>>>(
+                        ws.dec, 4 * nb, Wt, ws.coef, mask, eps, ws.dacc, s == 0,
+                        s == n_sub - 1);
+            else
+                axpy_decoded_kernel<MODE_MISSING>
+                    <<<axpy_blocks, AXPY_THREADS, coef_smem, stream>>>(
+                        ws.dec, 4 * nb, Wt, ws.coef, mask, eps, ws.dacc, s == 0,
+                        s == n_sub - 1);
+            HYDRA_CHECK_LAUNCH();
+        }
     }
     return 0;
 }
@@ -466,8 +620,8 @@ int run_window_stats(const uint8_t* pk, const float* eps, const int* rows,
     const int n_tiles = cdiv(nb, STATS_TB);
     const int mode = !complete ? MODE_MISSING
                                : (exact ? MODE_EXACT_COMPLETE : MODE_STALE_COMPLETE);
-    stats_kernel<<<dim3(n_tiles, cdiv(W, STATS_ROWS)), STATS_ROWS * 32, 0, stream>>>(
-        pk, nb, eps, rows, W, mode, ws.part_s1, ws.part_s2, ws.part_v);
+    stats_kernel<false><<<dim3(n_tiles, cdiv(W, STATS_ROWS)), STATS_ROWS * 32, 0, stream>>>(
+        pk, nb, eps, rows, W, mode, ws.part_s1, ws.part_s2, ws.part_v, nullptr);
     HYDRA_CHECK_LAUNCH();
     window_stats_finish_kernel<<<cdiv(W, 256), 256, 0, stream>>>(
         ws.part_s1, ws.part_s2, ws.part_v, n_tiles, W, mode, s1, s2, ws.v);
@@ -575,6 +729,28 @@ int hydra_sweep_exact(const void* pk, void* eps, const void* mrow, const void* o
                             static_cast<const float*>(sc), static_cast<float*>(out), ws,
                             m_loc, nb, window, n_mix, complete,
                             static_cast<cudaStream_t>(stream));
+}
+
+// Bytes of device scratch one single-decode sweep needs.
+long long hydra_sweep_sd_workspace_bytes(int nb, int window, int sub_window) {
+    if (sub_window < 1) return 0;
+    return static_cast<long long>(
+        hydra::sd_layout(nullptr, nb, sub_window, window / sub_window > 1).bytes);
+}
+
+// A whole single-decode stale sweep (sub_window Wt divides window); the
+// contract of hydra_sweep_stale.
+int hydra_sweep_stale_sd(const void* pk, void* eps, const void* mrow, const void* order,
+                         const void* mask, const void* sc, void* out, void* ws, int m_loc,
+                         int nb, int window, int sub_window, int n_mix, int complete,
+                         void* stream) {
+    return hydra::run_sweep_sd(static_cast<const uint8_t*>(pk), static_cast<float*>(eps),
+                               static_cast<const float*>(mrow),
+                               static_cast<const int*>(order),
+                               static_cast<const float*>(mask),
+                               static_cast<const float*>(sc), static_cast<float*>(out), ws,
+                               m_loc, nb, window, sub_window, n_mix, complete,
+                               static_cast<cudaStream_t>(stream));
 }
 
 // Bytes of device scratch one window_stats call needs.

@@ -1,11 +1,14 @@
 """Whole-sweep BayesRRm kernels: stale and exact windows.
 
-Port of ``hydra_tpu/ops/sweep_kernel.py`` (``sweep_stale``, ``sweep_exact``).
-A sweep walks the markers window by window; per window it computes
-s1 = sum g*eps and s2 = sum m*eps, draws every marker's mixture component
-and beta from its ``mrow`` row, and applies the residual update. Exact mode
-adds the window Gram and the W-step sequential recurrence, which gives
-exact sequential Gibbs.
+Port of ``hydra_tpu/ops/sweep_kernel.py`` (``sweep_stale``, ``sweep_exact``,
+``sweep_stale_sd``). A sweep walks the markers window by window; per window
+it computes s1 = sum g*eps and s2 = sum m*eps, draws every marker's mixture
+component and beta from its ``mrow`` row, and applies the residual update.
+Exact mode adds the window Gram and the W-step sequential recurrence, which
+gives exact sequential Gibbs. The single-decode stale sweep decodes each
+window's packed rows once, in sub-windows of ``sub_window`` markers, and
+adds the window's update to eps at its end (``sd_sub_window`` reads the
+sub-window from HYDRA_TPU_SD).
 
 Layouts at this interface:
   pk    (m_loc, NB) uint8   h-packed genotypes in SLOT order
@@ -18,15 +21,17 @@ Layouts at this interface:
 Returns (eps', out) with out (m_loc, 4) = [beta_new, comp, acum0, dbeta] per
 slot. mave/mstd come from mrow columns 0/1 (the JAX ``mcol``).
 
-``sweep_stale`` / ``sweep_exact`` launch the CUDA kernels of
-``csrc/sweep_kernel.cu`` for CUDA tensors and raise on what the kernels do
-not take; for CPU tensors they run the plain versions ``sweep_stale_ref`` /
-``sweep_exact_ref`` (torch, vectorized per window), which the tests hold
-against the JAX kernels in interpret mode.
+``sweep_stale`` / ``sweep_exact`` / ``sweep_stale_sd`` launch the CUDA
+kernels of ``csrc/sweep_kernel.cu`` for CUDA tensors and raise on what the
+kernels do not take; for CPU tensors they run the plain versions
+``sweep_stale_ref`` / ``sweep_exact_ref`` / ``sweep_stale_sd_ref`` (torch,
+vectorized per window), which the tests hold against the JAX kernels in
+interpret mode.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Tuple
 
 import torch
@@ -53,7 +58,7 @@ def mrow_width(k: int) -> int:
 # path must move these; comparisons against the plain versions call the
 # kernels through the same wrappers, so callers reset and read around the
 # run they want to count.
-launches = {"sweep_stale": 0, "sweep_exact": 0}
+launches = {"sweep_stale": 0, "sweep_exact": 0, "sweep_stale_sd": 0}
 
 
 def reset_launches() -> None:
@@ -151,12 +156,35 @@ def _order(order, m_loc, device):
     return order.to(device=device, dtype=torch.int64)
 
 
-@torch.inference_mode()
-def sweep_stale_ref(pk, eps, mrow, i_2se, dNm1, *, window: int, n_mix: int,
-                    complete: bool, ind_mask: Optional[torch.Tensor] = None,
-                    order: Optional[torch.Tensor] = None):
-    """Plain PyTorch stale sweep (same math as the CUDA kernel)."""
-    _check(pk, eps, mrow, window, n_mix, complete, ind_mask, order)
+def sd_sub_window(window: int, nb: int, complete: bool) -> int:
+    """Sub-window of the single-decode stale sweep, from HYDRA_TPU_SD (the
+    port's copy of hydra_tpu/ops/sweep_kernel.py::sd_sub_window): unset or
+    "0" gives 0, the two-phase ``sweep_stale``; an integer is the
+    sub-window and must divide the window; "auto" is the whole window.
+
+    The JAX rule for "auto" sizes the sub-window to a 3.5 MB VMEM budget.
+    Here a sub-window's decoded rows live in device memory (sub-window x
+    4 * nb bytes: 3.2 MB at W=64, N=50,000, inside the H100's 50 MB L2), so
+    one sub-window per window needs no budget; ``nb`` and ``complete`` keep
+    the JAX signature."""
+    ov = os.environ.get("HYDRA_TPU_SD", "")
+    if not ov or ov == "0":
+        return 0
+    wt = window if ov == "auto" else int(ov)
+    if wt < 1 or window % wt:
+        raise ValueError(f"HYDRA_TPU_SD={ov} must divide the window "
+                         f"({window})")
+    return wt
+
+
+def _check_sub_window(window, sub_window):
+    if not 1 <= sub_window <= window or window % sub_window:
+        raise ValueError(f"sub_window {sub_window} must divide the window "
+                         f"({window})")
+
+
+def _stale_ref(pk, eps, mrow, i_2se, dNm1, window, sub_window, n_mix,
+               complete, ind_mask, order):
     m_loc = pk.shape[0]
     W, K = window, n_mix
     i2se, dnm1 = _scalars(i_2se, dNm1, pk.device)
@@ -179,13 +207,45 @@ def sweep_stale_ref(pk, eps, mrow, i_2se, dNm1, *, window: int, n_mix: int,
         bnew, comp, acum, dbeta = stale_draw(rows, num0, i2se, K)
         c1 = dbeta * rows[:, 1]
         c2 = -c1 * rows[:, 0]
-        if complete:
-            csum = 2.0 * c1.sum() + c2.sum()
-            eps = eps + (csum - c1 @ h) * ind_mask
-        else:
-            eps = eps + (c1 @ g + c2 @ m)
+        # the window's update, summed sub-window by sub-window and added to
+        # eps once at the window's end
+        d = None
+        for s in range(0, W, sub_window):
+            sl = slice(s, s + sub_window)
+            if complete:
+                ds = (2.0 * c1[sl].sum() + c2[sl].sum()) - c1[sl] @ h[sl]
+            else:
+                ds = c1[sl] @ g[sl] + c2[sl] @ m[sl]
+            d = ds if d is None else d + ds
+        eps = eps + (d * ind_mask if complete else d)
         out[slots] = torch.stack([bnew, comp, acum, dbeta], dim=1)
     return eps, out
+
+
+@torch.inference_mode()
+def sweep_stale_ref(pk, eps, mrow, i_2se, dNm1, *, window: int, n_mix: int,
+                    complete: bool, ind_mask: Optional[torch.Tensor] = None,
+                    order: Optional[torch.Tensor] = None):
+    """Plain PyTorch stale sweep (same math as the CUDA kernel)."""
+    _check(pk, eps, mrow, window, n_mix, complete, ind_mask, order)
+    return _stale_ref(pk, eps, mrow, i_2se, dNm1, window, window, n_mix,
+                      complete, ind_mask, order)
+
+
+@torch.inference_mode()
+def sweep_stale_sd_ref(pk, eps, mrow, i_2se, dNm1, *, window: int,
+                       sub_window: int, n_mix: int, complete: bool,
+                       ind_mask: Optional[torch.Tensor] = None,
+                       order: Optional[torch.Tensor] = None):
+    """Plain single-decode stale sweep: per window ``sweep_stale_ref``'s
+    stats and draw; the update summed over sub-windows of ``sub_window``
+    markers in the kernel's order and added to eps at the window's end, so
+    every marker of the window reads the same stale eps for any
+    sub-window (sweep_kernel.py:211-220)."""
+    _check(pk, eps, mrow, window, n_mix, complete, ind_mask, order)
+    _check_sub_window(window, sub_window)
+    return _stale_ref(pk, eps, mrow, i_2se, dNm1, window, sub_window, n_mix,
+                      complete, ind_mask, order)
 
 
 @torch.inference_mode()
@@ -240,7 +300,7 @@ def sweep_exact_ref(pk, eps, mrow, i_2se, dNm1, *, window: int, n_mix: int,
 
 
 def _launch(name, exact, pk, eps, mrow, i_2se, dNm1, window, n_mix, complete,
-            ind_mask, order):
+            ind_mask, order, sub_window=0):
     from hydra_tpu_torch.ops import _build
 
     dev = pk.device
@@ -269,17 +329,22 @@ def _launch(name, exact, pk, eps, mrow, i_2se, dNm1, window, n_mix, complete,
     lib = _build.load()
     i2se, dnm1 = _scalars(i_2se, dNm1, dev)
     sc = torch.stack([i2se, dnm1, dnm1 + 1.0]).contiguous()
-    ws = torch.empty(lib.hydra_sweep_workspace_bytes(nb, window, int(exact)),
-                     dtype=torch.uint8, device=dev)
+    if sub_window:
+        nbytes = lib.hydra_sweep_sd_workspace_bytes(nb, window, sub_window)
+        fn = lib.hydra_sweep_stale_sd
+        shape = (m_loc, nb, window, sub_window, n_mix, int(complete))
+    else:
+        nbytes = lib.hydra_sweep_workspace_bytes(nb, window, int(exact))
+        fn = lib.hydra_sweep_exact if exact else lib.hydra_sweep_stale
+        shape = (m_loc, nb, window, n_mix, int(complete))
+    ws = torch.empty(nbytes, dtype=torch.uint8, device=dev)
     eps_out = eps.clone()
     out = torch.zeros((m_loc, 4), dtype=f32, device=dev)
-    fn = lib.hydra_sweep_exact if exact else lib.hydra_sweep_stale
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(pk.data_ptr(), eps_out.data_ptr(), mrow.data_ptr(),
                  order.data_ptr(), ind_mask.data_ptr() if complete else None,
-                 sc.data_ptr(), out.data_ptr(), ws.data_ptr(),
-                 m_loc, nb, window, n_mix, int(complete), stream)
+                 sc.data_ptr(), out.data_ptr(), ws.data_ptr(), *shape, stream)
     if err:
         raise RuntimeError(f"{name} kernel launch failed: "
                            f"{lib.hydra_sweep_error_string(err).decode()}")
@@ -301,6 +366,25 @@ def sweep_stale(pk, eps, mrow, i_2se, dNm1, *, window: int, n_mix: int,
         raise ValueError(f"no sweep kernel for device {pk.device}")
     return _launch("sweep_stale", False, pk, eps, mrow, i_2se, dNm1, window,
                    n_mix, complete, ind_mask, order)
+
+
+def sweep_stale_sd(pk, eps, mrow, i_2se, dNm1, *, window: int,
+                   sub_window: int, n_mix: int, complete: bool,
+                   ind_mask: Optional[torch.Tensor] = None,
+                   order: Optional[torch.Tensor] = None):
+    """Single-decode stale sweep: the CUDA kernel on CUDA tensors, the
+    plain version on CPU tensors."""
+    _check(pk, eps, mrow, window, n_mix, complete, ind_mask, order)
+    _check_sub_window(window, sub_window)
+    if pk.device.type == "cpu":
+        return sweep_stale_sd_ref(pk, eps, mrow, i_2se, dNm1, window=window,
+                                  sub_window=sub_window, n_mix=n_mix,
+                                  complete=complete, ind_mask=ind_mask,
+                                  order=order)
+    if pk.device.type != "cuda":
+        raise ValueError(f"no sweep kernel for device {pk.device}")
+    return _launch("sweep_stale_sd", False, pk, eps, mrow, i_2se, dNm1,
+                   window, n_mix, complete, ind_mask, order, sub_window)
 
 
 def sweep_exact(pk, eps, mrow, i_2se, dNm1, *, window: int, n_mix: int,

@@ -1,7 +1,7 @@
 """The port's CLI on the CPU: hydra-format outputs of BayesRRm (the
-whole-sweep and per-window branches, windows below 8) and BayesW, a run
-with JAX and the JAX package absent, and NotImplementedError for every path
-the port does not have."""
+whole-sweep and per-window branches, windows below 8, the single-decode
+stale sweep), BayesFH and BayesW, a run with JAX and the JAX package
+absent, and NotImplementedError for every path the port does not have."""
 
 import os
 import subprocess
@@ -34,6 +34,21 @@ def bed(synthetic_bed_factory, tmp_path):
     with open(base + ".phen", "w") as fh:
         for i in range(N):
             fh.write(f"per{i} per{i} {y[i]:.6f}\n")
+    return base
+
+
+@pytest.fixture
+def fh_bed(synthetic_bed_factory):
+    """The bed of ``bed`` with a phenotype of h2 ~ 0.5: BayesFH's shrinkage
+    zeroes the weaker signal of ``bed`` within a few sweeps (so does the
+    JAX sampler's), after which every marker is excluded."""
+    base, geno = synthetic_bed_factory(M, N, seed=4)
+    rs = np.random.RandomState(5)
+    x = geno - geno.mean(axis=1, keepdims=True)
+    g = x.T @ (rs.randn(M) * (rs.random_sample(M) < 0.1))
+    y = g / g.std() + rs.randn(N)
+    with open(base + ".phen", "w") as fh:
+        fh.writelines(f"per{i} per{i} {y[i]:.6f}\n" for i in range(N))
     return base
 
 
@@ -211,7 +226,7 @@ def test_cli_runs_without_jax(bed, bw_bed, tmp_path):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--mpibayes", "bayesFHMPI"],
+    ["--mpibayes", "bayesFHMPI", "--restart"],
     ["--mpibayes", "bayesWMPI", "--restart"],
     ["--restart"],
     ["--check-RAM"],
@@ -255,6 +270,60 @@ def test_cli_window_paths_write_outputs(bed, tmp_path, extra, window, exact,
     assert rd.rng_schedule == "marker"
     assert rd.rng_window == window and rd.rng_exact == exact
     assert np.isfinite(rd.eps).all() and len(rd.eps) == N
+
+
+@pytest.mark.parametrize("extra,sd,schedule,per_window", [
+    (["--mpibayes", "bayesFHMPI"], "", "block", False),
+    (["--mpibayes", "bayesFHMPI", "--stale", "--window", "32"], "", "block",
+     False),
+    (["--mpibayes", "bayesFHMPI", "--mega", "off", "--stale", "--window",
+      "32"], "", "marker", True),
+    (["--stale", "--window", "32", "--schedule", "marker"], "16", "marker",
+     False),
+    (["--mpibayes", "bayesFHMPI", "--stale", "--window", "32", "--schedule",
+      "marker"], "16", "marker", False),
+])
+def test_cli_fh_and_sd_write_outputs(fh_bed, tmp_path, monkeypatch, extra,
+                                     sd, schedule, per_window):
+    """BayesFH on each branch and the single-decode stale sweep
+    (HYDRA_TPU_SD) through the CLI: hydra outputs, the FH state in
+    .fh.npz (marker order) and the schedule in .rng.0. On the CPU the
+    wrappers run their plain versions, so no launch is counted; the
+    sampler's branch is checked instead."""
+    from hydra_tpu_torch import runner
+    monkeypatch.setenv("HYDRA_TPU_SD", sd)
+    seen = {}
+    run = runner.run_bayesrrm
+
+    def spy(opt, *a, **kw):
+        res = run(opt, *a, **kw)
+        seen["cfg"] = res["sampler"].cfg
+        return res
+
+    monkeypatch.setattr(runner, "run_bayesrrm", spy)
+    out = tmp_path / "out"
+    assert cli.main(["--device", "cpu", *_argv(fh_bed, out, *extra),
+                     "--chain-length", "11"]) == 0
+    cfg = seen["cfg"]
+    fh = "bayesFHMPI" in extra
+    assert cfg.fh == fh and cfg.sub_window == (16 if sd else 0)
+    assert cfg.per_window == per_window
+    base = str(out / "run")
+    recs = list(postproc._read_records(base + ".bet", np.float64))
+    assert [it for it, _ in recs] == [0, 5, 10]
+    assert all(len(v) == M and np.isfinite(v).all() for _, v in recs)
+    h2 = postproc._parse_chain_csv(base + ".csv")["h2"]
+    assert len(h2) == 3 and np.all((h2 > 0) & (h2 < 1))
+    rd = read_restart(base, M, N, 10)
+    assert rd.rng_schedule == schedule and rd.iteration == 10
+    assert os.path.exists(base + ".fh.npz") == fh
+    if fh:
+        st = np.load(base + ".fh.npz")
+        assert sorted(st.files) == ["c_slab", "hyp_tau", "lambda_var",
+                                    "nu_var", "tau"]
+        assert st["lambda_var"].shape == st["nu_var"].shape == (M,)
+        assert np.all(st["lambda_var"] > 0) and np.all(st["nu_var"] > 0)
+        assert st["c_slab"].shape == (1,) and float(st["tau"]) > 0
 
 
 def test_cli_covariates_and_sparse_raise(bed, tmp_path):

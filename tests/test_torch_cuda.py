@@ -1,6 +1,7 @@
 """Tests that need a CUDA card: the port's kernels and samplers (BayesRRm
-with its whole-sweep and per-window branches, BayesW and multi-trait
-BayesRRm) on the card against their plain versions and the CPU samplers.
+and BayesFH with their whole-sweep, single-decode and per-window branches,
+BayesW and multi-trait BayesRRm) on the card against their plain versions
+and the CPU samplers.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 machine without them:
@@ -521,5 +522,90 @@ def test_cuda_mega_off_sweep_matches_cpu(kind):
     a, b = state_to_numpy(a), state_to_numpy(b)
     np.testing.assert_allclose(b["eps"], a["eps"], atol=5e-4, rtol=1e-3)
     np.testing.assert_allclose(b["beta"], a["beta"], atol=5e-4, rtol=1e-3)
+    np.testing.assert_array_equal(b["components"], a["components"])
+    np.testing.assert_array_equal(sb.cass.cpu().numpy(), sa.cass.numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sub_window", [8, 32])
+@pytest.mark.parametrize("missing", [False, True])
+def test_cuda_sd_kernel_matches_plain(missing, sub_window):
+    """On the card: the single-decode sweep against its plain version
+    (components equal, eps and beta within the sweep tolerances), bitwise
+    repeatable, and with one sub-window a window bit for bit the two-phase
+    sweep_stale kernel (the same sums in the same order)."""
+    dev = _card()
+    pk, eps, mask, mrow, n = make_inputs(256, 256, 7, missing, 9)
+    t = [torch.from_numpy(a).to(dev) for a in (pk, eps, mrow, mask)]
+    order = torch.randperm(256, device=dev).to(torch.int32)
+    kw = dict(window=32, n_mix=K, complete=not missing, ind_mask=t[3],
+              order=order)
+    before = dict(tsk.launches)
+    args = (t[0], t[1], t[2], 0.7, float(n - 1))
+    e_k, o_k = tsk.sweep_stale_sd(*args, sub_window=sub_window, **kw)
+    e_k2, o_k2 = tsk.sweep_stale_sd(*args, sub_window=sub_window, **kw)
+    e_r, o_r = tsk.sweep_stale_sd_ref(*args, sub_window=sub_window, **kw)
+    e_2p, o_2p = tsk.sweep_stale(*args, **kw)
+    torch.cuda.synchronize()
+    assert tsk.launches["sweep_stale_sd"] == before["sweep_stale_sd"] + 2
+    assert torch.equal(e_k, e_k2) and torch.equal(o_k, o_k2)
+    torch.testing.assert_close(e_k, e_r, atol=5e-4, rtol=1e-3)
+    torch.testing.assert_close(o_k[:, 0], o_r[:, 0], atol=5e-4, rtol=1e-3)
+    assert torch.equal(o_k[:, 1], o_r[:, 1])
+    assert torch.equal(o_k[:, 1], o_2p[:, 1])
+    if sub_window == 32:
+        assert torch.equal(e_k, e_2p) and torch.equal(o_k, o_2p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["fh_exact", "fh_stale_missing", "sd",
+                                  "fh_sd_missing", "fh_mega_off"])
+def test_cuda_fh_and_sd_sweep_matches_cpu(kind, monkeypatch):
+    """One BayesFH sweep (exact, stale, per-window) and one single-decode
+    sweep (HYDRA_TPU_SD=16, marker schedule; BayesRRm and BayesFH) of the
+    CUDA sampler against the CPU sampler from the same state with the same
+    noise; the branch's kernel launches."""
+    from hydra_tpu_torch.samplers.bayesrrm import (BayesRRm, state_from_numpy,
+                                                   state_to_numpy)
+    dev = _card()
+    sd = "sd" in kind
+    monkeypatch.setenv("HYDRA_TPU_SD", "16" if sd else "")
+    ds = _dataset(300, 700, 3, 0.03 if "missing" in kind else 0.0)
+    kw = dict(window=32, exact=kind in ("fh_exact", "fh_mega_off"), seed=5,
+              fh=kind.startswith("fh"),
+              mega="off" if kind == "fh_mega_off" else "auto",
+              schedule="marker" if sd or kind == "fh_mega_off" else "block")
+    cpu = BayesRRm(ds, device="cpu", **kw)
+    gpu = BayesRRm(ds, device=dev, **kw)
+    assert gpu.cfg.sub_window == (16 if sd else 0)
+    s_cpu = cpu.init_state()
+    s_gpu = state_from_numpy(state_to_numpy(s_cpu), dev)
+    g = torch.Generator().manual_seed(1)
+    m = cpu.cfg.m_loc
+    shape = torch.full((m,), 2.0)
+    noise = dict(mu=torch.randn((), generator=g),
+                 u=torch.rand(m, generator=g),
+                 nrm=torch.randn(m, generator=g),
+                 wperm=torch.randperm(cpu.cfg.n_windows, generator=g),
+                 perm=torch.randperm(m, generator=g),
+                 g_nu=torch._standard_gamma(shape, generator=g),
+                 g_lam=torch._standard_gamma(shape, generator=g),
+                 fh_gamma=torch._standard_gamma(torch.full((1, 3), 3.0),
+                                                generator=g))
+    before = {**tsk.launches, **twk.launches}
+    a, sa = cpu.step(s_cpu, 0, noise=noise)
+    b, sb = gpu.step(s_gpu, 0, noise={k: v.to(dev) for k, v in noise.items()})
+    after = {**tsk.launches, **twk.launches}
+    name = ("sweep_stale_sd" if sd else "window_stats" if kind == "fh_mega_off"
+            else "sweep_exact" if kw["exact"] else "sweep_stale")
+    want = gpu.cfg.n_windows if kind == "fh_mega_off" else 1
+    assert after[name] == before[name] + want
+    a, b = state_to_numpy(a), state_to_numpy(b)
+    for f in ("eps", "beta", "lambda_var", "nu_var"):
+        np.testing.assert_allclose(b[f], a[f], atol=5e-4, rtol=1e-3,
+                                   err_msg=f)
+    for f in ("tau", "hyp_tau", "c_slab", "sigma_g"):
+        if kw["fh"]:
+            np.testing.assert_allclose(b[f], a[f], rtol=1e-4, err_msg=f)
     np.testing.assert_array_equal(b["components"], a["components"])
     np.testing.assert_array_equal(sb.cass.cpu().numpy(), sa.cass.numpy())

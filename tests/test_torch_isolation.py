@@ -177,3 +177,45 @@ def test_writers_are_byte_identical(survival, tmp_path):
                 ".xbet", ".xcpn", ".rng.0") + (() if survival else (".acu",)):
         assert open(bt + ext, "rb").read() == open(bj + ext, "rb").read(), ext
     assert os.path.exists(bt + ".acu") == (not survival)
+
+
+@pytest.mark.parametrize("value", ["", "0", "8", "16", "32", "auto"])
+def test_sd_sub_window_is_a_copy(value, monkeypatch):
+    """The port's HYDRA_TPU_SD parse against the JAX package's where the
+    JAX VMEM rule for "auto" also gives the whole window (W=32 over 128
+    packed bytes); a sub-window that does not divide the window raises in
+    the port (the JAX kernel asserts)."""
+    import hydra_tpu.ops.sweep_kernel as jsk
+    import hydra_tpu_torch.ops.sweep_kernel as tsk
+
+    monkeypatch.setenv("HYDRA_TPU_SD", value)
+    for complete in (True, False):
+        assert (tsk.sd_sub_window(32, 128, complete)
+                == jsk.sd_sub_window(32, 128, complete))
+    monkeypatch.setenv("HYDRA_TPU_SD", "12")
+    with pytest.raises(ValueError, match="must divide"):
+        tsk.sd_sub_window(32, 128, True)
+
+
+def test_gamma_rate_draws_are_copies(monkeypatch):
+    """gamma_rate_rng and inv_gamma_rate_rng on the same standard gamma
+    variates give the JAX package's values bit for bit."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    import hydra_tpu.utils.dist as jdist
+    import hydra_tpu_torch.utils.dist as tdist
+
+    z = np.array([0.37, 1.9, 4.25], np.float32)
+    shape = np.array([0.5, 2.0, 6.5], np.float32)
+    rate = np.array([1.0, 0.3, 7.0], np.float32)
+    monkeypatch.setattr(jax.random, "gamma",
+                        lambda key, a, shape=None, dtype=None: jnp.asarray(z))
+    monkeypatch.setattr(tdist, "gamma_rng", lambda g, a: torch.from_numpy(z))
+    key, gen = jax.random.key(0), torch.Generator()
+    for jf, tf in ((jdist.gamma_rate_rng, tdist.gamma_rate_rng),
+                   (jdist.inv_gamma_rate_rng, tdist.inv_gamma_rate_rng)):
+        want = np.asarray(jf(key, jnp.asarray(shape), jnp.asarray(rate)))
+        got = tf(gen, torch.from_numpy(shape), torch.from_numpy(rate))
+        np.testing.assert_array_equal(got.numpy(), want)

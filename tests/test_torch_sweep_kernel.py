@@ -1,4 +1,5 @@
-"""Port sweep kernels vs the JAX Pallas kernels (interpret mode, CPU).
+"""Port sweep kernels vs the JAX Pallas kernels (interpret mode, CPU):
+sweep_stale, sweep_exact and the single-decode sweep_stale_sd.
 
 The same numpy inputs (``tests/test_torch_cuda.make_inputs``) go through
 ``hydra_tpu.ops.sweep_kernel`` (plane-major residual, ``interpret=True``)
@@ -68,6 +69,70 @@ def test_sweep_matches_jax(exact, missing, use_perm, n_pads, window):
     # the draws did something: several components in use, pads stay zero
     assert len(np.unique(o_t[:, 1])) >= 3
     assert np.all(e_t[n:] == 0.0)
+
+
+def _sd_inputs(missing):
+    """W=32 over 128 markers (5 pad markers) on a marker-schedule order."""
+    pk, eps, mask, mrow, n = make_inputs(128, 128, 21, missing, 5)
+    order = np.random.RandomState(6).permutation(128).astype(np.int32)
+    return pk, eps, mask, mrow, n, order
+
+
+@pytest.mark.parametrize("sub_window", [8, 16, 32])
+@pytest.mark.parametrize("missing", [False, True])
+def test_sweep_stale_sd_matches_jax(missing, sub_window):
+    """The plain single-decode sweep against the JAX sweep_stale_sd
+    (interpret mode) on the rows gathered in sweep order: components equal,
+    out within rtol 2e-5 / atol 2e-6, eps within rtol 1e-4 / atol 2e-5 (the
+    JAX kernel splits c1 / c2 into bf16 hi + lo for its matrix unit; the
+    port multiplies in f32)."""
+    pk, eps, mask, mrow, n, order = _sd_inputs(missing)
+    i2se, dnm1 = 0.7, float(n - 1)
+    e_j, o_j = jsk.sweep_stale_sd(
+        jnp.asarray(pk[order]), deinterleave(jnp.asarray(eps)),
+        jnp.asarray(mrow[order]), jnp.float32(i2se), jnp.float32(dnm1),
+        window=32, sub_window=sub_window, n_mix=K, complete=not missing,
+        ind_mask4=jnp.asarray(deinterleave(mask)), interpret=True)
+    o_slot = np.empty_like(np.asarray(o_j))
+    o_slot[order] = np.asarray(o_j)
+    before = dict(tsk.launches)
+    e_t, o_t = tsk.sweep_stale_sd(
+        torch.from_numpy(pk), torch.from_numpy(eps), torch.from_numpy(mrow),
+        i2se, dnm1, window=32, sub_window=sub_window, n_mix=K,
+        complete=not missing, ind_mask=torch.from_numpy(mask),
+        order=torch.from_numpy(order))
+    assert tsk.launches == before        # CPU tensors: plain version only
+    e_t, o_t = e_t.numpy(), o_t.numpy()
+    np.testing.assert_array_equal(o_t[:, 1], o_slot[:, 1])
+    np.testing.assert_allclose(o_t, o_slot, rtol=2e-5, atol=2e-6)
+    np.testing.assert_allclose(e_t, np.asarray(interleave(e_j)), rtol=1e-4,
+                               atol=2e-5)
+    assert len(np.unique(o_t[:, 1])) >= 3 and np.all(e_t[n:] == 0.0)
+
+
+@pytest.mark.parametrize("missing", [False, True])
+def test_sweep_stale_sd_matches_two_phase(missing):
+    """The plain single-decode sweep against the port's sweep_stale_ref:
+    the stats and draws are the same computation (the first window's out
+    equal bit for bit, components equal throughout), the update differs
+    only in its f32 summation over sub-windows, and one sub-window a window
+    is sweep_stale_ref's sweep bit for bit."""
+    pk, eps, mask, mrow, n, order = _sd_inputs(missing)
+    args = [torch.from_numpy(a) for a in (pk, eps, mrow)] + [0.7, float(n - 1)]
+    kw = dict(window=32, n_mix=K, complete=not missing,
+              ind_mask=torch.from_numpy(mask), order=torch.from_numpy(order))
+    e_a, o_a = tsk.sweep_stale_ref(*args, **kw)
+    for wt in (8, 32):
+        e_b, o_b = tsk.sweep_stale_sd_ref(*args, sub_window=wt, **kw)
+        first = torch.from_numpy(order[:32]).long()
+        assert torch.equal(o_a[first], o_b[first])
+        assert torch.equal(o_a[:, 1], o_b[:, 1])
+        if wt == 32:
+            assert torch.equal(e_a, e_b) and torch.equal(o_a, o_b)
+        torch.testing.assert_close(o_b, o_a, rtol=1e-5, atol=1e-6)
+        torch.testing.assert_close(e_b, e_a, rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError, match="must divide"):
+        tsk.sweep_stale_sd(*args, sub_window=12, **kw)
 
 
 def test_hpack_and_decode_match_jax():
