@@ -11,7 +11,9 @@ Phases, each printing its wall time:
      source, started together).
   2. sweep_stale / sweep_exact against their plain PyTorch versions on the
      card at main-path shapes (M=4,096 x N=50,000, W=64 and 128, complete
-     and missing genotypes, block window permutation); bitwise repeatability.
+     and missing genotypes, block window permutation; exact also at W=256
+     and W=200, a window that is not a multiple of 32); bitwise
+     repeatability.
   2b. the BayesW kernels against their plain versions: sweep_stale_bw at
      M=4,096 x N=50,000, W=64 (complete and 2% missing) and at W=1 with
      M=512; window_level_sums and window_axpy at W=64 x N=50,000.
@@ -242,7 +244,8 @@ def compare_outputs(torch, name, label, fn, ref, reps, tol, card, rec,
 
 
 def phase_kernels(torch, sk, card):
-    """Kernel vs plain version at main-path shapes."""
+    """Kernel vs plain version at main-path shapes (and exact at W=256
+    and W=200)."""
     import numpy as np
     dev = torch.device("cuda")
     m, n = 4096, 50_000
@@ -258,19 +261,25 @@ def phase_kernels(torch, sk, card):
         eps[n:] = 0.0
         mask = torch.zeros(n_pad, device=dev)
         mask[:n] = 1.0
-        for window in (64, 128):
+        # exact also at W=256 and at W=200 (not a multiple of 32: a ragged
+        # last 32-marker block of the draw) on the first 4,000 rows
+        for window in (64, 128, 256, 200):
+            mw = m - m % window
+            pk_w, mrow_w = pk[:mw], mrow[:mw]
             order = sk.block_order(torch.randperm(
-                m // window, generator=gen, device=dev), window)
+                mw // window, generator=gen, device=dev), window)
             kw = dict(window=window, n_mix=K, complete=not missing,
                       ind_mask=mask if not missing else None, order=order)
             for name, fn, ref in (
                     ("sweep_stale", sk.sweep_stale, sk.sweep_stale_ref),
                     ("sweep_exact", sk.sweep_exact, sk.sweep_exact_ref)):
+                if name == "sweep_stale" and window > 128:
+                    continue
                 def run():
-                    return fn(pk, eps, mrow, 1.0 / (2 * SIGMA_E),
+                    return fn(pk_w, eps, mrow_w, 1.0 / (2 * SIGMA_E),
                               float(n - 1), **kw)
                 def plain():
-                    return ref(pk, eps, mrow, 1.0 / (2 * SIGMA_E),
+                    return ref(pk_w, eps, mrow_w, 1.0 / (2 * SIGMA_E),
                                float(n - 1), **kw)
                 e0, o0 = run()                         # build + warm up
                 ms, (e1, o1) = cuda_ms(torch, run, 5)
@@ -302,12 +311,13 @@ def phase_kernels(torch, sk, card):
                     r["ms"], r["plain_ms"] = ms, plain_ms
                     # packed rows, eps, mrow, order, mask in; eps, out out.
                     # Ops: s1 and the axpy, one FMA each per genotype; the
-                    # exact Gram adds W int8 multiply-adds per genotype
+                    # exact Gram is symmetric: (W + 1) / 2 int8 multiply-adds
+                    # per genotype
                     nbytes = (pk.numel() + 3 * 4 * n_pad + mrow.numel() * 4
                               + 4 * m + 16 * m)
                     ops = {"f32": 4.0 * m * n_pad}
                     if name == "sweep_exact":
-                        ops["int8"] = 2.0 * window * m * n_pad
+                        ops["int8"] = (window + 1.0) * m * n_pad
                     r["bound_ms"], r["bound_by"] = bound(nbytes, ops)
     return rec
 
@@ -499,7 +509,9 @@ def profile_sweep(torch, sk, s, st, card):
     fn = sk.sweep_exact if cfg.exact else sk.sweep_stale
     kw = dict(window=cfg.window, n_mix=cfg.k, complete=cfg.complete,
               ind_mask=s.ind_mask if cfg.complete else None, order=order)
-    per_window = 5 if cfg.exact else 3
+    # exact: stats, Gram (complete: gram_i8 in one launch; missing: gram +
+    # gram reduce), draw, axpy
+    per_window = (4 if cfg.complete else 5) if cfg.exact else 3
     if cfg.sub_window:
         fn = sk.sweep_stale_sd
         kw["sub_window"] = cfg.sub_window
@@ -512,27 +524,37 @@ def profile_sweep(torch, sk, s, st, card):
     profile_run(torch, run, f"{'exact' if cfg.exact else 'stale'} "
                 f"W={cfg.window}"
                 + (f" Wt={cfg.sub_window}" if cfg.sub_window else ""),
-                cfg.n_windows * per_window, card)
+                cfg.n_windows * per_window, card, cfg.n_windows)
+    if cfg.exact and cfg.complete:
+        print_exact_bounds(cfg.window, s.packed.shape[1], mrow.shape[1])
 
 
-def profile_run(torch, run, label, launches, card):
-    """Host time to enqueue one sweep's launches against the time to
-    finish on the card, and device time by kernel (torch.profiler; CUDA
-    events time the whole sweep as a cross-check)."""
-    run()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    run()
-    t1 = time.perf_counter()
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    ev_ms, _ = cuda_ms(torch, run, 3)
+def print_exact_bounds(W, nb, C):
+    """The least time of one exact window's Gram and draw launches.
+    gram_i8_kernel: the W packed rows and the order in, the (W, W) f32 Gram
+    out; the symmetric Gram's W (W + 1) / 2 entries, one int8 multiply-add
+    (2 operations) per entry and individual. exact_draw_kernel: the stats
+    partials (s1, s2, v), the W mrow rows and the Gram in, out and coef out;
+    the rank-1 update (2 W^2 f32) and ~100 f32 operations a draw."""
+    n_tiles = -(-nb // 512)
+    gram = bound(W * nb + 4 * W + 4 * W * W,
+                 {"int8": W * (W + 1.0) * 4 * nb})
+    draw = bound(12 * n_tiles * W + 4 * W * C + 4 * W * W + 16 * W
+                 + 4 * (2 * W + 1), {"f32": 2.0 * W * W + 100.0 * W})
+    print(f"  bound per window (W={W}, nb={nb}): gram_i8_kernel "
+          f"{1e3 * gram[0]:.4f} us ({gram[1]}), exact_draw_kernel "
+          f"{1e3 * draw[0]:.4f} us ({draw[1]})", flush=True)
+
+
+def device_times(torch, fn, label):
+    """{kernel name: (launches, device ms)} of one call of fn, from
+    torch.profiler's device activities."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        run()
+        fn()
         torch.cuda.synchronize()
-    from torch.autograd import DeviceType
     per = {}
     for e in prof.key_averages():
         # device activities only: an aten op's self device time repeats
@@ -542,6 +564,23 @@ def profile_run(torch, run, label, launches, card):
             per[e.key] = (e.count, t / 1000.0)
     if not per:
         raise AssertionError(f"{label}: the profiler saw no device activity")
+    return per
+
+
+def profile_run(torch, run, label, launches, card, n_windows=None):
+    """Host time to enqueue one sweep's launches against the time to
+    finish on the card, and device time by kernel (torch.profiler; CUDA
+    events time the whole sweep as a cross-check): ms per sweep, launches
+    per sweep and, given the sweep's windows, us per window."""
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    ev_ms, _ = cuda_ms(torch, run, 3)
+    per = device_times(torch, run, label)
     busy = sum(v[1] for v in per.values())
     n_dev = sum(v[0] for v in per.values())
     print(f"  sweep {label}: {launches} kernel launches ({n_dev} device "
@@ -551,7 +590,9 @@ def profile_run(torch, run, label, launches, card):
           f"{busy:.2f} ms ({100.0 * busy / ev_ms:.1f}% busy)  [{card}]",
           flush=True)
     for k, (cnt, ms) in sorted(per.items(), key=lambda kv: -kv[1][1])[:8]:
-        print(f"    {ms:9.3f} ms  {cnt:6d} x  {k[:90]}", flush=True)
+        per_win = (f"  {1e3 * ms / n_windows:8.2f} us/window" if n_windows
+                   else "")
+        print(f"    {ms:9.3f} ms  {cnt:6d} x{per_win}  {k[:90]}", flush=True)
 
 
 def bw_sampler(torch, np, m, n, seed, window, missing=0.0):
@@ -822,7 +863,7 @@ def phase_bw_real_size(torch, np, card):
                                        s.gh_w, alpha, **kw)
 
         profile_run(torch, run, f"BayesW W={window} M={m:,}",
-                    cfg.n_windows * 3, card)
+                    cfg.n_windows * 3, card, cfg.n_windows)
         del s, st, vi, mrow
 
 
@@ -911,13 +952,13 @@ def phase_mt_kernels(torch, np, card):
                     r["ms"], r["plain_ms"] = ms, plain_ms
                     # packed rows, eps, tm, mrow, order in; eps, out out.
                     # Ops: s1 and the axpy, one FMA each per genotype and
-                    # trait; the exact Gram adds W int8 multiply-adds per
-                    # genotype (shared by the traits)
+                    # trait; the symmetric exact Gram adds (W + 1) / 2 int8
+                    # multiply-adds per genotype (shared by the traits)
                     nbytes = (pk.numel() + 3 * 4 * T * n_pad
                               + mrow.numel() * 4 + 4 * m + 12 * T * m)
                     ops = {"f32": 4.0 * T * m * n_pad}
                     if name == "sweep_exact_mt":
-                        ops["int8"] = 2.0 * window * m * n_pad
+                        ops["int8"] = (window + 1.0) * m * n_pad
                     r["bound_ms"], r["bound_by"] = bound(nbytes, ops)
                     print_bound(name, r)
         if missing:
@@ -1175,12 +1216,13 @@ def phase_mt_real_size(torch, np, card):
                 return skmt.sweep_exact_mt(
                     s.packed, st.eps, s.trait_mask, mrow, i2se, s.dNm1,
                     window=window, n_mix=cfg.k, order=order)
-            n_launch = 5 * cfg.n_windows
+            n_launch = 4 * cfg.n_windows
         else:
             def run():
                 return s.window_sweep(st.eps, mrow, order, i2se)
             n_launch = "4 kernel + torch"
-        profile_run(torch, run, f"mt {label} W={window}", n_launch, card)
+        profile_run(torch, run, f"mt {label} W={window}", n_launch, card,
+                    cfg.n_windows)
         del s, st, mrow
     del pk
 
@@ -1236,12 +1278,13 @@ def phase_window_kernels(torch, np, card):
             r = rec["window_stats"]
             r["ms"], r["plain_ms"] = ms, plain_ms
             # packed rows, eps, mave, mstd, rows, n in; s1 and the Gram out.
-            # Ops: s1 one FMA per genotype, sum(eps) once; the integer Gram
-            # W multiply-adds and v one add per genotype
+            # Ops: s1 one FMA per genotype, sum(eps) once; the symmetric
+            # integer Gram (W + 1) / 2 multiply-adds and v one add per
+            # genotype
             nbytes = W * nb + 4 * n_pad + 12 * W + 4 + 4 * W + 4 * W * W
             r["bound_ms"], r["bound_by"] = bound(
                 nbytes, {"f32": 2.0 * W * n_pad + n_pad,
-                         "int8": 2.0 * W * W * n_pad + W * n_pad})
+                         "int8": W * (W + 1.0) * n_pad + W * n_pad})
             print_bound("window_stats", r)
             # the same window's recurrence
             s1, _, gram = wk.window_stats(*args)
@@ -1286,6 +1329,13 @@ def phase_window_kernels(torch, np, card):
             r["library_ms"], want = cuda_ms(torch, lib, 20)
             torch.testing.assert_close(fn()[0], want, rtol=1e-5,
                                        atol=1e-6 * n)
+            # the same 20 calls as device time alone (the CUDA-event times
+            # above include the host's enqueue of each call); the library's
+            # includes its int8 -> f32 cast
+            for key, f in (("device_ms", fn), ("library_device_ms", lib)):
+                per = device_times(torch, lambda: [f() for _ in range(20)],
+                                   name)
+                r[key] = sum(v[1] for v in per.values()) / 20
             # the window's int8 rows, eps or the coefficients, rows in;
             # s1 or d eps out. Ops: one FMA per genotype
             nbytes = W * n_pad + 8 * W + 4 * n_pad + (
@@ -1293,7 +1343,9 @@ def phase_window_kernels(torch, np, card):
             r["bound_ms"], r["bound_by"] = bound(
                 nbytes, {"f32": 2.0 * W * n_pad})
             print(f"{name:19s} library torch.mv on the cast rows "
-                  f"{r['library_ms']:.4f} ms  [{card}]", flush=True)
+                  f"{r['library_ms']:.4f} ms; device time per call: kernel "
+                  f"{r['device_ms']:.4f} ms, library {r['library_device_ms']:.4f}"
+                  f" ms  [{card}]", flush=True)
             print_bound(name, r)
         del planes, pw
     return rec
@@ -1450,14 +1502,18 @@ def phase_window_real_size(torch, np, sk, card):
                                     active)
                 order = s.sweep_order(0)
                 i2se = 0.5 / st.sigma_e
-                # complete data: exact 5 stats launches + window_gibbs +
-                # the axpy; stale 2 stats launches (or the planes') + axpy
-                per = 7 if exact else 3
+                # complete data: exact 4 window_stats launches (stats,
+                # finish, gram_i8, standardize) and a memset of the Gram's
+                # accumulator + window_gibbs + the axpy; stale 2 stats
+                # launches (or the planes') + axpy
+                per = 6 if exact else 3
+                memset = (f" + 1 memset/window = {cfg.n_windows}" if exact
+                          else "")
                 profile_run(torch, lambda: s.window_sweep(st.eps, mrow, order,
                                                           i2se),
                             f"{label} W={window}",
-                            f"{per}/window = {per * cfg.n_windows} CUDA-kernel",
-                            card)
+                            f"{per}/window = {per * cfg.n_windows} CUDA-kernel"
+                            + memset, card, cfg.n_windows)
             del s, st
         del pk
 
@@ -1797,48 +1853,69 @@ def main() -> int:
                "(M=100,000 x N=50,000)"):
         phase_sd_real_size(torch, np, sk, card)
 
+    # (wrapper, source, TPU kernel it replaces, the CUDA kernels it launches)
     table = (
-        ("sweep_stale", "sweep_kernel.cu", "hydra_tpu/ops/sweep_kernel.py:836"),
-        ("sweep_exact", "sweep_kernel.cu", "hydra_tpu/ops/sweep_kernel.py:567"),
+        ("sweep_stale", "sweep_kernel.cu", "hydra_tpu/ops/sweep_kernel.py:836",
+         "stats_kernel, stale_draw_kernel, axpy_kernel"),
+        ("sweep_exact", "sweep_kernel.cu", "hydra_tpu/ops/sweep_kernel.py:567",
+         "stats_kernel, gram_i8_kernel (complete; missing: gram_kernel + "
+         "gram_reduce_kernel), exact_draw_kernel, axpy_kernel"),
         ("sweep_stale_sd", "sweep_kernel.cu",
-         "hydra_tpu/ops/sweep_kernel.py:255"),
+         "hydra_tpu/ops/sweep_kernel.py:255",
+         "stats_kernel<true>, stale_draw_kernel, axpy_decoded_kernel"),
         ("sweep_stale_bw", "sweep_kernel_bw.cu",
-         "hydra_tpu/ops/sweep_kernel_bw.py:330"),
+         "hydra_tpu/ops/sweep_kernel_bw.py:330",
+         "levels_kernel, bw_draw_kernel, axpy_kernel<true>"),
         ("window_level_sums", "sweep_kernel_bw.cu",
-         "hydra_tpu/ops/window_kernels.py:356"),
+         "hydra_tpu/ops/window_kernels.py:356",
+         "levels_kernel, levels_reduce_kernel"),
         ("window_axpy", "sweep_kernel_bw.cu",
-         "hydra_tpu/ops/window_kernels.py:284"),
+         "hydra_tpu/ops/window_kernels.py:284", "axpy_kernel<false>"),
         ("sweep_stale_mt", "sweep_kernel_mt.cu",
-         "hydra_tpu/ops/sweep_kernel_mt.py:214"),
+         "hydra_tpu/ops/sweep_kernel_mt.py:214",
+         "stats_mt_kernel, stale_draw_mt_kernel, axpy_mt_kernel"),
         ("sweep_exact_mt", "sweep_kernel_mt.cu",
-         "hydra_tpu/ops/sweep_kernel_mt.py:499"),
+         "hydra_tpu/ops/sweep_kernel_mt.py:499",
+         "stats_mt_kernel, gram_i8_kernel, exact_mt_draw_kernel, "
+         "axpy_mt_kernel"),
         ("window_stats_mt", "sweep_kernel_mt.cu",
-         "hydra_tpu/ops/window_kernels.py:451"),
+         "hydra_tpu/ops/window_kernels.py:451",
+         "stats_mt_kernel, stats_mt_reduce_kernel"),
         ("window_axpy_mt", "sweep_kernel_mt.cu",
-         "hydra_tpu/ops/window_kernels.py:534"),
+         "hydra_tpu/ops/window_kernels.py:534", "axpy_mt_kernel"),
         # not a Pallas kernel: the JAX sampler's lax.scan recurrence
         ("mt_window_recurrence", "sweep_kernel_mt.cu",
-         "hydra_tpu/samplers/bayesrrm_mt.py:439"),
+         "hydra_tpu/samplers/bayesrrm_mt.py:439",
+         "window_recurrence_mt_kernel"),
         ("window_stats", "sweep_kernel.cu",
-         "hydra_tpu/ops/window_kernels.py:180"),
-        ("window_gibbs", "sweep_kernel.cu", "hydra_tpu/ops/gibbs_kernel.py:112"),
+         "hydra_tpu/ops/window_kernels.py:180",
+         "stats_kernel, window_stats_finish_kernel, gram_i8_kernel + "
+         "gram_standardize_kernel (exact complete; missing: gram_kernel + "
+         "gram_reduce_kernel)"),
+        ("window_gibbs", "sweep_kernel.cu", "hydra_tpu/ops/gibbs_kernel.py:112",
+         "window_gibbs_kernel"),
         ("window_stats_planes", "planes_kernel.cu",
-         "hydra_tpu/ops/planes.py:138"),
+         "hydra_tpu/ops/planes.py:138",
+         "stats_planes_kernel, planes_reduce_kernel"),
         ("window_axpy_planes", "planes_kernel.cu",
-         "hydra_tpu/ops/planes.py:196"))
+         "hydra_tpu/ops/planes.py:196", "axpy_planes_kernel"))
     # library_ms is null except for the planes kernels (torch.mv on the
     # window's int8 rows cast to f32): no single PyTorch call decodes the
     # 2-bit packed genotypes the others read, or runs a recurrence's
     # sequential chain of draws, so none computes the same function on the
-    # same inputs
+    # same inputs. The planes rows add their device time per call
+    # (device_ms, library_device_ms) beside the CUDA-event times.
     kernels = [dict(name=name, route="cuda",
                     source=f"hydra_tpu_torch/csrc/{src}", replaces=replaces,
                     launches=launches[name], max_abs_err=rec[name]["err"],
                     ms=rec[name]["ms"], plain_ms=rec[name]["plain_ms"],
                     bound_ms=rec[name]["bound_ms"],
                     bound_by=rec[name]["bound_by"],
-                    library_ms=rec[name].get("library_ms"))
-               for name, src, replaces in table]
+                    library_ms=rec[name].get("library_ms"), cuda=cuda,
+                    **{k: rec[name][k] for k in ("device_ms",
+                                                 "library_device_ms")
+                       if k in rec[name]})
+               for name, src, replaces, cuda in table]
     for k in kernels:
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']} never launched on the main path")

@@ -29,13 +29,15 @@
 // (stats, axpy) plus once more in the exact Gram, all from HBM/L2, and the
 // exact draw is a serial chain of W steps in one block. The design keeps
 // the decode in registers (no decoded planes in memory), reads eps as one
-// float4 per packed byte, runs the complete-data Gram as exact int8 dot
-// products (__dp4a) and the recurrence as a rank-1 update per step (one
-// __syncthreads per marker). Launch overhead (3 or 5 launches per window)
-// is left for a later change.
+// float4 per packed byte, runs the complete-data Gram on the int8 tensor
+// cores in one launch (gram_i8_kernel, sweep_kernel.cuh) and the
+// recurrence warp-synchronously out of shared memory (exact_draw_kernel).
+// Launch overhead (3 launches per stale window, 4 per exact one with
+// complete data, 5 with missing) is left for a later change.
 //
-// Determinism: no float atomics. Partial sums land in per-tile scratch and
-// are reduced in a fixed order, so equal inputs give bitwise-equal outputs.
+// Determinism: no float atomics (the Gram's are integer, exact in any
+// order). Partial sums land in per-tile scratch and are reduced in a fixed
+// order, so equal inputs give bitwise-equal outputs.
 
 #include <cstdint>
 
@@ -46,12 +48,6 @@ namespace hydra {
 constexpr int STATS_TB = 512;      // packed bytes per stats block
 constexpr int STATS_ROWS = 8;      // rows per stats block (one per warp)
 
-
-// a packed byte's four crumbs as the four bytes of a word (byte k = crumb k)
-__device__ __forceinline__ uint32_t spread_crumbs(uint32_t byte) {
-    return (byte & 0x3u) | ((byte & 0xcu) << 6) | ((byte & 0x30u) << 12) |
-           ((byte & 0xc0u) << 18);
-}
 
 // ---------------------------------------------------------------- stats --
 // grid (n_tiles, ceil(W / STATS_ROWS)), 256 threads. Warp = one row of the
@@ -195,14 +191,27 @@ __global__ void stale_draw_kernel(const float* __restrict__ mrow, int C, int K,
 
 // ----------------------------------------------------------- exact draw --
 struct Draw {
-    float bnew, comp, acum, dbeta;
+    float bnew, compf, pr0, s, dbeta;
+    // the outputs comp and acum0, apart because the recurrence's chain
+    // needs dbeta alone (acum0 is a division)
+    __device__ float comp(float act) const { return compf * act; }
+    __device__ float acum(float act) const { return (pr0 / s) * act + (1.f - act); }
 };
 
 // One marker of the exact recurrence, given its corrected dot product num:
 // the draw of _sweep_exact_kernel.step (hydra_tpu/ops/sweep_kernel.py:
 // 452-517) and of window_gibbs (hydra_tpu/ops/gibbs_kernel.py:57-107):
 // clamp max(l - mx, -60), unnormalized u*s against the running cum. logl
-// (K), invd and sd (K-1) are the marker's mixture constants.
+// (K), invd and sd (K-1) are the marker's mixture constants. The loops run
+// to the compile-time bound KB >= K, guarded by k < K - 1 (folded away
+// where the caller's K is a constant), so the temporaries stay in
+// registers: a loop to the runtime K put them in local memory, on the
+// recurrence's serial chain. The component is the number of running sums
+// u*s exceeds; they only grow (each term is positive), so the exceeded
+// ones are a prefix and the selected component is the last of them, found
+// in the same pass: the same choice as the plain version's count-then-
+// select, one chain shorter.
+template <int KB>
 __device__ __forceinline__ Draw exact_draw(float num, const float* logl,
                                            const float* invd, const float* sd,
                                            int K, float u, float nrm, float act,
@@ -210,107 +219,215 @@ __device__ __forceinline__ Draw exact_draw(float num, const float* logl,
     const int km1 = K - 1;
     const float logl0 = logl[0];
     float mx = logl0;
-    float muk[K_MAX], pr[K_MAX];
-    for (int k = 0; k < km1; ++k) {
-        muk[k] = num * invd[k];
-        pr[k] = logl[1 + k] + muk[k] * num * i2se;
-        mx = fmaxf(mx, pr[k]);
+    float muk[KB - 1], pr[KB - 1];
+#pragma unroll
+    for (int k = 0; k < KB - 1; ++k) {
+        muk[k] = 0.f;
+        pr[k] = 0.f;
+        if (k < km1) {
+            muk[k] = num * invd[k];
+            pr[k] = logl[1 + k] + muk[k] * num * i2se;
+            mx = fmaxf(mx, pr[k]);
+        }
     }
     const float pr0 = expf(fmaxf(logl0 - mx, -60.0f));
     float s = pr0;
-    for (int k = 0; k < km1; ++k) {
-        pr[k] = expf(fmaxf(pr[k] - mx, -60.0f));
-        s = s + pr[k];
-    }
+#pragma unroll
+    for (int k = 0; k < KB - 1; ++k)
+        if (k < km1) {
+            pr[k] = expf(fmaxf(pr[k] - mx, -60.0f));
+            s = s + pr[k];
+        }
     const float us = u * s;
-    float cum = pr0, compf = 0.f;
-    for (int k = 0; k < km1; ++k) {
-        compf += us > cum ? 1.f : 0.f;
-        cum = cum + pr[k];
-    }
-    float mu_sel = 0.f, sd_sel = 0.f;
-    for (int k = 0; k < km1; ++k)
-        if (compf == static_cast<float>(k + 1)) {
-            mu_sel = muk[k];
-            sd_sel = sd[k];
+    float cum = pr0, compf = 0.f, mu_sel = 0.f, sd_sel = 0.f;
+#pragma unroll
+    for (int k = 0; k < KB - 1; ++k)
+        if (k < km1) {
+            const bool over = us > cum;
+            compf += over ? 1.f : 0.f;
+            mu_sel = over ? muk[k] : mu_sel;
+            sd_sel = over ? sd[k] : sd_sel;
+            cum = cum + pr[k];
         }
     const float pos = compf > 0.f ? 1.f : 0.f;
     const float bnew = pos * act * (mu_sel + nrm * sd_sel);
-    return {bnew, compf * act, (pr0 / s) * act + (1.f - act), bold - bnew};
+    return {bnew, compf, pr0, s, bold - bnew};
 }
 
-// One block, one thread per marker. Thread i keeps num_i; at step j thread j
-// draws (exact_draw), publishes dbeta_j through shared memory, and every
-// thread applies num_i += G_ij * dbeta_j. The complete-data integer Gram is
-// standardized on the fly with the rank-1 correction of
-// hydra_tpu/ops/sweep_kernel.py:435-442.
-__global__ void exact_draw_kernel(const float* __restrict__ mrow, int C, int K,
-                                  const int* __restrict__ order_w, int W,
-                                  const float* __restrict__ part_s1,
-                                  const float* __restrict__ part_s2,
-                                  const float* __restrict__ part_v, int n_tiles,
-                                  int complete, const float* __restrict__ G,
-                                  const float* __restrict__ sc,
-                                  float* __restrict__ out, float* __restrict__ coef) {
-    extern __shared__ float sh[];          // db[W], mave[W], mstd[W], v[W]
-    float* s_db = sh;
-    float* s_mave = sh + W;
-    float* s_mstd = sh + 2 * W;
-    float* s_v = sh + 3 * W;
-    const int r = threadIdx.x;
+// The draw kernels by mixture size: K = 4 (the CLI default) with K a
+// compile-time constant, else the register bound 8 or K_MAX on a runtime K.
+// The constant pays: at K = 4, exact W=128, N=50,000 on an H100 at 700 W,
+// exact_draw_kernel<4, true> took 27.3-27.7 us a window and <8, false>
+// 50.6 (chip_smoke.py phase 4, both builds in one run).
+template <class F>
+inline F* by_components(int K, F* k4, F* k8, F* k16) {
+    return K == 4 ? k4 : (K <= 8 ? k8 : k16);
+}
+
+// The exact recurrence of one window: the W-step chain of
+// _sweep_exact_kernel.step (hydra_tpu/ops/sweep_kernel.py:452-526), num_i +=
+// G_ij * dbeta_j after marker j's draw, with the complete-data integer Gram
+// standardized by the rank-1 correction of sweep_kernel.py:435-442.
+//
+// Bound: the serial chain, W dependent draws (each waits for the previous
+// step's update), not bytes (the Gram is 64 KB at W=128) nor operations
+// (W^2 multiply-adds). So the design takes everything but the draw off
+// the chain:
+//  - one block, one thread per marker, warp b owns markers 32b..32b+31;
+//    warp b runs their 32 steps alone, warp-synchronously: every lane
+//    draws its own marker (exact_draw, no divergence), lane j's draw is
+//    step j's, __shfl_sync broadcasts its dbeta and every lane applies
+//    num = fmaf(G_ji, dbeta_j, num). No block barrier inside a block's
+//    steps, one __syncthreads per 32 steps.
+//  - registers, not memory, on the chain: each lane holds its marker's
+//    mrow constants (logl, invd, sd, u, nrm, act, bold) in registers from
+//    the start (exact_draw<KB>, KB >= K in {4, 8, K_MAX}); the Gram
+//    element of each step comes from shared memory, loaded off the chain.
+//  - trailing updates: while warp b steps, every later warp w loads its
+//    32x32 tile G[32b.., 32w..] from global memory, standardizes it and
+//    parks it in shared memory (each lane its own column); after the
+//    block's barrier it applies the block's 32 updates in step order. So
+//    each row still adds its updates in step order j = 0..W-1 with the
+//    same fmaf: the chain is unchanged.
+//  - the diagonal tile a warp steps with is staged by that warp while the
+//    previous warp steps (two buffers), so no global load waits on the
+//    chain but warp 0's first tile. Every Gram element is standardized
+//    once, by the warp that loads it.
+//  - a ragged last block (W not a multiple of 32) runs W - 32b steps; its
+//    missing lanes are present (the block is whole warps) with zero
+//    constants and zero tiles, so the full shuffle mask is right.
+// Dynamic shared memory: exact_draw_smem bytes, 4 W + (W/32 + 2) 32 x 32
+// floats: 26 KB at W=128, 152 KB at W=1024.
+inline size_t exact_draw_smem(int W) {
+    const size_t nw = cdiv(W, 32);
+    return sizeof(float) * (4 * static_cast<size_t>(W) + (nw + 2) * 32 * 32);
+}
+
+// Element (row j, column i) of the window Gram for thread i, standardized
+// with thread i's own statistics (mave, mstd, v) and row j's (mj, sj, vj).
+__device__ __forceinline__ float std_gram(float g, int complete, float mave, float mstd,
+                                          float v, float mj, float sj, float vj,
+                                          float n_real) {
+    return complete ? (mstd * sj) * (g - mave * vj - v * mj + n_real * (mave * mj)) : g;
+}
+
+// KB: exact_draw's bound on K; FIXED: K == KB, a compile-time constant.
+template <int KB, bool FIXED>
+__global__ void __launch_bounds__(1024)
+exact_draw_kernel(const float* __restrict__ mrow, int C, int k_run,
+                  const int* __restrict__ order_w, int W,
+                  const float* __restrict__ part_s1, const float* __restrict__ part_s2,
+                  const float* __restrict__ part_v, int n_tiles, int complete,
+                  const float* __restrict__ G, const float* __restrict__ sc,
+                  float* __restrict__ out, float* __restrict__ coef) {
+    const int K = FIXED ? KB : k_run;
+    extern __shared__ float sh[];
+    const int r = threadIdx.x, warp = r >> 5, lane = r & 31;
+    const int nw = blockDim.x >> 5;
+    float* s_db = sh;                     // [W]
+    float* s_mave = sh + W;               // [W]
+    float* s_mstd = sh + 2 * W;           // [W]
+    float* s_v = sh + 3 * W;              // [W]
+    float* s_tile = sh + 4 * W + warp * 32 * 32;   // this warp's trailing [32][32]
+    float* s_diag = sh + 4 * W + nw * 32 * 32;     // [2][32][32], warp b's at b & 1
     const float i2se = sc[0], dNm1 = sc[1], n_real = sc[2];
-    const int bl = N_FIXED, bi = N_FIXED + K, bs = N_FIXED + 2 * K - 1;
+    const bool live = r < W;
+    // this lane's marker: statistics, num and its mrow constants
     float numv = 0.f, mave = 0.f, mstd = 0.f, v = 0.f;
+    float u = 0.f, nrm = 0.f, act = 0.f, bold = 0.f;
+    float logl[KB], invd[KB - 1], sdk[KB - 1];
     int slot = 0;
-    const float* row = mrow;
-    if (r < W) {
+    if (live) {
         slot = order_w[r];
-        row = mrow + static_cast<size_t>(slot) * C;
+        const float* row = mrow + static_cast<size_t>(slot) * C;
         const float s1 = reduce_tiles(part_s1, n_tiles, W, r);
         const float s2 = reduce_tiles(part_s2, n_tiles, W, r);
         mave = row[0];
         mstd = row[1];
+        bold = row[2];
+        u = row[3];
+        nrm = row[4];
+        act = row[5];
         v = complete ? reduce_tiles(part_v, n_tiles, W, r) : 0.f;
-        numv = mstd * (s1 - mave * s2) + row[2] * dNm1;
+        numv = mstd * (s1 - mave * s2) + bold * dNm1;
         s_mave[r] = mave;
         s_mstd[r] = mstd;
         s_v[r] = v;
     }
-    __syncthreads();
-    for (int j = 0; j < W; ++j) {
-        if (r == j) {
-            const Draw d = exact_draw(numv, row + bl, row + bi, row + bs, K, row[3],
-                                      row[4], row[5], row[2], i2se);
-            float* o = out + static_cast<size_t>(slot) * 4;
-            o[0] = d.bnew;
-            o[1] = d.comp;
-            o[2] = d.acum;
-            o[3] = d.dbeta;
-            s_db[j] = d.dbeta;
-        }
-        __syncthreads();
-        if (r < W) {
-            float g = G[static_cast<size_t>(j) * W + r];   // G symmetric
-            if (complete) {
-                const float mj = s_mave[j];
-                g = (mstd * s_mstd[j])
-                    * (g - mave * s_v[j] - v * mj + n_real * (mave * mj));
-            }
-            numv = fmaf(g, s_db[j], numv);
+#pragma unroll
+    for (int k = 0; k < KB; ++k) {
+        const bool has = live && k < K;
+        logl[k] = has ? mrow[static_cast<size_t>(slot) * C + N_FIXED + k] : 0.f;
+        if (k < KB - 1) {
+            invd[k] = has && k < K - 1 ? mrow[static_cast<size_t>(slot) * C + N_FIXED + K + k]
+                                       : 0.f;
+            sdk[k] = has && k < K - 1
+                         ? mrow[static_cast<size_t>(slot) * C + N_FIXED + 2 * K - 1 + k]
+                         : 0.f;
         }
     }
     __syncthreads();
-    if (r < W) {
-        const float c1 = s_db[r] * mstd;
+    // rows r0.. r0 + 31 of this lane's column, standardized, to dst[j * 32 +
+    // lane]; rows past W (a ragged last block) and dead lanes give 0
+    auto stage = [&](int r0, float* dst) {
+#pragma unroll 8
+        for (int j = 0; j < 32; ++j) {
+            const int rj = r0 + j;
+            float g = 0.f;
+            if (live && rj < W)
+                g = std_gram(G[static_cast<size_t>(rj) * W + r], complete, mave, mstd, v,
+                             s_mave[rj], s_mstd[rj], s_v[rj], n_real);
+            dst[j * 32 + lane] = g;
+        }
+    };
+    if (warp == 0) stage(0, s_diag);
+    Draw mine{0.f, 0.f, 0.f, 1.f, 0.f};
+    for (int b = 0; b < nw; ++b) {
+        const int r0 = 32 * b;
+        if (warp == b) {
+            // every staged element was written by this lane: no barrier
+            const float* gd = s_diag + (b & 1) * 32 * 32 + lane;
+            const int steps = min(32, W - r0);
+#pragma unroll 4
+            for (int j = 0; j < steps; ++j) {
+                const Draw d = exact_draw<KB>(numv, logl, invd, sdk, K, u, nrm, act, bold,
+                                              i2se);
+                if (lane == j) mine = d;
+                const float db = __shfl_sync(0xffffffffu, d.dbeta, j);
+                numv = fmaf(gd[j * 32], db, numv);
+            }
+            if (live) s_db[r] = mine.dbeta;
+        } else if (warp > b) {
+            // this warp's tile of block b (whole: only the last block can be
+            // ragged), and warp b + 1 its diagonal tile, while warp b steps
+            stage(r0, s_tile);
+            if (warp == b + 1) stage(r0 + 32, s_diag + ((b + 1) & 1) * 32 * 32);
+        }
+        __syncthreads();
+        if (warp > b) {
+#pragma unroll 8
+            for (int j = 0; j < 32; ++j) numv = fmaf(s_tile[j * 32 + lane], s_db[r0 + j], numv);
+        }
+    }
+    if (live) {
+        float* o = out + static_cast<size_t>(slot) * 4;
+        o[0] = mine.bnew;
+        o[1] = mine.comp(act);
+        o[2] = mine.acum(act);
+        o[3] = mine.dbeta;
+        const float c1 = mine.dbeta * mstd;
         coef[r] = c1;
         coef[W + r] = -c1 * mave;
         s_v[r] = -c1 * mave;          // c2, for the complete-data constant
     }
     __syncthreads();
-    if (r == 0 && complete) {
+    if (warp == 0 && complete) {
+        // sum(c2), broadcast on real lanes: lane-strided partials, then a
+        // fixed-order warp tree
         float b = 0.f;
-        for (int j = 0; j < W; ++j) b += s_v[j];
-        coef[2 * W] = b;              // sum(c2), broadcast on real lanes
+        for (int j = lane; j < W; j += 32) b += s_v[j];
+        b = warp_sum(b);
+        if (lane == 0) coef[2 * W] = b;
     }
 }
 
@@ -321,11 +438,14 @@ struct Workspace {
     float* part_v;
     float* coef;
     float* gram;
-    float* gram_part;
+    float* gram_part;     // the missing-data Gram's per-chunk partials
+    int* gram_acc;        // the complete-data Gram's accumulator and tickets
     size_t bytes;
 };
 
-inline Workspace layout(void* base, int nb, int W, bool exact) {
+// exact sweeps reserve the Gram's scratch of their data only: complete,
+// gram_i8_kernel's accumulator; missing, gram_kernel's partials
+inline Workspace layout(void* base, int nb, int W, bool exact, bool complete) {
     const size_t n_tiles = cdiv(nb, STATS_TB);
     const size_t n_chunks = cdiv(nb, GRAM_CB);
     size_t off = 0;
@@ -342,7 +462,10 @@ inline Workspace layout(void* base, int nb, int W, bool exact) {
     ws.coef = take(2 * static_cast<size_t>(W) + 1);
     if (exact) {
         ws.gram = take(static_cast<size_t>(W) * W);
-        ws.gram_part = take(n_chunks * W * W);
+        if (complete)
+            ws.gram_acc = reinterpret_cast<int*>(take(gram_i8_acc_ints(W)));
+        else
+            ws.gram_part = take(n_chunks * W * W);
     }
     ws.bytes = off;
     return ws;
@@ -357,10 +480,11 @@ int run_sweep(bool exact, const uint8_t* pk, float* eps, const float* mrow,
               const int* order, const float* mask, const float* sc, float* out,
               void* ws_base, int m_loc, int nb, int W, int K, int complete,
               cudaStream_t stream) {
-    if (!shapes_ok(m_loc, nb, W, K) || (complete && mask == nullptr))
+    if (!shapes_ok(m_loc, nb, W, K) || (complete && mask == nullptr) ||
+        (exact && complete && 4LL * nb > GRAM_I8_MAX_NPAD))
         return static_cast<int>(cudaErrorInvalidValue);
     const int C = N_FIXED + 3 * K - 2;
-    const Workspace ws = layout(ws_base, nb, W, exact);
+    const Workspace ws = layout(ws_base, nb, W, exact, complete != 0);
     const int n_windows = m_loc / W;
     const int n_tiles = cdiv(nb, STATS_TB);
     const int n_chunks = cdiv(nb, GRAM_CB);
@@ -372,23 +496,35 @@ int run_sweep(bool exact, const uint8_t* pk, float* eps, const float* mrow,
     const dim3 gram_grid(nt * nt, n_chunks);
     const int axpy_blocks = cdiv(nb, AXPY_THREADS);
     const size_t axpy_smem = 3 * sizeof(float) * W;
+    const size_t draw_smem = exact_draw_smem(W);
+    auto* const draw = by_components(K, exact_draw_kernel<4, true>,
+                                     exact_draw_kernel<8, false>,
+                                     exact_draw_kernel<K_MAX, false>);
+    if (exact) {
+        HYDRA_CHECK(allow_smem(draw, draw_smem));
+        if (complete)
+            HYDRA_CHECK(cudaMemsetAsync(ws.gram_acc, 0, sizeof(int) * gram_i8_acc_ints(W),
+                                        stream));
+    }
     for (int w = 0; w < n_windows; ++w) {
         const int* order_w = order + static_cast<size_t>(w) * W;
         stats_kernel<false><<<stats_grid, STATS_ROWS * 32, 0, stream>>>(
             pk, nb, eps, order_w, W, mode, ws.part_s1, ws.part_s2, ws.part_v, nullptr);
         HYDRA_CHECK_LAUNCH();
         if (exact) {
-            if (complete)
-                gram_kernel<true><<<gram_grid, dim3(32, 8), 0, stream>>>(
-                    pk, nb, order_w, W, nullptr, nullptr, 0, 0, ws.gram_part);
-            else
-                gram_kernel<false><<<gram_grid, dim3(32, 8), 0, stream>>>(
+            if (complete) {
+                const int err = launch_gram_i8(pk, nb, order_w, W, ws.gram_acc, ws.gram,
+                                               stream);
+                if (err) return err;
+            } else {
+                gram_kernel<<<gram_grid, dim3(32, 8), 0, stream>>>(
                     pk, nb, order_w, W, mrow, mrow + 1, C, 1, ws.gram_part);
-            HYDRA_CHECK_LAUNCH();
-            gram_reduce_kernel<<<cdiv(static_cast<long long>(W) * W, 256), 256, 0, stream>>>(
-                ws.gram_part, n_chunks, W, complete, ws.gram);
-            HYDRA_CHECK_LAUNCH();
-            exact_draw_kernel<<<1, draw_threads, 4 * sizeof(float) * W, stream>>>(
+                HYDRA_CHECK_LAUNCH();
+                gram_reduce_kernel<<<cdiv(static_cast<long long>(W) * W, 256), 256, 0,
+                                     stream>>>(ws.gram_part, n_chunks, W, ws.gram);
+                HYDRA_CHECK_LAUNCH();
+            }
+            draw<<<1, draw_threads, draw_smem, stream>>>(
                 mrow, C, K, order_w, W, ws.part_s1, ws.part_s2, ws.part_v, n_tiles,
                 complete, ws.gram, sc, out, ws.coef);
         } else {
@@ -587,10 +723,12 @@ struct WindowWorkspace {
     float* part_v;
     float* v;
     float* gram_part;
+    int* gram_acc;
     size_t bytes;
 };
 
-inline WindowWorkspace window_layout(void* base, int nb, int W, bool exact) {
+inline WindowWorkspace window_layout(void* base, int nb, int W, bool exact,
+                                     bool complete) {
     const size_t n_tiles = cdiv(nb, STATS_TB);
     size_t off = 0;
     WindowWorkspace ws{};
@@ -604,7 +742,10 @@ inline WindowWorkspace window_layout(void* base, int nb, int W, bool exact) {
     ws.part_s2 = take(n_tiles * W);
     ws.part_v = take(n_tiles * W);
     ws.v = take(W);
-    if (exact) ws.gram_part = take(static_cast<size_t>(cdiv(nb, GRAM_CB)) * W * W);
+    if (exact && complete)
+        ws.gram_acc = reinterpret_cast<int*>(take(gram_i8_acc_ints(W)));
+    else if (exact)
+        ws.gram_part = take(static_cast<size_t>(cdiv(nb, GRAM_CB)) * W * W);
     ws.bytes = off;
     return ws;
 }
@@ -614,9 +755,9 @@ int run_window_stats(const uint8_t* pk, const float* eps, const int* rows,
                      float* s1, float* s2, float* gram, void* ws_base, int W, int nb,
                      bool exact, int complete, cudaStream_t stream) {
     if (W < 1 || W > 1024 || nb <= 0 || nb % 128 || (exact && gram == nullptr) ||
-        (exact && complete && n_real == nullptr))
+        (exact && complete && (n_real == nullptr || 4LL * nb > GRAM_I8_MAX_NPAD)))
         return static_cast<int>(cudaErrorInvalidValue);
-    const WindowWorkspace ws = window_layout(ws_base, nb, W, exact);
+    const WindowWorkspace ws = window_layout(ws_base, nb, W, exact, complete != 0);
     const int n_tiles = cdiv(nb, STATS_TB);
     const int mode = !complete ? MODE_MISSING
                                : (exact ? MODE_EXACT_COMPLETE : MODE_STALE_COMPLETE);
@@ -627,25 +768,26 @@ int run_window_stats(const uint8_t* pk, const float* eps, const int* rows,
         ws.part_s1, ws.part_s2, ws.part_v, n_tiles, W, mode, s1, s2, ws.v);
     HYDRA_CHECK_LAUNCH();
     if (!exact) return 0;
-    const int n_chunks = cdiv(nb, GRAM_CB);
-    const int nt = cdiv(W, GRAM_TW);
-    const dim3 gram_grid(nt * nt, n_chunks);
-    if (complete)
-        gram_kernel<true><<<gram_grid, dim3(32, 8), 0, stream>>>(
-            pk, nb, rows, W, nullptr, nullptr, 0, 0, ws.gram_part);
-    else
-        gram_kernel<false><<<gram_grid, dim3(32, 8), 0, stream>>>(
-            pk, nb, rows, W, mave, mstd, 1, 0, ws.gram_part);
-    HYDRA_CHECK_LAUNCH();
     const int ww_blocks = cdiv(static_cast<long long>(W) * W, 256);
-    gram_reduce_kernel<<<ww_blocks, 256, 0, stream>>>(ws.gram_part, n_chunks, W,
-                                                      complete, gram);
-    HYDRA_CHECK_LAUNCH();
     if (complete) {
+        // the workspace is new each call: one memset a call (a window of the
+        // per-window branch) besides the four kernels
+        HYDRA_CHECK(cudaMemsetAsync(ws.gram_acc, 0, sizeof(int) * gram_i8_acc_ints(W),
+                                    stream));
+        const int err = launch_gram_i8(pk, nb, rows, W, ws.gram_acc, gram, stream);
+        if (err) return err;
         gram_standardize_kernel<<<ww_blocks, 256, 0, stream>>>(gram, W, mave, mstd,
                                                                ws.v, n_real);
         HYDRA_CHECK_LAUNCH();
+        return 0;
     }
+    const int n_chunks = cdiv(nb, GRAM_CB);
+    const int nt = cdiv(W, GRAM_TW);
+    gram_kernel<<<dim3(nt * nt, n_chunks), dim3(32, 8), 0, stream>>>(
+        pk, nb, rows, W, mave, mstd, 1, 0, ws.gram_part);
+    HYDRA_CHECK_LAUNCH();
+    gram_reduce_kernel<<<ww_blocks, 256, 0, stream>>>(ws.gram_part, n_chunks, W, gram);
+    HYDRA_CHECK_LAUNCH();
     return 0;
 }
 
@@ -658,6 +800,7 @@ int run_window_stats(const uint8_t* pk, const float* eps, const int* rows,
 // symmetric, so thread i reads column j of row j, G[j * W + i], coalesced.
 // Bound by the W serial steps (one draw and one __syncthreads each), not by
 // memory: the Gram is read once, from L2.
+template <int KB, bool FIXED>
 __global__ void window_gibbs_kernel(const float* __restrict__ G,
                                     const float* __restrict__ num0,
                                     const float* __restrict__ logl,
@@ -667,11 +810,12 @@ __global__ void window_gibbs_kernel(const float* __restrict__ G,
                                     const float* __restrict__ nrm,
                                     const float* __restrict__ act,
                                     const float* __restrict__ bold,
-                                    const float* __restrict__ i2se_p, int W, int K,
+                                    const float* __restrict__ i2se_p, int W, int k_run,
                                     float* __restrict__ dbeta,
                                     float* __restrict__ bnew,
                                     int* __restrict__ comp,
                                     float* __restrict__ acum) {
+    const int K = FIXED ? KB : k_run;
     extern __shared__ float s_db[];        // dbeta[W]
     const int r = threadIdx.x;
     const float i2se = i2se_p[0];
@@ -679,14 +823,14 @@ __global__ void window_gibbs_kernel(const float* __restrict__ G,
     float numv = r < W ? num0[r] : 0.f;
     for (int j = 0; j < W; ++j) {
         if (r == j) {
-            const Draw d = exact_draw(numv, logl + static_cast<size_t>(j) * K,
+            const Draw d = exact_draw<KB>(numv, logl + static_cast<size_t>(j) * K,
                                       invd + static_cast<size_t>(j) * km1,
                                       sd + static_cast<size_t>(j) * km1, K, u[j],
                                       nrm[j], act[j], bold[j], i2se);
             dbeta[j] = d.dbeta;
             bnew[j] = d.bnew;
-            comp[j] = static_cast<int>(d.comp);
-            acum[j] = d.acum;
+            comp[j] = static_cast<int>(d.comp(act[j]));
+            acum[j] = d.acum(act[j]);
             s_db[j] = d.dbeta;
         }
         __syncthreads();
@@ -699,8 +843,9 @@ __global__ void window_gibbs_kernel(const float* __restrict__ G,
 extern "C" {
 
 // Bytes of device scratch one sweep needs (the caller allocates it).
-long long hydra_sweep_workspace_bytes(int nb, int window, int exact) {
-    return static_cast<long long>(hydra::layout(nullptr, nb, window, exact != 0).bytes);
+long long hydra_sweep_workspace_bytes(int nb, int window, int exact, int complete) {
+    return static_cast<long long>(
+        hydra::layout(nullptr, nb, window, exact != 0, complete != 0).bytes);
 }
 
 // A whole stale-window sweep. eps (4*nb,) is updated in place; out
@@ -754,8 +899,9 @@ int hydra_sweep_stale_sd(const void* pk, void* eps, const void* mrow, const void
 }
 
 // Bytes of device scratch one window_stats call needs.
-long long hydra_window_workspace_bytes(int nb, int window, int exact) {
-    return static_cast<long long>(hydra::window_layout(nullptr, nb, window, exact != 0).bytes);
+long long hydra_window_workspace_bytes(int nb, int window, int exact, int complete) {
+    return static_cast<long long>(
+        hydra::window_layout(nullptr, nb, window, exact != 0, complete != 0).bytes);
 }
 
 // (s1, s2[, gram]) of the window rows[0..W) of pk against eps (4*nb,):
@@ -784,8 +930,11 @@ int hydra_window_gibbs(const void* gram, const void* num0, const void* logl,
     using namespace hydra;
     if (window < 1 || window > 1024 || n_mix < 2 || n_mix > K_MAX)
         return static_cast<int>(cudaErrorInvalidValue);
-    window_gibbs_kernel<<<1, cdiv(window, 32) * 32, sizeof(float) * window,
-                          static_cast<cudaStream_t>(stream)>>>(
+    auto* const gibbs = by_components(n_mix, window_gibbs_kernel<4, true>,
+                                      window_gibbs_kernel<8, false>,
+                                      window_gibbs_kernel<K_MAX, false>);
+    gibbs<<<1, cdiv(window, 32) * 32, sizeof(float) * window,
+            static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(gram), static_cast<const float*>(num0),
         static_cast<const float*>(logl), static_cast<const float*>(invd),
         static_cast<const float*>(sd), static_cast<const float*>(u),

@@ -40,6 +40,20 @@ inline size_t align256(size_t x) { return (x + 255) & ~static_cast<size_t>(255);
         if (e_ != cudaSuccess) return static_cast<int>(e_); \
     } while (0)
 
+#define HYDRA_CHECK(call)                                  \
+    do {                                                   \
+        cudaError_t e_ = (call);                           \
+        if (e_ != cudaSuccess) return static_cast<int>(e_); \
+    } while (0)
+
+// Dynamic shared memory above the 48 KB default needs an opt-in per kernel.
+template <class F>
+inline cudaError_t allow_smem(F* kernel, size_t bytes) {
+    if (bytes <= 48 * 1024) return cudaSuccess;
+    return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                static_cast<int>(bytes));
+}
+
 // crumb k of a byte: the raw h value (_decode_h_int); pads decode to 3
 __device__ __forceinline__ int crumb(uint32_t byte, int k) {
     return static_cast<int>((byte >> (2 * k)) & 3u);
@@ -51,12 +65,17 @@ __device__ __forceinline__ int crumb_mask(int c) { return 1 - ((c + 1) >> 2); }
 // _decode_k genotype: (2 - c) * mask, so missing and pads give 0
 __device__ __forceinline__ int crumb_geno(int c) { return (2 - c) * crumb_mask(c); }
 
-// the byte's four genotypes as signed int8 lanes, for __dp4a
-__device__ __forceinline__ int geno_x4(uint32_t byte) {
-    int out = 0;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) out |= crumb_geno(crumb(byte, k)) << (8 * k);
-    return out;
+// a packed byte's four crumbs as the four bytes of a word (byte k = crumb k)
+__device__ __forceinline__ uint32_t spread_crumbs(uint32_t byte) {
+    return (byte & 0x3u) | ((byte & 0xcu) << 6) | ((byte & 0x30u) << 12) |
+           ((byte & 0xc0u) << 18);
+}
+
+// crumb_geno on all 16 crumbs of a packed word at once: h = 0, 1, 2, 3
+// (missing) -> genotype 2, 1, 0, 0, two bits per crumb in place
+__device__ __forceinline__ uint32_t geno_crumbs(uint32_t x) {
+    const uint32_t not_hi = (~x >> 1) & 0x55555555u;
+    return ((not_hi & ~x & 0x55555555u) << 1) | (not_hi & x);
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -79,22 +98,217 @@ __device__ __forceinline__ float reduce_tiles(const float* part, int n_tiles,
     return s;
 }
 
-// ----------------------------------------------------------------- gram --
-// The window Gram of the exact sweeps (sweep_kernel.cu, sweep_kernel_mt.cu).
-// grid (nt * nt, n_chunks), block (32, 8). Block (ti, tj, chunk) computes
-// the 32x32 tile of the window Gram over GRAM_CB packed bytes; thread
-// (tx, ty) owns rows ty + 8q (q < 4) of column tx.
-//   COMPLETE: exact int32 Gram of g planes by __dp4a on int8x4 genotypes.
-//   else    : f32 Gram of x = (g - mave*m) * mstd, with row r's statistics
-//             at mave[i * ld], mstd[i * ld], i = order_w[r] when by_slot
-//             (the sweeps' mrow columns 0 and 1), else i = r (window_stats'
-//             window-ordered vectors). COMPLETE reads none of them.
-// Partials: part[chunk * W * W + i * W + j] (int32 bits when COMPLETE).
+// ------------------------------------------------------ complete gram --
+// The complete-data window Gram of the exact sweeps (hydra_sweep_exact,
+// hydra_sweep_exact_mt, hydra_window_stats): G = g g^T over the window's
+// rows, g = the genotype planes, written as f32 (W, W), raw (the callers
+// standardize it). Serves _sweep_exact_kernel (hydra_tpu/ops/
+// sweep_kernel.py:567; its Gram at :399-402) and window_stats (hydra_tpu/
+// ops/window_kernels.py:180).
+//
+// Bound: bytes, the W * nb packed bytes in and the (W, W) f32 out (1.67 MB
+// at W=128, N=50,000: 0.50 us at 3.35 TB/s), just above the symmetric
+// Gram's W (W + 1) n_pad int8 operations (0.83 G: 0.42 us at 1,979 TOP/s).
+// The design:
+//  - int8 tensor cores: mma.sync m16n8k32 s8 x s8 -> s32. Genotypes 0..2
+//    are exact in int8 and the sums in int32, so G is the same integer in
+//    any order: deterministic and bit for bit the plain version's g @ g^T.
+//  - decode once: a block decodes its rows' packed words into int8 in
+//    shared memory (geno_crumbs + spread_crumbs: 16 genotypes a word, no
+//    table), and the next stage's packed words are loaded into registers
+//    while the tensor cores run the current one.
+//  - symmetry: only the tiles ti <= tj of GRAM_I8_TILE rows run; a diagonal
+//    tile feeds the same shared rows to A (row-major) and B (column-major).
+//  - the individuals split across the card (grid.y) so that ~2 blocks an
+//    SM are in flight; the splits meet in one int32 accumulator (W, W) by
+//    coalesced integer atomics (exact in any order), and the last block of
+//    a tile (an atomic ticket) converts it to f32 in G, both triangles,
+//    and re-zeroes its accumulator and ticket for the next window. One
+//    launch per window; the caller zeroes acc once per call.
+// The f32 conversion is exact while every entry (<= 4 n_pad) is <= 2^24:
+// n_pad <= GRAM_I8_MAX_NPAD; the C entry points refuse more.
+constexpr int GRAM_I8_TILE = 64;          // output tile edge (window rows)
+constexpr int GRAM_I8_SB = 64;            // packed bytes a stage (256 individuals)
+constexpr int GRAM_I8_LD = 4 * GRAM_I8_SB + 16;   // shared row stride, bytes
+constexpr int GRAM_I8_THREADS = 256;
+constexpr int GRAM_I8_BLOCKS = 264;       // target blocks a launch (2 per SM)
+constexpr long long GRAM_I8_MAX_NPAD = 1LL << 22;
+
+__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// grid (nt (nt + 1) / 2, splits), GRAM_I8_THREADS threads. Block (tile,
+// split) sums its tile over split_bytes packed bytes into acc (W, W) int32;
+// tickets[tile] counts the splits done.
+__global__ void __launch_bounds__(GRAM_I8_THREADS)
+gram_i8_kernel(const uint8_t* __restrict__ pk, int nb, const int* __restrict__ order_w,
+               int W, int split_bytes, int* __restrict__ acc, int* __restrict__ tickets,
+               float* __restrict__ G) {
+    __shared__ __align__(16) uint8_t sa[GRAM_I8_TILE * GRAM_I8_LD];
+    __shared__ __align__(16) uint8_t sb[GRAM_I8_TILE * GRAM_I8_LD];
+    __shared__ int s_last;
+    const int nt = (W + GRAM_I8_TILE - 1) / GRAM_I8_TILE;
+    int ti = 0, rest = blockIdx.x;
+    while (rest >= nt - ti) rest -= nt - ti++;
+    const int tj = ti + rest;
+    const bool diag = ti == tj;
+    const uint8_t* sbr = diag ? sa : sb;
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    const int b0 = blockIdx.y * split_bytes;
+    const int b1 = min(b0 + split_bytes, nb);
+
+    // loader: a stage is GRAM_I8_TILE rows x 16 packed words a tile; this
+    // thread loads word wd of rows (tid >> 4) + 16q
+    const int wd = tid & 15;
+    const uint32_t* src_a[4];
+    const uint32_t* src_b[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+        const int r = (tid >> 4) + 16 * q;
+        const int ra = ti * GRAM_I8_TILE + r, rb = tj * GRAM_I8_TILE + r;
+        src_a[q] = ra < W ? reinterpret_cast<const uint32_t*>(
+                                pk + static_cast<size_t>(order_w[ra]) * nb) + wd
+                          : nullptr;
+        src_b[q] = rb < W ? reinterpret_cast<const uint32_t*>(
+                                pk + static_cast<size_t>(order_w[rb]) * nb) + wd
+                          : nullptr;
+    }
+    uint32_t wa[4], wb[4];
+    auto load = [&](int s) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+            wa[q] = src_a[q] ? __ldg(src_a[q] + s / 4) : 0u;
+            wb[q] = (!diag && src_b[q]) ? __ldg(src_b[q] + s / 4) : 0u;
+        }
+    };
+    auto store = [&](uint8_t* dst, bool second) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+            const uint32_t y = geno_crumbs(second ? wb[q] : wa[q]);
+            // rows past W decode to 0, not to the genotype 2 of a 0 byte
+            const uint4 v = (second ? src_b[q] : src_a[q]) ? make_uint4(spread_crumbs(y & 0xffu),
+                                                spread_crumbs((y >> 8) & 0xffu),
+                                                spread_crumbs((y >> 16) & 0xffu),
+                                                spread_crumbs(y >> 24))
+                                   : make_uint4(0u, 0u, 0u, 0u);
+            *reinterpret_cast<uint4*>(dst + ((tid >> 4) + 16 * q) * GRAM_I8_LD + 16 * wd) = v;
+        }
+    };
+
+    // warp: rows 16 (warp & 3) .. +16 of the tile, columns 32 (warp >> 2) .. +32
+    const int g = lane >> 2, t4 = lane & 3;
+    const int m0 = 16 * (warp & 3), n0 = 32 * (warp >> 2);
+    int c[4][4] = {};
+    if (b0 < b1) load(b0);
+    for (int s = b0; s < b1; s += GRAM_I8_SB) {
+        __syncthreads();                  // the previous stage is consumed
+        store(sa, false);
+        if (!diag) store(sb, true);
+        __syncthreads();
+        if (s + GRAM_I8_SB < b1) load(s + GRAM_I8_SB);
+#pragma unroll
+        for (int kk = 0; kk < 4 * GRAM_I8_SB; kk += 32) {
+            const uint8_t* pa = sa + (m0 + g) * GRAM_I8_LD + kk + 4 * t4;
+            const uint32_t a[4] = {
+                *reinterpret_cast<const uint32_t*>(pa),
+                *reinterpret_cast<const uint32_t*>(pa + 8 * GRAM_I8_LD),
+                *reinterpret_cast<const uint32_t*>(pa + 16),
+                *reinterpret_cast<const uint32_t*>(pa + 8 * GRAM_I8_LD + 16)};
+#pragma unroll
+            for (int nn = 0; nn < 4; ++nn) {
+                const uint8_t* pb = sbr + (n0 + 8 * nn + g) * GRAM_I8_LD + kk + 4 * t4;
+                mma_s8(c[nn], a, *reinterpret_cast<const uint32_t*>(pb),
+                       *reinterpret_cast<const uint32_t*>(pb + 16));
+            }
+        }
+    }
+
+    // the block's tile through shared memory, then coalesced atomics
+    __syncthreads();
+    int* tile = reinterpret_cast<int*>(sa);          // [64][64] int32, 16 KB
+#pragma unroll
+    for (int nn = 0; nn < 4; ++nn)
+#pragma unroll
+        for (int h = 0; h < 4; ++h)
+            tile[(m0 + g + 8 * (h >> 1)) * GRAM_I8_TILE + n0 + 8 * nn + 2 * t4 + (h & 1)] =
+                c[nn][h];
+    __syncthreads();
+    for (int e = tid; e < GRAM_I8_TILE * GRAM_I8_TILE; e += GRAM_I8_THREADS) {
+        const int i = ti * GRAM_I8_TILE + e / GRAM_I8_TILE;
+        const int j = tj * GRAM_I8_TILE + e % GRAM_I8_TILE;
+        if (i < W && j < W) atomicAdd(acc + static_cast<size_t>(i) * W + j, tile[e]);
+    }
+    __threadfence();
+    __syncthreads();
+    if (tid == 0) s_last = atomicAdd(tickets + blockIdx.x, 1) == static_cast<int>(gridDim.y) - 1;
+    __syncthreads();
+    if (!s_last) return;
+    __threadfence();
+    // every split's atomics are done: read the tile from L2 (all loads in
+    // flight at once, not one round trip each), then write G and zero acc
+    constexpr int PER = GRAM_I8_TILE * GRAM_I8_TILE / GRAM_I8_THREADS;
+    int sum[PER];
+#pragma unroll
+    for (int q = 0; q < PER; ++q) {
+        const int e = tid + q * GRAM_I8_THREADS;
+        const int i = ti * GRAM_I8_TILE + e / GRAM_I8_TILE;
+        const int j = tj * GRAM_I8_TILE + e % GRAM_I8_TILE;
+        sum[q] = i < W && j < W ? __ldcg(acc + static_cast<size_t>(i) * W + j) : 0;
+    }
+#pragma unroll
+    for (int q = 0; q < PER; ++q) {
+        const int e = tid + q * GRAM_I8_THREADS;
+        const int i = ti * GRAM_I8_TILE + e / GRAM_I8_TILE;
+        const int j = tj * GRAM_I8_TILE + e % GRAM_I8_TILE;
+        if (i < W && j < W) {
+            const float v = static_cast<float>(sum[q]);
+            G[static_cast<size_t>(i) * W + j] = v;
+            G[static_cast<size_t>(j) * W + i] = v;
+            acc[static_cast<size_t>(i) * W + j] = 0;
+        }
+    }
+    if (tid == 0) tickets[blockIdx.x] = 0;
+}
+
+// int32 words of the accumulator and tickets gram_i8_kernel needs
+inline size_t gram_i8_acc_ints(int W) {
+    const size_t nt = (W + GRAM_I8_TILE - 1) / GRAM_I8_TILE;
+    return static_cast<size_t>(W) * W + nt * (nt + 1) / 2;
+}
+
+// One window's complete-data Gram into G (W, W) f32. acc (gram_i8_acc_ints)
+// must be zero; it is zero again when the launch ends.
+inline int launch_gram_i8(const uint8_t* pk, int nb, const int* order_w, int W, int* acc,
+                          float* G, cudaStream_t stream) {
+    const int nt = cdiv(W, GRAM_I8_TILE);
+    const int tiles = nt * (nt + 1) / 2;
+    const int n_stage = nb / GRAM_I8_SB;
+    const int want = cdiv(GRAM_I8_BLOCKS, tiles);
+    const int per = want >= n_stage ? 1 : cdiv(n_stage, want);
+    gram_i8_kernel<<<dim3(tiles, cdiv(n_stage, per)), GRAM_I8_THREADS, 0, stream>>>(
+        pk, nb, order_w, W, per * GRAM_I8_SB, acc, acc + static_cast<size_t>(W) * W, G);
+    HYDRA_CHECK_LAUNCH();
+    return 0;
+}
+
+// ------------------------------------------------------- missing gram --
+// The missing-data window Gram: f32 Gram of x = (g - mave*m) * mstd, with
+// row r's statistics at mave[i * ld], mstd[i * ld], i = order_w[r] when
+// by_slot (the sweeps' mrow columns 0 and 1), else i = r (window_stats'
+// window-ordered vectors). grid (nt * nt, n_chunks), block (32, 8). Block
+// (ti, tj, chunk) computes the 32x32 tile over GRAM_CB packed bytes; thread
+// (tx, ty) owns rows ty + 8q (q < 4) of column tx. Partials:
+// part[chunk * W * W + i * W + j], summed by gram_reduce_kernel.
 constexpr int GRAM_TW = 32;        // Gram tile edge
 constexpr int GRAM_CB = 512;       // packed bytes per Gram chunk (partial)
 constexpr int GRAM_SB = 32;        // packed bytes per shared-memory step
 
-template <bool COMPLETE>
 __global__ void gram_kernel(const uint8_t* __restrict__ pk, int nb,
                             const int* __restrict__ order_w, int W,
                             const float* __restrict__ mave,
@@ -107,102 +321,63 @@ __global__ void gram_kernel(const uint8_t* __restrict__ pk, int nb,
     const int tx = threadIdx.x, ty = threadIdx.y;
     const int tid = ty * 32 + tx;
     const size_t ww = static_cast<size_t>(W) * W;
-    if constexpr (COMPLETE) {
-        __shared__ int As[GRAM_TW][GRAM_SB + 1];
-        __shared__ int Bs[GRAM_TW][GRAM_SB + 1];
-        int acc[4] = {0, 0, 0, 0};
-        for (int sb = b0; sb < b1; sb += GRAM_SB) {
-            for (int i = tid; i < GRAM_TW * GRAM_SB; i += 256) {
-                const int rr = i / GRAM_SB, bb = i % GRAM_SB;
-                const int ra = ti * GRAM_TW + rr, rb = tj * GRAM_TW + rr;
-                const bool inb = sb + bb < b1;
-                As[rr][bb] = (ra < W && inb)
-                    ? geno_x4(pk[static_cast<size_t>(order_w[ra]) * nb + sb + bb]) : 0;
-                Bs[rr][bb] = (rb < W && inb)
-                    ? geno_x4(pk[static_cast<size_t>(order_w[rb]) * nb + sb + bb]) : 0;
-            }
-            __syncthreads();
-#pragma unroll 8
-            for (int kk = 0; kk < GRAM_SB; ++kk) {
-                const int bv = Bs[tx][kk];
+    constexpr int SI = GRAM_SB * 4;   // individuals per step
+    __shared__ float Af[GRAM_TW][SI + 1];
+    __shared__ float Bf[GRAM_TW][SI + 1];
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int sb = b0; sb < b1; sb += GRAM_SB) {
+        for (int i = tid; i < GRAM_TW * GRAM_SB; i += 256) {
+            const int rr = i / GRAM_SB, bb = i % GRAM_SB;
+            const bool inb = sb + bb < b1;
 #pragma unroll
-                for (int q = 0; q < 4; ++q) acc[q] = __dp4a(As[ty + 8 * q][kk], bv, acc[q]);
-            }
-            __syncthreads();
-        }
-        int* out = reinterpret_cast<int*>(part) + blockIdx.y * ww;
+            for (int side = 0; side < 2; ++side) {
+                const int ra = (side == 0 ? ti : tj) * GRAM_TW + rr;
+                float x[4] = {0.f, 0.f, 0.f, 0.f};
+                if (ra < W && inb) {
+                    const int slot = order_w[ra];
+                    const size_t si = static_cast<size_t>(by_slot ? slot : ra) * ld;
+                    const float av = mave[si];
+                    const float sd = mstd[si];
+                    const uint32_t byte = pk[static_cast<size_t>(slot) * nb + sb + bb];
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {
-            const int i = ti * GRAM_TW + ty + 8 * q, j = tj * GRAM_TW + tx;
-            if (i < W && j < W) out[static_cast<size_t>(i) * W + j] = acc[q];
-        }
-    } else {
-        constexpr int SI = GRAM_SB * 4;   // individuals per step
-        __shared__ float Af[GRAM_TW][SI + 1];
-        __shared__ float Bf[GRAM_TW][SI + 1];
-        float acc[4] = {0.f, 0.f, 0.f, 0.f};
-        for (int sb = b0; sb < b1; sb += GRAM_SB) {
-            for (int i = tid; i < GRAM_TW * GRAM_SB; i += 256) {
-                const int rr = i / GRAM_SB, bb = i % GRAM_SB;
-                const bool inb = sb + bb < b1;
-#pragma unroll
-                for (int side = 0; side < 2; ++side) {
-                    const int ra = (side == 0 ? ti : tj) * GRAM_TW + rr;
-                    float x[4] = {0.f, 0.f, 0.f, 0.f};
-                    if (ra < W && inb) {
-                        const int slot = order_w[ra];
-                        const size_t si = static_cast<size_t>(by_slot ? slot : ra) * ld;
-                        const float av = mave[si];
-                        const float sd = mstd[si];
-                        const uint32_t byte = pk[static_cast<size_t>(slot) * nb + sb + bb];
-#pragma unroll
-                        for (int k = 0; k < 4; ++k) {
-                            const int c = crumb(byte, k);
-                            const float m = static_cast<float>(crumb_mask(c));
-                            const float g = static_cast<float>(crumb_geno(c));
-                            x[k] = (g - av * m) * sd;
-                        }
+                    for (int k = 0; k < 4; ++k) {
+                        const int c = crumb(byte, k);
+                        const float m = static_cast<float>(crumb_mask(c));
+                        const float g = static_cast<float>(crumb_geno(c));
+                        x[k] = (g - av * m) * sd;
                     }
-                    float (*dst)[SI + 1] = side == 0 ? Af : Bf;
-#pragma unroll
-                    for (int k = 0; k < 4; ++k) dst[rr][4 * bb + k] = x[k];
                 }
+                float (*dst)[SI + 1] = side == 0 ? Af : Bf;
+#pragma unroll
+                for (int k = 0; k < 4; ++k) dst[rr][4 * bb + k] = x[k];
             }
-            __syncthreads();
+        }
+        __syncthreads();
 #pragma unroll 8
-            for (int kk = 0; kk < SI; ++kk) {
-                const float bv = Bf[tx][kk];
+        for (int kk = 0; kk < SI; ++kk) {
+            const float bv = Bf[tx][kk];
 #pragma unroll
-                for (int q = 0; q < 4; ++q) acc[q] = fmaf(Af[ty + 8 * q][kk], bv, acc[q]);
-            }
-            __syncthreads();
+            for (int q = 0; q < 4; ++q) acc[q] = fmaf(Af[ty + 8 * q][kk], bv, acc[q]);
         }
-        float* out = part + blockIdx.y * ww;
+        __syncthreads();
+    }
+    float* out = part + blockIdx.y * ww;
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {
-            const int i = ti * GRAM_TW + ty + 8 * q, j = tj * GRAM_TW + tx;
-            if (i < W && j < W) out[static_cast<size_t>(i) * W + j] = acc[q];
-        }
+    for (int q = 0; q < 4; ++q) {
+        const int i = ti * GRAM_TW + ty + 8 * q, j = tj * GRAM_TW + tx;
+        if (i < W && j < W) out[static_cast<size_t>(i) * W + j] = acc[q];
     }
 }
 
-// Fixed-order sum of the Gram partials over chunks -> G (W, W) f32. The
-// complete-data integer Gram stays raw here; the draw standardizes it.
+// Fixed-order sum of the missing-data Gram partials over chunks -> G (W, W).
 __global__ void gram_reduce_kernel(const float* __restrict__ part, int n_chunks,
-                                   int W, int complete, float* __restrict__ G) {
+                                   int W, float* __restrict__ G) {
     const size_t ww = static_cast<size_t>(W) * W;
     const size_t e = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
     if (e >= ww) return;
-    if (complete) {
-        const int* p = reinterpret_cast<const int*>(part);
-        int s = 0;
-        for (int c = 0; c < n_chunks; ++c) s += p[c * ww + e];
-        G[e] = static_cast<float>(s);
-    } else {
-        float s = 0.f;
-        for (int c = 0; c < n_chunks; ++c) s += part[c * ww + e];
-        G[e] = s;
-    }
+    float s = 0.f;
+    for (int c = 0; c < n_chunks; ++c) s += part[c * ww + e];
+    G[e] = s;
 }
 
 // ----------------------------------------------------------------- axpy --

@@ -23,7 +23,7 @@
 // over windows and launches per window on one stream, the launch boundary
 // being the barrier between phases:
 //   stale: stats_mt -> stale_draw_mt -> axpy_mt                (3 launches)
-//   exact: stats_mt -> gram -> gram_reduce -> exact_mt_draw -> axpy_mt (5)
+//   exact: stats_mt -> gram_i8 -> exact_mt_draw -> axpy_mt            (4)
 // The exact sweep is valid for complete genotypes and full phenotypes only
 // (the trait-shared integer Gram, standardized with trait 0's statistics
 // and n_real; hydra_tpu/samplers/bayesrrm_mt.py:748-749 gates it the same).
@@ -38,8 +38,9 @@
 // chain of W steps; its T traits draw in parallel threads, two barriers per
 // step. Speed is later work; this is the simple, right version.
 //
-// Determinism: no float atomics. Partials land in per-tile scratch and are
-// reduced in a fixed order, so equal inputs give bitwise-equal outputs.
+// Determinism: no float atomics (the Gram's are integer, exact in any
+// order). Partials land in per-tile scratch and are reduced in a fixed
+// order, so equal inputs give bitwise-equal outputs.
 
 #include <cstdint>
 
@@ -487,13 +488,12 @@ struct MtWorkspace {
     float* part_v;
     float* coef;
     float* gram;
-    float* gram_part;
+    int* gram_acc;        // gram_i8_kernel's accumulator and tickets
     size_t bytes;
 };
 
 inline MtWorkspace layout_mt(void* base, int nb, int W, int T, bool exact) {
     const size_t n_tiles = cdiv(nb, MT_STATS_TB);
-    const size_t n_chunks = cdiv(nb, GRAM_CB);
     const size_t wt = static_cast<size_t>(W) * T;
     size_t off = 0;
     MtWorkspace ws{};
@@ -509,7 +509,7 @@ inline MtWorkspace layout_mt(void* base, int nb, int W, int T, bool exact) {
     ws.coef = take(2 * wt);
     if (exact) {
         ws.gram = take(static_cast<size_t>(W) * W);
-        ws.gram_part = take(n_chunks * W * W);
+        ws.gram_acc = reinterpret_cast<int*>(take(gram_i8_acc_ints(W)));
     }
     ws.bytes = off;
     return ws;
@@ -524,20 +524,6 @@ inline size_t axpy_smem(int W, int T) {
 }
 
 inline int rec_threads(int W, int T) { return cdiv(W > T ? W : T, 32) * 32; }
-
-// Dynamic shared memory above the 48 KB default needs an opt-in per kernel.
-template <class F>
-inline cudaError_t allow_smem(F* kernel, size_t bytes) {
-    if (bytes <= 48 * 1024) return cudaSuccess;
-    return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                static_cast<int>(bytes));
-}
-
-#define HYDRA_CHECK(call)                                  \
-    do {                                                   \
-        cudaError_t e_ = (call);                           \
-        if (e_ != cudaSuccess) return static_cast<int>(e_); \
-    } while (0)
 
 int launch_axpy_mt(const uint8_t* pk, int nb, const int* order_w, int W, int T,
                    const float* coef, int add_c2, int complete, const float* tm,
@@ -562,32 +548,28 @@ int run_sweep_mt(bool exact, const uint8_t* pk, float* eps, const float* tm,
                  void* ws_base, int m_loc, int nb, int W, int K, int T, int complete,
                  cudaStream_t stream) {
     if (!shapes_ok_mt(nb, W, T) || m_loc <= 0 || m_loc % W || K < 2 || K > K_MAX ||
-        tm == nullptr || (exact && !complete))
+        tm == nullptr || (exact && !complete) || (exact && 4LL * nb > GRAM_I8_MAX_NPAD))
         return static_cast<int>(cudaErrorInvalidValue);
     const int C = T * (N_FIXED + 3 * K - 2);
     const MtWorkspace ws = layout_mt(ws_base, nb, W, T, exact);
     const int n_windows = m_loc / W;
     const int n_tiles = cdiv(nb, MT_STATS_TB);
-    const int n_chunks = cdiv(nb, GRAM_CB);
-    const int nt = cdiv(W, GRAM_TW);
     const int mode = !complete ? MODE_MISSING
                                : (exact ? MODE_EXACT_COMPLETE : MODE_STALE_COMPLETE);
     const dim3 stats_grid(n_tiles, cdiv(W, MT_STATS_ROWS));
-    const dim3 gram_grid(nt * nt, n_chunks);
     const size_t draw_smem = sizeof(float) * (static_cast<size_t>(T) * W + T_MAX + 3 * W);
-    if (exact) HYDRA_CHECK(allow_smem(exact_mt_draw_kernel, draw_smem));
+    if (exact) {
+        HYDRA_CHECK(allow_smem(exact_mt_draw_kernel, draw_smem));
+        HYDRA_CHECK(cudaMemsetAsync(ws.gram_acc, 0, sizeof(int) * gram_i8_acc_ints(W), stream));
+    }
     for (int w = 0; w < n_windows; ++w) {
         const int* order_w = order + static_cast<size_t>(w) * W;
         stats_mt_kernel<<<stats_grid, MT_STATS_ROWS * 32, 0, stream>>>(
             pk, nb, eps, T, order_w, W, mode, ws.part_s1, ws.part_s2, ws.part_v);
         HYDRA_CHECK_LAUNCH();
         if (exact) {
-            gram_kernel<true><<<gram_grid, dim3(32, 8), 0, stream>>>(
-                pk, nb, order_w, W, nullptr, nullptr, 0, 0, ws.gram_part);
-            HYDRA_CHECK_LAUNCH();
-            gram_reduce_kernel<<<cdiv(static_cast<long long>(W) * W, 256), 256, 0, stream>>>(
-                ws.gram_part, n_chunks, W, 1, ws.gram);
-            HYDRA_CHECK_LAUNCH();
+            const int err = launch_gram_i8(pk, nb, order_w, W, ws.gram_acc, ws.gram, stream);
+            if (err) return err;
             exact_mt_draw_kernel<<<1, rec_threads(W, T), draw_smem, stream>>>(
                 mrow, C, K, T, order_w, W, ws.part_s1, ws.part_s2, ws.part_v, n_tiles,
                 ws.gram, sc, out, ws.coef);

@@ -34,12 +34,12 @@ _SIGNATURES = {
     "sweep_kernel.cu": {
         "hydra_sweep_stale": ([_p] * 8 + [_i] * 5 + [_p], _i),
         "hydra_sweep_exact": ([_p] * 8 + [_i] * 5 + [_p], _i),
-        "hydra_sweep_workspace_bytes": ([_i] * 3, ctypes.c_longlong),
+        "hydra_sweep_workspace_bytes": ([_i] * 4, ctypes.c_longlong),
         "hydra_sweep_stale_sd": ([_p] * 8 + [_i] * 6 + [_p], _i),
         "hydra_sweep_sd_workspace_bytes": ([_i] * 3, ctypes.c_longlong),
         "hydra_window_stats": ([_p] * 10 + [_i] * 4 + [_p], _i),
         "hydra_window_gibbs": ([_p] * 14 + [_i] * 2 + [_p], _i),
-        "hydra_window_workspace_bytes": ([_i] * 3, ctypes.c_longlong),
+        "hydra_window_workspace_bytes": ([_i] * 4, ctypes.c_longlong),
         "hydra_sweep_error_string": ([_i], ctypes.c_char_p),
     },
     "sweep_kernel_bw.cu": {

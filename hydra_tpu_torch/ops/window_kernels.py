@@ -291,7 +291,8 @@ def window_stats(pk: torch.Tensor, eps: torch.Tensor, mave: torch.Tensor,
           if exact and complete else None)
     out = torch.empty((2, W), dtype=f32, device=dev)
     gram = torch.empty((W, W), dtype=f32, device=dev) if exact else None
-    ws = torch.empty(lib.hydra_window_workspace_bytes(nb, W, int(exact)),
+    ws = torch.empty(lib.hydra_window_workspace_bytes(nb, W, int(exact),
+                                                      int(complete)),
                      dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
         err = lib.hydra_window_stats(

@@ -53,10 +53,9 @@ def check_supported(opt: Options) -> None:
         missing.append("--dtype float64")
     # single-trait BayesRRm runs the per-window branch (--mega off, --cache-
     # planes on) and every W >= 1; BayesW runs every W >= 1 through its
-    # whole-sweep kernel
+    # whole-sweep kernel; BayesW and multi-trait ignore --cache-planes
+    # (note_ignored_flags)
     other = " with BayesW" if is_bw else mt
-    if (is_bw or opt.multi_phen) and opt.plane_cache == "on":
-        missing.append("--cache-planes on" + other)
     if opt.multi_phen and opt.window < MIN_WINDOW:
         missing.append(f"--window {opt.window}{mt} (below {MIN_WINDOW}: the "
                        "per-marker path; --stale defaults to --sync-rate, "
@@ -68,6 +67,15 @@ def check_supported(opt: Options) -> None:
         raise NotImplementedError(
             "not ported to hydra_tpu_torch yet: " + "; ".join(missing)
             + " — use python -m hydra_tpu.cli for these")
+
+
+def note_ignored_flags(opt: Options) -> None:
+    """The JAX runner passes --cache-planes to BayesRRm alone
+    (hydra_tpu/runner.py:392); BayesW and multi-trait ignore it, and say so
+    here."""
+    if opt.plane_cache == "on":
+        print("INFO   : --cache-planes on ignored (only single-trait BayesRRm "
+              "reads the int8 planes)", flush=True)
 
 
 def autosize_exact_window(opt: Options, n: int) -> None:
@@ -274,6 +282,7 @@ def run_bayesrrm_mt(opt: Options, verbose: bool = True) -> dict:
     hydra outputs ``<out>.t<k>.{csv,bet,cpn,acu,...}``, on ``opt.device``
     (hydra_tpu/runner.py:150-304 without restart and covariates)."""
     check_supported(opt)
+    note_ignored_flags(opt)
     device = _device(opt)
     ds, phenos = mt_dataset_from_options(opt)
     T = phenos.shape[0]
@@ -342,6 +351,7 @@ def run_bayesw(opt: Options, dataset: Optional[Dataset] = None,
                verbose: bool = True) -> dict:
     """BayesW chain with hydra-format outputs, on ``opt.device``."""
     check_supported(opt)
+    note_ignored_flags(opt)
     device = _device(opt)
     ds = dataset if dataset is not None else dataset_from_options(opt)
     sampler = BayesW(ds, window=opt.window, shuffle=bool(opt.shuffle_markers),

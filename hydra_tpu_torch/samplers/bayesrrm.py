@@ -315,9 +315,10 @@ class BayesRRm:
 
         cfg = self.cfg
         lib = _build.load()
+        exact, complete = int(cfg.exact), int(cfg.complete)
         workspace = max(
-            lib.hydra_sweep_workspace_bytes(nb, cfg.window, int(cfg.exact)),
-            lib.hydra_window_workspace_bytes(nb, cfg.window, int(cfg.exact)),
+            lib.hydra_sweep_workspace_bytes(nb, cfg.window, exact, complete),
+            lib.hydra_window_workspace_bytes(nb, cfg.window, exact, complete),
             lib.hydra_sweep_sd_workspace_bytes(nb, cfg.window,
                                                cfg.sub_window))
         rows = 2 if cfg.per_window else 1

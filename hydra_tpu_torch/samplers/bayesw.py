@@ -156,9 +156,11 @@ class BayesW:
         if schedule not in ("auto", "marker", "block"):
             raise ValueError(f"schedule must be auto/marker/block, "
                              f"got {schedule!r}")
-        # the whole-sweep kernel hosts every schedule on every device, so
-        # auto is block regardless of the device
-        schedule = "block" if schedule == "auto" else schedule
+        # auto follows the JAX sampler's rule (hydra_tpu/samplers/bayesw.py:
+        # 593-611): block where its whole-sweep kernel runs (W >= 8 or
+        # W = 1), marker otherwise; its TPU memory gates are not copied
+        if schedule == "auto":
+            schedule = "block" if window >= 8 or window == 1 else "marker"
         if schedule == "block":
             print("INFO   : BayesW block schedule (the whole-sweep kernel "
                   "reads windows in place; --schedule marker restores the "

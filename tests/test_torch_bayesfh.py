@@ -32,6 +32,10 @@ from hydra_tpu_torch.samplers.bayesrrm import (STATE_FIELDS, BayesRRm,
 
 from tests.test_bayesrrm import simulate
 
+# one intra-op thread: the suite runs in parallel worker processes, and
+# torch's default thread pool in each of them oversubscribes the CPU
+torch.set_num_threads(1)
+
 F32 = jnp.float32
 V0 = 3.0                     # v0L = v0t = v0c (the CLI defaults)
 

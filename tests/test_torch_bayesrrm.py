@@ -23,6 +23,10 @@ from hydra_tpu_torch.samplers.bayesrrm import (STATE_FIELDS, BayesRRm,
 
 from tests.test_bayesrrm import simulate
 
+# one intra-op thread: the suite runs in parallel worker processes, and
+# torch's default thread pool in each of them oversubscribes the CPU
+torch.set_num_threads(1)
+
 
 def _jax_sampler(ds, window, exact, seed):
     """The JAX block-schedule whole-sweep path, kernels in interpret mode."""

@@ -31,6 +31,10 @@ from hydra_tpu_torch.samplers.bayesrrm_mt import (STATE_FIELDS, BayesRRmMT,
 from tests.test_bayesrrm import _pack
 from tests.test_bayesrrm_mt import simulate_mt
 
+# one intra-op thread: the suite runs in parallel worker processes, and
+# torch's default thread pool in each of them oversubscribes the CPU
+torch.set_num_threads(1)
+
 
 def with_missing(ds, frac, seed):
     """The dataset with a fraction of genotypes set missing (stats

@@ -31,6 +31,10 @@ from hydra_tpu_torch.samplers.bayesw import (STATE_FIELDS, BayesW,
 from tests.test_bayesrrm import _pack
 from tests.test_bayesw import simulate_weibull
 
+# one intra-op thread: the suite runs in parallel worker processes, and
+# torch's default thread pool in each of them oversubscribes the CPU
+torch.set_num_threads(1)
+
 N_SHRINK = 24
 
 

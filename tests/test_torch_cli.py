@@ -3,6 +3,7 @@ whole-sweep and per-window branches, windows below 8, the single-decode
 stale sweep), BayesFH and BayesW, a run with JAX and the JAX package
 absent, and NotImplementedError for every path the port does not have."""
 
+import json
 import os
 import subprocess
 import sys
@@ -16,6 +17,10 @@ from hydra_tpu.outputs.restart import read_restart
 from hydra_tpu_torch import cli
 
 from tests.conftest import make_synthetic_bed
+
+# one intra-op thread: the suite runs in parallel worker processes, and
+# torch's default thread pool in each of them oversubscribes the CPU
+torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 M, N = 200, 500
@@ -212,7 +217,8 @@ def test_cli_runs_without_jax(bed, bw_bed, tmp_path):
             f"assert cli.main({['--device', 'cpu', *mt]!r}) == 0\n"
             f"sys.exit(cli.main({['--device', 'cpu', *_bw_argv(bw_bed, out)]!r}))\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
-                         capture_output=True, text=True, timeout=300)
+                         capture_output=True, text=True, timeout=300,
+                         env={**os.environ, "OMP_NUM_THREADS": "1"})
     assert res.returncode == 0, res.stderr[-3000:]
     assert "RESULT : it   10" in res.stdout
     assert "h2 per trait = [" in res.stdout
@@ -234,11 +240,47 @@ def test_cli_runs_without_jax(bed, bw_bed, tmp_path):
     ["--dtype", "float64"],
     ["--n-devices", "2"],
     ["--mpibayes", "bayesWMPI", "--mega", "off"],
-    ["--mpibayes", "bayesWMPI", "--cache-planes", "on"],
 ])
 def test_cli_unsupported_paths_raise(bed, tmp_path, extra):
     with pytest.raises(NotImplementedError, match="not ported"):
         cli.main(["--device", "cpu", *_argv(bed, tmp_path / "x"), *extra])
+
+
+def _rng_record(base):
+    with open(base + ".rng.0") as fh:
+        return json.load(fh)
+
+
+@pytest.mark.parametrize("kind", ["bayesw", "multi_trait"])
+def test_cli_cache_planes_is_ignored_outside_bayesrrm(bed, bw_bed, tmp_path,
+                                                      kind, capsys):
+    """BayesW and multi-trait BayesRRm run with --cache-planes on and say
+    that they ignore it, as the JAX CLI runs them (its runner passes the
+    flag to single-trait BayesRRm alone)."""
+    out = tmp_path / "out"
+    if kind == "bayesw":
+        argv, names = _bw_argv(bw_bed, out), ["bw"]
+    else:
+        argv = _mt_argv(bed, out, write_mt_phenos(bed, 2, 0.0, seed=9))
+        names = ["mt.t0", "mt.t1"]
+    assert cli.main(["--device", "cpu", *argv, "--cache-planes", "on"]) == 0
+    assert "INFO   : --cache-planes on ignored" in capsys.readouterr().out
+    for name in names:
+        assert len([ln for ln in open(out / f"{name}.csv") if ln.strip()]) == 3
+        assert _rng_record(str(out / name))["schedule"] == "block"
+
+
+@pytest.mark.parametrize("window,schedule", [(4, "marker"), (8, "block")])
+def test_cli_bayesw_auto_schedule_follows_jax(bw_bed, tmp_path, window,
+                                              schedule):
+    """--schedule auto resolves as the JAX sampler's rule: block where
+    its whole-sweep kernel runs (W >= 8 or W = 1), marker for 2 <= W <= 7;
+    .rng.0 records it."""
+    out = tmp_path / "out"
+    assert cli.main(["--device", "cpu", *_bw_argv(bw_bed, out, "--window",
+                                                  str(window))]) == 0
+    rng = _rng_record(str(out / "bw"))
+    assert rng["schedule"] == schedule and rng["window"] == window
 
 
 @pytest.mark.parametrize("extra,window,exact", [

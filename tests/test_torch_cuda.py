@@ -22,13 +22,17 @@ from hydra_tpu_torch.ops import sweep_kernel_bw as tskbw
 from hydra_tpu_torch.ops import window_kernels as twk
 from hydra_tpu_torch.ops.decode import hpack_bytes
 
+# one intra-op thread: the suite runs in parallel worker processes, and
+# torch's default thread pool in each of them oversubscribes the CPU
+torch.set_num_threads(1)
+
 K = 4
 
 
-def make_inputs(m, nb, seed, missing, n_pad_markers):
-    """Packed genotypes, residual, mask and mrow rows. The last 37
-    individuals are padding (missing-coded, eps = 0, mask = 0); pad markers
-    (all missing, act = 0) sit at random slots."""
+def make_inputs(m, nb, seed, missing, n_pad_markers, k=K):
+    """Packed genotypes, residual, mask and mrow rows of k mixture
+    components. The last 37 individuals are padding (missing-coded, eps =
+    0, mask = 0); pad markers (all missing, act = 0) sit at random slots."""
     rs = np.random.RandomState(seed)
     geno = rs.randint(0, 3, (m, 4 * nb))
     code = np.select([geno == 0, geno == 1, geno == 2],
@@ -46,16 +50,16 @@ def make_inputs(m, nb, seed, missing, n_pad_markers):
     eps[n:] = 0.0
     mask = np.zeros(4 * nb, np.float32)
     mask[:n] = 1.0
-    mrow = np.zeros((m, tsk.mrow_width(K)), np.float32)
+    mrow = np.zeros((m, tsk.mrow_width(k)), np.float32)
     mrow[:, 0] = rs.uniform(0.2, 1.8, m)                 # mave
     mrow[:, 1] = rs.uniform(0.8, 1.6, m)                 # mstd
     mrow[:, 2] = rs.randn(m) * 0.02                      # beta_old
     mrow[:, 3] = rs.uniform(0, 1, m)                     # u
     mrow[:, 4] = rs.randn(m)                             # nrm
     mrow[:, 5] = 1.0                                     # act
-    mrow[:, 6:6 + K] = np.log(rs.dirichlet(np.ones(K), m))
-    mrow[:, 6 + K:6 + 2 * K - 1] = rs.uniform(8e-4, 1.2e-3, (m, K - 1))
-    mrow[:, 6 + 2 * K - 1:] = rs.uniform(0.02, 0.04, (m, K - 1))
+    mrow[:, 6:6 + k] = np.log(rs.dirichlet(np.ones(k), m))
+    mrow[:, 6 + k:6 + 2 * k - 1] = rs.uniform(8e-4, 1.2e-3, (m, k - 1))
+    mrow[:, 6 + 2 * k - 1:] = rs.uniform(0.02, 0.04, (m, k - 1))
     mrow[pads, :3] = 0.0
     mrow[pads, 5] = 0.0
     return pk, eps, mask, mrow, n
@@ -101,18 +105,22 @@ def make_mt_inputs(m, nb, T, seed, missing, n_pad_markers, na_frac=0.0,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("window", [1, 20, 32, 33, 128, 256])
 @pytest.mark.parametrize("exact", [False, True])
 @pytest.mark.parametrize("missing", [False, True])
-def test_cuda_kernel_matches_plain(exact, missing):
+def test_cuda_kernel_matches_plain(exact, missing, window):
     """On the card: the CUDA kernel against its plain version, with the
-    same tolerances (f32 reduction order only), and bitwise-repeatable."""
+    same tolerances (f32 reduction order only), and bitwise-repeatable.
+    The windows cross the exact draw's 32-marker blocks (33: a ragged last
+    block) and the int8 Gram's 64-row tiles (128, 256)."""
     dev = _card()
-    pk, eps, mask, mrow, n = make_inputs(256, 256, 7, missing, 9)
+    m = window * max(4, 512 // window)
+    pk, eps, mask, mrow, n = make_inputs(m, 256, 7, missing, 9)
     t = [torch.from_numpy(a).to(dev) for a in (pk, eps, mrow, mask)]
     gen = torch.Generator(device=dev).manual_seed(0)
-    order = tsk.block_order(torch.randperm(256 // 32, generator=gen,
-                                           device=dev), 32)
-    kw = dict(window=32, n_mix=K, complete=not missing, ind_mask=t[3],
+    order = tsk.block_order(torch.randperm(m // window, generator=gen,
+                                           device=dev), window)
+    kw = dict(window=window, n_mix=K, complete=not missing, ind_mask=t[3],
               order=order)
     fn = tsk.sweep_exact if exact else tsk.sweep_stale
     ref = tsk.sweep_exact_ref if exact else tsk.sweep_stale_ref
@@ -124,6 +132,42 @@ def test_cuda_kernel_matches_plain(exact, missing):
     torch.testing.assert_close(e_k, e_r, atol=5e-4, rtol=1e-3)
     torch.testing.assert_close(o_k[:, 0], o_r[:, 0], atol=5e-4, rtol=1e-3)
     assert torch.equal(o_k[:, 1], o_r[:, 1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [33, 128])
+@pytest.mark.parametrize("n_mix", [2, 6, 12])
+def test_cuda_exact_draw_any_components(n_mix, window):
+    """The exact draw's register bound on K (4, 8, 16: one kernel each)
+    against the plain version with the mixture sizes the default K = 4
+    leaves out, through the sweep and through window_gibbs."""
+    from hydra_tpu_torch.ops import gibbs_kernel as tgk
+    dev = _card()
+    m = 4 * window
+    pk, eps, mask, mrow, n = (
+        torch.from_numpy(a).to(dev) if isinstance(a, np.ndarray) else a
+        for a in make_inputs(m, 256, 11, False, 5, k=n_mix))
+    kw = dict(window=window, n_mix=n_mix, complete=True, ind_mask=mask)
+    e_k, o_k = tsk.sweep_exact(pk, eps, mrow, 0.7, float(n - 1), **kw)
+    e_r, o_r = tsk.sweep_exact_ref(pk, eps, mrow, 0.7, float(n - 1), **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(e_k, e_r, atol=5e-4, rtol=1e-3)
+    torch.testing.assert_close(o_k[:, 0], o_r[:, 0], atol=5e-4, rtol=1e-3)
+    assert torch.equal(o_k[:, 1], o_r[:, 1])
+    # window_gibbs on the first window's rows and a correlation-like Gram
+    b = mrow[:window]
+    x = torch.randn(window, 512, generator=torch.Generator().manual_seed(3))
+    gram = (x @ x.T / 512).to(dev)
+    num0 = 30.0 * torch.randn(window, generator=torch.Generator().manual_seed(4))
+    cols = (b[:, 6:6 + n_mix], b[:, 6 + n_mix:5 + 2 * n_mix],
+            b[:, 5 + 2 * n_mix:], b[:, 3], b[:, 4], b[:, 5], b[:, 2])
+    args = [gram, num0.to(dev)] + [c.contiguous() for c in cols] + [0.7]
+    k_out = tgk.window_gibbs(*args)
+    r_out = tgk.window_gibbs_ref(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(k_out[2], r_out[2])
+    for a, r in zip(k_out, r_out):
+        torch.testing.assert_close(a.float(), r.float(), atol=5e-4, rtol=1e-3)
 
 
 def _card():
@@ -483,6 +527,37 @@ def test_cuda_window_path_kernels_match_plain(exact, missing):
     assert after["window_gibbs"] == before["window_gibbs"] + int(exact)
     for name in ("window_stats_planes", "window_axpy_planes"):
         assert after[name] == before[name] + int(complete and not exact)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [33, 128, 256])
+def test_cuda_complete_gram_is_exact(window):
+    """The complete-data Gram (int8 tensor cores, the individuals split
+    across blocks and summed by integer atomics) is bit for bit the plain
+    version's, standardized and raw, and the same on a second call (its
+    accumulator is left zeroed). Two sizes: the second has more
+    individuals, so more splits reach every tile."""
+    from hydra_tpu_torch.ops.decode import decode_planes_hp
+    dev = _card()
+    for nb in (256, 2048):
+        pk, eps, _, mrow, n = make_inputs(320, nb, 13, False, 4)
+        pk, eps, mrow = (torch.from_numpy(a).to(dev) for a in (pk, eps, mrow))
+        rows = torch.randperm(320, device=dev)[:window].to(torch.int32)
+        b = mrow[rows.long()]
+        args = (pk, eps, b[:, 0].contiguous(), b[:, 1].contiguous(), True,
+                True, float(n), rows)
+        got = twk.window_stats(*args)
+        again = twk.window_stats(*args)
+        want = twk.window_stats_ref(*args)
+        ones = torch.ones(window, device=dev)
+        raw = twk.window_stats(pk, eps, ones * 0.0, ones, True, True, 0.0,
+                               rows)[2]
+        torch.cuda.synchronize()
+        g = decode_planes_hp(pk[rows.long()])[0]
+        assert torch.equal(raw, g @ g.T)
+        assert torch.equal(got[2], again[2])
+        assert torch.equal(got[2], want[2])
+        assert torch.equal(got[0], want[0])
 
 
 @pytest.mark.cuda

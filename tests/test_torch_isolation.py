@@ -9,6 +9,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 import hydra_tpu.data.genotypes as jgeno
 import hydra_tpu.io.groups as jgroups
@@ -22,6 +23,10 @@ import hydra_tpu_torch.io.pheno as tpheno
 import hydra_tpu_torch.io.plink as tplink
 import hydra_tpu_torch.options as topt
 import hydra_tpu_torch.outputs.writers as twriters
+
+# one intra-op thread: the suite runs in parallel worker processes, and
+# torch's default thread pool in each of them oversubscribes the CPU
+torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -21,6 +21,10 @@ from hydra_tpu_torch.ops.decode import decode_planes, decode_planes_hp, hpack_by
 
 from tests.test_torch_cuda import K, make_inputs
 
+# one intra-op thread: the suite runs in parallel worker processes, and
+# torch's default thread pool in each of them oversubscribes the CPU
+torch.set_num_threads(1)
+
 CASES = [
     # (exact, missing, win_perm, pad markers, window)
     (False, False, True, 11, 32),

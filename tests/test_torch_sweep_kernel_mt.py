@@ -26,6 +26,10 @@ from hydra_tpu_torch.ops.sweep_kernel import block_order
 
 from tests.test_torch_cuda import K, make_mt_inputs
 
+# one intra-op thread: the suite runs in parallel worker processes, and
+# torch's default thread pool in each of them oversubscribes the CPU
+torch.set_num_threads(1)
+
 T = 3
 
 SWEEP_CASES = [

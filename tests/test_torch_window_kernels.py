@@ -18,6 +18,10 @@ from hydra_tpu.ops.window_kernels import deinterleave, interleave
 from hydra_tpu_torch.ops import window_kernels as twk
 from hydra_tpu_torch.ops.decode import decode_planes_hp, hpack_bytes
 
+# one intra-op thread: the suite runs in parallel worker processes, and
+# torch's default thread pool in each of them oversubscribes the CPU
+torch.set_num_threads(1)
+
 W, NB, N_PAD_IND = 16, 512, 37
 
 

@@ -46,6 +46,10 @@ from hydra_tpu_torch.samplers.bayesrrm import (STATE_FIELDS, BayesRRm,
 from tests.test_bayesrrm import simulate
 from tests.test_torch_cuda import make_inputs
 
+# one intra-op thread: the suite runs in parallel worker processes, and
+# torch's default thread pool in each of them oversubscribes the CPU
+torch.set_num_threads(1)
+
 M, NB = 24, 128          # kernel inputs: 24 rows of 512 individuals
 
 
