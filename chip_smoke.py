@@ -13,10 +13,16 @@ Phases, each printing its wall time:
      card at main-path shapes (M=4,096 x N=50,000, W=64 and 128, complete
      and missing genotypes, block window permutation; exact also at W=256
      and W=200, a window that is not a multiple of 32); bitwise
-     repeatability.
+     repeatability. At the main-path windows (stale 64, exact 128)
+     axpy_kernel is held bit for bit against the plain axpy replayed from
+     the kernel's own draws, and stats_kernel (through window_stats on the
+     first window's rows) against its plain version.
   2b. the BayesW kernels against their plain versions: sweep_stale_bw at
      M=4,096 x N=50,000, W=64 (complete and 2% missing) and at W=1 with
-     M=512; window_level_sums and window_axpy at W=64 x N=50,000.
+     M=512 (axpy_kernel<true> bit for bit the plain axpy replayed from the
+     sweep's draws); window_level_sums and window_axpy at W=64 x N=50,000
+     (window_axpy bit for bit but for the pad individuals of complete
+     data).
   3. the BayesRRm CLI end to end (``--mpibayes bayesMPI``) at M=10,000 x
      N=5,000, exact default then --stale, 50 iterations each; the sweep
      kernels' launch counts must move. One sweep of the CUDA sampler is
@@ -26,7 +32,9 @@ Phases, each printing its wall time:
      BayesW kernels' launch counts must move. One CUDA sweep is held
      against the CPU sampler with the same noise.
   4. real size M=100,000 x N=50,000 (1.25 GB of packed genotypes made on
-     the card): ms/sweep and markers/s, exact W=128 and stale W=64.
+     the card): ms/sweep and markers/s, exact W=128 and stale W=64; here
+     and in 4b, 4d and 4e each sweep's device us per window by kernel,
+     stats_kernel's and axpy_kernel's bounds per window and launches.
   4b. BayesW W=64 block at the same size, and W=1 at M=10,000 x N=5,000:
      ms/sweep, markers/s, per-kernel device time, host enqueue time.
 Multi-trait BayesRRm (T=4 traits):
@@ -47,8 +55,8 @@ BayesRRm's per-window branch (--mega off, --cache-planes on) and W < 8:
   2d. window_stats (W=128; exact and stale, complete and 2% missing),
      window_gibbs (W=128, on a real window's Gram), window_stats_planes and
      window_axpy_planes (W=64) against their plain versions at N=50,000,
-     bitwise repeatable; the planes kernels beside torch.mv on the cast
-     planes.
+     bitwise repeatable (window_stats' s1, s2 bit for bit); the planes
+     kernels beside torch.mv on the cast planes.
   3d. the CLI at M=10,000 x N=5,000, 20 iterations each: --mega off (exact
      W=64), --mega off --stale --window 64, --cache-planes on --stale
      --window 64 and --stale (W=1, the whole-sweep kernel on the marker
@@ -62,7 +70,8 @@ BayesFH (--mpibayes bayesFHMPI) and the single-decode stale sweep
 (HYDRA_TPU_SD, --stale --schedule marker):
   2e. sweep_stale_sd against its plain version at M=4,096 x N=50,000, W=64,
      sub-windows 64 and 16, complete and 2% missing, marker-schedule order;
-     bitwise repeatable; sweep_stale on the same inputs beside it.
+     bitwise repeatable; sweep_stale on the same inputs beside it (bit for
+     bit at sub-window 64).
   3e. the CLI at M=10,000 x N=5,000, 20 iterations each: BayesFH exact
      default, --stale --window 64 and --mega off; HYDRA_TPU_SD=16 --stale
      --window 64 --schedule marker for bayesMPI and bayesFHMPI; launch
@@ -243,10 +252,64 @@ def compare_outputs(torch, name, label, fn, ref, reps, tol, card, rec,
     return ms, plain_ms
 
 
+def check_axpy_bitwise(torch, label, e_k, replay, card):
+    """axpy_kernel's eps against the plain axpy replayed from the same
+    draws: must be equal bit for bit."""
+    same = torch.equal(e_k, replay)
+    print(f"  axpy_kernel through {label}: bit for bit the plain axpy "
+          f"replayed from the kernel's draws {same}  [{card}]", flush=True)
+    if not same:
+        raise AssertionError(f"axpy_kernel through {label} differs from its "
+                             "plain version")
+
+
+def check_stats_bitwise(torch, label, pk, eps, mrow, rows, exact, complete,
+                        n, card):
+    """stats_kernel's s1 and s2, through window_stats on the rows ``rows``,
+    against the plain version in the kernel's order: bit for bit (complete
+    stale data: but for pad rows, mstd = 0, whose 3*eps products the plain
+    version rounds and the kernel fuses)."""
+    from hydra_tpu_torch.ops import window_kernels as wk
+    b = mrow[rows.long()]
+    args = (pk, eps, b[:, 0].contiguous(), b[:, 1].contiguous(), exact,
+            complete, float(n), rows)
+    got, want = wk.window_stats(*args), wk.window_stats_ref(*args)
+    keep = b[:, 1] != 0.0 if complete and not exact else slice(None)
+    same = all(torch.equal(a[keep], r[keep]) for a, r in zip(got[:2], want[:2])
+               if r is not None)
+    print(f"  stats_kernel through {label}: s1, s2 bit for bit the plain "
+          f"version {same}  [{card}]", flush=True)
+    if not same:
+        raise AssertionError(f"stats_kernel through {label} differs from its "
+                             "plain version")
+
+
+def print_stream_bounds(W, nb, launches, stats=True, axpy=True,
+                        refresh=False, decode=False):
+    """The least time of one window's stats_kernel and axpy_kernel launches
+    (bytes: each reads the W packed rows once; stats eps once and writes
+    three per-tile partials a row, decode adds the crumbs, one byte an
+    individual and row; axpy reads eps and the mask and writes eps, refresh
+    adds the vi write; operations: one f32 multiply-add per genotype and
+    sum, far below), and their launches a sweep."""
+    n_pad, n_tiles = 4 * nb, -(-nb // 512)
+    st = bound(W * nb + 4 * n_pad + 12 * n_tiles * W + 4 * W
+               + (W * n_pad if decode else 0), {"f32": 4.0 * W * n_pad})
+    ax = bound(W * nb + 12 * n_pad + 4 * (3 * W + 1)
+               + (4 * n_pad if refresh else 0), {"f32": 4.0 * W * n_pad})
+    parts = ([f"stats_kernel{'<true>' if decode else ''} {1e3 * st[0]:.4f} "
+              f"us ({st[1]})"] if stats else []) + (
+        [f"axpy_kernel{'<true>' if refresh else ''} {1e3 * ax[0]:.4f} us "
+         f"({ax[1]})"] if axpy else [])
+    print(f"  bound per window (W={W}, nb={nb}): {', '.join(parts)}; "
+          f"{launches} launches a sweep each", flush=True)
+
+
 def phase_kernels(torch, sk, card):
     """Kernel vs plain version at main-path shapes (and exact at W=256
     and W=200)."""
     import numpy as np
+    from hydra_tpu_torch.ops import window_kernels as wk
     dev = torch.device("cuda")
     m, n = 4096, 50_000
     n_pad = padded_individuals(np, n)
@@ -307,6 +370,18 @@ def phase_kernels(torch, sk, card):
                 r = rec[name]
                 r["err"] = max(r["err"], d_eps, d_beta)
                 main_w = 128 if name == "sweep_exact" else 64
+                if window == main_w:
+                    mode = ("missing" if missing else
+                            "exact" if name == "sweep_exact" else "stale")
+                    check_axpy_bitwise(torch, f"{name} W={window}", e1,
+                                       wk.sweep_update_ref(pk_w, eps, mrow_w,
+                                                           o1[:, 3], order,
+                                                           window, mode,
+                                                           mask), card)
+                    check_stats_bitwise(torch, f"{name} W={window}", pk_w,
+                                        eps, mrow_w, order[:window],
+                                        name == "sweep_exact", not missing, n,
+                                        card)
                 if window == main_w and not missing:
                     r["ms"], r["plain_ms"] = ms, plain_ms
                     # packed rows, eps, mrow, order, mask in; eps, out out.
@@ -525,6 +600,13 @@ def profile_sweep(torch, sk, s, st, card):
                 f"W={cfg.window}"
                 + (f" Wt={cfg.sub_window}" if cfg.sub_window else ""),
                 cfg.n_windows * per_window, card, cfg.n_windows)
+    nb = s.packed.shape[1]
+    if cfg.sub_window:
+        # stats_kernel<true> a sub-window; the update is axpy_decoded_kernel
+        print_stream_bounds(cfg.sub_window, nb, cfg.n_windows * cfg.window
+                            // cfg.sub_window, axpy=False, decode=True)
+    else:
+        print_stream_bounds(cfg.window, nb, cfg.n_windows)
     if cfg.exact and cfg.complete:
         print_exact_bounds(cfg.window, s.packed.shape[1], mrow.shape[1])
 
@@ -682,6 +764,11 @@ def phase_bw_kernels(torch, np, card):
                                  "mismatches against the plain version")
         if used < 3:
             raise AssertionError("sweep_stale_bw: degenerate draws")
+        check_axpy_bitwise(torch, f"sweep_stale_bw W={window} {data}", e1,
+                           wk.sweep_update_ref(
+                               s.packed, st.eps, mrow, o1[:, 2], kw["order"],
+                               window, "stale" if cfg.complete else "missing",
+                               s.ind_mask), card)
         r = rec["sweep_stale_bw"]
         r["err"] = max(r["err"], d_eps, d_beta)
         n_pad, nb = cfg.n_pad, s.packed.shape[1]
@@ -728,6 +815,15 @@ def phase_bw_kernels(torch, np, card):
                   f"to plain {bitwise}  [{card}]", flush=True)
             for a, b in zip(k1, p1):
                 torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+            if name == "window_axpy":
+                # bit for bit but for the pad individuals' h = 3 products in
+                # complete data (the plain version rounds 3 c1; the caller
+                # masks them)
+                same = torch.equal(k1[0][:cfg.n_real], p1[0][:cfg.n_real])
+                if not same or (not complete
+                                and not torch.equal(k1[0], p1[0])):
+                    raise AssertionError("window_axpy differs from its plain "
+                                         "version")
             r = rec[name]
             r["err"] = max(r["err"], err)
             if complete:
@@ -864,6 +960,8 @@ def phase_bw_real_size(torch, np, card):
 
         profile_run(torch, run, f"BayesW W={window} M={m:,}",
                     cfg.n_windows * 3, card, cfg.n_windows)
+        print_stream_bounds(window, s.packed.shape[1], cfg.n_windows,
+                            stats=False, refresh=True)
         del s, st, vi, mrow
 
 
@@ -1273,6 +1371,9 @@ def phase_window_kernels(torch, np, card):
                 torch, "window_stats", f"W={W} {'exact' if exact else 'stale'}"
                 f" {data}", lambda: wk.window_stats(*args),
                 lambda: wk.window_stats_ref(*args), 20, stats_tol, card, rec)
+            check_stats_bitwise(torch, f"window_stats W={W} "
+                                f"{'exact' if exact else 'stale'} {data}", pk,
+                                eps, mrow, rows, exact, complete, n, card)
             if not (exact and complete):
                 continue
             r = rec["window_stats"]
@@ -1514,6 +1615,9 @@ def phase_window_real_size(torch, np, sk, card):
                             f"{label} W={window}",
                             f"{per}/window = {per * cfg.n_windows} CUDA-kernel"
                             + memset, card, cfg.n_windows)
+                if pc != "on":
+                    print_stream_bounds(window, s.packed.shape[1],
+                                        cfg.n_windows)
             del s, st
         del pk
 
@@ -1582,6 +1686,9 @@ def phase_sd_kernels(torch, np, sk, card):
             if n_comp:
                 raise AssertionError("sweep_stale_sd and sweep_stale disagree "
                                      "on components")
+            if wt == W and not same:
+                raise AssertionError("sweep_stale_sd at one sub-window a "
+                                     "window is not sweep_stale bit for bit")
             if wt == 16 and complete:
                 # the CLI main path's sub-window (phase 3e)
                 r = rec["sweep_stale_sd"]

@@ -26,14 +26,18 @@
 // the device (order[]), so a sweep never syncs with the host.
 //
 // What bounds it on this card: every window reads its W packed rows twice
-// (stats, axpy) plus once more in the exact Gram, all from HBM/L2, and the
-// exact draw is a serial chain of W steps in one block. The design keeps
-// the decode in registers (no decoded planes in memory), reads eps as one
-// float4 per packed byte, runs the complete-data Gram on the int8 tensor
-// cores in one launch (gram_i8_kernel, sweep_kernel.cuh) and the
-// recurrence warp-synchronously out of shared memory (exact_draw_kernel).
-// Launch overhead (3 launches per stale window, 4 per exact one with
-// complete data, 5 with missing) is left for a later change.
+// (stats, axpy) plus once more in the exact Gram, and the exact draw is a
+// serial chain of W steps in one block; each launch is a few dependent
+// memory round trips more than its bytes. The design keeps the decode in
+// registers (no decoded planes in memory); the stats pass stages each
+// 2,048-individual eps tile once per 16 rows and prefetches the next
+// window's rows to L2 (stats_kernel); the axpy runs a thread per individual
+// over a shared tile of the window's rows, every row's load in flight
+// (axpy_kernel, sweep_kernel.cuh); the complete-data Gram runs on the int8
+// tensor cores in one launch (gram_i8_kernel) and the recurrence
+// warp-synchronously out of shared memory (exact_draw_kernel). Launch
+// overhead (3 launches per stale window, 4 per exact one with complete
+// data, 5 with missing) is left for a later change.
 //
 // Determinism: no float atomics (the Gram's are integer, exact in any
 // order). Partial sums land in per-tile scratch and are reduced in a fixed
@@ -45,75 +49,188 @@
 
 namespace hydra {
 
-constexpr int STATS_TB = 512;      // packed bytes per stats block
-constexpr int STATS_ROWS = 8;      // rows per stats block (one per warp)
+constexpr int STATS_TB = 512;      // packed bytes a stats tile (128 words, 2,048 individuals)
+constexpr int STATS_WARPS = 8;     // warps a stats block
+constexpr int STATS_RPW = 2;       // rows a warp, their loads in flight together
+constexpr int STATS_THREADS = STATS_WARPS * 32;
+constexpr int STATS_STAGE = STATS_TB / STATS_THREADS;   // eps float4 a thread stages
 
+// a hint: bring the 128-byte line at p into L2
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+    asm volatile("prefetch.global.L2 [%0];" ::"l"(p));
+}
+
+// the staged eps tile's float4 f lives at swz(f): lane l's reads of its
+// word's four float4 (f = 4 (l + 32 j) + q) then fall in distinct banks
+__device__ __forceinline__ int swz(int f) { return f ^ ((f >> 3) & 3); }
 
 // ---------------------------------------------------------------- stats --
-// grid (n_tiles, ceil(W / STATS_ROWS)), 256 threads. Warp = one row of the
-// window over one tile of STATS_TB bytes; lane reads one 32-bit word (4
-// bytes = 16 individuals) per step. Partials go to part[tile * W + row].
+// Per-tile partials part[tile * W + r] of one window's rows r: s1 = sum
+// g*eps (complete stale data: sum h*eps), s2 = sum m*eps (complete data:
+// sum eps) and, exact complete data, v = sum g. Within a tile, lane l of a
+// warp adds its words l, l + 32, l + 64, l + 96 (16 individuals each)
+// individual by individual, then the warp's xor butterfly; the draw
+// kernels and window_stats_finish_kernel add the tiles in order.
+//
+// Bound: bytes, the W * nb packed bytes, eps once and the partials (1.84 MB
+// at W=128, N=50,000: 0.55 us at 3.35 TB/s). grid (tiles, ceil(W / rows a
+// block)); a block covers one tile for STATS_WARPS * STATS_RPW rows:
+//  - the tile's eps (8 KB) is read from memory once per block into shared
+//    memory, and each lane keeps its 64 values in registers for all of its
+//    warp's rows, so eps traffic falls by the rows a block, not per row;
+//  - a warp issues the packed words of its STATS_RPW rows together, before
+//    the block stages eps, so the order -> row loads and the eps loads are
+//    in flight at once; a block of a lone warp (W <= STATS_RPW) reads its
+//    eps straight into registers;
+//  - the window's rows are read here first, from HBM: each block prefetches
+//    its tile of the next window's rows to L2 (next_w, a hint), so the
+//    next stats pass finds them there;
+//  - complete data's s2 = sum eps is the same sum for every row: each warp
+//    adds it once, in the lane order above, and writes it for each row;
+//  - the crumbs decode a word at a time (geno_crumbs, the mask bits) and
+//    become floats by a byte permute into 2^23 + c and one subtraction
+//    (byte_float), not the quarter-rate integer conversion.
 // STORE (the single-decode sweep) also writes the row's crumbs, one byte
 // per individual, to dec[r * 4 * nb + i]: a word's 16 as one 16-byte store.
-template <bool STORE>
-__global__ void stats_kernel(const uint8_t* __restrict__ pk, int nb,
-                             const float* __restrict__ eps,
-                             const int* __restrict__ order_w, int W, int mode,
-                             float* __restrict__ part_s1,
-                             float* __restrict__ part_s2,
-                             float* __restrict__ part_v,
-                             uint8_t* __restrict__ dec) {
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int r = blockIdx.y * STATS_ROWS + warp;
-    if (r >= W) return;
+template <int MODE, bool STORE>
+__global__ void __launch_bounds__(STATS_THREADS)
+stats_kernel(const uint8_t* __restrict__ pk, int nb, const float* __restrict__ eps,
+             const int* __restrict__ order_w, const int* __restrict__ next_w, int W,
+             float* __restrict__ part_s1, float* __restrict__ part_s2,
+             float* __restrict__ part_v, uint8_t* __restrict__ dec) {
+    __shared__ __align__(16) float4 s_eps[STATS_TB];
     const int t = blockIdx.x;
-    const uint32_t* row = reinterpret_cast<const uint32_t*>(
-        pk + static_cast<size_t>(order_w[r]) * nb);
-    const float4* e4 = reinterpret_cast<const float4*>(eps);
     const int w0 = t * (STATS_TB / 4);
-    const int w1 = min(w0 + STATS_TB / 4, nb / 4);
-    float a = 0.f, b = 0.f;
-    int v = 0;
-    for (int wd = w0 + lane; wd < w1; wd += 32) {
-        const uint32_t word = row[wd];
-        if constexpr (STORE) {
-            reinterpret_cast<uint4*>(dec + static_cast<size_t>(r) * 4 * nb)[wd] =
-                make_uint4(spread_crumbs(word & 0xffu), spread_crumbs((word >> 8) & 0xffu),
-                           spread_crumbs((word >> 16) & 0xffu), spread_crumbs(word >> 24));
+    const int nw = min(STATS_TB / 4, nb / 4 - w0);     // a multiple of 32
+    const int nj = nw / 32;                              // words a lane, 1..4
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int r0 = (blockIdx.y * (blockDim.x >> 5) + warp) * STATS_RPW;
+    // the rows' packed words first: their two round trips (order, row) run
+    // while the block stages eps
+    uint32_t words[STATS_RPW][4];
+    if (r0 < W) {
+#pragma unroll
+        for (int p = 0; p < STATS_RPW; ++p) {
+            const int r = min(r0 + p, W - 1);
+            const uint32_t* row = reinterpret_cast<const uint32_t*>(
+                pk + static_cast<size_t>(order_w[r]) * nb) + w0 + lane;
+#pragma unroll
+            for (int j = 0; j < 4; ++j) words[p][j] = j < nj ? __ldg(row + 32 * j) : 0u;
         }
+    }
+    // the same rows' tile of the next window (the same block reads it
+    // there), to L2: lane 4p + l prefetches line l of row r0 + p
+    const int pr = r0 + (lane >> 2);
+    const int next_slot = next_w != nullptr && lane < 4 * STATS_RPW && pr < W &&
+                                  (lane & 3) < nj
+                              ? next_w[pr]
+                              : -1;
+    // a block of one warp (W <= STATS_RPW) reads its eps straight into
+    // registers; a whole block stages the tile once, all loads in flight
+    const float4* e4 = reinterpret_cast<const float4*>(eps) + 4 * w0;
+    const bool staged = blockDim.x == STATS_THREADS;
+    if (staged) {
+        float4 st[STATS_STAGE];
+#pragma unroll
+        for (int q = 0; q < STATS_STAGE; ++q) {
+            const int f = threadIdx.x + q * STATS_THREADS;
+            st[q] = f < 4 * nw ? __ldg(e4 + f) : make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+#pragma unroll
+        for (int q = 0; q < STATS_STAGE; ++q) s_eps[swz(threadIdx.x + q * STATS_THREADS)] = st[q];
+        __syncthreads();
+    }
+    if (r0 >= W) return;
+    if (next_slot >= 0)
+        prefetch_l2(pk + static_cast<size_t>(next_slot) * nb + 4 * w0 + 128 * (lane & 3));
+    float ev[4][16];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
-            const uint32_t byte = (word >> (8 * q)) & 0xffu;
-            const float4 e = e4[wd * 4 + q];
-            const float ek[4] = {e.x, e.y, e.z, e.w};
+            const int f = (lane + 32 * j) * 4 + q;
+            const float4 e = j >= nj ? make_float4(0.f, 0.f, 0.f, 0.f)
+                             : staged ? s_eps[swz(f)] : __ldg(e4 + f);
+            ev[j][4 * q] = e.x;
+            ev[j][4 * q + 1] = e.y;
+            ev[j][4 * q + 2] = e.z;
+            ev[j][4 * q + 3] = e.w;
+        }
+    float b_all = 0.f;
+    if (MODE != MODE_MISSING) {
 #pragma unroll
-            for (int k = 0; k < 4; ++k) {
-                const int c = crumb(byte, k);
-                if (mode == MODE_STALE_COMPLETE) {
-                    a = fmaf(static_cast<float>(c), ek[k], a);
-                    b += ek[k];
-                } else {
-                    const int m = crumb_mask(c);
-                    const int g = (2 - c) * m;
-                    a = fmaf(static_cast<float>(g), ek[k], a);
-                    if (mode == MODE_EXACT_COMPLETE) {
-                        b += ek[k];
-                        v += g;
-                    } else {
-                        b = fmaf(static_cast<float>(m), ek[k], b);
-                    }
-                }
+        for (int j = 0; j < 4; ++j) {
+            if (j < nj) {
+#pragma unroll
+                for (int i = 0; i < 16; ++i) b_all += ev[j][i];
             }
         }
+        b_all = warp_sum(b_all);
     }
-    a = warp_sum(a);
-    b = warp_sum(b);
-    if (mode == MODE_EXACT_COMPLETE) v = warp_sum(v);
-    if (lane == 0) {
-        part_s1[t * W + r] = a;
-        part_s2[t * W + r] = b;
-        if (mode == MODE_EXACT_COMPLETE) part_v[t * W + r] = static_cast<float>(v);
+#pragma unroll
+    for (int p = 0; p < STATS_RPW; ++p) {
+        const int r = r0 + p;
+        if (r >= W) break;
+        float a = 0.f, b = 0.f;
+        int v = 0;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+            if (j >= nj) break;
+            const uint32_t word = words[p][j];
+            if constexpr (STORE) {
+                uint4* drow = reinterpret_cast<uint4*>(dec + static_cast<size_t>(r) * 4 * nb);
+                drow[w0 + lane + 32 * j] =
+                    make_uint4(spread_crumbs(word & 0xffu), spread_crumbs((word >> 8) & 0xffu),
+                               spread_crumbs((word >> 16) & 0xffu), spread_crumbs(word >> 24));
+            }
+            // stale complete: the raw h; else the genotype crumbs. Crumb
+            // 4q + k (individual 16 wd + 4q + k) is byte q of crumbs_at(x, k)
+            const uint32_t x = MODE == MODE_STALE_COMPLETE ? word : geno_crumbs(word);
+            const uint32_t mbits = ~(word & (word >> 1)) & 0x55555555u;   // 1: not missing
+            uint32_t xs[4], ms[4];
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {
+                xs[k] = crumbs_at(x, k);
+                ms[k] = crumbs_at(mbits, k);
+            }
+#pragma unroll
+            for (int q = 0; q < 4; ++q)
+#pragma unroll
+                for (int k = 0; k < 4; ++k) {
+                    const float e = ev[j][4 * q + k];
+                    a = fmaf(byte_float(xs[k], q), e, a);
+                    if (MODE == MODE_MISSING) b = fmaf(byte_float(ms[k], q), e, b);
+                }
+            if (MODE == MODE_EXACT_COMPLETE)
+                v += __popc(x & 0x55555555u) + 2 * __popc(x & 0xaaaaaaaau);
+        }
+        a = warp_sum(a);
+        if (MODE == MODE_MISSING) b = warp_sum(b);
+        if (MODE == MODE_EXACT_COMPLETE) v = warp_sum(v);
+        if (lane == 0) {
+            part_s1[t * W + r] = a;
+            part_s2[t * W + r] = MODE == MODE_MISSING ? b : b_all;
+            if (MODE == MODE_EXACT_COMPLETE) part_v[t * W + r] = static_cast<float>(v);
+        }
     }
+}
+
+// One window's stats partials over its W rows order_w[0..W); STORE writes
+// the crumbs to dec (the single-decode sweep: stale or missing modes).
+template <bool STORE>
+inline int launch_stats(const uint8_t* pk, int nb, const float* eps, const int* order_w,
+                        const int* next_w, int W, int mode, float* part_s1, float* part_s2,
+                        float* part_v, uint8_t* dec, cudaStream_t stream) {
+    const int threads = W <= STATS_RPW ? 32 : STATS_THREADS;
+    const dim3 grid(cdiv(nb, STATS_TB), cdiv(W, STATS_WARPS * STATS_RPW));
+    auto* const kernel = mode == MODE_MISSING ? stats_kernel<MODE_MISSING, STORE>
+                         : mode == MODE_STALE_COMPLETE
+                             ? stats_kernel<MODE_STALE_COMPLETE, STORE>
+                             : stats_kernel<MODE_EXACT_COMPLETE, STORE>;
+    kernel<<<grid, threads, 0, stream>>>(pk, nb, eps, order_w, next_w, W, part_s1, part_s2,
+                                         part_v, dec);
+    HYDRA_CHECK_LAUNCH();
+    return 0;
 }
 
 // ----------------------------------------------------------- stale draw --
@@ -492,10 +609,7 @@ int run_sweep(bool exact, const uint8_t* pk, float* eps, const float* mrow,
     const int draw_threads = cdiv(W, 32) * 32;
     const int mode = !complete ? MODE_MISSING
                                : (exact ? MODE_EXACT_COMPLETE : MODE_STALE_COMPLETE);
-    const dim3 stats_grid(n_tiles, cdiv(W, STATS_ROWS));
     const dim3 gram_grid(nt * nt, n_chunks);
-    const int axpy_blocks = cdiv(nb, AXPY_THREADS);
-    const size_t axpy_smem = 3 * sizeof(float) * W;
     const size_t draw_smem = exact_draw_smem(W);
     auto* const draw = by_components(K, exact_draw_kernel<4, true>,
                                      exact_draw_kernel<8, false>,
@@ -508,13 +622,13 @@ int run_sweep(bool exact, const uint8_t* pk, float* eps, const float* mrow,
     }
     for (int w = 0; w < n_windows; ++w) {
         const int* order_w = order + static_cast<size_t>(w) * W;
-        stats_kernel<false><<<stats_grid, STATS_ROWS * 32, 0, stream>>>(
-            pk, nb, eps, order_w, W, mode, ws.part_s1, ws.part_s2, ws.part_v, nullptr);
-        HYDRA_CHECK_LAUNCH();
+        const int* next_w = w + 1 < n_windows ? order_w + W : nullptr;
+        int err = launch_stats<false>(pk, nb, eps, order_w, next_w, W, mode, ws.part_s1,
+                                      ws.part_s2, ws.part_v, nullptr, stream);
+        if (err) return err;
         if (exact) {
             if (complete) {
-                const int err = launch_gram_i8(pk, nb, order_w, W, ws.gram_acc, ws.gram,
-                                               stream);
+                err = launch_gram_i8(pk, nb, order_w, W, ws.gram_acc, ws.gram, stream);
                 if (err) return err;
             } else {
                 gram_kernel<<<gram_grid, dim3(32, 8), 0, stream>>>(
@@ -533,9 +647,9 @@ int run_sweep(bool exact, const uint8_t* pk, float* eps, const float* mrow,
                 sc, out, ws.coef);
         }
         HYDRA_CHECK_LAUNCH();
-        axpy_kernel<false><<<axpy_blocks, AXPY_THREADS, axpy_smem, stream>>>(
-            pk, nb, order_w, W, mode, ws.coef, mask, eps, nullptr, nullptr);
-        HYDRA_CHECK_LAUNCH();
+        err = launch_axpy<false>(pk, nb, order_w, W, mode, ws.coef, mask, eps, nullptr,
+                                 nullptr, stream);
+        if (err) return err;
     }
     return 0;
 }
@@ -555,13 +669,10 @@ int run_sweep(bool exact, const uint8_t* pk, float* eps, const float* mrow,
 //
 // Bound: bytes, W * NB packed bytes and 3 x 4 * NB * 4 of eps per window
 // (read by the stats, read and written by the axpy); two multiply-adds per
-// genotype are far below the f32 peak. The axpy of the two-phase sweep
-// runs a thread per packed byte, 12,500 threads at N=50,000 (3 warps an
-// SM), each decoding its byte of every row again: latency-bound. Here the
-// stats kernel writes the decoded crumbs to a scratch (3.2 MB at W=64 x
-// N=50,000, resident in the 50 MB L2) and the axpy runs a thread per
-// individual (4x the warps) that loads one decoded byte per row, with the
-// per-individual sum in the two-phase axpy's order. The TPU kernel's bf16
+// genotype are far below the f32 peak. The stats kernel writes the decoded
+// crumbs to a scratch (3.2 MB at W=64 x N=50,000, resident in the 50 MB
+// L2) and the axpy runs a thread per individual that loads one decoded
+// byte per row, with the per-individual sum in axpy_kernel's order. The TPU kernel's bf16
 // hi/lo split of c1/c2 (a matrix-unit device) is not carried over: the
 // update multiplies in f32. Launches stay per sub-window on one stream.
 //
@@ -647,16 +758,16 @@ int run_sweep_sd(const uint8_t* pk, float* eps, const float* mrow, const int* or
     const int n_windows = m_loc / W;
     const int n_tiles = cdiv(nb, STATS_TB);
     const int mode = complete ? MODE_STALE_COMPLETE : MODE_MISSING;
-    const dim3 stats_grid(n_tiles, cdiv(Wt, STATS_ROWS));
     const int draw_threads = cdiv(Wt, 32) * 32;
     const int axpy_blocks = cdiv(4LL * nb, AXPY_THREADS);
     const size_t coef_smem = 2 * sizeof(float) * Wt;
     for (int w = 0; w < n_windows; ++w) {
         for (int s = 0; s < n_sub; ++s) {
             const int* order_s = order + static_cast<size_t>(w) * W + s * Wt;
-            stats_kernel<true><<<stats_grid, STATS_ROWS * 32, 0, stream>>>(
-                pk, nb, eps, order_s, Wt, mode, ws.part_s1, ws.part_s2, nullptr, ws.dec);
-            HYDRA_CHECK_LAUNCH();
+            const int* next_s = w + 1 < n_windows || s + 1 < n_sub ? order_s + Wt : nullptr;
+            const int err = launch_stats<true>(pk, nb, eps, order_s, next_s, Wt, mode,
+                                               ws.part_s1, ws.part_s2, nullptr, ws.dec, stream);
+            if (err) return err;
             stale_draw_kernel<<<1, draw_threads, coef_smem, stream>>>(
                 mrow, C, K, order_s, Wt, ws.part_s1, ws.part_s2, n_tiles, complete, sc,
                 out, ws.coef);
@@ -761,9 +872,9 @@ int run_window_stats(const uint8_t* pk, const float* eps, const int* rows,
     const int n_tiles = cdiv(nb, STATS_TB);
     const int mode = !complete ? MODE_MISSING
                                : (exact ? MODE_EXACT_COMPLETE : MODE_STALE_COMPLETE);
-    stats_kernel<false><<<dim3(n_tiles, cdiv(W, STATS_ROWS)), STATS_ROWS * 32, 0, stream>>>(
-        pk, nb, eps, rows, W, mode, ws.part_s1, ws.part_s2, ws.part_v, nullptr);
-    HYDRA_CHECK_LAUNCH();
+    int err = launch_stats<false>(pk, nb, eps, rows, nullptr, W, mode, ws.part_s1,
+                                  ws.part_s2, ws.part_v, nullptr, stream);
+    if (err) return err;
     window_stats_finish_kernel<<<cdiv(W, 256), 256, 0, stream>>>(
         ws.part_s1, ws.part_s2, ws.part_v, n_tiles, W, mode, s1, s2, ws.v);
     HYDRA_CHECK_LAUNCH();
@@ -774,7 +885,7 @@ int run_window_stats(const uint8_t* pk, const float* eps, const int* rows,
         // per-window branch) besides the four kernels
         HYDRA_CHECK(cudaMemsetAsync(ws.gram_acc, 0, sizeof(int) * gram_i8_acc_ints(W),
                                     stream));
-        const int err = launch_gram_i8(pk, nb, rows, W, ws.gram_acc, gram, stream);
+        err = launch_gram_i8(pk, nb, rows, W, ws.gram_acc, gram, stream);
         if (err) return err;
         gram_standardize_kernel<<<ww_blocks, 256, 0, stream>>>(gram, W, mave, mstd,
                                                                ws.v, n_real);

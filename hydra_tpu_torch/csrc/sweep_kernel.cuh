@@ -381,9 +381,9 @@ __global__ void gram_reduce_kernel(const float* __restrict__ part, int n_chunks,
 }
 
 // ----------------------------------------------------------------- axpy --
-// eps[4b + k] += d_k with d = sum_r c1_r * g_r + c2_r * m_r over the window's
-// rows (coef = [c1[W], c2[W], cst]). One thread per packed byte (4
-// individuals) loops over the rows; the decode stays in registers.
+// eps[i] += d_i with d = sum_r c1_r * g_r + c2_r * m_r over the window's rows
+// (coef = [c1[W], c2[W], cst]), individual i's rows added in the order r =
+// 0..W-1 by one fmaf each (two for missing data):
 //   MODE_MISSING        d = sum c1*g + c2*m (pads decode to g = m = 0)
 //   MODE_STALE_COMPLETE d = (cst - sum c1*h) * mask, cst = 2 sum c1 + sum c2
 //   MODE_EXACT_COMPLETE d = (sum c1*g + cst) * mask,  cst = sum c2
@@ -391,67 +391,180 @@ __global__ void gram_reduce_kernel(const float* __restrict__ part, int n_chunks,
 // masks). REFRESH (BayesW) also rewrites vi = exp(alpha*eps' - EuMasc) *
 // mask in the same pass (BayesW.cpp:1832-1834; alpha = sc[0]; mask is
 // required then).
-template <bool REFRESH>
-__global__ void axpy_kernel(const uint8_t* __restrict__ pk, int nb,
-                            const int* __restrict__ order_w, int W, int mode,
-                            const float* __restrict__ coef,
-                            const float* __restrict__ mask,
-                            float* __restrict__ eps,
-                            float* __restrict__ vi,
-                            const float* __restrict__ sc) {
-    extern __shared__ float sh[];          // c1[W], c2[W], slot[W]
-    float* s_c1 = sh;
-    float* s_c2 = sh + W;
-    int* s_slot = reinterpret_cast<int*>(sh + 2 * W);
-    for (int i = threadIdx.x; i < W; i += blockDim.x) {
-        s_c1[i] = coef[i];
-        s_c2[i] = coef[W + i];
-        s_slot[i] = order_w[i];
-    }
-    __syncthreads();
-    const int b = blockIdx.x * blockDim.x + threadIdx.x;
-    if (b >= nb) return;
-    float acc[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int r = 0; r < W; ++r) {
-        const uint32_t byte = pk[static_cast<size_t>(s_slot[r]) * nb + b];
-        const float c1 = s_c1[r];
+//
+// Bound: bytes, the W * nb packed bytes, eps read and written and the mask
+// (2.21 MB at W=128, N=50,000: 0.66 us at 3.35 TB/s); the rows were just
+// read by the window's stats pass, so they come from L2. The design:
+//  - a thread per individual (AXPY_THREADS a block, 64 packed bytes of
+//    every row): 196 blocks at N=50,000, 1.5 an SM. Its eps and mask are
+//    loaded first, beside the rows.
+//  - every row's load in flight at once: the block copies its AXPY_ROWS x
+//    64-byte tile of packed rows to shared memory, four rows by four bytes
+//    a thread, behind one barrier; past AXPY_ROWS rows the next chunk's
+//    loads are issued before the current chunk is consumed. A window then
+//    costs two L2 round trips (order, rows), not W.
+//  - the tile is stored transposed (a 4 x 4 byte transpose in registers),
+//    so one shared word holds four consecutive rows of a packed byte: a
+//    thread reads it, shifts its crumbs to the bottom of each byte, and
+//    each row's crumb becomes a float by one byte permute into 2^23 + c
+//    and one subtraction (exact; no quarter-rate integer conversion), then
+//    the row's fmaf, with c1 read four rows at a time. The exact-mode tile
+//    holds genotype crumbs (geno_crumbs).
+//  - up to AXPY_DIRECT rows (W = 1 is the --stale and BayesW default) a
+//    thread reads its byte of each row straight from memory: no tile, no
+//    barrier.
+constexpr int AXPY_TB = AXPY_THREADS / 4;    // packed bytes a block
+constexpr int AXPY_ROWS = 128;               // rows of a shared tile chunk
+constexpr int AXPY_LDW = AXPY_ROWS / 4 + 1;  // words a tile column (a packed byte), padded
+constexpr int AXPY_DIRECT = 8;               // up to this W, no shared tile
+
+// byte q of x (a crumb 0..3) as a float, exactly: 2^23 + c - 2^23
+__device__ __forceinline__ float byte_float(uint32_t x, int q) {
+    return __int_as_float(__byte_perm(x, 0x4B000000u, 0x7540 | q)) - 8388608.0f;
+}
+
+// the four crumbs at bit 2k of each byte of a word, shifted to bits 0-1
+__device__ __forceinline__ uint32_t crumbs_at(uint32_t x, int k) {
+    return (x >> (2 * k)) & 0x03030303u;
+}
+
+template <bool REFRESH, int MODE>
+__global__ void __launch_bounds__(AXPY_THREADS)
+axpy_kernel(const uint8_t* __restrict__ pk, int nb, const int* __restrict__ order_w, int W,
+            const float* __restrict__ coef, const float* __restrict__ mask,
+            float* __restrict__ eps, float* __restrict__ vi,
+            const float* __restrict__ sc) {
+    extern __shared__ float4 sh_axpy[];    // c1[W4], c2[W4] (missing), zero past W
+    __shared__ uint32_t tile[AXPY_TB * AXPY_LDW];
+    const int W4 = (W + 3) & ~3;
+    float* s_c1 = reinterpret_cast<float*>(sh_axpy);
+    float* s_c2 = s_c1 + W4;
+    const int tid = threadIdx.x;
+    const int i = blockIdx.x * AXPY_THREADS + tid;
+    float e = eps[i];
+    const float m = mask != nullptr ? mask[i] : 1.f;
+    const int bt = tid >> 2;               // this thread's packed byte (column)
+    const int k = tid & 3;                 // and crumb
+    float acc = 0.f;
+    if (W <= AXPY_DIRECT) {
+        // few rows: the thread reads its byte of each row straight from
+        // memory, all loads in flight; no tile and no barrier
+        const uint8_t* col = pk + static_cast<size_t>(blockIdx.x) * AXPY_TB + bt;
+        uint32_t bytes[AXPY_DIRECT];
 #pragma unroll
-        for (int k = 0; k < 4; ++k) {
-            const int c = crumb(byte, k);
-            if (mode == MODE_STALE_COMPLETE) {
-                acc[k] = fmaf(c1, static_cast<float>(c), acc[k]);
-            } else if (mode == MODE_EXACT_COMPLETE) {
-                acc[k] = fmaf(c1, static_cast<float>(crumb_geno(c)), acc[k]);
+        for (int r = 0; r < AXPY_DIRECT; ++r)
+            bytes[r] = r < W ? __ldg(col + static_cast<size_t>(order_w[r]) * nb) : 0u;
+#pragma unroll
+        for (int r = 0; r < AXPY_DIRECT; ++r) {
+            if (r >= W) break;
+            const uint32_t c = (bytes[r] >> (2 * k)) & 3u;
+            // the genotype of crumb c is (0x6 >> 2c) & 3: 2, 1, 0, 0
+            if (MODE == MODE_MISSING) {
+                acc = fmaf(coef[r], byte_float((0x6u >> (2 * c)) & 3u, 0), acc);
+                acc = fmaf(coef[W + r], c == 3u ? 0.f : 1.f, acc);
             } else {
-                acc[k] = fmaf(c1, static_cast<float>(crumb_geno(c)), acc[k]);
-                acc[k] = fmaf(s_c2[r], static_cast<float>(crumb_mask(c)), acc[k]);
+                acc = fmaf(coef[r], byte_float(MODE == MODE_EXACT_COMPLETE
+                                                   ? (0x6u >> (2 * c)) & 3u : c, 0), acc);
+            }
+        }
+    } else {
+        for (int r = tid; r < W4; r += AXPY_THREADS) {
+            s_c1[r] = r < W ? coef[r] : 0.f;
+            if (MODE == MODE_MISSING) s_c2[r] = r < W ? coef[W + r] : 0.f;
+        }
+        // loader: word cw (bytes 4cw..4cw+3 of the block's 64) of rows 4rg..4rg+3
+        // and 64 + 4rg..
+        const int cw = tid & 15, rg = tid >> 4;
+        const uint8_t* base = pk + static_cast<size_t>(blockIdx.x) * AXPY_TB + 4 * cw;
+        uint32_t nx[2][4];
+        auto fetch = [&](int r0) {
+#pragma unroll
+            for (int g = 0; g < 2; ++g)
+#pragma unroll
+                for (int q = 0; q < 4; ++q) {
+                    const int r = r0 + 64 * g + 4 * rg + q;
+                    nx[g][q] = r < W ? __ldg(reinterpret_cast<const uint32_t*>(
+                                           base + static_cast<size_t>(order_w[r]) * nb))
+                                     : 0u;
+                }
+        };
+        fetch(0);
+        const uint32_t* col = tile + bt * AXPY_LDW;
+        for (int r0 = 0; r0 < W; r0 += AXPY_ROWS) {
+            __syncthreads();                   // coef staged; the last chunk consumed
+#pragma unroll
+            for (int g = 0; g < 2; ++g) {
+                // 4 x 4 byte transpose: t[c] = byte c of rows 4rg..4rg+3
+                const uint32_t lo01 = __byte_perm(nx[g][0], nx[g][1], 0x5140);
+                const uint32_t hi01 = __byte_perm(nx[g][0], nx[g][1], 0x7362);
+                const uint32_t lo23 = __byte_perm(nx[g][2], nx[g][3], 0x5140);
+                const uint32_t hi23 = __byte_perm(nx[g][2], nx[g][3], 0x7362);
+                const uint32_t t[4] = {
+                    __byte_perm(lo01, lo23, 0x5410), __byte_perm(lo01, lo23, 0x7632),
+                    __byte_perm(hi01, hi23, 0x5410), __byte_perm(hi01, hi23, 0x7632)};
+#pragma unroll
+                for (int c = 0; c < 4; ++c)
+                    tile[(4 * cw + c) * AXPY_LDW + 16 * g + rg] =
+                        MODE == MODE_EXACT_COMPLETE ? geno_crumbs(t[c]) : t[c];
+            }
+            __syncthreads();
+            if (r0 + AXPY_ROWS < W) fetch(r0 + AXPY_ROWS);
+            // rows past W hold 0 bytes and c1 = c2 = 0: fmaf adds an exact 0 to
+            // acc (never -0), so whole words of four rows change nothing
+            const int nwd = (min(AXPY_ROWS, W - r0) + 3) >> 2;
+            const float4* c1 = reinterpret_cast<const float4*>(s_c1 + r0);
+            const float4* c2 = reinterpret_cast<const float4*>(s_c2 + r0);
+#pragma unroll 4
+            for (int j = 0; j < nwd; ++j) {
+                const uint32_t w = col[j];
+                const float4 a = c1[j];
+                if (MODE == MODE_MISSING) {
+                    const uint32_t g = crumbs_at(geno_crumbs(w), k);
+                    const uint32_t mb = crumbs_at(~(w & (w >> 1)) & 0x55555555u, k);
+                    const float4 b = c2[j];
+                    acc = fmaf(a.x, byte_float(g, 0), acc);
+                    acc = fmaf(b.x, byte_float(mb, 0), acc);
+                    acc = fmaf(a.y, byte_float(g, 1), acc);
+                    acc = fmaf(b.y, byte_float(mb, 1), acc);
+                    acc = fmaf(a.z, byte_float(g, 2), acc);
+                    acc = fmaf(b.z, byte_float(mb, 2), acc);
+                    acc = fmaf(a.w, byte_float(g, 3), acc);
+                    acc = fmaf(b.w, byte_float(mb, 3), acc);
+                } else {
+                    // stale: the raw h; exact: the tile holds the genotype
+                    const uint32_t c = crumbs_at(w, k);
+                    acc = fmaf(a.x, byte_float(c, 0), acc);
+                    acc = fmaf(a.y, byte_float(c, 1), acc);
+                    acc = fmaf(a.z, byte_float(c, 2), acc);
+                    acc = fmaf(a.w, byte_float(c, 3), acc);
+                }
             }
         }
     }
-    float4* e4 = reinterpret_cast<float4*>(eps);
-    float4 e = e4[b];
-    const float4 m = mask != nullptr ? reinterpret_cast<const float4*>(mask)[b]
-                                     : make_float4(1.f, 1.f, 1.f, 1.f);
-    if (mode == MODE_MISSING) {
-        e.x += acc[0]; e.y += acc[1]; e.z += acc[2]; e.w += acc[3];
+    if (MODE == MODE_MISSING) {
+        e += acc;
     } else {
         const float cst = coef[2 * W];
-        float d[4];
-#pragma unroll
-        for (int k = 0; k < 4; ++k)
-            d[k] = mode == MODE_STALE_COMPLETE ? cst - acc[k] : acc[k] + cst;
-        e.x += d[0] * m.x; e.y += d[1] * m.y; e.z += d[2] * m.z; e.w += d[3] * m.w;
+        const float d = MODE == MODE_STALE_COMPLETE ? cst - acc : acc + cst;
+        e += d * m;
     }
-    e4[b] = e;
-    if (REFRESH) {
-        const float alpha = sc[0];
-        float4 v;
-        v.x = expf(__fsub_rn(__fmul_rn(alpha, e.x), EULER_MASCHERONI)) * m.x;
-        v.y = expf(__fsub_rn(__fmul_rn(alpha, e.y), EULER_MASCHERONI)) * m.y;
-        v.z = expf(__fsub_rn(__fmul_rn(alpha, e.z), EULER_MASCHERONI)) * m.z;
-        v.w = expf(__fsub_rn(__fmul_rn(alpha, e.w), EULER_MASCHERONI)) * m.w;
-        reinterpret_cast<float4*>(vi)[b] = v;
-    }
+    eps[i] = e;
+    if (REFRESH) vi[i] = expf(__fsub_rn(__fmul_rn(sc[0], e), EULER_MASCHERONI)) * m;
+}
+
+// One window's axpy over its W rows order_w[0..W) (nb a multiple of 128).
+template <bool REFRESH>
+inline int launch_axpy(const uint8_t* pk, int nb, const int* order_w, int W, int mode,
+                       const float* coef, const float* mask, float* eps, float* vi,
+                       const float* sc, cudaStream_t stream) {
+    auto* const kernel = mode == MODE_MISSING ? axpy_kernel<REFRESH, MODE_MISSING>
+                         : mode == MODE_STALE_COMPLETE
+                             ? axpy_kernel<REFRESH, MODE_STALE_COMPLETE>
+                             : axpy_kernel<REFRESH, MODE_EXACT_COMPLETE>;
+    kernel<<<nb / AXPY_TB, AXPY_THREADS, 2 * sizeof(float) * ((W + 3) & ~3), stream>>>(
+        pk, nb, order_w, W, coef, mask, eps, vi, sc);
+    HYDRA_CHECK_LAUNCH();
+    return 0;
 }
 
 }  // namespace hydra

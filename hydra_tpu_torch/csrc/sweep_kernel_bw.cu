@@ -21,7 +21,8 @@
 //                  in the same pass (BayesW.cpp:1642-1834).
 //
 // What bounds it on this card: each window reads its W packed rows twice
-// (levels, axpy) and vi and eps once each per pass, all from HBM/L2; the
+// (levels, axpy; the axpy a thread per individual over a shared tile of the
+// rows, sweep_kernel.cuh) and vi and eps once each per pass; the
 // draw is ~45 log-density evaluations (3 expm1f each) plus (K-1)*Q
 // quadrature nodes per marker on one block. At W=1 (exact sequential
 // BayesW) a sweep is 3 launches per marker and host enqueue bounds it;
@@ -332,8 +333,6 @@ int run_sweep_bw(const uint8_t* pk, float* eps, float* vi, const float* mrow,
     const int draw_threads = cdiv(W, 32) * 32;
     const size_t draw_smem = sizeof(float) * (2 * static_cast<size_t>(W) + 2 * Q);
     const int mode = complete ? MODE_STALE_COMPLETE : MODE_MISSING;
-    const int axpy_blocks = cdiv(nb, AXPY_THREADS);
-    const size_t axpy_smem = 3 * sizeof(float) * W;
     for (int w = 0; w < m_loc / W; ++w) {
         const int* order_w = order + static_cast<size_t>(w) * W;
         levels_launch(pk, nb, vi, order_w, W, complete, ws, stream);
@@ -343,9 +342,9 @@ int run_sweep_bw(const uint8_t* pk, float* eps, float* vi, const float* mrow,
             ws.part_all, n_tiles, complete, ghx, ghw, Q, sc, n_expand, n_shrink,
             out, ws.coef);
         HYDRA_CHECK_LAUNCH();
-        axpy_kernel<true><<<axpy_blocks, AXPY_THREADS, axpy_smem, stream>>>(
-            pk, nb, order_w, W, mode, ws.coef, mask, eps, vi, sc);
-        HYDRA_CHECK_LAUNCH();
+        const int err = launch_axpy<true>(pk, nb, order_w, W, mode, ws.coef, mask, eps, vi,
+                                          sc, stream);
+        if (err) return err;
     }
     return 0;
 }
@@ -407,14 +406,12 @@ int hydra_window_axpy(const void* pk, const void* order, const void* coef,
     using namespace hydra;
     if (window < 1 || window > 1024 || nb <= 0 || nb % 128)
         return static_cast<int>(cudaErrorInvalidValue);
-    axpy_kernel<false><<<cdiv(nb, AXPY_THREADS), AXPY_THREADS,
-                         3 * sizeof(float) * window, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint8_t*>(pk), nb, static_cast<const int*>(order), window,
-        complete ? MODE_STALE_COMPLETE : MODE_MISSING,
-        static_cast<const float*>(coef), nullptr, static_cast<float*>(out), nullptr,
-        nullptr);
-    HYDRA_CHECK_LAUNCH();
-    return 0;
+    return launch_axpy<false>(static_cast<const uint8_t*>(pk), nb,
+                              static_cast<const int*>(order), window,
+                              complete ? MODE_STALE_COMPLETE : MODE_MISSING,
+                              static_cast<const float*>(coef), nullptr,
+                              static_cast<float*>(out), nullptr, nullptr,
+                              static_cast<cudaStream_t>(stream));
 }
 
 const char* hydra_bw_error_string(int err) {

@@ -31,6 +31,9 @@ For CUDA tensors the wrappers launch the kernels (``window_stats``:
 the plain versions ``*_ref``. The same BayesW kernels run inside every
 window of ``sweep_stale_bw``, and ``launches`` counts them there as well.
 
+``sweep_update_ref`` replays a whole sweep's residual updates from its
+draws in axpy_kernel's order, the reference the sweeps' axpy is held to.
+
 The plain versions add in the kernels' order: the stats and level sums per
 512-byte tile, each of its 32 lanes sequentially over its words, then the
 warp's xor butterfly and the tiles in order; the axpy row by row; the
@@ -151,6 +154,50 @@ def axpy_rows(pk: torch.Tensor, c1: torch.Tensor, c2: torch.Tensor,
         acc = acc + c1[r] * g[r]
         acc = acc + c2[r] * m[r]
     return acc
+
+
+def lane_sum(x: torch.Tensor) -> torch.Tensor:
+    """sum(x) as exact_draw_kernel adds the complete-data axpy constant:
+    lane l adds x[l], x[l + 32], ... in order, then the xor butterfly."""
+    pad = -(-x.shape[0] // _LANES) * _LANES - x.shape[0]
+    acc = torch.zeros(_LANES, dtype=f32, device=x.device)
+    for r in torch.nn.functional.pad(x, (0, pad)).reshape(-1, _LANES):
+        acc = acc + r
+    lane = torch.arange(_LANES, device=x.device)
+    for off in (16, 8, 4, 2, 1):
+        acc = acc + acc[lane ^ off]
+    return acc[0]
+
+
+def sweep_update_ref(pk: torch.Tensor, eps: torch.Tensor, mrow: torch.Tensor,
+                     dbeta: torch.Tensor, order: torch.Tensor, window: int,
+                     mode: str, ind_mask: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
+    """eps after a whole sweep's residual updates, given every slot's dbeta
+    (the sweep's own draws): the plain version of the sweeps' axpy_kernel
+    in its order, per individual one step per row, with c1 = dbeta * mrow
+    column 1 and c2 = -c1 * mrow column 0 (BayesRRm's mstd and mave,
+    BayesW's inverse sd and mave). mode "missing": d = sum c1*g + c2*m;
+    "stale" (complete): d = (2 sum c1 + sum c2 - sum c1*h) * mask; "exact"
+    (complete): d = (sum c1*g + lane_sum(c2)) * mask. A sweep's eps held
+    to this bit for bit holds its axpy so."""
+    eps = eps.clone()
+    for w in range(order.shape[0] // window):
+        slots = order[w * window:(w + 1) * window].to(torch.int64)
+        c1 = dbeta[slots] * mrow[slots, 1]
+        c2 = -c1 * mrow[slots, 0]
+        if mode == "missing":
+            eps = eps + axpy_rows(pk[slots], c1, c2, False)
+        elif mode == "stale":
+            cst = 2.0 * seq_sum(c1) + seq_sum(c2)
+            eps = eps + (cst - axpy_rows(pk[slots], c1, c2, True)) * ind_mask
+        else:
+            g, _ = decode_planes_hp(pk[slots])
+            acc = torch.zeros_like(eps)
+            for r in range(window):
+                acc = acc + c1[r] * g[r]
+            eps = eps + (acc + lane_sum(c2)) * ind_mask
+    return eps
 
 
 def _window_rows(pk: torch.Tensor, rows: Optional[torch.Tensor]) -> torch.Tensor:

@@ -1,0 +1,127 @@
+#!/usr/bin/env python3
+"""Real-size timings of one or more checkouts of the PyTorch/CUDA port, in
+turn, on one CUDA card: each tree's own ``chip_smoke.py`` phases 4 (exact
+W=128 and stale W=64 block), 4e (BayesFH exact W=128, stale W=64 marker
+through the two-phase and single-decode sweeps) and 4b (BayesW W=64 and
+W=1), and the stale W=1 sweep at M=10,000 x N=5,000, each with its
+per-kernel device time from ``profile_sweep`` / ``profile_run``.
+
+Compare two versions inside one call, in turns, e.g. a ``git archive`` of
+the parent unpacked into a git-ignored directory beside this tree:
+
+    python3 scripts/chip_compare.py [--logs DIR] build/parent . . build/parent
+
+Each run goes to ``DIR/compare_<i>_<tree>.log`` (default ``build/compare``,
+git-ignored); a summary line per configuration (ms/sweep, CUDA-event
+ms/sweep, device ms and busy share, host enqueue, and the stats and axpy
+kernels' device us per window) is printed at the end.
+"""
+
+from __future__ import annotations
+
+import os
+import re
+import subprocess
+import sys
+
+# runs inside each tree (cwd), with that tree's chip_smoke.py and package
+PAYLOAD = r'''
+import os, sys, time
+sys.path.insert(0, os.getcwd())
+import numpy as np
+import torch
+import chip_smoke as c
+from hydra_tpu_torch.data.genotypes import (Dataset, GenotypeData,
+                                            make_default_groups)
+from hydra_tpu_torch.ops import sweep_kernel as sk
+from hydra_tpu_torch.samplers.bayesrrm import BayesRRm
+card = sys.argv[1]
+torch.backends.cuda.matmul.allow_tf32 = False
+c.phase_real_size(torch, np, sk, card)
+c.phase_sd_real_size(torch, np, sk, card)
+c.phase_bw_real_size(torch, np, card)
+dev = torch.device("cuda")
+m, n = 10_000, 5_000
+n_pad = c.padded_individuals(np, n)
+gen = torch.Generator(device=dev).manual_seed(2)
+pk, mave, mstd, nm = c.device_genotypes(torch, m, n, n_pad, gen)
+mh, sh = mave.cpu().numpy(), mstd.cpu().numpy()
+geno = GenotypeData(packed=np.zeros((0, n_pad // 4), np.uint8), n=n,
+                    n_pad=n_pad, m=m, mave=mh, mstd=sh, msd=1.0 / sh, n1=None,
+                    n2=None, nm=nm.cpu().numpy())
+groups, mS = make_default_groups(m, list(c.MS[1:]))
+ds = Dataset(geno=geno, y=np.random.RandomState(0).randn(n), groups=groups,
+             num_groups=1, mS=mS)
+s = BayesRRm(ds, window=1, exact=False, seed=1, device=dev, packed_device=pk)
+st = s.init_state()
+for it in range(2):
+    st, _ = s.step(st, it)
+torch.cuda.synchronize()
+t0 = time.perf_counter()
+for it in range(2, 5):
+    st, _ = s.step(st, it)
+torch.cuda.synchronize()
+print(f"real size M=10,000 x N=5,000 stale W=1 block: "
+      f"{(time.perf_counter() - t0) * 1e3 / 3:.2f} ms/sweep  [{card}]",
+      flush=True)
+c.profile_sweep(torch, sk, s, st, card)
+'''
+
+CONFIG = re.compile(r"real size (.*?): ([\d.,]+) ms/sweep")
+SWEEP = re.compile(r"host enqueue ([\d.]+) ms.*CUDA events ([\d.]+) ms/sweep; "
+                   r"profiler device time ([\d.]+) ms \(([\d.]+)% busy")
+KERNEL = re.compile(r"([\d.]+) us/window\s+void hydra::(stats|axpy)_kernel"
+                    r"(<[^>]*>)?")
+
+
+def summary(path):
+    """One line per configuration of a run's log."""
+    rows = []
+    with open(path) as fh:
+        for ln in fh:
+            m = CONFIG.search(ln)
+            if m:
+                rows.append(f"  {m.group(1)[:58]:58s} step {m.group(2)}")
+                continue
+            m = SWEEP.search(ln)
+            if m and rows:
+                rows[-1] += (f" events {m.group(2)} device {m.group(3)} "
+                             f"({m.group(4)}%) enqueue {m.group(1)}")
+                continue
+            m = KERNEL.search(ln)
+            if m and rows:
+                rows[-1] += f" {m.group(2)} {m.group(1)}"
+    return rows
+
+
+def main(argv) -> int:
+    logs_dir = "build/compare"
+    if argv[:1] == ["--logs"]:
+        logs_dir, argv = argv[1], argv[2:]
+    trees = argv or ["."]
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    out = os.path.abspath(logs_dir)
+    os.makedirs(out, exist_ok=True)
+    logs, rc = [], 0
+    for i, tree in enumerate(trees, 1):
+        name = os.path.basename(os.path.abspath(tree))
+        log = os.path.join(out, f"compare_{i}_{name}.log")
+        with open(log, "w") as fh:
+            r = subprocess.run([sys.executable, "-c", PAYLOAD, card],
+                               cwd=tree, stdout=fh, stderr=subprocess.STDOUT,
+                               timeout=900).returncode
+        print(f"tree {tree}: exit {r}, log {log}", flush=True)
+        rc = rc or r
+        logs.append((tree, log))
+    print(card)
+    for tree, log in logs:
+        print(f"{tree} ({os.path.basename(log)})")
+        print("\n".join(summary(log)))
+    return rc
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

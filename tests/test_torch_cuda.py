@@ -298,6 +298,12 @@ def test_cuda_window_kernels_match_plain(missing):
     for a, b in zip(sums_k, sums_r):
         if b is not None:
             torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    # the axpy repeats the plain version's steps: bit for bit, but for the
+    # pad individuals' h = 3 products in complete data (the plain version
+    # rounds 3 * c1, the kernel's fused multiply-add does not)
+    assert torch.equal(d_k[:n], d_r[:n])
+    if missing:
+        assert torch.equal(d_k, d_r)
     torch.testing.assert_close(d_k, d_r, rtol=1e-5, atol=1e-5)
 
 
@@ -684,3 +690,185 @@ def test_cuda_fh_and_sd_sweep_matches_cpu(kind, monkeypatch):
             np.testing.assert_allclose(b[f], a[f], rtol=1e-4, err_msg=f)
     np.testing.assert_array_equal(b["components"], a["components"])
     np.testing.assert_array_equal(sb.cass.cpu().numpy(), sa.cass.numpy())
+
+
+def _card_inputs(m, nb, missing, seed, dev, n_pad_markers=3):
+    """``make_inputs`` made on the card (numpy is too slow for 2,048 rows
+    of 50,176 individuals a case): h crumbs 0..2, 5% missing when
+    ``missing``, the last 37 individuals padding, up to ``n_pad_markers``
+    pad markers (a quarter of the rows at most; all missing, mave = mstd =
+    bold = act = 0), mave and mstd the markers' own (BayesRRm.cpp:
+    1502-1508), so the draws stay finite at any width. Returns (pk, eps,
+    mask, mrow, n, pads)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n = 4 * nb - 37
+    h = torch.randint(0, 3, (m, 4 * nb), generator=g, device=dev,
+                      dtype=torch.uint8)
+    if missing:
+        h[torch.rand((m, 4 * nb), generator=g, device=dev) < 0.05] = 3
+    h[:, n:] = 3
+    pads = torch.randperm(m, generator=g, device=dev)[
+        :min(n_pad_markers, m // 4)]
+    h[pads] = 3
+    h4 = h.view(m, nb, 4)
+    pk = (h4[..., 0] | (h4[..., 1] << 2) | (h4[..., 2] << 4)
+          | (h4[..., 3] << 6)).contiguous()
+    eps = torch.randn(4 * nb, generator=g, device=dev)
+    eps[n:] = 0.0
+    mask = torch.zeros(4 * nb, device=dev)
+    mask[:n] = 1.0
+
+    def unif(lo, hi, *shape):
+        return lo + (hi - lo) * torch.rand(shape, generator=g, device=dev)
+
+    real = (h[:, :n] != 3).double()
+    gv = (2.0 - h[:, :n].double()) * real
+    mave = gv.sum(1) / real.sum(1).clamp(min=1.0)
+    var = (((gv - mave[:, None]) * real) ** 2).sum(1)
+    mstd = torch.sqrt((n - 1) / var.clamp(min=1.0))
+    p = unif(0.05, 1.0, m, K)
+    mrow = torch.cat([mave.float()[:, None], mstd.float()[:, None],
+                      0.02 * torch.randn((m, 1), generator=g, device=dev),
+                      unif(0.0, 1.0, m, 1),
+                      torch.randn((m, 1), generator=g, device=dev),
+                      torch.ones((m, 1), device=dev),
+                      torch.log(p / p.sum(1, keepdim=True)),
+                      unif(8e-4, 1.2e-3, m, K - 1),
+                      unif(0.02, 0.04, m, K - 1)], dim=1).contiguous()
+    mrow[pads, :3] = 0.0
+    mrow[pads, 5] = 0.0
+    return pk, eps, mask, mrow, n, pads
+
+
+def _bw_card_sampler(m, nb, missing, window, seed, dev):
+    """A BayesW sampler (block schedule, K=4, Q=9) on ``_card_inputs``'s
+    genotypes without pad markers, with their own marker statistics."""
+    from hydra_tpu_torch.data.genotypes import (Dataset, GenotypeData,
+                                                make_default_groups)
+    from hydra_tpu_torch.ops.decode import crumbs
+    from hydra_tpu_torch.samplers.bayesw import BayesW
+    pk, _, _, _, n, _ = _card_inputs(m, nb, missing, seed, dev, 0)
+    c = crumbs(pk)[:, :n].double()
+    real = (c != 3).double()
+    gv = (2.0 - c) * real
+    mave = gv.sum(1) / real.sum(1)
+    var = (((gv - mave[:, None]) * real) ** 2).sum(1)
+    mstd = torch.sqrt((n - 1) / var)
+    mave_h, mstd_h = mave.cpu().numpy(), mstd.cpu().numpy()
+    geno = GenotypeData(packed=np.zeros((0, nb), np.uint8), n=n,
+                        n_pad=4 * nb, m=m, mave=mave_h, mstd=mstd_h,
+                        msd=1.0 / mstd_h, n1=None, n2=None,
+                        nm=(n - real.sum(1)).cpu().numpy())
+    groups, mS = make_default_groups(m, [0.001, 0.01, 0.1])
+    rs = np.random.RandomState(seed)
+    y = 4.0 + (np.log(rs.exponential(1.0, n)) + 0.5772) / 8.0
+    ds = Dataset(geno=geno, y=y, groups=groups, num_groups=1, mS=mS,
+                 fail=(rs.random_sample(n) > 0.1).astype(np.float64))
+    return BayesW(ds, window=window, seed=seed, quad_points=9, device=dev,
+                  packed_device=pk)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("missing", [False, True])
+@pytest.mark.parametrize("nb", [128, 640, 12544])
+@pytest.mark.parametrize("window", [1, 7, 64, 128, 200, 1024])
+@pytest.mark.parametrize("path", ["window_axpy", "window_stats",
+                                  "sweep_stale", "sweep_exact",
+                                  "sweep_stale_sd", "sweep_stale_bw"])
+def test_cuda_stream_kernels_bitwise(path, window, nb, missing):
+    """axpy_kernel and stats_kernel (each instantiation) bit for bit their
+    plain versions, and bitwise repeatable, through every entry point that
+    launches them. The windows cross the axpy's 128-row shared tile (200,
+    1024) and the stats' 16-row blocks (7, 200); nb = 128 is the smallest
+    width the kernels take, 640 ends in half a 512-byte tile, 12,544 is
+    N=50,000 (24.5 tiles). window_axpy and window_stats against their plain
+    versions (complete data: but the pad individuals' and pad rows' h = 3
+    products, which the plain version rounds and the kernel fuses); the
+    sweeps' eps against the plain axpy replayed from the kernel's own
+    draws; sweep_stale_sd (stats_kernel<true>) at a sub-window of the whole
+    window against sweep_stale."""
+    dev = _card()
+    complete = not missing
+    m = 2 * window
+    if path == "sweep_stale_bw":
+        s = _bw_card_sampler(m, nb, missing, window, 5, dev)
+        st = s.init_state()
+        st.pi_l = torch.tensor([[0.5, 0.2, 0.2, 0.1]], device=dev)
+        vi = torch.exp(st.alpha * st.eps - tskbw.EULER_MASCHERONI) * s.ind_mask
+        mrow = s.build_mrow(st, st.alpha, s.slot_noise(0))
+        order = s.sweep_order(0)
+        args = (s.packed, st.eps, vi, mrow, s.gh_x, s.gh_w, st.alpha)
+        kw = dict(window=window, n_mix=4, complete=s.cfg.complete,
+                  ind_mask=s.ind_mask, order=order)
+        assert s.cfg.complete == complete
+        e_k, o_k = tskbw.sweep_stale_bw(*args, **kw)
+        e_k2, o_k2 = tskbw.sweep_stale_bw(*args, **kw)
+        e_r = twk.sweep_update_ref(s.packed, st.eps, mrow, o_k[:, 2], order,
+                                   window, "stale" if complete else "missing",
+                                   s.ind_mask)
+        torch.cuda.synchronize()
+        assert torch.equal(e_k, e_k2) and torch.equal(o_k, o_k2)
+        assert torch.equal(e_k, e_r)
+        return
+    pk, eps, mask, mrow, n, pads = _card_inputs(m, nb, missing, 7, dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    rows = torch.randperm(m, generator=gen, device=dev)[:window].to(
+        torch.int32)
+    if path == "window_axpy":
+        c1 = 0.05 * torch.randn(window, generator=gen, device=dev)
+        c1[mrow[rows.long(), 1] == 0.0] = 0.0       # pad rows: mstd = 0
+        c2 = -c1 * mrow[rows.long(), 0]
+        d_k = twk.window_axpy(pk, c1, c2, complete, rows)
+        d_k2 = twk.window_axpy(pk, c1, c2, complete, rows)
+        d_r = twk.window_axpy_ref(pk, c1, c2, complete, rows)
+        torch.cuda.synchronize()
+        assert torch.equal(d_k, d_k2)
+        assert torch.equal(d_k[:n], d_r[:n])
+        if missing:
+            assert torch.equal(d_k, d_r)
+        return
+    if path == "window_stats":
+        b = mrow[rows.long()]
+        real = b[:, 1] != 0.0                       # not a pad row
+        for exact in ((False, True) if complete else (False,)):
+            args = (pk, eps, b[:, 0].contiguous(), b[:, 1].contiguous(),
+                    exact, complete, float(n), rows)
+            got = twk.window_stats(*args)
+            again = twk.window_stats(*args)
+            want = twk.window_stats_ref(*args)
+            torch.cuda.synchronize()
+            for a, a2, r in zip(got[:2], again[:2], want[:2]):
+                assert (a is None) == (r is None)
+                if r is None:
+                    continue
+                assert torch.equal(a, a2)
+                if complete and not exact:
+                    assert torch.equal(a[real], r[real])
+                else:
+                    assert torch.equal(a, r)
+        return
+    order = tsk.block_order(torch.randperm(2, generator=gen, device=dev),
+                            window)
+    kw = dict(window=window, n_mix=K, complete=complete,
+              ind_mask=mask if complete else None, order=order)
+    if path == "sweep_stale_sd":
+        e_k, o_k = tsk.sweep_stale_sd(pk, eps, mrow, 0.7, float(n - 1),
+                                      sub_window=window, **kw)
+        e_k2, o_k2 = tsk.sweep_stale_sd(pk, eps, mrow, 0.7, float(n - 1),
+                                        sub_window=window, **kw)
+        e_s, o_s = tsk.sweep_stale(pk, eps, mrow, 0.7, float(n - 1), **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(e_k, e_k2) and torch.equal(o_k, o_k2)
+        assert torch.equal(e_k, e_s) and torch.equal(o_k, o_s)
+        return
+    exact = path == "sweep_exact"
+    fn = tsk.sweep_exact if exact else tsk.sweep_stale
+    e_k, o_k = fn(pk, eps, mrow, 0.7, float(n - 1), **kw)
+    e_k2, o_k2 = fn(pk, eps, mrow, 0.7, float(n - 1), **kw)
+    mode = "missing" if missing else ("exact" if exact else "stale")
+    e_r = twk.sweep_update_ref(pk, eps, mrow, o_k[:, 3], order, window, mode,
+                               mask)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(e_k).all()) and bool(torch.isfinite(o_k).all())
+    assert torch.equal(e_k, e_k2) and torch.equal(o_k, o_k2)
+    assert torch.equal(e_k, e_r)

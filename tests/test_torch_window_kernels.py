@@ -1,11 +1,17 @@
-"""Port BayesW window kernels vs the JAX Pallas kernels (interpret mode, CPU).
+"""Port window kernels vs the JAX Pallas kernels (interpret mode, CPU).
 
 The same numpy inputs go through ``hydra_tpu.ops.window_kernels``
-(plane-major vi and output, ``interpret=True``, as
+(plane-major vi, eps and output, ``interpret=True``, as
 tests/test_window_kernels.py runs them) and the port's plain versions,
-which the wrappers take for CPU tensors. W=16, NB=512, complete and missing
-genotypes; the last 37 individuals are padding (missing-coded, vi = 0).
-Tolerance rtol 1e-5, atol 1e-5 (f32 summation order differs).
+which the wrappers take for CPU tensors (the CUDA kernels are held to
+these bit for bit on the card). W=16, NB=512, complete and missing
+genotypes; the axpy and the stats also at the CUDA kernels' geometry edges,
+W in {1, 7, 16, 40} (the stats' 16-row blocks and the axpy's 4-row words
+cut mid-way) and NB in {128, 512, 640} (the smallest width, one 512-byte
+stats tile, one and a quarter). The last 37 individuals are padding
+(missing-coded, vi = eps = 0). Tolerance rtol 1e-5, atol 1e-5 (f32
+summation order differs); the stats atol 1e-4 (sums of up to 2,523 terms
+of size ~1).
 """
 
 import jax.numpy as jnp
@@ -23,24 +29,32 @@ from hydra_tpu_torch.ops.decode import decode_planes_hp, hpack_bytes
 torch.set_num_threads(1)
 
 W, NB, N_PAD_IND = 16, 512, 37
+GEOMETRY = [(w, nb) for w in (1, 7, 16, 40) for nb in (128, 512, 640)]
 
 
-def _inputs(missing, seed):
+def _geometry_params():
+    """(missing, w, nb) cases; W=16, NB=512 keeps its original id."""
+    return [pytest.param(missing, w, nb, id=str(missing) if (w, nb) == (W, NB)
+                         else f"{missing}-W{w}-NB{nb}")
+            for missing in (False, True) for w, nb in GEOMETRY]
+
+
+def _inputs(missing, seed, w=W, nb=NB):
     rs = np.random.RandomState(seed)
-    geno = rs.randint(0, 3, (W, 4 * NB))
+    geno = rs.randint(0, 3, (w, 4 * nb))
     code = np.select([geno == 0, geno == 1, geno == 2],
                      [0b11, 0b10, 0b00]).astype(np.uint8)
     if missing:
         code[rs.random_sample(code.shape) < 0.05] = 0b01
-    n = 4 * NB - N_PAD_IND
+    n = 4 * nb - N_PAD_IND
     code[:, n:] = 0b01
     pk = hpack_bytes((code[:, 0::4] | (code[:, 1::4] << 2)
                       | (code[:, 2::4] << 4) | (code[:, 3::4] << 6)
                       ).astype(np.uint8))
-    vi = (np.abs(rs.randn(4 * NB)) + 0.1).astype(np.float32)
+    vi = (np.abs(rs.randn(4 * nb)) + 0.1).astype(np.float32)
     vi[n:] = 0.0
-    c1 = (rs.randn(W) * 0.05).astype(np.float32)
-    c2 = (rs.randn(W) * 0.05).astype(np.float32)
+    c1 = (rs.randn(w) * 0.05).astype(np.float32)
+    c2 = (rs.randn(w) * 0.05).astype(np.float32)
     return pk, vi, c1, c2
 
 
@@ -68,9 +82,9 @@ def test_level_sums_match_jax(missing):
                                rtol=1e-5)
 
 
-@pytest.mark.parametrize("missing", [False, True])
-def test_axpy_matches_jax(missing):
-    pk, _, c1, c2 = _inputs(missing, 5)
+@pytest.mark.parametrize("missing,w,nb", _geometry_params())
+def test_axpy_matches_jax(missing, w, nb):
+    pk, _, c1, c2 = _inputs(missing, 5, w, nb)
     d_j = interleave(jwk.window_axpy(jnp.asarray(pk), jnp.asarray(c1),
                                      jnp.asarray(c2), interpret=True,
                                      complete=not missing))
@@ -80,6 +94,41 @@ def test_axpy_matches_jax(missing):
     assert twk.launches == before
     np.testing.assert_allclose(d_t.numpy(), np.asarray(d_j), rtol=1e-5,
                                atol=1e-5)
+
+
+@pytest.mark.parametrize("missing,w,nb", _geometry_params())
+@pytest.mark.parametrize("exact", [False, True])
+def test_stats_match_jax(exact, missing, w, nb):
+    """The stats kernel's sums (s1, and s2 for missing data) of rows read in
+    place through ``rows`` (three pad rows of 2w + 3 in the pool), against
+    the JAX window_stats of the gathered rows; exact adds the Gram, which
+    the complete-data integer Gram gives to rounding of its correction
+    (atol 1e-3) and missing data to the JAX bf16 hi/lo split (atol 2e-2,
+    tests/test_torch_window_path.py)."""
+    rs = np.random.RandomState(11)
+    pool, _, _, _ = _inputs(missing, 7, 2 * w + 3, nb)
+    pool[rs.choice(2 * w + 3, 3, replace=False)] = 0xFF
+    rows = rs.choice(2 * w + 3, w, replace=False).astype(np.int32)
+    n = 4 * nb - N_PAD_IND
+    eps = rs.randn(4 * nb).astype(np.float32)
+    eps[n:] = 0.0
+    mave = rs.uniform(0.2, 1.8, w).astype(np.float32)
+    mstd = rs.uniform(0.8, 1.6, w).astype(np.float32)
+    complete = not missing
+    before = dict(twk.launches)
+    got = twk.window_stats(torch.from_numpy(pool), torch.from_numpy(eps),
+                           torch.from_numpy(mave), torch.from_numpy(mstd),
+                           exact, complete, float(n), torch.from_numpy(rows))
+    assert twk.launches == before
+    want = jwk.window_stats(jnp.asarray(pool[rows]),
+                            deinterleave(jnp.asarray(eps)), jnp.asarray(mave),
+                            jnp.asarray(mstd), exact, interpret=True,
+                            complete=complete, n_real=float(n))
+    for a, b, atol in zip(got, want, (1e-4, 1e-4, 1e-3 if complete else 2e-2)):
+        assert (a is None) == (b is None)
+        if b is not None:
+            np.testing.assert_allclose(a.numpy(), np.asarray(b).reshape(
+                a.shape), rtol=1e-5, atol=atol)
 
 
 def test_tile_sums_cover_partial_tiles():
