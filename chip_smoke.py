@@ -41,7 +41,9 @@ Multi-trait BayesRRm (T=4 traits):
   2c. sweep_stale_mt (W=64) and sweep_exact_mt (W=128) against their plain
      versions at M=4,096 x N=50,000 with full phenotypes, sweep_stale_mt
      with 2% missing genotypes and 10% NaN per trait; window_stats_mt,
-     window_axpy_mt and mt_window_recurrence at W=128 with and without NaN.
+     window_axpy_mt and mt_window_recurrence at W=128 with and without NaN;
+     then the SHA-256 of the exact recurrences' outputs on fixed-seed
+     inputs (print_digests), to hold two trees bit for bit.
   3c. the multi-trait CLI (``--pheno t0,t1,t2,t3``) at M=10,000 x N=5,000:
      exact with full phenotypes, --stale --window 64, and exact with 10% NaN
      per trait (the per-window path), 40 iterations each; every mt launch
@@ -87,6 +89,7 @@ and the JAX package are blocked: the port must run without them.
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import json
 import os
 import subprocess
@@ -671,7 +674,11 @@ def profile_run(torch, run, label, launches, card, n_windows=None):
           f"CUDA events {ev_ms:.2f} ms/sweep; profiler device time "
           f"{busy:.2f} ms ({100.0 * busy / ev_ms:.1f}% busy)  [{card}]",
           flush=True)
-    for k, (cnt, ms) in sorted(per.items(), key=lambda kv: -kv[1][1])[:8]:
+    # the 8 longest, and every kernel of the port below them
+    ranked = sorted(per.items(), key=lambda kv: -kv[1][1])
+    for i, (k, (cnt, ms)) in enumerate(ranked):
+        if i >= 8 and "hydra::" not in k:
+            continue
         per_win = (f"  {1e3 * ms / n_windows:8.2f} us/window" if n_windows
                    else "")
         print(f"    {ms:9.3f} ms  {cnt:6d} x{per_win}  {k[:90]}", flush=True)
@@ -990,6 +997,74 @@ def print_bound(name, r):
           f"({r['bound_by']})", flush=True)
 
 
+def print_digests(torch, np):
+    """SHA-256 of the outputs of the exact recurrences and the draws built
+    on their device code, on fixed-seed inputs at phase 2c's shapes
+    (M=4,096 x N=50,000, T=4 with full phenotypes; the recurrences at
+    W=128, the stale sweep at W=64): sweep_exact_mt (eps, out), one window
+    of mt_window_recurrence on a shared and on a per-trait Gram (10% NaN
+    per trait), sweep_stale_mt, and BayesRRm's sweep_exact. Two trees'
+    kernels are bit for bit the same where their digests are
+    (scripts/chip_compare.py runs this in each tree). Returns {name:
+    digest}."""
+    from hydra_tpu_torch.ops import sweep_kernel as sk
+    from hydra_tpu_torch.ops import sweep_kernel_mt as skmt
+    from hydra_tpu_torch.ops import window_kernels as wk
+    from hydra_tpu_torch.ops.decode import decode_planes_hp
+    dev = torch.device("cuda")
+    m, n, T, W = 4096, 50_000, 4, 128
+    n_pad = padded_individuals(np, n)
+    gen = torch.Generator(device=dev).manual_seed(17)
+    pk, mave, mstd, _ = device_genotypes(torch, m, n, n_pad, gen)
+    pads = torch.randperm(m, generator=gen, device=dev)[:37]
+    pk[pads] = 0xFF
+    mrow = mt_kernel_rows(torch, mave, mstd, gen, n, pads, T)
+    tm = torch.zeros((n_pad, T), device=dev)
+    tm[:n] = 1.0
+    eps = 0.8 * torch.randn((n_pad, T), generator=gen, device=dev) * tm
+    i2se = torch.full((T,), 1.0 / (2 * SIGMA_E), device=dev)
+    dnm1 = tm.sum(dim=0) - 1.0
+    order = sk.block_order(torch.randperm(m // W, generator=gen, device=dev),
+                           W)
+    outs = {"sweep_exact_mt W=128": skmt.sweep_exact_mt(
+        pk, eps, tm, mrow, i2se, dnm1, window=W, n_mix=K, order=order)}
+    rows = order[:W].contiguous()
+    slots = rows.long()
+    b = mrow[slots].reshape(W, -1, T)
+    s1, _ = wk.window_stats_mt(pk, eps, True, rows)
+    num0 = (b[:, 1] * (s1 - b[:, 0] * eps.sum(dim=0)) + b[:, 2] * dnm1
+            ).contiguous()
+    g, mk = decode_planes_hp(pk[slots])
+    xt = (g - b[:, 0, :1] * mk) * b[:, 1, :1]
+    nan = (torch.rand((n_pad, T), generator=gen, device=dev) >= 0.1) * tm
+    for label, gram in (("shared", xt @ xt.T), ("per-trait", torch.bmm(
+            xt[None] * nan.T[:, None, :],
+            xt[None].expand(T, -1, -1).transpose(1, 2)))):
+        outs[f"mt_window_recurrence W=128 {label} Gram"] = (
+            skmt.mt_window_recurrence(gram, num0, mrow, i2se, n_mix=K,
+                                      rows=rows))
+    del g, mk, xt
+    order64 = sk.block_order(torch.randperm(m // 64, generator=gen,
+                                            device=dev), 64)
+    outs["sweep_stale_mt W=64"] = skmt.sweep_stale_mt(
+        pk, eps, tm, mrow, i2se, dnm1, window=64, n_mix=K, complete=True,
+        order=order64)
+    rows1 = kernel_rows(torch, mave, mstd, gen, n, pads)
+    outs["sweep_exact W=128"] = sk.sweep_exact(
+        pk, eps[:, 0].contiguous(), rows1, 1.0 / (2 * SIGMA_E),
+        float(n - 1), window=W, n_mix=K, complete=True,
+        ind_mask=tm[:, 0].contiguous(), order=order)
+    torch.cuda.synchronize()
+    digests = {}
+    for name, tensors in outs.items():
+        h = hashlib.sha256()
+        for t in tensors:
+            h.update(t.contiguous().cpu().numpy().tobytes())
+        digests[name] = h.hexdigest()
+        print(f"digest {name}: sha256 {digests[name]}", flush=True)
+    return digests
+
+
 def phase_mt_kernels(torch, np, card):
     """The multi-trait kernels against their plain versions at main-path
     shapes (M=4,096 x N=50,000, T=4): sweep_stale_mt W=64 and
@@ -1128,6 +1203,7 @@ def phase_mt_kernels(torch, np, card):
             r["bound_ms"], r["bound_by"] = bound(nbytes, ops)
             print_bound(name, r)
         del pk, mrow, eps, tm, gram
+    print_digests(torch, np)
     return rec
 
 
@@ -1246,6 +1322,28 @@ def phase_mt_cli(torch, np, tmp):
     return launches
 
 
+def print_mt_draw_bound(W, nb, C, T, per_trait):
+    """The least time of one window's multi-trait recurrence launch.
+    exact_mt_draw_kernel (the exact sweep): the stats partials (s1 and s2
+    per trait, v), the W mrow rows, the order and the (W, W) Gram in, out
+    and coef out. window_recurrence_mt_kernel (the per-window path): the
+    (T, W, W) Gram, num0, the W mrow rows, the order and i2se in, (4, W, T)
+    out. Both: the rank-1 update (2 T W^2 f32) and ~100 f32 operations a
+    draw."""
+    ops = {"f32": 2.0 * T * W * W + 100.0 * W * T}
+    if per_trait:
+        name = "window_recurrence_mt_kernel"
+        nbytes = 4 * (T * W * W + W * T + W * C + W + T + 4 * W * T)
+    else:
+        name = "exact_mt_draw_kernel"
+        n_tiles = -(-nb // 512)
+        nbytes = 4 * (n_tiles * W * (2 * T + 1) + W * C + W + W * W
+                      + 2 * T + 1 + 5 * W * T)
+    ms, by = bound(nbytes, ops)
+    print(f"  bound per window (W={W}, T={T}, nb={nb}): {name} "
+          f"{1e3 * ms:.4f} us ({by})", flush=True)
+
+
 def phase_mt_real_size(torch, np, card):
     """Multi-trait at M=100,000 x N=50,000, T=4: exact W=128 and stale W=64
     on the block schedule with full phenotypes, and the per-window path
@@ -1321,6 +1419,9 @@ def phase_mt_real_size(torch, np, card):
             n_launch = "4 kernel + torch"
         profile_run(torch, run, f"mt {label} W={window}", n_launch, card,
                     cfg.n_windows)
+        if exact:
+            print_mt_draw_bound(window, s.packed.shape[1], mrow.shape[1], T,
+                                na_frac > 0.0)
         del s, st, mrow
     del pk
 

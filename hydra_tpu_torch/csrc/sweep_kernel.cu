@@ -307,127 +307,17 @@ __global__ void stale_draw_kernel(const float* __restrict__ mrow, int C, int K,
 }
 
 // ----------------------------------------------------------- exact draw --
-struct Draw {
-    float bnew, compf, pr0, s, dbeta;
-    // the outputs comp and acum0, apart because the recurrence's chain
-    // needs dbeta alone (acum0 is a division)
-    __device__ float comp(float act) const { return compf * act; }
-    __device__ float acum(float act) const { return (pr0 / s) * act + (1.f - act); }
-};
-
-// One marker of the exact recurrence, given its corrected dot product num:
-// the draw of _sweep_exact_kernel.step (hydra_tpu/ops/sweep_kernel.py:
-// 452-517) and of window_gibbs (hydra_tpu/ops/gibbs_kernel.py:57-107):
-// clamp max(l - mx, -60), unnormalized u*s against the running cum. logl
-// (K), invd and sd (K-1) are the marker's mixture constants. The loops run
-// to the compile-time bound KB >= K, guarded by k < K - 1 (folded away
-// where the caller's K is a constant), so the temporaries stay in
-// registers: a loop to the runtime K put them in local memory, on the
-// recurrence's serial chain. The component is the number of running sums
-// u*s exceeds; they only grow (each term is positive), so the exceeded
-// ones are a prefix and the selected component is the last of them, found
-// in the same pass: the same choice as the plain version's count-then-
-// select, one chain shorter.
-template <int KB>
-__device__ __forceinline__ Draw exact_draw(float num, const float* logl,
-                                           const float* invd, const float* sd,
-                                           int K, float u, float nrm, float act,
-                                           float bold, float i2se) {
-    const int km1 = K - 1;
-    const float logl0 = logl[0];
-    float mx = logl0;
-    float muk[KB - 1], pr[KB - 1];
-#pragma unroll
-    for (int k = 0; k < KB - 1; ++k) {
-        muk[k] = 0.f;
-        pr[k] = 0.f;
-        if (k < km1) {
-            muk[k] = num * invd[k];
-            pr[k] = logl[1 + k] + muk[k] * num * i2se;
-            mx = fmaxf(mx, pr[k]);
-        }
-    }
-    const float pr0 = expf(fmaxf(logl0 - mx, -60.0f));
-    float s = pr0;
-#pragma unroll
-    for (int k = 0; k < KB - 1; ++k)
-        if (k < km1) {
-            pr[k] = expf(fmaxf(pr[k] - mx, -60.0f));
-            s = s + pr[k];
-        }
-    const float us = u * s;
-    float cum = pr0, compf = 0.f, mu_sel = 0.f, sd_sel = 0.f;
-#pragma unroll
-    for (int k = 0; k < KB - 1; ++k)
-        if (k < km1) {
-            const bool over = us > cum;
-            compf += over ? 1.f : 0.f;
-            mu_sel = over ? muk[k] : mu_sel;
-            sd_sel = over ? sd[k] : sd_sel;
-            cum = cum + pr[k];
-        }
-    const float pos = compf > 0.f ? 1.f : 0.f;
-    const float bnew = pos * act * (mu_sel + nrm * sd_sel);
-    return {bnew, compf, pr0, s, bold - bnew};
-}
-
-// The draw kernels by mixture size: K = 4 (the CLI default) with K a
-// compile-time constant, else the register bound 8 or K_MAX on a runtime K.
-// The constant pays: at K = 4, exact W=128, N=50,000 on an H100 at 700 W,
-// exact_draw_kernel<4, true> took 27.3-27.7 us a window and <8, false>
-// 50.6 (chip_smoke.py phase 4, both builds in one run).
-template <class F>
-inline F* by_components(int K, F* k4, F* k8, F* k16) {
-    return K == 4 ? k4 : (K <= 8 ? k8 : k16);
-}
-
 // The exact recurrence of one window: the W-step chain of
 // _sweep_exact_kernel.step (hydra_tpu/ops/sweep_kernel.py:452-526), num_i +=
 // G_ij * dbeta_j after marker j's draw, with the complete-data integer Gram
-// standardized by the rank-1 correction of sweep_kernel.py:435-442.
+// standardized by the rank-1 correction of sweep_kernel.py:435-442, run
+// as warp_recurrence (sweep_kernel.cuh) in one block. Each lane holds its
+// marker's mrow constants in registers from the start (exact_draw<KB>);
+// the Gram's elements are standardized as they are staged, each once,
+// with the lane's own statistics and row j's from shared memory. The
+// integer Gram is symmetric, so lane i reads G(i, j) as G[j * W + i],
+// coalesced. Dynamic shared memory: exact_draw_smem(W).
 //
-// Bound: the serial chain, W dependent draws (each waits for the previous
-// step's update), not bytes (the Gram is 64 KB at W=128) nor operations
-// (W^2 multiply-adds). So the design takes everything but the draw off
-// the chain:
-//  - one block, one thread per marker, warp b owns markers 32b..32b+31;
-//    warp b runs their 32 steps alone, warp-synchronously: every lane
-//    draws its own marker (exact_draw, no divergence), lane j's draw is
-//    step j's, __shfl_sync broadcasts its dbeta and every lane applies
-//    num = fmaf(G_ji, dbeta_j, num). No block barrier inside a block's
-//    steps, one __syncthreads per 32 steps.
-//  - registers, not memory, on the chain: each lane holds its marker's
-//    mrow constants (logl, invd, sd, u, nrm, act, bold) in registers from
-//    the start (exact_draw<KB>, KB >= K in {4, 8, K_MAX}); the Gram
-//    element of each step comes from shared memory, loaded off the chain.
-//  - trailing updates: while warp b steps, every later warp w loads its
-//    32x32 tile G[32b.., 32w..] from global memory, standardizes it and
-//    parks it in shared memory (each lane its own column); after the
-//    block's barrier it applies the block's 32 updates in step order. So
-//    each row still adds its updates in step order j = 0..W-1 with the
-//    same fmaf: the chain is unchanged.
-//  - the diagonal tile a warp steps with is staged by that warp while the
-//    previous warp steps (two buffers), so no global load waits on the
-//    chain but warp 0's first tile. Every Gram element is standardized
-//    once, by the warp that loads it.
-//  - a ragged last block (W not a multiple of 32) runs W - 32b steps; its
-//    missing lanes are present (the block is whole warps) with zero
-//    constants and zero tiles, so the full shuffle mask is right.
-// Dynamic shared memory: exact_draw_smem bytes, 4 W + (W/32 + 2) 32 x 32
-// floats: 26 KB at W=128, 152 KB at W=1024.
-inline size_t exact_draw_smem(int W) {
-    const size_t nw = cdiv(W, 32);
-    return sizeof(float) * (4 * static_cast<size_t>(W) + (nw + 2) * 32 * 32);
-}
-
-// Element (row j, column i) of the window Gram for thread i, standardized
-// with thread i's own statistics (mave, mstd, v) and row j's (mj, sj, vj).
-__device__ __forceinline__ float std_gram(float g, int complete, float mave, float mstd,
-                                          float v, float mj, float sj, float vj,
-                                          float n_real) {
-    return complete ? (mstd * sj) * (g - mave * vj - v * mj + n_real * (mave * mj)) : g;
-}
-
 // KB: exact_draw's bound on K; FIXED: K == KB, a compile-time constant.
 template <int KB, bool FIXED>
 __global__ void __launch_bounds__(1024)
@@ -440,13 +330,10 @@ exact_draw_kernel(const float* __restrict__ mrow, int C, int k_run,
     const int K = FIXED ? KB : k_run;
     extern __shared__ float sh[];
     const int r = threadIdx.x, warp = r >> 5, lane = r & 31;
-    const int nw = blockDim.x >> 5;
     float* s_db = sh;                     // [W]
     float* s_mave = sh + W;               // [W]
     float* s_mstd = sh + 2 * W;           // [W]
     float* s_v = sh + 3 * W;              // [W]
-    float* s_tile = sh + 4 * W + warp * 32 * 32;   // this warp's trailing [32][32]
-    float* s_diag = sh + 4 * W + nw * 32 * 32;     // [2][32][32], warp b's at b & 1
     const float i2se = sc[0], dNm1 = sc[1], n_real = sc[2];
     const bool live = r < W;
     // this lane's marker: statistics, num and its mrow constants
@@ -484,48 +371,16 @@ exact_draw_kernel(const float* __restrict__ mrow, int C, int k_run,
         }
     }
     __syncthreads();
-    // rows r0.. r0 + 31 of this lane's column, standardized, to dst[j * 32 +
-    // lane]; rows past W (a ragged last block) and dead lanes give 0
-    auto stage = [&](int r0, float* dst) {
-#pragma unroll 8
-        for (int j = 0; j < 32; ++j) {
-            const int rj = r0 + j;
-            float g = 0.f;
-            if (live && rj < W)
-                g = std_gram(G[static_cast<size_t>(rj) * W + r], complete, mave, mstd, v,
-                             s_mave[rj], s_mstd[rj], s_v[rj], n_real);
-            dst[j * 32 + lane] = g;
-        }
-    };
-    if (warp == 0) stage(0, s_diag);
-    Draw mine{0.f, 0.f, 0.f, 1.f, 0.f};
-    for (int b = 0; b < nw; ++b) {
-        const int r0 = 32 * b;
-        if (warp == b) {
-            // every staged element was written by this lane: no barrier
-            const float* gd = s_diag + (b & 1) * 32 * 32 + lane;
-            const int steps = min(32, W - r0);
-#pragma unroll 4
-            for (int j = 0; j < steps; ++j) {
-                const Draw d = exact_draw<KB>(numv, logl, invd, sdk, K, u, nrm, act, bold,
-                                              i2se);
-                if (lane == j) mine = d;
-                const float db = __shfl_sync(0xffffffffu, d.dbeta, j);
-                numv = fmaf(gd[j * 32], db, numv);
-            }
-            if (live) s_db[r] = mine.dbeta;
-        } else if (warp > b) {
-            // this warp's tile of block b (whole: only the last block can be
-            // ragged), and warp b + 1 its diagonal tile, while warp b steps
-            stage(r0, s_tile);
-            if (warp == b + 1) stage(r0 + 32, s_diag + ((b + 1) & 1) * 32 * 32);
-        }
-        __syncthreads();
-        if (warp > b) {
-#pragma unroll 8
-            for (int j = 0; j < 32; ++j) numv = fmaf(s_tile[j * 32 + lane], s_db[r0 + j], numv);
-        }
-    }
+    const Draw mine = warp_recurrence(
+        W, numv, [&](int rj) { return G + static_cast<size_t>(rj) * W + r; },
+        [&](int rj, float g) {
+            return std_gram(g, complete, mave, mstd, v, s_mave[rj], s_mstd[rj], s_v[rj],
+                            n_real);
+        },
+        [&](float num) {
+            return exact_draw<KB>(num, logl, invd, sdk, K, u, nrm, act, bold, i2se);
+        },
+        s_db, sh + 4 * W);
     if (live) {
         float* o = out + static_cast<size_t>(slot) * 4;
         o[0] = mine.bnew;

@@ -567,4 +567,220 @@ inline int launch_axpy(const uint8_t* pk, int nb, const int* order_w, int W, int
     return 0;
 }
 
+// ------------------------------------------------------ exact recurrence --
+// The exact W-step recurrence of one window, shared by exact_draw_kernel
+// (sweep_kernel.cu) and the multi-trait exact_mt_draw_kernel and
+// window_recurrence_mt_kernel (sweep_kernel_mt.cu): after marker j's draw,
+// num_i += G(i, j) * dbeta_j, for j = 0..W-1 in order.
+struct Draw {
+    float bnew, compf, pr0, s, dbeta;
+    // the outputs comp and acum0, apart because the recurrence's chain
+    // needs dbeta alone (acum0 is a division)
+    __device__ float comp(float act) const { return compf * act; }
+    __device__ float acum(float act) const { return (pr0 / s) * act + (1.f - act); }
+};
+
+// One marker of the exact recurrence, given its corrected dot product num:
+// the draw of _sweep_exact_kernel.step (hydra_tpu/ops/sweep_kernel.py:
+// 452-517) and of window_gibbs (hydra_tpu/ops/gibbs_kernel.py:57-107):
+// clamp max(l - mx, -60), unnormalized u*s against the running cum. logl
+// (K), invd and sd (K-1) are the marker's mixture constants. The loops run
+// to the compile-time bound KB >= K, guarded by k < K - 1 (folded away
+// where the caller's K is a constant), so the temporaries stay in
+// registers: a loop to the runtime K put them in local memory, on the
+// recurrence's serial chain. The component is the number of running sums
+// u*s exceeds; they only grow (each term is positive), so the exceeded
+// ones are a prefix and the selected component is the last of them, found
+// in the same pass: the same choice as the plain version's count-then-
+// select, one chain shorter.
+template <int KB>
+__device__ __forceinline__ Draw exact_draw(float num, const float* logl,
+                                           const float* invd, const float* sd,
+                                           int K, float u, float nrm, float act,
+                                           float bold, float i2se) {
+    const int km1 = K - 1;
+    const float logl0 = logl[0];
+    float mx = logl0;
+    float muk[KB - 1], pr[KB - 1];
+#pragma unroll
+    for (int k = 0; k < KB - 1; ++k) {
+        muk[k] = 0.f;
+        pr[k] = 0.f;
+        if (k < km1) {
+            muk[k] = num * invd[k];
+            pr[k] = logl[1 + k] + muk[k] * num * i2se;
+            mx = fmaxf(mx, pr[k]);
+        }
+    }
+    const float pr0 = expf(fmaxf(logl0 - mx, -60.0f));
+    float s = pr0;
+#pragma unroll
+    for (int k = 0; k < KB - 1; ++k)
+        if (k < km1) {
+            pr[k] = expf(fmaxf(pr[k] - mx, -60.0f));
+            s = s + pr[k];
+        }
+    const float us = u * s;
+    float cum = pr0, compf = 0.f, mu_sel = 0.f, sd_sel = 0.f;
+#pragma unroll
+    for (int k = 0; k < KB - 1; ++k)
+        if (k < km1) {
+            const bool over = us > cum;
+            compf += over ? 1.f : 0.f;
+            mu_sel = over ? muk[k] : mu_sel;
+            sd_sel = over ? sd[k] : sd_sel;
+            cum = cum + pr[k];
+        }
+    const float pos = compf > 0.f ? 1.f : 0.f;
+    const float bnew = pos * act * (mu_sel + nrm * sd_sel);
+    return {bnew, compf, pr0, s, bold - bnew};
+}
+
+// The draw kernels by mixture size: K = 4 (the CLI default) with K a
+// compile-time constant, else the register bound 8 or K_MAX on a runtime K.
+// The constant pays: at K = 4, exact W=128, N=50,000 on an H100 at 700 W,
+// exact_draw_kernel<4, true> took 27.3-27.7 us a window and <8, false>
+// 50.6 (chip_smoke.py phase 4, both builds in one run).
+template <class F>
+inline F* by_components(int K, F* k4, F* k8, F* k16) {
+    return K == 4 ? k4 : (K <= 8 ? k8 : k16);
+}
+
+// The recurrence's schedule, one block for one window's chain. Bound: the
+// serial chain, W dependent draws (each waits for the previous step's
+// update), not bytes (the Gram is 64 KB at W=128) nor operations (W^2
+// multiply-adds). So everything but the draw is off the chain:
+//  - one thread per marker, warp b owns markers 32b..32b+31; warp b runs
+//    their 32 steps alone, warp-synchronously: every lane draws its own
+//    marker (no divergence), lane j's draw is step j's, __shfl_sync
+//    broadcasts its dbeta and every lane applies num = fmaf(G(i, j),
+//    dbeta_j, num). No block barrier inside a block's steps, one
+//    __syncthreads per 32 steps.
+//  - registers, not memory, on the chain: the caller's draw holds the
+//    lane's constants in registers (exact_draw<KB>, KB >= K in {4, 8,
+//    K_MAX}); the Gram element of each step comes from shared memory,
+//    loaded off the chain.
+//  - trailing updates: while warp b steps, every later warp w stages its
+//    32x32 tile of rows 32b.. (each lane its own marker's elements, copied
+//    asynchronously, then standardized by the caller's finish) in shared
+//    memory; after the block's barrier it applies the block's 32 updates in
+//    step order.
+//    So each marker still adds its updates in step order j = 0..W-1 with
+//    the same fmaf: the chain is the plain version's.
+//  - the diagonal tile a warp steps with is staged by that warp while the
+//    previous warp steps (two buffers), so no global load waits on the
+//    chain but warp 0's first tile. Every Gram element is staged once.
+//  - a ragged last block (W not a multiple of 32) runs W - 32b steps; its
+//    missing lanes are present (the block is whole warps) with zero
+//    constants and zero tiles, so the full shuffle mask is right.
+// Dynamic shared memory: exact_draw_smem bytes, 4 W floats of the
+// callers' per-marker arrays (dbeta first) and (W/32 + 2) 32 x 32 tiles:
+// 26 KB at W=128, 152 KB at W=1024.
+inline size_t exact_draw_smem(int W) {
+    const size_t nw = cdiv(W, 32);
+    return sizeof(float) * (4 * static_cast<size_t>(W) + (nw + 2) * 32 * 32);
+}
+
+// Element (row j, column i) of the window Gram for thread i, standardized
+// with thread i's own statistics (mave, mstd, v) and row j's (mj, sj, vj).
+__device__ __forceinline__ float std_gram(float g, int complete, float mave, float mstd,
+                                          float v, float mj, float sj, float vj,
+                                          float n_real) {
+    return complete ? (mstd * sj) * (g - mave * vj - v * mj + n_real * (mave * mj)) : g;
+}
+
+// One 4-byte asynchronous copy from global to shared memory (cp.async,
+// sm_80+). No register holds the value in flight, so a warp keeps a whole
+// tile's loads in flight at once.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                     static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+                 "l"(src)
+                 : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Runs the schedule above in a block of cdiv(W, 32) * 32 threads: thread r
+// is marker r (live while r < W) with its num before the window's updates;
+// src(j) is the address of G(r, j), its marker's element of step j, and
+// finish(j, g) standardizes it once it is staged; draw(num) is its
+// marker's draw. s_db [W] and tiles [(W/32 + 2) * 32 * 32] are shared
+// memory; whatever finish reads in shared memory is written before a
+// barrier ahead of the call. Returns the lane's own draw, made at its step.
+//
+// A tile is staged as 32 asynchronous copies a lane, one wait, then the
+// standardization in place: one round trip to L2 a tile, whatever the
+// register budget. Staged through registers (8 loads in flight), warp
+// b + 1's two tiles took about as long as warp b's 32 steps, so the block's
+// barrier waited on them whenever code generation shifted: this function
+// so staged ran exact_draw_kernel at 32.6 us per W=128 window, the same
+// chain written inline at 25.6 (chip_smoke.py phase 4 through
+// scripts/chip_compare.py, NVIDIA H100 80GB HBM3, 700 W).
+template <class Src, class Finish, class DrawFn>
+__device__ __forceinline__ Draw warp_recurrence(int W, float numv, const Src& src,
+                                                const Finish& finish, const DrawFn& draw,
+                                                float* s_db, float* tiles) {
+    const int r = threadIdx.x, warp = r >> 5, lane = r & 31;
+    const int nw = blockDim.x >> 5;
+    float* s_tile = tiles + warp * 32 * 32;   // this warp's trailing [32][32]
+    float* s_diag = tiles + nw * 32 * 32;     // [2][32][32], warp b's at b & 1
+    const bool live = r < W;
+    // rows r0.. r0 + 31 of this lane's column to dst[j * 32 + lane]; rows
+    // past W (a ragged last block) and dead lanes give 0
+    auto fetch = [&](int r0, float* dst) {
+#pragma unroll 8
+        for (int j = 0; j < 32; ++j) {
+            if (live && r0 + j < W)
+                cp_async4(dst + j * 32 + lane, src(r0 + j));
+            else
+                dst[j * 32 + lane] = 0.f;
+        }
+    };
+    auto standardize = [&](int r0, float* dst) {
+#pragma unroll 8
+        for (int j = 0; j < 32; ++j)
+            if (live && r0 + j < W) dst[j * 32 + lane] = finish(r0 + j, dst[j * 32 + lane]);
+    };
+    if (warp == 0) {
+        fetch(0, s_diag);
+        cp_async_wait_all();
+        standardize(0, s_diag);
+    }
+    Draw mine{0.f, 0.f, 0.f, 1.f, 0.f};
+    for (int b = 0; b < nw; ++b) {
+        const int r0 = 32 * b;
+        if (warp == b) {
+            // every staged element was written by this lane: no barrier
+            const float* gd = s_diag + (b & 1) * 32 * 32 + lane;
+            const int steps = min(32, W - r0);
+#pragma unroll 4
+            for (int j = 0; j < steps; ++j) {
+                const Draw d = draw(numv);
+                if (lane == j) mine = d;
+                const float db = __shfl_sync(0xffffffffu, d.dbeta, j);
+                numv = fmaf(gd[j * 32], db, numv);
+            }
+            if (live) s_db[r] = mine.dbeta;
+        } else if (warp > b) {
+            // this warp's tile of block b (whole: only the last block can be
+            // ragged), and warp b + 1 its diagonal tile, while warp b steps
+            float* next = s_diag + ((b + 1) & 1) * 32 * 32;
+            fetch(r0, s_tile);
+            if (warp == b + 1) fetch(r0 + 32, next);
+            cp_async_wait_all();
+            standardize(r0, s_tile);
+            if (warp == b + 1) standardize(r0 + 32, next);
+        }
+        __syncthreads();
+        if (warp > b) {
+#pragma unroll 8
+            for (int j = 0; j < 32; ++j) numv = fmaf(s_tile[j * 32 + lane], s_db[r0 + j], numv);
+        }
+    }
+    return mine;
+}
+
 }  // namespace hydra

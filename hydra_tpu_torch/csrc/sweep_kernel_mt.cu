@@ -35,8 +35,8 @@
 // ~0.5 us of HBM time). The decode stays in registers and is shared by the
 // T traits (one byte load serves T fused multiply-adds); T partial sums per
 // thread live in registers (T <= T_MAX). The exact recurrence is a serial
-// chain of W steps; its T traits draw in parallel threads, two barriers per
-// step. Speed is later work; this is the simple, right version.
+// chain of W steps per trait: one block per trait, each the BayesRRm exact
+// draw's warp-synchronous design (warp_recurrence, sweep_kernel.cuh).
 //
 // Determinism: no float atomics (the Gram's are integer, exact in any
 // order). Partials land in per-tile scratch and are reduced in a fixed
@@ -160,63 +160,78 @@ __global__ void stats_mt_reduce_kernel(const float* __restrict__ part_s1,
 }
 
 // ----------------------------------------------------------------- draw --
-// The mixture/beta draw of one (marker, trait) from its mrow row and num.
-// NORMALIZED: the stale kernel's form (sweep_kernel_mt.py:140-161), which
-// is also the sampler's draw_rows (bayesrrm_mt.py:348-368): probs = p/sum,
-// comp = #{k < K-1 : u > cum_k}. Otherwise the exact kernel's form
-// (sweep_kernel_mt.py:430-455): exp(max(l - mx, -60)), unnormalized u*s
-// against the running cum, advanced after each compare.
-template <bool NORMALIZED>
-__device__ __forceinline__ void draw_mt(const float* row, int T, int t, int K,
-                                        float num, float i2se, float& bnew,
-                                        float& compf, float& acum) {
-    const int bl = N_FIXED, bi = N_FIXED + K, bs = N_FIXED + 2 * K - 1;
+// One (marker, trait)'s mrow constants, read once into registers: column
+// block b of trait t at row[b * T + t], the mixture's to the compile-time
+// bound KB >= K (zero past K, and everywhere for a lane past W).
+template <int KB>
+struct MtMarker {
+    float mave = 0.f, mstd = 0.f, bold = 0.f, u = 0.f, nrm = 0.f, act = 0.f;
+    float logl[KB] = {}, invd[KB - 1] = {}, sd[KB - 1] = {};
+
+    __device__ __forceinline__ void load(const float* row, int T, int t, int K) {
+        mave = row[t];
+        mstd = row[T + t];
+        bold = row[2 * T + t];
+        u = row[3 * T + t];
+        nrm = row[4 * T + t];
+        act = row[5 * T + t];
+#pragma unroll
+        for (int k = 0; k < KB; ++k) {
+            if (k < K) logl[k] = row[(N_FIXED + k) * T + t];
+            if (k < KB - 1 && k < K - 1) {
+                invd[k] = row[(N_FIXED + K + k) * T + t];
+                sd[k] = row[(N_FIXED + 2 * K - 1 + k) * T + t];
+            }
+        }
+    }
+};
+
+// The normalized draw of the stale kernel (hydra_tpu/ops/sweep_kernel_mt.py:
+// 140-161), which is also the sampler's draw_rows (bayesrrm_mt.py:348-368)
+// and the plain draw_normalized: exp(l - mx) unclamped, sm summed in k
+// order, probs = p / sm, comp = #{k < K-1 : u > cum_k} with cum_0 = p_0 /
+// sm, cum_k = cum_{k-1} + p_k / sm; acum = p_0 / sm * act + (1 - act). The
+// same operations in the same order, in registers to the bound KB as
+// exact_draw<KB> (sweep_kernel.cuh), whose last-exceeded selection it
+// shares (the cums only grow).
+template <int KB>
+__device__ __forceinline__ Draw normalized_draw(float num, const MtMarker<KB>& c, int K,
+                                                float i2se) {
     const int km1 = K - 1;
-    float l[K_MAX], muk[K_MAX];
-    l[0] = row[bl * T + t];
-    float mx = l[0];
-    for (int k = 0; k < km1; ++k) {
-        muk[k] = num * row[(bi + k) * T + t];
-        l[k + 1] = row[(bl + 1 + k) * T + t] + muk[k] * num * i2se;
-        mx = fmaxf(mx, l[k + 1]);
+    const float logl0 = c.logl[0];
+    float mx = logl0;
+    float muk[KB - 1], pr[KB - 1];
+#pragma unroll
+    for (int k = 0; k < KB - 1; ++k) {
+        muk[k] = 0.f;
+        pr[k] = 0.f;
+        if (k < km1) {
+            muk[k] = num * c.invd[k];
+            pr[k] = c.logl[1 + k] + muk[k] * num * i2se;
+            mx = fmaxf(mx, pr[k]);
+        }
     }
-    const float u = row[3 * T + t], nrm = row[4 * T + t], act = row[5 * T + t];
-    float p0, cf = 0.f;
-    if (NORMALIZED) {
-        float sm = 0.f;
-        for (int k = 0; k < K; ++k) {
-            l[k] = expf(l[k] - mx);
-            sm = k == 0 ? l[0] : sm + l[k];
+    const float pr0 = expf(logl0 - mx);
+    float sm = pr0;
+#pragma unroll
+    for (int k = 0; k < KB - 1; ++k)
+        if (k < km1) {
+            pr[k] = expf(pr[k] - mx);
+            sm = sm + pr[k];
         }
-        float cum = l[0] / sm;
-        p0 = cum;
-        cf = u > cum ? 1.f : 0.f;
-        for (int k = 1; k < km1; ++k) {
-            cum = cum + l[k] / sm;
-            cf += u > cum ? 1.f : 0.f;
+    float cum = pr0 / sm, compf = 0.f, mu_sel = 0.f, sd_sel = 0.f;
+#pragma unroll
+    for (int k = 0; k < KB - 1; ++k)
+        if (k < km1) {
+            if (k > 0) cum = cum + pr[k - 1] / sm;
+            const bool over = c.u > cum;
+            compf += over ? 1.f : 0.f;
+            mu_sel = over ? muk[k] : mu_sel;
+            sd_sel = over ? c.sd[k] : sd_sel;
         }
-    } else {
-        for (int k = 0; k < K; ++k) l[k] = expf(fmaxf(l[k] - mx, -60.0f));
-        float s = l[0];
-        for (int k = 1; k < K; ++k) s = s + l[k];
-        const float us = u * s;
-        float cum = l[0];
-        for (int k = 0; k < km1; ++k) {
-            cf += us > cum ? 1.f : 0.f;
-            cum = cum + l[k + 1];
-        }
-        p0 = l[0] / s;
-    }
-    float mu_sel = 0.f, sd_sel = 0.f;
-    for (int k = 0; k < km1; ++k)
-        if (cf == static_cast<float>(k + 1)) {
-            mu_sel = muk[k];
-            sd_sel = row[(bs + k) * T + t];
-        }
-    const float pos = cf > 0.f ? 1.f : 0.f;
-    bnew = pos * act * (mu_sel + nrm * sd_sel);
-    compf = cf * act;
-    acum = p0 * act + (1.f - act);
+    const float pos = compf > 0.f ? 1.f : 0.f;
+    const float bnew = pos * c.act * (mu_sel + c.nrm * sd_sel);
+    return {bnew, compf, pr0, sm, c.bold - bnew};
 }
 
 // Stale draw: one thread per (marker r, trait t), e = r * T + t.
@@ -231,178 +246,136 @@ __global__ void stale_draw_mt_kernel(const float* __restrict__ mrow, int C, int 
     if (e >= static_cast<int>(wt)) return;
     const int r = e / T, t = e % T;
     const int slot = order_w[r];
-    const float* row = mrow + static_cast<size_t>(slot) * C;
+    MtMarker<K_MAX> c;
+    c.load(mrow + static_cast<size_t>(slot) * C, T, t, K);
     const float s1 = reduce_tiles_mt(part_s1, n_tiles, wt, e);
     const float s2 = reduce_tiles_mt(part_s2, n_tiles, wt, e);
     const float s1v = complete ? 2.0f * s2 - s1 : s1;     // h-decode
-    const float mave = row[t], mstd = row[T + t], bold = row[2 * T + t];
-    const float num0 = mstd * (s1v - mave * s2) + bold * sc[T + t];
-    float bnew, compf, acum;
-    draw_mt<true>(row, T, t, K, num0, sc[t], bnew, compf, acum);
+    const float num0 = c.mstd * (s1v - c.mave * s2) + c.bold * sc[T + t];
+    const Draw d = normalized_draw(num0, c, K, sc[t]);
     float* o = out + static_cast<size_t>(slot) * 3 * T;
-    o[t] = bnew;
-    o[T + t] = compf;
-    o[2 * T + t] = acum;
-    const float c1 = (bold - bnew) * mstd;
+    o[t] = d.bnew;
+    o[T + t] = d.comp(c.act);
+    o[2 * T + t] = d.acum(c.act);
+    const float c1 = (c.bold - d.bnew) * c.mstd;
     coef[static_cast<size_t>(t) * W + r] = c1;
-    coef[wt + static_cast<size_t>(t) * W + r] = -c1 * mave;
+    coef[wt + static_cast<size_t>(t) * W + r] = -c1 * c.mave;
 }
 
 // ----------------------------------------------------------- recurrence --
-// The exact W-step recurrence for all T traits, in one place for the exact
-// sweep (trait-shared integer Gram) and the per-window path (f32 Gram,
-// shared (W, W) or per trait (T, W, W)). num[t * W + i] lives in shared
-// memory. Step j: threads t < T draw (marker j, trait t) in parallel and
-// publish dbeta_j[t]; then thread i applies num[t*W + i] += G_t(i, j) *
-// dbeta_j[t] (the rank-1 form of num_i = num0_i + sum_{k<i} G_ik dbeta_k).
-template <bool SHARED, bool NORMALIZED, class Gram, class Emit>
-__device__ void mt_recurrence(int W, int T, int K, const float* __restrict__ mrow,
-                              int C, const int* __restrict__ order_w,
-                              const float* __restrict__ i2se, float* s_num,
-                              float* s_db, const Gram& gram, const Emit& emit) {
-    const int tid = threadIdx.x;
-    for (int j = 0; j < W; ++j) {
-        if (tid < T) {
-            const int t = tid;
-            const int slot = order_w[j];
-            const float* row = mrow + static_cast<size_t>(slot) * C;
-            float bnew, compf, acum;
-            draw_mt<NORMALIZED>(row, T, t, K, s_num[t * W + j], i2se[t], bnew,
-                                compf, acum);
-            const float db = row[2 * T + t] - bnew;
-            emit(j, slot, t, row, bnew, compf, acum, db);
-            s_db[t] = db;
-        }
-        __syncthreads();
-        for (int i = tid; i < W; i += blockDim.x) {
-            if (SHARED) {
-                const float g = gram(i, j, 0);
-#pragma unroll
-                for (int t = 0; t < T_MAX; ++t)
-                    if (t < T) s_num[t * W + i] = fmaf(g, s_db[t], s_num[t * W + i]);
-            } else {
-#pragma unroll
-                for (int t = 0; t < T_MAX; ++t)
-                    if (t < T)
-                        s_num[t * W + i] = fmaf(gram(i, j, t), s_db[t], s_num[t * W + i]);
-            }
-        }
-        __syncthreads();
-    }
-}
+// The exact W-step recurrence for T traits, in the exact sweep (the
+// trait-shared integer Gram) and in the per-window path (an f32 Gram,
+// shared (W, W) or per trait (T, W, W)). The traits are independent chains
+// that share at most the Gram, so each runs BayesRRm's design alone: grid
+// T, block t runs trait t's chain as warp_recurrence (sweep_kernel.cuh;
+// cdiv(W, 32) * 32 threads, one per marker, warp-synchronous 32-marker
+// blocks, one __syncthreads per 32 steps, the Gram's tiles staged off the
+// chain), each lane's trait-t constants in registers (MtMarker<KB>, KB in
+// {4, 8, K_MAX} by by_components). The T chains run on T SMs at once; each
+// block stages the window's Gram itself, from L2. Each (marker, trait) adds
+// G(i, j) * dbeta_j[t] for j = 0..W-1 in order with the same fmaf and
+// draws with the plain version's operations in its order. Dynamic shared
+// memory: exact_draw_smem(W), laid out as exact_draw_kernel's (dbeta, 3 W
+// floats of Gram statistics, the tiles).
 
-// The raw integer Gram of the window's g planes, standardized on the fly
-// with trait 0's mave/mstd, v = sum g and n_real (sweep_kernel_mt.py:391-399).
-struct IntSharedGram {
-    const float* G;
-    int W;
-    const float* mave;
-    const float* mstd;
-    const float* v;
-    float n_real;
-    __device__ float operator()(int i, int j, int) const {
-        const float g = G[static_cast<size_t>(j) * W + i];   // symmetric
-        return (mstd[i] * mstd[j])
-               * (g - mave[i] * v[j] - v[i] * mave[j] + n_real * (mave[i] * mave[j]));
-    }
-};
-
-// A standardized f32 Gram: (W, W) shared, or (T, W, W) per trait.
-struct F32Gram {
-    const float* G;
-    int W;
-    __device__ float operator()(int i, int j, int t) const {
-        return G[(static_cast<size_t>(t) * W + i) * W + j];
-    }
-};
-
-// Sweep outputs: out per slot, and the axpy coefficients c1, c2 (T, W).
-struct SweepEmit {
-    float* out;
-    float* coef;
-    int W;
-    int T;
-    __device__ void operator()(int j, int slot, int t, const float* row, float bnew,
-                               float compf, float acum, float db) const {
-        float* o = out + static_cast<size_t>(slot) * 3 * T;
-        o[t] = bnew;
-        o[T + t] = compf;
-        o[2 * T + t] = acum;
-        const float c1 = db * row[T + t];
-        coef[static_cast<size_t>(t) * W + j] = c1;
-        coef[static_cast<size_t>(W) * T + static_cast<size_t>(t) * W + j] = -c1 * row[t];
-    }
-};
-
-// Per-window outputs: [bnew, comp, acum, dbeta], each (W, T).
-struct WindowEmit {
-    float* out;
-    int W;
-    int T;
-    __device__ void operator()(int j, int, int t, const float*, float bnew, float compf,
-                               float acum, float db) const {
-        const size_t wt = static_cast<size_t>(W) * T;
-        const size_t e = static_cast<size_t>(j) * T + t;
-        out[e] = bnew;
-        out[wt + e] = compf;
-        out[2 * wt + e] = acum;
-        out[3 * wt + e] = db;
-    }
-};
-
-// Exact sweep draw: one block. num0 from the stats partials (complete data:
-// s2 = sum e per trait), then the recurrence with the exact-kernel draw.
-__global__ void exact_mt_draw_kernel(const float* __restrict__ mrow, int C, int K,
-                                     int T, const int* __restrict__ order_w, int W,
-                                     const float* __restrict__ part_s1,
-                                     const float* __restrict__ part_s2,
-                                     const float* __restrict__ part_v, int n_tiles,
-                                     const float* __restrict__ G,
-                                     const float* __restrict__ sc,
-                                     float* __restrict__ out, float* __restrict__ coef) {
-    extern __shared__ float sh[];   // num[T*W], db[T_MAX], mave0[W], mstd0[W], v[W]
-    float* s_num = sh;
-    float* s_db = sh + static_cast<size_t>(T) * W;
-    float* s_mave = s_db + T_MAX;
-    float* s_mstd = s_mave + W;
-    float* s_v = s_mstd + W;
+// Exact sweep draw. num0 from the stats partials (complete data: s2 = sum
+// e per trait), the clamped draw. The raw integer Gram, standardized while
+// staged with trait 0's mave, mstd, v = sum g and n_real = sc[2T]
+// (sweep_kernel_mt.py:391-399), is symmetric: lane i reads G(i, j) as
+// G[j * W + i], coalesced. Every block reads trait 0's statistics for the
+// Gram and its own trait's for num0 and the coefficients.
+template <int KB, bool FIXED>
+__global__ void __launch_bounds__(1024)
+exact_mt_draw_kernel(const float* __restrict__ mrow, int C, int k_run, int T,
+                     const int* __restrict__ order_w, int W,
+                     const float* __restrict__ part_s1, const float* __restrict__ part_s2,
+                     const float* __restrict__ part_v, int n_tiles,
+                     const float* __restrict__ G, const float* __restrict__ sc,
+                     float* __restrict__ out, float* __restrict__ coef) {
+    const int K = FIXED ? KB : k_run;
+    const int t = blockIdx.x, r = threadIdx.x;
+    extern __shared__ float sh[];
+    float* s_mave = sh + W;               // [W] trait 0's, for the Gram
+    float* s_mstd = sh + 2 * W;           // [W]
+    float* s_v = sh + 3 * W;              // [W]
     const size_t wt = static_cast<size_t>(W) * T;
-    for (int i = threadIdx.x; i < W; i += blockDim.x) {
-        const float* row = mrow + static_cast<size_t>(order_w[i]) * C;
-        for (int t = 0; t < T; ++t) {
-            const size_t e = static_cast<size_t>(i) * T + t;
-            const float s1 = reduce_tiles_mt(part_s1, n_tiles, wt, e);
-            const float s2 = reduce_tiles_mt(part_s2, n_tiles, wt, e);
-            s_num[t * W + i] = row[T + t] * (s1 - row[t] * s2) + row[2 * T + t] * sc[T + t];
-        }
-        s_mave[i] = row[0];
-        s_mstd[i] = row[T];
-        s_v[i] = reduce_tiles(part_v, n_tiles, W, i);
+    const bool live = r < W;
+    MtMarker<KB> c;
+    int slot = 0;
+    float numv = 0.f, mave0 = 0.f, mstd0 = 0.f, v = 0.f;
+    if (live) {
+        slot = order_w[r];
+        const float* row = mrow + static_cast<size_t>(slot) * C;
+        c.load(row, T, t, K);
+        const size_t e = static_cast<size_t>(r) * T + t;
+        const float s1 = reduce_tiles_mt(part_s1, n_tiles, wt, e);
+        const float s2 = reduce_tiles_mt(part_s2, n_tiles, wt, e);
+        numv = c.mstd * (s1 - c.mave * s2) + c.bold * sc[T + t];
+        mave0 = row[0];
+        mstd0 = row[T];
+        v = reduce_tiles(part_v, n_tiles, W, r);
+        s_mave[r] = mave0;
+        s_mstd[r] = mstd0;
+        s_v[r] = v;
     }
     __syncthreads();
-    const IntSharedGram gram{G, W, s_mave, s_mstd, s_v, sc[2 * T]};
-    mt_recurrence<true, false>(W, T, K, mrow, C, order_w, sc, s_num, s_db, gram,
-                               SweepEmit{out, coef, W, T});
+    const float n_real = sc[2 * T], i2se = sc[t];
+    const Draw mine = warp_recurrence(
+        W, numv, [&](int rj) { return G + static_cast<size_t>(rj) * W + r; },
+        [&](int rj, float g) {
+            return std_gram(g, 1, mave0, mstd0, v, s_mave[rj], s_mstd[rj], s_v[rj], n_real);
+        },
+        [&](float num) {
+            return exact_draw<KB>(num, c.logl, c.invd, c.sd, K, c.u, c.nrm, c.act, c.bold,
+                                  i2se);
+        },
+        sh, sh + 4 * W);
+    if (live) {
+        float* o = out + static_cast<size_t>(slot) * 3 * T;
+        o[t] = mine.bnew;
+        o[T + t] = mine.comp(c.act);
+        o[2 * T + t] = mine.acum(c.act);
+        const float c1 = mine.dbeta * c.mstd;
+        coef[static_cast<size_t>(t) * W + r] = c1;
+        coef[wt + static_cast<size_t>(t) * W + r] = -c1 * c.mave;
+    }
 }
 
 // The per-window recurrence: num0 (W, T) and a standardized f32 Gram in,
-// the sampler's draw_rows form (bayesrrm_mt.py:384-388).
-template <bool SHARED>
-__global__ void window_recurrence_mt_kernel(const float* __restrict__ G,
-                                            const float* __restrict__ num0,
-                                            const float* __restrict__ mrow, int C,
-                                            int K, int T,
-                                            const int* __restrict__ order_w, int W,
-                                            const float* __restrict__ i2se,
-                                            float* __restrict__ out) {
-    extern __shared__ float sh[];   // num[T*W], db[T_MAX]
-    float* s_num = sh;
-    float* s_db = sh + static_cast<size_t>(T) * W;
-    for (int i = threadIdx.x; i < W; i += blockDim.x)
-        for (int t = 0; t < T; ++t) s_num[t * W + i] = num0[static_cast<size_t>(i) * T + t];
-    __syncthreads();
-    mt_recurrence<SHARED, true>(W, T, K, mrow, C, order_w, i2se, s_num, s_db,
-                                F32Gram{G, W}, WindowEmit{out, W, T});
+// the sampler's draw_rows form (bayesrrm_mt.py:384-388); out (4, W, T) =
+// [beta_new, comp, acum, dbeta]. The per-trait Gram (a masked product) is
+// not bitwise symmetric, so lane i reads G(i, j) = G[t][i][j] (row = the
+// marker it updates, column = the step), as the plain version's
+// gram[:, :, j] and the JAX scan's blocks[..., j]: a row a lane, from L2.
+template <int KB, bool FIXED, bool SHARED>
+__global__ void __launch_bounds__(1024)
+window_recurrence_mt_kernel(const float* __restrict__ G, const float* __restrict__ num0,
+                            const float* __restrict__ mrow, int C, int k_run, int T,
+                            const int* __restrict__ order_w, int W,
+                            const float* __restrict__ i2se, float* __restrict__ out) {
+    const int K = FIXED ? KB : k_run;
+    const int t = blockIdx.x, r = threadIdx.x;
+    extern __shared__ float sh[];
+    const bool live = r < W;
+    MtMarker<KB> c;
+    float numv = 0.f;
+    if (live) {
+        c.load(mrow + static_cast<size_t>(order_w[r]) * C, T, t, K);
+        numv = num0[static_cast<size_t>(r) * T + t];
+    }
+    const float* g_row = G + ((SHARED ? 0 : static_cast<size_t>(t) * W) + r) * W;
+    const float i2se_t = i2se[t];
+    const Draw mine = warp_recurrence(
+        W, numv, [&](int rj) { return g_row + rj; }, [](int, float g) { return g; },
+        [&](float num) { return normalized_draw(num, c, K, i2se_t); }, sh, sh + 4 * W);
+    if (live) {
+        const size_t wt = static_cast<size_t>(W) * T;
+        const size_t e = static_cast<size_t>(r) * T + t;
+        out[e] = mine.bnew;
+        out[wt + e] = mine.comp(c.act);
+        out[2 * wt + e] = mine.acum(c.act);
+        out[3 * wt + e] = mine.dbeta;
+    }
 }
 
 // ----------------------------------------------------------------- axpy --
@@ -523,8 +496,6 @@ inline size_t axpy_smem(int W, int T) {
     return sizeof(float) * (2 * static_cast<size_t>(T) * W + T_MAX + W);
 }
 
-inline int rec_threads(int W, int T) { return cdiv(W > T ? W : T, 32) * 32; }
-
 int launch_axpy_mt(const uint8_t* pk, int nb, const int* order_w, int W, int T,
                    const float* coef, int add_c2, int complete, const float* tm,
                    float* out, cudaStream_t stream) {
@@ -557,9 +528,12 @@ int run_sweep_mt(bool exact, const uint8_t* pk, float* eps, const float* tm,
     const int mode = !complete ? MODE_MISSING
                                : (exact ? MODE_EXACT_COMPLETE : MODE_STALE_COMPLETE);
     const dim3 stats_grid(n_tiles, cdiv(W, MT_STATS_ROWS));
-    const size_t draw_smem = sizeof(float) * (static_cast<size_t>(T) * W + T_MAX + 3 * W);
+    const size_t draw_smem = exact_draw_smem(W);
+    auto* const draw = by_components(K, exact_mt_draw_kernel<4, true>,
+                                     exact_mt_draw_kernel<8, false>,
+                                     exact_mt_draw_kernel<K_MAX, false>);
     if (exact) {
-        HYDRA_CHECK(allow_smem(exact_mt_draw_kernel, draw_smem));
+        HYDRA_CHECK(allow_smem(draw, draw_smem));
         HYDRA_CHECK(cudaMemsetAsync(ws.gram_acc, 0, sizeof(int) * gram_i8_acc_ints(W), stream));
     }
     for (int w = 0; w < n_windows; ++w) {
@@ -570,7 +544,7 @@ int run_sweep_mt(bool exact, const uint8_t* pk, float* eps, const float* tm,
         if (exact) {
             const int err = launch_gram_i8(pk, nb, order_w, W, ws.gram_acc, ws.gram, stream);
             if (err) return err;
-            exact_mt_draw_kernel<<<1, rec_threads(W, T), draw_smem, stream>>>(
+            draw<<<T, cdiv(W, 32) * 32, draw_smem, stream>>>(
                 mrow, C, K, T, order_w, W, ws.part_s1, ws.part_s2, ws.part_v, n_tiles,
                 ws.gram, sc, out, ws.coef);
         } else {
@@ -674,23 +648,18 @@ int hydra_mt_window_recurrence(const void* G, const void* num0, const void* mrow
     if (W < 1 || W > 1024 || T < 1 || T > T_MAX || K < 2 || K > K_MAX)
         return static_cast<int>(cudaErrorInvalidValue);
     const int C = T * (N_FIXED + 3 * K - 2);
-    const size_t smem = sizeof(float) * (static_cast<size_t>(T) * W + T_MAX);
-    const cudaStream_t st = static_cast<cudaStream_t>(stream);
-    const float* g = static_cast<const float*>(G);
-    const float* n0 = static_cast<const float*>(num0);
-    const float* mr = static_cast<const float*>(mrow);
-    const int* ro = static_cast<const int*>(rows);
-    const float* is = static_cast<const float*>(i2se);
-    float* o = static_cast<float*>(out);
-    if (shared) {
-        HYDRA_CHECK(allow_smem(window_recurrence_mt_kernel<true>, smem));
-        window_recurrence_mt_kernel<true><<<1, rec_threads(W, T), smem, st>>>(
-            g, n0, mr, C, K, T, ro, W, is, o);
-    } else {
-        HYDRA_CHECK(allow_smem(window_recurrence_mt_kernel<false>, smem));
-        window_recurrence_mt_kernel<false><<<1, rec_threads(W, T), smem, st>>>(
-            g, n0, mr, C, K, T, ro, W, is, o);
-    }
+    const size_t smem = exact_draw_smem(W);
+    auto* const rec = shared ? by_components(K, window_recurrence_mt_kernel<4, true, true>,
+                                             window_recurrence_mt_kernel<8, false, true>,
+                                             window_recurrence_mt_kernel<K_MAX, false, true>)
+                             : by_components(K, window_recurrence_mt_kernel<4, true, false>,
+                                             window_recurrence_mt_kernel<8, false, false>,
+                                             window_recurrence_mt_kernel<K_MAX, false, false>);
+    HYDRA_CHECK(allow_smem(rec, smem));
+    rec<<<T, cdiv(W, 32) * 32, smem, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(G), static_cast<const float*>(num0),
+        static_cast<const float*>(mrow), C, K, T, static_cast<const int*>(rows), W,
+        static_cast<const float*>(i2se), static_cast<float*>(out));
     HYDRA_CHECK_LAUNCH();
     return 0;
 }

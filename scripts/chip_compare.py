@@ -2,9 +2,14 @@
 """Real-size timings of one or more checkouts of the PyTorch/CUDA port, in
 turn, on one CUDA card: each tree's own ``chip_smoke.py`` phases 4 (exact
 W=128 and stale W=64 block), 4e (BayesFH exact W=128, stale W=64 marker
-through the two-phase and single-decode sweeps) and 4b (BayesW W=64 and
-W=1), and the stale W=1 sweep at M=10,000 x N=5,000, each with its
-per-kernel device time from ``profile_sweep`` / ``profile_run``.
+through the two-phase and single-decode sweeps), 4b (BayesW W=64 and W=1)
+and 4c (multi-trait T=4 exact W=128 and stale W=64 block, and the
+per-window path with 10% NaN), and the stale W=1 sweep at M=10,000 x
+N=5,000, each with its per-kernel device time from ``profile_sweep`` /
+``profile_run``. First, in every tree, this tree's
+``chip_smoke.print_digests`` (the same inputs everywhere, the tree's own
+kernels) prints the SHA-256 of the exact recurrences' outputs, so equal
+digests show two trees' kernels bit for bit the same.
 
 Compare two versions inside one call, in turns, e.g. a ``git archive`` of
 the parent unpacked into a git-ignored directory beside this tree:
@@ -13,8 +18,9 @@ the parent unpacked into a git-ignored directory beside this tree:
 
 Each run goes to ``DIR/compare_<i>_<tree>.log`` (default ``build/compare``,
 git-ignored); a summary line per configuration (ms/sweep, CUDA-event
-ms/sweep, device ms and busy share, host enqueue, and the stats and axpy
-kernels' device us per window) is printed at the end.
+ms/sweep, device ms and busy share, host enqueue, and the stats, axpy and
+exact recurrence kernels' device us per window) and the digests are
+printed at the end.
 """
 
 from __future__ import annotations
@@ -26,20 +32,25 @@ import sys
 
 # runs inside each tree (cwd), with that tree's chip_smoke.py and package
 PAYLOAD = r'''
-import os, sys, time
+import importlib.util, os, sys, time
 sys.path.insert(0, os.getcwd())
 import numpy as np
 import torch
 import chip_smoke as c
+spec = importlib.util.spec_from_file_location("digest_smoke", sys.argv[2])
+d = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(d)
 from hydra_tpu_torch.data.genotypes import (Dataset, GenotypeData,
                                             make_default_groups)
 from hydra_tpu_torch.ops import sweep_kernel as sk
 from hydra_tpu_torch.samplers.bayesrrm import BayesRRm
 card = sys.argv[1]
 torch.backends.cuda.matmul.allow_tf32 = False
+d.print_digests(torch, np)
 c.phase_real_size(torch, np, sk, card)
 c.phase_sd_real_size(torch, np, sk, card)
 c.phase_bw_real_size(torch, np, card)
+c.phase_mt_real_size(torch, np, card)
 dev = torch.device("cuda")
 m, n = 10_000, 5_000
 n_pad = c.padded_individuals(np, n)
@@ -70,8 +81,9 @@ c.profile_sweep(torch, sk, s, st, card)
 CONFIG = re.compile(r"real size (.*?): ([\d.,]+) ms/sweep")
 SWEEP = re.compile(r"host enqueue ([\d.]+) ms.*CUDA events ([\d.]+) ms/sweep; "
                    r"profiler device time ([\d.]+) ms \(([\d.]+)% busy")
-KERNEL = re.compile(r"([\d.]+) us/window\s+void hydra::(stats|axpy)_kernel"
-                    r"(<[^>]*>)?")
+KERNEL = re.compile(r"([\d.]+) us/window\s+(?:void )?hydra::(stats|axpy|exact_draw|"
+                    r"exact_mt_draw|window_recurrence_mt)_kernel(<[^>]*>)?\(")
+DIGEST = re.compile(r"^digest (.*): sha256 ([0-9a-f]{64})")
 
 
 def summary(path):
@@ -91,6 +103,10 @@ def summary(path):
             m = KERNEL.search(ln)
             if m and rows:
                 rows[-1] += f" {m.group(2)} {m.group(1)}"
+                continue
+            m = DIGEST.search(ln)
+            if m:
+                rows.append(f"  digest {m.group(1):44s} {m.group(2)}")
     return rows
 
 
@@ -103,6 +119,8 @@ def main(argv) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
+    smoke = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "chip_smoke.py")
     out = os.path.abspath(logs_dir)
     os.makedirs(out, exist_ok=True)
     logs, rc = [], 0
@@ -110,7 +128,7 @@ def main(argv) -> int:
         name = os.path.basename(os.path.abspath(tree))
         log = os.path.join(out, f"compare_{i}_{name}.log")
         with open(log, "w") as fh:
-            r = subprocess.run([sys.executable, "-c", PAYLOAD, card],
+            r = subprocess.run([sys.executable, "-c", PAYLOAD, card, smoke],
                                cwd=tree, stdout=fh, stderr=subprocess.STDOUT,
                                timeout=900).returncode
         print(f"tree {tree}: exit {r}, log {log}", flush=True)

@@ -66,12 +66,13 @@ def make_inputs(m, nb, seed, missing, n_pad_markers, k=K):
 
 
 def make_mt_inputs(m, nb, T, seed, missing, n_pad_markers, na_frac=0.0,
-                   shared_stats=False):
+                   shared_stats=False, k=K):
     """Multi-trait kernel inputs: packed genotypes as ``make_inputs``, the
     (n_pad, T) residual and trait mask (0 on the 37 pad individuals and on
     a fraction ``na_frac`` of NaN entries per trait, where eps is 0 too),
-    mrow rows (m, T*(3K+4)) and per-trait dNm1. shared_stats repeats
-    trait 0's mave/mstd for every trait (full phenotypes)."""
+    mrow rows (m, T*(3k+4)) of k mixture components and per-trait dNm1.
+    shared_stats repeats trait 0's mave/mstd for every trait (full
+    phenotypes)."""
     from hydra_tpu_torch.ops.sweep_kernel_mt import mt_mrow_width
     pk, _, _, _, n = make_inputs(m, nb, seed, missing, 0)
     rs = np.random.RandomState(seed + 1)
@@ -85,21 +86,21 @@ def make_mt_inputs(m, nb, T, seed, missing, n_pad_markers, na_frac=0.0,
         x = rs.uniform(lo, hi, (m, T))
         return np.repeat(x[:, :1], T, axis=1) if shared_stats else x
 
-    blocks = np.zeros((m, 3 * K + 4, T))
+    blocks = np.zeros((m, 3 * k + 4, T))
     blocks[:, 0] = per_trait(0.2, 1.8)                    # mave
     blocks[:, 1] = per_trait(0.8, 1.6)                    # mstd
     blocks[:, 2] = rs.randn(m, T) * 0.02                  # beta_old
     blocks[:, 3] = rs.uniform(0, 1, (m, T))               # u
     blocks[:, 4] = rs.randn(m, T)                         # nrm
     blocks[:, 5] = 1.0                                    # act
-    blocks[:, 6:6 + K] = np.log(rs.dirichlet(np.ones(K), (m, T))).transpose(
+    blocks[:, 6:6 + k] = np.log(rs.dirichlet(np.ones(k), (m, T))).transpose(
         0, 2, 1)
-    blocks[:, 6 + K:5 + 2 * K] = rs.uniform(8e-4, 1.2e-3, (m, K - 1, T))
-    blocks[:, 5 + 2 * K:] = rs.uniform(0.02, 0.04, (m, K - 1, T))
+    blocks[:, 6 + k:5 + 2 * k] = rs.uniform(8e-4, 1.2e-3, (m, k - 1, T))
+    blocks[:, 5 + 2 * k:] = rs.uniform(0.02, 0.04, (m, k - 1, T))
     blocks[pads, :3] = 0.0
     blocks[pads, 5] = 0.0
     mrow = blocks.reshape(m, -1).astype(np.float32)
-    assert mrow.shape[1] == mt_mrow_width(K, T)
+    assert mrow.shape[1] == mt_mrow_width(k, T)
     dnm1 = (tm.sum(axis=0) - 1.0).astype(np.float32)
     return pk, eps, tm, mrow, dnm1
 
@@ -339,10 +340,11 @@ def test_cuda_bw_sampler_sweep_matches_cpu(window):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("exact,missing,na_frac", [
-    (False, False, 0.0), (False, True, 0.1), (True, False, 0.0)])
+    (False, False, 0.0), (False, True, 0.1)])
 def test_cuda_mt_sweep_matches_plain(exact, missing, na_frac):
-    """On the card: the multi-trait sweep kernels against their plain
-    versions (f32 reduction order only), and bitwise-repeatable."""
+    """On the card: the multi-trait stale sweep kernels against their plain
+    versions (f32 reduction order only), and bitwise-repeatable. The exact
+    sweep is a case of test_cuda_mt_recurrence_matches_plain."""
     from hydra_tpu_torch.ops import sweep_kernel_mt as tskmt
     dev = _card()
     T = 4
@@ -376,47 +378,126 @@ def test_cuda_mt_sweep_matches_plain(exact, missing, na_frac):
 @pytest.mark.cuda
 @pytest.mark.parametrize("missing,na_frac", [(False, 0.1), (True, 0.0)])
 def test_cuda_mt_window_kernels_match_plain(missing, na_frac):
-    """window_stats_mt, window_axpy_mt and the recurrence (shared and
-    per-trait Gram) on the card against their plain versions."""
-    from hydra_tpu_torch.ops import sweep_kernel_mt as tskmt
+    """window_stats_mt and window_axpy_mt on the card against their plain
+    versions (the recurrence: test_cuda_mt_recurrence_matches_plain)."""
     dev = _card()
     T, W = 4, 32
-    pk, eps, tm, mrow, dnm1 = make_mt_inputs(96, 256, T, 9, missing, 3,
-                                             na_frac)
-    pk, eps, tm, mrow = (torch.from_numpy(a).to(dev)
-                         for a in (pk, eps, tm, mrow))
+    pk, eps, _, _, _ = make_mt_inputs(96, 256, T, 9, missing, 3, na_frac)
+    pk, eps = (torch.from_numpy(a).to(dev) for a in (pk, eps))
     rows = torch.randperm(96, device=dev)[:W].to(torch.int32)
     g = torch.Generator(device=dev).manual_seed(2)
     c1 = 0.05 * torch.randn(T, W, generator=g, device=dev)
     c2 = 0.05 * torch.randn(T, W, generator=g, device=dev)
-    num0 = torch.randn(W, T, generator=g, device=dev) * 20.0
-    x = torch.randn(T, W, 600, generator=g, device=dev)
-    gram_t = x @ x.transpose(1, 2)
-    i2se = torch.tensor([0.6, 0.7, 0.8, 0.9], device=dev)
-    before = {**twk.launches, **tskmt.launches}
+    before = dict(twk.launches)
     s_k = twk.window_stats_mt(pk, eps, not missing, rows)
     s_r = twk.window_stats_mt_ref(pk, eps, not missing, rows)
     d_k = twk.window_axpy_mt(pk, c1, c2, not missing, rows)
     d_r = twk.window_axpy_mt_ref(pk, c1, c2, not missing, rows)
-    rec = [(tskmt.mt_window_recurrence(gr, num0, mrow, i2se, n_mix=K,
-                                       rows=rows),
-            tskmt.mt_window_recurrence_ref(gr, num0, mrow, i2se, n_mix=K,
-                                           rows=rows))
-           for gr in (gram_t, gram_t[0].contiguous())]
     torch.cuda.synchronize()
-    after = {**twk.launches, **tskmt.launches}
-    for name, count in (("window_stats_mt", 1), ("window_axpy_mt", 1),
-                        ("mt_window_recurrence", 2)):
-        assert after[name] == before[name] + count
+    for name in ("window_stats_mt", "window_axpy_mt"):
+        assert twk.launches[name] == before[name] + 1
     assert (s_k[1] is None) == (s_r[1] is None) == (not missing)
     for a, b in zip(s_k, s_r):
         if b is not None:
             torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-4)
     torch.testing.assert_close(d_k, d_r, rtol=1e-5, atol=1e-5)
-    for k_out, r_out in rec:
-        assert torch.equal(k_out[1], r_out[1])
-        for a, b in zip(k_out, r_out):
-            torch.testing.assert_close(a, b, atol=5e-4, rtol=1e-3)
+
+
+def mt_recurrence_inputs(source, window, n_traits, n_mix, dev):
+    """(args, kwargs) of one multi-trait exact recurrence on ``dev``:
+    ``"sweep"`` two windows of ``sweep_exact_mt`` (complete genotypes, full
+    phenotypes: the trait-shared integer Gram), with the markers' own mave
+    and mstd so the chain stays finite at any W; ``"shared"`` and
+    ``"per_trait"`` one window of ``mt_window_recurrence`` on a (W, W) or
+    (T, W, W) Gram of 1,024 standard normal columns (the scale of the
+    rows' 1/N-sized inv_denom) and num0 of the same scale. The per-trait
+    Gram is made unsymmetric: half the off-diagonal spread of noise."""
+    from hydra_tpu_torch.ops.decode import decode_planes_hp
+    W, T = window, n_traits
+    m = 2 * W
+    pk, eps, tm, mrow, dnm1 = make_mt_inputs(m, 128, T, W + 7 * n_mix,
+                                             False, 3, shared_stats=True,
+                                             k=n_mix)
+    i2se = torch.linspace(0.6, 0.9, T)
+    gen = torch.Generator().manual_seed(W)
+    if source == "sweep":
+        g, msk = (x.double() for x in decode_planes_hp(torch.from_numpy(pk)))
+        n = msk.sum(dim=1)
+        mave = g.sum(dim=1) / n.clamp(min=1.0)
+        var = (((g - mave[:, None]) * msk) ** 2).sum(dim=1)
+        mstd = torch.where(n > 1, torch.sqrt((n - 1) / var.clamp(min=1.0)),
+                           0.0)
+        b = mrow.reshape(m, -1, T)
+        b[:, 0], b[:, 1] = mave[:, None].numpy(), mstd[:, None].numpy()
+        order = tsk.block_order(torch.randperm(2, generator=gen), W)
+        args = [torch.from_numpy(a) for a in (pk, eps, tm, mrow)]
+        args = [a.to(dev) for a in args + [i2se, torch.from_numpy(dnm1)]]
+        return args, dict(window=W, n_mix=n_mix, order=order.to(dev))
+    rows = torch.randperm(m, generator=gen)[:W].to(torch.int32)
+    num0 = 30.0 * torch.randn(W, T, generator=gen)
+    x = torch.randn(T if source == "per_trait" else 1, W, 1024,
+                    generator=gen).to(dev)
+    gram = x @ x.transpose(1, 2)
+    if source == "per_trait":
+        off = gram[:, ~torch.eye(W, dtype=torch.bool, device=dev)]
+        gram = gram + 0.5 * off.std() * torch.randn(
+            T, W, W, generator=gen).to(dev)
+    else:
+        gram = gram[0]
+    args = [gram.contiguous()] + [a.to(dev) for a in (
+        num0, torch.from_numpy(mrow), i2se)]
+    return args, dict(n_mix=n_mix, rows=rows.to(dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_mix", [2, 4, 6, 12])
+@pytest.mark.parametrize("n_traits", [1, 4, 16])
+@pytest.mark.parametrize("window", [8, 31, 32, 33, 128, 200, 1024])
+@pytest.mark.parametrize("source", ["sweep", "shared", "per_trait"])
+def test_cuda_mt_recurrence_matches_plain(source, window, n_traits, n_mix):
+    """The multi-trait exact recurrence on the card against its plain
+    versions: exact_mt_draw_kernel through sweep_exact_mt (its trait-shared
+    integer Gram) and window_recurrence_mt_kernel through
+    mt_window_recurrence (a shared or a per-trait f32 Gram); within
+    tolerance, components equal, bitwise repeatable, one launch a call.
+    The windows cross the kernels' 32-marker blocks (31, 33, 200: a ragged
+    last block) up to the largest W; K = 4 and the register bounds 8 and
+    K_MAX. The per-trait Gram is not symmetric, and the plain version on
+    its transpose is checked to fall outside the tolerance, so a
+    transposed read fails."""
+    from hydra_tpu_torch.ops import sweep_kernel_mt as tskmt
+    dev = _card()
+    T = n_traits
+    args, kw = mt_recurrence_inputs(source, window, T, n_mix, dev)
+    if source == "sweep":
+        name, fn, ref = ("sweep_exact_mt", tskmt.sweep_exact_mt,
+                         tskmt.sweep_exact_mt_ref)
+
+        def comp(o):
+            return o[1][:, T:2 * T]
+    else:
+        name, fn, ref = ("mt_window_recurrence", tskmt.mt_window_recurrence,
+                         tskmt.mt_window_recurrence_ref)
+
+        def comp(o):
+            return o[1]
+    before = tskmt.launches[name]
+    k1, k2 = fn(*args, **kw), fn(*args, **kw)
+    r = ref(*args, **kw)
+    torch.cuda.synchronize()
+    assert tskmt.launches[name] == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(k1, k2))
+    assert torch.equal(comp(k1), comp(r))
+    for a, b in zip(k1, r):
+        torch.testing.assert_close(a, b, atol=5e-4, rtol=1e-3)
+    assert torch.unique(comp(k1)).numel() >= min(3, n_mix)
+    if source == "sweep":
+        assert torch.all(k1[0][args[2] == 0.0] == 0.0)
+    if source == "per_trait":
+        swapped = ref(args[0].transpose(1, 2).contiguous(), *args[1:], **kw)
+        assert not torch.equal(comp(swapped), comp(r)) or any(
+            not torch.allclose(a, b, atol=5e-4, rtol=1e-3)
+            for a, b in zip(swapped, r))
 
 
 @pytest.mark.cuda

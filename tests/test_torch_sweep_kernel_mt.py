@@ -42,18 +42,18 @@ SWEEP_CASES = [
 ]
 
 
-@pytest.mark.parametrize("exact,missing,na_frac,use_perm,n_pads,window",
-                         SWEEP_CASES)
-def test_sweep_mt_matches_jax(exact, missing, na_frac, use_perm, n_pads,
-                              window):
-    m, nb = 64, 128
-    pk, eps, tm, mrow, dnm1 = make_mt_inputs(m, nb, T, 3 + window, missing,
-                                             n_pads, na_frac,
-                                             shared_stats=exact)
+def _sweep_vs_jax(exact, missing, na_frac, use_perm, n_pads, window, seed,
+                  m=64, n_mix=K):
+    """One multi-trait sweep of the JAX kernel and of the port's wrapper on
+    CPU tensors (its plain version) from the same numpy inputs."""
+    nb = 128
+    pk, eps, tm, mrow, dnm1 = make_mt_inputs(m, nb, T, seed, missing, n_pads,
+                                             na_frac, shared_stats=exact,
+                                             k=n_mix)
     i2se = np.array([0.6, 0.7, 0.8], np.float32)
     wp = (np.random.RandomState(5).permutation(m // window).astype(np.int32)
           if use_perm else None)
-    kw = dict(window=window, n_mix=K, n_traits=T, interpret=True,
+    kw = dict(window=window, n_mix=n_mix, n_traits=T, interpret=True,
               win_perm=None if wp is None else jnp.asarray(wp))
     args = (jnp.asarray(pk), deinterleave_mt(jnp.asarray(eps)),
             deinterleave_mt(jnp.asarray(tm)), jnp.asarray(mrow),
@@ -68,10 +68,10 @@ def test_sweep_mt_matches_jax(exact, missing, na_frac, use_perm, n_pads,
     order = None if wp is None else block_order(torch.from_numpy(wp), window)
     before = dict(tskmt.launches)
     if exact:
-        e_t, o_t = tskmt.sweep_exact_mt(*t_args, window=window, n_mix=K,
+        e_t, o_t = tskmt.sweep_exact_mt(*t_args, window=window, n_mix=n_mix,
                                         order=order)
     else:
-        e_t, o_t = tskmt.sweep_stale_mt(*t_args, window=window, n_mix=K,
+        e_t, o_t = tskmt.sweep_stale_mt(*t_args, window=window, n_mix=n_mix,
                                         complete=not missing, order=order)
     assert tskmt.launches == before      # CPU tensors: plain version only
     e_t, o_t = e_t.numpy(), o_t.numpy()
@@ -81,8 +81,28 @@ def test_sweep_mt_matches_jax(exact, missing, na_frac, use_perm, n_pads,
     np.testing.assert_allclose(o_t[:, 2 * T:], o_j[:, 2 * T:], atol=5e-4,
                                rtol=1e-3)
     # the draws did something; pads and NaN entries stay zero
-    assert len(np.unique(o_t[:, T:2 * T])) >= 3
+    assert len(np.unique(o_t[:, T:2 * T])) >= min(3, n_mix)
     assert np.all(e_t[tm == 0.0] == 0.0)
+
+
+@pytest.mark.parametrize("exact,missing,na_frac,use_perm,n_pads,window",
+                         SWEEP_CASES)
+def test_sweep_mt_matches_jax(exact, missing, na_frac, use_perm, n_pads,
+                              window):
+    _sweep_vs_jax(exact, missing, na_frac, use_perm, n_pads, window,
+                  3 + window)
+
+
+@pytest.mark.parametrize("window", [24, 40])
+@pytest.mark.parametrize("n_mix", [2, 5])
+def test_sweep_exact_mt_any_components_matches_jax(n_mix, window):
+    """The exact sweep's plain version, which the card holds the CUDA
+    exact_mt_draw_kernel against, pinned to the JAX kernel at mixture sizes
+    beside the default K = 4 (the kernel's register bounds 8 and K_MAX) and
+    at windows that are not a multiple of the kernel's 32-marker blocks
+    (W=40: a ragged second block)."""
+    _sweep_vs_jax(True, False, 0.0, window == 24, 3, window, 40 + n_mix,
+                  m=2 * window, n_mix=n_mix)
 
 
 @pytest.mark.parametrize("missing,na_frac", [(False, 0.1), (True, 0.0)])
@@ -184,3 +204,52 @@ def test_wrappers_reject_bad_operands():
     with pytest.raises(ValueError, match="gram must be"):
         tskmt.mt_window_recurrence(torch.zeros(8, 8), torch.zeros(16, T),
                                    mrow[:16], i2se, n_mix=K)
+
+
+@pytest.mark.parametrize("n_traits", [1, 4])
+def test_recurrence_unsymmetric_gram_matches_window_gibbs(n_traits):
+    """The per-window recurrence's plain version, which the card holds
+    window_recurrence_mt_kernel against, against the JAX window_gibbs
+    kernel with a per-trait Gram that is deliberately not symmetric. Both
+    read G(i, j) with i the marker updated and j the step (window_gibbs
+    row j of its Gram for marker j; the JAX scan blocks[..., j]). The
+    inputs are checked to tell G from its transpose, so a transposed read
+    on either side fails. W=40 crosses the kernel's 32-marker blocks."""
+    W, nt = 40, n_traits
+    pk, eps, tm, mrow, dnm1 = make_mt_inputs(W, 128, nt, 17 + nt, True, 2,
+                                             0.1)
+    b = mrow.reshape(W, -1, nt)
+    g, msk = decode_planes_hp(torch.from_numpy(pk))
+    g, msk = g.numpy(), msk.numpy()
+    xt = (g[None] - b[:, 0].T[:, :, None] * msk[None]) * b[:, 1].T[:, :, None]
+    gram = np.einsum("twn,tvn->twv", xt * tm.T[:, None, :], xt)
+    off = gram[:, ~np.eye(W, dtype=bool)]
+    rs = np.random.RandomState(6)
+    gram = (gram + 0.3 * off.std() * rs.randn(*gram.shape)).astype(np.float32)
+    num0 = (np.einsum("twn,nt->wt", xt, eps) + b[:, 2] * dnm1).astype(
+        np.float32)
+    i2se = np.array([0.6, 0.7, 0.8, 0.9][:nt], np.float32)
+    args = (torch.from_numpy(num0), torch.from_numpy(mrow),
+            torch.from_numpy(i2se))
+    before = dict(tskmt.launches)
+    bnew, comp, acum, db = tskmt.mt_window_recurrence(
+        torch.from_numpy(gram), *args, n_mix=K)
+    assert tskmt.launches == before
+    swapped = tskmt.mt_window_recurrence(
+        torch.from_numpy(gram.transpose(0, 2, 1).copy()), *args, n_mix=K)
+    assert not torch.equal(swapped[1], comp) or any(
+        not torch.allclose(x, y, atol=5e-4, rtol=1e-3)
+        for x, y in zip(swapped, (bnew, comp, acum, db)))
+    for t in range(nt):
+        bt = b[:, :, t]
+        db_j, b_j, c_j, a_j = window_gibbs(
+            jnp.asarray(gram[t]), jnp.asarray(num0[:, t]),
+            jnp.asarray(bt[:, 6:6 + K]), jnp.asarray(bt[:, 6 + K:5 + 2 * K]),
+            jnp.asarray(bt[:, 5 + 2 * K:]), jnp.asarray(bt[:, 3]),
+            jnp.asarray(bt[:, 4]), jnp.asarray(bt[:, 5]),
+            jnp.asarray(bt[:, 2]), float(i2se[t]), interpret=True)
+        np.testing.assert_array_equal(comp[:, t].numpy(), np.asarray(c_j))
+        for x, y in ((bnew, b_j), (acum, a_j), (db, db_j)):
+            np.testing.assert_allclose(x[:, t].numpy(), np.asarray(y),
+                                       atol=5e-4, rtol=1e-3)
+    assert len(np.unique(comp.numpy())) >= 3
