@@ -287,6 +287,40 @@ def check_stats_bitwise(torch, label, pk, eps, mrow, rows, exact, complete,
                              "plain version")
 
 
+def check_mt_bitwise(kernel, label, same, card):
+    """A multi-trait packed pass against its plain version in the kernel's
+    order (window_kernels.window_stats_mt_seq, window_axpy_mt_seq,
+    sweep_update_mt_ref): must be equal bit for bit."""
+    print(f"  {kernel} through {label}: bit for bit the plain version in its "
+          f"order {same}  [{card}]", flush=True)
+    if not same:
+        raise AssertionError(f"{kernel} through {label} differs from its "
+                             "plain version")
+
+
+def print_mt_stream_bounds(W, nb, T, launches, missing=False):
+    """The least time of one window's stats_mt_kernel and axpy_mt_kernel
+    launches. Bytes: each reads the W packed rows and the order once; the
+    stats eps (n_pad, T) once and write s1, s2 per tile, row and trait (and
+    v); the axpy reads eps and tm and writes eps, with c1 and c2 (T, W).
+    Operations: one f32 multiply-add (2 operations) per genotype and trait
+    for s1 and for the axpy, twice that with missing genotypes (s2 = sum
+    m*eps; c2*m)."""
+    n_pad, n_tiles = 4 * nb, -(-nb // 512)
+    ops = {"f32": (4.0 if missing else 2.0) * T * W * n_pad}
+    parts = []
+    for name, nbytes in (
+            ("stats_mt_kernel",
+             W * nb + 4 * W + 4 * T * n_pad + 4 * n_tiles * W * (2 * T + 1)),
+            ("axpy_mt_kernel", W * nb + 4 * W + 8 * T * W + 12 * T * n_pad)):
+        ms, by = bound(nbytes, ops)
+        parts.append(f"{name} {1e3 * ms:.4f} us ({by}; bytes "
+                     f"{1e6 * nbytes / HBM_BYTES_PER_S:.4f} us)")
+    print(f"  bound per window (W={W}, T={T}, nb={nb}): {', '.join(parts)}; "
+          f"operations {1e6 * ops['f32'] / PEAK_OPS_PER_S['f32']:.4f} us; "
+          f"{launches} launches a sweep each", flush=True)
+
+
 def print_stream_bounds(W, nb, launches, stats=True, axpy=True,
                         refresh=False, decode=False):
     """The least time of one window's stats_kernel and axpy_kernel launches
@@ -1003,8 +1037,10 @@ def print_digests(torch, np):
     (M=4,096 x N=50,000, T=4 with full phenotypes; the recurrences at
     W=128, the stale sweep at W=64): sweep_exact_mt (eps, out), one window
     of mt_window_recurrence on a shared and on a per-trait Gram (10% NaN
-    per trait), sweep_stale_mt, and BayesRRm's sweep_exact. Two trees'
-    kernels are bit for bit the same where their digests are
+    per trait), sweep_stale_mt, BayesRRm's sweep_exact, and with 2%
+    missing genotypes and 10% NaN per trait sweep_stale_mt, window_stats_mt
+    and window_axpy_mt. Two trees' kernels are bit for bit the same where
+    their digests are
     (scripts/chip_compare.py runs this in each tree). Returns {name:
     digest}."""
     from hydra_tpu_torch.ops import sweep_kernel as sk
@@ -1054,6 +1090,23 @@ def print_digests(torch, np):
         pk, eps[:, 0].contiguous(), rows1, 1.0 / (2 * SIGMA_E),
         float(n - 1), window=W, n_mix=K, complete=True,
         ind_mask=tm[:, 0].contiguous(), order=order)
+    # the packed passes' missing-genotype modes: 2% missing genotypes, 10%
+    # NaN per trait, through the stale sweep and the per-window passes
+    pk, mave, mstd, _ = device_genotypes(torch, m, n, n_pad, gen, 0.02)
+    pk[pads] = 0xFF
+    mrow = mt_kernel_rows(torch, mave, mstd, gen, n, pads, T)
+    tm = torch.zeros((n_pad, T), device=dev)
+    tm[:n] = (torch.rand((n, T), generator=gen, device=dev) >= 0.1).float()
+    eps = 0.8 * torch.randn((n_pad, T), generator=gen, device=dev) * tm
+    data = "missing 2%, NaN 10%"
+    outs[f"sweep_stale_mt W=64 {data}"] = skmt.sweep_stale_mt(
+        pk, eps, tm, mrow, i2se, tm.sum(dim=0) - 1.0, window=64, n_mix=K,
+        complete=False, order=order64)
+    outs[f"window_stats_mt W=128 {data}"] = wk.window_stats_mt(
+        pk, eps, False, rows)
+    c1 = 0.01 * torch.randn((T, W), generator=gen, device=dev)
+    outs[f"window_axpy_mt W=128 {data}"] = (wk.window_axpy_mt(
+        pk, c1, -c1 * mave[slots][None, :], False, rows),)
     torch.cuda.synchronize()
     digests = {}
     for name, tensors in outs.items():
@@ -1073,7 +1126,7 @@ def phase_mt_kernels(torch, np, card):
     per-window kernels at W=128 with and without NaN."""
     from hydra_tpu_torch.ops import sweep_kernel_mt as skmt
     from hydra_tpu_torch.ops import window_kernels as wk
-    from hydra_tpu_torch.ops.decode import decode_planes_hp
+    from hydra_tpu_torch.ops.decode import decode_h, decode_planes_hp
     from hydra_tpu_torch.ops.sweep_kernel import block_order
     dev = torch.device("cuda")
     m, n, T = 4096, 50_000, 4
@@ -1120,6 +1173,11 @@ def phase_mt_kernels(torch, np, card):
                     lambda: fn(pk, eps, tm, mrow, i2se, dnm1, **kw),
                     lambda: ref(pk, eps, tm, mrow, i2se, dnm1, **kw), 5,
                     comp_of=lambda o: o[1][:, T:2 * T])
+                e_k, o_k = fn(pk, eps, tm, mrow, i2se, dnm1, **kw)
+                check_mt_bitwise("axpy_mt_kernel", f"{name} W={window} {data}",
+                                 torch.equal(e_k, wk.sweep_update_mt_ref(
+                                     pk, eps, tm, mrow, o_k, kw["order"],
+                                     window, not missing)), card)
                 if full:
                     r = rec[name]
                     r["ms"], r["plain_ms"] = ms, plain_ms
@@ -1134,17 +1192,35 @@ def phase_mt_kernels(torch, np, card):
                         ops["int8"] = (window + 1.0) * m * n_pad
                     r["bound_ms"], r["bound_by"] = bound(nbytes, ops)
                     print_bound(name, r)
-        if missing:
-            continue
-        # the per-window kernels on one window of W=128 rows: complete
-        # genotypes with and without NaN phenotypes (the branch-3 main
-        # path is complete genotypes with NaN)
+        # the per-window kernels on one window of W=128 rows: bit for bit
+        # their plain versions in the kernels' order (complete data: but the pad rows' and pad individuals' h = 3
+        # products, which the plain versions round and the kernels fuse)
         W = 128
         rows = torch.randperm(m, generator=gen, device=dev)[:W].to(
             torch.int32)
         slots = rows.long()
         c1 = 0.01 * torch.randn((T, W), generator=gen, device=dev)
         c2 = -c1 * mave[slots][None, :]
+        real = ~torch.isin(slots, pads)
+        c1b = c1 * real                        # pad rows: mstd = 0, c1 = 0
+        c2b = -c1b * mave[slots][None, :]
+        complete = not missing
+        keep = real if complete else slice(None)
+        check_mt_bitwise("stats_mt_kernel", f"window_stats_mt W={W} {data}",
+                         all(torch.equal(a[keep], b[keep]) for a, b in zip(
+                             wk.window_stats_mt(pk, eps, complete, rows),
+                             wk.window_stats_mt_seq(pk, eps, complete, rows))
+                             if b is not None), card)
+        ind = slice(None, n) if complete else slice(None)
+        check_mt_bitwise("axpy_mt_kernel", f"window_axpy_mt W={W} {data}",
+                         torch.equal(
+                             wk.window_axpy_mt(pk, c1b, c2b, complete,
+                                               rows)[ind],
+                             wk.window_axpy_mt_seq(pk, c1b, c2b, complete,
+                                                   rows)[ind]), card)
+        if missing:
+            continue
+        # the same window against the matmul plain versions
         compare("window_stats_mt", f"W={W} {data}",
                 lambda: wk.window_stats_mt(pk, eps, True, rows),
                 lambda: wk.window_stats_mt_ref(pk, eps, True, rows), 20)
@@ -1202,7 +1278,30 @@ def phase_mt_kernels(torch, np, card):
                 r["plain_ms"], _ = cuda_ms(torch, ref, 1)
             r["bound_ms"], r["bound_by"] = bound(nbytes, ops)
             print_bound(name, r)
-        del pk, mrow, eps, tm, gram
+        # the library's yardstick: one torch.mm of the window's rows,
+        # decoded to f32 before timing, against eps (n_pad, T) or c1; the
+        # same 20 calls as device time alone (the CUDA-event times include
+        # the host's enqueue of each call)
+        hw = decode_h(pk[slots])
+        for name, fn, lib in (
+                ("window_stats_mt",
+                 lambda: wk.window_stats_mt(pk, eps, True, rows),
+                 lambda: torch.mm(hw, eps)),
+                ("window_axpy_mt",
+                 lambda: wk.window_axpy_mt(pk, c1, c2, True, rows),
+                 lambda: torch.mm(hw.t(), c1.t()))):
+            r = rec[name]
+            lib()
+            r["library_ms"], _ = cuda_ms(torch, lib, 20)
+            for key, f in (("device_ms", fn), ("library_device_ms", lib)):
+                per = device_times(torch, lambda: [f() for _ in range(20)],
+                                   name)
+                r[key] = sum(v[1] for v in per.values()) / 20
+            print(f"{name:19s} library torch.mm on the decoded rows "
+                  f"{r['library_ms']:.4f} ms; device time per call: kernel "
+                  f"{r['device_ms']:.4f} ms, library "
+                  f"{r['library_device_ms']:.4f} ms  [{card}]", flush=True)
+        del pk, mrow, eps, tm, gram, hw
     print_digests(torch, np)
     return rec
 
@@ -1322,23 +1421,29 @@ def phase_mt_cli(torch, np, tmp):
     return launches
 
 
-def print_mt_draw_bound(W, nb, C, T, per_trait):
-    """The least time of one window's multi-trait recurrence launch.
-    exact_mt_draw_kernel (the exact sweep): the stats partials (s1 and s2
-    per trait, v), the W mrow rows, the order and the (W, W) Gram in, out
-    and coef out. window_recurrence_mt_kernel (the per-window path): the
-    (T, W, W) Gram, num0, the W mrow rows, the order and i2se in, (4, W, T)
-    out. Both: the rank-1 update (2 T W^2 f32) and ~100 f32 operations a
-    draw."""
+def print_mt_draw_bound(W, nb, C, T, kind):
+    """The least time of one window's multi-trait draw launch.
+    exact_mt_draw_kernel ("exact", the exact sweep): the stats partials (s1
+    and s2 per trait, v), the W mrow rows, the order and the (W, W) Gram in,
+    out and coef out. window_recurrence_mt_kernel ("per_trait", the
+    per-window path): the (T, W, W) Gram, num0, the W mrow rows, the order
+    and i2se in, (4, W, T) out. Both: the rank-1 update (2 T W^2 f32) and
+    ~100 f32 operations a draw. stale_draw_mt_kernel ("stale"): the stats
+    partials (s1, s2), the W mrow rows, the order and sc in, out and coef
+    out; ~100 f32 operations a draw."""
+    n_tiles = -(-nb // 512)
     ops = {"f32": 2.0 * T * W * W + 100.0 * W * T}
-    if per_trait:
+    if kind == "per_trait":
         name = "window_recurrence_mt_kernel"
         nbytes = 4 * (T * W * W + W * T + W * C + W + T + 4 * W * T)
-    else:
+    elif kind == "exact":
         name = "exact_mt_draw_kernel"
-        n_tiles = -(-nb // 512)
         nbytes = 4 * (n_tiles * W * (2 * T + 1) + W * C + W + W * W
                       + 2 * T + 1 + 5 * W * T)
+    else:
+        name = "stale_draw_mt_kernel"
+        ops = {"f32": 100.0 * W * T}
+        nbytes = 4 * (2 * n_tiles * W * T + W * C + W + 2 * T + 1 + 5 * W * T)
     ms, by = bound(nbytes, ops)
     print(f"  bound per window (W={W}, T={T}, nb={nb}): {name} "
           f"{1e3 * ms:.4f} us ({by})", flush=True)
@@ -1419,11 +1524,74 @@ def phase_mt_real_size(torch, np, card):
             n_launch = "4 kernel + torch"
         profile_run(torch, run, f"mt {label} W={window}", n_launch, card,
                     cfg.n_windows)
-        if exact:
-            print_mt_draw_bound(window, s.packed.shape[1], mrow.shape[1], T,
-                                na_frac > 0.0)
+        print_mt_stream_bounds(window, s.packed.shape[1], T, cfg.n_windows)
+        print_mt_draw_bound(window, s.packed.shape[1], mrow.shape[1], T,
+                            "stale" if not exact else
+                            "per_trait" if na_frac > 0.0 else "exact")
         del s, st, mrow
     del pk
+
+
+def print_mt_pass_times(torch, np, card):
+    """Device time per call of the multi-trait packed passes alone,
+    stats_mt_kernel (through window_stats_mt) and axpy_mt_kernel (through
+    window_axpy_mt), at N=50,000 (nb = 12,544) on fixed-seed rows of
+    M=4,096 markers with 10% NaN per trait: complete and 2% missing
+    genotypes, T = 1, 4 and 16, W = 64 and 128; torch.profiler over 20
+    calls after a warm-up (a configuration whose profile comes back empty
+    three times reads "not measured"). scripts/chip_compare.py runs this
+    tree's version in every tree, so two trees' kernels meet the same
+    calls."""
+    from hydra_tpu_torch.ops import window_kernels as wk
+    dev = torch.device("cuda")
+    m, n, calls = 4096, 50_000, 20
+    n_pad = padded_individuals(np, n)
+    gen = torch.Generator(device=dev).manual_seed(23)
+    for missing in (0.0, 0.02):
+        pk, _, _, _ = device_genotypes(torch, m, n, n_pad, gen, missing)
+        complete = not missing
+        for T in (1, 4, 16):
+            tm = torch.zeros((n_pad, T), device=dev)
+            tm[:n] = (torch.rand((n, T), generator=gen, device=dev)
+                      >= 0.1).float()
+            eps = torch.randn((n_pad, T), generator=gen, device=dev) * tm
+            for W in (64, 128):
+                rows = torch.randperm(m, generator=gen, device=dev)[:W].to(
+                    torch.int32)
+                c1 = 0.01 * torch.randn((T, W), generator=gen, device=dev)
+                c2 = 0.01 * torch.randn((T, W), generator=gen, device=dev)
+                us = []
+                for kernel, fn in (
+                        ("stats_mt_kernel",
+                         lambda: wk.window_stats_mt(pk, eps, complete, rows)),
+                        ("axpy_mt_kernel",
+                         lambda: wk.window_axpy_mt(pk, c1, c2, complete,
+                                                   rows))):
+                    fn()
+                    per = None
+                    for _ in range(3):
+                        # a profiler session among many short ones now and
+                        # then records no device activity: a timing only,
+                        # so try again, then report it not measured
+                        try:
+                            per = device_times(
+                                torch, lambda: [fn() for _ in range(calls)],
+                                kernel)
+                            break
+                        except AssertionError:
+                            time.sleep(1.0)
+                    if per is None:
+                        us.append("not measured")
+                        continue
+                    dev_ms = sum(ms for k, (_, ms) in per.items()
+                                 if f"::{kernel}<" in k or f"::{kernel}(" in k)
+                    us.append(f"{dev_ms * 1e3 / calls:.2f} us")
+                print(f"mt pass T={T} W={W} "
+                      f"{'missing' if missing else 'complete'}: "
+                      f"stats_mt_kernel {us[0]}, axpy_mt_kernel {us[1]} a "
+                      f"call  [{card}]", flush=True)
+            del tm, eps
+        del pk
 
 
 def phase_window_kernels(torch, np, card):
@@ -2054,6 +2222,7 @@ def main() -> int:
         phase_bw_real_size(torch, np, card)
     with phase("4c: multi-trait real size (M=100,000 x N=50,000, T=4)"):
         phase_mt_real_size(torch, np, card)
+        print_mt_pass_times(torch, np, card)
     with phase("4d: per-window branch real size (M=100,000 x N=50,000) and "
                "stale W=1"):
         phase_window_real_size(torch, np, sk, card)
@@ -2108,11 +2277,13 @@ def main() -> int:
         ("window_axpy_planes", "planes_kernel.cu",
          "hydra_tpu/ops/planes.py:196", "axpy_planes_kernel"))
     # library_ms is null except for the planes kernels (torch.mv on the
-    # window's int8 rows cast to f32): no single PyTorch call decodes the
-    # 2-bit packed genotypes the others read, or runs a recurrence's
-    # sequential chain of draws, so none computes the same function on the
-    # same inputs. The planes rows add their device time per call
-    # (device_ms, library_device_ms) beside the CUDA-event times.
+    # window's int8 rows cast to f32) and the multi-trait window passes
+    # (torch.mm on the window's rows decoded to f32 before timing): no
+    # single PyTorch call decodes the 2-bit packed genotypes the others
+    # read, or runs a recurrence's sequential chain of draws, so none
+    # computes the same function on the same inputs. Those rows add their
+    # device time per call (device_ms, library_device_ms) beside the
+    # CUDA-event times.
     kernels = [dict(name=name, route="cuda",
                     source=f"hydra_tpu_torch/csrc/{src}", replaces=replaces,
                     launches=launches[name], max_abs_err=rec[name]["err"],

@@ -55,11 +55,6 @@ constexpr int STATS_RPW = 2;       // rows a warp, their loads in flight togethe
 constexpr int STATS_THREADS = STATS_WARPS * 32;
 constexpr int STATS_STAGE = STATS_TB / STATS_THREADS;   // eps float4 a thread stages
 
-// a hint: bring the 128-byte line at p into L2
-__device__ __forceinline__ void prefetch_l2(const void* p) {
-    asm volatile("prefetch.global.L2 [%0];" ::"l"(p));
-}
-
 // the staged eps tile's float4 f lives at swz(f): lane l's reads of its
 // word's four float4 (f = 4 (l + 32 j) + q) then fall in distinct banks
 __device__ __forceinline__ int swz(int f) { return f ^ ((f >> 3) & 3); }

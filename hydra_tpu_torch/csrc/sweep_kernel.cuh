@@ -90,6 +90,11 @@ __device__ __forceinline__ int warp_sum(int v) {
     return v;
 }
 
+// a hint: bring the 128-byte line at p into L2
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+    asm volatile("prefetch.global.L2 [%0];" ::"l"(p));
+}
+
 // Fixed-order reduction of one row's per-tile partials part[t * W + r].
 __device__ __forceinline__ float reduce_tiles(const float* part, int n_tiles,
                                               int W, int r) {
@@ -428,6 +433,65 @@ __device__ __forceinline__ uint32_t crumbs_at(uint32_t x, int k) {
     return (x >> (2 * k)) & 0x03030303u;
 }
 
+// A block's tile of the window's packed rows, for axpy_kernel and
+// axpy_mt_kernel (sweep_kernel_mt.cu). Thread tid loads word cw = tid & 15
+// (bytes 4cw..4cw+3 of the block's AXPY_TB) of rows 64 g + 4 rg + 0..3 (rg =
+// tid >> 4, g = 0, 1) of each AXPY_ROWS-row chunk into registers, every load
+// in flight; the constructor issues the first chunk's. stage(tile, r0),
+// called for r0 = 0, AXPY_ROWS, ... below W, stores chunk r0 transposed (a 4
+// x 4 byte transpose by __byte_perm), so that word j of packed byte bt's
+// column, tile[bt * AXPY_LDW + j], holds the chunk's rows 4j..4j+3 (GENO:
+// their genotype crumbs, geno_crumbs); behind a barrier it issues the next
+// chunk's loads and returns the chunk's words a column. Rows past W are zero
+// bytes.
+struct AxpyTile {
+    const uint8_t* base;
+    const int* order_w;
+    int nb, W, rg;
+    uint32_t nx[2][4];
+
+    __device__ __forceinline__ AxpyTile(const uint8_t* pk, int nb_, const int* order_w_, int W_)
+        : base(pk + static_cast<size_t>(blockIdx.x) * AXPY_TB + 4 * (threadIdx.x & 15)),
+          order_w(order_w_), nb(nb_), W(W_), rg(threadIdx.x >> 4) {
+        fetch(0);
+    }
+
+    __device__ __forceinline__ void fetch(int r0) {
+#pragma unroll
+        for (int g = 0; g < 2; ++g)
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+                const int r = r0 + 64 * g + 4 * rg + q;
+                nx[g][q] = r < W ? __ldg(reinterpret_cast<const uint32_t*>(
+                                       base + static_cast<size_t>(order_w[r]) * nb))
+                                 : 0u;
+            }
+    }
+
+    template <bool GENO>
+    __device__ __forceinline__ int stage(uint32_t* tile, int r0) {
+        const int cw = threadIdx.x & 15;
+        if (r0 > 0) __syncthreads();           // the last chunk consumed
+#pragma unroll
+        for (int g = 0; g < 2; ++g) {
+            // t[c] = byte c of rows 64 g + 4 rg + 0..3
+            const uint32_t lo01 = __byte_perm(nx[g][0], nx[g][1], 0x5140);
+            const uint32_t hi01 = __byte_perm(nx[g][0], nx[g][1], 0x7362);
+            const uint32_t lo23 = __byte_perm(nx[g][2], nx[g][3], 0x5140);
+            const uint32_t hi23 = __byte_perm(nx[g][2], nx[g][3], 0x7362);
+            const uint32_t t[4] = {
+                __byte_perm(lo01, lo23, 0x5410), __byte_perm(lo01, lo23, 0x7632),
+                __byte_perm(hi01, hi23, 0x5410), __byte_perm(hi01, hi23, 0x7632)};
+#pragma unroll
+            for (int c = 0; c < 4; ++c)
+                tile[(4 * cw + c) * AXPY_LDW + 16 * g + rg] = GENO ? geno_crumbs(t[c]) : t[c];
+        }
+        __syncthreads();
+        if (r0 + AXPY_ROWS < W) fetch(r0 + AXPY_ROWS);
+        return (min(AXPY_ROWS, W - r0) + 3) >> 2;
+    }
+};
+
 template <bool REFRESH, int MODE>
 __global__ void __launch_bounds__(AXPY_THREADS)
 axpy_kernel(const uint8_t* __restrict__ pk, int nb, const int* __restrict__ order_w, int W,
@@ -472,46 +536,14 @@ axpy_kernel(const uint8_t* __restrict__ pk, int nb, const int* __restrict__ orde
             s_c1[r] = r < W ? coef[r] : 0.f;
             if (MODE == MODE_MISSING) s_c2[r] = r < W ? coef[W + r] : 0.f;
         }
-        // loader: word cw (bytes 4cw..4cw+3 of the block's 64) of rows 4rg..4rg+3
-        // and 64 + 4rg..
-        const int cw = tid & 15, rg = tid >> 4;
-        const uint8_t* base = pk + static_cast<size_t>(blockIdx.x) * AXPY_TB + 4 * cw;
-        uint32_t nx[2][4];
-        auto fetch = [&](int r0) {
-#pragma unroll
-            for (int g = 0; g < 2; ++g)
-#pragma unroll
-                for (int q = 0; q < 4; ++q) {
-                    const int r = r0 + 64 * g + 4 * rg + q;
-                    nx[g][q] = r < W ? __ldg(reinterpret_cast<const uint32_t*>(
-                                           base + static_cast<size_t>(order_w[r]) * nb))
-                                     : 0u;
-                }
-        };
-        fetch(0);
+        // the exact-mode tile holds the genotype (coef staged behind stage()'s
+        // barrier); rows past W hold 0 bytes and c1 = c2 = 0: fmaf adds an
+        // exact 0 to acc (never -0), so whole words of four rows change
+        // nothing
+        AxpyTile tl(pk, nb, order_w, W);
         const uint32_t* col = tile + bt * AXPY_LDW;
         for (int r0 = 0; r0 < W; r0 += AXPY_ROWS) {
-            __syncthreads();                   // coef staged; the last chunk consumed
-#pragma unroll
-            for (int g = 0; g < 2; ++g) {
-                // 4 x 4 byte transpose: t[c] = byte c of rows 4rg..4rg+3
-                const uint32_t lo01 = __byte_perm(nx[g][0], nx[g][1], 0x5140);
-                const uint32_t hi01 = __byte_perm(nx[g][0], nx[g][1], 0x7362);
-                const uint32_t lo23 = __byte_perm(nx[g][2], nx[g][3], 0x5140);
-                const uint32_t hi23 = __byte_perm(nx[g][2], nx[g][3], 0x7362);
-                const uint32_t t[4] = {
-                    __byte_perm(lo01, lo23, 0x5410), __byte_perm(lo01, lo23, 0x7632),
-                    __byte_perm(hi01, hi23, 0x5410), __byte_perm(hi01, hi23, 0x7632)};
-#pragma unroll
-                for (int c = 0; c < 4; ++c)
-                    tile[(4 * cw + c) * AXPY_LDW + 16 * g + rg] =
-                        MODE == MODE_EXACT_COMPLETE ? geno_crumbs(t[c]) : t[c];
-            }
-            __syncthreads();
-            if (r0 + AXPY_ROWS < W) fetch(r0 + AXPY_ROWS);
-            // rows past W hold 0 bytes and c1 = c2 = 0: fmaf adds an exact 0 to
-            // acc (never -0), so whole words of four rows change nothing
-            const int nwd = (min(AXPY_ROWS, W - r0) + 3) >> 2;
+            const int nwd = tl.stage<MODE == MODE_EXACT_COMPLETE>(tile, r0);
             const float4* c1 = reinterpret_cast<const float4*>(s_c1 + r0);
             const float4* c2 = reinterpret_cast<const float4*>(s_c2 + r0);
 #pragma unroll 4
@@ -531,7 +563,7 @@ axpy_kernel(const uint8_t* __restrict__ pk, int nb, const int* __restrict__ orde
                     acc = fmaf(a.w, byte_float(g, 3), acc);
                     acc = fmaf(b.w, byte_float(mb, 3), acc);
                 } else {
-                    // stale: the raw h; exact: the tile holds the genotype
+                    // stale: the raw h; exact: the genotype
                     const uint32_t c = crumbs_at(w, k);
                     acc = fmaf(a.x, byte_float(c, 0), acc);
                     acc = fmaf(a.y, byte_float(c, 1), acc);
@@ -694,6 +726,15 @@ __device__ __forceinline__ float std_gram(float g, int complete, float mave, flo
 // tile's loads in flight at once.
 __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
     asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                     static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+                 "l"(src)
+                 : "memory");
+}
+
+// One 16-byte asynchronous copy from global to shared memory (both 16-byte
+// aligned), cached in L2 only.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
                      static_cast<unsigned>(__cvta_generic_to_shared(dst))),
                  "l"(src)
                  : "memory");

@@ -30,11 +30,14 @@
 //
 // What bounds it on this card, per window: stats_mt and axpy_mt each read
 // the W packed rows and the (n_pad, T) residual once, ~W*NB + 4*T*n_pad*
-// (2 for the axpy) bytes -> bytes-bound, but at W=64..128 and N=50,000 a
-// window is ~1-2 MB, so each launch is latency-bound (tens of us against
-// ~0.5 us of HBM time). The decode stays in registers and is shared by the
-// T traits (one byte load serves T fused multiply-adds); T partial sums per
-// thread live in registers (T <= T_MAX). The exact recurrence is a serial
+// (3 for the axpy) bytes -> bytes-bound, but at W=64..128 and N=50,000 a
+// window is ~2-4 MB, so each launch is a few dependent memory round trips
+// (~1 us of HBM time). They are BayesRRm's stats_kernel and axpy_kernel
+// with a trait axis: the stats stage a tile's eps once per block of rows,
+// the axpy runs a thread per individual over a shared tile of the rows;
+// the decode stays in registers and is shared by the T traits, whose
+// accumulators live in registers (T bounded at compile time, mt_by_traits).
+// The exact recurrence is a serial
 // chain of W steps per trait: one block per trait, each the BayesRRm exact
 // draw's warp-synchronous design (warp_recurrence, sweep_kernel.cuh).
 //
@@ -42,93 +45,247 @@
 // order). Partials land in per-tile scratch and are reduced in a fixed
 // order, so equal inputs give bitwise-equal outputs.
 
+#include <algorithm>
 #include <cstdint>
 
 #include "sweep_kernel.cuh"
 
 namespace hydra {
 
-constexpr int MT_STATS_TB = 512;     // packed bytes per stats block
-constexpr int MT_STATS_ROWS = 8;     // rows per stats block (one per warp)
-constexpr int MT_AXPY_THREADS = 128;
+constexpr int MT_STATS_TB = 512;     // packed bytes a stats tile (2,048 individuals)
+constexpr int MT_STATS_WARPS = 8;    // warps a stats block
+constexpr int MT_STATS_RPW = 2;      // rows a stats warp
 constexpr int MT_DRAW_THREADS = 256;
 
 // ---------------------------------------------------------------- stats --
-// grid (n_tiles, ceil(W / MT_STATS_ROWS)), 256 threads. Warp = one row of
-// the window over one tile of MT_STATS_TB bytes, lane = one byte per step
-// (4 individuals x T traits of eps, contiguous). Per trait:
+// Per-tile partials of one window's rows r and traits t:
 //   MODE_MISSING        s1 = sum g*e, s2 = sum m*e
 //   MODE_STALE_COMPLETE s1 = sum h*e (h-decode), s2 = sum e
 //   MODE_EXACT_COMPLETE s1 = sum g*e, s2 = sum e, and v = sum g per row
-// Partials: part[(tile * W + r) * T + t], part_v[tile * W + r].
-__global__ void stats_mt_kernel(const uint8_t* __restrict__ pk, int nb,
-                                const float* __restrict__ eps, int T,
-                                const int* __restrict__ order_w, int W, int mode,
-                                float* __restrict__ part_s1,
-                                float* __restrict__ part_s2,
-                                float* __restrict__ part_v) {
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int r = blockIdx.y * MT_STATS_ROWS + warp;
-    if (r >= W) return;
+// at part[(tile * W + r) * T + t] and part_v[tile * W + r]. Within a tile,
+// lane l of a warp adds its bytes l, l + 32, ..., l + 480 in that order,
+// crumbs k = 0..3 inside each (individuals 4 (l + 32 j) + k), one fmaf (or
+// add) each, then the warp's xor butterfly; the draw kernels and
+// stats_mt_reduce_kernel add the tiles in order.
+//
+// Bound: bytes, the W * nb packed rows, eps (n_pad, T) once and the
+// partials (2.4 MB at W=128, T=4, N=50,000: 0.7 us at 3.35 TB/s), beside
+// 2 T W n_pad f32 operations (0.77 us at 67 TFLOP/s). grid (tiles, ceil(W /
+// rows a block)); a block covers one tile for MT_STATS_WARPS warps of
+// MT_STATS_RPW rows (16 rows: 200 blocks at W=128, N=50,000, 1.5 an SM):
+//  - the tile's eps (2,048 x T floats) is copied from memory once per block
+//    into shared memory (cp.async, all in flight; T = 16 takes 139 KB), a
+//    packed byte's four individuals at TB floats each, TB | 1 float4 a byte
+//    (so 8 lanes' 16-byte loads meet 8 distinct bank groups). At step j a
+//    lane reads its byte's values by TB 16-byte loads into registers and
+//    applies them to all RPW rows of its warp: eps traffic falls by the rows
+//    a block, not by row.
+//  - a warp loads its rows' packed words (word l + 32 q of the tile to lane
+//    l, coalesced) before the block stages eps, so the order -> row round
+//    trips and the eps copies are in flight together; step j's byte comes
+//    to its lane by one shuffle.
+//  - each block prefetches its rows' tile of the next window to L2 (next_w,
+//    a hint), so that pass finds them there.
+//  - the crumbs decode a byte at a time (geno_crumbs, the mask bits) and
+//    become floats by byte_float; v counts genotypes by __popc.
+//  - complete data's s2 = sum e is the same for every row: the block's warps
+//    share its traits (trait t to warp t mod warps), each adds its own in
+//    the lane order above and writes them for every row of the block.
+// The accumulators live in registers: T is bounded at compile time by TB in
+// {1, 2, 4, 8, 16} (mt_by_traits).
+// The register bound TB of T traits (the instantiations of mt_by_traits).
+inline int mt_trait_bound(int T) { return T <= 1 ? 1 : T <= 2 ? 2 : T <= 4 ? 4 : T <= 8 ? 8 : 16; }
+
+// Shared memory of the staged eps tile: TB | 1 float4 a packed byte.
+inline size_t stats_mt_smem(int T) {
+    return sizeof(float4) * MT_STATS_TB * (mt_trait_bound(T) | 1);
+}
+
+template <int MODE, int TB>
+__global__ void __launch_bounds__(MT_STATS_WARPS * 32)
+stats_mt_kernel(const uint8_t* __restrict__ pk, int nb, const float* __restrict__ eps, int T,
+                const int* __restrict__ order_w, const int* __restrict__ next_w, int W,
+                float* __restrict__ part_s1, float* __restrict__ part_s2,
+                float* __restrict__ part_v) {
+    constexpr int RPW = MT_STATS_RPW;
+    constexpr int S4 = TB | 1;             // float4 a packed byte in s_eps4
+    extern __shared__ float4 s_eps4[];
     const int tile = blockIdx.x;
-    const uint8_t* row = pk + static_cast<size_t>(order_w[r]) * nb;
-    const int b1 = min((tile + 1) * MT_STATS_TB, nb);
-    float a[T_MAX], s[T_MAX];
+    const int b0 = tile * MT_STATS_TB;
+    const int nbt = min(MT_STATS_TB, nb - b0);     // a multiple of 128
+    const int nj = nbt / 32;                       // steps a lane, 4..16
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int nw = blockDim.x >> 5;
+    const int rb = blockIdx.y * nw * RPW;          // the block's first row
+    const int r0 = rb + warp * RPW;
+    // the rows' packed words first: their round trips (order, row) run while
+    // the block stages eps
+    uint32_t words[RPW][4];
+    if (r0 < W) {
 #pragma unroll
-    for (int t = 0; t < T_MAX; ++t) {
-        a[t] = 0.f;
-        s[t] = 0.f;
+        for (int p = 0; p < RPW; ++p) {
+            const int r = min(r0 + p, W - 1);
+            const uint32_t* row = reinterpret_cast<const uint32_t*>(
+                pk + static_cast<size_t>(order_w[r]) * nb + b0) + lane;
+#pragma unroll
+            for (int q = 0; q < 4; ++q) words[p][q] = 4 * q < nj ? __ldg(row + 32 * q) : 0u;
+        }
     }
-    int v = 0;
-    for (int b = tile * MT_STATS_TB + lane; b < b1; b += 32) {
-        const uint32_t byte = row[b];
+    if (T == TB && (reinterpret_cast<uintptr_t>(eps) & 15) == 0) {
+        // a byte's 4T values are T float4 in eps too (a view of eps may
+        // start off a 16-byte boundary: then float by float, below)
+        const float4* e4 = reinterpret_cast<const float4*>(eps) + static_cast<size_t>(b0) * TB;
+        for (int f = threadIdx.x; f < nbt * TB; f += blockDim.x)
+            cp_async16(s_eps4 + f + (f / TB) * (S4 - TB), e4 + f);
+    } else {
+        // individual x of the tile, trait t (slots t >= T feed no output)
+        const float* e0 = eps + static_cast<size_t>(b0) * 4 * T;
+        float* const s_eps = reinterpret_cast<float*>(s_eps4);
+        for (int x = threadIdx.x; x < 4 * nbt; x += blockDim.x)
+            for (int t = 0; t < T; ++t)
+                cp_async4(s_eps + (x >> 2) * 4 * S4 + (x & 3) * TB + t, e0 + x * T + t);
+    }
+    cp_async_wait_all();
+    __syncthreads();
+    // the warps that hold rows share complete data's sum e: trait t to warp
+    // t mod their count
+    const int n_act = min(nw, (W - rb + RPW - 1) / RPW);
+    if (r0 >= W) return;
+    // the same rows' tile of the next window to L2: lane 4p + l, line l of row r0 + p
+    if (next_w != nullptr && lane < 4 * RPW) {
+        const int pr = r0 + (lane >> 2), line = lane & 3;
+        if (pr < W && 4 * line < nj)
+            prefetch_l2(pk + static_cast<size_t>(next_w[pr]) * nb + b0 + 128 * line);
+    }
+    constexpr int RS = MODE == MODE_MISSING ? RPW : 1;   // s2 accumulators: per row, or shared
+    float a[RPW][TB], s[RS][TB];
+    int v[RPW];
 #pragma unroll
-        for (int k = 0; k < 4; ++k) {
-            const int c = crumb(byte, k);
-            const float* e = eps + (4 * static_cast<size_t>(b) + k) * T;
-            if (mode == MODE_STALE_COMPLETE) {
-                const float h = static_cast<float>(c);
+    for (int p = 0; p < RPW; ++p) {
+        v[p] = 0;
 #pragma unroll
-                for (int t = 0; t < T_MAX; ++t) {
-                    if (t < T) {
-                        const float x = e[t];
-                        a[t] = fmaf(h, x, a[t]);
-                        s[t] += x;
-                    }
+        for (int t = 0; t < TB; ++t) {
+            a[p][t] = 0.f;
+            if (p < RS) s[p][t] = 0.f;
+        }
+    }
+    bool own[TB];
+#pragma unroll
+    for (int t = 0; t < TB; ++t) own[t] = MODE != MODE_MISSING && t < T && t % n_act == warp;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+        if (j >= nj) break;
+        const int bj = lane + 32 * j;
+        // individual 4 bj + k, trait t: float k TB + t of the byte's
+        float ev[4][TB];
+#pragma unroll
+        for (int q = 0; q < TB; ++q) {
+            const float4 x = s_eps4[bj * S4 + q];
+            const float f[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+            for (int u = 0; u < 4; ++u) ev[(4 * q + u) / TB][(4 * q + u) % TB] = f[u];
+        }
+        if (MODE != MODE_MISSING) {
+#pragma unroll
+            for (int t = 0; t < TB; ++t)
+                if (own[t]) {
+#pragma unroll
+                    for (int k = 0; k < 4; ++k) s[0][t] += ev[k][t];
                 }
-            } else {
-                const int m = crumb_mask(c);
-                const int gi = (2 - c) * m;
-                const float g = static_cast<float>(gi);
-                const float mf = static_cast<float>(m);
-                if (mode == MODE_EXACT_COMPLETE) v += gi;
+        }
+        // byte lane + 32 j of the tile: word (lane >> 2) + 8 j, held by lane
+        // (lane >> 2) + 8 (j & 3) in its word j >> 2
+        const int src = (lane >> 2) + 8 * (j & 3), shift = 8 * (lane & 3);
 #pragma unroll
-                for (int t = 0; t < T_MAX; ++t) {
-                    if (t < T) {
-                        const float x = e[t];
-                        a[t] = fmaf(g, x, a[t]);
-                        s[t] = mode == MODE_EXACT_COMPLETE ? s[t] + x : fmaf(mf, x, s[t]);
-                    }
+        for (int p = 0; p < RPW; ++p) {
+            const uint32_t y = (__shfl_sync(0xffffffffu, words[p][j >> 2], src) >> shift) & 0xffu;
+            // stale complete: the raw h; else the genotype crumbs
+            const uint32_t x = MODE == MODE_STALE_COMPLETE ? y : geno_crumbs(y) & 0xffu;
+            const uint32_t xs = spread_crumbs(x);
+            const uint32_t ms = spread_crumbs(~(y & (y >> 1)) & 0x55u);   // 1: not missing
+            if (MODE == MODE_EXACT_COMPLETE) v[p] += __popc(x & 0x55u) + 2 * __popc(x & 0xaau);
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {
+                const float hk = byte_float(xs, k);
+                const float mk = byte_float(ms, k);
+#pragma unroll
+                for (int t = 0; t < TB; ++t) {
+                    a[p][t] = fmaf(hk, ev[k][t], a[p][t]);
+                    if (MODE == MODE_MISSING) s[p][t] = fmaf(mk, ev[k][t], s[p][t]);
                 }
             }
         }
     }
-    const size_t base = (static_cast<size_t>(tile) * W + r) * T;
+    if (MODE != MODE_MISSING) {
+        // this warp's traits of sum e, for every row of the block
+        const int nr = min(nw * RPW, W - rb);
 #pragma unroll
-    for (int t = 0; t < T_MAX; ++t) {
-        if (t < T) {
-            const float at = warp_sum(a[t]);
-            const float st = warp_sum(s[t]);
-            if (lane == 0) {
-                part_s1[base + t] = at;
-                part_s2[base + t] = st;
+        for (int t = 0; t < TB; ++t) {
+            if (own[t]) {
+                const float st = warp_sum(s[0][t]);
+                if (lane < nr) part_s2[(static_cast<size_t>(tile) * W + rb + lane) * T + t] = st;
             }
         }
     }
-    if (mode == MODE_EXACT_COMPLETE) {
-        v = warp_sum(v);
-        if (lane == 0) part_v[static_cast<size_t>(tile) * W + r] = static_cast<float>(v);
+#pragma unroll
+    for (int p = 0; p < RPW; ++p) {
+        const int r = r0 + p;
+        if (r >= W) break;
+        const size_t base = (static_cast<size_t>(tile) * W + r) * T;
+#pragma unroll
+        for (int t = 0; t < TB; ++t) {
+            if (t < T) {
+                const float at = warp_sum(a[p][t]);
+                if (lane == 0) part_s1[base + t] = at;
+                if (MODE == MODE_MISSING) {
+                    const float st = warp_sum(s[p < RS ? p : 0][t]);
+                    if (lane == 0) part_s2[base + t] = st;
+                }
+            }
+        }
+        if (MODE == MODE_EXACT_COMPLETE) {
+            const int vv = warp_sum(v[p]);
+            if (lane == 0) part_v[static_cast<size_t>(tile) * W + r] = static_cast<float>(vv);
+        }
     }
+}
+
+// Kernel instantiations by traits: the register bound TB >= T.
+template <class F>
+inline F* mt_by_traits(int T, F* t1, F* t2, F* t4, F* t8, F* t16) {
+    const int tb = mt_trait_bound(T);
+    return tb == 1 ? t1 : tb == 2 ? t2 : tb == 4 ? t4 : tb == 8 ? t8 : t16;
+}
+
+template <int MODE>
+inline int launch_stats_mt_mode(const uint8_t* pk, int nb, const float* eps, int T,
+                                const int* order_w, const int* next_w, int W,
+                                float* part_s1, float* part_s2, float* part_v,
+                                cudaStream_t stream) {
+    auto* const kernel = mt_by_traits(T, stats_mt_kernel<MODE, 1>, stats_mt_kernel<MODE, 2>,
+                                      stats_mt_kernel<MODE, 4>, stats_mt_kernel<MODE, 8>,
+                                      stats_mt_kernel<MODE, 16>);
+    const int warps = std::min(MT_STATS_WARPS, cdiv(W, MT_STATS_RPW));
+    const size_t smem = stats_mt_smem(T);
+    HYDRA_CHECK(allow_smem(kernel, smem));
+    kernel<<<dim3(cdiv(nb, MT_STATS_TB), cdiv(W, warps * MT_STATS_RPW)), warps * 32, smem,
+             stream>>>(
+        pk, nb, eps, T, order_w, next_w, W, part_s1, part_s2, part_v);
+    HYDRA_CHECK_LAUNCH();
+    return 0;
+}
+
+// One window's stats partials over its rows order_w[0..W); next_w (or
+// null) names the next window's rows for the L2 prefetch.
+inline int launch_stats_mt(const uint8_t* pk, int nb, const float* eps, int T,
+                           const int* order_w, const int* next_w, int W, int mode,
+                           float* part_s1, float* part_s2, float* part_v,
+                           cudaStream_t stream) {
+    auto* const launch = mode == MODE_MISSING ? launch_stats_mt_mode<MODE_MISSING>
+                         : mode == MODE_STALE_COMPLETE
+                             ? launch_stats_mt_mode<MODE_STALE_COMPLETE>
+                             : launch_stats_mt_mode<MODE_EXACT_COMPLETE>;
+    return launch(pk, nb, eps, T, order_w, next_w, W, part_s1, part_s2, part_v, stream);
 }
 
 // Fixed-order sum over tiles of one (row, trait) partial; e = r * T + t.
@@ -379,79 +536,169 @@ window_recurrence_mt_kernel(const float* __restrict__ G, const float* __restrict
 }
 
 // ----------------------------------------------------------------- axpy --
-// d[i, t] for individual i = 4b + k, one thread per packed byte, T x 4
-// accumulators in registers, the window's coefficients in shared memory:
+// out[i*T + t] += d[i, t] * tm[i*T + t] (a null tm reads as 1: the
+// standalone window_axpy_mt contract, where the caller adds sum(c2) and
+// masks), for individual i and trait t, the window's rows r = 0..W-1 added
+// in order by one fmaf each (coef = [c1 (T, W), c2 (T, W)]):
 //   COMPLETE d = cst_t - sum_r c1[t, r] * h_r,  cst_t = 2 sum c1 + (add_c2 ?
-//            sum c2 : 0)   (sum c1*g = 2 sum c1 - sum c1*h)
+//            sum c2 : 0), both sums sequential over r (sum c1*g = 2 sum c1 -
+//            sum c1*h)
 //   else     d = sum_r c1[t, r] * g_r + c2[t, r] * m_r
-// out[i*T + t] += d * tm[i*T + t]; a null tm reads as 1 (the standalone
-// window_axpy_mt contract: the caller adds sum(c2) and masks).
-template <bool COMPLETE>
-__global__ void axpy_mt_kernel(const uint8_t* __restrict__ pk, int nb,
-                               const int* __restrict__ order_w, int W, int T,
-                               const float* __restrict__ coef, int add_c2,
-                               const float* __restrict__ tm, float* __restrict__ out) {
-    extern __shared__ float sh[];   // c1[T*W], c2[T*W], cst[T_MAX], slot[W]
-    const int tw = T * W;
-    float* s_c1 = sh;
-    float* s_c2 = sh + tw;
-    float* s_cst = sh + 2 * tw;
-    int* s_slot = reinterpret_cast<int*>(s_cst + T_MAX);
-    for (int i = threadIdx.x; i < tw; i += blockDim.x) {
-        s_c1[i] = coef[i];
-        s_c2[i] = coef[tw + i];
+//
+// Bound: bytes, the W * nb packed rows, eps read and written and tm read
+// (4.0 MB at W=128, T=4, N=50,000: 1.2 us at 3.35 TB/s; the rows were just
+// read by the window's stats pass, so they come from L2), beside 2 T W n_pad
+// f32 operations (0.77 us). axpy_kernel's design (sweep_kernel.cuh) with T
+// accumulators:
+//  - a thread per individual (AXPY_THREADS a block, 64 packed bytes of every
+//    row): 196 blocks at N=50,000. Its T eps and tm values are loaded first,
+//    beside the rows, and its T accumulators live in registers (T bounded
+//    at compile time by TB, mt_by_traits).
+//  - every row's load in flight: the block copies its AXPY_ROWS x 64-byte
+//    tile of packed rows to shared memory, transposed so that one word
+//    holds four rows of a packed byte, the next chunk issued before the
+//    current one is consumed (AxpyTile, shared with axpy_kernel). The
+//    sampler's windows are W >= 8, so unlike axpy_kernel there is no
+//    straight path for a few rows.
+//  - c1 and c2 in shared memory, [T][W rounded up to 4], zero past W, read
+//    as float4 of four rows; crumbs become floats by byte_float.
+//  - cst's sequential sums run on lanes of warp 0 from shared memory, four
+//    rows a load, while the rows' loads are in flight. Summed straight from
+//    memory, one load a row, they held every block: the exact sweep's axpy
+//    took 12.1 us a T=4, W=128 window, 7.7 without (scripts/chip_compare.py,
+//    H100 SXM at 700 W).
+// With missing genotypes at TB = 16 ptxas spills 56 bytes; one row word a
+// loop step removes the spill but ran slower at T = 16 (PERF.md).
+// Rows past W hold zero bytes and zero coefficients: fmaf adds an exact 0 to
+// an accumulator that is never -0, so whole words of four rows change
+// nothing.
+template <bool COMPLETE, int TB>
+__global__ void __launch_bounds__(AXPY_THREADS)
+axpy_mt_kernel(const uint8_t* __restrict__ pk, int nb, const int* __restrict__ order_w, int W,
+               int T, const float* __restrict__ coef, int add_c2,
+               const float* __restrict__ tm, float* __restrict__ out) {
+    extern __shared__ float4 sh_mt[];      // c1 [T][W4], c2 [T][W4], zero past W
+    __shared__ uint32_t tile[AXPY_TB * AXPY_LDW];
+    __shared__ float s_sum[2][T_MAX];      // complete: sum c1, sum c2 (or 0)
+    const int W4 = (W + 3) & ~3;
+    float* s_c1 = reinterpret_cast<float*>(sh_mt);
+    float* s_c2 = s_c1 + T * W4;
+    const int tid = threadIdx.x;
+    const int k = tid & 3;                 // this thread's crumb of its packed byte
+    const size_t i = static_cast<size_t>(blockIdx.x) * AXPY_THREADS + tid;
+    float e[TB], mk[TB], acc[TB];
+#pragma unroll
+    for (int t = 0; t < TB; ++t) {
+        e[t] = t < T ? out[i * T + t] : 0.f;
+        mk[t] = t < T && tm != nullptr ? tm[i * T + t] : 1.f;
+        acc[t] = 0.f;
     }
-    for (int i = threadIdx.x; i < W; i += blockDim.x) s_slot[i] = order_w[i];
-    __syncthreads();
-    if (COMPLETE && threadIdx.x < T) {
-        const int t = threadIdx.x;
-        float a = 0.f, c = 0.f;
-        for (int r = 0; r < W; ++r) a += s_c1[t * W + r];
-        if (add_c2)
-            for (int r = 0; r < W; ++r) c += s_c2[t * W + r];
-        s_cst[t] = 2.0f * a + c;
+    AxpyTile tl(pk, nb, order_w, W);       // the first chunk's loads in flight
+    for (int x = tid; x < T * W4; x += AXPY_THREADS) {
+        const int t = x / W4, r = x - t * W4;
+        s_c1[x] = r < W ? coef[t * W + r] : 0.f;
+        s_c2[x] = r < W ? coef[(T + t) * W + r] : 0.f;
     }
     __syncthreads();
-    const int b = blockIdx.x * blockDim.x + threadIdx.x;
-    if (b >= nb) return;
-    float acc[T_MAX][4];
+    if (COMPLETE && tid < 32) {
+        // lane t: sum c1[t, :], lane 16 + t: sum c2[t, :] (0 unless add_c2),
+        // four rows a shared load, the adds in row order
+        const int which = tid >> 4, t = tid & 15;
+        if (t < T) {
+            float a = 0.f;
+            if (which == 0 || add_c2) {
+                const float4* src = reinterpret_cast<const float4*>(
+                    (which ? s_c2 : s_c1) + t * W4);
+                const int n4 = W4 / 4, tail = W - 4 * (n4 - 1);
+#pragma unroll 4
+                for (int j = 0; j < n4 - 1; ++j) {
+                    const float4 v = src[j];
+                    a += v.x;
+                    a += v.y;
+                    a += v.z;
+                    a += v.w;
+                }
+                const float4 v = src[n4 - 1];
+                a += v.x;
+                if (tail > 1) a += v.y;
+                if (tail > 2) a += v.z;
+                if (tail > 3) a += v.w;
+            }
+            s_sum[which][t] = a;
+        }
+    }
+    // s_sum is read after stage()'s barrier
+    const uint32_t* col = tile + (tid >> 2) * AXPY_LDW;
+    for (int r0 = 0; r0 < W; r0 += AXPY_ROWS) {
+        const int nwd = tl.stage<false>(tile, r0);
+#pragma unroll 2
+        for (int j = 0; j < nwd; ++j) {
+            const uint32_t w = col[j];
+            const int rj = r0 + 4 * j;
+            // row rj + u's crumb as a float: x[u] (stale: h, else g), y[u] (m)
+            const uint32_t c = crumbs_at(COMPLETE ? w : geno_crumbs(w), k);
+            const uint32_t mb = crumbs_at(~(w & (w >> 1)) & 0x55555555u, k);
+            float x[4], y[4];
 #pragma unroll
-    for (int t = 0; t < T_MAX; ++t)
+            for (int u = 0; u < 4; ++u) {
+                x[u] = byte_float(c, u);
+                y[u] = byte_float(mb, u);
+            }
 #pragma unroll
-        for (int k = 0; k < 4; ++k) acc[t][k] = 0.f;
-    for (int r = 0; r < W; ++r) {
-        const uint32_t byte = pk[static_cast<size_t>(s_slot[r]) * nb + b];
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-            const int c = crumb(byte, k);
-            if (COMPLETE) {
-                const float h = static_cast<float>(c);
-#pragma unroll
-                for (int t = 0; t < T_MAX; ++t)
-                    if (t < T) acc[t][k] = fmaf(s_c1[t * W + r], h, acc[t][k]);
-            } else {
-                const float m = static_cast<float>(crumb_mask(c));
-                const float g = static_cast<float>(crumb_geno(c));
-#pragma unroll
-                for (int t = 0; t < T_MAX; ++t)
-                    if (t < T) {
-                        acc[t][k] = fmaf(s_c1[t * W + r], g, acc[t][k]);
-                        acc[t][k] = fmaf(s_c2[t * W + r], m, acc[t][k]);
+            for (int t = 0; t < TB; ++t) {
+                if (t < T) {
+                    const float4 a4 = *reinterpret_cast<const float4*>(s_c1 + t * W4 + rj);
+                    const float a[4] = {a4.x, a4.y, a4.z, a4.w};
+                    float b[4] = {0.f, 0.f, 0.f, 0.f};
+                    if (!COMPLETE) {
+                        const float4 b4 = *reinterpret_cast<const float4*>(s_c2 + t * W4 + rj);
+                        b[0] = b4.x;
+                        b[1] = b4.y;
+                        b[2] = b4.z;
+                        b[3] = b4.w;
                     }
+#pragma unroll
+                    for (int u = 0; u < 4; ++u) {
+                        acc[t] = fmaf(a[u], x[u], acc[t]);
+                        if (!COMPLETE) acc[t] = fmaf(b[u], y[u], acc[t]);
+                    }
+                }
             }
         }
     }
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-        const size_t i = (4 * static_cast<size_t>(b) + k) * T;
-#pragma unroll
-        for (int t = 0; t < T_MAX; ++t)
-            if (t < T) {
-                const float d = COMPLETE ? s_cst[t] - acc[t][k] : acc[t][k];
-                const float mk = tm != nullptr ? tm[i + t] : 1.f;
-                out[i + t] += d * mk;
-            }
+    for (int t = 0; t < TB; ++t) {
+        if (t < T) {
+            const float d = COMPLETE ? (2.0f * s_sum[0][t] + s_sum[1][t]) - acc[t] : acc[t];
+            out[i * T + t] = e[t] + d * mk[t];
+        }
     }
+}
+
+template <bool COMPLETE>
+inline int launch_axpy_mt_kind(const uint8_t* pk, int nb, const int* order_w, int W, int T,
+                               const float* coef, int add_c2, const float* tm, float* out,
+                               cudaStream_t stream) {
+    auto* const kernel = mt_by_traits(T, axpy_mt_kernel<COMPLETE, 1>, axpy_mt_kernel<COMPLETE, 2>,
+                                      axpy_mt_kernel<COMPLETE, 4>, axpy_mt_kernel<COMPLETE, 8>,
+                                      axpy_mt_kernel<COMPLETE, 16>);
+    const size_t smem = sizeof(float) * 2 * T * ((W + 3) & ~3);
+    // the opt-in counts the static tile too
+    HYDRA_CHECK(allow_smem(kernel, smem + sizeof(uint32_t) * AXPY_TB * AXPY_LDW +
+                                       sizeof(float) * 2 * T_MAX));
+    kernel<<<nb / AXPY_TB, AXPY_THREADS, smem, stream>>>(pk, nb, order_w, W, T, coef, add_c2,
+                                                         tm, out);
+    HYDRA_CHECK_LAUNCH();
+    return 0;
+}
+
+int launch_axpy_mt(const uint8_t* pk, int nb, const int* order_w, int W, int T,
+                   const float* coef, int add_c2, int complete, const float* tm,
+                   float* out, cudaStream_t stream) {
+    return complete ? launch_axpy_mt_kind<true>(pk, nb, order_w, W, T, coef, add_c2, tm, out,
+                                                stream)
+                    : launch_axpy_mt_kind<false>(pk, nb, order_w, W, T, coef, add_c2, tm, out,
+                                                 stream);
 }
 
 // ------------------------------------------------------------ workspace --
@@ -492,28 +739,6 @@ inline bool shapes_ok_mt(int nb, int W, int T) {
     return W >= 1 && W <= 1024 && T >= 1 && T <= T_MAX && nb > 0 && nb % 128 == 0;
 }
 
-inline size_t axpy_smem(int W, int T) {
-    return sizeof(float) * (2 * static_cast<size_t>(T) * W + T_MAX + W);
-}
-
-int launch_axpy_mt(const uint8_t* pk, int nb, const int* order_w, int W, int T,
-                   const float* coef, int add_c2, int complete, const float* tm,
-                   float* out, cudaStream_t stream) {
-    const size_t smem = axpy_smem(W, T);
-    const int blocks = cdiv(nb, MT_AXPY_THREADS);
-    if (complete) {
-        HYDRA_CHECK(allow_smem(axpy_mt_kernel<true>, smem));
-        axpy_mt_kernel<true><<<blocks, MT_AXPY_THREADS, smem, stream>>>(
-            pk, nb, order_w, W, T, coef, add_c2, tm, out);
-    } else {
-        HYDRA_CHECK(allow_smem(axpy_mt_kernel<false>, smem));
-        axpy_mt_kernel<false><<<blocks, MT_AXPY_THREADS, smem, stream>>>(
-            pk, nb, order_w, W, T, coef, add_c2, tm, out);
-    }
-    HYDRA_CHECK_LAUNCH();
-    return 0;
-}
-
 int run_sweep_mt(bool exact, const uint8_t* pk, float* eps, const float* tm,
                  const float* mrow, const int* order, const float* sc, float* out,
                  void* ws_base, int m_loc, int nb, int W, int K, int T, int complete,
@@ -527,7 +752,6 @@ int run_sweep_mt(bool exact, const uint8_t* pk, float* eps, const float* tm,
     const int n_tiles = cdiv(nb, MT_STATS_TB);
     const int mode = !complete ? MODE_MISSING
                                : (exact ? MODE_EXACT_COMPLETE : MODE_STALE_COMPLETE);
-    const dim3 stats_grid(n_tiles, cdiv(W, MT_STATS_ROWS));
     const size_t draw_smem = exact_draw_smem(W);
     auto* const draw = by_components(K, exact_mt_draw_kernel<4, true>,
                                      exact_mt_draw_kernel<8, false>,
@@ -538,11 +762,12 @@ int run_sweep_mt(bool exact, const uint8_t* pk, float* eps, const float* tm,
     }
     for (int w = 0; w < n_windows; ++w) {
         const int* order_w = order + static_cast<size_t>(w) * W;
-        stats_mt_kernel<<<stats_grid, MT_STATS_ROWS * 32, 0, stream>>>(
-            pk, nb, eps, T, order_w, W, mode, ws.part_s1, ws.part_s2, ws.part_v);
-        HYDRA_CHECK_LAUNCH();
+        const int* next_w = w + 1 < n_windows ? order_w + W : nullptr;
+        int err = launch_stats_mt(pk, nb, eps, T, order_w, next_w, W, mode, ws.part_s1,
+                                  ws.part_s2, ws.part_v, stream);
+        if (err) return err;
         if (exact) {
-            const int err = launch_gram_i8(pk, nb, order_w, W, ws.gram_acc, ws.gram, stream);
+            err = launch_gram_i8(pk, nb, order_w, W, ws.gram_acc, ws.gram, stream);
             if (err) return err;
             draw<<<T, cdiv(W, 32) * 32, draw_smem, stream>>>(
                 mrow, C, K, T, order_w, W, ws.part_s1, ws.part_s2, ws.part_v, n_tiles,
@@ -554,8 +779,7 @@ int run_sweep_mt(bool exact, const uint8_t* pk, float* eps, const float* tm,
                 out, ws.coef);
         }
         HYDRA_CHECK_LAUNCH();
-        const int err = launch_axpy_mt(pk, nb, order_w, W, T, ws.coef, 1, complete, tm,
-                                       eps, stream);
+        err = launch_axpy_mt(pk, nb, order_w, W, T, ws.coef, 1, complete, tm, eps, stream);
         if (err) return err;
     }
     return 0;
@@ -612,11 +836,11 @@ int hydra_window_stats_mt(const void* pk, const void* eps, const void* rows, voi
     const MtWorkspace w = layout_mt(ws, nb, W, T, false);
     const int n_tiles = cdiv(nb, MT_STATS_TB);
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
-    stats_mt_kernel<<<dim3(n_tiles, cdiv(W, MT_STATS_ROWS)), MT_STATS_ROWS * 32, 0, st>>>(
+    const int err = launch_stats_mt(
         static_cast<const uint8_t*>(pk), nb, static_cast<const float*>(eps), T,
-        static_cast<const int*>(rows), W, complete ? MODE_STALE_COMPLETE : MODE_MISSING,
-        w.part_s1, w.part_s2, w.part_v);
-    HYDRA_CHECK_LAUNCH();
+        static_cast<const int*>(rows), nullptr, W,
+        complete ? MODE_STALE_COMPLETE : MODE_MISSING, w.part_s1, w.part_s2, w.part_v, st);
+    if (err) return err;
     stats_mt_reduce_kernel<<<cdiv(static_cast<long long>(W) * T, 256), 256, 0, st>>>(
         w.part_s1, w.part_s2, n_tiles, W, T, complete, static_cast<float*>(s1),
         static_cast<float*>(s2));

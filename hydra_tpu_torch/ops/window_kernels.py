@@ -32,7 +32,12 @@ the plain versions ``*_ref``. The same BayesW kernels run inside every
 window of ``sweep_stale_bw``, and ``launches`` counts them there as well.
 
 ``sweep_update_ref`` replays a whole sweep's residual updates from its
-draws in axpy_kernel's order, the reference the sweeps' axpy is held to.
+draws in axpy_kernel's order, the reference the sweeps' axpy is held to;
+``sweep_update_mt_ref`` does the same for the multi-trait sweeps'
+axpy_mt_kernel. The multi-trait wrappers' plain versions are matmul forms;
+``window_stats_mt_seq`` and ``window_axpy_mt_seq`` (on
+``stats_mt_partials`` and ``axpy_mt_rows``) compute the same in the
+kernels' order.
 
 The plain versions add in the kernels' order: the stats and level sums per
 512-byte tile, each of its 32 lanes sequentially over its words, then the
@@ -469,6 +474,117 @@ def window_axpy_mt_ref(pk: torch.Tensor, c1: torch.Tensor, c2: torch.Tensor,
         return 2.0 * c1.sum(dim=1) - decode_h(pk).T @ c1.T
     g, m = decode_planes_hp(pk)
     return g.T @ c1.T + m.T @ c2.T
+
+
+# The multi-trait plain versions in the kernels' order (stats_mt_kernel,
+# axpy_mt_kernel): on the card the kernels agree with them bit for bit, but
+# for complete stale data's pad rows and the complete axpy's pad
+# individuals (h = 3 products, which these round and the kernels fuse).
+_MT_ROW_CHUNK = 64      # rows a step of stats_mt_partials (bounds its memory)
+
+
+def seq_sum0(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last dim from +0, left to right: a kernel's ``s = 0.f;
+    s += x`` (``seq_sum`` starts from x[0], which differs for -0)."""
+    return seq_sum(torch.nn.functional.pad(x, (1, 0)))
+
+
+def stats_mt_partials(pk: torch.Tensor, eps: torch.Tensor, exact: bool,
+                      complete: bool):
+    """Per-tile partials (W, T, n_tiles) of stats_mt_kernel's sums, in its
+    order: per (row, trait), ``tile_sums(word=4)`` of the products from +0
+    (lane l adds bytes l, l + 32, ... of a 512-byte tile, crumb by crumb).
+    s1 is sum h*eps for complete stale data, else sum g*eps; s2 is sum
+    m*eps, or sum eps (the same for every row) for complete data; v (W,
+    n_tiles) is sum g for exact complete data, else None."""
+    c = crumbs(pk)
+    m = 1 - ((c + 1) >> 2)
+    x = (c if complete and not exact else (2 - c) * m).to(f32)
+    e = eps.T                                            # (T, n_pad)
+
+    def partials(planes):
+        return torch.cat([tile_sums(planes[r:r + _MT_ROW_CHUNK, None, :]
+                                    * e[None] + 0.0, word=4)
+                          for r in range(0, planes.shape[0], _MT_ROW_CHUNK)])
+
+    p1 = partials(x)
+    p2 = (tile_sums(e + 0.0, word=4).expand(pk.shape[0], -1, -1) if complete
+          else partials(m.to(f32)))
+    pv = tile_sums(x, word=4) if exact and complete else None
+    return p1, p2, pv
+
+
+def window_stats_mt_seq(pk: torch.Tensor, eps: torch.Tensor,
+                        complete: bool = False,
+                        rows: Optional[torch.Tensor] = None
+                        ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """``window_stats_mt`` in the kernels' order: the partials of
+    ``stats_mt_partials`` added tile by tile from +0, as
+    stats_mt_reduce_kernel (complete data: s1 = 2 s2 - sum h*eps)."""
+    _check_stats_mt(pk, eps, rows)
+    p1, p2, _ = stats_mt_partials(_window_rows(pk, rows), eps, False,
+                                  complete)
+    s1, s2 = seq_sum0(p1), seq_sum0(p2)
+    return (2.0 * s2 - s1, None) if complete else (s1, s2)
+
+
+def axpy_mt_rows(pk: torch.Tensor, c1: torch.Tensor, c2: torch.Tensor,
+                 complete: bool) -> torch.Tensor:
+    """axpy_mt_kernel's accumulators (n_pad, T), row by row for each trait:
+    complete data sum c1[t, r]*h_r, missing data sum c1[t, r]*g_r +
+    c2[t, r]*m_r (products by 0, 1 or 2 are exact, so each step rounds once
+    as the kernel's fmaf does)."""
+    c = crumbs(pk).to(f32)
+    acc = torch.zeros((c.shape[1], c1.shape[0]), dtype=f32, device=pk.device)
+    if complete:
+        for r in range(c.shape[0]):
+            acc = acc + c[r, :, None] * c1[None, :, r]
+        return acc
+    m = 1.0 - (c == 3.0).to(f32)
+    g = (2.0 - c) * m
+    for r in range(c.shape[0]):
+        acc = acc + g[r, :, None] * c1[None, :, r]
+        acc = acc + m[r, :, None] * c2[None, :, r]
+    return acc
+
+
+def window_axpy_mt_seq(pk: torch.Tensor, c1: torch.Tensor, c2: torch.Tensor,
+                       complete: bool = False,
+                       rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``window_axpy_mt`` in the kernel's order: complete data 2 sum(c1) -
+    ``axpy_mt_rows`` (sum(c1) sequential from +0), added to a zero
+    residual."""
+    _check_axpy_mt(pk, c1, c2, rows)
+    acc = axpy_mt_rows(_window_rows(pk, rows), c1, c2, complete)
+    d = 2.0 * seq_sum0(c1) + 0.0 - acc if complete else acc
+    return torch.zeros_like(acc) + d
+
+
+def sweep_update_mt_ref(pk: torch.Tensor, eps: torch.Tensor, tm: torch.Tensor,
+                        mrow: torch.Tensor, out: torch.Tensor,
+                        order: torch.Tensor, window: int, complete: bool
+                        ) -> torch.Tensor:
+    """eps (n_pad, T) after a whole multi-trait sweep's residual updates,
+    given its ``out`` (beta_new per slot in columns 0..T-1; the sweep's own
+    draws): the plain version of the sweeps' axpy_mt_kernel in its order,
+    with c1 = (beta_old - beta_new) * mstd and c2 = -c1 * mave from mrow's
+    column blocks 2, 1 and 0. Complete data (stale and exact): eps += (2
+    sum c1 + sum c2 - sum c1*h) * tm; missing data: eps += (sum c1*g +
+    c2*m) * tm. A sweep's eps held to this bit for bit holds its axpy so."""
+    T = eps.shape[1]
+    b = mrow.reshape(mrow.shape[0], -1, T)
+    eps = eps.clone()
+    for w in range(order.shape[0] // window):
+        slots = order[w * window:(w + 1) * window].to(torch.int64)
+        bw = b[slots]
+        c1 = ((bw[:, 2] - out[slots, :T]) * bw[:, 1]).T      # (T, W)
+        c2 = -c1 * bw[:, 0].T
+        acc = axpy_mt_rows(pk[slots], c1, c2, complete)
+        if complete:
+            eps = eps + (2.0 * seq_sum0(c1) + seq_sum0(c2) - acc) * tm
+        else:
+            eps = eps + acc * tm
+    return eps
 
 
 def _mt_card(pk, rows, W, T, what):

@@ -9,7 +9,9 @@ N=5,000, each with its per-kernel device time from ``profile_sweep`` /
 ``profile_run``. First, in every tree, this tree's
 ``chip_smoke.print_digests`` (the same inputs everywhere, the tree's own
 kernels) prints the SHA-256 of the exact recurrences' outputs, so equal
-digests show two trees' kernels bit for bit the same.
+digests show two trees' kernels bit for bit the same; then this tree's
+``chip_smoke.print_mt_pass_times`` times the multi-trait packed passes
+alone (T 1/4/16, W 64/128, complete and missing) on the same calls.
 
 Compare two versions inside one call, in turns, e.g. a ``git archive`` of
 the parent unpacked into a git-ignored directory beside this tree:
@@ -18,8 +20,9 @@ the parent unpacked into a git-ignored directory beside this tree:
 
 Each run goes to ``DIR/compare_<i>_<tree>.log`` (default ``build/compare``,
 git-ignored); a summary line per configuration (ms/sweep, CUDA-event
-ms/sweep, device ms and busy share, host enqueue, and the stats, axpy and
-exact recurrence kernels' device us per window) and the digests are
+ms/sweep, device ms and busy share, host enqueue, and the stats, axpy
+(BayesRRm's and multi-trait) and exact recurrence kernels' device us per
+window), the multi-trait passes' device us per call and the digests are
 printed at the end.
 """
 
@@ -47,6 +50,7 @@ from hydra_tpu_torch.samplers.bayesrrm import BayesRRm
 card = sys.argv[1]
 torch.backends.cuda.matmul.allow_tf32 = False
 d.print_digests(torch, np)
+d.print_mt_pass_times(torch, np, card)
 c.phase_real_size(torch, np, sk, card)
 c.phase_sd_real_size(torch, np, sk, card)
 c.phase_bw_real_size(torch, np, card)
@@ -81,9 +85,11 @@ c.profile_sweep(torch, sk, s, st, card)
 CONFIG = re.compile(r"real size (.*?): ([\d.,]+) ms/sweep")
 SWEEP = re.compile(r"host enqueue ([\d.]+) ms.*CUDA events ([\d.]+) ms/sweep; "
                    r"profiler device time ([\d.]+) ms \(([\d.]+)% busy")
-KERNEL = re.compile(r"([\d.]+) us/window\s+(?:void )?hydra::(stats|axpy|exact_draw|"
-                    r"exact_mt_draw|window_recurrence_mt)_kernel(<[^>]*>)?\(")
+KERNEL = re.compile(r"([\d.]+) us/window\s+(?:void )?hydra::(stats|axpy|stats_mt|axpy_mt|"
+                    r"exact_draw|exact_mt_draw|window_recurrence_mt)_kernel(<[^>]*>)?\(")
 DIGEST = re.compile(r"^digest (.*): sha256 ([0-9a-f]{64})")
+PASS = re.compile(r"^mt pass (.*): stats_mt_kernel ([\d.]+) us, "
+                  r"axpy_mt_kernel ([\d.]+) us")
 
 
 def summary(path):
@@ -107,6 +113,11 @@ def summary(path):
             m = DIGEST.search(ln)
             if m:
                 rows.append(f"  digest {m.group(1):44s} {m.group(2)}")
+                continue
+            m = PASS.search(ln)
+            if m:
+                rows.append(f"  mt pass {m.group(1):22s} stats_mt "
+                            f"{m.group(2)} axpy_mt {m.group(3)} us")
     return rows
 
 

@@ -953,3 +953,138 @@ def test_cuda_stream_kernels_bitwise(path, window, nb, missing):
     assert bool(torch.isfinite(e_k).all()) and bool(torch.isfinite(o_k).all())
     assert torch.equal(e_k, e_k2) and torch.equal(o_k, o_k2)
     assert torch.equal(e_k, e_r)
+
+
+def _card_mt_inputs(m, nb, T, missing, exact, seed, dev):
+    """``_card_inputs`` with T traits: eps and the trait mask (n_pad, T),
+    10% NaN per trait unless ``exact`` (full phenotypes), mrow (m,
+    T*(3K+4)) whose beta_old, u and nrm differ by trait, and, unless
+    ``exact`` (trait 0's statistics for every trait), mstd too. Returns
+    (pk, eps, tm, mrow, dnm1, n, pads)."""
+    from hydra_tpu_torch.ops.sweep_kernel_mt import mt_mrow_width
+    pk, _, _, row1, n, pads = _card_inputs(m, nb, missing, seed, dev)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    tm = torch.zeros((4 * nb, T), device=dev)
+    tm[:n] = (torch.rand((n, T), generator=g, device=dev)
+              >= (0.0 if exact else 0.1)).float()
+    eps = torch.randn((4 * nb, T), generator=g, device=dev) * tm
+    b = row1[:, :, None].repeat(1, 1, T)
+    b[:, 2] = 0.02 * torch.randn((m, T), generator=g, device=dev)
+    b[:, 3] = torch.rand((m, T), generator=g, device=dev)
+    b[:, 4] = torch.randn((m, T), generator=g, device=dev)
+    if not exact:
+        b[:, 1] *= 0.9 + 0.2 * torch.rand((m, T), generator=g, device=dev)
+    b[pads, 2] = 0.0
+    mrow = b.reshape(m, -1).contiguous()
+    assert mrow.shape[1] == mt_mrow_width(K, T)
+    return pk, eps, tm, mrow, tm.sum(dim=0) - 1.0, n, pads
+
+
+MT_STREAM_CASES = [
+    (path, window, nb, n_traits, missing)
+    for path in ("window_stats_mt", "window_axpy_mt", "sweep_stale_mt",
+                 "sweep_exact_mt")
+    for window in (1, 7, 64, 128, 200, 1024)
+    for nb in (128, 640, 12544)
+    for n_traits in (1, 3, 4, 16)
+    for missing in (False, True)
+    if not (path == "sweep_exact_mt" and missing)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path,window,nb,n_traits,missing", MT_STREAM_CASES)
+def test_cuda_mt_stream_kernels_bitwise(path, window, nb, n_traits, missing):
+    """axpy_mt_kernel and stats_mt_kernel (each instantiation by mode and
+    trait bound, T = 3 below its bound 4) bit for bit their plain versions
+    in the kernels' order, and bitwise repeatable, through every entry point
+    that launches them.
+    The windows cross the axpy's 128-row shared tile (200, 1024) and the
+    stats' row groups (7, 200); nb = 128 is the smallest width the kernels
+    take, 640 ends in a quarter of a 512-byte tile, 12,544 is N=50,000.
+    window_stats_mt and window_axpy_mt against window_stats_mt_seq and
+    window_axpy_mt_seq (complete data: but the pad rows' and pad
+    individuals' h = 3 products, which the plain versions round and the
+    kernels fuse); the sweeps' eps against sweep_update_mt_ref replayed
+    from the kernels' own draws."""
+    from hydra_tpu_torch.ops import sweep_kernel_mt as tskmt
+    dev = _card()
+    complete = not missing
+    exact = path == "sweep_exact_mt"
+    m = 2 * window
+    pk, eps, tm, mrow, dnm1, n, pads = _card_mt_inputs(
+        m, nb, n_traits, missing, exact, 7, dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    rows = torch.randperm(m, generator=gen, device=dev)[:window].to(
+        torch.int32)
+    real = ~torch.isin(rows.long(), pads)
+    if path == "window_stats_mt":
+        got = twk.window_stats_mt(pk, eps, complete, rows)
+        again = twk.window_stats_mt(pk, eps, complete, rows)
+        want = twk.window_stats_mt_seq(pk, eps, complete, rows)
+        torch.cuda.synchronize()
+        keep = real if complete else slice(None)
+        for a, a2, r in zip(got, again, want):
+            assert (a is None) == (r is None)
+            if r is not None:
+                assert torch.equal(a, a2)
+                assert torch.equal(a[keep], r[keep])
+        return
+    if path == "window_axpy_mt":
+        c1 = 0.05 * torch.randn((n_traits, window), generator=gen, device=dev)
+        c1[:, ~real] = 0.0
+        c2 = -c1 * mrow[rows.long(), 0][None, :]
+        d_k = twk.window_axpy_mt(pk, c1, c2, complete, rows)
+        d_k2 = twk.window_axpy_mt(pk, c1, c2, complete, rows)
+        d_r = twk.window_axpy_mt_seq(pk, c1, c2, complete, rows)
+        torch.cuda.synchronize()
+        assert torch.equal(d_k, d_k2)
+        assert torch.equal(d_k[:n], d_r[:n])
+        if missing:
+            assert torch.equal(d_k, d_r)
+        return
+    order = tsk.block_order(torch.randperm(2, generator=gen, device=dev),
+                            window)
+    i2se = torch.linspace(0.6, 0.9, n_traits, device=dev)
+    kw = dict(window=window, n_mix=K, order=order)
+    if exact:
+        fn = tskmt.sweep_exact_mt
+    else:
+        fn = tskmt.sweep_stale_mt
+        kw["complete"] = complete
+    e_k, o_k = fn(pk, eps, tm, mrow, i2se, dnm1, **kw)
+    e_k2, o_k2 = fn(pk, eps, tm, mrow, i2se, dnm1, **kw)
+    e_r = twk.sweep_update_mt_ref(pk, eps, tm, mrow, o_k, order, window,
+                                  complete)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(e_k).all()) and bool(torch.isfinite(o_k).all())
+    assert torch.equal(e_k, e_k2) and torch.equal(o_k, o_k2)
+    assert torch.equal(e_k, e_r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_traits", (1, 4, 16))
+@pytest.mark.parametrize("missing", (False, True))
+def test_cuda_window_stats_mt_unaligned_eps(n_traits, missing):
+    """stats_mt_kernel on a contiguous eps view that starts 4 bytes past a
+    16-byte boundary (a slice of a larger tensor) gives the bits it gives on
+    an aligned copy, where it stages the tile's eps 16 bytes a copy."""
+    dev = _card()
+    complete = not missing
+    window, nb = 128, 640
+    pk, eps, _, _, _, _, _ = _card_mt_inputs(
+        2 * window, nb, n_traits, missing, False, 11, dev)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    rows = torch.randperm(2 * window, generator=gen, device=dev)[:window].to(
+        torch.int32)
+    flat = torch.zeros(eps.numel() + 1, device=dev)
+    flat[1:] = eps.reshape(-1)
+    view = flat[1:].view(eps.shape)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 4
+    assert eps.data_ptr() % 16 == 0
+    got = twk.window_stats_mt(pk, view, complete, rows)
+    want = twk.window_stats_mt(pk, eps, complete, rows)
+    torch.cuda.synchronize()
+    for a, r in zip(got, want):
+        assert (a is None) == (r is None)
+        if r is not None:
+            assert torch.equal(a, r)

@@ -253,3 +253,109 @@ def test_recurrence_unsymmetric_gram_matches_window_gibbs(n_traits):
             np.testing.assert_allclose(x[:, t].numpy(), np.asarray(y),
                                        atol=5e-4, rtol=1e-3)
     assert len(np.unique(comp.numpy())) >= 3
+
+
+def _mt_window_inputs(n_traits, missing, seed, W=16):
+    """A window's rows (W of 48, pad rows among them), the residual with
+    10% NaN per trait and coefficients (T, W), zero on pad rows."""
+    pk, eps, _, _, _ = make_mt_inputs(48, 128, n_traits, seed, missing, 4,
+                                      0.1)
+    rows = np.random.RandomState(seed).permutation(48)[:W].astype(np.int32)
+    rs = np.random.RandomState(seed + 2)
+    c1 = (rs.randn(n_traits, W) * 0.05).astype(np.float32)
+    c1[:, (pk[rows] == 0xFF).all(axis=1)] = 0.0
+    c2 = (rs.randn(n_traits, W) * 0.05).astype(np.float32)
+    return pk, eps, rows, c1, c2
+
+
+@pytest.mark.parametrize("missing", [False, True])
+@pytest.mark.parametrize("n_traits", [1, 4, 16])
+def test_stats_mt_partials_match_jax(n_traits, missing):
+    """The order-exact stats (stats_mt_partials added tile by tile), which
+    the card holds stats_mt_kernel to bit for bit, against the JAX
+    window_stats_mt kernel in interpret mode."""
+    pk, eps, rows, _, _ = _mt_window_inputs(n_traits, missing, 21 + n_traits)
+    s_j = jwk.window_stats_mt(jnp.asarray(pk[rows]),
+                              deinterleave_mt(jnp.asarray(eps)), n_traits,
+                              interpret=True, complete=not missing)
+    s_t = twk.window_stats_mt_seq(torch.from_numpy(pk), torch.from_numpy(eps),
+                                  not missing, torch.from_numpy(rows))
+    for a, b in zip(s_t, s_j):
+        assert (a is None) == (b is None)
+        if b is not None:
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5,
+                                       atol=1e-4)
+
+
+@pytest.mark.parametrize("missing", [False, True])
+@pytest.mark.parametrize("n_traits", [1, 4, 16])
+def test_axpy_mt_rows_match_jax(n_traits, missing):
+    """The order-exact axpy (axpy_mt_rows, row by row for each trait),
+    which the card holds axpy_mt_kernel to bit for bit, against the JAX
+    window_axpy_mt kernel in interpret mode."""
+    pk, _, rows, c1, c2 = _mt_window_inputs(n_traits, missing, 31 + n_traits)
+    d_j = interleave_mt(jwk.window_axpy_mt(
+        jnp.asarray(pk[rows]), jnp.asarray(c1), jnp.asarray(c2),
+        interpret=True, complete=not missing), n_traits)
+    d_t = twk.window_axpy_mt_seq(torch.from_numpy(pk), torch.from_numpy(c1),
+                                 torch.from_numpy(c2), not missing,
+                                 torch.from_numpy(rows))
+    np.testing.assert_allclose(d_t.numpy(), np.asarray(d_j), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("complete", [False, True])
+@pytest.mark.parametrize("n_traits", [1, 4, 16])
+def test_order_exact_mt_match_matmul(n_traits, complete):
+    """The order-exact multi-trait stats and axpy against the matmul plain
+    versions the wrappers take on the CPU, and the exact sweep's partials
+    (s1 = sum g*eps, s2 = sum eps, v = sum g) against their matmul forms."""
+    pk, eps, rows, c1, c2 = _mt_window_inputs(n_traits, not complete,
+                                              41 + n_traits)
+    pk, eps, rows, c1, c2 = (torch.from_numpy(a) for a in
+                             (pk, eps, rows, c1, c2))
+    for a, b in zip(twk.window_stats_mt_seq(pk, eps, complete, rows),
+                    twk.window_stats_mt_ref(pk, eps, complete, rows)):
+        assert (a is None) == (b is None)
+        if b is not None:
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(
+        twk.window_axpy_mt_seq(pk, c1, c2, complete, rows),
+        twk.window_axpy_mt_ref(pk, c1, c2, complete, rows), rtol=1e-5,
+        atol=1e-5)
+    if complete:
+        g, _ = decode_planes_hp(pk[rows.long()])
+        p1, p2, pv = twk.stats_mt_partials(pk[rows.long()], eps, True, True)
+        assert p1.shape == (16, n_traits, 1) and pv.shape == (16, 1)
+        torch.testing.assert_close(p1.sum(-1), g @ eps, rtol=1e-5, atol=1e-4)
+        torch.testing.assert_close(p2.sum(-1), eps.sum(0).expand(16, -1),
+                                   rtol=1e-5, atol=1e-4)
+        assert torch.equal(pv[:, 0], g.sum(1))
+
+
+@pytest.mark.parametrize("kind", ["stale", "stale_missing", "exact"])
+def test_sweep_update_mt_ref_replays_sweeps(kind):
+    """sweep_update_mt_ref, which the card holds the sweeps' axpy_mt_kernel
+    to bit for bit, replays the plain sweeps' residual from their own
+    draws (the sweeps' matmul updates add in another order)."""
+    exact, missing = kind == "exact", kind == "stale_missing"
+    W, m = 16, 64
+    pk, eps, tm, mrow, dnm1 = make_mt_inputs(m, 128, T, 51, missing, 5,
+                                             0.0 if exact else 0.1,
+                                             shared_stats=exact)
+    t = [torch.from_numpy(a) for a in (pk, eps, tm, mrow, dnm1)]
+    i2se = torch.tensor([0.6, 0.7, 0.8])
+    order = block_order(torch.from_numpy(
+        np.random.RandomState(3).permutation(m // W)), W)
+    if exact:
+        e_s, o_s = tskmt.sweep_exact_mt_ref(*t[:4], i2se, t[4], window=W,
+                                            n_mix=K, order=order)
+    else:
+        e_s, o_s = tskmt.sweep_stale_mt_ref(*t[:4], i2se, t[4], window=W,
+                                            n_mix=K, complete=not missing,
+                                            order=order)
+    e_r = twk.sweep_update_mt_ref(t[0], t[1], t[2], t[3], o_s, order, W,
+                                  not missing)
+    assert not torch.allclose(e_r, t[1], rtol=0, atol=1e-3)   # eps moved
+    torch.testing.assert_close(e_r, e_s, rtol=1e-5, atol=1e-5)
+    assert torch.all(e_r[t[2] == 0.0] == 0.0)
