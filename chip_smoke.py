@@ -19,10 +19,10 @@ Phases, each printing its wall time:
      first window's rows) against its plain version.
   2b. the BayesW kernels against their plain versions: sweep_stale_bw at
      M=4,096 x N=50,000, W=64 (complete and 2% missing) and at W=1 with
-     M=512 (axpy_kernel<true> bit for bit the plain axpy replayed from the
-     sweep's draws); window_level_sums and window_axpy at W=64 x N=50,000
-     (window_axpy bit for bit but for the pad individuals of complete
-     data).
+     M=512, eps and out bit for bit the plain version's (axpy_kernel<true>
+     also bit for bit the plain axpy replayed from the sweep's draws);
+     window_level_sums and window_axpy at W=64 x N=50,000 (bit for bit;
+     window_axpy but for the pad individuals of complete data).
   3. the BayesRRm CLI end to end (``--mpibayes bayesMPI``) at M=10,000 x
      N=5,000, exact default then --stale, 50 iterations each; the sweep
      kernels' launch counts must move. One sweep of the CUDA sampler is
@@ -36,14 +36,16 @@ Phases, each printing its wall time:
      and in 4b, 4d and 4e each sweep's device us per window by kernel,
      stats_kernel's and axpy_kernel's bounds per window and launches.
   4b. BayesW W=64 block at the same size, and W=1 at M=10,000 x N=5,000:
-     ms/sweep, markers/s, per-kernel device time, host enqueue time.
+     ms/sweep, markers/s, per-kernel device time, host enqueue time, and
+     levels_kernel's and bw_draw_kernel's bounds per window.
 Multi-trait BayesRRm (T=4 traits):
   2c. sweep_stale_mt (W=64) and sweep_exact_mt (W=128) against their plain
      versions at M=4,096 x N=50,000 with full phenotypes, sweep_stale_mt
      with 2% missing genotypes and 10% NaN per trait; window_stats_mt,
      window_axpy_mt and mt_window_recurrence at W=128 with and without NaN;
-     then the SHA-256 of the exact recurrences' outputs on fixed-seed
-     inputs (print_digests), to hold two trees bit for bit.
+     then the SHA-256 of the exact recurrences', the mt packed passes' and
+     the BayesW sweep's outputs on fixed-seed inputs (print_digests), to
+     hold two trees bit for bit.
   3c. the multi-trait CLI (``--pheno t0,t1,t2,t3``) at M=10,000 x N=5,000:
      exact with full phenotypes, --stale --window 64, and exact with 10% NaN
      per trait (the per-window path), 40 iterations each; every mt launch
@@ -665,6 +667,28 @@ def print_exact_bounds(W, nb, C):
           f"{1e3 * draw[0]:.4f} us ({draw[1]})", flush=True)
 
 
+def print_bw_bounds(W, nb, C, complete, Q, launches):
+    """The least time of one BayesW window's levels_kernel and
+    bw_draw_kernel launches. levels_kernel: the W packed rows and the order
+    in, vi once, the per-tile partials out (s1, s2, with missing data the
+    mask dot, and sum vi); one f32 multiply-add (2 operations) a genotype
+    and sum. bw_draw_kernel: the W mrow rows (C floats), the order, the
+    partials and the Gauss-Hermite table in, out (4 floats a marker) and
+    coef (2 W + 1) out; ~2,700 f32 operations a marker, as if every marker
+    ran the whole slice budget (the bytes bound it either way)."""
+    n_pad, n_tiles = 4 * nb, -(-nb // 512)
+    sums = 2 if complete else 3
+    parts = 4 * n_tiles * (sums * W + 1)
+    levels = bound(W * nb + 4 * W + 4 * n_pad + parts,
+                   {"f32": 2.0 * sums * W * n_pad})
+    draw = bound(4 * W * C + 4 * W + parts + 8 * Q + 16 * W + 4 * (2 * W + 1),
+                 {"f32": 2700.0 * W})
+    print(f"  bound per window (W={W}, nb={nb}): levels_kernel "
+          f"{1e3 * levels[0]:.4f} us ({levels[1]}), bw_draw_kernel "
+          f"{1e3 * draw[0]:.4f} us ({draw[1]}); {launches} launches a sweep "
+          "each", flush=True)
+
+
 def device_times(torch, fn, label):
     """{kernel name: (launches, device ms)} of one call of fn, from
     torch.profiler's device activities."""
@@ -744,35 +768,48 @@ def bw_sampler(torch, np, m, n, seed, window, missing=0.0):
                   packed_device=pk)
 
 
+# phase 2b's BayesW cases (M, W, missing genotypes) at N=50,000
+BW_CASES = ((4096, 64, 0.0), (4096, 64, 0.02), (512, 1, 0.0))
+
+
+def bw_case(torch, np, m, window, missing):
+    """A BayesW sweep's inputs at N=50,000 (bw_sampler, seed 11): a state
+    with 20% non-zero effects and a loose pi, so that every component and
+    the slice sampler are exercised. Returns (sampler, sweep_stale_bw's
+    positional args, its keywords, vi, the generator, left where it is)."""
+    dev = torch.device("cuda")
+    s = bw_sampler(torch, np, m, 50_000, 11, window, missing)
+    cfg = s.cfg
+    st = s.init_state()
+    gen = torch.Generator(device=dev).manual_seed(3)
+    nz = torch.rand(cfg.m_loc, generator=gen, device=dev) < 0.2
+    st.beta = torch.where(nz, 0.02 * torch.randn(
+        cfg.m_loc, generator=gen, device=dev), 0.0) * s.valid
+    st.pi_l = torch.tensor([[0.5, 0.2, 0.2, 0.1]], device=dev)
+    alpha = st.alpha
+    vi = torch.exp(alpha * st.eps - EULER_MASCHERONI) * s.ind_mask
+    mrow = s.build_mrow(st, alpha, s.slot_noise(0))
+    args = (s.packed, st.eps, vi, mrow, s.gh_x, s.gh_w, alpha)
+    kw = dict(window=window, n_mix=cfg.k, complete=cfg.complete,
+              ind_mask=s.ind_mask, order=s.sweep_order(0))
+    return s, args, kw, vi, gen
+
+
 def phase_bw_kernels(torch, np, card):
     """The BayesW kernels against their plain versions on the card. The
     plain versions repeat the kernels' arithmetic in their order, so the
-    outputs are compared bit for bit as well as within the sweep tolerance
-    (atol 5e-4, rtol 1e-3), and components must agree exactly."""
+    outputs must be equal bit for bit (sweep_stale_bw's eps and out,
+    window_level_sums' sums, window_axpy's but for complete data's pad
+    individuals) as well as within the sweep tolerance (atol 5e-4, rtol
+    1e-3), and components must agree exactly."""
     from hydra_tpu_torch.ops import sweep_kernel_bw as skbw
     from hydra_tpu_torch.ops import window_kernels as wk
     dev = torch.device("cuda")
-    n = 50_000
     rec = {k: dict(err=0.0) for k in ("sweep_stale_bw", "window_level_sums",
                                       "window_axpy")}
-    for m, window, missing in ((4096, 64, 0.0), (4096, 64, 0.02),
-                               (512, 1, 0.0)):
-        s = bw_sampler(torch, np, m, n, 11, window, missing)
-        cfg = s.cfg
-        st = s.init_state()
-        gen = torch.Generator(device=dev).manual_seed(3)
-        # a state with 20% non-zero effects and a loose pi, so that every
-        # component and the slice sampler are exercised
-        nz = torch.rand(cfg.m_loc, generator=gen, device=dev) < 0.2
-        st.beta = torch.where(nz, 0.02 * torch.randn(
-            cfg.m_loc, generator=gen, device=dev), 0.0) * s.valid
-        st.pi_l = torch.tensor([[0.5, 0.2, 0.2, 0.1]], device=dev)
-        alpha = st.alpha
-        vi = torch.exp(alpha * st.eps - EULER_MASCHERONI) * s.ind_mask
-        mrow = s.build_mrow(st, alpha, s.slot_noise(0))
-        args = (s.packed, st.eps, vi, mrow, s.gh_x, s.gh_w, alpha)
-        kw = dict(window=window, n_mix=cfg.k, complete=cfg.complete,
-                  ind_mask=s.ind_mask, order=s.sweep_order(0))
+    for m, window, missing in BW_CASES:
+        s, args, kw, vi, gen = bw_case(torch, np, m, window, missing)
+        cfg, mrow = s.cfg, args[3]
 
         def run():
             return skbw.sweep_stale_bw(*args, **kw)
@@ -800,6 +837,9 @@ def phase_bw_kernels(torch, np, card):
               f"{bitwise}  [{card}]", flush=True)
         torch.testing.assert_close(e1, er, atol=5e-4, rtol=1e-3)
         torch.testing.assert_close(o1[:, 0], orf[:, 0], atol=5e-4, rtol=1e-3)
+        if not bitwise:
+            raise AssertionError(f"sweep_stale_bw W={window} {data} differs "
+                                 "from its plain version")
         if n_comp:
             raise AssertionError(f"sweep_stale_bw: {n_comp} component "
                                  "mismatches against the plain version")
@@ -807,7 +847,7 @@ def phase_bw_kernels(torch, np, card):
             raise AssertionError("sweep_stale_bw: degenerate draws")
         check_axpy_bitwise(torch, f"sweep_stale_bw W={window} {data}", e1,
                            wk.sweep_update_ref(
-                               s.packed, st.eps, mrow, o1[:, 2], kw["order"],
+                               s.packed, args[1], mrow, o1[:, 2], kw["order"],
                                window, "stale" if cfg.complete else "missing",
                                s.ind_mask), card)
         r = rec["sweep_stale_bw"]
@@ -856,6 +896,9 @@ def phase_bw_kernels(torch, np, card):
                   f"to plain {bitwise}  [{card}]", flush=True)
             for a, b in zip(k1, p1):
                 torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+            if name == "window_level_sums" and not bitwise:
+                raise AssertionError("window_level_sums differs from its "
+                                     "plain version")
             if name == "window_axpy":
                 # bit for bit but for the pad individuals' h = 3 products in
                 # complete data (the plain version rounds 3 c1; the caller
@@ -876,7 +919,7 @@ def phase_bw_kernels(torch, np, card):
                                         else 8 * window + 16 * nb)
                 r["bound_ms"], r["bound_by"] = bound(
                     nbytes, {"f32": ops_per * window * n_pad})
-        del s, st, args
+        del s, args, vi
     return rec
 
 
@@ -1003,6 +1046,8 @@ def phase_bw_real_size(torch, np, card):
                     cfg.n_windows * 3, card, cfg.n_windows)
         print_stream_bounds(window, s.packed.shape[1], cfg.n_windows,
                             stats=False, refresh=True)
+        print_bw_bounds(window, s.packed.shape[1], mrow.shape[1],
+                        cfg.complete, s.gh_x.shape[0], cfg.n_windows)
         del s, st, vi, mrow
 
 
@@ -1039,11 +1084,13 @@ def print_digests(torch, np):
     of mt_window_recurrence on a shared and on a per-trait Gram (10% NaN
     per trait), sweep_stale_mt, BayesRRm's sweep_exact, and with 2%
     missing genotypes and 10% NaN per trait sweep_stale_mt, window_stats_mt
-    and window_axpy_mt. Two trees' kernels are bit for bit the same where
-    their digests are
+    and window_axpy_mt; then BayesW's sweep_stale_bw (eps, out) at phase
+    2b's cases (bw_case: M=4,096 W=64 complete and 2% missing, M=512 W=1).
+    Two trees' kernels are bit for bit the same where their digests are
     (scripts/chip_compare.py runs this in each tree). Returns {name:
     digest}."""
     from hydra_tpu_torch.ops import sweep_kernel as sk
+    from hydra_tpu_torch.ops import sweep_kernel_bw as skbw
     from hydra_tpu_torch.ops import sweep_kernel_mt as skmt
     from hydra_tpu_torch.ops import window_kernels as wk
     from hydra_tpu_torch.ops.decode import decode_planes_hp
@@ -1107,6 +1154,11 @@ def print_digests(torch, np):
     c1 = 0.01 * torch.randn((T, W), generator=gen, device=dev)
     outs[f"window_axpy_mt W=128 {data}"] = (wk.window_axpy_mt(
         pk, c1, -c1 * mave[slots][None, :], False, rows),)
+    for m_bw, w_bw, missing in BW_CASES:
+        _, args, kw, _, _ = bw_case(torch, np, m_bw, w_bw, missing)
+        data = "missing 2%" if missing else "complete"
+        outs[f"sweep_stale_bw M={m_bw} W={w_bw} {data}"] = (
+            skbw.sweep_stale_bw(*args, **kw))
     torch.cuda.synchronize()
     digests = {}
     for name, tensors in outs.items():

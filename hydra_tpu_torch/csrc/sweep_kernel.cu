@@ -49,16 +49,6 @@
 
 namespace hydra {
 
-constexpr int STATS_TB = 512;      // packed bytes a stats tile (128 words, 2,048 individuals)
-constexpr int STATS_WARPS = 8;     // warps a stats block
-constexpr int STATS_RPW = 2;       // rows a warp, their loads in flight together
-constexpr int STATS_THREADS = STATS_WARPS * 32;
-constexpr int STATS_STAGE = STATS_TB / STATS_THREADS;   // eps float4 a thread stages
-
-// the staged eps tile's float4 f lives at swz(f): lane l's reads of its
-// word's four float4 (f = 4 (l + 32 j) + q) then fall in distinct banks
-__device__ __forceinline__ int swz(int f) { return f ^ ((f >> 3) & 3); }
-
 // ---------------------------------------------------------------- stats --
 // Per-tile partials part[tile * W + r] of one window's rows r: s1 = sum
 // g*eps (complete stale data: sum h*eps), s2 = sum m*eps (complete data:
@@ -69,7 +59,8 @@ __device__ __forceinline__ int swz(int f) { return f ^ ((f >> 3) & 3); }
 //
 // Bound: bytes, the W * nb packed bytes, eps once and the partials (1.84 MB
 // at W=128, N=50,000: 0.55 us at 3.35 TB/s). grid (tiles, ceil(W / rows a
-// block)); a block covers one tile for STATS_WARPS * STATS_RPW rows:
+// block)); a block covers one tile for STATS_WARPS * STATS_RPW rows
+// (StatsTile, sweep_kernel.cuh, shared with BayesW's levels_kernel):
 //  - the tile's eps (8 KB) is read from memory once per block into shared
 //    memory, and each lane keeps its 64 values in registers for all of its
 //    warp's rows, so eps traffic falls by the rows a block, not per row;
@@ -94,63 +85,11 @@ stats_kernel(const uint8_t* __restrict__ pk, int nb, const float* __restrict__ e
              float* __restrict__ part_s1, float* __restrict__ part_s2,
              float* __restrict__ part_v, uint8_t* __restrict__ dec) {
     __shared__ __align__(16) float4 s_eps[STATS_TB];
-    const int t = blockIdx.x;
-    const int w0 = t * (STATS_TB / 4);
-    const int nw = min(STATS_TB / 4, nb / 4 - w0);     // a multiple of 32
-    const int nj = nw / 32;                              // words a lane, 1..4
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int r0 = (blockIdx.y * (blockDim.x >> 5) + warp) * STATS_RPW;
-    // the rows' packed words first: their two round trips (order, row) run
-    // while the block stages eps
-    uint32_t words[STATS_RPW][4];
-    if (r0 < W) {
-#pragma unroll
-        for (int p = 0; p < STATS_RPW; ++p) {
-            const int r = min(r0 + p, W - 1);
-            const uint32_t* row = reinterpret_cast<const uint32_t*>(
-                pk + static_cast<size_t>(order_w[r]) * nb) + w0 + lane;
-#pragma unroll
-            for (int j = 0; j < 4; ++j) words[p][j] = j < nj ? __ldg(row + 32 * j) : 0u;
-        }
-    }
-    // the same rows' tile of the next window (the same block reads it
-    // there), to L2: lane 4p + l prefetches line l of row r0 + p
-    const int pr = r0 + (lane >> 2);
-    const int next_slot = next_w != nullptr && lane < 4 * STATS_RPW && pr < W &&
-                                  (lane & 3) < nj
-                              ? next_w[pr]
-                              : -1;
-    // a block of one warp (W <= STATS_RPW) reads its eps straight into
-    // registers; a whole block stages the tile once, all loads in flight
-    const float4* e4 = reinterpret_cast<const float4*>(eps) + 4 * w0;
-    const bool staged = blockDim.x == STATS_THREADS;
-    if (staged) {
-        float4 st[STATS_STAGE];
-#pragma unroll
-        for (int q = 0; q < STATS_STAGE; ++q) {
-            const int f = threadIdx.x + q * STATS_THREADS;
-            st[q] = f < 4 * nw ? __ldg(e4 + f) : make_float4(0.f, 0.f, 0.f, 0.f);
-        }
-#pragma unroll
-        for (int q = 0; q < STATS_STAGE; ++q) s_eps[swz(threadIdx.x + q * STATS_THREADS)] = st[q];
-        __syncthreads();
-    }
-    if (r0 >= W) return;
-    if (next_slot >= 0)
-        prefetch_l2(pk + static_cast<size_t>(next_slot) * nb + 4 * w0 + 128 * (lane & 3));
-    float ev[4][16];
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-            const int f = (lane + 32 * j) * 4 + q;
-            const float4 e = j >= nj ? make_float4(0.f, 0.f, 0.f, 0.f)
-                             : staged ? s_eps[swz(f)] : __ldg(e4 + f);
-            ev[j][4 * q] = e.x;
-            ev[j][4 * q + 1] = e.y;
-            ev[j][4 * q + 2] = e.z;
-            ev[j][4 * q + 3] = e.w;
-        }
+    StatsTile tl;
+    if (!tl.load(pk, nb, eps, order_w, next_w, W, s_eps)) return;
+    const int t = blockIdx.x, lane = threadIdx.x & 31;
+    const int w0 = tl.w0, nj = tl.nj, r0 = tl.r0;
+    const auto& ev = tl.ev;
     float b_all = 0.f;
     if (MODE != MODE_MISSING) {
 #pragma unroll
@@ -171,7 +110,7 @@ stats_kernel(const uint8_t* __restrict__ pk, int nb, const float* __restrict__ e
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
             if (j >= nj) break;
-            const uint32_t word = words[p][j];
+            const uint32_t word = tl.words[p][j];
             if constexpr (STORE) {
                 uint4* drow = reinterpret_cast<uint4*>(dec + static_cast<size_t>(r) * 4 * nb);
                 drow[w0 + lane + 32 * j] =
@@ -216,14 +155,12 @@ template <bool STORE>
 inline int launch_stats(const uint8_t* pk, int nb, const float* eps, const int* order_w,
                         const int* next_w, int W, int mode, float* part_s1, float* part_s2,
                         float* part_v, uint8_t* dec, cudaStream_t stream) {
-    const int threads = W <= STATS_RPW ? 32 : STATS_THREADS;
-    const dim3 grid(cdiv(nb, STATS_TB), cdiv(W, STATS_WARPS * STATS_RPW));
     auto* const kernel = mode == MODE_MISSING ? stats_kernel<MODE_MISSING, STORE>
                          : mode == MODE_STALE_COMPLETE
                              ? stats_kernel<MODE_STALE_COMPLETE, STORE>
                              : stats_kernel<MODE_EXACT_COMPLETE, STORE>;
-    kernel<<<grid, threads, 0, stream>>>(pk, nb, eps, order_w, next_w, W, part_s1, part_s2,
-                                         part_v, dec);
+    kernel<<<stats_grid(nb, W), stats_threads(W), 0, stream>>>(pk, nb, eps, order_w, next_w, W,
+                                                                part_s1, part_s2, part_v, dec);
     HYDRA_CHECK_LAUNCH();
     return 0;
 }

@@ -103,6 +103,108 @@ __device__ __forceinline__ float reduce_tiles(const float* part, int n_tiles,
     return s;
 }
 
+// ------------------------------------------------------------ stats tile --
+// The tile of the per-row passes over a window's packed rows and one f32
+// vector x in individual order: stats_kernel (x = eps, sweep_kernel.cu)
+// and levels_kernel (x = vi, sweep_kernel_bw.cu). A block covers one
+// STATS_TB-byte tile (128 words, 2,048 individuals) for STATS_WARPS warps
+// of STATS_RPW rows each; lane l of a warp owns the tile's words l, l + 32,
+// l + 64, l + 96 (16 individuals each) of each of its rows.
+constexpr int STATS_TB = 512;      // packed bytes a tile
+constexpr int STATS_WARPS = 8;     // warps a block
+constexpr int STATS_RPW = 2;       // rows a warp, their loads in flight together
+constexpr int STATS_THREADS = STATS_WARPS * 32;
+constexpr int STATS_STAGE = STATS_TB / STATS_THREADS;   // x float4 a thread stages
+
+// the staged x tile's float4 f lives at swz(f): lane l's reads of its
+// word's four float4 (f = 4 (l + 32 j) + q) then fall in distinct banks
+__device__ __forceinline__ int swz(int f) { return f ^ ((f >> 3) & 3); }
+
+// Loads only (no arithmetic on x, so the files built with and without
+// -fmad=false share it). load(), called by every thread of the block:
+//  - the warp's rows' packed words first (words[p][j] = word l + 32 j of
+//    row r0 + p; rows past W repeat row W - 1), so their two round trips
+//    (order, row) run while the block stages x;
+//  - the same rows' tile of the next window (next_w, may be null) to L2, a
+//    hint: lane 4p + l prefetches line l of row r0 + p;
+//  - a block of STATS_THREADS stages the tile's x (8 KB) once in s_x
+//    (swizzled), every load in flight, behind one barrier; a block of one
+//    warp (W <= STATS_RPW) reads it straight into registers;
+//  - each lane's 64 values of x in registers, ev[j][4 q + k] = individual
+//    16 (w0 + l + 32 j) + 4 q + k (zero past the tile's nj words a lane).
+// Returns false for a warp with no rows (r0 >= W), after the barrier.
+struct StatsTile {
+    int w0;                        // the tile's first word
+    int nj;                        // words a lane, 1..4
+    int r0;                        // the warp's first row
+    uint32_t words[STATS_RPW][4];
+    float ev[4][16];
+
+    __device__ __forceinline__ bool load(const uint8_t* __restrict__ pk, int nb,
+                                         const float* __restrict__ x,
+                                         const int* __restrict__ order_w,
+                                         const int* __restrict__ next_w, int W,
+                                         float4* s_x) {
+        w0 = blockIdx.x * (STATS_TB / 4);
+        const int nw = min(STATS_TB / 4, nb / 4 - w0);     // a multiple of 32
+        nj = nw / 32;
+        const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+        r0 = (blockIdx.y * (blockDim.x >> 5) + warp) * STATS_RPW;
+        if (r0 < W) {
+#pragma unroll
+            for (int p = 0; p < STATS_RPW; ++p) {
+                const int r = min(r0 + p, W - 1);
+                const uint32_t* row = reinterpret_cast<const uint32_t*>(
+                    pk + static_cast<size_t>(order_w[r]) * nb) + w0 + lane;
+#pragma unroll
+                for (int j = 0; j < 4; ++j) words[p][j] = j < nj ? __ldg(row + 32 * j) : 0u;
+            }
+        }
+        const int pr = r0 + (lane >> 2);
+        const int next_slot = next_w != nullptr && lane < 4 * STATS_RPW && pr < W &&
+                                      (lane & 3) < nj
+                                  ? next_w[pr]
+                                  : -1;
+        const float4* x4 = reinterpret_cast<const float4*>(x) + 4 * w0;
+        const bool staged = blockDim.x == STATS_THREADS;
+        if (staged) {
+            float4 st[STATS_STAGE];
+#pragma unroll
+            for (int q = 0; q < STATS_STAGE; ++q) {
+                const int f = threadIdx.x + q * STATS_THREADS;
+                st[q] = f < 4 * nw ? __ldg(x4 + f) : make_float4(0.f, 0.f, 0.f, 0.f);
+            }
+#pragma unroll
+            for (int q = 0; q < STATS_STAGE; ++q) s_x[swz(threadIdx.x + q * STATS_THREADS)] = st[q];
+            __syncthreads();
+        }
+        if (r0 >= W) return false;
+        if (next_slot >= 0)
+            prefetch_l2(pk + static_cast<size_t>(next_slot) * nb + 4 * w0 + 128 * (lane & 3));
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+                const int f = (lane + 32 * j) * 4 + q;
+                const float4 e = j >= nj ? make_float4(0.f, 0.f, 0.f, 0.f)
+                                 : staged ? s_x[swz(f)] : __ldg(x4 + f);
+                ev[j][4 * q] = e.x;
+                ev[j][4 * q + 1] = e.y;
+                ev[j][4 * q + 2] = e.z;
+                ev[j][4 * q + 3] = e.w;
+            }
+        return true;
+    }
+};
+
+// The grid of a window's pass over the tile: (tiles, ceil(W / rows a
+// block)), STATS_THREADS a block, one warp for W <= STATS_RPW.
+inline dim3 stats_grid(int nb, int W) {
+    return dim3(cdiv(nb, STATS_TB), cdiv(W, STATS_WARPS * STATS_RPW));
+}
+
+inline int stats_threads(int W) { return W <= STATS_RPW ? 32 : STATS_THREADS; }
+
 // ------------------------------------------------------ complete gram --
 // The complete-data window Gram of the exact sweeps (hydra_sweep_exact,
 // hydra_sweep_exact_mt, hydra_window_stats): G = g g^T over the window's
@@ -395,7 +497,8 @@ __global__ void gram_reduce_kernel(const float* __restrict__ part, int n_chunks,
 // A null mask reads as 1 (the standalone window_axpy contract: the caller
 // masks). REFRESH (BayesW) also rewrites vi = exp(alpha*eps' - EuMasc) *
 // mask in the same pass (BayesW.cpp:1832-1834; alpha = sc[0]; mask is
-// required then).
+// required then) and adds its own cst from c1 and c2 (refresh_cst; coef
+// holds no cst then).
 //
 // Bound: bytes, the W * nb packed bytes, eps read and written and the mask
 // (2.21 MB at W=128, N=50,000: 0.66 us at 3.35 TB/s); the rows were just
@@ -492,6 +595,47 @@ struct AxpyTile {
     }
 };
 
+// BayesW's h-decode constant 2 sum(c1) + sum(c2) of coef = [c1[W], c2[W]],
+// each sum in window order from 0.f: its draw kernel spreads a window's
+// markers over many blocks, so the axpy that needs the constant adds it
+template <bool REFRESH, int MODE>
+__device__ __forceinline__ float refresh_cst(const float* c1, const float* c2, int W) {
+    if (!REFRESH || MODE != MODE_STALE_COMPLETE) return 0.f;
+    float a = 0.f, b = 0.f;
+#pragma unroll
+    for (int r = 0; r < AXPY_DIRECT; ++r) {
+        if (r < W) {
+            a += c1[r];
+            b += c2[r];
+        }
+    }
+    return 2.0f * a + b;
+}
+
+// The same from the axpy's shared c1[W4], c2[W4], float4 at a time: the
+// zeros past W leave both sums as they are (a sum that starts at +0 is
+// never -0, and x + 0 = x)
+template <bool REFRESH, int MODE>
+__device__ __forceinline__ float refresh_cst4(const float* c1, const float* c2, int W4) {
+    if (!REFRESH || MODE != MODE_STALE_COMPLETE) return 0.f;
+    const float4* a4 = reinterpret_cast<const float4*>(c1);
+    const float4* b4 = reinterpret_cast<const float4*>(c2);
+    float a = 0.f, b = 0.f;
+#pragma unroll 4
+    for (int j = 0; j < W4 / 4; ++j) {
+        const float4 x = a4[j], y = b4[j];
+        a += x.x;
+        b += y.x;
+        a += x.y;
+        b += y.y;
+        a += x.z;
+        b += y.z;
+        a += x.w;
+        b += y.w;
+    }
+    return 2.0f * a + b;
+}
+
 template <bool REFRESH, int MODE>
 __global__ void __launch_bounds__(AXPY_THREADS)
 axpy_kernel(const uint8_t* __restrict__ pk, int nb, const int* __restrict__ order_w, int W,
@@ -509,7 +653,7 @@ axpy_kernel(const uint8_t* __restrict__ pk, int nb, const int* __restrict__ orde
     const float m = mask != nullptr ? mask[i] : 1.f;
     const int bt = tid >> 2;               // this thread's packed byte (column)
     const int k = tid & 3;                 // and crumb
-    float acc = 0.f;
+    float acc = 0.f, cst = 0.f;
     if (W <= AXPY_DIRECT) {
         // few rows: the thread reads its byte of each row straight from
         // memory, all loads in flight; no tile and no barrier
@@ -518,6 +662,7 @@ axpy_kernel(const uint8_t* __restrict__ pk, int nb, const int* __restrict__ orde
 #pragma unroll
         for (int r = 0; r < AXPY_DIRECT; ++r)
             bytes[r] = r < W ? __ldg(col + static_cast<size_t>(order_w[r]) * nb) : 0u;
+        cst = refresh_cst<REFRESH, MODE>(coef, coef + W, W);
 #pragma unroll
         for (int r = 0; r < AXPY_DIRECT; ++r) {
             if (r >= W) break;
@@ -534,7 +679,7 @@ axpy_kernel(const uint8_t* __restrict__ pk, int nb, const int* __restrict__ orde
     } else {
         for (int r = tid; r < W4; r += AXPY_THREADS) {
             s_c1[r] = r < W ? coef[r] : 0.f;
-            if (MODE == MODE_MISSING) s_c2[r] = r < W ? coef[W + r] : 0.f;
+            if (MODE == MODE_MISSING || REFRESH) s_c2[r] = r < W ? coef[W + r] : 0.f;
         }
         // the exact-mode tile holds the genotype (coef staged behind stage()'s
         // barrier); rows past W hold 0 bytes and c1 = c2 = 0: fmaf adds an
@@ -572,11 +717,13 @@ axpy_kernel(const uint8_t* __restrict__ pk, int nb, const int* __restrict__ orde
                 }
             }
         }
+        // c1 and c2 staged behind stage()'s barrier
+        cst = refresh_cst4<REFRESH, MODE>(s_c1, s_c2, W4);
     }
     if (MODE == MODE_MISSING) {
         e += acc;
     } else {
-        const float cst = coef[2 * W];
+        if (!REFRESH || MODE != MODE_STALE_COMPLETE) cst = coef[2 * W];
         const float d = MODE == MODE_STALE_COMPLETE ? cst - acc : acc + cst;
         e += d * m;
     }

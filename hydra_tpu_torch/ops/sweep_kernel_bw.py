@@ -30,7 +30,11 @@ bw_draw_kernel and axpy_kernel per window) and raises on what it does not
 take; for CPU tensors it runs the plain version ``sweep_stale_bw_ref``,
 which repeats the kernels' arithmetic in their order (see
 ``ops/window_kernels.py``) and which the tests hold against the JAX
-sampler.
+sampler. Its draw ``_draw`` runs the fixed slice budget vectorized over
+the window; ``bw_draw_early_exit_ref`` is one marker's draw in
+bw_draw_kernel's order (a warp per marker: the slice skipped where its
+result is unused, stepping out and shrinking each in one round of
+evaluations), which the CPU tests hold bit for bit against ``_draw``.
 """
 
 from __future__ import annotations
@@ -164,6 +168,124 @@ def _draw(rows, s1, s2, sb, s_all, gh_x, gh_w, alpha, K, complete,
                            n_expand=n_expand, n_shrink=n_shrink)
     bnew = torch.where((compf > 0.0) & (act > 0.0), x, 0.0)
     return bnew, compf, bold - bnew
+
+
+def bw_draw_early_exit_ref(row, s1, s2, sb, s_all, gh_x, gh_w, alpha, K,
+                           complete, n_expand=N_EXPAND, n_shrink=N_SHRINK,
+                           info: Optional[dict] = None):
+    """One marker's draw in bw_draw_kernel's order (a warp per marker),
+    bit for bit ``_draw``'s for that marker.
+
+    row (C,) is the marker's mrow row; s1, s2, sb (None when complete) and
+    s_all its level sums, alpha the shape (0-dim f32). The (K-1, Q)
+    quadrature terms are computed at once (the lanes), each component's
+    added in node order from 0; the slice draw runs only where comp and act
+    are non-zero (elsewhere beta_new = 0 whatever it returns); the stepping-
+    out points bold, left_0..left_{n-1}, right_0..right_{n-1} (each by the
+    loop's own repeated subtraction or addition of width) are evaluated
+    together and each side stops at its first failing step (the fixed-
+    budget loop re-tests that point and fails again); the shrink steps'
+    candidates are built by the bracket chain as if each step before them
+    was rejected (a rejection moves the bracket by xc < bold alone), f is
+    evaluated at all of them together, and the first accepted one is the
+    draw. ``info`` (a dict) receives which branches ran: slice, left_steps,
+    right_steps, left_at_lower, right_at_upper, shrinks (up to the accepted
+    step), accepted. Returns (beta_new, comp, dbeta)."""
+    km1 = K - 1
+    (mave, inv_sd, bold, u, act, sf, th0, th1, th2, e0, e1, e2,
+     ml0) = row[:N_FIXED].unbind()
+    sm = torch.zeros_like(s1) if complete else s_all - sb
+    s0 = s_all - s1 - s2 - sm
+    vi1 = s1 * e1
+    vi2 = s2 * e2
+    vsum = s0 * e0 + vi1 + vi2 + sm
+    vi0 = vsum - vi1 - vi2
+    exp_sum = (vi1 * (1.0 - 2.0 * mave) + 4.0 * (1.0 - mave) * vi2
+               + vsum * mave * mave) * inv_sd * inv_sd
+    pj, sqrt2ck, adc, two_ck_sg_k, slim_k = (
+        row[N_FIXED + j * km1:N_FIXED + (j + 1) * km1] for j in range(5))
+    br = N_FIXED + 5 * km1
+    # the lanes' quadrature terms (j, q); lane j + 1 adds row j in q order
+    sigma_ad = 1.0 / torch.sqrt(1.0 + adc * exp_sum)             # (J,)
+    s_node = sigma_ad[:, None] * gh_x[None, :]                    # (J, Q)
+    sq = s_node * sqrt2ck[:, None]
+    temp = (-alpha * sq * sf - vi0 * torch.expm1(th0 * sq)
+            - vi1 * torch.expm1(th1 * sq) - vi2 * torch.expm1(th2 * sq)
+            - s_node * s_node)
+    term = gh_w * torch.exp(temp)
+    acc = torch.zeros(km1, dtype=f32, device=row.device)
+    for q in range(gh_x.shape[0]):
+        acc = acc + term[:, q]
+    ml = pj * (sigma_ad * acc)
+    sm_ml = ml0
+    for j in range(km1):
+        sm_ml = sm_ml + ml[j]
+    cum = ml0 / sm_ml
+    compf = (u > cum).to(f32)
+    for j in range(km1):
+        cum = cum + ml[j] / sm_ml
+        compf = compf + (u > cum).to(f32)
+    compf = torch.clamp(compf, max=float(km1)) * act
+    info = {} if info is None else info
+    info.update(slice=bool(compf > 0.0) and bool(act > 0.0), left_steps=0,
+                right_steps=0, left_at_lower=False, right_at_upper=False,
+                shrinks=0, accepted=False)
+    if not info["slice"]:
+        bnew = torch.zeros_like(bold)
+        return bnew, compf, bold - bnew
+
+    ksel = int(compf.item()) - 1 if compf > 1.0 else 0
+    two_ck_sg, slim = two_ck_sg_k[ksel], slim_k[ksel]
+
+    def logf(x):
+        return (-alpha * x * sf - vi0 * torch.expm1(th0 * x)
+                - vi1 * torch.expm1(th1 * x) - vi2 * torch.expm1(th2 * x)
+                - x * x / two_ck_sg)
+
+    width = torch.clamp(slim / 5.0, min=1e-3)
+    lower, upper = bold - slim, bold + slim
+    left0 = bold - width * row[br + 1]
+    right0 = left0 + width
+    lefts, rights = [left0], [right0]
+    for _ in range(n_expand):
+        lefts.append(lefts[-1] - width)
+        rights.append(rights[-1] + width)
+    # one round: f at bold and at the n_expand points of each side
+    fp = logf(torch.stack([bold] + lefts[:n_expand] + rights[:n_expand]))
+    log_y = fp[0] - row[br]
+
+    def first_fail(ok):
+        return next((k for k in range(n_expand) if not ok[k]), n_expand)
+
+    kl = first_fail([bool(fp[1 + k] > log_y) and bool(lefts[k] > lower)
+                     for k in range(n_expand)])
+    kr = first_fail([bool(fp[1 + n_expand + k] > log_y)
+                     and bool(rights[k] < upper) for k in range(n_expand)])
+    info.update(left_steps=kl, right_steps=kr,
+                left_at_lower=kl < n_expand and bool(lefts[kl] <= lower),
+                right_at_upper=kr < n_expand and bool(rights[kr] >= upper))
+    left = torch.maximum(lefts[kl], lower)
+    right = torch.minimum(rights[kr], upper)
+    # shrinking in one round: a rejected step moves the bracket by
+    # xc < bold alone, so every step's candidate (as if the steps before
+    # it were rejected) follows without f; the first accepted one is x
+    cands = []
+    for s in range(n_shrink):
+        xc = left + row[br + 2 + s] * (right - left)
+        cands.append(xc)
+        if xc < bold:
+            left = xc
+        else:
+            right = xc
+    x = bold
+    if n_shrink:
+        ok = (logf(torch.stack(cands)) > log_y).tolist()
+        first = next((s for s in range(n_shrink) if ok[s]), None)
+        info.update(shrinks=n_shrink if first is None else first + 1,
+                    accepted=first is not None)
+        if first is not None:
+            x = cands[first]
+    return x, compf, bold - x
 
 
 @torch.inference_mode()

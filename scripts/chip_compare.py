@@ -8,7 +8,8 @@ per-window path with 10% NaN), and the stale W=1 sweep at M=10,000 x
 N=5,000, each with its per-kernel device time from ``profile_sweep`` /
 ``profile_run``. First, in every tree, this tree's
 ``chip_smoke.print_digests`` (the same inputs everywhere, the tree's own
-kernels) prints the SHA-256 of the exact recurrences' outputs, so equal
+kernels) prints the SHA-256 of the exact recurrences', the mt packed
+passes' and the BayesW sweep's outputs, so equal
 digests show two trees' kernels bit for bit the same; then this tree's
 ``chip_smoke.print_mt_pass_times`` times the multi-trait packed passes
 alone (T 1/4/16, W 64/128, complete and missing) on the same calls.
@@ -21,9 +22,9 @@ the parent unpacked into a git-ignored directory beside this tree:
 Each run goes to ``DIR/compare_<i>_<tree>.log`` (default ``build/compare``,
 git-ignored); a summary line per configuration (ms/sweep, CUDA-event
 ms/sweep, device ms and busy share, host enqueue, and the stats, axpy
-(BayesRRm's and multi-trait) and exact recurrence kernels' device us per
-window), the multi-trait passes' device us per call and the digests are
-printed at the end.
+(BayesRRm's and multi-trait), exact recurrence and BayesW levels and draw
+kernels' device us per window), the multi-trait passes' device us per call
+and the digests are printed at the end.
 """
 
 from __future__ import annotations
@@ -86,7 +87,8 @@ CONFIG = re.compile(r"real size (.*?): ([\d.,]+) ms/sweep")
 SWEEP = re.compile(r"host enqueue ([\d.]+) ms.*CUDA events ([\d.]+) ms/sweep; "
                    r"profiler device time ([\d.]+) ms \(([\d.]+)% busy")
 KERNEL = re.compile(r"([\d.]+) us/window\s+(?:void )?hydra::(stats|axpy|stats_mt|axpy_mt|"
-                    r"exact_draw|exact_mt_draw|window_recurrence_mt)_kernel(<[^>]*>)?\(")
+                    r"exact_draw|exact_mt_draw|window_recurrence_mt|levels|bw_draw)"
+                    r"_kernel(<[^>]*>)?\(")
 DIGEST = re.compile(r"^digest (.*): sha256 ([0-9a-f]{64})")
 PASS = re.compile(r"^mt pass (.*): stats_mt_kernel ([\d.]+) us, "
                   r"axpy_mt_kernel ([\d.]+) us")

@@ -13,6 +13,9 @@ decision is made inside each test. ``make_inputs`` and ``make_mt_inputs``
 also feed the CPU parity tests in test_torch_sweep_kernel{,_mt}.py.
 """
 
+import functools
+import hashlib
+
 import numpy as np
 import pytest
 import torch
@@ -849,23 +852,196 @@ def _bw_card_sampler(m, nb, missing, window, seed, dev):
                   packed_device=pk)
 
 
+# Cases of test_cuda_bw_draw_bitwise whose kernel output (eps, out) was
+# already not bit for bit the plain version's before bw_draw_kernel and
+# levels_kernel were redesigned: window-n_quad-n_shrink-n_expand-missing
+# and the first 16 hex digits of the SHA-256 of eps then out, as the
+# kernels before the redesign gave them on an NVIDIA H100 80GB HBM3. All
+# are slice draws on a knife edge (mostly the empty slice, le = -1, and
+# the level at f(bold), le = 0), where the plain version's torch exp and
+# expm1 and the kernel's expf and expm1f (built with -fmad=false) differ
+# in a last bit; the kernels are held to those digests instead.
+BW_DRAW_NOT_PLAIN = dict(line.split() for line in """
+    3-1-24-0-True d0399a04af1e28cc
+    3-25-24-0-True 9b2be2d9f6e223ba
+    3-64-24-0-True 9b2be2d9f6e223ba
+    4-25-24-10-True 7b6e800ac6855831
+    4-64-24-10-True 7b6e800ac6855831
+    64-1-1-0-False c9ef3ebfb1e5f295
+    64-1-1-0-True 636391a3f1501b07
+    64-1-1-10-False 23202c60dbac1d12
+    64-1-1-10-True fd1822ad76280b35
+    64-1-24-0-False 53c591eeedb0aaab
+    64-1-24-0-True c999b723ef5b12b3
+    64-1-24-10-False 492efe94b736e083
+    64-1-24-10-True 4119cc131f23bec0
+    64-25-1-0-False ba9888c9df33dc38
+    64-25-1-0-True fafd8db8e1f7eadd
+    64-25-1-10-False ef57db8e273436c3
+    64-25-1-10-True 3c75ffd2f53ff01d
+    64-25-24-0-False 4dd0cc6d6519b9a2
+    64-25-24-0-True e3f01a6c00a96c38
+    64-25-24-10-False a858c4a67feb1821
+    64-25-24-10-True 22a935ae939180a3
+    64-64-1-0-False 018999def4a9a470
+    64-64-1-0-True fafd8db8e1f7eadd
+    64-64-1-10-False a33a4e5c4664a075
+    64-64-1-10-True f68371f697513eef
+    64-64-24-0-False 0f6b020fea148bcf
+    64-64-24-0-True e3f01a6c00a96c38
+    64-64-24-10-False 2c1ae798f833f38f
+    64-64-24-10-True 22a935ae939180a3
+    200-1-1-0-False 19924c441060e036
+    200-1-1-0-True a32d8daba2f8b735
+    200-1-1-10-False 5d6f671fc3c14a91
+    200-1-1-10-True 92442274ec025105
+    200-1-24-0-False 88ad6cf41c492746
+    200-1-24-0-True 9c26ded088aeac04
+    200-1-24-10-False afea20ff23a919d3
+    200-1-24-10-True 256c8b41f837b099
+    200-25-1-0-False e6ac7e62418d0e90
+    200-25-1-0-True 469352542df530d5
+    200-25-1-10-False 5b99e51830aa9b4c
+    200-25-1-10-True a9129d7191fbf161
+    200-25-24-0-False efcecf8cae378725
+    200-25-24-0-True b801c41648f29c0f
+    200-25-24-10-False ffecd43c50727825
+    200-25-24-10-True d336fb534c236a1c
+    200-64-1-0-False 83325d5da95123e3
+    200-64-1-0-True c2148157c22400c2
+    200-64-1-10-False 2c48095b39c21dd3
+    200-64-1-10-True c8d55a031997e996
+    200-64-24-0-False 3df3024a5745b114
+    200-64-24-0-True 82bba18347b532da
+    200-64-24-10-False 8b07f13162d4be6f
+    200-64-24-10-True 56077926c929e318
+    1024-1-1-0-False 15cfddf4cda803b5
+    1024-1-1-0-True a129a7ad3f2495b5
+    1024-1-1-10-False 6afba1f60a930c85
+    1024-1-1-10-True 03bf57ba3523d8d5
+    1024-1-24-0-False ae0ea704ff332919
+    1024-1-24-0-True 863a88414d0d00b6
+    1024-1-24-10-False 6741f3b0671f8c7f
+    1024-1-24-10-True 40395bd46147efbb
+    1024-25-1-0-False af288ba1233c0b8f
+    1024-25-1-0-True fe4b37323103eb92
+    1024-25-1-10-False 853cc59f751e0698
+    1024-25-1-10-True 04226e14a6a7b003
+    1024-25-24-0-False 1a012d2898aac048
+    1024-25-24-0-True 5157f98b30f7db4e
+    1024-25-24-10-False 6e02c74d39d39293
+    1024-25-24-10-True 9b1db2c1f757d34f
+    1024-64-1-0-False 43c8dd59b36dbba5
+    1024-64-1-0-True 84b290c945656b23
+    1024-64-1-10-False 7fef0a56c1397e54
+    1024-64-1-10-True 202145a05faff3fb
+    1024-64-24-0-False 2edc8c0426b5d3cf
+    1024-64-24-0-True e9d06b643b76376b
+    1024-64-24-10-False 5473205507ed7055
+    1024-64-24-10-True 77080ed03fcbd8a5
+""".strip().splitlines())
+
+
+@functools.lru_cache(maxsize=4)
+def _bw_draw_state(window, missing):
+    """A BayesW sweep's inputs at nb = 640 (two tiles, the second a
+    quarter full), three windows of ``window`` markers, with mrow rows
+    placed on every branch of the draw: act 0 (pad rows, every 16th), the
+    slice level at f(bold) (le = 0), a wide slice (le = 50), an empty one
+    (le = -1, u near 1: the shrink budget runs out, x = bold) and a
+    vanishing slice limit (stepping out stopped by lower/upper); 20% of the
+    markers start at a non-zero effect. Returns (packed, eps, vi, mrow with
+    all N_SHRINK shrink uniforms, alpha, ind_mask, order, complete)."""
+    dev = _card()
+    s = _bw_card_sampler(3 * window, 640, missing, window, 5, dev)
+    st = s.init_state()
+    g = torch.Generator(device=dev).manual_seed(window)
+    m = s.cfg.m_loc
+    nz = torch.rand(m, generator=g, device=dev) < 0.2
+    st.beta = torch.where(nz, 0.02 * torch.randn(m, generator=g, device=dev),
+                          0.0)
+    st.pi_l = torch.tensor([[0.5, 0.2, 0.2, 0.1]], device=dev)
+    vi = torch.exp(st.alpha * st.eps - tskbw.EULER_MASCHERONI) * s.ind_mask
+    mrow = s.build_mrow(st, st.alpha, s.slot_noise(0))
+    km1, br = 3, tskbw.N_FIXED + 15
+    i = torch.arange(m, device=dev)
+    pad = i % 16 == 15
+    mrow[pad, :3] = 0.0
+    mrow[pad, 4] = 0.0
+    mrow[i % 8 == 3, tskbw.N_FIXED + 4 * km1:br] = 1e-5
+    mrow[i % 8 == 5, br] = 0.0
+    mrow[i % 8 == 6, br] = 50.0
+    mrow[i % 8 == 7, br] = -1.0
+    mrow[i % 8 == 7, 3] = 0.9999
+    return (s.packed, st.eps, vi, mrow, st.alpha, s.ind_mask,
+            s.sweep_order(0), s.cfg.complete)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("missing", [False, True])
+@pytest.mark.parametrize("n_expand", [0, 10])
+@pytest.mark.parametrize("n_shrink", [0, 1, 24])
+@pytest.mark.parametrize("n_quad", [1, 25, 64])
+@pytest.mark.parametrize("window", [1, 3, 4, 5, 64, 200, 1024])
+def test_cuda_bw_draw_bitwise(window, n_quad, n_shrink, n_expand, missing):
+    """sweep_stale_bw (bw_draw_kernel a warp per marker, levels_kernel on
+    the stats tile) bitwise repeatable and bit for bit its plain version,
+    eps and all of out, from ``_bw_draw_state``. The windows cross the
+    draw's 4-warp blocks (3, 4, 5) and the last-block ticket of the axpy
+    constant (5 and up, three windows a sweep). Where the kernels before
+    the redesign already differed from the plain version (BW_DRAW_NOT_PLAIN)
+    the output must equal theirs, by digest, and the plain version's within
+    the sweep tolerance, components equal."""
+    from hydra_tpu_torch.samplers.bayesw import gh_table
+    dev = _card()
+    pk, eps, vi, mrow, alpha, mask, order, complete = _bw_draw_state(
+        window, missing)
+    mrow = mrow[:, :tskbw.bw_mrow_width(4, n_shrink)].contiguous()
+    gh_x, gh_w = (torch.tensor(a, dtype=torch.float32, device=dev)
+                  for a in gh_table(n_quad))
+    args = (pk, eps, vi, mrow, gh_x, gh_w, alpha)
+    kw = dict(window=window, n_mix=4, complete=complete, ind_mask=mask,
+              order=order, n_expand=n_expand, n_shrink=n_shrink)
+    e_k, o_k = tskbw.sweep_stale_bw(*args, **kw)
+    e_k2, o_k2 = tskbw.sweep_stale_bw(*args, **kw)
+    e_r, o_r = tskbw.sweep_stale_bw_ref(*args, **kw)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(e_k).all()) and bool(torch.isfinite(o_k).all())
+    assert torch.equal(e_k, e_k2) and torch.equal(o_k, o_k2)
+    case = f"{window}-{n_quad}-{n_shrink}-{n_expand}-{missing}"
+    if case not in BW_DRAW_NOT_PLAIN:
+        assert torch.equal(o_k, o_r)
+        assert torch.equal(e_k, e_r)
+        return
+    h = hashlib.sha256()
+    for t in (e_k, o_k):
+        h.update(t.cpu().numpy().tobytes())
+    assert h.hexdigest()[:16] == BW_DRAW_NOT_PLAIN[case]
+    assert torch.equal(o_k[:, 1], o_r[:, 1])
+    torch.testing.assert_close(e_k, e_r, atol=5e-4, rtol=1e-3)
+    torch.testing.assert_close(o_k, o_r, atol=5e-4, rtol=1e-3)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("missing", [False, True])
 @pytest.mark.parametrize("nb", [128, 640, 12544])
 @pytest.mark.parametrize("window", [1, 7, 64, 128, 200, 1024])
 @pytest.mark.parametrize("path", ["window_axpy", "window_stats",
                                   "sweep_stale", "sweep_exact",
-                                  "sweep_stale_sd", "sweep_stale_bw"])
+                                  "sweep_stale_sd", "sweep_stale_bw",
+                                  "window_level_sums"])
 def test_cuda_stream_kernels_bitwise(path, window, nb, missing):
-    """axpy_kernel and stats_kernel (each instantiation) bit for bit their
-    plain versions, and bitwise repeatable, through every entry point that
-    launches them. The windows cross the axpy's 128-row shared tile (200,
-    1024) and the stats' 16-row blocks (7, 200); nb = 128 is the smallest
-    width the kernels take, 640 ends in half a 512-byte tile, 12,544 is
-    N=50,000 (24.5 tiles). window_axpy and window_stats against their plain
-    versions (complete data: but the pad individuals' and pad rows' h = 3
-    products, which the plain version rounds and the kernel fuses); the
-    sweeps' eps against the plain axpy replayed from the kernel's own
+    """axpy_kernel, stats_kernel and levels_kernel (each instantiation) bit
+    for bit their plain versions, and bitwise repeatable, through every
+    entry point that launches them. The windows cross the axpy's 128-row
+    shared tile (200, 1024) and the 16-row blocks of stats_kernel and
+    levels_kernel (7, 200); nb = 128 is the smallest width the kernels
+    take, 640 ends in half a 512-byte tile, 12,544 is N=50,000 (24.5
+    tiles). window_axpy, window_stats and window_level_sums against their
+    plain versions (complete data: but the pad individuals' and pad rows'
+    h = 3 products, which the plain version rounds and the kernel fuses;
+    window_level_sums' s2 takes h = 3 as 1 and stays bit for bit there);
+    the sweeps' eps against the plain axpy replayed from the kernel's own
     draws; sweep_stale_sd (stats_kernel<true>) at a sub-window of the whole
     window against sweep_stale."""
     dev = _card()
@@ -907,6 +1083,24 @@ def test_cuda_stream_kernels_bitwise(path, window, nb, missing):
         assert torch.equal(d_k[:n], d_r[:n])
         if missing:
             assert torch.equal(d_k, d_r)
+        return
+    if path == "window_level_sums":
+        pk_w = pk[rows.long()].contiguous()
+        vi = torch.exp(0.5 * eps - tskbw.EULER_MASCHERONI) * mask
+        got = twk.window_level_sums(pk_w, vi, complete)
+        again = twk.window_level_sums(pk_w, vi, complete)
+        want = twk.window_level_sums_ref(pk_w, vi, complete)
+        torch.cuda.synchronize()
+        real = mrow[rows.long(), 1] != 0.0          # not a pad row
+        for i, (a, a2, r) in enumerate(zip(got, again, want)):
+            assert (a is None) == (r is None)
+            if r is None:
+                continue
+            assert torch.equal(a, a2)
+            if complete and i == 0:
+                assert torch.equal(a[real], r[real])
+            else:
+                assert torch.equal(a, r)
         return
     if path == "window_stats":
         b = mrow[rows.long()]
