@@ -43,9 +43,9 @@ Multi-trait BayesRRm (T=4 traits):
      versions at M=4,096 x N=50,000 with full phenotypes, sweep_stale_mt
      with 2% missing genotypes and 10% NaN per trait; window_stats_mt,
      window_axpy_mt and mt_window_recurrence at W=128 with and without NaN;
-     then the SHA-256 of the exact recurrences', the mt packed passes' and
-     the BayesW sweep's outputs on fixed-seed inputs (print_digests), to
-     hold two trees bit for bit.
+     then the SHA-256 of the exact recurrences', the mt packed passes', the
+     BayesW sweep's and the BayesRRm stale sweeps' outputs on fixed-seed
+     inputs (print_digests), to hold two trees bit for bit.
   3c. the multi-trait CLI (``--pheno t0,t1,t2,t3``) at M=10,000 x N=5,000:
      exact with full phenotypes, --stale --window 64, and exact with 10% NaN
      per trait (the per-window path), 40 iterations each; every mt launch
@@ -76,6 +76,12 @@ BayesFH (--mpibayes bayesFHMPI) and the single-decode stale sweep
      sub-windows 64 and 16, complete and 2% missing, marker-schedule order;
      bitwise repeatable; sweep_stale on the same inputs beside it (bit for
      bit at sub-window 64).
+  2f. the single-trait packed passes beside one PyTorch call on the
+     window's decoded rows (print_library_times): device time a call of
+     stats_kernel, axpy_kernel, levels_kernel and gram_i8_kernel against
+     torch.mv, torch.addmv, torch.mm and the fastest Gram of torch.mm f32,
+     bf16 and torch._int_mm; the library times of window_stats,
+     window_axpy and window_level_sums in the kernels line.
   3e. the CLI at M=10,000 x N=5,000, 20 iterations each: BayesFH exact
      default, --stale --window 64 and --mega off; HYDRA_TPU_SD=16 --stale
      --window 64 --schedule marker for bayesMPI and bayesFHMPI; launch
@@ -268,6 +274,18 @@ def check_axpy_bitwise(torch, label, e_k, replay, card):
                              "plain version")
 
 
+def check_stale_launches(torch, label, run, draw_kernel, separate, card):
+    """Fails unless one stale sweep (run) launched its draw alone
+    (draw_kernel, ``separate``: a window above the kernels' fold threshold)
+    or only inside its axpy, from the profile's kernel names."""
+    names = port_kernels(device_times(torch, run, label))
+    print(f"  {label} launches {', '.join(sorted(names))}  [{card}]",
+          flush=True)
+    if (draw_kernel in names) != separate:
+        raise AssertionError(f"{label}: {draw_kernel} "
+                             f"{'not ' if separate else ''}launched")
+
+
 def check_stats_bitwise(torch, label, pk, eps, mrow, rows, exact, complete,
                         n, card):
     """stats_kernel's s1 and s2, through window_stats on the rows ``rows``,
@@ -300,22 +318,29 @@ def check_mt_bitwise(kernel, label, same, card):
                              "plain version")
 
 
-def print_mt_stream_bounds(W, nb, T, launches, missing=False):
+def print_mt_stream_bounds(W, nb, T, launches, missing=False, draw_cols=0):
     """The least time of one window's stats_mt_kernel and axpy_mt_kernel
     launches. Bytes: each reads the W packed rows and the order once; the
     stats eps (n_pad, T) once and write s1, s2 per tile, row and trait (and
-    v); the axpy reads eps and tm and writes eps, with c1 and c2 (T, W).
-    Operations: one f32 multiply-add (2 operations) per genotype and trait
-    for s1 and for the axpy, twice that with missing genotypes (s2 = sum
-    m*eps; c2*m)."""
+    v); the axpy reads eps and tm and writes eps, with c1 and c2 (T, W), or,
+    where it draws the window (draw_cols, the mrow width), the two stats
+    partials a tile, row and trait and the W mrow rows, writing out (3 T
+    floats a marker). Operations: one f32 multiply-add (2 operations) per
+    genotype and trait for s1 and for the axpy, twice that with missing
+    genotypes (s2 = sum m*eps; c2*m); ~100 a draw."""
     n_pad, n_tiles = 4 * nb, -(-nb // 512)
     ops = {"f32": (4.0 if missing else 2.0) * T * W * n_pad}
+    draw = (4 * (2 * n_tiles * W * T + W * draw_cols + 3 * W * T - 2 * T * W)
+            if draw_cols else 0)
     parts = []
-    for name, nbytes in (
+    for name, nbytes, extra in (
             ("stats_mt_kernel",
-             W * nb + 4 * W + 4 * T * n_pad + 4 * n_tiles * W * (2 * T + 1)),
-            ("axpy_mt_kernel", W * nb + 4 * W + 8 * T * W + 12 * T * n_pad)):
-        ms, by = bound(nbytes, ops)
+             W * nb + 4 * W + 4 * T * n_pad + 4 * n_tiles * W * (2 * T + 1),
+             0),
+            ("axpy_mt_kernel" + (" with the draw" if draw_cols else ""),
+             W * nb + 4 * W + 8 * T * W + 12 * T * n_pad + draw,
+             100.0 * W * T if draw_cols else 0)):
+        ms, by = bound(nbytes, {"f32": ops["f32"] + extra})
         parts.append(f"{name} {1e3 * ms:.4f} us ({by}; bytes "
                      f"{1e6 * nbytes / HBM_BYTES_PER_S:.4f} us)")
     print(f"  bound per window (W={W}, T={T}, nb={nb}): {', '.join(parts)}; "
@@ -324,21 +349,28 @@ def print_mt_stream_bounds(W, nb, T, launches, missing=False):
 
 
 def print_stream_bounds(W, nb, launches, stats=True, axpy=True,
-                        refresh=False, decode=False):
+                        refresh=False, decode=False, draw_cols=0):
     """The least time of one window's stats_kernel and axpy_kernel launches
     (bytes: each reads the W packed rows once; stats eps once and writes
     three per-tile partials a row, decode adds the crumbs, one byte an
     individual and row; axpy reads eps and the mask and writes eps, refresh
-    adds the vi write; operations: one f32 multiply-add per genotype and
-    sum, far below), and their launches a sweep."""
+    adds the vi write; an axpy that draws the window (draw_cols, the mrow
+    width) reads the two stats partials a tile and row and the W mrow rows
+    once and writes out; operations: one f32 multiply-add per genotype and
+    sum, ~100 a draw, far below), and their launches a sweep."""
     n_pad, n_tiles = 4 * nb, -(-nb // 512)
     st = bound(W * nb + 4 * n_pad + 12 * n_tiles * W + 4 * W
                + (W * n_pad if decode else 0), {"f32": 4.0 * W * n_pad})
     ax = bound(W * nb + 12 * n_pad + 4 * (3 * W + 1)
-               + (4 * n_pad if refresh else 0), {"f32": 4.0 * W * n_pad})
+               + (4 * n_pad if refresh else 0)
+               # drawing: partials and mrow rows in, out out, no coef
+               + (4 * (2 * n_tiles * W + W * draw_cols) + 16 * W
+                  - 4 * (2 * W + 1) if draw_cols else 0),
+               {"f32": 4.0 * W * n_pad + (100.0 * W if draw_cols else 0)})
     parts = ([f"stats_kernel{'<true>' if decode else ''} {1e3 * st[0]:.4f} "
               f"us ({st[1]})"] if stats else []) + (
-        [f"axpy_kernel{'<true>' if refresh else ''} {1e3 * ax[0]:.4f} us "
+        [f"axpy_kernel{'<true>' if refresh else ''}"
+         f"{' with the draw' if draw_cols else ''} {1e3 * ax[0]:.4f} us "
          f"({ax[1]})"] if axpy else [])
     print(f"  bound per window (W={W}, nb={nb}): {', '.join(parts)}; "
           f"{launches} launches a sweep each", flush=True)
@@ -346,7 +378,7 @@ def print_stream_bounds(W, nb, launches, stats=True, axpy=True,
 
 def phase_kernels(torch, sk, card):
     """Kernel vs plain version at main-path shapes (and exact at W=256
-    and W=200)."""
+    and W=200; stale at W=512, the draw's own launch)."""
     import numpy as np
     from hydra_tpu_torch.ops import window_kernels as wk
     dev = torch.device("cuda")
@@ -364,8 +396,10 @@ def phase_kernels(torch, sk, card):
         mask = torch.zeros(n_pad, device=dev)
         mask[:n] = 1.0
         # exact also at W=256 and at W=200 (not a multiple of 32: a ragged
-        # last 32-marker block of the draw) on the first 4,000 rows
-        for window in (64, 128, 256, 200):
+        # last 32-marker block of the draw) on the first 4,000 rows; stale
+        # also at W=512, where the draw keeps its own launch
+        # (stale_draw_kernel, above the kernels' STALE_FOLD_MAX_W = 256)
+        for window in (64, 128, 256, 200, 512):
             mw = m - m % window
             pk_w, mrow_w = pk[:mw], mrow[:mw]
             order = sk.block_order(torch.randperm(
@@ -375,7 +409,8 @@ def phase_kernels(torch, sk, card):
             for name, fn, ref in (
                     ("sweep_stale", sk.sweep_stale, sk.sweep_stale_ref),
                     ("sweep_exact", sk.sweep_exact, sk.sweep_exact_ref)):
-                if name == "sweep_stale" and window > 128:
+                if window not in ((64, 128, 512) if name == "sweep_stale"
+                                  else (64, 128, 256, 200)):
                     continue
                 def run():
                     return fn(pk_w, eps, mrow_w, 1.0 / (2 * SIGMA_E),
@@ -409,7 +444,12 @@ def phase_kernels(torch, sk, card):
                 r = rec[name]
                 r["err"] = max(r["err"], d_eps, d_beta)
                 main_w = 128 if name == "sweep_exact" else 64
-                if window == main_w:
+                if name == "sweep_stale" and window in (64, 512):
+                    # either side of the fold threshold
+                    check_stale_launches(torch, f"{name} W={window}", run,
+                                         "stale_draw_kernel", window == 512,
+                                         card)
+                if window in (main_w, 512):
                     mode = ("missing" if missing else
                             "exact" if name == "sweep_exact" else "stale")
                     check_axpy_bitwise(torch, f"{name} W={window}", e1,
@@ -417,6 +457,7 @@ def phase_kernels(torch, sk, card):
                                                            o1[:, 3], order,
                                                            window, mode,
                                                            mask), card)
+                if window == main_w:
                     check_stats_bitwise(torch, f"{name} W={window}", pk_w,
                                         eps, mrow_w, order[:window],
                                         name == "sweep_exact", not missing, n,
@@ -624,28 +665,37 @@ def profile_sweep(torch, sk, s, st, card):
     kw = dict(window=cfg.window, n_mix=cfg.k, complete=cfg.complete,
               ind_mask=s.ind_mask if cfg.complete else None, order=order)
     # exact: stats, Gram (complete: gram_i8 in one launch; missing: gram +
-    # gram reduce), draw, axpy
-    per_window = (4 if cfg.complete else 5) if cfg.exact else 3
+    # gram reduce), draw, axpy; stale: stats, then the axpy, which draws the
+    # window itself up to the kernels' STALE_FOLD_MAX_W (above, the draw
+    # alone first: the profile shows which)
+    n_sub = cfg.window // cfg.sub_window if cfg.sub_window else 1
     if cfg.sub_window:
         fn = sk.sweep_stale_sd
         kw["sub_window"] = cfg.sub_window
-        per_window = 3 * (cfg.window // cfg.sub_window)
+
+    def launches(names):
+        return cfg.n_windows * ((4 if cfg.complete else 5) if cfg.exact else
+                                n_sub * (3 if "stale_draw_kernel" in names
+                                         else 2))
 
     def run():
         return fn(s.packed, st.eps, mrow, 0.5 / st.sigma_e,
                   float(cfg.n_real - 1), **kw)
 
-    profile_run(torch, run, f"{'exact' if cfg.exact else 'stale'} "
-                f"W={cfg.window}"
-                + (f" Wt={cfg.sub_window}" if cfg.sub_window else ""),
-                cfg.n_windows * per_window, card, cfg.n_windows)
+    per = profile_run(torch, run, f"{'exact' if cfg.exact else 'stale'} "
+                      f"W={cfg.window}"
+                      + (f" Wt={cfg.sub_window}" if cfg.sub_window else ""),
+                      launches, card, cfg.n_windows)
+    fold = "stale_draw_kernel" not in port_kernels(per)
     nb = s.packed.shape[1]
     if cfg.sub_window:
         # stats_kernel<true> a sub-window; the update is axpy_decoded_kernel
         print_stream_bounds(cfg.sub_window, nb, cfg.n_windows * cfg.window
                             // cfg.sub_window, axpy=False, decode=True)
     else:
-        print_stream_bounds(cfg.window, nb, cfg.n_windows)
+        print_stream_bounds(cfg.window, nb, cfg.n_windows,
+                            draw_cols=mrow.shape[1] if not cfg.exact and fold
+                            else 0)
     if cfg.exact and cfg.complete:
         print_exact_bounds(cfg.window, s.packed.shape[1], mrow.shape[1])
 
@@ -691,30 +741,58 @@ def print_bw_bounds(W, nb, C, complete, Q, launches):
 
 def device_times(torch, fn, label):
     """{kernel name: (launches, device ms)} of one call of fn, from
-    torch.profiler's device activities."""
+    torch.profiler's device activities (fn is called again where its
+    session came back empty)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    per = {}
-    for e in prof.key_averages():
-        # device activities only: an aten op's self device time repeats
-        # that of the kernels it launched
-        t = getattr(e, "self_device_time_total", 0.0) or 0.0
-        if t > 0 and getattr(e, "device_type", None) == DeviceType.CUDA:
-            per[e.key] = (e.count, t / 1000.0)
-    if not per:
-        raise AssertionError(f"{label}: the profiler saw no device activity")
-    return per
+    # a session comes back empty now and then among many short ones: it is
+    # taken again, up to 3 times, before it fails
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        per = {}
+        for e in prof.key_averages():
+            # device activities only: an aten op's self device time repeats
+            # that of the kernels it launched
+            t = getattr(e, "self_device_time_total", 0.0) or 0.0
+            if t > 0 and getattr(e, "device_type", None) == DeviceType.CUDA:
+                per[e.key] = (e.count, t / 1000.0)
+        if per:
+            return per
+        time.sleep(1.0)
+    raise AssertionError(f"{label}: the profiler saw no device activity")
+
+
+def _profile_retry(torch, fn, label):
+    """device_times of fn, or None (a timing only, reported not measured)
+    where every session came back empty."""
+    try:
+        return device_times(torch, fn, label)
+    except AssertionError:
+        return None
+
+
+def kernel_name(key):
+    """A port kernel's name in a profiler key (``void hydra::axpy_kernel<
+    false, 1, 4>(...)`` -> ``axpy_kernel``)."""
+    return key.split("hydra::", 1)[1].split("<", 1)[0].split("(", 1)[0]
+
+
+def port_kernels(per):
+    """The names of the port's kernels in a device_times profile."""
+    return {kernel_name(k) for k in per if "hydra::" in k}
 
 
 def profile_run(torch, run, label, launches, card, n_windows=None):
     """Host time to enqueue one sweep's launches against the time to
     finish on the card, and device time by kernel (torch.profiler; CUDA
     events time the whole sweep as a cross-check): ms per sweep, launches
-    per sweep and, given the sweep's windows, us per window."""
+    per sweep (or a function of the port's kernel names in the profile,
+    for a sweep whose launches a window depend on the side of a fold
+    threshold it took) and, given the sweep's windows, us per window.
+    Returns the profile (device_times)."""
     run()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -726,8 +804,11 @@ def profile_run(torch, run, label, launches, card, n_windows=None):
     per = device_times(torch, run, label)
     busy = sum(v[1] for v in per.values())
     n_dev = sum(v[0] for v in per.values())
+    n_port = sum(v[0] for k, v in per.items() if "hydra::" in k)
+    if callable(launches):
+        launches = launches(port_kernels(per))
     print(f"  sweep {label}: {launches} kernel launches ({n_dev} device "
-          f"kernels in the profile); host enqueue "
+          f"kernels in the profile, {n_port} of the port); host enqueue "
           f"{1e3 * (t1 - t0):.2f} ms, done after {1e3 * (t2 - t0):.2f} ms; "
           f"CUDA events {ev_ms:.2f} ms/sweep; profiler device time "
           f"{busy:.2f} ms ({100.0 * busy / ev_ms:.1f}% busy)  [{card}]",
@@ -740,6 +821,7 @@ def profile_run(torch, run, label, launches, card, n_windows=None):
         per_win = (f"  {1e3 * ms / n_windows:8.2f} us/window" if n_windows
                    else "")
         print(f"    {ms:9.3f} ms  {cnt:6d} x{per_win}  {k[:90]}", flush=True)
+    return per
 
 
 def bw_sampler(torch, np, m, n, seed, window, missing=0.0):
@@ -1085,7 +1167,8 @@ def print_digests(torch, np):
     per trait), sweep_stale_mt, BayesRRm's sweep_exact, and with 2%
     missing genotypes and 10% NaN per trait sweep_stale_mt, window_stats_mt
     and window_axpy_mt; then BayesW's sweep_stale_bw (eps, out) at phase
-    2b's cases (bw_case: M=4,096 W=64 complete and 2% missing, M=512 W=1).
+    2b's cases (bw_case: M=4,096 W=64 complete and 2% missing, M=512 W=1);
+    then the BayesRRm stale sweeps (stale_digest_outputs).
     Two trees' kernels are bit for bit the same where their digests are
     (scripts/chip_compare.py runs this in each tree). Returns {name:
     digest}."""
@@ -1159,6 +1242,7 @@ def print_digests(torch, np):
         data = "missing 2%" if missing else "complete"
         outs[f"sweep_stale_bw M={m_bw} W={w_bw} {data}"] = (
             skbw.sweep_stale_bw(*args, **kw))
+    outs.update(stale_digest_outputs(torch, np))
     torch.cuda.synchronize()
     digests = {}
     for name, tensors in outs.items():
@@ -1170,11 +1254,53 @@ def print_digests(torch, np):
     return digests
 
 
+def stale_digest_outputs(torch, np):
+    """The BayesRRm stale sweeps' (eps, out) on fixed-seed inputs at
+    M=4,096 x N=50,000 (its own generator, so the digests before it keep
+    their inputs): sweep_stale at W=64 complete and with 2% missing
+    genotypes, at W=512, and at W=1 on the first 512 markers;
+    sweep_stale_sd at W=64, sub-window 16. Returns {name: (eps, out)}."""
+    from hydra_tpu_torch.ops import sweep_kernel as sk
+    dev = torch.device("cuda")
+    m, n = 4096, 50_000
+    n_pad = padded_individuals(np, n)
+    outs = {}
+    for missing in (0.0, 0.02):
+        gen = torch.Generator(device=dev).manual_seed(29)
+        pk, mave, mstd, _ = device_genotypes(torch, m, n, n_pad, gen, missing)
+        pads = torch.randperm(m, generator=gen, device=dev)[:37]
+        pk[pads] = 0xFF
+        mrow = kernel_rows(torch, mave, mstd, gen, n, pads)
+        eps = 0.8 * torch.randn(n_pad, generator=gen, device=dev)
+        eps[n:] = 0.0
+        mask = torch.zeros(n_pad, device=dev)
+        mask[:n] = 1.0
+        complete = not missing
+        data = "complete" if complete else "missing 2%"
+        args = (1.0 / (2 * SIGMA_E), float(n - 1))
+        cases = ((64, m, 0), (512, m, 0), (1, 512, 0), (64, m, 16)) if complete \
+            else ((64, m, 0),)
+        for W, mw, wt in cases:
+            order = sk.block_order(torch.randperm(mw // W, generator=gen,
+                                                  device=dev), W)
+            kw = dict(window=W, n_mix=K, complete=complete,
+                      ind_mask=mask if complete else None, order=order)
+            ins = (pk[:mw], eps, mrow[:mw].contiguous()) + args
+            if wt:
+                outs[f"sweep_stale_sd M={mw} W={W} Wt={wt} {data}"] = (
+                    sk.sweep_stale_sd(*ins, sub_window=wt, **kw))
+            else:
+                outs[f"sweep_stale M={mw} W={W} {data}"] = sk.sweep_stale(
+                    *ins, **kw)
+    return outs
+
+
 def phase_mt_kernels(torch, np, card):
     """The multi-trait kernels against their plain versions at main-path
-    shapes (M=4,096 x N=50,000, T=4): sweep_stale_mt W=64 and
-    sweep_exact_mt W=128 on complete data with full phenotypes,
-    sweep_stale_mt with 2% missing genotypes and 10% NaN per trait; the
+    shapes (M=4,096 x N=50,000, T=4): sweep_stale_mt W=64 and W=128 (the
+    draw folded into the axpy, and in its own launch) and sweep_exact_mt
+    W=128 on complete data with full phenotypes, sweep_stale_mt W=64 and
+    W=128 with 2% missing genotypes and 10% NaN per trait; the
     per-window kernels at W=128 with and without NaN."""
     from hydra_tpu_torch.ops import sweep_kernel_mt as skmt
     from hydra_tpu_torch.ops import window_kernels as wk
@@ -1208,12 +1334,18 @@ def phase_mt_kernels(torch, np, card):
         data = (f"{'missing 2%' if missing else 'complete'}"
                 f"{', NaN 10%' if na_frac else ''}")
         full = na_frac == 0.0
+        # sweep_stale_mt also at W=128, where the draw keeps its own launch
+        # (stale_draw_mt_kernel, above the kernels' MT_FOLD_MAX_W = 64); its
+        # order from a generator of its own, so the draws after it stay
         sweeps = [("sweep_stale_mt", 64)] + ([("sweep_exact_mt", 128)]
                                              if full and not missing else [])
         if missing or full:
-            for name, window in sweeps:
+            for name, window in sweeps + [("sweep_stale_mt", 128)]:
+                side = (name, window) == ("sweep_stale_mt", 128)
                 order = block_order(torch.randperm(
-                    m // window, generator=gen, device=dev), window)
+                    m // window, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(17)
+                    if side else gen), window)
                 kw = dict(window=window, n_mix=K, order=order)
                 if name == "sweep_stale_mt":
                     fn, ref = skmt.sweep_stale_mt, skmt.sweep_stale_mt_ref
@@ -1230,7 +1362,13 @@ def phase_mt_kernels(torch, np, card):
                                  torch.equal(e_k, wk.sweep_update_mt_ref(
                                      pk, eps, tm, mrow, o_k, kw["order"],
                                      window, not missing)), card)
-                if full:
+                if name == "sweep_stale_mt":
+                    # either side of the fold threshold
+                    check_stale_launches(
+                        torch, f"{name} W={window} {data}",
+                        lambda: fn(pk, eps, tm, mrow, i2se, dnm1, **kw),
+                        "stale_draw_mt_kernel", side, card)
+                if full and not side:
                     r = rec[name]
                     r["ms"], r["plain_ms"] = ms, plain_ms
                     # packed rows, eps, tm, mrow, order in; eps, out out.
@@ -1563,7 +1701,12 @@ def phase_mt_real_size(torch, np, card):
                     s.packed, st.eps, s.trait_mask, mrow, i2se, s.dNm1,
                     window=window, n_mix=cfg.k, complete=cfg.complete,
                     order=order)
-            n_launch = 3 * cfg.n_windows
+            # the axpy draws the window itself up to the kernels'
+            # MT_FOLD_MAX_W (above, the draw alone first: the profile
+            # shows which)
+            def n_launch(names):
+                return cfg.n_windows * (3 if "stale_draw_mt_kernel" in names
+                                        else 2)
         elif na_frac == 0.0:
             def run():
                 return skmt.sweep_exact_mt(
@@ -1574,12 +1717,15 @@ def phase_mt_real_size(torch, np, card):
             def run():
                 return s.window_sweep(st.eps, mrow, order, i2se)
             n_launch = "4 kernel + torch"
-        profile_run(torch, run, f"mt {label} W={window}", n_launch, card,
-                    cfg.n_windows)
-        print_mt_stream_bounds(window, s.packed.shape[1], T, cfg.n_windows)
-        print_mt_draw_bound(window, s.packed.shape[1], mrow.shape[1], T,
-                            "stale" if not exact else
-                            "per_trait" if na_frac > 0.0 else "exact")
+        per = profile_run(torch, run, f"mt {label} W={window}", n_launch,
+                          card, cfg.n_windows)
+        fold = not exact and "stale_draw_mt_kernel" not in port_kernels(per)
+        print_mt_stream_bounds(window, s.packed.shape[1], T, cfg.n_windows,
+                               draw_cols=mrow.shape[1] if fold else 0)
+        if not fold:
+            print_mt_draw_bound(window, s.packed.shape[1], mrow.shape[1], T,
+                                "stale" if not exact else
+                                "per_trait" if na_frac > 0.0 else "exact")
         del s, st, mrow
     del pk
 
@@ -1620,18 +1766,8 @@ def print_mt_pass_times(torch, np, card):
                          lambda: wk.window_axpy_mt(pk, c1, c2, complete,
                                                    rows))):
                     fn()
-                    per = None
-                    for _ in range(3):
-                        # a profiler session among many short ones now and
-                        # then records no device activity: a timing only,
-                        # so try again, then report it not measured
-                        try:
-                            per = device_times(
-                                torch, lambda: [fn() for _ in range(calls)],
-                                kernel)
-                            break
-                        except AssertionError:
-                            time.sleep(1.0)
+                    per = _profile_retry(
+                        torch, lambda: [fn() for _ in range(calls)], kernel)
                     if per is None:
                         us.append("not measured")
                         continue
@@ -1644,6 +1780,226 @@ def print_mt_pass_times(torch, np, card):
                       f"call  [{card}]", flush=True)
             del tm, eps
         del pk
+
+
+def print_stale_fold_times(torch, np, card):
+    """Device time a window of the stale sweeps' kernels by name, from
+    torch.profiler over one sweep after a warm-up, at N=50,000 on
+    fixed-seed complete genotypes (M=4,096; W=1 on 512 markers):
+    sweep_stale at W = 1, 64, 128, 256, 512, 1024 and sweep_stale_mt at T =
+    1, 4, 16 and W = 64, 128, 512, 1024 (full phenotypes). Where a tree
+    launches the draw alone, "draw + axpy" adds it to the axpy; where the
+    axpy draws the window itself, it is the axpy alone. scripts/chip_compare.py runs
+    this tree's version in every tree, so the folded and the separate draw
+    meet the same sweeps; the fold thresholds come from these lines.
+    Each configuration's profile covers 3 sweeps."""
+    from hydra_tpu_torch.ops import sweep_kernel as sk
+    from hydra_tpu_torch.ops import sweep_kernel_mt as skmt
+    dev = torch.device("cuda")
+    m, n = 4096, 50_000
+    n_pad = padded_individuals(np, n)
+    gen = torch.Generator(device=dev).manual_seed(31)
+    pk, mave, mstd, _ = device_genotypes(torch, m, n, n_pad, gen)
+    pads = torch.randperm(m, generator=gen, device=dev)[:37]
+    pk[pads] = 0xFF
+    mask = torch.zeros(n_pad, device=dev)
+    mask[:n] = 1.0
+
+    def report(label, run, n_windows, reps=3):
+        run()
+        n_windows *= reps
+        for _ in range(3):
+            # a profile that missed launches (fewer than 2 a window) is
+            # taken again, then reported not measured
+            per = _profile_retry(torch, lambda: [run() for _ in range(reps)],
+                                 label)
+            if per is None:
+                break
+            us, launches = {}, 0
+            for k, (cnt, ms) in per.items():
+                if "hydra::" not in k:
+                    continue
+                launches += cnt
+                name = kernel_name(k)
+                us[name] = us.get(name, 0.0) + 1e3 * ms / n_windows
+            if launches >= 2 * n_windows:
+                break
+        else:
+            per = None
+        if per is None:
+            print(f"stale fold {label}: not measured  [{card}]", flush=True)
+            return
+        draw = sum(v for k, v in us.items() if "draw" in k)
+        axpy = sum(v for k, v in us.items() if "axpy" in k)
+        print(f"stale fold {label}: "
+              + ", ".join(f"{k} {v:.2f} us" for k, v in sorted(us.items()))
+              + f" a window; draw + axpy {draw + axpy:.2f} us; "
+              f"{launches // reps} launches a sweep of {n_windows // reps} "
+              f"windows  [{card}]", flush=True)
+
+    mrow = kernel_rows(torch, mave, mstd, gen, n, pads)
+    eps = 0.8 * torch.randn(n_pad, generator=gen, device=dev)
+    eps[n:] = 0.0
+    for W in (1, 64, 128, 256, 512, 1024):
+        mw = 512 if W == 1 else m
+        order = sk.block_order(torch.randperm(mw // W, generator=gen,
+                                              device=dev), W)
+        rows = mrow[:mw].contiguous()
+        report(f"sweep_stale W={W}", lambda: sk.sweep_stale(
+            pk[:mw], eps, rows, 1.0 / (2 * SIGMA_E), float(n - 1), window=W,
+            n_mix=K, complete=True, ind_mask=mask, order=order), mw // W)
+    del mrow, eps
+    for T in (1, 4, 16):
+        mrow = mt_kernel_rows(torch, mave, mstd, gen, n, pads, T)
+        tm = torch.zeros((n_pad, T), device=dev)
+        tm[:n] = 1.0
+        eps = 0.8 * torch.randn((n_pad, T), generator=gen, device=dev) * tm
+        i2se = torch.full((T,), 1.0 / (2 * SIGMA_E), device=dev)
+        dnm1 = tm.sum(dim=0) - 1.0
+        for W in (64, 128, 512, 1024):
+            order = sk.block_order(torch.randperm(m // W, generator=gen,
+                                                  device=dev), W)
+            report(f"sweep_stale_mt T={T} W={W}", lambda: skmt.sweep_stale_mt(
+                pk, eps, tm, mrow, i2se, dnm1, window=W, n_mix=K,
+                complete=True, order=order), m // W)
+        del mrow, tm, eps
+    del pk
+
+
+def print_library_times(torch, np, card):
+    """The library yardstick of the single-trait packed passes, by rows 8
+    and 9's convention: one PyTorch call on the window's rows decoded to f32
+    (bf16, int8) before timing computes the same function as the kernel, at
+    N=50,000 on fixed-seed complete genotypes (M=4,096). Device time a call
+    from torch.profiler over 20 calls after a warm-up, for the kernels (by
+    name, through window_stats, window_axpy and window_level_sums) and for
+    the library calls:
+      stats_kernel    torch.mv of the rows (exact: g; stale: h) against eps
+      gram_i8_kernel  the Gram of the W=128 rows: torch.mm in f32 and in
+                      bf16, torch._int_mm in int8 (the fastest is named)
+      axpy_kernel     torch.addmv(eps, rows^T, c1)
+      levels_kernel   torch.mm of the 2W level indicators (g = 1, g = 2)
+                      against vi
+    at W=128 (exact) and W=64 (stale; BayesW's levels). window_stats' row
+    (exact complete W=128: s1 and the standardized Gram) takes torch.mv and
+    torch.mm of the standardized rows, two calls. Returns {wrapper:
+    {library_ms (CUDA events a call), device_ms, library_device_ms,
+    library}} for window_stats, window_axpy and window_level_sums."""
+    from hydra_tpu_torch.ops import window_kernels as wk
+    from hydra_tpu_torch.ops.decode import decode_h
+    dev = torch.device("cuda")
+    m, n, calls = 4096, 50_000, 20
+    n_pad = padded_individuals(np, n)
+    gen = torch.Generator(device=dev).manual_seed(37)
+    pk, mave, mstd, _ = device_genotypes(torch, m, n, n_pad, gen)
+    eps = 0.8 * torch.randn(n_pad, generator=gen, device=dev)
+    eps[n:] = 0.0
+    vi = torch.exp(0.5 * eps - EULER_MASCHERONI)
+    vi[n:] = 0.0
+    rec = {}
+
+    def dev_us(fn, label, names=None):
+        """{kernel: us a call} (names: the substrings kept) and their sum."""
+        fn()
+        per = _profile_retry(torch, lambda: [fn() for _ in range(calls)],
+                             label)
+        if per is None:
+            return None, float("nan")
+        got = {}
+        for k, (_, ms) in per.items():
+            short = k.split("hydra::", 1)[-1].split("(", 1)[0][:40]
+            if names is None or any(x in k for x in names):
+                got[short] = got.get(short, 0.0) + 1e3 * ms / calls
+        return got, sum(got.values())
+
+    def show(label, kernel, lib):
+        ks = ("not measured" if kernel[0] is None else ", ".join(
+            f"{k} {v:.2f}" for k, v in kernel[0].items()))
+        print(f"library {label}: kernel {ks} us a call; "
+              + "; ".join(f"{name} {us:.2f} us" for name, us in lib)
+              + f"  [{card}]", flush=True)
+
+    for W, exact in ((128, True), (64, False)):
+        rows = torch.randperm(m, generator=gen, device=dev)[:W].to(
+            torch.int32)
+        slots = rows.long()
+        h = decode_h(pk[slots])
+        h[:, n:] = 0.0
+        x = (2.0 - h) if exact else h               # the stats' rows
+        x[:, n:] = 0.0
+        c1 = 0.01 * torch.randn(W, generator=gen, device=dev)
+        c2 = -c1 * mave[slots]
+        mw, sw = mave[slots].contiguous(), mstd[slots].contiguous()
+        tag = f"W={W} {'exact' if exact else 'stale'}"
+        # window_stats: s1 (and, exact, the standardized Gram)
+        kern = dev_us(lambda: wk.window_stats(pk, eps, mw, sw, exact, True,
+                                              float(n), rows),
+                      "window_stats")
+        lib = [("torch.mv", dev_us(lambda: torch.mv(x, eps), "mv")[1])]
+        if exact:
+            xs = ((x - mw[:, None]) * sw[:, None])
+            xs[:, n:] = 0.0
+            lib.append(("torch.mm f32 of the standardized rows", dev_us(
+                lambda: torch.mm(xs, xs.t()), "mm")[1]))
+            g8 = x.to(torch.int8)
+            gb = x.to(torch.bfloat16)
+            grams = [("torch.mm f32", dev_us(lambda: torch.mm(x, x.t()),
+                                             "mm")[1]),
+                     ("torch.mm bf16", dev_us(lambda: torch.mm(gb, gb.t()),
+                                              "mm")[1])]
+            try:
+                grams.append(("torch._int_mm int8", dev_us(
+                    lambda: torch._int_mm(g8, g8.t()), "int_mm")[1]))
+            except RuntimeError as e:
+                print(f"library torch._int_mm refused: {e}", flush=True)
+            best = min(grams, key=lambda kv: kv[1])
+            show(f"gram_i8_kernel {tag}", dev_us(
+                lambda: wk.window_stats(pk, eps, mw, sw, True, True,
+                                        float(n), rows), "gram",
+                ["gram_i8_kernel"]), grams + [("fastest " + best[0],
+                                               best[1])])
+            lib_ms, _ = cuda_ms(torch, lambda: (torch.mv(x, eps),
+                                                torch.mm(xs, xs.t())), calls)
+            rec["window_stats"] = dict(
+                library_ms=lib_ms, device_ms=kern[1] / 1e3,
+                library_device_ms=(lib[0][1] + lib[1][1]) / 1e3,
+                library="torch.mv + torch.mm on the decoded rows")
+        show(f"window_stats {tag}", kern, lib)
+        show(f"stats_kernel {tag}", dev_us(
+            lambda: wk.window_stats(pk, eps, mw, sw, exact, True, float(n),
+                                    rows), "stats", ["::stats_kernel"]),
+             lib[:1])
+        # window_axpy: d eps; the library adds to eps as well
+        kern = dev_us(lambda: wk.window_axpy(pk, c1, c2, True, rows),
+                      "window_axpy")
+        lib = [("torch.addmv", dev_us(lambda: torch.addmv(eps, x.t(), c1),
+                                      "addmv")[1])]
+        show(f"window_axpy (axpy_kernel) {tag}", kern, lib)
+        if not exact:
+            lib_ms, _ = cuda_ms(torch, lambda: torch.addmv(eps, x.t(), c1),
+                                calls)
+            rec["window_axpy"] = dict(
+                library_ms=lib_ms, device_ms=kern[1] / 1e3,
+                library_device_ms=lib[0][1] / 1e3,
+                library="torch.addmv on the decoded rows")
+            # BayesW's level sums: i1 = (g == 1), i2 = (g == 2) against vi
+            pk_w = pk[slots].contiguous()
+            g = 2.0 - h
+            g[:, n:] = 0.0
+            lv = torch.cat([(g == 1.0).float(), (g == 2.0).float()])
+            vcol = vi[:, None].contiguous()
+            kern = dev_us(lambda: wk.window_level_sums(pk_w, vi, True),
+                          "window_level_sums")
+            lib = [("torch.mm", dev_us(lambda: torch.mm(lv, vcol),
+                                       "mm")[1])]
+            show(f"window_level_sums (levels_kernel) {tag}", kern, lib)
+            lib_ms, _ = cuda_ms(torch, lambda: torch.mm(lv, vcol), calls)
+            rec["window_level_sums"] = dict(
+                library_ms=lib_ms, device_ms=kern[1] / 1e3,
+                library_device_ms=lib[0][1] / 1e3,
+                library="torch.mm of the level indicators against vi")
+    del pk
+    return rec
 
 
 def phase_window_kernels(torch, np, card):
@@ -2245,6 +2601,10 @@ def main() -> int:
     with phase("2e: single-decode stale sweep vs its plain version "
                "(M=4,096 x N=50,000)"):
         rec.update(phase_sd_kernels(torch, np, sk, card))
+    with phase("2f: the packed passes beside their library calls "
+               "(N=50,000)"):
+        for name, r in print_library_times(torch, np, card).items():
+            rec[name].update(r)
     with tempfile.TemporaryDirectory() as tmp:
         with phase("3: BayesRRm CLI end to end (M=10,000 x N=5,000)"):
             launches = phase_cli(torch, np, sk, tmp)
@@ -2285,13 +2645,17 @@ def main() -> int:
     # (wrapper, source, TPU kernel it replaces, the CUDA kernels it launches)
     table = (
         ("sweep_stale", "sweep_kernel.cu", "hydra_tpu/ops/sweep_kernel.py:836",
-         "stats_kernel, stale_draw_kernel, axpy_kernel"),
+         "stats_kernel, axpy_kernel<false, MODE, KB> (draws the window: "
+         "stale_draw in every block; above STALE_FOLD_MAX_W "
+         "stale_draw_kernel, then axpy_kernel)"),
         ("sweep_exact", "sweep_kernel.cu", "hydra_tpu/ops/sweep_kernel.py:567",
          "stats_kernel, gram_i8_kernel (complete; missing: gram_kernel + "
          "gram_reduce_kernel), exact_draw_kernel, axpy_kernel"),
         ("sweep_stale_sd", "sweep_kernel.cu",
          "hydra_tpu/ops/sweep_kernel.py:255",
-         "stats_kernel<true>, stale_draw_kernel, axpy_decoded_kernel"),
+         "stats_kernel<true>, axpy_decoded_kernel<MODE, KB> (draws the "
+         "sub-window; above STALE_FOLD_MAX_W stale_draw_kernel, then "
+         "axpy_decoded_kernel)"),
         ("sweep_stale_bw", "sweep_kernel_bw.cu",
          "hydra_tpu/ops/sweep_kernel_bw.py:330",
          "levels_kernel, bw_draw_kernel, axpy_kernel<true>"),
@@ -2302,7 +2666,9 @@ def main() -> int:
          "hydra_tpu/ops/window_kernels.py:284", "axpy_kernel<false>"),
         ("sweep_stale_mt", "sweep_kernel_mt.cu",
          "hydra_tpu/ops/sweep_kernel_mt.py:214",
-         "stats_mt_kernel, stale_draw_mt_kernel, axpy_mt_kernel"),
+         "stats_mt_kernel, axpy_mt_kernel<COMPLETE, TB, KB> (draws the "
+         "window: stale_draw_mt in every block; above MT_FOLD_MAX_W "
+         "stale_draw_mt_kernel, then axpy_mt_kernel)"),
         ("sweep_exact_mt", "sweep_kernel_mt.cu",
          "hydra_tpu/ops/sweep_kernel_mt.py:499",
          "stats_mt_kernel, gram_i8_kernel, exact_mt_draw_kernel, "
@@ -2328,13 +2694,13 @@ def main() -> int:
          "stats_planes_kernel, planes_reduce_kernel"),
         ("window_axpy_planes", "planes_kernel.cu",
          "hydra_tpu/ops/planes.py:196", "axpy_planes_kernel"))
-    # library_ms is null except for the planes kernels (torch.mv on the
-    # window's int8 rows cast to f32) and the multi-trait window passes
-    # (torch.mm on the window's rows decoded to f32 before timing): no
-    # single PyTorch call decodes the 2-bit packed genotypes the others
-    # read, or runs a recurrence's sequential chain of draws, so none
-    # computes the same function on the same inputs. Those rows add their
-    # device time per call (device_ms, library_device_ms) beside the
+    # library_ms: the planes kernels, torch.mv on the window's int8 rows
+    # cast to f32; the window passes (window_stats, window_axpy,
+    # window_level_sums and the multi-trait two), PyTorch's call on the
+    # window's rows decoded to f32 before timing (print_library_times,
+    # phase 2c). Null for the sweeps and the recurrences: no PyTorch call
+    # runs a chain of draws, stale or exact. Rows with a library time add
+    # the device time a call (device_ms, library_device_ms) beside the
     # CUDA-event times.
     kernels = [dict(name=name, route="cuda",
                     source=f"hydra_tpu_torch/csrc/{src}", replaces=replaces,

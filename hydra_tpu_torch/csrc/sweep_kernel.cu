@@ -13,8 +13,9 @@
 //   stats : s1 = sum g*eps, s2 = sum m*eps over all individuals
 //   gram  : (exact) the window Gram of standardized genotypes
 //   draw  : the mixture/beta draw of every marker from its mrow row
-//           (stale: all W at once; exact: the W-step sequential recurrence
-//           num_j = num0_j + sum_{k<j} dbeta_k * G_jk)
+//           (stale: all W at once, inside the axpy's launch; exact: the
+//           W-step sequential recurrence num_j = num0_j + sum_{k<j}
+//           dbeta_k * G_jk)
 //   axpy  : eps += sum_r c1_r * g_r + c2_r * m_r (axpy_kernel, shared with
 //           the BayesW sweep in sweep_kernel.cuh)
 //
@@ -35,9 +36,10 @@
 // over a shared tile of the window's rows, every row's load in flight
 // (axpy_kernel, sweep_kernel.cuh); the complete-data Gram runs on the int8
 // tensor cores in one launch (gram_i8_kernel) and the recurrence
-// warp-synchronously out of shared memory (exact_draw_kernel). Launch
-// overhead (3 launches per stale window, 4 per exact one with complete
-// data, 5 with missing) is left for a later change.
+// warp-synchronously out of shared memory (exact_draw_kernel). A stale
+// window's draw runs inside its axpy (every axpy block draws the window),
+// so it takes 2 launches; an exact one 4 with complete data, 5 with
+// missing. The host's enqueue of these launches is left for a later change.
 //
 // Determinism: no float atomics (the Gram's are integer, exact in any
 // order). Partial sums land in per-tile scratch and are reduced in a fixed
@@ -166,63 +168,29 @@ inline int launch_stats(const uint8_t* pk, int nb, const float* eps, const int* 
 }
 
 // ----------------------------------------------------------- stale draw --
-// One block, one thread per marker of the window. The vectorized stale-mode
-// draw of _sweep_kernel._sample (hydra_tpu/ops/sweep_kernel.py:733-803):
-// normalized probs, comp = #{cumulative probs exceeded by u}.
-__global__ void stale_draw_kernel(const float* __restrict__ mrow, int C, int K,
-                                  const int* __restrict__ order_w, int W,
-                                  const float* __restrict__ part_s1,
-                                  const float* __restrict__ part_s2, int n_tiles,
-                                  int complete, const float* __restrict__ sc,
-                                  float* __restrict__ out, float* __restrict__ coef) {
+// One block, one thread per marker of the window: stale_draw (sweep_kernel.
+// cuh) on each, the h-decode axpy constant by thread 0. The stale sweeps
+// fold this draw into their axpy (axpy_kernel<false, MODE, KB>,
+// axpy_decoded_kernel<MODE, KB>) up to STALE_FOLD_MAX_W markers a window;
+// above, it runs in its own launch before the axpy.
+template <int KB>
+__global__ void __launch_bounds__(1024, 1)
+stale_draw_kernel(const float* __restrict__ mrow, int C, int K,
+                  const int* __restrict__ order_w, int W,
+                  const float* __restrict__ part_s1,
+                  const float* __restrict__ part_s2, int n_tiles,
+                  int complete, const float* __restrict__ sc,
+                  float* __restrict__ out, float* __restrict__ coef) {
     extern __shared__ float sh[];          // c1[W], c2[W]
     const int r = threadIdx.x;
     if (r < W) {
-        const float i2se = sc[0], dNm1 = sc[1];
         const int slot = order_w[r];
-        const float* row = mrow + static_cast<size_t>(slot) * C;
-        const float s1 = reduce_tiles(part_s1, n_tiles, W, r);
-        const float s2 = reduce_tiles(part_s2, n_tiles, W, r);
-        const float s1v = complete ? 2.0f * s2 - s1 : s1;   // h-decode
-        const float mave = row[0], mstd = row[1], bold = row[2];
-        const float u = row[3], nrm = row[4], act = row[5];
-        const float num0 = mstd * (s1v - mave * s2) + bold * dNm1;
-        const int bl = N_FIXED, bi = N_FIXED + K, bs = N_FIXED + 2 * K - 1;
-        const int km1 = K - 1;
-        float l[K_MAX], muk[K_MAX];
-        l[0] = row[bl];
-        float mx = l[0];
-        for (int j = 0; j < km1; ++j) {
-            muk[j] = num0 * row[bi + j];
-            l[j + 1] = row[bl + 1 + j] + muk[j] * num0 * i2se;
-            mx = fmaxf(mx, l[j + 1]);
-        }
-        float sm = 0.f;
-        for (int j = 0; j < K; ++j) {
-            l[j] = expf(l[j] - mx);
-            sm = j == 0 ? l[0] : sm + l[j];
-        }
-        float cum = l[0] / sm;
-        const float p0 = cum;
-        float compf = u > cum ? 1.f : 0.f;
-        for (int j = 1; j < km1; ++j) {
-            cum = cum + l[j] / sm;
-            compf += u > cum ? 1.f : 0.f;
-        }
-        float bnz = 0.f;
-        for (int j = 0; j < km1; ++j)
-            if (compf == static_cast<float>(j + 1)) bnz = muk[j] + nrm * row[bs + j];
-        const float pos = compf > 0.f ? 1.f : 0.f;
-        const float bnew = bnz * pos * act;
-        const float dbeta = bold - bnew;
-        float* o = out + static_cast<size_t>(slot) * 4;
-        o[0] = bnew;
-        o[1] = compf * act;
-        o[2] = p0 * act + (1.f - act);
-        o[3] = dbeta;
-        const float c1 = dbeta * mstd;
-        sh[r] = c1;
-        sh[W + r] = -c1 * mave;
+        const float2 s = reduce_tile_pair(part_s1, part_s2, n_tiles, W, r);
+        const StaleDraw d = stale_draw<KB>(mrow + static_cast<size_t>(slot) * C, K, s.x,
+                                           s.y, complete != 0, sc[0], sc[1]);
+        reinterpret_cast<float4*>(out)[slot] = d.out;
+        sh[r] = d.c1;
+        sh[W + r] = d.c2;
     }
     __syncthreads();
     if (r < W) {
@@ -236,6 +204,37 @@ __global__ void stale_draw_kernel(const float* __restrict__ mrow, int C, int K,
         for (int j = 0; j < W; ++j) b += sh[W + j];
         coef[2 * W] = 2.0f * a + b;
     }
+}
+
+// The stale sweeps fold the window's draw into its axpy up to this many
+// markers a window; above it the draw runs as its own launch
+// (stale_draw_kernel). Every axpy block draws the whole window, so the
+// fold's redundant reads and its draws a thread grow with W. Device us a
+// window of the folded axpy against stale_draw_kernel + axpy_kernel, N =
+// 50,000 (chip_smoke.print_stale_fold_times, H100 SXM at 700 W, both in one
+// run): W=1 3.84 vs 5.46, 64 6.55 vs 7.80, 128 8.30 vs 9.21, 256 12.50 vs
+// 12.62, 512 23.04 vs 19.61, 1024 43.72 vs 32.57. Stale windows above it
+// are run: BIAS_SWEEP.md's stale sweep goes to W=1024. chip_smoke.py holds
+// both sides against the plain version (W=64 and 512).
+constexpr int STALE_FOLD_MAX_W = 256;
+
+// One stale window's draw and axpy in one launch: axpy_kernel<false, mode,
+// KB> with the draw's bound KB on the mixture size (by_components).
+inline int launch_draw_axpy(const uint8_t* pk, int nb, const int* order_w, int W, int mode,
+                            const StaleDrawArgs& dr, const float* mask, float* eps,
+                            cudaStream_t stream) {
+    auto* const kernel =
+        mode == MODE_MISSING
+            ? by_components(dr.K, axpy_kernel<false, MODE_MISSING, 4>,
+                            axpy_kernel<false, MODE_MISSING, 8>,
+                            axpy_kernel<false, MODE_MISSING, K_MAX>)
+            : by_components(dr.K, axpy_kernel<false, MODE_STALE_COMPLETE, 4>,
+                            axpy_kernel<false, MODE_STALE_COMPLETE, 8>,
+                            axpy_kernel<false, MODE_STALE_COMPLETE, K_MAX>);
+    kernel<<<nb / AXPY_TB, AXPY_THREADS, 2 * sizeof(float) * ((W + 3) & ~3), stream>>>(
+        pk, nb, order_w, W, nullptr, mask, eps, nullptr, dr.sc, dr);
+    HYDRA_CHECK_LAUNCH();
+    return 0;
 }
 
 // ----------------------------------------------------------- exact draw --
@@ -401,6 +400,10 @@ int run_sweep(bool exact, const uint8_t* pk, float* eps, const float* mrow,
     auto* const draw = by_components(K, exact_draw_kernel<4, true>,
                                      exact_draw_kernel<8, false>,
                                      exact_draw_kernel<K_MAX, false>);
+    auto* const stale_draw = by_components(K, stale_draw_kernel<4>, stale_draw_kernel<8>,
+                                           stale_draw_kernel<K_MAX>);
+    const StaleDrawArgs dr{mrow, C, K, ws.part_s1, ws.part_s2, n_tiles, sc, out};
+    const bool fold = !exact && W <= STALE_FOLD_MAX_W;
     if (exact) {
         HYDRA_CHECK(allow_smem(draw, draw_smem));
         if (complete)
@@ -413,6 +416,11 @@ int run_sweep(bool exact, const uint8_t* pk, float* eps, const float* mrow,
         int err = launch_stats<false>(pk, nb, eps, order_w, next_w, W, mode, ws.part_s1,
                                       ws.part_s2, ws.part_v, nullptr, stream);
         if (err) return err;
+        if (fold) {
+            err = launch_draw_axpy(pk, nb, order_w, W, mode, dr, mask, eps, stream);
+            if (err) return err;
+            continue;
+        }
         if (exact) {
             if (complete) {
                 err = launch_gram_i8(pk, nb, order_w, W, ws.gram_acc, ws.gram, stream);
@@ -429,7 +437,7 @@ int run_sweep(bool exact, const uint8_t* pk, float* eps, const float* mrow,
                 mrow, C, K, order_w, W, ws.part_s1, ws.part_s2, ws.part_v, n_tiles,
                 complete, ws.gram, sc, out, ws.coef);
         } else {
-            stale_draw_kernel<<<1, draw_threads, 2 * sizeof(float) * W, stream>>>(
+            stale_draw<<<1, draw_threads, 2 * sizeof(float) * W, stream>>>(
                 mrow, C, K, order_w, W, ws.part_s1, ws.part_s2, n_tiles, complete,
                 sc, out, ws.coef);
         }
@@ -447,10 +455,12 @@ int run_sweep(bool exact, const uint8_t* pk, float* eps, const float* mrow,
 // runs as W / Wt sub-windows; per sub-window
 //   stats_kernel<true>   s1, s2 (stats_kernel's tile order) and the rows'
 //                        crumbs to dec (Wt x n_pad bytes, one a genotype)
-//   stale_draw_kernel    the draw of its Wt markers
-//   axpy_decoded_kernel  the update from dec, not from the packed bytes,
-//                        accumulated in dacc over the sub-windows and added
-//                        to eps at the window's last one
+//   axpy_decoded_kernel  the draw of its Wt markers in every block
+//                        (draw_window, as the stale axpy_kernel; above
+//                        STALE_FOLD_MAX_W a stale_draw_kernel launch before
+//                        it), then the update from dec, not from the packed
+//                        bytes, accumulated in dacc over the sub-windows and
+//                        added to eps at the window's last one
 // so every marker of the window reads the same stale eps for any Wt, and
 // with Wt = W the sweep is hydra_sweep_stale's bit for bit.
 //
@@ -466,20 +476,34 @@ int run_sweep(bool exact, const uint8_t* pk, float* eps, const float* mrow,
 // Missing data needs no second plane: a decoded byte is the crumb c, and
 // g = (2 - c) * m, m = (c != 3) come from it as in axpy_kernel. Complete
 // data: d = cst - sum c1 * h per sub-window, times the mask at the end.
-template <int MODE>
+// DRAW_KB > 0: every block draws the sub-window's coefficients itself from
+// the stats partials (draw_window with stale_draw<DRAW_KB>, block 0 writing
+// out; order_w names its rows) into c1[W4], c2[W4], and adds its own cst
+// (h_cst4), as axpy_kernel<false, MODE, DRAW_KB>; coef is not read.
+template <int MODE, int DRAW_KB = 0>
 __global__ void axpy_decoded_kernel(const uint8_t* __restrict__ dec, int n_pad, int W,
                                     const float* __restrict__ coef,
                                     const float* __restrict__ mask,
                                     float* __restrict__ eps, float* __restrict__ dacc,
-                                    int first, int last) {
-    extern __shared__ float sh[];          // c1[W], c2[W]
-    float* s_c1 = sh;
-    float* s_c2 = sh + W;
-    for (int i = threadIdx.x; i < W; i += blockDim.x) {
-        s_c1[i] = coef[i];
-        s_c2[i] = coef[W + i];
+                                    int first, int last, const int* __restrict__ order_w,
+                                    const StaleDrawArgs dr) {
+    constexpr bool DRAW = DRAW_KB > 0;
+    extern __shared__ float4 sh_dec[];     // c1[W], c2[W] (DRAW: W4 each, zero past W)
+    const int W4 = (W + 3) & ~3;
+    float* s_c1 = reinterpret_cast<float*>(sh_dec);
+    float* s_c2 = s_c1 + (DRAW ? W4 : W);
+    float cst = 0.f;
+    if constexpr (DRAW) {
+        draw_window<DRAW_KB>(dr, order_w, W, W4, MODE == MODE_STALE_COMPLETE, s_c1, s_c2);
+        __syncthreads();
+        if (MODE == MODE_STALE_COMPLETE) cst = h_cst4(s_c1, s_c2, W4);
+    } else {
+        for (int i = threadIdx.x; i < W; i += blockDim.x) {
+            s_c1[i] = coef[i];
+            s_c2[i] = coef[W + i];
+        }
+        __syncthreads();
     }
-    __syncthreads();
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n_pad) return;
     float acc = 0.f;
@@ -493,7 +517,7 @@ __global__ void axpy_decoded_kernel(const uint8_t* __restrict__ dec, int n_pad, 
             acc = fmaf(s_c2[r], static_cast<float>(crumb_mask(c)), acc);
         }
     }
-    float d = MODE == MODE_STALE_COMPLETE ? coef[2 * W] - acc : acc;
+    float d = MODE == MODE_STALE_COMPLETE ? (DRAW ? cst : coef[2 * W]) - acc : acc;
     if (!first) d = dacc[i] + d;
     if (!last) {
         dacc[i] = d;
@@ -548,6 +572,21 @@ int run_sweep_sd(const uint8_t* pk, float* eps, const float* mrow, const int* or
     const int draw_threads = cdiv(Wt, 32) * 32;
     const int axpy_blocks = cdiv(4LL * nb, AXPY_THREADS);
     const size_t coef_smem = 2 * sizeof(float) * Wt;
+    const bool fold = Wt <= STALE_FOLD_MAX_W;
+    // the folded kernel holds c1, c2 to Wt rounded up to 4
+    const size_t fold_smem = 2 * sizeof(float) * ((Wt + 3) & ~3);
+    const StaleDrawArgs dr{mrow, C, K, ws.part_s1, ws.part_s2, n_tiles, sc, out};
+    auto* const stale_draw = by_components(K, stale_draw_kernel<4>, stale_draw_kernel<8>,
+                                           stale_draw_kernel<K_MAX>);
+    auto* const axpy =
+        !fold ? (complete ? axpy_decoded_kernel<MODE_STALE_COMPLETE>
+                          : axpy_decoded_kernel<MODE_MISSING>)
+        : complete ? by_components(K, axpy_decoded_kernel<MODE_STALE_COMPLETE, 4>,
+                                   axpy_decoded_kernel<MODE_STALE_COMPLETE, 8>,
+                                   axpy_decoded_kernel<MODE_STALE_COMPLETE, K_MAX>)
+                   : by_components(K, axpy_decoded_kernel<MODE_MISSING, 4>,
+                                   axpy_decoded_kernel<MODE_MISSING, 8>,
+                                   axpy_decoded_kernel<MODE_MISSING, K_MAX>);
     for (int w = 0; w < n_windows; ++w) {
         for (int s = 0; s < n_sub; ++s) {
             const int* order_s = order + static_cast<size_t>(w) * W + s * Wt;
@@ -555,20 +594,15 @@ int run_sweep_sd(const uint8_t* pk, float* eps, const float* mrow, const int* or
             const int err = launch_stats<true>(pk, nb, eps, order_s, next_s, Wt, mode,
                                                ws.part_s1, ws.part_s2, nullptr, ws.dec, stream);
             if (err) return err;
-            stale_draw_kernel<<<1, draw_threads, coef_smem, stream>>>(
-                mrow, C, K, order_s, Wt, ws.part_s1, ws.part_s2, n_tiles, complete, sc,
-                out, ws.coef);
-            HYDRA_CHECK_LAUNCH();
-            if (complete)
-                axpy_decoded_kernel<MODE_STALE_COMPLETE>
-                    <<<axpy_blocks, AXPY_THREADS, coef_smem, stream>>>(
-                        ws.dec, 4 * nb, Wt, ws.coef, mask, eps, ws.dacc, s == 0,
-                        s == n_sub - 1);
-            else
-                axpy_decoded_kernel<MODE_MISSING>
-                    <<<axpy_blocks, AXPY_THREADS, coef_smem, stream>>>(
-                        ws.dec, 4 * nb, Wt, ws.coef, mask, eps, ws.dacc, s == 0,
-                        s == n_sub - 1);
+            if (!fold) {
+                stale_draw<<<1, draw_threads, coef_smem, stream>>>(
+                    mrow, C, K, order_s, Wt, ws.part_s1, ws.part_s2, n_tiles, complete, sc,
+                    out, ws.coef);
+                HYDRA_CHECK_LAUNCH();
+            }
+            axpy<<<axpy_blocks, AXPY_THREADS, fold ? fold_smem : coef_smem, stream>>>(
+                ws.dec, 4 * nb, Wt, ws.coef, mask, eps, ws.dacc, s == 0, s == n_sub - 1,
+                order_s, dr);
             HYDRA_CHECK_LAUNCH();
         }
     }

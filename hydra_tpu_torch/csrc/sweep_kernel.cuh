@@ -487,6 +487,171 @@ __global__ void gram_reduce_kernel(const float* __restrict__ part, int n_chunks,
     G[e] = s;
 }
 
+// ----------------------------------------------------------- stale draw --
+// One row's two stats, the sums of its tile partials pa[t * stride + e] and
+// pb[t * stride + e] over t = 0..n_tiles-1: each from 0.f in tile order,
+// reduce_tiles' adds, with TILE_BATCH tiles' loads of both in flight before
+// their adds (a 2,048-individual tile, so one batch up to N = 65,536).
+constexpr int TILE_BATCH = 32;
+
+__device__ __forceinline__ float2 reduce_tile_pair(const float* __restrict__ pa,
+                                                   const float* __restrict__ pb,
+                                                   int n_tiles, size_t stride, size_t e) {
+    float a = 0.f, b = 0.f;
+    for (int t0 = 0; t0 < n_tiles; t0 += TILE_BATCH) {
+        float va[TILE_BATCH], vb[TILE_BATCH];
+#pragma unroll
+        for (int j = 0; j < TILE_BATCH; ++j) {
+            const bool in = t0 + j < n_tiles;
+            va[j] = in ? pa[(t0 + j) * stride + e] : 0.f;
+            vb[j] = in ? pb[(t0 + j) * stride + e] : 0.f;
+        }
+#pragma unroll
+        for (int j = 0; j < TILE_BATCH; ++j) {
+            if (t0 + j < n_tiles) {
+                a += va[j];
+                b += vb[j];
+            }
+        }
+    }
+    return make_float2(a, b);
+}
+
+// One marker's stale draw, shared by stale_draw_kernel and the axpy kernels
+// that draw their window themselves (sweep_kernel.cu): num0 from the
+// marker's stats s1, s2 (complete data: s1 = sum h*eps, h-decoded as 2 s2 -
+// s1) and its mrow row, then the normalized mixture draw of
+// _sweep_kernel._sample (hydra_tpu/ops/sweep_kernel.py:733-803): probs
+// exp(l - mx) / sm with sm summed in k order, comp = #{cumulative probs u
+// exceeds}. The loops run to the compile-time bound KB >= K, guarded by the
+// runtime K, so the temporaries stay in registers; the operations and their
+// order are those of a loop to K, so every KB >= K gives the same bits.
+// The row's loads are all issued before the arithmetic. c1 = dbeta * mstd
+// and c2 = -c1 * mave are the window's axpy coefficients.
+struct StaleDraw {
+    float4 out;                    // bnew, comp, acum0, dbeta
+    float c1, c2;
+};
+
+template <int KB>
+__device__ __forceinline__ StaleDraw stale_draw(const float* __restrict__ row, int K,
+                                                float s1, float s2, bool complete,
+                                                float i2se, float dNm1) {
+    const int km1 = K - 1;
+    const int bl = N_FIXED, bi = N_FIXED + K, bs = N_FIXED + 2 * K - 1;
+    const float mave = row[0], mstd = row[1], bold = row[2];
+    const float u = row[3], nrm = row[4], act = row[5];
+    float l[KB], muk[KB - 1], invd[KB - 1], sdk[KB - 1];
+    l[0] = row[bl];
+#pragma unroll
+    for (int j = 0; j < KB - 1; ++j) {
+        if (j < km1) {
+            l[j + 1] = row[bl + 1 + j];
+            invd[j] = row[bi + j];
+            sdk[j] = row[bs + j];
+        }
+    }
+    const float s1v = complete ? 2.0f * s2 - s1 : s1;   // h-decode
+    const float num0 = mstd * (s1v - mave * s2) + bold * dNm1;
+    float mx = l[0];
+#pragma unroll
+    for (int j = 0; j < KB - 1; ++j) {
+        if (j < km1) {
+            muk[j] = num0 * invd[j];
+            l[j + 1] = l[j + 1] + muk[j] * num0 * i2se;
+            mx = fmaxf(mx, l[j + 1]);
+        }
+    }
+    float sm = 0.f;
+#pragma unroll
+    for (int j = 0; j < KB; ++j) {
+        if (j < K) {
+            l[j] = expf(l[j] - mx);
+            sm = j == 0 ? l[0] : sm + l[j];
+        }
+    }
+    float cum = l[0] / sm;
+    const float p0 = cum;
+    float compf = u > cum ? 1.f : 0.f;
+#pragma unroll
+    for (int j = 1; j < KB - 1; ++j) {
+        if (j < km1) {
+            cum = cum + l[j] / sm;
+            compf += u > cum ? 1.f : 0.f;
+        }
+    }
+    float bnz = 0.f;
+#pragma unroll
+    for (int j = 0; j < KB - 1; ++j)
+        if (j < km1 && compf == static_cast<float>(j + 1)) bnz = muk[j] + nrm * sdk[j];
+    const float pos = compf > 0.f ? 1.f : 0.f;
+    const float bnew = bnz * pos * act;
+    const float dbeta = bold - bnew;
+    const float c1 = dbeta * mstd;
+    return {make_float4(bnew, compf * act, p0 * act + (1.f - act), dbeta), c1, -c1 * mave};
+}
+
+// The inputs of a window's stale draw, for an axpy that draws its
+// coefficients itself: the stats partials (n_tiles a row), mrow (C columns,
+// K components), sc = [1/(2 sigma_e), N - 1, ...], and out (m_loc, 4) per
+// slot, which block 0 writes.
+struct StaleDrawArgs {
+    const float* mrow;
+    int C, K;
+    const float* part_s1;
+    const float* part_s2;
+    int n_tiles;
+    const float* sc;
+    float* out;
+};
+
+// Every block draws its window's W markers, marker r on thread r (looping
+// by the block's threads), into s_c1[r], s_c2[r], zero from W to W4; the
+// caller's barrier follows. The draws need only the window's partials and
+// mrow rows, so every block computes the same c1 and c2.
+template <int KB>
+__device__ __forceinline__ void draw_window(const StaleDrawArgs& dr, const int* order_w, int W,
+                                            int W4, bool complete, float* s_c1, float* s_c2) {
+    const float i2se = dr.sc[0], dNm1 = dr.sc[1];
+    for (int r = threadIdx.x; r < W4; r += blockDim.x) {
+        float c1 = 0.f, c2 = 0.f;
+        if (r < W) {
+            const int slot = order_w[r];
+            const float2 s = reduce_tile_pair(dr.part_s1, dr.part_s2, dr.n_tiles, W, r);
+            const StaleDraw d = stale_draw<KB>(dr.mrow + static_cast<size_t>(slot) * dr.C,
+                                               dr.K, s.x, s.y, complete, i2se, dNm1);
+            if (blockIdx.x == 0) reinterpret_cast<float4*>(dr.out)[slot] = d.out;
+            c1 = d.c1;
+            c2 = d.c2;
+        }
+        s_c1[r] = c1;
+        s_c2[r] = c2;
+    }
+}
+
+// The h-decode constant 2 sum(c1) + sum(c2) from shared c1[W4], c2[W4],
+// float4 at a time, each sum in window order from 0.f: the zeros past W
+// leave both sums as they are (a sum that starts at +0 is never -0, and x +
+// 0 = x), so this is the sequential sum over the W markers
+__device__ __forceinline__ float h_cst4(const float* c1, const float* c2, int W4) {
+    const float4* a4 = reinterpret_cast<const float4*>(c1);
+    const float4* b4 = reinterpret_cast<const float4*>(c2);
+    float a = 0.f, b = 0.f;
+#pragma unroll 4
+    for (int j = 0; j < W4 / 4; ++j) {
+        const float4 x = a4[j], y = b4[j];
+        a += x.x;
+        b += y.x;
+        a += x.y;
+        b += y.y;
+        a += x.z;
+        b += y.z;
+        a += x.w;
+        b += y.w;
+    }
+    return 2.0f * a + b;
+}
+
 // ----------------------------------------------------------------- axpy --
 // eps[i] += d_i with d = sum_r c1_r * g_r + c2_r * m_r over the window's rows
 // (coef = [c1[W], c2[W], cst]), individual i's rows added in the order r =
@@ -498,7 +663,12 @@ __global__ void gram_reduce_kernel(const float* __restrict__ part, int n_chunks,
 // masks). REFRESH (BayesW) also rewrites vi = exp(alpha*eps' - EuMasc) *
 // mask in the same pass (BayesW.cpp:1832-1834; alpha = sc[0]; mask is
 // required then) and adds its own cst from c1 and c2 (refresh_cst; coef
-// holds no cst then).
+// holds no cst then). DRAW_KB > 0 (the stale sweeps, sweep_kernel.cu):
+// every block first draws the window's c1 and c2 itself (draw_window with
+// stale_draw<DRAW_KB>, from the stats partials and mrow rows in dr; block 0
+// writes out) and adds its own cst (h_cst4); coef is not read. The draws
+// run while the block's rows load, and a stale window takes one launch
+// fewer.
 //
 // Bound: bytes, the W * nb packed bytes, eps read and written and the mask
 // (2.21 MB at W=128, N=50,000: 0.66 us at 3.35 TB/s); the rows were just
@@ -612,36 +782,20 @@ __device__ __forceinline__ float refresh_cst(const float* c1, const float* c2, i
     return 2.0f * a + b;
 }
 
-// The same from the axpy's shared c1[W4], c2[W4], float4 at a time: the
-// zeros past W leave both sums as they are (a sum that starts at +0 is
-// never -0, and x + 0 = x)
+// The same from the axpy's shared c1[W4], c2[W4] (h_cst4)
 template <bool REFRESH, int MODE>
 __device__ __forceinline__ float refresh_cst4(const float* c1, const float* c2, int W4) {
     if (!REFRESH || MODE != MODE_STALE_COMPLETE) return 0.f;
-    const float4* a4 = reinterpret_cast<const float4*>(c1);
-    const float4* b4 = reinterpret_cast<const float4*>(c2);
-    float a = 0.f, b = 0.f;
-#pragma unroll 4
-    for (int j = 0; j < W4 / 4; ++j) {
-        const float4 x = a4[j], y = b4[j];
-        a += x.x;
-        b += y.x;
-        a += x.y;
-        b += y.y;
-        a += x.z;
-        b += y.z;
-        a += x.w;
-        b += y.w;
-    }
-    return 2.0f * a + b;
+    return h_cst4(c1, c2, W4);
 }
 
-template <bool REFRESH, int MODE>
+template <bool REFRESH, int MODE, int DRAW_KB = 0>
 __global__ void __launch_bounds__(AXPY_THREADS)
 axpy_kernel(const uint8_t* __restrict__ pk, int nb, const int* __restrict__ order_w, int W,
             const float* __restrict__ coef, const float* __restrict__ mask,
             float* __restrict__ eps, float* __restrict__ vi,
-            const float* __restrict__ sc) {
+            const float* __restrict__ sc, const StaleDrawArgs dr) {
+    constexpr bool DRAW = DRAW_KB > 0;
     extern __shared__ float4 sh_axpy[];    // c1[W4], c2[W4] (missing), zero past W
     __shared__ uint32_t tile[AXPY_TB * AXPY_LDW];
     const int W4 = (W + 3) & ~3;
@@ -656,36 +810,53 @@ axpy_kernel(const uint8_t* __restrict__ pk, int nb, const int* __restrict__ orde
     float acc = 0.f, cst = 0.f;
     if (W <= AXPY_DIRECT) {
         // few rows: the thread reads its byte of each row straight from
-        // memory, all loads in flight; no tile and no barrier
+        // memory, all loads in flight; no tile, and no barrier unless the
+        // block draws its coefficients
         const uint8_t* col = pk + static_cast<size_t>(blockIdx.x) * AXPY_TB + bt;
         uint32_t bytes[AXPY_DIRECT];
 #pragma unroll
         for (int r = 0; r < AXPY_DIRECT; ++r)
             bytes[r] = r < W ? __ldg(col + static_cast<size_t>(order_w[r]) * nb) : 0u;
-        cst = refresh_cst<REFRESH, MODE>(coef, coef + W, W);
+        const float* c1 = coef;
+        const float* c2 = coef + W;
+        if constexpr (DRAW) {
+            draw_window<DRAW_KB>(dr, order_w, W, W4, MODE == MODE_STALE_COMPLETE, s_c1, s_c2);
+            __syncthreads();
+            c1 = s_c1;
+            c2 = s_c2;
+            if (MODE == MODE_STALE_COMPLETE) cst = h_cst4(s_c1, s_c2, W4);
+        } else {
+            cst = refresh_cst<REFRESH, MODE>(coef, coef + W, W);
+        }
 #pragma unroll
         for (int r = 0; r < AXPY_DIRECT; ++r) {
             if (r >= W) break;
             const uint32_t c = (bytes[r] >> (2 * k)) & 3u;
             // the genotype of crumb c is (0x6 >> 2c) & 3: 2, 1, 0, 0
             if (MODE == MODE_MISSING) {
-                acc = fmaf(coef[r], byte_float((0x6u >> (2 * c)) & 3u, 0), acc);
-                acc = fmaf(coef[W + r], c == 3u ? 0.f : 1.f, acc);
+                acc = fmaf(c1[r], byte_float((0x6u >> (2 * c)) & 3u, 0), acc);
+                acc = fmaf(c2[r], c == 3u ? 0.f : 1.f, acc);
             } else {
-                acc = fmaf(coef[r], byte_float(MODE == MODE_EXACT_COMPLETE
-                                                   ? (0x6u >> (2 * c)) & 3u : c, 0), acc);
+                acc = fmaf(c1[r], byte_float(MODE == MODE_EXACT_COMPLETE
+                                                 ? (0x6u >> (2 * c)) & 3u : c, 0), acc);
             }
         }
     } else {
-        for (int r = tid; r < W4; r += AXPY_THREADS) {
-            s_c1[r] = r < W ? coef[r] : 0.f;
-            if (MODE == MODE_MISSING || REFRESH) s_c2[r] = r < W ? coef[W + r] : 0.f;
+        if constexpr (!DRAW) {
+            for (int r = tid; r < W4; r += AXPY_THREADS) {
+                s_c1[r] = r < W ? coef[r] : 0.f;
+                if (MODE == MODE_MISSING || REFRESH) s_c2[r] = r < W ? coef[W + r] : 0.f;
+            }
         }
         // the exact-mode tile holds the genotype (coef staged behind stage()'s
         // barrier); rows past W hold 0 bytes and c1 = c2 = 0: fmaf adds an
         // exact 0 to acc (never -0), so whole words of four rows change
         // nothing
         AxpyTile tl(pk, nb, order_w, W);
+        // a drawing block's draws run while its first chunk's rows load,
+        // and land behind stage()'s barrier
+        if constexpr (DRAW)
+            draw_window<DRAW_KB>(dr, order_w, W, W4, MODE == MODE_STALE_COMPLETE, s_c1, s_c2);
         const uint32_t* col = tile + bt * AXPY_LDW;
         for (int r0 = 0; r0 < W; r0 += AXPY_ROWS) {
             const int nwd = tl.stage<MODE == MODE_EXACT_COMPLETE>(tile, r0);
@@ -718,12 +889,15 @@ axpy_kernel(const uint8_t* __restrict__ pk, int nb, const int* __restrict__ orde
             }
         }
         // c1 and c2 staged behind stage()'s barrier
-        cst = refresh_cst4<REFRESH, MODE>(s_c1, s_c2, W4);
+        if (DRAW && MODE == MODE_STALE_COMPLETE)
+            cst = h_cst4(s_c1, s_c2, W4);
+        else
+            cst = refresh_cst4<REFRESH, MODE>(s_c1, s_c2, W4);
     }
     if (MODE == MODE_MISSING) {
         e += acc;
     } else {
-        if (!REFRESH || MODE != MODE_STALE_COMPLETE) cst = coef[2 * W];
+        if (!DRAW && (!REFRESH || MODE != MODE_STALE_COMPLETE)) cst = coef[2 * W];
         const float d = MODE == MODE_STALE_COMPLETE ? cst - acc : acc + cst;
         e += d * m;
     }
@@ -741,7 +915,7 @@ inline int launch_axpy(const uint8_t* pk, int nb, const int* order_w, int W, int
                              ? axpy_kernel<REFRESH, MODE_STALE_COMPLETE>
                              : axpy_kernel<REFRESH, MODE_EXACT_COMPLETE>;
     kernel<<<nb / AXPY_TB, AXPY_THREADS, 2 * sizeof(float) * ((W + 3) & ~3), stream>>>(
-        pk, nb, order_w, W, coef, mask, eps, vi, sc);
+        pk, nb, order_w, W, coef, mask, eps, vi, sc, StaleDrawArgs{});
     HYDRA_CHECK_LAUNCH();
     return 0;
 }

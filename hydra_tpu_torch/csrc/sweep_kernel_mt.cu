@@ -22,7 +22,8 @@
 // A sweep is sweep_kernel.cu's design with a trait axis: the host loops
 // over windows and launches per window on one stream, the launch boundary
 // being the barrier between phases:
-//   stale: stats_mt -> stale_draw_mt -> axpy_mt                (3 launches)
+//   stale: stats_mt -> axpy_mt, which draws the window itself  (2 launches;
+//          stats_mt -> stale_draw_mt -> axpy_mt above MT_FOLD_MAX_W)
 //   exact: stats_mt -> gram_i8 -> exact_mt_draw -> axpy_mt            (4)
 // The exact sweep is valid for complete genotypes and full phenotypes only
 // (the trait-shared integer Gram, standardized with trait 0's statistics
@@ -391,32 +392,48 @@ __device__ __forceinline__ Draw normalized_draw(float num, const MtMarker<KB>& c
     return {bnew, compf, pr0, sm, c.bold - bnew};
 }
 
-// Stale draw: one thread per (marker r, trait t), e = r * T + t.
-__global__ void stale_draw_mt_kernel(const float* __restrict__ mrow, int C, int K,
-                                     int T, const int* __restrict__ order_w, int W,
-                                     const float* __restrict__ part_s1,
-                                     const float* __restrict__ part_s2, int n_tiles,
-                                     int complete, const float* __restrict__ sc,
-                                     float* __restrict__ out, float* __restrict__ coef) {
+// One (marker r, trait t)'s stale draw, shared by stale_draw_mt_kernel and
+// the axpy_mt_kernel that draws its window itself: num0 from the row's
+// stats partials (e = r * T + t, reduce_tile_pair) and trait t's mrow
+// constants, normalized_draw, the outputs to out (write_out), and the
+// axpy's coefficients c1 = dbeta * mstd, c2 = -c1 * mave.
+template <int KB>
+__device__ __forceinline__ float2 stale_draw_mt(const StaleDrawArgs& dr, const int* order_w,
+                                                int W, int T, int r, int t, bool complete,
+                                                bool write_out) {
+    const size_t wt = static_cast<size_t>(W) * T;
+    const int slot = order_w[r];
+    MtMarker<KB> c;
+    c.load(dr.mrow + static_cast<size_t>(slot) * dr.C, T, t, dr.K);
+    const float2 s = reduce_tile_pair(dr.part_s1, dr.part_s2, dr.n_tiles, wt,
+                                      static_cast<size_t>(r) * T + t);
+    const float s1v = complete ? 2.0f * s.y - s.x : s.x;     // h-decode
+    const float num0 = c.mstd * (s1v - c.mave * s.y) + c.bold * dr.sc[T + t];
+    const Draw d = normalized_draw(num0, c, dr.K, dr.sc[t]);
+    if (write_out) {
+        float* o = dr.out + static_cast<size_t>(slot) * 3 * T;
+        o[t] = d.bnew;
+        o[T + t] = d.comp(c.act);
+        o[2 * T + t] = d.acum(c.act);
+    }
+    const float c1 = (c.bold - d.bnew) * c.mstd;
+    return make_float2(c1, -c1 * c.mave);
+}
+
+// Stale draw: one thread per (marker r, trait t), e = r * T + t; the stale
+// sweep folds it into axpy_mt_kernel up to MT_FOLD_MAX_W markers a window
+// and launches it alone above.
+template <int KB>
+__global__ void stale_draw_mt_kernel(const StaleDrawArgs dr, int T,
+                                     const int* __restrict__ order_w, int W, int complete,
+                                     float* __restrict__ coef) {
     const size_t wt = static_cast<size_t>(W) * T;
     const int e = blockIdx.x * blockDim.x + threadIdx.x;
     if (e >= static_cast<int>(wt)) return;
     const int r = e / T, t = e % T;
-    const int slot = order_w[r];
-    MtMarker<K_MAX> c;
-    c.load(mrow + static_cast<size_t>(slot) * C, T, t, K);
-    const float s1 = reduce_tiles_mt(part_s1, n_tiles, wt, e);
-    const float s2 = reduce_tiles_mt(part_s2, n_tiles, wt, e);
-    const float s1v = complete ? 2.0f * s2 - s1 : s1;     // h-decode
-    const float num0 = c.mstd * (s1v - c.mave * s2) + c.bold * sc[T + t];
-    const Draw d = normalized_draw(num0, c, K, sc[t]);
-    float* o = out + static_cast<size_t>(slot) * 3 * T;
-    o[t] = d.bnew;
-    o[T + t] = d.comp(c.act);
-    o[2 * T + t] = d.acum(c.act);
-    const float c1 = (c.bold - d.bnew) * c.mstd;
-    coef[static_cast<size_t>(t) * W + r] = c1;
-    coef[wt + static_cast<size_t>(t) * W + r] = -c1 * c.mave;
+    const float2 c = stale_draw_mt<KB>(dr, order_w, W, T, r, t, complete != 0, true);
+    coef[static_cast<size_t>(t) * W + r] = c.x;
+    coef[wt + static_cast<size_t>(t) * W + r] = c.y;
 }
 
 // ----------------------------------------------------------- recurrence --
@@ -571,12 +588,16 @@ window_recurrence_mt_kernel(const float* __restrict__ G, const float* __restrict
 // loop step removes the spill but ran slower at T = 16 (PERF.md).
 // Rows past W hold zero bytes and zero coefficients: fmaf adds an exact 0 to
 // an accumulator that is never -0, so whole words of four rows change
-// nothing.
-template <bool COMPLETE, int TB>
+// nothing. DRAW_KB > 0 (the stale sweep): every block draws the window's
+// W x T coefficients itself (stale_draw_mt<DRAW_KB>, from the stats
+// partials and mrow rows in dr; block 0 writes out) while its first chunk
+// of rows loads, and coef is not read: one launch fewer a window.
+template <bool COMPLETE, int TB, int DRAW_KB = 0>
 __global__ void __launch_bounds__(AXPY_THREADS)
 axpy_mt_kernel(const uint8_t* __restrict__ pk, int nb, const int* __restrict__ order_w, int W,
                int T, const float* __restrict__ coef, int add_c2,
-               const float* __restrict__ tm, float* __restrict__ out) {
+               const float* __restrict__ tm, float* __restrict__ out,
+               const StaleDrawArgs dr) {
     extern __shared__ float4 sh_mt[];      // c1 [T][W4], c2 [T][W4], zero past W
     __shared__ uint32_t tile[AXPY_TB * AXPY_LDW];
     __shared__ float s_sum[2][T_MAX];      // complete: sum c1, sum c2 (or 0)
@@ -587,17 +608,44 @@ axpy_mt_kernel(const uint8_t* __restrict__ pk, int nb, const int* __restrict__ o
     const int k = tid & 3;                 // this thread's crumb of its packed byte
     const size_t i = static_cast<size_t>(blockIdx.x) * AXPY_THREADS + tid;
     float e[TB], mk[TB], acc[TB];
+    auto load_eps = [&]() {
 #pragma unroll
-    for (int t = 0; t < TB; ++t) {
-        e[t] = t < T ? out[i * T + t] : 0.f;
-        mk[t] = t < T && tm != nullptr ? tm[i * T + t] : 1.f;
-        acc[t] = 0.f;
-    }
+        for (int t = 0; t < TB; ++t) {
+            e[t] = t < T ? out[i * T + t] : 0.f;
+            mk[t] = t < T && tm != nullptr ? tm[i * T + t] : 1.f;
+            acc[t] = 0.f;
+        }
+    };
+    // a drawing block loads its eps and tm after the draw, so they are not
+    // live beside the draw's registers (they are first read after the rows)
+    if constexpr (DRAW_KB == 0) load_eps();
     AxpyTile tl(pk, nb, order_w, W);       // the first chunk's loads in flight
-    for (int x = tid; x < T * W4; x += AXPY_THREADS) {
-        const int t = x / W4, r = x - t * W4;
-        s_c1[x] = r < W ? coef[t * W + r] : 0.f;
-        s_c2[x] = r < W ? coef[(T + t) * W + r] : 0.f;
+    if constexpr (DRAW_KB > 0) {
+        // the block draws the window's W x T coefficients itself while its
+        // rows load, (marker r, trait t) on x = r * T + t as
+        // stale_draw_mt_kernel, then the zeros from W to W4
+        const int wt = W * T, pad = W4 - W;
+        for (int x = tid; x < T * W4; x += AXPY_THREADS) {
+            float2 c = make_float2(0.f, 0.f);
+            int r, t;
+            if (x < wt) {
+                r = x / T;
+                t = x - r * T;
+                c = stale_draw_mt<DRAW_KB>(dr, order_w, W, T, r, t, COMPLETE, blockIdx.x == 0);
+            } else {
+                t = (x - wt) / pad;
+                r = W + (x - wt) - t * pad;
+            }
+            s_c1[t * W4 + r] = c.x;
+            s_c2[t * W4 + r] = c.y;
+        }
+        load_eps();
+    } else {
+        for (int x = tid; x < T * W4; x += AXPY_THREADS) {
+            const int t = x / W4, r = x - t * W4;
+            s_c1[x] = r < W ? coef[t * W + r] : 0.f;
+            s_c2[x] = r < W ? coef[(T + t) * W + r] : 0.f;
+        }
     }
     __syncthreads();
     if (COMPLETE && tid < 32) {
@@ -675,19 +723,20 @@ axpy_mt_kernel(const uint8_t* __restrict__ pk, int nb, const int* __restrict__ o
     }
 }
 
-template <bool COMPLETE>
+template <bool COMPLETE, int DRAW_KB = 0>
 inline int launch_axpy_mt_kind(const uint8_t* pk, int nb, const int* order_w, int W, int T,
                                const float* coef, int add_c2, const float* tm, float* out,
-                               cudaStream_t stream) {
-    auto* const kernel = mt_by_traits(T, axpy_mt_kernel<COMPLETE, 1>, axpy_mt_kernel<COMPLETE, 2>,
-                                      axpy_mt_kernel<COMPLETE, 4>, axpy_mt_kernel<COMPLETE, 8>,
-                                      axpy_mt_kernel<COMPLETE, 16>);
+                               const StaleDrawArgs& dr, cudaStream_t stream) {
+    auto* const kernel = mt_by_traits(
+        T, axpy_mt_kernel<COMPLETE, 1, DRAW_KB>, axpy_mt_kernel<COMPLETE, 2, DRAW_KB>,
+        axpy_mt_kernel<COMPLETE, 4, DRAW_KB>, axpy_mt_kernel<COMPLETE, 8, DRAW_KB>,
+        axpy_mt_kernel<COMPLETE, 16, DRAW_KB>);
     const size_t smem = sizeof(float) * 2 * T * ((W + 3) & ~3);
     // the opt-in counts the static tile too
     HYDRA_CHECK(allow_smem(kernel, smem + sizeof(uint32_t) * AXPY_TB * AXPY_LDW +
                                        sizeof(float) * 2 * T_MAX));
     kernel<<<nb / AXPY_TB, AXPY_THREADS, smem, stream>>>(pk, nb, order_w, W, T, coef, add_c2,
-                                                         tm, out);
+                                                         tm, out, dr);
     HYDRA_CHECK_LAUNCH();
     return 0;
 }
@@ -696,9 +745,39 @@ int launch_axpy_mt(const uint8_t* pk, int nb, const int* order_w, int W, int T,
                    const float* coef, int add_c2, int complete, const float* tm,
                    float* out, cudaStream_t stream) {
     return complete ? launch_axpy_mt_kind<true>(pk, nb, order_w, W, T, coef, add_c2, tm, out,
-                                                stream)
+                                                StaleDrawArgs{}, stream)
                     : launch_axpy_mt_kind<false>(pk, nb, order_w, W, T, coef, add_c2, tm, out,
-                                                 stream);
+                                                 StaleDrawArgs{}, stream);
+}
+
+// The stale sweep folds a window's draw into its axpy up to this many
+// markers a window; above it stale_draw_mt_kernel runs as its own launch.
+// Every axpy block draws the whole window, W x T draws, so the fold's
+// redundant reads grow with W; its axpy's work grows with T as well.
+// Device us a window of the folded axpy_mt_kernel against
+// stale_draw_mt_kernel + axpy_mt_kernel, N = 50,000
+// (chip_smoke.print_stale_fold_times, H100 SXM at 700 W, both in one run):
+// W=64 T=1 5.43 vs 8.33, T=4 7.62 vs 10.31, T=16 31.11 vs 34.04; W=128
+// T=1 6.79 vs 9.77, T=4 12.88 vs 12.28, T=16 47.28 vs 46.67. At T=1 the
+// fold wins at W=128 too, but the multi-trait CLI runs T >= 2 (a phenotype
+// file a trait).
+// Windows above it are run: BIAS_SWEEP_MT.md's T=3 stale sweep goes to
+// W=256. chip_smoke.py holds both sides against the plain version (T=4,
+// W=64 and 128).
+constexpr int MT_FOLD_MAX_W = 64;
+
+// One stale window's draw and axpy in one launch: axpy_mt_kernel<complete,
+// TB, KB> with the draw's bound KB on the mixture size (by_components).
+inline int launch_draw_axpy_mt(const uint8_t* pk, int nb, const int* order_w, int W, int T,
+                               const StaleDrawArgs& dr, int complete, const float* tm,
+                               float* out, cudaStream_t stream) {
+    auto* const launch =
+        complete ? by_components(dr.K, launch_axpy_mt_kind<true, 4>,
+                                 launch_axpy_mt_kind<true, 8>, launch_axpy_mt_kind<true, K_MAX>)
+                 : by_components(dr.K, launch_axpy_mt_kind<false, 4>,
+                                 launch_axpy_mt_kind<false, 8>,
+                                 launch_axpy_mt_kind<false, K_MAX>);
+    return launch(pk, nb, order_w, W, T, nullptr, 1, tm, out, dr, stream);
 }
 
 // ------------------------------------------------------------ workspace --
@@ -756,6 +835,10 @@ int run_sweep_mt(bool exact, const uint8_t* pk, float* eps, const float* tm,
     auto* const draw = by_components(K, exact_mt_draw_kernel<4, true>,
                                      exact_mt_draw_kernel<8, false>,
                                      exact_mt_draw_kernel<K_MAX, false>);
+    auto* const stale_draw = by_components(K, stale_draw_mt_kernel<4>, stale_draw_mt_kernel<8>,
+                                           stale_draw_mt_kernel<K_MAX>);
+    const StaleDrawArgs dr{mrow, C, K, ws.part_s1, ws.part_s2, n_tiles, sc, out};
+    const bool fold = !exact && W <= MT_FOLD_MAX_W;
     if (exact) {
         HYDRA_CHECK(allow_smem(draw, draw_smem));
         HYDRA_CHECK(cudaMemsetAsync(ws.gram_acc, 0, sizeof(int) * gram_i8_acc_ints(W), stream));
@@ -766,6 +849,11 @@ int run_sweep_mt(bool exact, const uint8_t* pk, float* eps, const float* tm,
         int err = launch_stats_mt(pk, nb, eps, T, order_w, next_w, W, mode, ws.part_s1,
                                   ws.part_s2, ws.part_v, stream);
         if (err) return err;
+        if (fold) {
+            err = launch_draw_axpy_mt(pk, nb, order_w, W, T, dr, complete, tm, eps, stream);
+            if (err) return err;
+            continue;
+        }
         if (exact) {
             err = launch_gram_i8(pk, nb, order_w, W, ws.gram_acc, ws.gram, stream);
             if (err) return err;
@@ -773,10 +861,8 @@ int run_sweep_mt(bool exact, const uint8_t* pk, float* eps, const float* tm,
                 mrow, C, K, T, order_w, W, ws.part_s1, ws.part_s2, ws.part_v, n_tiles,
                 ws.gram, sc, out, ws.coef);
         } else {
-            stale_draw_mt_kernel<<<cdiv(static_cast<long long>(W) * T, MT_DRAW_THREADS),
-                                   MT_DRAW_THREADS, 0, stream>>>(
-                mrow, C, K, T, order_w, W, ws.part_s1, ws.part_s2, n_tiles, complete, sc,
-                out, ws.coef);
+            stale_draw<<<cdiv(static_cast<long long>(W) * T, MT_DRAW_THREADS), MT_DRAW_THREADS,
+                         0, stream>>>(dr, T, order_w, W, complete, ws.coef);
         }
         HYDRA_CHECK_LAUNCH();
         err = launch_axpy_mt(pk, nb, order_w, W, T, ws.coef, 1, complete, tm, eps, stream);

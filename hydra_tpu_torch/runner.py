@@ -33,9 +33,10 @@ def check_supported(opt: Options) -> None:
     """Raise NotImplementedError for every path the port does not have."""
     missing = []
     is_bw = opt.bayes_type == "bayesWMPI"
-    mt = " with multi-trait" if opt.multi_phen else ""
-    if opt.multi_phen and is_bw:
-        missing.append("multi-trait BayesW (--pheno with several files)")
+    # BayesW reads the first of several --pheno files, as the JAX CLI
+    # (hydra_tpu/cli.py sends every bayesWMPI run to run_bayesw)
+    multi = opt.multi_phen and not is_bw
+    mt = " with multi-trait" if multi else ""
     if opt.covariates:
         missing.append("--covariates" + (" with BayesW" if is_bw else mt))
     if opt.restart:
@@ -56,11 +57,11 @@ def check_supported(opt: Options) -> None:
     # whole-sweep kernel; BayesW and multi-trait ignore --cache-planes
     # (note_ignored_flags)
     other = " with BayesW" if is_bw else mt
-    if opt.multi_phen and opt.window < MIN_WINDOW:
+    if multi and opt.window < MIN_WINDOW:
         missing.append(f"--window {opt.window}{mt} (below {MIN_WINDOW}: the "
                        "per-marker path; --stale defaults to --sync-rate, "
                        "so pass e.g. --window 64)")
-    if (is_bw or opt.multi_phen) and opt.mega == "off":
+    if (is_bw or multi) and opt.mega == "off":
         missing.append("--mega off" + other + " (the per-window path of "
                        "this sampler)")
     if missing:

@@ -12,7 +12,11 @@ kernels) prints the SHA-256 of the exact recurrences', the mt packed
 passes' and the BayesW sweep's outputs, so equal
 digests show two trees' kernels bit for bit the same; then this tree's
 ``chip_smoke.print_mt_pass_times`` times the multi-trait packed passes
-alone (T 1/4/16, W 64/128, complete and missing) on the same calls.
+alone (T 1/4/16, W 64/128, complete and missing), this tree's
+``chip_smoke.print_stale_fold_times`` the stale sweeps' kernels a window
+(single-trait W 1..1024, multi-trait T 1/4/16 x W 64..1024) and this
+tree's ``chip_smoke.print_library_times`` the single-trait packed passes
+beside their library calls, on the same calls.
 
 Compare two versions inside one call, in turns, e.g. a ``git archive`` of
 the parent unpacked into a git-ignored directory beside this tree:
@@ -21,10 +25,11 @@ the parent unpacked into a git-ignored directory beside this tree:
 
 Each run goes to ``DIR/compare_<i>_<tree>.log`` (default ``build/compare``,
 git-ignored); a summary line per configuration (ms/sweep, CUDA-event
-ms/sweep, device ms and busy share, host enqueue, and the stats, axpy
-(BayesRRm's and multi-trait), exact recurrence and BayesW levels and draw
-kernels' device us per window), the multi-trait passes' device us per call
-and the digests are printed at the end.
+ms/sweep, device ms and busy share, host enqueue, device kernels a sweep,
+and the stats, axpy (BayesRRm's, single-decode and multi-trait), stale
+draw, exact recurrence and BayesW levels and draw kernels' device us per
+window), the multi-trait passes' device us per call, the stale fold and
+library lines and the digests are printed at the end.
 """
 
 from __future__ import annotations
@@ -52,6 +57,8 @@ card = sys.argv[1]
 torch.backends.cuda.matmul.allow_tf32 = False
 d.print_digests(torch, np)
 d.print_mt_pass_times(torch, np, card)
+d.print_stale_fold_times(torch, np, card)
+d.print_library_times(torch, np, card)
 c.phase_real_size(torch, np, sk, card)
 c.phase_sd_real_size(torch, np, sk, card)
 c.phase_bw_real_size(torch, np, card)
@@ -84,11 +91,14 @@ c.profile_sweep(torch, sk, s, st, card)
 '''
 
 CONFIG = re.compile(r"real size (.*?): ([\d.,]+) ms/sweep")
-SWEEP = re.compile(r"host enqueue ([\d.]+) ms.*CUDA events ([\d.]+) ms/sweep; "
+SWEEP = re.compile(r"\((\d+) device kernels in the profile.*host enqueue ([\d.]+) ms.*"
+                   r"CUDA events ([\d.]+) ms/sweep; "
                    r"profiler device time ([\d.]+) ms \(([\d.]+)% busy")
 KERNEL = re.compile(r"([\d.]+) us/window\s+(?:void )?hydra::(stats|axpy|stats_mt|axpy_mt|"
-                    r"exact_draw|exact_mt_draw|window_recurrence_mt|levels|bw_draw)"
-                    r"_kernel(<[^>]*>)?\(")
+                    r"axpy_decoded|stale_draw|stale_draw_mt|exact_draw|exact_mt_draw|"
+                    r"window_recurrence_mt|levels|bw_draw)_kernel(<[^>]*>)?\(")
+FOLD = re.compile(r"^stale fold (.*?): (.*) a window; draw \+ axpy ([\d.]+) us; "
+                  r"(\d+) launches")
 DIGEST = re.compile(r"^digest (.*): sha256 ([0-9a-f]{64})")
 PASS = re.compile(r"^mt pass (.*): stats_mt_kernel ([\d.]+) us, "
                   r"axpy_mt_kernel ([\d.]+) us")
@@ -105,8 +115,17 @@ def summary(path):
                 continue
             m = SWEEP.search(ln)
             if m and rows:
-                rows[-1] += (f" events {m.group(2)} device {m.group(3)} "
-                             f"({m.group(4)}%) enqueue {m.group(1)}")
+                rows[-1] += (f" events {m.group(3)} device {m.group(4)} "
+                             f"({m.group(5)}%) enqueue {m.group(2)} "
+                             f"kernels {m.group(1)}")
+                continue
+            if ln.startswith("library "):
+                rows.append("  " + ln.split("  [")[0].strip())
+                continue
+            m = FOLD.search(ln)
+            if m:
+                rows.append(f"  fold {m.group(1):24s} draw+axpy {m.group(3)} us, "
+                            f"{m.group(4)} launches ({m.group(2)})")
                 continue
             m = KERNEL.search(ln)
             if m and rows:

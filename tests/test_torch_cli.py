@@ -270,6 +270,33 @@ def test_cli_cache_planes_is_ignored_outside_bayesrrm(bed, bw_bed, tmp_path,
         assert _rng_record(str(out / name))["schedule"] == "block"
 
 
+@pytest.mark.parametrize("cli_name", ["port", "jax"])
+def test_cli_bayesw_reads_the_first_of_several_phenos(bw_bed, tmp_path,
+                                                      cli_name):
+    """BayesW with --pheno a,b runs on a alone, as the JAX CLI runs it (it
+    sends every bayesWMPI run to run_bayesw, which reads the first file):
+    the same .csv and .bet as --pheno a, in the port and in the JAX CLI."""
+    from hydra_tpu import cli as jax_cli
+    other = bw_bed + ".other.phen"
+    rs = np.random.RandomState(11)
+    with open(other, "w") as fh:
+        fh.writelines(f"per{i} per{i} {4.0 + rs.randn():.6f}\n"
+                      for i in range(NW))
+    main = cli.main if cli_name == "port" else jax_cli.main
+    pre = ["--device", "cpu"] if cli_name == "port" else []
+    outs = {}
+    for name, phen in (("one", bw_bed + ".phen"),
+                       ("two", bw_bed + ".phen," + other)):
+        argv = _bw_argv(bw_bed, tmp_path / name)
+        argv[argv.index("--pheno") + 1] = phen
+        assert main([*pre, *argv]) == 0
+        outs[name] = {ext: open(tmp_path / name / f"bw{ext}", "rb").read()
+                      for ext in (".csv", ".bet")}
+    assert outs["two"] == outs["one"]
+    assert len([ln for ln in outs["one"][".csv"].splitlines()
+                if ln.strip()]) == 3
+
+
 @pytest.mark.parametrize("window,schedule", [(4, "marker"), (8, "block")])
 def test_cli_bayesw_auto_schedule_follows_jax(bw_bed, tmp_path, window,
                                               schedule):

@@ -776,14 +776,14 @@ def test_cuda_fh_and_sd_sweep_matches_cpu(kind, monkeypatch):
     np.testing.assert_array_equal(sb.cass.cpu().numpy(), sa.cass.numpy())
 
 
-def _card_inputs(m, nb, missing, seed, dev, n_pad_markers=3):
+def _card_inputs(m, nb, missing, seed, dev, n_pad_markers=3, k=K):
     """``make_inputs`` made on the card (numpy is too slow for 2,048 rows
     of 50,176 individuals a case): h crumbs 0..2, 5% missing when
     ``missing``, the last 37 individuals padding, up to ``n_pad_markers``
     pad markers (a quarter of the rows at most; all missing, mave = mstd =
     bold = act = 0), mave and mstd the markers' own (BayesRRm.cpp:
-    1502-1508), so the draws stay finite at any width. Returns (pk, eps,
-    mask, mrow, n, pads)."""
+    1502-1508), so the draws stay finite at any width; mrow rows of k
+    mixture components. Returns (pk, eps, mask, mrow, n, pads)."""
     g = torch.Generator(device=dev).manual_seed(seed)
     n = 4 * nb - 37
     h = torch.randint(0, 3, (m, 4 * nb), generator=g, device=dev,
@@ -810,15 +810,15 @@ def _card_inputs(m, nb, missing, seed, dev, n_pad_markers=3):
     mave = gv.sum(1) / real.sum(1).clamp(min=1.0)
     var = (((gv - mave[:, None]) * real) ** 2).sum(1)
     mstd = torch.sqrt((n - 1) / var.clamp(min=1.0))
-    p = unif(0.05, 1.0, m, K)
+    p = unif(0.05, 1.0, m, k)
     mrow = torch.cat([mave.float()[:, None], mstd.float()[:, None],
                       0.02 * torch.randn((m, 1), generator=g, device=dev),
                       unif(0.0, 1.0, m, 1),
                       torch.randn((m, 1), generator=g, device=dev),
                       torch.ones((m, 1), device=dev),
                       torch.log(p / p.sum(1, keepdim=True)),
-                      unif(8e-4, 1.2e-3, m, K - 1),
-                      unif(0.02, 0.04, m, K - 1)], dim=1).contiguous()
+                      unif(8e-4, 1.2e-3, m, k - 1),
+                      unif(0.02, 0.04, m, k - 1)], dim=1).contiguous()
     mrow[pads, :3] = 0.0
     mrow[pads, 5] = 0.0
     return pk, eps, mask, mrow, n, pads
@@ -1149,14 +1149,14 @@ def test_cuda_stream_kernels_bitwise(path, window, nb, missing):
     assert torch.equal(e_k, e_r)
 
 
-def _card_mt_inputs(m, nb, T, missing, exact, seed, dev):
+def _card_mt_inputs(m, nb, T, missing, exact, seed, dev, k=K):
     """``_card_inputs`` with T traits: eps and the trait mask (n_pad, T),
     10% NaN per trait unless ``exact`` (full phenotypes), mrow (m,
-    T*(3K+4)) whose beta_old, u and nrm differ by trait, and, unless
+    T*(3k+4)) whose beta_old, u and nrm differ by trait, and, unless
     ``exact`` (trait 0's statistics for every trait), mstd too. Returns
     (pk, eps, tm, mrow, dnm1, n, pads)."""
     from hydra_tpu_torch.ops.sweep_kernel_mt import mt_mrow_width
-    pk, _, _, row1, n, pads = _card_inputs(m, nb, missing, seed, dev)
+    pk, _, _, row1, n, pads = _card_inputs(m, nb, missing, seed, dev, k=k)
     g = torch.Generator(device=dev).manual_seed(seed + 1)
     tm = torch.zeros((4 * nb, T), device=dev)
     tm[:n] = (torch.rand((n, T), generator=g, device=dev)
@@ -1170,7 +1170,7 @@ def _card_mt_inputs(m, nb, T, missing, exact, seed, dev):
         b[:, 1] *= 0.9 + 0.2 * torch.rand((m, T), generator=g, device=dev)
     b[pads, 2] = 0.0
     mrow = b.reshape(m, -1).contiguous()
-    assert mrow.shape[1] == mt_mrow_width(K, T)
+    assert mrow.shape[1] == mt_mrow_width(k, T)
     return pk, eps, tm, mrow, tm.sum(dim=0) - 1.0, n, pads
 
 
@@ -1282,3 +1282,149 @@ def test_cuda_window_stats_mt_unaligned_eps(n_traits, missing):
         assert (a is None) == (r is None)
         if r is not None:
             assert torch.equal(a, r)
+
+
+STALE_FOLD_CASES = (
+    [("sweep_stale", window, n_mix, 1, missing, 640)
+     for window in (1, 2, 7, 8, 9, 64, 128, 256, 257, 1024)
+     for n_mix in (2, 4, 16) for missing in (False, True)]
+    + [("sweep_stale_mt", window, n_mix, n_traits, missing, 640)
+       for window in (8, 64, 257, 1024) for n_mix in (2, 4, 16)
+       for n_traits in (1, 4, 16) for missing in (False, True)]
+    + [("sweep_stale_sd", sub_window, n_mix, 1, missing, 640)
+       for sub_window in (16, 64) for n_mix in (2, 4, 16)
+       for missing in (False, True)]
+    # 33 tiles of 2,048 individuals: two batches of the tile partials' loads
+    + [("sweep_stale", 64, 4, 1, False, 16896),
+       ("sweep_stale", 9, 2, 1, True, 16896),
+       ("sweep_stale_mt", 64, 4, 4, False, 16896),
+       ("sweep_stale_sd", 16, 4, 1, True, 16896)])
+
+
+def stale_mt_f64(pk, eps, tm, mrow, i2se, dnm1, *, window, n_mix, order):
+    """The stale multi-trait sweep on complete genotypes in float64:
+    sweep_stale_mt_ref's operations with every operand widened, the
+    independent witness of a case on a knife edge of the f32 plain
+    version. Returns (eps, out), float64."""
+    from hydra_tpu_torch.ops.decode import decode_h
+    from hydra_tpu_torch.ops.sweep_kernel_mt import draw_normalized
+    f64 = torch.float64
+    T = eps.shape[1]
+    eps, tm, i2se, dnm1 = (x.to(f64) for x in (eps, tm, i2se, dnm1))
+    out = torch.zeros((pk.shape[0], 3 * T), dtype=f64, device=pk.device)
+    for w in range(pk.shape[0] // window):
+        slots = order[w * window:(w + 1) * window]
+        b = mrow[slots].to(f64).reshape(window, -1, T)
+        mave, mstd, bold = b[:, 0], b[:, 1], b[:, 2]
+        h = decode_h(pk[slots], f64)
+        s2 = eps.sum(dim=0)
+        s1 = 2.0 * s2 - h @ eps
+        bnew, comp, acum = draw_normalized(
+            b, mstd * (s1 - mave * s2) + bold * dnm1, i2se, n_mix)
+        c1 = (bold - bnew) * mstd
+        c2 = -c1 * mave
+        eps = eps + (2.0 * c1.sum(dim=0) + c2.sum(dim=0) - h.T @ c1) * tm
+        out[slots] = torch.cat([bnew, comp, acum], dim=1)
+    return eps, out
+
+
+# A case whose plain version, in f32 with the stats summed by matmul, takes
+# another component than the kernels on a knife edge: the kernels' outputs
+# are held instead to the SHA-256 prefix of (eps, out) that the kernels
+# before the fold gave (the same bits), to the number of components that
+# differ from the plain version there, and to the same sweep in float64
+# (stale_mt_f64): components equal, eps and beta within the sweep
+# tolerance. Its marker is in the second window, after the first's
+# updates, where the plain eps is up to 1.1e-3 off the kernel's.
+STALE_FOLD_NOT_PLAIN = {
+    ("sweep_stale_mt", 1024, 16, 4, False, 640): ("2261b2e97e4994e3", 1)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path,window,n_mix,n_traits,missing,nb",
+                         STALE_FOLD_CASES)
+def test_cuda_stale_fold_matches_plain(path, window, n_mix, n_traits,
+                                       missing, nb):
+    """The stale sweeps, whose axpy draws its window itself (every block
+    draws all W markers; block 0 writes out), against their plain versions
+    at every mixture bound of the draw (K 2 and 4 below their bounds 8 and
+    4, 16 at K_MAX) and windows that cross the axpy's direct path (W <= 8),
+    a float4 of coefficients (W = 2, 7, 9, 257), its 128-row tile (257,
+    1024) and the fold thresholds (256 and 257; multi-trait 64 and 257),
+    complete and with missing genotypes, at nb = 640 (2 tiles of
+    partials) and 16,896 (33 tiles: two batches of their loads): components
+    equal, eps and beta within the sweep tolerance, bitwise repeatable.
+    sweep_stale's and sweep_stale_mt's eps bit for bit the plain axpy
+    replayed from the kernel's own draws (sweep_update_ref,
+    sweep_update_mt_ref); sweep_stale_mt at T = 1, 4, 16 traits;
+    sweep_stale_sd a window of 64 in sub-windows of 16 (components equal
+    to sweep_stale's) and 64 (bit for bit sweep_stale)."""
+    from hydra_tpu_torch.ops import sweep_kernel_mt as tskmt
+    dev = _card()
+    complete = not missing
+    W = 64 if path == "sweep_stale_sd" else window
+    m = 2 * W
+    gen = torch.Generator(device=dev).manual_seed(3)
+    order = tsk.block_order(torch.randperm(2, generator=gen, device=dev), W)
+    if path == "sweep_stale_mt":
+        pk, eps, tm, mrow, dnm1, n, _ = _card_mt_inputs(
+            m, nb, n_traits, missing, False, 5, dev, k=n_mix)
+        i2se = torch.linspace(0.6, 0.9, n_traits, device=dev)
+        args = (pk, eps, tm, mrow, i2se, dnm1)
+        kw = dict(window=W, n_mix=n_mix, complete=complete, order=order)
+        e_k, o_k = tskmt.sweep_stale_mt(*args, **kw)
+        e_k2, o_k2 = tskmt.sweep_stale_mt(*args, **kw)
+        e_r, o_r = tskmt.sweep_stale_mt_ref(*args, **kw)
+        same = torch.equal(e_k, twk.sweep_update_mt_ref(
+            pk, eps, tm, mrow, o_k, order, W, complete))
+        comp, beta = slice(n_traits, 2 * n_traits), slice(0, n_traits)
+    else:
+        pk, eps, mask, mrow, n, _ = _card_inputs(m, nb, missing, 5, dev,
+                                                 k=n_mix)
+        args = (pk, eps, mrow, 0.7, float(n - 1))
+        kw = dict(window=W, n_mix=n_mix, complete=complete,
+                  ind_mask=mask if complete else None, order=order)
+        if path == "sweep_stale_sd":
+            e_k, o_k = tsk.sweep_stale_sd(*args, sub_window=window, **kw)
+            e_k2, o_k2 = tsk.sweep_stale_sd(*args, sub_window=window, **kw)
+            e_r, o_r = tsk.sweep_stale_sd_ref(*args, sub_window=window, **kw)
+            e_s, o_s = tsk.sweep_stale(*args, **kw)
+            same = torch.equal(o_k[:, 1], o_s[:, 1]) and (
+                window < W or (torch.equal(e_k, e_s) and torch.equal(o_k, o_s)))
+        else:
+            e_k, o_k = tsk.sweep_stale(*args, **kw)
+            e_k2, o_k2 = tsk.sweep_stale(*args, **kw)
+            e_r, o_r = tsk.sweep_stale_ref(*args, **kw)
+            same = torch.equal(e_k, twk.sweep_update_ref(
+                pk, eps, mrow, o_k[:, 3], order, W,
+                "stale" if complete else "missing", mask))
+        comp, beta = 1, 0
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(e_k).all()) and bool(torch.isfinite(o_k).all())
+    assert torch.equal(e_k, e_k2) and torch.equal(o_k, o_k2)
+    assert same
+    known = STALE_FOLD_NOT_PLAIN.get((path, window, n_mix, n_traits, missing,
+                                      nb))
+    if known is not None:
+        h = hashlib.sha256()
+        for t in (e_k, o_k):
+            h.update(t.contiguous().cpu().numpy().tobytes())
+        assert h.hexdigest()[:16] == known[0]
+        assert int((o_k[:, comp] != o_r[:, comp]).sum()) == known[1]
+        e_w, o_w = stale_mt_f64(pk, eps, tm, mrow, i2se, dnm1, window=W,
+                                n_mix=n_mix, order=order)
+        n_kernel = int((o_k[:, comp].double() != o_w[:, comp]).sum())
+        n_plain = int((o_r[:, comp].double() != o_w[:, comp]).sum())
+        assert n_kernel == 0, (f"float64 takes other components than the "
+                               f"kernels at {n_kernel} markers, than the f32 "
+                               f"plain version at {n_plain}")
+        torch.testing.assert_close(e_k.double(), e_w, atol=5e-4, rtol=1e-3)
+        torch.testing.assert_close(o_k[:, beta].double(), o_w[:, beta],
+                                   atol=5e-4, rtol=1e-3)
+        return
+    assert torch.equal(o_k[:, comp], o_r[:, comp])
+    if m >= 128:
+        assert len(torch.unique(o_k[:, comp])) >= min(3, n_mix)
+    torch.testing.assert_close(e_k, e_r, atol=5e-4, rtol=1e-3)
+    torch.testing.assert_close(o_k[:, beta], o_r[:, beta], atol=5e-4,
+                               rtol=1e-3)

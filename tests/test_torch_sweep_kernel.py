@@ -75,6 +75,39 @@ def test_sweep_matches_jax(exact, missing, use_perm, n_pads, window):
     assert np.all(e_t[n:] == 0.0)
 
 
+@pytest.mark.parametrize("n_mix", [2, 16])
+@pytest.mark.parametrize("missing", [False, True])
+def test_stale_sweep_any_components_matches_jax(missing, n_mix):
+    """The plain stale sweep, the card tests' yardstick of the draw that
+    the stale axpy kernels fold in, at the mixture sizes below and at the
+    draw's register bounds (K 2 and 16 = K_MAX) against the JAX sweep_stale
+    in interpret mode: the tolerances of test_sweep_matches_jax, components
+    equal."""
+    m, nb, window = 128, 128, 32
+    pk, eps, mask, mrow, n = make_inputs(m, nb, 40 + n_mix, missing, 7,
+                                         k=n_mix)
+    wp = np.random.RandomState(9).permutation(m // window).astype(np.int32)
+    i2se, dnm1 = 0.7, float(n - 1)
+    e_j, o_j = jsk.sweep_stale(
+        jnp.asarray(pk), deinterleave(jnp.asarray(eps)), jnp.asarray(mrow),
+        jnp.asarray(i2se, jnp.float32), jnp.float32(dnm1), window=window,
+        n_mix=n_mix, complete=not missing,
+        ind_mask4=jnp.asarray(deinterleave(mask)), interpret=True,
+        win_perm=jnp.asarray(wp))
+    e_t, o_t = tsk.sweep_stale(
+        torch.from_numpy(pk), torch.from_numpy(eps), torch.from_numpy(mrow),
+        i2se, dnm1, window=window, n_mix=n_mix, complete=not missing,
+        ind_mask=torch.from_numpy(mask),
+        order=tsk.block_order(torch.from_numpy(wp), window))
+    e_t, o_t = e_t.numpy(), o_t.numpy()
+    e_j, o_j = np.asarray(interleave(e_j)), np.asarray(o_j)
+    np.testing.assert_allclose(e_t, e_j, atol=5e-4, rtol=1e-3)
+    np.testing.assert_allclose(o_t[:, 0], o_j[:, 0], atol=5e-4, rtol=1e-3)
+    np.testing.assert_array_equal(o_t[:, 1], o_j[:, 1])
+    np.testing.assert_allclose(o_t[:, 2:], o_j[:, 2:], atol=5e-4, rtol=1e-3)
+    assert len(np.unique(o_t[:, 1])) >= min(3, n_mix)
+
+
 def _sd_inputs(missing):
     """W=32 over 128 markers (5 pad markers) on a marker-schedule order."""
     pk, eps, mask, mrow, n = make_inputs(128, 128, 21, missing, 5)

@@ -24,7 +24,7 @@ from hydra_tpu_torch.ops import window_kernels as twk
 from hydra_tpu_torch.ops.decode import decode_planes_hp
 from hydra_tpu_torch.ops.sweep_kernel import block_order
 
-from tests.test_torch_cuda import K, make_mt_inputs
+from tests.test_torch_cuda import K, make_mt_inputs, stale_mt_f64
 
 # one intra-op thread: the suite runs in parallel worker processes, and
 # torch's default thread pool in each of them oversubscribes the CPU
@@ -103,6 +103,39 @@ def test_sweep_exact_mt_any_components_matches_jax(n_mix, window):
     (W=40: a ragged second block)."""
     _sweep_vs_jax(True, False, 0.0, window == 24, 3, window, 40 + n_mix,
                   m=2 * window, n_mix=n_mix)
+
+
+@pytest.mark.parametrize("n_traits", [1, 4])
+def test_stale_mt_f64_witness_matches_jax(n_traits):
+    """The float64 stale sweep that the card test takes as the witness of a
+    knife-edge case (test_torch_cuda.stale_mt_f64) against the JAX
+    sweep_stale_mt in interpret mode, complete genotypes and full
+    phenotypes at the case's mixture size K=16: components equal, eps and
+    beta within the sweep tolerance."""
+    m, nb, window, n_mix = 64, 128, 32, 16
+    pk, eps, tm, mrow, dnm1 = make_mt_inputs(m, nb, n_traits, 50 + n_traits,
+                                             False, 3, k=n_mix)
+    i2se = np.linspace(0.6, 0.9, n_traits).astype(np.float32)
+    wp = np.random.RandomState(5).permutation(m // window).astype(np.int32)
+    e_j, o_j = jskmt.sweep_stale_mt(
+        jnp.asarray(pk), deinterleave_mt(jnp.asarray(eps)),
+        deinterleave_mt(jnp.asarray(tm)), jnp.asarray(mrow),
+        jnp.asarray(i2se), jnp.asarray(dnm1), complete=True, window=window,
+        n_mix=n_mix, n_traits=n_traits, interpret=True,
+        win_perm=jnp.asarray(wp))
+    e_j, o_j = np.asarray(interleave_mt(e_j, n_traits)), np.asarray(o_j)
+    e_w, o_w = stale_mt_f64(
+        *(torch.from_numpy(a) for a in (pk, eps, tm, mrow, i2se, dnm1)),
+        window=window, n_mix=n_mix,
+        order=block_order(torch.from_numpy(wp), window))
+    e_w, o_w = e_w.numpy(), o_w.numpy()
+    T = n_traits
+    np.testing.assert_allclose(e_w, e_j, atol=5e-4, rtol=1e-3)
+    np.testing.assert_allclose(o_w[:, :T], o_j[:, :T], atol=5e-4, rtol=1e-3)
+    np.testing.assert_array_equal(o_w[:, T:2 * T], o_j[:, T:2 * T])
+    np.testing.assert_allclose(o_w[:, 2 * T:], o_j[:, 2 * T:], atol=5e-4,
+                               rtol=1e-3)
+    assert len(np.unique(o_w[:, T:2 * T])) >= 3
 
 
 @pytest.mark.parametrize("missing,na_frac", [(False, 0.1), (True, 0.0)])
