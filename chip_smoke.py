@@ -13,7 +13,8 @@ Phases, each printing its wall time:
      card at main-path shapes (M=4,096 x N=50,000, W=64 and 128, complete
      and missing genotypes, block window permutation; exact also at W=256
      and W=200, a window that is not a multiple of 32); bitwise
-     repeatability. At the main-path windows (stale 64, exact 128)
+     repeatability; with missing genotypes at W=64 and 128 the Gram of the
+     sweep's first window against x x^T in float64 (check_missing_gram). At the main-path windows (stale 64, exact 128)
      axpy_kernel is held bit for bit against the plain axpy replayed from
      the kernel's own draws, and stats_kernel (through window_stats on the
      first window's rows) against its plain version.
@@ -32,7 +33,8 @@ Phases, each printing its wall time:
      BayesW kernels' launch counts must move. One CUDA sweep is held
      against the CPU sampler with the same noise.
   4. real size M=100,000 x N=50,000 (1.25 GB of packed genotypes made on
-     the card): ms/sweep and markers/s, exact W=128 and stale W=64; here
+     the card): ms/sweep and markers/s, exact W=128 and stale W=64, then
+     exact W=128 on 2% missing calls, which must run gram_f32_kernel; here
      and in 4b, 4d and 4e each sweep's device us per window by kernel,
      stats_kernel's and axpy_kernel's bounds per window and launches.
   4b. BayesW W=64 block at the same size, and W=1 at M=10,000 x N=5,000:
@@ -80,8 +82,9 @@ BayesFH (--mpibayes bayesFHMPI) and the single-decode stale sweep
      window's decoded rows (print_library_times): device time a call of
      stats_kernel, axpy_kernel, levels_kernel and gram_i8_kernel against
      torch.mv, torch.addmv, torch.mm and the fastest Gram of torch.mm f32,
-     bf16 and torch._int_mm; the library times of window_stats,
-     window_axpy and window_level_sums in the kernels line.
+     bf16 and torch._int_mm, and the missing-data Gram (gram_f32_kernel)
+     against torch.mm f32 of the standardized rows; the library times of
+     window_stats, window_axpy and window_level_sums in the kernels line.
   3e. the CLI at M=10,000 x N=5,000, 20 iterations each: BayesFH exact
      default, --stale --window 64 and --mega off; HYDRA_TPU_SD=16 --stale
      --window 64 --schedule marker for bayesMPI and bayesFHMPI; launch
@@ -307,6 +310,39 @@ def check_stats_bitwise(torch, label, pk, eps, mrow, rows, exact, complete,
                              "plain version")
 
 
+def missing_gram_error(torch, pk, mave_w, mstd_w, rows, gram):
+    """(largest |G - x x^T| over its bound, largest |G - x x^T| over the
+    largest diagonal entry) of a missing-data Gram on the window rows
+    ``rows``, x = (g - mave*m) * mstd in f32 and x x^T in float64. The
+    bound of entry (i, j) is the forward error of the kernel's summation
+    order, (L + C) u sum_k |x_ik x_jk| (u = 2^-24, L the 2,048 individuals
+    of a chunk's fmaf chain, C the chunks added after it), 1% over."""
+    from hydra_tpu_torch.ops.decode import decode_planes_hp
+    g, mk = decode_planes_hp(pk[rows.long()])
+    x = ((g - mave_w[:, None] * mk) * mstd_w[:, None]).double()
+    ref, mag = x @ x.T, x.abs() @ x.abs().T
+    n_chunks = -(-pk.shape[1] // 512)
+    err = (gram.double() - ref).abs()
+    bound = 1.01 * (2048 + n_chunks) * 2.0 ** -24 * mag
+    return ((err / bound.clamp(min=1e-300)).max().item(),
+            (err.max() / ref.diagonal().abs().max()).item())
+
+
+def check_missing_gram(torch, label, pk, mave_w, mstd_w, rows, gram, card):
+    """The missing-data Gram (gram_f32_kernel) of the window rows ``rows``
+    against x x^T in float64 on the same f32 x: every entry within the
+    forward error bound of its summation order (missing_gram_error), and
+    symmetric bit for bit."""
+    over, of_diag = missing_gram_error(torch, pk, mave_w, mstd_w, rows, gram)
+    sym = torch.equal(gram, gram.T)
+    print(f"  gram_f32_kernel through {label}: max|G - x x^T (f64)| "
+          f"{of_diag:.3e} of the diagonal, {over:.3f} of its summation's "
+          f"error bound; G == G^T bit for bit {sym}  [{card}]", flush=True)
+    if not sym or not over <= 1.0:
+        raise AssertionError(f"the missing-data Gram through {label} is off "
+                             "its float64 reference or not symmetric")
+
+
 def check_mt_bitwise(kernel, label, same, card):
     """A multi-trait packed pass against its plain version in the kernel's
     order (window_kernels.window_stats_mt_seq, window_axpy_mt_seq,
@@ -462,6 +498,15 @@ def phase_kernels(torch, sk, card):
                                         eps, mrow_w, order[:window],
                                         name == "sweep_exact", not missing, n,
                                         card)
+                if name == "sweep_exact" and missing and window in (64, 128):
+                    # the sweep's Gram kernel on its first window's rows
+                    rows = order[:window].contiguous()
+                    b = mrow_w[rows.long()]
+                    mw, sw = b[:, 0].contiguous(), b[:, 1].contiguous()
+                    check_missing_gram(
+                        torch, f"{name} W={window}", pk_w, mw, sw, rows,
+                        wk.window_stats(pk_w, eps, mw, sw, True, False,
+                                        float(n), rows)[2], card)
                 if window == main_w and not missing:
                     r["ms"], r["plain_ms"] = ms, plain_ms
                     # packed rows, eps, mrow, order, mask in; eps, out out.
@@ -607,19 +652,22 @@ def phase_cli(torch, np, sk, tmp):
     return launches
 
 
-def phase_real_size(torch, np, sk, card):
+def real_size_dataset(torch, np, missing=0.0):
+    """M=100,000 x N=50,000 genotypes made on the card (seed 2; with
+    ``missing``, a share of missing calls) as a Dataset and its packed
+    rows on the card, phenotypes noise."""
     from hydra_tpu_torch.data.genotypes import (Dataset, GenotypeData,
                                                 make_default_groups)
-    from hydra_tpu_torch.samplers.bayesrrm import BayesRRm
     dev = torch.device("cuda")
     m, n = 100_000, 50_000
     n_pad = padded_individuals(np, n)
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(2)
-    pk, mave, mstd, nm = device_genotypes(torch, m, n, n_pad, gen)
+    pk, mave, mstd, nm = device_genotypes(torch, m, n, n_pad, gen, missing)
     torch.cuda.synchronize()
     print(f"generated {pk.numel() / 1e9:.3f} GB of packed genotypes on the "
-          f"card in {time.perf_counter() - t0:.1f} s", flush=True)
+          f"card in {time.perf_counter() - t0:.1f} s"
+          + (f", {100 * missing:g}% missing" if missing else ""), flush=True)
     mave_h, mstd_h = mave.cpu().numpy(), mstd.cpu().numpy()
     geno = GenotypeData(packed=np.zeros((0, n_pad // 4), np.uint8), n=n,
                         n_pad=n_pad, m=m, mave=mave_h, mstd=mstd_h,
@@ -627,30 +675,54 @@ def phase_real_size(torch, np, sk, card):
                         nm=nm.cpu().numpy())
     groups, mS = make_default_groups(m, list(MS[1:]))
     y = np.random.RandomState(0).randn(n)
-    ds = Dataset(geno=geno, y=y, groups=groups, num_groups=1, mS=mS)
+    return Dataset(geno=geno, y=y, groups=groups, num_groups=1, mS=mS), pk
+
+
+def real_size_sweeps(torch, sk, ds, pk, exact, window, card, data=""):
+    """ms/sweep (host clock over 10 steps after 2 warm-up) and markers/s
+    of one BayesRRm block configuration on ``real_size_dataset``'s data,
+    then its profile (profile_sweep). Returns profile_sweep's profile."""
+    from hydra_tpu_torch.samplers.bayesrrm import BayesRRm
+    dev = torch.device("cuda")
+    m = ds.geno.m
+    torch.cuda.reset_peak_memory_stats()
+    s = BayesRRm(ds, window=window, exact=exact, seed=1, device=dev,
+                 packed_device=pk)
+    st = s.init_state()
+    for it in range(2):
+        st, _ = s.step(st, it)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for it in range(2, 12):
+        st, stats = s.step(st, it)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 100.0
+    if not bool(torch.isfinite(st.eps).all()):
+        raise AssertionError("non-finite residual at real size")
+    sg, se = float(st.sigma_g.sum()), float(st.sigma_e)
+    print(f"real size M=100,000 x N=50,000 {'exact' if exact else 'stale'}"
+          f" W={window} block{data}: {ms:.2f} ms/sweep, {m / ms * 1e3:,.0f} "
+          f"markers/s (10 sweeps after 2 warm-up), h2 {sg / (sg + se):.4f},"
+          f" peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB  "
+          f"[{card}]", flush=True)
+    return profile_sweep(torch, sk, s, st, card)
+
+
+def phase_real_size(torch, np, sk, card):
+    """BayesRRm exact W=128 and stale W=64 block at M=100,000 x N=50,000 on
+    complete genotypes, then exact W=128 with 2% missing calls (a single
+    missing call sends the exact sweep to the missing-data Gram)."""
+    ds, pk = real_size_dataset(torch, np)
     for exact, window in ((True, 128), (False, 64)):
-        torch.cuda.reset_peak_memory_stats()
-        s = BayesRRm(ds, window=window, exact=exact, seed=1, device=dev,
-                     packed_device=pk)
-        st = s.init_state()
-        for it in range(2):
-            st, _ = s.step(st, it)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for it in range(2, 12):
-            st, stats = s.step(st, it)
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) * 100.0
-        if not bool(torch.isfinite(st.eps).all()):
-            raise AssertionError("non-finite residual at real size")
-        sg, se = float(st.sigma_g.sum()), float(st.sigma_e)
-        print(f"real size M=100,000 x N=50,000 {'exact' if exact else 'stale'}"
-              f" W={window} block: {ms:.2f} ms/sweep, {m / ms * 1e3:,.0f} "
-              f"markers/s (10 sweeps after 2 warm-up), h2 {sg / (sg + se):.4f},"
-              f" peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB  "
-              f"[{card}]", flush=True)
-        profile_sweep(torch, sk, s, st, card)
-        del s, st
+        real_size_sweeps(torch, sk, ds, pk, exact, window, card)
+    del ds, pk
+    ds, pk = real_size_dataset(torch, np, 0.02)
+    per = real_size_sweeps(torch, sk, ds, pk, True, 128, card, " missing 2%")
+    # the sampler's sweep went through the missing-data Gram alone
+    grams = {kernel_name(k): v[0] for k, v in per.items()
+             if "hydra::" in k and "gram" in kernel_name(k)}
+    if set(grams) != {"gram_f32_kernel"}:
+        raise AssertionError(f"missing-data exact sweep launched {grams}")
 
 
 def profile_sweep(torch, sk, s, st, card):
@@ -664,17 +736,18 @@ def profile_sweep(torch, sk, s, st, card):
     fn = sk.sweep_exact if cfg.exact else sk.sweep_stale
     kw = dict(window=cfg.window, n_mix=cfg.k, complete=cfg.complete,
               ind_mask=s.ind_mask if cfg.complete else None, order=order)
-    # exact: stats, Gram (complete: gram_i8 in one launch; missing: gram +
-    # gram reduce), draw, axpy; stale: stats, then the axpy, which draws the
-    # window itself up to the kernels' STALE_FOLD_MAX_W (above, the draw
-    # alone first: the profile shows which)
+    # exact: stats, Gram (complete: gram_i8_kernel; missing:
+    # gram_f32_kernel, one launch either), draw, axpy; stale: stats, then
+    # the axpy, which draws the window itself up to the kernels'
+    # STALE_FOLD_MAX_W (above, the draw alone first: the profile shows
+    # which)
     n_sub = cfg.window // cfg.sub_window if cfg.sub_window else 1
     if cfg.sub_window:
         fn = sk.sweep_stale_sd
         kw["sub_window"] = cfg.sub_window
 
     def launches(names):
-        return cfg.n_windows * ((4 if cfg.complete else 5) if cfg.exact else
+        return cfg.n_windows * (4 if cfg.exact else
                                 n_sub * (3 if "stale_draw_kernel" in names
                                          else 2))
 
@@ -696,23 +769,37 @@ def profile_sweep(torch, sk, s, st, card):
         print_stream_bounds(cfg.window, nb, cfg.n_windows,
                             draw_cols=mrow.shape[1] if not cfg.exact and fold
                             else 0)
-    if cfg.exact and cfg.complete:
-        print_exact_bounds(cfg.window, s.packed.shape[1], mrow.shape[1])
+    if cfg.exact:
+        print_exact_bounds(cfg.window, s.packed.shape[1], mrow.shape[1],
+                           cfg.complete)
+    return per
 
 
-def print_exact_bounds(W, nb, C):
+def missing_gram_bound(W, nb):
+    """(ms, by) of one missing-data window Gram (gram_f32_kernel): the W
+    packed rows, the order and the rows' mave and mstd in, the (W, W) f32
+    Gram out; the symmetric half's W (W + 1) / 2 entries, one f32
+    multiply-add (2 operations) per entry and individual."""
+    return bound(W * nb + 12 * W + 4 * W * W, {"f32": W * (W + 1.0) * 4 * nb})
+
+
+def print_exact_bounds(W, nb, C, complete=True):
     """The least time of one exact window's Gram and draw launches.
-    gram_i8_kernel: the W packed rows and the order in, the (W, W) f32 Gram
-    out; the symmetric Gram's W (W + 1) / 2 entries, one int8 multiply-add
-    (2 operations) per entry and individual. exact_draw_kernel: the stats
-    partials (s1, s2, v), the W mrow rows and the Gram in, out and coef out;
-    the rank-1 update (2 W^2 f32) and ~100 f32 operations a draw."""
+    gram_i8_kernel (complete data): the W packed rows and the order in, the
+    (W, W) f32 Gram out; the symmetric Gram's W (W + 1) / 2 entries, one
+    int8 multiply-add (2 operations) per entry and individual;
+    gram_f32_kernel (missing data): missing_gram_bound. exact_draw_kernel:
+    the stats partials (s1, s2, v), the W mrow rows and the Gram in, out
+    and coef out; the rank-1 update (2 W^2 f32) and ~100 f32 operations a
+    draw."""
     n_tiles = -(-nb // 512)
-    gram = bound(W * nb + 4 * W + 4 * W * W,
-                 {"int8": W * (W + 1.0) * 4 * nb})
+    gram = (bound(W * nb + 4 * W + 4 * W * W,
+                  {"int8": W * (W + 1.0) * 4 * nb}) if complete
+            else missing_gram_bound(W, nb))
     draw = bound(12 * n_tiles * W + 4 * W * C + 4 * W * W + 16 * W
                  + 4 * (2 * W + 1), {"f32": 2.0 * W * W + 100.0 * W})
-    print(f"  bound per window (W={W}, nb={nb}): gram_i8_kernel "
+    print(f"  bound per window (W={W}, nb={nb}): "
+          f"{'gram_i8_kernel' if complete else 'gram_f32_kernel'} "
           f"{1e3 * gram[0]:.4f} us ({gram[1]}), exact_draw_kernel "
           f"{1e3 * draw[0]:.4f} us ({draw[1]})", flush=True)
 
@@ -1168,7 +1255,8 @@ def print_digests(torch, np):
     missing genotypes and 10% NaN per trait sweep_stale_mt, window_stats_mt
     and window_axpy_mt; then BayesW's sweep_stale_bw (eps, out) at phase
     2b's cases (bw_case: M=4,096 W=64 complete and 2% missing, M=512 W=1);
-    then the BayesRRm stale sweeps (stale_digest_outputs).
+    then the BayesRRm stale sweeps (stale_digest_outputs) and the exact
+    sweep and window_stats on missing genotypes (missing_exact_digest_outputs).
     Two trees' kernels are bit for bit the same where their digests are
     (scripts/chip_compare.py runs this in each tree). Returns {name:
     digest}."""
@@ -1243,6 +1331,7 @@ def print_digests(torch, np):
         outs[f"sweep_stale_bw M={m_bw} W={w_bw} {data}"] = (
             skbw.sweep_stale_bw(*args, **kw))
     outs.update(stale_digest_outputs(torch, np))
+    outs.update(missing_exact_digest_outputs(torch, np))
     torch.cuda.synchronize()
     digests = {}
     for name, tensors in outs.items():
@@ -1293,6 +1382,95 @@ def stale_digest_outputs(torch, np):
                 outs[f"sweep_stale M={mw} W={W} {data}"] = sk.sweep_stale(
                     *ins, **kw)
     return outs
+
+
+def missing_exact_digest_outputs(torch, np):
+    """The missing-data Gram's callers on fixed-seed inputs at phase 2's
+    shapes (M=4,096 x N=50,000, 2% missing calls, 37 pad markers; its own
+    generator): sweep_exact (eps, out) at W=128 and W=64 (the CLI
+    default), block order, and window_stats' exact Gram of the W=128
+    sweep's first window. Returns {name: tensors}."""
+    from hydra_tpu_torch.ops import sweep_kernel as sk
+    from hydra_tpu_torch.ops import window_kernels as wk
+    dev = torch.device("cuda")
+    m, n = 4096, 50_000
+    n_pad = padded_individuals(np, n)
+    gen = torch.Generator(device=dev).manual_seed(47)
+    pk, mave, mstd, _ = device_genotypes(torch, m, n, n_pad, gen, 0.02)
+    pads = torch.randperm(m, generator=gen, device=dev)[:37]
+    pk[pads] = 0xFF
+    mrow = kernel_rows(torch, mave, mstd, gen, n, pads)
+    eps = 0.8 * torch.randn(n_pad, generator=gen, device=dev)
+    eps[n:] = 0.0
+    outs = {}
+    for W in (128, 64):
+        order = sk.block_order(torch.randperm(m // W, generator=gen,
+                                              device=dev), W)
+        outs[f"sweep_exact W={W} missing 2%"] = sk.sweep_exact(
+            pk, eps, mrow, 1.0 / (2 * SIGMA_E), float(n - 1), window=W,
+            n_mix=K, complete=False, order=order)
+        if W == 128:
+            rows = order[:W].contiguous()
+            b = mrow[rows.long()]
+            outs["window_stats W=128 exact missing 2%"] = (wk.window_stats(
+                pk, eps, b[:, 0].contiguous(), b[:, 1].contiguous(), True,
+                False, float(n), rows)[2],)
+    return outs
+
+
+def print_missing_exact_times(torch, np, card):
+    """BayesRRm's exact sweep on missing genotypes at M=100,000 x
+    N=50,000 with 2% missing calls (real_size_dataset): exact W=128 and
+    W=64 (the CLI default) block, ms/sweep, CUDA events, busy share,
+    launches and device us a window by kernel (real_size_sweeps), then the
+    Gram's device us a window, summed over the kernels whose name holds
+    "gram"; then the Gram alone (window_stats' exact missing-data Gram) at
+    W = 64, 128, 256 and 1024: device us a call by kernel from
+    torch.profiler over 10 calls after a warm-up, beside its bound
+    (missing_gram_bound). scripts/chip_compare.py runs this tree's version
+    in every tree."""
+    from hydra_tpu_torch.ops import sweep_kernel as sk
+    from hydra_tpu_torch.ops import window_kernels as wk
+    dev = torch.device("cuda")
+    ds, pk = real_size_dataset(torch, np, 0.02)
+    m, n, nb = ds.geno.m, ds.geno.n, pk.shape[1]
+    for window in (128, 64):
+        per = real_size_sweeps(torch, sk, ds, pk, True, window, card,
+                               " missing 2%")
+        n_windows = -(-m // window)
+        gram = {k: v for k, v in per.items()
+                if "hydra::" in k and "gram" in kernel_name(k)}
+        print(f"missing exact W={window}: the Gram "
+              f"{1e3 * sum(v[1] for v in gram.values()) / n_windows:.2f} us a "
+              f"window ({', '.join(sorted(kernel_name(k) for k in gram))}; "
+              f"{sum(v[0] for v in gram.values())} launches a sweep of "
+              f"{n_windows} windows)  [{card}]", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(43)
+    eps = 0.8 * torch.randn(4 * nb, generator=gen, device=dev)
+    eps[n:] = 0.0
+    mave = torch.from_numpy(ds.geno.mave).float().to(dev)
+    mstd = torch.from_numpy(ds.geno.mstd).float().to(dev)
+    calls = 10
+    for W in (64, 128, 256, 1024):
+        rows = torch.randperm(m, generator=gen, device=dev)[:W].to(
+            torch.int32)
+        mw, sw = mave[rows.long()], mstd[rows.long()]
+
+        def gram():
+            return wk.window_stats(pk, eps, mw, sw, True, False, float(n),
+                                   rows)
+
+        gram()
+        per = _profile_retry(torch, lambda: [gram() for _ in range(calls)],
+                             f"missing gram W={W}")
+        got = ("not measured" if per is None else ", ".join(
+            f"{kernel_name(k)} {1e3 * v[1] / calls:.2f} us"
+            for k, v in sorted(per.items())
+            if "hydra::" in k and "gram" in kernel_name(k)))
+        b_ms, b_by = missing_gram_bound(W, nb)
+        print(f"missing gram W={W} N={n}: {got} a window; bound "
+              f"{1e3 * b_ms:.4f} us ({b_by})  [{card}]", flush=True)
+    del ds, pk
 
 
 def phase_mt_kernels(torch, np, card):
@@ -1880,7 +2058,10 @@ def print_library_times(torch, np, card):
       axpy_kernel     torch.addmv(eps, rows^T, c1)
       levels_kernel   torch.mm of the 2W level indicators (g = 1, g = 2)
                       against vi
-    at W=128 (exact) and W=64 (stale; BayesW's levels). window_stats' row
+    at W=128 (exact) and W=64 (stale; BayesW's levels), and on 2% missing
+    calls the missing-data Gram (gram_f32_kernel, through window_stats'
+    exact branch) against torch.mm f32 of the W=128 window's decoded,
+    standardized rows. window_stats' row
     (exact complete W=128: s1 and the standardized Gram) takes torch.mv and
     torch.mm of the standardized rows, two calls. Returns {wrapper:
     {library_ms (CUDA events a call), device_ms, library_device_ms,
@@ -1998,6 +2179,21 @@ def print_library_times(torch, np, card):
                 library_ms=lib_ms, device_ms=kern[1] / 1e3,
                 library_device_ms=lib[0][1] / 1e3,
                 library="torch.mm of the level indicators against vi")
+    # the missing-data Gram beside torch.mm f32 of the window's decoded,
+    # standardized rows (2% missing calls, its own generator)
+    from hydra_tpu_torch.ops.decode import decode_planes_hp
+    gen = torch.Generator(device=dev).manual_seed(39)
+    pk, mave, mstd, _ = device_genotypes(torch, m, n, n_pad, gen, 0.02)
+    W = 128
+    rows = torch.randperm(m, generator=gen, device=dev)[:W].to(torch.int32)
+    mw, sw = mave[rows.long()].contiguous(), mstd[rows.long()].contiguous()
+    g, mk = decode_planes_hp(pk[rows.long()])
+    xs = ((g - mw[:, None] * mk) * sw[:, None]).contiguous()
+    show(f"gram_f32_kernel W={W} exact missing 2%", dev_us(
+        lambda: wk.window_stats(pk, eps, mw, sw, True, False, float(n),
+                                rows), "gram", ["gram"]),
+         [("torch.mm f32 of the standardized rows",
+           dev_us(lambda: torch.mm(xs, xs.t()), "mm")[1])])
     del pk
     return rec
 
@@ -2012,9 +2208,13 @@ def phase_window_kernels(torch, np, card):
     add in the kernels' order, so s1, s2, the complete Gram and the planes
     come out bit for bit, but for a pad row's 3*eps products in complete
     stale data, which the kernel fuses into its multiply-add; the
-    missing-data Gram's f32 sums of N products run in another order, 2.8e-5
-    of the diagonal apart); the recurrence atol 5e-4, rtol 1e-3 and 0
-    component mismatches."""
+    missing-data Gram's kernel, gram_f32_kernel, runs one fused multiply-add
+    chain an entry per 2,048-individual chunk and adds the chunks in order,
+    the plain version a library matmul, so the two agree to f32 rounding;
+    check_missing_gram holds every entry to x x^T in float64 within the
+    forward error bound of that order and G == G^T bit for bit); the
+    recurrence atol 5e-4,
+    rtol 1e-3 and 0 component mismatches."""
     from hydra_tpu_torch.ops import gibbs_kernel as gk
     from hydra_tpu_torch.ops import planes as tpl
     from hydra_tpu_torch.ops import window_kernels as wk
@@ -2051,6 +2251,10 @@ def phase_window_kernels(torch, np, card):
             check_stats_bitwise(torch, f"window_stats W={W} "
                                 f"{'exact' if exact else 'stale'} {data}", pk,
                                 eps, mrow, rows, exact, complete, n, card)
+            if exact and not complete:
+                check_missing_gram(torch, f"window_stats W={W} {data}", pk,
+                                   mave_w, mstd_w, rows,
+                                   wk.window_stats(*args)[2], card)
             if not (exact and complete):
                 continue
             r = rec["window_stats"]
@@ -2649,8 +2853,8 @@ def main() -> int:
          "stale_draw in every block; above STALE_FOLD_MAX_W "
          "stale_draw_kernel, then axpy_kernel)"),
         ("sweep_exact", "sweep_kernel.cu", "hydra_tpu/ops/sweep_kernel.py:567",
-         "stats_kernel, gram_i8_kernel (complete; missing: gram_kernel + "
-         "gram_reduce_kernel), exact_draw_kernel, axpy_kernel"),
+         "stats_kernel, gram_i8_kernel (complete; missing: "
+         "gram_f32_kernel<Tile, G>), exact_draw_kernel, axpy_kernel"),
         ("sweep_stale_sd", "sweep_kernel.cu",
          "hydra_tpu/ops/sweep_kernel.py:255",
          "stats_kernel<true>, axpy_decoded_kernel<MODE, KB> (draws the "
@@ -2685,8 +2889,8 @@ def main() -> int:
         ("window_stats", "sweep_kernel.cu",
          "hydra_tpu/ops/window_kernels.py:180",
          "stats_kernel, window_stats_finish_kernel, gram_i8_kernel + "
-         "gram_standardize_kernel (exact complete; missing: gram_kernel + "
-         "gram_reduce_kernel)"),
+         "gram_standardize_kernel (exact complete; exact missing: "
+         "gram_f32_kernel<Tile, G>)"),
         ("window_gibbs", "sweep_kernel.cu", "hydra_tpu/ops/gibbs_kernel.py:112",
          "window_gibbs_kernel"),
         ("window_stats_planes", "planes_kernel.cu",

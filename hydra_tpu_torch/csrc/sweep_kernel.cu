@@ -35,15 +35,16 @@
 // window's rows to L2 (stats_kernel); the axpy runs a thread per individual
 // over a shared tile of the window's rows, every row's load in flight
 // (axpy_kernel, sweep_kernel.cuh); the complete-data Gram runs on the int8
-// tensor cores in one launch (gram_i8_kernel) and the recurrence
-// warp-synchronously out of shared memory (exact_draw_kernel). A stale
-// window's draw runs inside its axpy (every axpy block draws the window),
-// so it takes 2 launches; an exact one 4 with complete data, 5 with
-// missing. The host's enqueue of these launches is left for a later change.
+// tensor cores in one launch (gram_i8_kernel), the missing-data Gram as
+// fmaf chains over the symmetric half in one launch (gram_f32_kernel), and
+// the recurrence warp-synchronously out of shared memory
+// (exact_draw_kernel). A stale window's draw runs inside its axpy (every
+// axpy block draws the window), so it takes 2 launches; an exact one 4. The
+// host's enqueue of these launches is left for a later change.
 //
-// Determinism: no float atomics (the Gram's are integer, exact in any
-// order). Partial sums land in per-tile scratch and are reduced in a fixed
-// order, so equal inputs give bitwise-equal outputs.
+// Determinism: no float atomics (the complete Gram's are integer, exact in
+// any order). Partial sums land in per-tile or per-chunk scratch and are
+// reduced in a fixed order, so equal inputs give bitwise-equal outputs.
 
 #include <cstdint>
 
@@ -341,16 +342,17 @@ struct Workspace {
     float* part_v;
     float* coef;
     float* gram;
-    float* gram_part;     // the missing-data Gram's per-chunk partials
-    int* gram_acc;        // the complete-data Gram's accumulator and tickets
+    float* gram_part;     // the missing-data Gram's chunk partials
+    int* gram_acc;        // the complete-data Gram's accumulator and tickets;
+                          // missing data: gram_f32_kernel's tickets
     size_t bytes;
 };
 
 // exact sweeps reserve the Gram's scratch of their data only: complete,
-// gram_i8_kernel's accumulator; missing, gram_kernel's partials
+// gram_i8_kernel's accumulator; missing, gram_f32_kernel's partials and
+// tickets
 inline Workspace layout(void* base, int nb, int W, bool exact, bool complete) {
     const size_t n_tiles = cdiv(nb, STATS_TB);
-    const size_t n_chunks = cdiv(nb, GRAM_CB);
     size_t off = 0;
     Workspace ws{};
     char* p = static_cast<char*>(base);
@@ -365,10 +367,12 @@ inline Workspace layout(void* base, int nb, int W, bool exact, bool complete) {
     ws.coef = take(2 * static_cast<size_t>(W) + 1);
     if (exact) {
         ws.gram = take(static_cast<size_t>(W) * W);
-        if (complete)
+        if (complete) {
             ws.gram_acc = reinterpret_cast<int*>(take(gram_i8_acc_ints(W)));
-        else
-            ws.gram_part = take(n_chunks * W * W);
+        } else {
+            ws.gram_part = take(gram_f32_part_floats(W, nb));
+            ws.gram_acc = reinterpret_cast<int*>(take(gram_f32_tiles(W, nb)));
+        }
     }
     ws.bytes = off;
     return ws;
@@ -390,12 +394,9 @@ int run_sweep(bool exact, const uint8_t* pk, float* eps, const float* mrow,
     const Workspace ws = layout(ws_base, nb, W, exact, complete != 0);
     const int n_windows = m_loc / W;
     const int n_tiles = cdiv(nb, STATS_TB);
-    const int n_chunks = cdiv(nb, GRAM_CB);
-    const int nt = cdiv(W, GRAM_TW);
     const int draw_threads = cdiv(W, 32) * 32;
     const int mode = !complete ? MODE_MISSING
                                : (exact ? MODE_EXACT_COMPLETE : MODE_STALE_COMPLETE);
-    const dim3 gram_grid(nt * nt, n_chunks);
     const size_t draw_smem = exact_draw_smem(W);
     auto* const draw = by_components(K, exact_draw_kernel<4, true>,
                                      exact_draw_kernel<8, false>,
@@ -406,9 +407,9 @@ int run_sweep(bool exact, const uint8_t* pk, float* eps, const float* mrow,
     const bool fold = !exact && W <= STALE_FOLD_MAX_W;
     if (exact) {
         HYDRA_CHECK(allow_smem(draw, draw_smem));
-        if (complete)
-            HYDRA_CHECK(cudaMemsetAsync(ws.gram_acc, 0, sizeof(int) * gram_i8_acc_ints(W),
-                                        stream));
+        HYDRA_CHECK(cudaMemsetAsync(
+            ws.gram_acc, 0,
+            sizeof(int) * (complete ? gram_i8_acc_ints(W) : gram_f32_tiles(W, nb)), stream));
     }
     for (int w = 0; w < n_windows; ++w) {
         const int* order_w = order + static_cast<size_t>(w) * W;
@@ -422,17 +423,10 @@ int run_sweep(bool exact, const uint8_t* pk, float* eps, const float* mrow,
             continue;
         }
         if (exact) {
-            if (complete) {
-                err = launch_gram_i8(pk, nb, order_w, W, ws.gram_acc, ws.gram, stream);
-                if (err) return err;
-            } else {
-                gram_kernel<<<gram_grid, dim3(32, 8), 0, stream>>>(
-                    pk, nb, order_w, W, mrow, mrow + 1, C, 1, ws.gram_part);
-                HYDRA_CHECK_LAUNCH();
-                gram_reduce_kernel<<<cdiv(static_cast<long long>(W) * W, 256), 256, 0,
-                                     stream>>>(ws.gram_part, n_chunks, W, ws.gram);
-                HYDRA_CHECK_LAUNCH();
-            }
+            err = complete ? launch_gram_i8(pk, nb, order_w, W, ws.gram_acc, ws.gram, stream)
+                           : launch_gram_f32(pk, nb, order_w, W, mrow, mrow + 1, C, 1,
+                                             ws.gram_part, ws.gram_acc, ws.gram, stream);
+            if (err) return err;
             draw<<<1, draw_threads, draw_smem, stream>>>(
                 mrow, C, K, order_w, W, ws.part_s1, ws.part_s2, ws.part_v, n_tiles,
                 complete, ws.gram, sc, out, ws.coef);
@@ -655,7 +649,7 @@ struct WindowWorkspace {
     float* part_v;
     float* v;
     float* gram_part;
-    int* gram_acc;
+    int* gram_acc;        // gram_i8_kernel's accumulator, or gram_f32_kernel's tickets
     size_t bytes;
 };
 
@@ -674,10 +668,12 @@ inline WindowWorkspace window_layout(void* base, int nb, int W, bool exact,
     ws.part_s2 = take(n_tiles * W);
     ws.part_v = take(n_tiles * W);
     ws.v = take(W);
-    if (exact && complete)
+    if (exact && complete) {
         ws.gram_acc = reinterpret_cast<int*>(take(gram_i8_acc_ints(W)));
-    else if (exact)
-        ws.gram_part = take(static_cast<size_t>(cdiv(nb, GRAM_CB)) * W * W);
+    } else if (exact) {
+        ws.gram_part = take(gram_f32_part_floats(W, nb));
+        ws.gram_acc = reinterpret_cast<int*>(take(gram_f32_tiles(W, nb)));
+    }
     ws.bytes = off;
     return ws;
 }
@@ -700,25 +696,18 @@ int run_window_stats(const uint8_t* pk, const float* eps, const int* rows,
         ws.part_s1, ws.part_s2, ws.part_v, n_tiles, W, mode, s1, s2, ws.v);
     HYDRA_CHECK_LAUNCH();
     if (!exact) return 0;
-    const int ww_blocks = cdiv(static_cast<long long>(W) * W, 256);
-    if (complete) {
-        // the workspace is new each call: one memset a call (a window of the
-        // per-window branch) besides the four kernels
-        HYDRA_CHECK(cudaMemsetAsync(ws.gram_acc, 0, sizeof(int) * gram_i8_acc_ints(W),
-                                    stream));
-        err = launch_gram_i8(pk, nb, rows, W, ws.gram_acc, gram, stream);
-        if (err) return err;
-        gram_standardize_kernel<<<ww_blocks, 256, 0, stream>>>(gram, W, mave, mstd,
-                                                               ws.v, n_real);
-        HYDRA_CHECK_LAUNCH();
-        return 0;
-    }
-    const int n_chunks = cdiv(nb, GRAM_CB);
-    const int nt = cdiv(W, GRAM_TW);
-    gram_kernel<<<dim3(nt * nt, n_chunks), dim3(32, 8), 0, stream>>>(
-        pk, nb, rows, W, mave, mstd, 1, 0, ws.gram_part);
-    HYDRA_CHECK_LAUNCH();
-    gram_reduce_kernel<<<ww_blocks, 256, 0, stream>>>(ws.gram_part, n_chunks, W, gram);
+    // the workspace is new each call: one memset a call (a window of the
+    // per-window branch) besides the kernels
+    HYDRA_CHECK(cudaMemsetAsync(
+        ws.gram_acc, 0,
+        sizeof(int) * (complete ? gram_i8_acc_ints(W) : gram_f32_tiles(W, nb)), stream));
+    if (!complete)
+        return launch_gram_f32(pk, nb, rows, W, mave, mstd, 1, 0, ws.gram_part, ws.gram_acc,
+                               gram, stream);
+    err = launch_gram_i8(pk, nb, rows, W, ws.gram_acc, gram, stream);
+    if (err) return err;
+    gram_standardize_kernel<<<cdiv(static_cast<long long>(W) * W, 256), 256, 0, stream>>>(
+        gram, W, mave, mstd, ws.v, n_real);
     HYDRA_CHECK_LAUNCH();
     return 0;
 }

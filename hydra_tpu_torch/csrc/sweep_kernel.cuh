@@ -404,87 +404,421 @@ inline int launch_gram_i8(const uint8_t* pk, int nb, const int* order_w, int W, 
     return 0;
 }
 
-// ------------------------------------------------------- missing gram --
-// The missing-data window Gram: f32 Gram of x = (g - mave*m) * mstd, with
-// row r's statistics at mave[i * ld], mstd[i * ld], i = order_w[r] when
-// by_slot (the sweeps' mrow columns 0 and 1), else i = r (window_stats'
-// window-ordered vectors). grid (nt * nt, n_chunks), block (32, 8). Block
-// (ti, tj, chunk) computes the 32x32 tile over GRAM_CB packed bytes; thread
-// (tx, ty) owns rows ty + 8q (q < 4) of column tx. Partials:
-// part[chunk * W * W + i * W + j], summed by gram_reduce_kernel.
-constexpr int GRAM_TW = 32;        // Gram tile edge
-constexpr int GRAM_CB = 512;       // packed bytes per Gram chunk (partial)
-constexpr int GRAM_SB = 32;        // packed bytes per shared-memory step
+// ------------------------------------------------------------- cp.async --
+// One 4-byte asynchronous copy from global to shared memory (cp.async,
+// sm_80+). No register holds the value in flight, so a warp keeps a whole
+// tile's loads in flight at once.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                     static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+                 "l"(src)
+                 : "memory");
+}
 
-__global__ void gram_kernel(const uint8_t* __restrict__ pk, int nb,
-                            const int* __restrict__ order_w, int W,
-                            const float* __restrict__ mave,
-                            const float* __restrict__ mstd, int ld, int by_slot,
-                            float* __restrict__ part) {
-    const int nt = (W + GRAM_TW - 1) / GRAM_TW;
-    const int ti = blockIdx.x / nt, tj = blockIdx.x % nt;
-    const int b0 = blockIdx.y * GRAM_CB;
-    const int b1 = min(b0 + GRAM_CB, nb);
-    const int tx = threadIdx.x, ty = threadIdx.y;
-    const int tid = ty * 32 + tx;
-    const size_t ww = static_cast<size_t>(W) * W;
-    constexpr int SI = GRAM_SB * 4;   // individuals per step
-    __shared__ float Af[GRAM_TW][SI + 1];
-    __shared__ float Bf[GRAM_TW][SI + 1];
-    float acc[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int sb = b0; sb < b1; sb += GRAM_SB) {
-        for (int i = tid; i < GRAM_TW * GRAM_SB; i += 256) {
-            const int rr = i / GRAM_SB, bb = i % GRAM_SB;
-            const bool inb = sb + bb < b1;
+// One 8-byte asynchronous copy (both 8-byte aligned), cached in L1 and L2.
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(
+                     static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+                 "l"(src)
+                 : "memory");
+}
+
+// One 16-byte asynchronous copy from global to shared memory (both 16-byte
+// aligned), cached in L2 only.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                     static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+                 "l"(src)
+                 : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// closes this thread's group of copies issued since the last commit
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// waits until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ------------------------------------------------------- missing gram --
+// The missing-data window Gram of the exact sweep (hydra_sweep_exact) and
+// window_stats (hydra_window_stats): G = x x^T in f32 (W, W), x = (g -
+// mave*m) * mstd, with window row r's statistics at mave[i * ld] and
+// mstd[i * ld], i = order_w[r] when by_slot (the sweep's mrow columns 0 and
+// 1), else i = r (window_stats' window-ordered vectors). Serves
+// _sweep_exact_kernel's Gram (hydra_tpu/ops/sweep_kernel.py:399-402) and
+// window_stats (hydra_tpu/ops/window_kernels.py:180) on missing genotypes.
+//
+// The sums are fixed: per GRAM_CB-byte chunk (2,048 individuals) entry
+// (i, j) is one fmaf chain from 0.f over the chunk's individuals in
+// ascending order, and the chunks' partials are added in chunk order from
+// 0.f. fmaf(x_i, x_j, a) == fmaf(x_j, x_i, a), so G is symmetric bit for
+// bit, and no choice of tiles changes a bit.
+//
+// Bound: operations, W (W + 1) / 2 * n_pad f32 multiply-adds for the
+// symmetric half (12.4 us at W=128, N=50,000 at 67 TFLOP/s; the W * nb
+// packed bytes take 0.5 us). Tensor cores run no fmaf chain, so every
+// multiply-add is an FFMA whose two operands come from shared memory,
+// which hands an SM 32 floats a clock against its 128 FFMA lanes: a
+// thread's TR x TC chains use each loaded operand TC or TR times, so 4 x 4
+// chains run at most at half the FFMA peak, and the window's W (W + 1) / 2
+// * n_chunks chains (206,400 at W=128) leave about one multiplying warp a
+// scheduler, so latency is not hidden by other warps. The design:
+//  - one launch a window: grid (the tiles ti <= tj of T rows, chunks / G),
+//    G groups a block, one chunk each; a group's multiplying threads own
+//    TR x TC entries of its tile each (GramTile) and run their chains side
+//    by side, a shared float4 load feeding 4 TC or 4 TR multiply-adds; the
+//    block's multiplying warps come first, on distinct schedulers;
+//  - decode once, off the multiplying warps: each group's decoding warp
+//    copies a 16-byte stage (64 individuals) of the tile's packed rows by
+//    cp.async GRAM_F32_RING - 1 stages ahead and turns each crumb into one
+//    of its row's four x values (gram_x, the plain version's arithmetic,
+//    once a block) in a double-buffered f32 stage, handed over by named
+//    barriers (full / empty a buffer), so it decodes stage s + 1 while
+//    stage s is multiplied; a diagonal tile decodes its T rows once for
+//    both sides;
+//  - the chunk order in the same launch: each group writes its partial
+//    tile, and the last block of a tile (an atomic ticket) adds the
+//    partials in chunk order, all its threads, and writes both triangles of
+//    G, then re-zeroes its ticket; with one chunk the group writes G itself.
+// The tile (gram_f32_edge) trades operand reuse against blocks on the card:
+// GramWide where a launch still has GRAM_F32_BLOCKS groups, else
+// GramNarrow (W <= 64 at N=50,000).
+constexpr int GRAM_CB = 512;            // packed bytes a chunk (one fmaf chain)
+constexpr int GRAM_F32_SB = 16;         // packed bytes a row and stage
+constexpr int GRAM_F32_LD = 4 * GRAM_F32_SB + 4;   // f32 row stride: 4 banks apart
+constexpr int GRAM_F32_RING = 4;        // packed stages in shared memory
+constexpr int GRAM_F32_BATCH = 32;      // chunk partials a thread loads at once
+constexpr int GRAM_F32_BLOCKS = 200;    // the least groups a launch on GramWide
+
+// x of crumb c on a row with statistics (av, sd), as the plain version
+__device__ __forceinline__ float gram_x(int c, float av, float sd) {
+    const float m = static_cast<float>(crumb_mask(c));
+    const float g = static_cast<float>(crumb_geno(c));
+    return (g - av * m) * sd;
+}
+
+// component c (0..3) of l
+__device__ __forceinline__ float pick4(const float4& l, uint32_t c) {
+    const float lo = (c & 1u) ? l.y : l.x;
+    const float hi = (c & 1u) ? l.w : l.z;
+    return (c & 2u) ? hi : lo;
+}
+
+__device__ __forceinline__ float lane4(const float4& v, int k) {
+    return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
+}
+
+// A tile shape of gram_f32_kernel: T x T entries; NC multiplying threads,
+// thread (ty, tx) < (RS, CS) owning the TR x TC entries (ty + RS a, tx +
+// CS b); a quarter warp (8 threads, one ty) reads one A row and eight B
+// rows, in distinct banks; the group's decoding warp beside them
+template <int T_, int TR_, int TC_>
+struct GramTile {
+    static constexpr int T = T_, TR = TR_, TC = TC_;
+    static constexpr int RS = T / TR, CS = T / TC;
+    static constexpr int NC = RS * CS;
+    static constexpr int GROUP = NC + 32;
+    static_assert(CS == 8 && NC % 32 == 0, "a quarter warp covers the B side");
+};
+using GramWide = GramTile<32, 4, 4>;      // two multiplying warps, 16 chains a thread
+using GramNarrow = GramTile<16, 2, 2>;    // two multiplying warps, 4 chains a thread
+
+// dynamic shared memory of one group of gram_f32_kernel on tiles of T
+// rows: two f32 stages of 2T rows, the packed ring (GRAM_F32_SB / 8 8-byte
+// units a row and stage), a row's four x values
+template <int T>
+__host__ __device__ constexpr size_t gram_f32_group_smem() {
+    return sizeof(float) * 2 * (2 * T) * GRAM_F32_LD +
+           8 * GRAM_F32_RING * (GRAM_F32_SB / 8) * (2 * T) + sizeof(float4) * (2 * T);
+}
+
+// named barrier id of n threads: wait for them all, or arrive and go on
+__device__ __forceinline__ void bar_sync(int id, int n) {
+    asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+    asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// One group's chains of tile (ti, tj) over the chunk at packed byte b0:
+// thread tid < Tile::NC of group grp returns in acc[a][b] the chunk's sum
+// of its entry (a, b), in gram_f32_kernel's order; the group's decoding
+// warp (tid >= NC) copies and decodes the stages. smem: the group's
+// gram_f32_group_smem<T>() bytes.
+template <class Tile>
+__device__ __forceinline__ void gram_f32_chunk(
+    float (&acc)[Tile::TR][Tile::TC], unsigned char* smem, int grp, int tid, int ti, int tj,
+    const uint8_t* __restrict__ pk, int nb, int b0, const int* __restrict__ order_w, int W,
+    const float* __restrict__ mave, const float* __restrict__ mstd, int ld, int by_slot) {
+    constexpr int T = Tile::T;
+    constexpr int R = 2 * T;                         // rows a stage, both sides
+    constexpr int UPR = GRAM_F32_SB / 8;             // 8-byte units a row and stage
+    constexpr int NU = UPR * R / 32;                 // units a decoding lane at most
+    constexpr int XS = R * GRAM_F32_LD;              // floats an f32 stage
+    float* xs = reinterpret_cast<float*>(smem);                       // [2][R][LD]
+    uint2* ring = reinterpret_cast<uint2*>(xs + 2 * XS);              // [RING][UPR R]
+    float4* lut = reinterpret_cast<float4*>(ring + GRAM_F32_RING * UPR * R);  // [R]
+    const bool diag = ti == tj;
+    const int rows = diag ? T : R;                   // a diagonal tile: one side
+    const int n_st = (min(b0 + GRAM_CB, nb) - b0) / GRAM_F32_SB;
+    const bool decoder = tid >= Tile::NC;
+    const int dl = tid - Tile::NC;                   // the decoding lane
+
+    // decoding lane dl's unit u = dl + 32 q < UPR rows: bytes 8 (u / rows)
+    // .. +8 of a stage of row u % rows (the tile's rows ti T.., then tj T..;
+    // a quarter warp's stores of decoded rows fall in distinct banks); rows
+    // past W decode to x = 0
+    const uint8_t* src[NU];
 #pragma unroll
-            for (int side = 0; side < 2; ++side) {
-                const int ra = (side == 0 ? ti : tj) * GRAM_TW + rr;
-                float x[4] = {0.f, 0.f, 0.f, 0.f};
-                if (ra < W && inb) {
-                    const int slot = order_w[ra];
-                    const size_t si = static_cast<size_t>(by_slot ? slot : ra) * ld;
-                    const float av = mave[si];
-                    const float sd = mstd[si];
-                    const uint32_t byte = pk[static_cast<size_t>(slot) * nb + sb + bb];
+    for (int q = 0; q < NU; ++q) {
+        const int u = dl + 32 * q;
+        const int lr = u % rows;
+        const int r = lr < T ? ti * T + lr : tj * T + lr - T;
+        src[q] = nullptr;
+        if (!decoder || u >= UPR * rows) continue;
+        float4 l = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (r < W) {
+            const int slot = order_w[r];
+            src[q] = pk + static_cast<size_t>(slot) * nb + b0 + 8 * (u / rows);
+            const size_t si = static_cast<size_t>(by_slot ? slot : r) * ld;
+            const float av = mave[si], sd = mstd[si];
+            l = make_float4(gram_x(0, av, sd), gram_x(1, av, sd), gram_x(2, av, sd),
+                            gram_x(3, av, sd));
+        }
+        if (u < rows) lut[lr] = l;
+    }
+    auto issue = [&](int s) {          // stage s into ring slot s % RING
+        if (s < n_st) {
 #pragma unroll
-                    for (int k = 0; k < 4; ++k) {
-                        const int c = crumb(byte, k);
-                        const float m = static_cast<float>(crumb_mask(c));
-                        const float g = static_cast<float>(crumb_geno(c));
-                        x[k] = (g - av * m) * sd;
-                    }
-                }
-                float (*dst)[SI + 1] = side == 0 ? Af : Bf;
+            for (int q = 0; q < NU; ++q)
+                if (src[q])
+                    cp_async8(ring + (s % GRAM_F32_RING) * UPR * R + dl + 32 * q,
+                              src[q] + s * GRAM_F32_SB);
+        }
+        cp_async_commit();
+    };
+    auto decode = [&](int s) {         // this lane's units of stage s -> xs[s & 1]
+        cp_async_wait<GRAM_F32_RING - 1>();
 #pragma unroll
-                for (int k = 0; k < 4; ++k) dst[rr][4 * bb + k] = x[k];
+        for (int q = 0; q < NU; ++q) {
+            const int u = dl + 32 * q;
+            if (u >= UPR * rows) continue;
+            const int lr = u % rows;
+            const uint2 w = ring[(s % GRAM_F32_RING) * UPR * R + u];
+            const float4 l = lut[lr];
+            float* row = xs + (s & 1) * XS + lr * GRAM_F32_LD + 32 * (u / rows);
+#pragma unroll
+            for (int bi = 0; bi < 8; ++bi) {
+                const uint32_t byte = ((bi < 4 ? w.x : w.y) >> (8 * (bi & 3))) & 0xffu;
+                *reinterpret_cast<float4*>(row + 4 * bi) =
+                    make_float4(pick4(l, byte & 3u), pick4(l, (byte >> 2) & 3u),
+                                pick4(l, (byte >> 4) & 3u), pick4(l, byte >> 6));
             }
         }
-        __syncthreads();
-#pragma unroll 8
-        for (int kk = 0; kk < SI; ++kk) {
-            const float bv = Bf[tx][kk];
-#pragma unroll
-            for (int q = 0; q < 4; ++q) acc[q] = fmaf(Af[ty + 8 * q][kk], bv, acc[q]);
+    };
+
+    // stage s goes through buffer s & 1: the decoding warp fills it and
+    // arrives on its full barrier, the multiplying warps wait there, use it
+    // and arrive on its empty barrier, which the decoding warp waits on
+    // before it fills the buffer again two stages later
+    const int full = 1 + 4 * grp, empty = full + 2;
+    if (decoder) {
+        for (int s = 0; s < GRAM_F32_RING - 1; ++s) issue(s);
+        __syncwarp();                                // lut
+        for (int s = 0; s < n_st; ++s) {
+            if (s >= 2) bar_sync(empty + (s & 1), Tile::GROUP);
+            issue(s + GRAM_F32_RING - 1);
+            decode(s);
+            __threadfence_block();
+            bar_arrive(full + (s & 1), Tile::GROUP);
         }
-        __syncthreads();
+        return;
     }
-    float* out = part + blockIdx.y * ww;
+    const int ty = tid / Tile::CS, tx = tid % Tile::CS;
+    const int bside = diag ? 0 : T;                  // the B rows' first stage row
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-        const int i = ti * GRAM_TW + ty + 8 * q, j = tj * GRAM_TW + tx;
-        if (i < W && j < W) out[static_cast<size_t>(i) * W + j] = acc[q];
+    for (int a = 0; a < Tile::TR; ++a)
+#pragma unroll
+        for (int b = 0; b < Tile::TC; ++b) acc[a][b] = 0.f;
+    for (int s = 0; s < n_st; ++s) {
+        bar_sync(full + (s & 1), Tile::GROUP);
+        const float* xa = xs + (s & 1) * XS + ty * GRAM_F32_LD;
+        const float* xb = xs + (s & 1) * XS + (bside + tx) * GRAM_F32_LD;
+#pragma unroll
+        for (int k = 0; k < 4 * GRAM_F32_SB; k += 4) {       // four individuals a step
+            // the B side first: a[0]'s chains can start as a[0] lands
+            float4 a[Tile::TR], b[Tile::TC];
+#pragma unroll
+            for (int j = 0; j < Tile::TC; ++j)
+                b[j] = *reinterpret_cast<const float4*>(xb + Tile::CS * j * GRAM_F32_LD + k);
+#pragma unroll
+            for (int i = 0; i < Tile::TR; ++i)
+                a[i] = *reinterpret_cast<const float4*>(xa + Tile::RS * i * GRAM_F32_LD + k);
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+                for (int i = 0; i < Tile::TR; ++i)
+#pragma unroll
+                    for (int j = 0; j < Tile::TC; ++j)
+                        acc[i][j] = fmaf(lane4(a[i], kk), lane4(b[j], kk), acc[i][j]);
+        }
+        if (s + 2 < n_st) bar_arrive(empty + (s & 1), Tile::GROUP);
     }
 }
 
-// Fixed-order sum of the missing-data Gram partials over chunks -> G (W, W).
-__global__ void gram_reduce_kernel(const float* __restrict__ part, int n_chunks,
-                                   int W, float* __restrict__ G) {
-    const size_t ww = static_cast<size_t>(W) * W;
-    const size_t e = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-    if (e >= ww) return;
-    float s = 0.f;
-    for (int c = 0; c < n_chunks; ++c) s += part[c * ww + e];
-    G[e] = s;
+// grid (nt (nt + 1) / 2, ceil(n_chunks / G)), G * Tile::GROUP threads,
+// G * gram_f32_group_smem<T>() bytes. Group g of block (tile, y) runs chunk
+// G y + g and writes its partial tile to part[(tile * n_chunks + chunk) *
+// T * T + li * T + lj]; tickets[tile] counts the chunks done, and the last
+// block of a tile adds them, all its threads. The multiplying warps come
+// first (group g's are warps g NC / 32 ..), then the G decoding warps, so
+// the multiplying warps fall on distinct schedulers of the SM.
+template <class Tile, int G>
+__global__ void __launch_bounds__(G * Tile::GROUP)
+gram_f32_kernel(const uint8_t* __restrict__ pk, int nb, int n_chunks,
+                const int* __restrict__ order_w, int W, const float* __restrict__ mave,
+                const float* __restrict__ mstd, int ld, int by_slot,
+                float* __restrict__ part, int* __restrict__ tickets,
+                float* __restrict__ G_out) {
+    static_assert(4 * G <= 15, "named barriers 1 .. 4G");
+    constexpr int T = Tile::T;
+    constexpr int NCW = Tile::NC / 32;               // multiplying warps a group
+    constexpr size_t TT = static_cast<size_t>(T) * T;
+    extern __shared__ __align__(16) unsigned char gram_smem[];
+    __shared__ int s_last;
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    const int grp = warp < G * NCW ? warp / NCW : warp - G * NCW;
+    const int tid = warp < G * NCW ? 32 * (warp % NCW) + lane : Tile::NC + lane;
+    const int chunk = blockIdx.y * G + grp;
+    const int n_live = min(G, n_chunks - static_cast<int>(blockIdx.y) * G);
+    const int nt = (W + T - 1) / T;
+    int ti = 0, rest = blockIdx.x;
+    while (rest >= nt - ti) rest -= nt - ti++;
+    const int tj = ti + rest;
+    const bool diag = ti == tj;
+    float acc[Tile::TR][Tile::TC];
+    if (grp < n_live)                                // the last block: maybe a spare group
+        gram_f32_chunk<Tile>(acc, gram_smem + grp * gram_f32_group_smem<T>(), grp, tid, ti,
+                             tj, pk, nb, chunk * GRAM_CB, order_w, W, mave, mstd, ld,
+                             by_slot);
+
+    // G[i, j] and G[j, i] of tile entry (li, lj) (a diagonal tile: li <= lj)
+    auto put = [&](int li, int lj, float v) {
+        const int i = ti * T + li, j = tj * T + lj;
+        if (i < W && j < W && (!diag || li <= lj)) {
+            G_out[static_cast<size_t>(i) * W + j] = v;
+            G_out[static_cast<size_t>(j) * W + i] = v;
+        }
+    };
+    const bool owner = grp < n_live && tid < Tile::NC;   // holds acc
+    const int ty = tid / Tile::CS, tx = tid % Tile::CS;
+    if (n_chunks == 1) {
+        if (owner) {
+#pragma unroll
+            for (int i = 0; i < Tile::TR; ++i)
+#pragma unroll
+                for (int j = 0; j < Tile::TC; ++j)
+                    put(ty + Tile::RS * i, tx + Tile::CS * j, __fadd_rn(0.f, acc[i][j]));
+        }
+        return;
+    }
+    if (owner) {
+        float* mine = part + (static_cast<size_t>(blockIdx.x) * n_chunks + chunk) * TT;
+#pragma unroll
+        for (int i = 0; i < Tile::TR; ++i)
+#pragma unroll
+            for (int j = 0; j < Tile::TC; ++j)
+                mine[(ty + Tile::RS * i) * T + tx + Tile::CS * j] = acc[i][j];
+    }
+    __threadfence();
+    __syncthreads();
+    if (threadIdx.x == 0)
+        s_last = atomicAdd(tickets + blockIdx.x, n_live) + n_live == n_chunks;
+    __syncthreads();
+    if (!s_last) return;
+    __threadfence();
+    // every chunk's partial is in: the sums from 0.f in chunk order, a
+    // batch of chunks' loads in flight at once, from L2
+    const float4* tile = reinterpret_cast<const float4*>(
+        part + static_cast<size_t>(blockIdx.x) * n_chunks * TT);
+    for (int e4 = threadIdx.x; e4 < static_cast<int>(TT / 4); e4 += blockDim.x) {
+        float sum[4] = {0.f, 0.f, 0.f, 0.f};
+        for (int c0 = 0; c0 < n_chunks; c0 += GRAM_F32_BATCH) {
+            float4 v[GRAM_F32_BATCH];
+#pragma unroll
+            for (int c = 0; c < GRAM_F32_BATCH; ++c)
+                v[c] = c0 + c < n_chunks ? __ldcg(tile + (c0 + c) * (TT / 4) + e4)
+                                         : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+            for (int c = 0; c < GRAM_F32_BATCH; ++c) {
+                if (c0 + c < n_chunks) {
+#pragma unroll
+                    for (int k = 0; k < 4; ++k) sum[k] += lane4(v[c], k);
+                }
+            }
+        }
+#pragma unroll
+        for (int k = 0; k < 4; ++k) put((4 * e4 + k) / T, (4 * e4 + k) % T, sum[k]);
+    }
+    if (threadIdx.x == 0) tickets[blockIdx.x] = 0;
+}
+
+// The tile edge of a window's missing-data Gram: GramWide's 32 where the
+// launch still has GRAM_F32_BLOCKS groups, else GramNarrow's 16
+inline int gram_f32_edge(int W, int nb) {
+    const long long nt = cdiv(W, GramWide::T);
+    return nt * (nt + 1) / 2 * cdiv(nb, GRAM_CB) >= GRAM_F32_BLOCKS ? GramWide::T
+                                                                     : GramNarrow::T;
+}
+
+// the upper tiles of a window's missing-data Gram: its tickets
+inline size_t gram_f32_tiles(int W, int nb) {
+    const size_t nt = cdiv(W, gram_f32_edge(W, nb));
+    return nt * (nt + 1) / 2;
+}
+
+// floats of the chunk partials a window's missing-data Gram writes
+inline size_t gram_f32_part_floats(int W, int nb) {
+    const size_t T = gram_f32_edge(W, nb);
+    return gram_f32_tiles(W, nb) * cdiv(nb, GRAM_CB) * T * T;
+}
+
+template <class Tile, int G>
+inline int launch_gram_f32_tile(const uint8_t* pk, int nb, const int* order_w, int W,
+                                const float* mave, const float* mstd, int ld, int by_slot,
+                                float* part, int* tickets, float* G_out,
+                                cudaStream_t stream) {
+    const int nt = cdiv(W, Tile::T);
+    const int n_chunks = cdiv(nb, GRAM_CB);
+    constexpr size_t smem = G * gram_f32_group_smem<Tile::T>();
+    HYDRA_CHECK(allow_smem(gram_f32_kernel<Tile, G>, smem));
+    gram_f32_kernel<Tile, G><<<dim3(nt * (nt + 1) / 2, cdiv(n_chunks, G)), G * Tile::GROUP,
+                               smem, stream>>>(pk, nb, n_chunks, order_w, W, mave, mstd, ld,
+                                               by_slot, part, tickets, G_out);
+    HYDRA_CHECK_LAUNCH();
+    return 0;
+}
+
+// One window's missing-data Gram into G (W, W) f32. tickets
+// (gram_f32_tiles ints) must be zero; they are zero again when the launch
+// ends. part holds gram_f32_part_floats.
+inline int launch_gram_f32(const uint8_t* pk, int nb, const int* order_w, int W,
+                           const float* mave, const float* mstd, int ld, int by_slot,
+                           float* part, int* tickets, float* G, cudaStream_t stream) {
+    return gram_f32_edge(W, nb) == GramWide::T
+               ? launch_gram_f32_tile<GramWide, 2>(pk, nb, order_w, W, mave, mstd, ld,
+                                                   by_slot, part, tickets, G, stream)
+               : launch_gram_f32_tile<GramNarrow, 1>(pk, nb, order_w, W, mave, mstd, ld,
+                                                     by_slot, part, tickets, G, stream);
 }
 
 // ----------------------------------------------------------- stale draw --
@@ -1040,29 +1374,6 @@ __device__ __forceinline__ float std_gram(float g, int complete, float mave, flo
                                           float v, float mj, float sj, float vj,
                                           float n_real) {
     return complete ? (mstd * sj) * (g - mave * vj - v * mj + n_real * (mave * mj)) : g;
-}
-
-// One 4-byte asynchronous copy from global to shared memory (cp.async,
-// sm_80+). No register holds the value in flight, so a warp keeps a whole
-// tile's loads in flight at once.
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-                     static_cast<unsigned>(__cvta_generic_to_shared(dst))),
-                 "l"(src)
-                 : "memory");
-}
-
-// One 16-byte asynchronous copy from global to shared memory (both 16-byte
-// aligned), cached in L2 only.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                     static_cast<unsigned>(__cvta_generic_to_shared(dst))),
-                 "l"(src)
-                 : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-    asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 // Runs the schedule above in a block of cdiv(W, 32) * 32 threads: thread r

@@ -44,10 +44,13 @@ The plain versions add in the kernels' order: the stats and level sums per
 warp's xor butterfly and the tiles in order; the axpy row by row; the
 complete-data Gram is exact integers standardized with one rounding per
 operation. On the card the plain version and the kernel then agree bit for
-bit, but for the missing-data Gram (the kernel's fused multiply-adds run
-over 2,048-individual chunks) and a pad row's h = 3 products in complete
-stale data (3*eps rounds in the plain version, not in the kernel's fused
-multiply-add; pad rows have mstd = 0).
+bit, but for the missing-data Gram and a pad row's h = 3 products in
+complete stale data (3*eps rounds in the plain version, not in the kernel's
+fused multiply-add; pad rows have mstd = 0). The missing-data Gram's kernel
+(gram_f32_kernel) runs one fused multiply-add chain an entry per
+2,048-individual chunk, individuals in order, and adds the chunks in order;
+the plain version's ``x @ x.T`` is a library matmul, so the two agree to
+f32 rounding (about 3e-5 of the diagonal), not bit for bit.
 """
 
 from __future__ import annotations

@@ -16,7 +16,10 @@ alone (T 1/4/16, W 64/128, complete and missing), this tree's
 ``chip_smoke.print_stale_fold_times`` the stale sweeps' kernels a window
 (single-trait W 1..1024, multi-trait T 1/4/16 x W 64..1024) and this
 tree's ``chip_smoke.print_library_times`` the single-trait packed passes
-beside their library calls, on the same calls.
+and the missing-data Gram beside their library calls, on the same calls,
+and this tree's ``chip_smoke.print_missing_exact_times`` BayesRRm exact
+W=128 and W=64 on 2% missing genotypes at M=100,000 x N=50,000 and the
+missing-data Gram alone a window (W 64, 128, 256, 1024).
 
 Compare two versions inside one call, in turns, e.g. a ``git archive`` of
 the parent unpacked into a git-ignored directory beside this tree:
@@ -28,8 +31,9 @@ git-ignored); a summary line per configuration (ms/sweep, CUDA-event
 ms/sweep, device ms and busy share, host enqueue, device kernels a sweep,
 and the stats, axpy (BayesRRm's, single-decode and multi-trait), stale
 draw, exact recurrence and BayesW levels and draw kernels' device us per
-window), the multi-trait passes' device us per call, the stale fold and
-library lines and the digests are printed at the end.
+window, and the Gram's), the multi-trait passes' device us per call, the
+stale fold, library and missing-data Gram lines and the digests are
+printed at the end.
 """
 
 from __future__ import annotations
@@ -59,6 +63,7 @@ d.print_digests(torch, np)
 d.print_mt_pass_times(torch, np, card)
 d.print_stale_fold_times(torch, np, card)
 d.print_library_times(torch, np, card)
+d.print_missing_exact_times(torch, np, card)
 c.phase_real_size(torch, np, sk, card)
 c.phase_sd_real_size(torch, np, sk, card)
 c.phase_bw_real_size(torch, np, card)
@@ -96,7 +101,8 @@ SWEEP = re.compile(r"\((\d+) device kernels in the profile.*host enqueue ([\d.]+
                    r"profiler device time ([\d.]+) ms \(([\d.]+)% busy")
 KERNEL = re.compile(r"([\d.]+) us/window\s+(?:void )?hydra::(stats|axpy|stats_mt|axpy_mt|"
                     r"axpy_decoded|stale_draw|stale_draw_mt|exact_draw|exact_mt_draw|"
-                    r"window_recurrence_mt|levels|bw_draw)_kernel(<[^>]*>)?\(")
+                    r"window_recurrence_mt|levels|bw_draw|gram|gram_reduce|"
+                    r"gram_f32|gram_i8)_kernel(<[^(]*>)?\(")
 FOLD = re.compile(r"^stale fold (.*?): (.*) a window; draw \+ axpy ([\d.]+) us; "
                   r"(\d+) launches")
 DIGEST = re.compile(r"^digest (.*): sha256 ([0-9a-f]{64})")
@@ -119,7 +125,7 @@ def summary(path):
                              f"({m.group(5)}%) enqueue {m.group(2)} "
                              f"kernels {m.group(1)}")
                 continue
-            if ln.startswith("library "):
+            if ln.startswith(("library ", "missing gram ", "missing exact ")):
                 rows.append("  " + ln.split("  [")[0].strip())
                 continue
             m = FOLD.search(ln)

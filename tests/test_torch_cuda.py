@@ -776,16 +776,17 @@ def test_cuda_fh_and_sd_sweep_matches_cpu(kind, monkeypatch):
     np.testing.assert_array_equal(sb.cass.cpu().numpy(), sa.cass.numpy())
 
 
-def _card_inputs(m, nb, missing, seed, dev, n_pad_markers=3, k=K):
+def _card_inputs(m, nb, missing, seed, dev, n_pad_markers=3, k=K, n=None):
     """``make_inputs`` made on the card (numpy is too slow for 2,048 rows
     of 50,176 individuals a case): h crumbs 0..2, 5% missing when
-    ``missing``, the last 37 individuals padding, up to ``n_pad_markers``
+    ``missing``, the individuals from n (default: the last 37) padding,
+    up to ``n_pad_markers``
     pad markers (a quarter of the rows at most; all missing, mave = mstd =
     bold = act = 0), mave and mstd the markers' own (BayesRRm.cpp:
     1502-1508), so the draws stay finite at any width; mrow rows of k
     mixture components. Returns (pk, eps, mask, mrow, n, pads)."""
     g = torch.Generator(device=dev).manual_seed(seed)
-    n = 4 * nb - 37
+    n = 4 * nb - 37 if n is None else n
     h = torch.randint(0, 3, (m, 4 * nb), generator=g, device=dev,
                       dtype=torch.uint8)
     if missing:
@@ -1428,3 +1429,100 @@ def test_cuda_stale_fold_matches_plain(path, window, n_mix, n_traits,
     torch.testing.assert_close(e_k, e_r, atol=5e-4, rtol=1e-3)
     torch.testing.assert_close(o_k[:, beta], o_r[:, beta], atol=5e-4,
                                rtol=1e-3)
+
+
+def _port_launches(fn):
+    """{port kernel name: launches} of one call of fn, from torch.profiler's
+    device activities (a session that comes back empty is taken again)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        out = {}
+        for e in prof.key_averages():
+            if ("hydra::" in e.key
+                    and getattr(e, "device_type", None) == DeviceType.CUDA):
+                name = e.key.split("hydra::", 1)[1].split("<", 1)[0]
+                name = name.split("(", 1)[0]
+                out[name] = out.get(name, 0) + e.count
+        if out:
+            return out
+    pytest.fail("the profiler saw no kernel of the port")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2048, 2049, 5000])
+@pytest.mark.parametrize("window", [1, 20, 32, 33, 64, 128, 256, 1024])
+@pytest.mark.parametrize("path", ["window_stats", "sweep_exact"])
+def test_cuda_missing_gram(path, window, n):
+    """The missing-data Gram (gram_f32_kernel: one launch a window over the
+    symmetric half, its 2,048-individual chunks added in order by the last
+    block of each tile) through both callers, at N = 2,048, 2,049 and
+    5,000 (1, 2 and 3 chunks), with pad individuals and, from W = 20, pad
+    rows (all missing, mave = mstd = 0; window_stats' window holds one):
+    each entry of each window's Gram within the forward error bound of its
+    summation order of x x^T in float64 on the same f32 x (the 2.8e-5 of
+    the diagonal seen at N=50,000 is exceeded at N=2,048 by the parent's
+    kernels too, bit for bit the same), G == G^T bit for bit, two
+    calls bit for bit equal, and the profile one gram_f32_kernel launch a
+    window, no gram_reduce_kernel. The sweep reads its rows' statistics by
+    slot from mrow; window_stats on the same window's rows gives its Gram,
+    and the sweep's eps is bit for bit the plain axpy replayed from its own
+    draws."""
+    from hydra_tpu_torch.ops.decode import decode_planes_hp
+    dev = _card()
+    nb = -(-n // 512) * 128
+    m = 2 * window
+    pk, eps, _, mrow, _, pads = _card_inputs(m, nb, True, 3 + window, dev,
+                                             n_pad_markers=2, n=n)
+    gen = torch.Generator(device=dev).manual_seed(window)
+    if path == "window_stats":
+        rest = torch.randperm(m, generator=gen, device=dev)
+        if pads.numel():
+            rest = torch.cat([pads[:1], rest[rest != pads[0]]])
+        windows = [rest[:window].to(torch.int32)]
+    else:
+        order = tsk.block_order(torch.randperm(2, generator=gen, device=dev),
+                                window)
+        windows = [order[:window], order[window:]]
+
+    def gram(rows):
+        b = mrow[rows.long()]
+        return twk.window_stats(pk, eps, b[:, 0].contiguous(),
+                                b[:, 1].contiguous(), True, False, float(n),
+                                rows.contiguous())[2]
+
+    for rows in windows:
+        g1, g2 = gram(rows), gram(rows)
+        b = mrow[rows.long()]
+        g, mk = decode_planes_hp(pk[rows.long()])
+        x = ((g - b[:, :1] * mk) * b[:, 1:2]).double()
+        torch.cuda.synchronize()
+        assert torch.equal(g1, g2)
+        assert torch.equal(g1, g1.T)
+        # the forward error bound of the kernel's order: one chain of at
+        # most 2,048 fmaf a chunk, then the chunks in order
+        bound = (2048 + -(-nb // 512)) * 2.0 ** -24 * (x.abs() @ x.abs().T)
+        assert bool(((g1.double() - x @ x.T).abs() <= 1.01 * bound).all())
+    if path == "window_stats":
+        names = _port_launches(lambda: gram(windows[0]))
+        assert names.get("gram_f32_kernel") == 1
+        assert "gram_reduce_kernel" not in names and "gram_kernel" not in names
+        return
+    kw = dict(window=window, n_mix=K, complete=False, order=order)
+    e_k, o_k = tsk.sweep_exact(pk, eps, mrow, 0.7, float(n - 1), **kw)
+    e_k2, o_k2 = tsk.sweep_exact(pk, eps, mrow, 0.7, float(n - 1), **kw)
+    e_r = twk.sweep_update_ref(pk, eps, mrow, o_k[:, 3], order, window,
+                               "missing")
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(e_k).all()) and bool(torch.isfinite(o_k).all())
+    assert torch.equal(e_k, e_k2) and torch.equal(o_k, o_k2)
+    assert torch.equal(e_k, e_r)
+    names = _port_launches(lambda: tsk.sweep_exact(
+        pk, eps, mrow, 0.7, float(n - 1), **kw))
+    assert names.get("gram_f32_kernel") == 2
+    assert "gram_reduce_kernel" not in names and "gram_kernel" not in names
+    assert sum(names.values()) == 4 * 2
