@@ -14,10 +14,13 @@ Phases, each printing its wall time:
      and missing genotypes, block window permutation; exact also at W=256
      and W=200, a window that is not a multiple of 32); bitwise
      repeatability; with missing genotypes at W=64 and 128 the Gram of the
-     sweep's first window against x x^T in float64 (check_missing_gram). At the main-path windows (stale 64, exact 128)
-     axpy_kernel is held bit for bit against the plain axpy replayed from
-     the kernel's own draws, and stats_kernel (through window_stats on the
-     first window's rows) against its plain version.
+     sweep's first window against x x^T in float64 (check_missing_gram). At
+     the main-path windows (stale 64, exact 128) axpy_kernel is held bit
+     for bit against the plain axpy replayed from the kernel's own draws,
+     and stats_kernel (through window_stats on the first window's rows)
+     against its plain version; the exact sweep's profile must show its
+     window Grams in one batched launch, none a window
+     (check_gram_launches).
   2b. the BayesW kernels against their plain versions: sweep_stale_bw at
      M=4,096 x N=50,000, W=64 (complete and 2% missing) and at W=1 with
      M=512, eps and out bit for bit the plain version's (axpy_kernel<true>
@@ -34,7 +37,12 @@ Phases, each printing its wall time:
      against the CPU sampler with the same noise.
   4. real size M=100,000 x N=50,000 (1.25 GB of packed genotypes made on
      the card): ms/sweep and markers/s, exact W=128 and stale W=64, then
-     exact W=128 on 2% missing calls, which must run gram_f32_kernel; here
+     exact W=128 on 2% missing calls; the exact sweeps must launch their
+     Grams once a batch (gram_i8_batch_kernel, missing data
+     gram_f32_batch_kernel; check_gram_launches); each dataset's batched
+     Grams of all its W=128 and W=64 windows (the 64-row tiles the
+     real-size sweeps take) against g g^T, x x^T in float64 and
+     window_stats' Gram (check_batched_grams); here
      and in 4b, 4d and 4e each sweep's device us per window by kernel,
      stats_kernel's and axpy_kernel's bounds per window and launches.
   4b. BayesW W=64 block at the same size, and W=1 at M=10,000 x N=5,000:
@@ -42,7 +50,8 @@ Phases, each printing its wall time:
      levels_kernel's and bw_draw_kernel's bounds per window.
 Multi-trait BayesRRm (T=4 traits):
   2c. sweep_stale_mt (W=64) and sweep_exact_mt (W=128) against their plain
-     versions at M=4,096 x N=50,000 with full phenotypes, sweep_stale_mt
+     versions at M=4,096 x N=50,000 with full phenotypes (sweep_exact_mt's
+     Grams one batched launch, check_gram_launches), sweep_stale_mt
      with 2% missing genotypes and 10% NaN per trait; window_stats_mt,
      window_axpy_mt and mt_window_recurrence at W=128 with and without NaN;
      then the SHA-256 of the exact recurrences', the mt packed passes', the
@@ -80,10 +89,12 @@ BayesFH (--mpibayes bayesFHMPI) and the single-decode stale sweep
      bit at sub-window 64).
   2f. the single-trait packed passes beside one PyTorch call on the
      window's decoded rows (print_library_times): device time a call of
-     stats_kernel, axpy_kernel, levels_kernel and gram_i8_kernel against
+     stats_kernel, axpy_kernel, levels_kernel and the complete Gram against
      torch.mv, torch.addmv, torch.mm and the fastest Gram of torch.mm f32,
-     bf16 and torch._int_mm, and the missing-data Gram (gram_f32_kernel)
-     against torch.mm f32 of the standardized rows; the library times of
+     bf16 and torch._int_mm, and the missing-data Gram against torch.mm f32
+     of the standardized rows (W=128 and W=64); the batched Grams of 1
+     and 64 windows a window against torch.bmm (bf16; missing data f32 of the
+     standardized rows) on the same windows; the library times of
      window_stats, window_axpy and window_level_sums in the kernels line.
   3e. the CLI at M=10,000 x N=5,000, 20 iterations each: BayesFH exact
      default, --stale --window 64 and --mega off; HYDRA_TPU_SD=16 --stale
@@ -289,6 +300,102 @@ def check_stale_launches(torch, label, run, draw_kernel, separate, card):
                              f"{'not ' if separate else ''}launched")
 
 
+def check_gram_launches(torch, label, run, n_windows, W, missing, card,
+                        per=None):
+    """Fails unless one exact sweep (run; per, its device_times profile
+    where taken) launched its window Grams once a batch of
+    gram_batch_windows windows, by the batched kernel of its data
+    (gram_i8_batch_kernel; missing genotypes gram_f32_batch_kernel), and no
+    per-window Gram: 3 launches a window (stats, draw, axpy) and one a
+    batch."""
+    from hydra_tpu_torch.ops import window_kernels as wk
+    batch = wk.gram_batch_windows(n_windows, W)
+    n_batches = -(-n_windows // batch)
+    want = "gram_f32_batch_kernel" if missing else "gram_i8_batch_kernel"
+    per = per or device_times(torch, run, label)
+    grams = {kernel_name(k): v[0] for k, v in per.items()
+             if "hydra::" in k and "gram" in kernel_name(k)}
+    n_port = sum(v[0] for k, v in per.items() if "hydra::" in k)
+    print(f"  {label}: Gram launches {grams}, {n_windows} windows of "
+          f"{batch} a batch; {n_port} launches of the port  [{card}]",
+          flush=True)
+    if grams != {want: n_batches} or n_port != 3 * n_windows + n_batches:
+        raise AssertionError(f"{label}: Gram launches {grams} and {n_port} "
+                             f"port launches, not {{{want!r}: {n_batches}}} "
+                             f"and {3 * n_windows + n_batches}")
+
+
+def check_batched_grams(torch, label, pk, n, W, card, mave=None, mstd=None):
+    """The exact sweep's batched Grams (window_grams) of all M / W windows
+    of a random order of pk's rows (n individuals; mave, mstd per slot:
+    missing-data Grams), so that the launch takes the tile the main path's
+    batch takes at this size (the profile names it; missing data: the
+    64-row GramTile, asserted): one launch a batch, G == G^T and a second
+    call bit for bit over every window, and at four windows (first, two
+    inside, last) bit for bit window_stats' Gram of the same rows (the
+    per-window launch, its individuals split) and, complete data, bit for
+    bit g g^T in float64, missing data within the forward error bound of
+    its summation order of x x^T in float64 (missing_gram_error)."""
+    import re
+    from hydra_tpu_torch.ops import window_kernels as wk
+    from hydra_tpu_torch.ops.decode import decode_planes_hp
+    dev = pk.device
+    m, nb = pk.shape
+    n_win = m // W
+    missing = mave is not None
+    kw = dict(mave=mave, mstd=mstd) if missing else {}
+    gen = torch.Generator(device=dev).manual_seed(53)
+    order = torch.randperm(m, generator=gen, device=dev)[:n_win * W].to(
+        torch.int32)
+
+    def run():
+        return wk.window_grams(pk, order, W, **kw)
+
+    got, again = run(), run()
+    per = device_times(torch, run, f"{label} batched Grams W={W}")
+    tiles = {k.split("hydra::", 1)[1].split("(", 1)[0]: v[0]
+             for k, v in per.items() if "hydra::" in k}
+    n_batches = -(-n_win // wk.gram_batch_windows(n_win, W))
+    same = torch.equal(got, again)
+    sym = torch.equal(got, got.transpose(1, 2))
+    eps = torch.zeros(4 * nb, device=dev)
+    ones = torch.ones(W, device=dev)
+    over = of_diag = 0.0
+    exact = per_window = True
+    for w in sorted({0, n_win // 3, 2 * n_win // 3, n_win - 1}):
+        rows = order[w * W:(w + 1) * W].contiguous()
+        if missing:
+            mave_w = mave[rows.long()].contiguous()
+            mstd_w = mstd[rows.long()].contiguous()
+            one = wk.window_stats(pk, eps, mave_w, mstd_w, True, False,
+                                  float(n), rows)[2]
+            o, d = missing_gram_error(torch, pk, mave_w, mstd_w, rows, got[w])
+            over, of_diag = max(over, o), max(of_diag, d)
+        else:
+            one = wk.window_stats(pk, eps, ones * 0.0, ones, True, True, 0.0,
+                                  rows)[2]
+            g = decode_planes_hp(pk[rows.long()])[0].double()
+            exact = exact and torch.equal(got[w].double(), g @ g.T)
+        per_window = per_window and torch.equal(got[w], one)
+    err = (f"max|G - x x^T (f64)| {of_diag:.3e} of the diagonal, "
+           f"{over:.3f} of its summation's error bound" if missing
+           else f"G == g g^T (f64) bit for bit {exact}")
+    print(f"  {label} batched Grams W={W}: {n_win} windows, launches "
+          f"{tiles}; {err}; G == G^T {sym}, repeatable {same}, window_stats' "
+          f"Gram bit for bit {per_window}  [{card}]", flush=True)
+    want = "gram_f32_batch_kernel" if missing else "gram_i8_batch_kernel"
+    if sum(tiles.values()) != n_batches or any(
+            not k.startswith(want) for k in tiles):
+        raise AssertionError(f"{label} batched Grams W={W}: launches {tiles},"
+                             f" not {n_batches} of {want}")
+    if missing and not all(re.search(r"GramTile<64,", k) for k in tiles):
+        raise AssertionError(f"{label} batched Grams W={W}: not the 64-row "
+                             f"tile ({tiles})")
+    if not (same and sym and per_window and exact and over <= 1.0):
+        raise AssertionError(f"{label} batched Grams W={W} are off their "
+                             "references")
+
+
 def check_stats_bitwise(torch, label, pk, eps, mrow, rows, exact, complete,
                         n, card):
     """stats_kernel's s1 and s2, through window_stats on the rows ``rows``,
@@ -329,13 +436,13 @@ def missing_gram_error(torch, pk, mave_w, mstd_w, rows, gram):
 
 
 def check_missing_gram(torch, label, pk, mave_w, mstd_w, rows, gram, card):
-    """The missing-data Gram (gram_f32_kernel) of the window rows ``rows``
-    against x x^T in float64 on the same f32 x: every entry within the
-    forward error bound of its summation order (missing_gram_error), and
-    symmetric bit for bit."""
+    """The missing-data Gram (gram_f32_batch_kernel) of the window rows
+    ``rows`` against x x^T in float64 on the same f32 x: every entry within
+    the forward error bound of its summation order (missing_gram_error),
+    and symmetric bit for bit."""
     over, of_diag = missing_gram_error(torch, pk, mave_w, mstd_w, rows, gram)
     sym = torch.equal(gram, gram.T)
-    print(f"  gram_f32_kernel through {label}: max|G - x x^T (f64)| "
+    print(f"  gram_f32_batch_kernel through {label}: max|G - x x^T (f64)| "
           f"{of_diag:.3e} of the diagonal, {over:.3f} of its summation's "
           f"error bound; G == G^T bit for bit {sym}  [{card}]", flush=True)
     if not sym or not over <= 1.0:
@@ -389,7 +496,9 @@ def print_stream_bounds(W, nb, launches, stats=True, axpy=True,
     """The least time of one window's stats_kernel and axpy_kernel launches
     (bytes: each reads the W packed rows once; stats eps once and writes
     three per-tile partials a row, decode adds the crumbs, one byte an
-    individual and row; axpy reads eps and the mask and writes eps, refresh
+    individual and row, which the single-decode sweep's axpy
+    (axpy_decoded_kernel) reads in place of the packed rows; axpy reads eps
+    and the mask and writes eps, refresh
     adds the vi write; an axpy that draws the window (draw_cols, the mrow
     width) reads the two stats partials a tile and row and the W mrow rows
     once and writes out; operations: one f32 multiply-add per genotype and
@@ -397,7 +506,7 @@ def print_stream_bounds(W, nb, launches, stats=True, axpy=True,
     n_pad, n_tiles = 4 * nb, -(-nb // 512)
     st = bound(W * nb + 4 * n_pad + 12 * n_tiles * W + 4 * W
                + (W * n_pad if decode else 0), {"f32": 4.0 * W * n_pad})
-    ax = bound(W * nb + 12 * n_pad + 4 * (3 * W + 1)
+    ax = bound((W * n_pad if decode else W * nb) + 12 * n_pad + 4 * (3 * W + 1)
                + (4 * n_pad if refresh else 0)
                # drawing: partials and mrow rows in, out out, no coef
                + (4 * (2 * n_tiles * W + W * draw_cols) + 16 * W
@@ -405,7 +514,8 @@ def print_stream_bounds(W, nb, launches, stats=True, axpy=True,
                {"f32": 4.0 * W * n_pad + (100.0 * W if draw_cols else 0)})
     parts = ([f"stats_kernel{'<true>' if decode else ''} {1e3 * st[0]:.4f} "
               f"us ({st[1]})"] if stats else []) + (
-        [f"axpy_kernel{'<true>' if refresh else ''}"
+        [f"{'axpy_decoded_kernel' if decode else 'axpy_kernel'}"
+         f"{'<true>' if refresh else ''}"
          f"{' with the draw' if draw_cols else ''} {1e3 * ax[0]:.4f} us "
          f"({ax[1]})"] if axpy else [])
     print(f"  bound per window (W={W}, nb={nb}): {', '.join(parts)}; "
@@ -498,15 +608,21 @@ def phase_kernels(torch, sk, card):
                                         eps, mrow_w, order[:window],
                                         name == "sweep_exact", not missing, n,
                                         card)
+                if window == main_w and name == "sweep_exact":
+                    check_gram_launches(
+                        torch, f"{name} W={window}"
+                        f"{' missing' if missing else ''}", run,
+                        mw // window, window, missing, card)
                 if name == "sweep_exact" and missing and window in (64, 128):
                     # the sweep's Gram kernel on its first window's rows
                     rows = order[:window].contiguous()
                     b = mrow_w[rows.long()]
-                    mw, sw = b[:, 0].contiguous(), b[:, 1].contiguous()
+                    mave_w = b[:, 0].contiguous()
+                    mstd_w = b[:, 1].contiguous()
                     check_missing_gram(
-                        torch, f"{name} W={window}", pk_w, mw, sw, rows,
-                        wk.window_stats(pk_w, eps, mw, sw, True, False,
-                                        float(n), rows)[2], card)
+                        torch, f"{name} W={window}", pk_w, mave_w, mstd_w,
+                        rows, wk.window_stats(pk_w, eps, mave_w, mstd_w, True,
+                                              False, float(n), rows)[2], card)
                 if window == main_w and not missing:
                     r["ms"], r["plain_ms"] = ms, plain_ms
                     # packed rows, eps, mrow, order, mask in; eps, out out.
@@ -678,10 +794,12 @@ def real_size_dataset(torch, np, missing=0.0):
     return Dataset(geno=geno, y=y, groups=groups, num_groups=1, mS=mS), pk
 
 
-def real_size_sweeps(torch, sk, ds, pk, exact, window, card, data=""):
+def real_size_sweeps(torch, sk, ds, pk, exact, window, card, data="",
+                     gram_check=False):
     """ms/sweep (host clock over 10 steps after 2 warm-up) and markers/s
     of one BayesRRm block configuration on ``real_size_dataset``'s data,
-    then its profile (profile_sweep). Returns profile_sweep's profile."""
+    then its profile (profile_sweep; gram_check: and check_gram_launches).
+    Returns profile_sweep's profile."""
     from hydra_tpu_torch.samplers.bayesrrm import BayesRRm
     dev = torch.device("cuda")
     m = ds.geno.m
@@ -705,28 +823,36 @@ def real_size_sweeps(torch, sk, ds, pk, exact, window, card, data=""):
           f"markers/s (10 sweeps after 2 warm-up), h2 {sg / (sg + se):.4f},"
           f" peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB  "
           f"[{card}]", flush=True)
-    return profile_sweep(torch, sk, s, st, card)
+    return profile_sweep(torch, sk, s, st, card, gram_check)
 
 
 def phase_real_size(torch, np, sk, card):
     """BayesRRm exact W=128 and stale W=64 block at M=100,000 x N=50,000 on
     complete genotypes, then exact W=128 with 2% missing calls (a single
-    missing call sends the exact sweep to the missing-data Gram)."""
+    missing call sends the exact sweep to the missing-data Gram); after
+    each dataset's sweeps its batched Grams at W=128 and W=64 against their
+    references (check_batched_grams)."""
     ds, pk = real_size_dataset(torch, np)
     for exact, window in ((True, 128), (False, 64)):
-        real_size_sweeps(torch, sk, ds, pk, exact, window, card)
+        real_size_sweeps(torch, sk, ds, pk, exact, window, card,
+                         gram_check=exact)
+    for window in (128, 64):
+        check_batched_grams(torch, "real size", pk, ds.geno.n, window, card)
     del ds, pk
     ds, pk = real_size_dataset(torch, np, 0.02)
-    per = real_size_sweeps(torch, sk, ds, pk, True, 128, card, " missing 2%")
-    # the sampler's sweep went through the missing-data Gram alone
-    grams = {kernel_name(k): v[0] for k, v in per.items()
-             if "hydra::" in k and "gram" in kernel_name(k)}
-    if set(grams) != {"gram_f32_kernel"}:
-        raise AssertionError(f"missing-data exact sweep launched {grams}")
+    real_size_sweeps(torch, sk, ds, pk, True, 128, card, " missing 2%",
+                     gram_check=True)
+    dev = torch.device("cuda")
+    mave = torch.from_numpy(ds.geno.mave).float().to(dev)
+    mstd = torch.from_numpy(ds.geno.mstd).float().to(dev)
+    for window in (128, 64):
+        check_batched_grams(torch, "real size missing 2%", pk, ds.geno.n,
+                            window, card, mave, mstd)
 
 
-def profile_sweep(torch, sk, s, st, card):
-    """Where one BayesRRm sweep's time goes (see profile_run)."""
+def profile_sweep(torch, sk, s, st, card, gram_check=False):
+    """Where one BayesRRm sweep's time goes (see profile_run); gram_check:
+    an exact sweep's Grams launch once a batch (check_gram_launches)."""
     cfg = s.cfg
     dev = s.device
     active = (st.sigma_g[s.groups] > 0) & (s.valid > 0) & (s.mstd > 0)
@@ -736,20 +862,22 @@ def profile_sweep(torch, sk, s, st, card):
     fn = sk.sweep_exact if cfg.exact else sk.sweep_stale
     kw = dict(window=cfg.window, n_mix=cfg.k, complete=cfg.complete,
               ind_mask=s.ind_mask if cfg.complete else None, order=order)
-    # exact: stats, Gram (complete: gram_i8_kernel; missing:
-    # gram_f32_kernel, one launch either), draw, axpy; stale: stats, then
-    # the axpy, which draws the window itself up to the kernels'
-    # STALE_FOLD_MAX_W (above, the draw alone first: the profile shows
-    # which)
+    # exact: stats, draw, axpy a window, and a batch's Grams in one launch
+    # (gram_i8_batch_kernel; missing: gram_f32_batch_kernel); stale:
+    # stats, then the axpy, which draws the window itself up to the
+    # kernels' STALE_FOLD_MAX_W (above, the draw alone first: the profile
+    # shows which)
     n_sub = cfg.window // cfg.sub_window if cfg.sub_window else 1
     if cfg.sub_window:
         fn = sk.sweep_stale_sd
         kw["sub_window"] = cfg.sub_window
 
     def launches(names):
-        return cfg.n_windows * (4 if cfg.exact else
-                                n_sub * (3 if "stale_draw_kernel" in names
-                                         else 2))
+        if cfg.exact:
+            return 3 * cfg.n_windows + -(-cfg.n_windows // gram_batch(
+                cfg.n_windows, cfg.window))
+        return cfg.n_windows * n_sub * (3 if "stale_draw_kernel" in names
+                                        else 2)
 
     def run():
         return fn(s.packed, st.eps, mrow, 0.5 / st.sigma_e,
@@ -764,44 +892,72 @@ def profile_sweep(torch, sk, s, st, card):
     if cfg.sub_window:
         # stats_kernel<true> a sub-window; the update is axpy_decoded_kernel
         print_stream_bounds(cfg.sub_window, nb, cfg.n_windows * cfg.window
-                            // cfg.sub_window, axpy=False, decode=True)
+                            // cfg.sub_window, decode=True,
+                            draw_cols=mrow.shape[1] if fold else 0)
     else:
         print_stream_bounds(cfg.window, nb, cfg.n_windows,
                             draw_cols=mrow.shape[1] if not cfg.exact and fold
                             else 0)
     if cfg.exact:
         print_exact_bounds(cfg.window, s.packed.shape[1], mrow.shape[1],
-                           cfg.complete)
+                           cfg.complete, cfg.n_windows)
+    if gram_check:
+        check_gram_launches(torch, f"real size exact W={cfg.window}"
+                            f"{'' if cfg.complete else ' missing'}", run,
+                            cfg.n_windows, cfg.window, not cfg.complete, card,
+                            per)
     return per
 
 
-def missing_gram_bound(W, nb):
-    """(ms, by) of one missing-data window Gram (gram_f32_kernel): the W
-    packed rows, the order and the rows' mave and mstd in, the (W, W) f32
-    Gram out; the symmetric half's W (W + 1) / 2 entries, one f32
-    multiply-add (2 operations) per entry and individual."""
-    return bound(W * nb + 12 * W + 4 * W * W, {"f32": W * (W + 1.0) * 4 * nb})
+def gram_batch(n_windows, W):
+    """Windows a batched Gram launch of an exact sweep takes
+    (window_kernels.gram_batch_windows; a tree whose sweeps launch a Gram a
+    window: 1)."""
+    from hydra_tpu_torch.ops import window_kernels as wk
+    fn = getattr(wk, "gram_batch_windows", None)
+    return 1 if fn is None else fn(n_windows, W)
 
 
-def print_exact_bounds(W, nb, C, complete=True):
-    """The least time of one exact window's Gram and draw launches.
-    gram_i8_kernel (complete data): the W packed rows and the order in, the
-    (W, W) f32 Gram out; the symmetric Gram's W (W + 1) / 2 entries, one
-    int8 multiply-add (2 operations) per entry and individual;
-    gram_f32_kernel (missing data): missing_gram_bound. exact_draw_kernel:
-    the stats partials (s1, s2, v), the W mrow rows and the Gram in, out
-    and coef out; the rank-1 update (2 W^2 f32) and ~100 f32 operations a
-    draw."""
+def missing_gram_bound(W, nb, n_windows=1):
+    """(ms, by) of one missing-data window Gram (gram_f32_batch_kernel), a
+    window of a launch over n_windows: the launch's bound over n_windows.
+    A window's W packed rows, order entries and mave and mstd in, its
+    (W, W) f32 Gram out; the symmetric half's W (W + 1) / 2 entries, one
+    f32 multiply-add (2 operations) per entry and individual."""
+    ms, by = bound(n_windows * (W * nb + 12 * W + 4 * W * W),
+                   {"f32": n_windows * W * (W + 1.0) * 4 * nb})
+    return ms / n_windows, by
+
+
+def complete_gram_bound(W, nb, n_windows=1):
+    """(ms, by) of one complete-data window Gram (gram_i8_batch_kernel), a
+    window of a launch over n_windows: a window's W packed rows and order
+    entries in, its (W, W) f32 Gram out; the symmetric Gram's W (W + 1) / 2
+    entries, one int8 multiply-add (2 operations) per entry and
+    individual."""
+    ms, by = bound(n_windows * (W * nb + 4 * W + 4 * W * W),
+                   {"int8": n_windows * W * (W + 1.0) * 4 * nb})
+    return ms / n_windows, by
+
+
+def print_exact_bounds(W, nb, C, complete=True, n_windows=1):
+    """The least time of one exact window's Gram and draw launches, the
+    Gram a window of its batch (the sweep's n_windows windows in batches
+    of gram_batch): complete_gram_bound or, missing data,
+    missing_gram_bound. exact_draw_kernel: the stats partials (s1, s2, v),
+    the W mrow rows and the Gram in, out and coef out; the rank-1 update
+    (2 W^2 f32) and ~100 f32 operations a draw."""
     n_tiles = -(-nb // 512)
-    gram = (bound(W * nb + 4 * W + 4 * W * W,
-                  {"int8": W * (W + 1.0) * 4 * nb}) if complete
-            else missing_gram_bound(W, nb))
+    batch = gram_batch(n_windows, W)
+    gram = (complete_gram_bound if complete else missing_gram_bound)(
+        W, nb, batch)
     draw = bound(12 * n_tiles * W + 4 * W * C + 4 * W * W + 16 * W
                  + 4 * (2 * W + 1), {"f32": 2.0 * W * W + 100.0 * W})
     print(f"  bound per window (W={W}, nb={nb}): "
-          f"{'gram_i8_kernel' if complete else 'gram_f32_kernel'} "
-          f"{1e3 * gram[0]:.4f} us ({gram[1]}), exact_draw_kernel "
-          f"{1e3 * draw[0]:.4f} us ({draw[1]})", flush=True)
+          f"{'gram_i8_batch_kernel' if complete else 'gram_f32_batch_kernel'}"
+          f" {1e3 * gram[0]:.4f} us ({gram[1]}; a window of a batch of "
+          f"{batch}), exact_draw_kernel {1e3 * draw[0]:.4f} us ({draw[1]})",
+          flush=True)
 
 
 def print_bw_bounds(W, nb, C, complete, Q, launches):
@@ -837,6 +993,13 @@ def device_times(torch, fn, label):
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            # a session's first kernels can go unrecorded (up to 7 seen, a
+            # sweep's Gram among them): spin kernels, left out of the
+            # result, and a pause first
+            for _ in range(16):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            time.sleep(0.02)
             fn()
             torch.cuda.synchronize()
         per = {}
@@ -844,7 +1007,8 @@ def device_times(torch, fn, label):
             # device activities only: an aten op's self device time repeats
             # that of the kernels it launched
             t = getattr(e, "self_device_time_total", 0.0) or 0.0
-            if t > 0 and getattr(e, "device_type", None) == DeviceType.CUDA:
+            if (t > 0 and getattr(e, "device_type", None) == DeviceType.CUDA
+                    and "spin_kernel" not in e.key):
                 per[e.key] = (e.count, t / 1000.0)
         if per:
             return per
@@ -1256,7 +1420,8 @@ def print_digests(torch, np):
     and window_axpy_mt; then BayesW's sweep_stale_bw (eps, out) at phase
     2b's cases (bw_case: M=4,096 W=64 complete and 2% missing, M=512 W=1);
     then the BayesRRm stale sweeps (stale_digest_outputs) and the exact
-    sweep and window_stats on missing genotypes (missing_exact_digest_outputs).
+    sweep and window_stats on missing genotypes (missing_exact_digest_outputs,
+    the exact sweep also at M=16,384, the real-size sweeps' Gram tile).
     Two trees' kernels are bit for bit the same where their digests are
     (scripts/chip_compare.py runs this in each tree). Returns {name:
     digest}."""
@@ -1389,7 +1554,11 @@ def missing_exact_digest_outputs(torch, np):
     shapes (M=4,096 x N=50,000, 2% missing calls, 37 pad markers; its own
     generator): sweep_exact (eps, out) at W=128 and W=64 (the CLI
     default), block order, and window_stats' exact Gram of the W=128
-    sweep's first window. Returns {name: tensors}."""
+    sweep's first window; then sweep_exact at W=128 and W=64 on M=16,384
+    (its own generator, 147 pad markers), where a batch of Grams has
+    enough windows for the 64-row tile the real-size sweeps take (128
+    windows of three tiles, 256 of one; M=4,096 takes the 32- and 16-row
+    tiles). Returns {name: tensors}."""
     from hydra_tpu_torch.ops import sweep_kernel as sk
     from hydra_tpu_torch.ops import window_kernels as wk
     dev = torch.device("cuda")
@@ -1415,6 +1584,18 @@ def missing_exact_digest_outputs(torch, np):
             outs["window_stats W=128 exact missing 2%"] = (wk.window_stats(
                 pk, eps, b[:, 0].contiguous(), b[:, 1].contiguous(), True,
                 False, float(n), rows)[2],)
+    m = 16_384
+    gen = torch.Generator(device=dev).manual_seed(59)
+    pk, mave, mstd, _ = device_genotypes(torch, m, n, n_pad, gen, 0.02)
+    pads = torch.randperm(m, generator=gen, device=dev)[:147]
+    pk[pads] = 0xFF
+    mrow = kernel_rows(torch, mave, mstd, gen, n, pads)
+    for W in (128, 64):
+        order = sk.block_order(torch.randperm(m // W, generator=gen,
+                                              device=dev), W)
+        outs[f"sweep_exact M={m} W={W} missing 2%"] = sk.sweep_exact(
+            pk, eps, mrow, 1.0 / (2 * SIGMA_E), float(n - 1), window=W,
+            n_mix=K, complete=False, order=order)
     return outs
 
 
@@ -1424,11 +1605,13 @@ def print_missing_exact_times(torch, np, card):
     W=64 (the CLI default) block, ms/sweep, CUDA events, busy share,
     launches and device us a window by kernel (real_size_sweeps), then the
     Gram's device us a window, summed over the kernels whose name holds
-    "gram"; then the Gram alone (window_stats' exact missing-data Gram) at
-    W = 64, 128, 256 and 1024: device us a call by kernel from
-    torch.profiler over 10 calls after a warm-up, beside its bound
-    (missing_gram_bound). scripts/chip_compare.py runs this tree's version
-    in every tree."""
+    "gram"; then the Gram alone at W = 64, 128, 256 and 1024: window_stats'
+    exact missing-data Gram (one window a call), and, where the tree has
+    window_grams, the exact sweep's batched Grams of all M / W windows of
+    a random order (gram_batch_windows a launch), device us a window by
+    kernel from torch.profiler over 10 calls after a warm-up (3 at
+    W = 1024), beside its bound (missing_gram_bound).
+    scripts/chip_compare.py runs this tree's version in every tree."""
     from hydra_tpu_torch.ops import sweep_kernel as sk
     from hydra_tpu_torch.ops import window_kernels as wk
     dev = torch.device("cuda")
@@ -1470,6 +1653,28 @@ def print_missing_exact_times(torch, np, card):
         b_ms, b_by = missing_gram_bound(W, nb)
         print(f"missing gram W={W} N={n}: {got} a window; bound "
               f"{1e3 * b_ms:.4f} us ({b_by})  [{card}]", flush=True)
+        if not hasattr(wk, "window_grams"):
+            continue
+        n_win = m // W
+        order = torch.randperm(m, generator=gen, device=dev)[:n_win * W].to(
+            torch.int32)
+        reps = 3 if W == 1024 else calls
+
+        def grams():
+            return wk.window_grams(pk, order, W, mave, mstd)
+
+        grams()
+        per = _profile_retry(torch, lambda: [grams() for _ in range(reps)],
+                             f"missing grams W={W}")
+        got = ("not measured" if per is None else ", ".join(
+            f"{kernel_name(k)} {1e3 * v[1] / (reps * n_win):.2f} us "
+            f"({v[0] // reps} launches)"
+            for k, v in sorted(per.items())
+            if "hydra::" in k and "gram" in kernel_name(k)))
+        b_ms, b_by = missing_gram_bound(W, nb, n_win)
+        print(f"missing gram batch W={W} N={n}: {got} a window of "
+              f"{n_win}; bound {1e3 * b_ms:.4f} us ({b_by})  [{card}]",
+              flush=True)
     del ds, pk
 
 
@@ -1546,6 +1751,11 @@ def phase_mt_kernels(torch, np, card):
                         torch, f"{name} W={window} {data}",
                         lambda: fn(pk, eps, tm, mrow, i2se, dnm1, **kw),
                         "stale_draw_mt_kernel", side, card)
+                else:
+                    check_gram_launches(
+                        torch, f"{name} W={window} {data}",
+                        lambda: fn(pk, eps, tm, mrow, i2se, dnm1, **kw),
+                        m // window, window, False, card)
                 if full and not side:
                     r = rec[name]
                     r["ms"], r["plain_ms"] = ms, plain_ms
@@ -1890,7 +2100,9 @@ def phase_mt_real_size(torch, np, card):
                 return skmt.sweep_exact_mt(
                     s.packed, st.eps, s.trait_mask, mrow, i2se, s.dNm1,
                     window=window, n_mix=cfg.k, order=order)
-            n_launch = 4 * cfg.n_windows
+            # stats, draw, axpy a window; the Grams once a batch
+            n_launch = 3 * cfg.n_windows + -(-cfg.n_windows // gram_batch(
+                cfg.n_windows, window))
         else:
             def run():
                 return s.window_sweep(st.eps, mrow, order, i2se)
@@ -2053,19 +2265,27 @@ def print_library_times(torch, np, card):
     name, through window_stats, window_axpy and window_level_sums) and for
     the library calls:
       stats_kernel    torch.mv of the rows (exact: g; stale: h) against eps
-      gram_i8_kernel  the Gram of the W=128 rows: torch.mm in f32 and in
-                      bf16, torch._int_mm in int8 (the fastest is named)
+      the Gram        of the W=128 rows (gram_i8_batch_kernel through
+                      window_stats): torch.mm in f32 and in bf16,
+                      torch._int_mm in int8 (the fastest is named)
       axpy_kernel     torch.addmv(eps, rows^T, c1)
       levels_kernel   torch.mm of the 2W level indicators (g = 1, g = 2)
                       against vi
     at W=128 (exact) and W=64 (stale; BayesW's levels), and on 2% missing
-    calls the missing-data Gram (gram_f32_kernel, through window_stats'
-    exact branch) against torch.mm f32 of the W=128 window's decoded,
-    standardized rows. window_stats' row
-    (exact complete W=128: s1 and the standardized Gram) takes torch.mv and
-    torch.mm of the standardized rows, two calls. Returns {wrapper:
-    {library_ms (CUDA events a call), device_ms, library_device_ms,
-    library}} for window_stats, window_axpy and window_level_sums."""
+    calls the missing-data Gram (gram_f32_batch_kernel, through
+    window_stats' exact branch) against torch.mm f32 of the window's
+    decoded, standardized rows, W=128 and W=64. Then the exact sweeps'
+    batched Grams (window_grams, where the tree has it) of 1 and 64 windows
+    of W=128 (complete data also 256; missing data also W=64), device us a
+    window (a batch of 1 is one unsplit launch, the alternative to
+    window_stats' split one), beside
+    torch.bmm of the same windows' decoded rows, bf16 (exact) for complete
+    data and f32 of the standardized rows for missing data. window_stats'
+    row (exact complete W=128: s1 and the standardized Gram) takes
+    torch.mv and torch.mm of the standardized rows, two calls. Returns
+    {wrapper: {library_ms (CUDA events a call), device_ms,
+    library_device_ms, library}} for window_stats, window_axpy and
+    window_level_sums."""
     from hydra_tpu_torch.ops import window_kernels as wk
     from hydra_tpu_torch.ops.decode import decode_h
     dev = torch.device("cuda")
@@ -2134,11 +2354,10 @@ def print_library_times(torch, np, card):
             except RuntimeError as e:
                 print(f"library torch._int_mm refused: {e}", flush=True)
             best = min(grams, key=lambda kv: kv[1])
-            show(f"gram_i8_kernel {tag}", dev_us(
+            show(f"complete gram {tag}", dev_us(
                 lambda: wk.window_stats(pk, eps, mw, sw, True, True,
                                         float(n), rows), "gram",
-                ["gram_i8_kernel"]), grams + [("fastest " + best[0],
-                                               best[1])])
+                ["gram"]), grams + [("fastest " + best[0], best[1])])
             lib_ms, _ = cuda_ms(torch, lambda: (torch.mv(x, eps),
                                                 torch.mm(xs, xs.t())), calls)
             rec["window_stats"] = dict(
@@ -2179,21 +2398,68 @@ def print_library_times(torch, np, card):
                 library_ms=lib_ms, device_ms=kern[1] / 1e3,
                 library_device_ms=lib[0][1] / 1e3,
                 library="torch.mm of the level indicators against vi")
-    # the missing-data Gram beside torch.mm f32 of the window's decoded,
-    # standardized rows (2% missing calls, its own generator)
+    # the exact sweeps' batched complete Grams: 64 and 256 windows of W=128
+    # a launch, device us a window, beside torch.bmm in bf16 (exact: sums
+    # of 0, 1, 2 products below 2^24) of the same windows' decoded rows
     from hydra_tpu_torch.ops.decode import decode_planes_hp
+    grams_fn = getattr(wk, "window_grams", None)
+
+    def windows(W, n_win):
+        """n_win windows of W distinct rows each (the M rows permuted as
+        often as n_win W rows need)."""
+        reps = -(-n_win * W // m)
+        return torch.cat([torch.randperm(m, generator=gen, device=dev)
+                          for _ in range(reps)])[:n_win * W].to(torch.int32)
+
+    def batched(label, order, W, n_win, lib, **kw):
+        kern = (None, float("nan"))
+        if grams_fn is not None:
+            got, us = dev_us(lambda: grams_fn(pk, order, W, **kw), "grams",
+                             ["gram"])
+            kern = (None if got is None else
+                    {k: v / n_win for k, v in got.items()}, us / n_win)
+        show(f"{label} W={W} batch of {n_win}, a window", kern,
+             [(name, us / n_win) for name, us in lib])
+
+    # one window (one block a tile over all the individuals: the batch of
+    # 1, beside window_stats' split launch above), 64 windows (192 blocks:
+    # fewer than 2 an SM) and 256 (768)
+    W = 128
+    for n_win in (1, 64, 256):
+        order = windows(W, n_win)
+        xb = decode_planes_hp(pk[order.long()])[0].view(
+            n_win, W, n_pad).to(torch.bfloat16)
+        batched("complete gram", order, W, n_win, [("torch.bmm bf16", dev_us(
+            lambda: torch.bmm(xb, xb.transpose(1, 2)), "bmm")[1])])
+        del xb
+    # the missing-data Gram beside torch.mm f32 of the window's decoded,
+    # standardized rows (2% missing calls, its own generator), one window
+    # of W=128 and of W=64; then batched, beside torch.bmm f32
     gen = torch.Generator(device=dev).manual_seed(39)
     pk, mave, mstd, _ = device_genotypes(torch, m, n, n_pad, gen, 0.02)
-    W = 128
-    rows = torch.randperm(m, generator=gen, device=dev)[:W].to(torch.int32)
-    mw, sw = mave[rows.long()].contiguous(), mstd[rows.long()].contiguous()
-    g, mk = decode_planes_hp(pk[rows.long()])
-    xs = ((g - mw[:, None] * mk) * sw[:, None]).contiguous()
-    show(f"gram_f32_kernel W={W} exact missing 2%", dev_us(
-        lambda: wk.window_stats(pk, eps, mw, sw, True, False, float(n),
-                                rows), "gram", ["gram"]),
-         [("torch.mm f32 of the standardized rows",
-           dev_us(lambda: torch.mm(xs, xs.t()), "mm")[1])])
+    for W in (128, 64):
+        rows = torch.randperm(m, generator=gen, device=dev)[:W].to(
+            torch.int32)
+        mw = mave[rows.long()].contiguous()
+        sw = mstd[rows.long()].contiguous()
+        g, mk = decode_planes_hp(pk[rows.long()])
+        xs = ((g - mw[:, None] * mk) * sw[:, None]).contiguous()
+        show(f"missing gram W={W} exact missing 2%", dev_us(
+            lambda: wk.window_stats(pk, eps, mw, sw, True, False, float(n),
+                                    rows), "gram", ["gram"]),
+             [("torch.mm f32 of the standardized rows",
+               dev_us(lambda: torch.mm(xs, xs.t()), "mm")[1])])
+        for n_win in (1, 64):
+            order = windows(W, n_win)
+            slots = order.long()
+            g, mk = decode_planes_hp(pk[slots])
+            xs = ((g - mave[slots, None] * mk) * mstd[slots, None]).view(
+                n_win, W, n_pad)
+            batched("missing gram", order, W, n_win, [(
+                "torch.bmm f32 of the standardized rows", dev_us(
+                    lambda: torch.bmm(xs, xs.transpose(1, 2)), "bmm")[1])],
+                mave=mave, mstd=mstd)
+            del g, mk, xs
     del pk
     return rec
 
@@ -2208,9 +2474,10 @@ def phase_window_kernels(torch, np, card):
     add in the kernels' order, so s1, s2, the complete Gram and the planes
     come out bit for bit, but for a pad row's 3*eps products in complete
     stale data, which the kernel fuses into its multiply-add; the
-    missing-data Gram's kernel, gram_f32_kernel, runs one fused multiply-add
-    chain an entry per 2,048-individual chunk and adds the chunks in order,
-    the plain version a library matmul, so the two agree to f32 rounding;
+    missing-data Gram's kernel, gram_f32_batch_kernel, runs one fused
+    multiply-add chain an entry per 2,048-individual chunk and adds the
+    chunks in order, the plain version a library matmul, so the two agree
+    to f32 rounding;
     check_missing_gram holds every entry to x x^T in float64 within the
     forward error bound of that order and G == G^T bit for bit); the
     recurrence atol 5e-4,
@@ -2485,7 +2752,7 @@ def phase_window_real_size(torch, np, sk, card):
                 order = s.sweep_order(0)
                 i2se = 0.5 / st.sigma_e
                 # complete data: exact 4 window_stats launches (stats,
-                # finish, gram_i8, standardize) and a memset of the Gram's
+                # finish, Gram, standardize) and a memset of the Gram's
                 # accumulator + window_gibbs + the axpy; stale 2 stats
                 # launches (or the planes') + axpy
                 per = 6 if exact else 3
@@ -2853,8 +3120,9 @@ def main() -> int:
          "stale_draw in every block; above STALE_FOLD_MAX_W "
          "stale_draw_kernel, then axpy_kernel)"),
         ("sweep_exact", "sweep_kernel.cu", "hydra_tpu/ops/sweep_kernel.py:567",
-         "stats_kernel, gram_i8_kernel (complete; missing: "
-         "gram_f32_kernel<Tile, G>), exact_draw_kernel, axpy_kernel"),
+         "stats_kernel, exact_draw_kernel, axpy_kernel a window; "
+         "gram_i8_batch_kernel (missing: gram_f32_batch_kernel<Tile>) once "
+         "a batch of windows"),
         ("sweep_stale_sd", "sweep_kernel.cu",
          "hydra_tpu/ops/sweep_kernel.py:255",
          "stats_kernel<true>, axpy_decoded_kernel<MODE, KB> (draws the "
@@ -2875,8 +3143,8 @@ def main() -> int:
          "stale_draw_mt_kernel, then axpy_mt_kernel)"),
         ("sweep_exact_mt", "sweep_kernel_mt.cu",
          "hydra_tpu/ops/sweep_kernel_mt.py:499",
-         "stats_mt_kernel, gram_i8_kernel, exact_mt_draw_kernel, "
-         "axpy_mt_kernel"),
+         "stats_mt_kernel, exact_mt_draw_kernel, axpy_mt_kernel a window; "
+         "gram_i8_batch_kernel once a batch of windows"),
         ("window_stats_mt", "sweep_kernel_mt.cu",
          "hydra_tpu/ops/window_kernels.py:451",
          "stats_mt_kernel, stats_mt_reduce_kernel"),
@@ -2888,9 +3156,10 @@ def main() -> int:
          "window_recurrence_mt_kernel"),
         ("window_stats", "sweep_kernel.cu",
          "hydra_tpu/ops/window_kernels.py:180",
-         "stats_kernel, window_stats_finish_kernel, gram_i8_kernel + "
-         "gram_standardize_kernel (exact complete; exact missing: "
-         "gram_f32_kernel<Tile, G>)"),
+         "stats_kernel, window_stats_finish_kernel, gram_i8_batch_kernel "
+         "(the individuals split) + gram_standardize_kernel (exact "
+         "complete; exact missing: gram_f32_batch_kernel<Tile>, the "
+         "chunks split)"),
         ("window_gibbs", "sweep_kernel.cu", "hydra_tpu/ops/gibbs_kernel.py:112",
          "window_gibbs_kernel"),
         ("window_stats_planes", "planes_kernel.cu",

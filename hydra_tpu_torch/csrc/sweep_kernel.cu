@@ -34,16 +34,19 @@
 // 2,048-individual eps tile once per 16 rows and prefetches the next
 // window's rows to L2 (stats_kernel); the axpy runs a thread per individual
 // over a shared tile of the window's rows, every row's load in flight
-// (axpy_kernel, sweep_kernel.cuh); the complete-data Gram runs on the int8
-// tensor cores in one launch (gram_i8_kernel), the missing-data Gram as
-// fmaf chains over the symmetric half in one launch (gram_f32_kernel), and
-// the recurrence warp-synchronously out of shared memory
-// (exact_draw_kernel). A stale window's draw runs inside its axpy (every
-// axpy block draws the window), so it takes 2 launches; an exact one 4. The
-// host's enqueue of these launches is left for a later change.
+// (axpy_kernel, sweep_kernel.cuh); the recurrence runs warp-synchronously
+// out of shared memory (exact_draw_kernel). A window's Gram depends on its
+// rows and their statistics alone, not on eps, so the exact sweep computes
+// a batch of windows' Grams (gram_batch_windows) in one launch at the
+// batch's first window, off the windows' chain: the complete-data Grams on
+// the int8 tensor cores (gram_i8_batch_kernel), the missing-data Grams as
+// fmaf chains over the symmetric half (gram_f32_batch_kernel). A stale
+// window's draw runs inside its axpy (every axpy block draws the window),
+// so it takes 2 launches; an exact one 3, plus one a batch. The host's
+// enqueue of these launches is left for a later change.
 //
-// Determinism: no float atomics (the complete Gram's are integer, exact in
-// any order). Partial sums land in per-tile or per-chunk scratch and are
+// Determinism: no float atomics (window_stats' split complete Gram's are
+// integer, exact in any order). Partial sums land in per-tile or per-chunk scratch and are
 // reduced in a fixed order, so equal inputs give bitwise-equal outputs.
 
 #include <cstdint>
@@ -341,17 +344,11 @@ struct Workspace {
     float* part_s2;
     float* part_v;
     float* coef;
-    float* gram;
-    float* gram_part;     // the missing-data Gram's chunk partials
-    int* gram_acc;        // the complete-data Gram's accumulator and tickets;
-                          // missing data: gram_f32_kernel's tickets
+    float* gram;          // exact: a batch of Grams (gram_batch_windows, W, W)
     size_t bytes;
 };
 
-// exact sweeps reserve the Gram's scratch of their data only: complete,
-// gram_i8_kernel's accumulator; missing, gram_f32_kernel's partials and
-// tickets
-inline Workspace layout(void* base, int nb, int W, bool exact, bool complete) {
+inline Workspace layout(void* base, int m_loc, int nb, int W, bool exact) {
     const size_t n_tiles = cdiv(nb, STATS_TB);
     size_t off = 0;
     Workspace ws{};
@@ -365,15 +362,8 @@ inline Workspace layout(void* base, int nb, int W, bool exact, bool complete) {
     ws.part_s2 = take(n_tiles * W);
     ws.part_v = take(n_tiles * W);
     ws.coef = take(2 * static_cast<size_t>(W) + 1);
-    if (exact) {
-        ws.gram = take(static_cast<size_t>(W) * W);
-        if (complete) {
-            ws.gram_acc = reinterpret_cast<int*>(take(gram_i8_acc_ints(W)));
-        } else {
-            ws.gram_part = take(gram_f32_part_floats(W, nb));
-            ws.gram_acc = reinterpret_cast<int*>(take(gram_f32_tiles(W, nb)));
-        }
-    }
+    if (exact)
+        ws.gram = take(static_cast<size_t>(gram_batch_windows(m_loc / W, W)) * W * W);
     ws.bytes = off;
     return ws;
 }
@@ -391,8 +381,9 @@ int run_sweep(bool exact, const uint8_t* pk, float* eps, const float* mrow,
         (exact && complete && 4LL * nb > GRAM_I8_MAX_NPAD))
         return static_cast<int>(cudaErrorInvalidValue);
     const int C = N_FIXED + 3 * K - 2;
-    const Workspace ws = layout(ws_base, nb, W, exact, complete != 0);
+    const Workspace ws = layout(ws_base, m_loc, nb, W, exact);
     const int n_windows = m_loc / W;
+    const int batch = gram_batch_windows(n_windows, W);
     const int n_tiles = cdiv(nb, STATS_TB);
     const int draw_threads = cdiv(W, 32) * 32;
     const int mode = !complete ? MODE_MISSING
@@ -405,15 +396,16 @@ int run_sweep(bool exact, const uint8_t* pk, float* eps, const float* mrow,
                                            stale_draw_kernel<K_MAX>);
     const StaleDrawArgs dr{mrow, C, K, ws.part_s1, ws.part_s2, n_tiles, sc, out};
     const bool fold = !exact && W <= STALE_FOLD_MAX_W;
-    if (exact) {
-        HYDRA_CHECK(allow_smem(draw, draw_smem));
-        HYDRA_CHECK(cudaMemsetAsync(
-            ws.gram_acc, 0,
-            sizeof(int) * (complete ? gram_i8_acc_ints(W) : gram_f32_tiles(W, nb)), stream));
-    }
+    if (exact) HYDRA_CHECK(allow_smem(draw, draw_smem));
     for (int w = 0; w < n_windows; ++w) {
         const int* order_w = order + static_cast<size_t>(w) * W;
         const int* next_w = w + 1 < n_windows ? order_w + W : nullptr;
+        if (exact) {
+            // at a batch's first window, the batch's Grams, ahead of their draws
+            const int err = launch_gram_batch(pk, nb, order, W, w, n_windows, complete, mrow,
+                                              mrow + 1, C, ws.gram, stream);
+            if (err) return err;
+        }
         int err = launch_stats<false>(pk, nb, eps, order_w, next_w, W, mode, ws.part_s1,
                                       ws.part_s2, ws.part_v, nullptr, stream);
         if (err) return err;
@@ -423,13 +415,9 @@ int run_sweep(bool exact, const uint8_t* pk, float* eps, const float* mrow,
             continue;
         }
         if (exact) {
-            err = complete ? launch_gram_i8(pk, nb, order_w, W, ws.gram_acc, ws.gram, stream)
-                           : launch_gram_f32(pk, nb, order_w, W, mrow, mrow + 1, C, 1,
-                                             ws.gram_part, ws.gram_acc, ws.gram, stream);
-            if (err) return err;
             draw<<<1, draw_threads, draw_smem, stream>>>(
                 mrow, C, K, order_w, W, ws.part_s1, ws.part_s2, ws.part_v, n_tiles,
-                complete, ws.gram, sc, out, ws.coef);
+                complete, ws.gram + static_cast<size_t>(w % batch) * W * W, sc, out, ws.coef);
         } else {
             stale_draw<<<1, draw_threads, 2 * sizeof(float) * W, stream>>>(
                 mrow, C, K, order_w, W, ws.part_s1, ws.part_s2, n_tiles, complete,
@@ -648,8 +636,8 @@ struct WindowWorkspace {
     float* part_s2;
     float* part_v;
     float* v;
-    float* gram_part;
-    int* gram_acc;        // gram_i8_kernel's accumulator, or gram_f32_kernel's tickets
+    float* gram_part;     // the missing-data Gram's chunk partials
+    int* gram_acc;        // the complete Gram's accumulator, or the missing one's tickets
     size_t bytes;
 };
 
@@ -669,7 +657,7 @@ inline WindowWorkspace window_layout(void* base, int nb, int W, bool exact,
     ws.part_v = take(n_tiles * W);
     ws.v = take(W);
     if (exact && complete) {
-        ws.gram_acc = reinterpret_cast<int*>(take(gram_i8_acc_ints(W)));
+        ws.gram_acc = reinterpret_cast<int*>(take(gram_i8_acc_ints(W, 1)));
     } else if (exact) {
         ws.gram_part = take(gram_f32_part_floats(W, nb));
         ws.gram_acc = reinterpret_cast<int*>(take(gram_f32_tiles(W, nb)));
@@ -700,11 +688,11 @@ int run_window_stats(const uint8_t* pk, const float* eps, const int* rows,
     // per-window branch) besides the kernels
     HYDRA_CHECK(cudaMemsetAsync(
         ws.gram_acc, 0,
-        sizeof(int) * (complete ? gram_i8_acc_ints(W) : gram_f32_tiles(W, nb)), stream));
+        sizeof(int) * (complete ? gram_i8_acc_ints(W, 1) : gram_f32_tiles(W, nb)), stream));
     if (!complete)
-        return launch_gram_f32(pk, nb, rows, W, mave, mstd, 1, 0, ws.gram_part, ws.gram_acc,
+        return launch_gram_f32(pk, nb, rows, W, 1, mave, mstd, 1, 0, ws.gram_part, ws.gram_acc,
                                gram, stream);
-    err = launch_gram_i8(pk, nb, rows, W, ws.gram_acc, gram, stream);
+    err = launch_gram_i8(pk, nb, rows, W, 1, ws.gram_acc, gram, stream);
     if (err) return err;
     gram_standardize_kernel<<<cdiv(static_cast<long long>(W) * W, 256), 256, 0, stream>>>(
         gram, W, mave, mstd, ws.v, n_real);
@@ -763,10 +751,38 @@ __global__ void window_gibbs_kernel(const float* __restrict__ G,
 
 extern "C" {
 
-// Bytes of device scratch one sweep needs (the caller allocates it).
-long long hydra_sweep_workspace_bytes(int nb, int window, int exact, int complete) {
-    return static_cast<long long>(
-        hydra::layout(nullptr, nb, window, exact != 0, complete != 0).bytes);
+// Bytes of device scratch one sweep of m_loc markers needs (the caller
+// allocates it).
+long long hydra_sweep_workspace_bytes(int m_loc, int nb, int window, int exact) {
+    if (window < 1 || m_loc < window) return 0;
+    return static_cast<long long>(hydra::layout(nullptr, m_loc, nb, window, exact != 0).bytes);
+}
+
+// The Grams of the n_windows windows order[w W .. w W + W) of pk (m_loc,
+// nb), into out (n_windows, W, W) f32, gram_batch_windows windows a
+// launch, as the exact sweep computes them: complete data the raw g g^T,
+// missing data x x^T with x = (g - mave m) mstd from mave, mstd (m_loc,)
+// per slot.
+int hydra_window_grams(const void* pk, const void* order, const void* mave, const void* mstd,
+                       void* out, int n_windows, int nb, int window, int complete,
+                       void* stream) {
+    using namespace hydra;
+    const int W = window;
+    if (W < 1 || W > 1024 || n_windows < 1 || nb <= 0 || nb % 128 ||
+        (complete && 4LL * nb > GRAM_I8_MAX_NPAD) ||
+        (!complete && (mave == nullptr || mstd == nullptr)))
+        return static_cast<int>(cudaErrorInvalidValue);
+    const int batch = gram_batch_windows(n_windows, W);
+    for (int w = 0; w < n_windows; w += batch) {
+        const int err = launch_gram_batch(
+            static_cast<const uint8_t*>(pk), nb, static_cast<const int*>(order), W, w,
+            n_windows, complete, static_cast<const float*>(mave),
+            static_cast<const float*>(mstd), 1,
+            static_cast<float*>(out) + static_cast<size_t>(w) * W * W,
+            static_cast<cudaStream_t>(stream));
+        if (err) return err;
+    }
+    return 0;
 }
 
 // A whole stale-window sweep. eps (4*nb,) is updated in place; out

@@ -78,6 +78,11 @@ __device__ __forceinline__ uint32_t geno_crumbs(uint32_t x) {
     return ((not_hi & ~x & 0x55555555u) << 1) | (not_hi & x);
 }
 
+// the four crumbs at bit 2k of each byte of a word, shifted to bits 0-1
+__device__ __forceinline__ uint32_t crumbs_at(uint32_t x, int k) {
+    return (x >> (2 * k)) & 0x03030303u;
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
@@ -206,40 +211,76 @@ inline dim3 stats_grid(int nb, int W) {
 inline int stats_threads(int W) { return W <= STATS_RPW ? 32 : STATS_THREADS; }
 
 // ------------------------------------------------------ complete gram --
-// The complete-data window Gram of the exact sweeps (hydra_sweep_exact,
-// hydra_sweep_exact_mt, hydra_window_stats): G = g g^T over the window's
-// rows, g = the genotype planes, written as f32 (W, W), raw (the callers
-// standardize it). Serves _sweep_exact_kernel (hydra_tpu/ops/
-// sweep_kernel.py:567; its Gram at :399-402) and window_stats (hydra_tpu/
-// ops/window_kernels.py:180).
+// The complete-data window Grams of the exact sweeps (hydra_sweep_exact,
+// hydra_sweep_exact_mt), of window_stats (hydra_window_stats) and of
+// hydra_window_grams: G_w = g g^T over window w's rows order[w W .. w W +
+// W), g = the genotype planes, for a batch of n consecutive windows in one
+// launch, written as f32 (n, W, W), raw (the callers standardize it).
+// Serves _sweep_exact_kernel (hydra_tpu/ops/sweep_kernel.py:567; its Gram
+// at :399-402), sweep_exact_mt (hydra_tpu/ops/sweep_kernel_mt.py:499) and
+// window_stats (hydra_tpu/ops/window_kernels.py:180).
 //
-// Bound: bytes, the W * nb packed bytes in and the (W, W) f32 out (1.67 MB
-// at W=128, N=50,000: 0.50 us at 3.35 TB/s), just above the symmetric
-// Gram's W (W + 1) n_pad int8 operations (0.83 G: 0.42 us at 1,979 TOP/s).
-// The design:
-//  - int8 tensor cores: mma.sync m16n8k32 s8 x s8 -> s32. Genotypes 0..2
-//    are exact in int8 and the sums in int32, so G is the same integer in
-//    any order: deterministic and bit for bit the plain version's g @ g^T.
+// Bound: bytes, the W * nb packed bytes a window in and its (W, W) f32
+// out (1.67 MB at W=128, N=50,000: 0.50 us at 3.35 TB/s), just above the
+// symmetric Gram's W (W + 1) n_pad int8 operations (0.83 G: 0.42 us at
+// 1,979 TOP/s). A window's Gram depends on its rows alone, not on eps or
+// the chain, so a sweep computes many windows' Grams in one launch ahead
+// of their draws, and a block owns one (window, upper tile) and runs all
+// of its individuals: no split, no atomics, no ticket, no memset, and the
+// launch is off the windows' chain of stats -> draw -> axpy. The design:
+//  - int8 tensor cores: mma.sync m16n8k32 s8 x s8 -> s32, the fragments
+//    loaded by ldmatrix. Genotypes 0..2 are exact in int8 and the sums in
+//    int32, so G is the same integer in any order of the individuals:
+//    deterministic and bit for bit the plain version's g @ g^T. A word's
+//    16 individuals are stored crumb-major (crumbs_at: byte 4k + q is
+//    crumb k of packed byte q), the same order in every row.
 //  - decode once: a block decodes its rows' packed words into int8 in
-//    shared memory (geno_crumbs + spread_crumbs: 16 genotypes a word, no
-//    table), and the next stage's packed words are loaded into registers
-//    while the tensor cores run the current one.
+//    shared memory (geno_crumbs + crumbs_at, 16 genotypes a word, no
+//    table; rows past W decode to 0), and the next stage's packed words
+//    are loaded into registers while the tensor cores run the current one.
 //  - symmetry: only the tiles ti <= tj of GRAM_I8_TILE rows run; a diagonal
 //    tile feeds the same shared rows to A (row-major) and B (column-major).
-//  - the individuals split across the card (grid.y) so that ~2 blocks an
-//    SM are in flight; the splits meet in one int32 accumulator (W, W) by
+//  - the per-window caller (window_stats, n = 1: 3 tiles at W=128) splits
+//    the individuals across blocks (grid.z) so that ~2 blocks an SM are in
+//    flight; the splits meet in one int32 accumulator (n, W, W) by
 //    coalesced integer atomics (exact in any order), and the last block of
 //    a tile (an atomic ticket) converts it to f32 in G, both triangles,
-//    and re-zeroes its accumulator and ticket for the next window. One
-//    launch per window; the caller zeroes acc once per call.
+//    and re-zeroes its accumulator and ticket; the caller zeroes acc once.
 // The f32 conversion is exact while every entry (<= 4 n_pad) is <= 2^24:
 // n_pad <= GRAM_I8_MAX_NPAD; the C entry points refuse more.
 constexpr int GRAM_I8_TILE = 64;          // output tile edge (window rows)
 constexpr int GRAM_I8_SB = 64;            // packed bytes a stage (256 individuals)
 constexpr int GRAM_I8_LD = 4 * GRAM_I8_SB + 16;   // shared row stride, bytes
+constexpr int GRAM_I8_TLD = GRAM_I8_TILE + 1;     // int32 stride of the output tile
 constexpr int GRAM_I8_THREADS = 256;
 constexpr int GRAM_I8_BLOCKS = 264;       // target blocks a launch (2 per SM)
 constexpr long long GRAM_I8_MAX_NPAD = 1LL << 22;
+// A sweep's batch of Grams: as many windows as GRAM_BATCH_BYTES of f32
+// hold (all 782 of M=100K at W=128; 16 at W=1024), at most
+// GRAM_BATCH_WINDOWS, so a sweep of any length reserves at most 64 MB.
+// ops/window_kernels.py keeps a copy of both (gram_batch_windows).
+constexpr long long GRAM_BATCH_BYTES = 64LL << 20;
+constexpr int GRAM_BATCH_WINDOWS = 4096;
+
+// windows a batched Gram launch of a sweep of n_windows windows of W takes
+inline int gram_batch_windows(int n_windows, int W) {
+    const long long cap = GRAM_BATCH_BYTES / (4LL * W * W);
+    long long b = cap < GRAM_BATCH_WINDOWS ? cap : GRAM_BATCH_WINDOWS;
+    if (b > n_windows) b = n_windows;
+    return b < 1 ? 1 : static_cast<int>(b);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// four 8 x 16-byte matrices from shared memory: lanes 8i .. 8i + 7 give
+// matrix i's row addresses; r[i] is matrix i's word at (lane / 4, lane % 4)
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(smem_u32(p)));
+}
 
 __device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0,
                                        uint32_t b1) {
@@ -250,13 +291,14 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// grid (nt (nt + 1) / 2, splits), GRAM_I8_THREADS threads. Block (tile,
-// split) sums its tile over split_bytes packed bytes into acc (W, W) int32;
-// tickets[tile] counts the splits done.
-__global__ void __launch_bounds__(GRAM_I8_THREADS)
-gram_i8_kernel(const uint8_t* __restrict__ pk, int nb, const int* __restrict__ order_w,
-               int W, int split_bytes, int* __restrict__ acc, int* __restrict__ tickets,
-               float* __restrict__ G) {
+// grid (nt (nt + 1) / 2, n, splits), GRAM_I8_THREADS threads. Block (tile,
+// w, split) sums tile `tile` of window w over split_bytes packed bytes;
+// with one split it writes G + w W^2 itself, else it adds into acc + w W^2
+// (int32) and tickets[w * tiles + tile] counts the splits done.
+__global__ void __launch_bounds__(GRAM_I8_THREADS, 3)
+gram_i8_batch_kernel(const uint8_t* __restrict__ pk, int nb, const int* __restrict__ order,
+                     int W, int split_bytes, int* __restrict__ acc,
+                     int* __restrict__ tickets, float* __restrict__ G) {
     __shared__ __align__(16) uint8_t sa[GRAM_I8_TILE * GRAM_I8_LD];
     __shared__ __align__(16) uint8_t sb[GRAM_I8_TILE * GRAM_I8_LD];
     __shared__ int s_last;
@@ -267,7 +309,10 @@ gram_i8_kernel(const uint8_t* __restrict__ pk, int nb, const int* __restrict__ o
     const bool diag = ti == tj;
     const uint8_t* sbr = diag ? sa : sb;
     const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-    const int b0 = blockIdx.y * split_bytes;
+    const size_t WW = static_cast<size_t>(W) * W;
+    const int* order_w = order + static_cast<size_t>(blockIdx.y) * W;
+    float* Gw = G + blockIdx.y * WW;
+    const int b0 = blockIdx.z * split_bytes;
     const int b1 = min(b0 + split_bytes, nb);
 
     // loader: a stage is GRAM_I8_TILE rows x 16 packed words a tile; this
@@ -286,12 +331,15 @@ gram_i8_kernel(const uint8_t* __restrict__ pk, int nb, const int* __restrict__ o
                                 pk + static_cast<size_t>(order_w[rb]) * nb) + wd
                           : nullptr;
     }
-    uint32_t wa[4], wb[4];
-    auto load = [&](int s) {
+    // wa, wb: the next stage's words; na, nb_: the stage after, in flight
+    // while the next is stored and the current multiplied (two stages in
+    // flight measured faster than one where the blocks are few)
+    uint32_t wa[4], wb[4], na[4], nb_[4];
+    auto load = [&](uint32_t (&xa)[4], uint32_t (&xb)[4], int s) {
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
-            wa[q] = src_a[q] ? __ldg(src_a[q] + s / 4) : 0u;
-            wb[q] = (!diag && src_b[q]) ? __ldg(src_b[q] + s / 4) : 0u;
+            xa[q] = src_a[q] && s < b1 ? __ldg(src_a[q] + s / 4) : 0u;
+            xb[q] = !diag && src_b[q] && s < b1 ? __ldg(src_b[q] + s / 4) : 0u;
         }
     };
     auto store = [&](uint8_t* dst, bool second) {
@@ -299,74 +347,104 @@ gram_i8_kernel(const uint8_t* __restrict__ pk, int nb, const int* __restrict__ o
         for (int q = 0; q < 4; ++q) {
             const uint32_t y = geno_crumbs(second ? wb[q] : wa[q]);
             // rows past W decode to 0, not to the genotype 2 of a 0 byte
-            const uint4 v = (second ? src_b[q] : src_a[q]) ? make_uint4(spread_crumbs(y & 0xffu),
-                                                spread_crumbs((y >> 8) & 0xffu),
-                                                spread_crumbs((y >> 16) & 0xffu),
-                                                spread_crumbs(y >> 24))
-                                   : make_uint4(0u, 0u, 0u, 0u);
+            const uint4 v = (second ? src_b[q] : src_a[q])
+                                ? make_uint4(crumbs_at(y, 0), crumbs_at(y, 1), crumbs_at(y, 2),
+                                             crumbs_at(y, 3))
+                                : make_uint4(0u, 0u, 0u, 0u);
             *reinterpret_cast<uint4*>(dst + ((tid >> 4) + 16 * q) * GRAM_I8_LD + 16 * wd) = v;
         }
     };
 
-    // warp: rows 16 (warp & 3) .. +16 of the tile, columns 32 (warp >> 2) .. +32
+    // warp: rows 16 (warp & 3) .. +16 of the tile, columns 32 (warp >> 2) ..
+    // +32. ldmatrix rows: A's four 8 x 16-byte matrices are (rows 0-7, 8-15)
+    // x (bytes 0-15, 16-31) of the warp's 16 rows; B's, a pair of 8-column
+    // blocks 2p, 2p + 1, (block 2p, 2p + 1) x (bytes 0-15, 16-31)
     const int g = lane >> 2, t4 = lane & 3;
     const int m0 = 16 * (warp & 3), n0 = 32 * (warp >> 2);
+    const uint8_t* la = sa + (m0 + (lane & 7) + 8 * ((lane >> 3) & 1)) * GRAM_I8_LD +
+                        16 * (lane >> 4);
+    const uint8_t* lb = sbr + (n0 + 8 * (lane >> 4) + (lane & 7)) * GRAM_I8_LD +
+                        16 * ((lane >> 3) & 1);
     int c[4][4] = {};
-    if (b0 < b1) load(b0);
+    load(wa, wb, b0);
+    load(na, nb_, b0 + GRAM_I8_SB);
     for (int s = b0; s < b1; s += GRAM_I8_SB) {
         __syncthreads();                  // the previous stage is consumed
         store(sa, false);
         if (!diag) store(sb, true);
         __syncthreads();
-        if (s + GRAM_I8_SB < b1) load(s + GRAM_I8_SB);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+            wa[q] = na[q];
+            wb[q] = nb_[q];
+        }
+        load(na, nb_, s + 2 * GRAM_I8_SB);
 #pragma unroll
         for (int kk = 0; kk < 4 * GRAM_I8_SB; kk += 32) {
-            const uint8_t* pa = sa + (m0 + g) * GRAM_I8_LD + kk + 4 * t4;
-            const uint32_t a[4] = {
-                *reinterpret_cast<const uint32_t*>(pa),
-                *reinterpret_cast<const uint32_t*>(pa + 8 * GRAM_I8_LD),
-                *reinterpret_cast<const uint32_t*>(pa + 16),
-                *reinterpret_cast<const uint32_t*>(pa + 8 * GRAM_I8_LD + 16)};
+            uint32_t a[4];
+            ldmatrix_x4(a, la + kk);
 #pragma unroll
-            for (int nn = 0; nn < 4; ++nn) {
-                const uint8_t* pb = sbr + (n0 + 8 * nn + g) * GRAM_I8_LD + kk + 4 * t4;
-                mma_s8(c[nn], a, *reinterpret_cast<const uint32_t*>(pb),
-                       *reinterpret_cast<const uint32_t*>(pb + 16));
+            for (int p = 0; p < 2; ++p) {
+                uint32_t b[4];
+                ldmatrix_x4(b, lb + 16 * p * GRAM_I8_LD + kk);
+                mma_s8(c[2 * p], a, b[0], b[1]);
+                mma_s8(c[2 * p + 1], a, b[2], b[3]);
             }
         }
     }
 
-    // the block's tile through shared memory, then coalesced atomics
+    // the block's tile through shared memory (int32, row stride
+    // GRAM_I8_TLD), then coalesced stores: G's both triangles, or atomics
     __syncthreads();
-    int* tile = reinterpret_cast<int*>(sa);          // [64][64] int32, 16 KB
+    int* tile = reinterpret_cast<int*>(sa);          // [64][65] int32, 16.6 KB
 #pragma unroll
     for (int nn = 0; nn < 4; ++nn)
 #pragma unroll
         for (int h = 0; h < 4; ++h)
-            tile[(m0 + g + 8 * (h >> 1)) * GRAM_I8_TILE + n0 + 8 * nn + 2 * t4 + (h & 1)] =
+            tile[(m0 + g + 8 * (h >> 1)) * GRAM_I8_TLD + n0 + 8 * nn + 2 * t4 + (h & 1)] =
                 c[nn][h];
     __syncthreads();
+    constexpr int PER = GRAM_I8_TILE * GRAM_I8_TILE / GRAM_I8_THREADS;
+    if (gridDim.z == 1) {
+#pragma unroll
+        for (int q = 0; q < PER; ++q) {
+            const int e = tid + q * GRAM_I8_THREADS;
+            const int r = e / GRAM_I8_TILE, cc = e % GRAM_I8_TILE;
+            int i = ti * GRAM_I8_TILE + r, j = tj * GRAM_I8_TILE + cc;
+            if (i < W && j < W) Gw[static_cast<size_t>(i) * W + j] = tile[r * GRAM_I8_TLD + cc];
+            // a diagonal tile holds both triangles; else row r of the
+            // transpose: G[tj T + r, ti T + cc] = tile[cc][r]
+            i = tj * GRAM_I8_TILE + r;
+            j = ti * GRAM_I8_TILE + cc;
+            if (!diag && i < W && j < W)
+                Gw[static_cast<size_t>(i) * W + j] = tile[cc * GRAM_I8_TLD + r];
+        }
+        return;
+    }
+    int* acc_w = acc + blockIdx.y * WW;
     for (int e = tid; e < GRAM_I8_TILE * GRAM_I8_TILE; e += GRAM_I8_THREADS) {
         const int i = ti * GRAM_I8_TILE + e / GRAM_I8_TILE;
         const int j = tj * GRAM_I8_TILE + e % GRAM_I8_TILE;
-        if (i < W && j < W) atomicAdd(acc + static_cast<size_t>(i) * W + j, tile[e]);
+        if (i < W && j < W)
+            atomicAdd(acc_w + static_cast<size_t>(i) * W + j,
+                      tile[(e / GRAM_I8_TILE) * GRAM_I8_TLD + e % GRAM_I8_TILE]);
     }
     __threadfence();
     __syncthreads();
-    if (tid == 0) s_last = atomicAdd(tickets + blockIdx.x, 1) == static_cast<int>(gridDim.y) - 1;
+    int* ticket = tickets + static_cast<size_t>(blockIdx.y) * gridDim.x + blockIdx.x;
+    if (tid == 0) s_last = atomicAdd(ticket, 1) == static_cast<int>(gridDim.z) - 1;
     __syncthreads();
     if (!s_last) return;
     __threadfence();
     // every split's atomics are done: read the tile from L2 (all loads in
     // flight at once, not one round trip each), then write G and zero acc
-    constexpr int PER = GRAM_I8_TILE * GRAM_I8_TILE / GRAM_I8_THREADS;
     int sum[PER];
 #pragma unroll
     for (int q = 0; q < PER; ++q) {
         const int e = tid + q * GRAM_I8_THREADS;
         const int i = ti * GRAM_I8_TILE + e / GRAM_I8_TILE;
         const int j = tj * GRAM_I8_TILE + e % GRAM_I8_TILE;
-        sum[q] = i < W && j < W ? __ldcg(acc + static_cast<size_t>(i) * W + j) : 0;
+        sum[q] = i < W && j < W ? __ldcg(acc_w + static_cast<size_t>(i) * W + j) : 0;
     }
 #pragma unroll
     for (int q = 0; q < PER; ++q) {
@@ -375,31 +453,39 @@ gram_i8_kernel(const uint8_t* __restrict__ pk, int nb, const int* __restrict__ o
         const int j = tj * GRAM_I8_TILE + e % GRAM_I8_TILE;
         if (i < W && j < W) {
             const float v = static_cast<float>(sum[q]);
-            G[static_cast<size_t>(i) * W + j] = v;
-            G[static_cast<size_t>(j) * W + i] = v;
-            acc[static_cast<size_t>(i) * W + j] = 0;
+            Gw[static_cast<size_t>(i) * W + j] = v;
+            Gw[static_cast<size_t>(j) * W + i] = v;
+            acc_w[static_cast<size_t>(i) * W + j] = 0;
         }
     }
-    if (tid == 0) tickets[blockIdx.x] = 0;
+    if (tid == 0) *ticket = 0;
 }
 
-// int32 words of the accumulator and tickets gram_i8_kernel needs
-inline size_t gram_i8_acc_ints(int W) {
+// int32 words of the accumulator and tickets of a split launch over n
+// windows
+inline size_t gram_i8_acc_ints(int W, int n = 1) {
     const size_t nt = (W + GRAM_I8_TILE - 1) / GRAM_I8_TILE;
-    return static_cast<size_t>(W) * W + nt * (nt + 1) / 2;
+    return (static_cast<size_t>(W) * W + nt * (nt + 1) / 2) * n;
 }
 
-// One window's complete-data Gram into G (W, W) f32. acc (gram_i8_acc_ints)
-// must be zero; it is zero again when the launch ends.
-inline int launch_gram_i8(const uint8_t* pk, int nb, const int* order_w, int W, int* acc,
-                          float* G, cudaStream_t stream) {
+// The raw complete-data Grams of the n windows order[0 .. n W) into G (n,
+// W, W) f32, one launch. acc == nullptr: one block a tile runs all the
+// individuals. Else (gram_i8_acc_ints(W, n) ints, zero; zero again when
+// the launch ends) the individuals split across blocks as far as the n
+// windows' tiles fall short of GRAM_I8_BLOCKS.
+inline int launch_gram_i8(const uint8_t* pk, int nb, const int* order, int W, int n,
+                          int* acc, float* G, cudaStream_t stream) {
     const int nt = cdiv(W, GRAM_I8_TILE);
     const int tiles = nt * (nt + 1) / 2;
     const int n_stage = nb / GRAM_I8_SB;
-    const int want = cdiv(GRAM_I8_BLOCKS, tiles);
-    const int per = want >= n_stage ? 1 : cdiv(n_stage, want);
-    gram_i8_kernel<<<dim3(tiles, cdiv(n_stage, per)), GRAM_I8_THREADS, 0, stream>>>(
-        pk, nb, order_w, W, per * GRAM_I8_SB, acc, acc + static_cast<size_t>(W) * W, G);
+    int per = n_stage;
+    if (acc != nullptr) {
+        const int want = cdiv(GRAM_I8_BLOCKS, static_cast<long long>(tiles) * n);
+        per = want >= n_stage ? 1 : cdiv(n_stage, want);
+    }
+    gram_i8_batch_kernel<<<dim3(tiles, n, cdiv(n_stage, per)), GRAM_I8_THREADS, 0, stream>>>(
+        pk, nb, order, W, per * GRAM_I8_SB, acc,
+        acc == nullptr ? nullptr : acc + static_cast<size_t>(W) * W * n, G);
     HYDRA_CHECK_LAUNCH();
     return 0;
 }
@@ -410,14 +496,6 @@ inline int launch_gram_i8(const uint8_t* pk, int nb, const int* order_w, int W, 
 // tile's loads in flight at once.
 __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
     asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-                     static_cast<unsigned>(__cvta_generic_to_shared(dst))),
-                 "l"(src)
-                 : "memory");
-}
-
-// One 8-byte asynchronous copy (both 8-byte aligned), cached in L1 and L2.
-__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(
                      static_cast<unsigned>(__cvta_generic_to_shared(dst))),
                  "l"(src)
                  : "memory");
@@ -436,67 +514,70 @@ __device__ __forceinline__ void cp_async_wait_all() {
     asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-// closes this thread's group of copies issued since the last commit
-__device__ __forceinline__ void cp_async_commit() {
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// waits until at most N of this thread's committed groups are in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-    asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // ------------------------------------------------------- missing gram --
-// The missing-data window Gram of the exact sweep (hydra_sweep_exact) and
-// window_stats (hydra_window_stats): G = x x^T in f32 (W, W), x = (g -
-// mave*m) * mstd, with window row r's statistics at mave[i * ld] and
-// mstd[i * ld], i = order_w[r] when by_slot (the sweep's mrow columns 0 and
-// 1), else i = r (window_stats' window-ordered vectors). Serves
-// _sweep_exact_kernel's Gram (hydra_tpu/ops/sweep_kernel.py:399-402) and
-// window_stats (hydra_tpu/ops/window_kernels.py:180) on missing genotypes.
+// The missing-data window Grams of the exact sweep (hydra_sweep_exact),
+// window_stats (hydra_window_stats) and hydra_window_grams: G_w = x x^T in
+// f32 (W, W) for a batch of n consecutive windows in one launch, x = (g -
+// mave*m) * mstd over window w's rows order[w W .. w W + W), with row r's
+// statistics at mave[i * ld] and mstd[i * ld], i = order[w W + r] when
+// by_slot (the sweep's mrow columns 0 and 1), else i = r (window_stats'
+// window-ordered vectors, n = 1). Serves _sweep_exact_kernel's Gram
+// (hydra_tpu/ops/sweep_kernel.py:399-402) and window_stats
+// (hydra_tpu/ops/window_kernels.py:180) on missing genotypes.
 //
 // The sums are fixed: per GRAM_CB-byte chunk (2,048 individuals) entry
 // (i, j) is one fmaf chain from 0.f over the chunk's individuals in
-// ascending order, and the chunks' partials are added in chunk order from
+// ascending order, and the chunks' sums are added in chunk order from
 // 0.f. fmaf(x_i, x_j, a) == fmaf(x_j, x_i, a), so G is symmetric bit for
-// bit, and no choice of tiles changes a bit.
+// bit, and no choice of tiles, batch or split changes a bit.
 //
-// Bound: operations, W (W + 1) / 2 * n_pad f32 multiply-adds for the
-// symmetric half (12.4 us at W=128, N=50,000 at 67 TFLOP/s; the W * nb
+// Bound: operations, W (W + 1) / 2 * n_pad f32 multiply-adds a window for
+// the symmetric half (12.4 us at W=128, N=50,000 at 67 TFLOP/s; the W * nb
 // packed bytes take 0.5 us). Tensor cores run no fmaf chain, so every
-// multiply-add is an FFMA whose two operands come from shared memory,
-// which hands an SM 32 floats a clock against its 128 FFMA lanes: a
-// thread's TR x TC chains use each loaded operand TC or TR times, so 4 x 4
-// chains run at most at half the FFMA peak, and the window's W (W + 1) / 2
-// * n_chunks chains (206,400 at W=128) leave about one multiplying warp a
-// scheduler, so latency is not hidden by other warps. The design:
-//  - one launch a window: grid (the tiles ti <= tj of T rows, chunks / G),
-//    G groups a block, one chunk each; a group's multiplying threads own
-//    TR x TC entries of its tile each (GramTile) and run their chains side
-//    by side, a shared float4 load feeding 4 TC or 4 TR multiply-adds; the
-//    block's multiplying warps come first, on distinct schedulers;
-//  - decode once, off the multiplying warps: each group's decoding warp
-//    copies a 16-byte stage (64 individuals) of the tile's packed rows by
-//    cp.async GRAM_F32_RING - 1 stages ahead and turns each crumb into one
-//    of its row's four x values (gram_x, the plain version's arithmetic,
-//    once a block) in a double-buffered f32 stage, handed over by named
-//    barriers (full / empty a buffer), so it decodes stage s + 1 while
-//    stage s is multiplied; a diagonal tile decodes its T rows once for
-//    both sides;
-//  - the chunk order in the same launch: each group writes its partial
-//    tile, and the last block of a tile (an atomic ticket) adds the
-//    partials in chunk order, all its threads, and writes both triangles of
-//    G, then re-zeroes its ticket; with one chunk the group writes G itself.
-// The tile (gram_f32_edge) trades operand reuse against blocks on the card:
-// GramWide where a launch still has GRAM_F32_BLOCKS groups, else
-// GramNarrow (W <= 64 at N=50,000).
+// multiply-add is an FFMA with both operands from shared memory. A
+// thread's TR x TR chains use each loaded operand TR times: 8 x 8 chains
+// (GramWide) load a quarter of an operand a multiply-add, 4 x 4 half of
+// one. A window's Gram depends on its rows and their statistics alone, so
+// a sweep computes many windows' Grams in one launch ahead of their
+// draws, enough blocks to fill the card with whole-window tiles. The
+// design:
+//  - grid (the tiles ti <= tj of T rows, n windows[, chunks]); a block of
+//    GRAM_F32_THREADS (8 x 8) owns one (window, tile) and walks its chunks
+//    in order; thread (ty, tx) owns rows h (T / H) + V ty + a and columns
+//    h (T / H) + V tx + b (V consecutive rows a vector load, H loads a
+//    side) and runs their TR x TR chains side by side on operands staged
+//    k-major (one individual's rows contiguous), so a quarter warp's loads
+//    are one broadcast A vector and eight consecutive B vectors;
+//  - decode once, by the same threads, between their chains: stage s + 1
+//    (GramWide: 4 packed bytes a row, 16 individuals; the smaller tiles
+//    16 bytes, 64 individuals) is decoded into one half of a
+//    double-buffered f32 stage while stage s is multiplied out of the
+//    other, one barrier a stage, so the decode's latency hides behind the
+//    multiply-adds of the same instruction stream (a separate decoding
+//    warp measured slower); GramWide's small stages keep 6 blocks an SM
+//    (16 KB of stages and 16 KB of running sums a block); thread t decodes
+//    rows t and t + 64 of the tile (its rows ti T.., then tj T..), each
+//    crumb into one of its row's four x values (gram_x, the plain
+//    version's arithmetic, once a thread and row; rows past W give 0), its
+//    packed words loaded from memory two stages ahead; a diagonal tile
+//    decodes its T rows once for both sides;
+//  - the chunk order in registers and shared memory: at a chunk's end each
+//    thread adds its chains into its running sums (shared memory, its own
+//    slots) and restarts them from 0.f; the last chunk's sums go to G,
+//    both triangles;
+//  - the per-window caller (window_stats, n = 1) has too few tiles to fill
+//    the card: there the launch splits the chunks across blocks (grid.z,
+//    one chunk a block), each writes its partial tile, and the last block
+//    of a tile (an atomic ticket, zeroed by the caller once) adds them in
+//    chunk order.
+// The tile (gram_f32_plan): the largest of GramWide (64 rows, 8 x 8
+// chains), GramMid (32, 4 x 4) and GramNarrow (16, 2 x 2), none wider
+// than W needs, whose tiles give a launch GRAM_F32_BLOCKS blocks; where
+// none does, the per-window caller splits.
 constexpr int GRAM_CB = 512;            // packed bytes a chunk (one fmaf chain)
-constexpr int GRAM_F32_SB = 16;         // packed bytes a row and stage
-constexpr int GRAM_F32_LD = 4 * GRAM_F32_SB + 4;   // f32 row stride: 4 banks apart
-constexpr int GRAM_F32_RING = 4;        // packed stages in shared memory
-constexpr int GRAM_F32_BATCH = 32;      // chunk partials a thread loads at once
-constexpr int GRAM_F32_BLOCKS = 200;    // the least groups a launch on GramWide
+constexpr int GRAM_F32_BATCH = 16;      // chunk partials a thread loads at once
+constexpr int GRAM_F32_BLOCKS = 200;    // the least blocks a launch
+constexpr int GRAM_F32_THREADS = 64;    // 8 x 8 threads a block
 
 // x of crumb c on a row with statistics (av, sd), as the plain version
 __device__ __forceinline__ float gram_x(int c, float av, float sd) {
@@ -512,245 +593,225 @@ __device__ __forceinline__ float pick4(const float4& l, uint32_t c) {
     return (c & 2u) ? hi : lo;
 }
 
-__device__ __forceinline__ float lane4(const float4& v, int k) {
-    return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
-}
-
-// A tile shape of gram_f32_kernel: T x T entries; NC multiplying threads,
-// thread (ty, tx) < (RS, CS) owning the TR x TC entries (ty + RS a, tx +
-// CS b); a quarter warp (8 threads, one ty) reads one A row and eight B
-// rows, in distinct banks; the group's decoding warp beside them
-template <int T_, int TR_, int TC_>
+// A tile shape of gram_f32_batch_kernel: T x T entries, thread (ty, tx)
+// of 8 x 8 owning TR x TR; a side's TR rows are H vector loads of V; a
+// stage is SB packed bytes a row (KS individuals), of which a thread
+// decodes DR rows (rows t + 64 q). Small tiles take long stages: their
+// chains are short, and a stage's barrier, loads and decode would
+// otherwise outweigh them
+template <int T_, int TR_, int SB_>
 struct GramTile {
-    static constexpr int T = T_, TR = TR_, TC = TC_;
-    static constexpr int RS = T / TR, CS = T / TC;
-    static constexpr int NC = RS * CS;
-    static constexpr int GROUP = NC + 32;
-    static_assert(CS == 8 && NC % 32 == 0, "a quarter warp covers the B side");
+    static constexpr int T = T_, TR = TR_, SB = SB_, KS = 4 * SB;
+    static_assert(SB == 4 || SB == 16, "a row's stage is one word or one uint4");
+    static constexpr int V = TR < 4 ? TR : 4;
+    static constexpr int H = TR / V;
+    static constexpr int R = 2 * T;                  // stage rows, both sides
+    static constexpr int DR = (R + GRAM_F32_THREADS - 1) / GRAM_F32_THREADS;
+    static_assert(8 * TR == T, "8 x 8 threads cover the tile");
 };
-using GramWide = GramTile<32, 4, 4>;      // two multiplying warps, 16 chains a thread
-using GramNarrow = GramTile<16, 2, 2>;    // two multiplying warps, 4 chains a thread
+using GramWide = GramTile<64, 8, 4>;
+using GramMid = GramTile<32, 4, 16>;
+using GramNarrow = GramTile<16, 2, 16>;
 
-// dynamic shared memory of one group of gram_f32_kernel on tiles of T
-// rows: two f32 stages of 2T rows, the packed ring (GRAM_F32_SB / 8 8-byte
-// units a row and stage), a row's four x values
-template <int T>
-__host__ __device__ constexpr size_t gram_f32_group_smem() {
-    return sizeof(float) * 2 * (2 * T) * GRAM_F32_LD +
-           8 * GRAM_F32_RING * (GRAM_F32_SB / 8) * (2 * T) + sizeof(float4) * (2 * T);
+// V consecutive floats of shared memory
+template <int V>
+__device__ __forceinline__ void load_v(float* dst, const float* src) {
+    if constexpr (V == 4) {
+        const float4 v = *reinterpret_cast<const float4*>(src);
+        dst[0] = v.x;
+        dst[1] = v.y;
+        dst[2] = v.z;
+        dst[3] = v.w;
+    } else {
+        const float2 v = *reinterpret_cast<const float2*>(src);
+        dst[0] = v.x;
+        dst[1] = v.y;
+    }
 }
 
-// named barrier id of n threads: wait for them all, or arrive and go on
-__device__ __forceinline__ void bar_sync(int id, int n) {
-    asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
-}
-
-__device__ __forceinline__ void bar_arrive(int id, int n) {
-    asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
-}
-
-// One group's chains of tile (ti, tj) over the chunk at packed byte b0:
-// thread tid < Tile::NC of group grp returns in acc[a][b] the chunk's sum
-// of its entry (a, b), in gram_f32_kernel's order; the group's decoding
-// warp (tid >= NC) copies and decodes the stages. smem: the group's
-// gram_f32_group_smem<T>() bytes.
+// dynamic shared memory of gram_f32_batch_kernel on Tile: two f32 stages of
+// KS individuals x 2T rows and the running sums
 template <class Tile>
-__device__ __forceinline__ void gram_f32_chunk(
-    float (&acc)[Tile::TR][Tile::TC], unsigned char* smem, int grp, int tid, int ti, int tj,
-    const uint8_t* __restrict__ pk, int nb, int b0, const int* __restrict__ order_w, int W,
-    const float* __restrict__ mave, const float* __restrict__ mstd, int ld, int by_slot) {
-    constexpr int T = Tile::T;
-    constexpr int R = 2 * T;                         // rows a stage, both sides
-    constexpr int UPR = GRAM_F32_SB / 8;             // 8-byte units a row and stage
-    constexpr int NU = UPR * R / 32;                 // units a decoding lane at most
-    constexpr int XS = R * GRAM_F32_LD;              // floats an f32 stage
-    float* xs = reinterpret_cast<float*>(smem);                       // [2][R][LD]
-    uint2* ring = reinterpret_cast<uint2*>(xs + 2 * XS);              // [RING][UPR R]
-    float4* lut = reinterpret_cast<float4*>(ring + GRAM_F32_RING * UPR * R);  // [R]
-    const bool diag = ti == tj;
-    const int rows = diag ? T : R;                   // a diagonal tile: one side
-    const int n_st = (min(b0 + GRAM_CB, nb) - b0) / GRAM_F32_SB;
-    const bool decoder = tid >= Tile::NC;
-    const int dl = tid - Tile::NC;                   // the decoding lane
-
-    // decoding lane dl's unit u = dl + 32 q < UPR rows: bytes 8 (u / rows)
-    // .. +8 of a stage of row u % rows (the tile's rows ti T.., then tj T..;
-    // a quarter warp's stores of decoded rows fall in distinct banks); rows
-    // past W decode to x = 0
-    const uint8_t* src[NU];
-#pragma unroll
-    for (int q = 0; q < NU; ++q) {
-        const int u = dl + 32 * q;
-        const int lr = u % rows;
-        const int r = lr < T ? ti * T + lr : tj * T + lr - T;
-        src[q] = nullptr;
-        if (!decoder || u >= UPR * rows) continue;
-        float4 l = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (r < W) {
-            const int slot = order_w[r];
-            src[q] = pk + static_cast<size_t>(slot) * nb + b0 + 8 * (u / rows);
-            const size_t si = static_cast<size_t>(by_slot ? slot : r) * ld;
-            const float av = mave[si], sd = mstd[si];
-            l = make_float4(gram_x(0, av, sd), gram_x(1, av, sd), gram_x(2, av, sd),
-                            gram_x(3, av, sd));
-        }
-        if (u < rows) lut[lr] = l;
-    }
-    auto issue = [&](int s) {          // stage s into ring slot s % RING
-        if (s < n_st) {
-#pragma unroll
-            for (int q = 0; q < NU; ++q)
-                if (src[q])
-                    cp_async8(ring + (s % GRAM_F32_RING) * UPR * R + dl + 32 * q,
-                              src[q] + s * GRAM_F32_SB);
-        }
-        cp_async_commit();
-    };
-    auto decode = [&](int s) {         // this lane's units of stage s -> xs[s & 1]
-        cp_async_wait<GRAM_F32_RING - 1>();
-#pragma unroll
-        for (int q = 0; q < NU; ++q) {
-            const int u = dl + 32 * q;
-            if (u >= UPR * rows) continue;
-            const int lr = u % rows;
-            const uint2 w = ring[(s % GRAM_F32_RING) * UPR * R + u];
-            const float4 l = lut[lr];
-            float* row = xs + (s & 1) * XS + lr * GRAM_F32_LD + 32 * (u / rows);
-#pragma unroll
-            for (int bi = 0; bi < 8; ++bi) {
-                const uint32_t byte = ((bi < 4 ? w.x : w.y) >> (8 * (bi & 3))) & 0xffu;
-                *reinterpret_cast<float4*>(row + 4 * bi) =
-                    make_float4(pick4(l, byte & 3u), pick4(l, (byte >> 2) & 3u),
-                                pick4(l, (byte >> 4) & 3u), pick4(l, byte >> 6));
-            }
-        }
-    };
-
-    // stage s goes through buffer s & 1: the decoding warp fills it and
-    // arrives on its full barrier, the multiplying warps wait there, use it
-    // and arrive on its empty barrier, which the decoding warp waits on
-    // before it fills the buffer again two stages later
-    const int full = 1 + 4 * grp, empty = full + 2;
-    if (decoder) {
-        for (int s = 0; s < GRAM_F32_RING - 1; ++s) issue(s);
-        __syncwarp();                                // lut
-        for (int s = 0; s < n_st; ++s) {
-            if (s >= 2) bar_sync(empty + (s & 1), Tile::GROUP);
-            issue(s + GRAM_F32_RING - 1);
-            decode(s);
-            __threadfence_block();
-            bar_arrive(full + (s & 1), Tile::GROUP);
-        }
-        return;
-    }
-    const int ty = tid / Tile::CS, tx = tid % Tile::CS;
-    const int bside = diag ? 0 : T;                  // the B rows' first stage row
-#pragma unroll
-    for (int a = 0; a < Tile::TR; ++a)
-#pragma unroll
-        for (int b = 0; b < Tile::TC; ++b) acc[a][b] = 0.f;
-    for (int s = 0; s < n_st; ++s) {
-        bar_sync(full + (s & 1), Tile::GROUP);
-        const float* xa = xs + (s & 1) * XS + ty * GRAM_F32_LD;
-        const float* xb = xs + (s & 1) * XS + (bside + tx) * GRAM_F32_LD;
-#pragma unroll
-        for (int k = 0; k < 4 * GRAM_F32_SB; k += 4) {       // four individuals a step
-            // the B side first: a[0]'s chains can start as a[0] lands
-            float4 a[Tile::TR], b[Tile::TC];
-#pragma unroll
-            for (int j = 0; j < Tile::TC; ++j)
-                b[j] = *reinterpret_cast<const float4*>(xb + Tile::CS * j * GRAM_F32_LD + k);
-#pragma unroll
-            for (int i = 0; i < Tile::TR; ++i)
-                a[i] = *reinterpret_cast<const float4*>(xa + Tile::RS * i * GRAM_F32_LD + k);
-#pragma unroll
-            for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-                for (int i = 0; i < Tile::TR; ++i)
-#pragma unroll
-                    for (int j = 0; j < Tile::TC; ++j)
-                        acc[i][j] = fmaf(lane4(a[i], kk), lane4(b[j], kk), acc[i][j]);
-        }
-        if (s + 2 < n_st) bar_arrive(empty + (s & 1), Tile::GROUP);
-    }
+__host__ __device__ constexpr size_t gram_f32_smem() {
+    return sizeof(float) * (2 * Tile::KS * Tile::R +
+                            Tile::TR * Tile::TR * GRAM_F32_THREADS);
 }
 
-// grid (nt (nt + 1) / 2, ceil(n_chunks / G)), G * Tile::GROUP threads,
-// G * gram_f32_group_smem<T>() bytes. Group g of block (tile, y) runs chunk
-// G y + g and writes its partial tile to part[(tile * n_chunks + chunk) *
-// T * T + li * T + lj]; tickets[tile] counts the chunks done, and the last
-// block of a tile adds them, all its threads. The multiplying warps come
-// first (group g's are warps g NC / 32 ..), then the G decoding warps, so
-// the multiplying warps fall on distinct schedulers of the SM.
-template <class Tile, int G>
-__global__ void __launch_bounds__(G * Tile::GROUP)
-gram_f32_kernel(const uint8_t* __restrict__ pk, int nb, int n_chunks,
-                const int* __restrict__ order_w, int W, const float* __restrict__ mave,
-                const float* __restrict__ mstd, int ld, int by_slot,
-                float* __restrict__ part, int* __restrict__ tickets,
-                float* __restrict__ G_out) {
-    static_assert(4 * G <= 15, "named barriers 1 .. 4G");
-    constexpr int T = Tile::T;
-    constexpr int NCW = Tile::NC / 32;               // multiplying warps a group
+// grid (nt (nt + 1) / 2, n, 1 or n_chunks), GRAM_F32_THREADS threads,
+// gram_f32_smem<Tile>() bytes. Block (tile, w, z) runs tile `tile` of
+// window w over all chunks (gridDim.z == 1) and writes G + w W^2, or over
+// chunk z alone, writing its partial tile to part[((w * tiles + tile) *
+// n_chunks + z) * T^2 + li T + lj]; then tickets[w * tiles + tile] counts
+// the chunks done, and the last block adds them.
+template <class Tile>
+__global__ void __launch_bounds__(GRAM_F32_THREADS, 6)
+gram_f32_batch_kernel(const uint8_t* __restrict__ pk, int nb, const int* __restrict__ order,
+                      int W, const float* __restrict__ mave, const float* __restrict__ mstd,
+                      int ld, int by_slot, float* __restrict__ part, int* __restrict__ tickets,
+                      float* __restrict__ G) {
+    constexpr int T = Tile::T, TR = Tile::TR, V = Tile::V, H = Tile::H, R = Tile::R;
+    constexpr int DR = Tile::DR, NT = GRAM_F32_THREADS;
+    constexpr int SB = Tile::SB, KS = Tile::KS, NW = SB / 4;
+    constexpr int XS = KS * R;                       // floats an f32 stage
     constexpr size_t TT = static_cast<size_t>(T) * T;
     extern __shared__ __align__(16) unsigned char gram_smem[];
+    float* xs = reinterpret_cast<float*>(gram_smem);                 // [2][KS][R]
+    float* s_sum = xs + 2 * XS;                                      // [TR TR][NT]
     __shared__ int s_last;
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    const int grp = warp < G * NCW ? warp / NCW : warp - G * NCW;
-    const int tid = warp < G * NCW ? 32 * (warp % NCW) + lane : Tile::NC + lane;
-    const int chunk = blockIdx.y * G + grp;
-    const int n_live = min(G, n_chunks - static_cast<int>(blockIdx.y) * G);
+    const int tid = threadIdx.x;
     const int nt = (W + T - 1) / T;
     int ti = 0, rest = blockIdx.x;
     while (rest >= nt - ti) rest -= nt - ti++;
     const int tj = ti + rest;
     const bool diag = ti == tj;
-    float acc[Tile::TR][Tile::TC];
-    if (grp < n_live)                                // the last block: maybe a spare group
-        gram_f32_chunk<Tile>(acc, gram_smem + grp * gram_f32_group_smem<T>(), grp, tid, ti,
-                             tj, pk, nb, chunk * GRAM_CB, order_w, W, mave, mstd, ld,
-                             by_slot);
+    const int* order_w = order + static_cast<size_t>(blockIdx.y) * W;
+    float* Gw = G + static_cast<size_t>(blockIdx.y) * W * W;
+    const bool split = gridDim.z > 1;
+    const int n_chunks = (nb + GRAM_CB - 1) / GRAM_CB;
+    const int bs = split ? blockIdx.z * GRAM_CB : 0;
+    const int be = split ? min(bs + GRAM_CB, nb) : nb;
+    const int n_st = (be - bs) / SB;
+    constexpr int ST_CHUNK = GRAM_CB / SB;           // stages a chunk
+    const int rows = diag ? T : R;                   // a diagonal tile: one side
 
-    // G[i, j] and G[j, i] of tile entry (li, lj) (a diagonal tile: li <= lj)
-    auto put = [&](int li, int lj, float v) {
-        const int i = ti * T + li, j = tj * T + lj;
-        if (i < W && j < W && (!diag || li <= lj)) {
-            G_out[static_cast<size_t>(i) * W + j] = v;
-            G_out[static_cast<size_t>(j) * W + i] = v;
+    // the decoding side: this thread's stage rows u = tid + NT q < rows
+    // (the tile's rows ti T.., then tj T..), their packed words and x
+    // values; a row past W reads row 0's words with all x = 0
+    const uint8_t* src[DR];
+    float4 lut[DR];
+#pragma unroll
+    for (int q = 0; q < DR; ++q) {
+        const int u = tid + NT * q;
+        const int r = u < T ? ti * T + u : tj * T + u - T;
+        const bool live = u < rows && r < W;
+        src[q] = pk + static_cast<size_t>(order_w[live ? r : 0]) * nb + bs;
+        lut[q] = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (live) {
+            const size_t si = static_cast<size_t>(by_slot ? order_w[r] : r) * ld;
+            const float av = mave[si], sd = mstd[si];
+            lut[q] = make_float4(gram_x(0, av, sd), gram_x(1, av, sd), gram_x(2, av, sd),
+                                 gram_x(3, av, sd));
+        }
+    }
+    // stage s's words (s clamped to the last stage: the loads past the end
+    // are never decoded into a stage that is read)
+    auto load = [&](uint32_t (&w)[DR][NW], int s) {
+        s = min(s, n_st - 1);
+#pragma unroll
+        for (int q = 0; q < DR; ++q) {
+            if constexpr (NW == 1) {
+                w[q][0] = __ldg(reinterpret_cast<const uint32_t*>(src[q] + s * SB));
+            } else {
+                const uint4 v = __ldg(reinterpret_cast<const uint4*>(src[q] + s * SB));
+                w[q][0] = v.x;
+                w[q][1] = v.y;
+                w[q][2] = v.z;
+                w[q][3] = v.w;
+            }
         }
     };
-    const bool owner = grp < n_live && tid < Tile::NC;   // holds acc
-    const int ty = tid / Tile::CS, tx = tid % Tile::CS;
-    if (n_chunks == 1) {
-        if (owner) {
+    // a stage's x into buffer b: xs[b][k][u] for this thread's rows u
+    auto decode = [&](const uint32_t (&w)[DR][NW], int b) {
+        float* dst = xs + b * XS + tid;
 #pragma unroll
-            for (int i = 0; i < Tile::TR; ++i)
+        for (int q = 0; q < DR; ++q) {
+            if (tid + NT * q < rows) {
 #pragma unroll
-                for (int j = 0; j < Tile::TC; ++j)
-                    put(ty + Tile::RS * i, tx + Tile::CS * j, __fadd_rn(0.f, acc[i][j]));
+                for (int k = 0; k < KS; ++k)
+                    dst[k * R + NT * q] = pick4(lut[q], (w[q][k / 16] >> (2 * (k % 16))) & 3u);
+            }
         }
+    };
+
+    const int ty = tid / 8, tx = tid % 8;
+    const int bside = diag ? 0 : T;                  // the B rows' first stage row
+    float acc[TR][TR];
+#pragma unroll
+    for (int e = 0; e < TR * TR; ++e) s_sum[e * NT + tid] = 0.f;
+#pragma unroll
+    for (int i = 0; i < TR; ++i)
+#pragma unroll
+        for (int j = 0; j < TR; ++j) acc[i][j] = 0.f;
+    uint32_t wcur[DR][NW], wnext[DR][NW];
+    load(wcur, 0);
+    load(wnext, 1);
+    decode(wcur, 0);
+    __syncthreads();
+    for (int s = 0; s < n_st; ++s) {
+        // stage s + 1's x into the other buffer (past the last stage:
+        // never read), stage s + 2's words from memory, stage s's chains
+#pragma unroll
+        for (int q = 0; q < DR; ++q)
+#pragma unroll
+            for (int j = 0; j < NW; ++j) wcur[q][j] = wnext[q][j];
+        load(wnext, s + 2);
+        decode(wcur, (s + 1) & 1);
+        const float* xk = xs + (s & 1) * XS;
+        // an explicit count: with the bare pragma, 32-individual stages of
+        // this loop ran about 1.5x slower at W=128
+#pragma unroll(KS)
+        for (int k = 0; k < KS; ++k) {
+            float a[TR], b[TR];
+#pragma unroll
+            for (int h = 0; h < H; ++h) {
+                load_v<V>(a + h * V, xk + k * R + h * (T / H) + V * ty);
+                load_v<V>(b + h * V, xk + k * R + bside + h * (T / H) + V * tx);
+            }
+#pragma unroll
+            for (int i = 0; i < TR; ++i)
+#pragma unroll
+                for (int j = 0; j < TR; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+        }
+        __syncthreads();
+        if ((s + 1) % ST_CHUNK == 0 || s + 1 == n_st) {
+            // a chunk's end: its sums into the running sums, in chunk order
+            // from 0.f (split: the block's one chunk, as is)
+#pragma unroll
+            for (int i = 0; i < TR; ++i)
+#pragma unroll
+                for (int j = 0; j < TR; ++j) {
+                    float* sp = s_sum + (i * TR + j) * NT + tid;
+                    *sp = split ? acc[i][j] : __fadd_rn(*sp, acc[i][j]);
+                    acc[i][j] = 0.f;
+                }
+        }
+    }
+
+    // G[i, j] of tile entry (li, lj), and G[j, i] off the diagonal (a
+    // diagonal tile computes both triangles itself)
+    auto put = [&](int li, int lj, float v) {
+        const int i = ti * T + li, j = tj * T + lj;
+        if (i < W && j < W) {
+            Gw[static_cast<size_t>(i) * W + j] = v;
+            if (!diag) Gw[static_cast<size_t>(j) * W + i] = v;
+        }
+    };
+    auto row_of = [&](int i, int t) { return i / V * (T / H) + V * t + i % V; };
+    if (!split) {
+#pragma unroll
+        for (int i = 0; i < TR; ++i)
+#pragma unroll
+            for (int j = 0; j < TR; ++j)
+                put(row_of(i, ty), row_of(j, tx), s_sum[(i * TR + j) * NT + tid]);
         return;
     }
-    if (owner) {
-        float* mine = part + (static_cast<size_t>(blockIdx.x) * n_chunks + chunk) * TT;
+    const size_t tile_id = static_cast<size_t>(blockIdx.y) * gridDim.x + blockIdx.x;
+    float* mine = part + (tile_id * n_chunks + blockIdx.z) * TT;
 #pragma unroll
-        for (int i = 0; i < Tile::TR; ++i)
+    for (int i = 0; i < TR; ++i)
 #pragma unroll
-            for (int j = 0; j < Tile::TC; ++j)
-                mine[(ty + Tile::RS * i) * T + tx + Tile::CS * j] = acc[i][j];
-    }
+        for (int j = 0; j < TR; ++j)
+            mine[row_of(i, ty) * T + row_of(j, tx)] = s_sum[(i * TR + j) * NT + tid];
     __threadfence();
     __syncthreads();
-    if (threadIdx.x == 0)
-        s_last = atomicAdd(tickets + blockIdx.x, n_live) + n_live == n_chunks;
+    if (tid == 0) s_last = atomicAdd(tickets + tile_id, 1) + 1 == n_chunks;
     __syncthreads();
     if (!s_last) return;
     __threadfence();
     // every chunk's partial is in: the sums from 0.f in chunk order, a
     // batch of chunks' loads in flight at once, from L2
-    const float4* tile = reinterpret_cast<const float4*>(
-        part + static_cast<size_t>(blockIdx.x) * n_chunks * TT);
-    for (int e4 = threadIdx.x; e4 < static_cast<int>(TT / 4); e4 += blockDim.x) {
+    const float4* tile = reinterpret_cast<const float4*>(part + tile_id * n_chunks * TT);
+    for (int e4 = tid; e4 < static_cast<int>(TT / 4); e4 += NT) {
         float sum[4] = {0.f, 0.f, 0.f, 0.f};
         for (int c0 = 0; c0 < n_chunks; c0 += GRAM_F32_BATCH) {
             float4 v[GRAM_F32_BATCH];
@@ -761,64 +822,100 @@ gram_f32_kernel(const uint8_t* __restrict__ pk, int nb, int n_chunks,
 #pragma unroll
             for (int c = 0; c < GRAM_F32_BATCH; ++c) {
                 if (c0 + c < n_chunks) {
-#pragma unroll
-                    for (int k = 0; k < 4; ++k) sum[k] += lane4(v[c], k);
+                    sum[0] += v[c].x;
+                    sum[1] += v[c].y;
+                    sum[2] += v[c].z;
+                    sum[3] += v[c].w;
                 }
             }
         }
 #pragma unroll
         for (int k = 0; k < 4; ++k) put((4 * e4 + k) / T, (4 * e4 + k) % T, sum[k]);
     }
-    if (threadIdx.x == 0) tickets[blockIdx.x] = 0;
+    if (tid == 0) tickets[tile_id] = 0;
 }
 
-// The tile edge of a window's missing-data Gram: GramWide's 32 where the
-// launch still has GRAM_F32_BLOCKS groups, else GramNarrow's 16
-inline int gram_f32_edge(int W, int nb) {
-    const long long nt = cdiv(W, GramWide::T);
-    return nt * (nt + 1) / 2 * cdiv(nb, GRAM_CB) >= GRAM_F32_BLOCKS ? GramWide::T
-                                                                     : GramNarrow::T;
+// The tile and split of a missing-data Gram launch over n windows (see
+// section's note): T rows, split the chunks across blocks or not
+struct GramF32Plan {
+    int T;
+    bool split;
+};
+
+inline GramF32Plan gram_f32_plan(int W, int n, int nb, bool can_split) {
+    const int top = W > 32 ? GramWide::T : W > 16 ? GramMid::T : GramNarrow::T;
+    auto blocks = [&](int T) {
+        const long long nt = cdiv(W, T);
+        return nt * (nt + 1) / 2 * n;
+    };
+    for (int T = top; T >= GramNarrow::T; T /= 2)
+        if (blocks(T) >= GRAM_F32_BLOCKS) return {T, false};
+    if (!can_split) return {GramNarrow::T, false};
+    const long long chunks = cdiv(nb, GRAM_CB);
+    for (int T = top; T >= GramNarrow::T; T /= 2)
+        if (blocks(T) * chunks >= GRAM_F32_BLOCKS) return {T, true};
+    return {GramNarrow::T, true};
 }
 
-// the upper tiles of a window's missing-data Gram: its tickets
+// the upper tiles a window of a split launch: its tickets
 inline size_t gram_f32_tiles(int W, int nb) {
-    const size_t nt = cdiv(W, gram_f32_edge(W, nb));
+    const size_t nt = cdiv(W, gram_f32_plan(W, 1, nb, true).T);
     return nt * (nt + 1) / 2;
 }
 
-// floats of the chunk partials a window's missing-data Gram writes
+// floats of the chunk partials a window's split launch writes
 inline size_t gram_f32_part_floats(int W, int nb) {
-    const size_t T = gram_f32_edge(W, nb);
-    return gram_f32_tiles(W, nb) * cdiv(nb, GRAM_CB) * T * T;
+    const GramF32Plan p = gram_f32_plan(W, 1, nb, true);
+    return p.split ? gram_f32_tiles(W, nb) * cdiv(nb, GRAM_CB) * p.T * p.T : 0;
 }
 
-template <class Tile, int G>
-inline int launch_gram_f32_tile(const uint8_t* pk, int nb, const int* order_w, int W,
-                                const float* mave, const float* mstd, int ld, int by_slot,
-                                float* part, int* tickets, float* G_out,
+template <class Tile>
+inline int launch_gram_f32_tile(const uint8_t* pk, int nb, const int* order, int W, int n,
+                                bool split, const float* mave, const float* mstd, int ld,
+                                int by_slot, float* part, int* tickets, float* G,
                                 cudaStream_t stream) {
     const int nt = cdiv(W, Tile::T);
-    const int n_chunks = cdiv(nb, GRAM_CB);
-    constexpr size_t smem = G * gram_f32_group_smem<Tile::T>();
-    HYDRA_CHECK(allow_smem(gram_f32_kernel<Tile, G>, smem));
-    gram_f32_kernel<Tile, G><<<dim3(nt * (nt + 1) / 2, cdiv(n_chunks, G)), G * Tile::GROUP,
-                               smem, stream>>>(pk, nb, n_chunks, order_w, W, mave, mstd, ld,
-                                               by_slot, part, tickets, G_out);
+    constexpr size_t smem = gram_f32_smem<Tile>();
+    // the opt-in counts the static ticket flag too
+    HYDRA_CHECK(allow_smem(gram_f32_batch_kernel<Tile>, smem + sizeof(int)));
+    gram_f32_batch_kernel<Tile>
+        <<<dim3(nt * (nt + 1) / 2, n, split ? cdiv(nb, GRAM_CB) : 1), GRAM_F32_THREADS, smem,
+           stream>>>(pk, nb, order, W, mave, mstd, ld, by_slot, part, tickets, G);
     HYDRA_CHECK_LAUNCH();
     return 0;
 }
 
-// One window's missing-data Gram into G (W, W) f32. tickets
-// (gram_f32_tiles ints) must be zero; they are zero again when the launch
-// ends. part holds gram_f32_part_floats.
-inline int launch_gram_f32(const uint8_t* pk, int nb, const int* order_w, int W,
+// The missing-data Grams of the n windows order[0 .. n W) into G (n, W, W)
+// f32, one launch. part == nullptr: no split (the sweeps, many windows).
+// Else (n = 1: gram_f32_part_floats floats; tickets gram_f32_tiles ints,
+// zero, and zero again when the launch ends) the chunks may split.
+inline int launch_gram_f32(const uint8_t* pk, int nb, const int* order, int W, int n,
                            const float* mave, const float* mstd, int ld, int by_slot,
                            float* part, int* tickets, float* G, cudaStream_t stream) {
-    return gram_f32_edge(W, nb) == GramWide::T
-               ? launch_gram_f32_tile<GramWide, 2>(pk, nb, order_w, W, mave, mstd, ld,
-                                                   by_slot, part, tickets, G, stream)
-               : launch_gram_f32_tile<GramNarrow, 1>(pk, nb, order_w, W, mave, mstd, ld,
-                                                     by_slot, part, tickets, G, stream);
+    const GramF32Plan p = gram_f32_plan(W, n, nb, part != nullptr);
+    auto* const launch = p.T == GramWide::T  ? launch_gram_f32_tile<GramWide>
+                         : p.T == GramMid::T ? launch_gram_f32_tile<GramMid>
+                                             : launch_gram_f32_tile<GramNarrow>;
+    return launch(pk, nb, order, W, n, p.split, mave, mstd, ld, by_slot, part, tickets, G,
+                  stream);
+}
+
+// The exact sweeps' batched Grams: where window w of a sweep of n_windows
+// windows of W (order: the sweep's) starts a batch of gram_batch_windows,
+// the Grams of that batch's windows into G (batch, W, W), one launch, else
+// nothing. Complete data the raw g g^T, missing data x x^T from the
+// statistics at mave[slot * ld], mstd[slot * ld]; neither splits the
+// individuals.
+inline int launch_gram_batch(const uint8_t* pk, int nb, const int* order, int W, int w,
+                             int n_windows, int complete, const float* mave,
+                             const float* mstd, int ld, float* G, cudaStream_t stream) {
+    const int batch = gram_batch_windows(n_windows, W);
+    if (w % batch) return 0;
+    const int* order_w = order + static_cast<size_t>(w) * W;
+    const int n = n_windows - w < batch ? n_windows - w : batch;
+    return complete ? launch_gram_i8(pk, nb, order_w, W, n, nullptr, G, stream)
+                    : launch_gram_f32(pk, nb, order_w, W, n, mave, mstd, ld, 1, nullptr,
+                                      nullptr, G, stream);
 }
 
 // ----------------------------------------------------------- stale draw --
@@ -1033,11 +1130,6 @@ constexpr int AXPY_DIRECT = 8;               // up to this W, no shared tile
 // byte q of x (a crumb 0..3) as a float, exactly: 2^23 + c - 2^23
 __device__ __forceinline__ float byte_float(uint32_t x, int q) {
     return __int_as_float(__byte_perm(x, 0x4B000000u, 0x7540 | q)) - 8388608.0f;
-}
-
-// the four crumbs at bit 2k of each byte of a word, shifted to bits 0-1
-__device__ __forceinline__ uint32_t crumbs_at(uint32_t x, int k) {
-    return (x >> (2 * k)) & 0x03030303u;
 }
 
 // A block's tile of the window's packed rows, for axpy_kernel and

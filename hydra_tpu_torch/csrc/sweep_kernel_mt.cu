@@ -24,7 +24,9 @@
 // being the barrier between phases:
 //   stale: stats_mt -> axpy_mt, which draws the window itself  (2 launches;
 //          stats_mt -> stale_draw_mt -> axpy_mt above MT_FOLD_MAX_W)
-//   exact: stats_mt -> gram_i8 -> exact_mt_draw -> axpy_mt            (4)
+//   exact: stats_mt -> exact_mt_draw -> axpy_mt                       (3)
+//          and, at a batch's first window, the batch's Grams in one launch
+//          (gram_i8_batch_kernel, sweep_kernel.cuh)
 // The exact sweep is valid for complete genotypes and full phenotypes only
 // (the trait-shared integer Gram, standardized with trait 0's statistics
 // and n_real; hydra_tpu/samplers/bayesrrm_mt.py:748-749 gates it the same).
@@ -42,9 +44,9 @@
 // chain of W steps per trait: one block per trait, each the BayesRRm exact
 // draw's warp-synchronous design (warp_recurrence, sweep_kernel.cuh).
 //
-// Determinism: no float atomics (the Gram's are integer, exact in any
-// order). Partials land in per-tile scratch and are reduced in a fixed
-// order, so equal inputs give bitwise-equal outputs.
+// Determinism: no atomics (a block owns its Gram tile whole). Partials
+// land in per-tile scratch and are reduced in a fixed order, so equal
+// inputs give bitwise-equal outputs.
 
 #include <algorithm>
 #include <cstdint>
@@ -786,12 +788,11 @@ struct MtWorkspace {
     float* part_s2;
     float* part_v;
     float* coef;
-    float* gram;
-    int* gram_acc;        // gram_i8_kernel's accumulator and tickets
+    float* gram;          // exact: a batch of Grams (gram_batch_windows, W, W)
     size_t bytes;
 };
 
-inline MtWorkspace layout_mt(void* base, int nb, int W, int T, bool exact) {
+inline MtWorkspace layout_mt(void* base, int m_loc, int nb, int W, int T, bool exact) {
     const size_t n_tiles = cdiv(nb, MT_STATS_TB);
     const size_t wt = static_cast<size_t>(W) * T;
     size_t off = 0;
@@ -806,10 +807,8 @@ inline MtWorkspace layout_mt(void* base, int nb, int W, int T, bool exact) {
     ws.part_s2 = take(n_tiles * wt);
     ws.part_v = take(n_tiles * W);
     ws.coef = take(2 * wt);
-    if (exact) {
-        ws.gram = take(static_cast<size_t>(W) * W);
-        ws.gram_acc = reinterpret_cast<int*>(take(gram_i8_acc_ints(W)));
-    }
+    if (exact)
+        ws.gram = take(static_cast<size_t>(gram_batch_windows(m_loc / W, W)) * W * W);
     ws.bytes = off;
     return ws;
 }
@@ -826,8 +825,9 @@ int run_sweep_mt(bool exact, const uint8_t* pk, float* eps, const float* tm,
         tm == nullptr || (exact && !complete) || (exact && 4LL * nb > GRAM_I8_MAX_NPAD))
         return static_cast<int>(cudaErrorInvalidValue);
     const int C = T * (N_FIXED + 3 * K - 2);
-    const MtWorkspace ws = layout_mt(ws_base, nb, W, T, exact);
+    const MtWorkspace ws = layout_mt(ws_base, m_loc, nb, W, T, exact);
     const int n_windows = m_loc / W;
+    const int batch = gram_batch_windows(n_windows, W);
     const int n_tiles = cdiv(nb, MT_STATS_TB);
     const int mode = !complete ? MODE_MISSING
                                : (exact ? MODE_EXACT_COMPLETE : MODE_STALE_COMPLETE);
@@ -839,13 +839,16 @@ int run_sweep_mt(bool exact, const uint8_t* pk, float* eps, const float* tm,
                                            stale_draw_mt_kernel<K_MAX>);
     const StaleDrawArgs dr{mrow, C, K, ws.part_s1, ws.part_s2, n_tiles, sc, out};
     const bool fold = !exact && W <= MT_FOLD_MAX_W;
-    if (exact) {
-        HYDRA_CHECK(allow_smem(draw, draw_smem));
-        HYDRA_CHECK(cudaMemsetAsync(ws.gram_acc, 0, sizeof(int) * gram_i8_acc_ints(W), stream));
-    }
+    if (exact) HYDRA_CHECK(allow_smem(draw, draw_smem));
     for (int w = 0; w < n_windows; ++w) {
         const int* order_w = order + static_cast<size_t>(w) * W;
         const int* next_w = w + 1 < n_windows ? order_w + W : nullptr;
+        if (exact) {
+            // at a batch's first window, the batch's Grams, ahead of their draws
+            const int err = launch_gram_batch(pk, nb, order, W, w, n_windows, 1, nullptr,
+                                              nullptr, 0, ws.gram, stream);
+            if (err) return err;
+        }
         int err = launch_stats_mt(pk, nb, eps, T, order_w, next_w, W, mode, ws.part_s1,
                                   ws.part_s2, ws.part_v, stream);
         if (err) return err;
@@ -855,11 +858,9 @@ int run_sweep_mt(bool exact, const uint8_t* pk, float* eps, const float* tm,
             continue;
         }
         if (exact) {
-            err = launch_gram_i8(pk, nb, order_w, W, ws.gram_acc, ws.gram, stream);
-            if (err) return err;
             draw<<<T, cdiv(W, 32) * 32, draw_smem, stream>>>(
                 mrow, C, K, T, order_w, W, ws.part_s1, ws.part_s2, ws.part_v, n_tiles,
-                ws.gram, sc, out, ws.coef);
+                ws.gram + static_cast<size_t>(w % batch) * W * W, sc, out, ws.coef);
         } else {
             stale_draw<<<cdiv(static_cast<long long>(W) * T, MT_DRAW_THREADS), MT_DRAW_THREADS,
                          0, stream>>>(dr, T, order_w, W, complete, ws.coef);
@@ -875,10 +876,12 @@ int run_sweep_mt(bool exact, const uint8_t* pk, float* eps, const float* tm,
 
 extern "C" {
 
-// Bytes of device scratch one sweep or one window_stats_mt call needs.
-long long hydra_mt_workspace_bytes(int nb, int window, int n_traits, int exact) {
+// Bytes of device scratch one sweep of m_loc markers (or one
+// window_stats_mt call: m_loc = window, exact = 0) needs.
+long long hydra_mt_workspace_bytes(int m_loc, int nb, int window, int n_traits, int exact) {
+    if (window < 1 || m_loc < window) return 0;
     return static_cast<long long>(
-        hydra::layout_mt(nullptr, nb, window, n_traits, exact != 0).bytes);
+        hydra::layout_mt(nullptr, m_loc, nb, window, n_traits, exact != 0).bytes);
 }
 
 // A whole stale multi-trait sweep. eps (n_pad, T) is updated in place; tm
@@ -919,7 +922,7 @@ int hydra_window_stats_mt(const void* pk, const void* eps, const void* rows, voi
     const int W = window, T = n_traits;
     if (!shapes_ok_mt(nb, W, T) || (!complete && s2 == nullptr))
         return static_cast<int>(cudaErrorInvalidValue);
-    const MtWorkspace w = layout_mt(ws, nb, W, T, false);
+    const MtWorkspace w = layout_mt(ws, W, nb, W, T, false);
     const int n_tiles = cdiv(nb, MT_STATS_TB);
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
     const int err = launch_stats_mt(

@@ -35,6 +35,7 @@ _SIGNATURES = {
         "hydra_sweep_stale": ([_p] * 8 + [_i] * 5 + [_p], _i),
         "hydra_sweep_exact": ([_p] * 8 + [_i] * 5 + [_p], _i),
         "hydra_sweep_workspace_bytes": ([_i] * 4, ctypes.c_longlong),
+        "hydra_window_grams": ([_p] * 5 + [_i] * 4 + [_p], _i),
         "hydra_sweep_stale_sd": ([_p] * 8 + [_i] * 6 + [_p], _i),
         "hydra_sweep_sd_workspace_bytes": ([_i] * 3, ctypes.c_longlong),
         "hydra_window_stats": ([_p] * 10 + [_i] * 4 + [_p], _i),
@@ -56,7 +57,7 @@ _SIGNATURES = {
         "hydra_window_stats_mt": ([_p] * 6 + [_i] * 4 + [_p], _i),
         "hydra_window_axpy_mt": ([_p] * 4 + [_i] * 4 + [_p], _i),
         "hydra_mt_window_recurrence": ([_p] * 6 + [_i] * 4 + [_p], _i),
-        "hydra_mt_workspace_bytes": ([_i] * 4, ctypes.c_longlong),
+        "hydra_mt_workspace_bytes": ([_i] * 5, ctypes.c_longlong),
         "hydra_mt_error_string": ([_i], ctypes.c_char_p),
     },
     "planes_kernel.cu": {

@@ -334,8 +334,8 @@ def _launch(name, exact, pk, eps, mrow, i_2se, dNm1, window, n_mix, complete,
         fn = lib.hydra_sweep_stale_sd
         shape = (m_loc, nb, window, sub_window, n_mix, int(complete))
     else:
-        nbytes = lib.hydra_sweep_workspace_bytes(nb, window, int(exact),
-                                                 int(complete))
+        nbytes = lib.hydra_sweep_workspace_bytes(m_loc, nb, window,
+                                                 int(exact))
         fn = lib.hydra_sweep_exact if exact else lib.hydra_sweep_stale
         shape = (m_loc, nb, window, n_mix, int(complete))
     ws = torch.empty(nbytes, dtype=torch.uint8, device=dev)

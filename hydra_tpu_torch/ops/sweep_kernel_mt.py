@@ -328,7 +328,8 @@ def _launch(name, exact, pk, eps, tm, mrow, i_2se, dNm1, window, n_mix,
     i2se = i_2se.to(device=dev, dtype=f32)
     dnm1 = dNm1.to(device=dev, dtype=f32)
     sc = torch.cat([i2se, dnm1, dnm1[:1] + 1.0]).contiguous()
-    ws = torch.empty(lib.hydra_mt_workspace_bytes(nb, window, T, int(exact)),
+    ws = torch.empty(lib.hydra_mt_workspace_bytes(m_loc, nb, window, T,
+                                                  int(exact)),
                      dtype=torch.uint8, device=dev)
     eps_out = eps.clone()
     out = torch.zeros((m_loc, 3 * T), dtype=f32, device=dev)

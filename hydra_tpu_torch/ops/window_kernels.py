@@ -23,13 +23,20 @@ f32 with crumb k of byte b at 4b + k (no plane-major layout).
   window_axpy(pk, c1, c2) -> dε = sum_m c1_m G_m + c2_m M_m; complete data
       returns only the genotype part (the caller adds sum(c2) and masks):
           d_eps = (window_axpy(..., complete=True) + c2.sum()) * ind_mask
+  window_grams(pk, order, window[, mave, mstd]) -> (n_windows, W, W): the
+      Grams of the consecutive windows order[w W .. w W + W) of all rows, as
+      the exact sweeps compute them ahead of their draws, many windows a
+      launch: complete data (mave None) the raw integer g g^T, missing data
+      x x^T with x = (g - mave*m) * mstd from per-slot mave, mstd (m_loc,).
 
 For CUDA tensors the wrappers launch the kernels (``window_stats``:
 ``hydra_window_stats`` of ``csrc/sweep_kernel.cu``, which reuses the sweep's
 ``stats_kernel`` and Gram kernels; the others ``csrc/sweep_kernel_bw.cu``'s
 ``levels_kernel`` and the shared ``axpy_kernel``); for CPU tensors they run
-the plain versions ``*_ref``. The same BayesW kernels run inside every
-window of ``sweep_stale_bw``, and ``launches`` counts them there as well.
+the plain versions ``*_ref``. ``window_grams`` launches
+``hydra_window_grams``, the exact sweeps' batched Gram kernels. The same
+BayesW kernels run inside every window of ``sweep_stale_bw``, and
+``launches`` counts them there as well.
 
 ``sweep_update_ref`` replays a whole sweep's residual updates from its
 draws in axpy_kernel's order, the reference the sweeps' axpy is held to;
@@ -47,7 +54,7 @@ operation. On the card the plain version and the kernel then agree bit for
 bit, but for the missing-data Gram and a pad row's h = 3 products in
 complete stale data (3*eps rounds in the plain version, not in the kernel's
 fused multiply-add; pad rows have mstd = 0). The missing-data Gram's kernel
-(gram_f32_kernel) runs one fused multiply-add chain an entry per
+(gram_f32_batch_kernel) runs one fused multiply-add chain an entry per
 2,048-individual chunk, individuals in order, and adds the chunks in order;
 the plain version's ``x @ x.T`` is a library matmul, so the two agree to
 f32 rounding (about 3e-5 of the diagonal), not bit for bit.
@@ -68,7 +75,7 @@ _LANES = 32
 # Kernel launches per name: one per standalone wrapper call, plus one per
 # window of each sweep_stale_bw call (the sweep launches the same kernels).
 launches = {"window_stats": 0, "window_level_sums": 0, "window_axpy": 0,
-            "window_stats_mt": 0, "window_axpy_mt": 0}
+            "window_stats_mt": 0, "window_axpy_mt": 0, "window_grams": 0}
 
 
 def reset_launches() -> None:
@@ -363,6 +370,96 @@ def window_stats(pk: torch.Tensor, eps: torch.Tensor, mave: torch.Tensor,
     return out[0], (None if complete else out[1]), gram
 
 
+def _check_grams(pk, order, window, mave, mstd) -> int:
+    if pk.dtype != torch.uint8 or pk.dim() != 2:
+        raise ValueError(f"pk must be (m_loc, NB) uint8, got {pk.dtype} "
+                         f"{tuple(pk.shape)}")
+    if (order.dim() != 1 or order.dtype not in (torch.int32, torch.int64)
+            or window < 1 or order.numel() % window or not order.numel()):
+        raise ValueError(f"order must be windows of {window} int32 slots, "
+                         f"got {order.dtype} {tuple(order.shape)}")
+    if (mave is None) != (mstd is None):
+        raise ValueError("missing-data Grams need both mave and mstd")
+    for name, x in (("mave", mave), ("mstd", mstd)):
+        if x is not None and (x.dtype != f32
+                              or tuple(x.shape) != (pk.shape[0],)):
+            raise ValueError(f"{name} must be ({pk.shape[0]},) float32 per "
+                             f"slot, got {x.dtype} {tuple(x.shape)}")
+    return order.numel() // window
+
+
+def window_grams_ref(pk: torch.Tensor, order: torch.Tensor, window: int,
+                     mave: Optional[torch.Tensor] = None,
+                     mstd: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain PyTorch window Grams (same contract as ``window_grams``): each
+    window's Gram as ``window_stats_ref`` forms it, stacked (n_windows, W,
+    W) through ``order``, 256 windows a batched product (their decoded rows
+    in memory at once). Complete data is exact (integer sums below 2^24);
+    missing data is ``x @ x.T`` of a library matmul."""
+    n_windows = _check_grams(pk, order, window, mave, mstd)
+    out = torch.empty((n_windows, window, window), dtype=f32,
+                      device=pk.device)
+    order = order.long()
+    step = 256
+    for w0 in range(0, n_windows, step):
+        slots = order[w0 * window:(w0 + step) * window]
+        g, m = decode_planes_hp(pk[slots])
+        if mave is not None:
+            g = (g - mave[slots, None] * m) * mstd[slots, None]
+        x = g.view(-1, window, g.shape[1])
+        out[w0:w0 + x.shape[0]] = torch.bmm(x, x.transpose(1, 2))
+    return out
+
+
+# a sweep's batch of Grams: GRAM_BATCH_BYTES and GRAM_BATCH_WINDOWS of
+# csrc/sweep_kernel.cuh
+GRAM_BATCH_BYTES, GRAM_BATCH_WINDOWS = 64 << 20, 4096
+
+
+def gram_batch_windows(n_windows: int, window: int) -> int:
+    """Windows one batched Gram launch of an exact sweep of ``n_windows``
+    windows takes (``gram_batch_windows`` of csrc/sweep_kernel.cuh): as many
+    as GRAM_BATCH_BYTES of f32 Grams hold, at most GRAM_BATCH_WINDOWS and
+    n_windows, at least 1."""
+    cap = GRAM_BATCH_BYTES // (4 * window * window)
+    return max(1, min(cap, GRAM_BATCH_WINDOWS, n_windows))
+
+
+def window_grams(pk: torch.Tensor, order: torch.Tensor, window: int,
+                 mave: Optional[torch.Tensor] = None,
+                 mstd: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The Grams (n_windows, W, W) of the windows order[w W .. w W + W) of
+    pk (m_loc, NB): the exact sweeps' batched Gram kernels on CUDA tensors
+    (``gram_batch_windows`` windows a launch), the plain version on CPU
+    tensors. mave, mstd (m_loc,) per slot give missing-data Grams; without
+    them the raw integer Gram of the genotype planes."""
+    n_windows = _check_grams(pk, order, window, mave, mstd)
+    if pk.device.type == "cpu":
+        return window_grams_ref(pk, order, window, mave, mstd)
+    _card_rows(pk, None, window, "window_grams")
+    from hydra_tpu_torch.ops import _build
+
+    dev = pk.device
+    if order.dtype != torch.int32:
+        raise ValueError(f"order must be int32, got {order.dtype}")
+    for name, x in (("order", order), ("mave", mave), ("mstd", mstd)):
+        if x is not None and (x.device != dev or not x.is_contiguous()):
+            raise ValueError(f"{name} must be contiguous and on {dev}")
+    lib = _build.load()
+    out = torch.empty((n_windows, window, window), dtype=f32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.hydra_window_grams(
+            pk.data_ptr(), order.data_ptr(),
+            None if mave is None else mave.data_ptr(),
+            None if mstd is None else mstd.data_ptr(), out.data_ptr(),
+            n_windows, pk.shape[1], window, int(mave is None), _stream(dev))
+    if err:
+        raise RuntimeError("window_grams kernel launch failed: "
+                           f"{lib.hydra_sweep_error_string(err).decode()}")
+    launches["window_grams"] += 1
+    return out
+
+
 def window_level_sums(pk: torch.Tensor, vi: torch.Tensor,
                       complete: bool = False):
     """(s1, s2, sb) per window marker: the CUDA kernel on CUDA tensors, the
@@ -615,7 +712,7 @@ def window_stats_mt(pk: torch.Tensor, eps: torch.Tensor,
     nb = pk.shape[1]
     s1 = torch.empty((W, T), dtype=f32, device=dev)
     s2 = None if complete else torch.empty((W, T), dtype=f32, device=dev)
-    ws = torch.empty(lib.hydra_mt_workspace_bytes(nb, W, T, 0),
+    ws = torch.empty(lib.hydra_mt_workspace_bytes(W, nb, W, T, 0),
                      dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
         err = lib.hydra_window_stats_mt(

@@ -308,8 +308,8 @@ class BayesRRm:
         """Refuse a run whose device arrays cannot fit before allocating
         them: packed bytes, the int8 planes (one byte per genotype), per-slot
         rows (twice on the per-window branch: the sweep-order copy) and the
-        largest sweep scratch (the exact-mode Gram, the single-decode
-        sweep's decoded rows), against the card's free memory
+        largest sweep scratch (the exact sweep's batch of window Grams, the
+        single-decode sweep's decoded rows), against the card's free memory
         (torch.cuda.mem_get_info)."""
         from hydra_tpu_torch.ops import _build
 
@@ -317,7 +317,7 @@ class BayesRRm:
         lib = _build.load()
         exact, complete = int(cfg.exact), int(cfg.complete)
         workspace = max(
-            lib.hydra_sweep_workspace_bytes(nb, cfg.window, exact, complete),
+            lib.hydra_sweep_workspace_bytes(cfg.m_loc, nb, cfg.window, exact),
             lib.hydra_window_workspace_bytes(nb, cfg.window, exact, complete),
             lib.hydra_sweep_sd_workspace_bytes(nb, cfg.window,
                                                cfg.sub_window))

@@ -330,7 +330,7 @@ class BayesRRmMT:
         cfg = self.cfg
         T, W = cfg.n_traits, cfg.window
         workspace = _build.load("sweep_kernel_mt.cu").hydra_mt_workspace_bytes(
-            nb, W, T, int(cfg.exact))
+            cfg.m_loc, nb, W, T, int(cfg.exact))
         need = (2 * cfg.m_loc * nb
                 + cfg.m_loc * 4 * (mt_mrow_width(cfg.k, T) + 8 * T
                                    + cfg.num_groups)

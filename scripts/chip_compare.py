@@ -19,12 +19,15 @@ tree's ``chip_smoke.print_library_times`` the single-trait packed passes
 and the missing-data Gram beside their library calls, on the same calls,
 and this tree's ``chip_smoke.print_missing_exact_times`` BayesRRm exact
 W=128 and W=64 on 2% missing genotypes at M=100,000 x N=50,000 and the
-missing-data Gram alone a window (W 64, 128, 256, 1024).
+missing-data Gram alone a window (W 64, 128, 256, 1024), per window and,
+where the tree batches the exact sweeps' Grams, batched.
 
 Compare two versions inside one call, in turns, e.g. a ``git archive`` of
 the parent unpacked into a git-ignored directory beside this tree:
 
-    python3 scripts/chip_compare.py [--logs DIR] build/parent . . build/parent
+    python3 scripts/chip_compare.py [--logs DIR] [--digests] build/parent . . build/parent
+
+``--digests`` runs the digests alone in each tree (a minute or two a tree).
 
 Each run goes to ``DIR/compare_<i>_<tree>.log`` (default ``build/compare``,
 git-ignored); a summary line per configuration (ms/sweep, CUDA-event
@@ -60,6 +63,8 @@ from hydra_tpu_torch.samplers.bayesrrm import BayesRRm
 card = sys.argv[1]
 torch.backends.cuda.matmul.allow_tf32 = False
 d.print_digests(torch, np)
+if sys.argv[3:] == ["digests"]:
+    sys.exit(0)
 d.print_mt_pass_times(torch, np, card)
 d.print_stale_fold_times(torch, np, card)
 d.print_library_times(torch, np, card)
@@ -102,7 +107,8 @@ SWEEP = re.compile(r"\((\d+) device kernels in the profile.*host enqueue ([\d.]+
 KERNEL = re.compile(r"([\d.]+) us/window\s+(?:void )?hydra::(stats|axpy|stats_mt|axpy_mt|"
                     r"axpy_decoded|stale_draw|stale_draw_mt|exact_draw|exact_mt_draw|"
                     r"window_recurrence_mt|levels|bw_draw|gram|gram_reduce|"
-                    r"gram_f32|gram_i8)_kernel(<[^(]*>)?\(")
+                    r"gram_f32|gram_i8|gram_f32_batch|gram_i8_batch)_kernel"
+                    r"(<[^(]*>)?\(")
 FOLD = re.compile(r"^stale fold (.*?): (.*) a window; draw \+ axpy ([\d.]+) us; "
                   r"(\d+) launches")
 DIGEST = re.compile(r"^digest (.*): sha256 ([0-9a-f]{64})")
@@ -152,6 +158,9 @@ def main(argv) -> int:
     logs_dir = "build/compare"
     if argv[:1] == ["--logs"]:
         logs_dir, argv = argv[1], argv[2:]
+    only = argv[:1] == ["--digests"]
+    if only:
+        argv = argv[1:]
     trees = argv or ["."]
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -166,7 +175,8 @@ def main(argv) -> int:
         name = os.path.basename(os.path.abspath(tree))
         log = os.path.join(out, f"compare_{i}_{name}.log")
         with open(log, "w") as fh:
-            r = subprocess.run([sys.executable, "-c", PAYLOAD, card, smoke],
+            r = subprocess.run([sys.executable, "-c", PAYLOAD, card, smoke]
+                               + (["digests"] if only else []),
                                cwd=tree, stdout=fh, stderr=subprocess.STDOUT,
                                timeout=900).returncode
         print(f"tree {tree}: exit {r}, log {log}", flush=True)

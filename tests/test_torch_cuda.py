@@ -619,15 +619,115 @@ def test_cuda_window_path_kernels_match_plain(exact, missing):
         assert after[name] == before[name] + int(complete and not exact)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("window", [33, 128, 256])
-def test_cuda_complete_gram_is_exact(window):
-    """The complete-data Gram (int8 tensor cores, the individuals split
-    across blocks and summed by integer atomics) is bit for bit the plain
-    version's, standardized and raw, and the same on a second call (its
-    accumulator is left zeroed). Two sizes: the second has more
-    individuals, so more splits reach every tile."""
+# The batched window Grams (window_grams, the exact sweeps' Gram launches):
+# windows a call (the cap: gram_batch_windows' windows a launch; cap + 1:
+# two launches), W across the 64-row int8 tiles and the 16/32/64-row f32
+# tiles, N = 2,048, 2,049 and 5,000 (1, 2 and 3 chunks, pad individuals)
+GRAM_BATCHES = (1, 2, 7, "cap", "cap+1")
+GRAM_WINDOWS = (1, 8, 33, 64, 128, 200, 1024)
+GRAM_NS = (2048, 2049, 5000)
+
+
+def _batched_gram_params(old, path=None):
+    """The test's earlier cases (ids kept), then the batched cases (with
+    ``path`` first where the test takes one)."""
+    head = () if path is None else (path,)
+    return old + [pytest.param(*head, w, n, b, id="-".join(
+        [*head, str(w), str(n), f"B{b}"]))
+        for w in GRAM_WINDOWS for n in GRAM_NS for b in GRAM_BATCHES]
+
+
+def _check_batched_grams(window, n, batch, missing):
+    """window_grams over windows of a shuffled order of all slots: complete
+    data g g^T bit for bit; missing data (2% missing calls, mave and mstd
+    per slot) within the forward error bound of its summation order of
+    x x^T in float64 on the same f32 x, symmetric bit for bit; both
+    repeatable bit for bit, and bit for bit window_stats' Gram of the same
+    rows (the per-window path, its individuals split across blocks) at the
+    first, middle and last window; the cap launches once, cap + 1 twice."""
     from hydra_tpu_torch.ops.decode import decode_planes_hp
+    dev = _card()
+    cap = twk.gram_batch_windows(1 << 30, window)
+    n_windows = {"cap": cap, "cap+1": cap + 1}.get(batch, batch)
+    nb = -(-n // 512) * 128
+    m = n_windows * window
+    g = torch.Generator(device=dev).manual_seed(window + n)
+    h = torch.randint(0, 3, (m, 4 * nb), generator=g, device=dev,
+                      dtype=torch.uint8)
+    if missing:
+        h[torch.rand((m, 4 * nb), generator=g, device=dev) < 0.02] = 3
+    h[:, n:] = 3
+    pads = torch.randperm(m, generator=g, device=dev)[:m // 8]
+    h[pads] = 3
+    h4 = h.view(m, nb, 4)
+    pk = (h4[..., 0] | (h4[..., 1] << 2) | (h4[..., 2] << 4)
+          | (h4[..., 3] << 6)).contiguous()
+    del h, h4
+    order = torch.randperm(m, generator=g, device=dev).to(torch.int32)
+    if missing:
+        mave = 2.0 * torch.rand(m, generator=g, device=dev)
+        mstd = 0.8 + 0.8 * torch.rand(m, generator=g, device=dev)
+        mave[pads], mstd[pads] = 0.0, 0.0
+        kw = dict(mave=mave, mstd=mstd)
+    else:
+        kw = {}
+    got = twk.window_grams(pk, order, window, **kw)
+    again = twk.window_grams(pk, order, window, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    step = 64
+    for w0 in range(0, n_windows, step):
+        slots = order[w0 * window:(w0 + step) * window].long()
+        part = got[w0:w0 + step]
+        if not missing:
+            x = decode_planes_hp(pk[slots])[0].view(-1, window, 4 * nb)
+            assert torch.equal(part, torch.bmm(x, x.transpose(1, 2)))
+            continue
+        assert torch.equal(part, part.transpose(1, 2))
+        gg, mk = decode_planes_hp(pk[slots])
+        x = ((gg - mave[slots, None] * mk) * mstd[slots, None]).double()
+        x = x.view(-1, window, 4 * nb)
+        bound = (2048 + -(-nb // 512)) * 2.0 ** -24 * torch.bmm(
+            x.abs(), x.abs().transpose(1, 2))
+        err = (part.double() - torch.bmm(x, x.transpose(1, 2))).abs()
+        assert bool((err <= 1.01 * bound).all())
+    eps = torch.zeros(4 * nb, device=dev)
+    for w in sorted({0, n_windows // 2, n_windows - 1}):
+        rows = order[w * window:(w + 1) * window].contiguous()
+        if missing:
+            av = mave[rows.long()].contiguous()
+            sd = mstd[rows.long()].contiguous()
+            one = twk.window_stats(pk, eps, av, sd, True, False, float(n),
+                                   rows)[2]
+        else:
+            ones = torch.ones(window, device=dev)
+            one = twk.window_stats(pk, eps, ones * 0.0, ones, True, True,
+                                   0.0, rows)[2]
+        torch.cuda.synchronize()
+        assert torch.equal(got[w], one), w
+    if batch in ("cap", "cap+1"):
+        kernel = "gram_f32_batch_kernel" if missing else "gram_i8_batch_kernel"
+        want = {kernel: 1 if batch == "cap" else 2}
+        names = _port_launches(lambda: twk.window_grams(pk, order, window,
+                                                        **kw))
+        assert names == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window,n,batch", _batched_gram_params(
+    [pytest.param(w, None, None, id=str(w)) for w in (33, 128, 256)]))
+def test_cuda_complete_gram_is_exact(window, n, batch):
+    """The complete-data Gram (int8 tensor cores) is bit for bit the plain
+    version's. The per-window path (window_stats: the individuals split
+    across blocks and summed by integer atomics), standardized and raw, and
+    the same on a second call (its accumulator is left zeroed), at two
+    sizes: the second has more individuals, so more splits reach every
+    tile. The batched path (window_grams, as the exact sweeps launch it):
+    _check_batched_grams."""
+    from hydra_tpu_torch.ops.decode import decode_planes_hp
+    if batch is not None:
+        _check_batched_grams(window, n, batch, False)
+        return
     dev = _card()
     for nb in (256, 2048):
         pk, eps, _, mrow, n = make_inputs(320, nb, 13, False, 4)
@@ -1434,11 +1534,18 @@ def test_cuda_stale_fold_matches_plain(path, window, n_mix, n_traits,
 def _port_launches(fn):
     """{port kernel name: launches} of one call of fn, from torch.profiler's
     device activities (a session that comes back empty is taken again)."""
+    import time
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            # a session's first kernels can go unrecorded (up to 7 seen,
+            # a sweep's Gram among them): spin kernels and a pause first
+            for _ in range(16):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            time.sleep(0.02)
             fn()
             torch.cuda.synchronize()
         out = {}
@@ -1454,25 +1561,33 @@ def _port_launches(fn):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [2048, 2049, 5000])
-@pytest.mark.parametrize("window", [1, 20, 32, 33, 64, 128, 256, 1024])
-@pytest.mark.parametrize("path", ["window_stats", "sweep_exact"])
-def test_cuda_missing_gram(path, window, n):
-    """The missing-data Gram (gram_f32_kernel: one launch a window over the
-    symmetric half, its 2,048-individual chunks added in order by the last
-    block of each tile) through both callers, at N = 2,048, 2,049 and
-    5,000 (1, 2 and 3 chunks), with pad individuals and, from W = 20, pad
-    rows (all missing, mave = mstd = 0; window_stats' window holds one):
-    each entry of each window's Gram within the forward error bound of its
-    summation order of x x^T in float64 on the same f32 x (the 2.8e-5 of
-    the diagonal seen at N=50,000 is exceeded at N=2,048 by the parent's
-    kernels too, bit for bit the same), G == G^T bit for bit, two
-    calls bit for bit equal, and the profile one gram_f32_kernel launch a
-    window, no gram_reduce_kernel. The sweep reads its rows' statistics by
-    slot from mrow; window_stats on the same window's rows gives its Gram,
-    and the sweep's eps is bit for bit the plain axpy replayed from its own
-    draws."""
+@pytest.mark.parametrize("path,window,n,batch", _batched_gram_params(
+    [pytest.param(p, w, n, None, id=f"{p}-{w}-{n}")
+     for p in ("window_stats", "sweep_exact")
+     for w in (1, 20, 32, 33, 64, 128, 256, 1024) for n in (2048, 2049, 5000)],
+    "window_grams"))
+def test_cuda_missing_gram(path, window, n, batch):
+    """The missing-data Gram (gram_f32_batch_kernel: fmaf chains over the
+    symmetric half, its 2,048-individual chunks added in order; the sweep
+    computes its windows' Grams in one launch, window_stats splits the
+    chunks across blocks and the last block of each tile adds them) through
+    both callers, at N = 2,048, 2,049 and 5,000 (1, 2 and 3 chunks), with
+    pad individuals and, from W = 20, pad rows (all missing, mave = mstd =
+    0; window_stats' window holds one): each entry of each window's Gram
+    within the forward error bound of its summation order of x x^T in
+    float64 on the same f32 x (the 2.8e-5 of the diagonal seen at N=50,000
+    is exceeded at N=2,048 by the parent's kernels too, bit for bit the
+    same), G == G^T bit for bit, two calls bit for bit equal, and the
+    profile one Gram launch a window_stats call and one a sweep (both
+    windows), none a window of the sweep. The sweep reads its rows'
+    statistics by slot from mrow; window_stats on the same window's rows
+    gives its Gram, and the sweep's eps is bit for bit the plain axpy
+    replayed from its own draws. window_grams (the batched path on many
+    windows): _check_batched_grams."""
     from hydra_tpu_torch.ops.decode import decode_planes_hp
+    if batch is not None:
+        _check_batched_grams(window, n, batch, True)
+        return
     dev = _card()
     nb = -(-n // 512) * 128
     m = 2 * window
@@ -1509,8 +1624,9 @@ def test_cuda_missing_gram(path, window, n):
         assert bool(((g1.double() - x @ x.T).abs() <= 1.01 * bound).all())
     if path == "window_stats":
         names = _port_launches(lambda: gram(windows[0]))
-        assert names.get("gram_f32_kernel") == 1
-        assert "gram_reduce_kernel" not in names and "gram_kernel" not in names
+        assert names.get("gram_f32_batch_kernel") == 1
+        assert not {"gram_reduce_kernel", "gram_kernel",
+                    "gram_f32_kernel"} & set(names)
         return
     kw = dict(window=window, n_mix=K, complete=False, order=order)
     e_k, o_k = tsk.sweep_exact(pk, eps, mrow, 0.7, float(n - 1), **kw)
@@ -1523,6 +1639,60 @@ def test_cuda_missing_gram(path, window, n):
     assert torch.equal(e_k, e_r)
     names = _port_launches(lambda: tsk.sweep_exact(
         pk, eps, mrow, 0.7, float(n - 1), **kw))
-    assert names.get("gram_f32_kernel") == 2
-    assert "gram_reduce_kernel" not in names and "gram_kernel" not in names
-    assert sum(names.values()) == 4 * 2
+    assert names.get("gram_f32_batch_kernel") == 1
+    assert not {"gram_reduce_kernel", "gram_kernel",
+                "gram_f32_kernel"} & set(names)
+    assert sum(names.values()) == 3 * 2 + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["complete", "missing", "mt"])
+def test_cuda_exact_sweep_grams_per_batch(kind):
+    """An exact sweep of one window more than a batch of Grams holds (W =
+    1024: gram_batch_windows' cap + 1 windows) launches its Grams once a
+    batch, twice in all, beside 3 kernels a window, and is bit for bit the
+    same sweep run as two sweeps, the batch's windows and then the last
+    window alone from the first's eps (each window's draw reads its own
+    Gram of the batch). BayesRRm on complete and 5% missing calls, and
+    multi-trait (T=3, complete, full phenotypes)."""
+    from hydra_tpu_torch.ops import sweep_kernel_mt as tskmt
+    dev = _card()
+    W, nb = 1024, 512
+    cap = twk.gram_batch_windows(1 << 30, W)
+    m = (cap + 1) * W
+    missing = kind == "missing"
+    if kind == "mt":
+        pk, eps, tm, mrow, dnm1, n, _ = _card_mt_inputs(m, nb, 3, False, True,
+                                                        21, dev)
+        i2se = torch.full((3,), 0.7, device=dev)
+
+        def sweep(pk, eps, mrow, order):
+            return tskmt.sweep_exact_mt(pk, eps, tm, mrow, i2se, dnm1,
+                                        window=W, n_mix=K, order=order)
+        kernel = "gram_i8_batch_kernel"
+    else:
+        pk, eps, mask, mrow, n, _ = _card_inputs(m, nb, missing, 21, dev)
+
+        def sweep(pk, eps, mrow, order):
+            return tsk.sweep_exact(pk, eps, mrow, 0.7, float(n - 1), window=W,
+                                   n_mix=K, complete=not missing,
+                                   ind_mask=None if missing else mask,
+                                   order=order)
+        kernel = "gram_f32_batch_kernel" if missing else "gram_i8_batch_kernel"
+    gen = torch.Generator(device=dev).manual_seed(3)
+    order = tsk.block_order(torch.randperm(cap + 1, generator=gen, device=dev),
+                            W)
+    e_k, o_k = sweep(pk, eps, mrow, order)
+    head, tail = order[:cap * W].long(), order[cap * W:].long()
+    arange = torch.arange(cap * W, device=dev, dtype=torch.int32)
+    e_a, o_a = sweep(pk[head].contiguous(), eps, mrow[head].contiguous(),
+                     arange)
+    e_b, o_b = sweep(pk[tail].contiguous(), e_a, mrow[tail].contiguous(),
+                     arange[:W].contiguous())
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(e_k).all()) and bool(torch.isfinite(o_k).all())
+    assert torch.equal(e_k, e_b)
+    assert torch.equal(o_k[head], o_a) and torch.equal(o_k[tail], o_b)
+    names = _port_launches(lambda: sweep(pk, eps, mrow, order))
+    assert names.get(kernel) == 2
+    assert sum(names.values()) == 3 * (cap + 1) + 2

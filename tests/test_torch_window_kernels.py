@@ -39,13 +39,13 @@ def _geometry_params():
             for missing in (False, True) for w, nb in GEOMETRY]
 
 
-def _inputs(missing, seed, w=W, nb=NB):
+def _inputs(missing, seed, w=W, nb=NB, rate=0.05):
     rs = np.random.RandomState(seed)
     geno = rs.randint(0, 3, (w, 4 * nb))
     code = np.select([geno == 0, geno == 1, geno == 2],
                      [0b11, 0b10, 0b00]).astype(np.uint8)
     if missing:
-        code[rs.random_sample(code.shape) < 0.05] = 0b01
+        code[rs.random_sample(code.shape) < rate] = 0b01
     n = 4 * nb - N_PAD_IND
     code[:, n:] = 0b01
     pk = hpack_bytes((code[:, 0::4] | (code[:, 1::4] << 2)
@@ -131,6 +131,53 @@ def test_stats_match_jax(exact, missing, w, nb):
                 a.shape), rtol=1e-5, atol=atol)
 
 
+@pytest.mark.parametrize("nb", [128, 640])
+@pytest.mark.parametrize("w", [7, 16, 40])
+@pytest.mark.parametrize("missing", [False, True])
+def test_window_grams_match_jax(missing, w, nb):
+    """window_grams (the CPU wrapper takes window_grams_ref) over the 4
+    windows of one shuffled order of 4w slots, one of them a pad row
+    (all missing), against the JAX window_stats Gram of each window's
+    gathered rows. Complete data: the raw integer Gram, which window_stats
+    returns as is for mave = 0, mstd = 1, equal. 2% missing calls: x x^T
+    with the per-slot mave, mstd, to the JAX bf16 hi/lo split (atol 2e-2,
+    as test_stats_match_jax) and to float64 within the forward error bound
+    of an f32 sum of the 4 nb products, 4 nb 2^-24 |x| |x|^T."""
+    rs = np.random.RandomState(17 + w)
+    m = 4 * w
+    pk, _, _, _ = _inputs(missing, 19, m, nb, rate=0.02)
+    pk[rs.randint(m)] = 0xFF
+    order = rs.permutation(m).astype(np.int32)
+    mave = rs.uniform(0.2, 1.8, m).astype(np.float32)
+    mstd = rs.uniform(0.8, 1.6, m).astype(np.float32)
+    eps = np.zeros(4 * nb, np.float32)
+    kw = (dict(mave=torch.from_numpy(mave), mstd=torch.from_numpy(mstd))
+          if missing else {})
+    before = dict(twk.launches)
+    got = twk.window_grams(torch.from_numpy(pk), torch.from_numpy(order), w,
+                           **kw)
+    assert twk.launches == before
+    assert got.shape == (4, w, w) and got.dtype == torch.float32
+    for k in range(4):
+        slots = order[k * w:(k + 1) * w]
+        av = mave[slots] if missing else np.zeros(w, np.float32)
+        sd = mstd[slots] if missing else np.ones(w, np.float32)
+        want = np.asarray(jwk.window_stats(
+            jnp.asarray(pk[slots]), deinterleave(jnp.asarray(eps)),
+            jnp.asarray(av), jnp.asarray(sd), True, interpret=True,
+            complete=not missing, n_real=0.0)[2])
+        g, mk = decode_planes_hp(torch.from_numpy(pk[slots]), torch.float64)
+        if not missing:
+            np.testing.assert_array_equal(got[k].numpy(), want)
+            np.testing.assert_array_equal(got[k].numpy(), (g @ g.T).numpy())
+            continue
+        av64 = torch.from_numpy(av).double()[:, None]
+        x = (g - av64 * mk) * torch.from_numpy(sd).double()[:, None]
+        np.testing.assert_allclose(got[k].numpy(), want, rtol=1e-5, atol=2e-2)
+        bound = 4 * nb * 2.0 ** -24 * (x.abs() @ x.abs().T)
+        assert bool(((got[k].double() - x @ x.T).abs() <= bound).all())
+
+
 def test_tile_sums_cover_partial_tiles():
     """The kernel-order sums equal plain sums on a width that leaves the
     last 512-byte tile partly empty."""
@@ -150,3 +197,10 @@ def test_wrappers_reject_bad_operands():
         twk.window_axpy(pk, c1[:-1], c2)
     with pytest.raises(ValueError, match="no window_axpy kernel"):
         twk.window_axpy(pk.to("meta"), c1.to("meta"), c2.to("meta"))
+    order = torch.arange(W, dtype=torch.int32)
+    with pytest.raises(ValueError, match="order must be windows"):
+        twk.window_grams(pk, order[:-1], W)
+    with pytest.raises(ValueError, match="need both mave and mstd"):
+        twk.window_grams(pk, order, W, mave=torch.zeros(W))
+    with pytest.raises(ValueError, match="no window_grams kernel"):
+        twk.window_grams(pk.to("meta"), order.to("meta"), W)
