@@ -55,8 +55,9 @@ Multi-trait BayesRRm (T=4 traits):
      with 2% missing genotypes and 10% NaN per trait; window_stats_mt,
      window_axpy_mt and mt_window_recurrence at W=128 with and without NaN;
      then the SHA-256 of the exact recurrences', the mt packed passes', the
-     BayesW sweep's and the BayesRRm stale sweeps' outputs on fixed-seed
-     inputs (print_digests), to hold two trees bit for bit.
+     BayesW sweep's, the BayesRRm stale sweeps' and the per-window branch's
+     (window_gibbs, window_axpy, one --mega off exact sweep) outputs on
+     fixed-seed inputs (print_digests), to hold two trees bit for bit.
   3c. the multi-trait CLI (``--pheno t0,t1,t2,t3``) at M=10,000 x N=5,000:
      exact with full phenotypes, --stale --window 64, and exact with 10% NaN
      per trait (the per-window path), 40 iterations each; every mt launch
@@ -68,8 +69,10 @@ Multi-trait BayesRRm (T=4 traits):
      ms/sweep, markers/s, per-kernel device time.
 BayesRRm's per-window branch (--mega off, --cache-planes on) and W < 8:
   2d. window_stats (W=128; exact and stale, complete and 2% missing),
-     window_gibbs (W=128, on a real window's Gram), window_stats_planes and
-     window_axpy_planes (W=64) against their plain versions at N=50,000,
+     window_gibbs (W=128, on a real window's Gram), window_axpy (W=128, bit
+     for bit its plain version, one device kernel a call),
+     window_stats_planes and window_axpy_planes (W=64) against their plain
+     versions at N=50,000,
      bitwise repeatable (window_stats' s1, s2 bit for bit); the planes
      kernels beside torch.mv on the cast planes.
   3d. the CLI at M=10,000 x N=5,000, 20 iterations each: --mega off (exact
@@ -80,7 +83,8 @@ BayesRRm's per-window branch (--mega off, --cache-planes on) and W < 8:
   4d. M=100,000 x N=50,000: --mega off exact W=128 and stale W=64, and
      --cache-planes on stale W=64 (5.0 GB of int8 planes); stale W=1 at
      M=10,000 x N=5,000: ms/sweep, busy share, host enqueue, device time
-     per kernel.
+     per kernel; window_gibbs_kernel alone a call at W=64, 128 and 1024
+     (print_window_gibbs_times).
 BayesFH (--mpibayes bayesFHMPI) and the single-decode stale sweep
 (HYDRA_TPU_SD, --stale --schedule marker):
   2e. sweep_stale_sd against its plain version at M=4,096 x N=50,000, W=64,
@@ -300,6 +304,17 @@ def check_stale_launches(torch, label, run, draw_kernel, separate, card):
                              f"{'not ' if separate else ''}launched")
 
 
+def check_one_launch(torch, label, fn, card):
+    """Fails unless one call of fn runs exactly one device kernel (the
+    profile's every kernel and memset, the port's and torch's)."""
+    per = device_times(torch, fn, label, "hydra::")
+    n = sum(v[0] for v in per.values())
+    print(f"  {label}: {n} device kernel(s) a call: "
+          f"{', '.join(k[:60] for k in per)}  [{card}]", flush=True)
+    if n != 1:
+        raise AssertionError(f"{label}: {n} device kernels a call, not 1")
+
+
 def check_gram_launches(torch, label, run, n_windows, W, missing, card,
                         per=None):
     """Fails unless one exact sweep (run; per, its device_times profile
@@ -352,7 +367,8 @@ def check_batched_grams(torch, label, pk, n, W, card, mave=None, mstd=None):
         return wk.window_grams(pk, order, W, **kw)
 
     got, again = run(), run()
-    per = device_times(torch, run, f"{label} batched Grams W={W}")
+    per = device_times(torch, run, f"{label} batched Grams W={W}",
+                       "hydra::")
     tiles = {k.split("hydra::", 1)[1].split("(", 1)[0]: v[0]
              for k, v in per.items() if "hydra::" in k}
     n_batches = -(-n_win // wk.gram_batch_windows(n_win, W))
@@ -768,17 +784,17 @@ def phase_cli(torch, np, sk, tmp):
     return launches
 
 
-def real_size_dataset(torch, np, missing=0.0):
-    """M=100,000 x N=50,000 genotypes made on the card (seed 2; with
-    ``missing``, a share of missing calls) as a Dataset and its packed
-    rows on the card, phenotypes noise."""
+def real_size_dataset(torch, np, missing=0.0, m=100_000, seed=2):
+    """M=100,000 (or m) x N=50,000 genotypes made on the card (seed 2 or
+    ``seed``; with ``missing``, a share of missing calls) as a Dataset and
+    its packed rows on the card, phenotypes noise."""
     from hydra_tpu_torch.data.genotypes import (Dataset, GenotypeData,
                                                 make_default_groups)
     dev = torch.device("cuda")
-    m, n = 100_000, 50_000
+    n = 50_000
     n_pad = padded_individuals(np, n)
     t0 = time.perf_counter()
-    gen = torch.Generator(device=dev).manual_seed(2)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     pk, mave, mstd, nm = device_genotypes(torch, m, n, n_pad, gen, missing)
     torch.cuda.synchronize()
     print(f"generated {pk.numel() / 1e9:.3f} GB of packed genotypes on the "
@@ -982,10 +998,11 @@ def print_bw_bounds(W, nb, C, complete, Q, launches):
           "each", flush=True)
 
 
-def device_times(torch, fn, label):
+def device_times(torch, fn, label, need=""):
     """{kernel name: (launches, device ms)} of one call of fn, from
     torch.profiler's device activities (fn is called again where its
-    session came back empty)."""
+    session came back empty, or with no activity whose name holds
+    ``need``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     # a session comes back empty now and then among many short ones: it is
@@ -1010,7 +1027,7 @@ def device_times(torch, fn, label):
             if (t > 0 and getattr(e, "device_type", None) == DeviceType.CUDA
                     and "spin_kernel" not in e.key):
                 per[e.key] = (e.count, t / 1000.0)
-        if per:
+        if any(need in k for k in per):
             return per
         time.sleep(1.0)
     raise AssertionError(f"{label}: the profiler saw no device activity")
@@ -1419,9 +1436,11 @@ def print_digests(torch, np):
     missing genotypes and 10% NaN per trait sweep_stale_mt, window_stats_mt
     and window_axpy_mt; then BayesW's sweep_stale_bw (eps, out) at phase
     2b's cases (bw_case: M=4,096 W=64 complete and 2% missing, M=512 W=1);
-    then the BayesRRm stale sweeps (stale_digest_outputs) and the exact
+    then the BayesRRm stale sweeps (stale_digest_outputs), the exact
     sweep and window_stats on missing genotypes (missing_exact_digest_outputs,
-    the exact sweep also at M=16,384, the real-size sweeps' Gram tile).
+    the exact sweep also at M=16,384, the real-size sweeps' Gram tile) and
+    the per-window branch's window_gibbs, window_axpy and one --mega off
+    exact sweep (window_branch_digest_outputs).
     Two trees' kernels are bit for bit the same where their digests are
     (scripts/chip_compare.py runs this in each tree). Returns {name:
     digest}."""
@@ -1497,6 +1516,7 @@ def print_digests(torch, np):
             skbw.sweep_stale_bw(*args, **kw))
     outs.update(stale_digest_outputs(torch, np))
     outs.update(missing_exact_digest_outputs(torch, np))
+    outs.update(window_branch_digest_outputs(torch, np))
     torch.cuda.synchronize()
     digests = {}
     for name, tensors in outs.items():
@@ -1596,6 +1616,87 @@ def missing_exact_digest_outputs(torch, np):
         outs[f"sweep_exact M={m} W={W} missing 2%"] = sk.sweep_exact(
             pk, eps, mrow, 1.0 / (2 * SIGMA_E), float(n - 1), window=W,
             n_mix=K, complete=False, order=order)
+    return outs
+
+
+def gibbs_inputs(torch, W, k, gen):
+    """window_gibbs' inputs for a window of W markers and k mixture
+    components, made on the card from ``gen``: a correlation-like Gram x
+    x^T / 512, num0 of 30 units, the draw's constants in the ranges of
+    kernel_rows' and 10% inactive markers. Returns the wrapper's
+    arguments."""
+    dev = gen.device
+    x = torch.randn(W, 512, generator=gen, device=dev)
+    gram = x @ x.T / 512
+    num0 = 30.0 * torch.randn(W, generator=gen, device=dev)
+    p = 0.05 + torch.rand(W, k, generator=gen, device=dev)
+    logl = torch.log(p / p.sum(1, keepdim=True))
+    invd = 8e-4 + 4e-4 * torch.rand(W, k - 1, generator=gen, device=dev)
+    sd = 0.02 + 0.02 * torch.rand(W, k - 1, generator=gen, device=dev)
+    u = torch.rand(W, generator=gen, device=dev)
+    nrm = torch.randn(W, generator=gen, device=dev)
+    act = (torch.rand(W, generator=gen, device=dev) >= 0.1).float()
+    bold = 0.02 * torch.randn(W, generator=gen, device=dev) * act
+    i2se = torch.tensor(1.0 / (2 * SIGMA_E), device=dev)
+    return [gram, num0, logl, invd, sd, u, nrm, act, bold, i2se]
+
+
+def window_branch_digest_outputs(torch, np):
+    """The per-window branch's kernels on fixed-seed inputs (each its own
+    generator): window_gibbs at W=64, 128 and 1024 with K=4 and 6
+    (gibbs_inputs); window_axpy at W=64 on 2% missing genotypes and on
+    complete ones (M=4,096 x N=50,000, shuffled rows), the complete one
+    held here bit for bit to window_axpy_ref on the real individuals (its
+    constant 2 sum(c1) is summed in window order, so its digest differs
+    from a tree that sums c1 in torch's reduction order); and one --mega
+    off exact sweep (window_sweep, W=128, marker order) on M=4,096 x
+    N=50,000 with 2% missing calls, which takes no complete-data
+    constant. Returns {name: tensors}."""
+    from hydra_tpu_torch.ops import gibbs_kernel as gk
+    from hydra_tpu_torch.ops import window_kernels as wk
+    from hydra_tpu_torch.samplers.bayesrrm import BayesRRm
+    dev = torch.device("cuda")
+    outs = {}
+    for W in (64, 128, 1024):
+        for k in (4, 6):
+            gen = torch.Generator(device=dev).manual_seed(61 + W + k)
+            outs[f"window_gibbs W={W} K={k}"] = gk.window_gibbs(
+                *gibbs_inputs(torch, W, k, gen))
+    m, n, W = 4096, 50_000, 64
+    n_pad = padded_individuals(np, n)
+    for missing in (0.02, 0.0):
+        gen = torch.Generator(device=dev).manual_seed(67)
+        pk, mave, mstd, _ = device_genotypes(torch, m, n, n_pad, gen, missing)
+        rows = torch.randperm(m, generator=gen, device=dev)[:W].to(
+            torch.int32)
+        c1 = 0.01 * torch.randn(W, generator=gen, device=dev)
+        c2 = -c1 * mave[rows.long()]
+        d = wk.window_axpy(pk, c1, c2, not missing, rows)
+        if missing:
+            outs[f"window_axpy W={W} missing 2%"] = (d,)
+            continue
+        ref = wk.window_axpy_ref(pk, c1, c2, True, rows)
+        if not torch.equal(d[:n], ref[:n]):
+            raise AssertionError("window_axpy (complete) differs from "
+                                 "window_axpy_ref")
+        print("window_axpy W=64 complete: bit for bit window_axpy_ref on "
+              "the real individuals; its digest depends on the order of "
+              "the constant's sum (window order here)", flush=True)
+        outs[f"window_axpy W={W} complete, 2 sum(c1) in window order"] = (d,)
+    del pk
+    ds, pk = real_size_dataset(torch, np, 0.02, m=m, seed=71)
+    s = BayesRRm(ds, window=128, exact=True, seed=1, device=dev, mega="off",
+                 packed_device=pk)
+    if not s.cfg.per_window or s.cfg.complete:
+        raise AssertionError("the digest's sampler must take the per-window "
+                             "branch on missing genotypes")
+    st = s.init_state()
+    gen = torch.Generator(device=dev).manual_seed(73)
+    active = (st.sigma_g[s.groups] > 0) & (s.valid > 0) & (s.mstd > 0)
+    mrow = s.build_mrow(st, torch.rand(m, generator=gen, device=dev),
+                        torch.randn(m, generator=gen, device=dev), active)
+    outs["window_sweep --mega off exact W=128 missing 2%"] = s.window_sweep(
+        st.eps, mrow, s.sweep_order(0), 0.5 / st.sigma_e)
     return outs
 
 
@@ -2282,7 +2383,10 @@ def print_library_times(torch, np, card):
     torch.bmm of the same windows' decoded rows, bf16 (exact) for complete
     data and f32 of the standardized rows for missing data. window_stats'
     row (exact complete W=128: s1 and the standardized Gram) takes
-    torch.mv and torch.mm of the standardized rows, two calls. Returns
+    torch.mv and torch.mm of the standardized rows, two calls.
+    window_axpy's device time is every kernel of one call (the wrapper's
+    glue, where a tree has any, included); on missing data also at W=64,
+    beside torch.addmv of the 2W decoded rows [g; m]. Returns
     {wrapper: {library_ms (CUDA events a call), device_ms,
     library_device_ms, library}} for window_stats, window_axpy and
     window_level_sums."""
@@ -2449,6 +2553,18 @@ def print_library_times(torch, np, card):
                                     rows), "gram", ["gram"]),
              [("torch.mm f32 of the standardized rows",
                dev_us(lambda: torch.mm(xs, xs.t()), "mm")[1])])
+        if W == 64:
+            # window_axpy on missing data, sum c1 g + c2 m: the library's
+            # one call takes the 2W decoded rows [g; m] and [c1; c2]
+            c1 = 0.01 * torch.randn(W, generator=gen, device=dev)
+            c2 = -c1 * mw
+            gm = torch.cat([g, mk]).t()
+            cc = torch.cat([c1, c2])
+            show(f"window_axpy (axpy_kernel) W={W} missing 2%", dev_us(
+                lambda: wk.window_axpy(pk, c1, c2, False, rows),
+                "window_axpy"), [("torch.addmv", dev_us(
+                    lambda: torch.addmv(eps, gm, cc), "addmv")[1])])
+            del gm
         for n_win in (1, 64):
             order = windows(W, n_win)
             slots = order.long()
@@ -2469,7 +2585,10 @@ def phase_window_kernels(torch, np, card):
     N=50,000, rows read in place from M=4,096 packed rows (a pad slot at
     the window's head): window_stats at W=128 (exact and stale, complete
     and 2% missing), window_gibbs on the complete exact window's own Gram
-    and num0, window_stats_planes and window_axpy_planes at W=64 (complete
+    and num0, window_axpy on the window's rows (complete and 2% missing:
+    bit for bit window_axpy_ref, complete data on the real individuals, and
+    one device kernel a call in the profile, check_one_launch),
+    window_stats_planes and window_axpy_planes at W=64 (complete
     data). Tolerances: the stats rtol 1e-4, atol 1e-6 N (the plain versions
     add in the kernels' order, so s1, s2, the complete Gram and the planes
     come out bit for bit, but for a pad row's 3*eps products in complete
@@ -2554,6 +2673,22 @@ def phase_window_kernels(torch, np, card):
             r["bound_ms"], r["bound_by"] = bound(
                 nbytes, {"f32": 2.0 * W * W + 100.0 * W})
             print_bound("window_gibbs", r)
+        # window_axpy on the same window's rows: one launch a call, bit for
+        # bit its plain version (complete data: on the real individuals)
+        c1 = 0.01 * torch.randn(W, generator=gen, device=dev) * mstd_w
+        c2 = -c1 * mave_w
+        d_k = wk.window_axpy(pk, c1, c2, complete, rows)
+        d_r = wk.window_axpy_ref(pk, c1, c2, complete, rows)
+        same = torch.equal(d_k[:n], d_r[:n]) and (complete
+                                                  or torch.equal(d_k, d_r))
+        print(f"window_axpy W={W} {data}: bit for bit window_axpy_ref "
+              f"{same}  [{card}]", flush=True)
+        if not same:
+            raise AssertionError(f"window_axpy W={W} {data} differs from "
+                                 "window_axpy_ref")
+        check_one_launch(torch, f"window_axpy W={W} {data}",
+                         lambda: wk.window_axpy(pk, c1, c2, complete, rows),
+                         card)
         if not complete:
             continue
         W = 64
@@ -2689,21 +2824,111 @@ def phase_window_cli(torch, np, tmp):
     return total
 
 
-def phase_window_real_size(torch, np, sk, card):
+# phase 4d's configurations: (M, N, ((label, exact, W, mega, cache planes),
+# ...)); MEGA_OFF_REAL_SIZE the two --mega off rows alone
+WINDOW_REAL_SIZE = (
+    (100_000, 50_000, (("--mega off exact", True, 128, "off", "off"),
+                       ("--mega off stale", False, 64, "off", "off"),
+                       ("--cache-planes on stale", False, 64, "auto", "on"))),
+    (10_000, 5_000, (("--stale", False, 1, "auto", "off"),)))
+MEGA_OFF_REAL_SIZE = ((100_000, 50_000, WINDOW_REAL_SIZE[0][2][:2]),)
+
+
+def print_window_gibbs_times(torch, np, card):
+    """window_gibbs_kernel alone, device us a call (torch.profiler over 20
+    calls after a warm-up, over the launches the session recorded: one can
+    drop some) at W=64, 128 and 1024, K=4 (gibbs_inputs), and a step (a
+    call over W), beside its bound a call: the Gram's and the markers'
+    bytes over the card's rate. The W dependent draws bound it in fact
+    (the chain), which no rate measures."""
+    from hydra_tpu_torch.ops import gibbs_kernel as gk
+    dev = torch.device("cuda")
+    calls = 20
+    for W in (64, 128, 1024):
+        gen = torch.Generator(device=dev).manual_seed(79 + W)
+        args = gibbs_inputs(torch, W, K, gen)
+        gk.window_gibbs(*args)
+        per = _profile_retry(torch, lambda: [gk.window_gibbs(*args)
+                                             for _ in range(calls)],
+                             "window_gibbs") or {}
+        mine = [v for k, v in per.items() if "window_gibbs" in k]
+        n = sum(cnt for cnt, _ in mine)
+        us = 1e3 * sum(ms for _, ms in mine) / n if n else float("nan")
+        others = sum(cnt for k, (cnt, _) in per.items()
+                     if "window_gibbs" not in k)
+        nbytes = 4 * W * W + 4 * W * (5 + K + 2 * (K - 1)) + 4 + 16 * W
+        b_ms, by = bound(nbytes, {"f32": 2.0 * W * W + 100.0 * W})
+        print(f"window_gibbs W={W} K={K}: window_gibbs_kernel {us:.2f} us "
+              f"a call, {us / W:.4f} us a step ({n} of {calls} calls "
+              f"recorded); bound {1e3 * b_ms:.4f} us ({by}); other device "
+              f"kernels: {others}  [{card}]", flush=True)
+
+
+def print_host_split(torch, run, label, n_windows, card, top=12):
+    """Where the host's enqueue of one exact per-window sweep (run) goes:
+    the host time of each kernel wrapper the sampler calls (each timed by
+    the host clock around its call, the sampler's module patched for one
+    sweep) and the rest, the sampler's own torch calls, us a window; then
+    the ``top`` torch operators by their own CPU time in torch.profiler
+    (CPU activity only), us a window."""
+    from torch.profiler import ProfilerActivity, profile
+    from hydra_tpu_torch.samplers import bayesrrm as sb
+    names = ("window_stats", "window_gibbs", "window_axpy")
+    spent = dict.fromkeys(names, 0.0)
+    calls = dict.fromkeys(names, 0)
+    orig = {k: getattr(sb, k) for k in names}
+
+    def timed(k, f):
+        def call(*a, **kw):
+            t = time.perf_counter()
+            out = f(*a, **kw)
+            spent[k] += time.perf_counter() - t
+            calls[k] += 1
+            return out
+        return call
+
+    run()
+    torch.cuda.synchronize()
+    for k, f in orig.items():
+        setattr(sb, k, timed(k, f))
+    try:
+        t0 = time.perf_counter()
+        run()
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+    finally:
+        for k, f in orig.items():
+            setattr(sb, k, f)
+    per = 1e6 / n_windows
+    parts = [f"{k} {per * spent[k]:.1f} ({calls[k] / n_windows:g} a window)"
+             for k in names]
+    rest = wall - sum(spent.values())
+    print(f"  host split {label}: enqueue {per * wall:.1f} us a window = "
+          f"{', '.join(parts)}, the sampler's own torch calls "
+          f"{per * rest:.1f}  [{card}]", flush=True)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        run()
+    torch.cuda.synchronize()
+    ops = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+    print("    torch operators by own CPU time a window (profiled): "
+          + "; ".join(f"{e.key} {e.self_cpu_time_total / n_windows:.1f} us "
+                      f"x{e.count / n_windows:g}" for e in ops[:top]),
+          flush=True)
+
+
+def phase_window_real_size(torch, np, sk, card, configs=WINDOW_REAL_SIZE,
+                           host_split=False):
     """The per-window branch at M=100,000 x N=50,000 (--mega off exact
     W=128, --mega off stale W=64, --cache-planes on stale W=64) and the
-    whole-sweep stale kernel at W=1 at M=10,000 x N=5,000: ms/sweep,
-    markers/s, busy share, host enqueue, device time per kernel."""
+    whole-sweep stale kernel at W=1 at M=10,000 x N=5,000 (configs,
+    WINDOW_REAL_SIZE): ms/sweep, markers/s, busy share, host enqueue,
+    device time per kernel; host_split: where an exact per-window sweep's
+    enqueue goes (print_host_split)."""
     from hydra_tpu_torch.data.genotypes import (Dataset, GenotypeData,
                                                 make_default_groups)
     from hydra_tpu_torch.samplers.bayesrrm import BayesRRm
     dev = torch.device("cuda")
-    for m, n, runs in (
-            (100_000, 50_000, (("--mega off exact", True, 128, "off", "off"),
-                               ("--mega off stale", False, 64, "off", "off"),
-                               ("--cache-planes on stale", False, 64, "auto",
-                                "on"))),
-            (10_000, 5_000, (("--stale", False, 1, "auto", "off"),))):
+    for m, n, runs in configs:
         n_pad = padded_individuals(np, n)
         gen = torch.Generator(device=dev).manual_seed(2)
         pk, mave, mstd, nm = device_genotypes(torch, m, n, n_pad, gen)
@@ -2763,6 +2988,10 @@ def phase_window_real_size(torch, np, sk, card):
                             f"{label} W={window}",
                             f"{per}/window = {per * cfg.n_windows} CUDA-kernel"
                             + memset, card, cfg.n_windows)
+                if host_split and exact:
+                    print_host_split(torch, lambda: s.window_sweep(
+                        st.eps, mrow, order, i2se), f"{label} W={window}",
+                        cfg.n_windows, card)
                 if pc != "on":
                     print_stream_bounds(window, s.packed.shape[1],
                                         cfg.n_windows)
@@ -3109,6 +3338,7 @@ def main() -> int:
     with phase("4d: per-window branch real size (M=100,000 x N=50,000) and "
                "stale W=1"):
         phase_window_real_size(torch, np, sk, card)
+        print_window_gibbs_times(torch, np, card)
     with phase("4e: BayesFH and the single-decode sweep real size "
                "(M=100,000 x N=50,000)"):
         phase_sd_real_size(torch, np, sk, card)
@@ -3135,7 +3365,8 @@ def main() -> int:
          "hydra_tpu/ops/window_kernels.py:356",
          "levels_kernel, levels_reduce_kernel"),
         ("window_axpy", "sweep_kernel_bw.cu",
-         "hydra_tpu/ops/window_kernels.py:284", "axpy_kernel<false>"),
+         "hydra_tpu/ops/window_kernels.py:284",
+         "axpy_kernel<false, MODE, 0, true> (one launch a call)"),
         ("sweep_stale_mt", "sweep_kernel_mt.cu",
          "hydra_tpu/ops/sweep_kernel_mt.py:214",
          "stats_mt_kernel, axpy_mt_kernel<COMPLETE, TB, KB> (draws the "
@@ -3161,7 +3392,7 @@ def main() -> int:
          "complete; exact missing: gram_f32_batch_kernel<Tile>, the "
          "chunks split)"),
         ("window_gibbs", "sweep_kernel.cu", "hydra_tpu/ops/gibbs_kernel.py:112",
-         "window_gibbs_kernel"),
+         "window_gibbs_kernel<KB, FIXED> (warp_recurrence)"),
         ("window_stats_planes", "planes_kernel.cu",
          "hydra_tpu/ops/planes.py:138",
          "stats_planes_kernel, planes_reduce_kernel"),

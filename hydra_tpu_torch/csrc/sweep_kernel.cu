@@ -704,46 +704,72 @@ int run_window_stats(const uint8_t* pk, const float* eps, const int* rows,
 // Port of window_gibbs (hydra_tpu/ops/gibbs_kernel.py:112-140): the exact
 // W-step recurrence of one window on separate inputs, as the TPU kernel
 // takes them: num0, u, nrm, act, bold (W,), logl (W, K), invd and sd
-// (W, K-1), a standardized Gram (W, W) and i2se. One block, one thread per
-// marker; the step is exact_draw, shared with the exact sweep. The Gram is
-// symmetric, so thread i reads column j of row j, G[j * W + i], coalesced.
-// Bound by the W serial steps (one draw and one __syncthreads each), not by
-// memory: the Gram is read once, from L2.
+// (W, K-1), a standardized Gram (W, W) and i2se; out dbeta, bnew, comp and
+// acum (W,). Bound: the serial chain of W dependent draws, not bytes (the
+// Gram is 64 KB at W=128) nor operations (W^2 multiply-adds). So it runs
+// exact_draw_kernel's schedule, warp_recurrence (sweep_kernel.cuh), in one
+// block of cdiv(W, 32) warps: lane r loads its own marker's constants into
+// registers before the chain (exact_draw<KB>, the k < K guards of
+// exact_draw_kernel, so K is a constant at KB = 4), every lane draws its
+// own marker, __shfl_sync broadcasts step j's dbeta, one __syncthreads a
+// 32 steps, and the Gram's tiles are staged by cp.async off the chain; the
+// Gram is symmetric, so lane r's element of step j is G[j * W + r],
+// coalesced, and needs no standardization (finish is the identity). Each
+// lane writes its own four outputs after the chain, coalesced. Marker r
+// still adds num_r = fmaf(G(j, r), dbeta_j, num_r) for j = 0..r-1 in step
+// order and draws with exact_draw<KB>: the chain of the one-thread-a-step
+// kernel this replaces (its W block barriers and W global loads on the
+// chain), bit for bit. Dynamic shared memory: window_gibbs_smem(W).
+inline size_t window_gibbs_smem(int W) {
+    const size_t nw = cdiv(W, 32);
+    return sizeof(float) * (static_cast<size_t>(W) + (nw + 2) * 32 * 32);
+}
+
 template <int KB, bool FIXED>
-__global__ void window_gibbs_kernel(const float* __restrict__ G,
-                                    const float* __restrict__ num0,
-                                    const float* __restrict__ logl,
-                                    const float* __restrict__ invd,
-                                    const float* __restrict__ sd,
-                                    const float* __restrict__ u,
-                                    const float* __restrict__ nrm,
-                                    const float* __restrict__ act,
-                                    const float* __restrict__ bold,
-                                    const float* __restrict__ i2se_p, int W, int k_run,
-                                    float* __restrict__ dbeta,
-                                    float* __restrict__ bnew,
-                                    int* __restrict__ comp,
-                                    float* __restrict__ acum) {
+__global__ void __launch_bounds__(1024)
+window_gibbs_kernel(const float* __restrict__ G, const float* __restrict__ num0,
+                    const float* __restrict__ logl, const float* __restrict__ invd,
+                    const float* __restrict__ sd, const float* __restrict__ u_in,
+                    const float* __restrict__ nrm_in, const float* __restrict__ act_in,
+                    const float* __restrict__ bold_in, const float* __restrict__ i2se_p,
+                    int W, int k_run, float* __restrict__ dbeta, float* __restrict__ bnew,
+                    int* __restrict__ comp, float* __restrict__ acum) {
     const int K = FIXED ? KB : k_run;
-    extern __shared__ float s_db[];        // dbeta[W]
+    extern __shared__ float sh[];         // dbeta[W], then the recurrence's tiles
     const int r = threadIdx.x;
+    const bool live = r < W;
     const float i2se = i2se_p[0];
-    const int km1 = K - 1;
-    float numv = r < W ? num0[r] : 0.f;
-    for (int j = 0; j < W; ++j) {
-        if (r == j) {
-            const Draw d = exact_draw<KB>(numv, logl + static_cast<size_t>(j) * K,
-                                      invd + static_cast<size_t>(j) * km1,
-                                      sd + static_cast<size_t>(j) * km1, K, u[j],
-                                      nrm[j], act[j], bold[j], i2se);
-            dbeta[j] = d.dbeta;
-            bnew[j] = d.bnew;
-            comp[j] = static_cast<int>(d.comp(act[j]));
-            acum[j] = d.acum(act[j]);
-            s_db[j] = d.dbeta;
+    // this lane's marker: num and its constants, in registers
+    float numv = 0.f, u = 0.f, nrm = 0.f, act = 0.f, bold = 0.f;
+    float logl_r[KB], invd_r[KB - 1], sd_r[KB - 1];
+    if (live) {
+        numv = num0[r];
+        u = u_in[r];
+        nrm = nrm_in[r];
+        act = act_in[r];
+        bold = bold_in[r];
+    }
+#pragma unroll
+    for (int k = 0; k < KB; ++k) {
+        const bool has = live && k < K;
+        logl_r[k] = has ? logl[static_cast<size_t>(r) * K + k] : 0.f;
+        if (k < KB - 1) {
+            invd_r[k] = has && k < K - 1 ? invd[static_cast<size_t>(r) * (K - 1) + k] : 0.f;
+            sd_r[k] = has && k < K - 1 ? sd[static_cast<size_t>(r) * (K - 1) + k] : 0.f;
         }
-        __syncthreads();
-        if (r < W) numv = fmaf(G[static_cast<size_t>(j) * W + r], s_db[j], numv);
+    }
+    const Draw mine = warp_recurrence(
+        W, numv, [&](int rj) { return G + static_cast<size_t>(rj) * W + r; },
+        [](int, float g) { return g; },
+        [&](float num) {
+            return exact_draw<KB>(num, logl_r, invd_r, sd_r, K, u, nrm, act, bold, i2se);
+        },
+        sh, sh + W);
+    if (live) {
+        dbeta[r] = mine.dbeta;
+        bnew[r] = mine.bnew;
+        comp[r] = static_cast<int>(mine.comp(act));
+        acum[r] = mine.acum(act);
     }
 }
 
@@ -870,8 +896,9 @@ int hydra_window_gibbs(const void* gram, const void* num0, const void* logl,
     auto* const gibbs = by_components(n_mix, window_gibbs_kernel<4, true>,
                                       window_gibbs_kernel<8, false>,
                                       window_gibbs_kernel<K_MAX, false>);
-    gibbs<<<1, cdiv(window, 32) * 32, sizeof(float) * window,
-            static_cast<cudaStream_t>(stream)>>>(
+    const size_t smem = window_gibbs_smem(window);
+    HYDRA_CHECK(allow_smem(gibbs, smem));
+    gibbs<<<1, cdiv(window, 32) * 32, smem, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(gram), static_cast<const float*>(num0),
         static_cast<const float*>(logl), static_cast<const float*>(invd),
         static_cast<const float*>(sd), static_cast<const float*>(u),

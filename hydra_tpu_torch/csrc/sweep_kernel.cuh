@@ -1099,7 +1099,15 @@ __device__ __forceinline__ float h_cst4(const float* c1, const float* c2, int W4
 // stale_draw<DRAW_KB>, from the stats partials and mrow rows in dr; block 0
 // writes out) and adds its own cst (h_cst4); coef is not read. The draws
 // run while the block's rows load, and a stale window takes one launch
-// fewer.
+// fewer. STANDALONE (window_axpy, sweep_kernel_bw.cu): one launch a call;
+// eps is the output d alone, written and not read (eps[i] = 0.f + d, as
+// the accumulation into a zeroed vector it replaces); c1 = coef[W] and c2
+// = sc[W] are the caller's own vectors (sc carries REFRESH's scalars, of
+// which a standalone call has none: the parameters stay those of the
+// other instantiations, which a separate c2 parameter slowed, by up to
+// 0.16 us a launch on an H100); no mask; complete data forms cst = 2
+// sum(c1) itself, in window order from 0.f (the caller adds sum(c2) and
+// masks).
 //
 // Bound: bytes, the W * nb packed bytes, eps read and written and the mask
 // (2.21 MB at W=128, N=50,000: 0.66 us at 3.35 TB/s); the rows were just
@@ -1215,7 +1223,7 @@ __device__ __forceinline__ float refresh_cst4(const float* c1, const float* c2, 
     return h_cst4(c1, c2, W4);
 }
 
-template <bool REFRESH, int MODE, int DRAW_KB = 0>
+template <bool REFRESH, int MODE, int DRAW_KB = 0, bool STANDALONE = false>
 __global__ void __launch_bounds__(AXPY_THREADS)
 axpy_kernel(const uint8_t* __restrict__ pk, int nb, const int* __restrict__ order_w, int W,
             const float* __restrict__ coef, const float* __restrict__ mask,
@@ -1229,7 +1237,7 @@ axpy_kernel(const uint8_t* __restrict__ pk, int nb, const int* __restrict__ orde
     float* s_c2 = s_c1 + W4;
     const int tid = threadIdx.x;
     const int i = blockIdx.x * AXPY_THREADS + tid;
-    float e = eps[i];
+    float e = STANDALONE ? 0.f : eps[i];
     const float m = mask != nullptr ? mask[i] : 1.f;
     const int bt = tid >> 2;               // this thread's packed byte (column)
     const int k = tid & 3;                 // and crumb
@@ -1244,13 +1252,21 @@ axpy_kernel(const uint8_t* __restrict__ pk, int nb, const int* __restrict__ orde
         for (int r = 0; r < AXPY_DIRECT; ++r)
             bytes[r] = r < W ? __ldg(col + static_cast<size_t>(order_w[r]) * nb) : 0u;
         const float* c1 = coef;
-        const float* c2 = coef + W;
+        const float* c2 = STANDALONE ? sc : coef + W;
         if constexpr (DRAW) {
             draw_window<DRAW_KB>(dr, order_w, W, W4, MODE == MODE_STALE_COMPLETE, s_c1, s_c2);
             __syncthreads();
             c1 = s_c1;
             c2 = s_c2;
             if (MODE == MODE_STALE_COMPLETE) cst = h_cst4(s_c1, s_c2, W4);
+        } else if constexpr (STANDALONE) {
+            if (MODE == MODE_STALE_COMPLETE) {
+                float a = 0.f;       // sum(c1) in window order from 0.f
+#pragma unroll
+                for (int r = 0; r < AXPY_DIRECT; ++r)
+                    if (r < W) a += c1[r];
+                cst = 2.0f * a;
+            }
         } else {
             cst = refresh_cst<REFRESH, MODE>(coef, coef + W, W);
         }
@@ -1271,7 +1287,8 @@ axpy_kernel(const uint8_t* __restrict__ pk, int nb, const int* __restrict__ orde
         if constexpr (!DRAW) {
             for (int r = tid; r < W4; r += AXPY_THREADS) {
                 s_c1[r] = r < W ? coef[r] : 0.f;
-                if (MODE == MODE_MISSING || REFRESH) s_c2[r] = r < W ? coef[W + r] : 0.f;
+                if (MODE == MODE_MISSING || REFRESH)
+                    s_c2[r] = r < W ? (STANDALONE ? sc[r] : coef[W + r]) : 0.f;
             }
         }
         // the exact-mode tile holds the genotype (coef staged behind stage()'s
@@ -1284,6 +1301,11 @@ axpy_kernel(const uint8_t* __restrict__ pk, int nb, const int* __restrict__ orde
         if constexpr (DRAW)
             draw_window<DRAW_KB>(dr, order_w, W, W4, MODE == MODE_STALE_COMPLETE, s_c1, s_c2);
         const uint32_t* col = tile + bt * AXPY_LDW;
+        // STANDALONE complete data: sum(c1) in window order from 0.f, as
+        // h_cst4 adds it (the zeros past W change nothing), a second chain
+        // beside acc's on the c1 values the row loop reads anyway
+        constexpr bool OWN_SUM = STANDALONE && MODE == MODE_STALE_COMPLETE;
+        float c1_sum = 0.f;
         for (int r0 = 0; r0 < W; r0 += AXPY_ROWS) {
             const int nwd = tl.stage<MODE == MODE_EXACT_COMPLETE>(tile, r0);
             const float4* c1 = reinterpret_cast<const float4*>(s_c1 + r0);
@@ -1311,19 +1333,28 @@ axpy_kernel(const uint8_t* __restrict__ pk, int nb, const int* __restrict__ orde
                     acc = fmaf(a.y, byte_float(c, 1), acc);
                     acc = fmaf(a.z, byte_float(c, 2), acc);
                     acc = fmaf(a.w, byte_float(c, 3), acc);
+                    if (OWN_SUM) {
+                        c1_sum += a.x;
+                        c1_sum += a.y;
+                        c1_sum += a.z;
+                        c1_sum += a.w;
+                    }
                 }
             }
         }
         // c1 and c2 staged behind stage()'s barrier
         if (DRAW && MODE == MODE_STALE_COMPLETE)
             cst = h_cst4(s_c1, s_c2, W4);
+        else if (OWN_SUM)
+            cst = 2.0f * c1_sum;
         else
             cst = refresh_cst4<REFRESH, MODE>(s_c1, s_c2, W4);
     }
     if (MODE == MODE_MISSING) {
         e += acc;
     } else {
-        if (!DRAW && (!REFRESH || MODE != MODE_STALE_COMPLETE)) cst = coef[2 * W];
+        if (!DRAW && !STANDALONE && (!REFRESH || MODE != MODE_STALE_COMPLETE))
+            cst = coef[2 * W];
         const float d = MODE == MODE_STALE_COMPLETE ? cst - acc : acc + cst;
         e += d * m;
     }
@@ -1348,9 +1379,10 @@ inline int launch_axpy(const uint8_t* pk, int nb, const int* order_w, int W, int
 
 // ------------------------------------------------------ exact recurrence --
 // The exact W-step recurrence of one window, shared by exact_draw_kernel
-// (sweep_kernel.cu) and the multi-trait exact_mt_draw_kernel and
-// window_recurrence_mt_kernel (sweep_kernel_mt.cu): after marker j's draw,
-// num_i += G(i, j) * dbeta_j, for j = 0..W-1 in order.
+// and window_gibbs_kernel (sweep_kernel.cu) and the multi-trait
+// exact_mt_draw_kernel and window_recurrence_mt_kernel (sweep_kernel_mt.cu):
+// after marker j's draw, num_i += G(i, j) * dbeta_j, for j = 0..W-1 in
+// order.
 struct Draw {
     float bnew, compf, pr0, s, dbeta;
     // the outputs comp and acum0, apart because the recurrence's chain

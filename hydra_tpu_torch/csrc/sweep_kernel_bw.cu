@@ -566,20 +566,26 @@ int hydra_window_level_sums(const void* pk, const void* vi, const void* order,
     return 0;
 }
 
-// out (4*nb,) += sum_r c1_r * g_r + c2_r * m_r over the rows order[0..W),
-// coef = [c1[W], c2[W], 2 * sum(c1)]. Complete data returns the genotype
-// part only, as 2 sum(c1) - sum c1*h (the caller adds sum(c2) and masks).
-int hydra_window_axpy(const void* pk, const void* order, const void* coef,
+// out (4*nb,) = sum_r c1_r * g_r + c2_r * m_r over the rows order[0..W),
+// c1 and c2 (W,) each; out is written, not read. Complete data returns the
+// genotype part only, as 2 sum(c1) - sum c1*h with sum(c1) in window order
+// (the caller adds sum(c2) and masks). One launch: axpy_kernel<false, MODE,
+// 0, true> (sweep_kernel.cuh) stages c1 and c2 and forms the constant
+// itself.
+int hydra_window_axpy(const void* pk, const void* order, const void* c1, const void* c2,
                       void* out, int window, int nb, int complete, void* stream) {
     using namespace hydra;
     if (window < 1 || window > 1024 || nb <= 0 || nb % 128)
         return static_cast<int>(cudaErrorInvalidValue);
-    return launch_axpy<false>(static_cast<const uint8_t*>(pk), nb,
-                              static_cast<const int*>(order), window,
-                              complete ? MODE_STALE_COMPLETE : MODE_MISSING,
-                              static_cast<const float*>(coef), nullptr,
-                              static_cast<float*>(out), nullptr, nullptr,
-                              static_cast<cudaStream_t>(stream));
+    auto* const kernel = complete ? axpy_kernel<false, MODE_STALE_COMPLETE, 0, true>
+                                  : axpy_kernel<false, MODE_MISSING, 0, true>;
+    kernel<<<nb / AXPY_TB, AXPY_THREADS, 2 * sizeof(float) * ((window + 3) & ~3),
+             static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint8_t*>(pk), nb, static_cast<const int*>(order), window,
+        static_cast<const float*>(c1), nullptr, static_cast<float*>(out), nullptr,
+        static_cast<const float*>(c2), StaleDrawArgs{});
+    HYDRA_CHECK_LAUNCH();
+    return 0;
 }
 
 const char* hydra_bw_error_string(int err) {

@@ -47,7 +47,7 @@ _SIGNATURES = {
         "hydra_sweep_stale_bw": ([_p] * 8 + [_i] + [_p] * 3 + [_i] * 7 + [_p],
                                  _i),
         "hydra_window_level_sums": ([_p] * 7 + [_i] * 3 + [_p], _i),
-        "hydra_window_axpy": ([_p] * 4 + [_i] * 3 + [_p], _i),
+        "hydra_window_axpy": ([_p] * 5 + [_i] * 3 + [_p], _i),
         "hydra_bw_workspace_bytes": ([_i] * 2, ctypes.c_longlong),
         "hydra_bw_error_string": ([_i], ctypes.c_char_p),
     },

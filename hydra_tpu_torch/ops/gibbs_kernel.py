@@ -15,10 +15,11 @@ num0, u, nrm, act, bold (W,); logl_static (W, K); inv_denomk, sd_k
 comp (int32), acum0), each (W,).
 
 ``window_gibbs`` launches ``hydra_window_gibbs`` of ``csrc/sweep_kernel.cu``
-(one block, one thread per marker, the step shared with the exact sweep) for
-CUDA tensors; for CPU tensors it runs ``window_gibbs_ref``, which applies the
-Gram row by row as the kernel does (num_i += Gram_ji * dbeta_j after step
-j).
+for CUDA tensors: ``window_gibbs_kernel``, one block on the exact sweep's
+warp-synchronous schedule (``warp_recurrence``: each lane's constants in
+registers, one barrier a 32 steps) and its draw; for CPU tensors it runs
+``window_gibbs_ref``, which applies the Gram row by row in the kernel's
+step order (num_i += Gram_ji * dbeta_j after step j).
 """
 
 from __future__ import annotations

@@ -23,6 +23,8 @@ f32 with crumb k of byte b at 4b + k (no plane-major layout).
   window_axpy(pk, c1, c2) -> dε = sum_m c1_m G_m + c2_m M_m; complete data
       returns only the genotype part (the caller adds sum(c2) and masks):
           d_eps = (window_axpy(..., complete=True) + c2.sum()) * ind_mask
+      by the h-decode 2 sum(c1) - sum c1*h, sum(c1) in window order from 0.
+      On the card one launch (the kernel writes dε and forms 2 sum(c1)).
   window_grams(pk, order, window[, mave, mstd]) -> (n_windows, W, W): the
       Grams of the consecutive windows order[w W .. w W + W) of all rows, as
       the exact sweeps compute them ahead of their draws, many windows a
@@ -99,6 +101,12 @@ def seq_sum(x: torch.Tensor) -> torch.Tensor:
     for i in range(1, x.shape[-1]):
         s = s + x[..., i]
     return s
+
+
+def seq_sum0(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last dim from +0, left to right: a kernel's ``s = 0.f;
+    s += x`` (``seq_sum`` starts from x[0], which differs for -0)."""
+    return seq_sum(torch.nn.functional.pad(x, (1, 0)))
 
 
 def tile_sums(x: torch.Tensor, word: int = 16) -> torch.Tensor:
@@ -294,8 +302,9 @@ def window_axpy_ref(pk: torch.Tensor, c1: torch.Tensor, c2: torch.Tensor,
                     rows: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain PyTorch axpy (same contract as ``window_axpy``)."""
     acc = axpy_rows(_window_rows(pk, rows), c1, c2, complete)
-    # h-decode: sum c1*g = 2*sum(c1) - sum c1*h
-    return 2.0 * c1.sum() - acc if complete else acc
+    # h-decode: sum c1*g = 2*sum(c1) - sum c1*h, sum(c1) in window order
+    # from 0 as the kernel adds it
+    return 2.0 * seq_sum0(c1) - acc if complete else acc
 
 
 def _card_rows(pk: torch.Tensor, rows: Optional[torch.Tensor], W: int,
@@ -507,14 +516,17 @@ def window_axpy(pk: torch.Tensor, c1: torch.Tensor, c2: torch.Tensor,
     dev = pk.device
     if c1.device != dev or c2.device != dev:
         raise ValueError(f"c1 and c2 must be on {dev}")
+    if not (c1.is_contiguous() and c2.is_contiguous()):
+        raise ValueError("c1 and c2 must be contiguous")
     lib = _build.load("sweep_kernel_bw.cu")
     nb = pk.shape[1]
-    coef = torch.cat([c1, c2, (2.0 * c1.sum()).reshape(1)]).contiguous()
-    out = torch.zeros(4 * nb, dtype=f32, device=dev)
+    # one launch: the kernel writes every element of out and forms the
+    # complete-data constant 2 sum(c1) itself
+    out = torch.empty(4 * nb, dtype=f32, device=dev)
     with torch.cuda.device(dev):
         err = lib.hydra_window_axpy(
-            pk.data_ptr(), rows.data_ptr(), coef.data_ptr(), out.data_ptr(),
-            W, nb, int(complete), _stream(dev))
+            pk.data_ptr(), rows.data_ptr(), c1.data_ptr(), c2.data_ptr(),
+            out.data_ptr(), W, nb, int(complete), _stream(dev))
     if err:
         _raise(lib, "window_axpy", err)
     launches["window_axpy"] += 1
@@ -581,12 +593,6 @@ def window_axpy_mt_ref(pk: torch.Tensor, c1: torch.Tensor, c2: torch.Tensor,
 # for complete stale data's pad rows and the complete axpy's pad
 # individuals (h = 3 products, which these round and the kernels fuse).
 _MT_ROW_CHUNK = 64      # rows a step of stats_mt_partials (bounds its memory)
-
-
-def seq_sum0(x: torch.Tensor) -> torch.Tensor:
-    """Sum over the last dim from +0, left to right: a kernel's ``s = 0.f;
-    s += x`` (``seq_sum`` starts from x[0], which differs for -0)."""
-    return seq_sum(torch.nn.functional.pad(x, (1, 0)))
 
 
 def stats_mt_partials(pk: torch.Tensor, eps: torch.Tensor, exact: bool,

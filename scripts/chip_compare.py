@@ -20,7 +20,12 @@ and the missing-data Gram beside their library calls, on the same calls,
 and this tree's ``chip_smoke.print_missing_exact_times`` BayesRRm exact
 W=128 and W=64 on 2% missing genotypes at M=100,000 x N=50,000 and the
 missing-data Gram alone a window (W 64, 128, 256, 1024), per window and,
-where the tree batches the exact sweeps' Grams, batched.
+where the tree batches the exact sweeps' Grams, batched; then this tree's
+``chip_smoke.print_window_gibbs_times`` (window_gibbs_kernel alone a call,
+W 64, 128, 1024) and phase 4d's two ``--mega off`` rows (exact W=128 and
+stale W=64 at M=100,000 x N=50,000, ``MEGA_OFF_REAL_SIZE``) with the exact
+sweep's host enqueue split by wrapper and by torch operator
+(``print_host_split``).
 
 Compare two versions inside one call, in turns, e.g. a ``git archive`` of
 the parent unpacked into a git-ignored directory beside this tree:
@@ -33,10 +38,11 @@ Each run goes to ``DIR/compare_<i>_<tree>.log`` (default ``build/compare``,
 git-ignored); a summary line per configuration (ms/sweep, CUDA-event
 ms/sweep, device ms and busy share, host enqueue, device kernels a sweep,
 and the stats, axpy (BayesRRm's, single-decode and multi-trait), stale
-draw, exact recurrence and BayesW levels and draw kernels' device us per
-window, and the Gram's), the multi-trait passes' device us per call, the
-stale fold, library and missing-data Gram lines and the digests are
-printed at the end.
+draw, exact recurrence (``window_gibbs`` too) and BayesW levels and draw
+kernels' device us per window, and the Gram's), the multi-trait passes'
+device us per call, the stale fold, library, missing-data Gram,
+``window_gibbs`` and host split lines and the digests are printed at the
+end.
 """
 
 from __future__ import annotations
@@ -69,6 +75,9 @@ d.print_mt_pass_times(torch, np, card)
 d.print_stale_fold_times(torch, np, card)
 d.print_library_times(torch, np, card)
 d.print_missing_exact_times(torch, np, card)
+d.print_window_gibbs_times(torch, np, card)
+d.phase_window_real_size(torch, np, sk, card, d.MEGA_OFF_REAL_SIZE,
+                         host_split=True)
 c.phase_real_size(torch, np, sk, card)
 c.phase_sd_real_size(torch, np, sk, card)
 c.phase_bw_real_size(torch, np, card)
@@ -107,7 +116,8 @@ SWEEP = re.compile(r"\((\d+) device kernels in the profile.*host enqueue ([\d.]+
 KERNEL = re.compile(r"([\d.]+) us/window\s+(?:void )?hydra::(stats|axpy|stats_mt|axpy_mt|"
                     r"axpy_decoded|stale_draw|stale_draw_mt|exact_draw|exact_mt_draw|"
                     r"window_recurrence_mt|levels|bw_draw|gram|gram_reduce|"
-                    r"gram_f32|gram_i8|gram_f32_batch|gram_i8_batch)_kernel"
+                    r"gram_f32|gram_i8|gram_f32_batch|gram_i8_batch|window_gibbs|"
+                    r"window_stats_finish|gram_standardize)_kernel"
                     r"(<[^(]*>)?\(")
 FOLD = re.compile(r"^stale fold (.*?): (.*) a window; draw \+ axpy ([\d.]+) us; "
                   r"(\d+) launches")
@@ -131,7 +141,9 @@ def summary(path):
                              f"({m.group(5)}%) enqueue {m.group(2)} "
                              f"kernels {m.group(1)}")
                 continue
-            if ln.startswith(("library ", "missing gram ", "missing exact ")):
+            if ln.startswith(("library ", "missing gram ", "missing exact ",
+                              "window_gibbs W=", "  host split ",
+                              "    torch operators by own CPU time")):
                 rows.append("  " + ln.split("  [")[0].strip())
                 continue
             m = FOLD.search(ln)

@@ -312,6 +312,104 @@ def test_cuda_window_kernels_match_plain(missing):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n_mix", [2, 4, 6, 12, 16])
+@pytest.mark.parametrize("window", [1, 31, 32, 33, 64, 128, 200, 1024])
+def test_cuda_window_gibbs_matches_plain(window, n_mix):
+    """window_gibbs_kernel (the warp-synchronous recurrence; one kernel a
+    register bound on K: 4 with K a constant, 8, 16) against its plain
+    version on a correlation-like Gram (x x^T / 512): components equal,
+    dbeta, beta and acum within 5e-4 / 1e-3 (the plain version rounds the
+    Gram update's product, the kernel fuses it), a second call bit for bit
+    the first, and inactive markers (act = 0, the pad markers and every
+    seventh) drawn to comp = 0 and beta = 0. The windows end in a ragged
+    last warp (1, 31, 33, 200) or fill whole warps, up to the kernel's
+    largest (1,024 markers, 32 warps)."""
+    from hydra_tpu_torch.ops import gibbs_kernel as tgk
+    dev = _card()
+    _, _, _, mrow, _, _ = _card_inputs(window, 128, False, 13, dev,
+                                       n_pad_markers=window // 10 + 1,
+                                       k=n_mix)
+    mrow[::7, 5] = 0.0
+    gen = torch.Generator().manual_seed(window * 31 + n_mix)
+    x = torch.randn(window, 512, generator=gen)
+    gram = (x @ x.T / 512).to(dev)
+    num0 = (30.0 * torch.randn(window, generator=gen)).to(dev)
+    cols = (mrow[:, 6:6 + n_mix], mrow[:, 6 + n_mix:5 + 2 * n_mix],
+            mrow[:, 5 + 2 * n_mix:], mrow[:, 3], mrow[:, 4], mrow[:, 5],
+            mrow[:, 2])
+    args = [gram, num0] + [c.contiguous() for c in cols] + [0.7]
+    before = dict(tgk.launches)
+    k_out = tgk.window_gibbs(*args)
+    k_again = tgk.window_gibbs(*args)
+    r_out = tgk.window_gibbs_ref(*args)
+    torch.cuda.synchronize()
+    assert tgk.launches["window_gibbs"] == before["window_gibbs"] + 2
+    assert k_out[2].dtype == torch.int32
+    for a, b in zip(k_out, k_again):
+        assert torch.equal(a, b)
+    assert torch.equal(k_out[2], r_out[2])
+    for a, r in zip(k_out, r_out):
+        torch.testing.assert_close(a.float(), r.float(), atol=5e-4, rtol=1e-3)
+    inactive = mrow[:, 5] == 0.0
+    assert bool(inactive.any())
+    assert bool((k_out[2][inactive] == 0).all())
+    assert bool((k_out[1][inactive] == 0.0).all())
+    if window >= 32:
+        assert int(torch.unique(k_out[2]).numel()) >= 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("missing", [False, True])
+@pytest.mark.parametrize("window", [1, 33, 64, 200, 1024])
+def test_cuda_window_axpy_bitwise(window, missing):
+    """window_axpy (one launch: axpy_kernel<false, MODE, 0, true> writes
+    d eps and forms the complete-data constant 2 sum(c1) in window order)
+    bit for bit its plain version at N=50,000 on rows drawn in shuffled
+    order from 2 W, pad rows among them (complete data: but the pad
+    individuals' h = 3 products, which the plain version rounds and the
+    kernel fuses; the caller masks them), and bitwise repeatable."""
+    dev = _card()
+    complete = not missing
+    m = 2 * window
+    pk, _, _, mrow, n, _ = _card_inputs(m, 12_544, missing, 19, dev)
+    gen = torch.Generator(device=dev).manual_seed(window)
+    rows = torch.randperm(m, generator=gen, device=dev)[:window].to(
+        torch.int32)
+    c1 = 0.05 * torch.randn(window, generator=gen, device=dev)
+    c1[mrow[rows.long(), 1] == 0.0] = 0.0           # pad rows: mstd = 0
+    c2 = -c1 * mrow[rows.long(), 0]
+    before = dict(twk.launches)
+    d_k = twk.window_axpy(pk, c1, c2, complete, rows)
+    d_k2 = twk.window_axpy(pk, c1, c2, complete, rows)
+    d_r = twk.window_axpy_ref(pk, c1, c2, complete, rows)
+    torch.cuda.synchronize()
+    assert twk.launches["window_axpy"] == before["window_axpy"] + 2
+    assert torch.equal(d_k, d_k2)
+    assert torch.equal(d_k[:n], d_r[:n])
+    if missing:
+        assert torch.equal(d_k, d_r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("missing", [False, True])
+def test_cuda_window_axpy_one_launch(missing):
+    """One window_axpy call, as the per-window branch makes it (the
+    window's rows given), is one CUDA kernel on the card: axpy_kernel, no
+    torch glue (no cat, sum, multiply or zero fill) and no memset."""
+    dev = _card()
+    pk, _, _, mrow, _, _ = _card_inputs(128, 12_544, missing, 23, dev)
+    rows = torch.arange(64, 128, dtype=torch.int32, device=dev)
+    c1 = 0.05 * torch.randn(64, generator=torch.Generator(
+        device=dev).manual_seed(3), device=dev)
+    c2 = -c1 * mrow[rows.long(), 0]
+    twk.window_axpy(pk, c1, c2, not missing, rows)
+    got = _device_launches(lambda: twk.window_axpy(pk, c1, c2, not missing,
+                                                   rows))
+    assert sum(got.values()) == 1, got
+    assert "hydra::axpy_kernel" in next(iter(got)), got
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("window", [1, 32])
 def test_cuda_bw_sampler_sweep_matches_cpu(window):
     """One BayesW sweep of the CUDA sampler against the CPU sampler from the
@@ -1531,9 +1629,10 @@ def test_cuda_stale_fold_matches_plain(path, window, n_mix, n_traits,
                                rtol=1e-3)
 
 
-def _port_launches(fn):
-    """{port kernel name: launches} of one call of fn, from torch.profiler's
-    device activities (a session that comes back empty is taken again)."""
+def _device_launches(fn):
+    """{device activity: launches} of one call of fn, every kernel and
+    memset of the card from torch.profiler but the warm-up spin kernels (a
+    session that comes back empty is taken again)."""
     import time
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1550,14 +1649,26 @@ def _port_launches(fn):
             torch.cuda.synchronize()
         out = {}
         for e in prof.key_averages():
-            if ("hydra::" in e.key
-                    and getattr(e, "device_type", None) == DeviceType.CUDA):
-                name = e.key.split("hydra::", 1)[1].split("<", 1)[0]
-                name = name.split("(", 1)[0]
-                out[name] = out.get(name, 0) + e.count
+            if (getattr(e, "device_type", None) == DeviceType.CUDA
+                    and "spin_kernel" not in e.key):
+                out[e.key] = out.get(e.key, 0) + e.count
         if out:
             return out
-    pytest.fail("the profiler saw no kernel of the port")
+    pytest.fail("the profiler saw no device activity")
+
+
+def _port_launches(fn):
+    """{port kernel name: launches} of one call of fn, from
+    ``_device_launches``."""
+    out = {}
+    for key, count in _device_launches(fn).items():
+        if "hydra::" in key:
+            name = key.split("hydra::", 1)[1].split("<", 1)[0]
+            name = name.split("(", 1)[0]
+            out[name] = out.get(name, 0) + count
+    if not out:
+        pytest.fail("the profiler saw no kernel of the port")
+    return out
 
 
 @pytest.mark.cuda

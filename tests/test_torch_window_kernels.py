@@ -82,8 +82,13 @@ def test_level_sums_match_jax(missing):
                                rtol=1e-5)
 
 
-@pytest.mark.parametrize("missing,w,nb", _geometry_params())
+@pytest.mark.parametrize("missing,w,nb", _geometry_params() + [
+    pytest.param(missing, 33, NB, id=f"{missing}-W33-NB{NB}")
+    for missing in (False, True)])
 def test_axpy_matches_jax(missing, w, nb):
+    """The plain axpy (complete data: 2 sum(c1) in window order from 0,
+    minus sum c1*h) against the JAX kernel; W = 33 ends in a partial 4-row
+    word of the CUDA kernel's tile."""
     pk, _, c1, c2 = _inputs(missing, 5, w, nb)
     d_j = interleave(jwk.window_axpy(jnp.asarray(pk), jnp.asarray(c1),
                                      jnp.asarray(c2), interpret=True,

@@ -97,17 +97,16 @@ def test_window_stats_matches_jax(missing, exact, W):
                        twk.window_axpy(_t(pk[rows]), c1, c2, complete))
 
 
-def _gibbs_inputs(W, seed):
+def _gibbs_inputs(W, seed, K=4):
     """A window's recurrence inputs (tests/test_gibbs_kernel.py's recipe):
-    a symmetric Gram of 512 individuals, num0 of a few units, three
+    a symmetric Gram of 512 individuals, num0 of a few units, K - 1
     non-zero components, 10% inactive markers."""
-    K = 4
     rs = np.random.RandomState(seed)
     xt = rs.randn(W, 512).astype(np.float32) / 20
     gram = xt @ xt.T
     gram = ((gram + gram.T) / 2).astype(np.float32)
     invd = (np.full((W, K - 1), 1 / 300.0)
-            * np.array([1.0, 2.0, 3.0])).astype(np.float32)
+            * np.arange(1.0, K)).astype(np.float32)
     act = (rs.rand(W) > 0.1).astype(np.float32)
     act[0] = 1.0
     return dict(
@@ -119,12 +118,15 @@ def _gibbs_inputs(W, seed):
         bold=(rs.randn(W) * 0.02).astype(np.float32))
 
 
-@pytest.mark.parametrize("W", [1, 16])
-def test_window_gibbs_matches_jax(W):
+@pytest.mark.parametrize("W,K", [
+    pytest.param(W, K, id=str(W) if K == 4 else f"W{W}-K{K}")
+    for W in (1, 16, 33, 64) for K in (2, 4, 6)])
+def test_window_gibbs_matches_jax(W, K):
     """Same draw form (clamp at -60, unnormalized u*s): components equal,
     dbeta / beta / acum within 2e-5 (the Gram correction's summation
-    order)."""
-    args = _gibbs_inputs(W, 6)
+    order). The windows cross the CUDA recurrence's 32-marker blocks (33: a
+    ragged last block); K = 2 and 6 beside the default 4."""
+    args = _gibbs_inputs(W, 6, K)
     got = tgk.window_gibbs(*(_t(a) for a in args.values()), 1.0)
     want = jax_window_gibbs(*(jnp.asarray(a) for a in args.values()), 1.0,
                             interpret=True)
