@@ -71,10 +71,12 @@ BayesRRm's per-window branch (--mega off, --cache-planes on) and W < 8:
   2d. window_stats (W=128; exact and stale, complete and 2% missing),
      window_gibbs (W=128, on a real window's Gram), window_axpy (W=128, bit
      for bit its plain version, one device kernel a call),
-     window_stats_planes and window_axpy_planes (W=64) against their plain
+     window_stats_planes and window_axpy_planes (W=64, bit for bit their
+     plain versions, one device kernel a call) against their plain
      versions at N=50,000,
      bitwise repeatable (window_stats' s1, s2 bit for bit); the planes
-     kernels beside torch.mv on the cast planes.
+     kernels beside torch.mv on the planes cast to f32 before timing (and,
+     once, with the cast inside the timed call).
   3d. the CLI at M=10,000 x N=5,000, 20 iterations each: --mega off (exact
      W=64), --mega off --stale --window 64, --cache-planes on --stale
      --window 64 and --stale (W=1, the whole-sweep kernel on the marker
@@ -84,7 +86,8 @@ BayesRRm's per-window branch (--mega off, --cache-planes on) and W < 8:
      --cache-planes on stale W=64 (5.0 GB of int8 planes); stale W=1 at
      M=10,000 x N=5,000: ms/sweep, busy share, host enqueue, device time
      per kernel; window_gibbs_kernel alone a call at W=64, 128 and 1024
-     (print_window_gibbs_times).
+     (print_window_gibbs_times); the planes kernels alone a call at W=8,
+     64, 256 and 1024 beside torch.mv and their bounds (print_planes_times).
 BayesFH (--mpibayes bayesFHMPI) and the single-decode stale sweep
 (HYDRA_TPU_SD, --stale --schedule marker):
   2e. sweep_stale_sd against its plain version at M=4,096 x N=50,000, W=64,
@@ -1005,18 +1008,22 @@ def device_times(torch, fn, label, need=""):
     ``need``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    # a session comes back empty now and then among many short ones: it is
-    # taken again, up to 3 times, before it fails
-    for _ in range(3):
+    # a session comes back empty now and then among many short ones (three
+    # in a row seen once, before a one-launch call): it is taken again, up
+    # to 6 times, each with a longer lead-in, before it fails
+    for attempt in range(6):
+        if attempt:
+            print(f"  {label}: profiler session {attempt} saw no device "
+                  "activity; taken again", flush=True)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             # a session's first kernels can go unrecorded (up to 7 seen, a
             # sweep's Gram among them): spin kernels, left out of the
             # result, and a pause first
-            for _ in range(16):
+            for _ in range(16 << attempt):
                 torch.cuda._sleep(1000)
             torch.cuda.synchronize()
-            time.sleep(0.02)
+            time.sleep(0.02 * (1 + attempt))
             fn()
             torch.cuda.synchronize()
         per = {}
@@ -1439,8 +1446,9 @@ def print_digests(torch, np):
     then the BayesRRm stale sweeps (stale_digest_outputs), the exact
     sweep and window_stats on missing genotypes (missing_exact_digest_outputs,
     the exact sweep also at M=16,384, the real-size sweeps' Gram tile) and
-    the per-window branch's window_gibbs, window_axpy and one --mega off
-    exact sweep (window_branch_digest_outputs).
+    the per-window branch's window_gibbs, window_axpy, one --mega off
+    exact sweep, the planes kernels and one --cache-planes on sweep
+    (window_branch_digest_outputs).
     Two trees' kernels are bit for bit the same where their digests are
     (scripts/chip_compare.py runs this in each tree). Returns {name:
     digest}."""
@@ -1651,8 +1659,12 @@ def window_branch_digest_outputs(torch, np):
     from a tree that sums c1 in torch's reduction order); and one --mega
     off exact sweep (window_sweep, W=128, marker order) on M=4,096 x
     N=50,000 with 2% missing calls, which takes no complete-data
-    constant. Returns {name: tensors}."""
+    constant; then window_stats_planes and window_axpy_planes
+    at W=8, 64 and 1024 on shuffled rows of complete M=4,096 x N=50,000
+    planes, and one --cache-planes on sweep (stale W=64, marker order) on
+    complete genotypes of the same size. Returns {name: tensors}."""
     from hydra_tpu_torch.ops import gibbs_kernel as gk
+    from hydra_tpu_torch.ops import planes as tpl
     from hydra_tpu_torch.ops import window_kernels as wk
     from hydra_tpu_torch.samplers.bayesrrm import BayesRRm
     dev = torch.device("cuda")
@@ -1696,6 +1708,36 @@ def window_branch_digest_outputs(torch, np):
     mrow = s.build_mrow(st, torch.rand(m, generator=gen, device=dev),
                         torch.randn(m, generator=gen, device=dev), active)
     outs["window_sweep --mega off exact W=128 missing 2%"] = s.window_sweep(
+        st.eps, mrow, s.sweep_order(0), 0.5 / st.sigma_e)
+    del s, st, pk
+    gen = torch.Generator(device=dev).manual_seed(83)
+    pk, _, _, _ = device_genotypes(torch, m, n, n_pad, gen)
+    planes = tpl.build_planes(pk)
+    del pk
+    eps = 0.8 * torch.randn(n_pad, generator=gen, device=dev)
+    eps[n:] = 0.0
+    for W in (8, 64, 1024):
+        rows = torch.randperm(m, generator=gen, device=dev)[:W].to(
+            torch.int32)
+        c1 = 0.05 * torch.randn(W, generator=gen, device=dev)
+        outs[f"window_stats_planes W={W}"] = (
+            tpl.window_stats_planes(planes, eps, rows),)
+        outs[f"window_axpy_planes W={W}"] = (
+            tpl.window_axpy_planes(planes, c1, rows),)
+    del planes
+    ds, pk = real_size_dataset(torch, np, 0.0, m=m, seed=89)
+    s = BayesRRm(ds, window=64, exact=False, seed=1, device=dev,
+                 plane_cache="on", packed_device=pk)
+    if not (s.cfg.per_window and s.cfg.planes
+            and s.cfg.schedule == "marker"):
+        raise AssertionError("the digest's sampler must take the planes "
+                             "branch on the marker schedule")
+    st = s.init_state()
+    gen = torch.Generator(device=dev).manual_seed(91)
+    active = (st.sigma_g[s.groups] > 0) & (s.valid > 0) & (s.mstd > 0)
+    mrow = s.build_mrow(st, torch.rand(m, generator=gen, device=dev),
+                        torch.randn(m, generator=gen, device=dev), active)
+    outs["window_sweep --cache-planes on stale W=64"] = s.window_sweep(
         st.eps, mrow, s.sweep_order(0), 0.5 / st.sigma_e)
     return outs
 
@@ -2695,27 +2737,32 @@ def phase_window_kernels(torch, np, card):
         planes = tpl.build_planes(pk)
         rows = torch.cat([pads[:1], rest[W:2 * W - 1]]).to(torch.int32)
         c1 = 0.05 * torch.randn(W, generator=gen, device=dev)
-        pw = planes[rows.long()]                  # the library's input
+        pwf = planes[rows.long()].float()   # the library's input, cast before timing
         for name, fn, ref, lib in (
                 ("window_stats_planes",
                  lambda: (tpl.window_stats_planes(planes, eps, rows),),
                  lambda: (tpl.window_stats_planes_ref(planes, eps, rows),),
-                 lambda: torch.mv(pw.float(), eps)),
+                 lambda: torch.mv(pwf, eps)),
                 ("window_axpy_planes",
                  lambda: (tpl.window_axpy_planes(planes, c1, rows),),
                  lambda: (tpl.window_axpy_planes_ref(planes, c1, rows),),
-                 lambda: torch.mv(pw.float().t(), c1))):
+                 lambda: torch.mv(pwf.t(), c1))):
             r = rec[name]
             r["ms"], r["plain_ms"] = compare_outputs(
                 torch, name, f"W={W} {data}", fn, ref, 20,
                 [(1e-5, 1e-6 * n)], card, rec)
+            if not torch.equal(fn()[0], ref()[0]):
+                raise AssertionError(f"{name} W={W} differs from its plain "
+                                     "version")
+            # one launch a call: the kernel alone, no memset, no torch op
+            check_one_launch(torch, f"{name} W={W}", fn, card)
             lib()
             r["library_ms"], want = cuda_ms(torch, lib, 20)
             torch.testing.assert_close(fn()[0], want, rtol=1e-5,
                                        atol=1e-6 * n)
             # the same 20 calls as device time alone (the CUDA-event times
             # above include the host's enqueue of each call); the library's
-            # includes its int8 -> f32 cast
+            # on the rows cast to f32 before timing
             for key, f in (("device_ms", fn), ("library_device_ms", lib)):
                 per = device_times(torch, lambda: [f() for _ in range(20)],
                                    name)
@@ -2726,12 +2773,12 @@ def phase_window_kernels(torch, np, card):
                 4 * W if name == "window_stats_planes" else 0)
             r["bound_ms"], r["bound_by"] = bound(
                 nbytes, {"f32": 2.0 * W * n_pad})
-            print(f"{name:19s} library torch.mv on the cast rows "
-                  f"{r['library_ms']:.4f} ms; device time per call: kernel "
-                  f"{r['device_ms']:.4f} ms, library {r['library_device_ms']:.4f}"
-                  f" ms  [{card}]", flush=True)
+            print(f"{name:19s} library torch.mv on the rows cast to f32 "
+                  f"before timing {r['library_ms']:.4f} ms; device time per "
+                  f"call: kernel {r['device_ms']:.4f} ms, library "
+                  f"{r['library_device_ms']:.4f} ms  [{card}]", flush=True)
             print_bound(name, r)
-        del planes, pw
+        del planes, pwf
     return rec
 
 
@@ -2832,6 +2879,7 @@ WINDOW_REAL_SIZE = (
                        ("--cache-planes on stale", False, 64, "auto", "on"))),
     (10_000, 5_000, (("--stale", False, 1, "auto", "off"),)))
 MEGA_OFF_REAL_SIZE = ((100_000, 50_000, WINDOW_REAL_SIZE[0][2][:2]),)
+PLANES_REAL_SIZE = ((100_000, 50_000, WINDOW_REAL_SIZE[0][2][2:]),)
 
 
 def print_window_gibbs_times(torch, np, card):
@@ -2862,6 +2910,71 @@ def print_window_gibbs_times(torch, np, card):
               f"a call, {us / W:.4f} us a step ({n} of {calls} calls "
               f"recorded); bound {1e3 * b_ms:.4f} us ({by}); other device "
               f"kernels: {others}  [{card}]", flush=True)
+
+
+PLANES_TIMES_W = (8, 64, 256, 1024)
+
+
+def print_planes_times(torch, np, card, calls=20):
+    """window_stats_planes and window_axpy_planes alone, device us a call
+    (torch.profiler over ``calls`` calls after a warm-up: each kernel's
+    mean a launch times its launches a call), at W = 8, 64, 256 and 1024
+    on int8 planes of M=4,096 x N=50,000, each two ways: "cold", call k on
+    window k mod 20 of a random order of the rows (up to M / W windows),
+    so from W=64 on the windows' rows exceed the L2 cache and come mostly
+    from device memory, as the stats pass reads them on the main path;
+    "warm", every call on the first window, whose rows stay in L2 up to
+    W=256, as the axpy reads them after the stats on the main path (and as
+    PERF.md timed both kernels before this design). Beside each: its bound a
+    call (the window's int8 rows, the row indices, eps and s1 or c1 and d,
+    over 3.35 TB/s) and torch.mv on the same windows' rows cast to f32
+    before timing (the library yardstick; the f32 rows are 4x the bytes)."""
+    from hydra_tpu_torch.ops import planes as tpl
+    dev = torch.device("cuda")
+    m, n = 4096, 50_000
+    n_pad = padded_individuals(np, n)
+    gen = torch.Generator(device=dev).manual_seed(97)
+    pk, _, _, _ = device_genotypes(torch, m, n, n_pad, gen)
+    planes = tpl.build_planes(pk)
+    del pk
+    eps = 0.8 * torch.randn(n_pad, generator=gen, device=dev)
+    eps[n:] = 0.0
+    for W in PLANES_TIMES_W:
+        order = torch.randperm(m, generator=gen, device=dev).to(torch.int32)
+        wins = [order[k * W:(k + 1) * W].contiguous()
+                for k in range(min(20, m // W))]
+        c1 = 0.05 * torch.randn(W, generator=gen, device=dev)
+        rows_f32 = [planes[w.long()].float() for w in wins]
+        fns = {"window_stats_planes":
+               lambda k: tpl.window_stats_planes(planes, eps, wins[k]),
+               "window_axpy_planes":
+               lambda k: tpl.window_axpy_planes(planes, c1, wins[k]),
+               "torch.mv stats": lambda k: torch.mv(rows_f32[k], eps),
+               "torch.mv axpy": lambda k: torch.mv(rows_f32[k].t(), c1)}
+        b_ms, by = bound(W * n_pad + 8 * W + 4 * n_pad,
+                         {"f32": 2.0 * W * n_pad})
+        for mode, nw in (("cold", len(wins)), ("warm", 1)):
+            us = {}
+            for name, f in fns.items():
+                for k in range(nw):
+                    f(k)
+                per = _profile_retry(torch, lambda: [f(k % nw)
+                                                     for k in range(calls)],
+                                     name)
+                if not per:
+                    us[name] = "not measured"
+                    continue
+                t = sum(1e3 * ms / cnt * max(1, round(cnt / calls))
+                        for cnt, ms in per.values())
+                names = ", ".join(kernel_name(k) if "hydra::" in k
+                                  else k[:40] for k in per)
+                us[name] = f"{t:.2f} us ({names})"
+            print(f"planes W={W} {mode}: "
+                  + "; ".join(f"{k} {v}" for k, v in us.items())
+                  + f"; bound {1e3 * b_ms:.4f} us ({by}) a call  [{card}]",
+                  flush=True)
+        del rows_f32
+    del planes
 
 
 def print_host_split(torch, run, label, n_windows, card, top=12):
@@ -2979,8 +3092,8 @@ def phase_window_real_size(torch, np, sk, card, configs=WINDOW_REAL_SIZE,
                 # complete data: exact 4 window_stats launches (stats,
                 # finish, Gram, standardize) and a memset of the Gram's
                 # accumulator + window_gibbs + the axpy; stale 2 stats
-                # launches (or the planes') + axpy
-                per = 6 if exact else 3
+                # launches + axpy; the planes one stats launch + axpy
+                per = 6 if exact else 2 if pc == "on" else 3
                 memset = (f" + 1 memset/window = {cfg.n_windows}" if exact
                           else "")
                 profile_run(torch, lambda: s.window_sweep(st.eps, mrow, order,
@@ -3339,6 +3452,7 @@ def main() -> int:
                "stale W=1"):
         phase_window_real_size(torch, np, sk, card)
         print_window_gibbs_times(torch, np, card)
+        print_planes_times(torch, np, card)
     with phase("4e: BayesFH and the single-decode sweep real size "
                "(M=100,000 x N=50,000)"):
         phase_sd_real_size(torch, np, sk, card)
@@ -3395,11 +3509,14 @@ def main() -> int:
          "window_gibbs_kernel<KB, FIXED> (warp_recurrence)"),
         ("window_stats_planes", "planes_kernel.cu",
          "hydra_tpu/ops/planes.py:138",
-         "stats_planes_kernel, planes_reduce_kernel"),
+         "stats_planes_kernel<RPW, STAGED, true> (one launch a call: the "
+         "last block of a row group's ticket adds the tiles' partials)"),
         ("window_axpy_planes", "planes_kernel.cu",
-         "hydra_tpu/ops/planes.py:196", "axpy_planes_kernel"))
+         "hydra_tpu/ops/planes.py:196",
+         "axpy_planes_kernel (a thread per individual, rows staged by "
+         "cp.async)"))
     # library_ms: the planes kernels, torch.mv on the window's int8 rows
-    # cast to f32; the window passes (window_stats, window_axpy,
+    # cast to f32 before timing; the window passes (window_stats, window_axpy,
     # window_level_sums and the multi-trait two), PyTorch's call on the
     # window's rows decoded to f32 before timing (print_library_times,
     # phase 2c). Null for the sweeps and the recurrences: no PyTorch call

@@ -15,11 +15,15 @@
 //
 // What bounds them on this card: bytes. Each reads the window's W rows of
 // one byte per genotype (4x the packed rows) plus eps or writes d; two
-// multiply-adds per genotype are far below the f32 peak. The design reads
-// four genotypes per char4 load and four residuals per float4, a warp per
-// row and tile in the stats (fixed-order tile partials, no float atomics,
-// so equal inputs give bitwise-equal outputs) and a thread per four
-// individuals looping over the rows in the axpy.
+// operations per genotype are far below the f32 peak. So both designs put
+// every row byte of a window in flight at once with 16-byte cp.async copies
+// into shared memory, and turn a genotype byte into a float exactly by one
+// byte permute and one subtraction (byte_float; no quarter-rate integer
+// conversion). Both keep the summation order of the first CUDA kernels of
+// these two functions (a warp a row and tile, then a second reduction
+// kernel; a thread per four individuals), which the plain versions in
+// ops/planes.py repeat: equal inputs give bitwise-equal outputs, with no
+// float atomics.
 
 #include <cstdint>
 
@@ -27,70 +31,239 @@
 
 namespace hydra {
 
-constexpr int PLANES_TW = 512;     // char4 words (2,048 individuals) per stats tile
-constexpr int PLANES_ROWS = 8;     // rows per stats block (one per warp)
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
 
-// grid (n_tiles, ceil(W / PLANES_ROWS)), 256 threads. Warp = one row over
-// one tile; lane reads words w0 + lane + 32j. Partials part[tile * W + row].
-__global__ void stats_planes_kernel(const int8_t* __restrict__ planes, int nw,
-                                    const float* __restrict__ eps,
-                                    const int* __restrict__ rows, int W,
-                                    float* __restrict__ part) {
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int r = blockIdx.y * PLANES_ROWS + warp;
-    if (r >= W) return;
-    const int t = blockIdx.x;
-    const char4* row = reinterpret_cast<const char4*>(planes)
-                       + static_cast<size_t>(rows[r]) * nw;
-    const float4* e4 = reinterpret_cast<const float4*>(eps);
-    const int w0 = t * PLANES_TW;
-    const int w1 = min(w0 + PLANES_TW, nw);
-    float a = 0.f;
-    for (int wd = w0 + lane; wd < w1; wd += 32) {
-        const char4 g = row[wd];
-        const float4 e = e4[wd];
-        a = fmaf(static_cast<float>(g.x), e.x, a);
-        a = fmaf(static_cast<float>(g.y), e.y, a);
-        a = fmaf(static_cast<float>(g.z), e.z, a);
-        a = fmaf(static_cast<float>(g.w), e.w, a);
+// atomicAdd with release and acquire at device scope: behind a barrier, one
+// thread's ticket orders the block's earlier writes before it (cumulative)
+// and, for the block that draws the last, the others' before its reads
+__device__ __forceinline__ int atomic_add_acq_rel(int* p, int v) {
+    int old;
+    asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], %2;\n"
+                 : "=r"(old)
+                 : "l"(p), "r"(v)
+                 : "memory");
+    return old;
+}
+
+// wait until at most N of this thread's committed cp.async groups are pending
+template <int N>
+__device__ __forceinline__ void cp_async_wait_group() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ------------------------------------------------------------------ stats --
+// A tile is PLANES_TW char4 words (2,048 individuals). Order of a row's s1:
+// lane l of its warp adds the tile's words l + 32 j (j = 0, 1, ...) with
+// fmaf over their four genotypes from 0.f, the warp adds its lanes by
+// warp_sum's xor butterfly, and the tiles' partials are added in tile order
+// from 0.f (reduce_tiles).
+//
+// One launch a call, grid (tiles, row groups of PLANES_WARPS rows),
+// PLANES_THREADS a block, one row a warp:
+//  - the block copies the tile's eps (8 KB) and each warp its row's tile
+//    segment (2 KB) to shared memory with 16-byte cp.async copies, every
+//    copy in flight behind one wait and one barrier. A warp's float4 reads
+//    of eps at l + 32 j fall on 32 consecutive float4 (each quarter warp on
+//    128 consecutive bytes), so no swizzle is needed.
+//  - each block writes its rows' tile partials part[t * W + r] and, behind
+//    a barrier, takes a ticket on its row group's counter (one thread's
+//    acquire-release atomic); the block that draws the last ticket copies
+//    the group's partials to shared memory (through L2, __ldcg; all loads
+//    in flight), adds each row's in tile order, writes s1 and sets the
+//    counter back to 0. The counters live in the caller's workspace,
+//    zeroed once when it is allocated.
+// Two rows a warp (staged or in registers) and the same kernel without the
+// ticket followed by a reduction kernel were timed against this design and
+// not kept (PERF.md, findings of the planes kernels).
+constexpr int PLANES_TW = 512;      // char4 words (2,048 individuals) a tile
+constexpr int PLANES_WARPS = 8;     // warps (rows) a stats block
+constexpr int PLANES_THREADS = PLANES_WARPS * 32;
+constexpr int PLANES_GROUPS = 1024 / PLANES_WARPS;   // counters: W <= 1024
+constexpr int PLANES_TICKET_BYTES = 256 * ((sizeof(int) * PLANES_GROUPS + 255) / 256);
+
+__global__ void __launch_bounds__(PLANES_THREADS)
+stats_planes_kernel(const int8_t* __restrict__ planes, int nw, const float* __restrict__ eps,
+                    const int* __restrict__ rows, int W, float* __restrict__ part,
+                    int* __restrict__ tickets, float* __restrict__ s1) {
+    __shared__ float4 s_e[PLANES_TW];
+    __shared__ uint32_t s_g[PLANES_WARPS * PLANES_TW];
+    __shared__ bool s_last;
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    const int t = blockIdx.x, w0 = t * PLANES_TW;
+    const int tw = min(PLANES_TW, nw - w0);      // 128, 256, 384 or 512 words
+    const int nj = tw >> 5;                      // words a lane
+    const int g0 = blockIdx.y * PLANES_WARPS;    // the block's first row
+    const int r = g0 + warp;                     // the warp's row
+    const bool busy = r < W;
+    // the row's slot first, then eps' copies (which need no slot) while
+    // the slot loads, then the row's own
+    const int slot = busy ? __ldg(rows + r) : 0;
+    const float4* e4 = reinterpret_cast<const float4*>(eps) + w0;
+    for (int f = tid; f < tw; f += PLANES_THREADS) cp_async16(s_e + f, e4 + f);
+    uint32_t* g_w = s_g + warp * PLANES_TW;
+    if (busy) {
+        const uint32_t* row = reinterpret_cast<const uint32_t*>(
+            planes + static_cast<size_t>(slot) * (4 * static_cast<size_t>(nw))) + w0;
+        for (int k = lane; k < (tw >> 2); k += 32) cp_async16(g_w + 4 * k, row + 4 * k);
     }
-    a = warp_sum(a);
-    if (lane == 0) part[t * W + r] = a;
-}
-
-__global__ void planes_reduce_kernel(const float* __restrict__ part, int n_tiles,
-                                     int W, float* __restrict__ s1) {
-    const int r = blockIdx.x * blockDim.x + threadIdx.x;
-    if (r < W) s1[r] = reduce_tiles(part, n_tiles, W, r);
-}
-
-// One thread per char4 word (4 individuals) loops over the window's rows;
-// c1 and rows sit in shared memory.
-__global__ void axpy_planes_kernel(const int8_t* __restrict__ planes, int nw,
-                                   const int* __restrict__ rows, int W,
-                                   const float* __restrict__ c1,
-                                   float* __restrict__ out) {
-    extern __shared__ float sh[];          // c1[W], rows[W]
-    float* s_c1 = sh;
-    int* s_row = reinterpret_cast<int*>(sh + W);
-    for (int i = threadIdx.x; i < W; i += blockDim.x) {
-        s_c1[i] = c1[i];
-        s_row[i] = rows[i];
+    cp_async_wait_all();
+    __syncthreads();
+    if (busy) {
+        float a = 0.f;
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+            if (j >= nj) break;
+            const float4 e = s_e[lane + 32 * j];
+            const uint32_t g = g_w[lane + 32 * j];
+            a = fmaf(byte_float(g, 0), e.x, a);
+            a = fmaf(byte_float(g, 1), e.y, a);
+            a = fmaf(byte_float(g, 2), e.z, a);
+            a = fmaf(byte_float(g, 3), e.w, a);
+        }
+        const float v = warp_sum(a);
+        if (lane == 0) part[static_cast<size_t>(t) * W + r] = v;
     }
     __syncthreads();
-    const int b = blockIdx.x * blockDim.x + threadIdx.x;
-    if (b >= nw) return;
-    const char4* p4 = reinterpret_cast<const char4*>(planes);
-    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int r = 0; r < W; ++r) {
-        const char4 g = p4[static_cast<size_t>(s_row[r]) * nw + b];
-        const float c = s_c1[r];
-        acc.x = fmaf(c, static_cast<float>(g.x), acc.x);
-        acc.y = fmaf(c, static_cast<float>(g.y), acc.y);
-        acc.z = fmaf(c, static_cast<float>(g.z), acc.z);
-        acc.w = fmaf(c, static_cast<float>(g.w), acc.w);
+    if (tid == 0)
+        s_last = atomic_add_acq_rel(tickets + blockIdx.y, 1) == static_cast<int>(gridDim.x) - 1;
+    __syncthreads();
+    if (!s_last) return;
+    // the group's partials to shared memory (eps' tile is free now), every
+    // load in flight, STAGE_TILES tiles at a time; then thread p adds row
+    // p's in tile order
+    float* s_p = reinterpret_cast<float*>(s_e);
+    constexpr int STAGE_TILES = 4 * PLANES_TW / PLANES_WARPS;
+    const int n_tiles = gridDim.x;
+    float s = 0.f;
+    for (int u0 = 0; u0 < n_tiles; u0 += STAGE_TILES) {
+        const int nu = min(STAGE_TILES, n_tiles - u0);
+        if (u0 > 0) __syncthreads();
+        for (int k = tid; k < nu * PLANES_WARPS; k += PLANES_THREADS) {
+            const int rk = g0 + k % PLANES_WARPS;
+            s_p[k] = rk < W ? __ldcg(part + static_cast<size_t>(u0 + k / PLANES_WARPS) * W + rk)
+                            : 0.f;
+        }
+        __syncthreads();
+        if (tid < PLANES_WARPS) {
+#pragma unroll 8
+            for (int u = 0; u < nu; ++u) s += s_p[u * PLANES_WARPS + tid];
+        }
     }
-    reinterpret_cast<float4*>(out)[b] = acc;
+    if (tid < PLANES_WARPS && g0 + tid < W) s1[g0 + tid] = s;
+    if (tid == 0) tickets[blockIdx.y] = 0;
+}
+
+// ------------------------------------------------------------------- axpy --
+// Each individual's chain: acc = fmaf(c1[r], g[r][i], acc) for r = 0..W-1
+// in window order, from 0.f. A thread per individual, AXPY_THREADS a block
+// (196 blocks at N=50,000):
+//  - past AXPY_DIRECT rows the block copies its 256-byte segment of each
+//    row of a chunk of AXPY_ROWS rows (32 KB) to shared memory with
+//    16-byte cp.async copies, all in flight (the rows' slots loaded first,
+//    together); the next chunk's copies are in flight while a chunk is
+//    consumed (PLANES_STAGES buffers), so a window costs a few round trips
+//    to memory, not W. Deeper pipelines and smaller chunks timed no
+//    faster at W=64, the main path's. c1 waits in shared memory (zero past
+//    W, read four rows at a time; a row past W adds fmaf(0, finite, acc) =
+//    acc, never -0).
+//  - a thread reads the word holding its genotype byte of each row of the
+//    chunk (a quarter warp's reads fall on one word), turns the byte into
+//    a float exactly (byte_float) and runs the row's fmaf;
+//  - up to AXPY_DIRECT rows a thread reads its byte of each row straight
+//    from memory, all loads in flight: no tile, no barrier.
+constexpr int PLANES_AXPY_WORDS = AXPY_THREADS / 4;   // words of a row a block
+constexpr int PLANES_COPIERS = AXPY_THREADS / 16;     // rows a pass of the block's copies
+constexpr int PLANES_STAGES = 2;                      // chunk buffers
+
+// rows of one chunk buffer: the window's (rounded up to 4) up to a chunk
+__host__ __device__ inline int axpy_planes_buffer_rows(int W) {
+    return min((W + 3) & ~3, AXPY_ROWS);
+}
+
+// dynamic shared memory: c1, and a buffer a stage up to the window's chunks
+inline size_t axpy_planes_smem(int W) {
+    const int buffers = W <= AXPY_DIRECT ? 0 : min(PLANES_STAGES, cdiv(W, AXPY_ROWS));
+    return sizeof(float) * ((W + 3) & ~3) +
+           sizeof(uint32_t) * buffers * axpy_planes_buffer_rows(W) * PLANES_AXPY_WORDS;
+}
+
+__global__ void __launch_bounds__(AXPY_THREADS)
+axpy_planes_kernel(const int8_t* __restrict__ planes, int n_pad, const int* __restrict__ rows,
+                   int W, const float* __restrict__ c1, float* __restrict__ out) {
+    extern __shared__ float4 sh_planes[];   // c1[W4], then the chunk buffers
+    const int tid = threadIdx.x;
+    const int i = blockIdx.x * AXPY_THREADS + tid;
+    const uint8_t* pl = reinterpret_cast<const uint8_t*>(planes);
+    float acc = 0.f;
+    if (W <= AXPY_DIRECT) {
+        uint32_t g[AXPY_DIRECT];
+#pragma unroll
+        for (int r = 0; r < AXPY_DIRECT; ++r)
+            g[r] = r < W ? __ldg(pl + static_cast<size_t>(__ldg(rows + r)) * n_pad + i) : 0u;
+#pragma unroll
+        for (int r = 0; r < AXPY_DIRECT; ++r) {
+            if (r >= W) break;
+            acc = fmaf(__ldg(c1 + r), byte_float(g[r], 0), acc);
+        }
+    } else {
+        const int W4 = (W + 3) & ~3;
+        float* s_c1 = reinterpret_cast<float*>(sh_planes);
+        uint32_t* tile = reinterpret_cast<uint32_t*>(s_c1 + W4);
+        const int buf_words = axpy_planes_buffer_rows(W) * PLANES_AXPY_WORDS;
+        const int n_chunks = (W + AXPY_ROWS - 1) / AXPY_ROWS;
+        // thread tid copies 16-byte piece tid & 15 of rows tid >> 4, + 16, ...
+        const uint8_t* src = pl + static_cast<size_t>(blockIdx.x) * AXPY_THREADS + 16 * (tid & 15);
+        constexpr int PER = AXPY_ROWS / PLANES_COPIERS;    // rows a thread copies a chunk
+        // chunk c's copies into buffer c mod PLANES_STAGES, one commit group
+        // a chunk (an empty group past the last, so the waits count alike)
+        const auto load_chunk = [&](int c) {
+            if (c < n_chunks) {
+                const int r0 = c * AXPY_ROWS, nr = min(AXPY_ROWS, W - r0);
+                uint32_t* buf = tile + (c % PLANES_STAGES) * buf_words;
+                int slot[PER];
+#pragma unroll
+                for (int k = 0; k < PER; ++k) {
+                    const int rr = (tid >> 4) + k * PLANES_COPIERS;
+                    slot[k] = rr < nr ? __ldg(rows + r0 + rr) : 0;
+                }
+#pragma unroll
+                for (int k = 0; k < PER; ++k) {
+                    const int rr = (tid >> 4) + k * PLANES_COPIERS;
+                    if (rr < nr)
+                        cp_async16(buf + rr * PLANES_AXPY_WORDS + 4 * (tid & 15),
+                                   src + static_cast<size_t>(slot[k]) * n_pad);
+                }
+            }
+            cp_async_commit();
+        };
+#pragma unroll
+        for (int c = 0; c < PLANES_STAGES - 1; ++c) load_chunk(c);
+        for (int r = tid; r < W4; r += AXPY_THREADS) s_c1[r] = r < W ? c1[r] : 0.f;
+        const int col = tid >> 2, q = tid & 3;
+        for (int c = 0; c < n_chunks; ++c) {
+            load_chunk(c + PLANES_STAGES - 1);    // its buffer was consumed at c - 1
+            cp_async_wait_group<PLANES_STAGES - 1>();
+            __syncthreads();
+            const int r0 = c * AXPY_ROWS;
+            const uint32_t* w = tile + (c % PLANES_STAGES) * buf_words + col;
+            const float4* c4 = reinterpret_cast<const float4*>(s_c1 + r0);
+            const int n4 = (min(AXPY_ROWS, W - r0) + 3) >> 2;
+#pragma unroll 4
+            for (int j = 0; j < n4; ++j) {
+                const float4 a = c4[j];
+                const uint32_t* wj = w + 4 * j * PLANES_AXPY_WORDS;
+                acc = fmaf(a.x, byte_float(wj[0], q), acc);
+                acc = fmaf(a.y, byte_float(wj[PLANES_AXPY_WORDS], q), acc);
+                acc = fmaf(a.z, byte_float(wj[2 * PLANES_AXPY_WORDS], q), acc);
+                acc = fmaf(a.w, byte_float(wj[3 * PLANES_AXPY_WORDS], q), acc);
+            }
+            // this buffer is refilled by the load of chunk c + PLANES_STAGES
+            if (c + PLANES_STAGES < n_chunks) __syncthreads();
+        }
+    }
+    out[i] = acc;
 }
 
 inline bool planes_shapes_ok(int W, int n_pad) {
@@ -101,29 +274,29 @@ inline bool planes_shapes_ok(int W, int n_pad) {
 
 extern "C" {
 
-// Bytes of device scratch one window_stats_planes call needs.
+// Bytes of device workspace a window_stats_planes call needs: the row
+// groups' ticket counters (which the kernel leaves at 0; zero them once)
+// and the tile partials.
 long long hydra_planes_workspace_bytes(int n_pad, int window) {
     using namespace hydra;
-    return static_cast<long long>(
-        align256(sizeof(float) * static_cast<size_t>(cdiv(n_pad / 4, PLANES_TW)) * window));
+    return PLANES_TICKET_BYTES +
+           static_cast<long long>(align256(
+               sizeof(float) * static_cast<size_t>(cdiv(n_pad / 4, PLANES_TW)) * window));
 }
 
-// s1 (W,) = planes[rows[r]] . eps for the window rows[0..W); eps (n_pad,).
+// s1 (W,) = planes[rows[r]] . eps for the window rows[0..W); eps (n_pad,);
+// ws: hydra_planes_workspace_bytes, its counters at 0. One launch.
 int hydra_window_stats_planes(const void* planes, const void* eps, const void* rows,
                               void* s1, void* ws, int window, int n_pad, void* stream) {
     using namespace hydra;
     if (!planes_shapes_ok(window, n_pad)) return static_cast<int>(cudaErrorInvalidValue);
-    const cudaStream_t st = static_cast<cudaStream_t>(stream);
     const int nw = n_pad / 4;
-    const int n_tiles = cdiv(nw, PLANES_TW);
-    float* part = static_cast<float*>(ws);
-    stats_planes_kernel<<<dim3(n_tiles, cdiv(window, PLANES_ROWS)), PLANES_ROWS * 32, 0,
-                          st>>>(static_cast<const int8_t*>(planes), nw,
-                                static_cast<const float*>(eps),
-                                static_cast<const int*>(rows), window, part);
-    HYDRA_CHECK_LAUNCH();
-    planes_reduce_kernel<<<cdiv(window, 256), 256, 0, st>>>(part, n_tiles, window,
-                                                             static_cast<float*>(s1));
+    int* tickets = static_cast<int*>(ws);
+    float* part = reinterpret_cast<float*>(static_cast<char*>(ws) + PLANES_TICKET_BYTES);
+    stats_planes_kernel<<<dim3(cdiv(nw, PLANES_TW), cdiv(window, PLANES_WARPS)),
+                          PLANES_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int8_t*>(planes), nw, static_cast<const float*>(eps),
+        static_cast<const int*>(rows), window, part, tickets, static_cast<float*>(s1));
     HYDRA_CHECK_LAUNCH();
     return 0;
 }
@@ -133,10 +306,11 @@ int hydra_window_axpy_planes(const void* planes, const void* rows, const void* c
                              void* out, int window, int n_pad, void* stream) {
     using namespace hydra;
     if (!planes_shapes_ok(window, n_pad)) return static_cast<int>(cudaErrorInvalidValue);
-    const int nw = n_pad / 4;
-    axpy_planes_kernel<<<cdiv(nw, AXPY_THREADS), AXPY_THREADS, 2 * sizeof(float) * window,
+    const size_t smem = axpy_planes_smem(window);
+    HYDRA_CHECK(allow_smem(axpy_planes_kernel, smem));
+    axpy_planes_kernel<<<n_pad / AXPY_THREADS, AXPY_THREADS, smem,
                          static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int8_t*>(planes), nw, static_cast<const int*>(rows), window,
+        static_cast<const int8_t*>(planes), n_pad, static_cast<const int*>(rows), window,
         static_cast<const float*>(c1), static_cast<float*>(out));
     HYDRA_CHECK_LAUNCH();
     return 0;

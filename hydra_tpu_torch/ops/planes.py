@@ -16,10 +16,15 @@ residual pairs with a plane row as it is.
 
 ``rows`` (W,) int32 names the window's slots (read in place on the device);
 None means all rows. For CUDA tensors the wrappers launch the kernels of
-``csrc/planes_kernel.cu``; for CPU tensors they run the plain versions
-``*_ref``, which add in the kernels' order (the stats per 2,048-individual
-tile, lane by lane, then the warp's xor butterfly and the tiles in order;
-the axpy row by row), so on the card the two agree bit for bit.
+``csrc/planes_kernel.cu``, one launch a call each; for CPU tensors they run
+the plain versions ``*_ref``, which add in the kernels' order (the stats
+per 2,048-individual tile, lane by lane, then the warp's xor butterfly and
+the tiles in order; the axpy row by row), so on the card the two agree bit
+for bit. The stats kernel adds its tiles' partials in the launch (a
+last-block ticket a row group): its partials and counters live in one
+workspace a (device, stream), allocated zeroed on first use and grown when
+a larger window or width needs it; the kernel leaves the counters at 0.
+Calls on one stream run in turn, so they share it safely.
 """
 
 from __future__ import annotations
@@ -36,6 +41,10 @@ f32 = torch.float32
 
 # Kernel launches through each wrapper (one per window of the planes path).
 launches = {"window_stats_planes": 0, "window_axpy_planes": 0}
+
+# (device index, stream handle) -> the stats kernel's workspace (uint8):
+# ticket counters, then tile partials
+_workspace = {}
 
 
 def reset_launches() -> None:
@@ -133,6 +142,10 @@ def _card(planes, rows, W, what, **vecs):
     for name, t in dict(planes=planes, rows=rows, **vecs).items():
         if t.device != dev or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous and on {dev}")
+    for name in ("planes", "eps"):      # copied 16 bytes at a time
+        t = planes if name == "planes" else vecs.get(name)
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary")
     from hydra_tpu_torch.ops import _build
     return rows, _build.load("planes_kernel.cu")
 
@@ -140,6 +153,18 @@ def _card(planes, rows, W, what, **vecs):
 def _raise(lib, what, err):
     raise RuntimeError(f"{what} kernel launch failed: "
                        f"{lib.hydra_planes_error_string(err).decode()}")
+
+
+def _stats_workspace(lib, dev, stream, n_pad, W):
+    """The workspace of the stream, at least a (W, n_pad) call's; a new one
+    is zeroed (the ticket counters start at 0)."""
+    need = lib.hydra_planes_workspace_bytes(n_pad, W)
+    key = (dev.index, stream)
+    ws = _workspace.get(key)
+    if ws is None or ws.numel() < need:
+        ws = _workspace[key] = torch.zeros(need, dtype=torch.uint8,
+                                           device=dev)
+    return ws
 
 
 def window_stats_planes(planes: torch.Tensor, eps: torch.Tensor,
@@ -153,12 +178,12 @@ def window_stats_planes(planes: torch.Tensor, eps: torch.Tensor,
     rows, lib = _card(planes, rows, W, "window_stats_planes", eps=eps)
     dev, n_pad = planes.device, planes.shape[1]
     s1 = torch.empty(W, dtype=f32, device=dev)
-    ws = torch.empty(lib.hydra_planes_workspace_bytes(n_pad, W),
-                     dtype=torch.uint8, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ws = _stats_workspace(lib, dev, stream, n_pad, W)
     with torch.cuda.device(dev):
         err = lib.hydra_window_stats_planes(
-            planes.data_ptr(), eps.data_ptr(), rows.data_ptr(), s1.data_ptr(),
-            ws.data_ptr(), W, n_pad, torch.cuda.current_stream(dev).cuda_stream)
+            planes.data_ptr(), eps.data_ptr(), rows.data_ptr(),
+            s1.data_ptr(), ws.data_ptr(), W, n_pad, stream)
     if err:
         _raise(lib, "window_stats_planes", err)
     launches["window_stats_planes"] += 1

@@ -22,10 +22,13 @@ W=128 and W=64 on 2% missing genotypes at M=100,000 x N=50,000 and the
 missing-data Gram alone a window (W 64, 128, 256, 1024), per window and,
 where the tree batches the exact sweeps' Grams, batched; then this tree's
 ``chip_smoke.print_window_gibbs_times`` (window_gibbs_kernel alone a call,
-W 64, 128, 1024) and phase 4d's two ``--mega off`` rows (exact W=128 and
+W 64, 128, 1024), ``chip_smoke.print_planes_times`` (the planes kernels
+alone a call, W 8, 64, 256, 1024, beside torch.mv on the rows cast to f32
+before timing) and phase 4d's two ``--mega off`` rows (exact W=128 and
 stale W=64 at M=100,000 x N=50,000, ``MEGA_OFF_REAL_SIZE``) with the exact
 sweep's host enqueue split by wrapper and by torch operator
-(``print_host_split``).
+(``print_host_split``), and its ``--cache-planes on`` stale W=64 row
+(``PLANES_REAL_SIZE``).
 
 Compare two versions inside one call, in turns, e.g. a ``git archive`` of
 the parent unpacked into a git-ignored directory beside this tree:
@@ -38,11 +41,11 @@ Each run goes to ``DIR/compare_<i>_<tree>.log`` (default ``build/compare``,
 git-ignored); a summary line per configuration (ms/sweep, CUDA-event
 ms/sweep, device ms and busy share, host enqueue, device kernels a sweep,
 and the stats, axpy (BayesRRm's, single-decode and multi-trait), stale
-draw, exact recurrence (``window_gibbs`` too) and BayesW levels and draw
-kernels' device us per window, and the Gram's), the multi-trait passes'
-device us per call, the stale fold, library, missing-data Gram,
-``window_gibbs`` and host split lines and the digests are printed at the
-end.
+draw, exact recurrence (``window_gibbs`` too), planes and BayesW levels
+and draw kernels' device us per window, and the Gram's), the multi-trait
+passes' device us per call, the stale fold, library, missing-data Gram,
+``window_gibbs``, planes and host split lines and the digests are printed
+at the end.
 """
 
 from __future__ import annotations
@@ -76,8 +79,10 @@ d.print_stale_fold_times(torch, np, card)
 d.print_library_times(torch, np, card)
 d.print_missing_exact_times(torch, np, card)
 d.print_window_gibbs_times(torch, np, card)
+d.print_planes_times(torch, np, card)
 d.phase_window_real_size(torch, np, sk, card, d.MEGA_OFF_REAL_SIZE,
                          host_split=True)
+d.phase_window_real_size(torch, np, sk, card, d.PLANES_REAL_SIZE)
 c.phase_real_size(torch, np, sk, card)
 c.phase_sd_real_size(torch, np, sk, card)
 c.phase_bw_real_size(torch, np, card)
@@ -117,7 +122,8 @@ KERNEL = re.compile(r"([\d.]+) us/window\s+(?:void )?hydra::(stats|axpy|stats_mt
                     r"axpy_decoded|stale_draw|stale_draw_mt|exact_draw|exact_mt_draw|"
                     r"window_recurrence_mt|levels|bw_draw|gram|gram_reduce|"
                     r"gram_f32|gram_i8|gram_f32_batch|gram_i8_batch|window_gibbs|"
-                    r"window_stats_finish|gram_standardize)_kernel"
+                    r"window_stats_finish|gram_standardize|stats_planes|"
+                    r"axpy_planes|planes_reduce)_kernel"
                     r"(<[^(]*>)?\(")
 FOLD = re.compile(r"^stale fold (.*?): (.*) a window; draw \+ axpy ([\d.]+) us; "
                   r"(\d+) launches")
@@ -142,7 +148,7 @@ def summary(path):
                              f"kernels {m.group(1)}")
                 continue
             if ln.startswith(("library ", "missing gram ", "missing exact ",
-                              "window_gibbs W=", "  host split ",
+                              "window_gibbs W=", "planes W=", "  host split ",
                               "    torch operators by own CPU time")):
                 rows.append("  " + ln.split("  [")[0].strip())
                 continue
@@ -190,7 +196,7 @@ def main(argv) -> int:
             r = subprocess.run([sys.executable, "-c", PAYLOAD, card, smoke]
                                + (["digests"] if only else []),
                                cwd=tree, stdout=fh, stderr=subprocess.STDOUT,
-                               timeout=900).returncode
+                               timeout=1200).returncode
         print(f"tree {tree}: exit {r}, log {log}", flush=True)
         rc = rc or r
         logs.append((tree, log))

@@ -1807,3 +1807,122 @@ def test_cuda_exact_sweep_grams_per_batch(kind):
     names = _port_launches(lambda: sweep(pk, eps, mrow, order))
     assert names.get(kernel) == 2
     assert sum(names.values()) == 3 * (cap + 1) + 2
+
+
+# The planes kernels: window_stats_planes (one launch a call, its tiles'
+# partials added by the last block of each row group's ticket, counters in
+# a workspace a device that the kernel leaves at 0) and window_axpy_planes
+# (a thread per individual over cp.async chunks of the window's rows).
+
+def _card_planes(m, n_pad, seed, dev):
+    """(m, n_pad) int8 planes of genotypes 0..2 on the card, row 0 all
+    zero (a pad marker), and eps (n_pad,)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    planes = torch.randint(0, 3, (m, n_pad), generator=g, device=dev,
+                           dtype=torch.int8)
+    planes[0] = 0
+    eps = torch.randn(n_pad, generator=g, device=dev)
+    return planes, eps, g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_pad", [512, 4_608, 50_176])
+@pytest.mark.parametrize("window", [1, 8, 31, 33, 64, 200, 1024])
+def test_cuda_planes_bitwise(window, n_pad):
+    """Both planes kernels bit for bit their plain versions on W rows in
+    shuffled order from 2 W + 1 (the zero row among them, and the first
+    slot repeated last from W = 8 on), at widths of one short stats tile
+    (512 individuals), two whole tiles and a ragged third (4,608) and
+    N=50,000 (50,176: 24 whole tiles and a half); a second call is bit for
+    bit the first."""
+    from hydra_tpu_torch.ops import planes as tpl
+    dev = _card()
+    m = 2 * window + 1
+    planes, eps, g = _card_planes(m, n_pad, 29 + window, dev)
+    rows = torch.randperm(m, generator=g, device=dev)[:window]
+    rows[window // 2] = 0
+    if window >= 8:
+        rows[-1] = rows[0]
+    rows = rows.to(torch.int32)
+    c1 = 0.05 * torch.randn(window, generator=g, device=dev)
+    before = dict(tpl.launches)
+    s_k = tpl.window_stats_planes(planes, eps, rows)
+    s_k2 = tpl.window_stats_planes(planes, eps, rows)
+    d_k = tpl.window_axpy_planes(planes, c1, rows)
+    d_k2 = tpl.window_axpy_planes(planes, c1, rows)
+    torch.cuda.synchronize()
+    assert tpl.launches["window_stats_planes"] == (
+        before["window_stats_planes"] + 2)
+    assert tpl.launches["window_axpy_planes"] == (
+        before["window_axpy_planes"] + 2)
+    assert torch.equal(s_k, tpl.window_stats_planes_ref(planes, eps, rows))
+    assert torch.equal(d_k, tpl.window_axpy_planes_ref(planes, c1, rows))
+    assert torch.equal(s_k, s_k2) and torch.equal(d_k, d_k2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["stats", "axpy"])
+def test_cuda_planes_one_launch(which):
+    """One window_stats_planes call and one window_axpy_planes call (W=64,
+    N=50,000) are each one CUDA kernel on the card: no second reduction
+    kernel, no memset or allocation fill of a workspace, no torch op."""
+    from hydra_tpu_torch.ops import planes as tpl
+    dev = _card()
+    planes, eps, g = _card_planes(128, 50_176, 31, dev)
+    rows = torch.arange(64, 128, dtype=torch.int32, device=dev)
+    c1 = 0.05 * torch.randn(64, generator=g, device=dev)
+    fn = ((lambda: tpl.window_stats_planes(planes, eps, rows))
+          if which == "stats" else
+          (lambda: tpl.window_axpy_planes(planes, c1, rows)))
+    fn()
+    got = _device_launches(fn)
+    assert sum(got.values()) == 1, got
+    assert f"hydra::{which}_planes_kernel" in next(iter(got)), got
+
+
+@pytest.mark.cuda
+def test_cuda_planes_stats_workspace_counters_return_to_zero():
+    """Calls of W = 8, 1024, 8, 64, 1024 and 8 on the one workspace of the
+    stream give the plain version's s1 bit for bit, and after each call
+    every ticket counter is 0 again."""
+    from hydra_tpu_torch.ops import planes as tpl
+    dev = _card()
+    planes, eps, g = _card_planes(2048, 50_176, 37, dev)
+    for window in (8, 1024, 8, 64, 1024, 8):
+        rows = torch.randperm(2048, generator=g, device=dev)[:window].to(
+            torch.int32)
+        want = tpl.window_stats_planes_ref(planes, eps, rows)
+        s = tpl.window_stats_planes(planes, eps, rows)
+        torch.cuda.synchronize()
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        ws = tpl._workspace[(planes.device.index, stream)]
+        assert not bool(ws[:512].any())    # the counters: 128 int32 first
+        assert torch.equal(s, want)
+
+
+@pytest.mark.cuda
+def test_cuda_planes_stats_workspace_per_stream():
+    """window_stats_planes on a second stream of the device takes a
+    workspace of its own (its ticket counters are not the first stream's),
+    and both streams' calls give the plain version's s1 bit for bit."""
+    from hydra_tpu_torch.ops import planes as tpl
+    dev = _card()
+    planes, eps, g = _card_planes(1024, 50_176, 41, dev)
+    rows = [torch.randperm(1024, generator=g, device=dev)[:w].to(torch.int32)
+            for w in (64, 200)]
+    want = [tpl.window_stats_planes_ref(planes, eps, r) for r in rows]
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    got = [tpl.window_stats_planes(planes, eps, rows[0])]
+    with torch.cuda.stream(side):
+        got.append(tpl.window_stats_planes(planes, eps, rows[1]))
+    torch.cuda.current_stream(dev).wait_stream(side)
+    torch.cuda.synchronize()
+    index = planes.device.index
+    main = tpl._workspace[(index, torch.cuda.current_stream(dev).cuda_stream)]
+    other = tpl._workspace[(index, side.cuda_stream)]
+    assert main.data_ptr() != other.data_ptr()
+    for ws in (main, other):
+        assert not bool(ws[:512].any())
+    for s, w in zip(got, want):
+        assert torch.equal(s, w)

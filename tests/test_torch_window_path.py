@@ -57,8 +57,8 @@ def _t(a):
     return torch.from_numpy(np.ascontiguousarray(a))
 
 
-def _rows(W, seed):
-    return np.random.RandomState(seed).choice(M, W, replace=False).astype(
+def _rows(W, seed, m=M):
+    return np.random.RandomState(seed).choice(m, W, replace=False).astype(
         np.int32)
 
 
@@ -140,10 +140,10 @@ def test_window_gibbs_matches_jax(W, K):
     assert np.all(got[1].numpy()[inactive] == 0)
 
 
-def _planes_pair(missing, seed):
+def _planes_pair(missing, seed, m=M, nb=NB):
     """The port's planes (individual order) and the JAX package's
     (flat-deinterleaved, from the PLINK-coded bytes) of the same rows."""
-    pk, eps, _, _, _ = make_inputs(M, NB, seed, missing, 3)
+    pk, eps, _, _, _ = make_inputs(m, nb, seed, missing, 3)
     mine = tpl.build_planes(_t(pk))
     theirs = jpl.build_planes_host(unhpack_bytes(pk))
     return pk, eps, mine, theirs
@@ -156,12 +156,13 @@ def test_build_planes_matches_jax():
     np.testing.assert_array_equal(mine.numpy(), relaid)
 
 
-@pytest.mark.parametrize("W", [1, 16])
-def test_planes_kernels_match_jax(W):
+def _check_planes_against_jax(W, nb):
     """window_stats_planes (rtol 1e-5, atol 1e-4) and window_axpy_planes
-    (atol 1e-6) against the JAX kernels in interpret mode."""
-    pk, eps, mine, theirs = _planes_pair(False, 8)
-    rows = _rows(W, 9)
+    (atol 1e-6) against the JAX kernels in interpret mode, on W rows drawn
+    from max(24, 2 W) of 4 nb individuals."""
+    m = max(M, 2 * W)
+    pk, eps, mine, theirs = _planes_pair(False, 8, m, nb)
+    rows = _rows(W, 9, m)
     s1 = tpl.window_stats_planes(mine, _t(eps), _t(rows))
     want = jpl.window_stats_planes(
         jnp.asarray(theirs[rows]),
@@ -172,8 +173,22 @@ def test_planes_kernels_match_jax(W):
     d = tpl.window_axpy_planes(mine, _t(c1), _t(rows))
     want = jwk.interleave(jpl.window_axpy_planes(
         jnp.asarray(theirs[rows]), jnp.asarray(c1),
-        interpret=True).reshape(4, NB))
+        interpret=True).reshape(4, nb))
     np.testing.assert_allclose(d.numpy(), np.asarray(want), atol=1e-6)
+
+
+@pytest.mark.parametrize("W", [1, 16, 8, 33, 64])
+def test_planes_kernels_match_jax(W):
+    """The planes' plain versions against the JAX kernels on 512
+    individuals, one (short) stats tile."""
+    _check_planes_against_jax(W, NB)
+
+
+@pytest.mark.parametrize("W", [8, 33])
+def test_planes_kernels_match_jax_ragged_tiles(W):
+    """The same on 2,560 individuals: a whole 2,048-individual stats tile
+    and a ragged last one of 512."""
+    _check_planes_against_jax(W, 640)
 
 
 # ---------------------------------------------------------------- sweeps --
