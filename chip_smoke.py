@@ -110,6 +110,25 @@ BayesFH (--mpibayes bayesFHMPI) and the single-decode stale sweep
   4e. M=100,000 x N=50,000: BayesFH exact W=128 (block); stale W=64 marker
      through sweep_stale and sweep_stale_sd (sub-windows 64 and 16):
      ms/sweep, markers/s, busy share, device time per kernel.
+Restart and covariates (--restart, --covariates):
+  3f. the CLI at M=10,000 x N=5,000 on the beds of phases 3, 3b and 3c with
+     F=12 covariates ("fid pid c1 .. c12" with "NA" entries; multi-trait a
+     comma-separated file): BayesRRm exact with covariates, --stale
+     --window 64, BayesFH, BayesW W=1 with covariates and multi-trait T=4
+     with covariates, each a full run of 30 iterations, a run cut at 15 and
+     a --restart of it; every record after the restart (csv rows, .bet,
+     .cpn, .acu, .mus.0, gamma, the last .eps.0) byte for byte the full
+     run's (scripts/soak_restart_torch.py::compare_runs); one CUDA sweep
+     with covariates of BayesRRm, BayesW and multi-trait against the CPU
+     sampler; BayesRRm's and BayesW's ms/sweep with and without them.
+  4f. BayesRRm exact W=128 with F=12 covariates at M=100,000 x N=50,000,
+     thin 5, save 10: ms/sweep by CUDA events with and without the
+     covariates, an uninterrupted run of 60 sweeps (the writer's share), a
+     run in a child process (``chip_smoke.py --restart-child``, the data
+     made anew from their seeds) SIGKILLed once its csv shows iteration
+     36, a --restart in another child (seconds from its start to its first
+     sweep), and every record after the restart byte for byte the
+     uninterrupted run's.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Any failure raises before those lines. JAX
 and the JAX package are blocked: the port must run without them.
@@ -3361,7 +3380,398 @@ def phase_sd_real_size(torch, np, sk, card):
     del pk
 
 
+# phase 3f's runs: (name, bed written by phases 3-3c, sampler, extra CLI
+# flags, covariates, the kernel each sweep launches once)
+RESTART_RUNS = (
+    ("bayesrrm_exact_cov", "t_M10K_N_5K", "brr", (), True, "sweep_exact"),
+    ("bayesrrm_stale", "t_M10K_N_5K", "brr", ("--stale", "--window", "64"),
+     False, "sweep_stale"),
+    ("bayesfh", "t_M10K_N_5K", "fh", (), False, "sweep_exact"),
+    ("bayesw_w1_cov", "weibull_M10K_N_5K", "bw", (), True, "sweep_stale_bw"),
+    ("mt_t4_cov", "mt_M10K_N_5K", "mt", (), True, "sweep_exact_mt"))
+RESTART_F = 12                    # covariates of phases 3f and 4f
+
+
+def write_covariates(np, base, n, seed):
+    """F=12 standard-normal covariates for a .bed of ``write_plink``, in
+    the two formats the readers take: ``<base>.cov`` ("fid pid c1 .. c12",
+    every 50th individual "NA" in one covariate: the single-trait readers
+    drop it) and ``<base>.csv.cov`` (comma-separated, no IDs, no "NA": the
+    multi-trait reader keeps every individual)."""
+    rs = np.random.RandomState(seed)
+    X = rs.randn(n, RESTART_F)
+    with open(base + ".cov", "w") as fh:
+        for i in range(n):
+            vals = [("NA" if i % 50 == 49 and k == i % RESTART_F
+                     else f"{X[i, k]:.8f}") for k in range(RESTART_F)]
+            fh.write(f"f{i} i{i} " + " ".join(vals) + "\n")
+    with open(base + ".csv.cov", "w") as fh:
+        fh.writelines(",".join(f"{v:.8f}" for v in X[i]) + "\n"
+                      for i in range(n))
+
+
+def restart_argv(tmp, bed, model, name, iters, cov, extra, restart=False):
+    """CLI arguments of one phase-3f run (thin 5, save 10, seed 7; a
+    restart takes the saved seed)."""
+    base = os.path.join(tmp, bed)
+    argv = ["--bfile", base, "--S", "0.0001,0.001,0.01", "--chain-length",
+            str(iters), "--thin", "5", "--save", "10", "--mcmc-out-dir",
+            os.path.join(tmp, "out_restart"), "--mcmc-out-name", name]
+    if not restart:
+        argv += ["--seed", "7"]
+    if model == "bw":
+        argv += ["--mpibayes", "bayesWMPI", "--pheno", base + ".phen",
+                 "--failure", base + ".fail"]
+    elif model == "mt":
+        argv += ["--mpibayes", "bayesMPI", "--pheno",
+                 ",".join(f"{base}.t{t}.phen" for t in range(4))]
+    else:
+        argv += ["--mpibayes", "bayesFHMPI" if model == "fh" else "bayesMPI",
+                 "--pheno", base + ".phen"]
+    if cov:
+        argv += ["--covariates",
+                 base + (".csv.cov" if model == "mt" else ".cov")]
+    return argv + list(extra) + (["--restart"] if restart else [])
+
+
+def covariate_noise(torch, g, F, shape, slice_noise=False):
+    """The covariates' permutation and draws of one sweep from generator
+    ``g``: normals of ``shape`` (BayesRRm (F,), multi-trait (F, T)), or
+    BayesW's slice noise (le (F,), ub (F,), uu (24, F))."""
+    noise = dict(covperm=torch.randperm(F, generator=g))
+    if slice_noise:
+        noise["cov"] = (torch.empty(F).exponential_(generator=g),
+                        torch.rand(F, generator=g),
+                        torch.rand(24, F, generator=g))
+    else:
+        noise["cov"] = torch.randn(shape, generator=g)
+    return noise
+
+
+def check_cov_sweeps(torch, np, tmp):
+    """One sweep with F=12 covariates of each sampler (BayesRRm exact,
+    BayesW W=64, multi-trait T=4), CUDA sampler against CPU sampler with
+    the same state and noise: eps, beta and gamma within atol 5e-4 / rtol
+    1e-3, components equal."""
+    from hydra_tpu_torch.options import parse_args
+    from hydra_tpu_torch.runner import (dataset_from_options,
+                                        mt_dataset_from_options)
+    from hydra_tpu_torch.samplers import bayesrrm, bayesrrm_mt, bayesw
+    for model, bed, window in (("brr", "t_M10K_N_5K", 64),
+                               ("bw", "weibull_M10K_N_5K", 64),
+                               ("mt", "mt_M10K_N_5K", 64)):
+        opt = parse_args(restart_argv(tmp, bed, model, "x", 1, True,
+                                      ("--window", str(window))))
+        g = torch.Generator().manual_seed(9)
+        if model == "mt":
+            ds, ph = mt_dataset_from_options(opt)
+            mod = bayesrrm_mt
+
+            def make(dev):
+                return bayesrrm_mt.BayesRRmMT(ds, ph, window=window,
+                                              exact=True, seed=7, device=dev)
+        elif model == "bw":
+            ds = dataset_from_options(opt)
+            mod = bayesw
+
+            def make(dev):
+                return bayesw.BayesW(ds, window=window, seed=7, device=dev)
+        else:
+            ds = dataset_from_options(opt)
+            mod = bayesrrm
+
+            def make(dev):
+                return bayesrrm.BayesRRm(ds, window=window, exact=True,
+                                         seed=7, device=dev)
+        cpu, gpu = make("cpu"), make("cuda")
+        ml, T = cpu.cfg.m_loc, 4
+        if model == "bw":
+            noise = dict(u=torch.rand(ml, generator=g),
+                         le=torch.empty(ml).exponential_(generator=g),
+                         ub=torch.rand(ml, generator=g),
+                         uu=torch.rand(ml, 24, generator=g),
+                         wperm=torch.randperm(cpu.cfg.n_windows, generator=g))
+            for k in ("mu", "alpha"):
+                noise[k] = (torch.empty(()).exponential_(generator=g),
+                            torch.rand((), generator=g),
+                            torch.rand(24, generator=g))
+            noise.update(covariate_noise(torch, g, RESTART_F, None, True))
+        else:
+            shape = (ml, T) if model == "mt" else (ml,)
+            noise = dict(mu=torch.randn(shape[1:], generator=g),
+                         u=torch.rand(shape, generator=g),
+                         nrm=torch.randn(shape, generator=g),
+                         wperm=torch.randperm(cpu.cfg.n_windows, generator=g),
+                         perm=torch.randperm(ml, generator=g))
+            noise.update(covariate_noise(
+                torch, g, RESTART_F,
+                (RESTART_F, T) if model == "mt" else (RESTART_F,)))
+        s_cpu = cpu.init_state()
+        s_cpu.gamma = torch.randn(s_cpu.gamma.shape, generator=g) * 0.1
+        s_gpu = mod.state_from_numpy(mod.state_to_numpy(s_cpu), "cuda")
+
+        def to(d, dev):
+            return {k: (tuple(t.to(dev) for t in v) if isinstance(v, tuple)
+                        else v.to(dev)) for k, v in d.items()}
+
+        a, _ = cpu.step(s_cpu, 0, noise=noise)
+        b, _ = gpu.step(s_gpu, 0, noise=to(noise, "cuda"))
+        a, b = mod.state_to_numpy(a), mod.state_to_numpy(b)
+        d = {k: float(np.abs(a[k] - b[k]).max()) for k in ("eps", "beta",
+                                                            "gamma")}
+        n_comp = int((a["components"] != b["components"]).sum())
+        print(f"one {model} sweep W={window} with {RESTART_F} covariates, "
+              f"CUDA vs CPU sampler: max|d eps| {d['eps']:.3e}  max|d beta| "
+              f"{d['beta']:.3e}  max|d gamma| {d['gamma']:.3e}  comp "
+              f"mismatches {n_comp}", flush=True)
+        for k in ("eps", "beta", "gamma"):
+            np.testing.assert_allclose(b[k], a[k], atol=5e-4, rtol=1e-3,
+                                       err_msg=k)
+        if n_comp:
+            raise AssertionError("component mismatches CUDA vs CPU sampler")
+
+
+def covariate_ms(torch, make, iters=5):
+    """ms/sweep by CUDA events of ``make(with_covariates)``'s sampler, with
+    and without covariates, after one warm-up sweep each."""
+    out = []
+    for cov in (True, False):
+        s = make(cov)
+        st, _ = s.step(s.init_state(), 0)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for it in range(1, iters + 1):
+            st, _ = s.step(st, it)
+        end.record()
+        torch.cuda.synchronize()
+        out.append(start.elapsed_time(end) / iters)
+        del s, st
+    return out
+
+
+def phase_restart_cli(torch, np, tmp, card):
+    """Restart and covariates through the CLI at M=10,000 x N=5,000 on the
+    beds of phases 3, 3b and 3c with F=12 covariates (write_covariates):
+    for each of RESTART_RUNS a full run of 30 iterations, a run cut at 15
+    and a --restart of it to 30 (no --seed); every record the restarted
+    run wrote must equal the full run's bytes (compare_runs of
+    scripts/soak_restart_torch.py: csv rows, .bet, .cpn, .acu, .mus.0,
+    .gam.0 / .gam rows, the last .eps.0); each run's kernel launched once
+    a sweep. Then one CUDA sweep with covariates of each sampler against
+    the CPU sampler, and BayesRRm's and BayesW's ms/sweep with and without
+    the covariates."""
+    import dataclasses
+    from hydra_tpu_torch import cli
+    from hydra_tpu_torch.options import parse_args
+    from hydra_tpu_torch.runner import dataset_from_options
+    from hydra_tpu_torch.samplers.bayesrrm import BayesRRm
+    from hydra_tpu_torch.samplers.bayesw import BayesW
+    from scripts import soak_restart_torch as soak
+    m, n, full, cut = 10_000, 5_000, 30, 15
+    for bed, seed in (("t_M10K_N_5K", 21), ("weibull_M10K_N_5K", 22),
+                      ("mt_M10K_N_5K", 23)):
+        write_covariates(np, os.path.join(tmp, bed), n, seed)
+    for name, bed, model, extra, cov, kernel in RESTART_RUNS:
+        out = os.path.join(tmp, "out_restart")
+        t0 = time.perf_counter()
+        reset_all_launches()
+        rc = [cli.main(restart_argv(tmp, bed, model, name + "_full", full,
+                                    cov, extra))]
+        torch.cuda.synchronize()
+        launches = all_launches()[kernel]
+        rc.append(cli.main(restart_argv(tmp, bed, model, name, cut, cov,
+                                        extra)))
+        rc.append(cli.main(restart_argv(tmp, bed, model, name, full, cov,
+                                        extra, restart=True)))
+        torch.cuda.synchronize()
+        if rc != [0, 0, 0]:
+            raise AssertionError(f"{name}: CLI exit codes {rc}")
+        if launches != full:
+            raise AssertionError(f"{name}: {kernel} launched {launches} "
+                                 f"times in {full} sweeps")
+        sfx = [f".t{t}" for t in range(4)] if model == "mt" else [""]
+        for s in sfx:
+            its = soak.compare_runs(os.path.join(out, name + "_full" + s),
+                                    os.path.join(out, name + "_rs" + s), m,
+                                    survival=model == "bw", covariates=cov)
+            if its != [15, 20, 25]:
+                raise AssertionError(f"{name}{s}: compared iterations {its}")
+        print(f"{name}: restart from iteration 10 byte-identical to the "
+              f"uninterrupted run at iterations {its} ({len(sfx)} file "
+              f"set{'s' if len(sfx) > 1 else ''}: csv, .bet, .cpn, "
+              f"{'' if model == 'bw' else '.acu, '}.mus.0"
+              f"{', gamma' if cov else ''}, .eps.0); {kernel} {launches} "
+              f"launches in {full} sweeps; "
+              f"{time.perf_counter() - t0:.1f} s wall", flush=True)
+    check_cov_sweeps(torch, np, tmp)
+    for model, bed in (("brr", "t_M10K_N_5K"), ("bw", "weibull_M10K_N_5K")):
+        opt = parse_args(restart_argv(tmp, bed, model, "x", 1, True, ()))
+        ds = dataset_from_options(opt)
+
+        def make(cov):
+            d = ds if cov else dataclasses.replace(ds, X=None)
+            if model == "bw":
+                return BayesW(d, window=1, seed=7, device="cuda")
+            return BayesRRm(d, window=opt.window, exact=True, seed=7,
+                            device="cuda")
+        with_cov, without = covariate_ms(torch, make)
+        print(f"{'BayesW W=1' if model == 'bw' else 'BayesRRm exact W=64'} "
+              f"M={ds.geno.m:,} x N={ds.geno.n:,}: {with_cov:.2f} ms/sweep with "
+              f"{RESTART_F} covariates, {without:.2f} without, "
+              f"{with_cov - without:.2f} ms a sweep for the covariates "
+              f"(CUDA events, 5 sweeps)  [{card}]", flush=True)
+
+
+# phase 4f: BayesRRm exact W=128 block with F=12 covariates at M=100,000 x
+# N=50,000, production cadence; the SIGKILL lands once the csv shows 36
+REAL_RESTART = dict(iters=60, kill_at=36, thin=5, save=10, window=128)
+
+
+def real_size_covariates(np, n, seed=12):
+    """(n, F=12) standard-normal covariates of phase 4f, from ``seed``."""
+    return np.random.RandomState(seed).randn(n, RESTART_F)
+
+
+def real_restart_options(out, name, restart=False):
+    """Options of a phase-4f run. The dataset is made in memory
+    (real_size_dataset, real_size_covariates), so no file is read; the
+    covariate flag turns on gamma's outputs and their restart."""
+    from hydra_tpu_torch.options import parse_args
+    r = REAL_RESTART
+    opt = parse_args(
+        ["--mpibayes", "bayesMPI", "--bfile", "in-memory", "--pheno",
+         "in-memory.phen", "--S", ",".join(str(v) for v in MS[1:]),
+         "--chain-length", str(r["iters"]), "--thin", str(r["thin"]),
+         "--save", str(r["save"]), "--window", str(r["window"]),
+         "--mcmc-out-dir", out, "--mcmc-out-name", name, "--device", "cuda"]
+        + (["--restart"] if restart else ["--seed", "7"]))
+    opt.covariates, opt.covariates_file = True, "in-memory"
+    return opt
+
+
+def real_restart_dataset(torch, np):
+    """real_size_dataset's M=100,000 x N=50,000 with real_size_covariates:
+    the same bytes in every process, made from their seeds on the card."""
+    import dataclasses
+    ds, pk = real_size_dataset(torch, np)
+    return dataclasses.replace(ds, X=real_size_covariates(np, ds.geno.n)), pk
+
+
+def restart_child(args):
+    """A phase-4f chain in a process of its own (``chip_smoke.py
+    --restart-child '{"out": ..., "name": ..., "restart": ...}'``): the
+    dataset made anew, then run_bayesrrm. Its last line is a JSON record
+    with the time the first sweep ended (time.time(), after a synchronize)
+    and the chain's and the writer's seconds."""
+    import torch
+    import numpy as np
+    sys.path.insert(0, REPO)
+    from hydra_tpu_torch.runner import run_bayesrrm
+    from hydra_tpu_torch.samplers import bayesrrm
+
+    first = {}
+    step = bayesrrm.BayesRRm.step
+
+    def timed_step(self, state, it, noise=None):
+        out = step(self, state, it, noise)
+        if not first:
+            torch.cuda.synchronize()
+            first.update(it=it, at=time.time())
+        return out
+
+    bayesrrm.BayesRRm.step = timed_step
+    ds, pk = real_restart_dataset(torch, np)
+    opt = real_restart_options(args["out"], args["name"], args["restart"])
+    res = run_bayesrrm(opt, dataset=ds, packed_device=pk)
+    print(json.dumps(dict(first_it=first["it"], first_at=first["at"],
+                          total_s=res["total_seconds"],
+                          write_s=res["write_seconds"])), flush=True)
+    return 0
+
+
+def phase_restart_real_size(torch, np, card):
+    """One full-width restart: BayesRRm exact W=128 block with F=12
+    covariates at M=100,000 x N=50,000 (complete genotypes, 1.25 GB packed,
+    made on the card from its seed in each process), thin 5, save 10. ms a
+    sweep by CUDA events with and without the covariates; an uninterrupted
+    run of 60 sweeps here (its writer's share of the chain's wall); a run
+    in a child process SIGKILLed once its csv shows iteration >= 36; a
+    --restart of it in another child (the seconds from its start to its
+    first sweep); then every record after the restart byte for byte the
+    uninterrupted run's (compare_runs)."""
+    import dataclasses
+    from hydra_tpu_torch.runner import run_bayesrrm
+    from hydra_tpu_torch.samplers.bayesrrm import BayesRRm
+    from scripts import soak_restart_torch as soak
+    r = REAL_RESTART
+    ds, pk = real_restart_dataset(torch, np)
+    m = ds.geno.m
+    dev = torch.device("cuda")
+
+    def make(cov):
+        d = ds if cov else dataclasses.replace(ds, X=None)
+        return BayesRRm(d, window=r["window"], exact=True, seed=1,
+                        device=dev, packed_device=pk)
+
+    with_cov, without = covariate_ms(torch, make, iters=10)
+    print(f"real size M=100,000 x N=50,000 exact W={r['window']} block: "
+          f"{with_cov:.2f} ms/sweep with {RESTART_F} covariates, "
+          f"{without:.2f} without: {with_cov - without:.3f} ms a sweep for "
+          f"the covariate sweep (CUDA events, 10 sweeps after 1 warm-up)  "
+          f"[{card}]", flush=True)
+    with tempfile.TemporaryDirectory() as work:
+        out = os.path.join(work, "out")
+        t0 = time.perf_counter()
+        res = run_bayesrrm(real_restart_options(out, "full"), dataset=ds,
+                           packed_device=pk, verbose=False)
+        wall = time.perf_counter() - t0
+        share = res["write_seconds"] / res["total_seconds"]
+        print(f"uninterrupted run: {r['iters']} sweeps, {wall:.2f} s wall "
+              f"(set-up included), chain {res['total_seconds']:.2f} s, "
+              f"writer {res['write_seconds']:.3f} s = {100 * share:.1f}% of "
+              f"the chain's wall (thin {r['thin']}, save {r['save']})  "
+              f"[{card}]", flush=True)
+        del res, ds, pk
+        torch.cuda.empty_cache()
+
+        def child(name, restart):
+            return [sys.executable, os.path.join(REPO, "chip_smoke.py"),
+                    "--restart-child", json.dumps(dict(
+                        out=out, name=name, restart=restart))]
+
+        t0 = time.perf_counter()
+        seen = soak.run_killed(child("cut", False),
+                               os.path.join(out, "cut.csv"), r["kill_at"],
+                               os.path.join(work, "cut.log"), timeout=600)
+        print(f"cut run SIGKILLed at csv iteration {seen} "
+              f"({time.perf_counter() - t0:.1f} s after its start)",
+              flush=True)
+        t_spawn = time.time()
+        proc = subprocess.run(child("cut", True), cwd=REPO,
+                              capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError("restarted run failed:\n"
+                                 + proc.stdout[-3000:] + proc.stderr[-3000:])
+        rec = json.loads(proc.stdout.strip().splitlines()[-1])
+        its = soak.compare_runs(os.path.join(out, "full"),
+                                os.path.join(out, "cut_rs"), m,
+                                covariates=True)
+        if rec["first_it"] <= 30 or its[0] < rec["first_it"]:
+            raise AssertionError(f"restart resumed at {rec['first_it']}, "
+                                 f"compared {its}")
+    print(f"restart: first sweep (iteration {rec['first_it']}) done "
+          f"{rec['first_at'] - t_spawn:.2f} s after the process started "
+          f"(data made on the card, kernels loaded); writer "
+          f"{100 * rec['write_s'] / rec['total_s']:.1f}% of its chain's wall;"
+          f" records at iterations {its} (csv, .bet, .cpn, .acu, .mus.0, "
+          f".gam.0, .eps.0) byte-identical to the uninterrupted run "
+          f"(M={m:,})  [{card}]", flush=True)
+
+
 def main() -> int:
+    if len(sys.argv) == 3 and sys.argv[1] == "--restart-child":
+        return restart_child(json.loads(sys.argv[2]))
     try:
         import torch
     except ImportError:
@@ -3432,6 +3842,9 @@ def main() -> int:
         with phase("3e: BayesFH and the single-decode sweep through the CLI "
                    "(M=10,000 x N=5,000)"):
             sd_launches = phase_sd_cli(torch, np, tmp)
+        with phase("3f: restart and covariates through the CLI (M=10,000 x "
+                   "N=5,000, F=12)"):
+            phase_restart_cli(torch, np, tmp, card)
     for name in ("sweep_stale_bw", "window_level_sums", "window_axpy"):
         launches[name] = bw_launches[name]
     for name in ("sweep_stale_mt", "sweep_exact_mt", "window_stats_mt",
@@ -3456,6 +3869,8 @@ def main() -> int:
     with phase("4e: BayesFH and the single-decode sweep real size "
                "(M=100,000 x N=50,000)"):
         phase_sd_real_size(torch, np, sk, card)
+    with phase("4f: one full-width restart (M=100,000 x N=50,000, F=12)"):
+        phase_restart_real_size(torch, np, card)
 
     # (wrapper, source, TPU kernel it replaces, the CUDA kernels it launches)
     table = (
@@ -3509,8 +3924,8 @@ def main() -> int:
          "window_gibbs_kernel<KB, FIXED> (warp_recurrence)"),
         ("window_stats_planes", "planes_kernel.cu",
          "hydra_tpu/ops/planes.py:138",
-         "stats_planes_kernel<RPW, STAGED, true> (one launch a call: the "
-         "last block of a row group's ticket adds the tiles' partials)"),
+         "stats_planes_kernel (one launch a call: the last block of a row "
+         "group's ticket adds the tiles' partials)"),
         ("window_axpy_planes", "planes_kernel.cu",
          "hydra_tpu/ops/planes.py:196",
          "axpy_planes_kernel (a thread per individual, rows staged by "

@@ -8,21 +8,32 @@ this package mirrors its module names so each counterpart is easy to find:
   hydra_tpu_torch.io               PLINK, phenotype/failure and group readers
   hydra_tpu_torch.data.genotypes   GenotypeData, Dataset, load_dataset
   hydra_tpu_torch.outputs.writers  hydra-format McmcWriter
+  hydra_tpu_torch.outputs.restart  read_restart: the saved state of a chain
+                                   (``--restart``)
   hydra_tpu_torch.ops.decode       h-pack + plain torch decode
   hydra_tpu_torch.ops.sweep_kernel     sweep_stale / sweep_exact /
                                    sweep_stale_sd (BayesRRm, BayesFH)
   hydra_tpu_torch.ops.sweep_kernel_bw  sweep_stale_bw (BayesW)
   hydra_tpu_torch.ops.sweep_kernel_mt  sweep_stale_mt / sweep_exact_mt /
                                    mt_window_recurrence (multi-trait)
-  hydra_tpu_torch.ops.window_kernels   window_level_sums / window_axpy,
-                                   window_stats_mt / window_axpy_mt
-                                   (CUDA kernels in csrc/, plain versions
-                                   beside their wrappers)
+  hydra_tpu_torch.ops.window_kernels   window_stats / window_axpy /
+                                   window_level_sums, window_stats_mt /
+                                   window_axpy_mt
+  hydra_tpu_torch.ops.gibbs_kernel     window_gibbs (the per-window exact
+                                   draw)
+  hydra_tpu_torch.ops.planes       window_stats_planes / window_axpy_planes
+                                   (cached int8 planes); CUDA kernels in
+                                   csrc/, plain versions beside their
+                                   wrappers
   hydra_tpu_torch.utils.dist       torch.Generator distributions
   hydra_tpu_torch.utils.slice_sampler  fixed-budget slice sampling
   hydra_tpu_torch.samplers.bayesrrm / .bayesrrm_mt / .bayesw  one-device
                                    samplers
-  hydra_tpu_torch.runner / .cli    hydra-format chain runners and CLI
+  hydra_tpu_torch.runner / .cli    hydra-format chain runners (covariates,
+                                   ``--restart``) and CLI
+
+scripts/soak_restart_torch.py SIGKILLs a CLI chain, restarts it and holds
+every record after the restart byte for byte to the uninterrupted run.
 
 Nothing here imports JAX or ``hydra_tpu``: the modules the port shares with
 the JAX package in behaviour (options, io, data, outputs) are its own

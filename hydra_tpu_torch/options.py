@@ -271,18 +271,24 @@ def build_parser() -> argparse.ArgumentParser:
            "the port runs float32, float64 raises)")
     a("--cache-planes", dest="plane_cache", default="off",
       choices=["off", "on", "auto"],
-      help="cache int8 decoded genotype planes (stale complete-data runs; "
-           "not ported: 'on' raises); 'auto' is an accepted alias of 'off'")
+      help="cache int8 decoded genotype planes: 'on' runs single-trait "
+           "BayesRRm/FH stale windows W >= 8 on complete genotypes through "
+           "the per-window branch (elsewhere an INFO line says it is "
+           "ignored; BayesW and multi-trait ignore it with an INFO line); "
+           "'auto' is an accepted alias of 'off'")
     a("--mega", dest="mega", default="auto",
       choices=["auto", "on", "off"],
-      help="whole-sweep kernels: the port has only these, so 'off' raises")
+      help="whole-sweep kernels: 'off' runs the per-window branch for "
+           "single-trait BayesRRm/FH; multi-trait and BayesW refuse 'off'")
     a("--schedule", dest="schedule", default="auto",
       choices=["auto", "marker", "block"],
       help="marker-processing schedule for stale windows: 'marker' = the "
            "reference's fresh per-sweep marker permutation; 'block' = a "
            "one-time decorrelating marker->slot permutation plus per-sweep "
            "window-BLOCK shuffle, so the whole-sweep kernels read windows "
-           "in place. auto = block in the port")
+           "in place. auto = block, but marker for --mega off, forced "
+           "planes and W < 8 (BayesRRm/FH), BayesW W = 2..7, and "
+           "multi-trait exact runs with missing calls or NaN phenotypes")
     a("--det-sync", dest="det_sync", type=int, default=0,
       help="1 = topology-invariant residual reductions (all_gather + "
            "fixed-order sum): the SAME mesh gives bitwise-identical chains "

@@ -1,7 +1,10 @@
 """MCMC output writers — hydra-compatible binary/text formats.
 
 The port's own copy of ``hydra_tpu/outputs/writers.py`` (same names, same
-bytes on disk).
+bytes on disk). ``on_thin`` appends the csv row after the iteration's other
+records, and the runners call ``on_save`` before ``on_thin``: a row in the
+csv means every record of that iteration is whole on disk, so a chain
+killed right after a row restarts from it.
 
 Reproduces the reference's output files (BayesRRm.cpp:2736-2877 write blocks;
 binary layouts documented at :2797-2800 and postproc/beta_converter.cpp:40-52):
@@ -116,8 +119,6 @@ class McmcWriter:
     def on_thin(self, it: int, beta: np.ndarray, components: np.ndarray,
                 csv_row: str, mu: float, acum: Optional[np.ndarray] = None,
                 gamma_text: Optional[str] = None):
-        with open(self.base + ".csv", "a") as fh:
-            fh.write(csv_row)
         rec_it = np.asarray([it], dtype=np.uint32).tobytes()
         with open(self.base + ".bet", "ab") as fh:
             fh.write(rec_it)
@@ -135,6 +136,8 @@ class McmcWriter:
         if gamma_text is not None:
             with open(self.base + ".gam", "a") as fh:
                 fh.write(gamma_text)
+        with open(self.base + ".csv", "a") as fh:
+            fh.write(csv_row)
         self.n_thinned += 1
 
     def on_save(self, it: int, eps: np.ndarray, marker_order: np.ndarray,

@@ -13,7 +13,8 @@ JAX ``MtState`` layout), held at 0 on pad individuals and on each trait's
 NaN entries. A sweep is
 
   per-trait mu -> per-slot noise (m_loc, T) -> mrow -> one of three
-  branches -> cass -> per-(trait, group) sigmaG and pi, per-trait sigmaE
+  branches -> cass -> per-(trait, group) sigmaG and pi -> the covariates'
+  per-trait ridge sweep -> per-trait sigmaE
 
 with the branch chosen as the JAX sampler does (without its TPU gates):
 
@@ -31,7 +32,7 @@ so the same flags take the same chain in both packages. The block setup
 permutation and the RNG site ids are the JAX sampler's; ``step(...,
 noise=...)`` takes the draws from the caller. The Gram is a float32 matmul:
 on CUDA, TF32 must be off (``torch.backends.cuda.matmul.allow_tf32``; the
-runner turns it off). Covariates are not ported.
+runner turns it off).
 """
 
 from __future__ import annotations
@@ -51,8 +52,9 @@ from hydra_tpu_torch.ops.sweep_kernel_mt import (T_MAX, mt_mrow_width,
                                                  sweep_exact_mt,
                                                  sweep_stale_mt)
 from hydra_tpu_torch.ops.window_kernels import window_axpy_mt, window_stats_mt
-from hydra_tpu_torch.samplers.bayesrrm import (S02E, S02G_DEFAULT, V0E,
-                                               V0G_DEFAULT, resolve_device)
+from hydra_tpu_torch.samplers.bayesrrm import (S02E, S02F, S02G_DEFAULT,
+                                               V0E, V0G_DEFAULT,
+                                               resolve_device)
 from hydra_tpu_torch.utils import dist
 
 f32 = torch.float32
@@ -63,6 +65,7 @@ MIN_WINDOW = 8
 
 # RNG site ids, as in the JAX sampler (hydra_tpu/samplers/bayesrrm_mt.py:57-59)
 _S_MU, _S_UNIF, _S_NORM, _S_SIGMAG, _S_PI, _S_SIGMAE, _S_PERM = range(7)
+_S_COV, _S_COVPERM = 7, 8
 _S_INIT = 100
 _INIT_ITERATION = -1     # init-time draws sit outside the chain's iterations
 
@@ -81,6 +84,7 @@ class MtConfig:
     complete: bool       # no missing genotypes
     exact: bool
     full_pheno: bool     # no NaN phenotype: trait-shared statistics
+    n_cov: int = 0       # covariates (fixed effects)
 
     @property
     def n_windows(self) -> int:
@@ -97,7 +101,7 @@ class MtState:
     sigma_e: torch.Tensor      # (T,)
     sigma_g: torch.Tensor      # (T, G)
     est_pi: torch.Tensor       # (T, G, K)
-    gamma: torch.Tensor        # (0, T): no covariates in the port
+    gamma: torch.Tensor        # (F, T) per-trait fixed effects
 
 
 STATE_FIELDS = tuple(f.name for f in dataclasses.fields(MtState))
@@ -202,9 +206,6 @@ class BayesRRmMT:
         K = int(dataset.mS.shape[1])
         if n != geno.n:
             raise ValueError("phenotype matrix does not match genotype N")
-        if dataset.X is not None:
-            raise NotImplementedError("multi-trait covariates are not ported "
-                                      "to hydra_tpu_torch")
         if window < MIN_WINDOW:
             raise NotImplementedError(
                 f"--window {window}: multi-trait windows below {MIN_WINDOW} "
@@ -238,7 +239,8 @@ class BayesRRmMT:
             n_pad=geno.n_pad, m_tot=geno.m_global, m_loc=m_loc, window=window,
             k=K, num_groups=dataset.num_groups, n_traits=T, shuffle=shuffle,
             schedule=schedule, complete=complete, exact=exact,
-            full_pheno=full_ph)
+            full_pheno=full_ph,
+            n_cov=0 if dataset.X is None else int(dataset.X.shape[1]))
         nb = (geno.packed if packed_device is None else packed_device).shape[1]
         if dev.type == "cuda":
             self._check_memory(nb)
@@ -313,6 +315,12 @@ class BayesRRmMT:
         tm = np.zeros((cfg.n_pad, T), dtype=np.float32)
         tm[:n] = mask.T
         self.trait_mask = put(tm)
+        # covariates (n_pad, F), full N: each trait's NaN mask applies in
+        # the sweep (bayesrrm_mt.py:893-898)
+        x_cov = np.zeros((cfg.n_pad, cfg.n_cov), dtype=np.float32)
+        if cfg.n_cov:
+            x_cov[:n] = dataset.X
+        self.x_cov = put(x_cov)
         self.gram_chunks = S = gram_chunks(cfg.n_pad)
         self.trait_mask_chunks = self.trait_mask.T.contiguous().view(
             T, S, 1, cfg.n_pad // S)
@@ -374,7 +382,44 @@ class BayesRRmMT:
             sigma_e=torch.as_tensor(sigma_e, dtype=f32, device=dev),
             sigma_g=sg.to(f32),
             est_pi=torch.as_tensor(pi0, dtype=f32, device=dev),
-            gamma=torch.zeros((0, T), dtype=f32, device=dev))
+            gamma=torch.zeros((cfg.n_cov, T), dtype=f32, device=dev))
+
+    def init_state_from_restart(self, rds) -> MtState:
+        """The state saved at ``rds[t].iteration`` by every trait t's
+        files: the per-trait rebuild of the JAX runner
+        (hydra_tpu/runner.py:190-232). Each trait's residual column,
+        beta and components columns (into their slots), mu, sigmaE,
+        sigmaG, pi and, when every trait's files hold it, gamma (F, T);
+        the JAX runner reads the trait files without their covariate dumps
+        there and so never restores gamma, the port does. The chain
+        resumes at ``rds[0].start_iteration``."""
+        cfg, dev = self.cfg, self.device
+        st = self.init_state()
+        sel = self.slot_to_marker >= 0
+        marker = self.slot_to_marker[sel]
+        T, n = cfg.n_traits, self.ds.geno.n
+        eps = np.zeros((cfg.n_pad, T), np.float32)
+        beta = np.zeros((cfg.m_loc, T), np.float32)
+        comps = np.zeros((cfg.m_loc, T), np.int32)
+        for t, rd in enumerate(rds):
+            eps[:n, t] = rd.eps
+            beta[sel, t] = rd.beta[marker]
+            comps[sel, t] = rd.components[marker]
+        out = dict(eps=eps, beta=beta, components=comps,
+                   mu=np.array([rd.mu for rd in rds], np.float32),
+                   sigma_e=np.array([rd.sigma_e for rd in rds], np.float32),
+                   sigma_g=np.stack([rd.sigma_g for rd in rds]).astype(
+                       np.float32),
+                   est_pi=np.stack([rd.est_pi for rd in rds]).astype(
+                       np.float32))
+        if cfg.n_cov > 0 and all(rd.gamma is not None for rd in rds):
+            out["gamma"] = np.stack([rd.gamma for rd in rds],
+                                    axis=1).astype(np.float32)
+        for name, v in out.items():
+            setattr(st, name, torch.as_tensor(
+                v, dtype=torch.int32 if name == "components" else f32,
+                device=dev))
+        return st
 
     # ------------------------------------------------------------------
     def sweep_order(self, it: int, noise: Optional[dict] = None
@@ -496,8 +541,9 @@ class BayesRRmMT:
 
     def step(self, state: MtState, it: int, noise: Optional[dict] = None):
         """One Gibbs sweep. `noise` (tests) may supply the standard-normal
-        draws of mu ("mu", (T,)), the per-slot "u"/"nrm" (m_loc, T) and
-        the "wperm"/"perm"."""
+        draws of mu ("mu", (T,)), the per-slot "u"/"nrm" (m_loc, T), the
+        "wperm"/"perm", and the covariates' order "covperm" (F,) and
+        normals "cov" (F, T)."""
         cfg, dev = self.cfg, self.device
         noise = noise or {}
         T, G, K = cfg.n_traits, cfg.num_groups, cfg.k
@@ -564,6 +610,8 @@ class BayesRRmMT:
         pi_draw = dist.dirichlet_rng(self._gen(it, _S_PI), cass + 1.0)
         est_pi = torch.where(skip[:, :, None], state.est_pi, pi_draw)
 
+        eps, gamma = self.cov_sweep(eps, state, it, noise)
+
         # ---- per-trait sigmaE (bayesrrm_mt.py:645-648) ----
         e_sqn = (eps * eps).sum(dim=0)
         sigma_e = dist.inv_scaled_chisq_rng(
@@ -572,8 +620,46 @@ class BayesRRmMT:
 
         new = MtState(eps=eps, beta=beta, components=comps, acum=acum, mu=mu,
                       sigma_e=sigma_e, sigma_g=sigma_g, est_pi=est_pi,
-                      gamma=state.gamma)
+                      gamma=gamma)
         return new, MtStats(m0=m0, cass=cass, beta_sqn=beta_sqn)
+
+    def cov_sweep(self, eps: torch.Tensor, state: MtState, it: int,
+                  noise: dict):
+        """The per-trait fixed-effects ridge sweep (the JAX sampler's
+        :616-643, the multi-trait form of BayesRRm.cpp:2648-2681): the F
+        covariates in one random order, each drawing a (T,) gamma row, the
+        dot products and residual updates of trait t under its NaN mask,
+        under each trait's incoming sigmaE. Plain torch. Returns
+        (eps', gamma')."""
+        cfg, dev = self.cfg, self.device
+        F, T = cfg.n_cov, cfg.n_traits
+        if F == 0:
+            return eps, state.gamma
+        xi = noise.get("covperm")
+        if xi is None:
+            xi = torch.randperm(F, device=dev,
+                                generator=self._gen(it, _S_COVPERM))
+        z = noise.get("cov")
+        if z is None:
+            z = torch.randn((F, T), dtype=f32, device=dev,
+                            generator=self._gen(it, _S_COV))
+        xi, z = xi.to(dev, torch.int64), z.to(dev)
+        sigma_e = state.sigma_e
+        denom = self.dNm1 + sigma_e / S02F                       # (T,)
+        sd = torch.sqrt(sigma_e / denom)
+        cols = self.x_cov[:, xi].T.contiguous()          # (F, n_pad), in order
+        g = state.gamma[xi]                                      # (F, T)
+        out = []
+        for i in range(F):
+            colm = cols[i][:, None] * self.trait_mask            # (n_pad, T)
+            g_old = g[i]
+            g_new = (colm * (eps + g_old[None, :] * colm)).sum(dim=0) / denom \
+                + z[i] * sd
+            eps = eps + (g_old - g_new)[None, :] * colm
+            out.append(g_new)
+        gamma = torch.empty_like(state.gamma)
+        gamma[xi] = torch.stack(out)
+        return eps, gamma
 
     # ------------------------------------------------------------------
     def to_marker_order(self, flat: np.ndarray, fill=0) -> np.ndarray:

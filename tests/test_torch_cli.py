@@ -1,7 +1,9 @@
 """The port's CLI on the CPU: hydra-format outputs of BayesRRm (the
 whole-sweep and per-window branches, windows below 8, the single-decode
-stale sweep), BayesFH and BayesW, a run with JAX and the JAX package
-absent, and NotImplementedError for every path the port does not have."""
+stale sweep), BayesFH and BayesW, runs with JAX and the JAX package
+absent (a restart with covariates among them), and NotImplementedError for
+every path the port does not have. Restarts and covariates are
+tests/test_torch_restart.py's."""
 
 import json
 import os
@@ -194,7 +196,7 @@ def test_cli_mt_writes_per_trait_outputs(bed, tmp_path, extra, na_frac,
         assert np.isfinite(rd.eps).all() and len(rd.eps) == N
 
 
-@pytest.mark.parametrize("extra", [["--restart"], ["--window", "4"],
+@pytest.mark.parametrize("extra", [["--window", "4"],
                                    ["--n-devices", "2"], ["--mega", "off"]])
 def test_cli_mt_unsupported_paths_raise(bed, tmp_path, extra):
     phen = write_mt_phenos(bed, 2, 0.0, seed=1)
@@ -205,9 +207,17 @@ def test_cli_mt_unsupported_paths_raise(bed, tmp_path, extra):
 
 def test_cli_runs_without_jax(bed, bw_bed, tmp_path):
     """The card's machine has no JAX: block it, and the JAX package, before
-    anything imports, then run BayesRRm, multi-trait BayesRRm and BayesW."""
+    anything imports, then run BayesRRm, multi-trait BayesRRm and BayesW,
+    and a BayesRRm chain with covariates cut at 10 iterations and
+    restarted (``--restart``)."""
     out = tmp_path / "nojax"
     mt = _mt_argv(bed, out, write_mt_phenos(bed, 2, 0.1, seed=2))
+    cov = tmp_path / "c.cov"
+    rs = np.random.RandomState(6)
+    cov.write_text("".join(f"per{i} per{i} {rs.randn():.5f} {rs.randn():.5f}\n"
+                           for i in range(N)))
+    rst = [*_argv(bed, out / "rs"), "--covariates", str(cov), "--device",
+           "cpu"]
     code = ("import sys; sys.modules['jax'] = None\n"
             "sys.modules['hydra_tpu'] = None\n"
             "from hydra_tpu_torch import cli\n"
@@ -215,6 +225,9 @@ def test_cli_runs_without_jax(bed, bw_bed, tmp_path):
             f"assert cli.main({['--device', 'cpu', '--mega', 'off',
                                 *_argv(bed, out / 'off')]!r}) == 0\n"
             f"assert cli.main({['--device', 'cpu', *mt]!r}) == 0\n"
+            f"assert cli.main({[*rst, '--chain-length', '11']!r}) == 0\n"
+            f"assert cli.main({[*rst, '--restart', '--chain-length', '21']!r})"
+            " == 0\n"
             f"sys.exit(cli.main({['--device', 'cpu', *_bw_argv(bw_bed, out)]!r}))\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=300,
@@ -229,12 +242,14 @@ def test_cli_runs_without_jax(bed, bw_bed, tmp_path):
         assert len([ln for ln in open(out / f"mt.t{t}.csv")
                     if ln.strip()]) == 3
     assert len([ln for ln in open(out / "bw.csv") if ln.strip()]) == 3
+    # the restart resumed at 11 (the save at 10) and saved gamma at 20
+    assert [int(ln.split(",")[0]) for ln in open(out / "rs" / "run_rs.csv")
+            if ln.strip()] == [15, 20]
+    raw = open(out / "rs" / "run_rs.gam.0", "rb").read()
+    assert np.frombuffer(raw[:8], np.uint32).tolist() == [20, 2]
 
 
 @pytest.mark.parametrize("extra", [
-    ["--mpibayes", "bayesFHMPI", "--restart"],
-    ["--mpibayes", "bayesWMPI", "--restart"],
-    ["--restart"],
     ["--check-RAM"],
     ["--bed-to-sparse"],
     ["--dtype", "float64"],
@@ -396,11 +411,7 @@ def test_cli_fh_and_sd_write_outputs(fh_bed, tmp_path, monkeypatch, extra,
 
 
 def test_cli_covariates_and_sparse_raise(bed, tmp_path):
-    cov = tmp_path / "c.cov"
-    cov.write_text("ID,c1\n" + "".join(f"{i},0.5\n" for i in range(N)))
-    with pytest.raises(NotImplementedError, match="covariates"):
-        cli.main(["--device", "cpu", *_argv(bed, tmp_path / "x"),
-                  "--covariates", str(cov)])
+    """Sparse input is not ported; covariates are (test_torch_restart.py)."""
     with pytest.raises(NotImplementedError, match="sparse"):
         cli.main(["--device", "cpu", *_argv(bed, tmp_path / "x"),
                   "--sparse-dir", str(tmp_path), "--sparse-basename", "s"])

@@ -1,5 +1,6 @@
 """The port stands alone: no module of ``hydra_tpu_torch`` (nor
-``chip_smoke.py``) imports JAX or the JAX package, and the port's own copies
+``chip_smoke.py`` or ``scripts/soak_restart_torch.py``) imports JAX or the
+JAX package, and the port's own copies
 of the option parser, readers, dataset assembly and writers behave as the
 JAX package's do on the same inputs."""
 
@@ -38,6 +39,7 @@ def _port_sources():
             if f.endswith(".py"):
                 yield os.path.join(d, f)
     yield os.path.join(REPO, "chip_smoke.py")
+    yield os.path.join(REPO, "scripts", "soak_restart_torch.py")
 
 
 def _forbidden(module: str) -> bool:
@@ -224,3 +226,84 @@ def test_gamma_rate_draws_are_copies(monkeypatch):
         want = np.asarray(jf(key, jnp.asarray(shape), jnp.asarray(rate)))
         got = tf(gen, torch.from_numpy(shape), torch.from_numpy(rate))
         np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("reader", ["read_phen_cov_files",
+                                    "read_phen_fail_cov_files",
+                                    "read_csv_covariates"])
+def test_covariate_readers_match_jax(reader, tmp_path):
+    """The port's copies of the three covariate readers on files with "NA"
+    in the phenotype and in covariates (the joint NA drop of
+    data.cpp:1615-1802), and the comma-separated file without IDs."""
+    n = 40
+    rs = np.random.RandomState(4)
+    phen, cov, fail, csv = (str(tmp_path / f) for f in
+                            ("p.phen", "c.cov", "f.fail", "c.csv"))
+    with open(phen, "w") as fh:
+        fh.writelines(f"f{i} i{i} {'NA' if i in (2, 9) else rs.randn()}\n"
+                      for i in range(n))
+    with open(cov, "w") as fh:
+        for i in range(n):
+            c = ["NA" if (i, k) in ((5, 1), (9, 0), (30, 2)) else
+                 f"{rs.randn():.6f}" for k in range(3)]
+            fh.write(f"f{i} i{i} {' '.join(c)}\n")
+    with open(fail, "w") as fh:
+        fh.writelines(f"{int(rs.rand() > 0.3)}\n" for _ in range(n))
+    with open(csv, "w") as fh:
+        fh.writelines(f"{rs.randn():.6f},{rs.randn():.6f}\n"
+                      for _ in range(n))
+    args = {"read_phen_cov_files": (phen, cov, n),
+            "read_phen_fail_cov_files": (phen, cov, fail, n),
+            "read_csv_covariates": (csv, n)}[reader]
+    got, want = getattr(tpheno, reader)(*args), getattr(jpheno, reader)(*args)
+    if reader == "read_csv_covariates":
+        assert got.shape == (n, 2)
+        np.testing.assert_array_equal(got, want)
+        with pytest.raises(ValueError, match="different number"):
+            tpheno.read_csv_covariates(csv, n + 1)
+        return
+    for name in ("y", "na_indices", "fail", "X"):
+        a, b = getattr(got, name), getattr(want, name)
+        assert (a is None) == (b is None), name
+        if b is not None:
+            assert a.dtype == b.dtype, name
+            np.testing.assert_array_equal(a, b, err_msg=name)
+    assert got.na_indices.tolist() == [2, 5, 9, 30]
+    assert got.X.shape == (n - 4, 3)
+
+
+@pytest.mark.parametrize("survival", [False, True])
+def test_covariate_writers_are_byte_identical(survival, tmp_path):
+    """gamma and the covariates' order: .gam.0 / .xiv.0 (BayesRRm), the
+    .gam text rows / .xiv (BayesW), byte for byte the JAX writer's."""
+    m, n, F = 10, 16, 3
+    files = {}
+    for name, mod in (("t", twriters), ("j", jwriters)):
+        base = str(tmp_path / name / "run")
+        w = mod.McmcWriter(base, m, n, 1, 4, thin=2, save=4, seed=5,
+                           covariates=True, survival=survival, window=8,
+                           exact=True, schedule="block")
+        r2 = np.random.RandomState(3)
+        for it in (0, 2, 4):
+            beta, comp = r2.randn(m), r2.randint(0, 4, m).astype(np.int32)
+            gamma = r2.randn(F)
+            row = (w.csv_row_bw(it, 4.0, r2.rand(1), 8.0, 3,
+                                r2.dirichlet(np.ones(4), 1)) if survival
+                   else w.csv_row_brr(it, r2.rand(1), 0.7, 3,
+                                      r2.dirichlet(np.ones(4), 1)))
+            text = (f"{it:5d}, " + ", ".join(f"{v:20.17f}" for v in gamma)
+                    + "\n")
+            if it == 4:
+                w.on_save(it, r2.randn(n), np.arange(m, dtype=np.int32),
+                          beta, comp, gamma=gamma,
+                          x_order=np.array([2, 0, 1], np.int32))
+            w.on_thin(it, beta, comp, row, 0.25,
+                      acum=None if survival else r2.rand(m),
+                      gamma_text=text if survival else None)
+        files[name] = base
+    exts = ((".gam", ".xiv") if survival else (".gam.0", ".xiv.0")) + (
+        ".csv", ".bet", ".eps.0", ".xbet")
+    for ext in exts:
+        a = open(files["t"] + ext, "rb").read()
+        assert a == open(files["j"] + ext, "rb").read(), ext
+        assert a, ext
