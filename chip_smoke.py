@@ -350,6 +350,11 @@ def check_gram_launches(torch, label, run, n_windows, W, missing, card,
     n_batches = -(-n_windows // batch)
     want = "gram_f32_batch_kernel" if missing else "gram_i8_batch_kernel"
     per = per or device_times(torch, run, label)
+    if not any(want in k for k in per):
+        # the batch's Gram is a sweep's first launch, the one a session
+        # loses most often (device_times): a session without it is taken
+        # again, and the counts below hold for the one that has it
+        per = device_times(torch, run, label, need=want)
     grams = {kernel_name(k): v[0] for k, v in per.items()
              if "hydra::" in k and "gram" in kernel_name(k)}
     n_port = sum(v[0] for k, v in per.items() if "hydra::" in k)
@@ -1295,6 +1300,28 @@ def phase_bw_kernels(torch, np, card):
                                         else 8 * window + 16 * nb)
                 r["bound_ms"], r["bound_by"] = bound(
                     nbytes, {"f32": ops_per * window * n_pad})
+        # the rows-in-place route (BayesW --mega off): a shuffled window of
+        # slots read where they lie, bit for bit its plain version and the
+        # call on the same rows gathered
+        slots = torch.randperm(m, generator=gen, device=dev)[:window]
+        rows = slots.to(torch.int32)
+        got = wk.window_level_sums(s.packed, vi, complete, rows)
+        ref = wk.window_level_sums_ref(s.packed, vi, complete, rows)
+        gat = wk.window_level_sums(s.packed[slots].contiguous(), vi,
+                                   complete)
+        got, ref, gat = ([t for t in x if t is not None]
+                         for x in (got, ref, gat))
+        err = max((a - b).abs().max().item() for a, b in zip(got, ref))
+        same_ref = all(torch.equal(a, b) for a, b in zip(got, ref))
+        same_gat = all(torch.equal(a, b) for a, b in zip(got, gat))
+        print(f"window_level_sums W={window} {data:10s} rows in place: "
+              f"max|diff| {err:.3e}  bitwise equal to plain {same_ref}, to "
+              f"the gathered call {same_gat}  [{card}]", flush=True)
+        if not (same_ref and same_gat):
+            raise AssertionError("window_level_sums with rows differs from "
+                                 "its plain version or the gathered call")
+        rec["window_level_sums"]["err"] = max(
+            rec["window_level_sums"]["err"], err)
         del s, args, vi
     return rec
 
@@ -3769,9 +3796,422 @@ def phase_restart_real_size(torch, np, card):
           f"(M={m:,})  [{card}]", flush=True)
 
 
+# ---- phases 3g and 4g: the remaining single-device paths ----------------
+
+@contextlib.contextmanager
+def step_events(torch):
+    """CUDA events around every sweep of the three samplers while the block
+    runs; yields the list of (start, stop) event pairs."""
+    from hydra_tpu_torch.samplers import bayesrrm, bayesrrm_mt, bayesw
+    pairs, saved = [], []
+    for cls in (bayesrrm.BayesRRm, bayesrrm_mt.BayesRRmMT, bayesw.BayesW):
+        step = cls.step
+
+        def timed(self, state, it, noise=None, step=step):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = step(self, state, it, noise)
+            b.record()
+            pairs.append((a, b))
+            return out
+
+        saved.append((cls, step))
+        cls.step = timed
+    try:
+        yield pairs
+    finally:
+        for cls, step in saved:
+            cls.step = step
+
+
+def events_ms(torch, pairs, skip=2):
+    """Mean ms a sweep from step_events' pairs, the first ``skip`` left
+    out (warm-up)."""
+    torch.cuda.synchronize()
+    ts = [a.elapsed_time(b) for a, b in pairs[skip:]]
+    return sum(ts) / len(ts)
+
+
+# phase 3g's CLI runs at M=10,000 x N=5,000: (name, bed, model, extra
+# flags, {kernel: launches a sweep, "W" meaning one a window of W=64})
+NEW_PATH_RUNS = (
+    ("mt_stale_w1", "mt_M10K_N_5K", "mt", ("--stale",),
+     {"sweep_stale_mt": 1}),
+    ("mt_exact_w4", "mt_M10K_N_5K", "mt", ("--window", "4"),
+     {"sweep_exact_mt": 1}),
+    ("mt_off_stale", "mt_M10K_N_5K", "mt",
+     ("--mega", "off", "--stale", "--window", "64"),
+     {"window_stats_mt": "W", "window_axpy_mt": "W"}),
+    ("mt_off_exact", "mt_M10K_N_5K", "mt", ("--mega", "off"),
+     {"window_stats_mt": "W", "mt_window_recurrence": "W",
+      "window_axpy_mt": "W"}),
+    ("bw_off_w64", "weibull_M10K_N_5K", "bw",
+     ("--mega", "off", "--window", "64"),
+     {"window_level_sums": "W", "window_axpy": "W"}),
+    ("f64_exact", "t_M10K_N_5K", "brr", ("--dtype", "float64"), {}),
+    ("f64_stale", "t_M10K_N_5K", "brr",
+     ("--dtype", "float64", "--stale", "--window", "64"), {}),
+    ("fh_f64_exact", "t_M10K_N_5K", "fh", ("--dtype", "float64"), {}),
+    ("fh_f64_stale", "t_M10K_N_5K", "fh",
+     ("--dtype", "float64", "--stale", "--window", "64"), {}))
+SAVE_KILL = dict(iters=30, save_at=20, op=7)   # the 7th file of save 20
+NEW_PATH_M = 10_000                            # markers of phase 3g's beds
+
+
+def new_path_argv(tmp, bed, model, name, iters, extra, restart=False):
+    """CLI arguments of a phase-3g run (thin 5, save 10, seed 7)."""
+    argv = restart_argv(tmp, bed, model, name, iters, False, extra,
+                        restart=restart)
+    i = argv.index("--mcmc-out-dir")
+    argv[i + 1] = os.path.join(tmp, "out_new")
+    return argv
+
+
+def save_kill_child(args):
+    """A phase-3g chain in a process of its own (``chip_smoke.py
+    --save-kill-child JSON``) that SIGKILLs itself inside the save at
+    ``save_at``: at its ``op``-th file, the old generation renamed to
+    .prev and the new one not yet written."""
+    import signal
+    sys.path.insert(0, REPO)
+    from hydra_tpu_torch import cli
+    from hydra_tpu_torch.outputs import writers
+    state = dict(armed=False, n=0)
+    on_save, replace = writers.McmcWriter.on_save, writers.McmcWriter._replace
+
+    def armed_save(self, it, *a, **k):
+        state["armed"] = state["armed"] or it == args["save_at"]
+        return on_save(self, it, *a, **k)
+
+    def killing_replace(self, ext, data):
+        if state["armed"]:
+            state["n"] += 1
+            if state["n"] == args["op"]:
+                os.replace(self.base + ext, self.base + ext + writers.PREV)
+                os.kill(os.getpid(), signal.SIGKILL)
+        return replace(self, ext, data)
+
+    writers.McmcWriter.on_save = armed_save
+    writers.McmcWriter._replace = killing_replace
+    return cli.main(args["argv"])
+
+
+def new_path_sweeps(torch, np, tmp):
+    """One CUDA sweep of each new path against the CPU sampler on the same
+    state and noise (M=1,000 x N=5,000: the CPU side runs the plain
+    versions): multi-trait W=1 stale, W=4 exact, --mega off stale and
+    exact, BayesW --mega off W=64, and float64 BayesRRm exact and stale.
+    float32 within atol 5e-4 / rtol 1e-3, float64 within rtol 1e-9;
+    components equal."""
+    from hydra_tpu_torch.options import parse_args
+    from hydra_tpu_torch.runner import (dataset_from_options,
+                                        mt_dataset_from_options)
+    from hydra_tpu_torch.samplers import bayesrrm, bayesrrm_mt, bayesw
+    m, n, T = 1_000, 5_000, 4
+    base = os.path.join(tmp, "sm_M1K_N_5K")
+    write_plink(np, base, m, n, seed=31)
+    phen = write_mt_phenos(np, base, m, n, T, seed=32, na_frac=0.05)
+    wbase = os.path.join(tmp, "smw_M1K_N_5K")
+    write_plink(np, wbase, m, n, seed=33, weibull=True)
+    cases = (("mt W=1 stale", "mt", dict(window=1, exact=False)),
+             ("mt W=4 exact", "mt", dict(window=4, exact=True)),
+             ("mt --mega off stale", "mt", dict(window=64, exact=False,
+                                                mega="off")),
+             ("mt --mega off exact", "mt", dict(window=64, exact=True,
+                                                mega="off")),
+             ("BayesW --mega off W=64", "bw", dict(window=64, mega="off",
+                                                   quad_points=25)),
+             ("float64 exact W=64", "brr", dict(window=64, exact=True,
+                                                dtype="float64")),
+             ("float64 stale W=64", "brr", dict(window=64, exact=False,
+                                                dtype="float64")))
+    for label, model, kw in cases:
+        g = torch.Generator().manual_seed(5)
+        if model == "mt":
+            opt = parse_args(["--bfile", base, "--pheno", phen])
+            ds, phenos = mt_dataset_from_options(opt)
+            mod = bayesrrm_mt
+
+            def make(dev, ds=ds, phenos=phenos, kw=kw):
+                return bayesrrm_mt.BayesRRmMT(ds, phenos, seed=7, device=dev,
+                                              **kw)
+        elif model == "bw":
+            opt = parse_args(["--mpibayes", "bayesWMPI", "--bfile", wbase,
+                              "--pheno", wbase + ".phen", "--failure",
+                              wbase + ".fail"])
+            ds = dataset_from_options(opt)
+            mod = bayesw
+
+            def make(dev, ds=ds, kw=kw):
+                return bayesw.BayesW(ds, seed=7, device=dev, **kw)
+        else:
+            opt = parse_args(["--bfile", base, "--pheno", base + ".phen"])
+            ds = dataset_from_options(opt)
+            mod = bayesrrm
+
+            def make(dev, ds=ds, kw=kw):
+                return bayesrrm.BayesRRm(ds, seed=7, device=dev, **kw)
+        cpu, gpu = make("cpu"), make("cuda")
+        s_cpu = cpu.init_state()
+        ml = cpu.cfg.m_loc
+        if model == "mt":
+            noise = dict(mu=torch.randn(T, generator=g),
+                         u=torch.rand(ml, T, generator=g),
+                         nrm=torch.randn(ml, T, generator=g),
+                         perm=torch.randperm(ml, generator=g))
+        elif model == "bw":
+            from hydra_tpu_torch.utils.slice_sampler import slice_noise
+            noise = dict(cpu.slot_noise(3),
+                         perm=torch.randperm(ml, generator=g),
+                         mu=slice_noise(g, (), 24),
+                         alpha=slice_noise(g, (), 24))
+        else:
+            dt = cpu.dt
+            noise = dict(mu=torch.randn((), generator=g, dtype=dt),
+                         u=torch.rand(ml, generator=g, dtype=dt),
+                         nrm=torch.randn(ml, generator=g, dtype=dt),
+                         perm=torch.randperm(ml, generator=g))
+        dt = getattr(cpu, "dt", torch.float32)
+        s_gpu = mod.state_from_numpy(mod.state_to_numpy(s_cpu), "cuda",
+                                     **({"dtype": dt} if model == "brr"
+                                        else {}))
+        before = all_launches()
+        a, _ = cpu.step(s_cpu, 3, noise=noise)
+        if all_launches() != before:
+            raise AssertionError(f"{label}: the CPU sweep launched kernels")
+        b, _ = gpu.step(s_gpu, 3, noise={
+            k: (v.cuda() if torch.is_tensor(v) else tuple(x.cuda() for x in v))
+            for k, v in noise.items()})
+        a, b = mod.state_to_numpy(a), mod.state_to_numpy(b)
+        tol = (dict(rtol=1e-9, atol=1e-9) if dt == torch.float64
+               else dict(atol=5e-4, rtol=1e-3))
+        d_eps = float(np.abs(a["eps"] - b["eps"]).max())
+        n_comp = int((a["components"] != b["components"]).sum())
+        print(f"one {label} sweep ({gpu.cfg.schedule}), CUDA vs CPU "
+              f"sampler: max|d eps| {d_eps:.3e}  max|d beta| "
+              f"{float(np.abs(a['beta'] - b['beta']).max()):.3e}  comp "
+              f"mismatches {n_comp}", flush=True)
+        np.testing.assert_allclose(b["eps"], a["eps"], **tol)
+        np.testing.assert_allclose(b["beta"], a["beta"], **tol)
+        if n_comp:
+            raise AssertionError(f"{label}: component mismatches")
+
+
+def phase_new_paths_cli(torch, np, tmp, card):
+    """The paths this slice adds, through the CLI at M=10,000 x N=5,000 on
+    the beds of phases 3, 3b and 3c, 12 iterations each (NEW_PATH_RUNS):
+    ms/sweep by CUDA events (sweeps 2..11) and each run's launches, held to
+    one a sweep or one a window (float64: none); then --bed-to-sparse and
+    a stale W=64 chain from the sparse files, whose .csv and .bet are the
+    .bed chain's bytes; --check-RAM; a multi-trait T=4 stale W=64 chain
+    SIGKILLed inside its save at 20 (SAVE_KILL) and restarted, every
+    record after the restart byte for byte the uninterrupted chain's; and
+    one CUDA sweep of each new path against the CPU sampler
+    (new_path_sweeps). Returns the launches."""
+    from hydra_tpu_torch import cli
+    from hydra_tpu_torch.diag.ramcheck import check_ram_usage
+    from hydra_tpu_torch.options import parse_args
+    from scripts import soak_restart_torch as soak
+    m, iters = NEW_PATH_M, 12
+    out = os.path.join(tmp, "out_new")
+    total = {}
+    for name, bed, model, extra, per in NEW_PATH_RUNS:
+        reset_all_launches()
+        with step_events(torch) as pairs:
+            t0 = time.perf_counter()
+            rc = cli.main(new_path_argv(tmp, bed, model, name, iters, extra))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            ms = events_ms(torch, pairs)
+        launches = {k: v for k, v in all_launches().items() if v}
+        if rc != 0:
+            raise AssertionError(f"{name}: CLI exit code {rc}")
+        win = -(-m // 64)
+        want = {k: iters * (win if v == "W" else v) for k, v in per.items()}
+        if launches != want:
+            raise AssertionError(f"{name}: launches {launches}, want {want}")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        sfx = [f".t{t}" for t in range(4)] if model == "mt" else [""]
+        vals = [check_outputs(np, os.path.join(out, name + s), m, 3,
+                              survival=model == "bw") for s in sfx]
+        print(f"{name} ({' '.join(extra)}): {ms:.2f} ms/sweep by CUDA "
+              f"events ({iters - 2} sweeps after 2), {wall:.1f} s wall with "
+              f"data load, launches {json.dumps(launches)}; "
+              f"{'alpha' if model == 'bw' else 'h2'} "
+              f"{[round(v, 4) for v in vals]}  [{card}]", flush=True)
+
+    # sparse files: written from the .bed, then a chain from them alone
+    base = os.path.join(tmp, "t_M10K_N_5K")
+    sd = os.path.join(tmp, "sparse")
+    os.makedirs(sd, exist_ok=True)
+    t0 = time.perf_counter()
+    if cli.main(["--bfile", base, "--bed-to-sparse", "--sparse-dir", sd,
+                 "--sparse-basename", "t"]) != 0:
+        raise AssertionError("--bed-to-sparse failed")
+    conv = time.perf_counter() - t0
+    stale = ("--stale", "--window", "64")
+    argv = new_path_argv(tmp, "t_M10K_N_5K", "brr", "from_bed", iters, stale)
+    rc = [cli.main(argv)]
+    i = argv.index("--bfile")
+    argv[i:i + 2] = ["--sparse-dir", sd, "--sparse-basename", "t"]
+    argv[argv.index("--mcmc-out-name") + 1] = "from_sparse"
+    rc.append(cli.main(argv))
+    if rc != [0, 0]:
+        raise AssertionError(f"sparse runs: exit codes {rc}")
+    for ext in (".csv", ".bet", ".cpn", ".xbet"):
+        a = open(os.path.join(out, "from_bed" + ext), "rb").read()
+        if a != open(os.path.join(out, "from_sparse" + ext), "rb").read():
+            raise AssertionError(f"the sparse run's {ext} differs from the "
+                                 ".bed run's")
+    print(f"--bed-to-sparse: {conv:.1f} s for M={m:,}; the chain from the "
+          "sparse files wrote the .bed chain's .csv, .bet, .cpn and .xbet "
+          "byte for byte", flush=True)
+    est = check_ram_usage(parse_args(new_path_argv(
+        tmp, "t_M10K_N_5K", "brr", "ram", iters, ("--check-RAM",))))
+    if not 0 < est["total"] < est["budget"]:
+        raise AssertionError(f"--check-RAM: {est}")
+
+    # a SIGKILL inside a save, then --restart
+    sk = SAVE_KILL
+    stale_mt = ("--stale", "--window", "64")
+    rc = cli.main(new_path_argv(tmp, "mt_M10K_N_5K", "mt", "kill_full",
+                                sk["iters"], stale_mt))
+    child = subprocess.run(
+        [sys.executable, os.path.join(REPO, "chip_smoke.py"),
+         "--save-kill-child", json.dumps(dict(
+             save_at=sk["save_at"], op=sk["op"], argv=new_path_argv(
+                 tmp, "mt_M10K_N_5K", "mt", "kill", sk["iters"],
+                 stale_mt)))], cwd=REPO, capture_output=True, text=True,
+        timeout=600)
+    if child.returncode != -9:
+        raise AssertionError(f"the child was to die by SIGKILL, exit "
+                             f"{child.returncode}: {child.stderr[-2000:]}")
+    left = sorted(f for f in os.listdir(out) if f.startswith("kill.")
+                  and f.endswith(".prev"))
+    rc2 = cli.main(new_path_argv(tmp, "mt_M10K_N_5K", "mt", "kill",
+                                 sk["iters"], stale_mt, restart=True))
+    if [rc, rc2] != [0, 0]:
+        raise AssertionError(f"save-kill runs: exit codes {[rc, rc2]}")
+    for t in range(4):
+        its = soak.compare_runs(os.path.join(out, f"kill_full.t{t}"),
+                                os.path.join(out, f"kill_rs.t{t}"), m)
+        if its != [15, 20, 25]:
+            raise AssertionError(f"trait {t}: compared iterations {its}")
+    print(f"multi-trait T=4 stale W=64: SIGKILL inside the save at "
+          f"{sk['save_at']} (its file {sk['op']} renamed aside, the new one "
+          f"unwritten; {len(left)} .prev files left), --restart from 10 "
+          f"byte-identical to the uninterrupted chain at {its} on every "
+          "trait (csv, .bet, .cpn, .acu, .mus.0, .eps.0)", flush=True)
+    new_path_sweeps(torch, np, tmp)
+    return total
+
+
+def slice_markers(ds, pk, m):
+    """The first ``m`` markers of a real-size Dataset and its packed rows
+    on the card (the same width N)."""
+    import dataclasses
+    g = ds.geno
+    geno = dataclasses.replace(g, m=m, mave=g.mave[:m], mstd=g.mstd[:m],
+                               msd=g.msd[:m], nm=g.nm[:m])
+    return dataclasses.replace(ds, geno=geno, groups=ds.groups[:m]), pk[:m]
+
+
+def phase_new_paths_real_size(torch, np, card, m_profile=10_000):
+    """The new paths at full width, M=100,000 x N=50,000 (genotypes made on
+    the card): multi-trait T=4 --mega off stale W=64 and --stale W=1,
+    BayesW --mega off W=64 and float64 stale W=64 (BayesRRm). For each,
+    ms/sweep by host clock after a synchronize (one warm-up sweep), the
+    wrappers' launches of a timed sweep, --check-RAM's estimate beside
+    torch.cuda.max_memory_allocated, and the device's busy share from one
+    profiled sweep of the first ``m_profile`` markers (the same width and
+    windows: these paths' windows all cost the same, and a profile of a
+    whole per-window sweep holds up to 600,000 kernels)."""
+    import dataclasses
+    from hydra_tpu_torch.diag.ramcheck import estimate_bytes
+    from hydra_tpu_torch.samplers.bayesrrm import BayesRRm
+    from hydra_tpu_torch.samplers.bayesrrm_mt import BayesRRmMT
+    from hydra_tpu_torch.samplers.bayesw import BayesW
+    dev = torch.device("cuda")
+    m, n, T = 100_000, 50_000, 4
+    ds, pk = real_size_dataset(torch, np)
+    phen = mt_phenotypes(np, n, T, 4)
+    rs = np.random.RandomState(2)
+    ds_w = dataclasses.replace(
+        ds, y=4.0 + (np.log(rs.exponential(1.0, n)) + EULER_MASCHERONI) / 8.0,
+        fail=(rs.random_sample(n) > 0.1).astype(np.float64))
+    runs = (
+        ("mt T=4 --mega off stale W=64", lambda d, p: BayesRRmMT(
+            d, phen, window=64, exact=False, seed=1, mega="off", device=dev,
+            packed_device=p), 2, ds, dict(window=64, n_traits=T,
+                                          mega="off")),
+        ("mt T=4 --stale W=1", lambda d, p: BayesRRmMT(
+            d, phen, window=1, exact=False, seed=1, device=dev,
+            packed_device=p), 2, ds, dict(window=1, n_traits=T)),
+        ("BayesW --mega off W=64", lambda d, p: BayesW(
+            d, window=64, seed=2, quad_points=25, mega="off", device=dev,
+            packed_device=p), 1, ds_w, dict(window=64, model="bayesWMPI",
+                                            mega="off")),
+        ("float64 stale W=64", lambda d, p: BayesRRm(
+            d, window=64, exact=False, seed=1, dtype="float64", device=dev,
+            packed_device=p), 2, ds, dict(window=64, dtype="float64")))
+    for label, make, n_time, data, est_kw in runs:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated()
+        s = make(data, pk)
+        st = s.init_state()
+        st, _ = s.step(st, 0)
+        torch.cuda.synchronize()
+        reset_all_launches()
+        t0 = time.perf_counter()
+        for it in range(1, 1 + n_time):
+            st, _ = s.step(st, it)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / n_time
+        counted = {k: v // n_time for k, v in all_launches().items() if v}
+        if not bool(torch.isfinite(st.eps).all()):
+            raise AssertionError(f"{label}: non-finite residual")
+        peak = torch.cuda.max_memory_allocated() - base_mem
+        est = estimate_bytes(m, n, k=4, **est_kw)
+        print(f"real size M={m:,} x N={n:,} {label} ({s.cfg.schedule}): "
+              f"{ms:.1f} ms/sweep ({n_time} after 1), the wrappers' "
+              f"launches a sweep {json.dumps(counted)}; peak "
+              f"{peak / 1e9:.2f} GB beside the packed rows already on the "
+              f"card ({pk.numel() / 1e9:.2f} GB); --check-RAM estimate "
+              f"{est['total'] / 1e9:.2f} GB (geno {est['geno'] / 1e9:.2f} + "
+              f"staging {est['staging'] / 1e9:.2f} + the rest "
+              f"{(est['total'] - est['geno'] - est['staging']) / 1e9:.2f})"
+              f"  [{card}]", flush=True)
+        del s, st
+        # the busy share from one profiled sweep of the first m_profile
+        # markers, timed by the host clock beside it
+        s = make(*slice_markers(data, pk, m_profile))
+        st, _ = s.step(s.init_state(), 0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s.step(st, 1)
+        torch.cuda.synchronize()
+        part_ms = (time.perf_counter() - t0) * 1e3
+        per = device_times(torch, lambda: s.step(st, 2), label)
+        busy = sum(v[1] for v in per.values())
+        print(f"  one sweep of the first {m_profile:,} markers: "
+              f"{part_ms:.1f} ms, {sum(v[0] for v in per.values())} device "
+              f"kernels, device time {busy:.1f} ms = "
+              f"{100.0 * busy / part_ms:.1f}% busy  [{card}]", flush=True)
+        for k, (cnt, dms) in sorted(per.items(), key=lambda kv: -kv[1][1])[:5]:
+            print(f"    {dms:9.3f} ms  {cnt:7d} x  {k[:90]}", flush=True)
+        del s, st
+        torch.cuda.empty_cache()
+    del pk
+
+
 def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--restart-child":
         return restart_child(json.loads(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--save-kill-child":
+        return save_kill_child(json.loads(sys.argv[2]))
     try:
         import torch
     except ImportError:
@@ -3845,6 +4285,10 @@ def main() -> int:
         with phase("3f: restart and covariates through the CLI (M=10,000 x "
                    "N=5,000, F=12)"):
             phase_restart_cli(torch, np, tmp, card)
+        with phase("3g: multi-trait W < 8 and --mega off, BayesW --mega off, "
+                   "float64, sparse input, --check-RAM and a kill inside a "
+                   "save through the CLI (M=10,000 x N=5,000)"):
+            new_launches = phase_new_paths_cli(torch, np, tmp, card)
     for name in ("sweep_stale_bw", "window_level_sums", "window_axpy"):
         launches[name] = bw_launches[name]
     for name in ("sweep_stale_mt", "sweep_exact_mt", "window_stats_mt",
@@ -3854,6 +4298,8 @@ def main() -> int:
                  "window_axpy_planes"):
         launches[name] = window_launches[name]
     launches["sweep_stale_sd"] = sd_launches["sweep_stale_sd"]
+    for name, v in new_launches.items():
+        launches[name] += v
     with phase("4: real size (M=100,000 x N=50,000)"):
         phase_real_size(torch, np, sk, card)
     with phase("4b: BayesW real size"):
@@ -3871,6 +4317,8 @@ def main() -> int:
         phase_sd_real_size(torch, np, sk, card)
     with phase("4f: one full-width restart (M=100,000 x N=50,000, F=12)"):
         phase_restart_real_size(torch, np, card)
+    with phase("4g: the new paths at full width (M=100,000 x N=50,000)"):
+        phase_new_paths_real_size(torch, np, card)
 
     # (wrapper, source, TPU kernel it replaces, the CUDA kernels it launches)
     table = (

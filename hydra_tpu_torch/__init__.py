@@ -5,12 +5,21 @@ The PyTorch/CUDA port of ``hydra_tpu``. The JAX package stays the reference;
 this package mirrors its module names so each counterpart is easy to find:
 
   hydra_tpu_torch.options          the reference's CLI surface (own copy)
-  hydra_tpu_torch.io               PLINK, phenotype/failure and group readers
-  hydra_tpu_torch.data.genotypes   GenotypeData, Dataset, load_dataset
-  hydra_tpu_torch.outputs.writers  hydra-format McmcWriter
+  hydra_tpu_torch.io               PLINK, phenotype/failure and group readers;
+                                   io.sparse: the sparse genotype files
+                                   (``--bed-to-sparse``, sparse input)
+  hydra_tpu_torch.data.genotypes   GenotypeData, Dataset, load_dataset (.bed,
+                                   sparse files or both)
+  hydra_tpu_torch.diag.ramcheck    ``--check-RAM``: the device-memory
+                                   estimate of a run
+  hydra_tpu_torch.outputs.writers  hydra-format McmcWriter (a save keeps
+                                   the previous generation as .prev until
+                                   its csv row is written)
   hydra_tpu_torch.outputs.restart  read_restart: the saved state of a chain
-                                   (``--restart``)
-  hydra_tpu_torch.ops.decode       h-pack + plain torch decode
+                                   (``--restart``), from whichever
+                                   generation the csv names
+  hydra_tpu_torch.ops.decode       h-pack + plain torch decode, the
+                                   standardized window (float64 branch)
   hydra_tpu_torch.ops.sweep_kernel     sweep_stale / sweep_exact /
                                    sweep_stale_sd (BayesRRm, BayesFH)
   hydra_tpu_torch.ops.sweep_kernel_bw  sweep_stale_bw (BayesW)
@@ -28,7 +37,9 @@ this package mirrors its module names so each counterpart is easy to find:
   hydra_tpu_torch.utils.dist       torch.Generator distributions
   hydra_tpu_torch.utils.slice_sampler  fixed-budget slice sampling
   hydra_tpu_torch.samplers.bayesrrm / .bayesrrm_mt / .bayesw  one-device
-                                   samplers
+                                   samplers: every branch of the JAX
+                                   samplers on one device (whole sweep,
+                                   per window, W >= 1, float64 BayesRRm)
   hydra_tpu_torch.runner / .cli    hydra-format chain runners (covariates,
                                    ``--restart``) and CLI
 

@@ -1,13 +1,20 @@
 """Command-line entry point: ``python -m hydra_tpu_torch.cli <hydra flags>``.
 
-The flags are the reference's (``hydra_tpu_torch.options``). This port runs
-``--mpibayes bayesMPI`` (BayesRRm; multi-trait BayesRRm when ``--pheno``
-names several comma-separated files), ``--mpibayes bayesFHMPI`` (BayesFH;
-with several phenotypes the JAX CLI, and so this one, runs multi-trait
-BayesRRm) and ``--mpibayes bayesWMPI`` (BayesW, with ``--failure``) on one
-device: ``--device`` empty means cuda,
-``--device cpu`` runs the plain PyTorch path. Everything else raises
-NotImplementedError naming what is missing (``runner.check_supported``).
+The flags are the reference's (``hydra_tpu_torch.options``). Dispatch
+mirrors main.cpp:47-177 and ``hydra_tpu/cli.py``:
+
+  --bed-to-sparse        the sparse-file converter (io/sparse.py)
+  --check-RAM            the device-memory estimate (diag/ramcheck.py)
+  --mpibayes bayesMPI    BayesRRm; multi-trait BayesRRm when ``--pheno``
+                         names several comma-separated files
+  --mpibayes bayesFHMPI  BayesFH (with several phenotypes the JAX CLI, and
+                         so this one, runs multi-trait BayesRRm)
+  --mpibayes bayesWMPI   BayesW (with ``--failure``)
+
+on one device: ``--device`` empty means cuda, ``--device cpu`` runs the
+plain PyTorch path. More than one device, and the port's own kernel limits,
+raise NotImplementedError before any data is read
+(``runner.check_supported``).
 """
 
 from __future__ import annotations
@@ -23,6 +30,25 @@ def main(argv=None) -> int:
 
     opt = parse_args(argv)
     check_supported(opt)
+    if opt.bed_to_sparse:
+        from hydra_tpu_torch.io import plink
+        from hydra_tpu_torch.io.sparse import write_sparse_files
+        n = opt.number_individuals or plink.read_fam(opt.bed_file + ".fam").n
+        m = opt.number_markers or plink.read_bim(opt.bed_file + ".bim").m
+        out = (opt.sparse_dir + "/" + opt.sparse_basename
+               if opt.sparse_dir else opt.bed_file)
+        # --blocks-per-rank bounds the conversion's memory (BayesRRm.cpp:
+        # 469-471; one rank here)
+        block_size = min(8192, -(-m // max(1, opt.blocks_per_rank)))
+        print(f"INFO   : converting {opt.bed_file}.bed (M={m}, N={n}) -> "
+              f"{out}.s* in blocks of {block_size} markers")
+        write_sparse_files(opt.bed_file + ".bed", n, m, out,
+                           block_size=block_size)
+        return 0
+    if opt.check_ram:
+        from hydra_tpu_torch.diag.ramcheck import check_ram_usage
+        check_ram_usage(opt)
+        return 0
     rrm = run_bayesrrm_mt if opt.multi_phen else run_bayesrrm
     runners = {"bayesMPI": rrm, "bayesFHMPI": rrm, "bayesWMPI": run_bayesw}
     if opt.bayes_type not in runners:

@@ -54,3 +54,15 @@ def decode_planes(packed: torch.Tensor, dtype=torch.float32
     c = crumbs(packed)
     geno = torch.where(c == 0, 2, torch.where(c == 2, 1, 0))
     return geno.to(dtype), (c != 1).to(dtype)
+
+
+def standardized_window(packed: torch.Tensor, mave: torch.Tensor,
+                        mstd: torch.Tensor, dtype=torch.float32
+                        ) -> torch.Tensor:
+    """x~ = mstd * (g - mave * m) for a window of h-packed rows: (W, NB)
+    uint8 -> (W, 4*NB) ``dtype`` (``hydra_tpu/ops/decode.py::
+    standardized_window`` on the port's device bytes; pad and missing
+    individuals are 0)."""
+    g, m = decode_planes_hp(packed, dtype)
+    return (g - mave.to(dtype)[:, None] * m) * mstd.to(dtype)[:, None]
+

@@ -46,7 +46,7 @@ import torch
 from hydra_tpu_torch.ops import window_kernels as wk
 from hydra_tpu_torch.ops.sweep_kernel import K_MAX, W_MAX
 from hydra_tpu_torch.utils.slice_sampler import (N_EXPAND, N_SHRINK,
-                                                 slice_sample_noise)
+                                                 slice_sample_rounds)
 
 f32 = torch.float32
 EULER_MASCHERONI = 0.577215664901532   # EuMasc, BayesW.cpp:42
@@ -106,7 +106,9 @@ def _check(pk, eps, vi, mrow, gh_x, gh_w, window, n_mix, ind_mask, order,
 def _draw(rows, s1, s2, sb, s_all, gh_x, gh_w, alpha, K, complete,
           n_expand, n_shrink):
     """The window's draw (bw_draw_kernel), vectorized over its W markers,
-    operation by operation in the kernel's order."""
+    operation by operation in the kernel's order: the quadrature terms of
+    all nodes at once, each component's summed in node order, and the
+    slice draw's density in three rounds (``slice_sample_rounds``)."""
     km1 = K - 1
     (mave, inv_sd, bold, u, act, sf, th0, th1, th2, e0, e1, e2,
      ml0) = rows[:, :N_FIXED].unbind(1)
@@ -128,17 +130,18 @@ def _draw(rows, s1, s2, sb, s_all, gh_x, gh_w, alpha, K, complete,
     # adaptive Gauss-Hermite marginal likelihoods (BayesW.cpp:716-726);
     # sigma_ad is the substitution's Jacobian (BayesW.cpp:711)
     sigma_ad = 1.0 / torch.sqrt(1.0 + adc * exp_sum[:, None])     # (W, J)
-    acc = None
-    for q in range(gh_x.shape[0]):
-        s_node = sigma_ad * gh_x[q]
-        sq = s_node * sqrt2ck
-        temp = (-alpha * sq * sf[:, None]
-                - vi0[:, None] * torch.expm1(th0[:, None] * sq)
-                - vi1[:, None] * torch.expm1(th1[:, None] * sq)
-                - vi2[:, None] * torch.expm1(th2[:, None] * sq)
-                - s_node * s_node)
-        term = gh_w[q] * torch.exp(temp)
-        acc = term if acc is None else acc + term
+    # (Q, W, J): every node's term at once, added in node order
+    s_node = sigma_ad * gh_x[:, None, None]
+    sq = s_node * sqrt2ck
+    temp = (-alpha * sq * sf[:, None]
+            - vi0[:, None] * torch.expm1(th0[:, None] * sq)
+            - vi1[:, None] * torch.expm1(th1[:, None] * sq)
+            - vi2[:, None] * torch.expm1(th2[:, None] * sq)
+            - s_node * s_node)
+    terms = gh_w[:, None, None] * torch.exp(temp)
+    acc = terms[0]
+    for q in range(1, gh_x.shape[0]):
+        acc = acc + terms[q]
     ml = pj * (sigma_ad * acc)                                     # (W, J)
     sm_ml = ml0
     for j in range(km1):
@@ -161,11 +164,11 @@ def _draw(rows, s1, s2, sb, s_all, gh_x, gh_w, alpha, K, complete,
                 - vi1 * torch.expm1(th1 * x) - vi2 * torch.expm1(th2 * x)
                 - x * x / two_ck_sg)
 
-    x = slice_sample_noise(logf, bold, rows[:, br], rows[:, br + 1],
-                           rows[:, br + 2:br + 2 + n_shrink].T,
-                           torch.clamp(slim / 5.0, min=1e-3),
-                           lower=bold - slim, upper=bold + slim,
-                           n_expand=n_expand, n_shrink=n_shrink)
+    x = slice_sample_rounds(logf, bold, rows[:, br], rows[:, br + 1],
+                            rows[:, br + 2:br + 2 + n_shrink].T,
+                            torch.clamp(slim / 5.0, min=1e-3),
+                            lower=bold - slim, upper=bold + slim,
+                            n_expand=n_expand, n_shrink=n_shrink)
     bnew = torch.where((compf > 0.0) & (act > 0.0), x, 0.0)
     return bnew, compf, bold - bnew
 

@@ -151,12 +151,14 @@ def level_partials(pk: torch.Tensor, vi: torch.Tensor, complete: bool):
 
 
 def window_level_sums_ref(pk: torch.Tensor, vi: torch.Tensor,
-                          complete: bool = False
+                          complete: bool = False,
+                          rows: Optional[torch.Tensor] = None
                           ) -> Tuple[torch.Tensor, torch.Tensor,
                                      Optional[torch.Tensor]]:
     """Plain PyTorch level sums (same contract as ``window_level_sums``)."""
+    _check_rows(pk, rows, "W")
     _check(pk, vi, "vi")
-    p1, p2, pb, _ = level_partials(pk, vi, complete)
+    p1, p2, pb, _ = level_partials(_window_rows(pk, rows), vi, complete)
     return seq_sum(p1), seq_sum(p2), (None if complete else seq_sum(pb))
 
 
@@ -470,14 +472,17 @@ def window_grams(pk: torch.Tensor, order: torch.Tensor, window: int,
 
 
 def window_level_sums(pk: torch.Tensor, vi: torch.Tensor,
-                      complete: bool = False):
-    """(s1, s2, sb) per window marker: the CUDA kernel on CUDA tensors, the
-    plain version on CPU tensors."""
+                      complete: bool = False,
+                      rows: Optional[torch.Tensor] = None):
+    """(s1, s2, sb) per window marker, the markers ``pk[rows]`` (all of pk
+    when rows is None): the CUDA kernel on CUDA tensors, the plain version
+    on CPU tensors."""
+    W = _check_rows(pk, rows, "W")
     _check(pk, vi, "vi")
     if pk.device.type == "cpu":
-        return window_level_sums_ref(pk, vi, complete)
-    W, nb = pk.shape
-    order = _card_rows(pk, None, W, "window_level_sums")
+        return window_level_sums_ref(pk, vi, complete, rows)
+    nb = pk.shape[1]
+    order = _card_rows(pk, rows, W, "window_level_sums")
     from hydra_tpu_torch.ops import _build
 
     dev = pk.device

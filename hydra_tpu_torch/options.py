@@ -267,8 +267,10 @@ def build_parser() -> argparse.ArgumentParser:
            "residual all-reduce runs ICI-first then chunked over DCN")
     a("--dtype", dest="dtype", default="float32",
       choices=["float32", "float64"],
-      help="sampler accumulation dtype (the reference is f64 end-to-end; "
-           "the port runs float32, float64 raises)")
+      help="sampler accumulation dtype (the reference is f64 end-to-end): "
+           "float64 runs single-trait BayesRRm/FH in plain torch float64 "
+           "per window on the marker schedule, as the JAX package runs it "
+           "without Pallas; multi-trait and BayesW run float32 and say so")
     a("--cache-planes", dest="plane_cache", default="off",
       choices=["off", "on", "auto"],
       help="cache int8 decoded genotype planes: 'on' runs single-trait "
@@ -278,8 +280,8 @@ def build_parser() -> argparse.ArgumentParser:
            "'auto' is an accepted alias of 'off'")
     a("--mega", dest="mega", default="auto",
       choices=["auto", "on", "off"],
-      help="whole-sweep kernels: 'off' runs the per-window branch for "
-           "single-trait BayesRRm/FH; multi-trait and BayesW refuse 'off'")
+      help="whole-sweep kernels: 'off' runs the per-window branch of "
+           "every sampler (marker schedule)")
     a("--schedule", dest="schedule", default="auto",
       choices=["auto", "marker", "block"],
       help="marker-processing schedule for stale windows: 'marker' = the "
@@ -287,8 +289,9 @@ def build_parser() -> argparse.ArgumentParser:
            "one-time decorrelating marker->slot permutation plus per-sweep "
            "window-BLOCK shuffle, so the whole-sweep kernels read windows "
            "in place. auto = block, but marker for --mega off, forced "
-           "planes and W < 8 (BayesRRm/FH), BayesW W = 2..7, and "
-           "multi-trait exact runs with missing calls or NaN phenotypes")
+           "planes, --dtype float64 and W < 8 (BayesRRm/FH), BayesW W = "
+           "2..7, and multi-trait W < 8 and exact runs with missing calls "
+           "or NaN phenotypes")
     a("--det-sync", dest="det_sync", type=int, default=0,
       help="1 = topology-invariant residual reductions (all_gather + "
            "fixed-order sum): the SAME mesh gives bitwise-identical chains "

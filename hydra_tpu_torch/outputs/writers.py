@@ -6,6 +6,15 @@ records, and the runners call ``on_save`` before ``on_thin``: a row in the
 csv means every record of that iteration is whole on disk, so a chain
 killed right after a row restarts from it.
 
+A save never overwrites the previous generation of a file in place: the
+file is renamed to ``<file>.prev``, the new bytes are written to
+``<file>.tmp`` and renamed in (``os.replace``). ``commit_save``, which the
+runners call after the csv row (of every trait), removes the ``.prev``
+files. So a kill at any point of a save leaves, for each file, the
+generation the csv's last save row names in ``<file>`` or ``<file>.prev``,
+and ``outputs/restart.py`` takes whichever carries that iteration. After a
+completed save the directory holds the same files and bytes as before.
+
 Reproduces the reference's output files (BayesRRm.cpp:2736-2877 write blocks;
 binary layouts documented at :2797-2800 and postproc/beta_converter.cpp:40-52):
 
@@ -22,10 +31,12 @@ binary layouts documented at :2797-2800 and postproc/beta_converter.cpp:40-52):
   .gam.0 / .xiv.0 covariate dumps           (when covariates are used)
   .rng.0 JSON {seed, iteration} — replaces the boost mt19937 state dump
          (distributions_boost.cpp:38-55): counter-based keys re-derive all
-         randomness from (seed, iteration), so this is the complete RNG state.
+         randomness from (seed, iteration), so this is the complete RNG state;
+         float64 chains add their sigmaG, sigmaE and pi ("hypers")
   .lst   list of files tarred each --save  (BayesRRm.cpp:1245-1262)
-  .fh.npz FH extension state (the reference never dumps FH state — its FH
-         restart silently re-inits; we restore it exactly)
+  .fh.npz FH extension state and its "iteration" (the reference never
+         dumps FH state — its FH restart silently re-inits; we restore it
+         exactly)
 
 The ".0" suffix replaces the reference's per-rank suffix: a single logical
 writer (host 0) covers all shards, as device->host gathers replace MPI-IO.
@@ -37,6 +48,7 @@ it, mu, sigmaG.sum, alpha, h2w, m0, piRows, piCols, sigmaG[G], pi[G*K]
 
 from __future__ import annotations
 
+import io
 import json
 import os
 import subprocess
@@ -44,6 +56,18 @@ import time
 from typing import Optional
 
 import numpy as np
+
+PREV, TMP = ".prev", ".tmp"
+# the files a save replaces
+SAVE_EXTS = (".eps.0", ".mrk.0", ".xbet", ".xcpn", ".gam.0", ".xiv",
+             ".xiv.0", ".fh.npz", ".rng.0")
+
+
+def tagged(it: int, values: np.ndarray, dtype) -> bytes:
+    """[u32 it][u32 n][n values]: the .eps.0 / .mrk.0 / .gam.0 / .xiv
+    record."""
+    return (np.asarray([it, len(values)], dtype=np.uint32).tobytes()
+            + np.asarray(values).astype(dtype).tobytes())
 
 
 class McmcWriter:
@@ -70,6 +94,12 @@ class McmcWriter:
             if make_tarball:
                 os.makedirs(os.path.join(d, "tarballs"), exist_ok=True)
 
+        # a save left unfinished by an earlier chain of this name
+        for ext in SAVE_EXTS:
+            for tail in (PREV, TMP):
+                if os.path.exists(self.base + ext + tail):
+                    os.remove(self.base + ext + tail)
+        self._prev = []
         # fresh files; header = Mtot (BayesRRm.cpp:1302-1309)
         hdr = np.asarray([mtot], dtype=np.uint32).tobytes()
         for ext in (".bet", ".cpn", ".acu", ".xbet", ".xcpn"):
@@ -140,49 +170,59 @@ class McmcWriter:
             fh.write(csv_row)
         self.n_thinned += 1
 
+    def _replace(self, ext: str, data: bytes):
+        """Write one file of a save: the old generation to <file>.prev, the
+        new bytes to <file>.tmp, renamed in."""
+        path = self.base + ext
+        if os.path.exists(path):
+            os.replace(path, path + PREV)
+            self._prev.append(path + PREV)
+        with open(path + TMP, "wb") as fh:
+            fh.write(data)
+        os.replace(path + TMP, path)
+
     def on_save(self, it: int, eps: np.ndarray, marker_order: np.ndarray,
                 beta: np.ndarray, components: np.ndarray,
                 gamma: Optional[np.ndarray] = None,
                 x_order: Optional[np.ndarray] = None,
-                fh_state: Optional[dict] = None):
-        it_u = np.asarray([it], dtype=np.uint32)
-        with open(self.base + ".eps.0", "wb") as fh:
-            fh.write(it_u.tobytes())
-            fh.write(np.asarray([len(eps)], dtype=np.uint32).tobytes())
-            fh.write(eps.astype(np.float64).tobytes())
-        with open(self.base + ".mrk.0", "wb") as fh:
-            fh.write(it_u.tobytes())
-            fh.write(np.asarray([len(marker_order)], dtype=np.uint32).tobytes())
-            fh.write(marker_order.astype(np.int32).tobytes())
-        for ext, arr, dt in ((".xbet", beta, np.float64),
-                             (".xcpn", components, np.int32)):
-            with open(self.base + ext, "r+b") as fh:
-                fh.seek(4)
-                fh.write(it_u.tobytes())
-                fh.write(arr.astype(dt).tobytes())
+                fh_state: Optional[dict] = None,
+                hypers: Optional[dict] = None):
+        """hypers: float64 chains' sigmaG, sigmaE and pi, kept in .rng.0 at
+        full precision (the csv rounds them to 15 decimals, which a float32
+        chain's values survive and a float64 chain's do not)."""
+        self._replace(".eps.0", tagged(it, eps, np.float64))
+        self._replace(".mrk.0", tagged(it, marker_order, np.int32))
+        hdr = np.asarray([self.mtot, it], dtype=np.uint32).tobytes()
+        self._replace(".xbet", hdr + beta.astype(np.float64).tobytes())
+        self._replace(".xcpn", hdr + components.astype(np.int32).tobytes())
         if self.covariates and gamma is not None and not self.survival:
-            with open(self.base + ".gam.0", "wb") as fh:
-                fh.write(it_u.tobytes())
-                fh.write(np.asarray([len(gamma)], dtype=np.uint32).tobytes())
-                fh.write(gamma.astype(np.float64).tobytes())
+            self._replace(".gam.0", tagged(it, gamma, np.float64))
         if self.covariates and x_order is not None:
-            ext = ".xiv" if self.survival else ".xiv.0"
-            with open(self.base + ext, "wb") as fh:
-                fh.write(it_u.tobytes())
-                fh.write(np.asarray([len(x_order)], dtype=np.uint32).tobytes())
-                fh.write(x_order.astype(np.int32).tobytes())
+            self._replace(".xiv" if self.survival else ".xiv.0",
+                          tagged(it, x_order, np.int32))
+        if fh_state is not None:
+            buf = io.BytesIO()
+            np.savez(buf, **fh_state, iteration=np.uint32(it))
+            self._replace(".fh.npz", buf.getvalue())
         # complete RNG state: counter-based keys re-derive all randomness from
         # (seed, iteration); window/exact pin the chain schedule so a restart
         # reproduces the uninterrupted chain bitwise (the equivalent of the
         # reference's boost state dump, distributions_boost.cpp:38-55)
-        with open(self.base + ".rng.0", "w") as fh:
-            json.dump({"seed": self.seed, "iteration": it,
-                       "window": self.window, "exact": self.exact,
-                       "schedule": self.schedule}, fh)
-        if fh_state is not None:
-            np.savez(self.base + ".fh.npz", **fh_state)
+        rng = {"seed": self.seed, "iteration": it, "window": self.window,
+               "exact": self.exact, "schedule": self.schedule}
+        if hypers is not None:
+            rng["hypers"] = {k: np.asarray(v, np.float64).tolist()
+                             for k, v in hypers.items()}
+        self._replace(".rng.0", json.dumps(rng).encode())
         if self.make_tarball:
             self._tarball(it)
+
+    def commit_save(self):
+        """Drop the previous generation of the last save's files: call once
+        the save's csv row (every trait's) is on disk."""
+        for path in self._prev:
+            os.remove(path)
+        self._prev = []
 
     def _tarball(self, it: int):
         """dump_<name>_<it>__<timestamp>.tar of the .lst files

@@ -8,7 +8,7 @@ src/BayesRRm.cpp:933-2939): one device, h-packed genotypes, covariates
   sigmaG (BayesFH: the local shrinkage and the group tau chain), pi ->
   the covariates' ridge sweep -> sigmaE
 
-and the windows take one of two branches, as the JAX sampler's do:
+and the windows take one of three branches, as the JAX sampler's do:
   - whole sweep (the default): one sweep_exact / sweep_stale call over all
     windows (``ops/sweep_kernel.py``), any W >= 1; stale windows W >= 8 on
     the marker schedule take sweep_stale_sd instead when HYDRA_TPU_SD asks
@@ -16,7 +16,15 @@ and the windows take one of two branches, as the JAX sampler's do:
   - per window (``mega="off"``, or forced planes): the JAX ``window_body``
     (bayesrrm.py:293-661) with its kernels, per window window_stats (or
     window_stats_planes) -> num0 -> the stale draw or window_gibbs ->
-    window_axpy (or window_axpy_planes), ``window_sweep`` below.
+    window_axpy (or window_axpy_planes), ``window_sweep`` below;
+  - float64 (``dtype="float64"``, ``--dtype float64``): the JAX package
+    runs it without Pallas, on the XLA ``window_body`` in float64 on the
+    marker schedule (bayesrrm.py:188, :1000-1018); the port runs the same
+    per window in plain torch float64 (``window_sweep_f64``): the decoded
+    standardized rows, their dot products with the residual, the exact
+    window's Gram as a float64 matmul and the recurrence, or the stale
+    draw, and the residual update. The state, hyper-parameters and
+    restart state are float64 too.
 
 with everything per marker kept in SLOT order. The schedule permutes the
 slots a sweep visits: "block" (the default) keeps a one-time setup
@@ -42,7 +50,7 @@ import torch
 
 from hydra_tpu_torch.data.genotypes import Dataset, shard_layout
 from hydra_tpu_torch.io.pheno import center_and_scale
-from hydra_tpu_torch.ops.decode import hpack_bytes
+from hydra_tpu_torch.ops.decode import hpack_bytes, standardized_window
 from hydra_tpu_torch.ops.gibbs_kernel import window_gibbs
 from hydra_tpu_torch.ops.planes import (build_planes, window_axpy_planes,
                                         window_stats_planes)
@@ -69,6 +77,21 @@ _S_PERM, _S_COV, _S_COVPERM = 6, 7, 8
 _S_NU, _S_LAM, _S_TAU, _S_CSLAB, _S_HTAU = 9, 10, 11, 12, 13
 _S_INIT_SIGMAG, _S_INIT_FH = 100, 101
 _INIT_ITERATION = -1     # init-time draws sit outside the chain's iterations
+
+
+def recurrence_f64(gram, num0, rows, i2se, K):
+    """The exact window's sequential recurrence in float64 (the JAX
+    ``marker_step``, bayesrrm.py:609-621, on its ``draw_rows``): marker j
+    draws from num0_j + corr_j, then corr += dbeta_j Gram[:, j]. Returns
+    (W, 4) = [beta_new, comp, acum0, dbeta]."""
+    corr = torch.zeros_like(num0)
+    res = []
+    for j in range(num0.shape[0]):
+        bn, cp, ac, db = stale_draw(rows[j:j + 1], (num0[j] + corr[j])[None],
+                                    i2se, K)
+        corr = corr + db * gram[:, j]
+        res.append(torch.cat([bn, cp, ac, db]))
+    return torch.stack(res)
 
 
 def resolve_device(name: str) -> torch.device:
@@ -106,6 +129,7 @@ class BayesRRmConfig:
     sub_window: int = 0        # > 0: the single-decode stale sweep
     n_cov: int = 0             # covariates (fixed effects)
     fh: bool = False           # BayesFH (--mpibayes bayesFHMPI)
+    dtype: str = "float32"     # "float64": the plain torch float64 branch
     # FH hyper-priors (options.hpp:89-96)
     v0L: float = 3.0
     v0t: float = 3.0
@@ -148,13 +172,14 @@ class IterStats:
     sum_abs_dbeta: torch.Tensor  # ()
 
 
-def state_from_numpy(x, device) -> BayesRRmState:
+def state_from_numpy(x, device, dtype=f32) -> BayesRRmState:
     """A state from numpy arrays: a JAX ``BayesRRmState`` converted with
-    ``np.asarray`` per field, or a dict with the same field names."""
+    ``np.asarray`` per field, or a dict with the same field names; the
+    real fields in ``dtype``."""
     get = x.get if isinstance(x, dict) else (lambda k: getattr(x, k))
     out = {}
     for name in STATE_FIELDS:
-        dt = torch.int32 if name == "components" else f32
+        dt = torch.int32 if name == "components" else dtype
         out[name] = torch.as_tensor(np.array(get(name)), dtype=dt,
                                     device=device)
     return BayesRRmState(**out)
@@ -172,17 +197,20 @@ class BayesRRm:
                  shuffle: bool = True, seed: int = 0, schedule: str = "auto",
                  mega: str = "auto", plane_cache: str = "off",
                  fh: bool = False, fh_params: Optional[dict] = None,
-                 device="cuda", packed_device: Optional[torch.Tensor] = None):
+                 dtype: str = "float32", device="cuda",
+                 packed_device: Optional[torch.Tensor] = None):
         """fh: BayesFH, with the hyper-priors v0L, v0t, v0c, s02c, tau0 of
         ``fh_params`` (the CLI defaults where absent). mega: "off" takes
         the per-window branch ("auto"/"on": the whole-sweep kernels, which
         take every W). plane_cache: "on" takes
         the per-window branch on cached int8 planes for stale windows
         W >= 8 on complete genotypes (else it is ignored, as in the JAX
-        sampler). packed_device: the genotypes already h-packed on the
-        device, (M, NB) uint8 in marker order, for data generated there;
-        then ``dataset.geno`` supplies only n, n_pad and the marker
-        statistics."""
+        sampler). dtype: "float64" runs the plain torch float64 branch
+        (per window, marker schedule, no kernels), as the JAX sampler runs
+        float64 without Pallas. packed_device: the genotypes already
+        h-packed on the device, (M, NB) uint8 in marker order, for data
+        generated there; then ``dataset.geno`` supplies only n, n_pad and
+        the marker statistics."""
         self.ds = dataset
         self.seed = int(seed)
         self.device = (device if isinstance(device, torch.device)
@@ -198,15 +226,20 @@ class BayesRRm:
                              f"got {schedule!r}")
         if mega not in ("auto", "on", "off"):
             raise ValueError(f"mega must be auto/on/off, got {mega!r}")
+        if dtype not in ("float32", "float64"):
+            raise ValueError(f"dtype must be float32/float64, got {dtype!r}")
+        f64 = dtype == "float64"
+        self.dt = torch.float64 if f64 else f32
         complete = bool(geno.nm_global_sum == 0)
         # the JAX gates (bayesrrm.py:1001-1118) without the TPU-backend
-        # term: forced planes need stale windows W >= 8 on complete data
+        # term: forced planes need float32 stale windows W >= 8 on complete
+        # data; float64 runs no kernel, so no whole sweep
         planes = (plane_cache == "on" and window >= 8 and not exact
-                  and complete)
+                  and complete and not f64)
         if plane_cache == "on" and not planes:
-            print("INFO   : --cache-planes on ignored (needs stale windows "
-                  ">= 8 and complete data)", flush=True)
-        per_window = mega == "off" or planes
+            print("INFO   : --cache-planes on ignored (needs float32 stale "
+                  "windows >= 8 and complete data)", flush=True)
+        per_window = mega == "off" or planes or f64
         # auto: block wherever the JAX package's whole-sweep kernel hosts
         # it (W >= 8, mega not off, no forced planes), else marker, so CPU
         # and CUDA runs take the JAX chain schedule of the same flags
@@ -233,7 +266,7 @@ class BayesRRm:
             shuffle=shuffle, schedule=schedule, complete=complete,
             per_window=per_window, planes=planes, sub_window=sub_window,
             n_cov=0 if dataset.X is None else int(dataset.X.shape[1]),
-            fh=bool(fh), **{k: float(fhp.get(k, d)) for k, d in (
+            fh=bool(fh), dtype=dtype, **{k: float(fhp.get(k, d)) for k, d in (
                 ("v0L", 3.0), ("v0t", 3.0), ("v0c", 3.0), ("s02c", 1.0),
                 ("tau0", 1.0))})
         if self.device.type == "cuda":
@@ -275,13 +308,15 @@ class BayesRRm:
             del rows
         # int8 planes in individual order, decoded on the device
         self.planes = build_planes(self.packed) if planes else None
+        self._f64_graph = None     # the float64 recurrence's CUDA graph
+        dt = self.dt
         self.groups = torch.from_numpy(groups_g).to(dev, torch.int64)
-        self.mave = torch.from_numpy(mave_g).to(dev)
-        self.mstd = torch.from_numpy(mstd_g).to(dev)
-        self.valid = torch.from_numpy(valid_g).to(dev)
+        self.mave = torch.from_numpy(mave_g).to(dev, dt)
+        self.mstd = torch.from_numpy(mstd_g).to(dev, dt)
+        self.valid = torch.from_numpy(valid_g).to(dev, dt)
         G = cfg.num_groups
         self.group_onehot = (self.groups[None, :] == torch.arange(
-            G, device=dev)[:, None]).to(f32)                    # (G, m_loc)
+            G, device=dev)[:, None]).to(dt)                     # (G, m_loc)
 
         # mixture grids (BayesRRm.cpp:1004-1108) and priors
         mS = dataset.mS.astype(np.float32)
@@ -300,7 +335,7 @@ class BayesRRm:
         if cfg.n_cov:
             x_cov[:cfg.n_real] = dataset.X
 
-        def put(a, dt=f32):
+        def put(a):
             return torch.as_tensor(np.asarray(a), dtype=dt, device=dev)
 
         self.cva = put(mS)
@@ -317,7 +352,8 @@ class BayesRRm:
     def _check_memory(self, nb: int) -> None:
         """Refuse a run whose device arrays cannot fit before allocating
         them: packed bytes, the int8 planes (one byte per genotype), per-slot
-        rows (twice on the per-window branch: the sweep-order copy) and the
+        rows (twice on the per-window branch: the sweep-order copy; float64
+        rows take 8 bytes a value), a float64 window's decoded rows and the
         largest sweep scratch (the exact sweep's batch of window Grams, the
         single-decode sweep's decoded rows), against the card's free memory
         (torch.cuda.mem_get_info)."""
@@ -332,11 +368,14 @@ class BayesRRm:
             lib.hydra_sweep_sd_workspace_bytes(nb, cfg.window,
                                                cfg.sub_window))
         rows = 2 if cfg.per_window else 1
+        f = 8 if cfg.dtype == "float64" else 4
         need = (2 * cfg.m_loc * nb      # packed rows + one copy while laid out
                 + (cfg.m_loc * cfg.n_pad if cfg.planes else 0)
-                + rows * cfg.m_loc * 4 * (mrow_width(cfg.k) + 16
+                + rows * cfg.m_loc * f * (mrow_width(cfg.k) + 16
                                           + cfg.num_groups)
-                + workspace + 8 * cfg.n_pad * 4 + (256 << 20))
+                # float64: a window's decoded, standardized rows
+                + (3 * cfg.window * cfg.n_pad * 8 if f == 8 else 0)
+                + workspace + 8 * cfg.n_pad * f + (256 << 20))
         free, total = torch.cuda.mem_get_info(self.device)
         if need > free:
             raise MemoryError(
@@ -352,11 +391,11 @@ class BayesRRm:
         """init_from_scratch (BayesRRm.cpp:1224-1240, :1564-1584)."""
         cfg, dev = self.cfg, self.device
         y = center_and_scale(self.ds.y)
-        eps = np.zeros(cfg.n_pad, dtype=np.float32)
+        eps = np.zeros(cfg.n_pad)
         eps[:cfg.n_real] = y
         sigma_e = float(np.sum(y * y) / cfg.n_real * 0.5)
         G, K = cfg.num_groups, cfg.k
-        one = torch.ones(G, dtype=f32, device=dev)
+        one = torch.ones(G, dtype=self.dt, device=dev)
         # sigmaG ~ Beta(1, 1) per group, empty groups zeroed (:1231-1240)
         sg = dist.beta_rng(self._gen(_INIT_ITERATION, _S_INIT_SIGMAG), one, one)
         sg = torch.where(self.mtot == 0, 0.0, sg)
@@ -371,32 +410,32 @@ class BayesRRm:
             g = self._gen(_INIT_ITERATION, _S_INIT_FH)
 
             def t(v):
-                return torch.tensor(v, dtype=f32, device=dev)
+                return torch.tensor(v, dtype=self.dt, device=dev)
 
             hyp_tau = dist.inv_gamma_rate_rng(g, t(0.5),
                                               t(1.0 / cfg.tau0 ** 2))
             tau = dist.inv_gamma_rate_rng(g, t(0.5 * cfg.v0t),
                                           cfg.v0t / hyp_tau)
             c_slab = dist.inv_scaled_chisq_rng(
-                g, torch.full((G,), cfg.v0c, dtype=f32, device=dev),
+                g, torch.full((G,), cfg.v0c, dtype=self.dt, device=dev),
                 t(cfg.s02c))
             lam0 = c_slab.sum() / cfg.m_tot
         else:
-            hyp_tau = tau = lam0 = torch.ones((), dtype=f32, device=dev)
-            c_slab = torch.zeros(G, dtype=f32, device=dev)
-        zeros = torch.zeros(cfg.m_loc, dtype=f32, device=dev)
+            hyp_tau = tau = lam0 = torch.ones((), dtype=self.dt, device=dev)
+            c_slab = torch.zeros(G, dtype=self.dt, device=dev)
+        zeros = torch.zeros(cfg.m_loc, dtype=self.dt, device=dev)
         return BayesRRmState(
             lambda_var=lam0.expand(cfg.m_loc).clone(), nu_var=zeros.clone(),
             c_slab=c_slab, tau=tau, hyp_tau=hyp_tau,
-            eps=torch.from_numpy(eps).to(dev),
+            eps=torch.from_numpy(eps).to(dev, self.dt),
             beta=zeros.clone(),
             components=torch.zeros(cfg.m_loc, dtype=torch.int32, device=dev),
             acum=zeros.clone(),
-            mu=torch.zeros((), dtype=f32, device=dev),
-            sigma_e=torch.tensor(sigma_e, dtype=f32, device=dev),
-            sigma_g=sg.to(f32),
-            est_pi=torch.as_tensor(pi0, dtype=f32, device=dev),
-            gamma=torch.zeros(cfg.n_cov, dtype=f32, device=dev))
+            mu=torch.zeros((), dtype=self.dt, device=dev),
+            sigma_e=torch.tensor(sigma_e, dtype=self.dt, device=dev),
+            sigma_g=sg.to(self.dt),
+            est_pi=torch.as_tensor(pi0, dtype=self.dt, device=dev),
+            gamma=torch.zeros(cfg.n_cov, dtype=self.dt, device=dev))
 
     def init_state_from_restart(self, rd) -> BayesRRmState:
         """The state saved at ``rd.iteration`` (init_from_restart,
@@ -409,13 +448,13 @@ class BayesRRm:
         sel = self.slot_to_marker >= 0
         marker = self.slot_to_marker[sel]
 
-        def slots(values, fill, dt=f32):
+        def slots(values, fill, dt=None):
             out = np.full(cfg.m_loc, fill, dtype=np.float64)
             out[sel] = values[marker]
-            return torch.as_tensor(out, dtype=dt, device=dev)
+            return torch.as_tensor(out, dtype=dt or self.dt, device=dev)
 
         def t(v):
-            return torch.as_tensor(np.asarray(v, np.float64), dtype=f32,
+            return torch.as_tensor(np.asarray(v, np.float64), dtype=self.dt,
                                    device=dev)
 
         eps = np.zeros(cfg.n_pad)
@@ -481,7 +520,7 @@ class BayesRRm:
             [log_pi[:, :1], log_pi[:, 1:] - 0.5 * log_detk], dim=1)
         mrow = torch.cat(
             [self.mave[:, None], self.mstd[:, None], state.beta[:, None],
-             u[:, None], nrm[:, None], active.to(f32)[:, None],
+             u[:, None], nrm[:, None], active.to(self.dt)[:, None],
              logl_static, inv_denomk, sd_k], dim=1).contiguous()
         assert mrow.shape[1] == mrow_width(cfg.k)
         return mrow
@@ -531,7 +570,7 @@ class BayesRRm:
                 dbeta, bnew, comp, acum = window_gibbs(
                     gram, num0, logl_s[sl], invd_s[sl], sd_s[sl], u_s[sl],
                     nrm_s[sl], act_s[sl], bold, i2se)
-                comp = comp.to(f32)
+                comp = comp.to(self.dt)
             else:
                 bnew, comp, acum, dbeta = stale_draw(rows_s[sl], num0, i2se,
                                                      K)
@@ -547,9 +586,66 @@ class BayesRRm:
                 d_eps = window_axpy(self.packed, c1, c2, False, rows)
             eps = eps + d_eps
             outs.append(torch.stack([bnew, comp, acum, dbeta], dim=1))
-        out = torch.empty((cfg.m_loc, 4), dtype=f32, device=self.device)
+        out = torch.empty((cfg.m_loc, 4), dtype=self.dt, device=self.device)
         out[slots] = torch.cat(outs)
         return eps, out
+
+    def window_sweep_f64(self, eps: torch.Tensor, mrow: torch.Tensor,
+                         order: torch.Tensor, i2se: torch.Tensor):
+        """The float64 branch (the JAX XLA ``window_body`` in float64,
+        bayesrrm.py:293-661 without Pallas), plain torch: per window the
+        standardized rows x~ (W, n_pad) in float64, num0 = x~ eps +
+        beta_old (N-1), then the stale draw (``stale_draw``, the JAX
+        ``draw_rows``) or, exact, the window Gram x~ x~^T and the
+        sequential recurrence (the JAX ``marker_step``: each marker's
+        ``draw_rows`` on num0 + corr, corr += dbeta_j Gram[:, j]), and
+        eps += dbeta x~. Returns (eps', out (m_loc, 4)) as window_sweep."""
+        cfg = self.cfg
+        W, K = cfg.window, cfg.k
+        slots = order.to(torch.int64)
+        rows_s = mrow[slots]
+        outs = []
+        for w in range(cfg.n_windows):
+            sl = slice(w * W, (w + 1) * W)
+            rows = rows_s[sl]
+            xt = standardized_window(self.packed[slots[sl]], rows[:, 0],
+                                     rows[:, 1], torch.float64)
+            num0 = xt @ eps + rows[:, 2] * self.dNm1
+            if cfg.exact:
+                outs.append(self._recurrence(xt @ xt.T, num0, rows, i2se))
+                dbeta = outs[-1][:, 3]
+            else:
+                bnew, comp, acum, dbeta = stale_draw(rows, num0, i2se, K)
+                outs.append(torch.stack([bnew, comp, acum, dbeta], dim=1))
+            eps = eps + dbeta @ xt
+        out = torch.empty((cfg.m_loc, 4), dtype=self.dt, device=self.device)
+        out[slots] = torch.cat(outs)
+        return eps, out
+
+    def _recurrence(self, gram, num0, rows, i2se):
+        """The float64 exact window's recurrence (``recurrence_f64``). On
+        the card its W steps of small torch ops are captured once in a CUDA
+        graph and replayed a window (the same kernels on copies of the
+        window's inputs), which takes the host's per-op cost off the
+        sequential chain."""
+        if self.device.type != "cuda":
+            return recurrence_f64(gram, num0, rows, i2se, self.cfg.k)
+        if self._f64_graph is None:
+            ins = [t.clone() for t in (gram, num0, rows, i2se)]
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(side):              # warm-up, as capture
+                recurrence_f64(*ins, self.cfg.k)     # asks
+            torch.cuda.current_stream(self.device).wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                out = recurrence_f64(*ins, self.cfg.k)
+            self._f64_graph = (graph, ins, out)
+        graph, ins, out = self._f64_graph
+        for dst, src in zip(ins, (gram, num0, rows, i2se)):
+            dst.copy_(src)
+        graph.replay()
+        return out.clone()
 
     def step(self, state: BayesRRmState, it: int,
              noise: Optional[dict] = None):
@@ -567,7 +663,7 @@ class BayesRRm:
         eps = state.eps + state.mu * self.ind_mask
         z = noise.get("mu")
         if z is None:
-            z = torch.randn((), dtype=f32, device=dev,
+            z = torch.randn((), dtype=self.dt, device=dev,
                             generator=self._gen(it, _S_MU))
         mu = eps.sum() / dN + torch.sqrt(state.sigma_e / dN) * z.to(dev)
         eps = eps - mu * self.ind_mask
@@ -576,11 +672,11 @@ class BayesRRm:
         order = self.sweep_order(it, noise)
         u = noise.get("u")
         if u is None:
-            u = torch.rand(cfg.m_loc, dtype=f32, device=dev,
+            u = torch.rand(cfg.m_loc, dtype=self.dt, device=dev,
                            generator=self._gen(it, _S_UNIF))
         nrm = noise.get("nrm")
         if nrm is None:
-            nrm = torch.randn(cfg.m_loc, dtype=f32, device=dev,
+            nrm = torch.randn(cfg.m_loc, dtype=self.dt, device=dev,
                               generator=self._gen(it, _S_NORM))
         # adaV: markers of zeroed groups are skipped (BayesRRm.cpp:1589-1597)
         active = ((state.sigma_g[self.groups] > 0.0) & (self.valid > 0.0)
@@ -592,7 +688,7 @@ class BayesRRm:
             g_nu, g_lam = noise.get("g_nu"), noise.get("g_lam")
             if g_nu is None:
                 shape = torch.full((cfg.m_loc,), 0.5 + 0.5 * cfg.v0L,
-                                   dtype=f32, device=dev)
+                                   dtype=self.dt, device=dev)
                 g_nu = dist.gamma_rng(self._gen(it, _S_NU), shape)
                 g_lam = dist.gamma_rng(self._gen(it, _S_LAM), shape)
             g_nu, g_lam = g_nu.to(dev), g_lam.to(dev)
@@ -605,7 +701,9 @@ class BayesRRm:
         # ---- every window, in sweep order: one whole-sweep call or the
         # per-window branch ----
         i2se = 0.5 / state.sigma_e
-        if cfg.per_window:
+        if cfg.dtype == "float64":
+            eps, out = self.window_sweep_f64(eps, mrow, order, i2se)
+        elif cfg.per_window:
             eps, out = self.window_sweep(eps, mrow, order, i2se)
         else:
             kw = dict(window=cfg.window, n_mix=K, complete=cfg.complete,
@@ -622,11 +720,11 @@ class BayesRRm:
         beta = out[:, 0].contiguous()
         comps = out[:, 1].to(torch.int32)
         acum = out[:, 2].contiguous()
-        act = active.to(f32)
+        act = active.to(self.dt)
         # component counts over active markers (BayesRRm.cpp:1904): 0/1
         # weights, so the sums are exact integers in any order (and, unlike
         # bincount, index_add_ does not wait for the device)
-        cass = torch.zeros(G * K, dtype=f32, device=dev).index_add_(
+        cass = torch.zeros(G * K, dtype=self.dt, device=dev).index_add_(
             0, self.groups * K + comps.to(torch.int64), act).reshape(G, K)
         # fixed-order per-group reductions (no float atomics)
         beta_sqn = (self.group_onehot * (beta * beta)[None, :]).sum(dim=1)
@@ -689,7 +787,7 @@ class BayesRRm:
                                 generator=self._gen(it, _S_COVPERM))
         z = noise.get("cov")
         if z is None:
-            z = torch.randn(F, dtype=f32, device=dev,
+            z = torch.randn(F, dtype=self.dt, device=dev,
                             generator=self._gen(it, _S_COV))
         xi, z = xi.to(dev, torch.int64), z.to(dev)
         sigma_e = state.sigma_e

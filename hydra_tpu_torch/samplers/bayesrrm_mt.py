@@ -16,20 +16,24 @@ NaN entries. A sweep is
   branches -> cass -> per-(trait, group) sigmaG and pi -> the covariates'
   per-trait ridge sweep -> per-trait sigmaE
 
-with the branch chosen as the JAX sampler does (without its TPU gates):
+with the branch chosen as the JAX sampler does (without its TPU gates),
+where exact means ``exact`` and W > 1 (``exact_b``, bayesrrm_mt.py:696:
+exact W = 1 is the stale sweep):
 
-  stale (``exact=False``)                   sweep_stale_mt
+  stale                                     sweep_stale_mt
   exact, complete genotypes, no NaN trait    sweep_exact_mt (shared Gram)
-  exact otherwise                            per window: window_stats_mt ->
-      the window Gram (a plain matmul of decoded planes; (W, W) from trait
-      0's statistics when no phenotype is NaN, else T masked (T, W, W)
-      Grams, bayesrrm_mt.py:137-184) -> mt_window_recurrence ->
-      window_axpy_mt
+  exact otherwise, or ``mega="off"``         per window (``window_sweep``):
+      window_stats_mt -> exact: the window Gram (a plain matmul of decoded
+      planes; (W, W) from trait 0's statistics when no phenotype is NaN,
+      else T masked (T, W, W) Grams, bayesrrm_mt.py:137-184) ->
+      mt_window_recurrence; stale: the draw from the frozen residual (torch
+      ops, the JAX ``draw_rows``) -> window_axpy_mt
 
-``schedule="auto"`` is block for stale and for exact with complete
-genotypes and full phenotypes, marker otherwise (bayesrrm_mt.py:715-726),
-so the same flags take the same chain in both packages. The block setup
-permutation and the RNG site ids are the JAX sampler's; ``step(...,
+``schedule="auto"`` is block where the JAX sampler's whole-sweep kernels
+host the sweep (W >= 8, ``mega`` not off, stale or exact with complete
+genotypes and full phenotypes) and marker otherwise (bayesrrm_mt.py:
+715-726), so the same flags take the same chain in both packages. The block
+setup permutation and the RNG site ids are the JAX sampler's; ``step(...,
 noise=...)`` takes the draws from the caller. The Gram is a float32 matmul:
 on CUDA, TF32 must be off (``torch.backends.cuda.matmul.allow_tf32``; the
 runner turns it off).
@@ -47,7 +51,9 @@ import torch
 from hydra_tpu_torch.data.genotypes import Dataset, shard_layout
 from hydra_tpu_torch.ops.decode import decode_planes_hp, hpack_bytes
 from hydra_tpu_torch.ops.sweep_kernel import K_MAX, W_MAX, block_order
-from hydra_tpu_torch.ops.sweep_kernel_mt import (T_MAX, mt_mrow_width,
+from hydra_tpu_torch.ops.sweep_kernel_mt import (T_MAX, _blocks,
+                                                 draw_normalized,
+                                                 mt_mrow_width,
                                                  mt_window_recurrence,
                                                  sweep_exact_mt,
                                                  sweep_stale_mt)
@@ -58,10 +64,6 @@ from hydra_tpu_torch.samplers.bayesrrm import (S02E, S02F, S02G_DEFAULT,
 from hydra_tpu_torch.utils import dist
 
 f32 = torch.float32
-
-# Multi-trait windows below 8 run the JAX package's per-marker path, which
-# the port does not have for multi-trait.
-MIN_WINDOW = 8
 
 # RNG site ids, as in the JAX sampler (hydra_tpu/samplers/bayesrrm_mt.py:57-59)
 _S_MU, _S_UNIF, _S_NORM, _S_SIGMAG, _S_PI, _S_SIGMAE, _S_PERM = range(7)
@@ -82,9 +84,10 @@ class MtConfig:
     shuffle: bool
     schedule: str        # "block" | "marker"
     complete: bool       # no missing genotypes
-    exact: bool
+    exact: bool          # exact and W > 1 (exact W = 1 is the stale sweep)
     full_pheno: bool     # no NaN phenotype: trait-shared statistics
     n_cov: int = 0       # covariates (fixed effects)
+    per_window: bool = False   # mega="off": the per-window branches
 
     @property
     def n_windows(self) -> int:
@@ -191,10 +194,11 @@ class BayesRRmMT:
 
     def __init__(self, dataset: Dataset, phenos: np.ndarray, *, window: int,
                  exact: bool = True, shuffle: bool = True, seed: int = 0,
-                 schedule: str = "auto", device="cuda",
+                 schedule: str = "auto", mega: str = "auto", device="cuda",
                  packed_device: Optional[torch.Tensor] = None):
-        """phenos: (T, N) raw phenotypes with NaN for missing.
-        packed_device: the genotypes already h-packed on the device, (M, NB)
+        """phenos: (T, N) raw phenotypes with NaN for missing. mega: "off"
+        takes the per-window branches ("auto"/"on": the whole-sweep
+        kernels where the JAX sampler's run). packed_device: the genotypes already h-packed on the device, (M, NB)
         uint8 in marker order, for data generated there; then
         ``dataset.geno`` supplies only n, n_pad and the marker statistics."""
         self.ds = dataset
@@ -206,22 +210,24 @@ class BayesRRmMT:
         K = int(dataset.mS.shape[1])
         if n != geno.n:
             raise ValueError("phenotype matrix does not match genotype N")
-        if window < MIN_WINDOW:
-            raise NotImplementedError(
-                f"--window {window}: multi-trait windows below {MIN_WINDOW} "
-                "run the JAX package's per-marker path, which the port does "
-                "not have")
-        if window > W_MAX or K > K_MAX or T > T_MAX:
-            raise ValueError(f"the port takes W <= {W_MAX}, K <= {K_MAX} and "
-                             f"T <= {T_MAX}; got W={window}, K={K}, T={T}")
+        if not 1 <= window <= W_MAX or K > K_MAX or T > T_MAX:
+            raise ValueError(f"the port takes 1 <= W <= {W_MAX}, K <= {K_MAX} "
+                             f"and T <= {T_MAX}; got W={window}, K={K}, T={T}")
         if schedule not in ("auto", "marker", "block"):
             raise ValueError(f"schedule must be auto/marker/block, "
                              f"got {schedule!r}")
+        if mega not in ("auto", "on", "off"):
+            raise ValueError(f"mega must be auto/on/off, got {mega!r}")
         complete = bool(geno.nm_global_sum == 0)
         full_ph = bool(np.isfinite(phenos).all())
         shared_gram = complete and full_ph
+        # exact with W = 1 is the plain sequential schedule: the stale
+        # sweep of one-marker windows (bayesrrm_mt.py:694-696)
+        exact = exact and window > 1
         if schedule == "auto":
-            schedule = "block" if (not exact or shared_gram) else "marker"
+            schedule = ("block" if (window >= 8 and mega != "off"
+                                    and (not exact or shared_gram))
+                        else "marker")
             if schedule == "block":
                 print("INFO   : mt block schedule (whole-sweep kernel streams "
                       "windows in place; --schedule marker restores the "
@@ -240,7 +246,8 @@ class BayesRRmMT:
             k=K, num_groups=dataset.num_groups, n_traits=T, shuffle=shuffle,
             schedule=schedule, complete=complete, exact=exact,
             full_pheno=full_ph,
-            n_cov=0 if dataset.X is None else int(dataset.X.shape[1]))
+            n_cov=0 if dataset.X is None else int(dataset.X.shape[1]),
+            per_window=mega == "off")
         nb = (geno.packed if packed_device is None else packed_device).shape[1]
         if dev.type == "cuda":
             self._check_memory(nb)
@@ -509,9 +516,12 @@ class BayesRRmMT:
 
     def window_sweep(self, eps: torch.Tensor, mrow: torch.Tensor,
                      order: torch.Tensor, i2se: torch.Tensor):
-        """The exact per-window path (bayesrrm_mt.py:298-492 with its
-        Pallas window kernels): stats -> Gram -> recurrence -> axpy, per
-        window. Returns (eps', out (m_loc, 3T))."""
+        """The per-window path (the JAX ``window_body``, bayesrrm_mt.py:
+        298-492, with its Pallas window kernels), per window: stats ->
+        num0 -> the draw -> axpy. Exact: the Gram and the recurrence;
+        stale: every (marker, trait) drawn from the frozen residual (torch
+        ops: ``draw_normalized``, the JAX ``draw_rows``). Returns (eps',
+        out (m_loc, 3T))."""
         cfg = self.cfg
         W, T = cfg.window, cfg.n_traits
         out = torch.zeros((cfg.m_loc, 3 * T), dtype=f32, device=self.device)
@@ -523,12 +533,18 @@ class BayesRRmMT:
             if s2 is None:
                 # complete genotypes: the mask dot is the per-trait sum(eps)
                 s2 = eps.sum(dim=0)[None, :]
-            mave_w, mstd_w = self.mave[slots], self.mstd[slots]
-            num0 = (mstd_w * (s1 - mave_w * s2)
-                    + mrow[slots, 2 * T:3 * T] * self.dNm1)
-            gram = self.window_gram(slots, mave_w, mstd_w)
-            bnew, comp, acum, db = mt_window_recurrence(
-                gram, num0.contiguous(), mrow, i2se, n_mix=cfg.k, rows=rows)
+            # one gather of the window's rows: (W, 3K+4, T) column blocks
+            b = _blocks(mrow[slots], T)
+            mave_w, mstd_w, bold = b[:, 0], b[:, 1], b[:, 2]
+            num0 = mstd_w * (s1 - mave_w * s2) + bold * self.dNm1
+            if cfg.exact:
+                gram = self.window_gram(slots, mave_w, mstd_w)
+                bnew, comp, acum, db = mt_window_recurrence(
+                    gram, num0.contiguous(), mrow, i2se, n_mix=cfg.k,
+                    rows=rows)
+            else:
+                bnew, comp, acum = draw_normalized(b, num0, i2se, cfg.k)
+                db = bold - bnew
             c1 = (db * mstd_w).T.contiguous()                        # (T, W)
             c2 = -(c1 * mave_w.T)
             d_eps = window_axpy_mt(self.packed, c1, c2, cfg.complete,
@@ -573,11 +589,11 @@ class BayesRRmMT:
         i2se = 0.5 / state.sigma_e
 
         # ---- the sweep: one of three branches (module docstring) ----
-        if not cfg.exact:
+        if not cfg.exact and not cfg.per_window:
             eps, out = sweep_stale_mt(self.packed, eps, tm, mrow, i2se,
                                       self.dNm1, window=cfg.window, n_mix=K,
                                       complete=cfg.complete, order=order)
-        elif cfg.complete and cfg.full_pheno:
+        elif cfg.complete and cfg.full_pheno and not cfg.per_window:
             eps, out = sweep_exact_mt(self.packed, eps, tm, mrow, i2se,
                                       self.dNm1, window=cfg.window, n_mix=K,
                                       order=order)

@@ -10,6 +10,14 @@ adaptive Gauss-Hermite quadrature. A sweep is
   refresh -> per-slot noise -> mrow build -> one sweep_stale_bw call over
   all windows -> cass -> sigmaG, pi draws
 
+``mega="off"`` replaces the sweep_stale_bw call by the JAX per-window
+``window_body`` (bayesw.py:279-423), one window at a time
+(``window_sweep``): window_level_sums -> the window's draw (torch ops,
+``sweep_kernel_bw._draw``, the plain version of the whole-sweep kernel's
+draw: the own-effect removal, the adaptive Gauss-Hermite marginals, the
+component draw and the slice draw of beta on the same per-slot noise) ->
+window_axpy -> the vi refresh, on the marker schedule.
+
 with everything per marker kept in SLOT order. W = 1 is exact sequential
 BayesW; W > 1 runs the reference's stale windows (--sync-rate). The
 "block" schedule (the port's ``auto``) keeps the JAX sampler's one-time
@@ -39,11 +47,13 @@ from hydra_tpu_torch.data.genotypes import Dataset, shard_layout
 from hydra_tpu_torch.ops.decode import crumbs, hpack_bytes
 from hydra_tpu_torch.ops.sweep_kernel import K_MAX, W_MAX, block_order
 from hydra_tpu_torch.ops.sweep_kernel_bw import (EULER_MASCHERONI, Q_MAX,
-                                                 bw_mrow_width,
+                                                 _draw, bw_mrow_width,
                                                  sweep_stale_bw)
+from hydra_tpu_torch.ops.window_kernels import window_axpy, window_level_sums
 from hydra_tpu_torch.samplers.bayesrrm import resolve_device
 from hydra_tpu_torch.utils import dist
-from hydra_tpu_torch.utils.slice_sampler import (N_SHRINK, slice_noise,
+from hydra_tpu_torch.utils.slice_sampler import (N_EXPAND, N_SHRINK,
+                                                 slice_noise,
                                                  slice_sample,
                                                  slice_sample_noise)
 
@@ -83,6 +93,7 @@ class BayesWConfig:
     schedule: str             # "block" | "marker"
     complete: bool            # no missing genotypes among real individuals
     n_cov: int = 0            # covariates (fixed effects)
+    per_window: bool = False  # mega="off": the per-window branch
 
     @property
     def n_windows(self) -> int:
@@ -133,9 +144,11 @@ class BayesW:
 
     def __init__(self, dataset: Dataset, *, window: int = 1,
                  shuffle: bool = True, seed: int = 0, quad_points: int = 25,
-                 schedule: str = "auto", device="cuda",
+                 schedule: str = "auto", mega: str = "auto", device="cuda",
                  packed_device: Optional[torch.Tensor] = None):
-        """packed_device: the genotypes already h-packed on the device,
+        """mega: "off" takes the per-window branch ("auto"/"on": the
+        whole-sweep kernel). packed_device: the genotypes already h-packed on
+        the device,
         (M, NB) uint8 in marker order, for data generated there; then
         ``dataset.geno`` supplies only n, n_pad and the marker statistics."""
         if dataset.fail is None:
@@ -156,11 +169,15 @@ class BayesW:
         if schedule not in ("auto", "marker", "block"):
             raise ValueError(f"schedule must be auto/marker/block, "
                              f"got {schedule!r}")
+        if mega not in ("auto", "on", "off"):
+            raise ValueError(f"mega must be auto/on/off, got {mega!r}")
         # auto follows the JAX sampler's rule (hydra_tpu/samplers/bayesw.py:
         # 593-611): block where its whole-sweep kernel runs (W >= 8 or
-        # W = 1), marker otherwise; its TPU memory gates are not copied
+        # W = 1, mega not off), marker otherwise; its TPU memory gates are
+        # not copied
         if schedule == "auto":
-            schedule = "block" if window >= 8 or window == 1 else "marker"
+            schedule = ("block" if (window >= 8 or window == 1)
+                        and mega != "off" else "marker")
         if schedule == "block":
             print("INFO   : BayesW block schedule (the whole-sweep kernel "
                   "reads windows in place; --schedule marker restores the "
@@ -172,7 +189,8 @@ class BayesW:
             window=window, k=K, num_groups=dataset.num_groups,
             quad_n=quad_points, shuffle=shuffle, schedule=schedule,
             complete=bool(geno.nm_global_sum == 0),
-            n_cov=0 if dataset.X is None else int(dataset.X.shape[1]))
+            n_cov=0 if dataset.X is None else int(dataset.X.shape[1]),
+            per_window=mega == "off")
         nb = (geno.packed if packed_device is None else packed_device).shape[1]
         if self.device.type == "cuda":
             self._check_memory(nb)
@@ -458,10 +476,13 @@ class BayesW:
         vi = torch.exp(alpha * eps - EULER_MASCHERONI) * mask
         order = self.sweep_order(it, noise)
         mrow = self.build_mrow(state, alpha, self.slot_noise(it, noise))
-        eps, out = sweep_stale_bw(
-            self.packed, eps.contiguous(), vi.contiguous(), mrow, self.gh_x,
-            self.gh_w, alpha, window=cfg.window, n_mix=cfg.k,
-            complete=cfg.complete, ind_mask=mask, order=order)
+        if cfg.per_window:
+            eps, out = self.window_sweep(eps, vi, mrow, order, alpha)
+        else:
+            eps, out = sweep_stale_bw(
+                self.packed, eps.contiguous(), vi.contiguous(), mrow,
+                self.gh_x, self.gh_w, alpha, window=cfg.window, n_mix=cfg.k,
+                complete=cfg.complete, ind_mask=mask, order=order)
         beta = out[:, 0].contiguous()
         comps = out[:, 1].to(torch.int32)
 
@@ -484,6 +505,41 @@ class BayesW:
                           alpha=alpha, sigma_g=sigma_g, pi_l=pi_l,
                           gamma=gamma)
         return new, BayesWStats(m0=m0, cass=cass, beta_sqn=beta_sqn)
+
+    def window_sweep(self, eps: torch.Tensor, vi: torch.Tensor,
+                     mrow: torch.Tensor, order: torch.Tensor,
+                     alpha: torch.Tensor):
+        """The per-window branch (the JAX ``window_body``, bayesw.py:
+        279-423): per window of slots ``order[w W:(w + 1) W]``, the level
+        sums of vi (window_level_sums), the draw from the window's mrow
+        rows (torch ops), the residual axpy (window_axpy; complete data
+        (axpy + sum(c2)) * mask) and vi = exp(alpha eps - EuMasc) * mask.
+        Nothing syncs with the host. Returns (eps', out (m_loc, 4)) as
+        sweep_stale_bw does."""
+        cfg, mask = self.cfg, self.ind_mask
+        W = cfg.window
+        out = torch.zeros((cfg.m_loc, 4), dtype=f32, device=self.device)
+        for w in range(cfg.n_windows):
+            rows = order[w * W:(w + 1) * W]
+            slots = rows.to(torch.int64)
+            r = mrow[slots]
+            s1, s2, sb = window_level_sums(self.packed, vi, cfg.complete,
+                                           rows=rows)
+            bnew, comp, dbeta = _draw(r, s1, s2, sb, vi.sum(), self.gh_x,
+                                      self.gh_w, alpha, cfg.k, cfg.complete,
+                                      N_EXPAND, N_SHRINK)
+            c1 = dbeta * r[:, 1]
+            c2 = -c1 * r[:, 0]
+            if cfg.complete:
+                d_eps = (window_axpy(self.packed, c1, c2, True, rows)
+                         + c2.sum()) * mask
+            else:
+                d_eps = window_axpy(self.packed, c1, c2, False, rows)
+            eps = eps + d_eps
+            vi = torch.exp(alpha * eps - EULER_MASCHERONI) * mask
+            out[slots] = torch.stack([bnew, comp, dbeta,
+                                      torch.zeros_like(bnew)], dim=1)
+        return eps, out
 
     def cov_sweep(self, eps: torch.Tensor, alpha: torch.Tensor,
                   gamma: torch.Tensor, it: int, noise: dict):

@@ -193,9 +193,9 @@ def test_chain_is_deterministic_in_seed():
 
 
 def test_small_window_is_not_ported():
-    """Single-trait windows below 8 now run (the whole-sweep kernels take
-    every W, on the marker schedule the JAX sampler resolves for them);
-    multi-trait windows below 8 are still not ported."""
+    """Windows below 8 run, single-trait and multi-trait alike (the
+    whole-sweep kernels take every W, on the marker schedule the JAX
+    sampler resolves for them)."""
     from hydra_tpu_torch.samplers.bayesrrm_mt import BayesRRmMT
 
     ds, _, _ = simulate(m=64, n=200, h2=0.5, seed=2)
@@ -203,5 +203,9 @@ def test_small_window_is_not_ported():
     assert s.cfg.schedule == "marker" and not s.cfg.per_window
     st, stats = s.run(2)
     assert np.isfinite(st.eps.numpy()).all() and int(stats.m0.sum()) > 0
-    with pytest.raises(NotImplementedError, match="window"):
-        BayesRRmMT(ds, np.stack([ds.y, ds.y]), window=4, device="cpu")
+    mt = BayesRRmMT(ds, np.stack([ds.y, ds.y]), window=4, device="cpu")
+    assert mt.cfg.schedule == "marker" and mt.cfg.exact
+    st = mt.init_state()
+    for it in range(2):
+        st, stats = mt.step(st, it)
+    assert np.isfinite(st.eps.numpy()).all() and int(stats.m0.sum()) > 0

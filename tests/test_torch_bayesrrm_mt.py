@@ -277,10 +277,3 @@ def test_window_gram_matches_plain_product(na_frac):
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
                                atol=1e-3)
 
-
-def test_unported_paths_raise():
-    """Multi-trait windows below 8 are not ported (covariates are:
-    tests/test_torch_covariates.py)."""
-    ds, phenos, _ = simulate_mt(m=32, n=200, n_traits=2, seed=2)
-    with pytest.raises(NotImplementedError, match="window"):
-        BayesRRmMT(ds, phenos, window=4, device="cpu")

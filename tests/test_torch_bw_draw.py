@@ -15,7 +15,9 @@ le = -1 (an empty slice: the shrink budget runs out, x = bold), le = 50
 and a vanishing sigmaG (stepping out stopped by the bounds lower/upper),
 and the usual first-shrink acceptance.
 K in {2, 4, 16}, Q in {1, 25, 64}, (n_expand, n_shrink) in {(0, 0), (0,
-24), (10, 1), (10, 24)}, complete and missing genotypes.
+24), (10, 1), (10, 24)}, complete and missing genotypes. The draw's slice
+step (``slice_sample_rounds``, three rounds of density evaluations) is held
+bit for bit to the fixed-budget ``slice_sample_noise`` on the same inputs.
 
 This file imports neither JAX nor the JAX package.
 """
@@ -26,6 +28,8 @@ import torch
 
 from hydra_tpu_torch.ops import sweep_kernel_bw as tskbw
 from hydra_tpu_torch.samplers.bayesw import gh_table
+from hydra_tpu_torch.utils.slice_sampler import (slice_sample_noise,
+                                                 slice_sample_rounds)
 
 # one intra-op thread: the suite runs in parallel worker processes, and
 # torch's default thread pool in each of them oversubscribes the CPU
@@ -125,3 +129,29 @@ def test_early_exit_draw_matches_window_draw(K, Q, n_expand, n_shrink,
         assert any(i["left_at_lower"] or i["right_at_upper"] for i in sliced)
         assert any(i["left_steps"] < n_expand and not i["left_at_lower"]
                    for i in sliced)
+
+
+@pytest.mark.parametrize("complete", [True, False])
+@pytest.mark.parametrize("n_expand,n_shrink", [(0, 0), (10, 1), (10, 24)])
+@pytest.mark.parametrize("K", [2, 4, 16])
+def test_rounds_draw_matches_window_draw(K, n_expand, n_shrink, complete,
+                                         monkeypatch):
+    """The draw's slice step (``slice_sample_rounds``: the density in three
+    rounds) against the fixed-budget transition ``slice_sample_noise`` on
+    the same density, noise and bounds as ``_draw`` hands it, on markers of
+    every branch: bit for bit."""
+    rows, s1, s2, sb, s_all, gh_x, gh_w, alpha = draw_inputs(
+        K, 25, n_shrink, complete, seed=K * 100 + n_shrink)
+    calls = []
+
+    def recorded(*a, **k):
+        x = slice_sample_rounds(*a, **k)
+        calls.append((a, k, x))
+        return x
+
+    monkeypatch.setattr(tskbw, "slice_sample_rounds", recorded)
+    tskbw._draw(rows, s1, s2, sb, s_all, gh_x, gh_w, alpha, K, complete,
+                n_expand, n_shrink)
+    (a, k, got), = calls
+    want = slice_sample_noise(*a, **k)
+    assert torch.equal(_bits(got), _bits(want))

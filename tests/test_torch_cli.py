@@ -2,8 +2,9 @@
 whole-sweep and per-window branches, windows below 8, the single-decode
 stale sweep), BayesFH and BayesW, runs with JAX and the JAX package
 absent (a restart with covariates among them), and NotImplementedError for
-every path the port does not have. Restarts and covariates are
-tests/test_torch_restart.py's."""
+more than one device. Restarts and covariates are
+tests/test_torch_restart.py's; sparse input, --bed-to-sparse, --check-RAM
+and the port's up-front limits are tests/test_torch_host_paths.py's."""
 
 import json
 import os
@@ -196,8 +197,7 @@ def test_cli_mt_writes_per_trait_outputs(bed, tmp_path, extra, na_frac,
         assert np.isfinite(rd.eps).all() and len(rd.eps) == N
 
 
-@pytest.mark.parametrize("extra", [["--window", "4"],
-                                   ["--n-devices", "2"], ["--mega", "off"]])
+@pytest.mark.parametrize("extra", [["--n-devices", "2"]])
 def test_cli_mt_unsupported_paths_raise(bed, tmp_path, extra):
     phen = write_mt_phenos(bed, 2, 0.0, seed=1)
     with pytest.raises(NotImplementedError, match="multi-trait"):
@@ -250,11 +250,7 @@ def test_cli_runs_without_jax(bed, bw_bed, tmp_path):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--check-RAM"],
-    ["--bed-to-sparse"],
-    ["--dtype", "float64"],
     ["--n-devices", "2"],
-    ["--mpibayes", "bayesWMPI", "--mega", "off"],
 ])
 def test_cli_unsupported_paths_raise(bed, tmp_path, extra):
     with pytest.raises(NotImplementedError, match="not ported"):
@@ -371,9 +367,9 @@ def test_cli_fh_and_sd_write_outputs(fh_bed, tmp_path, monkeypatch, extra,
                                      sd, schedule, per_window):
     """BayesFH on each branch and the single-decode stale sweep
     (HYDRA_TPU_SD) through the CLI: hydra outputs, the FH state in
-    .fh.npz (marker order) and the schedule in .rng.0. On the CPU the
-    wrappers run their plain versions, so no launch is counted; the
-    sampler's branch is checked instead."""
+    .fh.npz (marker order, with its iteration) and the schedule in .rng.0.
+    On the CPU the wrappers run their plain versions, so no launch is
+    counted; the sampler's branch is checked instead."""
     from hydra_tpu_torch import runner
     monkeypatch.setenv("HYDRA_TPU_SD", sd)
     seen = {}
@@ -403,18 +399,12 @@ def test_cli_fh_and_sd_write_outputs(fh_bed, tmp_path, monkeypatch, extra,
     assert os.path.exists(base + ".fh.npz") == fh
     if fh:
         st = np.load(base + ".fh.npz")
-        assert sorted(st.files) == ["c_slab", "hyp_tau", "lambda_var",
-                                    "nu_var", "tau"]
+        assert sorted(st.files) == ["c_slab", "hyp_tau", "iteration",
+                                    "lambda_var", "nu_var", "tau"]
+        assert int(st["iteration"]) == 10
         assert st["lambda_var"].shape == st["nu_var"].shape == (M,)
         assert np.all(st["lambda_var"] > 0) and np.all(st["nu_var"] > 0)
         assert st["c_slab"].shape == (1,) and float(st["tau"]) > 0
-
-
-def test_cli_covariates_and_sparse_raise(bed, tmp_path):
-    """Sparse input is not ported; covariates are (test_torch_restart.py)."""
-    with pytest.raises(NotImplementedError, match="sparse"):
-        cli.main(["--device", "cpu", *_argv(bed, tmp_path / "x"),
-                  "--sparse-dir", str(tmp_path), "--sparse-basename", "s"])
 
 
 def test_cuda_request_without_card_raises(bed, tmp_path):

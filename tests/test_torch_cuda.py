@@ -1237,7 +1237,8 @@ def test_cuda_stream_kernels_bitwise(path, window, nb, missing):
     levels_kernel (7, 200); nb = 128 is the smallest width the kernels
     take, 640 ends in half a 512-byte tile, 12,544 is N=50,000 (24.5
     tiles). window_axpy, window_stats and window_level_sums against their
-    plain versions (complete data: but the pad individuals' and pad rows'
+    plain versions (window_level_sums on gathered rows and on rows read in
+    place through ``rows``) (complete data: but the pad individuals' and pad rows'
     h = 3 products, which the plain version rounds and the kernel fuses;
     window_level_sums' s2 takes h = 3 as 1 and stays bit for bit there);
     the sweeps' eps against the plain axpy replayed from the kernel's own
@@ -1289,7 +1290,11 @@ def test_cuda_stream_kernels_bitwise(path, window, nb, missing):
         got = twk.window_level_sums(pk_w, vi, complete)
         again = twk.window_level_sums(pk_w, vi, complete)
         want = twk.window_level_sums_ref(pk_w, vi, complete)
+        # the rows read in place (BayesW --mega off) as the gathered ones
+        via = twk.window_level_sums(pk, vi, complete, rows)
         torch.cuda.synchronize()
+        for a, v in zip(got, via):
+            assert (a is None and v is None) or torch.equal(a, v)
         real = mrow[rows.long(), 1] != 0.0          # not a pad row
         for i, (a, a2, r) in enumerate(zip(got, again, want)):
             assert (a is None) == (r is None)
