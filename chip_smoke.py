@@ -129,6 +129,27 @@ Restart and covariates (--restart, --covariates):
      36, a --restart in another child (seconds from its start to its first
      sweep), and every record after the restart byte for byte the
      uninterrupted run's.
+Marker shards (one torch.distributed rank a shard, rank children started
+by scripts/run_multiprocess_torch.py, ``chip_smoke.py --rank-child``):
+  3h. on phase 3's and 3b's beds: the BayesRRm CLI, exact and --stale, 20
+     iterations, on one rank under an NCCL process group, byte for byte the
+     run without a group; two ranks on the one card (gloo on CUDA tensors:
+     NCCL refuses two ranks on one device): one sweep of exact W=64
+     --cross-sync 8, exact W=64, stale W=64 and BayesW W=64 by the CUDA
+     sampler against the same two ranks' CPU sampler on the same state and
+     noise (components equal, eps and beta within phase 3's tolerance, eps
+     the same bits on both ranks, each wrapper launched once a window); a
+     stale W=64 --det-sync chain of 25 sweeps twice, bit for bit; a
+     BayesW chain (8 sweeps), its wrappers' launches; the chain again with
+     rank 1 SIGKILLed once its csv shows iteration 10 (beside the one-rank
+     run, both started at once), a
+     --restart, and every later record byte for byte the uninterrupted
+     chain's (compare_runs); then one stale W=64 shard sweep at M=100,000 x
+     N=50,000 (50,000 markers a rank, made on the card) after one warm-up:
+     ms/sweep by CUDA events and the time in all_reduce a sweep, printed as
+     two ranks sharing one card, not a multi-GPU speed. One two-rank launch
+     runs the restart, the sweeps, the chains and the timed sweep; the last
+     two wait until the one-rank run is done.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Any failure raises before those lines. JAX
 and the JAX package are blocked: the port must run without them.
@@ -4207,11 +4228,422 @@ def phase_new_paths_real_size(torch, np, card, m_profile=10_000):
     del pk
 
 
+
+# ---- phase 3h: marker shards, one torch.distributed rank a shard ---------
+
+# (case, model, flags, the wrappers a window of the CUDA sweep launches)
+SHARD_SWEEPS = (("exact_cs8", "brr", ("--window", "64", "--cross-sync", "8"),
+                 ("window_stats", "window_axpy")),
+                ("exact_w64", "brr", ("--window", "64"), ("sweep_exact",)),
+                ("stale_w64", "brr", ("--stale", "--window", "64"),
+                 ("sweep_stale",)),
+                ("bw_w64", "bw", ("--window", "64"), ("sweep_stale_bw",)))
+SHARD_CHAIN = dict(iters=25, kill_at=10,
+                   extra=("--stale", "--window", "64", "--det-sync", "1"))
+# CLI chains through the ranks: (case, model, flags, sweeps, the wrappers
+# that must launch). No --cross-sync chain: ~7 s a sweep on two ranks
+# sharing the card (gloo stages each of its ~870 collectives a sweep via
+# the host); its sweep check shows its launches
+SHARD_LAUNCHED = (("bw_w64", "bw", ("--window", "64", "--det-sync", "1"), 8,
+                   ("sweep_stale_bw",)),)
+SHARD_REAL = dict(m=100_000, n=50_000, window=64, warmup=1, sweeps=1)
+SHARD_FILES = (".csv", ".bet", ".cpn", ".acu", ".eps.0", ".mus.0", ".mrk.0",
+               ".xbet", ".xcpn", ".rng.0")
+SHARD_TIMEOUT = 240
+
+
+def shard_argv(tmp, model, name, iters, extra, restart=False):
+    """CLI arguments of a phase-3h run on phase 3's or 3b's bed (thin 5,
+    save 10, seed 7), its outputs in <tmp>/out_shards."""
+    bed = "weibull_M10K_N_5K" if model == "bw" else "t_M10K_N_5K"
+    argv = restart_argv(tmp, bed, model, name, iters, False, extra,
+                        restart=restart)
+    argv[argv.index("--mcmc-out-dir") + 1] = os.path.join(tmp, "out_shards")
+    return argv
+
+
+def shard_sweeps(torch, np, tmp):
+    """On each rank, one sweep of every SHARD_SWEEPS case by the CUDA
+    sampler and by the CPU sampler of the same two shards, on the same
+    state and noise (made on the CPU from one seed, the sweep order from a
+    seed a rank): both ranks' samplers sum over the same gloo group.
+    Returns, by case, the CUDA sweep's differences and wrapper launches
+    and the SHA-256 of its eps (the same on every rank)."""
+    from hydra_tpu_torch.options import parse_args
+    from hydra_tpu_torch.parallel import distributed
+    from hydra_tpu_torch.runner import dataset_from_options
+    from hydra_tpu_torch.samplers import bayesrrm, bayesw
+    from hydra_tpu_torch.utils.slice_sampler import N_SHRINK, slice_noise
+    r, n_dev = distributed.rank(), distributed.world_size()
+    dev = distributed.rank_device()
+    out = {}
+    for name, model, extra, _ in SHARD_SWEEPS:
+        opt = parse_args(shard_argv(tmp, model, name, 1, extra))
+        ds = dataset_from_options(opt)
+        mod = bayesw if model == "bw" else bayesrrm
+
+        def make(device):
+            if model == "bw":
+                return bayesw.BayesW(ds, window=opt.window, seed=7,
+                                     device=device, n_dev=n_dev, rank=r)
+            return bayesrrm.BayesRRm(ds, window=opt.window, exact=opt.exact,
+                                     seed=7, cross_sync=opt.cross_sync,
+                                     device=device, n_dev=n_dev, rank=r)
+
+        cpu, gpu = make("cpu"), make(dev)
+        g = torch.Generator().manual_seed(5)
+        m_glob = cpu.cfg.m_glob
+        if model == "bw":
+            le, ub, uu = slice_noise(g, (m_glob,), N_SHRINK, "cpu")
+            noise = dict(u=torch.rand(m_glob, generator=g), le=le, ub=ub,
+                         uu=uu.T.contiguous(),
+                         mu=slice_noise(g, (), N_SHRINK, "cpu"),
+                         alpha=slice_noise(g, (), N_SHRINK, "cpu"))
+        else:
+            noise = dict(mu=torch.randn((), generator=g),
+                         u=torch.rand(m_glob, generator=g),
+                         nrm=torch.randn(m_glob, generator=g))
+        noise["perm"] = torch.randperm(
+            cpu.cfg.m_loc, generator=torch.Generator().manual_seed(11 + r))
+        s_cpu = cpu.init_state()
+        s_gpu = mod.state_from_numpy(mod.state_to_numpy(s_cpu), dev)
+        t0 = time.perf_counter()
+        a, _ = cpu.step(s_cpu, 0, noise=noise)
+        t1 = time.perf_counter()
+        reset_all_launches()
+        b, _ = gpu.step(s_gpu, 0, noise=noise)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        launches = {k: v for k, v in all_launches().items() if v}
+        a, b = mod.state_to_numpy(a), mod.state_to_numpy(b)
+        np.testing.assert_allclose(b["eps"], a["eps"], atol=5e-4, rtol=1e-3)
+        np.testing.assert_allclose(b["beta"], a["beta"], atol=5e-4,
+                                   rtol=1e-3)
+        out[name] = dict(
+            d_eps=float(np.abs(a["eps"] - b["eps"]).max()),
+            d_beta=float(np.abs(a["beta"] - b["beta"]).max()),
+            comp_mismatches=int((a["components"] != b["components"]).sum()),
+            n_windows=gpu.cfg.n_windows, launches=launches,
+            cpu_s=t1 - t0, cuda_s=t2 - t1,
+            eps_sha=hashlib.sha256(b["eps"].tobytes()).hexdigest())
+    return out
+
+
+def shard_real_size(torch, np):
+    """This rank's shard of M=100,000 x N=50,000 stale W=64 (genotypes
+    made on the card from a seed a rank): after the warm-up, ms a sweep by
+    CUDA events, then as many sweeps with each all_reduce of the sampler
+    timed alone (synchronized before and after)."""
+    from hydra_tpu_torch.data.genotypes import (Dataset, GenotypeData,
+                                                make_default_groups,
+                                                shard_layout)
+    from hydra_tpu_torch.parallel import distributed
+    from hydra_tpu_torch.samplers.bayesrrm import BayesRRm
+    r, n_dev = distributed.rank(), distributed.world_size()
+    dev = distributed.rank_device()
+    m, n, W = SHARD_REAL["m"], SHARD_REAL["n"], SHARD_REAL["window"]
+    starts, lengths, _ = shard_layout(m, n_dev, W)
+    s, ln = int(starts[r]), int(lengths[r])
+    n_pad = padded_individuals(np, n)
+    gen = torch.Generator(device=dev).manual_seed(2 + r)
+    pk, mave, mstd, nm = device_genotypes(torch, ln, n, n_pad, gen)
+    mave_h, mstd_h = mave.cpu().numpy(), mstd.cpu().numpy()
+    geno = GenotypeData(
+        packed=np.zeros((0, n_pad // 4), np.uint8), n=n, n_pad=n_pad, m=ln,
+        mave=mave_h, mstd=mstd_h, msd=1.0 / mstd_h, n1=None, n2=None,
+        nm=nm.cpu().numpy(), marker_offset=s, m_tot=m,
+        nm_tot=distributed.allreduce_host_sum(float(nm.sum())))
+    groups, mS = make_default_groups(m, list(MS[1:]))
+    ds = Dataset(geno=geno, y=np.random.RandomState(0).randn(n),
+                 groups=groups, num_groups=1, mS=mS)
+    smp = BayesRRm(ds, window=W, exact=False, seed=1, device=dev,
+                   packed_device=pk, n_dev=n_dev, rank=r)
+    st = smp.init_state()
+    k, w = SHARD_REAL["sweeps"], SHARD_REAL["warmup"]
+    reset_all_launches()
+    with step_events(torch) as pairs:
+        for it in range(w + k):
+            st, _ = smp.step(st, it)
+    ms = events_ms(torch, pairs, skip=w)
+    launches = all_launches()["sweep_stale"] / (w + k)
+    calls, spent = [0], [0.0]
+    plain = smp._sum
+
+    def timed(v):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        res = plain(v)
+        torch.cuda.synchronize(dev)
+        spent[0] += time.perf_counter() - t0
+        calls[0] += 1
+        return res
+
+    smp._sum = timed
+    t0 = time.perf_counter()
+    for it in range(w + k, w + 2 * k):
+        st, _ = smp.step(st, it)
+    torch.cuda.synchronize(dev)
+    wall = (time.perf_counter() - t0) / k * 1e3
+    if not bool(torch.isfinite(st.eps).all()):
+        raise AssertionError("non-finite residual on marker shards")
+    return dict(ms=ms, allreduce_ms=spent[0] / k * 1e3,
+                allreduce_calls=calls[0] / k, timed_wall_ms=wall,
+                sweep_stale_per_sweep=launches, n_windows=smp.cfg.n_windows,
+                markers=ln, eps_sha=hashlib.sha256(
+                    st.eps.cpu().numpy().tobytes()).hexdigest())
+
+
+def rank_child(args):
+    """One rank of phase 3h (``chip_smoke.py --rank-child JSON``, started
+    by scripts/run_multiprocess_torch.py): the process group from the
+    launcher's environment, then its tasks in order ("cli": CLI runs
+    through the CLI's body, ``cli._run``, with each run's wrapper
+    launches; "sweeps": shard_sweeps; "wait": until the file ``path``
+    exists, so what follows has the card to itself; "real":
+    shard_real_size), the results, with each task's seconds, in
+    <out>/rank<r>.json."""
+    sys.path.insert(0, REPO)
+    import numpy as np
+    import torch
+    from hydra_tpu_torch import cli
+    from hydra_tpu_torch.options import parse_args
+    from hydra_tpu_torch.parallel import distributed
+    torch.backends.cuda.matmul.allow_tf32 = False
+    distributed.init_distributed()
+    res = dict(rank=distributed.rank(), world=distributed.world_size(),
+               backend=distributed.backend(),
+               device=str(distributed.rank_device()), cli=[], seconds=[])
+    try:
+        for task in args["tasks"]:
+            t_task = time.perf_counter()
+            if task["kind"] == "wait":
+                deadline = time.time() + SHARD_TIMEOUT
+                while not os.path.exists(task["path"]):
+                    if time.time() > deadline:
+                        raise TimeoutError(f"no {task['path']}")
+                    time.sleep(0.05)
+            elif task["kind"] == "cli":
+                for argv in task["argvs"]:
+                    reset_all_launches()
+                    t0 = time.perf_counter()
+                    rc = cli._run(parse_args(argv))
+                    torch.cuda.synchronize()
+                    res["cli"].append(dict(
+                        rc=rc, seconds=time.perf_counter() - t0,
+                        launches={k: v for k, v in all_launches().items()
+                                  if v}))
+            elif task["kind"] == "sweeps":
+                res["sweeps"] = shard_sweeps(torch, np, task["tmp"])
+            else:
+                res["real"] = shard_real_size(torch, np)
+            res["seconds"].append(
+                (task.get("label", task["kind"]),
+                 time.perf_counter() - t_task))
+    finally:
+        distributed.destroy()
+    with open(os.path.join(args["out"], f"rank{res['rank']}.json"),
+              "w") as fh:
+        json.dump(res, fh)
+    return 0
+
+
+def start_ranks(tmp, label, nprocs, tasks, backend, same_device=False):
+    """Start ``nprocs`` rank children on their tasks (rank_child);
+    returns the run for kill_rank1 / finish_ranks."""
+    from scripts import run_multiprocess_torch as mp
+    out = os.path.join(tmp, f"ranks_{label}")
+    os.makedirs(out)
+    procs = mp.launch(nprocs, [json.dumps(dict(tasks=tasks, out=out))],
+                      device="cuda", backend=backend, same_device=same_device,
+                      stdout_dir=out, command=[sys.executable,
+                                               os.path.join(REPO,
+                                                            "chip_smoke.py"),
+                                               "--rank-child"])
+    return dict(label=label, out=out, procs=procs, backend=backend,
+                t0=time.perf_counter())
+
+
+def kill_rank1(run, csv, at):
+    """SIGKILL rank 1 of ``run`` once ``csv`` shows iteration ``at``; the
+    other ranks go with it (wait_all)."""
+    from scripts import run_multiprocess_torch as mp
+    procs = run["procs"]
+    deadline, killed, rows = time.time() + SHARD_TIMEOUT, False, []
+    while time.time() < deadline and not killed:
+        if all(p.poll() is not None for p in procs):
+            break
+        rows = ([ln for ln in open(csv) if ln.strip()]
+                if os.path.exists(csv) else [])
+        if rows and int(rows[-1].split(",")[0]) >= at:
+            procs[1].kill()
+            killed = True
+        time.sleep(0.01)
+    mp.wait_all(procs, timeout=60)
+    if not killed:
+        raise AssertionError(f"{run['label']}: the chain ended before the "
+                             "kill")
+    print(f"{run['label']}: rank 1 SIGKILLed at csv iteration "
+          f"{int(rows[-1].split(',')[0])}", flush=True)
+
+
+def finish_ranks(run):
+    """Wait for ``run``'s ranks (SHARD_TIMEOUT); raise unless every one
+    exits 0; return their results."""
+    from scripts import run_multiprocess_torch as mp
+    n = len(run["procs"])
+    codes = mp.wait_all(run["procs"], timeout=SHARD_TIMEOUT)
+    if codes != [0] * n:
+        logs = "".join(open(os.path.join(run["out"], f"rank{r}.log")).read()
+                       [-3000:] for r in range(n))
+        raise AssertionError(f"{run['label']}: rank exit codes {codes}\n"
+                             f"{logs}")
+    print(f"{run['label']}: {n} rank(s), {run['backend']}, "
+          f"{time.perf_counter() - run['t0']:.1f} s from launch to exit",
+          flush=True)
+    return [json.load(open(os.path.join(run["out"], f"rank{r}.json")))
+            for r in range(n)]
+
+
+def same_files(a, b):
+    """Names of SHARD_FILES whose bytes differ between output bases a, b."""
+    return [ext for ext in SHARD_FILES
+            if open(a + ext, "rb").read() != open(b + ext, "rb").read()]
+
+
+def phase_shards(torch, np, tmp, card):
+    """Marker shards, one torch.distributed rank a shard (rank children
+    through scripts/run_multiprocess_torch.py): the BayesRRm CLI, exact and
+    --stale, on one rank under an NCCL group, byte for byte the run without
+    a group; two ranks on the one card (gloo on CUDA tensors, NCCL refuses
+    two ranks on a device): one sweep of exact W=64 --cross-sync 8, exact
+    W=64, stale W=64 and BayesW W=64 against the same two ranks' CPU sweep,
+    a stale W=64 --det-sync chain twice (bit for bit), a BayesW chain with
+    its wrappers' launches, the chain with rank 1 SIGKILLed and
+    --restart'ed (byte for byte), and one M=100,000 x N=50,000 stale W=64
+    shard sweep timed. The one-rank run and the chain to be killed run at
+    once; then one two-rank launch takes the restart and the sweeps beside
+    the one-rank run's tail, waits until that run is checked, and runs the
+    chains and the timed sweep with the card to itself."""
+    from hydra_tpu_torch import cli
+    from scripts import soak_restart_torch as soak
+    out = os.path.join(tmp, "out_shards")
+    ch = SHARD_CHAIN
+    plain = [shard_argv(tmp, "brr", f"d1_{k}", 20, extra)
+             for k, extra in (("exact", ()), ("stale", ("--stale",)))]
+    grouped = [[a.replace("d1_", "d1g_") for a in argv] for argv in plain]
+    d1 = start_ranks(tmp, "d1_nccl", 1, [dict(kind="cli", argvs=grouped)],
+                     "nccl")
+    killed = shard_argv(tmp, "brr", "d2_k", ch["iters"], ch["extra"])
+    try:
+        kill_rank1(start_ranks(tmp, "d2_kill", 2,
+                               [dict(kind="cli", argvs=[killed])], "gloo",
+                               same_device=True),
+                   os.path.join(out, "d2_k.csv"), ch["kill_at"])
+    except BaseException:
+        for p in d1["procs"]:
+            p.kill()
+        raise
+    # one launch: the restart and the CUDA-against-CPU sweeps beside the
+    # one-rank run, then (once that run is checked) the chains and the
+    # timed sweep alone on the card
+    chain = [shard_argv(tmp, "brr", f"d2_{k}", ch["iters"], ch["extra"])
+             for k in ("a", "b")]
+    launched = [shard_argv(tmp, model, f"d2_{name}", iters, extra)
+                for name, model, extra, iters, _ in SHARD_LAUNCHED]
+    gate = os.path.join(tmp, "d1_checked")
+    d2 = start_ranks(tmp, "d2_gloo", 2, [
+        dict(kind="cli", label="restart", argvs=[shard_argv(
+            tmp, "brr", "d2_k", ch["iters"], ch["extra"], restart=True)]),
+        dict(kind="sweeps", tmp=tmp), dict(kind="wait", path=gate),
+        dict(kind="cli", label="chains", argvs=chain + launched),
+        dict(kind="real")], "gloo", same_device=True)
+    try:
+        for argv in plain:
+            if cli.main(argv) != 0:
+                raise AssertionError("one-device CLI run failed")
+        (r0,) = finish_ranks(d1)
+        for k in ("exact", "stale"):
+            bad = same_files(os.path.join(out, f"d1_{k}"),
+                             os.path.join(out, f"d1g_{k}"))
+            if bad:
+                raise AssertionError(f"one rank under NCCL, {k}: {bad} "
+                                     "differ from the run without a process "
+                                     "group")
+    except BaseException:
+        for p in d1["procs"] + d2["procs"]:
+            p.kill()
+        raise
+    print(f"one rank under NCCL ({r0['backend']}, {r0['device']}): exact and"
+          f" --stale CLI outputs byte for byte the run without a group; "
+          f"launches {r0['cli'][0]['launches']}, {r0['cli'][1]['launches']}",
+          flush=True)
+    open(gate, "w").close()
+    ranks = finish_ranks(d2)
+    print("two ranks, seconds a task (rank 0): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in ranks[0]["seconds"]), flush=True)
+    for name, _, _, kernels in SHARD_SWEEPS:
+        rs = [rk["sweeps"][name] for rk in ranks]
+        if len({r["eps_sha"] for r in rs}) != 1:
+            raise AssertionError(f"{name}: the ranks' CUDA eps differ")
+        if any(r["comp_mismatches"] for r in rs):
+            raise AssertionError(f"{name}: components differ, CUDA vs CPU")
+        for r in rs:
+            if any(r["launches"].get(k) != r["n_windows"] for k in kernels):
+                raise AssertionError(f"{name}: launches {r['launches']}, "
+                                     f"want {kernels} once a window")
+        print(f"two ranks, one {name} sweep CUDA vs CPU: max|d eps| "
+              f"{max(r['d_eps'] for r in rs):.3e}  max|d beta| "
+              f"{max(r['d_beta'] for r in rs):.3e}  comp mismatches 0, "
+              f"eps the same bits on both ranks; rank 0 launches "
+              f"{rs[0]['launches']} ({rs[0]['n_windows']} windows); rank 0 "
+              f"CPU sweep {rs[0]['cpu_s']:.1f} s, CUDA {rs[0]['cuda_s']:.1f} s",
+              flush=True)
+    bad = same_files(os.path.join(out, "d2_a"), os.path.join(out, "d2_b"))
+    if bad:
+        raise AssertionError(f"two-rank --det-sync chain not repeatable: "
+                             f"{bad}")
+    h2 = check_outputs(np, os.path.join(out, "d2_a"), 10_000,
+                       ch["iters"] // 5)
+    print(f"two-rank --det-sync stale W=64 chain ({ch['iters']} sweeps) bit "
+          f"for bit repeatable, mean h2 over the last half {h2:.4f}; "
+          f"{ranks[0]['cli'][1]['seconds']:.1f} s", flush=True)
+    for (name, _, _, iters, kernels), run in zip(SHARD_LAUNCHED,
+                                                 ranks[0]["cli"][3:]):
+        if any(run["launches"].get(k, 0) <= 0 for k in kernels):
+            raise AssertionError(f"two-rank {name} chain launched "
+                                 f"{run['launches']}, want {kernels}")
+        print(f"two-rank {name} chain ({iters} sweeps): rank 0 launches "
+              f"{run['launches']}, {run['seconds']:.1f} s", flush=True)
+    its = soak.compare_runs(os.path.join(out, "d2_a"),
+                            os.path.join(out, "d2_k_rs"), 10_000)
+    print(f"two ranks, rank 1 SIGKILLed and --restart'ed: csv rows, .bet, "
+          f".cpn, .acu, .mus.0 at iterations {its[0]}..{its[-1]} and the "
+          f"last .eps.0 byte for byte the uninterrupted chain's", flush=True)
+
+    real = [rk["real"] for rk in ranks]
+    if len({r["eps_sha"] for r in real}) != 1:
+        raise AssertionError("real size: the ranks' eps differ")
+    r0 = real[0]
+    print(f"TWO RANKS SHARING ONE CARD (not a multi-GPU speed): stale W=64, "
+          f"M={SHARD_REAL['m']:,} x N={SHARD_REAL['n']:,}, "
+          f"{r0['markers']:,} markers a rank, {r0['n_windows']} windows a "
+          f"rank: {max(r['ms'] for r in real):.2f} ms/sweep by CUDA events "
+          f"(rank 0 {r0['ms']:.2f}, rank 1 {real[1]['ms']:.2f}; "
+          f"{SHARD_REAL['sweeps']} sweep(s) after {SHARD_REAL['warmup']}), "
+          f"all_reduce "
+          f"{r0['allreduce_ms']:.2f} ms a sweep in {r0['allreduce_calls']:.0f}"
+          f" calls (each synchronized before and after; those sweeps "
+          f"{r0['timed_wall_ms']:.2f} ms), sweep_stale launches a sweep "
+          f"{r0['sweep_stale_per_sweep']:.0f}  [{card}]", flush=True)
+
+
 def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--restart-child":
         return restart_child(json.loads(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--save-kill-child":
         return save_kill_child(json.loads(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--rank-child":
+        return rank_child(json.loads(sys.argv[2]))
     try:
         import torch
     except ImportError:
@@ -4289,6 +4721,9 @@ def main() -> int:
                    "float64, sparse input, --check-RAM and a kill inside a "
                    "save through the CLI (M=10,000 x N=5,000)"):
             new_launches = phase_new_paths_cli(torch, np, tmp, card)
+        with phase("3h: marker shards on torch.distributed ranks (M=10,000 "
+                   "x N=5,000; one two-rank sweep at M=100,000 x N=50,000)"):
+            phase_shards(torch, np, tmp, card)
     for name in ("sweep_stale_bw", "window_level_sums", "window_axpy"):
         launches[name] = bw_launches[name]
     for name in ("sweep_stale_mt", "sweep_exact_mt", "window_stats_mt",

@@ -14,7 +14,8 @@ this package mirrors its module names so each counterpart is easy to find:
                                    estimate of a run
   hydra_tpu_torch.outputs.writers  hydra-format McmcWriter (a save keeps
                                    the previous generation as .prev until
-                                   its csv row is written)
+                                   its csv row is written); NullWriter on
+                                   ranks other than 0
   hydra_tpu_torch.outputs.restart  read_restart: the saved state of a chain
                                    (``--restart``), from whichever
                                    generation the csv names
@@ -34,17 +35,24 @@ this package mirrors its module names so each counterpart is easy to find:
                                    (cached int8 planes); CUDA kernels in
                                    csrc/, plain versions beside their
                                    wrappers
+  hydra_tpu_torch.parallel.distributed  the process group (one rank a
+                                   marker shard and device), gather_markers,
+                                   allreduce_host_sum, broadcast_object
+  hydra_tpu_torch.parallel.mesh    marker_sum / det_sum / gather_rows over
+                                   the ranks (all_reduce only)
   hydra_tpu_torch.utils.dist       torch.Generator distributions
   hydra_tpu_torch.utils.slice_sampler  fixed-budget slice sampling
-  hydra_tpu_torch.samplers.bayesrrm / .bayesrrm_mt / .bayesw  one-device
+  hydra_tpu_torch.samplers.bayesrrm / .bayesrrm_mt / .bayesw  the
                                    samplers: every branch of the JAX
                                    samplers on one device (whole sweep,
-                                   per window, W >= 1, float64 BayesRRm)
+                                   per window, W >= 1, float64 BayesRRm);
+                                   BayesRRm/FH and BayesW on marker shards
   hydra_tpu_torch.runner / .cli    hydra-format chain runners (covariates,
                                    ``--restart``) and CLI
 
 scripts/soak_restart_torch.py SIGKILLs a CLI chain, restarts it and holds
-every record after the restart byte for byte to the uninterrupted run.
+every record after the restart byte for byte to the uninterrupted run;
+scripts/run_multiprocess_torch.py starts D ranks of the CLI on one host.
 
 Nothing here imports JAX or ``hydra_tpu``: the modules the port shares with
 the JAX package in behaviour (options, io, data, outputs) are its own

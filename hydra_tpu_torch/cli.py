@@ -11,10 +11,15 @@ mirrors main.cpp:47-177 and ``hydra_tpu/cli.py``:
                          so this one, runs multi-trait BayesRRm)
   --mpibayes bayesWMPI   BayesW (with ``--failure``)
 
-on one device: ``--device`` empty means cuda, ``--device cpu`` runs the
-plain PyTorch path. More than one device, and the port's own kernel limits,
-raise NotImplementedError before any data is read
-(``runner.check_supported``).
+on one device, or on D marker shards with one process a device under a
+launcher (``scripts/run_multiprocess_torch.py``, or ``python -m
+torch.distributed.run --nproc-per-node D -m hydra_tpu_torch.cli ...``):
+``main`` joins the process group the environment describes first and
+leaves it last (``parallel/distributed.py``). ``--device`` empty means
+cuda (NCCL between ranks), ``--device cpu`` runs the plain PyTorch path
+(gloo). What the port does not run (multi-trait on several devices,
+``--ind-shards``, ``--dcn-slices``, its kernel limits) raises before any
+data is read (``runner.check_supported``).
 """
 
 from __future__ import annotations
@@ -22,14 +27,25 @@ from __future__ import annotations
 import sys
 
 from hydra_tpu_torch.options import parse_args
+from hydra_tpu_torch.parallel import distributed
 
 
 def main(argv=None) -> int:
+    opt = parse_args(argv)
+    distributed.init_distributed(opt.device)
+    try:
+        return _run(opt)
+    finally:
+        distributed.destroy()
+
+
+def _run(opt) -> int:
     from hydra_tpu_torch.runner import (check_supported, run_bayesrrm,
                                         run_bayesrrm_mt, run_bayesw)
 
-    opt = parse_args(argv)
     check_supported(opt)
+    if (opt.bed_to_sparse or opt.check_ram) and not distributed.is_primary():
+        return 0              # host-only tasks: rank 0 does them
     if opt.bed_to_sparse:
         from hydra_tpu_torch.io import plink
         from hydra_tpu_torch.io.sparse import write_sparse_files

@@ -8,6 +8,9 @@
 //   hydra_window_gibbs <- window_gibbs (hydra_tpu/ops/gibbs_kernel.py)
 //   hydra_sweep_stale_sd <- sweep_stale_sd (_sweep_sd_kernel, the
 //                           single-decode stale sweep)
+//   hydra_sweep_windows  a range of the stale or exact sweep's windows, for
+//                        marker shards that sum the residual's change
+//                        across ranks after each window
 //
 // What they compute, per window of W markers (slots order[w*W .. w*W+W)):
 //   stats : s1 = sum g*eps, s2 = sum m*eps over all individuals
@@ -373,12 +376,16 @@ inline bool shapes_ok(int m_loc, int nb, int W, int K) {
            nb % 128 == 0 && K >= 2 && K <= K_MAX;
 }
 
+// Windows w_begin .. w_end - 1 of a sweep (0 .. m_loc / W for a whole
+// one). A sweep run as several ranges runs them in order on one workspace:
+// an exact range takes the Grams its batch's first window left there.
 int run_sweep(bool exact, const uint8_t* pk, float* eps, const float* mrow,
               const int* order, const float* mask, const float* sc, float* out,
               void* ws_base, int m_loc, int nb, int W, int K, int complete,
-              cudaStream_t stream) {
+              int w_begin, int w_end, cudaStream_t stream) {
     if (!shapes_ok(m_loc, nb, W, K) || (complete && mask == nullptr) ||
-        (exact && complete && 4LL * nb > GRAM_I8_MAX_NPAD))
+        (exact && complete && 4LL * nb > GRAM_I8_MAX_NPAD) || w_begin < 0 ||
+        w_end > m_loc / W || w_begin > w_end)
         return static_cast<int>(cudaErrorInvalidValue);
     const int C = N_FIXED + 3 * K - 2;
     const Workspace ws = layout(ws_base, m_loc, nb, W, exact);
@@ -397,7 +404,7 @@ int run_sweep(bool exact, const uint8_t* pk, float* eps, const float* mrow,
     const StaleDrawArgs dr{mrow, C, K, ws.part_s1, ws.part_s2, n_tiles, sc, out};
     const bool fold = !exact && W <= STALE_FOLD_MAX_W;
     if (exact) HYDRA_CHECK(allow_smem(draw, draw_smem));
-    for (int w = 0; w < n_windows; ++w) {
+    for (int w = w_begin; w < w_end; ++w) {
         const int* order_w = order + static_cast<size_t>(w) * W;
         const int* next_w = w + 1 < n_windows ? order_w + W : nullptr;
         if (exact) {
@@ -822,7 +829,7 @@ int hydra_sweep_stale(const void* pk, void* eps, const void* mrow, const void* o
                             static_cast<float*>(eps), static_cast<const float*>(mrow),
                             static_cast<const int*>(order), static_cast<const float*>(mask),
                             static_cast<const float*>(sc), static_cast<float*>(out), ws,
-                            m_loc, nb, window, n_mix, complete,
+                            m_loc, nb, window, n_mix, complete, 0, m_loc / window,
                             static_cast<cudaStream_t>(stream));
 }
 
@@ -835,7 +842,24 @@ int hydra_sweep_exact(const void* pk, void* eps, const void* mrow, const void* o
                             static_cast<float*>(eps), static_cast<const float*>(mrow),
                             static_cast<const int*>(order), static_cast<const float*>(mask),
                             static_cast<const float*>(sc), static_cast<float*>(out), ws,
-                            m_loc, nb, window, n_mix, complete,
+                            m_loc, nb, window, n_mix, complete, 0, m_loc / window,
+                            static_cast<cudaStream_t>(stream));
+}
+
+// Windows w_begin .. w_end - 1 of a stale or exact sweep, the contract of
+// hydra_sweep_stale / hydra_sweep_exact otherwise: eps is updated in place
+// and out receives those windows' slots. A sweep split into ranges calls
+// them in window order on one workspace, so an exact sweep still launches
+// its Grams once a batch, at the batch's first window.
+int hydra_sweep_windows(int exact, const void* pk, void* eps, const void* mrow,
+                        const void* order, const void* mask, const void* sc, void* out,
+                        void* ws, int m_loc, int nb, int window, int n_mix, int complete,
+                        int w_begin, int w_end, void* stream) {
+    return hydra::run_sweep(exact != 0, static_cast<const uint8_t*>(pk),
+                            static_cast<float*>(eps), static_cast<const float*>(mrow),
+                            static_cast<const int*>(order), static_cast<const float*>(mask),
+                            static_cast<const float*>(sc), static_cast<float*>(out), ws,
+                            m_loc, nb, window, n_mix, complete, w_begin, w_end,
                             static_cast<cudaStream_t>(stream));
 }
 

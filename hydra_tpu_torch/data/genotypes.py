@@ -1,7 +1,8 @@
 """Dataset assembly: packed genotypes + phenotypes + groups, padded.
 
-The port's own copy of ``hydra_tpu/data/genotypes.py`` for one process:
-read the ``.bed`` bytes, apply the missing-phenotype correction (C8,
+The port's own copy of ``hydra_tpu/data/genotypes.py``: read the ``.bed``
+bytes (on marker shards only the rows of this rank's shard,
+``marker_offset``/``marker_count``), apply the missing-phenotype correction (C8,
 data.cpp:1112-1158 — drop individual columns and re-pack), compute marker
 statistics (C9, BayesRRm.cpp:1502-1508) and pad individuals so the packed
 width is a whole number of 128-byte tiles (pad codes = missing, so decoded
@@ -11,11 +12,12 @@ planes are zero there and contribute nothing to any reduction).
 ``pad_individuals`` keep the JAX package's names and behaviour. The host
 passes use the numpy paths (``io/plink.py``); the JAX package's optional
 OpenMP helper is not loaded. ``load_dataset`` reads ``.bed`` or sparse
-input (``io/sparse.py``) on one process.
+input (``io/sparse.py``).
 """
 
 from __future__ import annotations
 
+import fcntl
 import time
 from dataclasses import dataclass
 from typing import List, Optional, Tuple
@@ -26,6 +28,7 @@ from hydra_tpu_torch.io import plink
 from hydra_tpu_torch.io import sparse as sparse_io
 from hydra_tpu_torch.io.groups import assign_blocks_to_tasks
 from hydra_tpu_torch.io.pheno import PhenoData
+from hydra_tpu_torch.parallel import distributed
 
 IND_ALIGN = 512          # individuals padded to multiple of this (128 bytes packed)
 _PAD_BYTE = 0b01010101   # 4 missing codes
@@ -98,8 +101,9 @@ class GenotypeData:
     n1: np.ndarray
     n2: np.ndarray
     nm: np.ndarray
-    # kept for field parity with the JAX package's per-host loading; one
-    # process always holds all markers here
+    # a rank that read only its shard's rows holds global markers
+    # [marker_offset, marker_offset + m); m_tot and nm_tot are then the
+    # global marker count and missing-call count
     marker_offset: int = 0
     m_tot: Optional[int] = None
     nm_tot: Optional[float] = None
@@ -185,6 +189,8 @@ def load_dataset(
     d_priors: Optional[np.ndarray] = None,
     blocks: Optional[Tuple[np.ndarray, np.ndarray]] = None,
     sparse_basename: str = "",
+    marker_offset: int = 0,
+    marker_count: Optional[int] = None,
 ) -> Dataset:
     """Read genotypes (a PLINK trio, sparse files, or both) and assemble a
     Dataset (main.cpp:60-136; the JAX package's source selection,
@@ -194,16 +200,37 @@ def load_dataset(
     (the reference's mixed representation) the .bed is read and the
     sparse .dim must agree with it. Missing-phenotype individuals are
     dropped and re-packed, marker statistics computed and individuals
-    padded exactly as the JAX package does (``GenotypeData.from_packed``)."""
+    padded exactly as the JAX package does (``GenotypeData.from_packed``).
+
+    marker_count (a .bed only) reads the rows of global markers
+    marker_offset .. + marker_count alone, this rank's shard (the MPI-IO
+    reads of data.cpp:671-739): groups and phenotypes stay global, the
+    rows and their statistics local, and the global missing-call count is
+    summed over ranks in float64 (``allreduce_host_sum``)."""
+    local = marker_count is not None
+    if local and not bed_basename:
+        raise ValueError("a per-rank marker slice reads a .bed")
     if bed_basename:
         if n == 0 or m == 0:
             n = plink.read_fam(bed_basename + ".fam").n
             m = plink.read_bim(bed_basename + ".bim").m
         t0 = time.perf_counter()
-        packed = plink.read_bed(bed_basename + ".bed", n, m)
+        if local:
+            # ranks on one host take turns: storage shared by concurrent
+            # streams can fall far below one stream's rate (the JAX
+            # package's flock, hydra_tpu/data/genotypes.py:215-227)
+            with open(bed_basename + ".bed", "rb") as lk:
+                fcntl.flock(lk, fcntl.LOCK_EX)
+                packed = plink.read_bed(bed_basename + ".bed", n, m,
+                                        marker_start=marker_offset,
+                                        marker_count=marker_count)
+                fcntl.flock(lk, fcntl.LOCK_UN)
+        else:
+            packed = plink.read_bed(bed_basename + ".bed", n, m)
         tl = time.perf_counter() - t0
         # data-load bandwidth log (BayesRRm.cpp:1420-1424)
-        print(f"INFO   : rank   0 took {tl:.3f} seconds to load  "
+        print(f"INFO   : rank {distributed.rank():3d} took {tl:.3f} seconds "
+              f"to load  "
               f"{packed.nbytes} bytes  =>  BW = "
               f"{packed.nbytes * 1e-9 / max(tl, 1e-9):7.3f} GB/s", flush=True)
         if sparse_basename:
@@ -222,6 +249,10 @@ def load_dataset(
     else:
         raise ValueError("either BED, SPARSE or BOTH")  # main.cpp:134
     geno = GenotypeData.from_packed(packed, n, pheno.na_indices)
+    if local:
+        geno.marker_offset, geno.m_tot = marker_offset, m
+        geno.nm_tot = distributed.allreduce_host_sum(
+            float(np.asarray(geno.nm).sum()))
     if groups is None or mS is None:
         groups, mS = make_default_groups(m, S or [0.01, 0.001, 0.0001])
     if len(groups) != m:
@@ -265,3 +296,28 @@ def shard_layout(
     max_len = int(lengths.max())
     m_loc_pad = ((max_len + window - 1) // window) * window
     return starts, lengths, m_loc_pad
+
+
+def marker_shards(
+    mtot: int, n_dev: int, rank: int, window: int,
+    blocks: Optional[Tuple[np.ndarray, np.ndarray]] = None,
+) -> Tuple[np.ndarray, np.ndarray, int]:
+    """``shard_layout`` for shard ``rank`` of ``n_dev``, refused up front
+    with the reason where it cannot run: a rank outside 0..n_dev-1, n_dev > 1
+    without a process group of n_dev ranks, or a shard left without markers
+    (M < D * W; the JAX ``_mp_marker_slice`` raises a bare ValueError,
+    hydra_tpu/runner.py:84). The runner and every sampler call it, so the
+    rows a rank reads are the rows its sampler lays out."""
+    if not 0 <= rank < n_dev:
+        raise ValueError(f"rank {rank} is outside 0..{n_dev - 1}")
+    if n_dev > 1 and distributed.world_size() != n_dev:
+        raise RuntimeError(
+            f"{n_dev} marker shards need a process group of {n_dev} "
+            f"ranks (this process sees {distributed.world_size()}); "
+            "launch with scripts/run_multiprocess_torch.py or torchrun")
+    starts, lengths, m_loc = shard_layout(mtot, n_dev, window, blocks)
+    empty = [d for d in range(n_dev) if lengths[d] == 0]
+    if empty:
+        raise ValueError(f"{mtot} markers over {n_dev} ranks leave rank(s) "
+                         f"{empty} without markers; run fewer ranks")
+    return starts, lengths, m_loc

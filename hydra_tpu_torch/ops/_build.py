@@ -10,6 +10,7 @@ one nvcc per source at once. Nothing here runs at import time.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -34,6 +35,7 @@ _SIGNATURES = {
     "sweep_kernel.cu": {
         "hydra_sweep_stale": ([_p] * 8 + [_i] * 5 + [_p], _i),
         "hydra_sweep_exact": ([_p] * 8 + [_i] * 5 + [_p], _i),
+        "hydra_sweep_windows": ([_i] + [_p] * 8 + [_i] * 7 + [_p], _i),
         "hydra_sweep_workspace_bytes": ([_i] * 4, ctypes.c_longlong),
         "hydra_window_grams": ([_p] * 5 + [_i] * 4 + [_p], _i),
         "hydra_sweep_stale_sd": ([_p] * 8 + [_i] * 6 + [_p], _i),
@@ -99,8 +101,20 @@ def build(ptxas_verbose: bool = False) -> str:
     all started together.
 
     Returns the compilers' stderr (with ``-Xptxas -v``: registers, shared
-    memory and spills per kernel); "" when every library was cached."""
+    memory and spills per kernel); "" when every library was cached.
+    Processes that share the build directory (the ranks of one run) take
+    turns through a file lock, so one of them builds and the rest find the
+    libraries."""
     os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(os.path.join(BUILD_DIR, ".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            return _build_missing(ptxas_verbose)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+
+
+def _build_missing(ptxas_verbose: bool) -> str:
     jobs = []
     for source in SOURCES:
         path = library_path(source)

@@ -21,6 +21,13 @@ Layouts at this interface:
 Returns (eps', out) with out (m_loc, 4) = [beta_new, comp, acum0, dbeta] per
 slot. mave/mstd come from mrow columns 0/1 (the JAX ``mcol``).
 
+On marker shards (one rank a shard) ``sweep_stale`` and ``sweep_exact``
+take ``sync``, which sums a residual change across the ranks: the sweep
+then runs one window a launch (``hydra_sweep_windows``) and, after each
+window, adds the ranks' summed change to the eps it started from, as the
+JAX sampler's multi-shard per-window launches do (bayesrrm.py:728-763).
+An exact sweep still computes its Grams once a batch.
+
 ``sweep_stale`` / ``sweep_exact`` / ``sweep_stale_sd`` launch the CUDA
 kernels of ``csrc/sweep_kernel.cu`` for CUDA tensors and raise on what the
 kernels do not take; for CPU tensors they run the plain versions
@@ -54,7 +61,8 @@ def mrow_width(k: int) -> int:
     return N_FIXED + 3 * k - 2
 
 
-# Kernel launches through each wrapper (one per sweep). The sampler's main
+# Kernel launches through each wrapper (one per sweep; on marker shards one
+# per window). The sampler's main
 # path must move these; comparisons against the plain versions call the
 # kernels through the same wrappers, so callers reset and read around the
 # run they want to count.
@@ -183,8 +191,14 @@ def _check_sub_window(window, sub_window):
                          f"({window})")
 
 
+def _synced(eps, new, sync):
+    """eps after a window whose update took it to ``new``: on marker
+    shards (sync given) eps plus the ranks' summed change."""
+    return new if sync is None else eps + sync(new - eps)
+
+
 def _stale_ref(pk, eps, mrow, i_2se, dNm1, window, sub_window, n_mix,
-               complete, ind_mask, order):
+               complete, ind_mask, order, sync=None):
     m_loc = pk.shape[0]
     W, K = window, n_mix
     i2se, dnm1 = _scalars(i_2se, dNm1, pk.device)
@@ -217,7 +231,7 @@ def _stale_ref(pk, eps, mrow, i_2se, dNm1, window, sub_window, n_mix,
             else:
                 ds = c1[sl] @ g[sl] + c2[sl] @ m[sl]
             d = ds if d is None else d + ds
-        eps = eps + (d * ind_mask if complete else d)
+        eps = _synced(eps, eps + (d * ind_mask if complete else d), sync)
         out[slots] = torch.stack([bnew, comp, acum, dbeta], dim=1)
     return eps, out
 
@@ -225,11 +239,11 @@ def _stale_ref(pk, eps, mrow, i_2se, dNm1, window, sub_window, n_mix,
 @torch.inference_mode()
 def sweep_stale_ref(pk, eps, mrow, i_2se, dNm1, *, window: int, n_mix: int,
                     complete: bool, ind_mask: Optional[torch.Tensor] = None,
-                    order: Optional[torch.Tensor] = None):
+                    order: Optional[torch.Tensor] = None, sync=None):
     """Plain PyTorch stale sweep (same math as the CUDA kernel)."""
     _check(pk, eps, mrow, window, n_mix, complete, ind_mask, order)
     return _stale_ref(pk, eps, mrow, i_2se, dNm1, window, window, n_mix,
-                      complete, ind_mask, order)
+                      complete, ind_mask, order, sync)
 
 
 @torch.inference_mode()
@@ -251,7 +265,7 @@ def sweep_stale_sd_ref(pk, eps, mrow, i_2se, dNm1, *, window: int,
 @torch.inference_mode()
 def sweep_exact_ref(pk, eps, mrow, i_2se, dNm1, *, window: int, n_mix: int,
                     complete: bool, ind_mask: Optional[torch.Tensor] = None,
-                    order: Optional[torch.Tensor] = None):
+                    order: Optional[torch.Tensor] = None, sync=None):
     """Plain PyTorch exact sweep: window Gram + W-step recurrence written as
     the kernel's rank-1 update num_i += G_ij * dbeta_j."""
     _check(pk, eps, mrow, window, n_mix, complete, ind_mask, order)
@@ -292,15 +306,16 @@ def sweep_exact_ref(pk, eps, mrow, i_2se, dNm1, *, window: int, n_mix: int,
         c1 = res[:, 3] * mstd
         c2 = -c1 * mave
         if complete:
-            eps = eps + (c1 @ g + c2.sum()) * ind_mask
+            new = eps + (c1 @ g + c2.sum()) * ind_mask
         else:
-            eps = eps + (c1 @ g + c2 @ m)
+            new = eps + (c1 @ g + c2 @ m)
+        eps = _synced(eps, new, sync)
         out[slots] = res
     return eps, out
 
 
 def _launch(name, exact, pk, eps, mrow, i_2se, dNm1, window, n_mix, complete,
-            ind_mask, order, sub_window=0):
+            ind_mask, order, sub_window=0, sync=None):
     from hydra_tpu_torch.ops import _build
 
     dev = pk.device
@@ -341,32 +356,46 @@ def _launch(name, exact, pk, eps, mrow, i_2se, dNm1, window, n_mix, complete,
     ws = torch.empty(nbytes, dtype=torch.uint8, device=dev)
     eps_out = eps.clone()
     out = torch.zeros((m_loc, 4), dtype=f32, device=dev)
+    mask_ptr = ind_mask.data_ptr() if complete else None
+
+    def check(err):
+        if err:
+            raise RuntimeError(f"{name} kernel launch failed: "
+                               f"{lib.hydra_sweep_error_string(err).decode()}")
+        launches[name] += 1
+
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(pk.data_ptr(), eps_out.data_ptr(), mrow.data_ptr(),
-                 order.data_ptr(), ind_mask.data_ptr() if complete else None,
-                 sc.data_ptr(), out.data_ptr(), ws.data_ptr(), *shape, stream)
-    if err:
-        raise RuntimeError(f"{name} kernel launch failed: "
-                           f"{lib.hydra_sweep_error_string(err).decode()}")
-    launches[name] += 1
+        if sync is None:
+            check(fn(pk.data_ptr(), eps_out.data_ptr(), mrow.data_ptr(),
+                     order.data_ptr(), mask_ptr, sc.data_ptr(),
+                     out.data_ptr(), ws.data_ptr(), *shape, stream))
+            return eps_out, out
+        # marker shards: a window a launch, its change summed over ranks
+        for w in range(m_loc // window):
+            new = eps_out.clone()
+            check(lib.hydra_sweep_windows(
+                int(exact), pk.data_ptr(), new.data_ptr(), mrow.data_ptr(),
+                order.data_ptr(), mask_ptr, sc.data_ptr(), out.data_ptr(),
+                ws.data_ptr(), *shape, w, w + 1, stream))
+            eps_out = _synced(eps_out, new, sync)
     return eps_out, out
 
 
 def sweep_stale(pk, eps, mrow, i_2se, dNm1, *, window: int, n_mix: int,
                 complete: bool, ind_mask: Optional[torch.Tensor] = None,
-                order: Optional[torch.Tensor] = None):
+                order: Optional[torch.Tensor] = None, sync=None):
     """Stale-window sweep: the CUDA kernel on CUDA tensors, the plain
     version on CPU tensors."""
     _check(pk, eps, mrow, window, n_mix, complete, ind_mask, order)
     if pk.device.type == "cpu":
         return sweep_stale_ref(pk, eps, mrow, i_2se, dNm1, window=window,
                                n_mix=n_mix, complete=complete,
-                               ind_mask=ind_mask, order=order)
+                               ind_mask=ind_mask, order=order, sync=sync)
     if pk.device.type != "cuda":
         raise ValueError(f"no sweep kernel for device {pk.device}")
     return _launch("sweep_stale", False, pk, eps, mrow, i_2se, dNm1, window,
-                   n_mix, complete, ind_mask, order)
+                   n_mix, complete, ind_mask, order, sync=sync)
 
 
 def sweep_stale_sd(pk, eps, mrow, i_2se, dNm1, *, window: int,
@@ -390,15 +419,15 @@ def sweep_stale_sd(pk, eps, mrow, i_2se, dNm1, *, window: int,
 
 def sweep_exact(pk, eps, mrow, i_2se, dNm1, *, window: int, n_mix: int,
                 complete: bool, ind_mask: Optional[torch.Tensor] = None,
-                order: Optional[torch.Tensor] = None):
+                order: Optional[torch.Tensor] = None, sync=None):
     """Exact-mode sweep: the CUDA kernel on CUDA tensors, the plain version
     on CPU tensors."""
     _check(pk, eps, mrow, window, n_mix, complete, ind_mask, order)
     if pk.device.type == "cpu":
         return sweep_exact_ref(pk, eps, mrow, i_2se, dNm1, window=window,
                                n_mix=n_mix, complete=complete,
-                               ind_mask=ind_mask, order=order)
+                               ind_mask=ind_mask, order=order, sync=sync)
     if pk.device.type != "cuda":
         raise ValueError(f"no sweep kernel for device {pk.device}")
     return _launch("sweep_exact", True, pk, eps, mrow, i_2se, dNm1, window,
-                   n_mix, complete, ind_mask, order)
+                   n_mix, complete, ind_mask, order, sync=sync)

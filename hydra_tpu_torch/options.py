@@ -93,7 +93,7 @@ class Options:
     # --- accelerator knobs (no reference equivalent) ---
     window: int = 0                      # marker-window batch size; 0 → = sync_rate
     exact: bool = True                   # Gram-corrected exact sequential semantics
-    n_devices: int = 0                   # 0 → all visible devices
+    n_devices: int = 0                   # 0 → the ranks of the launch
     ind_shards: int = 1                  # individual-axis mesh shards (N-sharding)
     dcn_slices: int = 1                  # multi-slice hierarchy: ("dcn","markers")
     dtype: str = "float32"               # accumulation dtype
@@ -257,14 +257,17 @@ def build_parser() -> argparse.ArgumentParser:
     a("--window", dest="window", type=int, default=0)
     a("--stale", action="store_true", dest="stale",
       help="use stale-window semantics instead of exact Gram-corrected Gibbs")
-    a("--n-devices", dest="n_devices", type=int, default=0)
+    a("--n-devices", dest="n_devices", type=int, default=0,
+      help="marker shards, one torch.distributed rank and device each: 0 "
+           "or the number of ranks the launcher started "
+           "(scripts/run_multiprocess_torch.py, torchrun); BayesRRm, "
+           "BayesFH and BayesW")
     a("--ind-shards", dest="ind_shards", type=int, default=1,
-      help="shard the individual dimension over this many devices "
-           "(2-D markers x inds mesh)")
+      help="the JAX package's individual-axis shards; not ported to "
+           "hydra_tpu_torch (refused above 1)")
     a("--dcn-slices", dest="dcn_slices", type=int, default=1,
-      help="multi-slice pods: declare this many DCN-connected slices; "
-           "markers shard over a hierarchical (dcn, markers) mesh and the "
-           "residual all-reduce runs ICI-first then chunked over DCN")
+      help="the JAX package's multi-slice hierarchy; not ported to "
+           "hydra_tpu_torch (refused above 1)")
     a("--dtype", dest="dtype", default="float32",
       choices=["float32", "float64"],
       help="sampler accumulation dtype (the reference is f64 end-to-end): "
@@ -290,19 +293,18 @@ def build_parser() -> argparse.ArgumentParser:
            "window-BLOCK shuffle, so the whole-sweep kernels read windows "
            "in place. auto = block, but marker for --mega off, forced "
            "planes, --dtype float64 and W < 8 (BayesRRm/FH), BayesW W = "
-           "2..7, and multi-trait W < 8 and exact runs with missing calls "
-           "or NaN phenotypes")
+           "2..7, multi-trait W < 8 and exact runs with missing calls "
+           "or NaN phenotypes, and more than one marker shard")
     a("--det-sync", dest="det_sync", type=int, default=0,
-      help="1 = topology-invariant residual reductions (all_gather + "
-           "fixed-order sum): the SAME mesh gives bitwise-identical chains "
-           "for any process layout (1x8 == 2x4), at a larger collective "
-           "payload. Used by multi-process validation and reproducible "
-           "cross-topology reruns.")
+      help="1 = marker shards sum the residual's change and the counts in "
+           "rank order (each rank's addend in its row of a zero buffer, "
+           "one all_reduce, the rows added locally): the same bits on any "
+           "backend or layout, at D times the payload")
     a("--cross-sync", dest="cross_sync", type=int, default=0,
       help="exact mode, >1 marker shards: apply OTHER shards' delta-betas "
            "to the in-window correction every B markers (must divide the "
            "window). Default 0 = once per window (the window-boundary "
-           "residual psum; no in-window collective — strictly fresher than "
+           "residual sum; no in-window collective — strictly fresher than "
            "the reference at --sync-rate=window, which freezes epsilon "
            "on-rank too). 1 = strict syncRate-1 parity (one scalar/shard "
            "collective per marker step; latency-bound at scale)")

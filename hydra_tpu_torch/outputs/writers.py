@@ -235,3 +235,18 @@ class McmcWriter:
                  if ln.strip() and os.path.exists(ln.strip())]
         subprocess.run(["tar", "-cf", tar] + files, check=False,
                        stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
+
+
+class NullWriter:
+    """No-op writer for the ranks other than 0 (the port's copy of
+    ``hydra_tpu/outputs/writers.py::NullWriter``).
+
+    Marker-shard runs keep ONE writer, rank 0's: the analogue of the
+    reference's rank-0 file creation and offset-disjoint MPI-IO writes
+    (BayesRRm.cpp:2736-2877). The other ranks still take part in the
+    collective gathers; every file method here swallows the result."""
+
+    def __getattr__(self, name):
+        if name.startswith("__"):
+            raise AttributeError(name)
+        return lambda *a, **k: None

@@ -1,4 +1,4 @@
-"""Chain runners: Options -> Dataset -> sampler on one device -> hydra files.
+"""Chain runners: Options -> Dataset -> sampler -> hydra files.
 
 Ports of ``hydra_tpu/runner.py::run_bayesrrm`` (BayesRRm and BayesFH;
 main.cpp:47-177 and the in-sampler output blocks, BayesRRm.cpp:2736-2877),
@@ -17,6 +17,12 @@ written save first and its csv row last, so a row in the csv means every
 record of that iteration is on disk; the previous save's files stay as
 ``<file>.prev`` until then (``McmcWriter.commit_save``), so a kill inside a
 save restarts from the save before it.
+
+Under a process group (``parallel/distributed.py``) BayesRRm, BayesFH and
+BayesW run one marker shard a rank: each rank reads only its shard's
+``.bed`` rows, rank 0 alone writes (``NullWriter`` on the others) and reads
+a restart, which it broadcasts, and the marker-sharded state comes to rank
+0 through ``gather_markers`` at every record, on every rank alike.
 """
 
 from __future__ import annotations
@@ -27,7 +33,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from hydra_tpu_torch.data.genotypes import Dataset, load_dataset
+from hydra_tpu_torch.data.genotypes import Dataset, load_dataset, marker_shards
 from hydra_tpu_torch.io import groups as groups_io
 from hydra_tpu_torch.io import pheno as pheno_io
 from hydra_tpu_torch.io import plink
@@ -37,7 +43,8 @@ from hydra_tpu_torch.options import Options
 from hydra_tpu_torch.outputs.restart import (RestartData,
                                              last_save_iteration,
                                              read_restart)
-from hydra_tpu_torch.outputs.writers import McmcWriter
+from hydra_tpu_torch.outputs.writers import McmcWriter, NullWriter
+from hydra_tpu_torch.parallel import distributed
 from hydra_tpu_torch.samplers.bayesrrm import BayesRRm, resolve_device
 from hydra_tpu_torch.samplers.bayesrrm_mt import BayesRRmMT
 from hydra_tpu_torch.samplers.bayesw import BayesW
@@ -53,20 +60,36 @@ def mixture_components(opt: Options) -> int:
 
 
 def check_supported(opt: Options) -> None:
-    """Raise before any data is read for what the port does not run: more
-    than one device, and its own limits, which the JAX package does not
+    """Raise before any data is read for what the port does not run, with
+    the reason: multi-trait on more than one device, --ind-shards and
+    --dcn-slices; --n-devices other than 0 or the number of ranks (each
+    rank is one marker shard on one device, so D > 1 needs D ranks under
+    a launcher); and the port's own limits, which the JAX package does not
     have: W > W_MAX (one draw thread a marker, ops/sweep_kernel.py), more
     than K_MAX mixture components or T_MAX traits (csrc/sweep_kernel.cuh)."""
     is_bw = opt.bayes_type == "bayesWMPI"
     # BayesW reads the first of several --pheno files, as the JAX CLI
     # (hydra_tpu/cli.py sends every bayesWMPI run to run_bayesw)
     multi = opt.multi_phen and not is_bw
-    if opt.n_devices > 1 or opt.ind_shards > 1 or opt.dcn_slices > 1:
+    world = distributed.world_size()
+    if multi and (opt.n_devices > 1 or world > 1):
         raise NotImplementedError(
-            "not ported to hydra_tpu_torch yet: more than one device "
-            "(--n-devices/--ind-shards/--dcn-slices)"
-            + (" with multi-trait" if multi else "")
-            + " — use python -m hydra_tpu.cli for these")
+            "not ported to hydra_tpu_torch yet: multi-trait on more than "
+            "one device — use python -m hydra_tpu.cli for it")
+    if opt.ind_shards > 1 or opt.dcn_slices > 1:
+        raise NotImplementedError(
+            "not ported to hydra_tpu_torch yet: --ind-shards and "
+            "--dcn-slices (the port shards markers only, one rank a "
+            "device) — use python -m hydra_tpu.cli for these")
+    if opt.n_devices > 1 and world == 1:
+        raise ValueError(
+            f"--n-devices {opt.n_devices} runs one rank a device: launch "
+            f"{opt.n_devices} ranks with scripts/run_multiprocess_torch.py "
+            f"--nprocs {opt.n_devices} or python -m torch.distributed.run "
+            f"--nproc-per-node {opt.n_devices} -m hydra_tpu_torch.cli")
+    if opt.n_devices not in (0, world):
+        raise ValueError(f"--n-devices {opt.n_devices} differs from the "
+                         f"{world} ranks of this launch (0 takes them all)")
     if opt.bed_to_sparse or opt.check_ram:
         return
     over = []
@@ -105,6 +128,22 @@ def autosize_exact_window(opt: Options, n: int) -> None:
               flush=True)
 
 
+def rank_marker_slice(opt: Options, m: int, blocks=None):
+    """This rank's .bed rows (marker_offset, marker_count): the markers of
+    its shard (the port of hydra_tpu/runner.py:71-90, the reference's
+    per-rank MPI-IO reads, data.cpp:671-739); (0, None), every row, on one
+    rank or without a .bed. Shard starts depend only on (m, D, blocks), so
+    this is the layout the sampler builds. A rank without markers is
+    refused here, before the read."""
+    world = distributed.world_size()
+    if world == 1 or not opt.read_from_bed_file:
+        return 0, None
+    r = distributed.rank()
+    starts, lengths, _ = marker_shards(m, world, r, max(opt.window, 1),
+                                       blocks)
+    return int(starts[r]), int(lengths[r])
+
+
 def dataset_from_options(opt: Options) -> Dataset:
     """Input dispatch of main.cpp:60-157 (hydra_tpu/runner.py:90-129): a
     .bed, sparse files (--sparse-dir/--sparse-basename) or both. BayesW
@@ -137,13 +176,15 @@ def dataset_from_options(opt: Options) -> Dataset:
                 if opt.d_priors_file else None)
     blocks = (groups_io.read_marker_blocks_file(opt.marker_blocks_file)
               if opt.marker_blocks_file else None)
+    offset, count = rank_marker_slice(opt, m, blocks)
     return load_dataset(opt.bed_file if opt.read_from_bed_file else "", ph,
                         n=n, m=m, groups=grp, mS=mS, S=opt.S, priors=priors,
                         d_priors=d_priors, blocks=blocks,
                         sparse_basename=(opt.sparse_dir + "/"
                                          + opt.sparse_basename
                                          if opt.read_from_sparse_files
-                                         else ""))
+                                         else ""),
+                        marker_offset=offset, marker_count=count)
 
 
 def iter_blocks(start_it: int, chain_length: int, thin: int, save: int,
@@ -179,7 +220,8 @@ def fetch_host(pulls: dict) -> dict:
 
 
 def _device(opt: Options) -> torch.device:
-    device = resolve_device(opt.device)
+    device = (distributed.rank_device(opt.device)
+              if distributed.world_size() > 1 else resolve_device(opt.device))
     if device.type == "cuda":
         # reference matmuls (plain versions, hyper updates) stay true f32
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -230,6 +272,36 @@ def apply_restart_rng(opt: Options, rd: RestartData) -> None:
               f"not reproduce the uninterrupted one", flush=True)
 
 
+def read_restart_on_rank0(*args, **kw) -> RestartData:
+    """``read_restart`` on rank 0, its result broadcast to every rank (the
+    other ranks may not see rank 0's files; the JAX runner reads them on
+    every process, hydra_tpu/runner.py:380). A failure on rank 0 raises on
+    every rank."""
+    res = None
+    if distributed.is_primary():
+        try:
+            res = ("ok", read_restart(*args, **kw))
+        except Exception as e:              # noqa: BLE001 - sent on, raised
+            res = ("error", e)
+    kind, value = distributed.broadcast_object(res)
+    if kind == "error":
+        raise value
+    return value
+
+
+def shard_args(opt: Options) -> dict:
+    """The sampler's marker-shard arguments: one shard a rank."""
+    return dict(n_dev=distributed.world_size(), rank=distributed.rank(),
+                det_sync=bool(opt.det_sync))
+
+
+def new_writer(*args, **kw):
+    """Rank 0's McmcWriter; a NullWriter on the other ranks."""
+    if distributed.is_primary():
+        return McmcWriter(*args, **kw)
+    return NullWriter()
+
+
 def restart_outputs(opt: Options) -> None:
     """Outputs of a restarted chain go to ``<name>_rs``, so the original
     files survive (BayesRRm.cpp:1206-1222)."""
@@ -251,9 +323,9 @@ def run_bayesrrm(opt: Options, dataset: Optional[Dataset] = None,
     autosize_exact_window(opt, ds.n)
     rd = None
     if opt.restart:
-        rd = read_restart(opt.mcmc_out, ds.m, ds.n, opt.save,
-                          use_xfiles=opt.use_xfiles_in_restart,
-                          covariates=opt.covariates)
+        rd = read_restart_on_rank0(opt.mcmc_out, ds.m, ds.n, opt.save,
+                                   use_xfiles=opt.use_xfiles_in_restart,
+                                   covariates=opt.covariates)
         apply_restart_rng(opt, rd)
         restart_outputs(opt)
     sampler = BayesRRm(ds, window=opt.window, exact=opt.exact,
@@ -262,16 +334,19 @@ def run_bayesrrm(opt: Options, dataset: Optional[Dataset] = None,
                        plane_cache=opt.plane_cache, fh=fh, dtype=opt.dtype,
                        fh_params=dict(v0L=opt.v0L, v0t=opt.v0t, v0c=opt.v0c,
                                       s02c=opt.s02c, tau0=opt.tau0),
-                       device=device, packed_device=packed_device)
+                       device=device, packed_device=packed_device,
+                       cross_sync=opt.cross_sync, **shard_args(opt))
     state = (sampler.init_state() if rd is None
              else sampler.init_state_from_restart(rd))
     start_it = 0 if rd is None else rd.start_iteration
-    writer = McmcWriter(opt.mcmc_out, ds.m, ds.n, ds.num_groups,
+    writer = new_writer(opt.mcmc_out, ds.m, ds.n, ds.num_groups,
                         ds.mS.shape[1], opt.thin, opt.save, opt.seed,
                         covariates=opt.covariates, window=opt.window,
                         exact=opt.exact, schedule=sampler.cfg.schedule)
     marker_order = sampler.slot_to_marker[
         sampler.slot_to_marker >= 0].astype(np.int32)
+    gather = distributed.gather_markers
+    primary = distributed.is_primary()
 
     tot_proc = write_s = 0.0
     stats = None
@@ -286,13 +361,15 @@ def run_bayesrrm(opt: Options, dataset: Optional[Dataset] = None,
         pulls = dict(sigma_g=state.sigma_g, sigma_e=state.sigma_e,
                      mu=state.mu, m0=stats.m0)
         if on_thin or on_save:
-            pulls.update(beta=state.beta, components=state.components)
+            pulls.update(beta=gather(state.beta),
+                         components=gather(state.components))
         if on_thin:
-            pulls.update(est_pi=state.est_pi, acum=state.acum)
+            pulls.update(est_pi=state.est_pi, acum=gather(state.acum))
         if on_save:
             pulls.update(eps=state.eps, gamma=state.gamma)
             if fh:
-                pulls.update(lambda_var=state.lambda_var, nu_var=state.nu_var,
+                pulls.update(lambda_var=gather(state.lambda_var),
+                             nu_var=gather(state.nu_var),
                              c_slab=state.c_slab, tau=state.tau,
                              hyp_tau=state.hyp_tau)
         if on_log:
@@ -331,15 +408,16 @@ def run_bayesrrm(opt: Options, dataset: Optional[Dataset] = None,
         dt = time.time() - t0
         tot_proc += dt
         write_s += time.time() - t_w
-        if on_log:
+        if on_log and primary:
             print(telemetry.result_line(
                 it, dt / k, float(h["sigma_g"].sum()), float(h["sigma_e"]),
                 float(h["beta_sqn"].sum()), int(h["m0"].sum())), flush=True)
             print(telemetry.cass_table(it, sampler.mtot_grp, h["sigma_g"],
                                        h["cass"]), flush=True)
     n_done = opt.chain_length - start_it
-    if verbose and n_done > 0:
-        print(telemetry.exit_line(tot_proc, n_done), flush=True)
+    if verbose and n_done > 0 and primary:
+        print(telemetry.exit_line(tot_proc, n_done,
+                                  distributed.world_size()), flush=True)
     return dict(state=state, stats=stats, sampler=sampler,
                 total_seconds=tot_proc, write_seconds=write_s,
                 mcmc_out=opt.mcmc_out)
@@ -492,25 +570,28 @@ def run_bayesw(opt: Options, dataset: Optional[Dataset] = None,
     ds = dataset if dataset is not None else dataset_from_options(opt)
     rd = None
     if opt.restart:
-        rd = read_restart(opt.mcmc_out, ds.m, ds.n, opt.save,
-                          use_xfiles=opt.use_xfiles_in_restart,
-                          covariates=opt.covariates, survival=True)
+        rd = read_restart_on_rank0(opt.mcmc_out, ds.m, ds.n, opt.save,
+                                   use_xfiles=opt.use_xfiles_in_restart,
+                                   covariates=opt.covariates, survival=True)
         apply_restart_rng(opt, rd)
         restart_outputs(opt)
     sampler = BayesW(ds, window=opt.window, shuffle=bool(opt.shuffle_markers),
                      seed=opt.seed, quad_points=int(opt.quad_points),
-                     schedule=opt.schedule, mega=opt.mega, device=device)
+                     schedule=opt.schedule, mega=opt.mega, device=device,
+                     **shard_args(opt))
     state = (sampler.init_state() if rd is None
              else sampler.init_state_from_restart(rd))
     start_it = 0 if rd is None else rd.start_iteration
     # window=1 is exact sequential BayesW; record it as such
-    writer = McmcWriter(opt.mcmc_out, ds.m, ds.n, ds.num_groups,
+    writer = new_writer(opt.mcmc_out, ds.m, ds.n, ds.num_groups,
                         ds.mS.shape[1], opt.thin, opt.save, opt.seed,
                         covariates=opt.covariates, survival=True,
                         window=opt.window, exact=(opt.window == 1),
                         schedule=sampler.cfg.schedule)
     marker_order = sampler.slot_to_marker[
         sampler.slot_to_marker >= 0].astype(np.int32)
+    gather = distributed.gather_markers
+    primary = distributed.is_primary()
 
     tot_proc = write_s = 0.0
     stats = None
@@ -525,7 +606,8 @@ def run_bayesw(opt: Options, dataset: Optional[Dataset] = None,
         pulls = dict(sigma_g=state.sigma_g, mu=state.mu, alpha=state.alpha,
                      m0=stats.m0)
         if on_thin or on_save:
-            pulls.update(beta=state.beta, components=state.components)
+            pulls.update(beta=gather(state.beta),
+                         components=gather(state.components))
         if on_thin:
             pulls.update(pi_l=state.pi_l, gamma=state.gamma)
         if on_save:
@@ -555,14 +637,15 @@ def run_bayesw(opt: Options, dataset: Optional[Dataset] = None,
         dt = time.time() - t0
         tot_proc += dt
         write_s += time.time() - t_w
-        if on_log:
+        if on_log and primary:
             print(telemetry.bw_line(it, int(h["m0"].sum()), float(h["mu"]),
                                     float(h["alpha"]),
                                     float(h["sigma_g"].sum()), dt),
                   flush=True)
     n_done = opt.chain_length - start_it
-    if verbose and n_done > 0:
-        print(telemetry.exit_line(tot_proc, n_done), flush=True)
+    if verbose and n_done > 0 and primary:
+        print(telemetry.exit_line(tot_proc, n_done,
+                                  distributed.world_size()), flush=True)
     return dict(state=state, stats=stats, sampler=sampler,
                 total_seconds=tot_proc, write_seconds=write_s,
                 mcmc_out=opt.mcmc_out)

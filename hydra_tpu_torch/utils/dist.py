@@ -25,14 +25,28 @@ def _splitmix64(x: int) -> int:
 
 
 def site_generator(seed: int, iteration: int, site: int,
-                   device: torch.device) -> torch.Generator:
-    """A fresh generator for one draw site of one iteration."""
+                   device: torch.device, shard=None) -> torch.Generator:
+    """A fresh generator for one draw site of one iteration; ``shard``
+    keys a marker shard's own draws (the JAX sampler's ``fold_in(site,
+    dev)``), None the draws every rank shares."""
     h = _splitmix64(int(seed) & _M64)
     h = _splitmix64(h ^ (int(iteration) & _M64))
     h = _splitmix64(h ^ (int(site) & _M64))
+    if shard is not None:
+        h = _splitmix64(h ^ (int(shard) & _M64))
     g = torch.Generator(device=device)
     g.manual_seed(h & ((1 << 63) - 1))
     return g
+
+
+def shard_generator(seed: int, iteration: int, site: int,
+                    device: torch.device, rank: int, n_dev: int
+                    ) -> torch.Generator:
+    """A marker shard's own draws (its sweep order): keyed by ``rank`` on
+    n_dev > 1, as the JAX sampler's ``fold_in(site(s), dev)``; one shard
+    keeps the unkeyed site."""
+    return site_generator(seed, iteration, site, device,
+                          rank if n_dev > 1 else None)
 
 
 def norm_rng(g: torch.Generator, mean: torch.Tensor, sigma2: torch.Tensor

@@ -2,8 +2,9 @@
 
 Same fields as ``hydra_tpu/utils/telemetry.py`` (reference
 BayesRRm.cpp:2713-2722, :2931-2936) and the BayesW progress line of
-``hydra_tpu/runner_bayesw.py:110-114``. The port runs on one device, so
-there are no collectives and the sync fields are zero; the lines say so.
+``hydra_tpu/runner_bayesw.py:110-114``. The sync fields are zero: on one
+device there are no collectives, and on marker shards they are not timed
+here; the exit line says which.
 """
 
 from __future__ import annotations
@@ -20,11 +21,13 @@ def result_line(it: int, proc_s: float, sigma_g: float, sigma_e: float,
             f"betasq = {betasq:15.10f}, m0 = {m0:10d}")
 
 
-def exit_line(total_s: float, n_iter: int) -> str:
+def exit_line(total_s: float, n_iter: int, n_ranks: int = 1) -> str:
     """Exit summary with the %-time-in-allreduce field."""
+    what = ("1-device run: no collectives" if n_ranks == 1
+            else f"{n_ranks} ranks: collectives not timed")
     return (f"INFO   : rank    0, time to process the data: {total_s:.3f} sec, "
             f"with 0.000 (0.000, 0.000) =  0.0% spent on allred (0, 0) "
-            f"[1-device run: no collectives] ({n_iter} iterations)")
+            f"[{what}] ({n_iter} iterations)")
 
 
 def cass_table(it: int, mtot_grp, sigma_g, cass) -> str:

@@ -1,8 +1,9 @@
 """The port's CLI on the CPU: hydra-format outputs of BayesRRm (the
 whole-sweep and per-window branches, windows below 8, the single-decode
 stale sweep), BayesFH and BayesW, runs with JAX and the JAX package
-absent (a restart with covariates among them), and NotImplementedError for
-more than one device. Restarts and covariates are
+absent (a restart with covariates among them), NotImplementedError for
+what the port does not run on several devices, and the launcher named for
+--n-devices without ranks. Restarts and covariates are
 tests/test_torch_restart.py's; sparse input, --bed-to-sparse, --check-RAM
 and the port's up-front limits are tests/test_torch_host_paths.py's."""
 
@@ -250,11 +251,22 @@ def test_cli_runs_without_jax(bed, bw_bed, tmp_path):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--n-devices", "2"],
+    ["--ind-shards", "2"],
+    ["--dcn-slices", "2"],
 ])
 def test_cli_unsupported_paths_raise(bed, tmp_path, extra):
     with pytest.raises(NotImplementedError, match="not ported"):
         cli.main(["--device", "cpu", *_argv(bed, tmp_path / "x"), *extra])
+
+
+@pytest.mark.parametrize("n", ["2", "4"])
+def test_cli_devices_without_ranks_raise(bed, tmp_path, n):
+    """--n-devices D > 1 runs one rank a device: without a process group
+    the CLI names the launcher instead of running one shard."""
+    with pytest.raises(ValueError, match="run_multiprocess_torch.py"):
+        cli.main(["--device", "cpu", *_argv(bed, tmp_path / "x"),
+                  "--n-devices", n])
+    assert not (tmp_path / "x" / "run.csv").exists()
 
 
 def _rng_record(base):

@@ -1,6 +1,7 @@
-"""The port stands alone: no module of ``hydra_tpu_torch`` (nor
-``chip_smoke.py`` or ``scripts/soak_restart_torch.py``) imports JAX or the
-JAX package, and the port's own copies
+"""The port stands alone: no module of ``hydra_tpu_torch`` (its
+``parallel/`` package included; nor ``chip_smoke.py``,
+``scripts/soak_restart_torch.py`` or ``scripts/run_multiprocess_torch.py``)
+imports JAX or the JAX package, and the port's own copies
 of the option parser, readers, dataset assembly and writers behave as the
 JAX package's do on the same inputs."""
 
@@ -40,6 +41,7 @@ def _port_sources():
                 yield os.path.join(d, f)
     yield os.path.join(REPO, "chip_smoke.py")
     yield os.path.join(REPO, "scripts", "soak_restart_torch.py")
+    yield os.path.join(REPO, "scripts", "run_multiprocess_torch.py")
 
 
 def _forbidden(module: str) -> bool:
@@ -184,6 +186,30 @@ def test_writers_are_byte_identical(survival, tmp_path):
                 ".xbet", ".xcpn", ".rng.0") + (() if survival else (".acu",)):
         assert open(bt + ext, "rb").read() == open(bj + ext, "rb").read(), ext
     assert os.path.exists(bt + ".acu") == (not survival)
+
+
+def test_port_sources_include_the_parallel_package():
+    names = {os.path.relpath(p, REPO) for p in _port_sources()}
+    assert {os.path.join("hydra_tpu_torch", "parallel", f)
+            for f in ("distributed.py", "mesh.py")} <= names
+
+
+def test_null_writer_is_a_copy():
+    """Ranks other than 0 get a writer whose every method, the ones the
+    runners call and any other, swallows its arguments, as the JAX
+    package's; dunder lookups still fail (copy, pickle, repr stay sane)."""
+    for w in (twriters.NullWriter(), jwriters.NullWriter()):
+        assert w.on_thin(0, np.zeros(3), np.zeros(3), "row", 0.5) is None
+        assert w.csv_row_brr(0, np.ones(1), 1.0, 3, np.ones((1, 2))) is None
+        assert w.on_save(2, np.zeros(4), np.arange(3), np.zeros(3),
+                         np.zeros(3), gamma=None) is None
+        assert w.commit_save() is None and w.anything(1, k=2) is None
+        with pytest.raises(AttributeError):
+            w.__deepcopy__
+    assert (sorted(vars(twriters.NullWriter)) == sorted(vars(
+        jwriters.NullWriter))
+        and twriters.NullWriter.__getattr__.__code__.co_code
+        == jwriters.NullWriter.__getattr__.__code__.co_code)
 
 
 @pytest.mark.parametrize("value", ["", "0", "8", "16", "32", "auto"])
