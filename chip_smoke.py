@@ -150,6 +150,25 @@ by scripts/run_multiprocess_torch.py, ``chip_smoke.py --rank-child``):
      two ranks sharing one card, not a multi-GPU speed. One two-rank launch
      runs the restart, the sweeps, the chains and the timed sweep; the last
      two wait until the one-rank run is done.
+  3i. in phase 3h's two-rank launch, multi-trait shards and --dcn-slices:
+     one sweep of multi-trait T=4 stale W=64 (10% NaN), exact W=64 (full
+     phenotypes: sweep_exact_mt a window a launch), exact W=64 with 10% NaN
+     (the per-window path) and BayesRRm stale W=64 at --dcn-slices 2, CUDA
+     against the same ranks' CPU sampler (components equal, eps the same
+     bits on both ranks, each wrapper once a window); on phase 3c's bed
+     multi-trait stale W=64 chains of 25 sweeps: --det-sync twice (bit for
+     bit) and at --dcn-slices 2 (byte for byte the flat chain: --det-sync
+     sums over all ranks at any S); without --det-sync flat and at
+     --dcn-slices 2 (hier_sum a window; within the sweep tolerances,
+     components equal), and at --dcn-slices 2 with rank 1 SIGKILLed at
+     iteration 10 (its own launch beside 3h's) and --restart'ed (byte for
+     byte the uninterrupted one); one multi-trait T=4 stale W=64 shard
+     sweep at M=100,000 x N=50,000, ms/sweep by CUDA events and all_reduce
+     ms, as two ranks sharing one card, not a multi-GPU speed, and the
+     window-a-launch route on its first 8 windows against the plain
+     version on the same card tensors; at the stale W=64 shard sweep's
+     size, hier_sum's chunked sum across two slices timed against one
+     all_reduce.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Any failure raises before those lines. JAX
 and the JAX package are blocked: the port must run without them.
@@ -4249,46 +4268,80 @@ SHARD_LAUNCHED = (("bw_w64", "bw", ("--window", "64", "--det-sync", "1"), 8,
 SHARD_REAL = dict(m=100_000, n=50_000, window=64, warmup=1, sweeps=1)
 SHARD_FILES = (".csv", ".bet", ".cpn", ".acu", ".eps.0", ".mus.0", ".mrk.0",
                ".xbet", ".xcpn", ".rng.0")
-SHARD_TIMEOUT = 240
+SHARD_TIMEOUT = 360
+# phase 3i, in phase 3h's two-rank launch: (case, model ("mt_na": phase
+# 3c's phenotypes with 10% NaN), flags, the wrappers a window of the CUDA
+# sweep launches)
+MT_SHARD_SWEEPS = (
+    ("mt_stale_w64", "mt_na", ("--stale", "--window", "64"),
+     ("sweep_stale_mt",)),
+    ("mt_exact_w64", "mt", ("--window", "64"), ("sweep_exact_mt",)),
+    ("mt_exact_w64_nan", "mt_na", ("--window", "64"),
+     ("window_stats_mt", "window_axpy_mt", "mt_window_recurrence")),
+    ("dcn_stale_w64", "brr", ("--stale", "--window", "64", "--dcn-slices",
+                              "2"), ("sweep_stale",)))
+MT_SHARD_CHAIN = dict(iters=25, kill_at=10, extra=("--stale", "--window", "64"))
+DET_SYNC, DCN_SLICES = ("--det-sync", "1"), ("--dcn-slices", "2")
+# phase 3i's chains: name -> flags after MT_SHARD_CHAIN's; "k" is SIGKILLed
+# and --restart'ed, and compared with "dn"
+MT_SHARD_CHAINS = dict(a=DET_SYNC, b=DET_SYNC, dcn=DET_SYNC + DCN_SLICES,
+                       fn=(), dn=DCN_SLICES, k=DCN_SLICES)
+MT_SHARD_REAL = dict(m=100_000, n=50_000, n_traits=4, window=64, warmup=1,
+                     sweeps=1)
 
 
 def shard_argv(tmp, model, name, iters, extra, restart=False):
-    """CLI arguments of a phase-3h run on phase 3's or 3b's bed (thin 5,
-    save 10, seed 7), its outputs in <tmp>/out_shards."""
-    bed = "weibull_M10K_N_5K" if model == "bw" else "t_M10K_N_5K"
-    argv = restart_argv(tmp, bed, model, name, iters, False, extra,
-                        restart=restart)
+    """CLI arguments of a phase-3h run on phase 3's, 3b's or (multi-trait)
+    3c's bed (thin 5, save 10, seed 7), its outputs in <tmp>/out_shards;
+    model "mt_na" takes 3c's phenotypes with 10% NaN."""
+    bed = {"bw": "weibull_M10K_N_5K", "mt": "mt_M10K_N_5K",
+           "mt_na": "mt_M10K_N_5K"}.get(model, "t_M10K_N_5K")
+    argv = restart_argv(tmp, bed, "mt" if model == "mt_na" else model, name,
+                        iters, False, extra, restart=restart)
     argv[argv.index("--mcmc-out-dir") + 1] = os.path.join(tmp, "out_shards")
+    if model == "mt_na":
+        i = argv.index("--pheno") + 1
+        argv[i] = argv[i].replace(".phen", "_na.phen")
     return argv
 
 
-def shard_sweeps(torch, np, tmp):
-    """On each rank, one sweep of every SHARD_SWEEPS case by the CUDA
-    sampler and by the CPU sampler of the same two shards, on the same
-    state and noise (made on the CPU from one seed, the sweep order from a
-    seed a rank): both ranks' samplers sum over the same gloo group.
-    Returns, by case, the CUDA sweep's differences and wrapper launches
-    and the SHA-256 of its eps (the same on every rank)."""
+def shard_sweeps(torch, np, tmp, cases=SHARD_SWEEPS):
+    """On each rank, one sweep of every case by the CUDA sampler and by the
+    CPU sampler of the same two shards, on the same state and noise (made
+    on the CPU from one seed, the sweep order from a seed a rank): both
+    ranks' samplers sum over the same gloo group (over its slices' groups
+    under --dcn-slices). Returns, by case, the CUDA sweep's differences and
+    wrapper launches and the SHA-256 of its eps (the same on every
+    rank)."""
     from hydra_tpu_torch.options import parse_args
-    from hydra_tpu_torch.parallel import distributed
-    from hydra_tpu_torch.runner import dataset_from_options
-    from hydra_tpu_torch.samplers import bayesrrm, bayesw
+    from hydra_tpu_torch.parallel import distributed, mesh
+    from hydra_tpu_torch.runner import (dataset_from_options,
+                                        mt_dataset_from_options)
+    from hydra_tpu_torch.samplers import bayesrrm, bayesrrm_mt, bayesw
     from hydra_tpu_torch.utils.slice_sampler import N_SHRINK, slice_noise
     r, n_dev = distributed.rank(), distributed.world_size()
     dev = distributed.rank_device()
     out = {}
-    for name, model, extra, _ in SHARD_SWEEPS:
+    for name, model, extra, _ in cases:
         opt = parse_args(shard_argv(tmp, model, name, 1, extra))
-        ds = dataset_from_options(opt)
-        mod = bayesw if model == "bw" else bayesrrm
+        mt = model.startswith("mt")
+        if mt:
+            ds, phenos = mt_dataset_from_options(opt)
+            mod = bayesrrm_mt
+        else:
+            ds = dataset_from_options(opt)
+            mod = bayesw if model == "bw" else bayesrrm
 
         def make(device):
+            kw = dict(window=opt.window, seed=7, device=device, n_dev=n_dev,
+                      rank=r, n_dcn=opt.dcn_slices)
+            if mt:
+                return bayesrrm_mt.BayesRRmMT(ds, phenos, exact=opt.exact,
+                                              **kw)
             if model == "bw":
-                return bayesw.BayesW(ds, window=opt.window, seed=7,
-                                     device=device, n_dev=n_dev, rank=r)
-            return bayesrrm.BayesRRm(ds, window=opt.window, exact=opt.exact,
-                                     seed=7, cross_sync=opt.cross_sync,
-                                     device=device, n_dev=n_dev, rank=r)
+                return bayesw.BayesW(ds, **kw)
+            return bayesrrm.BayesRRm(ds, exact=opt.exact,
+                                     cross_sync=opt.cross_sync, **kw)
 
         cpu, gpu = make("cpu"), make(dev)
         g = torch.Generator().manual_seed(5)
@@ -4300,9 +4353,10 @@ def shard_sweeps(torch, np, tmp):
                          mu=slice_noise(g, (), N_SHRINK, "cpu"),
                          alpha=slice_noise(g, (), N_SHRINK, "cpu"))
         else:
-            noise = dict(mu=torch.randn((), generator=g),
-                         u=torch.rand(m_glob, generator=g),
-                         nrm=torch.randn(m_glob, generator=g))
+            shape = (m_glob, cpu.cfg.n_traits) if mt else (m_glob,)
+            noise = dict(mu=torch.randn(shape[1:], generator=g),
+                         u=torch.rand(shape, generator=g),
+                         nrm=torch.randn(shape, generator=g))
         noise["perm"] = torch.randperm(
             cpu.cfg.m_loc, generator=torch.Generator().manual_seed(11 + r))
         s_cpu = cpu.init_state()
@@ -4325,23 +4379,29 @@ def shard_sweeps(torch, np, tmp):
             comp_mismatches=int((a["components"] != b["components"]).sum()),
             n_windows=gpu.cfg.n_windows, launches=launches,
             cpu_s=t1 - t0, cuda_s=t2 - t1,
+            hier=gpu._esum.func is mesh.hier_sum,
+            masked_nonzero=(int((b["eps"][gpu.trait_mask.cpu().numpy() == 0]
+                                 != 0).sum()) if mt else 0),
             eps_sha=hashlib.sha256(b["eps"].tobytes()).hexdigest())
     return out
 
 
-def shard_real_size(torch, np):
+def shard_real_size(torch, np, mt=False):
     """This rank's shard of M=100,000 x N=50,000 stale W=64 (genotypes
-    made on the card from a seed a rank): after the warm-up, ms a sweep by
-    CUDA events, then as many sweeps with each all_reduce of the sampler
-    timed alone (synchronized before and after)."""
+    made on the card from a seed a rank; mt: multi-trait T=4 with full
+    phenotypes): after the warm-up, ms a sweep by CUDA events, then as many
+    sweeps with each all_reduce of the sampler timed alone (synchronized
+    before and after)."""
     from hydra_tpu_torch.data.genotypes import (Dataset, GenotypeData,
                                                 make_default_groups,
                                                 shard_layout)
     from hydra_tpu_torch.parallel import distributed
     from hydra_tpu_torch.samplers.bayesrrm import BayesRRm
+    from hydra_tpu_torch.samplers.bayesrrm_mt import BayesRRmMT
     r, n_dev = distributed.rank(), distributed.world_size()
     dev = distributed.rank_device()
-    m, n, W = SHARD_REAL["m"], SHARD_REAL["n"], SHARD_REAL["window"]
+    real = MT_SHARD_REAL if mt else SHARD_REAL
+    m, n, W = real["m"], real["n"], real["window"]
     starts, lengths, _ = shard_layout(m, n_dev, W)
     s, ln = int(starts[r]), int(lengths[r])
     n_pad = padded_individuals(np, n)
@@ -4356,29 +4416,34 @@ def shard_real_size(torch, np):
     groups, mS = make_default_groups(m, list(MS[1:]))
     ds = Dataset(geno=geno, y=np.random.RandomState(0).randn(n),
                  groups=groups, num_groups=1, mS=mS)
-    smp = BayesRRm(ds, window=W, exact=False, seed=1, device=dev,
-                   packed_device=pk, n_dev=n_dev, rank=r)
+    kw = dict(window=W, exact=False, seed=1, device=dev, packed_device=pk,
+              n_dev=n_dev, rank=r)
+    smp = (BayesRRmMT(ds, mt_phenotypes(np, n, real["n_traits"], 4), **kw)
+           if mt else BayesRRm(ds, **kw))
+    kernel = "sweep_stale_mt" if mt else "sweep_stale"
     st = smp.init_state()
-    k, w = SHARD_REAL["sweeps"], SHARD_REAL["warmup"]
+    k, w = real["sweeps"], real["warmup"]
     reset_all_launches()
     with step_events(torch) as pairs:
         for it in range(w + k):
             st, _ = smp.step(st, it)
     ms = events_ms(torch, pairs, skip=w)
-    launches = all_launches()["sweep_stale"] / (w + k)
+    launches = all_launches()[kernel] / (w + k)
     calls, spent = [0], [0.0]
-    plain = smp._sum
 
-    def timed(v):
-        torch.cuda.synchronize(dev)
-        t0 = time.perf_counter()
-        res = plain(v)
-        torch.cuda.synchronize(dev)
-        spent[0] += time.perf_counter() - t0
-        calls[0] += 1
-        return res
+    def timed(plain):
+        def run(v):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            res = plain(v)
+            torch.cuda.synchronize(dev)
+            spent[0] += time.perf_counter() - t0
+            calls[0] += 1
+            return res
+        return run
 
-    smp._sum = timed
+    # the sums over shards and of the residual's change, each timed alone
+    smp._sum, smp._esum = timed(smp._sum), timed(smp._esum)
     t0 = time.perf_counter()
     for it in range(w + k, w + 2 * k):
         st, _ = smp.step(st, it)
@@ -4386,11 +4451,91 @@ def shard_real_size(torch, np):
     wall = (time.perf_counter() - t0) / k * 1e3
     if not bool(torch.isfinite(st.eps).all()):
         raise AssertionError("non-finite residual on marker shards")
-    return dict(ms=ms, allreduce_ms=spent[0] / k * 1e3,
-                allreduce_calls=calls[0] / k, timed_wall_ms=wall,
-                sweep_stale_per_sweep=launches, n_windows=smp.cfg.n_windows,
-                markers=ln, eps_sha=hashlib.sha256(
-                    st.eps.cpu().numpy().tobytes()).hexdigest())
+    res = dict(ms=ms, allreduce_ms=spent[0] / k * 1e3,
+               allreduce_calls=calls[0] / k, timed_wall_ms=wall,
+               launches_per_sweep=launches, n_windows=smp.cfg.n_windows,
+               markers=ln, eps_sha=hashlib.sha256(
+                   st.eps.cpu().numpy().tobytes()).hexdigest())
+    if mt:
+        res["window_check"] = shard_window_check(torch, smp, st)
+    else:
+        res["dcn_chunks"] = dcn_chunk_cost(torch, st.eps)
+    return res
+
+
+def shard_window_check(torch, smp, st, n_win=8):
+    """The multi-trait window-a-launch route (``sync``: C
+    ``hydra_sweep_windows_mt`` and the per-window sum) on the first
+    ``n_win`` windows of the real-size sampler's card tensors (its packed
+    rows, eps, trait mask and kernel rows from fresh draws), against the
+    plain version run the same way, both with an identity sum: components
+    equal, eps and beta within atol 5e-4 / rtol 1e-3, one launch a
+    window."""
+    from hydra_tpu_torch.ops import sweep_kernel_mt as skmt
+    cfg, dev = smp.cfg, smp.device
+    T, W = cfg.n_traits, cfg.window
+    g = torch.Generator(device=dev).manual_seed(23)
+    u = torch.rand((cfg.m_loc, T), generator=g, device=dev)
+    nrm = torch.randn((cfg.m_loc, T), generator=g, device=dev)
+    mrow = smp.build_mrow(st, u, nrm, smp.active(st))
+    rows = slice(0, n_win * W)
+    args = (smp.packed[rows], st.eps, smp.trait_mask, mrow[rows],
+            0.5 / st.sigma_e, smp.dNm1)
+    kw = dict(window=W, n_mix=cfg.k, complete=cfg.complete,
+              sync=lambda d: d)
+    before = skmt.launches["sweep_stale_mt"]
+    e_k, o_k = skmt.sweep_stale_mt(*args, **kw)
+    torch.cuda.synchronize(dev)
+    n_launch = skmt.launches["sweep_stale_mt"] - before
+    e_r, o_r = skmt.sweep_stale_mt_ref(*args, **kw)
+    if n_launch != n_win:
+        raise AssertionError(f"window-a-launch route: {n_launch} launches "
+                             f"for {n_win} windows")
+    if not torch.equal(o_k[:, T:2 * T], o_r[:, T:2 * T]):
+        raise AssertionError("window-a-launch route at real size: "
+                             "components differ from the plain version")
+    torch.testing.assert_close(e_k, e_r, atol=5e-4, rtol=1e-3)
+    torch.testing.assert_close(o_k[:, :T], o_r[:, :T], atol=5e-4, rtol=1e-3)
+    return dict(windows=n_win, launches=n_launch,
+                d_eps=float((e_k - e_r).abs().max()),
+                d_beta=float((o_k[:, :T] - o_r[:, :T]).abs().max()))
+
+
+def dcn_chunk_cost(torch, eps, reps=20):
+    """ms a call of ``mesh.hier_sum`` over the grid of two slices (the 1-D
+    residual change across slices in DCN_CHUNKS all_reduces, the JAX
+    rule) and of one all_reduce of the same vector over the same dcn
+    group, ``reps`` calls each after one, synchronized around; the two
+    sums must be the same bits (two ranks: a + b either way)."""
+    import torch.distributed as tdist
+    from hydra_tpu_torch.parallel import distributed, mesh
+    groups = distributed.marker_grid(2)
+    v = eps.clone()
+    if v.shape[0] % mesh.DCN_CHUNKS:
+        raise AssertionError(f"n_pad {v.shape[0]} is not a multiple of "
+                             f"{mesh.DCN_CHUNKS}: no chunked sum to time")
+
+    def one(x):
+        out = x.clone()
+        tdist.all_reduce(out, group=groups[1])
+        return out
+
+    def timed(fn):
+        fn(v)
+        torch.cuda.synchronize(v.device)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            out = fn(v)
+        torch.cuda.synchronize(v.device)
+        return (time.perf_counter() - t0) / reps * 1e3, out
+
+    chunked_ms, a = timed(lambda x: mesh.hier_sum(x, groups))
+    single_ms, b = timed(one)
+    if not torch.equal(a, b):
+        raise AssertionError("hier_sum in chunks differs from one "
+                             "all_reduce")
+    return dict(chunked_ms=chunked_ms, single_ms=single_ms,
+                n=int(v.shape[0]), chunks=mesh.DCN_CHUNKS)
 
 
 def rank_child(args):
@@ -4429,11 +4574,17 @@ def rank_child(args):
                     rc = cli._run(parse_args(argv))
                     torch.cuda.synchronize()
                     res["cli"].append(dict(
-                        rc=rc, seconds=time.perf_counter() - t0,
+                        label=task.get("label", "cli"), rc=rc,
+                        seconds=time.perf_counter() - t0,
                         launches={k: v for k, v in all_launches().items()
                                   if v}))
             elif task["kind"] == "sweeps":
                 res["sweeps"] = shard_sweeps(torch, np, task["tmp"])
+            elif task["kind"] == "mt_sweeps":
+                res["mt_sweeps"] = shard_sweeps(torch, np, task["tmp"],
+                                                MT_SHARD_SWEEPS)
+            elif task["kind"] == "mt_real":
+                res["mt_real"] = shard_real_size(torch, np, mt=True)
             else:
                 res["real"] = shard_real_size(torch, np)
             res["seconds"].append(
@@ -4463,27 +4614,31 @@ def start_ranks(tmp, label, nprocs, tasks, backend, same_device=False):
                 t0=time.perf_counter())
 
 
-def kill_rank1(run, csv, at):
-    """SIGKILL rank 1 of ``run`` once ``csv`` shows iteration ``at``; the
-    other ranks go with it (wait_all)."""
+def kill_rank1(kills):
+    """For each (run, csv, at) of ``kills``, all watched at once: SIGKILL
+    rank 1 of ``run`` once ``csv`` shows iteration ``at``; the other ranks
+    go with it (wait_all)."""
     from scripts import run_multiprocess_torch as mp
-    procs = run["procs"]
-    deadline, killed, rows = time.time() + SHARD_TIMEOUT, False, []
-    while time.time() < deadline and not killed:
-        if all(p.poll() is not None for p in procs):
-            break
-        rows = ([ln for ln in open(csv) if ln.strip()]
-                if os.path.exists(csv) else [])
-        if rows and int(rows[-1].split(",")[0]) >= at:
-            procs[1].kill()
-            killed = True
+    deadline, todo, seen = time.time() + SHARD_TIMEOUT, list(kills), {}
+    while time.time() < deadline and todo:
+        for run, csv, at in list(todo):
+            procs = run["procs"]
+            rows = ([ln for ln in open(csv) if ln.strip()]
+                    if os.path.exists(csv) else [])
+            if rows and int(rows[-1].split(",")[0]) >= at:
+                procs[1].kill()
+                seen[run["label"]] = int(rows[-1].split(",")[0])
+                todo.remove((run, csv, at))
+            elif all(p.poll() is not None for p in procs):
+                todo.remove((run, csv, at))
         time.sleep(0.01)
-    mp.wait_all(procs, timeout=60)
-    if not killed:
-        raise AssertionError(f"{run['label']}: the chain ended before the "
-                             "kill")
-    print(f"{run['label']}: rank 1 SIGKILLed at csv iteration "
-          f"{int(rows[-1].split(',')[0])}", flush=True)
+    for run, _, _ in kills:
+        mp.wait_all(run["procs"], timeout=60)
+        if run["label"] not in seen:
+            raise AssertionError(f"{run['label']}: the chain ended before "
+                                 "the kill")
+        print(f"{run['label']}: rank 1 SIGKILLed at csv iteration "
+              f"{seen[run['label']]}", flush=True)
 
 
 def finish_ranks(run):
@@ -4504,10 +4659,18 @@ def finish_ranks(run):
             for r in range(n)]
 
 
-def same_files(a, b):
-    """Names of SHARD_FILES whose bytes differ between output bases a, b."""
-    return [ext for ext in SHARD_FILES
-            if open(a + ext, "rb").read() != open(b + ext, "rb").read()]
+def same_files(a, b, traits=0):
+    """Names of SHARD_FILES whose bytes differ between output bases a, b
+    (multi-trait: every trait's ``.t<k>`` files)."""
+    bases = [f".t{t}" for t in range(traits)] if traits else [""]
+    return [t + ext for t in bases for ext in SHARD_FILES
+            if (open(a + t + ext, "rb").read()
+                != open(b + t + ext, "rb").read())]
+
+
+def cli_runs(rank_res, label):
+    """A rank child's CLI runs of the tasks labelled ``label``."""
+    return [run for run in rank_res["cli"] if run["label"] == label]
 
 
 def phase_shards(torch, np, tmp, card):
@@ -4520,43 +4683,59 @@ def phase_shards(torch, np, tmp, card):
     a stale W=64 --det-sync chain twice (bit for bit), a BayesW chain with
     its wrappers' launches, the chain with rank 1 SIGKILLed and
     --restart'ed (byte for byte), and one M=100,000 x N=50,000 stale W=64
-    shard sweep timed. The one-rank run and the chain to be killed run at
-    once; then one two-rank launch takes the restart and the sweeps beside
-    the one-rank run's tail, waits until that run is checked, and runs the
-    chains and the timed sweep with the card to itself."""
+    shard sweep timed. The one-rank run and the chains to be killed (phase
+    3i's multi-trait one too) run at once; then one two-rank launch takes
+    the restarts and the sweeps (3h's and 3i's) beside the one-rank run's
+    tail, waits until that run is checked, and runs the chains and the
+    timed sweeps with the card to itself. Returns the two ranks' results
+    for phase 3i's checks (``check_mt_shards``)."""
     from hydra_tpu_torch import cli
     from scripts import soak_restart_torch as soak
     out = os.path.join(tmp, "out_shards")
-    ch = SHARD_CHAIN
+    ch, mch = SHARD_CHAIN, MT_SHARD_CHAIN
     plain = [shard_argv(tmp, "brr", f"d1_{k}", 20, extra)
              for k, extra in (("exact", ()), ("stale", ("--stale",)))]
     grouped = [[a.replace("d1_", "d1g_") for a in argv] for argv in plain]
     d1 = start_ranks(tmp, "d1_nccl", 1, [dict(kind="cli", argvs=grouped)],
                      "nccl")
     killed = shard_argv(tmp, "brr", "d2_k", ch["iters"], ch["extra"])
+    mt_killed = shard_argv(tmp, "mt", "mt2_k", mch["iters"],
+                           mch["extra"] + MT_SHARD_CHAINS["k"])
+    kills = []
     try:
-        kill_rank1(start_ranks(tmp, "d2_kill", 2,
-                               [dict(kind="cli", argvs=[killed])], "gloo",
-                               same_device=True),
-                   os.path.join(out, "d2_k.csv"), ch["kill_at"])
+        kills = [start_ranks(tmp, label, 2, [dict(kind="cli", argvs=[argv])],
+                             "gloo", same_device=True)
+                 for label, argv in (("d2_kill", killed),
+                                     ("mt2_kill", mt_killed))]
+        kill_rank1([(kills[0], os.path.join(out, "d2_k.csv"), ch["kill_at"]),
+                    (kills[1], os.path.join(out, "mt2_k.t3.csv"),
+                     mch["kill_at"])])
     except BaseException:
-        for p in d1["procs"]:
+        for p in d1["procs"] + [p for k in kills for p in k["procs"]]:
             p.kill()
         raise
-    # one launch: the restart and the CUDA-against-CPU sweeps beside the
+    # one launch: the restarts and the CUDA-against-CPU sweeps beside the
     # one-rank run, then (once that run is checked) the chains and the
-    # timed sweep alone on the card
+    # timed sweeps alone on the card
     chain = [shard_argv(tmp, "brr", f"d2_{k}", ch["iters"], ch["extra"])
              for k in ("a", "b")]
     launched = [shard_argv(tmp, model, f"d2_{name}", iters, extra)
                 for name, model, extra, iters, _ in SHARD_LAUNCHED]
+    mt_chain = [shard_argv(tmp, "mt", f"mt2_{k}", mch["iters"],
+                           mch["extra"] + extra)
+                for k, extra in MT_SHARD_CHAINS.items() if k != "k"]
     gate = os.path.join(tmp, "d1_checked")
     d2 = start_ranks(tmp, "d2_gloo", 2, [
         dict(kind="cli", label="restart", argvs=[shard_argv(
             tmp, "brr", "d2_k", ch["iters"], ch["extra"], restart=True)]),
-        dict(kind="sweeps", tmp=tmp), dict(kind="wait", path=gate),
+        dict(kind="cli", label="mt_restart", argvs=[shard_argv(
+            tmp, "mt", "mt2_k", mch["iters"],
+            mch["extra"] + MT_SHARD_CHAINS["k"], restart=True)]),
+        dict(kind="sweeps", tmp=tmp),
+        dict(kind="mt_sweeps", tmp=tmp), dict(kind="wait", path=gate),
         dict(kind="cli", label="chains", argvs=chain + launched),
-        dict(kind="real")], "gloo", same_device=True)
+        dict(kind="cli", label="mt_chains", argvs=mt_chain),
+        dict(kind="real"), dict(kind="mt_real")], "gloo", same_device=True)
     try:
         for argv in plain:
             if cli.main(argv) != 0:
@@ -4581,23 +4760,8 @@ def phase_shards(torch, np, tmp, card):
     ranks = finish_ranks(d2)
     print("two ranks, seconds a task (rank 0): " + ", ".join(
         f"{k} {v:.1f}" for k, v in ranks[0]["seconds"]), flush=True)
-    for name, _, _, kernels in SHARD_SWEEPS:
-        rs = [rk["sweeps"][name] for rk in ranks]
-        if len({r["eps_sha"] for r in rs}) != 1:
-            raise AssertionError(f"{name}: the ranks' CUDA eps differ")
-        if any(r["comp_mismatches"] for r in rs):
-            raise AssertionError(f"{name}: components differ, CUDA vs CPU")
-        for r in rs:
-            if any(r["launches"].get(k) != r["n_windows"] for k in kernels):
-                raise AssertionError(f"{name}: launches {r['launches']}, "
-                                     f"want {kernels} once a window")
-        print(f"two ranks, one {name} sweep CUDA vs CPU: max|d eps| "
-              f"{max(r['d_eps'] for r in rs):.3e}  max|d beta| "
-              f"{max(r['d_beta'] for r in rs):.3e}  comp mismatches 0, "
-              f"eps the same bits on both ranks; rank 0 launches "
-              f"{rs[0]['launches']} ({rs[0]['n_windows']} windows); rank 0 "
-              f"CPU sweep {rs[0]['cpu_s']:.1f} s, CUDA {rs[0]['cuda_s']:.1f} s",
-              flush=True)
+    check_shard_sweeps(ranks, "sweeps", SHARD_SWEEPS)
+    chains = cli_runs(ranks[0], "chains")
     bad = same_files(os.path.join(out, "d2_a"), os.path.join(out, "d2_b"))
     if bad:
         raise AssertionError(f"two-rank --det-sync chain not repeatable: "
@@ -4606,9 +4770,8 @@ def phase_shards(torch, np, tmp, card):
                        ch["iters"] // 5)
     print(f"two-rank --det-sync stale W=64 chain ({ch['iters']} sweeps) bit "
           f"for bit repeatable, mean h2 over the last half {h2:.4f}; "
-          f"{ranks[0]['cli'][1]['seconds']:.1f} s", flush=True)
-    for (name, _, _, iters, kernels), run in zip(SHARD_LAUNCHED,
-                                                 ranks[0]["cli"][3:]):
+          f"{chains[0]['seconds']:.1f} s", flush=True)
+    for (name, _, _, iters, kernels), run in zip(SHARD_LAUNCHED, chains[2:]):
         if any(run["launches"].get(k, 0) <= 0 for k in kernels):
             raise AssertionError(f"two-rank {name} chain launched "
                                  f"{run['launches']}, want {kernels}")
@@ -4619,22 +4782,163 @@ def phase_shards(torch, np, tmp, card):
     print(f"two ranks, rank 1 SIGKILLed and --restart'ed: csv rows, .bet, "
           f".cpn, .acu, .mus.0 at iterations {its[0]}..{its[-1]} and the "
           f"last .eps.0 byte for byte the uninterrupted chain's", flush=True)
+    print_shard_real(ranks, "real", "stale W=64", SHARD_REAL, "sweep_stale",
+                     card)
+    dc = [rk["real"]["dcn_chunks"] for rk in ranks]
+    print(f"TWO RANKS SHARING ONE CARD (gloo): --dcn-slices 2's sum of a "
+          f"window's residual change ({dc[0]['n']:,} floats) in "
+          f"{dc[0]['chunks']} chunked all_reduces "
+          f"{max(d['chunked_ms'] for d in dc):.3f} ms a call against one "
+          f"all_reduce {max(d['single_ms'] for d in dc):.3f} ms (rank 0 "
+          f"{dc[0]['chunked_ms']:.3f} / {dc[0]['single_ms']:.3f}), the same "
+          f"bits  [{card}]", flush=True)
+    return ranks
 
-    real = [rk["real"] for rk in ranks]
-    if len({r["eps_sha"] for r in real}) != 1:
-        raise AssertionError("real size: the ranks' eps differ")
-    r0 = real[0]
-    print(f"TWO RANKS SHARING ONE CARD (not a multi-GPU speed): stale W=64, "
-          f"M={SHARD_REAL['m']:,} x N={SHARD_REAL['n']:,}, "
+
+def check_shard_sweeps(ranks, key, cases):
+    """The two ranks' CUDA-against-CPU sweeps of ``cases``: eps the same
+    bits on both ranks, components equal, each wrapper once a window, the
+    trait mask's entries held at 0; a --dcn-slices case summed by
+    hier_sum."""
+    for name, _, extra, kernels in cases:
+        rs = [rk[key][name] for rk in ranks]
+        if len({r["eps_sha"] for r in rs}) != 1:
+            raise AssertionError(f"{name}: the ranks' CUDA eps differ")
+        if any(r["comp_mismatches"] for r in rs):
+            raise AssertionError(f"{name}: components differ, CUDA vs CPU")
+        if any(r["masked_nonzero"] for r in rs):
+            raise AssertionError(f"{name}: masked eps entries are not 0")
+        if any(r["hier"] != ("--dcn-slices" in extra) for r in rs):
+            raise AssertionError(f"{name}: hier_sum {rs[0]['hier']}")
+        for r in rs:
+            if any(r["launches"].get(k) != r["n_windows"] for k in kernels):
+                raise AssertionError(f"{name}: launches {r['launches']}, "
+                                     f"want {kernels} once a window")
+        print(f"two ranks, one {name} sweep CUDA vs CPU: max|d eps| "
+              f"{max(r['d_eps'] for r in rs):.3e}  max|d beta| "
+              f"{max(r['d_beta'] for r in rs):.3e}  comp mismatches 0, "
+              f"eps the same bits on both ranks; rank 0 launches "
+              f"{rs[0]['launches']} ({rs[0]['n_windows']} windows); rank 0 "
+              f"CPU sweep {rs[0]['cpu_s']:.1f} s, CUDA "
+              f"{rs[0]['cuda_s']:.1f} s", flush=True)
+
+
+def print_shard_real(ranks, key, label, real, kernel, card):
+    """The timed shard sweep at M=100,000 x N=50,000 of both ranks."""
+    rs = [rk[key] for rk in ranks]
+    if len({r["eps_sha"] for r in rs}) != 1:
+        raise AssertionError(f"real size {label}: the ranks' eps differ")
+    r0 = rs[0]
+    print(f"TWO RANKS SHARING ONE CARD (not a multi-GPU speed): {label}, "
+          f"M={real['m']:,} x N={real['n']:,}, "
           f"{r0['markers']:,} markers a rank, {r0['n_windows']} windows a "
-          f"rank: {max(r['ms'] for r in real):.2f} ms/sweep by CUDA events "
-          f"(rank 0 {r0['ms']:.2f}, rank 1 {real[1]['ms']:.2f}; "
-          f"{SHARD_REAL['sweeps']} sweep(s) after {SHARD_REAL['warmup']}), "
-          f"all_reduce "
+          f"rank: {max(r['ms'] for r in rs):.2f} ms/sweep by CUDA events "
+          f"(rank 0 {r0['ms']:.2f}, rank 1 {rs[1]['ms']:.2f}; "
+          f"{real['sweeps']} sweep(s) after {real['warmup']}), all_reduce "
           f"{r0['allreduce_ms']:.2f} ms a sweep in {r0['allreduce_calls']:.0f}"
           f" calls (each synchronized before and after; those sweeps "
-          f"{r0['timed_wall_ms']:.2f} ms), sweep_stale launches a sweep "
-          f"{r0['sweep_stale_per_sweep']:.0f}  [{card}]", flush=True)
+          f"{r0['timed_wall_ms']:.2f} ms), {kernel} launches a sweep "
+          f"{r0['launches_per_sweep']:.0f}  [{card}]", flush=True)
+
+
+def chain_diff(np, a, b, m, n, traits):
+    """Two multi-trait chains' outputs held within the sweep tolerances
+    (atol 5e-4, rtol 1e-3), every trait's: csv values, .bet, .acu and
+    .mus.0 records and the last .eps.0; .cpn records equal. Returns the
+    largest absolute difference."""
+    worst = 0.0
+    for t in range(traits):
+        pa, pb = f"{a}.t{t}", f"{b}.t{t}"
+        pairs = [(np.loadtxt(pa + ".csv", delimiter=",", ndmin=2),
+                  np.loadtxt(pb + ".csv", delimiter=",", ndmin=2), ".csv")]
+        for ext, dt, width, hdr in ((".bet", "<f8", m, 4),
+                                    (".acu", "<f8", m, 4),
+                                    (".cpn", "<i4", m, 4),
+                                    (".mus.0", "<f8", 1, 0),
+                                    (".eps.0", "<f8", n, 4)):
+            rec = np.dtype([("it", "<u4"), ("v", dt, (width,))])
+            ra, rb = (np.frombuffer(open(p + ext, "rb").read()[hdr:],
+                                    dtype=rec) for p in (pa, pb))
+            if not np.array_equal(ra["it"], rb["it"]):
+                raise AssertionError(f"{pb}{ext}: other records than {pa}")
+            if ext == ".cpn" and not np.array_equal(ra["v"], rb["v"]):
+                raise AssertionError(f"{pb}.cpn: components differ from {pa}")
+            pairs.append((ra["v"], rb["v"], ext))
+        for x, y, ext in pairs:
+            if x.shape != y.shape or not np.allclose(y, x, atol=5e-4,
+                                                     rtol=1e-3):
+                raise AssertionError(f"{pb}{ext}: beyond the sweep "
+                                     f"tolerances of {pa}")
+            worst = max(worst, float(np.abs(y - x).max(initial=0.0)))
+    return worst
+
+
+def check_mt_shards(np, ranks, tmp, card):
+    """Phase 3i's readings from phase 3h's two-rank launch: the
+    multi-trait and --dcn-slices sweeps against the CPU, the multi-trait
+    --det-sync chain repeatable and at --dcn-slices 2 the flat one byte for
+    byte, the killed chain's restart byte for byte, the timed sweep."""
+    from scripts import soak_restart_torch as soak
+    out, mch, T = os.path.join(tmp, "out_shards"), MT_SHARD_CHAIN, 4
+    tasks = dict(ranks[0]["seconds"])
+    spent = sum(tasks[k] for k in ("mt_restart", "mt_sweeps", "mt_chains",
+                                   "mt_real"))
+    print(f"phase 3i ran inside phase 3h's launch: {spent:.1f} s of rank "
+          f"0's tasks (" + ", ".join(f"{k} {tasks[k]:.1f}" for k in (
+              "mt_restart", "mt_sweeps", "mt_chains", "mt_real")) + "), "
+          "and its killed chain in a launch of its own beside 3h's",
+          flush=True)
+    check_shard_sweeps(ranks, "mt_sweeps", MT_SHARD_SWEEPS)
+    runs = cli_runs(ranks[0], "mt_chains")
+    if any(r["rc"] for r in runs):
+        raise AssertionError(f"multi-trait chains: exit codes "
+                             f"{[r['rc'] for r in runs]}")
+    base = {k: os.path.join(out, f"mt2_{k}") for k in MT_SHARD_CHAINS}
+    bad = same_files(base["a"], base["b"], T)
+    if bad:
+        raise AssertionError(f"two-rank multi-trait --det-sync chain not "
+                             f"repeatable: {bad}")
+    # --det-sync sums over all ranks in rank order at any --dcn-slices:
+    # this shows only that making the slice grid changes nothing
+    bad = same_files(base["a"], base["dcn"], T)
+    if bad:
+        raise AssertionError(f"multi-trait --det-sync chain at --dcn-slices "
+                             f"2 differs from the flat one: {bad}")
+    h2 = [check_outputs(np, f"{base['a']}.t{t}", 10_000, mch["iters"] // 5)
+          for t in range(T)]
+    h2s = ", ".join(f"{v:.4f}" for v in h2)
+    secs = ", ".join(f"{k} {r['seconds']:.1f}"
+                     for k, r in zip([k for k in MT_SHARD_CHAINS if k != "k"],
+                                     runs))
+    print(f"two-rank multi-trait T={T} --det-sync stale W=64 chain "
+          f"({mch['iters']} sweeps) bit for bit repeatable and at "
+          f"--dcn-slices 2 byte for byte the flat chain; mean h2 over the "
+          f"last half {h2s}; rank 0 launches {runs[0]['launches']}; chains "
+          f"{secs} s", flush=True)
+    # without --det-sync: hier_sum every window at --dcn-slices 2
+    worst = chain_diff(np, base["fn"], base["dn"], 10_000, 5_000, T)
+    bad = same_files(base["fn"], base["dn"], T)
+    print(f"two-rank multi-trait chain without --det-sync at --dcn-slices 2 "
+          f"(hier_sum a window) against the flat one: within atol 5e-4 / "
+          f"rtol 1e-3, components equal, max|diff| {worst:.3e}, files that "
+          f"differ in bytes {bad or 'none'}", flush=True)
+    for t in range(T):
+        its = soak.compare_runs(f"{base['dn']}.t{t}",
+                                os.path.join(out, f"mt2_k_rs.t{t}"), 10_000)
+    print(f"two ranks, multi-trait at --dcn-slices 2 without --det-sync, "
+          f"rank 1 SIGKILLed and --restart'ed: every trait's csv rows, .bet, "
+          f".cpn, .acu, .mus.0 at iterations {its[0]}..{its[-1]} and the "
+          f"last .eps.0 byte for byte the uninterrupted chain's", flush=True)
+    wc = [rk["mt_real"]["window_check"] for rk in ranks]
+    print(f"real size, the window-a-launch route (sync) on each rank's first "
+          f"{wc[0]['windows']} windows of the sampler's card tensors against "
+          f"its plain version run the same way: max|d eps| "
+          f"{max(w['d_eps'] for w in wc):.3e}, max|d beta| "
+          f"{max(w['d_beta'] for w in wc):.3e}, components equal, "
+          f"{wc[0]['launches']} launches  [{card}]", flush=True)
+    print_shard_real(ranks, "mt_real",
+                     f"multi-trait T={MT_SHARD_REAL['n_traits']} stale W=64",
+                     MT_SHARD_REAL, "sweep_stale_mt", card)
 
 
 def main() -> int:
@@ -4723,7 +5027,11 @@ def main() -> int:
             new_launches = phase_new_paths_cli(torch, np, tmp, card)
         with phase("3h: marker shards on torch.distributed ranks (M=10,000 "
                    "x N=5,000; one two-rank sweep at M=100,000 x N=50,000)"):
-            phase_shards(torch, np, tmp, card)
+            ranks = phase_shards(torch, np, tmp, card)
+        with phase("3i: multi-trait marker shards and --dcn-slices (run in "
+                   "3h's launch; M=10,000 x N=5,000, T=4; one two-rank "
+                   "sweep at M=100,000 x N=50,000)"):
+            check_mt_shards(np, ranks, tmp, card)
     for name in ("sweep_stale_bw", "window_level_sums", "window_axpy"):
         launches[name] = bw_launches[name]
     for name in ("sweep_stale_mt", "sweep_exact_mt", "window_stats_mt",

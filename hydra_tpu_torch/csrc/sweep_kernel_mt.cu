@@ -30,6 +30,9 @@
 // The exact sweep is valid for complete genotypes and full phenotypes only
 // (the trait-shared integer Gram, standardized with trait 0's statistics
 // and n_real; hydra_tpu/samplers/bayesrrm_mt.py:748-749 gates it the same).
+// On marker shards hydra_sweep_windows_mt runs a range of a sweep's windows
+// (one a call), so the caller can add the ranks' summed residual change
+// between two windows; the exact Grams stay once a batch.
 //
 // What bounds it on this card, per window: stats_mt and axpy_mt each read
 // the W packed rows and the (n_pad, T) residual once, ~W*NB + 4*T*n_pad*
@@ -817,12 +820,16 @@ inline bool shapes_ok_mt(int nb, int W, int T) {
     return W >= 1 && W <= 1024 && T >= 1 && T <= T_MAX && nb > 0 && nb % 128 == 0;
 }
 
+// Windows w_begin .. w_end - 1 of a sweep (0 .. m_loc / W for a whole one).
+// A sweep run as several ranges runs them in order on one workspace: an
+// exact range takes the Grams its batch's first window left there.
 int run_sweep_mt(bool exact, const uint8_t* pk, float* eps, const float* tm,
                  const float* mrow, const int* order, const float* sc, float* out,
                  void* ws_base, int m_loc, int nb, int W, int K, int T, int complete,
-                 cudaStream_t stream) {
+                 int w_begin, int w_end, cudaStream_t stream) {
     if (!shapes_ok_mt(nb, W, T) || m_loc <= 0 || m_loc % W || K < 2 || K > K_MAX ||
-        tm == nullptr || (exact && !complete) || (exact && 4LL * nb > GRAM_I8_MAX_NPAD))
+        tm == nullptr || (exact && !complete) || (exact && 4LL * nb > GRAM_I8_MAX_NPAD) ||
+        w_begin < 0 || w_end > m_loc / W || w_begin > w_end)
         return static_cast<int>(cudaErrorInvalidValue);
     const int C = T * (N_FIXED + 3 * K - 2);
     const MtWorkspace ws = layout_mt(ws_base, m_loc, nb, W, T, exact);
@@ -840,7 +847,7 @@ int run_sweep_mt(bool exact, const uint8_t* pk, float* eps, const float* tm,
     const StaleDrawArgs dr{mrow, C, K, ws.part_s1, ws.part_s2, n_tiles, sc, out};
     const bool fold = !exact && W <= MT_FOLD_MAX_W;
     if (exact) HYDRA_CHECK(allow_smem(draw, draw_smem));
-    for (int w = 0; w < n_windows; ++w) {
+    for (int w = w_begin; w < w_end; ++w) {
         const int* order_w = order + static_cast<size_t>(w) * W;
         const int* next_w = w + 1 < n_windows ? order_w + W : nullptr;
         if (exact) {
@@ -895,8 +902,8 @@ int hydra_sweep_stale_mt(const void* pk, void* eps, const void* tm, const void* 
         false, static_cast<const uint8_t*>(pk), static_cast<float*>(eps),
         static_cast<const float*>(tm), static_cast<const float*>(mrow),
         static_cast<const int*>(order), static_cast<const float*>(sc),
-        static_cast<float*>(out), ws, m_loc, nb, window, n_mix, n_traits, complete,
-        static_cast<cudaStream_t>(stream));
+        static_cast<float*>(out), ws, m_loc, nb, window, n_mix, n_traits, complete, 0,
+        m_loc / window, static_cast<cudaStream_t>(stream));
 }
 
 // A whole exact multi-trait sweep (complete genotypes, full phenotypes);
@@ -909,8 +916,25 @@ int hydra_sweep_exact_mt(const void* pk, void* eps, const void* tm, const void* 
         true, static_cast<const uint8_t*>(pk), static_cast<float*>(eps),
         static_cast<const float*>(tm), static_cast<const float*>(mrow),
         static_cast<const int*>(order), static_cast<const float*>(sc),
-        static_cast<float*>(out), ws, m_loc, nb, window, n_mix, n_traits, complete,
-        static_cast<cudaStream_t>(stream));
+        static_cast<float*>(out), ws, m_loc, nb, window, n_mix, n_traits, complete, 0,
+        m_loc / window, static_cast<cudaStream_t>(stream));
+}
+
+// Windows w_begin .. w_end - 1 of a stale or exact multi-trait sweep, the
+// contract of hydra_sweep_stale_mt / hydra_sweep_exact_mt otherwise: eps is
+// updated in place and out receives those windows' slots. A sweep split
+// into ranges calls them in window order on one workspace, so an exact
+// sweep still launches its Grams once a batch, at the batch's first window.
+int hydra_sweep_windows_mt(int exact, const void* pk, void* eps, const void* tm,
+                           const void* mrow, const void* order, const void* sc, void* out,
+                           void* ws, int m_loc, int nb, int window, int n_mix, int n_traits,
+                           int complete, int w_begin, int w_end, void* stream) {
+    return hydra::run_sweep_mt(
+        exact != 0, static_cast<const uint8_t*>(pk), static_cast<float*>(eps),
+        static_cast<const float*>(tm), static_cast<const float*>(mrow),
+        static_cast<const int*>(order), static_cast<const float*>(sc),
+        static_cast<float*>(out), ws, m_loc, nb, window, n_mix, n_traits, complete, w_begin,
+        w_end, static_cast<cudaStream_t>(stream));
 }
 
 // s1, s2 (W, T) of the window rows pk[rows[r]] against eps (n_pad, T);

@@ -56,6 +56,7 @@ _SIGNATURES = {
     "sweep_kernel_mt.cu": {
         "hydra_sweep_stale_mt": ([_p] * 8 + [_i] * 6 + [_p], _i),
         "hydra_sweep_exact_mt": ([_p] * 8 + [_i] * 6 + [_p], _i),
+        "hydra_sweep_windows_mt": ([_i] + [_p] * 8 + [_i] * 8 + [_p], _i),
         "hydra_window_stats_mt": ([_p] * 6 + [_i] * 4 + [_p], _i),
         "hydra_window_axpy_mt": ([_p] * 4 + [_i] * 4 + [_p], _i),
         "hydra_mt_window_recurrence": ([_p] * 6 + [_i] * 4 + [_p], _i),

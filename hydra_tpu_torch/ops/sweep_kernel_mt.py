@@ -24,6 +24,13 @@ Layouts at this interface:
 Returns (eps', out) with out (m_loc, 3T) = [beta_new (T), comp (T),
 acum (T)] per slot, the JAX ``out`` columns.
 
+On marker shards (one rank a shard) ``sweep_stale_mt`` and
+``sweep_exact_mt`` take ``sync``, which sums a residual change across the
+ranks: the sweep then runs one window a launch (``hydra_sweep_windows_mt``)
+and, after each window, adds the ranks' summed change to the eps it started
+from, held at 0 on masked entries (the JAX ``hpsum(d_eps) * tm_t``,
+bayesrrm_mt.py:474). An exact sweep still computes its Grams once a batch.
+
 ``sweep_stale_mt`` / ``sweep_exact_mt`` / ``mt_window_recurrence`` launch
 the CUDA kernels of ``csrc/sweep_kernel_mt.cu`` for CUDA tensors and raise
 on what the kernels do not take; for CPU tensors they run the plain
@@ -53,10 +60,11 @@ def mt_mrow_width(k: int, t: int) -> int:
     return t * (N_FIXED_BLOCKS + 3 * k - 2)
 
 
-# Kernel launches through each wrapper (one per sweep, one per window
-# recurrence). The sampler's main path must move these; comparisons against
-# the plain versions call the kernels through the same wrappers, so callers
-# reset and read around the run they want to count.
+# Kernel launches through each wrapper (one per sweep, on marker shards one
+# per window; one per window recurrence). The sampler's main path must move
+# these; comparisons against the plain versions call the kernels through the
+# same wrappers, so callers reset and read around the run they want to
+# count.
 launches = {"sweep_stale_mt": 0, "sweep_exact_mt": 0,
             "mt_window_recurrence": 0}
 
@@ -147,6 +155,13 @@ def _check(pk, eps, tm, mrow, i_2se, dNm1, window, n_mix, order):
         raise ValueError(f"order must be ({m_loc},), got {tuple(order.shape)}")
 
 
+def _synced(eps, new, tm, sync):
+    """eps after a window whose update took it to ``new``: on marker
+    shards (sync given) eps plus the ranks' summed change, times the trait
+    mask."""
+    return new if sync is None else eps + sync(new - eps) * tm
+
+
 def _order(order, m_loc, device):
     if order is None:
         return torch.arange(m_loc, device=device)
@@ -156,7 +171,7 @@ def _order(order, m_loc, device):
 @torch.inference_mode()
 def sweep_stale_mt_ref(pk, eps, tm, mrow, i_2se, dNm1, *, window: int,
                        n_mix: int, complete: bool,
-                       order: Optional[torch.Tensor] = None):
+                       order: Optional[torch.Tensor] = None, sync=None):
     """Plain PyTorch stale multi-trait sweep (same math as the kernel)."""
     _check(pk, eps, tm, mrow, i_2se, dNm1, window, n_mix, order)
     m_loc, T = pk.shape[0], eps.shape[1]
@@ -184,16 +199,18 @@ def sweep_stale_mt_ref(pk, eps, tm, mrow, i_2se, dNm1, *, window: int,
         c2 = -c1 * mave
         if complete:
             csum = 2.0 * c1.sum(dim=0) + c2.sum(dim=0)
-            eps = eps + (csum - h.T @ c1) * tm
+            new = eps + (csum - h.T @ c1) * tm
         else:
-            eps = eps + (g.T @ c1 + m.T @ c2) * tm
+            new = eps + (g.T @ c1 + m.T @ c2) * tm
+        eps = _synced(eps, new, tm, sync)
         out[slots] = torch.cat([bnew, comp, acum], dim=1)
     return eps, out
 
 
 @torch.inference_mode()
 def sweep_exact_mt_ref(pk, eps, tm, mrow, i_2se, dNm1, *, window: int,
-                       n_mix: int, order: Optional[torch.Tensor] = None):
+                       n_mix: int, order: Optional[torch.Tensor] = None,
+                       sync=None):
     """Plain PyTorch exact multi-trait sweep (complete genotypes, full
     phenotypes): the trait-shared integer Gram standardized with trait 0's
     mave/mstd and n_real = dNm1[0] + 1 (sweep_kernel_mt.py:391-399), then
@@ -229,7 +246,8 @@ def sweep_exact_mt_ref(pk, eps, tm, mrow, i_2se, dNm1, *, window: int,
         c1 = res[:, 3] * mstd
         c2 = -c1 * mave
         csum = 2.0 * c1.sum(dim=0) + c2.sum(dim=0)
-        eps = eps + (csum - decode_h(pk[slots]).T @ c1) * tm
+        new = eps + (csum - decode_h(pk[slots]).T @ c1) * tm
+        eps = _synced(eps, new, tm, sync)
         out[slots] = res[:, :3].reshape(W, 3 * T)
     return eps, out
 
@@ -311,7 +329,7 @@ def on_device(dev, **tensors) -> None:
 
 
 def _launch(name, exact, pk, eps, tm, mrow, i_2se, dNm1, window, n_mix,
-            complete, order):
+            complete, order, sync=None):
     dev = pk.device
     m_loc, nb = pk.shape
     T = eps.shape[1]
@@ -334,45 +352,60 @@ def _launch(name, exact, pk, eps, tm, mrow, i_2se, dNm1, window, n_mix,
     eps_out = eps.clone()
     out = torch.zeros((m_loc, 3 * T), dtype=f32, device=dev)
     fn = lib.hydra_sweep_exact_mt if exact else lib.hydra_sweep_stale_mt
+    args = (m_loc, nb, window, n_mix, T, int(complete))
+
+    def check(err):
+        if err:
+            _raise(lib, name, err)
+        launches[name] += 1
+
     with torch.cuda.device(dev):
-        err = fn(pk.data_ptr(), eps_out.data_ptr(), tm.data_ptr(),
-                 mrow.data_ptr(), order.data_ptr(), sc.data_ptr(),
-                 out.data_ptr(), ws.data_ptr(), m_loc, nb, window, n_mix, T,
-                 int(complete), _stream(dev))
-    if err:
-        _raise(lib, name, err)
-    launches[name] += 1
+        if sync is None:
+            check(fn(pk.data_ptr(), eps_out.data_ptr(), tm.data_ptr(),
+                     mrow.data_ptr(), order.data_ptr(), sc.data_ptr(),
+                     out.data_ptr(), ws.data_ptr(), *args, _stream(dev)))
+            return eps_out, out
+        # marker shards: a window a launch, its change summed over ranks
+        for w in range(m_loc // window):
+            new = eps_out.clone()
+            check(lib.hydra_sweep_windows_mt(
+                int(exact), pk.data_ptr(), new.data_ptr(), tm.data_ptr(),
+                mrow.data_ptr(), order.data_ptr(), sc.data_ptr(),
+                out.data_ptr(), ws.data_ptr(), *args, w, w + 1, _stream(dev)))
+            eps_out = _synced(eps_out, new, tm, sync)
     return eps_out, out
 
 
 def sweep_stale_mt(pk, eps, tm, mrow, i_2se, dNm1, *, window: int, n_mix: int,
-                   complete: bool, order: Optional[torch.Tensor] = None):
+                   complete: bool, order: Optional[torch.Tensor] = None,
+                   sync=None):
     """Stale multi-trait sweep: the CUDA kernel on CUDA tensors, the plain
     version on CPU tensors."""
     _check(pk, eps, tm, mrow, i_2se, dNm1, window, n_mix, order)
     if pk.device.type == "cpu":
         return sweep_stale_mt_ref(pk, eps, tm, mrow, i_2se, dNm1,
                                   window=window, n_mix=n_mix,
-                                  complete=complete, order=order)
+                                  complete=complete, order=order, sync=sync)
     if pk.device.type != "cuda":
         raise ValueError(f"no sweep kernel for device {pk.device}")
     return _launch("sweep_stale_mt", False, pk, eps, tm, mrow, i_2se, dNm1,
-                   window, n_mix, complete, order)
+                   window, n_mix, complete, order, sync)
 
 
 def sweep_exact_mt(pk, eps, tm, mrow, i_2se, dNm1, *, window: int, n_mix: int,
-                   order: Optional[torch.Tensor] = None):
+                   order: Optional[torch.Tensor] = None, sync=None):
     """Exact multi-trait sweep (complete genotypes and full phenotypes only;
     dNm1 is the same for every trait): the CUDA kernel on CUDA tensors, the
     plain version on CPU tensors."""
     _check(pk, eps, tm, mrow, i_2se, dNm1, window, n_mix, order)
     if pk.device.type == "cpu":
         return sweep_exact_mt_ref(pk, eps, tm, mrow, i_2se, dNm1,
-                                  window=window, n_mix=n_mix, order=order)
+                                  window=window, n_mix=n_mix, order=order,
+                                  sync=sync)
     if pk.device.type != "cuda":
         raise ValueError(f"no sweep kernel for device {pk.device}")
     return _launch("sweep_exact_mt", True, pk, eps, tm, mrow, i_2se, dNm1,
-                   window, n_mix, True, order)
+                   window, n_mix, True, order, sync)
 
 
 def mt_window_recurrence(gram, num0, mrow, i_2se, *, n_mix: int,

@@ -261,13 +261,18 @@ def build_parser() -> argparse.ArgumentParser:
       help="marker shards, one torch.distributed rank and device each: 0 "
            "or the number of ranks the launcher started "
            "(scripts/run_multiprocess_torch.py, torchrun); BayesRRm, "
-           "BayesFH and BayesW")
+           "BayesFH, BayesW and multi-trait BayesRRm")
     a("--ind-shards", dest="ind_shards", type=int, default=1,
       help="the JAX package's individual-axis shards; not ported to "
-           "hydra_tpu_torch (refused above 1)")
+           "hydra_tpu_torch (refused above 1: the JAX package runs them in "
+           "one process, the port runs one process a device)")
     a("--dcn-slices", dest="dcn_slices", type=int, default=1,
-      help="the JAX package's multi-slice hierarchy; not ported to "
-           "hydra_tpu_torch (refused above 1)")
+      help="S slices of the marker ranks (S divides them): rank r = s "
+           "(D/S) + m is slice s, position m, and holds marker shard r as "
+           "on the flat layout; each window's residual change is summed "
+           "over the slice's ranks, then across slices (a 1-D residual in "
+           "8 chunks). Every sampler; with --det-sync 1 the chain is the "
+           "flat one bit for bit")
     a("--dtype", dest="dtype", default="float32",
       choices=["float32", "float64"],
       help="sampler accumulation dtype (the reference is f64 end-to-end): "
@@ -301,7 +306,9 @@ def build_parser() -> argparse.ArgumentParser:
            "one all_reduce, the rows added locally): the same bits on any "
            "backend or layout, at D times the payload")
     a("--cross-sync", dest="cross_sync", type=int, default=0,
-      help="exact mode, >1 marker shards: apply OTHER shards' delta-betas "
+      help="exact mode, >1 marker shards, single-trait BayesRRm/FH "
+           "(multi-trait ignores it with an INFO line, as the JAX CLI "
+           "does): apply OTHER shards' delta-betas "
            "to the in-window correction every B markers (must divide the "
            "window). Default 0 = once per window (the window-boundary "
            "residual sum; no in-window collective — strictly fresher than "

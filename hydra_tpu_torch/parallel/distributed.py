@@ -16,6 +16,10 @@ on one device). Nothing falls back: a failed init raises.
 Only ``all_reduce`` and ``broadcast`` are issued (here and in
 ``parallel/mesh.py``), which NCCL and gloo take on CPU and CUDA tensors
 alike. Every rank must call a collective at the same point.
+
+``--dcn-slices S`` lays the D ranks out as the JAX package's hierarchical
+mesh (``make_mesh(D, n_dcn=S)``): ``marker_grid`` makes one group a slice
+and one a position across slices, which ``mesh.hier_sum`` reduces over.
 """
 
 from __future__ import annotations
@@ -103,9 +107,47 @@ def init_distributed(device: str = "") -> bool:
 _DEVICE: Optional[torch.device] = None
 
 
+# n_dcn -> this rank's (slice group, dcn group), made by marker_grid
+_GRIDS: dict = {}
+
+
+def marker_grid(n_dcn: int):
+    """This rank's (slice group, dcn group) on the slice-major grid of
+    ``make_mesh(D, n_dcn=S)`` (hydra_tpu/parallel/mesh.py:68,
+    ``grid.reshape(n_dcn, n_marker)``): rank r = s (D / S) + m is slice s,
+    position m, and holds marker shard r, as on the flat mesh. The slice
+    group (the "markers" axis) holds the D / S ranks of slice s, the dcn
+    group (the "dcn" axis) the S ranks at position m. Every rank makes every
+    group, the slices' first, in the same order, on its first call (a
+    collective point); later calls return the same groups. An S that does
+    not divide D raises."""
+    n = world_size()
+    if n_dcn < 1 or n % n_dcn:
+        raise ValueError(f"--dcn-slices {n_dcn} must divide the {n} ranks "
+                         "(slices of equal size, as make_mesh requires)")
+    if n_dcn not in _GRIDS:
+        n_m, r = n // n_dcn, rank()
+        mine = [None, None]
+        for s in range(n_dcn):
+            g = tdist.new_group([s * n_m + m for m in range(n_m)])
+            if r // n_m == s:
+                mine[0] = g
+        for m in range(n_m):
+            g = tdist.new_group([s * n_m + m for s in range(n_dcn)])
+            if r % n_m == m:
+                mine[1] = g
+        _GRIDS[n_dcn] = tuple(mine)
+    return _GRIDS[n_dcn]
+
+
 def destroy() -> None:
-    """Leave the process group (the CLI's last step)."""
+    """Leave the process group (the CLI's last step): the grid's groups
+    first, then the default group."""
     if tdist.is_initialized():
+        for groups in _GRIDS.values():
+            for g in groups:
+                tdist.destroy_process_group(g)
+        _GRIDS.clear()
         tdist.destroy_process_group()
 
 
@@ -137,7 +179,8 @@ def host_device() -> torch.device:
 
 def gather_markers(t: torch.Tensor) -> torch.Tensor:
     """Marker-sharded state (m_loc, ...) of every rank, stacked in rank
-    order (D * m_loc, ...), for the writer on rank 0 (the counterpart of
+    order (D * m_loc, ...) (multi-trait: (m_loc, T) -> (D m_loc, T)), for
+    the writer on rank 0 (the counterpart of
     ``fetch_global``, the reference's MPI_Gatherv into rank 0's buffers,
     BayesRRm.cpp:2768-2795). Every rank calls it at the same point and gets
     the result (``mesh.gather_rows``: one all_reduce that only adds values

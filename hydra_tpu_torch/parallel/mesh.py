@@ -1,6 +1,6 @@
-"""Collectives over the 1-D marker mesh: one rank a marker shard.
+"""Collectives over the marker mesh: one rank a marker shard.
 
-The 1-D part of ``hydra_tpu/parallel/mesh.py``. The reference shards
+The marker part of ``hydra_tpu/parallel/mesh.py``. The reference shards
 markers across MPI ranks and keeps the residual replicated, summing each
 window's change with MPI_Allreduce (BayesRRm.cpp:2456-2460); the JAX
 package does it with ``psum`` over the "markers" axis. Here the ranks of
@@ -17,6 +17,12 @@ the default ``torch.distributed`` group are the shards, in rank order.
                same one-hot all_reduce: the exact exchange's all_gather
   shard_sum    a sampler's sum over its shards (the JAX ``ma_sum``):
                det_sum under --det-sync, else marker_sum
+  hier_sum     the port of ``hier_psum`` (--dcn-slices S): the sum over
+               this rank's slice, then over its position across slices,
+               a 1-D vector whose length divides by DCN_CHUNKS in that
+               many chunks
+  residual_sum the sum of a window's residual change (the JAX ``hpsum``):
+               hier_sum for S > 1 without --det-sync, else shard_sum
 
 Each is an ``all_reduce``, which NCCL and gloo take on CPU and CUDA tensors
 (gloo has no all_gather of CUDA tensors). Every rank calls each at the
@@ -24,6 +30,8 @@ same point.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.distributed as tdist
@@ -70,3 +78,44 @@ def shard_sum(v: torch.Tensor, n_dev: int, det: bool) -> torch.Tensor:
     if n_dev == 1:
         return v
     return (det_sum if det else marker_sum)(v)
+
+
+# The JAX hier_psum's chunk count over the dcn axis (mesh.py:115-136). There
+# it lets XLA overlap the chunks' transfers; here each chunk is a blocking
+# all_reduce of its own, the same elementwise sum in DCN_CHUNKS calls.
+DCN_CHUNKS = 8
+
+
+def hier_sum(v: torch.Tensor, groups) -> torch.Tensor:
+    """v summed over the marker hierarchy of ``distributed.marker_grid``
+    (the JAX ``hier_psum``, hydra_tpu/parallel/mesh.py:115-136): one
+    all_reduce over the rank's slice group, then over its dcn group, which
+    a 1-D v whose length divides by DCN_CHUNKS crosses in DCN_CHUNKS
+    separate all_reduces of a chunk each and anything else (the (n_pad, T)
+    multi-trait change) in one. A group of one rank is skipped. A new
+    tensor; v is left as it is."""
+    slice_g, dcn_g = groups
+    out = v.clone()
+    if tdist.get_world_size(slice_g) > 1:
+        tdist.all_reduce(out, group=slice_g)
+    if tdist.get_world_size(dcn_g) == 1:
+        return out
+    if out.dim() == 1 and out.shape[0] % DCN_CHUNKS == 0:
+        for part in out.view(DCN_CHUNKS, -1):
+            tdist.all_reduce(part, group=dcn_g)
+    else:
+        tdist.all_reduce(out, group=dcn_g)
+    return out
+
+
+def residual_sum(n_dev: int, det: bool, n_dcn: int = 1):
+    """A sampler's sum of a window's residual change over its shards (the
+    JAX ``hpsum``): ``hier_sum`` over the grid of ``n_dcn`` slices when
+    n_dcn > 1 without --det-sync (the grid's groups made here, a collective
+    point), else ``shard_sum``, so a --det-sync chain at any n_dcn is the
+    flat one bit for bit, as ``det_psum`` runs over the whole flattened
+    marker axis."""
+    if n_dcn > 1 and not det:
+        return functools.partial(hier_sum,
+                                 groups=distributed.marker_grid(n_dcn))
+    return functools.partial(shard_sum, n_dev=n_dev, det=det)

@@ -18,11 +18,13 @@ record of that iteration is on disk; the previous save's files stay as
 ``<file>.prev`` until then (``McmcWriter.commit_save``), so a kill inside a
 save restarts from the save before it.
 
-Under a process group (``parallel/distributed.py``) BayesRRm, BayesFH and
-BayesW run one marker shard a rank: each rank reads only its shard's
-``.bed`` rows, rank 0 alone writes (``NullWriter`` on the others) and reads
-a restart, which it broadcasts, and the marker-sharded state comes to rank
-0 through ``gather_markers`` at every record, on every rank alike.
+Under a process group (``parallel/distributed.py``) BayesRRm, BayesFH,
+BayesW and multi-trait BayesRRm run one marker shard a rank, the ranks
+laid out as ``--dcn-slices`` slices where it is given: each rank reads
+only its shard's ``.bed`` rows, rank 0 alone writes (``NullWriter`` on the
+others) and reads a restart, which it broadcasts, and the marker-sharded
+state comes to rank 0 through ``gather_markers`` at every record, on every
+rank alike.
 """
 
 from __future__ import annotations
@@ -61,8 +63,9 @@ def mixture_components(opt: Options) -> int:
 
 def check_supported(opt: Options) -> None:
     """Raise before any data is read for what the port does not run, with
-    the reason: multi-trait on more than one device, --ind-shards and
-    --dcn-slices; --n-devices other than 0 or the number of ranks (each
+    the reason: --ind-shards; a --dcn-slices S that does not divide the
+    ranks (the JAX ``make_mesh`` raises the same, hydra_tpu/parallel/
+    mesh.py:57-60); --n-devices other than 0 or the number of ranks (each
     rank is one marker shard on one device, so D > 1 needs D ranks under
     a launcher); and the port's own limits, which the JAX package does not
     have: W > W_MAX (one draw thread a marker, ops/sweep_kernel.py), more
@@ -72,15 +75,19 @@ def check_supported(opt: Options) -> None:
     # (hydra_tpu/cli.py sends every bayesWMPI run to run_bayesw)
     multi = opt.multi_phen and not is_bw
     world = distributed.world_size()
-    if multi and (opt.n_devices > 1 or world > 1):
+    if opt.ind_shards > 1:
         raise NotImplementedError(
-            "not ported to hydra_tpu_torch yet: multi-trait on more than "
-            "one device — use python -m hydra_tpu.cli for it")
-    if opt.ind_shards > 1 or opt.dcn_slices > 1:
-        raise NotImplementedError(
-            "not ported to hydra_tpu_torch yet: --ind-shards and "
-            "--dcn-slices (the port shards markers only, one rank a "
-            "device) — use python -m hydra_tpu.cli for these")
+            "--ind-shards is not ported to hydra_tpu_torch: the JAX package "
+            "runs it in one process only (hydra_tpu/samplers/bayesrrm.py:"
+            "981-984), and the port runs one process a device, so it would "
+            "need a 2-D rank grid with every window's partial sums reduced "
+            "over the individuals between the statistics and the draw — "
+            "use python -m hydra_tpu.cli for it")
+    if opt.dcn_slices < 1 or world % opt.dcn_slices:
+        raise ValueError(
+            f"--dcn-slices {opt.dcn_slices} must divide the {world} ranks of "
+            "this launch: the ranks form dcn-slices slices of equal size, "
+            "one marker shard a rank (launch a multiple of it)")
     if opt.n_devices > 1 and world == 1:
         raise ValueError(
             f"--n-devices {opt.n_devices} runs one rank a device: launch "
@@ -108,14 +115,19 @@ def check_supported(opt: Options) -> None:
 
 def note_ignored_flags(opt: Options) -> None:
     """The JAX runner passes --cache-planes and --dtype to BayesRRm alone
-    (hydra_tpu/runner.py:388-392); BayesW and multi-trait ignore them, and
-    say so here."""
+    (hydra_tpu/runner.py:388-392), and --cross-sync to single-trait
+    BayesRRm alone (its multi-trait sampler is built without it, :190-193);
+    BayesW and multi-trait ignore them, and say so here."""
     if opt.plane_cache == "on":
         print("INFO   : --cache-planes on ignored (only single-trait BayesRRm "
               "reads the int8 planes)", flush=True)
     if opt.dtype == "float64":
         print("INFO   : --dtype float64 ignored (only single-trait BayesRRm "
               "and BayesFH run float64); this chain runs float32", flush=True)
+    if opt.cross_sync and opt.multi_phen and opt.bayes_type != "bayesWMPI":
+        print("INFO   : --cross-sync ignored by multi-trait BayesRRm (the "
+              "JAX CLI builds it without it): exact windows on marker shards "
+              "exchange at the window boundary", flush=True)
 
 
 def autosize_exact_window(opt: Options, n: int) -> None:
@@ -272,15 +284,15 @@ def apply_restart_rng(opt: Options, rd: RestartData) -> None:
               f"not reproduce the uninterrupted one", flush=True)
 
 
-def read_restart_on_rank0(*args, **kw) -> RestartData:
-    """``read_restart`` on rank 0, its result broadcast to every rank (the
-    other ranks may not see rank 0's files; the JAX runner reads them on
-    every process, hydra_tpu/runner.py:380). A failure on rank 0 raises on
-    every rank."""
+def on_rank0(fn, *args, **kw):
+    """``fn(*args, **kw)`` on rank 0, its result broadcast to every rank
+    (the other ranks may not see rank 0's files; the JAX runner reads them
+    on every process, hydra_tpu/runner.py:380). A failure on rank 0 raises
+    on every rank."""
     res = None
     if distributed.is_primary():
         try:
-            res = ("ok", read_restart(*args, **kw))
+            res = ("ok", fn(*args, **kw))
         except Exception as e:              # noqa: BLE001 - sent on, raised
             res = ("error", e)
     kind, value = distributed.broadcast_object(res)
@@ -289,10 +301,23 @@ def read_restart_on_rank0(*args, **kw) -> RestartData:
     return value
 
 
+def read_mt_restart(opt: Options, n_traits: int, m: int, n: int) -> list:
+    """Every trait's RestartData at the last save that every trait's csv
+    holds (a kill between two traits' rows leaves the later traits one save
+    behind)."""
+    last = min(last_save_iteration(opt.mcmc_out + f".t{t}.csv", opt.save)
+               for t in range(n_traits))
+    return [read_restart(opt.mcmc_out + f".t{t}", m, n, opt.save,
+                         use_xfiles=opt.use_xfiles_in_restart,
+                         covariates=opt.covariates, iteration=last or None)
+            for t in range(n_traits)]
+
+
 def shard_args(opt: Options) -> dict:
-    """The sampler's marker-shard arguments: one shard a rank."""
+    """The sampler's marker-shard arguments: one shard a rank, the ranks in
+    --dcn-slices slices."""
     return dict(n_dev=distributed.world_size(), rank=distributed.rank(),
-                det_sync=bool(opt.det_sync))
+                det_sync=bool(opt.det_sync), n_dcn=int(opt.dcn_slices))
 
 
 def new_writer(*args, **kw):
@@ -323,9 +348,9 @@ def run_bayesrrm(opt: Options, dataset: Optional[Dataset] = None,
     autosize_exact_window(opt, ds.n)
     rd = None
     if opt.restart:
-        rd = read_restart_on_rank0(opt.mcmc_out, ds.m, ds.n, opt.save,
-                                   use_xfiles=opt.use_xfiles_in_restart,
-                                   covariates=opt.covariates)
+        rd = on_rank0(read_restart, opt.mcmc_out, ds.m, ds.n, opt.save,
+                      use_xfiles=opt.use_xfiles_in_restart,
+                      covariates=opt.covariates)
         apply_restart_rng(opt, rd)
         restart_outputs(opt)
     sampler = BayesRRm(ds, window=opt.window, exact=opt.exact,
@@ -446,7 +471,8 @@ def mt_dataset_from_options(opt: Options):
     """(Dataset, phenos (T, N)) for a multi-trait run: every individual
     keeps its genotypes, NaN phenotypes are masked per trait, not removed,
     and covariates (a comma-separated file without IDs) are read for all
-    N individuals (hydra_tpu/runner.py:159-179, one process)."""
+    N individuals (hydra_tpu/runner.py:159-179). Under a process group each
+    rank reads its shard's .bed rows (``rank_marker_slice``)."""
     n = opt.number_individuals or plink.read_fam(opt.bed_file + ".fam").n
     m = opt.number_markers or plink.read_bim(opt.bed_file + ".bim").m
     phenos = read_multi_phenos(opt, n)
@@ -458,16 +484,20 @@ def mt_dataset_from_options(opt: Options):
     if opt.group_index_file:
         grp = groups_io.read_group_file(opt.group_index_file)
         mS = groups_io.read_ms_file(opt.group_mixture_file)
-    ds = load_dataset(opt.bed_file, ph, n=n, m=m, groups=grp, mS=mS, S=opt.S)
+    offset, count = rank_marker_slice(opt, m)
+    ds = load_dataset(opt.bed_file, ph, n=n, m=m, groups=grp, mS=mS, S=opt.S,
+                      marker_offset=offset, marker_count=count)
     return ds, phenos
 
 
 def run_bayesrrm_mt(opt: Options, verbose: bool = True) -> dict:
     """Multi-trait BayesRRm chain (``--pheno a,b,...``) with per-trait
     hydra outputs ``<out>.t<k>.{csv,bet,cpn,acu,...}``, on ``opt.device``
-    (hydra_tpu/runner.py:150-304). A restart reads every trait's files,
-    their covariate dumps included, and so restores gamma, which the JAX
-    runner does not (it reads them without ``covariates``)."""
+    (hydra_tpu/runner.py:150-304), on one device or a marker shard a rank
+    (rank 0 writes and reads the restart). A restart reads every trait's
+    files, their covariate dumps included, and so restores gamma, which the
+    JAX runner does not (it reads them without ``covariates``). As the JAX
+    runner, it builds the sampler without --cross-sync."""
     check_supported(opt)
     note_ignored_flags(opt)
     device = _device(opt)
@@ -476,29 +506,25 @@ def run_bayesrrm_mt(opt: Options, verbose: bool = True) -> dict:
     autosize_exact_window(opt, ds.n)
     rds = None
     if opt.restart:
-        # the last save every trait's csv holds (a kill between two traits'
-        # rows leaves the later traits one save behind)
-        last = min(last_save_iteration(opt.mcmc_out + f".t{t}.csv", opt.save)
-                   for t in range(T))
-        rds = [read_restart(opt.mcmc_out + f".t{t}", ds.m, ds.n, opt.save,
-                            use_xfiles=opt.use_xfiles_in_restart,
-                            covariates=opt.covariates, iteration=last or None)
-               for t in range(T)]
+        rds = on_rank0(read_mt_restart, opt, T, ds.m, ds.n)
         apply_restart_rng(opt, rds[0])
         restart_outputs(opt)
     sampler = BayesRRmMT(ds, phenos, window=opt.window, exact=opt.exact,
                          shuffle=bool(opt.shuffle_markers), seed=opt.seed,
-                         schedule=opt.schedule, mega=opt.mega, device=device)
+                         schedule=opt.schedule, mega=opt.mega, device=device,
+                         **shard_args(opt))
     state = (sampler.init_state() if rds is None
              else sampler.init_state_from_restart(rds))
     start_it = 0 if rds is None else rds[0].start_iteration
-    writers = [McmcWriter(opt.mcmc_out + f".t{t}", ds.m, ds.n, ds.num_groups,
+    writers = [new_writer(opt.mcmc_out + f".t{t}", ds.m, ds.n, ds.num_groups,
                           ds.mS.shape[1], opt.thin, opt.save, opt.seed,
                           covariates=opt.covariates, window=opt.window,
                           exact=opt.exact, schedule=sampler.cfg.schedule)
                for t in range(T)]
     marker_order = sampler.slot_to_marker[
         sampler.slot_to_marker >= 0].astype(np.int32)
+    gather = distributed.gather_markers
+    primary = distributed.is_primary()
 
     tot_proc = write_s = 0.0
     stats = None
@@ -512,10 +538,11 @@ def run_bayesrrm_mt(opt: Options, verbose: bool = True) -> dict:
         on_log = verbose and it % 10 == 0
         pulls = dict(sigma_g=state.sigma_g, sigma_e=state.sigma_e)
         if on_thin or on_save:
-            pulls.update(beta=state.beta, components=state.components,
-                         mu=state.mu)
+            pulls.update(beta=gather(state.beta),
+                         components=gather(state.components), mu=state.mu)
         if on_thin:
-            pulls.update(m0=stats.m0, est_pi=state.est_pi, acum=state.acum)
+            pulls.update(m0=stats.m0, est_pi=state.est_pi,
+                         acum=gather(state.acum))
         if on_save:
             pulls.update(eps=state.eps, gamma=state.gamma)
         h = fetch_host(pulls)
@@ -545,15 +572,16 @@ def run_bayesrrm_mt(opt: Options, verbose: bool = True) -> dict:
                 w.commit_save()
         tot_proc += time.time() - t0
         write_s += time.time() - t_w
-        if on_log:
+        if on_log and primary:
             sg = h["sigma_g"].sum(axis=1)
             se = h["sigma_e"]
             print(f"RESULT : it {it:4d}: h2 per trait = "
                   f"{np.array2string(sg / (sg + se), precision=4)}",
                   flush=True)
     n_done = opt.chain_length - start_it
-    if verbose and n_done > 0:
-        print(telemetry.exit_line(tot_proc, n_done), flush=True)
+    if verbose and n_done > 0 and primary:
+        print(telemetry.exit_line(tot_proc, n_done,
+                                  distributed.world_size()), flush=True)
     return dict(state=state, stats=stats, sampler=sampler,
                 total_seconds=tot_proc, write_seconds=write_s,
                 mcmc_out=opt.mcmc_out)
@@ -570,9 +598,9 @@ def run_bayesw(opt: Options, dataset: Optional[Dataset] = None,
     ds = dataset if dataset is not None else dataset_from_options(opt)
     rd = None
     if opt.restart:
-        rd = read_restart_on_rank0(opt.mcmc_out, ds.m, ds.n, opt.save,
-                                   use_xfiles=opt.use_xfiles_in_restart,
-                                   covariates=opt.covariates, survival=True)
+        rd = on_rank0(read_restart, opt.mcmc_out, ds.m, ds.n, opt.save,
+                      use_xfiles=opt.use_xfiles_in_restart,
+                      covariates=opt.covariates, survival=True)
         apply_restart_rng(opt, rd)
         restart_outputs(opt)
     sampler = BayesW(ds, window=opt.window, shuffle=bool(opt.shuffle_markers),

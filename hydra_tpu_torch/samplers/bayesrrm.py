@@ -45,8 +45,10 @@ every rank draws every shard's block permutation in shard order), each
 shard's own sweep order (its generator keyed by the shard, as
 ``fold_in(site(_S_PERM), dev)``), the per-slot noise drawn over all D m_loc
 slots and sliced at rank m_loc, and the residual replicated: after every
-window each rank adds the ranks' summed change (``marker_sum``, or
-``det_sum`` with det_sync). The branches at D > 1:
+window each rank adds the ranks' summed change (``mesh.residual_sum``:
+``marker_sum``, ``det_sum`` with det_sync, ``hier_sum`` over the slices of
+``--dcn-slices`` (n_dcn), whose shard layout is the flat one). The
+branches at D > 1:
   - whole sweep (float32, stale, or exact with cross_sync >= W, W >= 8,
     mega not off; the JAX ``use_wmega``): the whole-sweep kernels a window
     a launch, the exact Grams still once a batch (``sync`` of
@@ -143,6 +145,41 @@ def global_slots(starts, lengths, m_loc: int, schedule: str, seed: int):
     return slot_to_marker, perms
 
 
+def shard_rows(x, cfg):
+    """This shard's rows of a per-slot array over all D m_loc slots (a
+    draw, or ``slot_to_marker``): rows rank m_loc .. (rank + 1) m_loc, the
+    JAX ``dynamic_slice(.., dev m_loc)``. ``cfg`` is a sampler's config
+    (m_loc, n_dev, rank). An array of another length raises."""
+    if x.shape[0] != cfg.m_glob:
+        raise ValueError(f"a per-slot array has D m_loc = {cfg.m_glob} rows, "
+                         f"got {x.shape[0]}")
+    return x[cfg.rank * cfg.m_loc:(cfg.rank + 1) * cfg.m_loc]
+
+
+def sweep_order(cfg, seed: int, it: int, site: int, device: torch.device,
+                noise: Optional[dict] = None) -> torch.Tensor:
+    """Slots in the order sweep ``it`` visits them (int32), for any
+    sampler's ``cfg`` (shuffle, schedule, window, m_loc, rank, n_dev): the
+    identity without shuffling, else a permutation of the windows (block
+    schedule) or of the slots, given as noise "wperm" / "perm" or drawn
+    from the generator of draw site ``site`` (the sampler's ``_S_PERM``)
+    keyed by the shard."""
+    noise = noise or {}
+    if not cfg.shuffle:
+        return torch.arange(cfg.m_loc, dtype=torch.int32, device=device)
+    block = cfg.schedule == "block"
+    perm = noise.get("wperm" if block else "perm")
+    if perm is None:
+        perm = torch.randperm(cfg.n_windows if block else cfg.m_loc,
+                              device=device,
+                              generator=dist.shard_generator(
+                                  seed, it, site, device, cfg.rank,
+                                  cfg.n_dev))
+    if block:
+        return block_order(perm.to(device), cfg.window)
+    return perm.to(device, torch.int32)
+
+
 def resolve_device(name: str) -> torch.device:
     """``--device``: empty means cuda. A CUDA request without a card raises;
     the CPU path runs only when asked for."""
@@ -184,6 +221,7 @@ class BayesRRmConfig:
     cross_sync: int = 0        # exact, D > 1: steps between exchanges (W:
                                # the window-boundary residual sum only)
     det_sync: bool = False     # rank-order sums, the same on any topology
+    n_dcn: int = 1             # --dcn-slices: slices of the marker hierarchy
     # FH hyper-priors (options.hpp:89-96)
     v0L: float = 3.0
     v0t: float = 3.0
@@ -265,7 +303,7 @@ class BayesRRm:
                  dtype: str = "float32", device="cuda",
                  packed_device: Optional[torch.Tensor] = None,
                  n_dev: int = 1, rank: int = 0, cross_sync: int = 0,
-                 det_sync: bool = False):
+                 det_sync: bool = False, n_dcn: int = 1):
         """fh: BayesFH, with the hyper-priors v0L, v0t, v0c, s02c, tau0 of
         ``fh_params`` (the CLI defaults where absent). mega: "off" takes
         the per-window branch ("auto"/"on": the whole-sweep kernels, which
@@ -281,7 +319,8 @@ class BayesRRm:
         n_dev, under a process group of n_dev ranks (``dataset.geno`` may
         hold this shard's rows alone, from ``marker_offset``); cross_sync
         (exact): steps between the cross-shard exchanges, 0 = the window;
-        det_sync: rank-order sums (``mesh.det_sum``)."""
+        det_sync: rank-order sums (``mesh.det_sum``); n_dcn: the slices of
+        ``--dcn-slices`` (the residual's change summed by ``hier_sum``)."""
         self.ds = dataset
         self.seed = int(seed)
         self.device = (device if isinstance(device, torch.device)
@@ -351,12 +390,15 @@ class BayesRRm:
             per_window=per_window, planes=planes, sub_window=sub_window,
             n_cov=0 if dataset.X is None else int(dataset.X.shape[1]),
             fh=bool(fh), dtype=dtype, n_dev=n_dev, rank=rank, cross_sync=cs,
-            det_sync=bool(det_sync), **{k: float(fhp.get(k, d)) for k, d in (
+            det_sync=bool(det_sync), n_dcn=int(n_dcn),
+            **{k: float(fhp.get(k, d)) for k, d in (
                 ("v0L", 3.0), ("v0t", 3.0), ("v0c", 3.0), ("s02c", 1.0),
                 ("tau0", 1.0))})
-        # sums over the marker shards (the JAX ma_sum)
+        # sums over the marker shards (the JAX ma_sum) and of the residual's
+        # change (its hpsum)
         self._sum = functools.partial(mesh.shard_sum, n_dev=n_dev,
                                       det=bool(det_sync))
+        self._esum = mesh.residual_sum(n_dev, bool(det_sync), int(n_dcn))
         if self.device.type == "cuda":
             self._check_memory(nb)
 
@@ -365,7 +407,6 @@ class BayesRRm:
         self.slot_to_marker, perms = global_slots(starts, lengths, m_loc,
                                                   schedule, self.seed)
         p = perms[rank]
-        self.local = slice(rank * m_loc, (rank + 1) * m_loc)
         s, ln = int(starts[rank]), int(lengths[rank])
         ls = s - geno.marker_offset          # this shard's rows in geno
         groups_g = np.zeros(m_loc, dtype=np.int32)
@@ -473,18 +514,10 @@ class BayesRRm:
     def _gen(self, it: int, site: int) -> torch.Generator:
         return dist.site_generator(self.seed, it, site, self.device)
 
-    def _local(self, x: torch.Tensor) -> torch.Tensor:
-        """This shard's part of a per-slot draw made over all D m_loc
-        slots (the JAX ``dynamic_slice(.., dev m_loc)``); a draw of m_loc
-        values is this shard's already."""
-        if x.shape[0] == self.cfg.m_loc:
-            return x
-        return x[self.local]
-
     def _sync(self):
         """The window's residual change summed over shards, or None on one
         shard (the whole sweep is then one call)."""
-        return self._sum if self.cfg.n_dev > 1 else None
+        return self._esum if self.cfg.n_dev > 1 else None
 
     def init_state(self) -> BayesRRmState:
         """init_from_scratch (BayesRRm.cpp:1224-1240, :1564-1584)."""
@@ -544,7 +577,7 @@ class BayesRRm:
         ``rd.start_iteration``."""
         cfg, dev = self.cfg, self.device
         st = self.init_state()
-        local = self.slot_to_marker[self.local]
+        local = shard_rows(self.slot_to_marker, cfg)
         sel = local >= 0
         marker = local[sel]
 
@@ -577,25 +610,8 @@ class BayesRRm:
     def sweep_order(self, it: int, noise: Optional[dict] = None
                     ) -> torch.Tensor:
         """Slots in the order sweep `it` visits them (int32)."""
-        cfg, dev = self.cfg, self.device
-        noise = noise or {}
-        if not cfg.shuffle:
-            return torch.arange(cfg.m_loc, dtype=torch.int32, device=dev)
-        if cfg.schedule == "block":
-            wperm = noise.get("wperm")
-            if wperm is None:
-                wperm = torch.randperm(cfg.n_windows, device=dev,
-                                       generator=dist.shard_generator(
-                                           self.seed, it, _S_PERM, dev,
-                                           cfg.rank, cfg.n_dev))
-            return block_order(wperm.to(dev), cfg.window)
-        perm = noise.get("perm")
-        if perm is None:
-            perm = torch.randperm(cfg.m_loc, device=dev,
-                                  generator=dist.shard_generator(
-                                      self.seed, it, _S_PERM, dev,
-                                      cfg.rank, cfg.n_dev))
-        return perm.to(dev, torch.int32)
+        return sweep_order(self.cfg, self.seed, it, _S_PERM, self.device,
+                           noise)
 
     def build_mrow(self, state: BayesRRmState, u: torch.Tensor,
                    nrm: torch.Tensor, active: torch.Tensor,
@@ -695,7 +711,7 @@ class BayesRRm:
                           + c2.sum()) * self.ind_mask)
             else:
                 d_eps = window_axpy(self.packed, c1, c2, False, rows)
-            eps = eps + self._sum(d_eps)
+            eps = eps + self._esum(d_eps)
             outs.append(torch.stack([bnew, comp, acum, dbeta], dim=1))
         out = torch.empty((cfg.m_loc, 4), dtype=self.dt, device=self.device)
         out[slots] = torch.cat(outs)
@@ -735,7 +751,7 @@ class BayesRRm:
             else:
                 bnew, comp, acum, dbeta = stale_draw(rows, num0, i2se, K)
                 outs.append(torch.stack([bnew, comp, acum, dbeta], dim=1))
-            eps = eps + self._sum(dbeta @ xt)
+            eps = eps + self._esum(dbeta @ xt)
         out = torch.empty((cfg.m_loc, 4), dtype=self.dt, device=self.device)
         out[slots] = torch.cat(outs)
         return eps, out
@@ -854,7 +870,7 @@ class BayesRRm:
         if nrm is None:
             nrm = torch.randn(cfg.m_glob, dtype=self.dt, device=dev,
                               generator=self._gen(it, _S_NORM))
-        u, nrm = self._local(u), self._local(nrm)
+        u, nrm = shard_rows(u, cfg), shard_rows(nrm, cfg)
         # adaV: markers of zeroed groups are skipped (BayesRRm.cpp:1589-1597)
         active = ((state.sigma_g[self.groups] > 0.0) & (self.valid > 0.0)
                   & (self.mstd > 0.0))
@@ -868,7 +884,8 @@ class BayesRRm:
                                    dtype=self.dt, device=dev)
                 g_nu = dist.gamma_rng(self._gen(it, _S_NU), shape)
                 g_lam = dist.gamma_rng(self._gen(it, _S_LAM), shape)
-            g_nu, g_lam = self._local(g_nu.to(dev)), self._local(g_lam.to(dev))
+            g_nu = shard_rows(g_nu.to(dev), cfg)
+            g_lam = shard_rows(g_lam.to(dev), cfg)
             nu = (cfg.v0L / state.lambda_var + 1.0) / g_nu
             csl = state.c_slab[self.groups]
             lamt = torch.maximum(

@@ -1,4 +1,4 @@
-"""Multi-trait BayesRRm on one device.
+"""Multi-trait BayesRRm on one device or on D marker shards.
 
 Port of ``hydra_tpu/samplers/bayesrrm_mt.py`` (``BayesRRmMT``; reference
 BayesRRm_mt::runMpiGibbsMultiTraits, src/BayesRRm_mt.cpp:290-1426). T traits
@@ -37,20 +37,44 @@ setup permutation and the RNG site ids are the JAX sampler's; ``step(...,
 noise=...)`` takes the draws from the caller. The Gram is a float32 matmul:
 on CUDA, TF32 must be off (``torch.backends.cuda.matmul.allow_tf32``; the
 runner turns it off).
+
+Marker shards (n_dev = D > 1, one ``torch.distributed`` rank a shard)
+follow the JAX sampler on ``make_mesh(D)`` (``make_mesh(D, n_dcn=S)``
+under ``n_dcn``) as the single-trait sampler's do: the slot layout of
+``global_slots`` (every rank draws every shard's block permutation in shard
+order, bayesrrm_mt.py:845-861), each shard's sweep order keyed by the shard
+(:272-283), the per-(slot, trait) noise drawn over all D m_loc slots and
+sliced at rank m_loc (:286-291), the masked statistics from the rank's own
+``.bed`` rows, and the residual replicated: after every window each rank
+adds the ranks' summed change (``mesh.residual_sum``: ``hier_sum`` under
+n_dcn > 1, ``det_sum`` under det_sync), times the trait mask. ``schedule=
+"auto"`` is marker. The branches at D > 1, as the JAX gates decide them
+(:745-766, the TPU terms left out):
+  - whole sweep, a window a launch (``sync``): W >= 8, mega not off, and
+    stale, or exact on complete genotypes and full phenotypes with
+    cross_sync >= W (the JAX ``use_wmega``);
+  - per window (``window_sweep``) otherwise, the sum after each window's
+    axpy; exact with cross_sync B < W draws with every shard's Gram blocks
+    from the ranks' gathered rows (``_cross_blocks``) and exchanges the
+    other shards' steps every B steps (``_cross_recurrence``, the JAX
+    :391-456).
+The component counts and sums of beta^2 are summed over ranks; the
+hyper-parameter draws and the covariates' sweep are the same on every rank.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from dataclasses import dataclass
 from typing import Optional, Union
 
 import numpy as np
 import torch
 
-from hydra_tpu_torch.data.genotypes import Dataset, shard_layout
+from hydra_tpu_torch.data.genotypes import Dataset, marker_shards
 from hydra_tpu_torch.ops.decode import decode_planes_hp, hpack_bytes
-from hydra_tpu_torch.ops.sweep_kernel import K_MAX, W_MAX, block_order
+from hydra_tpu_torch.ops.sweep_kernel import K_MAX, W_MAX
 from hydra_tpu_torch.ops.sweep_kernel_mt import (T_MAX, _blocks,
                                                  draw_normalized,
                                                  mt_mrow_width,
@@ -58,9 +82,11 @@ from hydra_tpu_torch.ops.sweep_kernel_mt import (T_MAX, _blocks,
                                                  sweep_exact_mt,
                                                  sweep_stale_mt)
 from hydra_tpu_torch.ops.window_kernels import window_axpy_mt, window_stats_mt
+from hydra_tpu_torch.parallel import distributed, mesh
 from hydra_tpu_torch.samplers.bayesrrm import (S02E, S02F, S02G_DEFAULT,
-                                               V0E, V0G_DEFAULT,
-                                               resolve_device)
+                                               V0E, V0G_DEFAULT, global_slots,
+                                               resolve_device, shard_rows,
+                                               sweep_order)
 from hydra_tpu_torch.utils import dist
 
 f32 = torch.float32
@@ -87,11 +113,28 @@ class MtConfig:
     exact: bool          # exact and W > 1 (exact W = 1 is the stale sweep)
     full_pheno: bool     # no NaN phenotype: trait-shared statistics
     n_cov: int = 0       # covariates (fixed effects)
-    per_window: bool = False   # mega="off": the per-window branches
+    per_window: bool = False   # the per-window branches (mega="off"; D > 1:
+                               # W < 8 or an in-window exchange)
+    n_dev: int = 1       # marker shards, one rank each
+    rank: int = 0        # this rank's shard
+    cross_sync: int = 0  # exact, D > 1: steps between exchanges (W: the
+                         # window-boundary residual sum only)
+    det_sync: bool = False     # rank-order sums, the same on any topology
+    n_dcn: int = 1       # --dcn-slices: slices of the marker hierarchy
 
     @property
     def n_windows(self) -> int:
         return self.m_loc // self.window
+
+    @property
+    def m_glob(self) -> int:
+        return self.m_loc * self.n_dev
+
+    @property
+    def cross(self) -> bool:
+        """Exact windows that exchange steps across shards inside the
+        window (cross_sync < W), the JAX sampler's not ``local_exact``."""
+        return self.n_dev > 1 and self.exact and self.cross_sync < self.window
 
 
 @dataclass
@@ -195,12 +238,20 @@ class BayesRRmMT:
     def __init__(self, dataset: Dataset, phenos: np.ndarray, *, window: int,
                  exact: bool = True, shuffle: bool = True, seed: int = 0,
                  schedule: str = "auto", mega: str = "auto", device="cuda",
-                 packed_device: Optional[torch.Tensor] = None):
+                 packed_device: Optional[torch.Tensor] = None,
+                 n_dev: int = 1, rank: int = 0, cross_sync: int = 0,
+                 det_sync: bool = False, n_dcn: int = 1):
         """phenos: (T, N) raw phenotypes with NaN for missing. mega: "off"
         takes the per-window branches ("auto"/"on": the whole-sweep
-        kernels where the JAX sampler's run). packed_device: the genotypes already h-packed on the device, (M, NB)
-        uint8 in marker order, for data generated there; then
-        ``dataset.geno`` supplies only n, n_pad and the marker statistics."""
+        kernels where the JAX sampler's run). packed_device: the genotypes
+        already h-packed on the device, (M, NB) uint8 in marker order, for
+        data generated there; then ``dataset.geno`` supplies only n, n_pad
+        and the marker statistics. n_dev > 1: this rank's shard ``rank`` of
+        n_dev, under a process group of n_dev ranks (``dataset.geno`` may
+        hold this shard's rows alone, from ``marker_offset``); cross_sync
+        (exact): steps between the cross-shard exchanges, 0 = the window;
+        det_sync: rank-order sums (``mesh.det_sum``); n_dcn: the slices of
+        ``--dcn-slices`` (the residual's change summed by ``hier_sum``)."""
         self.ds = dataset
         self.seed = int(seed)
         self.device = dev = (device if isinstance(device, torch.device)
@@ -221,12 +272,25 @@ class BayesRRmMT:
         complete = bool(geno.nm_global_sum == 0)
         full_ph = bool(np.isfinite(phenos).all())
         shared_gram = complete and full_ph
+        n_dev, rank = int(n_dev), int(rank)
         # exact with W = 1 is the plain sequential schedule: the stale
         # sweep of one-marker windows (bayesrrm_mt.py:694-696)
         exact = exact and window > 1
+        # cross-shard exchange interval (the JAX rule, bayesrrm_mt.py:697-701)
+        cs = min(cross_sync, window) if cross_sync > 0 else window
+        if exact and cs < window and window % cs:
+            raise ValueError(f"--cross-sync {cs} must divide the window "
+                             f"({window})")
+        # D > 1: the whole-sweep kernels a window a launch where the JAX
+        # use_wmega runs them (W >= 8, no in-window exchange), else the
+        # per-window branch
+        per_window = (mega == "off"
+                      or (n_dev > 1 and (window < 8
+                                         or (exact and cs < window))))
         if schedule == "auto":
             schedule = ("block" if (window >= 8 and mega != "off"
-                                    and (not exact or shared_gram))
+                                    and (not exact or shared_gram)
+                                    and n_dev == 1)
                         else "marker")
             if schedule == "block":
                 print("INFO   : mt block schedule (whole-sweep kernel streams "
@@ -239,15 +303,21 @@ class BayesRRmMT:
                   "sequential-Gibbs semantics preserved; the window-width "
                   "invariance is waived (scan order depends on the window "
                   "partition)", flush=True)
-        starts, lengths, m_loc = shard_layout(geno.m_global, 1, window,
-                                              dataset.blocks)
+        starts, lengths, m_loc = marker_shards(geno.m_global, n_dev, rank,
+                                               window, dataset.blocks)
         self.cfg = cfg = MtConfig(
             n_pad=geno.n_pad, m_tot=geno.m_global, m_loc=m_loc, window=window,
             k=K, num_groups=dataset.num_groups, n_traits=T, shuffle=shuffle,
             schedule=schedule, complete=complete, exact=exact,
             full_pheno=full_ph,
             n_cov=0 if dataset.X is None else int(dataset.X.shape[1]),
-            per_window=mega == "off")
+            per_window=per_window, n_dev=n_dev, rank=rank, cross_sync=cs,
+            det_sync=bool(det_sync), n_dcn=int(n_dcn))
+        # sums over the marker shards (the JAX ma_sum) and of the residual's
+        # change (its hpsum)
+        self._sum = functools.partial(mesh.shard_sum, n_dev=n_dev,
+                                      det=bool(det_sync))
+        self._esum = mesh.residual_sum(n_dev, bool(det_sync), int(n_dcn))
         nb = (geno.packed if packed_device is None else packed_device).shape[1]
         if dev.type == "cuda":
             self._check_memory(nb)
@@ -255,50 +325,48 @@ class BayesRRmMT:
         # masks and per-trait centred/scaled phenotypes
         self._y, mask, self._nonas = scaled_phenotypes(phenos)
 
-        # per-(marker, trait) masked statistics; full phenotypes take the
-        # genotype statistics every trait shares
-        s, ln = int(starts[0]), int(lengths[0])
+        # per-(marker, trait) masked statistics of this shard's rows; full
+        # phenotypes take the genotype statistics every trait shares
+        s, ln = int(starts[rank]), int(lengths[rank])
+        ls = s - geno.marker_offset          # this shard's rows in geno
         if full_ph:
-            mave = np.tile(geno.mave[s:s + ln, None], (1, T))
-            mstd = np.tile(geno.mstd[s:s + ln, None], (1, T))
+            mave = np.tile(geno.mave[ls:ls + ln, None], (1, T))
+            mstd = np.tile(geno.mstd[ls:ls + ln, None], (1, T))
         else:
             src = (geno.packed if packed_device is None
-                   else packed_device)[s:s + ln]
+                   else packed_device)[ls:ls + ln]
             mv, ms = masked_marker_stats(
                 src, n, torch.as_tensor(mask, dtype=torch.float64,
                                         device=dev))
             mave, mstd = mv.cpu().numpy(), ms.cpu().numpy()
 
         # ---- slot layout: slot = marker, then the block setup permutation
+        # (every shard's slot_to_marker, the JAX sampler's stream,
+        # bayesrrm_mt.py:845-861; this shard's rows and statistics)
+        self.slot_to_marker, perms = global_slots(starts, lengths, m_loc,
+                                                  schedule, self.seed)
+        p = perms[rank]
         groups_g = np.zeros(m_loc, dtype=np.int32)
         mave_g = np.zeros((m_loc, T), dtype=np.float32)
         mstd_g = np.zeros((m_loc, T), dtype=np.float32)
         valid_g = np.zeros(m_loc, dtype=np.float32)
-        slot_to_marker = np.full(m_loc, -1, dtype=np.int64)
         mave_g[:ln] = mave
         mstd_g[:ln] = mstd
         groups_g[:ln] = dataset.groups[s:s + ln]
         valid_g[:ln] = 1.0
-        slot_to_marker[:ln] = np.arange(s, s + ln)
-        p = np.arange(m_loc)
-        if schedule == "block":
-            # same stream as the JAX sampler (bayesrrm_mt.py:845-860)
-            rs = np.random.RandomState((self.seed ^ 0x5EED1) & 0x7FFFFFFF)
-            p = rs.permutation(m_loc)
         groups_g, mave_g, mstd_g = groups_g[p], mave_g[p], mstd_g[p]
-        valid_g, slot_to_marker = valid_g[p], slot_to_marker[p]
-        self.slot_to_marker = slot_to_marker
+        valid_g = valid_g[p]
 
         if packed_device is None:
             # pad slots are all-missing: PLINK 0x55, h-packed 0xFF
             packed_g = np.full((m_loc, nb), 0b01010101, dtype=np.uint8)
-            packed_g[:ln] = geno.packed[s:s + ln]
+            packed_g[:ln] = geno.packed[ls:ls + ln]
             self.packed = torch.from_numpy(hpack_bytes(packed_g[p])).to(dev)
             del packed_g
         else:
             rows = torch.full((m_loc, nb), 0xFF, dtype=torch.uint8,
                               device=dev)
-            rows[:ln] = packed_device[s:s + ln]
+            rows[:ln] = packed_device[ls:ls + ln]
             self.packed = rows[torch.from_numpy(p).to(dev)]
             del rows
 
@@ -402,8 +470,9 @@ class BayesRRmMT:
         resumes at ``rds[0].start_iteration``."""
         cfg, dev = self.cfg, self.device
         st = self.init_state()
-        sel = self.slot_to_marker >= 0
-        marker = self.slot_to_marker[sel]
+        local = shard_rows(self.slot_to_marker, cfg)
+        sel = local >= 0
+        marker = local[sel]
         T, n = cfg.n_traits, self.ds.geno.n
         eps = np.zeros((cfg.n_pad, T), np.float32)
         beta = np.zeros((cfg.m_loc, T), np.float32)
@@ -432,21 +501,8 @@ class BayesRRmMT:
     def sweep_order(self, it: int, noise: Optional[dict] = None
                     ) -> torch.Tensor:
         """Slots in the order sweep `it` visits them (int32)."""
-        cfg, dev = self.cfg, self.device
-        noise = noise or {}
-        if not cfg.shuffle:
-            return torch.arange(cfg.m_loc, dtype=torch.int32, device=dev)
-        if cfg.schedule == "block":
-            wperm = noise.get("wperm")
-            if wperm is None:
-                wperm = torch.randperm(cfg.n_windows, device=dev,
-                                       generator=self._gen(it, _S_PERM))
-            return block_order(wperm.to(dev), cfg.window)
-        perm = noise.get("perm")
-        if perm is None:
-            perm = torch.randperm(cfg.m_loc, device=dev,
-                                  generator=self._gen(it, _S_PERM))
-        return perm.to(dev, torch.int32)
+        return sweep_order(self.cfg, self.seed, it, _S_PERM, self.device,
+                           noise)
 
     def active(self, state: MtState) -> torch.Tensor:
         """(m_loc, T): sigma_g[t, group] > 0, a real slot, mstd > 0
@@ -520,7 +576,11 @@ class BayesRRmMT:
         298-492, with its Pallas window kernels), per window: stats ->
         num0 -> the draw -> axpy. Exact: the Gram and the recurrence;
         stale: every (marker, trait) drawn from the frozen residual (torch
-        ops: ``draw_normalized``, the JAX ``draw_rows``). Returns (eps',
+        ops: ``draw_normalized``, the JAX ``draw_rows``). On marker shards
+        each window's change is summed over the ranks before the trait
+        mask (the JAX ``hpsum(d_eps) * tm_t``, bayesrrm_mt.py:474, 478), and
+        exact windows with cross_sync < W draw through
+        ``_cross_recurrence`` on every shard's Gram blocks. Returns (eps',
         out (m_loc, 3T))."""
         cfg = self.cfg
         W, T = cfg.window, cfg.n_traits
@@ -537,7 +597,10 @@ class BayesRRmMT:
             b = _blocks(mrow[slots], T)
             mave_w, mstd_w, bold = b[:, 0], b[:, 1], b[:, 2]
             num0 = mstd_w * (s1 - mave_w * s2) + bold * self.dNm1
-            if cfg.exact:
+            if cfg.cross:
+                bnew, comp, acum, db = self._cross_recurrence(
+                    self._cross_blocks(slots, mave_w, mstd_w), num0, b, i2se)
+            elif cfg.exact:
                 gram = self.window_gram(slots, mave_w, mstd_w)
                 bnew, comp, acum, db = mt_window_recurrence(
                     gram, num0.contiguous(), mrow, i2se, n_mix=cfg.k,
@@ -551,9 +614,100 @@ class BayesRRmMT:
                                    rows=rows)
             if cfg.complete:
                 d_eps = d_eps + c2.sum(dim=1)[None, :]
-            eps = eps + d_eps * self.trait_mask
+            eps = eps + self._esum(d_eps) * self.trait_mask
             out[slots] = torch.cat([bnew, comp, acum], dim=1)
         return eps, out
+
+    def _cross_blocks(self, slots, mave_w, mstd_w):
+        """Every shard's Gram blocks of an exact window (the JAX
+        ``_mt_gram_blocks``, bayesrrm_mt.py:118-214, as torch ops):
+        blocks[d, j, k] = x~_j (this shard) . x~_k (shard d's window) with
+        full phenotypes, (D, W, W); blocks[d, t, j, k] under trait t's
+        mask and statistics with NaN phenotypes, (D, T, W, W). The ranks'
+        packed rows (W, NB) and statistics rows (W, 2T) are gathered
+        (``mesh.gather_rows``, exact) and each shard's block rebuilt here:
+        complete genotypes with full phenotypes from the integer Gram and
+        the rank-1 standardization, otherwise from the standardized rows.
+        The JAX sampler passes the rows round a ring (a gather under dcn);
+        both give the same blocks within the sweep tolerances."""
+        cfg = self.cfg
+        T = cfg.n_traits
+        pk = self.packed[slots]
+        g, m = decode_planes_hp(pk)                              # (W, n_pad)
+        pk_all = mesh.gather_rows(pk)                            # (D, W, NB)
+        st_all = mesh.gather_rows(torch.cat([mave_w, mstd_w], dim=1))
+        ma0, ms0 = mave_w[:, 0], mstd_w[:, 0]
+        if cfg.full_pheno:
+            if cfg.complete:
+                v = g.sum(dim=1)
+            else:
+                xt = (g - ma0[:, None] * m) * ms0[:, None]
+        else:
+            xt = ((g[None] - mave_w.T[:, :, None] * m[None])
+                  * mstd_w.T[:, :, None])                        # (T, W, n)
+            xm = xt * self.trait_mask.T[:, None, :]
+        blocks = []
+        for d in range(cfg.n_dev):
+            g_d, m_d = decode_planes_hp(pk_all[d])
+            ma_d, ms_d = st_all[d, :, 0], st_all[d, :, T]
+            if cfg.full_pheno and cfg.complete:
+                blocks.append((ms0[:, None] * ms_d[None, :]) * (
+                    g @ g_d.T - ma_d[None, :] * v[:, None]
+                    - ma0[:, None] * g_d.sum(dim=1)[None, :]
+                    + self.dN[0] * (ma0[:, None] * ma_d[None, :])))
+            elif cfg.full_pheno:
+                blocks.append(xt @ ((g_d - ma_d[:, None] * m_d)
+                                    * ms_d[:, None]).T)
+            else:
+                ma_t, ms_t = st_all[d, :, :T].T, st_all[d, :, T:].T
+                xt_d = ((g_d[None] - ma_t[:, :, None] * m_d[None])
+                        * ms_t[:, :, None])
+                blocks.append(torch.bmm(xm, xt_d.transpose(1, 2)))
+        return torch.stack(blocks)
+
+    def _cross_recurrence(self, blocks, num0, b, i2se):
+        """An exact window's recurrence on marker shards with cross_sync
+        B < W (the JAX bayesrrm_mt.py:391-456): marker j of every shard
+        draws at the same step from num0_j + corr_j (``draw_normalized``,
+        the JAX ``draw_rows``); its own shard's (T,) delta enters corr at
+        once, the other shards' every B steps (one gather of the (B, T)
+        deltas, added through their blocks); B = 1 gathers every step.
+        b is the window's (W, 3K+4, T) column blocks. Returns (beta_new,
+        comp, acum, dbeta), each (W, T)."""
+        cfg = self.cfg
+        W, B = cfg.window, cfg.cross_sync
+        shared = blocks.dim() == 3
+        own = blocks[cfg.rank]                          # (W, W) or (T, W, W)
+
+        def col(x, j):                                   # (W, 1) or (W, T)
+            return x[:, j:j + 1] if shared else x[:, :, j].T
+
+        corr = torch.zeros_like(num0)
+        res = []
+        for bi in range(W // B):
+            dbs = []
+            for j in range(bi * B, (bi + 1) * B):
+                bnew, comp, acum = draw_normalized(b[j], num0[j] + corr[j],
+                                                   i2se, cfg.k)
+                db = b[j, 2] - bnew
+                res.append(torch.stack([bnew, comp, acum, db]))
+                dbs.append(db)
+                if B > 1:
+                    corr = corr + col(own, j) * db[None, :]
+            db_b = torch.stack(dbs)                                # (B, T)
+            db_all = mesh.gather_rows(db_b)                        # (D, B, T)
+            cols = slice(bi * B, (bi + 1) * B)
+            if shared:
+                cross = torch.einsum("dst,dws->wt", db_all,
+                                     blocks[:, :, cols])
+                own_c = torch.einsum("st,ws->wt", db_b, own[:, cols])
+            else:
+                cross = torch.einsum("dst,dtws->wt", db_all,
+                                     blocks[:, :, :, cols])
+                own_c = torch.einsum("st,tws->wt", db_b, own[:, :, cols])
+            corr = corr + cross if B == 1 else corr + cross - own_c
+        res = torch.stack(res, dim=1)                            # (4, W, T)
+        return res[0], res[1], res[2], res[3]
 
     def step(self, state: MtState, it: int, noise: Optional[dict] = None):
         """One Gibbs sweep. `noise` (tests) may supply the standard-normal
@@ -574,29 +728,34 @@ class BayesRRmMT:
         mu = eps.sum(dim=0) / dN + torch.sqrt(state.sigma_e / dN) * z.to(dev)
         eps = (eps - mu[None, :] * tm).contiguous()
 
-        # ---- schedule and per-(slot, trait) randomness ----
+        # ---- schedule and per-(slot, trait) randomness, drawn over all
+        # D m_loc slots and sliced at this shard's ----
         order = self.sweep_order(it, noise)
         u = noise.get("u")
         if u is None:
-            u = torch.rand((cfg.m_loc, T), dtype=f32, device=dev,
+            u = torch.rand((cfg.m_glob, T), dtype=f32, device=dev,
                            generator=self._gen(it, _S_UNIF))
         nrm = noise.get("nrm")
         if nrm is None:
-            nrm = torch.randn((cfg.m_loc, T), dtype=f32, device=dev,
+            nrm = torch.randn((cfg.m_glob, T), dtype=f32, device=dev,
                               generator=self._gen(it, _S_NORM))
+        u, nrm = shard_rows(u.to(dev), cfg), shard_rows(nrm.to(dev), cfg)
         active = self.active(state)
-        mrow = self.build_mrow(state, u.to(dev), nrm.to(dev), active)
+        mrow = self.build_mrow(state, u, nrm, active)
         i2se = 0.5 / state.sigma_e
 
-        # ---- the sweep: one of three branches (module docstring) ----
+        # ---- the sweep: one of three branches (module docstring); on
+        # marker shards the whole sweeps run a window a launch ----
+        sync = self._esum if cfg.n_dev > 1 else None
         if not cfg.exact and not cfg.per_window:
             eps, out = sweep_stale_mt(self.packed, eps, tm, mrow, i2se,
                                       self.dNm1, window=cfg.window, n_mix=K,
-                                      complete=cfg.complete, order=order)
+                                      complete=cfg.complete, order=order,
+                                      sync=sync)
         elif cfg.complete and cfg.full_pheno and not cfg.per_window:
             eps, out = sweep_exact_mt(self.packed, eps, tm, mrow, i2se,
                                       self.dNm1, window=cfg.window, n_mix=K,
-                                      order=order)
+                                      order=order, sync=sync)
         else:
             eps, out = self.window_sweep(eps, mrow, order, i2se)
         beta = out[:, :T].contiguous()
@@ -607,11 +766,13 @@ class BayesRRmMT:
         # any order (bayesrrm_mt.py:576-583)
         idx = (torch.arange(T, device=dev)[None, :] * (G * K)
                + self.groups[:, None] * K + comps.to(torch.int64))
-        cass = torch.zeros(T * G * K, dtype=f32, device=dev).index_add_(
-            0, idx.reshape(-1), active.to(f32).reshape(-1)).reshape(T, G, K)
-        # fixed-order per-(trait, group) reductions (no float atomics)
-        beta_sqn = (self.group_onehot[:, :, None]
-                    * (beta * beta)[None]).sum(dim=1).T            # (T, G)
+        cass = self._sum(torch.zeros(T * G * K, dtype=f32, device=dev
+                                     ).index_add_(
+            0, idx.reshape(-1), active.to(f32).reshape(-1)).reshape(T, G, K))
+        # fixed-order per-(trait, group) reductions (no float atomics),
+        # summed over shards
+        beta_sqn = self._sum((self.group_onehot[:, :, None]
+                              * (beta * beta)[None]).sum(dim=1).T)  # (T, G)
 
         # ---- per-(trait, group) hypers (bayesrrm_mt.py:603-613) ----
         mtot = self.mtot[None, :]
@@ -679,8 +840,8 @@ class BayesRRmMT:
 
     # ------------------------------------------------------------------
     def to_marker_order(self, flat: np.ndarray, fill=0) -> np.ndarray:
-        """Per-slot values (m_loc, ...) -> reference marker order (Mtot,
-        ...); pad slots dropped."""
+        """Per-slot values of every shard (D m_loc, ...) -> reference marker
+        order (Mtot, ...); pad slots dropped."""
         out = np.full((self.cfg.m_tot,) + flat.shape[1:], fill,
                       dtype=flat.dtype)
         sel = self.slot_to_marker >= 0
@@ -688,4 +849,6 @@ class BayesRRmMT:
         return out
 
     def beta_global(self, state: MtState) -> np.ndarray:
-        return self.to_marker_order(state.beta.cpu().numpy().astype(np.float64))
+        """beta (Mtot, T) in marker order (a collective on marker shards)."""
+        beta = distributed.gather_markers(state.beta)
+        return self.to_marker_order(beta.cpu().numpy().astype(np.float64))

@@ -42,9 +42,10 @@ bayesw.py:592-595), summing the residual change over ranks after each
 window: here ``mega="off"`` runs ``window_sweep`` with that sum, and
 otherwise each window is one ``sweep_stale_bw`` call on the window's rows
 (``shard_sweep``; its plain version is ``window_sweep``'s draw) followed by
-the sum and the vi refresh. mu, alpha and the covariates are drawn on every
-rank alike from the replicated residual; the component counts and sums of
-beta^2 are summed over ranks.
+the sum (``mesh.residual_sum``: ``hier_sum`` over the slices of
+``--dcn-slices``, n_dcn) and the vi refresh. mu, alpha and the covariates
+are drawn on every rank alike from the replicated residual; the component
+counts and sums of beta^2 are summed over ranks.
 """
 
 from __future__ import annotations
@@ -59,13 +60,14 @@ import torch
 
 from hydra_tpu_torch.data.genotypes import Dataset, marker_shards
 from hydra_tpu_torch.ops.decode import crumbs, hpack_bytes
-from hydra_tpu_torch.ops.sweep_kernel import K_MAX, W_MAX, block_order
+from hydra_tpu_torch.ops.sweep_kernel import K_MAX, W_MAX
 from hydra_tpu_torch.ops.sweep_kernel_bw import (EULER_MASCHERONI, Q_MAX,
                                                  _draw, bw_mrow_width,
                                                  sweep_stale_bw)
 from hydra_tpu_torch.ops.window_kernels import window_axpy, window_level_sums
 from hydra_tpu_torch.parallel import distributed, mesh
-from hydra_tpu_torch.samplers.bayesrrm import global_slots, resolve_device
+from hydra_tpu_torch.samplers.bayesrrm import (global_slots, resolve_device,
+                                              shard_rows, sweep_order)
 from hydra_tpu_torch.utils import dist
 from hydra_tpu_torch.utils.slice_sampler import (N_EXPAND, N_SHRINK,
                                                  slice_noise,
@@ -112,6 +114,7 @@ class BayesWConfig:
     n_dev: int = 1            # marker shards, one rank each
     rank: int = 0             # this rank's shard
     det_sync: bool = False    # rank-order sums, the same on any topology
+    n_dcn: int = 1            # --dcn-slices: slices of the marker hierarchy
 
     @property
     def n_windows(self) -> int:
@@ -169,14 +172,17 @@ class BayesW:
                  shuffle: bool = True, seed: int = 0, quad_points: int = 25,
                  schedule: str = "auto", mega: str = "auto", device="cuda",
                  packed_device: Optional[torch.Tensor] = None,
-                 n_dev: int = 1, rank: int = 0, det_sync: bool = False):
+                 n_dev: int = 1, rank: int = 0, det_sync: bool = False,
+                 n_dcn: int = 1):
         """mega: "off" takes the per-window branch ("auto"/"on": the
         whole-sweep kernel). packed_device: the genotypes already h-packed on
         the device,
         (M, NB) uint8 in marker order, for data generated there; then
         ``dataset.geno`` supplies only n, n_pad and the marker statistics.
         n_dev > 1: this rank's shard ``rank`` under a process group of
-        n_dev ranks; det_sync: rank-order sums (``mesh.det_sum``)."""
+        n_dev ranks; det_sync: rank-order sums (``mesh.det_sum``); n_dcn: the
+        slices of ``--dcn-slices`` (the residual's change summed by
+        ``hier_sum``)."""
         if dataset.fail is None:
             raise ValueError("BayesW requires failure indicators (--failure)")
         self.ds = dataset
@@ -218,10 +224,12 @@ class BayesW:
             complete=bool(geno.nm_global_sum == 0),
             n_cov=0 if dataset.X is None else int(dataset.X.shape[1]),
             per_window=mega == "off", n_dev=n_dev, rank=rank,
-            det_sync=bool(det_sync))
-        # sums over the marker shards (the JAX ma_sum)
+            det_sync=bool(det_sync), n_dcn=int(n_dcn))
+        # sums over the marker shards (the JAX ma_sum) and of the residual's
+        # change (its hpsum)
         self._sum = functools.partial(mesh.shard_sum, n_dev=n_dev,
                                       det=bool(det_sync))
+        self._esum = mesh.residual_sum(n_dev, bool(det_sync), int(n_dcn))
         nb = (geno.packed if packed_device is None else packed_device).shape[1]
         if self.device.type == "cuda":
             self._check_memory(nb)
@@ -231,7 +239,6 @@ class BayesW:
         self.slot_to_marker, perms = global_slots(starts, lengths, m_loc,
                                                   schedule, self.seed)
         p = perms[rank]
-        self.local = slice(rank * m_loc, (rank + 1) * m_loc)
         s, ln = int(starts[rank]), int(lengths[rank])
         ls = s - geno.marker_offset          # this shard's rows in geno
         groups_g = np.zeros(m_loc, dtype=np.int32)
@@ -366,7 +373,7 @@ class BayesW:
         sigmaG, pi and gamma. The chain resumes at
         ``rd.start_iteration``."""
         cfg = self.cfg
-        local = self.slot_to_marker[self.local]
+        local = shard_rows(self.slot_to_marker, cfg)
         sel = local >= 0
         eps = np.zeros(cfg.n_pad, dtype=np.float32)
         eps[:cfg.n_real] = rd.eps
@@ -387,25 +394,8 @@ class BayesW:
     def sweep_order(self, it: int, noise: Optional[dict] = None
                     ) -> torch.Tensor:
         """Slots in the order sweep `it` visits them (int32)."""
-        cfg, dev = self.cfg, self.device
-        noise = noise or {}
-        if not cfg.shuffle:
-            return torch.arange(cfg.m_loc, dtype=torch.int32, device=dev)
-        if cfg.schedule == "block":
-            wperm = noise.get("wperm")
-            if wperm is None:
-                wperm = torch.randperm(cfg.n_windows, device=dev,
-                                       generator=dist.shard_generator(
-                                           self.seed, it, _S_PERM, dev,
-                                           cfg.rank, cfg.n_dev))
-            return block_order(wperm.to(dev), cfg.window)
-        perm = noise.get("perm")
-        if perm is None:
-            perm = torch.randperm(cfg.m_loc, device=dev,
-                                  generator=dist.shard_generator(
-                                      self.seed, it, _S_PERM, dev,
-                                      cfg.rank, cfg.n_dev))
-        return perm.to(dev, torch.int32)
+        return sweep_order(self.cfg, self.seed, it, _S_PERM, self.device,
+                           noise)
 
     def slot_noise(self, it: int, noise: Optional[dict] = None) -> dict:
         """Per-slot draws of sweep `it`: the component uniform "u" and the
@@ -421,9 +411,7 @@ class BayesW:
             u = torch.rand(m, generator=g, device=self.device)
             le, ub, uu = slice_noise(g, (m,), N_SHRINK, self.device)
             out = dict(u=u, le=le, ub=ub, uu=uu.T)
-        if out["u"].shape[0] != self.cfg.m_loc:
-            out = {k: v[self.local] for k, v in out.items()}
-        return out
+        return {k: shard_rows(v, self.cfg) for k, v in out.items()}
 
     def build_mrow(self, state: BayesWState, alpha: torch.Tensor,
                    slot: dict) -> torch.Tensor:
@@ -579,7 +567,7 @@ class BayesW:
                          + c2.sum()) * mask
             else:
                 d_eps = window_axpy(self.packed, c1, c2, False, rows)
-            eps = eps + self._sum(d_eps)
+            eps = eps + self._esum(d_eps)
             vi = torch.exp(alpha * eps - EULER_MASCHERONI) * mask
             out[slots] = torch.stack([bnew, comp, dbeta,
                                       torch.zeros_like(bnew)], dim=1)
@@ -602,7 +590,7 @@ class BayesW:
                 self.packed[slots], eps, vi.contiguous(),
                 mrow[slots].contiguous(), self.gh_x, self.gh_w, alpha,
                 window=W, n_mix=cfg.k, complete=cfg.complete, ind_mask=mask)
-            eps = eps + self._sum(new - eps)
+            eps = eps + self._esum(new - eps)
             vi = torch.exp(alpha * eps - EULER_MASCHERONI) * mask
             out[slots] = out_w
         return eps, out

@@ -200,10 +200,13 @@ def test_cli_mt_writes_per_trait_outputs(bed, tmp_path, extra, na_frac,
 
 @pytest.mark.parametrize("extra", [["--n-devices", "2"]])
 def test_cli_mt_unsupported_paths_raise(bed, tmp_path, extra):
+    """Multi-trait runs on D marker shards, one rank a device: --n-devices
+    2 without a process group names the launcher and reads nothing."""
     phen = write_mt_phenos(bed, 2, 0.0, seed=1)
-    with pytest.raises(NotImplementedError, match="multi-trait"):
+    with pytest.raises(ValueError, match="run_multiprocess_torch.py"):
         cli.main(["--device", "cpu", *_mt_argv(bed, tmp_path / "x", phen),
                   *extra])
+    assert not list((tmp_path / "x").glob("*.csv"))
 
 
 def test_cli_runs_without_jax(bed, bw_bed, tmp_path):
@@ -250,13 +253,16 @@ def test_cli_runs_without_jax(bed, bw_bed, tmp_path):
     assert np.frombuffer(raw[:8], np.uint32).tolist() == [20, 2]
 
 
-@pytest.mark.parametrize("extra", [
-    ["--ind-shards", "2"],
-    ["--dcn-slices", "2"],
+@pytest.mark.parametrize("extra,error,match", [
+    (["--ind-shards", "2"], NotImplementedError, "not ported"),
+    (["--dcn-slices", "2"], ValueError, "must divide the 1 ranks"),
 ])
-def test_cli_unsupported_paths_raise(bed, tmp_path, extra):
-    with pytest.raises(NotImplementedError, match="not ported"):
+def test_cli_unsupported_paths_raise(bed, tmp_path, extra, error, match):
+    """--ind-shards is not ported; --dcn-slices S runs where S divides the
+    ranks, so one process refuses S = 2. Both before any data is read."""
+    with pytest.raises(error, match=match):
         cli.main(["--device", "cpu", *_argv(bed, tmp_path / "x"), *extra])
+    assert not list((tmp_path / "x").glob("*.csv"))
 
 
 @pytest.mark.parametrize("n", ["2", "4"])

@@ -94,9 +94,9 @@ def worker(spec_path, out_dir):
             s = bayesrrm.BayesRRm(ds, window=window, exact=exact, seed=SEED,
                                   fh=model == "fh", cross_sync=cs,
                                   device="cpu", n_dev=world, rank=rank)
-        loc = s.local
-        x = {k: (v[loc] if v.ndim == 1 and v.shape[0] == s.cfg.m_glob
-                 else v) for k, v in sp["state"].items()}
+        x = {k: (bayesrrm.shard_rows(v, s.cfg)
+                 if v.ndim == 1 and v.shape[0] == s.cfg.m_glob else v)
+             for k, v in sp["state"].items()}
         noise = {k: (tuple(torch.from_numpy(a) for a in v)
                      if isinstance(v, tuple) else torch.from_numpy(v))
                  for k, v in sp["noise"][rank].items()}
