@@ -86,8 +86,8 @@ BayesRRm's per-window branch (--mega off, --cache-planes on) and W < 8:
      --cache-planes on stale W=64 (5.0 GB of int8 planes); stale W=1 at
      M=10,000 x N=5,000: ms/sweep, busy share, host enqueue, device time
      per kernel; window_gibbs_kernel alone a call at W=64, 128 and 1024
-     (print_window_gibbs_times); the planes kernels alone a call at W=8,
-     64, 256 and 1024 beside torch.mv and their bounds (print_planes_times).
+     (print_window_gibbs_times); the planes kernels alone a call at W=64
+     and 1024 beside torch.mv and their bounds (print_planes_times).
 BayesFH (--mpibayes bayesFHMPI) and the single-decode stale sweep
 (HYDRA_TPU_SD, --stale --schedule marker):
   2e. sweep_stale_sd against its plain version at M=4,096 x N=50,000, W=64,
@@ -135,7 +135,8 @@ by scripts/run_multiprocess_torch.py, ``chip_smoke.py --rank-child``):
      iterations, on one rank under an NCCL process group, byte for byte the
      run without a group; two ranks on the one card (gloo on CUDA tensors:
      NCCL refuses two ranks on one device): one sweep of exact W=64
-     --cross-sync 8, exact W=64, stale W=64 and BayesW W=64 by the CUDA
+     --cross-sync 8, exact W=64, stale W=64 and BayesW W=64 at M=3,000 x
+     N=5,500 (write_sweep_beds) by the CUDA
      sampler against the same two ranks' CPU sampler on the same state and
      noise (components equal, eps and beta within phase 3's tolerance, eps
      the same bits on both ranks, each wrapper launched once a window); a
@@ -151,9 +152,10 @@ by scripts/run_multiprocess_torch.py, ``chip_smoke.py --rank-child``):
      runs the restart, the sweeps, the chains and the timed sweep; the last
      two wait until the one-rank run is done.
   3i. in phase 3h's two-rank launch, multi-trait shards and --dcn-slices:
-     one sweep of multi-trait T=4 stale W=64 (10% NaN), exact W=64 (full
-     phenotypes: sweep_exact_mt a window a launch), exact W=64 with 10% NaN
-     (the per-window path) and BayesRRm stale W=64 at --dcn-slices 2, CUDA
+     one sweep (M=3,000 x N=5,500, as 3h's) of multi-trait T=4 stale W=64
+     (10% NaN), exact W=64 (full phenotypes: sweep_exact_mt a window a
+     launch), exact W=64 with 10% NaN (the per-window path) and BayesRRm
+     stale W=64 at --dcn-slices 2, CUDA
      against the same ranks' CPU sampler (components equal, eps the same
      bits on both ranks, each wrapper once a window); on phase 3c's bed
      multi-trait stale W=64 chains of 25 sweeps: --det-sync twice (bit for
@@ -169,6 +171,20 @@ by scripts/run_multiprocess_torch.py, ``chip_smoke.py --rank-child``):
      version on the same card tensors; at the stale W=64 shard sweep's
      size, hier_sum's chunked sum across two slices timed against one
      all_reduce.
+  3j. --ind-shards, a (markers x individuals) rank grid (rank r holds
+     marker shard r // I and chunk r % I of the individuals, padded to a
+     multiple of 512): in phase 3h's two-rank launch, the 1x2 grid, one
+     sweep of exact W=64, stale W=64, exact W=64 with 2% missing calls and
+     BayesW W=64 at M=3,000 x N=5,500 (n_pad 5,632: chunks of 2,816 padded
+     to 3,072) by the CUDA sampler against the same ranks' CPU sampler
+     (components equal, the gathered eps the same bits on both ranks, beta
+     the same bits on both, the padding 0, window_stats / window_gibbs /
+     window_axpy / window_level_sums once a window); in a four-rank launch
+     of its own beside 3h's killed chains, the 2x2 grid, one exact W=64
+     --cross-sync 8 sweep the same way; one 1x2 stale W=64 sweep at
+     M=100,000 x N=50,000 (every marker on both ranks, 25,088 individuals a
+     rank): ms/sweep by CUDA events and all_reduce ms a sweep, printed as
+     two ranks sharing one card, not a multi-GPU speed.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Any failure raises before those lines. JAX
 and the JAX package are blocked: the port must run without them.
@@ -721,17 +737,23 @@ def phase_kernels(torch, sk, card):
     return rec
 
 
-def write_plink(np, base, m, n, seed, weibull=False):
+def write_plink(np, base, m, n, seed, weibull=False, missing=0.0):
     """Synthetic .bed/.bim/.fam/.phen with h2 = 0.5 over 1% causal markers.
     weibull: the .phen holds log-times mu + g + (log E + EuMasc)/alpha with
     alpha 8, mu 4, E ~ Exp(1) (tests/test_bayesw.py::simulate_weibull's
-    model), and a .fail marks 10% of individuals as censored."""
+    model), and a .fail marks 10% of individuals as censored. missing: the
+    share of calls written as missing (drawn from seed + 1; the phenotype
+    comes from the complete genotypes)."""
     from hydra_tpu_torch.io.plink import write_bed
     rs = np.random.RandomState(seed)
     p = rs.uniform(0.05, 0.5, (m, 1))
     geno = ((rs.random_sample((m, n)) < p).astype(np.int8)
             + (rs.random_sample((m, n)) < p).astype(np.int8))
-    write_bed(base + ".bed", geno)
+    if missing:
+        miss = np.random.RandomState(seed + 1).random_sample((m, n)) < missing
+        write_bed(base + ".bed", np.where(miss, -1, geno).astype(np.int8))
+    else:
+        write_bed(base + ".bed", geno)
     with open(base + ".fam", "w") as fh:
         fh.writelines(f"f{i} i{i} 0 0 0 -9\n" for i in range(n))
     with open(base + ".bim", "w") as fh:
@@ -2998,13 +3020,15 @@ def print_window_gibbs_times(torch, np, card):
               f"kernels: {others}  [{card}]", flush=True)
 
 
-PLANES_TIMES_W = (8, 64, 256, 1024)
+# the widths print_planes_times times (W=8 and 256 read in PERF.md §6);
+# the smoke's time limit keeps two
+PLANES_TIMES_W = (64, 1024)
 
 
 def print_planes_times(torch, np, card, calls=20):
     """window_stats_planes and window_axpy_planes alone, device us a call
     (torch.profiler over ``calls`` calls after a warm-up: each kernel's
-    mean a launch times its launches a call), at W = 8, 64, 256 and 1024
+    mean a launch times its launches a call), at the W of PLANES_TIMES_W
     on int8 planes of M=4,096 x N=50,000, each two ways: "cold", call k on
     window k mod 20 of a random order of the rows (up to M / W windows),
     so from W=64 on the windows' rows exceed the L2 cache and come mostly
@@ -3147,20 +3171,19 @@ def phase_window_real_size(torch, np, sk, card, configs=WINDOW_REAL_SIZE,
             torch.cuda.synchronize()
             setup = time.perf_counter() - t0
             st = s.init_state()
-            for it in range(2):
-                st, _ = s.step(st, it)
+            st, _ = s.step(st, 0)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            for it in range(2, 5):
+            for it in range(1, 3):
                 st, stats = s.step(st, it)
             torch.cuda.synchronize()
-            ms = (time.perf_counter() - t0) * 1e3 / 3
+            ms = (time.perf_counter() - t0) * 1e3 / 2
             if not bool(torch.isfinite(st.eps).all()):
                 raise AssertionError("non-finite residual at real size")
             sg, se = float(st.sigma_g.sum()), float(st.sigma_e)
             print(f"real size M={m:,} x N={n:,} {label} W={window} "
                   f"{s.cfg.schedule}: {ms:.2f} ms/sweep, {m / ms * 1e3:,.0f} "
-                  f"markers/s (3 sweeps after 2 warm-up; set up in "
+                  f"markers/s (2 sweeps after 1 warm-up; set up in "
                   f"{setup:.1f} s), h2 {sg / (sg + se):.4f}, peak "
                   f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB  [{card}]",
                   flush=True)
@@ -4250,13 +4273,19 @@ def phase_new_paths_real_size(torch, np, card, m_profile=10_000):
 
 # ---- phase 3h: marker shards, one torch.distributed rank a shard ---------
 
-# (case, model, flags, the wrappers a window of the CUDA sweep launches)
-SHARD_SWEEPS = (("exact_cs8", "brr", ("--window", "64", "--cross-sync", "8"),
+# (case, model[:bed], flags, the wrappers a window of the CUDA sweep
+# launches); the CPU-against-CUDA sweeps of phases 3h-3j run on the M=3,000
+# beds of write_sweep_beds (the CPU sampler's sweeps set the two-rank
+# launch's length)
+SHARD_SWEEPS = (("exact_cs8", "brr:t_M3K_N_5500",
+                 ("--window", "64", "--cross-sync", "8"),
                  ("window_stats", "window_axpy")),
-                ("exact_w64", "brr", ("--window", "64"), ("sweep_exact",)),
-                ("stale_w64", "brr", ("--stale", "--window", "64"),
-                 ("sweep_stale",)),
-                ("bw_w64", "bw", ("--window", "64"), ("sweep_stale_bw",)))
+                ("exact_w64", "brr:t_M3K_N_5500", ("--window", "64"),
+                 ("sweep_exact",)),
+                ("stale_w64", "brr:t_M3K_N_5500",
+                 ("--stale", "--window", "64"), ("sweep_stale",)),
+                ("bw_w64", "bw:weibull_M3K_N_5500", ("--window", "64"),
+                 ("sweep_stale_bw",)))
 SHARD_CHAIN = dict(iters=25, kill_at=10,
                    extra=("--stale", "--window", "64", "--det-sync", "1"))
 # CLI chains through the ranks: (case, model, flags, sweeps, the wrappers
@@ -4269,17 +4298,18 @@ SHARD_REAL = dict(m=100_000, n=50_000, window=64, warmup=1, sweeps=1)
 SHARD_FILES = (".csv", ".bet", ".cpn", ".acu", ".eps.0", ".mus.0", ".mrk.0",
                ".xbet", ".xcpn", ".rng.0")
 SHARD_TIMEOUT = 360
-# phase 3i, in phase 3h's two-rank launch: (case, model ("mt_na": phase
-# 3c's phenotypes with 10% NaN), flags, the wrappers a window of the CUDA
-# sweep launches)
+# phase 3i, in phase 3h's two-rank launch: (case, model:bed ("mt_na": the
+# phenotypes with 10% NaN), flags, the wrappers a window of the CUDA sweep
+# launches)
 MT_SHARD_SWEEPS = (
-    ("mt_stale_w64", "mt_na", ("--stale", "--window", "64"),
+    ("mt_stale_w64", "mt_na:mt_M3K_N_5500", ("--stale", "--window", "64"),
      ("sweep_stale_mt",)),
-    ("mt_exact_w64", "mt", ("--window", "64"), ("sweep_exact_mt",)),
-    ("mt_exact_w64_nan", "mt_na", ("--window", "64"),
+    ("mt_exact_w64", "mt:mt_M3K_N_5500", ("--window", "64"),
+     ("sweep_exact_mt",)),
+    ("mt_exact_w64_nan", "mt_na:mt_M3K_N_5500", ("--window", "64"),
      ("window_stats_mt", "window_axpy_mt", "mt_window_recurrence")),
-    ("dcn_stale_w64", "brr", ("--stale", "--window", "64", "--dcn-slices",
-                              "2"), ("sweep_stale",)))
+    ("dcn_stale_w64", "brr:t_M3K_N_5500",
+     ("--stale", "--window", "64", "--dcn-slices", "2"), ("sweep_stale",)))
 MT_SHARD_CHAIN = dict(iters=25, kill_at=10, extra=("--stale", "--window", "64"))
 DET_SYNC, DCN_SLICES = ("--det-sync", "1"), ("--dcn-slices", "2")
 # phase 3i's chains: name -> flags after MT_SHARD_CHAIN's; "k" is SIGKILLed
@@ -4288,14 +4318,50 @@ MT_SHARD_CHAINS = dict(a=DET_SYNC, b=DET_SYNC, dcn=DET_SYNC + DCN_SLICES,
                        fn=(), dn=DCN_SLICES, k=DCN_SLICES)
 MT_SHARD_REAL = dict(m=100_000, n=50_000, n_traits=4, window=64, warmup=1,
                      sweeps=1)
+# phase 3j, --ind-shards: the 1x2 grid's sweeps in phase 3h's two-rank
+# launch, the 2x2 grid's in a four-rank launch of its own (N=5,500: n_pad
+# 5,632, each chunk of 2,816 individuals padded to 3,072); (case,
+# model:bed, flags, the wrappers a window launches)
+IND = ("--ind-shards", "2")
+IND_SWEEPS = (
+    ("ind_exact_w64", "brr:t_M3K_N_5500", ("--window", "64") + IND,
+     ("window_stats", "window_gibbs", "window_axpy")),
+    ("ind_stale_w64", "brr:t_M3K_N_5500", ("--stale", "--window", "64") + IND,
+     ("window_stats", "window_axpy")),
+    ("ind_exact_w64_missing", "brr:t_M3K_N_5500_na", ("--window", "64") + IND,
+     ("window_stats", "window_gibbs", "window_axpy")),
+    ("ind_bw_w64", "bw:weibull_M3K_N_5500", ("--window", "64") + IND,
+     ("window_level_sums", "window_axpy")))
+IND4_SWEEPS = (("ind4_exact_cs8", "brr:t_M3K_N_5500",
+                ("--window", "64", "--cross-sync", "8") + IND,
+                ("window_stats", "window_axpy")),)
+IND_REAL = dict(m=100_000, n=50_000, window=64, warmup=1, sweeps=1,
+                n_ind=2)
+
+
+def write_sweep_beds(np, tmp):
+    """The beds of phases 3h-3j's CPU-against-CUDA sweeps, M=3,000 x
+    N=5,500 (n_pad 5,632: at --ind-shards 2 chunks of 2,816 individuals,
+    each padded to 3,072): BayesRRm complete and with 2% missing calls,
+    BayesW, and multi-trait T=4 (full and 10% NaN phenotypes)."""
+    for name, kw in (("t_M3K_N_5500", {}),
+                     ("t_M3K_N_5500_na", dict(missing=0.02)),
+                     ("weibull_M3K_N_5500", dict(weibull=True))):
+        write_plink(np, os.path.join(tmp, name), 3_000, 5_500, seed=31, **kw)
+    base = os.path.join(tmp, "mt_M3K_N_5500")
+    write_plink(np, base, 3_000, 5_500, seed=33)
+    write_mt_phenos(np, base, 3_000, 5_500, 4, seed=6)
+    write_mt_phenos(np, base, 3_000, 5_500, 4, seed=7, na_frac=0.1)
 
 
 def shard_argv(tmp, model, name, iters, extra, restart=False):
     """CLI arguments of a phase-3h run on phase 3's, 3b's or (multi-trait)
-    3c's bed (thin 5, save 10, seed 7), its outputs in <tmp>/out_shards;
-    model "mt_na" takes 3c's phenotypes with 10% NaN."""
-    bed = {"bw": "weibull_M10K_N_5K", "mt": "mt_M10K_N_5K",
-           "mt_na": "mt_M10K_N_5K"}.get(model, "t_M10K_N_5K")
+    3c's bed, or the bed named after a colon ("bw:weibull_M3K_N_5500", one
+    of write_sweep_beds) (thin 5, save 10, seed 7), its outputs in
+    <tmp>/out_shards; model "mt_na" takes the phenotypes with 10% NaN."""
+    model, _, bed = model.partition(":")
+    bed = bed or {"bw": "weibull_M10K_N_5K", "mt": "mt_M10K_N_5K",
+                  "mt_na": "mt_M10K_N_5K"}.get(model, "t_M10K_N_5K")
     argv = restart_argv(tmp, bed, "mt" if model == "mt_na" else model, name,
                         iters, False, extra, restart=restart)
     argv[argv.index("--mcmc-out-dir") + 1] = os.path.join(tmp, "out_shards")
@@ -4307,11 +4373,13 @@ def shard_argv(tmp, model, name, iters, extra, restart=False):
 
 def shard_sweeps(torch, np, tmp, cases=SHARD_SWEEPS):
     """On each rank, one sweep of every case by the CUDA sampler and by the
-    CPU sampler of the same two shards, on the same state and noise (made
-    on the CPU from one seed, the sweep order from a seed a rank): both
-    ranks' samplers sum over the same gloo group (over its slices' groups
-    under --dcn-slices). Returns, by case, the CUDA sweep's differences and
-    wrapper launches and the SHA-256 of its eps (the same on every
+    CPU sampler of the same shards, on the same state and noise (made on
+    the CPU from one seed, the sweep order from a seed a marker shard):
+    both ranks' samplers sum over the same gloo groups (over its slices'
+    groups under --dcn-slices; under --ind-shards I each rank holds marker
+    shard rank // I and chunk rank % I of the individuals). Returns, by
+    case, the CUDA sweep's differences and wrapper launches and the SHA-256
+    of its eps (under --ind-shards the chunks gathered; the same on every
     rank)."""
     from hydra_tpu_torch.options import parse_args
     from hydra_tpu_torch.parallel import distributed, mesh
@@ -4324,6 +4392,7 @@ def shard_sweeps(torch, np, tmp, cases=SHARD_SWEEPS):
     out = {}
     for name, model, extra, _ in cases:
         opt = parse_args(shard_argv(tmp, model, name, 1, extra))
+        model = model.partition(":")[0]
         mt = model.startswith("mt")
         if mt:
             ds, phenos = mt_dataset_from_options(opt)
@@ -4332,16 +4401,20 @@ def shard_sweeps(torch, np, tmp, cases=SHARD_SWEEPS):
             ds = dataset_from_options(opt)
             mod = bayesw if model == "bw" else bayesrrm
 
+        n_ind = opt.ind_shards
+
         def make(device):
-            kw = dict(window=opt.window, seed=7, device=device, n_dev=n_dev,
-                      rank=r, n_dcn=opt.dcn_slices)
+            kw = dict(window=opt.window, seed=7, device=device,
+                      n_dev=n_dev // n_ind, rank=r // n_ind,
+                      n_dcn=opt.dcn_slices)
             if mt:
                 return bayesrrm_mt.BayesRRmMT(ds, phenos, exact=opt.exact,
                                               **kw)
             if model == "bw":
-                return bayesw.BayesW(ds, **kw)
+                return bayesw.BayesW(ds, n_ind=n_ind, **kw)
             return bayesrrm.BayesRRm(ds, exact=opt.exact,
-                                     cross_sync=opt.cross_sync, **kw)
+                                     cross_sync=opt.cross_sync, n_ind=n_ind,
+                                     **kw)
 
         cpu, gpu = make("cpu"), make(dev)
         g = torch.Generator().manual_seed(5)
@@ -4358,7 +4431,8 @@ def shard_sweeps(torch, np, tmp, cases=SHARD_SWEEPS):
                          u=torch.rand(shape, generator=g),
                          nrm=torch.randn(shape, generator=g))
         noise["perm"] = torch.randperm(
-            cpu.cfg.m_loc, generator=torch.Generator().manual_seed(11 + r))
+            cpu.cfg.m_loc,
+            generator=torch.Generator().manual_seed(11 + r // n_ind))
         s_cpu = cpu.init_state()
         s_gpu = mod.state_from_numpy(mod.state_to_numpy(s_cpu), dev)
         t0 = time.perf_counter()
@@ -4369,6 +4443,8 @@ def shard_sweeps(torch, np, tmp, cases=SHARD_SWEEPS):
         torch.cuda.synchronize()
         t2 = time.perf_counter()
         launches = {k: v for k, v in all_launches().items() if v}
+        whole = (gpu.residual(b.eps).cpu().numpy() if n_ind > 1
+                 else None)
         a, b = mod.state_to_numpy(a), mod.state_to_numpy(b)
         np.testing.assert_allclose(b["eps"], a["eps"], atol=5e-4, rtol=1e-3)
         np.testing.assert_allclose(b["beta"], a["beta"], atol=5e-4,
@@ -4382,14 +4458,21 @@ def shard_sweeps(torch, np, tmp, cases=SHARD_SWEEPS):
             hier=gpu._esum.func is mesh.hier_sum,
             masked_nonzero=(int((b["eps"][gpu.trait_mask.cpu().numpy() == 0]
                                  != 0).sum()) if mt else 0),
-            eps_sha=hashlib.sha256(b["eps"].tobytes()).hexdigest())
+            eps_sha=hashlib.sha256(
+                (b["eps"] if whole is None else whole).tobytes()).hexdigest(),
+            n_loc=getattr(gpu.cfg, "n_loc", 0),
+            pad_nonzero=(int((b["eps"][gpu.cfg.n_pad // n_ind:] != 0).sum())
+                         if n_ind > 1 else 0),
+            beta_sha=hashlib.sha256(b["beta"].tobytes()).hexdigest())
     return out
 
 
-def shard_real_size(torch, np, mt=False):
+def shard_real_size(torch, np, mt=False, real=None):
     """This rank's shard of M=100,000 x N=50,000 stale W=64 (genotypes
-    made on the card from a seed a rank; mt: multi-trait T=4 with full
-    phenotypes): after the warm-up, ms a sweep by CUDA events, then as many
+    made on the card from a seed a marker shard; mt: multi-trait T=4 with
+    full phenotypes; ``real`` IND_REAL: every marker on each rank of the
+    1x2 grid, each with its chunk of the individuals, the per-window
+    branch): after the warm-up, ms a sweep by CUDA events, then as many
     sweeps with each all_reduce of the sampler timed alone (synchronized
     before and after)."""
     from hydra_tpu_torch.data.genotypes import (Dataset, GenotypeData,
@@ -4398,29 +4481,34 @@ def shard_real_size(torch, np, mt=False):
     from hydra_tpu_torch.parallel import distributed
     from hydra_tpu_torch.samplers.bayesrrm import BayesRRm
     from hydra_tpu_torch.samplers.bayesrrm_mt import BayesRRmMT
-    r, n_dev = distributed.rank(), distributed.world_size()
+    real = real or (MT_SHARD_REAL if mt else SHARD_REAL)
+    n_ind = real.get("n_ind", 1)
+    r, n_dev = distributed.rank(), distributed.world_size() // n_ind
+    d = r // n_ind
     dev = distributed.rank_device()
-    real = MT_SHARD_REAL if mt else SHARD_REAL
     m, n, W = real["m"], real["n"], real["window"]
     starts, lengths, _ = shard_layout(m, n_dev, W)
-    s, ln = int(starts[r]), int(lengths[r])
+    s, ln = int(starts[d]), int(lengths[d])
     n_pad = padded_individuals(np, n)
-    gen = torch.Generator(device=dev).manual_seed(2 + r)
+    gen = torch.Generator(device=dev).manual_seed(2 + d)
     pk, mave, mstd, nm = device_genotypes(torch, ln, n, n_pad, gen)
     mave_h, mstd_h = mave.cpu().numpy(), mstd.cpu().numpy()
     geno = GenotypeData(
         packed=np.zeros((0, n_pad // 4), np.uint8), n=n, n_pad=n_pad, m=ln,
         mave=mave_h, mstd=mstd_h, msd=1.0 / mstd_h, n1=None, n2=None,
         nm=nm.cpu().numpy(), marker_offset=s, m_tot=m,
-        nm_tot=distributed.allreduce_host_sum(float(nm.sum())))
+        nm_tot=distributed.allreduce_host_sum(
+            float(nm.sum()) if r % n_ind == 0 else 0.0))
     groups, mS = make_default_groups(m, list(MS[1:]))
     ds = Dataset(geno=geno, y=np.random.RandomState(0).randn(n),
                  groups=groups, num_groups=1, mS=mS)
     kw = dict(window=W, exact=False, seed=1, device=dev, packed_device=pk,
-              n_dev=n_dev, rank=r)
+              n_dev=n_dev, rank=d)
     smp = (BayesRRmMT(ds, mt_phenotypes(np, n, real["n_traits"], 4), **kw)
-           if mt else BayesRRm(ds, **kw))
-    kernel = "sweep_stale_mt" if mt else "sweep_stale"
+           if mt else BayesRRm(ds, n_ind=n_ind, **kw))
+    del pk
+    kernel = ("sweep_stale_mt" if mt else "window_stats" if n_ind > 1
+              else "sweep_stale")
     st = smp.init_state()
     k, w = real["sweeps"], real["warmup"]
     reset_all_launches()
@@ -4428,7 +4516,9 @@ def shard_real_size(torch, np, mt=False):
         for it in range(w + k):
             st, _ = smp.step(st, it)
     ms = events_ms(torch, pairs, skip=w)
-    launches = all_launches()[kernel] / (w + k)
+    per_sweep = {name: v / (w + k) for name, v in all_launches().items()
+                 if v}
+    launches = per_sweep.get(kernel, 0)
     calls, spent = [0], [0.0]
 
     def timed(plain):
@@ -4442,8 +4532,11 @@ def shard_real_size(torch, np, mt=False):
             return res
         return run
 
-    # the sums over shards and of the residual's change, each timed alone
+    # the sums over shards, of the residual's change and (--ind-shards) over
+    # the chunks of individuals, each timed alone
     smp._sum, smp._esum = timed(smp._sum), timed(smp._esum)
+    if n_ind > 1:
+        smp._isum = timed(smp._isum)
     t0 = time.perf_counter()
     for it in range(w + k, w + 2 * k):
         st, _ = smp.step(st, it)
@@ -4455,9 +4548,13 @@ def shard_real_size(torch, np, mt=False):
                allreduce_calls=calls[0] / k, timed_wall_ms=wall,
                launches_per_sweep=launches, n_windows=smp.cfg.n_windows,
                markers=ln, eps_sha=hashlib.sha256(
-                   st.eps.cpu().numpy().tobytes()).hexdigest())
+                   smp.residual(st.eps).cpu().numpy().tobytes()
+                   if n_ind > 1 else st.eps.cpu().numpy().tobytes()
+               ).hexdigest())
     if mt:
         res["window_check"] = shard_window_check(torch, smp, st)
+    elif n_ind > 1:
+        res.update(n_loc=smp.cfg.n_loc, launches=per_sweep)
     else:
         res["dcn_chunks"] = dcn_chunk_cost(torch, st.eps)
     return res
@@ -4544,8 +4641,9 @@ def rank_child(args):
     launcher's environment, then its tasks in order ("cli": CLI runs
     through the CLI's body, ``cli._run``, with each run's wrapper
     launches; "sweeps": shard_sweeps; "wait": until the file ``path``
-    exists, so what follows has the card to itself; "real":
-    shard_real_size), the results, with each task's seconds, in
+    exists, so what follows has the card to itself; "real", "mt_real",
+    "ind_real": shard_real_size; "ind_sweeps", "ind4_sweeps": phase 3j's
+    shard_sweeps), the results, with each task's seconds, in
     <out>/rank<r>.json."""
     sys.path.insert(0, REPO)
     import numpy as np
@@ -4585,6 +4683,12 @@ def rank_child(args):
                                                 MT_SHARD_SWEEPS)
             elif task["kind"] == "mt_real":
                 res["mt_real"] = shard_real_size(torch, np, mt=True)
+            elif task["kind"] in ("ind_sweeps", "ind4_sweeps"):
+                res[task["kind"]] = shard_sweeps(
+                    torch, np, task["tmp"], IND_SWEEPS
+                    if task["kind"] == "ind_sweeps" else IND4_SWEEPS)
+            elif task["kind"] == "ind_real":
+                res["ind_real"] = shard_real_size(torch, np, real=IND_REAL)
             else:
                 res["real"] = shard_real_size(torch, np)
             res["seconds"].append(
@@ -4685,14 +4789,17 @@ def phase_shards(torch, np, tmp, card):
     --restart'ed (byte for byte), and one M=100,000 x N=50,000 stale W=64
     shard sweep timed. The one-rank run and the chains to be killed (phase
     3i's multi-trait one too) run at once; then one two-rank launch takes
-    the restarts and the sweeps (3h's and 3i's) beside the one-rank run's
-    tail, waits until that run is checked, and runs the chains and the
-    timed sweeps with the card to itself. Returns the two ranks' results
-    for phase 3i's checks (``check_mt_shards``)."""
+    the restarts and the sweeps (3h's, 3i's and 3j's 1x2 grid) beside the
+    one-rank run's tail, waits until that run is checked, and runs the
+    chains and the timed sweeps with the card to itself; phase 3j's 2x2
+    grid runs in a four-rank launch of its own beside the killed chains.
+    Returns the two ranks' and the four ranks' results for phases 3i and
+    3j (``check_mt_shards``, ``check_ind_shards``)."""
     from hydra_tpu_torch import cli
     from scripts import soak_restart_torch as soak
     out = os.path.join(tmp, "out_shards")
     ch, mch = SHARD_CHAIN, MT_SHARD_CHAIN
+    write_sweep_beds(np, tmp)
     plain = [shard_argv(tmp, "brr", f"d1_{k}", 20, extra)
              for k, extra in (("exact", ()), ("stale", ("--stale",)))]
     grouped = [[a.replace("d1_", "d1g_") for a in argv] for argv in plain]
@@ -4701,8 +4808,11 @@ def phase_shards(torch, np, tmp, card):
     killed = shard_argv(tmp, "brr", "d2_k", ch["iters"], ch["extra"])
     mt_killed = shard_argv(tmp, "mt", "mt2_k", mch["iters"],
                            mch["extra"] + MT_SHARD_CHAINS["k"])
-    kills = []
+    kills, d4 = [], None
     try:
+        d4 = start_ranks(tmp, "ind4_gloo", 4,
+                         [dict(kind="ind4_sweeps", tmp=tmp)], "gloo",
+                         same_device=True)
         kills = [start_ranks(tmp, label, 2, [dict(kind="cli", argvs=[argv])],
                              "gloo", same_device=True)
                  for label, argv in (("d2_kill", killed),
@@ -4711,7 +4821,8 @@ def phase_shards(torch, np, tmp, card):
                     (kills[1], os.path.join(out, "mt2_k.t3.csv"),
                      mch["kill_at"])])
     except BaseException:
-        for p in d1["procs"] + [p for k in kills for p in k["procs"]]:
+        for p in d1["procs"] + [p for k in kills + [d4] if k
+                                for p in k["procs"]]:
             p.kill()
         raise
     # one launch: the restarts and the CUDA-against-CPU sweeps beside the
@@ -4732,10 +4843,12 @@ def phase_shards(torch, np, tmp, card):
             tmp, "mt", "mt2_k", mch["iters"],
             mch["extra"] + MT_SHARD_CHAINS["k"], restart=True)]),
         dict(kind="sweeps", tmp=tmp),
-        dict(kind="mt_sweeps", tmp=tmp), dict(kind="wait", path=gate),
+        dict(kind="mt_sweeps", tmp=tmp), dict(kind="ind_sweeps", tmp=tmp),
+        dict(kind="wait", path=gate),
         dict(kind="cli", label="chains", argvs=chain + launched),
         dict(kind="cli", label="mt_chains", argvs=mt_chain),
-        dict(kind="real"), dict(kind="mt_real")], "gloo", same_device=True)
+        dict(kind="real"), dict(kind="mt_real"), dict(kind="ind_real")],
+        "gloo", same_device=True)
     try:
         for argv in plain:
             if cli.main(argv) != 0:
@@ -4749,7 +4862,7 @@ def phase_shards(torch, np, tmp, card):
                                      "differ from the run without a process "
                                      "group")
     except BaseException:
-        for p in d1["procs"] + d2["procs"]:
+        for p in d1["procs"] + d2["procs"] + d4["procs"]:
             p.kill()
         raise
     print(f"one rank under NCCL ({r0['backend']}, {r0['device']}): exact and"
@@ -4757,6 +4870,12 @@ def phase_shards(torch, np, tmp, card):
           f"launches {r0['cli'][0]['launches']}, {r0['cli'][1]['launches']}",
           flush=True)
     open(gate, "w").close()
+    try:
+        ranks4 = finish_ranks(d4)
+    except BaseException:
+        for p in d2["procs"]:
+            p.kill()
+        raise
     ranks = finish_ranks(d2)
     print("two ranks, seconds a task (rank 0): " + ", ".join(
         f"{k} {v:.1f}" for k, v in ranks[0]["seconds"]), flush=True)
@@ -4792,18 +4911,29 @@ def phase_shards(torch, np, tmp, card):
           f"all_reduce {max(d['single_ms'] for d in dc):.3f} ms (rank 0 "
           f"{dc[0]['chunked_ms']:.3f} / {dc[0]['single_ms']:.3f}), the same "
           f"bits  [{card}]", flush=True)
-    return ranks
+    return ranks, ranks4
 
 
 def check_shard_sweeps(ranks, key, cases):
-    """The two ranks' CUDA-against-CPU sweeps of ``cases``: eps the same
-    bits on both ranks, components equal, each wrapper once a window, the
-    trait mask's entries held at 0; a --dcn-slices case summed by
-    hier_sum."""
+    """The ranks' CUDA-against-CPU sweeps of ``cases``: eps the same bits
+    on every rank (--ind-shards: the chunks gathered, beta the same bits on
+    every rank of an individual group, the chunk's padding 0), components
+    equal, each wrapper once a window, the trait mask's entries held at 0;
+    a --dcn-slices case summed by hier_sum."""
     for name, _, extra, kernels in cases:
         rs = [rk[key][name] for rk in ranks]
         if len({r["eps_sha"] for r in rs}) != 1:
             raise AssertionError(f"{name}: the ranks' CUDA eps differ")
+        n_ind = (int(extra[extra.index("--ind-shards") + 1])
+                 if "--ind-shards" in extra else 1)
+        if n_ind > 1:
+            for d in range(len(rs) // n_ind):
+                if len({r["beta_sha"] for r in
+                        rs[d * n_ind:(d + 1) * n_ind]}) != 1:
+                    raise AssertionError(f"{name}: beta differs across the "
+                                         f"individual group of shard {d}")
+            if any(r["pad_nonzero"] for r in rs):
+                raise AssertionError(f"{name}: a chunk's padding is not 0")
         if any(r["comp_mismatches"] for r in rs):
             raise AssertionError(f"{name}: components differ, CUDA vs CPU")
         if any(r["masked_nonzero"] for r in rs):
@@ -4814,10 +4944,12 @@ def check_shard_sweeps(ranks, key, cases):
             if any(r["launches"].get(k) != r["n_windows"] for k in kernels):
                 raise AssertionError(f"{name}: launches {r['launches']}, "
                                      f"want {kernels} once a window")
-        print(f"two ranks, one {name} sweep CUDA vs CPU: max|d eps| "
-              f"{max(r['d_eps'] for r in rs):.3e}  max|d beta| "
+        grid = (f"{len(rs) // n_ind}x{n_ind} grid, {rs[0]['n_loc']:,} "
+                f"individuals a rank, " if n_ind > 1 else "")
+        print(f"{len(rs)} ranks, {grid}one {name} sweep CUDA vs CPU: "
+              f"max|d eps| {max(r['d_eps'] for r in rs):.3e}  max|d beta| "
               f"{max(r['d_beta'] for r in rs):.3e}  comp mismatches 0, "
-              f"eps the same bits on both ranks; rank 0 launches "
+              f"eps the same bits on every rank; rank 0 launches "
               f"{rs[0]['launches']} ({rs[0]['n_windows']} windows); rank 0 "
               f"CPU sweep {rs[0]['cpu_s']:.1f} s, CUDA "
               f"{rs[0]['cuda_s']:.1f} s", flush=True)
@@ -4941,6 +5073,40 @@ def check_mt_shards(np, ranks, tmp, card):
                      MT_SHARD_REAL, "sweep_stale_mt", card)
 
 
+def check_ind_shards(np, ranks, ranks4, card):
+    """Phase 3j's readings (--ind-shards): the 1x2 grid's sweeps from phase
+    3h's two-rank launch and the 2x2 grid's from its four-rank one, CUDA
+    against the CPU sampler (``check_shard_sweeps``), and the 1x2 grid's
+    timed sweep at M=100,000 x N=50,000. Returns the wrappers' launches of
+    rank 0's CUDA sweeps, for the kernels' record."""
+    tasks = dict(ranks[0]["seconds"])
+    print(f"phase 3j ran inside phase 3h's launch: "
+          f"{tasks['ind_sweeps'] + tasks['ind_real']:.1f} s of rank 0's "
+          f"tasks (ind_sweeps {tasks['ind_sweeps']:.1f}, ind_real "
+          f"{tasks['ind_real']:.1f}), and the 2x2 grid in a four-rank launch "
+          f"of its own beside 3h's (ind4_sweeps "
+          f"{dict(ranks4[0]['seconds'])['ind4_sweeps']:.1f} s)", flush=True)
+    check_shard_sweeps(ranks, "ind_sweeps", IND_SWEEPS)
+    check_shard_sweeps(ranks4, "ind4_sweeps", IND4_SWEEPS)
+    print_shard_real(ranks, "ind_real", "--ind-shards 2 (1x2 grid: every "
+                     "marker on both ranks, a chunk of the individuals each) "
+                     "stale W=64 per window", IND_REAL, "window_stats", card)
+    r0 = ranks[0]["ind_real"]
+    if r0["launches"].get("window_axpy") != r0["n_windows"]:
+        raise AssertionError(f"--ind-shards real size: launches a sweep "
+                             f"{r0['launches']}, want window_stats and "
+                             f"window_axpy once a window")
+    print(f"--ind-shards 2 real size: {r0['n_loc']:,} individuals a rank, "
+          f"wrappers a sweep {r0['launches']} ({r0['n_windows']} windows)  "
+          f"[{card}]", flush=True)
+    launches = {}
+    for rk in (ranks[0]["ind_sweeps"], ranks4[0]["ind4_sweeps"]):
+        for res in rk.values():
+            for name, v in res["launches"].items():
+                launches[name] = launches.get(name, 0) + v
+    return launches
+
+
 def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--restart-child":
         return restart_child(json.loads(sys.argv[2]))
@@ -5027,11 +5193,15 @@ def main() -> int:
             new_launches = phase_new_paths_cli(torch, np, tmp, card)
         with phase("3h: marker shards on torch.distributed ranks (M=10,000 "
                    "x N=5,000; one two-rank sweep at M=100,000 x N=50,000)"):
-            ranks = phase_shards(torch, np, tmp, card)
+            ranks, ranks4 = phase_shards(torch, np, tmp, card)
         with phase("3i: multi-trait marker shards and --dcn-slices (run in "
                    "3h's launch; M=10,000 x N=5,000, T=4; one two-rank "
                    "sweep at M=100,000 x N=50,000)"):
             check_mt_shards(np, ranks, tmp, card)
+        with phase("3j: --ind-shards, a (markers x individuals) rank grid "
+                   "(1x2 in 3h's launch, 2x2 in its own; M=3,000 x N=5,500; "
+                   "one 1x2 sweep at M=100,000 x N=50,000)"):
+            ind_launches = check_ind_shards(np, ranks, ranks4, card)
     for name in ("sweep_stale_bw", "window_level_sums", "window_axpy"):
         launches[name] = bw_launches[name]
     for name in ("sweep_stale_mt", "sweep_exact_mt", "window_stats_mt",
@@ -5042,6 +5212,8 @@ def main() -> int:
         launches[name] = window_launches[name]
     launches["sweep_stale_sd"] = sd_launches["sweep_stale_sd"]
     for name, v in new_launches.items():
+        launches[name] += v
+    for name, v in ind_launches.items():
         launches[name] += v
     with phase("4: real size (M=100,000 x N=50,000)"):
         phase_real_size(torch, np, sk, card)

@@ -36,17 +36,21 @@ this package mirrors its module names so each counterpart is easy to find:
                                    csrc/, plain versions beside their
                                    wrappers
   hydra_tpu_torch.parallel.distributed  the process group (one rank a
-                                   marker shard and device), gather_markers,
+                                   device), the rank grid of marker shards
+                                   and chunks of individuals (rank_grid),
+                                   gather_markers, gather_individuals,
                                    allreduce_host_sum, broadcast_object
-  hydra_tpu_torch.parallel.mesh    marker_sum / det_sum / gather_rows over
-                                   the ranks (all_reduce only)
+  hydra_tpu_torch.parallel.mesh    marker_sum / det_sum / gather_rows /
+                                   ind_sum over the grid's groups
+                                   (all_reduce only)
   hydra_tpu_torch.utils.dist       torch.Generator distributions
   hydra_tpu_torch.utils.slice_sampler  fixed-budget slice sampling
   hydra_tpu_torch.samplers.bayesrrm / .bayesrrm_mt / .bayesw  the
                                    samplers: every branch of the JAX
                                    samplers on one device (whole sweep,
                                    per window, W >= 1, float64 BayesRRm);
-                                   BayesRRm/FH and BayesW on marker shards
+                                   all four on marker shards, BayesRRm/FH
+                                   and BayesW also on chunks of individuals
   hydra_tpu_torch.runner / .cli    hydra-format chain runners (covariates,
                                    ``--restart``) and CLI
 

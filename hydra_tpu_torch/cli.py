@@ -17,9 +17,11 @@ torch.distributed.run --nproc-per-node D -m hydra_tpu_torch.cli ...``):
 ``main`` joins the process group the environment describes first and
 leaves it last (``parallel/distributed.py``). ``--device`` empty means
 cuda (NCCL between ranks), ``--device cpu`` runs the plain PyTorch path
-(gloo); ``--dcn-slices S`` lays the ranks out in S slices. What the port
-does not run (``--ind-shards``, an S that does not divide the ranks, its
-kernel limits) raises before any data is read
+(gloo); ``--dcn-slices S`` lays the ranks out in S slices, and
+``--ind-shards I`` gives each marker shard I ranks, one chunk of the
+individuals each (BayesRRm, BayesFH, BayesW). What the port does not run
+(multi-trait ``--ind-shards``, an S or I that does not divide the ranks,
+its kernel limits) raises before any data is read
 (``runner.check_supported``).
 """
 

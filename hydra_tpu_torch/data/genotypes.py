@@ -191,6 +191,7 @@ def load_dataset(
     sparse_basename: str = "",
     marker_offset: int = 0,
     marker_count: Optional[int] = None,
+    n_ind: int = 1,
 ) -> Dataset:
     """Read genotypes (a PLINK trio, sparse files, or both) and assemble a
     Dataset (main.cpp:60-136; the JAX package's source selection,
@@ -206,7 +207,9 @@ def load_dataset(
     marker_offset .. + marker_count alone, this rank's shard (the MPI-IO
     reads of data.cpp:671-739): groups and phenotypes stay global, the
     rows and their statistics local, and the global missing-call count is
-    summed over ranks in float64 (``allreduce_host_sum``)."""
+    summed over ranks in float64 (``allreduce_host_sum``), each shard's
+    once: under ``--ind-shards`` n_ind the n_ind ranks of a shard read the
+    same rows, and only the first of them adds its count."""
     local = marker_count is not None
     if local and not bed_basename:
         raise ValueError("a per-rank marker slice reads a .bed")
@@ -251,8 +254,9 @@ def load_dataset(
     geno = GenotypeData.from_packed(packed, n, pheno.na_indices)
     if local:
         geno.marker_offset, geno.m_tot = marker_offset, m
+        first = distributed.rank() % n_ind == 0
         geno.nm_tot = distributed.allreduce_host_sum(
-            float(np.asarray(geno.nm).sum()))
+            float(np.asarray(geno.nm).sum()) if first else 0.0)
     if groups is None or mS is None:
         groups, mS = make_default_groups(m, S or [0.01, 0.001, 0.0001])
     if len(groups) != m:
@@ -300,24 +304,72 @@ def shard_layout(
 
 def marker_shards(
     mtot: int, n_dev: int, rank: int, window: int,
-    blocks: Optional[Tuple[np.ndarray, np.ndarray]] = None,
+    blocks: Optional[Tuple[np.ndarray, np.ndarray]] = None, n_ind: int = 1,
 ) -> Tuple[np.ndarray, np.ndarray, int]:
-    """``shard_layout`` for shard ``rank`` of ``n_dev``, refused up front
-    with the reason where it cannot run: a rank outside 0..n_dev-1, n_dev > 1
-    without a process group of n_dev ranks, or a shard left without markers
-    (M < D * W; the JAX ``_mp_marker_slice`` raises a bare ValueError,
-    hydra_tpu/runner.py:84). The runner and every sampler call it, so the
-    rows a rank reads are the rows its sampler lays out."""
+    """``shard_layout`` for marker shard ``rank`` of ``n_dev``, each shard
+    held by ``n_ind`` ranks (``--ind-shards``: the grid's rank r holds shard
+    r // n_ind), refused up front with the reason where it cannot run: a
+    shard outside 0..n_dev-1, n_dev n_ind > 1 without a process group of
+    that many ranks, or a shard left without markers (M < D * W; the JAX
+    ``_mp_marker_slice`` raises a bare ValueError, hydra_tpu/runner.py:84).
+    The runner and every sampler call it, so the rows a rank reads are the
+    rows its sampler lays out."""
     if not 0 <= rank < n_dev:
         raise ValueError(f"rank {rank} is outside 0..{n_dev - 1}")
-    if n_dev > 1 and distributed.world_size() != n_dev:
+    if n_dev * n_ind > 1 and distributed.world_size() != n_dev * n_ind:
         raise RuntimeError(
-            f"{n_dev} marker shards need a process group of {n_dev} "
-            f"ranks (this process sees {distributed.world_size()}); "
-            "launch with scripts/run_multiprocess_torch.py or torchrun")
+            f"{n_dev} marker shards x {n_ind} chunks of individuals need a "
+            f"process group of {n_dev * n_ind} ranks (this process sees "
+            f"{distributed.world_size()}); launch with "
+            "scripts/run_multiprocess_torch.py or torchrun")
     starts, lengths, m_loc = shard_layout(mtot, n_dev, window, blocks)
     empty = [d for d in range(n_dev) if lengths[d] == 0]
     if empty:
         raise ValueError(f"{mtot} markers over {n_dev} ranks leave rank(s) "
                          f"{empty} without markers; run fewer ranks")
     return starts, lengths, m_loc
+
+
+def ind_chunk(n_pad: int, n_ind: int) -> Tuple[int, int]:
+    """(length, n_loc) of a chunk of individuals under ``--ind-shards``
+    n_ind: the JAX layout's n_pad / n_ind individuals a chunk (chunk c holds
+    individuals c length .. (c + 1) length), and the rank's padded length
+    n_loc, a multiple of IND_ALIGN (the CUDA kernels take whole 128-byte
+    packed rows). An n_pad that does not split in whole bytes raises with
+    the JAX sampler's message (hydra_tpu/samplers/bayesrrm.py:995-998)."""
+    if n_pad % (4 * n_ind):
+        raise ValueError(
+            f"individual padding {n_pad} not divisible by "
+            f"4*n_ind={4 * n_ind}; use a power-of-two inds axis <= 128")
+    length = n_pad // n_ind
+    return length, -(-length // IND_ALIGN) * IND_ALIGN
+
+
+def chunk_columns(packed, n_pad: int, n_ind: int, chunk: int, pad_byte):
+    """The byte columns of individual chunk ``chunk`` of packed rows
+    (rows, n_pad / 4), padded to n_loc / 4 bytes with ``pad_byte`` (four
+    missing codes: PLINK 0x55, h-packed 0xFF), so pad individuals decode to
+    zero genotype and mask. numpy or torch rows alike."""
+    length, n_loc = ind_chunk(n_pad, n_ind)
+    b0, nb = chunk * length // 4, length // 4
+    rows = packed[:, b0:b0 + nb]
+    if n_loc == length:
+        return rows
+    if isinstance(rows, np.ndarray):
+        out = np.full((rows.shape[0], n_loc // 4), pad_byte, dtype=np.uint8)
+    else:
+        import torch
+
+        out = torch.full((rows.shape[0], n_loc // 4), pad_byte,
+                         dtype=torch.uint8, device=rows.device)
+    out[:, :nb] = rows
+    return out
+
+
+def chunk_rows(x: np.ndarray, n_ind: int, chunk: int) -> np.ndarray:
+    """Individual chunk ``chunk`` of an individual-indexed array (n_pad,
+    ...), zero-padded to n_loc rows (``ind_chunk``)."""
+    length, n_loc = ind_chunk(x.shape[0], n_ind)
+    out = np.zeros((n_loc,) + x.shape[1:], dtype=x.dtype)
+    out[:length] = x[chunk * length:(chunk + 1) * length]
+    return out

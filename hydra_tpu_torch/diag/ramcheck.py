@@ -7,7 +7,10 @@ simulation for sparse input. For a .bed, ``estimate_bytes`` counts the
 buffers the port's samplers hold on their one device: the packed rows (and
 their one transient copy while they are laid out in slot order), the
 residual-length vectors, the per-slot kernel rows and state, and the
-largest sweep scratch of the run's branch. The budget is the device's own
+largest sweep scratch of the run's branch; with ``--ind-shards I`` a
+device holds one chunk of the individuals (``ind_chunk``: n_pad / I padded
+to 512), and every residual-length buffer shrinks with it, as the JAX
+estimate divides them by its "inds" axis. The budget is the device's own
 memory: the card's (``torch.cuda.mem_get_info``), or the host's physical
 memory with ``--device cpu``.
 """
@@ -18,7 +21,7 @@ import os
 
 import numpy as np
 
-from hydra_tpu_torch.data.genotypes import pad_individuals
+from hydra_tpu_torch.data.genotypes import ind_chunk, pad_individuals
 from hydra_tpu_torch.io.groups import (assign_blocks_to_tasks,
                                        read_marker_blocks_file)
 from hydra_tpu_torch.ops.sweep_kernel import mrow_width
@@ -32,13 +35,16 @@ from hydra_tpu_torch.options import Options
 def estimate_bytes(m_tot: int, n: int, window: int, k: int = 4,
                    num_groups: int = 1, n_traits: int = 1,
                    model: str = "bayesMPI", exact: bool = False,
-                   dtype: str = "float32", mega: str = "auto") -> dict:
-    """Device bytes of one chain on one device, by part. The JAX
+                   dtype: str = "float32", mega: str = "auto",
+                   n_ind: int = 1) -> dict:
+    """Device bytes of one chain on one device, by part: every marker, and
+    one of ``n_ind`` chunks of the individuals (n_loc of them). The JAX
     estimate's fields (geno, eps, marker_state, window_ws, gram, total,
     m_loc, n_pad, n_loc) plus ``staging``, the layout's transient copy of
     the packed rows."""
     n_pad = pad_individuals(n)
-    nb = n_pad // 4
+    n_loc = ind_chunk(n_pad, n_ind)[1]
+    nb = n_loc // 4
     W = max(window, 1)
     m_loc = -(-m_tot // W) * W
     T = max(n_traits, 1)
@@ -55,15 +61,15 @@ def estimate_bytes(m_tot: int, n: int, window: int, k: int = 4,
     # per-window branch gathers the rows into sweep order once more
     rows = 2 if mega == "off" or dtype == "float64" else 1
     marker_state = rows * m_loc * f * (cols + num_groups)
-    eps = 16 * n_pad * T * f
+    eps = 16 * n_loc * T * f
     n_windows = m_loc // W
     gram = T * W * W * f
     if dtype == "float64":
         # a window's decoded rows in float64 (values, mask, standardized)
-        window_ws = 3 * W * n_pad * 8
+        window_ws = 3 * W * n_loc * 8
     elif T > 1 and exact:
         # the per-window Gram's decoded planes per trait
-        window_ws = 3 * T * W * n_pad * 4
+        window_ws = 3 * T * W * n_loc * 4
     elif exact and mega != "off":
         # the exact sweep's batch of window Grams
         window_ws = min(GRAM_BATCH_BYTES,
@@ -73,7 +79,7 @@ def estimate_bytes(m_tot: int, n: int, window: int, k: int = 4,
     total = geno + staging + eps + marker_state + window_ws + gram
     return dict(geno=geno, staging=staging, eps=eps,
                 marker_state=marker_state, window_ws=window_ws, gram=gram,
-                total=total, m_loc=m_loc, n_pad=n_pad, n_loc=n_pad)
+                total=total, m_loc=m_loc, n_pad=n_pad, n_loc=n_loc)
 
 
 def device_budget(device: str) -> int:
@@ -165,12 +171,13 @@ def check_ram_usage(opt: Options) -> dict:
     est = estimate_bytes(m, n, opt.window, k=mixture_components(opt),
                          n_traits=T, model=opt.bayes_type,
                          exact=opt.exact and opt.window > 1, dtype=dtype,
-                         mega=opt.mega)
+                         mega=opt.mega, n_ind=opt.ind_shards)
     budget = device_budget(opt.device)
     est["budget"] = budget
     gb = est["total"] / 1e9
     print(f"INFO   : M={m} N={n} on one device, window={opt.window}, "
-          f"{T} trait(s), {dtype}")
+          f"{T} trait(s), {dtype}, ind-shards={opt.ind_shards} "
+          f"({est['n_loc']} individuals a device)")
     print(f"INFO   : device memory estimate: {gb:.3f} GB (geno "
           f"{est['geno'] / 1e9:.3f}, staging {est['staging'] / 1e9:.3f}, "
           f"workspace {est['window_ws'] / 1e9:.3f}) of "

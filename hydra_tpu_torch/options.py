@@ -263,9 +263,12 @@ def build_parser() -> argparse.ArgumentParser:
            "(scripts/run_multiprocess_torch.py, torchrun); BayesRRm, "
            "BayesFH, BayesW and multi-trait BayesRRm")
     a("--ind-shards", dest="ind_shards", type=int, default=1,
-      help="the JAX package's individual-axis shards; not ported to "
-           "hydra_tpu_torch (refused above 1: the JAX package runs them in "
-           "one process, the port runs one process a device)")
+      help="I chunks of the individuals a marker shard (BayesRRm, BayesFH, "
+           "BayesW; I must divide the ranks): rank r holds marker shard "
+           "r // I and chunk r % I of the residual and byte columns, and "
+           "each window's statistics are summed over the shard's I ranks "
+           "before the draw; multi-trait refuses it. --check-RAM: a "
+           "device's share of such a run")
     a("--dcn-slices", dest="dcn_slices", type=int, default=1,
       help="S slices of the marker ranks (S divides them): rank r = s "
            "(D/S) + m is slice s, position m, and holds marker shard r as "

@@ -61,7 +61,22 @@ branches at D > 1:
     recurrence with the other shards' steps applied every B steps
     (``_cross_recurrence``, the JAX bayesrrm.py:443-609).
 The component counts, sums of beta^2 and BayesFH's scaled sum are summed
-over ranks; the hyper-parameter draws are the same on every rank.
+over the marker shards; the hyper-parameter draws are the same on every
+rank.
+
+Chunks of individuals (n_ind = I > 1, ``--ind-shards``) follow the JAX
+sampler on ``make_mesh(D I, n_ind=I)``: each marker shard is held by the I
+ranks of its individual group (``distributed.rank_grid``), each with the
+byte columns, residual, mask and covariates of its chunk of n_pad / I
+individuals, padded to a multiple of 512 (the kernels' whole 128-byte rows;
+pads are missing-coded and masked). The marker statistics come from the
+whole rows. The per-window branch runs, marker schedule: per window the
+chunk's statistics (and Gram) are summed over the individual group in one
+all_reduce before num0 (``mesh.ind_sum``, the JAX ``psum_i``, the same
+bits on every rank of it), so the draws agree across the group, and the
+residual change of the chunk is summed over the marker group. mu's and
+sigmaE's sums and the covariates' dot products are summed over the
+individual group too.
 """
 
 from __future__ import annotations
@@ -74,7 +89,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from hydra_tpu_torch.data.genotypes import Dataset, marker_shards
+from hydra_tpu_torch.data.genotypes import (Dataset, chunk_columns,
+                                            chunk_rows, ind_chunk,
+                                            marker_shards)
 from hydra_tpu_torch.io.pheno import center_and_scale
 from hydra_tpu_torch.ops.decode import (decode_planes_hp, hpack_bytes,
                                         standardized_window)
@@ -197,6 +214,67 @@ def resolve_device(name: str) -> torch.device:
     return dev
 
 
+class OnGrid:
+    """A sampler's place on the rank grid (``distributed.rank_grid``),
+    shared by BayesRRm and BayesW: ``grid`` (None on one marker shard
+    without slices or chunks of individuals), ``cfg`` (n_pad, n_ind) and
+    ``_isum``, the sampler's sum over the chunks."""
+
+    def _join_grid(self, n_dcn: int, n_ind: int, shard: int) -> int:
+        """Set ``grid`` (its groups made here, a collective point) and
+        return this rank's chunk of individuals; a rank that does not hold
+        marker shard ``shard`` raises."""
+        self.grid = (distributed.rank_grid(int(n_dcn), n_ind)
+                     if n_dcn > 1 or n_ind > 1 else None)
+        if self.grid is None:
+            return 0
+        if self.grid.shard != shard:
+            raise ValueError(f"rank {distributed.rank()} holds marker shard "
+                             f"{self.grid.shard}, not {shard}")
+        return self.grid.chunk
+
+    @property
+    def marker_group(self):
+        """The ranks of this rank's chunk, one a marker shard (None: every
+        rank)."""
+        return self.grid.markers if self.grid is not None else None
+
+    def _local(self, x: np.ndarray) -> np.ndarray:
+        """This rank's chunk of an individual-indexed array (n_pad, ...)."""
+        chunk = self.grid.chunk if self.grid is not None else 0
+        return chunk_rows(x, self.cfg.n_ind, chunk)
+
+    def gather_markers(self, t: torch.Tensor) -> torch.Tensor:
+        """Per-slot state of every marker shard, in shard order, on every
+        rank (``distributed.gather_markers`` over the marker group)."""
+        return distributed.gather_markers(t, self.marker_group)
+
+    def residual(self, eps: torch.Tensor) -> torch.Tensor:
+        """The whole residual (n_pad,) from this rank's chunk: the chunks of
+        the individual group gathered (a collective at I > 1)."""
+        if self.cfg.n_ind == 1:
+            return eps
+        return distributed.gather_individuals(
+            eps, self.grid, self.cfg.n_pad // self.cfg.n_ind)
+
+    def _ind_pack(self, *parts):
+        """``parts`` (tensors, or None) summed over the chunks of
+        individuals (``self._isum``) in one all_reduce of their
+        concatenation; the identity at I = 1."""
+        if self.cfg.n_ind == 1:
+            return parts
+        live = [t for t in parts if t is not None]
+        flat = self._isum(torch.cat([t.reshape(-1) for t in live]))
+        out, off = [], 0
+        for t in parts:
+            if t is None:
+                out.append(None)
+                continue
+            out.append(flat[off:off + t.numel()].view(t.shape))
+            off += t.numel()
+        return out
+
+
 @dataclass(frozen=True)
 class BayesRRmConfig:
     n_real: int          # individuals after NA correction (dN)
@@ -222,6 +300,8 @@ class BayesRRmConfig:
                                # the window-boundary residual sum only)
     det_sync: bool = False     # rank-order sums, the same on any topology
     n_dcn: int = 1             # --dcn-slices: slices of the marker hierarchy
+    n_ind: int = 1             # --ind-shards: chunks of individuals a shard
+    n_loc: int = 0             # this rank's individuals (its chunk, padded)
     # FH hyper-priors (options.hpp:89-96)
     v0L: float = 3.0
     v0t: float = 3.0
@@ -292,7 +372,7 @@ def state_to_numpy(state: BayesRRmState) -> dict:
     return {name: getattr(state, name).cpu().numpy() for name in STATE_FIELDS}
 
 
-class BayesRRm:
+class BayesRRm(OnGrid):
     """Data layout, state init and the Gibbs sweep of one device or one
     marker shard."""
 
@@ -303,7 +383,7 @@ class BayesRRm:
                  dtype: str = "float32", device="cuda",
                  packed_device: Optional[torch.Tensor] = None,
                  n_dev: int = 1, rank: int = 0, cross_sync: int = 0,
-                 det_sync: bool = False, n_dcn: int = 1):
+                 det_sync: bool = False, n_dcn: int = 1, n_ind: int = 1):
         """fh: BayesFH, with the hyper-priors v0L, v0t, v0c, s02c, tau0 of
         ``fh_params`` (the CLI defaults where absent). mega: "off" takes
         the per-window branch ("auto"/"on": the whole-sweep kernels, which
@@ -320,7 +400,10 @@ class BayesRRm:
         hold this shard's rows alone, from ``marker_offset``); cross_sync
         (exact): steps between the cross-shard exchanges, 0 = the window;
         det_sync: rank-order sums (``mesh.det_sum``); n_dcn: the slices of
-        ``--dcn-slices`` (the residual's change summed by ``hier_sum``)."""
+        ``--dcn-slices`` (the residual's change summed by ``hier_sum``);
+        n_ind: the chunks of individuals of ``--ind-shards``, one rank each
+        (n_dev n_ind ranks; this rank's chunk is its rank modulo n_ind, see
+        "Chunks of individuals" above)."""
         self.ds = dataset
         self.seed = int(seed)
         self.device = (device if isinstance(device, torch.device)
@@ -340,7 +423,7 @@ class BayesRRm:
             raise ValueError(f"dtype must be float32/float64, got {dtype!r}")
         f64 = dtype == "float64"
         self.dt = torch.float64 if f64 else f32
-        n_dev, rank = int(n_dev), int(rank)
+        n_dev, rank, n_ind = int(n_dev), int(rank), int(n_ind)
         # cross-shard exchange interval (the JAX rule, bayesrrm.py:976-980)
         cs = min(cross_sync, window) if cross_sync > 0 else window
         if exact and cs < window and window % cs:
@@ -351,14 +434,17 @@ class BayesRRm:
         # term: forced planes need float32 stale windows W >= 8 on complete
         # data and one process; float64 runs no kernel, so no whole sweep
         planes = (plane_cache == "on" and window >= 8 and not exact
-                  and complete and not f64 and n_dev == 1)
+                  and complete and not f64 and n_dev == 1 and n_ind == 1)
         if plane_cache == "on" and not planes:
             print("INFO   : --cache-planes on ignored (needs float32 stale "
-                  "windows >= 8, complete data and one device)", flush=True)
+                  "windows >= 8, complete data and one device without "
+                  "--ind-shards)", flush=True)
         # D > 1: the whole-sweep kernels a window a launch where the JAX
         # use_wmega runs them (W >= 8, no in-window exchange), else the
-        # per-window branch (its window_body)
-        per_window = (mega == "off" or planes or f64
+        # per-window branch (its window_body); chunks of individuals take
+        # the per-window branch (the JAX mega_ok and use_wmega need
+        # n_ind = 1, bayesrrm.py:1017-1018, :1101)
+        per_window = (mega == "off" or planes or f64 or n_ind > 1
                       or (n_dev > 1 and (window < 8
                                          or (exact and cs < window))))
         # auto: block wherever the JAX package's whole-sweep kernel hosts
@@ -374,8 +460,12 @@ class BayesRRm:
                   "window partition — --schedule marker restores "
                   "window-invariant chains)", flush=True)
         starts, lengths, m_loc = marker_shards(geno.m_global, n_dev, rank,
-                                               window, dataset.blocks)
-        nb = (geno.packed if packed_device is None else packed_device).shape[1]
+                                               window, dataset.blocks, n_ind)
+        # this rank's chunk of individuals (n_loc, the whole n_pad at I = 1)
+        # and the groups it sums over
+        _, n_loc = ind_chunk(geno.n_pad, n_ind)
+        chunk = self._join_grid(n_dcn, n_ind, rank)
+        nb = n_loc // 4
         # the JAX gate of the single-decode sweep (bayesrrm.py:788-815):
         # the one-shard whole-sweep branch's stale windows W >= 8, marker
         # schedule
@@ -390,15 +480,19 @@ class BayesRRm:
             per_window=per_window, planes=planes, sub_window=sub_window,
             n_cov=0 if dataset.X is None else int(dataset.X.shape[1]),
             fh=bool(fh), dtype=dtype, n_dev=n_dev, rank=rank, cross_sync=cs,
-            det_sync=bool(det_sync), n_dcn=int(n_dcn),
+            det_sync=bool(det_sync), n_dcn=int(n_dcn), n_ind=n_ind,
+            n_loc=n_loc,
             **{k: float(fhp.get(k, d)) for k, d in (
                 ("v0L", 3.0), ("v0t", 3.0), ("v0c", 3.0), ("s02c", 1.0),
                 ("tau0", 1.0))})
-        # sums over the marker shards (the JAX ma_sum) and of the residual's
-        # change (its hpsum)
+        # sums over the marker shards (the JAX ma_sum), of the residual's
+        # change (its hpsum) and over the chunks of individuals (psum_i)
         self._sum = functools.partial(mesh.shard_sum, n_dev=n_dev,
-                                      det=bool(det_sync))
-        self._esum = mesh.residual_sum(n_dev, bool(det_sync), int(n_dcn))
+                                      det=bool(det_sync),
+                                      group=self.marker_group)
+        self._esum = mesh.residual_sum(n_dev, bool(det_sync), int(n_dcn),
+                                       n_ind)
+        self._isum = functools.partial(mesh.ind_sum, grid=self.grid)
         if self.device.type == "cuda":
             self._check_memory(nb)
 
@@ -421,16 +515,20 @@ class BayesRRm:
         valid_g = valid_g[p]
 
         dev = self.device
+        # the rows' byte columns of this rank's chunk (the marker statistics
+        # above come from the whole rows)
         if packed_device is None:
             # pad slots are all-missing: PLINK 0x55, h-packed 0xFF
             packed_g = np.full((m_loc, nb), 0b01010101, dtype=np.uint8)
-            packed_g[:ln] = geno.packed[ls:ls + ln]
+            packed_g[:ln] = chunk_columns(geno.packed[ls:ls + ln], cfg.n_pad,
+                                          n_ind, chunk, 0b01010101)
             self.packed = torch.from_numpy(hpack_bytes(packed_g[p])).to(dev)
             del packed_g
         else:
             rows = torch.full((m_loc, nb), 0xFF, dtype=torch.uint8,
                               device=dev)
-            rows[:ln] = packed_device[ls:ls + ln]
+            rows[:ln] = chunk_columns(packed_device[ls:ls + ln], cfg.n_pad,
+                                      n_ind, chunk, 0xFF)
             self.packed = rows[torch.from_numpy(p).to(dev)]
             del rows
         # int8 planes in individual order, decoded on the device
@@ -461,6 +559,7 @@ class BayesRRm:
         x_cov = np.zeros((cfg.n_pad, cfg.n_cov), dtype=np.float32)
         if cfg.n_cov:
             x_cov[:cfg.n_real] = dataset.X
+        ind_mask, x_cov = self._local(ind_mask), self._local(x_cov)
 
         def put(a):
             return torch.as_tensor(np.asarray(a), dtype=dt, device=dev)
@@ -473,6 +572,9 @@ class BayesRRm:
         self.ind_mask = put(ind_mask)
         self.x_cov = put(x_cov)
         self.dN = put(float(cfg.n_real))
+        # the chunk's real individuals: the complete-data Gram's rank-1
+        # correction is linear in them (the JAX n_real_loc, :852)
+        self.dN_loc = put(float(ind_mask.sum()))
         self.dNm1 = put(float(cfg.n_real - 1))
         self.tiny = put(1e-30)
 
@@ -497,12 +599,12 @@ class BayesRRm:
         rows = 2 if cfg.per_window else 1
         f = 8 if cfg.dtype == "float64" else 4
         need = (2 * cfg.m_loc * nb      # packed rows + one copy while laid out
-                + (cfg.m_loc * cfg.n_pad if cfg.planes else 0)
+                + (cfg.m_loc * cfg.n_loc if cfg.planes else 0)
                 + rows * cfg.m_loc * f * (mrow_width(cfg.k) + 16
                                           + cfg.num_groups)
                 # float64: a window's decoded, standardized rows
-                + (3 * cfg.window * cfg.n_pad * 8 if f == 8 else 0)
-                + workspace + 8 * cfg.n_pad * f + (256 << 20))
+                + (3 * cfg.window * cfg.n_loc * 8 if f == 8 else 0)
+                + workspace + 8 * cfg.n_loc * f + (256 << 20))
         free, total = torch.cuda.mem_get_info(self.device)
         if need > free:
             raise MemoryError(
@@ -559,7 +661,7 @@ class BayesRRm:
         return BayesRRmState(
             lambda_var=lam0.expand(cfg.m_loc).clone(), nu_var=zeros.clone(),
             c_slab=c_slab, tau=tau, hyp_tau=hyp_tau,
-            eps=torch.from_numpy(eps).to(dev, self.dt),
+            eps=torch.from_numpy(self._local(eps)).to(dev, self.dt),
             beta=zeros.clone(),
             components=torch.zeros(cfg.m_loc, dtype=torch.int32, device=dev),
             acum=zeros.clone(),
@@ -592,7 +694,8 @@ class BayesRRm:
 
         eps = np.zeros(cfg.n_pad)
         eps[:cfg.n_real] = rd.eps
-        st.eps, st.mu, st.sigma_e = t(eps), t(rd.mu), t(rd.sigma_e)
+        st.eps, st.mu = t(self._local(eps)), t(rd.mu)
+        st.sigma_e = t(rd.sigma_e)
         st.beta = slots(rd.beta, 0.0)
         st.components = slots(rd.components, 0, torch.int32)
         st.sigma_g, st.est_pi = t(rd.sigma_g), t(rd.est_pi)
@@ -683,11 +786,15 @@ class BayesRRm:
             else:
                 s1, s2, gram = window_stats(self.packed, eps, mave, mstd,
                                             cfg.exact and not cfg.cross,
-                                            cfg.complete, self.dN, rows)
+                                            cfg.complete, self.dN_loc, rows)
                 if s2 is None:
                     # complete data: every marker's mask dot is sum(eps)
                     # (zero on pad individuals)
                     s2 = eps.sum()
+                if cfg.n_ind > 1:
+                    # the chunks' partial sums, between the stats and the
+                    # draw (the JAX psum_i, bayesrrm.py:340-342)
+                    s1, s2, gram = self._ind_pack(s1, s2.expand(W), gram)
             num0 = mstd * (s1 - mave * s2) + bold * self.dNm1
             if cfg.cross:
                 bnew, comp, acum, dbeta = self._cross_recurrence(
@@ -739,14 +846,16 @@ class BayesRRm:
             rows = rows_s[sl]
             xt = standardized_window(self.packed[slots[sl]], rows[:, 0],
                                      rows[:, 1], torch.float64)
-            num0 = xt @ eps + rows[:, 2] * self.dNm1
+            dot, gram = self._ind_pack(
+                xt @ eps, xt @ xt.T if cfg.exact and not cfg.cross else None)
+            num0 = dot + rows[:, 2] * self.dNm1
             if cfg.cross:
                 outs.append(self._cross_recurrence(
                     self._cross_blocks(slots[sl], rows[:, 0], rows[:, 1], xt),
                     num0, rows, i2se))
                 dbeta = outs[-1][:, 3]
             elif cfg.exact:
-                outs.append(self._recurrence(xt @ xt.T, num0, rows, i2se))
+                outs.append(self._recurrence(gram, num0, rows, i2se))
                 dbeta = outs[-1][:, 3]
             else:
                 bnew, comp, acum, dbeta = stale_draw(rows, num0, i2se, K)
@@ -764,25 +873,29 @@ class BayesRRm:
         v = sum g) and rebuilds each block from the integer g Gram with the
         rank-1 standardization; otherwise (missing data, or the float64
         branch's ``xt``) the standardized rows. ``mesh.gather_rows``
-        exchanges both exactly."""
-        cfg = self.cfg
+        exchanges both exactly over the marker group. Every block is linear
+        in the chunk's individuals (the rank-1 correction through the
+        chunk's real count), so the chunks' blocks are summed over the
+        individual group (the JAX ``corr_blk``, bayesrrm.py:452-466)."""
+        cfg, grp = self.cfg, self.marker_group
         if xt is None and cfg.complete:
             pk = self.packed[rows.to(torch.int64)]
-            g = decode_planes_hp(pk)[0]                         # (W, n_pad)
+            g = decode_planes_hp(pk)[0]                         # (W, n_loc)
             v = g.sum(dim=1)
-            pk_all = mesh.gather_rows(pk)                       # (D, W, NB)
-            st = mesh.gather_rows(torch.stack([mave, mstd, v]))  # (D, 3, W)
+            pk_all = mesh.gather_rows(pk, grp)                  # (D, W, NB)
+            st = mesh.gather_rows(torch.stack([mave, mstd, v]), grp)
             g_all = decode_planes_hp(pk_all.reshape(-1, pk.shape[1]))[0]
             gg = torch.einsum("wn,dvn->dwv", g,
                               g_all.reshape(cfg.n_dev, cfg.window, -1))
             ma, ms, vr = (st[:, i, None, :] for i in range(3))
-            return (mstd[None, :, None] * ms) * (
+            return self._isum((mstd[None, :, None] * ms) * (
                 gg - ma * v[None, :, None] - mave[None, :, None] * vr
-                + self.dN * (mave[None, :, None] * ma))
+                + self.dN_loc * (mave[None, :, None] * ma)))
         if xt is None:
             xt = standardized_window(self.packed[rows.to(torch.int64)], mave,
                                      mstd, self.dt)
-        return torch.einsum("wn,dvn->dwv", xt, mesh.gather_rows(xt))
+        return self._isum(torch.einsum("wn,dvn->dwv", xt,
+                                       mesh.gather_rows(xt, grp)))
 
     def _cross_recurrence(self, blocks, num0, rows, i2se):
         """An exact window's recurrence on marker shards with cross_sync
@@ -807,7 +920,7 @@ class BayesRRm:
                 if B > 1:
                     corr = corr + r[3] * own[:, j]
             db_b = torch.stack(dbs)                              # (B,)
-            db_all = mesh.gather_rows(db_b)                      # (D, B)
+            db_all = mesh.gather_rows(db_b, self.marker_group)   # (D, B)
             cols = blocks[:, :, b * B:(b + 1) * B]               # (D, W, B)
             cross = torch.einsum("dt,dwt->w", db_all, cols)
             corr = (corr + cross if B == 1
@@ -857,7 +970,8 @@ class BayesRRm:
         if z is None:
             z = torch.randn((), dtype=self.dt, device=dev,
                             generator=self._gen(it, _S_MU))
-        mu = eps.sum() / dN + torch.sqrt(state.sigma_e / dN) * z.to(dev)
+        mu = (self._isum(eps.sum()) / dN
+              + torch.sqrt(state.sigma_e / dN) * z.to(dev))
         eps = eps - mu * self.ind_mask
 
         # ---- schedule and per-slot randomness ----
@@ -954,7 +1068,7 @@ class BayesRRm:
         eps, gamma = self.cov_sweep(eps, state, it, noise)
 
         # ---- sigmaE (BayesRRm.cpp:2685-2690) ----
-        e_sqn = (eps * eps).sum()
+        e_sqn = self._isum((eps * eps).sum())
         sigma_e = dist.inv_scaled_chisq_rng(
             self._gen(it, _S_SIGMAE), V0E + dN,
             (e_sqn + V0E * S02E) / (V0E + dN))
@@ -990,12 +1104,13 @@ class BayesRRm:
         sigma_e = state.sigma_e
         denom = self.dNm1 + sigma_e / S02F
         sd = torch.sqrt(sigma_e / denom)
-        cols = self.x_cov[:, xi].T.contiguous()          # (F, n_pad), in order
+        cols = self.x_cov[:, xi].T.contiguous()          # (F, n_loc), in order
         g = state.gamma[xi]
         out = []
         for i in range(F):
             col, g_old = cols[i], g[i]
-            g_new = torch.dot(col, eps + g_old * col) / denom + z[i] * sd
+            g_new = (self._isum(torch.dot(col, eps + g_old * col)) / denom
+                     + z[i] * sd)
             eps = eps + (g_old - g_new) * col
             out.append(g_new)
         gamma = torch.empty_like(state.gamma)
@@ -1055,7 +1170,7 @@ class BayesRRm:
 
     def beta_global(self, state: BayesRRmState) -> np.ndarray:
         """beta in marker order (a collective on marker shards)."""
-        beta = distributed.gather_markers(state.beta)
+        beta = self.gather_markers(state.beta)
         return self.to_marker_order(beta.cpu().numpy().astype(np.float64))
 
     def run(self, n_iterations: int, state: Optional[BayesRRmState] = None,

@@ -23,7 +23,7 @@ missing-data Gram alone a window (W 64, 128, 256, 1024), per window and,
 where the tree batches the exact sweeps' Grams, batched; then this tree's
 ``chip_smoke.print_window_gibbs_times`` (window_gibbs_kernel alone a call,
 W 64, 128, 1024), ``chip_smoke.print_planes_times`` (the planes kernels
-alone a call, W 8, 64, 256, 1024, beside torch.mv on the rows cast to f32
+alone a call, at ``PLANES_TIMES_W``, beside torch.mv on the rows cast to f32
 before timing) and phase 4d's two ``--mega off`` rows (exact W=128 and
 stale W=64 at M=100,000 x N=50,000, ``MEGA_OFF_REAL_SIZE``) with the exact
 sweep's host enqueue split by wrapper and by torch operator

@@ -254,12 +254,13 @@ def test_cli_runs_without_jax(bed, bw_bed, tmp_path):
 
 
 @pytest.mark.parametrize("extra,error,match", [
-    (["--ind-shards", "2"], NotImplementedError, "not ported"),
+    (["--ind-shards", "2"], ValueError, "must divide the 1 ranks"),
     (["--dcn-slices", "2"], ValueError, "must divide the 1 ranks"),
 ])
 def test_cli_unsupported_paths_raise(bed, tmp_path, extra, error, match):
-    """--ind-shards is not ported; --dcn-slices S runs where S divides the
-    ranks, so one process refuses S = 2. Both before any data is read."""
+    """--ind-shards I and --dcn-slices S run where they divide the ranks,
+    so one process refuses I = 2 and S = 2. Both before any data is
+    read."""
     with pytest.raises(error, match=match):
         cli.main(["--device", "cpu", *_argv(bed, tmp_path / "x"), *extra])
     assert not list((tmp_path / "x").glob("*.csv"))

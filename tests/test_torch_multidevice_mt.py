@@ -558,14 +558,14 @@ def test_mt_cross_sync_is_ignored_with_a_line(bed, tmp_path, capsys):
 
 @pytest.mark.parametrize("extra,error,match", [
     (["--ind-shards", "2"], NotImplementedError,
-     "runs it in one process only"),
+     "not ported for multi-trait"),
     (["--dcn-slices", "2"], ValueError, "must divide the 1 ranks"),
     (["--dcn-slices", "0"], ValueError, "must divide"),
 ])
 def test_refused_before_reading(tmp_path, extra, error, match):
-    """--ind-shards, and a --dcn-slices that does not divide the ranks, are
-    refused with the reason before any data is read: the .bed and the
-    phenotypes named here do not exist."""
+    """--ind-shards for multi-trait, and a --dcn-slices that does not
+    divide the ranks, are refused with the reason before any data is read:
+    the .bed and the phenotypes named here do not exist."""
     from hydra_tpu_torch import cli
 
     base = str(tmp_path / "missing")
