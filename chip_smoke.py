@@ -181,10 +181,18 @@ by scripts/run_multiprocess_torch.py, ``chip_smoke.py --rank-child``):
      the same bits on both, the padding 0, window_stats / window_gibbs /
      window_axpy / window_level_sums once a window); in a four-rank launch
      of its own beside 3h's killed chains, the 2x2 grid, one exact W=64
-     --cross-sync 8 sweep the same way; one 1x2 stale W=64 sweep at
-     M=100,000 x N=50,000 (every marker on both ranks, 25,088 individuals a
-     rank): ms/sweep by CUDA events and all_reduce ms a sweep, printed as
-     two ranks sharing one card, not a multi-GPU speed.
+     --cross-sync 8 sweep the same way; multi-trait T=4 the same way on
+     phase 3i's beds: on the 1x2 grid stale W=64 and exact W=64 with 10%
+     NaN (window_stats_mt, window_axpy_mt and, exact, mt_window_recurrence
+     on each chunk once a window), on the 2x2 grid exact W=64 with full
+     phenotypes; one 1x2 stale W=64 sweep at M=25,000 x N=50,000 (every
+     marker on both ranks, 25,088 individuals a rank) and one of
+     multi-trait T=4 with 10% NaN on 3i's real-size genotypes' first 25,000
+     markers: ms/sweep by CUDA events and all_reduce ms a sweep, printed as
+     two ranks sharing one card, not a multi-GPU speed; ``python -m
+     hydra_tpu_torch.postproc`` ess and predict on 3h's two-rank --det-sync
+     chain (finite R-hat and ESS, a score for each of the bed's 5,000
+     individuals).
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Any failure raises before those lines. JAX
 and the JAX package are blocked: the port must run without them.
@@ -4332,11 +4340,23 @@ IND_SWEEPS = (
      ("window_stats", "window_gibbs", "window_axpy")),
     ("ind_bw_w64", "bw:weibull_M3K_N_5500", ("--window", "64") + IND,
      ("window_level_sums", "window_axpy")))
+IND_MT = ("window_stats_mt", "window_axpy_mt")
+IND_SWEEPS += (
+    ("mt_ind_stale_w64", "mt_na:mt_M3K_N_5500",
+     ("--stale", "--window", "64") + IND, IND_MT),
+    ("mt_ind_exact_w64_nan", "mt_na:mt_M3K_N_5500", ("--window", "64") + IND,
+     IND_MT + ("mt_window_recurrence",)))
 IND4_SWEEPS = (("ind4_exact_cs8", "brr:t_M3K_N_5500",
                 ("--window", "64", "--cross-sync", "8") + IND,
-                ("window_stats", "window_axpy")),)
-IND_REAL = dict(m=100_000, n=50_000, window=64, warmup=1, sweeps=1,
-                n_ind=2)
+                ("window_stats", "window_axpy")),
+               ("mt_ind4_exact_w64", "mt:mt_M3K_N_5500",
+                ("--window", "64") + IND, IND_MT + ("mt_window_recurrence",)))
+# the 1x2 readings at N=50,000: M cut from 100,000 to 25,000 (the smoke's
+# time limit; gloo's all_reduce a window sets their time); multi-trait on
+# the first 25,000 markers of phase 3i's real-size genotypes (made once on
+# each rank for both readings) with 10% NaN
+IND_REAL = dict(m=25_000, n=50_000, window=64, warmup=1, sweeps=1, n_ind=2)
+MT_IND_REAL = dict(MT_SHARD_REAL, m=25_000, n_ind=2, na_frac=0.1)
 
 
 def write_sweep_beds(np, tmp):
@@ -4409,7 +4429,7 @@ def shard_sweeps(torch, np, tmp, cases=SHARD_SWEEPS):
                       n_dcn=opt.dcn_slices)
             if mt:
                 return bayesrrm_mt.BayesRRmMT(ds, phenos, exact=opt.exact,
-                                              **kw)
+                                              n_ind=n_ind, **kw)
             if model == "bw":
                 return bayesw.BayesW(ds, n_ind=n_ind, **kw)
             return bayesrrm.BayesRRm(ds, exact=opt.exact,
@@ -4467,14 +4487,29 @@ def shard_sweeps(torch, np, tmp, cases=SHARD_SWEEPS):
     return out
 
 
-def shard_real_size(torch, np, mt=False, real=None):
+def mt_real_data(torch, np):
+    """MT_SHARD_REAL's genotypes on this rank's card: each of its two marker
+    shards made from its seed (2 + shard), as ``shard_real_size`` makes a
+    shard; [(packed, mave, mstd, nm)] in shard order."""
+    from hydra_tpu_torch.data.genotypes import shard_layout
+    from hydra_tpu_torch.parallel import distributed
+    real, dev = MT_SHARD_REAL, distributed.rank_device()
+    n = real["n"]
+    _, lengths, _ = shard_layout(real["m"], 2, real["window"])
+    return [device_genotypes(torch, int(ln), n, padded_individuals(np, n),
+                             torch.Generator(device=dev).manual_seed(2 + d))
+            for d, ln in enumerate(lengths)]
+
+
+def shard_real_size(torch, np, mt=False, real=None, data=None):
     """This rank's shard of M=100,000 x N=50,000 stale W=64 (genotypes
-    made on the card from a seed a marker shard; mt: multi-trait T=4 with
-    full phenotypes; ``real`` IND_REAL: every marker on each rank of the
-    1x2 grid, each with its chunk of the individuals, the per-window
-    branch): after the warm-up, ms a sweep by CUDA events, then as many
-    sweeps with each all_reduce of the sampler timed alone (synchronized
-    before and after)."""
+    made on the card from a seed a marker shard, or this shard's rows of
+    ``data``, ``mt_real_data``; mt: multi-trait T=4 with full phenotypes;
+    ``real`` IND_REAL: every marker on each rank of the 1x2 grid, each with
+    its chunk of the individuals, the per-window branch; MT_IND_REAL: the
+    same for multi-trait with 10% NaN): after the warm-up, ms a sweep by
+    CUDA events, then as many sweeps with each all_reduce of the sampler
+    timed alone (synchronized before and after)."""
     from hydra_tpu_torch.data.genotypes import (Dataset, GenotypeData,
                                                 make_default_groups,
                                                 shard_layout)
@@ -4490,8 +4525,11 @@ def shard_real_size(torch, np, mt=False, real=None):
     starts, lengths, _ = shard_layout(m, n_dev, W)
     s, ln = int(starts[d]), int(lengths[d])
     n_pad = padded_individuals(np, n)
-    gen = torch.Generator(device=dev).manual_seed(2 + d)
-    pk, mave, mstd, nm = device_genotypes(torch, ln, n, n_pad, gen)
+    if data is None:
+        gen = torch.Generator(device=dev).manual_seed(2 + d)
+        pk, mave, mstd, nm = device_genotypes(torch, ln, n, n_pad, gen)
+    else:
+        pk, mave, mstd, nm = (torch.cat(x)[s:s + ln] for x in zip(*data))
     mave_h, mstd_h = mave.cpu().numpy(), mstd.cpu().numpy()
     geno = GenotypeData(
         packed=np.zeros((0, n_pad // 4), np.uint8), n=n, n_pad=n_pad, m=ln,
@@ -4504,11 +4542,13 @@ def shard_real_size(torch, np, mt=False, real=None):
                  groups=groups, num_groups=1, mS=mS)
     kw = dict(window=W, exact=False, seed=1, device=dev, packed_device=pk,
               n_dev=n_dev, rank=d)
-    smp = (BayesRRmMT(ds, mt_phenotypes(np, n, real["n_traits"], 4), **kw)
+    smp = (BayesRRmMT(ds, mt_phenotypes(np, n, real["n_traits"], 4,
+                                        real.get("na_frac", 0.0)),
+                      n_ind=n_ind, **kw)
            if mt else BayesRRm(ds, n_ind=n_ind, **kw))
     del pk
-    kernel = ("sweep_stale_mt" if mt else "window_stats" if n_ind > 1
-              else "sweep_stale")
+    kernel = ("window_stats_mt" if mt and n_ind > 1 else "sweep_stale_mt"
+              if mt else "window_stats" if n_ind > 1 else "sweep_stale")
     st = smp.init_state()
     k, w = real["sweeps"], real["warmup"]
     reset_all_launches()
@@ -4551,10 +4591,10 @@ def shard_real_size(torch, np, mt=False, real=None):
                    smp.residual(st.eps).cpu().numpy().tobytes()
                    if n_ind > 1 else st.eps.cpu().numpy().tobytes()
                ).hexdigest())
-    if mt:
-        res["window_check"] = shard_window_check(torch, smp, st)
-    elif n_ind > 1:
+    if n_ind > 1:
         res.update(n_loc=smp.cfg.n_loc, launches=per_sweep)
+    elif mt:
+        res["window_check"] = shard_window_check(torch, smp, st)
     else:
         res["dcn_chunks"] = dcn_chunk_cost(torch, st.eps)
     return res
@@ -4642,9 +4682,9 @@ def rank_child(args):
     through the CLI's body, ``cli._run``, with each run's wrapper
     launches; "sweeps": shard_sweeps; "wait": until the file ``path``
     exists, so what follows has the card to itself; "real", "mt_real",
-    "ind_real": shard_real_size; "ind_sweeps", "ind4_sweeps": phase 3j's
-    shard_sweeps), the results, with each task's seconds, in
-    <out>/rank<r>.json."""
+    "ind_real", "mt_ind_real": shard_real_size, the last on "mt_real"'s
+    genotypes; "ind_sweeps", "ind4_sweeps": phase 3j's shard_sweeps), the
+    results, with each task's seconds, in <out>/rank<r>.json."""
     sys.path.insert(0, REPO)
     import numpy as np
     import torch
@@ -4682,7 +4722,13 @@ def rank_child(args):
                 res["mt_sweeps"] = shard_sweeps(torch, np, task["tmp"],
                                                 MT_SHARD_SWEEPS)
             elif task["kind"] == "mt_real":
-                res["mt_real"] = shard_real_size(torch, np, mt=True)
+                data = mt_real_data(torch, np)
+                res["mt_real"] = shard_real_size(torch, np, mt=True,
+                                                 data=data)
+            elif task["kind"] == "mt_ind_real":
+                res["mt_ind_real"] = shard_real_size(
+                    torch, np, mt=True, real=MT_IND_REAL, data=data)
+                del data
             elif task["kind"] in ("ind_sweeps", "ind4_sweeps"):
                 res[task["kind"]] = shard_sweeps(
                     torch, np, task["tmp"], IND_SWEEPS
@@ -4847,7 +4893,8 @@ def phase_shards(torch, np, tmp, card):
         dict(kind="wait", path=gate),
         dict(kind="cli", label="chains", argvs=chain + launched),
         dict(kind="cli", label="mt_chains", argvs=mt_chain),
-        dict(kind="real"), dict(kind="mt_real"), dict(kind="ind_real")],
+        dict(kind="real"), dict(kind="mt_real"), dict(kind="mt_ind_real"),
+        dict(kind="ind_real")],
         "gloo", same_device=True)
     try:
         for argv in plain:
@@ -5073,18 +5120,20 @@ def check_mt_shards(np, ranks, tmp, card):
                      MT_SHARD_REAL, "sweep_stale_mt", card)
 
 
-def check_ind_shards(np, ranks, ranks4, card):
+def check_ind_shards(np, ranks, ranks4, tmp, card):
     """Phase 3j's readings (--ind-shards): the 1x2 grid's sweeps from phase
     3h's two-rank launch and the 2x2 grid's from its four-rank one, CUDA
-    against the CPU sampler (``check_shard_sweeps``), and the 1x2 grid's
-    timed sweep at M=100,000 x N=50,000. Returns the wrappers' launches of
-    rank 0's CUDA sweeps, for the kernels' record."""
+    against the CPU sampler (``check_shard_sweeps``), the 1x2 grid's timed
+    sweeps at M=25,000 x N=50,000 (single-trait, and multi-trait T=4 with
+    10% NaN), and the port's postproc on 3h's two-rank chain
+    (``check_postproc``). Returns the wrappers' launches of rank 0's CUDA
+    sweeps, for the kernels' record."""
     tasks = dict(ranks[0]["seconds"])
+    own = ("ind_sweeps", "ind_real", "mt_ind_real")
     print(f"phase 3j ran inside phase 3h's launch: "
-          f"{tasks['ind_sweeps'] + tasks['ind_real']:.1f} s of rank 0's "
-          f"tasks (ind_sweeps {tasks['ind_sweeps']:.1f}, ind_real "
-          f"{tasks['ind_real']:.1f}), and the 2x2 grid in a four-rank launch "
-          f"of its own beside 3h's (ind4_sweeps "
+          f"{sum(tasks[k] for k in own):.1f} s of rank 0's tasks ("
+          + ", ".join(f"{k} {tasks[k]:.1f}" for k in own) + "), and the 2x2 "
+          f"grid in a four-rank launch of its own beside 3h's (ind4_sweeps "
           f"{dict(ranks4[0]['seconds'])['ind4_sweeps']:.1f} s)", flush=True)
     check_shard_sweeps(ranks, "ind_sweeps", IND_SWEEPS)
     check_shard_sweeps(ranks4, "ind4_sweeps", IND4_SWEEPS)
@@ -5099,12 +5148,61 @@ def check_ind_shards(np, ranks, ranks4, card):
     print(f"--ind-shards 2 real size: {r0['n_loc']:,} individuals a rank, "
           f"wrappers a sweep {r0['launches']} ({r0['n_windows']} windows)  "
           f"[{card}]", flush=True)
+    label = (f"multi-trait T={MT_IND_REAL['n_traits']} 10% NaN "
+             "--ind-shards 2 (1x2 grid) stale W=64 per window")
+    print_shard_real(ranks, "mt_ind_real", label, MT_IND_REAL,
+                     "window_stats_mt", card)
+    r0 = ranks[0]["mt_ind_real"]
+    if any(r0["launches"].get(k) != r0["n_windows"] for k in IND_MT):
+        raise AssertionError(f"multi-trait --ind-shards real size: launches "
+                             f"a sweep {r0['launches']}, want {IND_MT} once "
+                             "a window")
+    print(f"{label}: {r0['ms']:.2f} ms a sweep by CUDA events, "
+          f"{100.0 * r0['allreduce_ms'] / r0['timed_wall_ms']:.1f}% of the "
+          f"timed sweep ({r0['timed_wall_ms']:.2f} ms) in gloo all_reduce "
+          f"({r0['allreduce_ms']:.2f} ms, {r0['allreduce_calls']:.0f} "
+          f"calls), wrappers a sweep {r0['launches']} ({r0['n_windows']} "
+          f"windows), n_loc {r0['n_loc']:,}  [{card}]", flush=True)
+    check_postproc(np, tmp)
     launches = {}
     for rk in (ranks[0]["ind_sweeps"], ranks4[0]["ind4_sweeps"]):
         for res in rk.values():
             for name, v in res["launches"].items():
                 launches[name] = launches.get(name, 0) + v
     return launches
+
+
+def check_postproc(np, tmp):
+    """``python -m hydra_tpu_torch.postproc`` ess and predict on phase 3h's
+    two-rank --det-sync chain (its thin records and phase 3's bed): R-hat
+    and ESS finite for every trace, a score for each individual."""
+    base = os.path.join(tmp, "out_shards", "d2_a")
+    runs = {}
+    for name, argv in (("ess", ["ess", base + ".csv", "--burnin", "1"]),
+                       ("predict", ["predict", base + ".bet", "--bfile",
+                                    os.path.join(tmp, "t_M10K_N_5K"),
+                                    "--burnin", "1", "--mus",
+                                    base + ".mus.0"])):
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-m", "hydra_tpu_torch.postproc",
+                              *argv], cwd=REPO, capture_output=True,
+                             text=True, timeout=300)
+        if res.returncode:
+            raise AssertionError(f"postproc {name}: exit {res.returncode}\n"
+                                 f"{res.stderr[-3000:]}")
+        runs[name] = (res.stdout.splitlines(), time.perf_counter() - t0)
+    rows = [ln.split() for ln in runs["ess"][0][2:]]
+    if len(rows) != 4 or not all(np.isfinite(float(v)) for r in rows
+                                 for v in r[1:]):
+        raise AssertionError(f"postproc ess: {runs['ess'][0]}")
+    scores = np.array([float(ln.split()[2]) for ln in runs["predict"][0]])
+    if scores.shape != (5_000,) or not np.all(np.isfinite(scores)):
+        raise AssertionError(f"postproc predict: {scores.shape} scores")
+    print("postproc on the two-rank --det-sync chain: ess " + "; ".join(
+        f"{r[0]} ess {r[3]} rhat {r[4]}" for r in rows)
+        + f" ({runs['ess'][1]:.1f} s); predict {scores.shape[0]:,} finite "
+        f"scores, sd {scores.std():.4f} ({runs['predict'][1]:.1f} s)",
+        flush=True)
 
 
 def main() -> int:
@@ -5199,9 +5297,10 @@ def main() -> int:
                    "sweep at M=100,000 x N=50,000)"):
             check_mt_shards(np, ranks, tmp, card)
         with phase("3j: --ind-shards, a (markers x individuals) rank grid "
-                   "(1x2 in 3h's launch, 2x2 in its own; M=3,000 x N=5,500; "
-                   "one 1x2 sweep at M=100,000 x N=50,000)"):
-            ind_launches = check_ind_shards(np, ranks, ranks4, card)
+                   "(1x2 in 3h's launch, 2x2 in its own; M=3,000 x N=5,500, "
+                   "multi-trait T=4; one 1x2 sweep at M=25,000 x N=50,000 "
+                   "each, single- and multi-trait) and postproc"):
+            ind_launches = check_ind_shards(np, ranks, ranks4, tmp, card)
     for name in ("sweep_stale_bw", "window_level_sums", "window_axpy"):
         launches[name] = bw_launches[name]
     for name in ("sweep_stale_mt", "sweep_exact_mt", "window_stats_mt",

@@ -49,18 +49,21 @@ this package mirrors its module names so each counterpart is easy to find:
                                    samplers: every branch of the JAX
                                    samplers on one device (whole sweep,
                                    per window, W >= 1, float64 BayesRRm);
-                                   all four on marker shards, BayesRRm/FH
-                                   and BayesW also on chunks of individuals
+                                   all four on marker shards and on chunks
+                                   of individuals
   hydra_tpu_torch.runner / .cli    hydra-format chain runners (covariates,
                                    ``--restart``) and CLI
+  hydra_tpu_torch.postproc         the post-processing CLI (own copy of
+                                   ``hydra_tpu.postproc``, numpy only)
 
 scripts/soak_restart_torch.py SIGKILLs a CLI chain, restarts it and holds
 every record after the restart byte for byte to the uninterrupted run;
 scripts/run_multiprocess_torch.py starts D ranks of the CLI on one host.
 
 Nothing here imports JAX or ``hydra_tpu``: the modules the port shares with
-the JAX package in behaviour (options, io, data, outputs) are its own
-copies, held against the originals by tests/test_torch_isolation.py.
+the JAX package in behaviour (options, io, data, outputs, postproc) are its
+own copies, held against the originals by tests/test_torch_isolation.py
+(postproc: tests/test_torch_postproc.py).
 """
 
 __version__ = "0.3.0"

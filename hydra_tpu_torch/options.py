@@ -264,11 +264,11 @@ def build_parser() -> argparse.ArgumentParser:
            "BayesFH, BayesW and multi-trait BayesRRm")
     a("--ind-shards", dest="ind_shards", type=int, default=1,
       help="I chunks of the individuals a marker shard (BayesRRm, BayesFH, "
-           "BayesW; I must divide the ranks): rank r holds marker shard "
-           "r // I and chunk r % I of the residual and byte columns, and "
-           "each window's statistics are summed over the shard's I ranks "
-           "before the draw; multi-trait refuses it. --check-RAM: a "
-           "device's share of such a run")
+           "BayesW and multi-trait BayesRRm; I must divide the ranks): rank "
+           "r holds marker shard r // I and chunk r % I of the residual and "
+           "byte columns, and each window's statistics are summed over the "
+           "shard's I ranks before the draw. --check-RAM: a device's share "
+           "of such a run")
     a("--dcn-slices", dest="dcn_slices", type=int, default=1,
       help="S slices of the marker ranks (S divides them): rank r = s "
            "(D/S) + m is slice s, position m, and holds marker shard r as "

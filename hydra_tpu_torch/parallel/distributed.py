@@ -251,16 +251,18 @@ def gather_markers(t: torch.Tensor, group=None) -> torch.Tensor:
 
 def gather_individuals(t: torch.Tensor, grid: Grid, length: int
                        ) -> torch.Tensor:
-    """A residual-length vector whose chunks the ranks of ``grid``'s
-    individual group hold (each (n_loc,), its first ``length`` entries
-    real, the rest the chunk's own padding), as the whole (I length,) on
-    every rank of the group, chunk after chunk: the residual rank 0 writes
-    and saves. Exact, as ``gather_markers``; the identity at I = 1."""
+    """A residual whose chunks the ranks of ``grid``'s individual group
+    hold (each (n_loc, ...): multi-trait (n_loc, T); its first ``length``
+    rows real, the rest the chunk's own padding), as the whole (I length,
+    ...) on every rank of the group, chunk after chunk: the residual rank 0
+    writes and saves. Exact, as ``gather_markers``; the identity at
+    I = 1."""
     from hydra_tpu_torch.parallel.mesh import gather_rows
 
     if grid.n_ind == 1:
         return t
-    return gather_rows(t, grid.inds)[:, :length].reshape(-1)
+    return gather_rows(t, grid.inds)[:, :length].reshape(
+        (-1,) + tuple(t.shape[1:]))
 
 
 def group_size(group=None) -> int:

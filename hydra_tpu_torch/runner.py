@@ -24,12 +24,11 @@ laid out as ``--dcn-slices`` slices where it is given: each rank reads
 only its shard's ``.bed`` rows, rank 0 alone writes (``NullWriter`` on the
 others) and reads a restart, which it broadcasts, and the marker-sharded
 state comes to rank 0 through ``gather_markers`` at every record, on every
-rank alike. ``--ind-shards I`` (BayesRRm, BayesFH, BayesW) gives each
-marker shard I ranks, each with a chunk of the individuals: rank r reads
-shard r // I's rows and keeps chunk r % I's byte columns, and the residual
-rank 0 saves is the chunks gathered over its individual group
-(``residual``); a restart's residual goes to every rank, each taking its
-chunk.
+rank alike. ``--ind-shards I`` (every sampler) gives each marker shard I
+ranks, each with a chunk of the individuals: rank r reads shard r // I's
+rows and keeps chunk r % I's byte columns, and the residual rank 0 saves
+is the chunks gathered over its individual group (``residual``); a
+restart's residual goes to every rank, each taking its chunk.
 """
 
 from __future__ import annotations
@@ -68,9 +67,9 @@ def mixture_components(opt: Options) -> int:
 
 def check_supported(opt: Options) -> None:
     """Raise before any data is read for what the port does not run, with
-    the reason: --ind-shards with multi-trait BayesRRm; a --dcn-slices S
-    and --ind-shards I whose product does not divide the ranks (the JAX
-    ``make_mesh`` raises the same, hydra_tpu/parallel/mesh.py:57-60);
+    the reason: a --dcn-slices S and --ind-shards I whose product does not
+    divide the ranks (the JAX ``make_mesh`` raises the same,
+    hydra_tpu/parallel/mesh.py:57-60);
     --n-devices other than 0 or the number of ranks (each rank is one
     device, so D > 1 needs D ranks under a launcher); and the port's own
     limits, which the JAX package does not have: W > W_MAX (one draw thread
@@ -84,12 +83,6 @@ def check_supported(opt: Options) -> None:
     # --check-RAM estimates a device's share of a --ind-shards run without
     # launching it
     host_only = opt.bed_to_sparse or opt.check_ram
-    if opt.ind_shards > 1 and multi and not host_only:
-        raise NotImplementedError(
-            "--ind-shards is not ported for multi-trait BayesRRm: its "
-            "per-trait masked statistics (hydra_tpu/samplers/bayesrrm_mt.py:"
-            "119-179) would need their own sums over the chunks of "
-            "individuals; BayesRRm, BayesFH and BayesW run it")
     if opt.ind_shards < 1 or (world % opt.ind_shards and not host_only):
         raise ValueError(
             f"--ind-shards {opt.ind_shards} must divide the {world} ranks of "
@@ -170,7 +163,7 @@ def rank_marker_slice(opt: Options, m: int, blocks=None):
         return 0, None
     d = a["rank"]
     starts, lengths, _ = marker_shards(m, a["n_dev"], d, max(opt.window, 1),
-                                       blocks, opt.ind_shards)
+                                       blocks, a["n_ind"])
     return int(starts[d]), int(lengths[d])
 
 
@@ -333,12 +326,12 @@ def read_mt_restart(opt: Options, n_traits: int, m: int, n: int) -> list:
 
 
 def shard_args(opt: Options) -> dict:
-    """The sampler's marker-shard arguments: one shard every --ind-shards
-    ranks (rank r holds shard r // I), the shards in --dcn-slices
-    slices."""
+    """Every sampler's rank-grid arguments: one marker shard every
+    --ind-shards ranks (rank r holds shard r // I and chunk r % I), the
+    shards in --dcn-slices slices."""
     n_ind = max(int(opt.ind_shards), 1)
     return dict(n_dev=distributed.world_size() // n_ind,
-                rank=distributed.rank() // n_ind,
+                rank=distributed.rank() // n_ind, n_ind=n_ind,
                 det_sync=bool(opt.det_sync), n_dcn=int(opt.dcn_slices))
 
 
@@ -382,8 +375,7 @@ def run_bayesrrm(opt: Options, dataset: Optional[Dataset] = None,
                        fh_params=dict(v0L=opt.v0L, v0t=opt.v0t, v0c=opt.v0c,
                                       s02c=opt.s02c, tau0=opt.tau0),
                        device=device, packed_device=packed_device,
-                       cross_sync=opt.cross_sync, n_ind=opt.ind_shards,
-                       **shard_args(opt))
+                       cross_sync=opt.cross_sync, **shard_args(opt))
     state = (sampler.init_state() if rd is None
              else sampler.init_state_from_restart(rd))
     start_it = 0 if rd is None else rd.start_iteration
@@ -495,7 +487,8 @@ def mt_dataset_from_options(opt: Options):
     keeps its genotypes, NaN phenotypes are masked per trait, not removed,
     and covariates (a comma-separated file without IDs) are read for all
     N individuals (hydra_tpu/runner.py:159-179). Under a process group each
-    rank reads its shard's .bed rows (``rank_marker_slice``)."""
+    rank reads its shard's .bed rows (``rank_marker_slice``: shard
+    rank // --ind-shards, every individual's columns)."""
     n = opt.number_individuals or plink.read_fam(opt.bed_file + ".fam").n
     m = opt.number_markers or plink.read_bim(opt.bed_file + ".bim").m
     phenos = read_multi_phenos(opt, n)
@@ -509,15 +502,17 @@ def mt_dataset_from_options(opt: Options):
         mS = groups_io.read_ms_file(opt.group_mixture_file)
     offset, count = rank_marker_slice(opt, m)
     ds = load_dataset(opt.bed_file, ph, n=n, m=m, groups=grp, mS=mS, S=opt.S,
-                      marker_offset=offset, marker_count=count)
+                      marker_offset=offset, marker_count=count,
+                      n_ind=opt.ind_shards)
     return ds, phenos
 
 
 def run_bayesrrm_mt(opt: Options, verbose: bool = True) -> dict:
     """Multi-trait BayesRRm chain (``--pheno a,b,...``) with per-trait
     hydra outputs ``<out>.t<k>.{csv,bet,cpn,acu,...}``, on ``opt.device``
-    (hydra_tpu/runner.py:150-304), on one device or a marker shard a rank
-    (rank 0 writes and reads the restart). A restart reads every trait's
+    (hydra_tpu/runner.py:150-304), on one device, a marker shard a rank or
+    the --ind-shards grid (rank 0 writes and reads the restart, and saves
+    the residual gathered from the chunks). A restart reads every trait's
     files, their covariate dumps included, and so restores gamma, which the
     JAX runner does not (it reads them without ``covariates``). As the JAX
     runner, it builds the sampler without --cross-sync."""
@@ -546,7 +541,7 @@ def run_bayesrrm_mt(opt: Options, verbose: bool = True) -> dict:
                for t in range(T)]
     marker_order = sampler.slot_to_marker[
         sampler.slot_to_marker >= 0].astype(np.int32)
-    gather = distributed.gather_markers
+    gather = sampler.gather_markers
     primary = distributed.is_primary()
 
     tot_proc = write_s = 0.0
@@ -567,7 +562,7 @@ def run_bayesrrm_mt(opt: Options, verbose: bool = True) -> dict:
             pulls.update(m0=stats.m0, est_pi=state.est_pi,
                          acum=gather(state.acum))
         if on_save:
-            pulls.update(eps=state.eps, gamma=state.gamma)
+            pulls.update(eps=sampler.residual(state.eps), gamma=state.gamma)
         h = fetch_host(pulls)
         t_w = time.time()
         if on_thin or on_save:
@@ -629,7 +624,7 @@ def run_bayesw(opt: Options, dataset: Optional[Dataset] = None,
     sampler = BayesW(ds, window=opt.window, shuffle=bool(opt.shuffle_markers),
                      seed=opt.seed, quad_points=int(opt.quad_points),
                      schedule=opt.schedule, mega=opt.mega, device=device,
-                     n_ind=opt.ind_shards, **shard_args(opt))
+                     **shard_args(opt))
     state = (sampler.init_state() if rd is None
              else sampler.init_state_from_restart(rd))
     start_it = 0 if rd is None else rd.start_iteration

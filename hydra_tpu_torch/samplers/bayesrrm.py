@@ -216,7 +216,7 @@ def resolve_device(name: str) -> torch.device:
 
 class OnGrid:
     """A sampler's place on the rank grid (``distributed.rank_grid``),
-    shared by BayesRRm and BayesW: ``grid`` (None on one marker shard
+    shared by BayesRRm, BayesW and multi-trait BayesRRm: ``grid`` (None on one marker shard
     without slices or chunks of individuals), ``cfg`` (n_pad, n_ind) and
     ``_isum``, the sampler's sum over the chunks."""
 
@@ -250,8 +250,8 @@ class OnGrid:
         return distributed.gather_markers(t, self.marker_group)
 
     def residual(self, eps: torch.Tensor) -> torch.Tensor:
-        """The whole residual (n_pad,) from this rank's chunk: the chunks of
-        the individual group gathered (a collective at I > 1)."""
+        """The whole residual (n_pad, ...) from this rank's chunk: the
+        chunks of the individual group gathered (a collective at I > 1)."""
         if self.cfg.n_ind == 1:
             return eps
         return distributed.gather_individuals(

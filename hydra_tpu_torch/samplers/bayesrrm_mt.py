@@ -1,4 +1,5 @@
-"""Multi-trait BayesRRm on one device or on D marker shards.
+"""Multi-trait BayesRRm on one device, on D marker shards, or on a
+(markers x individuals) rank grid.
 
 Port of ``hydra_tpu/samplers/bayesrrm_mt.py`` (``BayesRRmMT``; reference
 BayesRRm_mt::runMpiGibbsMultiTraits, src/BayesRRm_mt.cpp:290-1426). T traits
@@ -60,6 +61,19 @@ n_dcn > 1, ``det_sum`` under det_sync), times the trait mask. ``schedule=
     :391-456).
 The component counts and sums of beta^2 are summed over ranks; the
 hyper-parameter draws and the covariates' sweep are the same on every rank.
+
+Chunks of individuals (n_ind = I > 1, ``--ind-shards``) follow the JAX
+sampler on ``make_mesh(D I, n_ind=I)`` as BayesRRm's do (``OnGrid``): each
+marker shard is held by the I ranks of its individual group, each with the
+byte columns, residual (n_loc, T), trait mask and covariates of its chunk of
+n_pad / I individuals, padded to a multiple of 512. The per-(marker, trait)
+statistics come from the whole rows under the whole masks. The per-window
+branch runs, marker schedule; the JAX ``psum_i`` points are sums over the
+individual group in rank order (``mesh.ind_sum``, the same bits on every
+rank of it): mu's residual sums, each window's s1, s2 and exact Gram in one
+all_reduce (``_ind_pack``) before num0, the cross-shard Gram blocks, the
+covariates' dot products and sigmaE's sums of squares. The residual's
+change of a window and cass and beta^2 are summed over the marker group.
 """
 
 from __future__ import annotations
@@ -72,7 +86,8 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
-from hydra_tpu_torch.data.genotypes import Dataset, marker_shards
+from hydra_tpu_torch.data.genotypes import (Dataset, chunk_columns,
+                                            ind_chunk, marker_shards)
 from hydra_tpu_torch.ops.decode import decode_planes_hp, hpack_bytes
 from hydra_tpu_torch.ops.sweep_kernel import K_MAX, W_MAX
 from hydra_tpu_torch.ops.sweep_kernel_mt import (T_MAX, _blocks,
@@ -82,11 +97,11 @@ from hydra_tpu_torch.ops.sweep_kernel_mt import (T_MAX, _blocks,
                                                  sweep_exact_mt,
                                                  sweep_stale_mt)
 from hydra_tpu_torch.ops.window_kernels import window_axpy_mt, window_stats_mt
-from hydra_tpu_torch.parallel import distributed, mesh
+from hydra_tpu_torch.parallel import mesh
 from hydra_tpu_torch.samplers.bayesrrm import (S02E, S02F, S02G_DEFAULT,
-                                               V0E, V0G_DEFAULT, global_slots,
-                                               resolve_device, shard_rows,
-                                               sweep_order)
+                                               V0E, V0G_DEFAULT, OnGrid,
+                                               global_slots, resolve_device,
+                                               shard_rows, sweep_order)
 from hydra_tpu_torch.utils import dist
 
 f32 = torch.float32
@@ -121,6 +136,8 @@ class MtConfig:
                          # window-boundary residual sum only)
     det_sync: bool = False     # rank-order sums, the same on any topology
     n_dcn: int = 1       # --dcn-slices: slices of the marker hierarchy
+    n_ind: int = 1       # --ind-shards: chunks of individuals a shard
+    n_loc: int = 0       # this rank's individuals (n_pad at I = 1)
 
     @property
     def n_windows(self) -> int:
@@ -139,7 +156,7 @@ class MtConfig:
 
 @dataclass
 class MtState:
-    eps: torch.Tensor          # (n_pad, T), masked entries held at 0
+    eps: torch.Tensor          # (n_loc, T), masked entries held at 0
     beta: torch.Tensor         # (m_loc, T) per slot
     components: torch.Tensor   # (m_loc, T) int32
     acum: torch.Tensor         # (m_loc, T) P(zero component)
@@ -231,16 +248,16 @@ def gram_chunks(n_pad: int) -> int:
     return max(d for d in (16, 14, 8, 7, 4, 2, 1) if blocks % d == 0)
 
 
-class BayesRRmMT:
-    """Data layout, state init and the multi-trait Gibbs sweep on one
-    device."""
+class BayesRRmMT(OnGrid):
+    """Data layout, state init and the multi-trait Gibbs sweep of one
+    device, marker shard or rank of the grid."""
 
     def __init__(self, dataset: Dataset, phenos: np.ndarray, *, window: int,
                  exact: bool = True, shuffle: bool = True, seed: int = 0,
                  schedule: str = "auto", mega: str = "auto", device="cuda",
                  packed_device: Optional[torch.Tensor] = None,
                  n_dev: int = 1, rank: int = 0, cross_sync: int = 0,
-                 det_sync: bool = False, n_dcn: int = 1):
+                 det_sync: bool = False, n_dcn: int = 1, n_ind: int = 1):
         """phenos: (T, N) raw phenotypes with NaN for missing. mega: "off"
         takes the per-window branches ("auto"/"on": the whole-sweep
         kernels where the JAX sampler's run). packed_device: the genotypes
@@ -251,7 +268,9 @@ class BayesRRmMT:
         hold this shard's rows alone, from ``marker_offset``); cross_sync
         (exact): steps between the cross-shard exchanges, 0 = the window;
         det_sync: rank-order sums (``mesh.det_sum``); n_dcn: the slices of
-        ``--dcn-slices`` (the residual's change summed by ``hier_sum``)."""
+        ``--dcn-slices`` (the residual's change summed by ``hier_sum``);
+        n_ind: the chunks of individuals of ``--ind-shards``, one rank each
+        (n_dev n_ind ranks, this rank's chunk its rank modulo n_ind)."""
         self.ds = dataset
         self.seed = int(seed)
         self.device = dev = (device if isinstance(device, torch.device)
@@ -272,7 +291,7 @@ class BayesRRmMT:
         complete = bool(geno.nm_global_sum == 0)
         full_ph = bool(np.isfinite(phenos).all())
         shared_gram = complete and full_ph
-        n_dev, rank = int(n_dev), int(rank)
+        n_dev, rank, n_ind = int(n_dev), int(rank), int(n_ind)
         # exact with W = 1 is the plain sequential schedule: the stale
         # sweep of one-marker windows (bayesrrm_mt.py:694-696)
         exact = exact and window > 1
@@ -283,14 +302,16 @@ class BayesRRmMT:
                              f"({window})")
         # D > 1: the whole-sweep kernels a window a launch where the JAX
         # use_wmega runs them (W >= 8, no in-window exchange), else the
-        # per-window branch
-        per_window = (mega == "off"
+        # per-window branch; chunks of individuals take the per-window
+        # branch (the JAX use_mega and use_wmega need n_ind = 1,
+        # bayesrrm_mt.py:745-763)
+        per_window = (mega == "off" or n_ind > 1
                       or (n_dev > 1 and (window < 8
                                          or (exact and cs < window))))
         if schedule == "auto":
             schedule = ("block" if (window >= 8 and mega != "off"
                                     and (not exact or shared_gram)
-                                    and n_dev == 1)
+                                    and n_dev == 1 and n_ind == 1)
                         else "marker")
             if schedule == "block":
                 print("INFO   : mt block schedule (whole-sweep kernel streams "
@@ -304,7 +325,11 @@ class BayesRRmMT:
                   "invariance is waived (scan order depends on the window "
                   "partition)", flush=True)
         starts, lengths, m_loc = marker_shards(geno.m_global, n_dev, rank,
-                                               window, dataset.blocks)
+                                               window, dataset.blocks, n_ind)
+        # this rank's chunk of individuals (n_loc, the whole n_pad at I = 1)
+        # and the groups it sums over
+        _, n_loc = ind_chunk(geno.n_pad, n_ind)
+        chunk = self._join_grid(n_dcn, n_ind, rank)
         self.cfg = cfg = MtConfig(
             n_pad=geno.n_pad, m_tot=geno.m_global, m_loc=m_loc, window=window,
             k=K, num_groups=dataset.num_groups, n_traits=T, shuffle=shuffle,
@@ -312,21 +337,26 @@ class BayesRRmMT:
             full_pheno=full_ph,
             n_cov=0 if dataset.X is None else int(dataset.X.shape[1]),
             per_window=per_window, n_dev=n_dev, rank=rank, cross_sync=cs,
-            det_sync=bool(det_sync), n_dcn=int(n_dcn))
-        # sums over the marker shards (the JAX ma_sum) and of the residual's
-        # change (its hpsum)
+            det_sync=bool(det_sync), n_dcn=int(n_dcn), n_ind=n_ind,
+            n_loc=n_loc)
+        # sums over the marker shards (the JAX ma_sum), of the residual's
+        # change (its hpsum) and over the chunks of individuals (psum_i)
         self._sum = functools.partial(mesh.shard_sum, n_dev=n_dev,
-                                      det=bool(det_sync))
-        self._esum = mesh.residual_sum(n_dev, bool(det_sync), int(n_dcn))
-        nb = (geno.packed if packed_device is None else packed_device).shape[1]
+                                      det=bool(det_sync),
+                                      group=self.marker_group)
+        self._esum = mesh.residual_sum(n_dev, bool(det_sync), int(n_dcn),
+                                       n_ind)
+        self._isum = functools.partial(mesh.ind_sum, grid=self.grid)
+        nb = n_loc // 4
         if dev.type == "cuda":
             self._check_memory(nb)
 
         # masks and per-trait centred/scaled phenotypes
         self._y, mask, self._nonas = scaled_phenotypes(phenos)
 
-        # per-(marker, trait) masked statistics of this shard's rows; full
-        # phenotypes take the genotype statistics every trait shares
+        # per-(marker, trait) masked statistics of this shard's whole rows
+        # under the whole masks (before a rank keeps its chunk's columns);
+        # full phenotypes take the genotype statistics every trait shares
         s, ln = int(starts[rank]), int(lengths[rank])
         ls = s - geno.marker_offset          # this shard's rows in geno
         if full_ph:
@@ -357,16 +387,19 @@ class BayesRRmMT:
         groups_g, mave_g, mstd_g = groups_g[p], mave_g[p], mstd_g[p]
         valid_g = valid_g[p]
 
+        # the rows' byte columns of this rank's chunk
         if packed_device is None:
             # pad slots are all-missing: PLINK 0x55, h-packed 0xFF
             packed_g = np.full((m_loc, nb), 0b01010101, dtype=np.uint8)
-            packed_g[:ln] = geno.packed[ls:ls + ln]
+            packed_g[:ln] = chunk_columns(geno.packed[ls:ls + ln], cfg.n_pad,
+                                          n_ind, chunk, 0b01010101)
             self.packed = torch.from_numpy(hpack_bytes(packed_g[p])).to(dev)
             del packed_g
         else:
             rows = torch.full((m_loc, nb), 0xFF, dtype=torch.uint8,
                               device=dev)
-            rows[:ln] = packed_device[ls:ls + ln]
+            rows[:ln] = chunk_columns(packed_device[ls:ls + ln], cfg.n_pad,
+                                      n_ind, chunk, 0xFF)
             self.packed = rows[torch.from_numpy(p).to(dev)]
             del rows
 
@@ -389,17 +422,22 @@ class BayesRRmMT:
         self.mtot = put(self.mtot_grp)
         tm = np.zeros((cfg.n_pad, T), dtype=np.float32)
         tm[:n] = mask.T
-        self.trait_mask = put(tm)
         # covariates (n_pad, F), full N: each trait's NaN mask applies in
-        # the sweep (bayesrrm_mt.py:893-898)
+        # the sweep (bayesrrm_mt.py:893-898); both of this rank's chunk
         x_cov = np.zeros((cfg.n_pad, cfg.n_cov), dtype=np.float32)
         if cfg.n_cov:
             x_cov[:n] = dataset.X
+        tm, x_cov = self._local(tm), self._local(x_cov)
+        self.trait_mask = put(tm)
         self.x_cov = put(x_cov)
-        self.gram_chunks = S = gram_chunks(cfg.n_pad)
+        self.gram_chunks = S = gram_chunks(n_loc)
         self.trait_mask_chunks = self.trait_mask.T.contiguous().view(
-            T, S, 1, cfg.n_pad // S)
+            T, S, 1, n_loc // S)
         self.dN = put(self._nonas)
+        # the chunk's individuals of trait 0: the complete-data cross
+        # blocks' rank-1 correction is linear in them (the JAX n_loc,
+        # bayesrrm_mt.py:145)
+        self.dN_loc = put(float(tm[:, 0].sum()))
         self.dNm1 = self.dN - 1.0
         self.tiny = put(1e-30)
 
@@ -417,8 +455,8 @@ class BayesRRmMT:
         need = (2 * cfg.m_loc * nb
                 + cfg.m_loc * 4 * (mt_mrow_width(cfg.k, T) + 8 * T
                                    + cfg.num_groups)
-                + workspace + 16 * cfg.n_pad * T * 4
-                + 3 * T * W * cfg.n_pad * 4 + (256 << 20))
+                + workspace + 16 * cfg.n_loc * T * 4
+                + 3 * T * W * cfg.n_loc * 4 + (256 << 20))
         free, total = torch.cuda.mem_get_info(self.device)
         if need > free:
             raise MemoryError(
@@ -431,9 +469,10 @@ class BayesRRmMT:
         return dist.site_generator(self.seed, it, site, self.device)
 
     def init_state(self) -> MtState:
-        """bayesrrm_mt.py:926-957: eps = the scaled phenotypes, sigmaE half
-        their variance, sigmaG ~ Beta(1, 1) per (trait, group), pi with
-        column 0 = 0.5 and the rest proportional to the variances."""
+        """bayesrrm_mt.py:926-957: eps = the scaled phenotypes (this rank's
+        chunk of them), sigmaE half their variance, sigmaG ~ Beta(1, 1) per
+        (trait, group), pi with column 0 = 0.5 and the rest proportional to
+        the variances."""
         cfg, dev = self.cfg, self.device
         T, G, K = cfg.n_traits, cfg.num_groups, cfg.k
         eps = np.zeros((cfg.n_pad, T), dtype=np.float32)
@@ -448,7 +487,7 @@ class BayesRRmMT:
             axis=1, keepdims=True))[None, :, :]
         zeros = torch.zeros((cfg.m_loc, T), dtype=f32, device=dev)
         return MtState(
-            eps=torch.from_numpy(eps).to(dev),
+            eps=torch.from_numpy(self._local(eps)).to(dev),
             beta=zeros.clone(),
             components=torch.zeros((cfg.m_loc, T), dtype=torch.int32,
                                    device=dev),
@@ -466,8 +505,9 @@ class BayesRRmMT:
         beta and components columns (into their slots), mu, sigmaE,
         sigmaG, pi and, when every trait's files hold it, gamma (F, T);
         the JAX runner reads the trait files without their covariate dumps
-        there and so never restores gamma, the port does. The chain
-        resumes at ``rds[0].start_iteration``."""
+        there and so never restores gamma, the port does. Each rank keeps
+        its chunk of the residual. The chain resumes at
+        ``rds[0].start_iteration``."""
         cfg, dev = self.cfg, self.device
         st = self.init_state()
         local = shard_rows(self.slot_to_marker, cfg)
@@ -481,7 +521,7 @@ class BayesRRmMT:
             eps[:n, t] = rd.eps
             beta[sel, t] = rd.beta[marker]
             comps[sel, t] = rd.components[marker]
-        out = dict(eps=eps, beta=beta, components=comps,
+        out = dict(eps=self._local(eps), beta=beta, components=comps,
                    mu=np.array([rd.mu for rd in rds], np.float32),
                    sigma_e=np.array([rd.sigma_e for rd in rds], np.float32),
                    sigma_g=np.stack([rd.sigma_g for rd in rds]).astype(
@@ -552,8 +592,8 @@ class BayesRRmMT:
         (measured 1.48 ms per window at T=4, W=128, N=50,000 on an H100
         80GB HBM3, 700 W, chip_smoke.py)."""
         cfg = self.cfg
-        W, n, S = slots.shape[0], cfg.n_pad, self.gram_chunks
-        g, m = decode_planes_hp(self.packed[slots])               # (W, n_pad)
+        W, n, S = slots.shape[0], cfg.n_loc, self.gram_chunks
+        g, m = decode_planes_hp(self.packed[slots])               # (W, n_loc)
         g, m = (x.view(W, S, n // S).transpose(0, 1).contiguous()
                 for x in (g, m))                                  # (S, W, n/S)
         if cfg.full_pheno:
@@ -580,7 +620,10 @@ class BayesRRmMT:
         each window's change is summed over the ranks before the trait
         mask (the JAX ``hpsum(d_eps) * tm_t``, bayesrrm_mt.py:474, 478), and
         exact windows with cross_sync < W draw through
-        ``_cross_recurrence`` on every shard's Gram blocks. Returns (eps',
+        ``_cross_recurrence`` on every shard's Gram blocks. On chunks of
+        individuals the chunk's s1, s2 and Gram are summed over the
+        individual group in one all_reduce between the statistics and the
+        draw (the JAX ``psum_i``, bayesrrm_mt.py:323-327). Returns (eps',
         out (m_loc, 3T))."""
         cfg = self.cfg
         W, T = cfg.window, cfg.n_traits
@@ -596,12 +639,14 @@ class BayesRRmMT:
             # one gather of the window's rows: (W, 3K+4, T) column blocks
             b = _blocks(mrow[slots], T)
             mave_w, mstd_w, bold = b[:, 0], b[:, 1], b[:, 2]
+            gram = (self.window_gram(slots, mave_w, mstd_w)
+                    if cfg.exact and not cfg.cross else None)
+            s1, s2, gram = self._ind_pack(s1, s2, gram)
             num0 = mstd_w * (s1 - mave_w * s2) + bold * self.dNm1
             if cfg.cross:
                 bnew, comp, acum, db = self._cross_recurrence(
                     self._cross_blocks(slots, mave_w, mstd_w), num0, b, i2se)
             elif cfg.exact:
-                gram = self.window_gram(slots, mave_w, mstd_w)
                 bnew, comp, acum, db = mt_window_recurrence(
                     gram, num0.contiguous(), mrow, i2se, n_mix=cfg.k,
                     rows=rows)
@@ -625,17 +670,20 @@ class BayesRRmMT:
         full phenotypes, (D, W, W); blocks[d, t, j, k] under trait t's
         mask and statistics with NaN phenotypes, (D, T, W, W). The ranks'
         packed rows (W, NB) and statistics rows (W, 2T) are gathered
-        (``mesh.gather_rows``, exact) and each shard's block rebuilt here:
-        complete genotypes with full phenotypes from the integer Gram and
-        the rank-1 standardization, otherwise from the standardized rows.
+        over the marker group (``mesh.gather_rows``, exact) and each
+        shard's block rebuilt here: complete genotypes with full phenotypes
+        from the integer Gram and the rank-1 standardization (through the
+        chunk's individual count), otherwise from the standardized rows.
+        Every block is linear in the chunk's individuals, so the blocks are
+        summed over the individual group (the JAX ``psum_i`` in ``blk``).
         The JAX sampler passes the rows round a ring (a gather under dcn);
         both give the same blocks within the sweep tolerances."""
-        cfg = self.cfg
+        cfg, grp = self.cfg, self.marker_group
         T = cfg.n_traits
         pk = self.packed[slots]
-        g, m = decode_planes_hp(pk)                              # (W, n_pad)
-        pk_all = mesh.gather_rows(pk)                            # (D, W, NB)
-        st_all = mesh.gather_rows(torch.cat([mave_w, mstd_w], dim=1))
+        g, m = decode_planes_hp(pk)                              # (W, n_loc)
+        pk_all = mesh.gather_rows(pk, grp)                       # (D, W, NB)
+        st_all = mesh.gather_rows(torch.cat([mave_w, mstd_w], dim=1), grp)
         ma0, ms0 = mave_w[:, 0], mstd_w[:, 0]
         if cfg.full_pheno:
             if cfg.complete:
@@ -654,7 +702,7 @@ class BayesRRmMT:
                 blocks.append((ms0[:, None] * ms_d[None, :]) * (
                     g @ g_d.T - ma_d[None, :] * v[:, None]
                     - ma0[:, None] * g_d.sum(dim=1)[None, :]
-                    + self.dN[0] * (ma0[:, None] * ma_d[None, :])))
+                    + self.dN_loc * (ma0[:, None] * ma_d[None, :])))
             elif cfg.full_pheno:
                 blocks.append(xt @ ((g_d - ma_d[:, None] * m_d)
                                     * ms_d[:, None]).T)
@@ -663,7 +711,7 @@ class BayesRRmMT:
                 xt_d = ((g_d[None] - ma_t[:, :, None] * m_d[None])
                         * ms_t[:, :, None])
                 blocks.append(torch.bmm(xm, xt_d.transpose(1, 2)))
-        return torch.stack(blocks)
+        return self._isum(torch.stack(blocks))
 
     def _cross_recurrence(self, blocks, num0, b, i2se):
         """An exact window's recurrence on marker shards with cross_sync
@@ -695,7 +743,7 @@ class BayesRRmMT:
                 if B > 1:
                     corr = corr + col(own, j) * db[None, :]
             db_b = torch.stack(dbs)                                # (B, T)
-            db_all = mesh.gather_rows(db_b)                        # (D, B, T)
+            db_all = mesh.gather_rows(db_b, self.marker_group)     # (D, B, T)
             cols = slice(bi * B, (bi + 1) * B)
             if shared:
                 cross = torch.einsum("dst,dws->wt", db_all,
@@ -725,7 +773,8 @@ class BayesRRmMT:
         if z is None:
             z = torch.randn(T, dtype=f32, device=dev,
                             generator=self._gen(it, _S_MU))
-        mu = eps.sum(dim=0) / dN + torch.sqrt(state.sigma_e / dN) * z.to(dev)
+        mu = (self._isum(eps.sum(dim=0)) / dN
+              + torch.sqrt(state.sigma_e / dN) * z.to(dev))
         eps = (eps - mu[None, :] * tm).contiguous()
 
         # ---- schedule and per-(slot, trait) randomness, drawn over all
@@ -790,7 +839,7 @@ class BayesRRmMT:
         eps, gamma = self.cov_sweep(eps, state, it, noise)
 
         # ---- per-trait sigmaE (bayesrrm_mt.py:645-648) ----
-        e_sqn = (eps * eps).sum(dim=0)
+        e_sqn = self._isum((eps * eps).sum(dim=0))
         sigma_e = dist.inv_scaled_chisq_rng(
             self._gen(it, _S_SIGMAE), V0E + dN,
             (e_sqn + V0E * S02E) / (V0E + dN))
@@ -806,8 +855,8 @@ class BayesRRmMT:
         :616-643, the multi-trait form of BayesRRm.cpp:2648-2681): the F
         covariates in one random order, each drawing a (T,) gamma row, the
         dot products and residual updates of trait t under its NaN mask,
-        under each trait's incoming sigmaE. Plain torch. Returns
-        (eps', gamma')."""
+        under each trait's incoming sigmaE, the dot products summed over
+        the chunks of individuals. Plain torch. Returns (eps', gamma')."""
         cfg, dev = self.cfg, self.device
         F, T = cfg.n_cov, cfg.n_traits
         if F == 0:
@@ -824,14 +873,14 @@ class BayesRRmMT:
         sigma_e = state.sigma_e
         denom = self.dNm1 + sigma_e / S02F                       # (T,)
         sd = torch.sqrt(sigma_e / denom)
-        cols = self.x_cov[:, xi].T.contiguous()          # (F, n_pad), in order
+        cols = self.x_cov[:, xi].T.contiguous()          # (F, n_loc), in order
         g = state.gamma[xi]                                      # (F, T)
         out = []
         for i in range(F):
             colm = cols[i][:, None] * self.trait_mask            # (n_pad, T)
             g_old = g[i]
-            g_new = (colm * (eps + g_old[None, :] * colm)).sum(dim=0) / denom \
-                + z[i] * sd
+            g_new = (self._isum((colm * (eps + g_old[None, :] * colm)
+                                 ).sum(dim=0)) / denom + z[i] * sd)
             eps = eps + (g_old - g_new)[None, :] * colm
             out.append(g_new)
         gamma = torch.empty_like(state.gamma)
@@ -850,5 +899,5 @@ class BayesRRmMT:
 
     def beta_global(self, state: MtState) -> np.ndarray:
         """beta (Mtot, T) in marker order (a collective on marker shards)."""
-        beta = distributed.gather_markers(state.beta)
+        beta = self.gather_markers(state.beta)
         return self.to_marker_order(beta.cpu().numpy().astype(np.float64))

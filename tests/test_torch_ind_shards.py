@@ -1,7 +1,8 @@
 """``--ind-shards``: a (markers x individuals) grid of torch.distributed
 ranks, on the CPU with gloo.
 
-BayesRRm, BayesFH and BayesW on the rank grids 1x2, 2x2, 1x4 (marker
+BayesRRm, BayesFH, BayesW and multi-trait BayesRRm (T=2; "mt_na": 10% NaN
+phenotypes in trait 0) on the rank grids 1x2, 2x2, 1x4 (marker
 shards x chunks of individuals) and two slices of 1x2 (``--dcn-slices
 2``), held against the JAX sampler on ``make_mesh(D I, n_ind=I,
 n_dcn=S)`` over the virtual CPU devices: the JAX sampler's own draws (its
@@ -19,12 +20,17 @@ into unpadded ones (512).
 Through the launcher (``scripts/run_multiprocess_torch.py``) a 2x2
 ``--det-sync 1`` CLI chain repeats bit for bit, and one with a rank
 SIGKILLed mid-chain and ``--restart``ed is byte for byte the uninterrupted
-one. ``--check-RAM --ind-shards I`` is held to the JAX estimate.
+one. A multi-trait 1x2 ``--det-sync 1`` chain (3% missing calls, NaN
+phenotypes in trait 1) repeats bit for bit, and its copy SIGKILLed and
+restarted is byte for byte the uninterrupted one, every trait's files.
+``--check-RAM --ind-shards I`` is held to the JAX estimate.
 
-The file starts six multi-process launches: the sweep workers on two and on
-four ranks (this file run as a script under the launcher; the three
-four-rank grids in one launch, every case in it), two uninterrupted
-chains, the killed chain and its restart.
+The file starts eight multi-process launches: the sweep workers on two and
+on four ranks (this file run as a script under the launcher; the three
+four-rank grids in one launch, every case in it; the two-rank one also runs
+the first multi-trait chain), two uninterrupted chains, the killed chain
+and its restart, the killed multi-trait chain, and its restart with the
+repeated multi-trait chain.
 """
 
 import dataclasses
@@ -50,7 +56,8 @@ M, IT, SEED = 200, 3, 7
 # name: (marker shards a slice, chunks of individuals I, slices S)
 GRIDS = {"1x2": (1, 2, 1), "2x2": (2, 2, 1), "1x4": (1, 4, 1),
          "s2x1x2": (1, 2, 2)}
-# id: (model, window, exact, cross_sync, missing_frac, n, dtype, covariates)
+# id: (model, window, exact, cross_sync, missing_frac, n, dtype, covariates);
+# model "mt": multi-trait T=2, "mt_na": with 10% NaN phenotypes in trait 0
 CASES = {
     "stale_w8_n1500": ("brr", 8, False, 0, 0.0, 1500, "float32", 0),
     "stale_w8_missing": ("brr", 8, False, 0, 0.03, 400, "float32", 0),
@@ -65,18 +72,28 @@ CASES = {
     "bw_w8_missing": ("bw", 8, False, 0, 0.03, 400, "float32", 0),
     "f64_exact": ("brr", 8, True, 0, 0.0, 400, "float64", 0),
     "f64_exact_missing": ("brr", 8, True, 0, 0.03, 400, "float64", 0),
+    "mt_stale_n1500": ("mt", 8, False, 0, 0.0, 1500, "float32", 0),
+    "mt_stale_na_missing": ("mt_na", 8, False, 0, 0.03, 400, "float32", 0),
+    "mt_exact_n1000": ("mt", 8, True, 0, 0.0, 1000, "float32", 0),
+    "mt_exact_na_missing": ("mt_na", 8, True, 0, 0.03, 400, "float32", 0),
+    "mt_exact_cs4": ("mt", 8, True, 4, 0.0, 400, "float32", 0),
+    "mt_cov": ("mt_na", 8, True, 0, 0.0, 400, "float32", 3),
 }
 # each kind of sweep on complete data on one grid and 3% missing on another
 ON_GRIDS = {
     "1x2": ("stale_w8_n1500", "exact_w8_missing", "fh_cov", "bw_w8_missing",
-            "f64_exact", "exact_w8_n1000"),
+            "f64_exact", "exact_w8_n1000", "mt_stale_n1500",
+            "mt_exact_n1000", "mt_cov"),
     "2x2": ("stale_w8_missing", "exact_w8", "exact_cs4", "exact_cs4_missing",
-            "fh_cov_missing", "bw_w8", "f64_exact_missing"),
-    "1x4": ("exact_w8_missing", "stale_w8_n1500"),
-    "s2x1x2": ("exact_w8", "stale_w8_missing", "bw_w8_missing"),
+            "fh_cov_missing", "bw_w8", "f64_exact_missing",
+            "mt_stale_na_missing", "mt_exact_na_missing", "mt_exact_cs4"),
+    "1x4": ("exact_w8_missing", "stale_w8_n1500", "mt_stale_n1500"),
+    "s2x1x2": ("exact_w8", "stale_w8_missing", "bw_w8_missing",
+               "mt_exact_na_missing"),
 }
 LAUNCHES = {2: ("1x2",), 4: ("2x2", "1x4", "s2x1x2")}
 PER_SLOT = ("beta", "components", "acum", "lambda_var", "nu_var")
+T = 2                    # multi-trait traits
 LAUNCH_TIMEOUT = 300
 
 
@@ -89,7 +106,7 @@ def _ranks(grid):
 def _sweep(sp, rank, world):
     """One case's sweep on this rank of its grid with the JAX draws: its
     state, the residual gathered from the chunks, and its place."""
-    from hydra_tpu_torch.samplers import bayesrrm, bayesw
+    from hydra_tpu_torch.samplers import bayesrrm, bayesrrm_mt, bayesw
     from tests.test_torch_multidevice import _port_dataset
 
     model, window, exact, cs, _, _, dtype, _ = CASES[sp["case"]]
@@ -99,6 +116,10 @@ def _sweep(sp, rank, world):
               rank=rank // n_ind, n_ind=n_ind, n_dcn=n_dcn)
     if model == "bw":
         mod, s = bayesw, bayesw.BayesW(ds, quad_points=9, **kw)
+    elif model.startswith("mt"):
+        mod = bayesrrm_mt
+        s = bayesrrm_mt.BayesRRmMT(ds, sp["phenos"], exact=exact,
+                                   cross_sync=cs, **kw)
     else:
         mod = bayesrrm
         s = bayesrrm.BayesRRm(ds, exact=exact, fh=model == "fh",
@@ -109,8 +130,8 @@ def _sweep(sp, rank, world):
     noise = {k: (tuple(torch.from_numpy(a) for a in v)
                  if isinstance(v, tuple) else torch.from_numpy(v))
              for k, v in sp["noise"][rank // n_ind].items()}
-    st0 = (mod.state_from_numpy(x, "cpu") if model == "bw"
-           else mod.state_from_numpy(x, "cpu", dtype=s.dt))
+    st0 = (mod.state_from_numpy(x, "cpu", dtype=s.dt)
+           if model in ("brr", "fh") else mod.state_from_numpy(x, "cpu"))
     st, stats = s.step(st0, IT, noise=noise)
     out = {f"state_{k}": v for k, v in mod.state_to_numpy(st).items()}
     out.update(eps_full=s.residual(st.eps).numpy(), cass=stats.cass.numpy(),
@@ -123,31 +144,50 @@ def _sweep(sp, rank, world):
 
 
 def worker(spec_path, out_dir):
-    """One rank: every case of every grid of the spec, saved per rank."""
+    """One rank: every case of every grid of the spec, saved per rank, then
+    the spec's CLI runs through the CLI's body."""
+    from hydra_tpu_torch import cli
+    from hydra_tpu_torch.options import parse_args
     from hydra_tpu_torch.parallel import distributed
 
     assert distributed.init_distributed("cpu")
     rank, world = distributed.rank(), distributed.world_size()
     with open(spec_path, "rb") as fh:
-        specs = pickle.load(fh)
-    for key, sp in specs.items():
+        spec = pickle.load(fh)
+    for key, sp in spec["sweeps"].items():
         np.savez(os.path.join(out_dir, f"{key}.{rank}.npz"),
                  **_sweep(sp, rank, world))
+    for argv in spec.get("cli", []):
+        assert cli._run(parse_args(["--device", "cpu", *argv])) == 0
     distributed.destroy()
 
 
 # ------------------------------------------------------------- JAX side --
 def _dataset(model, missing, n, n_cov):
+    """(JAX Dataset, phenotypes (T, n) for multi-trait, else None)."""
     if model == "bw":
         from tests.test_torch_bayesw import _dataset as bw_dataset
-        return bw_dataset(M // 2, n, 13, missing, censor_frac=0.2)[0]
+        return bw_dataset(M // 2, n, 13, missing, censor_frac=0.2)[0], None
+    if model.startswith("mt"):
+        from tests.test_bayesrrm_mt import simulate_mt
+        from tests.test_torch_bayesrrm_mt import with_missing
+        ds, phenos, _ = simulate_mt(m=M, n=n, n_traits=T, seed=21)
+        if model == "mt_na":
+            rs = np.random.RandomState(4)
+            phenos[0, rs.choice(n, n // 10, replace=False)] = np.nan
+        if missing:
+            ds = with_missing(ds, missing, 6)
+        if n_cov:
+            ds = dataclasses.replace(
+                ds, X=np.random.RandomState(8).randn(n, n_cov))
+        return ds, phenos
     from tests.test_bayesrrm import simulate
     ds = simulate(m=M, n=n, h2=0.5, seed=5, missing_frac=missing)[0]
     if n_cov:
         rs = np.random.RandomState(11)
         X = rs.randn(ds.geno.n, n_cov)
         ds = dataclasses.replace(ds, X=X, y=ds.y + 0.3 * X @ rs.randn(n_cov))
-    return ds
+    return ds, None
 
 
 def _brr_noise(j, m0):
@@ -199,13 +239,15 @@ def _jax_case(name, grid):
 
     from hydra_tpu.parallel.mesh import make_mesh
     from hydra_tpu.samplers.bayesrrm import BayesRRm as JaxBayesRRm
+    from hydra_tpu.samplers.bayesrrm_mt import BayesRRmMT as JaxBayesRRmMT
     from hydra_tpu.samplers.bayesw import BayesW as JaxBayesW
     from tests.test_torch_multidevice import _bw_noise, _plain
+    from tests.test_torch_multidevice_mt import _mt_noise
 
     model, window, exact, cs, missing, n, dtype, n_cov = CASES[name]
     n_m, n_ind, n_dcn = GRIDS[grid]
     mesh = make_mesh(_ranks(grid), n_ind=n_ind, n_dcn=n_dcn)
-    ds = _dataset(model, missing, n, n_cov)
+    ds, phenos = _dataset(model, missing, n, n_cov)
     f64 = dtype == "float64"
     if f64:
         jax.config.update("jax_enable_x64", True)
@@ -213,6 +255,9 @@ def _jax_case(name, grid):
         if model == "bw":
             j = JaxBayesW(ds, window=window, seed=SEED, quad_points=9,
                           mesh=mesh)
+        elif phenos is not None:
+            j = JaxBayesRRmMT(ds, phenos, window=window, exact=exact,
+                              seed=SEED, cross_sync=cs, mesh=mesh)
         else:
             j = JaxBayesRRm(ds, window=window, exact=exact, seed=SEED,
                             fh=model == "fh", cross_sync=cs, dtype=dtype,
@@ -222,8 +267,8 @@ def _jax_case(name, grid):
         s0 = j.init_state()
         state = {k: np.array(v) for k, v in s0._asdict().items()}
         s1, stats = j.step(s0, IT)
-        noise = (_bw_noise(j) if model == "bw"
-                 else _brr_noise(j, stats.m0))
+        noise = (_bw_noise(j) if model == "bw" else _mt_noise(j)
+                 if phenos is not None else _brr_noise(j, stats.m0))
         ref = {k: np.array(v) for k, v in s1._asdict().items()}
         ref.update(cass=np.array(stats.cass),
                    beta_sqn=np.array(stats.beta_sqn))
@@ -231,36 +276,48 @@ def _jax_case(name, grid):
         if f64:
             jax.config.update("jax_enable_x64", False)
     return (dict(case=name, grid=grid, data=_plain(ds), state=state,
-                 noise=noise), ref)
+                 noise=noise, phenos=phenos), ref)
 
 
-def _run_ranks(n_ranks, tmp):
+def _start_worker(n_ranks, tmp, spec):
+    spec_path = os.path.join(tmp, "spec.pkl")
+    with open(spec_path, "wb") as fh:
+        pickle.dump(spec, fh)
+    return launch(n_ranks, [spec_path, tmp], device="cpu", stdout_dir=tmp,
+                  command=[sys.executable, os.path.abspath(__file__)],
+                  env=RANK_ENV)
+
+
+def _finish(procs, logs):
+    codes = wait_all(procs, timeout=LAUNCH_TIMEOUT)
+    txt = "".join(open(os.path.join(logs, f"rank{r}.log")).read()
+                  for r in range(len(procs)))
+    assert codes == [0] * len(procs), (codes, txt[-4000:])
+    return txt
+
+
+def _run_ranks(n_ranks, tmp, cli=()):
     specs, refs = {}, {}
     for grid in LAUNCHES[n_ranks]:
         for name in ON_GRIDS[grid]:
             key = f"{grid}.{name}"
             specs[key], refs[key] = _jax_case(name, grid)
-    spec_path = os.path.join(tmp, "spec.pkl")
-    with open(spec_path, "wb") as fh:
-        pickle.dump(specs, fh)
-    procs = launch(n_ranks, [spec_path, tmp], device="cpu", stdout_dir=tmp,
-                   command=[sys.executable, os.path.abspath(__file__)],
-                   env=RANK_ENV)
-    codes = wait_all(procs, timeout=LAUNCH_TIMEOUT)
-    logs = "".join(open(os.path.join(tmp, f"rank{r}.log")).read()[-2000:]
-                   for r in range(n_ranks))
-    assert codes == [0] * n_ranks, (codes, logs)
+    _finish(_start_worker(n_ranks, tmp, dict(sweeps=specs, cli=list(cli))),
+            tmp)
     ranks = {key: [dict(np.load(os.path.join(tmp, f"{key}.{r}.npz")))
                    for r in range(n_ranks)] for key in specs}
     return refs, ranks
 
 
 @pytest.fixture(scope="module")
-def sweeps(tmp_path_factory):
+def sweeps(tmp_path_factory, mt_bed):
+    """Both sweep launches; the two-rank one then runs the first
+    multi-trait chain ("a", ``mt_chains``)."""
     refs, ranks = {}, {}
     for n_ranks in LAUNCHES:
         tmp = str(tmp_path_factory.mktemp(f"grid{n_ranks}"))
-        r, k = _run_ranks(n_ranks, tmp)
+        cli = ([_mt_argv(mt_bed, mt_bed[2] / "a")] if n_ranks == 2 else [])
+        r, k = _run_ranks(n_ranks, tmp, cli)
         refs.update(r)
         ranks.update(k)
     return refs, ranks
@@ -284,6 +341,11 @@ def test_sweep_on_grid_matches_jax_mesh(sweeps, grid, name):
     length = ref["eps"].shape[0] // n_ind
     assert int(rk[0]["n_loc"]) == -(-length // 512) * 512
     per_slot = [k for k in PER_SLOT if f"state_{k}" in rk[0]]
+    if model.startswith("mt"):
+        # each trait's masked entries (its NaN phenotypes, the padding) 0
+        assert np.all(rk[0]["eps_full"][ref["eps"] == 0.0] == 0.0)
+        if model == "mt_na":
+            assert (ref["eps"][:n, 0] == 0.0).sum() >= n // 10
     for d in range(n_shards):
         group = rk[d * n_ind:(d + 1) * n_ind]      # an individual group
         for x in group[1:]:
@@ -436,6 +498,89 @@ def test_grid_kill_one_rank_then_restart_bytewise(chains):
     assert chains["killed"], "the chain finished before the kill"
     its = compare_runs(str(chains["a"] / "r"), str(chains["k"] / "r_rs"), M)
     assert its[0] > 20 and its[-1] == 38, its
+
+
+# ---------------------------------------------------- multi-trait chain --
+MT_CHAIN = ["--chain-length", "40", "--thin", "2", "--save", "10",
+            "--seed", "42", "--S", "0.001,0.01,0.1", "--window", "16",
+            "--det-sync", "1", "--ind-shards", "2"]
+MT_FILES = tuple(f"r.t{t}.{ext}" for t in range(T)
+                 for ext in ("csv", "bet", "cpn", "acu", "eps.0", "mus.0",
+                             "mrk.0", "rng.0"))
+
+
+@pytest.fixture(scope="module")
+def mt_bed(tmp_path_factory):
+    """(base, phenotype files, directory): the .bed of
+    tests/test_torch_multidevice_mt.py (3% missing calls, "NA" for a tenth
+    of the individuals in trait 1)."""
+    from tests.test_torch_multidevice_mt import _mt_bed
+
+    tmp = tmp_path_factory.mktemp("indmt")
+    return (*_mt_bed(tmp), tmp)
+
+
+def _mt_argv(bed, out, extra=()):
+    base, phen, _ = bed
+    return ["--mpibayes", "bayesMPI", "--bfile", base, "--pheno", phen,
+            "--mcmc-out-dir", str(out), "--mcmc-out-name", "r", *MT_CHAIN,
+            *extra]
+
+
+@pytest.fixture(scope="module")
+def mt_chains(sweeps, mt_bed):
+    """The multi-trait 1x2 chain "a" (run in the sweeps' two-rank launch),
+    a copy with rank 1 SIGKILLed once trait 1's csv passes iteration 20,
+    and one launch of its restart and the chain again ("b")."""
+    from tests.test_torch_multidevice_mt import _kill_rank1_at
+
+    tmp = mt_bed[2]
+    logs = tmp / "logs_k"
+    logs.mkdir()
+    procs = launch(2, _mt_argv(mt_bed, tmp / "k"), device="cpu",
+                   stdout_dir=str(logs), env=RANK_ENV)
+    killed = _kill_rank1_at(procs, str(tmp / "k" / "r.t1.csv"), 20)
+    wait_all(procs, timeout=60)          # rank 0 goes with rank 1
+    rs = tmp / "logs_rs"
+    rs.mkdir()
+    log = _finish(_start_worker(2, str(rs), dict(sweeps={}, cli=[
+        _mt_argv(mt_bed, tmp / "k", ("--restart",)),
+        _mt_argv(mt_bed, tmp / "b")])), str(rs))
+    return dict(tmp=tmp, killed=killed, log=log, phen=mt_bed[1].split(","))
+
+
+def test_mt_grid_det_sync_chain_is_repeatable(mt_chains):
+    from tests.test_torch_multidevice_mt import M as MT_M
+    from tests.test_torch_multidevice_mt import N as MT_N
+
+    tmp = mt_chains["tmp"]
+    for f in MT_FILES:
+        assert (tmp / "a" / f).read_bytes() == (tmp / "b" / f).read_bytes(), f
+    # both ranks read the one marker shard's .bed rows, every individual's
+    # columns, in each of the launch's two runs
+    loads = [int(ln.split("load")[1].split()[0])
+             for ln in mt_chains["log"].splitlines()
+             if "seconds to load" in ln]
+    assert loads == [MT_M * (MT_N // 4)] * 4, loads
+    # every trait's saved residual is all N individuals, gathered from the
+    # chunks, 0 where its phenotype is NA
+    for t in range(T):
+        raw = (tmp / "a" / f"r.t{t}.eps.0").read_bytes()
+        assert len(raw) == 4 + 4 + 8 * MT_N
+        eps = np.frombuffer(raw[8:], np.float64)
+        n_na = sum(ln.split()[2] == "NA" for ln in open(mt_chains["phen"][t]))
+        assert (eps == 0.0).sum() == n_na and (t == 0) == (n_na == 0)
+
+
+def test_mt_grid_kill_one_rank_then_restart_bytewise(mt_chains):
+    from soak_restart_torch import compare_runs
+    from tests.test_torch_multidevice_mt import M as MT_M
+
+    assert mt_chains["killed"], "the chain finished before the kill"
+    for t in range(T):
+        its = compare_runs(str(mt_chains["tmp"] / "a" / f"r.t{t}"),
+                           str(mt_chains["tmp"] / "k" / f"r_rs.t{t}"), MT_M)
+        assert its[0] > 20 and its[-1] == 38, its
 
 
 @pytest.mark.parametrize("n,n_ind", [(400, 2), (1000, 2), (1500, 2),

@@ -557,15 +557,14 @@ def test_mt_cross_sync_is_ignored_with_a_line(bed, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("extra,error,match", [
-    (["--ind-shards", "2"], NotImplementedError,
-     "not ported for multi-trait"),
+    (["--ind-shards", "2"], ValueError, "must divide the 1 ranks"),
     (["--dcn-slices", "2"], ValueError, "must divide the 1 ranks"),
     (["--dcn-slices", "0"], ValueError, "must divide"),
 ])
 def test_refused_before_reading(tmp_path, extra, error, match):
-    """--ind-shards for multi-trait, and a --dcn-slices that does not
-    divide the ranks, are refused with the reason before any data is read:
-    the .bed and the phenotypes named here do not exist."""
+    """An --ind-shards or a --dcn-slices that does not divide the ranks is
+    refused with the reason before any data is read: the .bed and the
+    phenotypes named here do not exist."""
     from hydra_tpu_torch import cli
 
     base = str(tmp_path / "missing")
