@@ -82,8 +82,9 @@ BayesRRm's per-window branch (--mega off, --cache-planes on) and W < 8:
      --window 64 and --stale (W=1, the whole-sweep kernel on the marker
      schedule); each run's kernels' launch counts must move; one CUDA sweep
      of each against the CPU sampler with the same state and noise.
-  4d. M=100,000 x N=50,000: --mega off exact W=128 and stale W=64, and
-     --cache-planes on stale W=64 (5.0 GB of int8 planes); stale W=1 at
+  4d. M=25,000 x N=50,000 (cut from M=100,000, the time limit): --mega
+     off exact W=128 and stale W=64, and --cache-planes on stale W=64
+     (1.25 GB of int8 planes); stale W=1 at
      M=10,000 x N=5,000: ms/sweep, busy share, host enqueue, device time
      per kernel; window_gibbs_kernel alone a call at W=64, 128 and 1024
      (print_window_gibbs_times); the planes kernels alone a call at W=64
@@ -193,6 +194,38 @@ by scripts/run_multiprocess_torch.py, ``chip_smoke.py --rank-child``):
      hydra_tpu_torch.postproc`` ess and predict on 3h's two-rank --det-sync
      chain (finite R-hat and ESS, a score for each of the bed's 5,000
      individuals).
+The wide arms (windows above 1,024 markers, more than 16 mixture
+components or traits):
+  2g. at N=50,000: sweep_stale (complete) and sweep_exact (complete and 2%
+     missing calls) at W=1,025 and 2,048 over two windows, each sweep's eps
+     bit for bit the plain axpy replayed from its draws; sweep_stale W=64
+     and sweep_exact W=128 (complete and 2% missing) at K=20; window_gibbs
+     at W=1,025 and 2,048 (K=4) and W=128 at K=20; multi-trait T=20 on
+     4,096 markers: sweep_stale_mt W=64 with 10% NaN, sweep_exact_mt W=128
+     on full phenotypes, window_stats_mt, window_axpy_mt (bit for bit) and
+     mt_window_recurrence on a W=128 window with 10% NaN; then all three
+     multi-trait arms at once (phase_wide_mt: W=2,048, T=20, K=20 on two
+     windows: sweep_stale_mt with 10% NaN, sweep_exact_mt on full
+     phenotypes, the exact per-window path's passes and recurrence with
+     10% NaN; an exact chain may take an adjacent component at one draw
+     that float64 shows on a knife edge, compare_chains);
+     sweep_stale_sd with a sub-window of 2,048 (complete and 2% missing,
+     bit for bit sweep_stale) and the planes kernels at W=2,048 (bit for
+     bit; phase_wide_passes); all against their plain versions, components
+     equal. Phase 2b also holds sweep_stale_bw bit for bit at W=1,025 and
+     2,048, and at K=40 (W=64) within the sweep tolerance, components
+     equal (BW_WIDE_CASES).
+  3k. the CLI on phase 3's and 3c's beds (M=10,000 x N=5,000), 5
+     iterations each: --window 2048, --stale --sync-rate 2048, a --S grid of
+     19 values (K=20) and 20 --pheno files (--stale --window 64); the
+     sweep wrapper launches once a sweep, the records check out.
+  4 and 4c also read the wide arms at M=100,000 x N=50,000 in at most
+     three sweeps each (wide_reading: ms a step by CUDA events, busy
+     share, launches, device ms by kernel): exact and stale W=2,048, exact
+     W=1,024 beside them, exact W=128 at K=20, multi-trait T=20 stale W=64.
+     To keep the smoke inside its limit (it read 1,170.1 s of phases with
+     4d and 4g at M=100,000), 4d's per-window rows and 4g run at M=25,000,
+     4g profiling a sweep of its first 2,500 markers (10,000 before).
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Any failure raises before those lines. JAX
 and the JAX package are blocked: the port must run without them.
@@ -293,17 +326,19 @@ def device_genotypes(torch, m, n, n_pad, gen, missing=0.0, chunk=8192):
     return out, mave.float(), mstd.float(), nm
 
 
-def kernel_rows(torch, mave, mstd, gen, n, pads):
+def kernel_rows(torch, mave, mstd, gen, n, pads, variances=MS[1:]):
     """mrow rows as the sampler builds them (sweep_kernel.py column layout)
-    for sigmaE = sigmaG = 0.5, pi = (0.5, rest prop. to the variances)."""
+    for sigmaE = sigmaG = 0.5, pi = (0.5, rest prop. to the variances),
+    K = len(variances) + 1 components."""
     from hydra_tpu_torch.ops.sweep_kernel import mrow_width
     dev = mave.device
     m = mave.shape[0]
-    cva = torch.tensor(MS[1:], device=dev)
+    k = len(variances) + 1
+    cva = torch.tensor(variances, device=dev)
     pi = torch.cat([torch.tensor([0.5], device=dev), 0.5 * cva / cva.sum()])
     dnm1 = float(n - 1)
     denom = dnm1 + (SIGMA_E / SIGMA_G) / cva
-    invd = (1.0 / denom).expand(m, K - 1)
+    invd = (1.0 / denom).expand(m, k - 1)
     sd = torch.sqrt(SIGMA_E * invd)
     logl = torch.cat([torch.log(pi[:1]), torch.log(pi[1:])
                       - 0.5 * torch.log(SIGMA_G / SIGMA_E * dnm1 * cva + 1.0)])
@@ -318,8 +353,8 @@ def kernel_rows(torch, mave, mstd, gen, n, pads):
     rows = torch.cat([mave[:, None], mstd[:, None], bold[:, None],
                       torch.rand(m, 1, generator=gen, device=dev),
                       torch.randn(m, 1, generator=gen, device=dev),
-                      act[:, None], logl.expand(m, K), invd, sd], dim=1)
-    assert rows.shape[1] == mrow_width(K)
+                      act[:, None], logl.expand(m, k), invd, sd], dim=1)
+    assert rows.shape[1] == mrow_width(k)
     return rows.contiguous()
 
 
@@ -362,6 +397,57 @@ def compare_outputs(torch, name, label, fn, ref, reps, tol, card, rec,
         raise AssertionError(f"{name}: {n_comp} component mismatches "
                              "against the plain version")
     if comp_of and used < 2:
+        raise AssertionError(f"{name}: degenerate draws")
+    rec[name]["err"] = max(rec[name]["err"], err)
+    return ms, plain_ms
+
+
+def compare_chains(torch, name, label, fn, ref, reps, tol, card, rec,
+                   comp_of, by_trait, W, witness):
+    """compare_outputs for an exact multi-trait chain (windows of W, T
+    traits): bitwise repeatable; components (comp_of: (positions, T) in
+    sweep order) equal, but that one chain (a window's trait) may take an
+    adjacent component at its first difference where the float64 witness
+    (``witness(k1, w, j, t, comps)``, sweep_kernel_mt.recurrence_edge)
+    finds a knife edge, and go on apart; the outputs (by_trait: tensors
+    with traits last) of every other trait within ``tol``. Returns (kernel
+    ms, plain ms)."""
+    from hydra_tpu_torch.ops.sweep_kernel_mt import first_differences
+    k0 = fn()                                  # build + warm up
+    ms, k1 = cuda_ms(torch, fn, reps)
+    ref()
+    plain_ms, r1 = cuda_ms(torch, ref, 1)
+    if not all(torch.equal(a, b) for a, b in zip(k0, k1)):
+        raise AssertionError(f"{name} is not bitwise repeatable")
+    ck, cr = comp_of(k1), comp_of(r1)
+    chains = first_differences(ck, cr, W)
+    keep = torch.ones(ck.shape[1], dtype=torch.bool, device=ck.device)
+    for w, j, t in chains:
+        a, b = float(ck[w * W + j, t]), float(cr[w * W + j, t])
+        edge = (len(chains) == 1 and abs(a - b) == 1.0
+                and witness(k1, w, j, t, (a, b)))
+        print(f"  {name} {label}: window {w} trait {t} step {j} takes "
+              f"component {a:g}, the plain version {b:g}: "
+              f"{'a knife edge in float64' if edge else 'NOT a knife edge'}"
+              f"  [{card}]", flush=True)
+        if not edge:
+            raise AssertionError(f"{name} {label}: components differ from "
+                                 "the plain version")
+        keep[t] = False
+    ka, ra = by_trait(k1), by_trait(r1)
+    err = max((a[..., keep].float() - b[..., keep].float()).abs().max().item()
+              for a, b in zip(ka, ra))
+    used = int(torch.unique(ck).numel())
+    print(f"{name:19s} {label:28s} kernel {ms:8.4f} ms  plain {plain_ms:9.3f}"
+          f" ms  max|diff| {err:.3e} ({int(keep.sum())} of {keep.numel()} "
+          f"traits)  bitwise equal to plain "
+          f"{all(torch.equal(a, b) for a, b in zip(k1, r1))}  knife-edge "
+          f"chains {len(chains)}  components used {used}  [{card}]",
+          flush=True)
+    for a, b, (rtol, atol) in zip(ka, ra, tol):
+        torch.testing.assert_close(a[..., keep].float(), b[..., keep].float(),
+                                   rtol=rtol, atol=atol)
+    if used < 2:
         raise AssertionError(f"{name}: degenerate draws")
     rec[name]["err"] = max(rec[name]["err"], err)
     return ms, plain_ms
@@ -745,6 +831,351 @@ def phase_kernels(torch, sk, card):
     return rec
 
 
+# phase 2g's arms: windows above 1,024 markers (the exact chain in pieces
+# of 1,024, the wide axpy), K = 20 (the draws' constants read in place) and
+# T = 20 (the multi-trait passes in groups of 16 traits)
+WIDE_WINDOWS = (1025, 2048)
+WIDE_VARIANCES = tuple(1e-5 * 1000.0 ** (i / 18) for i in range(19))   # K=20
+WIDE_T = 20
+
+
+def phase_wide_kernels(torch, np, sk, card, rec):
+    """The wide arms against their plain versions at N=50,000 (into the
+    records ``rec`` of phases 2, 2c and 2d): sweep_stale (complete) and
+    sweep_exact (complete and 2% missing calls) at W = 1,025 and 2,048 over
+    two windows, each sweep's eps bit for bit the plain axpy replayed from
+    its own draws; sweep_stale and sweep_exact at K = 20 (W = 64 and 128
+    over 1,024 markers; exact also on 2% missing calls); window_gibbs at W
+    = 1,025 and 2,048 (K = 4) and at W = 128, K = 20; multi-trait T = 20 on
+    4,096 markers: sweep_stale_mt W=64 with 10% NaN per trait, sweep_exact_mt
+    W=128 with full phenotypes, and the exact per-window path's
+    window_stats_mt, mt_window_recurrence and window_axpy_mt on one W=128
+    window with 10% NaN. Tolerances are those of the arms at W <= 1,024:
+    components equal, the sweeps within atol 5e-4 / rtol 1e-3 and bitwise
+    repeatable; the multi-trait passes bit for bit their plain versions in
+    the kernels' order (the sweeps' eps against the replayed update)."""
+    from hydra_tpu_torch.ops import gibbs_kernel as gk
+    from hydra_tpu_torch.ops import sweep_kernel_mt as skmt
+    from hydra_tpu_torch.ops import window_kernels as wk
+    dev = torch.device("cuda")
+    n = 50_000
+    n_pad = padded_individuals(np, n)
+    i2se = 1.0 / (2 * SIGMA_E)
+    tol = [(1e-3, 5e-4)] * 4
+    cases = ([(w, MS[1:], miss, names) for w in WIDE_WINDOWS
+              for miss, names in ((0.0, ("sweep_stale", "sweep_exact")),
+                                  (0.02, ("sweep_exact",)))]
+             + [(64, WIDE_VARIANCES, 0.0, ("sweep_stale",)),
+                (128, WIDE_VARIANCES, 0.0, ("sweep_exact",)),
+                (128, WIDE_VARIANCES, 0.02, ("sweep_exact",))])
+    for window, variances, missing, names in cases:
+        k = len(variances) + 1
+        m = 2 * window if window > 1024 else 1024
+        gen = torch.Generator(device=dev).manual_seed(window + k)
+        pk, mave, mstd, _ = device_genotypes(torch, m, n, n_pad, gen, missing)
+        pads = torch.randperm(m, generator=gen, device=dev)[:9]
+        pk[pads] = 0xFF
+        mrow = kernel_rows(torch, mave, mstd, gen, n, pads, variances)
+        eps = 0.8 * torch.randn(n_pad, generator=gen, device=dev)
+        eps[n:] = 0.0
+        mask = torch.zeros(n_pad, device=dev)
+        mask[:n] = 1.0
+        order = sk.block_order(torch.randperm(m // window, generator=gen,
+                                              device=dev), window)
+        kw = dict(window=window, n_mix=k, complete=not missing,
+                  ind_mask=mask if not missing else None, order=order)
+        data = f"W={window} K={k} {'missing 2%' if missing else 'complete'}"
+        for name in names:
+            fn, ref = ((sk.sweep_exact, sk.sweep_exact_ref)
+                       if name == "sweep_exact"
+                       else (sk.sweep_stale, sk.sweep_stale_ref))
+            ms, plain_ms = compare_outputs(
+                torch, name, data,
+                lambda: fn(pk, eps, mrow, i2se, float(n - 1), **kw),
+                lambda: ref(pk, eps, mrow, i2se, float(n - 1), **kw), 2,
+                tol, card, rec, comp_of=lambda o: o[1][:, 1])
+            # phase 2's bound of the same sweep
+            nbytes = (pk.numel() + 3 * 4 * n_pad + mrow.numel() * 4 + 4 * m
+                      + 16 * m)
+            ops = {"f32": 4.0 * m * n_pad}
+            if name == "sweep_exact":
+                ops["int8"] = (window + 1.0) * m * n_pad
+            print_bound(f"{name} {data}", dict(
+                zip(("ms", "plain_ms"), (ms, plain_ms)),
+                **dict(zip(("bound_ms", "bound_by"), bound(nbytes, ops)))))
+            if window > 1024:
+                e_k, o_k = fn(pk, eps, mrow, i2se, float(n - 1), **kw)
+                mode = ("missing" if missing else
+                        "exact" if name == "sweep_exact" else "stale")
+                check_axpy_bitwise(torch, f"{name} {data}", e_k,
+                                   wk.sweep_update_ref(pk, eps, mrow,
+                                                       o_k[:, 3], order,
+                                                       window, mode, mask),
+                                   card)
+        del pk, mrow
+    # window_gibbs: pieces of 1,024 markers, and K = 20
+    for window, k in ((1025, K), (2048, K), (128, len(WIDE_VARIANCES) + 1)):
+        args = gibbs_inputs(torch, window, k, torch.Generator(
+            device=dev).manual_seed(window + k))
+        ms, plain_ms = compare_outputs(
+            torch, "window_gibbs", f"W={window} K={k}",
+            lambda: gk.window_gibbs(*args), lambda: gk.window_gibbs_ref(*args),
+            3, tol, card, rec, comp_of=lambda o: o[2])
+        # phase 2d's bound of a call
+        nbytes = (4 * window * window + 4 * window * (5 + k + 2 * (k - 1))
+                  + 4 + 16 * window)
+        print_bound(f"window_gibbs W={window} K={k}", dict(
+            ms=ms, plain_ms=plain_ms, **dict(zip(("bound_ms", "bound_by"), bound(
+                nbytes, {"f32": 2.0 * window * window + 100.0 * window})))))
+    # multi-trait, T = 20
+    m, T = 4096, WIDE_T
+    gen = torch.Generator(device=dev).manual_seed(29)
+    pk, mave, mstd, _ = device_genotypes(torch, m, n, n_pad, gen)
+    pads = torch.randperm(m, generator=gen, device=dev)[:37]
+    pk[pads] = 0xFF
+    mrow = mt_kernel_rows(torch, mave, mstd, gen, n, pads, T)
+    i2se_t = torch.full((T,), i2se, device=dev)
+    for na_frac in (0.1, 0.0):
+        tm = torch.zeros((n_pad, T), device=dev)
+        tm[:n] = (torch.rand((n, T), generator=gen, device=dev)
+                  >= na_frac).float()
+        eps = 0.8 * torch.randn((n_pad, T), generator=gen, device=dev) * tm
+        dnm1 = tm.sum(dim=0) - 1.0
+        data = f"T={T} {'NaN 10%' if na_frac else 'full'}"
+        name, window = (("sweep_stale_mt", 64) if na_frac
+                        else ("sweep_exact_mt", 128))
+        fn, ref = ((skmt.sweep_stale_mt, skmt.sweep_stale_mt_ref) if na_frac
+                   else (skmt.sweep_exact_mt, skmt.sweep_exact_mt_ref))
+        kw = dict(window=window, n_mix=K, order=sk.block_order(
+            torch.randperm(m // window, generator=gen, device=dev), window))
+        if na_frac:
+            kw["complete"] = True
+        ms, plain_ms = compare_outputs(
+            torch, name, f"W={window} {data}",
+            lambda: fn(pk, eps, tm, mrow, i2se_t, dnm1, **kw),
+            lambda: ref(pk, eps, tm, mrow, i2se_t, dnm1, **kw), 2, tol, card,
+            rec, comp_of=lambda o: o[1][:, T:2 * T])
+        # phase 2c's bound of the same sweep
+        nbytes = (pk.numel() + 3 * 4 * T * n_pad + mrow.numel() * 4 + 4 * m
+                  + 12 * T * m)
+        ops = {"f32": 4.0 * T * m * n_pad}
+        if not na_frac:
+            ops["int8"] = (window + 1.0) * m * n_pad
+        print_bound(f"{name} W={window} {data}", dict(
+            ms=ms, plain_ms=plain_ms,
+            **dict(zip(("bound_ms", "bound_by"), bound(nbytes, ops)))))
+        e_k, o_k = fn(pk, eps, tm, mrow, i2se_t, dnm1, **kw)
+        check_mt_bitwise("axpy_mt_kernel", f"{name} W={window} {data}",
+                         torch.equal(e_k, wk.sweep_update_mt_ref(
+                             pk, eps, tm, mrow, o_k, kw["order"], window,
+                             True)), card)
+        if not na_frac:
+            continue
+        # the exact per-window path's kernels on one W=128 window
+        W = 128
+        rows = torch.randperm(m, generator=gen, device=dev)[:W].to(
+            torch.int32)
+        slots = rows.long()
+        real = ~torch.isin(slots, pads)
+        check_mt_bitwise("stats_mt_kernel", f"window_stats_mt W={W} {data}",
+                         all(torch.equal(a[real], b[real]) for a, b in zip(
+                             wk.window_stats_mt(pk, eps, True, rows),
+                             wk.window_stats_mt_seq(pk, eps, True, rows))
+                             if b is not None), card)
+        c1 = 0.01 * torch.randn((T, W), generator=gen, device=dev) * real
+        c2 = -c1 * mave[slots][None, :]
+        check_mt_bitwise("axpy_mt_kernel", f"window_axpy_mt W={W} {data}",
+                         torch.equal(wk.window_axpy_mt(pk, c1, c2, True,
+                                                       rows)[:n],
+                                     wk.window_axpy_mt_seq(pk, c1, c2, True,
+                                                           rows)[:n]), card)
+        x = torch.randn((T, W, 1024), generator=gen, device=dev)
+        gram = (x @ x.transpose(1, 2)).contiguous()
+        num0 = 30.0 * torch.randn((W, T), generator=gen, device=dev)
+        compare_outputs(torch, "mt_window_recurrence", f"W={W} {data}",
+                        lambda: skmt.mt_window_recurrence(
+                            gram, num0, mrow, i2se_t, n_mix=K, rows=rows),
+                        lambda: skmt.mt_window_recurrence_ref(
+                            gram, num0, mrow, i2se_t, n_mix=K, rows=rows), 3,
+                        tol, card, rec, comp_of=lambda o: o[1])
+    del pk, mrow, eps, tm
+    phase_wide_mt(torch, np, sk, card, rec, m, n, n_pad)
+    phase_wide_passes(torch, np, sk, card, rec, m, n, n_pad)
+
+
+def phase_wide_mt(torch, np, sk, card, rec, m, n, n_pad):
+    """Phase 2g's multi-trait arms all at once: W = 2,048 (pieces, the wide
+    passes), T = 20 (trait groups) and K = 20 (K_ANY draws) on two windows
+    of M=4,096 x N=50,000: sweep_stale_mt with 10% NaN, sweep_exact_mt on
+    full phenotypes (its contract), and the exact per-window path with 10%
+    NaN (window_stats_mt and window_axpy_mt bit for bit their plain
+    versions, mt_window_recurrence on a per-trait Gram). The sweeps' eps
+    bit for bit the plain update replayed from their own draws. The exact
+    chains through compare_chains (a knife edge witnessed in float64), the
+    rest through compare_outputs; tolerances of the arms at W <= 1,024."""
+    from hydra_tpu_torch.ops import sweep_kernel_mt as skmt
+    from hydra_tpu_torch.ops import window_kernels as wk
+    dev = torch.device("cuda")
+    W, T, k20 = 2048, WIDE_T, len(WIDE_VARIANCES) + 1
+    tol = [(1e-3, 5e-4)] * 4
+    gen = torch.Generator(device=dev).manual_seed(31)
+    pk, mave, mstd, _ = device_genotypes(torch, m, n, n_pad, gen)
+    pads = torch.randperm(m, generator=gen, device=dev)[:37]
+    pk[pads] = 0xFF
+    mrow = mt_kernel_rows(torch, mave, mstd, gen, n, pads, T, WIDE_VARIANCES)
+    i2se_t = torch.linspace(0.6, 0.9, T, device=dev)
+    order = sk.block_order(torch.randperm(m // W, generator=gen, device=dev),
+                           W)
+    for na_frac in (0.1, 0.0):
+        tm = torch.zeros((n_pad, T), device=dev)
+        tm[:n] = (torch.rand((n, T), generator=gen, device=dev)
+                  >= na_frac).float()
+        eps = 0.8 * torch.randn((n_pad, T), generator=gen, device=dev) * tm
+        dnm1 = tm.sum(dim=0) - 1.0
+        data = f"W={W} T={T} K={k20} {'NaN 10%' if na_frac else 'full'}"
+        args = (pk, eps, tm, mrow, i2se_t, dnm1)
+        if na_frac:
+            name, kw = "sweep_stale_mt", dict(window=W, n_mix=k20, order=order,
+                                              complete=True)
+            ms, plain_ms = compare_outputs(
+                torch, name, data, lambda: skmt.sweep_stale_mt(*args, **kw),
+                lambda: skmt.sweep_stale_mt_ref(*args, **kw), 2, tol, card,
+                rec, comp_of=lambda o: o[1][:, T:2 * T])
+        else:
+            name, kw = "sweep_exact_mt", dict(window=W, n_mix=k20, order=order)
+
+            def witness(k1, w, j, t, comps):
+                return skmt.sweep_exact_mt_edge(*args, k1[1], w=w, j=j, t=t,
+                                                comps=comps, **kw)
+
+            ms, plain_ms = compare_chains(
+                torch, name, data, lambda: skmt.sweep_exact_mt(*args, **kw),
+                lambda: skmt.sweep_exact_mt_ref(*args, **kw), 2, tol, card,
+                rec, lambda o: o[1][order.long(), T:2 * T],
+                lambda o: (o[0], o[1].reshape(m, 3, T)), W, witness)
+        # phase 2c's bound of the same sweep
+        nbytes = (pk.numel() + 3 * 4 * T * n_pad + mrow.numel() * 4 + 4 * m
+                  + 12 * T * m)
+        ops = {"f32": 4.0 * T * m * n_pad}
+        if not na_frac:
+            ops["int8"] = (W + 1.0) * m * n_pad
+        print_bound(f"{name} {data}", dict(
+            ms=ms, plain_ms=plain_ms,
+            **dict(zip(("bound_ms", "bound_by"), bound(nbytes, ops)))))
+        e_k, o_k = (skmt.sweep_stale_mt if na_frac
+                    else skmt.sweep_exact_mt)(*args, **kw)
+        check_mt_bitwise("axpy_mt_kernel", f"{name} {data}",
+                         torch.equal(e_k, wk.sweep_update_mt_ref(
+                             pk, eps, tm, mrow, o_k, order, W, True)), card)
+        if not na_frac:
+            continue
+        # the exact per-window path's kernels on one W=2,048 window
+        rows = torch.randperm(m, generator=gen, device=dev)[:W].to(
+            torch.int32)
+        slots = rows.long()
+        real = ~torch.isin(slots, pads)
+        check_mt_bitwise("stats_mt_kernel", f"window_stats_mt {data}",
+                         all(torch.equal(a[real], b[real]) for a, b in zip(
+                             wk.window_stats_mt(pk, eps, True, rows),
+                             wk.window_stats_mt_seq(pk, eps, True, rows))
+                             if b is not None), card)
+        c1 = 0.01 * torch.randn((T, W), generator=gen, device=dev) * real
+        c2 = -c1 * mave[slots][None, :]
+        check_mt_bitwise("axpy_mt_kernel", f"window_axpy_mt {data}",
+                         torch.equal(wk.window_axpy_mt(pk, c1, c2, True,
+                                                       rows)[:n],
+                                     wk.window_axpy_mt_seq(pk, c1, c2, True,
+                                                           rows)[:n]), card)
+        x = torch.randn((T, W, 1024), generator=gen, device=dev)
+        gram = (x @ x.transpose(1, 2)).contiguous()
+        del x
+        num0 = 30.0 * torch.randn((W, T), generator=gen, device=dev)
+        blk = mrow[slots].reshape(W, -1, T)
+        rargs = (gram, num0, mrow, i2se_t)
+
+        def witness(k1, w, j, t, comps):
+            return skmt.recurrence_edge(gram[t, j], num0[j, t], k1[3][:j, t],
+                                        blk[j, :, t], i2se_t[t], k20, comps)
+
+        compare_chains(torch, "mt_window_recurrence", data,
+                       lambda: skmt.mt_window_recurrence(
+                           *rargs, n_mix=k20, rows=rows),
+                       lambda: skmt.mt_window_recurrence_ref(
+                           *rargs, n_mix=k20, rows=rows), 3, tol, card, rec,
+                       lambda o: o[1], lambda o: o, W, witness)
+        del gram
+
+
+def phase_wide_passes(torch, np, sk, card, rec, m, n, n_pad):
+    """Phase 2g's single-trait wide arms beside the sweeps: sweep_stale_sd
+    with one sub-window of 2,048 markers a window (complete and 2% missing
+    calls; components equal and the tolerance of phase 2e, and bit for bit
+    sweep_stale on the same inputs, as there), and window_stats_planes and
+    window_axpy_planes at W = 2,048 (the stats in launches of 1,024 rows,
+    axpy_planes_kernel<true>), bit for bit their plain versions, on
+    M=4,096 x N=50,000."""
+    from hydra_tpu_torch.ops import planes as tpl
+    dev = torch.device("cuda")
+    W = 2048
+    i2se = 1.0 / (2 * SIGMA_E)
+    tol = [(1e-3, 5e-4)] * 2
+    for missing in (0.0, 0.02):
+        gen = torch.Generator(device=dev).manual_seed(37)
+        pk, mave, mstd, _ = device_genotypes(torch, m, n, n_pad, gen, missing)
+        pads = torch.randperm(m, generator=gen, device=dev)[:37]
+        pk[pads] = 0xFF
+        mrow = kernel_rows(torch, mave, mstd, gen, n, pads)
+        eps = 0.8 * torch.randn(n_pad, generator=gen, device=dev)
+        eps[n:] = 0.0
+        mask = torch.zeros(n_pad, device=dev)
+        mask[:n] = 1.0
+        order = torch.randperm(m, generator=gen, device=dev).to(torch.int32)
+        complete = not missing
+        kw = dict(window=W, n_mix=K, complete=complete,
+                  ind_mask=mask if complete else None, order=order)
+        args = (pk, eps, mrow, i2se, float(n - 1))
+        data = f"W={W} Wt={W} {'complete' if complete else 'missing 2%'}"
+        compare_outputs(
+            torch, "sweep_stale_sd", data,
+            lambda: sk.sweep_stale_sd(*args, sub_window=W, **kw),
+            lambda: sk.sweep_stale_sd_ref(*args, sub_window=W, **kw), 2, tol,
+            card, rec, comp_of=lambda o: o[1][:, 1])
+        e_k, o_k = sk.sweep_stale_sd(*args, sub_window=W, **kw)
+        e_s, o_s = sk.sweep_stale(*args, **kw)
+        same = torch.equal(e_k, e_s) and torch.equal(o_k, o_s)
+        print(f"  beside sweep_stale on the same inputs: bitwise equal "
+              f"{same}  [{card}]", flush=True)
+        if not same:
+            raise AssertionError(f"sweep_stale_sd {data} is not sweep_stale "
+                                 "bit for bit")
+        if not complete:
+            continue
+        planes = tpl.build_planes(pk)
+        rows = torch.randperm(m, generator=gen, device=dev)[:W].to(
+            torch.int32)
+        c1 = 0.05 * torch.randn(W, generator=gen, device=dev)
+        for name, fn, ref in (
+                ("window_stats_planes",
+                 lambda: (tpl.window_stats_planes(planes, eps, rows),),
+                 lambda: (tpl.window_stats_planes_ref(planes, eps, rows),)),
+                ("window_axpy_planes",
+                 lambda: (tpl.window_axpy_planes(planes, c1, rows),),
+                 lambda: (tpl.window_axpy_planes_ref(planes, c1, rows),))):
+            ms, plain_ms = compare_outputs(torch, name, f"W={W}", fn, ref, 5,
+                                           [(1e-5, 1e-6 * n)], card, rec)
+            if not torch.equal(fn()[0], ref()[0]):
+                raise AssertionError(f"{name} W={W} differs from its plain "
+                                     "version")
+            # phase 2d's bound of a call
+            nbytes = W * n_pad + 8 * W + 4 * n_pad + (
+                4 * W if name == "window_stats_planes" else 0)
+            print_bound(f"{name} W={W}", dict(
+                ms=ms, plain_ms=plain_ms, **dict(zip(
+                    ("bound_ms", "bound_by"),
+                    bound(nbytes, {"f32": 2.0 * W * n_pad})))))
+        del planes, pk, mrow
+
+
 def write_plink(np, base, m, n, seed, weibull=False, missing=0.0):
     """Synthetic .bed/.bim/.fam/.phen with h2 = 0.5 over 1% causal markers.
     weibull: the .phen holds log-times mu + g + (log E + EuMasc)/alpha with
@@ -881,6 +1312,126 @@ def phase_cli(torch, np, sk, tmp):
     return launches
 
 
+# phase 3k: the wide arms through the CLI (name, bed, extra argv, the
+# launch counter that must move once a sweep)
+WIDE_CLI_ITERS = 5
+WIDE_CLI_RUNS = (
+    ("wide_exact_w2048", "t_M10K_N_5K", ("--window", "2048"), "sweep_exact"),
+    ("wide_stale_sync2048", "t_M10K_N_5K", ("--stale", "--sync-rate", "2048"),
+     "sweep_stale"),
+    ("wide_k20", "t_M10K_N_5K",
+     ("--S", ",".join(f"{v:.6g}" for v in WIDE_VARIANCES)), "sweep_exact"),
+    ("wide_t20_stale", "mt_M10K_N_5K", ("--stale", "--window", "64"),
+     "sweep_stale_mt"))
+
+
+def phase_wide_cli(torch, np, tmp):
+    """The wide arms through the CLI on phase 3's and 3c's beds (M=10,000 x
+    N=5,000), WIDE_CLI_ITERS iterations each, counted: --window 2048
+    (exact, 5 windows of which the last mostly pad slots), --stale
+    --sync-rate 2048, a --S grid of 19 values (K = 20) and 20 --pheno files
+    (T = 20, --stale --window 64); each run's csv and .bet records are
+    checked, and its sweep wrapper must launch once a sweep."""
+    from hydra_tpu_torch import cli
+    m, n = 10_000, 5_000
+    phen = write_mt_phenos(np, os.path.join(tmp, "mt_M10K_N_5K"), m, n,
+                           WIDE_T, seed=31)
+    reset_all_launches()
+    for name, bed, extra, counter in WIDE_CLI_RUNS:
+        base = os.path.join(tmp, bed)
+        argv = ["--mpibayes", "bayesMPI", "--bfile", base, "--pheno",
+                phen if counter.endswith("_mt") else base + ".phen",
+                "--chain-length", str(WIDE_CLI_ITERS), "--thin", "1",
+                "--save", "5", "--seed", "7", "--mcmc-out-dir",
+                os.path.join(tmp, "out"), "--mcmc-out-name", name, *extra]
+        if "--S" not in extra:
+            argv += ["--S", "0.0001,0.001,0.01"]
+        before = all_launches()[counter]
+        t0 = time.perf_counter()
+        rc = cli.main(argv)
+        torch.cuda.synchronize()
+        moved = all_launches()[counter] - before
+        out = os.path.join(tmp, "out", name + (".t0" if counter.endswith("_mt")
+                                              else ""))
+        h2 = check_outputs(np, out, m, WIDE_CLI_ITERS)
+        print(f"{name}: exit {rc}, {counter} launched {moved} times, "
+              f"{time.perf_counter() - t0:.1f} s, mean h2 over the last "
+              f"rows {h2:.4f}", flush=True)
+        if rc != 0 or moved != WIDE_CLI_ITERS:
+            raise AssertionError(f"{name}: exit {rc}, {counter} launched "
+                                 f"{moved} times, want {WIDE_CLI_ITERS}")
+    launches = all_launches()
+    print(f"wide-arm CLI kernel launches: {json.dumps(launches)}", flush=True)
+    return launches
+
+
+def wide_reading(torch, s, label, card):
+    """One sampler configuration in at most three sweeps: a warm-up step,
+    a step timed by CUDA events with the wrappers' launches counted, and a
+    profiled step (torch.profiler): ms a step (one sweep and its
+    hyperparameters), busy share, device kernels a sweep and the device ms
+    by kernel [card]."""
+    st = s.init_state()
+    st, _ = s.step(st, 0)
+    torch.cuda.synchronize()
+    reset_all_launches()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    st, _ = s.step(st, 1)
+    stop.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(stop)
+    counted = {k: v for k, v in all_launches().items() if v}
+    if not bool(torch.isfinite(st.eps).all()):
+        raise AssertionError(f"{label}: non-finite residual")
+    per = device_times(torch, lambda: s.step(st, 2), label)
+    busy = sum(v[1] for v in per.values())
+    n_dev = sum(v[0] for v in per.values())
+    n_port = sum(v[0] for k, v in per.items() if "hydra::" in k)
+    print(f"wide reading {label}: {ms:.2f} ms a step by CUDA events, "
+          f"wrapper launches {json.dumps(counted)}, {n_dev} device kernels "
+          f"({n_port} of the port), profiler device time {busy:.2f} ms "
+          f"({100.0 * busy / ms:.1f}% busy)  [{card}]", flush=True)
+    ranked = sorted(per.items(), key=lambda kv: -kv[1][1])
+    for i, (k, (cnt, t)) in enumerate(ranked):
+        if i >= 8 and "hydra::" not in k:
+            continue
+        print(f"    {t:9.3f} ms  {cnt:6d} x  {k[:90]}", flush=True)
+
+
+def phase_wide_real_size(torch, np, ds, pk, card):
+    """Phase 4's readings of the wide arms on its complete M=100,000 x
+    N=50,000 data (wide_reading, three sweeps each): BayesRRm exact and
+    stale at W = 2,048 (49 windows, 100,352 slots), exact at W = 1,024 (the
+    cost of running a 2,048-marker exact window as two windows of 1,024
+    instead of in pieces), and exact W=128 at K = 20 (the same genotypes, a
+    19-value variance grid)."""
+    import dataclasses
+    from hydra_tpu_torch.data.genotypes import make_default_groups
+    from hydra_tpu_torch.samplers.bayesrrm import BayesRRm
+    from hydra_tpu_torch.ops.sweep_kernel import mrow_width
+    dev = torch.device("cuda")
+    nb = pk.shape[1]
+    for exact, window in ((True, 2048), (False, 2048), (True, 1024)):
+        s = BayesRRm(ds, window=window, exact=exact, seed=1, device=dev,
+                     packed_device=pk)
+        wide_reading(torch, s, f"{'exact' if exact else 'stale'} "
+                     f"W={window} M=100,000 x N=50,000", card)
+        print_stream_bounds(window, nb, s.cfg.n_windows)
+        if exact:
+            print_exact_bounds(window, nb, mrow_width(K), True,
+                               s.cfg.n_windows)
+        del s
+    groups, mS = make_default_groups(ds.geno.m, list(WIDE_VARIANCES))
+    ds20 = dataclasses.replace(ds, groups=groups, mS=mS)
+    s = BayesRRm(ds20, window=128, exact=True, seed=1, device=dev,
+                 packed_device=pk)
+    wide_reading(torch, s, "exact W=128 K=20 M=100,000 x N=50,000", card)
+    print_exact_bounds(128, nb, mrow_width(len(WIDE_VARIANCES) + 1), True,
+                       s.cfg.n_windows)
+
+
 def real_size_dataset(torch, np, missing=0.0, m=100_000, seed=2):
     """M=100,000 (or m) x N=50,000 genotypes made on the card (seed 2 or
     ``seed``; with ``missing``, a share of missing calls) as a Dataset and
@@ -951,6 +1502,7 @@ def phase_real_size(torch, np, sk, card):
                          gram_check=exact)
     for window in (128, 64):
         check_batched_grams(torch, "real size", pk, ds.geno.n, window, card)
+    phase_wide_real_size(torch, np, ds, pk, card)
     del ds, pk
     ds, pk = real_size_dataset(torch, np, 0.02)
     real_size_sweeps(torch, sk, ds, pk, True, 128, card, " missing 2%",
@@ -1193,9 +1745,10 @@ def profile_run(torch, run, label, launches, card, n_windows=None):
     return per
 
 
-def bw_sampler(torch, np, m, n, seed, window, missing=0.0):
-    """A BayesW sampler (block schedule, K=4, Q=25) on genotypes made on
-    the card, Weibull log-times (alpha 8, mu 4) and 10% censoring."""
+def bw_sampler(torch, np, m, n, seed, window, missing=0.0, variances=MS[1:]):
+    """A BayesW sampler (block schedule, K = len(variances) + 1 (4), Q=25)
+    on genotypes made on the card, Weibull log-times (alpha 8, mu 4) and
+    10% censoring."""
     from hydra_tpu_torch.data.genotypes import (Dataset, GenotypeData,
                                                 make_default_groups)
     from hydra_tpu_torch.samplers.bayesw import BayesW
@@ -1209,7 +1762,7 @@ def bw_sampler(torch, np, m, n, seed, window, missing=0.0):
                         n_pad=n_pad, m=m, mave=mave_h, mstd=mstd_h,
                         msd=1.0 / mstd_h, n1=None, n2=None,
                         nm=nm.cpu().numpy())
-    groups, mS = make_default_groups(m, list(MS[1:]))
+    groups, mS = make_default_groups(m, list(variances))
     rs = np.random.RandomState(seed)
     y = 4.0 + (np.log(rs.exponential(1.0, n)) + EULER_MASCHERONI) / 8.0
     fail = (rs.random_sample(n) > 0.1).astype(np.float64)
@@ -1219,24 +1772,36 @@ def bw_sampler(torch, np, m, n, seed, window, missing=0.0):
                   packed_device=pk)
 
 
-# phase 2b's BayesW cases (M, W, missing genotypes) at N=50,000
+# phase 2b's BayesW cases (M, W, missing genotypes) at N=50,000, and its
+# wide arms (M, W, missing genotypes, K): windows above 1,024 markers (the
+# wide axpy with the vi refresh) and K = 40 (bw_draw_kernel<true>, the
+# components in the warp's shared memory)
 BW_CASES = ((4096, 64, 0.0), (4096, 64, 0.02), (512, 1, 0.0))
+BW_WIDE_CASES = ((2050, 1025, 0.0, K), (4096, 2048, 0.02, K),
+                 (4096, 64, 0.0, 40))
 
 
-def bw_case(torch, np, m, window, missing):
-    """A BayesW sweep's inputs at N=50,000 (bw_sampler, seed 11): a state
-    with 20% non-zero effects and a loose pi, so that every component and
-    the slice sampler are exercised. Returns (sampler, sweep_stale_bw's
-    positional args, its keywords, vi, the generator, left where it is)."""
+def bw_case(torch, np, m, window, missing, k=K):
+    """A BayesW sweep's inputs at N=50,000 (bw_sampler, seed 11, K = k: a
+    geometric grid of k - 1 variances from 1e-4 above 4): a state with 20%
+    non-zero effects and a loose pi, so that every component and the slice
+    sampler are exercised. Returns (sampler, sweep_stale_bw's positional
+    args, its keywords, vi, the generator, left where it is)."""
     dev = torch.device("cuda")
-    s = bw_sampler(torch, np, m, 50_000, 11, window, missing)
+    variances = (MS[1:] if k == K else
+                 tuple(1e-4 * 1000.0 ** (i / (k - 2)) for i in range(k - 1)))
+    s = bw_sampler(torch, np, m, 50_000, 11, window, missing, variances)
     cfg = s.cfg
     st = s.init_state()
     gen = torch.Generator(device=dev).manual_seed(3)
     nz = torch.rand(cfg.m_loc, generator=gen, device=dev) < 0.2
     st.beta = torch.where(nz, 0.02 * torch.randn(
         cfg.m_loc, generator=gen, device=dev), 0.0) * s.valid
-    st.pi_l = torch.tensor([[0.5, 0.2, 0.2, 0.1]], device=dev)
+    if k == K:
+        st.pi_l = torch.tensor([[0.5, 0.2, 0.2, 0.1]], device=dev)
+    else:
+        p = torch.rand((1, k), generator=gen, device=dev) + 0.1
+        st.pi_l = p / p.sum()
     alpha = st.alpha
     vi = torch.exp(alpha * st.eps - EULER_MASCHERONI) * s.ind_mask
     mrow = s.build_mrow(st, alpha, s.slot_noise(0))
@@ -1252,14 +1817,19 @@ def phase_bw_kernels(torch, np, card):
     outputs must be equal bit for bit (sweep_stale_bw's eps and out,
     window_level_sums' sums, window_axpy's but for complete data's pad
     individuals) as well as within the sweep tolerance (atol 5e-4, rtol
-    1e-3), and components must agree exactly."""
+    1e-3), and components must agree exactly. At K = 40 (bw_draw_kernel's
+    K > 32 arm) the sweep is held as its card test holds it: components
+    equal, eps and out within the sweep tolerance (a knife-edge slice
+    state may differ in a last bit), its axpy bit for bit the plain update
+    replayed from its draws."""
     from hydra_tpu_torch.ops import sweep_kernel_bw as skbw
     from hydra_tpu_torch.ops import window_kernels as wk
     dev = torch.device("cuda")
     rec = {k: dict(err=0.0) for k in ("sweep_stale_bw", "window_level_sums",
                                       "window_axpy")}
-    for m, window, missing in BW_CASES:
-        s, args, kw, vi, gen = bw_case(torch, np, m, window, missing)
+    for m, window, missing, k in ([c + (K,) for c in BW_CASES]
+                                  + list(BW_WIDE_CASES)):
+        s, args, kw, vi, gen = bw_case(torch, np, m, window, missing, k)
         cfg, mrow = s.cfg, args[3]
 
         def run():
@@ -1280,6 +1850,7 @@ def phase_bw_kernels(torch, np, card):
         used = torch.unique(o1[:, 1]).numel()
         bitwise = torch.equal(e1, er) and torch.equal(o1, orf)
         data = "missing 2%" if missing else "complete"
+        data += f" K={k}" if k != K else ""
         print(f"sweep_stale_bw M={m} W={window:2d} {data:10s} kernel "
               f"{ms:9.3f} ms  plain {plain_ms:9.3f} ms  max|d eps| "
               f"{d_eps:.3e}  max|d beta| {d_beta:.3e}  comp mismatches "
@@ -1288,7 +1859,9 @@ def phase_bw_kernels(torch, np, card):
               f"{bitwise}  [{card}]", flush=True)
         torch.testing.assert_close(e1, er, atol=5e-4, rtol=1e-3)
         torch.testing.assert_close(o1[:, 0], orf[:, 0], atol=5e-4, rtol=1e-3)
-        if not bitwise:
+        if k != K:
+            torch.testing.assert_close(o1, orf, atol=5e-4, rtol=1e-3)
+        elif not bitwise:
             raise AssertionError(f"sweep_stale_bw W={window} {data} differs "
                                  "from its plain version")
         if n_comp:
@@ -1304,18 +1877,22 @@ def phase_bw_kernels(torch, np, card):
         r = rec["sweep_stale_bw"]
         r["err"] = max(r["err"], d_eps, d_beta)
         n_pad, nb = cfg.n_pad, s.packed.shape[1]
-        if window == 64 and not missing:
+        # packed rows, eps, vi, mask, mrow, order, GH in; eps, out out.
+        # Ops: the two level-sum FMAs and the axpy FMA per genotype, the vi
+        # refresh per window, ~2,700 for each marker's draw
+        nbytes = (m * nb + 4 * 4 * n_pad + mrow.numel() * 4 + 4 * m
+                  + 8 * 25 + 16 * m)
+        ops = {"f32": 6.0 * m * n_pad + 4.0 * (m // window) * n_pad
+               + 2700.0 * m}
+        if window == 64 and not missing and k == K:
             r["ms"], r["plain_ms"] = ms, plain_ms
-            # packed rows, eps, vi, mask, mrow, order, GH in; eps, out out.
-            # Ops: the two level-sum FMAs and the axpy FMA per genotype,
-            # the vi refresh per window, ~2,700 for each marker's draw
-            nbytes = (m * nb + 4 * 4 * n_pad + mrow.numel() * 4 + 4 * m
-                      + 8 * 25 + 16 * m)
-            ops = {"f32": 6.0 * m * n_pad + 4.0 * (m // window) * n_pad
-                   + 2700.0 * m}
             r["bound_ms"], r["bound_by"] = bound(nbytes, ops)
+        elif window > 64 or k != K:
+            print_bound(f"sweep_stale_bw W={window} {data}", dict(
+                ms=ms, plain_ms=plain_ms,
+                **dict(zip(("bound_ms", "bound_by"), bound(nbytes, ops)))))
 
-        if window != 64:
+        if window != 64 or k != K:
             continue
         # the standalone window kernels on the first window's rows
         pk_w = s.packed[:window].contiguous()
@@ -1532,14 +2109,15 @@ def mt_phenotypes(np, n, n_traits, seed, na_frac=0.0):
     return ph
 
 
-def mt_kernel_rows(torch, mave, mstd, gen, n, pads, T):
+def mt_kernel_rows(torch, mave, mstd, gen, n, pads, T, variances=MS[1:]):
     """Multi-trait mrow rows (sweep_kernel_mt.py column blocks of T) as the
     sampler builds them for sigmaE = sigmaG = 0.5: the single-trait rows of
     ``kernel_rows`` with per-trait beta_old, u and nrm."""
     from hydra_tpu_torch.ops.sweep_kernel_mt import mt_mrow_width
-    per = [kernel_rows(torch, mave, mstd, gen, n, pads) for _ in range(T)]
+    per = [kernel_rows(torch, mave, mstd, gen, n, pads, variances)
+           for _ in range(T)]
     out = torch.stack(per, dim=2).reshape(mave.shape[0], -1).contiguous()
-    assert out.shape[1] == mt_mrow_width(K, T)
+    assert out.shape[1] == mt_mrow_width(len(variances) + 1, T)
     return out
 
 
@@ -2376,7 +2954,15 @@ def phase_mt_real_size(torch, np, card):
                                 "stale" if not exact else
                                 "per_trait" if na_frac > 0.0 else "exact")
         del s, st, mrow
-    del pk
+    # the trait groups at T = 20: stale W=64 with full phenotypes, three
+    # sweeps (wide_reading)
+    s = BayesRRmMT(ds, mt_phenotypes(np, n, WIDE_T, 4), window=64,
+                   exact=False, seed=1, device=dev, packed_device=pk)
+    wide_reading(torch, s, f"mt T={WIDE_T} stale W=64 M=100,000 x N=50,000",
+                 card)
+    # two launches of each pass a window, a group of 16 traits and one of 4
+    print_mt_stream_bounds(64, pk.shape[1], WIDE_T, 2 * s.cfg.n_windows)
+    del s, pk
 
 
 def print_mt_pass_times(torch, np, card):
@@ -2988,9 +3574,13 @@ def phase_window_cli(torch, np, tmp):
 
 
 # phase 4d's configurations: (M, N, ((label, exact, W, mega, cache planes),
-# ...)); MEGA_OFF_REAL_SIZE the two --mega off rows alone
+# ...)); MEGA_OFF_REAL_SIZE the two --mega off rows alone and
+# PLANES_REAL_SIZE the planes row, at M=100,000 (scripts/chip_compare.py).
+# The smoke's host-bound per-window rows run at M=25,000: at M=100,000 the
+# whole smoke read 1,170.1 s of phases, 1,182 s with its start, of its
+# 1,200 s limit (NVIDIA H100 80GB HBM3, 700 W), 4d 194.6 s of it
 WINDOW_REAL_SIZE = (
-    (100_000, 50_000, (("--mega off exact", True, 128, "off", "off"),
+    (25_000, 50_000, (("--mega off exact", True, 128, "off", "off"),
                        ("--mega off stale", False, 64, "off", "off"),
                        ("--cache-planes on stale", False, 64, "auto", "on"))),
     (10_000, 5_000, (("--stale", False, 1, "auto", "off"),)))
@@ -4189,9 +4779,11 @@ def slice_markers(ds, pk, m):
     return dataclasses.replace(ds, geno=geno, groups=ds.groups[:m]), pk[:m]
 
 
-def phase_new_paths_real_size(torch, np, card, m_profile=10_000):
-    """The new paths at full width, M=100,000 x N=50,000 (genotypes made on
-    the card): multi-trait T=4 --mega off stale W=64 and --stale W=1,
+def phase_new_paths_real_size(torch, np, card, m_profile=2_500):
+    """The new paths at full width, M=25,000 x N=50,000 (genotypes made on
+    the card; at M=100,000 this phase took 95.4 s of a smoke that came
+    within 18 s of its limit): multi-trait T=4 --mega off stale W=64 and
+    --stale W=1,
     BayesW --mega off W=64 and float64 stale W=64 (BayesRRm). For each,
     ms/sweep by host clock after a synchronize (one warm-up sweep), the
     wrappers' launches of a timed sweep, --check-RAM's estimate beside
@@ -4205,8 +4797,8 @@ def phase_new_paths_real_size(torch, np, card, m_profile=10_000):
     from hydra_tpu_torch.samplers.bayesrrm_mt import BayesRRmMT
     from hydra_tpu_torch.samplers.bayesw import BayesW
     dev = torch.device("cuda")
-    m, n, T = 100_000, 50_000, 4
-    ds, pk = real_size_dataset(torch, np)
+    m, n, T = 25_000, 50_000, 4
+    ds, pk = real_size_dataset(torch, np, m=m)
     phen = mt_phenotypes(np, n, T, 4)
     rs = np.random.RandomState(2)
     ds_w = dataclasses.replace(
@@ -5268,6 +5860,9 @@ def main() -> int:
                "(N=50,000)"):
         for name, r in print_library_times(torch, np, card).items():
             rec[name].update(r)
+    with phase("2g: the wide arms vs plain versions (W 1,025 and 2,048, "
+               "K=20, T=20; N=50,000)"):
+        phase_wide_kernels(torch, np, sk, card, rec)
     with tempfile.TemporaryDirectory() as tmp:
         with phase("3: BayesRRm CLI end to end (M=10,000 x N=5,000)"):
             launches = phase_cli(torch, np, sk, tmp)
@@ -5301,6 +5896,10 @@ def main() -> int:
                    "multi-trait T=4; one 1x2 sweep at M=25,000 x N=50,000 "
                    "each, single- and multi-trait) and postproc"):
             ind_launches = check_ind_shards(np, ranks, ranks4, tmp, card)
+        with phase("3k: the wide arms through the CLI (--window 2048, "
+                   "--stale --sync-rate 2048, K=20, T=20; M=10,000 x "
+                   "N=5,000)"):
+            wide_launches = phase_wide_cli(torch, np, tmp)
     for name in ("sweep_stale_bw", "window_level_sums", "window_axpy"):
         launches[name] = bw_launches[name]
     for name in ("sweep_stale_mt", "sweep_exact_mt", "window_stats_mt",
@@ -5314,6 +5913,8 @@ def main() -> int:
         launches[name] += v
     for name, v in ind_launches.items():
         launches[name] += v
+    for name, v in wide_launches.items():
+        launches[name] += v
     with phase("4: real size (M=100,000 x N=50,000)"):
         phase_real_size(torch, np, sk, card)
     with phase("4b: BayesW real size"):
@@ -5321,7 +5922,7 @@ def main() -> int:
     with phase("4c: multi-trait real size (M=100,000 x N=50,000, T=4)"):
         phase_mt_real_size(torch, np, card)
         print_mt_pass_times(torch, np, card)
-    with phase("4d: per-window branch real size (M=100,000 x N=50,000) and "
+    with phase("4d: per-window branch real size (M=25,000 x N=50,000) and "
                "stale W=1"):
         phase_window_real_size(torch, np, sk, card)
         print_window_gibbs_times(torch, np, card)
@@ -5331,19 +5932,23 @@ def main() -> int:
         phase_sd_real_size(torch, np, sk, card)
     with phase("4f: one full-width restart (M=100,000 x N=50,000, F=12)"):
         phase_restart_real_size(torch, np, card)
-    with phase("4g: the new paths at full width (M=100,000 x N=50,000)"):
+    with phase("4g: the new paths at full width (M=25,000 x N=50,000)"):
         phase_new_paths_real_size(torch, np, card)
 
     # (wrapper, source, TPU kernel it replaces, the CUDA kernels it launches)
     table = (
         ("sweep_stale", "sweep_kernel.cu", "hydra_tpu/ops/sweep_kernel.py:836",
          "stats_kernel, axpy_kernel<false, MODE, KB> (draws the window: "
-         "stale_draw in every block; above STALE_FOLD_MAX_W "
-         "stale_draw_kernel, then axpy_kernel)"),
+         "stale_draw in every block; above STALE_FOLD_MAX_W or K_MAX "
+         "stale_draw_kernel<KB>, then axpy_kernel; above WIDE_W "
+         "stale_draw_kernel<KB, true> and axpy_kernel<..., true>; K > 16 "
+         "KB = K_ANY)"),
         ("sweep_exact", "sweep_kernel.cu", "hydra_tpu/ops/sweep_kernel.py:567",
          "stats_kernel, exact_draw_kernel, axpy_kernel a window; "
          "gram_i8_batch_kernel (missing: gram_f32_batch_kernel<Tile>) once "
-         "a batch of windows"),
+         "a batch of windows; above WIDE_W exact_draw_kernel<KB, FIXED, "
+         "true> a piece of 1,024 markers and axpy_kernel<..., true>; K > 16 "
+         "KB = K_ANY"),
         ("sweep_stale_sd", "sweep_kernel.cu",
          "hydra_tpu/ops/sweep_kernel.py:255",
          "stats_kernel<true>, axpy_decoded_kernel<MODE, KB> (draws the "
@@ -5351,31 +5956,41 @@ def main() -> int:
          "axpy_decoded_kernel)"),
         ("sweep_stale_bw", "sweep_kernel_bw.cu",
          "hydra_tpu/ops/sweep_kernel_bw.py:330",
-         "levels_kernel, bw_draw_kernel, axpy_kernel<true>"),
+         "levels_kernel, bw_draw_kernel (K > 32: bw_draw_kernel<true>), "
+         "axpy_kernel<true> (above WIDE_W axpy_kernel<true, ..., true>)"),
         ("window_level_sums", "sweep_kernel_bw.cu",
          "hydra_tpu/ops/window_kernels.py:356",
          "levels_kernel, levels_reduce_kernel"),
         ("window_axpy", "sweep_kernel_bw.cu",
          "hydra_tpu/ops/window_kernels.py:284",
-         "axpy_kernel<false, MODE, 0, true> (one launch a call)"),
+         "axpy_kernel<false, MODE, 0, true> (one launch a call; above "
+         "WIDE_W axpy_kernel<false, MODE, 0, true, true>)"),
         ("sweep_stale_mt", "sweep_kernel_mt.cu",
          "hydra_tpu/ops/sweep_kernel_mt.py:214",
          "stats_mt_kernel, axpy_mt_kernel<COMPLETE, TB, KB> (draws the "
-         "window: stale_draw_mt in every block; above MT_FOLD_MAX_W "
-         "stale_draw_mt_kernel, then axpy_mt_kernel)"),
+         "window: stale_draw_mt in every block; above MT_FOLD_MAX_W, K_MAX "
+         "or T_MAX stale_draw_mt_kernel, then axpy_mt_kernel; above WIDE_W "
+         "or T_MAX stats_mt_kernel<MODE, 16, true> and axpy_mt_kernel<..., "
+         "true> a group of 16 traits)"),
         ("sweep_exact_mt", "sweep_kernel_mt.cu",
          "hydra_tpu/ops/sweep_kernel_mt.py:499",
          "stats_mt_kernel, exact_mt_draw_kernel, axpy_mt_kernel a window; "
-         "gram_i8_batch_kernel once a batch of windows"),
+         "gram_i8_batch_kernel once a batch of windows; above WIDE_W "
+         "exact_mt_draw_kernel<KB, FIXED, true> a piece; T > 16 the trait "
+         "groups"),
         ("window_stats_mt", "sweep_kernel_mt.cu",
          "hydra_tpu/ops/window_kernels.py:451",
-         "stats_mt_kernel, stats_mt_reduce_kernel"),
+         "stats_mt_kernel (T > 16: <MODE, 16, true> a group), "
+         "stats_mt_reduce_kernel"),
         ("window_axpy_mt", "sweep_kernel_mt.cu",
-         "hydra_tpu/ops/window_kernels.py:534", "axpy_mt_kernel"),
+         "hydra_tpu/ops/window_kernels.py:534",
+         "axpy_mt_kernel (above WIDE_W or T_MAX <COMPLETE, 16, 0, true> a "
+         "group)"),
         # not a Pallas kernel: the JAX sampler's lax.scan recurrence
         ("mt_window_recurrence", "sweep_kernel_mt.cu",
          "hydra_tpu/samplers/bayesrrm_mt.py:439",
-         "window_recurrence_mt_kernel"),
+         "window_recurrence_mt_kernel (above WIDE_W a launch a "
+         "piece; K > 16 KB = K_ANY)"),
         ("window_stats", "sweep_kernel.cu",
          "hydra_tpu/ops/window_kernels.py:180",
          "stats_kernel, window_stats_finish_kernel, gram_i8_batch_kernel "
@@ -5383,15 +5998,17 @@ def main() -> int:
          "complete; exact missing: gram_f32_batch_kernel<Tile>, the "
          "chunks split)"),
         ("window_gibbs", "sweep_kernel.cu", "hydra_tpu/ops/gibbs_kernel.py:112",
-         "window_gibbs_kernel<KB, FIXED> (warp_recurrence)"),
+         "window_gibbs_kernel<KB, FIXED> (warp_recurrence; above "
+         "WIDE_W <KB, FIXED, true> a piece; K > 16 KB = K_ANY)"),
         ("window_stats_planes", "planes_kernel.cu",
          "hydra_tpu/ops/planes.py:138",
-         "stats_planes_kernel (one launch a call: the last block of a row "
-         "group's ticket adds the tiles' partials)"),
+         "stats_planes_kernel (one launch a call, a launch a 1,024 rows "
+         "above: the last block of a row group's ticket adds the tiles' "
+         "partials)"),
         ("window_axpy_planes", "planes_kernel.cu",
          "hydra_tpu/ops/planes.py:196",
          "axpy_planes_kernel (a thread per individual, rows staged by "
-         "cp.async)"))
+         "cp.async; above WIDE_W axpy_planes_kernel<true>)"))
     # library_ms: the planes kernels, torch.mv on the window's int8 rows
     # cast to f32 before timing; the window passes (window_stats, window_axpy,
     # window_level_sums and the multi-trait two), PyTorch's call on the

@@ -19,9 +19,10 @@ leaves it last (``parallel/distributed.py``). ``--device`` empty means
 cuda (NCCL between ranks), ``--device cpu`` runs the plain PyTorch path
 (gloo); ``--dcn-slices S`` lays the ranks out in S slices, and
 ``--ind-shards I`` gives each marker shard I ranks, one chunk of the
-individuals each (every sampler). What the port does not run (an S or I
-that does not divide the ranks, its kernel limits) raises before any data
-is read (``runner.check_supported``).
+individuals each (every sampler). Any window width, mixture size and
+trait count runs, as in the JAX package. What the port does not run (an S
+or I that does not divide the ranks, a --n-devices D without D ranks)
+raises before any data is read (``runner.check_supported``).
 """
 
 from __future__ import annotations

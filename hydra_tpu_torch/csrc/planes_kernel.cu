@@ -80,7 +80,10 @@ __device__ __forceinline__ void cp_async_wait_group() {
 constexpr int PLANES_TW = 512;      // char4 words (2,048 individuals) a tile
 constexpr int PLANES_WARPS = 8;     // warps (rows) a stats block
 constexpr int PLANES_THREADS = PLANES_WARPS * 32;
-constexpr int PLANES_GROUPS = 1024 / PLANES_WARPS;   // counters: W <= 1024
+// counters: a launch takes at most PLANES_MAX_W rows; a window above runs
+// as launches of PLANES_MAX_W rows (each row's s1 is its own sums alone)
+constexpr int PLANES_MAX_W = 1024;
+constexpr int PLANES_GROUPS = PLANES_MAX_W / PLANES_WARPS;
 constexpr int PLANES_TICKET_BYTES = 256 * ((sizeof(int) * PLANES_GROUPS + 255) / 256);
 
 __global__ void __launch_bounds__(PLANES_THREADS)
@@ -173,6 +176,11 @@ stats_planes_kernel(const int8_t* __restrict__ planes, int nw, const float* __re
 //    a float exactly (byte_float) and runs the row's fmaf;
 //  - up to AXPY_DIRECT rows a thread reads its byte of each row straight
 //    from memory, all loads in flight: no tile, no barrier.
+// WIDE (windows above WIDE_W): c1 is not staged (W floats of shared memory
+// passed 227 KB beside the buffers at W = 41,000); every thread reads a
+// chunk's four coefficients at a time from memory (the same addresses for
+// the block: L1), zero past W. The rows, their order and every fmaf are the
+// other arm's.
 constexpr int PLANES_AXPY_WORDS = AXPY_THREADS / 4;   // words of a row a block
 constexpr int PLANES_COPIERS = AXPY_THREADS / 16;     // rows a pass of the block's copies
 constexpr int PLANES_STAGES = 2;                      // chunk buffers
@@ -182,22 +190,24 @@ __host__ __device__ inline int axpy_planes_buffer_rows(int W) {
     return min((W + 3) & ~3, AXPY_ROWS);
 }
 
-// dynamic shared memory: c1, and a buffer a stage up to the window's chunks
+// dynamic shared memory: c1 (not WIDE), and a buffer a stage up to the
+// window's chunks
 inline size_t axpy_planes_smem(int W) {
     const int buffers = W <= AXPY_DIRECT ? 0 : min(PLANES_STAGES, cdiv(W, AXPY_ROWS));
-    return sizeof(float) * ((W + 3) & ~3) +
+    return sizeof(float) * (W > WIDE_W ? 0 : (W + 3) & ~3) +
            sizeof(uint32_t) * buffers * axpy_planes_buffer_rows(W) * PLANES_AXPY_WORDS;
 }
 
+template <bool WIDE = false>
 __global__ void __launch_bounds__(AXPY_THREADS)
 axpy_planes_kernel(const int8_t* __restrict__ planes, int n_pad, const int* __restrict__ rows,
                    int W, const float* __restrict__ c1, float* __restrict__ out) {
-    extern __shared__ float4 sh_planes[];   // c1[W4], then the chunk buffers
+    extern __shared__ float4 sh_planes[];   // c1[W4] (not WIDE), then the chunk buffers
     const int tid = threadIdx.x;
     const int i = blockIdx.x * AXPY_THREADS + tid;
     const uint8_t* pl = reinterpret_cast<const uint8_t*>(planes);
     float acc = 0.f;
-    if (W <= AXPY_DIRECT) {
+    if (!WIDE && W <= AXPY_DIRECT) {
         uint32_t g[AXPY_DIRECT];
 #pragma unroll
         for (int r = 0; r < AXPY_DIRECT; ++r)
@@ -208,7 +218,7 @@ axpy_planes_kernel(const int8_t* __restrict__ planes, int n_pad, const int* __re
             acc = fmaf(__ldg(c1 + r), byte_float(g[r], 0), acc);
         }
     } else {
-        const int W4 = (W + 3) & ~3;
+        const int W4 = WIDE ? 0 : (W + 3) & ~3;
         float* s_c1 = reinterpret_cast<float*>(sh_planes);
         uint32_t* tile = reinterpret_cast<uint32_t*>(s_c1 + W4);
         const int buf_words = axpy_planes_buffer_rows(W) * PLANES_AXPY_WORDS;
@@ -240,7 +250,8 @@ axpy_planes_kernel(const int8_t* __restrict__ planes, int n_pad, const int* __re
         };
 #pragma unroll
         for (int c = 0; c < PLANES_STAGES - 1; ++c) load_chunk(c);
-        for (int r = tid; r < W4; r += AXPY_THREADS) s_c1[r] = r < W ? c1[r] : 0.f;
+        if constexpr (!WIDE)
+            for (int r = tid; r < W4; r += AXPY_THREADS) s_c1[r] = r < W ? c1[r] : 0.f;
         const int col = tid >> 2, q = tid & 3;
         for (int c = 0; c < n_chunks; ++c) {
             load_chunk(c + PLANES_STAGES - 1);    // its buffer was consumed at c - 1
@@ -252,7 +263,15 @@ axpy_planes_kernel(const int8_t* __restrict__ planes, int n_pad, const int* __re
             const int n4 = (min(AXPY_ROWS, W - r0) + 3) >> 2;
 #pragma unroll 4
             for (int j = 0; j < n4; ++j) {
-                const float4 a = c4[j];
+                float4 a;
+                if constexpr (WIDE) {
+                    const int rr = r0 + 4 * j;
+                    a = make_float4(__ldg(c1 + rr), rr + 1 < W ? __ldg(c1 + rr + 1) : 0.f,
+                                    rr + 2 < W ? __ldg(c1 + rr + 2) : 0.f,
+                                    rr + 3 < W ? __ldg(c1 + rr + 3) : 0.f);
+                } else {
+                    a = c4[j];
+                }
                 const uint32_t* wj = w + 4 * j * PLANES_AXPY_WORDS;
                 acc = fmaf(a.x, byte_float(wj[0], q), acc);
                 acc = fmaf(a.y, byte_float(wj[PLANES_AXPY_WORDS], q), acc);
@@ -267,7 +286,7 @@ axpy_planes_kernel(const int8_t* __restrict__ planes, int n_pad, const int* __re
 }
 
 inline bool planes_shapes_ok(int W, int n_pad) {
-    return W >= 1 && W <= 1024 && n_pad > 0 && n_pad % 512 == 0;
+    return W >= 1 && n_pad > 0 && n_pad % 512 == 0;
 }
 
 }  // namespace hydra
@@ -276,12 +295,13 @@ extern "C" {
 
 // Bytes of device workspace a window_stats_planes call needs: the row
 // groups' ticket counters (which the kernel leaves at 0; zero them once)
-// and the tile partials.
+// and the tile partials of a launch (at most PLANES_MAX_W rows).
 long long hydra_planes_workspace_bytes(int n_pad, int window) {
     using namespace hydra;
+    const int w = window < PLANES_MAX_W ? window : PLANES_MAX_W;
     return PLANES_TICKET_BYTES +
            static_cast<long long>(align256(
-               sizeof(float) * static_cast<size_t>(cdiv(n_pad / 4, PLANES_TW)) * window));
+               sizeof(float) * static_cast<size_t>(cdiv(n_pad / 4, PLANES_TW)) * w));
 }
 
 // s1 (W,) = planes[rows[r]] . eps for the window rows[0..W); eps (n_pad,);
@@ -293,11 +313,15 @@ int hydra_window_stats_planes(const void* planes, const void* eps, const void* r
     const int nw = n_pad / 4;
     int* tickets = static_cast<int*>(ws);
     float* part = reinterpret_cast<float*>(static_cast<char*>(ws) + PLANES_TICKET_BYTES);
-    stats_planes_kernel<<<dim3(cdiv(nw, PLANES_TW), cdiv(window, PLANES_WARPS)),
-                          PLANES_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int8_t*>(planes), nw, static_cast<const float*>(eps),
-        static_cast<const int*>(rows), window, part, tickets, static_cast<float*>(s1));
-    HYDRA_CHECK_LAUNCH();
+    for (int r0 = 0; r0 < window; r0 += PLANES_MAX_W) {
+        const int w = window - r0 < PLANES_MAX_W ? window - r0 : PLANES_MAX_W;
+        stats_planes_kernel<<<dim3(cdiv(nw, PLANES_TW), cdiv(w, PLANES_WARPS)), PLANES_THREADS,
+                              0, static_cast<cudaStream_t>(stream)>>>(
+            static_cast<const int8_t*>(planes), nw, static_cast<const float*>(eps),
+            static_cast<const int*>(rows) + r0, w, part, tickets,
+            static_cast<float*>(s1) + r0);
+        HYDRA_CHECK_LAUNCH();
+    }
     return 0;
 }
 
@@ -307,9 +331,9 @@ int hydra_window_axpy_planes(const void* planes, const void* rows, const void* c
     using namespace hydra;
     if (!planes_shapes_ok(window, n_pad)) return static_cast<int>(cudaErrorInvalidValue);
     const size_t smem = axpy_planes_smem(window);
-    HYDRA_CHECK(allow_smem(axpy_planes_kernel, smem));
-    axpy_planes_kernel<<<n_pad / AXPY_THREADS, AXPY_THREADS, smem,
-                         static_cast<cudaStream_t>(stream)>>>(
+    auto* const kernel = window > WIDE_W ? axpy_planes_kernel<true> : axpy_planes_kernel<false>;
+    HYDRA_CHECK(allow_smem(kernel, smem));
+    kernel<<<n_pad / AXPY_THREADS, AXPY_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int8_t*>(planes), n_pad, static_cast<const int*>(rows), window,
         static_cast<const float*>(c1), static_cast<float*>(out));
     HYDRA_CHECK_LAUNCH();

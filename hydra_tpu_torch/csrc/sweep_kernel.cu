@@ -178,9 +178,13 @@ inline int launch_stats(const uint8_t* pk, int nb, const float* eps, const int* 
 // One block, one thread per marker of the window: stale_draw (sweep_kernel.
 // cuh) on each, the h-decode axpy constant by thread 0. The stale sweeps
 // fold this draw into their axpy (axpy_kernel<false, MODE, KB>,
-// axpy_decoded_kernel<MODE, KB>) up to STALE_FOLD_MAX_W markers a window;
-// above, it runs in its own launch before the axpy.
-template <int KB>
+// axpy_decoded_kernel<MODE, KB>) up to STALE_FOLD_MAX_W markers a window
+// and K_MAX components; above, it runs in its own launch before the axpy.
+// WIDE (windows above WIDE_W): 1,024 threads, each drawing the markers r,
+// r + 1024, ...; c1 and c2 go straight to coef, and thread 0 adds the
+// constant from there behind the block's barrier, in slot order as below,
+// so shared memory does not grow with W.
+template <int KB, bool WIDE = false>
 __global__ void __launch_bounds__(1024, 1)
 stale_draw_kernel(const float* __restrict__ mrow, int C, int K,
                   const int* __restrict__ order_w, int W,
@@ -188,7 +192,26 @@ stale_draw_kernel(const float* __restrict__ mrow, int C, int K,
                   const float* __restrict__ part_s2, int n_tiles,
                   int complete, const float* __restrict__ sc,
                   float* __restrict__ out, float* __restrict__ coef) {
-    extern __shared__ float sh[];          // c1[W], c2[W]
+    extern __shared__ float sh[];          // c1[W], c2[W] (not WIDE)
+    if constexpr (WIDE) {
+        for (int r = threadIdx.x; r < W; r += blockDim.x) {
+            const int slot = order_w[r];
+            const float2 s = reduce_tile_pair(part_s1, part_s2, n_tiles, W, r);
+            const StaleDraw d = stale_draw<KB>(mrow + static_cast<size_t>(slot) * C, K, s.x,
+                                               s.y, complete != 0, sc[0], sc[1]);
+            reinterpret_cast<float4*>(out)[slot] = d.out;
+            coef[r] = d.c1;
+            coef[W + r] = d.c2;
+        }
+        __syncthreads();
+        if (threadIdx.x == 0 && complete) {
+            float a = 0.f, b = 0.f;
+            for (int j = 0; j < W; ++j) a += coef[j];
+            for (int j = 0; j < W; ++j) b += coef[W + j];
+            coef[2 * W] = 2.0f * a + b;
+        }
+        return;
+    }
     const int r = threadIdx.x;
     if (r < W) {
         const int slot = order_w[r];
@@ -211,6 +234,24 @@ stale_draw_kernel(const float* __restrict__ mrow, int C, int K,
         for (int j = 0; j < W; ++j) b += sh[W + j];
         coef[2 * W] = 2.0f * a + b;
     }
+}
+
+// A stale window's separate draw (stale_draw_kernel), by mixture size and
+// window width.
+inline int launch_stale_draw(const float* mrow, int C, int K, const int* order_w, int W,
+                             const float* part_s1, const float* part_s2, int n_tiles,
+                             int complete, const float* sc, float* out, float* coef,
+                             cudaStream_t stream) {
+    const bool wide = W > WIDE_W;
+    auto* const kernel =
+        wide ? by_components(K, stale_draw_kernel<4, true>, stale_draw_kernel<8, true>,
+                             stale_draw_kernel<K_MAX, true>, stale_draw_kernel<K_ANY, true>)
+             : by_components(K, stale_draw_kernel<4>, stale_draw_kernel<8>,
+                             stale_draw_kernel<K_MAX>, stale_draw_kernel<K_ANY>);
+    kernel<<<1, wide ? WIDE_W : cdiv(W, 32) * 32, wide ? 0 : 2 * sizeof(float) * W, stream>>>(
+        mrow, C, K, order_w, W, part_s1, part_s2, n_tiles, complete, sc, out, coef);
+    HYDRA_CHECK_LAUNCH();
+    return 0;
 }
 
 // The stale sweeps fold the window's draw into its axpy up to this many
@@ -250,54 +291,84 @@ inline int launch_draw_axpy(const uint8_t* pk, int nb, const int* order_w, int W
 // G_ij * dbeta_j after marker j's draw, with the complete-data integer Gram
 // standardized by the rank-1 correction of sweep_kernel.py:435-442, run
 // as warp_recurrence (sweep_kernel.cuh) in one block. Each lane holds its
-// marker's mrow constants in registers from the start (exact_draw<KB>);
-// the Gram's elements are standardized as they are staged, each once,
-// with the lane's own statistics and row j's from shared memory. The
-// integer Gram is symmetric, so lane i reads G(i, j) as G[j * W + i],
-// coalesced. Dynamic shared memory: exact_draw_smem(W).
+// marker's mrow constants in registers from the start (exact_draw<KB>;
+// K_ANY: exact_draw_any reads them from the row, or from shared memory
+// where the launch has room, stage_any); the Gram's elements are
+// standardized as they are staged, each once, with the lane's own
+// statistics and row j's from shared memory. The integer Gram is
+// symmetric, so lane i reads G(i, j) as G[j * W + i], coalesced. Dynamic
+// shared memory: exact_draw_smem(W).
 //
 // KB: exact_draw's bound on K; FIXED: K == KB, a compile-time constant.
-template <int KB, bool FIXED>
+// PIECED (windows above WIDE_W markers): the launch runs the piece of
+// markers p0 .. p0 + min(WIDE_W, W - p0) of the window (a thread
+// each, exact_draw_smem of the piece), its markers first catching up on
+// the earlier pieces' steps (catch_up: their dbeta, mave, mstd and v from
+// pre = [dbeta | mave | mstd | v] (W each), which every piece writes for
+// its markers, standardized by the same std_gram); the last piece adds the
+// complete-data constant over all W.
+template <int KB, bool FIXED, bool PIECED = false>
 __global__ void __launch_bounds__(1024)
 exact_draw_kernel(const float* __restrict__ mrow, int C, int k_run,
                   const int* __restrict__ order_w, int W,
                   const float* __restrict__ part_s1, const float* __restrict__ part_s2,
                   const float* __restrict__ part_v, int n_tiles, int complete,
                   const float* __restrict__ G, const float* __restrict__ sc,
-                  float* __restrict__ out, float* __restrict__ coef) {
+                  float* __restrict__ out, float* __restrict__ coef, int p0_run,
+                  float* __restrict__ pre) {
     const int K = FIXED ? KB : k_run;
+    const int p0 = PIECED ? p0_run : 0;
+    const int Wp = PIECED ? min(WIDE_W, W - p0) : W;   // this launch's markers
     extern __shared__ float sh[];
     const int r = threadIdx.x, warp = r >> 5, lane = r & 31;
-    float* s_db = sh;                     // [W]
-    float* s_mave = sh + W;               // [W]
-    float* s_mstd = sh + 2 * W;           // [W]
-    float* s_v = sh + 3 * W;              // [W]
+    const int i = p0 + r;                 // the lane's window position
+    float* s_db = sh;                     // [Wp]
+    float* s_mave = sh + Wp;              // [Wp]
+    float* s_mstd = sh + 2 * Wp;          // [Wp]
+    float* s_v = sh + 3 * Wp;             // [Wp]
     const float i2se = sc[0], dNm1 = sc[1], n_real = sc[2];
-    const bool live = r < W;
+    const bool live = r < Wp;
     // this lane's marker: statistics, num and its mrow constants
     float numv = 0.f, mave = 0.f, mstd = 0.f, v = 0.f;
     float u = 0.f, nrm = 0.f, act = 0.f, bold = 0.f;
-    float logl[KB], invd[KB - 1], sdk[KB - 1];
+    constexpr int KR = KB == K_ANY ? 2 : KB;     // the register arrays' bound
+    float logl[KR], invd[KR - 1], sdk[KR - 1];
     int slot = 0;
     if (live) {
-        slot = order_w[r];
+        slot = order_w[i];
         const float* row = mrow + static_cast<size_t>(slot) * C;
-        const float s1 = reduce_tiles(part_s1, n_tiles, W, r);
-        const float s2 = reduce_tiles(part_s2, n_tiles, W, r);
+        const float s1 = reduce_tiles(part_s1, n_tiles, W, i);
+        const float s2 = reduce_tiles(part_s2, n_tiles, W, i);
         mave = row[0];
         mstd = row[1];
         bold = row[2];
         u = row[3];
         nrm = row[4];
         act = row[5];
-        v = complete ? reduce_tiles(part_v, n_tiles, W, r) : 0.f;
+        v = complete ? reduce_tiles(part_v, n_tiles, W, i) : 0.f;
         numv = mstd * (s1 - mave * s2) + bold * dNm1;
         s_mave[r] = mave;
         s_mstd[r] = mstd;
         s_v[r] = v;
+        if constexpr (PIECED) {
+            pre[W + i] = mave;
+            pre[2 * W + i] = mstd;
+            pre[3 * W + i] = v;
+        }
+    }
+    // K_ANY: the row's constants in place (a dead lane reads slot 0's), or
+    // staged in shared memory after the recurrence's (any_staged)
+    const float* row_l = mrow + static_cast<size_t>(slot) * C + N_FIXED;
+    bool staged = false;
+    float* s_any = sh;
+    if constexpr (KB == K_ANY) {
+        const int s_base = 4 * Wp + (((Wp + 31) >> 5) + 2) * 32 * 32;   // exact_draw_smem(Wp)
+        staged = any_staged(Wp, K, s_base);
+        s_any = sh + s_base + warp * (3 * K - 2) * 32 + lane;
+        if (staged) stage_any(s_any, row_l, row_l + K, row_l + 2 * K - 1, K);
     }
 #pragma unroll
-    for (int k = 0; k < KB; ++k) {
+    for (int k = 0; k < (KB == K_ANY ? 0 : KB); ++k) {
         const bool has = live && k < K;
         logl[k] = has ? mrow[static_cast<size_t>(slot) * C + N_FIXED + k] : 0.f;
         if (k < KB - 1) {
@@ -308,17 +379,35 @@ exact_draw_kernel(const float* __restrict__ mrow, int C, int k_run,
                          : 0.f;
         }
     }
+    if constexpr (PIECED) {
+        // the earlier pieces' steps, from their pre columns
+        if (live)
+            numv = catch_up(
+                p0, numv,
+                [&](int j) {
+                    return std_gram(G[static_cast<size_t>(j) * W + i], complete, mave, mstd, v,
+                                    pre[W + j], pre[2 * W + j], pre[3 * W + j], n_real);
+                },
+                [&](int j) { return pre[j]; });
+    }
     __syncthreads();
     const Draw mine = warp_recurrence(
-        W, numv, [&](int rj) { return G + static_cast<size_t>(rj) * W + r; },
+        Wp, numv, [&](int rj) { return G + static_cast<size_t>(p0 + rj) * W + i; },
         [&](int rj, float g) {
             return std_gram(g, complete, mave, mstd, v, s_mave[rj], s_mstd[rj], s_v[rj],
                             n_real);
         },
         [&](float num) {
-            return exact_draw<KB>(num, logl, invd, sdk, K, u, nrm, act, bold, i2se);
+            if constexpr (KB == K_ANY) {
+                if (staged)
+                    return exact_draw_any(num, s_any, s_any + K * 32, s_any + (2 * K - 1) * 32,
+                                          32, K, u, nrm, act, bold, i2se);
+                return exact_draw_any(num, row_l, row_l + K, row_l + 2 * K - 1, 1, K, u, nrm,
+                                      act, bold, i2se);
+            } else
+                return exact_draw<KB>(num, logl, invd, sdk, K, u, nrm, act, bold, i2se);
         },
-        s_db, sh + 4 * W);
+        s_db, sh + 4 * Wp);
     if (live) {
         float* o = out + static_cast<size_t>(slot) * 4;
         o[0] = mine.bnew;
@@ -326,19 +415,48 @@ exact_draw_kernel(const float* __restrict__ mrow, int C, int k_run,
         o[2] = mine.acum(act);
         o[3] = mine.dbeta;
         const float c1 = mine.dbeta * mstd;
-        coef[r] = c1;
-        coef[W + r] = -c1 * mave;
+        coef[i] = c1;
+        coef[W + i] = -c1 * mave;
         s_v[r] = -c1 * mave;          // c2, for the complete-data constant
+        if constexpr (PIECED) pre[i] = mine.dbeta;
     }
     __syncthreads();
-    if (warp == 0 && complete) {
+    if (warp == 0 && complete && p0 + Wp == W) {
         // sum(c2), broadcast on real lanes: lane-strided partials, then a
-        // fixed-order warp tree
+        // fixed-order warp tree (the last piece: over the whole window's
+        // coef, this launch's and the earlier ones')
         float b = 0.f;
-        for (int j = lane; j < W; j += 32) b += s_v[j];
+        for (int j = lane; j < W; j += 32) b += PIECED ? coef[W + j] : s_v[j];
         b = warp_sum(b);
         if (lane == 0) coef[2 * W] = b;
     }
+}
+
+// The exact recurrence of a window: one launch (exact_draw_kernel), or one
+// a piece of WIDE_W markers above it; pre: the pieces' 4 W floats.
+inline int launch_exact_draw(const float* mrow, int C, int K, const int* order_w, int W,
+                             const float* part_s1, const float* part_s2, const float* part_v,
+                             int n_tiles, int complete, const float* G, const float* sc,
+                             float* out, float* coef, float* pre, cudaStream_t stream) {
+    const bool pieced = W > WIDE_W;
+    auto* const draw =
+        pieced ? by_components(K, exact_draw_kernel<4, true, true>,
+                               exact_draw_kernel<8, false, true>,
+                               exact_draw_kernel<K_MAX, false, true>,
+                               exact_draw_kernel<K_ANY, false, true>)
+               : by_components(K, exact_draw_kernel<4, true>, exact_draw_kernel<8, false>,
+                               exact_draw_kernel<K_MAX, false>, exact_draw_kernel<K_ANY, false>);
+    const size_t base = exact_draw_smem(pieced ? WIDE_W : W);
+    const size_t smem = base + any_stage_bytes(pieced ? WIDE_W : W, K, base);
+    HYDRA_CHECK(allow_smem(draw, smem));
+    for (int p0 = 0; p0 < W; p0 += WIDE_W) {
+        const int wp = W - p0 < WIDE_W ? W - p0 : WIDE_W;
+        draw<<<1, cdiv(wp, 32) * 32, smem, stream>>>(mrow, C, K, order_w, W, part_s1, part_s2,
+                                                     part_v, n_tiles, complete, G, sc, out,
+                                                     coef, p0, pre);
+        HYDRA_CHECK_LAUNCH();
+    }
+    return 0;
 }
 
 // ------------------------------------------------------------ workspace --
@@ -348,6 +466,7 @@ struct Workspace {
     float* part_v;
     float* coef;
     float* gram;          // exact: a batch of Grams (gram_batch_windows, W, W)
+    float* pre;           // exact above WIDE_W: the pieces' 4 W floats
     size_t bytes;
 };
 
@@ -367,13 +486,13 @@ inline Workspace layout(void* base, int m_loc, int nb, int W, bool exact) {
     ws.coef = take(2 * static_cast<size_t>(W) + 1);
     if (exact)
         ws.gram = take(static_cast<size_t>(gram_batch_windows(m_loc / W, W)) * W * W);
+    if (exact && W > WIDE_W) ws.pre = take(4 * static_cast<size_t>(W));
     ws.bytes = off;
     return ws;
 }
 
 inline bool shapes_ok(int m_loc, int nb, int W, int K) {
-    return W >= 1 && W <= 1024 && m_loc > 0 && m_loc % W == 0 && nb > 0 &&
-           nb % 128 == 0 && K >= 2 && K <= K_MAX;
+    return W >= 1 && m_loc > 0 && m_loc % W == 0 && nb > 0 && nb % 128 == 0 && K >= 2;
 }
 
 // Windows w_begin .. w_end - 1 of a sweep (0 .. m_loc / W for a whole
@@ -392,18 +511,10 @@ int run_sweep(bool exact, const uint8_t* pk, float* eps, const float* mrow,
     const int n_windows = m_loc / W;
     const int batch = gram_batch_windows(n_windows, W);
     const int n_tiles = cdiv(nb, STATS_TB);
-    const int draw_threads = cdiv(W, 32) * 32;
     const int mode = !complete ? MODE_MISSING
                                : (exact ? MODE_EXACT_COMPLETE : MODE_STALE_COMPLETE);
-    const size_t draw_smem = exact_draw_smem(W);
-    auto* const draw = by_components(K, exact_draw_kernel<4, true>,
-                                     exact_draw_kernel<8, false>,
-                                     exact_draw_kernel<K_MAX, false>);
-    auto* const stale_draw = by_components(K, stale_draw_kernel<4>, stale_draw_kernel<8>,
-                                           stale_draw_kernel<K_MAX>);
     const StaleDrawArgs dr{mrow, C, K, ws.part_s1, ws.part_s2, n_tiles, sc, out};
-    const bool fold = !exact && W <= STALE_FOLD_MAX_W;
-    if (exact) HYDRA_CHECK(allow_smem(draw, draw_smem));
+    const bool fold = !exact && W <= STALE_FOLD_MAX_W && K <= K_MAX;
     for (int w = w_begin; w < w_end; ++w) {
         const int* order_w = order + static_cast<size_t>(w) * W;
         const int* next_w = w + 1 < n_windows ? order_w + W : nullptr;
@@ -421,16 +532,13 @@ int run_sweep(bool exact, const uint8_t* pk, float* eps, const float* mrow,
             if (err) return err;
             continue;
         }
-        if (exact) {
-            draw<<<1, draw_threads, draw_smem, stream>>>(
-                mrow, C, K, order_w, W, ws.part_s1, ws.part_s2, ws.part_v, n_tiles,
-                complete, ws.gram + static_cast<size_t>(w % batch) * W * W, sc, out, ws.coef);
-        } else {
-            stale_draw<<<1, draw_threads, 2 * sizeof(float) * W, stream>>>(
-                mrow, C, K, order_w, W, ws.part_s1, ws.part_s2, n_tiles, complete,
-                sc, out, ws.coef);
-        }
-        HYDRA_CHECK_LAUNCH();
+        err = exact ? launch_exact_draw(mrow, C, K, order_w, W, ws.part_s1, ws.part_s2,
+                                        ws.part_v, n_tiles, complete,
+                                        ws.gram + static_cast<size_t>(w % batch) * W * W, sc,
+                                        out, ws.coef, ws.pre, stream)
+                    : launch_stale_draw(mrow, C, K, order_w, W, ws.part_s1, ws.part_s2,
+                                        n_tiles, complete, sc, out, ws.coef, stream);
+        if (err) return err;
         err = launch_axpy<false>(pk, nb, order_w, W, mode, ws.coef, mask, eps, nullptr,
                                  nullptr, stream);
         if (err) return err;
@@ -558,15 +666,12 @@ int run_sweep_sd(const uint8_t* pk, float* eps, const float* mrow, const int* or
     const int n_windows = m_loc / W;
     const int n_tiles = cdiv(nb, STATS_TB);
     const int mode = complete ? MODE_STALE_COMPLETE : MODE_MISSING;
-    const int draw_threads = cdiv(Wt, 32) * 32;
     const int axpy_blocks = cdiv(4LL * nb, AXPY_THREADS);
     const size_t coef_smem = 2 * sizeof(float) * Wt;
-    const bool fold = Wt <= STALE_FOLD_MAX_W;
+    const bool fold = Wt <= STALE_FOLD_MAX_W && K <= K_MAX;
     // the folded kernel holds c1, c2 to Wt rounded up to 4
     const size_t fold_smem = 2 * sizeof(float) * ((Wt + 3) & ~3);
     const StaleDrawArgs dr{mrow, C, K, ws.part_s1, ws.part_s2, n_tiles, sc, out};
-    auto* const stale_draw = by_components(K, stale_draw_kernel<4>, stale_draw_kernel<8>,
-                                           stale_draw_kernel<K_MAX>);
     auto* const axpy =
         !fold ? (complete ? axpy_decoded_kernel<MODE_STALE_COMPLETE>
                           : axpy_decoded_kernel<MODE_MISSING>)
@@ -576,6 +681,8 @@ int run_sweep_sd(const uint8_t* pk, float* eps, const float* mrow, const int* or
                    : by_components(K, axpy_decoded_kernel<MODE_MISSING, 4>,
                                    axpy_decoded_kernel<MODE_MISSING, 8>,
                                    axpy_decoded_kernel<MODE_MISSING, K_MAX>);
+    // a sub-window's coefficients wait in shared memory: the opt-in past 48 KB
+    if (!fold) HYDRA_CHECK(allow_smem(axpy, coef_smem));
     for (int w = 0; w < n_windows; ++w) {
         for (int s = 0; s < n_sub; ++s) {
             const int* order_s = order + static_cast<size_t>(w) * W + s * Wt;
@@ -584,10 +691,9 @@ int run_sweep_sd(const uint8_t* pk, float* eps, const float* mrow, const int* or
                                                ws.part_s1, ws.part_s2, nullptr, ws.dec, stream);
             if (err) return err;
             if (!fold) {
-                stale_draw<<<1, draw_threads, coef_smem, stream>>>(
-                    mrow, C, K, order_s, Wt, ws.part_s1, ws.part_s2, n_tiles, complete, sc,
-                    out, ws.coef);
-                HYDRA_CHECK_LAUNCH();
+                const int e = launch_stale_draw(mrow, C, K, order_s, Wt, ws.part_s1, ws.part_s2,
+                                                n_tiles, complete, sc, out, ws.coef, stream);
+                if (e) return e;
             }
             axpy<<<axpy_blocks, AXPY_THREADS, fold ? fold_smem : coef_smem, stream>>>(
                 ws.dec, 4 * nb, Wt, ws.coef, mask, eps, ws.dacc, s == 0, s == n_sub - 1,
@@ -677,7 +783,7 @@ int run_window_stats(const uint8_t* pk, const float* eps, const int* rows,
                      const float* mave, const float* mstd, const float* n_real,
                      float* s1, float* s2, float* gram, void* ws_base, int W, int nb,
                      bool exact, int complete, cudaStream_t stream) {
-    if (W < 1 || W > 1024 || nb <= 0 || nb % 128 || (exact && gram == nullptr) ||
+    if (W < 1 || nb <= 0 || nb % 128 || (exact && gram == nullptr) ||
         (exact && complete && (n_real == nullptr || 4LL * nb > GRAM_I8_MAX_NPAD)))
         return static_cast<int>(cudaErrorInvalidValue);
     const WindowWorkspace ws = window_layout(ws_base, nb, W, exact, complete != 0);
@@ -727,12 +833,17 @@ int run_window_stats(const uint8_t* pk, const float* eps, const int* rows,
 // order and draws with exact_draw<KB>: the chain of the one-thread-a-step
 // kernel this replaces (its W block barriers and W global loads on the
 // chain), bit for bit. Dynamic shared memory: window_gibbs_smem(W).
+// K_ANY: exact_draw_any reads the lane's constants from logl, invd and sd
+// in place, or staged in shared memory where the launch has room
+// (stage_any). PIECED (windows above WIDE_W): the launch runs the piece
+// p0 .. p0 + min(WIDE_W, W - p0), its markers first catching up on
+// the earlier pieces' steps (catch_up, their dbeta from the output).
 inline size_t window_gibbs_smem(int W) {
     const size_t nw = cdiv(W, 32);
     return sizeof(float) * (static_cast<size_t>(W) + (nw + 2) * 32 * 32);
 }
 
-template <int KB, bool FIXED>
+template <int KB, bool FIXED, bool PIECED = false>
 __global__ void __launch_bounds__(1024)
 window_gibbs_kernel(const float* __restrict__ G, const float* __restrict__ num0,
                     const float* __restrict__ logl, const float* __restrict__ invd,
@@ -740,43 +851,71 @@ window_gibbs_kernel(const float* __restrict__ G, const float* __restrict__ num0,
                     const float* __restrict__ nrm_in, const float* __restrict__ act_in,
                     const float* __restrict__ bold_in, const float* __restrict__ i2se_p,
                     int W, int k_run, float* __restrict__ dbeta, float* __restrict__ bnew,
-                    int* __restrict__ comp, float* __restrict__ acum) {
+                    int* __restrict__ comp, float* __restrict__ acum, int p0_run) {
     const int K = FIXED ? KB : k_run;
-    extern __shared__ float sh[];         // dbeta[W], then the recurrence's tiles
+    const int p0 = PIECED ? p0_run : 0;
+    const int Wp = PIECED ? min(WIDE_W, W - p0) : W;   // this launch's markers
+    extern __shared__ float sh[];         // dbeta[Wp], then the recurrence's tiles
     const int r = threadIdx.x;
-    const bool live = r < W;
+    const int i = p0 + r;                 // the lane's window position
+    const bool live = r < Wp;
     const float i2se = i2se_p[0];
     // this lane's marker: num and its constants, in registers
     float numv = 0.f, u = 0.f, nrm = 0.f, act = 0.f, bold = 0.f;
-    float logl_r[KB], invd_r[KB - 1], sd_r[KB - 1];
+    constexpr int KR = KB == K_ANY ? 2 : KB;     // the register arrays' bound
+    float logl_r[KR], invd_r[KR - 1], sd_r[KR - 1];
     if (live) {
-        numv = num0[r];
-        u = u_in[r];
-        nrm = nrm_in[r];
-        act = act_in[r];
-        bold = bold_in[r];
+        numv = num0[i];
+        u = u_in[i];
+        nrm = nrm_in[i];
+        act = act_in[i];
+        bold = bold_in[i];
     }
 #pragma unroll
-    for (int k = 0; k < KB; ++k) {
+    for (int k = 0; k < (KB == K_ANY ? 0 : KB); ++k) {
         const bool has = live && k < K;
-        logl_r[k] = has ? logl[static_cast<size_t>(r) * K + k] : 0.f;
+        logl_r[k] = has ? logl[static_cast<size_t>(i) * K + k] : 0.f;
         if (k < KB - 1) {
-            invd_r[k] = has && k < K - 1 ? invd[static_cast<size_t>(r) * (K - 1) + k] : 0.f;
-            sd_r[k] = has && k < K - 1 ? sd[static_cast<size_t>(r) * (K - 1) + k] : 0.f;
+            invd_r[k] = has && k < K - 1 ? invd[static_cast<size_t>(i) * (K - 1) + k] : 0.f;
+            sd_r[k] = has && k < K - 1 ? sd[static_cast<size_t>(i) * (K - 1) + k] : 0.f;
         }
     }
+    // K_ANY: the constants in place (a dead lane reads marker 0's), or
+    // staged in shared memory after the recurrence's (any_staged)
+    const size_t im = live ? i : 0;
+    bool staged = false;
+    float* s_any = sh;
+    if constexpr (KB == K_ANY) {
+        const int s_base = Wp + (((Wp + 31) >> 5) + 2) * 32 * 32;   // window_gibbs_smem(Wp)
+        staged = any_staged(Wp, K, s_base);
+        s_any = sh + s_base + (r >> 5) * (3 * K - 2) * 32 + (r & 31);
+        if (staged) stage_any(s_any, logl + im * K, invd + im * (K - 1), sd + im * (K - 1), K);
+    }
+    if constexpr (PIECED) {
+        if (live)
+            numv = catch_up(
+                p0, numv, [&](int j) { return G[static_cast<size_t>(j) * W + i]; },
+                [&](int j) { return dbeta[j]; });
+    }
     const Draw mine = warp_recurrence(
-        W, numv, [&](int rj) { return G + static_cast<size_t>(rj) * W + r; },
+        Wp, numv, [&](int rj) { return G + static_cast<size_t>(p0 + rj) * W + i; },
         [](int, float g) { return g; },
         [&](float num) {
-            return exact_draw<KB>(num, logl_r, invd_r, sd_r, K, u, nrm, act, bold, i2se);
+            if constexpr (KB == K_ANY) {
+                if (staged)
+                    return exact_draw_any(num, s_any, s_any + K * 32, s_any + (2 * K - 1) * 32,
+                                          32, K, u, nrm, act, bold, i2se);
+                return exact_draw_any(num, logl + im * K, invd + im * (K - 1),
+                                      sd + im * (K - 1), 1, K, u, nrm, act, bold, i2se);
+            } else
+                return exact_draw<KB>(num, logl_r, invd_r, sd_r, K, u, nrm, act, bold, i2se);
         },
-        sh, sh + W);
+        sh, sh + Wp);
     if (live) {
-        dbeta[r] = mine.dbeta;
-        bnew[r] = mine.bnew;
-        comp[r] = static_cast<int>(mine.comp(act));
-        acum[r] = mine.acum(act);
+        dbeta[i] = mine.dbeta;
+        bnew[i] = mine.bnew;
+        comp[i] = static_cast<int>(mine.comp(act));
+        acum[i] = mine.acum(act);
     }
 }
 
@@ -801,7 +940,7 @@ int hydra_window_grams(const void* pk, const void* order, const void* mave, cons
                        void* stream) {
     using namespace hydra;
     const int W = window;
-    if (W < 1 || W > 1024 || n_windows < 1 || nb <= 0 || nb % 128 ||
+    if (W < 1 || n_windows < 1 || nb <= 0 || nb % 128 ||
         (complete && 4LL * nb > GRAM_I8_MAX_NPAD) ||
         (!complete && (mave == nullptr || mstd == nullptr)))
         return static_cast<int>(cudaErrorInvalidValue);
@@ -915,22 +1054,31 @@ int hydra_window_gibbs(const void* gram, const void* num0, const void* logl,
                        const void* i2se, void* dbeta, void* bnew, void* comp,
                        void* acum, int window, int n_mix, void* stream) {
     using namespace hydra;
-    if (window < 1 || window > 1024 || n_mix < 2 || n_mix > K_MAX)
-        return static_cast<int>(cudaErrorInvalidValue);
-    auto* const gibbs = by_components(n_mix, window_gibbs_kernel<4, true>,
-                                      window_gibbs_kernel<8, false>,
-                                      window_gibbs_kernel<K_MAX, false>);
-    const size_t smem = window_gibbs_smem(window);
+    if (window < 1 || n_mix < 2) return static_cast<int>(cudaErrorInvalidValue);
+    const bool pieced = window > WIDE_W;
+    auto* const gibbs =
+        pieced ? by_components(n_mix, window_gibbs_kernel<4, true, true>,
+                               window_gibbs_kernel<8, false, true>,
+                               window_gibbs_kernel<K_MAX, false, true>,
+                               window_gibbs_kernel<K_ANY, false, true>)
+               : by_components(n_mix, window_gibbs_kernel<4, true>,
+                               window_gibbs_kernel<8, false>, window_gibbs_kernel<K_MAX, false>,
+                               window_gibbs_kernel<K_ANY, false>);
+    const size_t base = window_gibbs_smem(pieced ? WIDE_W : window);
+    const size_t smem = base + any_stage_bytes(pieced ? WIDE_W : window, n_mix, base);
     HYDRA_CHECK(allow_smem(gibbs, smem));
-    gibbs<<<1, cdiv(window, 32) * 32, smem, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(gram), static_cast<const float*>(num0),
-        static_cast<const float*>(logl), static_cast<const float*>(invd),
-        static_cast<const float*>(sd), static_cast<const float*>(u),
-        static_cast<const float*>(nrm), static_cast<const float*>(act),
-        static_cast<const float*>(bold), static_cast<const float*>(i2se), window,
-        n_mix, static_cast<float*>(dbeta), static_cast<float*>(bnew),
-        static_cast<int*>(comp), static_cast<float*>(acum));
-    HYDRA_CHECK_LAUNCH();
+    for (int p0 = 0; p0 < window; p0 += WIDE_W) {
+        const int wp = window - p0 < WIDE_W ? window - p0 : WIDE_W;
+        gibbs<<<1, cdiv(wp, 32) * 32, smem, static_cast<cudaStream_t>(stream)>>>(
+            static_cast<const float*>(gram), static_cast<const float*>(num0),
+            static_cast<const float*>(logl), static_cast<const float*>(invd),
+            static_cast<const float*>(sd), static_cast<const float*>(u),
+            static_cast<const float*>(nrm), static_cast<const float*>(act),
+            static_cast<const float*>(bold), static_cast<const float*>(i2se), window,
+            n_mix, static_cast<float*>(dbeta), static_cast<float*>(bnew),
+            static_cast<int*>(comp), static_cast<float*>(acum), p0);
+        HYDRA_CHECK_LAUNCH();
+    }
     return 0;
 }
 

@@ -19,8 +19,15 @@ namespace hydra {
 //   0 mave, 1 mstd, 2 beta_old, 3 u, 4 nrm, 5 act,
 //   6..6+K-1 logl_static, 6+K..6+2K-2 inv_denom_k, 6+2K-1..6+3K-3 sd_k
 constexpr int N_FIXED = 6;
-constexpr int K_MAX = 16;      // mixture components a draw thread can hold
+constexpr int K_MAX = 16;      // mixture components a draw thread holds in registers
+constexpr int K_ANY = 0;       // the draws' bound above K_MAX: constants read from memory
 constexpr int T_MAX = 16;      // traits a multi-trait thread holds in registers
+// The widest window of the arms that hold a window in one block (a draw
+// thread a marker, up to the block's 1,024 threads) or its coefficients in
+// shared memory; wider windows take the WIDE arms: the exact recurrences in
+// pieces of WIDE_W markers, a launch each, and the axpys with their
+// coefficients staged a chunk of rows at a time.
+constexpr int WIDE_W = 1024;
 
 // genotype modes of the stats and axpy passes
 constexpr int MODE_MISSING = 0;         // s1 = sum g*x, s2 = sum m*x
@@ -1022,6 +1029,54 @@ __device__ __forceinline__ StaleDraw stale_draw(const float* __restrict__ row, i
     return {make_float4(bnew, compf * act, p0 * act + (1.f - act), dbeta), c1, -c1 * mave};
 }
 
+// The draw above for K > K_MAX (KB = K_ANY): no register arrays. Each pass
+// over the components reads the marker's constants from its row (in L1)
+// and recomputes l_j and exp(l_j - mx) by the same operations, rounded one
+// at a time (no contraction, as the plain version), so each pass sees the
+// values the register arm would hold; the passes, their order and the
+// selection are those of stale_draw<KB>.
+template <>
+__device__ __forceinline__ StaleDraw stale_draw<K_ANY>(const float* __restrict__ row, int K,
+                                                       float s1, float s2, bool complete,
+                                                       float i2se, float dNm1) {
+    const int km1 = K - 1;
+    const float* logl = row + N_FIXED;
+    const float* invd = row + N_FIXED + K;
+    const float* sdk = row + N_FIXED + 2 * K - 1;
+    const float mave = row[0], mstd = row[1], bold = row[2];
+    const float u = row[3], nrm = row[4], act = row[5];
+    const float s1v = complete ? 2.0f * s2 - s1 : s1;   // h-decode
+    const float num0 = mstd * (s1v - mave * s2) + bold * dNm1;
+    // l_j: logl_0, then logl_j + muk_{j-1} num0 i2se
+    auto lj = [&](int j) {
+        return j == 0 ? logl[0]
+                      : __fadd_rn(logl[j],
+                                  __fmul_rn(__fmul_rn(__fmul_rn(num0, invd[j - 1]), num0), i2se));
+    };
+    float mx = logl[0];
+    for (int j = 1; j < K; ++j) mx = fmaxf(mx, lj(j));
+    float sm = 0.f;
+    for (int j = 0; j < K; ++j) {
+        const float e = expf(__fsub_rn(lj(j), mx));
+        sm = j == 0 ? e : __fadd_rn(sm, e);
+    }
+    float cum = __fdiv_rn(expf(__fsub_rn(logl[0], mx)), sm);
+    const float p0 = cum;
+    float compf = u > cum ? 1.f : 0.f;
+    for (int j = 1; j < km1; ++j) {
+        cum = __fadd_rn(cum, __fdiv_rn(expf(__fsub_rn(lj(j), mx)), sm));
+        compf += u > cum ? 1.f : 0.f;
+    }
+    float bnz = 0.f;
+    const int sel = static_cast<int>(compf) - 1;
+    if (sel >= 0) bnz = __fadd_rn(__fmul_rn(num0, invd[sel]), __fmul_rn(nrm, sdk[sel]));
+    const float pos = compf > 0.f ? 1.f : 0.f;
+    const float bnew = bnz * pos * act;
+    const float dbeta = bold - bnew;
+    const float c1 = dbeta * mstd;
+    return {make_float4(bnew, compf * act, p0 * act + (1.f - act), dbeta), c1, -c1 * mave};
+}
+
 // The inputs of a window's stale draw, for an axpy that draws its
 // coefficients itself: the stats partials (n_tiles a row), mrow (C columns,
 // K components), sc = [1/(2 sigma_e), N - 1, ...], and out (m_loc, 4) per
@@ -1130,6 +1185,12 @@ __device__ __forceinline__ float h_cst4(const float* c1, const float* c2, int W4
 //  - up to AXPY_DIRECT rows (W = 1 is the --stale and BayesW default) a
 //    thread reads its byte of each row straight from memory: no tile, no
 //    barrier.
+// WIDE (windows above WIDE_W): the coefficients are staged a chunk of
+// AXPY_ROWS rows at a time, behind one more barrier a chunk, so shared
+// memory does not grow with W (2 W floats passed 48 KB at W = 6,144 and
+// 227 KB at W = 29,000); REFRESH's constant runs over the chunks, in window
+// order from 0.f as h_cst4 adds it. The rows, their order and every fmaf
+// are the other arms'. No draw (the folded draws stop at STALE_FOLD_MAX_W).
 constexpr int AXPY_TB = AXPY_THREADS / 4;    // packed bytes a block
 constexpr int AXPY_ROWS = 128;               // rows of a shared tile chunk
 constexpr int AXPY_LDW = AXPY_ROWS / 4 + 1;  // words a tile column (a packed byte), padded
@@ -1223,16 +1284,18 @@ __device__ __forceinline__ float refresh_cst4(const float* c1, const float* c2, 
     return h_cst4(c1, c2, W4);
 }
 
-template <bool REFRESH, int MODE, int DRAW_KB = 0, bool STANDALONE = false>
+template <bool REFRESH, int MODE, int DRAW_KB = 0, bool STANDALONE = false, bool WIDE = false>
 __global__ void __launch_bounds__(AXPY_THREADS)
 axpy_kernel(const uint8_t* __restrict__ pk, int nb, const int* __restrict__ order_w, int W,
             const float* __restrict__ coef, const float* __restrict__ mask,
             float* __restrict__ eps, float* __restrict__ vi,
             const float* __restrict__ sc, const StaleDrawArgs dr) {
     constexpr bool DRAW = DRAW_KB > 0;
-    extern __shared__ float4 sh_axpy[];    // c1[W4], c2[W4] (missing), zero past W
+    static_assert(!(WIDE && DRAW), "the wide arm takes its coefficients from coef");
+    // c1[W4], c2[W4] (missing), zero past W; WIDE: a chunk's, AXPY_ROWS each
+    extern __shared__ float4 sh_axpy[];
     __shared__ uint32_t tile[AXPY_TB * AXPY_LDW];
-    const int W4 = (W + 3) & ~3;
+    const int W4 = WIDE ? AXPY_ROWS : (W + 3) & ~3;
     float* s_c1 = reinterpret_cast<float*>(sh_axpy);
     float* s_c2 = s_c1 + W4;
     const int tid = threadIdx.x;
@@ -1242,7 +1305,7 @@ axpy_kernel(const uint8_t* __restrict__ pk, int nb, const int* __restrict__ orde
     const int bt = tid >> 2;               // this thread's packed byte (column)
     const int k = tid & 3;                 // and crumb
     float acc = 0.f, cst = 0.f;
-    if (W <= AXPY_DIRECT) {
+    if (!WIDE && W <= AXPY_DIRECT) {
         // few rows: the thread reads its byte of each row straight from
         // memory, all loads in flight; no tile, and no barrier unless the
         // block draws its coefficients
@@ -1284,7 +1347,7 @@ axpy_kernel(const uint8_t* __restrict__ pk, int nb, const int* __restrict__ orde
             }
         }
     } else {
-        if constexpr (!DRAW) {
+        if constexpr (!DRAW && !WIDE) {
             for (int r = tid; r < W4; r += AXPY_THREADS) {
                 s_c1[r] = r < W ? coef[r] : 0.f;
                 if (MODE == MODE_MISSING || REFRESH)
@@ -1305,11 +1368,30 @@ axpy_kernel(const uint8_t* __restrict__ pk, int nb, const int* __restrict__ orde
         // h_cst4 adds it (the zeros past W change nothing), a second chain
         // beside acc's on the c1 values the row loop reads anyway
         constexpr bool OWN_SUM = STANDALONE && MODE == MODE_STALE_COMPLETE;
-        float c1_sum = 0.f;
+        constexpr bool WIDE_CST = WIDE && REFRESH && MODE == MODE_STALE_COMPLETE;
+        float c1_sum = 0.f, c2_sum = 0.f;
         for (int r0 = 0; r0 < W; r0 += AXPY_ROWS) {
+            if constexpr (WIDE) {
+                // the chunk's coefficients, once the last chunk is consumed;
+                // stage()'s barriers publish them
+                if (r0 > 0) __syncthreads();
+                for (int r = tid; r < AXPY_ROWS; r += AXPY_THREADS) {
+                    const int rr = r0 + r;
+                    s_c1[r] = rr < W ? coef[rr] : 0.f;
+                    if (MODE == MODE_MISSING || REFRESH)
+                        s_c2[r] = rr < W ? (STANDALONE ? sc[rr] : coef[W + rr]) : 0.f;
+                }
+            }
             const int nwd = tl.stage<MODE == MODE_EXACT_COMPLETE>(tile, r0);
-            const float4* c1 = reinterpret_cast<const float4*>(s_c1 + r0);
-            const float4* c2 = reinterpret_cast<const float4*>(s_c2 + r0);
+            const float4* c1 = reinterpret_cast<const float4*>(s_c1 + (WIDE ? 0 : r0));
+            const float4* c2 = reinterpret_cast<const float4*>(s_c2 + (WIDE ? 0 : r0));
+            if constexpr (WIDE_CST) {
+                const int n = min(AXPY_ROWS, W - r0);
+                for (int r = 0; r < n; ++r) {
+                    c1_sum += s_c1[r];
+                    c2_sum += s_c2[r];
+                }
+            }
 #pragma unroll 4
             for (int j = 0; j < nwd; ++j) {
                 const uint32_t w = col[j];
@@ -1345,6 +1427,8 @@ axpy_kernel(const uint8_t* __restrict__ pk, int nb, const int* __restrict__ orde
         // c1 and c2 staged behind stage()'s barrier
         if (DRAW && MODE == MODE_STALE_COMPLETE)
             cst = h_cst4(s_c1, s_c2, W4);
+        else if (WIDE_CST)
+            cst = 2.0f * c1_sum + c2_sum;
         else if (OWN_SUM)
             cst = 2.0f * c1_sum;
         else
@@ -1362,17 +1446,24 @@ axpy_kernel(const uint8_t* __restrict__ pk, int nb, const int* __restrict__ orde
     if (REFRESH) vi[i] = expf(__fsub_rn(__fmul_rn(sc[0], e), EULER_MASCHERONI)) * m;
 }
 
-// One window's axpy over its W rows order_w[0..W) (nb a multiple of 128).
+// One window's axpy over its W rows order_w[0..W) (nb a multiple of 128);
+// above WIDE_W the wide arm.
 template <bool REFRESH>
 inline int launch_axpy(const uint8_t* pk, int nb, const int* order_w, int W, int mode,
                        const float* coef, const float* mask, float* eps, float* vi,
                        const float* sc, cudaStream_t stream) {
-    auto* const kernel = mode == MODE_MISSING ? axpy_kernel<REFRESH, MODE_MISSING>
-                         : mode == MODE_STALE_COMPLETE
-                             ? axpy_kernel<REFRESH, MODE_STALE_COMPLETE>
-                             : axpy_kernel<REFRESH, MODE_EXACT_COMPLETE>;
-    kernel<<<nb / AXPY_TB, AXPY_THREADS, 2 * sizeof(float) * ((W + 3) & ~3), stream>>>(
-        pk, nb, order_w, W, coef, mask, eps, vi, sc, StaleDrawArgs{});
+    const bool wide = W > WIDE_W;
+    auto* const kernel =
+        wide ? (mode == MODE_MISSING ? axpy_kernel<REFRESH, MODE_MISSING, 0, false, true>
+                : mode == MODE_STALE_COMPLETE
+                    ? axpy_kernel<REFRESH, MODE_STALE_COMPLETE, 0, false, true>
+                    : axpy_kernel<REFRESH, MODE_EXACT_COMPLETE, 0, false, true>)
+        : mode == MODE_MISSING ? axpy_kernel<REFRESH, MODE_MISSING>
+        : mode == MODE_STALE_COMPLETE
+            ? axpy_kernel<REFRESH, MODE_STALE_COMPLETE>
+            : axpy_kernel<REFRESH, MODE_EXACT_COMPLETE>;
+    kernel<<<nb / AXPY_TB, AXPY_THREADS, 2 * sizeof(float) * (wide ? AXPY_ROWS : (W + 3) & ~3),
+             stream>>>(pk, nb, order_w, W, coef, mask, eps, vi, sc, StaleDrawArgs{});
     HYDRA_CHECK_LAUNCH();
     return 0;
 }
@@ -1447,14 +1538,113 @@ __device__ __forceinline__ Draw exact_draw(float num, const float* logl,
     return {bnew, compf, pr0, s, bold - bnew};
 }
 
+// exact_draw for K > K_MAX (the K_ANY arms): component k's constants at
+// logl[(1 + k) ld], invd[k ld], sd[k ld] (ld = 1 a single-trait row, T a
+// multi-trait one), read in each pass over K (L1) instead of held in
+// registers; every pass recomputes pr_k by the same operations, rounded one
+// at a time (no contraction, as the plain version), so the passes and the
+// selection are exact_draw<KB>'s on the same values.
+__device__ __forceinline__ float any_pr(float num, const float* logl, const float* invd,
+                                        int ld, int k, float i2se) {
+    return __fadd_rn(logl[(1 + k) * ld],
+                     __fmul_rn(__fmul_rn(__fmul_rn(num, invd[k * ld]), num), i2se));
+}
+
+__device__ __forceinline__ Draw exact_draw_any(float num, const float* logl, const float* invd,
+                                               const float* sd, int ld, int K, float u,
+                                               float nrm, float act, float bold, float i2se) {
+    const int km1 = K - 1;
+    const float logl0 = logl[0];
+    float mx = logl0;
+    for (int k = 0; k < km1; ++k) mx = fmaxf(mx, any_pr(num, logl, invd, ld, k, i2se));
+    const float pr0 = expf(fmaxf(__fsub_rn(logl0, mx), -60.0f));
+    float s = pr0;
+    for (int k = 0; k < km1; ++k)
+        s = __fadd_rn(s, expf(fmaxf(__fsub_rn(any_pr(num, logl, invd, ld, k, i2se), mx), -60.0f)));
+    const float us = __fmul_rn(u, s);
+    float cum = pr0, compf = 0.f;
+    int sel = -1;
+    for (int k = 0; k < km1; ++k) {
+        if (us > cum) {
+            compf += 1.f;
+            sel = k;
+        }
+        cum = __fadd_rn(cum,
+                        expf(fmaxf(__fsub_rn(any_pr(num, logl, invd, ld, k, i2se), mx), -60.0f)));
+    }
+    const float mu_sel = sel >= 0 ? __fmul_rn(num, invd[sel * ld]) : 0.f;
+    const float sd_sel = sel >= 0 ? sd[sel * ld] : 0.f;
+    const float pos = compf > 0.f ? 1.f : 0.f;
+    const float bnew = __fmul_rn(__fmul_rn(pos, act), __fadd_rn(mu_sel, __fmul_rn(nrm, sd_sel)));
+    return {bnew, compf, pr0, s, bold - bnew};
+}
+
+// The K_ANY recurrences' constants staged in shared memory. Read in place,
+// each lane's pass over K reads its own row: 32 lines a warp a component,
+// on the serial chain (4.9 us a step at K = 20, chip_smoke.py phase 4).
+// Staged, element e of a marker's 3K - 2 constants (logl 0..K-1, invd
+// 0..K-2, sd 0..K-2) of lane l of warp w lies at s[(w (3K - 2) + e) 32 +
+// l]: the warp reads 32 consecutive floats a component. Each lane stages
+// and reads its own column only, so no barrier. The host adds
+// any_stage_bytes to a launch's shared memory where they fit beside the
+// recurrence's; a kernel stages where its launch has them (any_staged),
+// else reads in place. Same values, same operations: the same draws.
+constexpr size_t SMEM_OPTIN = 227 * 1024;   // an H100 block's opt-in maximum
+
+inline size_t any_stage_bytes(int W, int K, size_t base) {
+    const size_t b = sizeof(float) * cdiv(W, 32) * 32 * (3 * static_cast<size_t>(K) - 2);
+    return K > K_MAX && base + b <= SMEM_OPTIN ? b : 0;
+}
+
+// whether this launch's dynamic shared memory holds the staged constants
+// after its first `base` floats
+__device__ __forceinline__ bool any_staged(int W, int K, int base) {
+    unsigned bytes;
+    asm("mov.u32 %0, %%dynamic_smem_size;" : "=r"(bytes));
+    return static_cast<size_t>(bytes) >=
+           sizeof(float) * (static_cast<size_t>(base) +
+                            static_cast<size_t>((W + 31) >> 5) * 32 * (3 * K - 2));
+}
+
+// lane's column dst (stride 32) from its marker's constants
+__device__ __forceinline__ void stage_any(float* dst, const float* logl, const float* invd,
+                                          const float* sd, int K) {
+    for (int k = 0; k < K; ++k) dst[k * 32] = logl[k];
+    for (int k = 0; k < K - 1; ++k) {
+        dst[(K + k) * 32] = invd[k];
+        dst[(2 * K - 1 + k) * 32] = sd[k];
+    }
+}
+
 // The draw kernels by mixture size: K = 4 (the CLI default) with K a
-// compile-time constant, else the register bound 8 or K_MAX on a runtime K.
+// compile-time constant, else the register bound 8 or K_MAX on a runtime K,
+// and above K_MAX the K_ANY arm (no bound: the constants read from memory).
 // The constant pays: at K = 4, exact W=128, N=50,000 on an H100 at 700 W,
 // exact_draw_kernel<4, true> took 27.3-27.7 us a window and <8, false>
 // 50.6 (chip_smoke.py phase 4, both builds in one run).
 template <class F>
+inline F* by_components(int K, F* k4, F* k8, F* k16, F* kany) {
+    return K == 4 ? k4 : (K <= 8 ? k8 : (K <= K_MAX ? k16 : kany));
+}
+
+// The same for the folded stale draws, which run at K <= K_MAX only
+template <class F>
 inline F* by_components(int K, F* k4, F* k8, F* k16) {
-    return K == 4 ? k4 : (K <= 8 ? k8 : k16);
+    return by_components(K, k4, k8, k16, k16);
+}
+
+// The catch-up of one piece of a window's exact chain (windows above
+// WIDE_W markers run their chain as pieces, one launch each): a
+// marker of the piece starting at p0 adds elem(j) * db(j) for the earlier
+// pieces' steps j = 0..p0-1, in step order and with the fmaf of
+// warp_recurrence, before the piece's own recurrence continues the chain.
+// So every marker still adds its updates in the order j = 0..W-1, as the
+// one-block recurrence and the plain version do.
+template <class Elem, class Db>
+__device__ __forceinline__ float catch_up(int p0, float num, const Elem& elem, const Db& db) {
+#pragma unroll 8
+    for (int j = 0; j < p0; ++j) num = fmaf(elem(j), db(j), num);
+    return num;
 }
 
 // The recurrence's schedule, one block for one window's chain. Bound: the

@@ -38,6 +38,7 @@ namespace hydra {
 constexpr int Q_MAX = 64;          // Gauss-Hermite nodes a draw takes
 constexpr int DRAW_WARPS = 4;      // markers (warps) a draw block
 constexpr unsigned FULL = 0xffffffffu;
+constexpr int BW_LANE_K = 32;      // components a draw warp holds a lane each
 
 // BayesW mrow column layout (hydra_tpu/ops/sweep_kernel_bw.py:64-81),
 // J = K-1, S = n_shrink:
@@ -263,6 +264,13 @@ __device__ __forceinline__ float step_in(float x0, float d, int k) {
 //    behind two device-wide round trips.
 // Dynamic shared memory: draw_smem (the warps' quadrature terms and their
 // copies of the Gauss-Hermite table).
+// WIDE_K (more than BW_LANE_K components, one a lane no longer fits): the
+// components' sigma_ad, sqrt2ck and ml wait in the warp's shared memory
+// instead of on lane j + 1 (lane l computes components l, l + 32, ...),
+// the mixture sums run in component order from there, and the selected
+// component's two_ck_sg and slim come from the row: the same operations
+// in the same order (this file has no contraction).
+template <bool WIDE_K = false>
 __global__ void __launch_bounds__(DRAW_WARPS * 32)
 bw_draw_kernel(const float* __restrict__ mrow, int C, int K,
                const int* __restrict__ order_w, int W,
@@ -328,9 +336,18 @@ bw_draw_kernel(const float* __restrict__ mrow, int C, int K,
 
         // adaptive Gauss-Hermite marginal likelihoods (BayesW.cpp:716-726);
         // sigma_ad is the substitution's Jacobian (BayesW.cpp:711); lane
-        // j + 1 holds component j's
+        // j + 1 holds component j's (WIDE_K: s_sig[j], s_sqk[j])
         const float sig_l = 1.0f / sqrtf(1.0f + adc_l * exp_sum);
         float* term = sh + warp * nq;
+        float* s_ml = sh + DRAW_WARPS * (nq + 2 * Q) + warp * 3 * K;   // WIDE_K: ml[K]
+        float* s_sig = s_ml + K;                                       // [K - 1]
+        float* s_sqk = s_sig + K - 1;                                  // [K - 1]
+        if constexpr (WIDE_K) {
+            for (int j = lane; j < km1; j += 32) {
+                s_sig[j] = 1.0f / sqrtf(1.0f + row[ba + j] * exp_sum);
+                s_sqk[j] = row[bs + j];
+            }
+        }
         __syncwarp();
         // node n's term (nodes past nq computed on a clamped node, not
         // stored): three a lane at a time, straight-line, so that their
@@ -338,8 +355,8 @@ bw_draw_kernel(const float* __restrict__ mrow, int C, int K,
         auto node = [&](int n) {
             const int nn = min(n, nq - 1);
             const int j = nn / Q, q = nn - j * Q;
-            const float sigma_ad = __shfl_sync(FULL, sig_l, j + 1);
-            const float sqk = __shfl_sync(FULL, sqk_l, j + 1);
+            const float sigma_ad = WIDE_K ? s_sig[j] : __shfl_sync(FULL, sig_l, j + 1);
+            const float sqk = WIDE_K ? s_sqk[j] : __shfl_sync(FULL, sqk_l, j + 1);
             const float s_node = sigma_ad * s_gx[q];
             const float sq = s_node * sqk;
             const float temp = -alpha * sq * f.sf - f.vi0 * expm1f(f.th0 * sq)
@@ -355,21 +372,43 @@ bw_draw_kernel(const float* __restrict__ mrow, int C, int K,
         }
         __syncwarp();
         float ml = ml0;                        // lane j: ml[j]
-        if (lane >= 1 && lane <= km1) {
-            float acc = 0.f;
+        float sm_ml, compf;
+        if constexpr (WIDE_K) {
+            // component j + 1's ml on lane j mod 32, into s_ml; the sums
+            // from there in component order, on every lane
+            if (lane == 0) s_ml[0] = ml0;
+            for (int j = lane; j < km1; j += 32) {
+                float acc = 0.f;
 #pragma unroll 8
-            for (int q = 0; q < Q; ++q) acc = acc + term[jl * Q + q];
-            ml = pj_l * (sig_l * acc);
-        }
-        float sm_ml = __shfl_sync(FULL, ml, 0);
-        for (int j = 1; j < K; ++j) sm_ml = sm_ml + __shfl_sync(FULL, ml, j);
-        // comp = min(#{cum probs < u}, K-1), zeroed for inactive markers
-        const float pr = ml / sm_ml;
-        float cum = __shfl_sync(FULL, pr, 0);
-        float compf = u > cum ? 1.f : 0.f;
-        for (int j = 1; j < K; ++j) {
-            cum = cum + __shfl_sync(FULL, pr, j);
-            compf = compf + (u > cum ? 1.f : 0.f);
+                for (int q = 0; q < Q; ++q) acc = acc + term[j * Q + q];
+                s_ml[1 + j] = row[bp + j] * (s_sig[j] * acc);
+            }
+            __syncwarp();
+            sm_ml = s_ml[0];
+            for (int j = 1; j < K; ++j) sm_ml = sm_ml + s_ml[j];
+            float cum = s_ml[0] / sm_ml;
+            compf = u > cum ? 1.f : 0.f;
+            for (int j = 1; j < K; ++j) {
+                cum = cum + s_ml[j] / sm_ml;
+                compf = compf + (u > cum ? 1.f : 0.f);
+            }
+        } else {
+            if (lane >= 1 && lane <= km1) {
+                float acc = 0.f;
+#pragma unroll 8
+                for (int q = 0; q < Q; ++q) acc = acc + term[jl * Q + q];
+                ml = pj_l * (sig_l * acc);
+            }
+            sm_ml = __shfl_sync(FULL, ml, 0);
+            for (int j = 1; j < K; ++j) sm_ml = sm_ml + __shfl_sync(FULL, ml, j);
+            // comp = min(#{cum probs < u}, K-1), zeroed for inactive markers
+            const float pr = ml / sm_ml;
+            float cum = __shfl_sync(FULL, pr, 0);
+            compf = u > cum ? 1.f : 0.f;
+            for (int j = 1; j < K; ++j) {
+                cum = cum + __shfl_sync(FULL, pr, j);
+                compf = compf + (u > cum ? 1.f : 0.f);
+            }
         }
         compf = fminf(compf, static_cast<float>(km1)) * act;
 
@@ -379,8 +418,8 @@ bw_draw_kernel(const float* __restrict__ mrow, int C, int K,
         float x = bold;
         if (draw) {
             const int ksel = compf > 1.f ? static_cast<int>(compf) - 1 : 0;
-            f.two_ck_sg = __shfl_sync(FULL, tck_l, ksel + 1);
-            const float slim = __shfl_sync(FULL, slim_l, ksel + 1);
+            f.two_ck_sg = WIDE_K ? row[bt + ksel] : __shfl_sync(FULL, tck_l, ksel + 1);
+            const float slim = WIDE_K ? row[bl + ksel] : __shfl_sync(FULL, slim_l, ksel + 1);
             const float width = fmaxf(slim / 5.0f, 1e-3f);
             const float lower = bold - slim, upper = bold + slim;
             const float left0 = bold - width * u_br;
@@ -439,7 +478,8 @@ bw_draw_kernel(const float* __restrict__ mrow, int C, int K,
 }
 
 inline size_t draw_smem(int K, int Q) {
-    return sizeof(float) * DRAW_WARPS * (K + 1) * static_cast<size_t>(Q);
+    return sizeof(float) * DRAW_WARPS *
+           ((K + 1) * static_cast<size_t>(Q) + (K > BW_LANE_K ? 3 * K : 0));
 }
 
 // ------------------------------------------------------------ workspace --
@@ -488,8 +528,8 @@ int run_sweep_bw(const uint8_t* pk, float* eps, float* vi, const float* mrow,
                  const float* ghw, int Q, const float* sc, float* out,
                  void* ws_base, int m_loc, int nb, int W, int K, int complete,
                  int n_expand, int n_shrink, cudaStream_t stream) {
-    if (W < 1 || W > 1024 || m_loc <= 0 || m_loc % W || nb <= 0 || nb % 128 ||
-        K < 2 || K > K_MAX || Q < 1 || Q > Q_MAX || n_expand < 0 ||
+    if (W < 1 || m_loc <= 0 || m_loc % W || nb <= 0 || nb % 128 ||
+        K < 2 || Q < 1 || Q > Q_MAX || n_expand < 0 ||
         n_shrink < 0 || mask == nullptr)
         return static_cast<int>(cudaErrorInvalidValue);
     const int C = BW_FIXED + 5 * (K - 1) + 2 + n_shrink;
@@ -500,12 +540,14 @@ int run_sweep_bw(const uint8_t* pk, float* eps, float* vi, const float* mrow,
     const int draw_threads = 32 * (W < DRAW_WARPS ? W : DRAW_WARPS);
     const size_t smem = draw_smem(K, Q);
     const int mode = complete ? MODE_STALE_COMPLETE : MODE_MISSING;
+    auto* const draw = K > BW_LANE_K ? bw_draw_kernel<true> : bw_draw_kernel<false>;
+    HYDRA_CHECK(allow_smem(draw, smem + sizeof(float) * DRAW_WARPS * 4 * 32));
     for (int w = 0; w < n_windows; ++w) {
         const int* order_w = order + static_cast<size_t>(w) * W;
         int err = levels_launch(pk, nb, vi, order_w, w + 1 < n_windows ? order_w + W : nullptr,
                                 W, complete, ws, stream);
         if (err) return err;
-        bw_draw_kernel<<<draw_blocks, draw_threads, smem, stream>>>(
+        draw<<<draw_blocks, draw_threads, smem, stream>>>(
             mrow, C, K, order_w, W, ws.part_s1, ws.part_s2, ws.part_bv,
             ws.part_all, n_tiles, complete, ghx, ghw, Q, sc, n_expand, n_shrink,
             out, ws.coef);
@@ -551,8 +593,7 @@ int hydra_window_level_sums(const void* pk, const void* vi, const void* order,
                             void* s1, void* s2, void* sb, void* ws, int window,
                             int nb, int complete, void* stream) {
     using namespace hydra;
-    if (window < 1 || window > 1024 || nb <= 0 || nb % 128)
-        return static_cast<int>(cudaErrorInvalidValue);
+    if (window < 1 || nb <= 0 || nb % 128) return static_cast<int>(cudaErrorInvalidValue);
     const BwWorkspace w = bw_layout(ws, nb, window);
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
     const int err = levels_launch(static_cast<const uint8_t*>(pk), nb,
@@ -571,15 +612,19 @@ int hydra_window_level_sums(const void* pk, const void* vi, const void* order,
 // genotype part only, as 2 sum(c1) - sum c1*h with sum(c1) in window order
 // (the caller adds sum(c2) and masks). One launch: axpy_kernel<false, MODE,
 // 0, true> (sweep_kernel.cuh) stages c1 and c2 and forms the constant
-// itself.
+// itself; above WIDE_W its wide arm, a chunk of coefficients at a time.
 int hydra_window_axpy(const void* pk, const void* order, const void* c1, const void* c2,
                       void* out, int window, int nb, int complete, void* stream) {
     using namespace hydra;
-    if (window < 1 || window > 1024 || nb <= 0 || nb % 128)
-        return static_cast<int>(cudaErrorInvalidValue);
-    auto* const kernel = complete ? axpy_kernel<false, MODE_STALE_COMPLETE, 0, true>
-                                  : axpy_kernel<false, MODE_MISSING, 0, true>;
-    kernel<<<nb / AXPY_TB, AXPY_THREADS, 2 * sizeof(float) * ((window + 3) & ~3),
+    if (window < 1 || nb <= 0 || nb % 128) return static_cast<int>(cudaErrorInvalidValue);
+    const bool wide = window > WIDE_W;
+    auto* const kernel =
+        wide ? (complete ? axpy_kernel<false, MODE_STALE_COMPLETE, 0, true, true>
+                         : axpy_kernel<false, MODE_MISSING, 0, true, true>)
+             : (complete ? axpy_kernel<false, MODE_STALE_COMPLETE, 0, true>
+                         : axpy_kernel<false, MODE_MISSING, 0, true>);
+    kernel<<<nb / AXPY_TB, AXPY_THREADS,
+             2 * sizeof(float) * (wide ? AXPY_ROWS : (window + 3) & ~3),
              static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint8_t*>(pk), nb, static_cast<const int*>(order), window,
         static_cast<const float*>(c1), nullptr, static_cast<float*>(out), nullptr,

@@ -98,7 +98,11 @@ constexpr int MT_DRAW_THREADS = 256;
 //    share its traits (trait t to warp t mod warps), each adds its own in
 //    the lane order above and writes them for every row of the block.
 // The accumulators live in registers: T is bounded at compile time by TB in
-// {1, 2, 4, 8, 16} (mt_by_traits).
+// {1, 2, 4, 8, 16} (mt_by_traits). More than T_MAX traits run in groups of
+// at most T_MAX, a launch each (GROUP, TB = T_MAX): the launch's eps and
+// partials start at the group's first trait and keep the stride ld of all
+// the traits, and its eps tile is sized by the group. A (row, trait)'s
+// partial is the same sum in the same order in any group.
 // The register bound TB of T traits (the instantiations of mt_by_traits).
 inline int mt_trait_bound(int T) { return T <= 1 ? 1 : T <= 2 ? 2 : T <= 4 ? 4 : T <= 8 ? 8 : 16; }
 
@@ -107,12 +111,13 @@ inline size_t stats_mt_smem(int T) {
     return sizeof(float4) * MT_STATS_TB * (mt_trait_bound(T) | 1);
 }
 
-template <int MODE, int TB>
+template <int MODE, int TB, bool GROUP = false>
 __global__ void __launch_bounds__(MT_STATS_WARPS * 32)
 stats_mt_kernel(const uint8_t* __restrict__ pk, int nb, const float* __restrict__ eps, int T,
                 const int* __restrict__ order_w, const int* __restrict__ next_w, int W,
                 float* __restrict__ part_s1, float* __restrict__ part_s2,
-                float* __restrict__ part_v) {
+                float* __restrict__ part_v, int ld_run) {
+    const int ld = GROUP ? ld_run : T;     // the traits' stride in eps and the partials
     constexpr int RPW = MT_STATS_RPW;
     constexpr int S4 = TB | 1;             // float4 a packed byte in s_eps4
     extern __shared__ float4 s_eps4[];
@@ -137,7 +142,7 @@ stats_mt_kernel(const uint8_t* __restrict__ pk, int nb, const float* __restrict_
             for (int q = 0; q < 4; ++q) words[p][q] = 4 * q < nj ? __ldg(row + 32 * q) : 0u;
         }
     }
-    if (T == TB && (reinterpret_cast<uintptr_t>(eps) & 15) == 0) {
+    if (!GROUP && T == TB && (reinterpret_cast<uintptr_t>(eps) & 15) == 0) {
         // a byte's 4T values are T float4 in eps too (a view of eps may
         // start off a 16-byte boundary: then float by float, below)
         const float4* e4 = reinterpret_cast<const float4*>(eps) + static_cast<size_t>(b0) * TB;
@@ -145,11 +150,11 @@ stats_mt_kernel(const uint8_t* __restrict__ pk, int nb, const float* __restrict_
             cp_async16(s_eps4 + f + (f / TB) * (S4 - TB), e4 + f);
     } else {
         // individual x of the tile, trait t (slots t >= T feed no output)
-        const float* e0 = eps + static_cast<size_t>(b0) * 4 * T;
+        const float* e0 = eps + static_cast<size_t>(b0) * 4 * ld;
         float* const s_eps = reinterpret_cast<float*>(s_eps4);
         for (int x = threadIdx.x; x < 4 * nbt; x += blockDim.x)
             for (int t = 0; t < T; ++t)
-                cp_async4(s_eps + (x >> 2) * 4 * S4 + (x & 3) * TB + t, e0 + x * T + t);
+                cp_async4(s_eps + (x >> 2) * 4 * S4 + (x & 3) * TB + t, e0 + x * ld + t);
     }
     cp_async_wait_all();
     __syncthreads();
@@ -229,7 +234,7 @@ stats_mt_kernel(const uint8_t* __restrict__ pk, int nb, const float* __restrict_
         for (int t = 0; t < TB; ++t) {
             if (own[t]) {
                 const float st = warp_sum(s[0][t]);
-                if (lane < nr) part_s2[(static_cast<size_t>(tile) * W + rb + lane) * T + t] = st;
+                if (lane < nr) part_s2[(static_cast<size_t>(tile) * W + rb + lane) * ld + t] = st;
             }
         }
     }
@@ -237,7 +242,7 @@ stats_mt_kernel(const uint8_t* __restrict__ pk, int nb, const float* __restrict_
     for (int p = 0; p < RPW; ++p) {
         const int r = r0 + p;
         if (r >= W) break;
-        const size_t base = (static_cast<size_t>(tile) * W + r) * T;
+        const size_t base = (static_cast<size_t>(tile) * W + r) * ld;
 #pragma unroll
         for (int t = 0; t < TB; ++t) {
             if (t < T) {
@@ -268,15 +273,28 @@ inline int launch_stats_mt_mode(const uint8_t* pk, int nb, const float* eps, int
                                 const int* order_w, const int* next_w, int W,
                                 float* part_s1, float* part_s2, float* part_v,
                                 cudaStream_t stream) {
+    const int warps = std::min(MT_STATS_WARPS, cdiv(W, MT_STATS_RPW));
+    const dim3 grid(cdiv(nb, MT_STATS_TB), cdiv(W, warps * MT_STATS_RPW));
+    if (T > T_MAX) {
+        // groups of T_MAX traits, a launch each
+        auto* const kernel = stats_mt_kernel<MODE, T_MAX, true>;
+        const size_t smem = stats_mt_smem(T_MAX);
+        HYDRA_CHECK(allow_smem(kernel, smem));
+        for (int t0 = 0; t0 < T; t0 += T_MAX) {
+            kernel<<<grid, warps * 32, smem, stream>>>(
+                pk, nb, eps + t0, std::min(T_MAX, T - t0), order_w, next_w, W, part_s1 + t0,
+                part_s2 + t0, part_v, T);
+            HYDRA_CHECK_LAUNCH();
+        }
+        return 0;
+    }
     auto* const kernel = mt_by_traits(T, stats_mt_kernel<MODE, 1>, stats_mt_kernel<MODE, 2>,
                                       stats_mt_kernel<MODE, 4>, stats_mt_kernel<MODE, 8>,
                                       stats_mt_kernel<MODE, 16>);
-    const int warps = std::min(MT_STATS_WARPS, cdiv(W, MT_STATS_RPW));
     const size_t smem = stats_mt_smem(T);
     HYDRA_CHECK(allow_smem(kernel, smem));
-    kernel<<<dim3(cdiv(nb, MT_STATS_TB), cdiv(W, warps * MT_STATS_RPW)), warps * 32, smem,
-             stream>>>(
-        pk, nb, eps, T, order_w, next_w, W, part_s1, part_s2, part_v);
+    kernel<<<grid, warps * 32, smem, stream>>>(pk, nb, eps, T, order_w, next_w, W, part_s1,
+                                               part_s2, part_v, T);
     HYDRA_CHECK_LAUNCH();
     return 0;
 }
@@ -349,6 +367,31 @@ struct MtMarker {
     }
 };
 
+// K > K_MAX (KB = K_ANY): the marker's fixed columns in registers, the
+// mixture constants read in place (component k at logl[k ld], invd[k ld],
+// sd[k ld], ld = T) by the draws' passes over K.
+template <>
+struct MtMarker<K_ANY> {
+    float mave = 0.f, mstd = 0.f, bold = 0.f, u = 0.f, nrm = 0.f, act = 0.f;
+    const float* logl = nullptr;
+    const float* invd = nullptr;
+    const float* sd = nullptr;
+    int ld = 1;
+
+    __device__ __forceinline__ void load(const float* row, int T, int t, int K) {
+        mave = row[t];
+        mstd = row[T + t];
+        bold = row[2 * T + t];
+        u = row[3 * T + t];
+        nrm = row[4 * T + t];
+        act = row[5 * T + t];
+        logl = row + N_FIXED * T + t;
+        invd = row + (N_FIXED + K) * T + t;
+        sd = row + (N_FIXED + 2 * K - 1) * T + t;
+        ld = T;
+    }
+};
+
 // The normalized draw of the stale kernel (hydra_tpu/ops/sweep_kernel_mt.py:
 // 140-161), which is also the sampler's draw_rows (bayesrrm_mt.py:348-368)
 // and the plain draw_normalized: exp(l - mx) unclamped, sm summed in k
@@ -394,6 +437,37 @@ __device__ __forceinline__ Draw normalized_draw(float num, const MtMarker<KB>& c
         }
     const float pos = compf > 0.f ? 1.f : 0.f;
     const float bnew = pos * c.act * (mu_sel + c.nrm * sd_sel);
+    return {bnew, compf, pr0, sm, c.bold - bnew};
+}
+
+// The same draw for K > K_MAX: each pass over K reads the constants in
+// place and recomputes pr_k (any_pr, sweep_kernel.cuh) and exp(pr_k - mx)
+// by the same operations, rounded one at a time (no contraction, as the
+// plain version); the passes and the selection are those above.
+__device__ __forceinline__ Draw normalized_draw(float num, const MtMarker<K_ANY>& c, int K,
+                                                float i2se) {
+    const int km1 = K - 1;
+    const float logl0 = c.logl[0];
+    float mx = logl0;
+    for (int k = 0; k < km1; ++k) mx = fmaxf(mx, any_pr(num, c.logl, c.invd, c.ld, k, i2se));
+    auto pe = [&](int k) { return expf(__fsub_rn(any_pr(num, c.logl, c.invd, c.ld, k, i2se), mx)); };
+    const float pr0 = expf(__fsub_rn(logl0, mx));
+    float sm = pr0;
+    for (int k = 0; k < km1; ++k) sm = __fadd_rn(sm, pe(k));
+    float cum = __fdiv_rn(pr0, sm), compf = 0.f;
+    int sel = -1;
+    for (int k = 0; k < km1; ++k) {
+        if (k > 0) cum = __fadd_rn(cum, __fdiv_rn(pe(k - 1), sm));
+        if (c.u > cum) {
+            compf += 1.f;
+            sel = k;
+        }
+    }
+    const float mu_sel = sel >= 0 ? __fmul_rn(num, c.invd[sel * c.ld]) : 0.f;
+    const float sd_sel = sel >= 0 ? c.sd[sel * c.ld] : 0.f;
+    const float pos = compf > 0.f ? 1.f : 0.f;
+    const float bnew =
+        __fmul_rn(__fmul_rn(pos, c.act), __fadd_rn(mu_sel, __fmul_rn(c.nrm, sd_sel)));
     return {bnew, compf, pr0, sm, c.bold - bnew};
 }
 
@@ -450,7 +524,8 @@ __global__ void stale_draw_mt_kernel(const StaleDrawArgs dr, int T,
 // cdiv(W, 32) * 32 threads, one per marker, warp-synchronous 32-marker
 // blocks, one __syncthreads per 32 steps, the Gram's tiles staged off the
 // chain), each lane's trait-t constants in registers (MtMarker<KB>, KB in
-// {4, 8, K_MAX} by by_components). The T chains run on T SMs at once; each
+// {4, 8, K_MAX} by by_components; above K_MAX, MtMarker<K_ANY> reads them
+// in place). The T chains run on T SMs at once; each
 // block stages the window's Gram itself, from L2. Each (marker, trait) adds
 // G(i, j) * dbeta_j[t] for j = 0..W-1 in order with the same fmaf and
 // draws with the plain version's operations in its order. Dynamic shared
@@ -462,61 +537,91 @@ __global__ void stale_draw_mt_kernel(const StaleDrawArgs dr, int T,
 // staged with trait 0's mave, mstd, v = sum g and n_real = sc[2T]
 // (sweep_kernel_mt.py:391-399), is symmetric: lane i reads G(i, j) as
 // G[j * W + i], coalesced. Every block reads trait 0's statistics for the
-// Gram and its own trait's for num0 and the coefficients.
-template <int KB, bool FIXED>
+// Gram and its own trait's for num0 and the coefficients. K_ANY: the draw
+// reads its constants in place (exact_draw_any, stride T). PIECED (windows
+// above WIDE_W): exact_draw_kernel's pieces, a launch of grid T each;
+// pre = [dbeta (T, W) | mave0 | mstd0 | v (W each)], trait 0's block
+// writing the statistics.
+template <int KB, bool FIXED, bool PIECED = false>
 __global__ void __launch_bounds__(1024)
 exact_mt_draw_kernel(const float* __restrict__ mrow, int C, int k_run, int T,
                      const int* __restrict__ order_w, int W,
                      const float* __restrict__ part_s1, const float* __restrict__ part_s2,
                      const float* __restrict__ part_v, int n_tiles,
                      const float* __restrict__ G, const float* __restrict__ sc,
-                     float* __restrict__ out, float* __restrict__ coef) {
+                     float* __restrict__ out, float* __restrict__ coef, int p0_run,
+                     float* __restrict__ pre) {
     const int K = FIXED ? KB : k_run;
+    const int p0 = PIECED ? p0_run : 0;
+    const int Wp = PIECED ? min(WIDE_W, W - p0) : W;   // this launch's markers
     const int t = blockIdx.x, r = threadIdx.x;
+    const int i = p0 + r;                 // the lane's window position
     extern __shared__ float sh[];
-    float* s_mave = sh + W;               // [W] trait 0's, for the Gram
-    float* s_mstd = sh + 2 * W;           // [W]
-    float* s_v = sh + 3 * W;              // [W]
+    float* s_mave = sh + Wp;              // [Wp] trait 0's, for the Gram
+    float* s_mstd = sh + 2 * Wp;          // [Wp]
+    float* s_v = sh + 3 * Wp;             // [Wp]
     const size_t wt = static_cast<size_t>(W) * T;
-    const bool live = r < W;
+    const bool live = r < Wp;
     MtMarker<KB> c;
     int slot = 0;
     float numv = 0.f, mave0 = 0.f, mstd0 = 0.f, v = 0.f;
     if (live) {
-        slot = order_w[r];
+        slot = order_w[i];
         const float* row = mrow + static_cast<size_t>(slot) * C;
         c.load(row, T, t, K);
-        const size_t e = static_cast<size_t>(r) * T + t;
+        const size_t e = static_cast<size_t>(i) * T + t;
         const float s1 = reduce_tiles_mt(part_s1, n_tiles, wt, e);
         const float s2 = reduce_tiles_mt(part_s2, n_tiles, wt, e);
         numv = c.mstd * (s1 - c.mave * s2) + c.bold * sc[T + t];
         mave0 = row[0];
         mstd0 = row[T];
-        v = reduce_tiles(part_v, n_tiles, W, r);
+        v = reduce_tiles(part_v, n_tiles, W, i);
         s_mave[r] = mave0;
         s_mstd[r] = mstd0;
         s_v[r] = v;
+        if (PIECED && t == 0) {
+            pre[wt + i] = mave0;
+            pre[wt + W + i] = mstd0;
+            pre[wt + 2 * W + i] = v;
+        }
+    } else if constexpr (KB == K_ANY) {
+        c.load(mrow, T, t, K);            // a dead lane's draw reads slot 0's constants
     }
     __syncthreads();
     const float n_real = sc[2 * T], i2se = sc[t];
+    if constexpr (PIECED) {
+        if (live)
+            numv = catch_up(
+                p0, numv,
+                [&](int j) {
+                    return std_gram(G[static_cast<size_t>(j) * W + i], 1, mave0, mstd0, v,
+                                    pre[wt + j], pre[wt + W + j], pre[wt + 2 * W + j], n_real);
+                },
+                [&](int j) { return pre[static_cast<size_t>(t) * W + j]; });
+    }
     const Draw mine = warp_recurrence(
-        W, numv, [&](int rj) { return G + static_cast<size_t>(rj) * W + r; },
+        Wp, numv, [&](int rj) { return G + static_cast<size_t>(p0 + rj) * W + i; },
         [&](int rj, float g) {
             return std_gram(g, 1, mave0, mstd0, v, s_mave[rj], s_mstd[rj], s_v[rj], n_real);
         },
         [&](float num) {
-            return exact_draw<KB>(num, c.logl, c.invd, c.sd, K, c.u, c.nrm, c.act, c.bold,
-                                  i2se);
+            if constexpr (KB == K_ANY)
+                return exact_draw_any(num, c.logl, c.invd, c.sd, c.ld, K, c.u, c.nrm, c.act,
+                                      c.bold, i2se);
+            else
+                return exact_draw<KB>(num, c.logl, c.invd, c.sd, K, c.u, c.nrm, c.act, c.bold,
+                                      i2se);
         },
-        sh, sh + 4 * W);
+        sh, sh + 4 * Wp);
     if (live) {
         float* o = out + static_cast<size_t>(slot) * 3 * T;
         o[t] = mine.bnew;
         o[T + t] = mine.comp(c.act);
         o[2 * T + t] = mine.acum(c.act);
         const float c1 = mine.dbeta * c.mstd;
-        coef[static_cast<size_t>(t) * W + r] = c1;
-        coef[wt + static_cast<size_t>(t) * W + r] = -c1 * c.mave;
+        coef[static_cast<size_t>(t) * W + i] = c1;
+        coef[wt + static_cast<size_t>(t) * W + i] = -c1 * c.mave;
+        if constexpr (PIECED) pre[static_cast<size_t>(t) * W + i] = mine.dbeta;
     }
 }
 
@@ -526,30 +631,44 @@ exact_mt_draw_kernel(const float* __restrict__ mrow, int C, int k_run, int T,
 // not bitwise symmetric, so lane i reads G(i, j) = G[t][i][j] (row = the
 // marker it updates, column = the step), as the plain version's
 // gram[:, :, j] and the JAX scan's blocks[..., j]: a row a lane, from L2.
-template <int KB, bool FIXED, bool SHARED>
+// K_ANY and PIECED as exact_mt_draw_kernel; a piece catches up with the
+// earlier pieces' dbeta from out.
+template <int KB, bool FIXED, bool SHARED, bool PIECED = false>
 __global__ void __launch_bounds__(1024)
 window_recurrence_mt_kernel(const float* __restrict__ G, const float* __restrict__ num0,
                             const float* __restrict__ mrow, int C, int k_run, int T,
                             const int* __restrict__ order_w, int W,
-                            const float* __restrict__ i2se, float* __restrict__ out) {
+                            const float* __restrict__ i2se, float* __restrict__ out,
+                            int p0_run) {
     const int K = FIXED ? KB : k_run;
+    const int p0 = PIECED ? p0_run : 0;
+    const int Wp = PIECED ? min(WIDE_W, W - p0) : W;   // this launch's markers
     const int t = blockIdx.x, r = threadIdx.x;
+    const int i = p0 + r;                 // the lane's window position
     extern __shared__ float sh[];
-    const bool live = r < W;
+    const bool live = r < Wp;
     MtMarker<KB> c;
     float numv = 0.f;
     if (live) {
-        c.load(mrow + static_cast<size_t>(order_w[r]) * C, T, t, K);
-        numv = num0[static_cast<size_t>(r) * T + t];
+        c.load(mrow + static_cast<size_t>(order_w[i]) * C, T, t, K);
+        numv = num0[static_cast<size_t>(i) * T + t];
+    } else if constexpr (KB == K_ANY) {
+        c.load(mrow, T, t, K);            // a dead lane's draw reads row 0's constants
     }
-    const float* g_row = G + ((SHARED ? 0 : static_cast<size_t>(t) * W) + r) * W;
+    const float* g_row = G + ((SHARED ? 0 : static_cast<size_t>(t) * W) + i) * W;
     const float i2se_t = i2se[t];
+    if constexpr (PIECED) {
+        if (live)
+            numv = catch_up(p0, numv, [&](int j) { return g_row[j]; }, [&](int j) {
+                return out[(3 * static_cast<size_t>(W) + j) * T + t];
+            });
+    }
     const Draw mine = warp_recurrence(
-        W, numv, [&](int rj) { return g_row + rj; }, [](int, float g) { return g; },
-        [&](float num) { return normalized_draw(num, c, K, i2se_t); }, sh, sh + 4 * W);
+        Wp, numv, [&](int rj) { return g_row + p0 + rj; }, [](int, float g) { return g; },
+        [&](float num) { return normalized_draw(num, c, K, i2se_t); }, sh, sh + 4 * Wp);
     if (live) {
         const size_t wt = static_cast<size_t>(W) * T;
-        const size_t e = static_cast<size_t>(r) * T + t;
+        const size_t e = static_cast<size_t>(i) * T + t;
         out[e] = mine.bnew;
         out[wt + e] = mine.comp(c.act);
         out[2 * wt + e] = mine.acum(c.act);
@@ -597,16 +716,25 @@ window_recurrence_mt_kernel(const float* __restrict__ G, const float* __restrict
 // W x T coefficients itself (stale_draw_mt<DRAW_KB>, from the stats
 // partials and mrow rows in dr; block 0 writes out) while its first chunk
 // of rows loads, and coef is not read: one launch fewer a window.
-template <bool COMPLETE, int TB, int DRAW_KB = 0>
+// WIDE (windows above WIDE_W or more than T_MAX traits; TB = T_MAX): the
+// launch takes a group of at most T_MAX traits, out, tm and coef starting
+// at the group's first trait with the stride ld of all the traits (c2 at
+// coef[(ld + t) W + r]), and stages the coefficients a chunk of AXPY_ROWS
+// rows at a time behind one more barrier a chunk ([T][AXPY_ROWS] each), so
+// shared memory does not grow with W; warp 0's sums run over the chunks,
+// in row order from 0.f as above. No draw.
+template <bool COMPLETE, int TB, int DRAW_KB = 0, bool WIDE = false>
 __global__ void __launch_bounds__(AXPY_THREADS)
 axpy_mt_kernel(const uint8_t* __restrict__ pk, int nb, const int* __restrict__ order_w, int W,
                int T, const float* __restrict__ coef, int add_c2,
                const float* __restrict__ tm, float* __restrict__ out,
-               const StaleDrawArgs dr) {
+               const StaleDrawArgs dr, int ld_run) {
+    static_assert(!(WIDE && DRAW_KB), "the wide arm takes its coefficients from coef");
+    const int ld = WIDE ? ld_run : T;      // the traits' stride in out, tm and coef
     extern __shared__ float4 sh_mt[];      // c1 [T][W4], c2 [T][W4], zero past W
     __shared__ uint32_t tile[AXPY_TB * AXPY_LDW];
     __shared__ float s_sum[2][T_MAX];      // complete: sum c1, sum c2 (or 0)
-    const int W4 = (W + 3) & ~3;
+    const int W4 = WIDE ? AXPY_ROWS : (W + 3) & ~3;
     float* s_c1 = reinterpret_cast<float*>(sh_mt);
     float* s_c2 = s_c1 + T * W4;
     const int tid = threadIdx.x;
@@ -616,8 +744,8 @@ axpy_mt_kernel(const uint8_t* __restrict__ pk, int nb, const int* __restrict__ o
     auto load_eps = [&]() {
 #pragma unroll
         for (int t = 0; t < TB; ++t) {
-            e[t] = t < T ? out[i * T + t] : 0.f;
-            mk[t] = t < T && tm != nullptr ? tm[i * T + t] : 1.f;
+            e[t] = t < T ? out[i * ld + t] : 0.f;
+            mk[t] = t < T && tm != nullptr ? tm[i * ld + t] : 1.f;
             acc[t] = 0.f;
         }
     };
@@ -645,15 +773,15 @@ axpy_mt_kernel(const uint8_t* __restrict__ pk, int nb, const int* __restrict__ o
             s_c2[t * W4 + r] = c.y;
         }
         load_eps();
-    } else {
+    } else if constexpr (!WIDE) {
         for (int x = tid; x < T * W4; x += AXPY_THREADS) {
             const int t = x / W4, r = x - t * W4;
             s_c1[x] = r < W ? coef[t * W + r] : 0.f;
             s_c2[x] = r < W ? coef[(T + t) * W + r] : 0.f;
         }
     }
-    __syncthreads();
-    if (COMPLETE && tid < 32) {
+    if (!WIDE) __syncthreads();
+    if (!WIDE && COMPLETE && tid < 32) {
         // lane t: sum c1[t, :], lane 16 + t: sum c2[t, :] (0 unless add_c2),
         // four rows a shared load, the adds in row order
         const int which = tid >> 4, t = tid & 15;
@@ -680,14 +808,33 @@ axpy_mt_kernel(const uint8_t* __restrict__ pk, int nb, const int* __restrict__ o
             s_sum[which][t] = a;
         }
     }
-    // s_sum is read after stage()'s barrier
+    // s_sum is read after stage()'s barrier (WIDE: after the loop's)
     const uint32_t* col = tile + (tid >> 2) * AXPY_LDW;
+    float wsum = 0.f;                      // WIDE: lane (which, t)'s running sum
     for (int r0 = 0; r0 < W; r0 += AXPY_ROWS) {
+        if constexpr (WIDE) {
+            // the chunk's coefficients, once the last chunk is consumed;
+            // stage()'s barriers publish them
+            if (r0 > 0) __syncthreads();
+            for (int x = tid; x < T * AXPY_ROWS; x += AXPY_THREADS) {
+                const int t = x / AXPY_ROWS, rr = r0 + x - t * AXPY_ROWS;
+                s_c1[x] = rr < W ? coef[static_cast<size_t>(t) * W + rr] : 0.f;
+                s_c2[x] = rr < W ? coef[static_cast<size_t>(ld + t) * W + rr] : 0.f;
+            }
+        }
         const int nwd = tl.stage<false>(tile, r0);
+        if (WIDE && COMPLETE && tid < 32) {
+            const int which = tid >> 4, t = tid & 15;
+            if (t < T && (which == 0 || add_c2)) {
+                const float* src = (which ? s_c2 : s_c1) + t * W4;
+                const int n = min(AXPY_ROWS, W - r0);
+                for (int r = 0; r < n; ++r) wsum += src[r];
+            }
+        }
 #pragma unroll 2
         for (int j = 0; j < nwd; ++j) {
             const uint32_t w = col[j];
-            const int rj = r0 + 4 * j;
+            const int rj = (WIDE ? 0 : r0) + 4 * j;
             // row rj + u's crumb as a float: x[u] (stale: h, else g), y[u] (m)
             const uint32_t c = crumbs_at(COMPLETE ? w : geno_crumbs(w), k);
             const uint32_t mb = crumbs_at(~(w & (w >> 1)) & 0x55555555u, k);
@@ -719,11 +866,15 @@ axpy_mt_kernel(const uint8_t* __restrict__ pk, int nb, const int* __restrict__ o
             }
         }
     }
+    if (WIDE && COMPLETE) {
+        if (tid < 32 && (tid & 15) < T) s_sum[tid >> 4][tid & 15] = wsum;
+        __syncthreads();
+    }
 #pragma unroll
     for (int t = 0; t < TB; ++t) {
         if (t < T) {
             const float d = COMPLETE ? (2.0f * s_sum[0][t] + s_sum[1][t]) - acc[t] : acc[t];
-            out[i * T + t] = e[t] + d * mk[t];
+            out[i * ld + t] = e[t] + d * mk[t];
         }
     }
 }
@@ -732,16 +883,30 @@ template <bool COMPLETE, int DRAW_KB = 0>
 inline int launch_axpy_mt_kind(const uint8_t* pk, int nb, const int* order_w, int W, int T,
                                const float* coef, int add_c2, const float* tm, float* out,
                                const StaleDrawArgs& dr, cudaStream_t stream) {
+    // the opt-in counts the static tile too
+    constexpr size_t static_smem =
+        sizeof(uint32_t) * AXPY_TB * AXPY_LDW + sizeof(float) * 2 * T_MAX;
+    if (DRAW_KB == 0 && (W > WIDE_W || T > T_MAX)) {
+        // the wide arm, a launch a group of T_MAX traits
+        auto* const kernel = axpy_mt_kernel<COMPLETE, T_MAX, 0, true>;
+        const size_t smem = sizeof(float) * 2 * T_MAX * AXPY_ROWS;
+        HYDRA_CHECK(allow_smem(kernel, smem + static_smem));
+        for (int t0 = 0; t0 < T; t0 += T_MAX) {
+            kernel<<<nb / AXPY_TB, AXPY_THREADS, smem, stream>>>(
+                pk, nb, order_w, W, std::min(T_MAX, T - t0), coef + static_cast<size_t>(t0) * W,
+                add_c2, tm == nullptr ? nullptr : tm + t0, out + t0, dr, T);
+            HYDRA_CHECK_LAUNCH();
+        }
+        return 0;
+    }
     auto* const kernel = mt_by_traits(
         T, axpy_mt_kernel<COMPLETE, 1, DRAW_KB>, axpy_mt_kernel<COMPLETE, 2, DRAW_KB>,
         axpy_mt_kernel<COMPLETE, 4, DRAW_KB>, axpy_mt_kernel<COMPLETE, 8, DRAW_KB>,
         axpy_mt_kernel<COMPLETE, 16, DRAW_KB>);
     const size_t smem = sizeof(float) * 2 * T * ((W + 3) & ~3);
-    // the opt-in counts the static tile too
-    HYDRA_CHECK(allow_smem(kernel, smem + sizeof(uint32_t) * AXPY_TB * AXPY_LDW +
-                                       sizeof(float) * 2 * T_MAX));
+    HYDRA_CHECK(allow_smem(kernel, smem + static_smem));
     kernel<<<nb / AXPY_TB, AXPY_THREADS, smem, stream>>>(pk, nb, order_w, W, T, coef, add_c2,
-                                                         tm, out, dr);
+                                                         tm, out, dr, T);
     HYDRA_CHECK_LAUNCH();
     return 0;
 }
@@ -792,6 +957,7 @@ struct MtWorkspace {
     float* part_v;
     float* coef;
     float* gram;          // exact: a batch of Grams (gram_batch_windows, W, W)
+    float* pre;           // exact above WIDE_W: the pieces' (T + 3) W floats
     size_t bytes;
 };
 
@@ -812,12 +978,41 @@ inline MtWorkspace layout_mt(void* base, int m_loc, int nb, int W, int T, bool e
     ws.coef = take(2 * wt);
     if (exact)
         ws.gram = take(static_cast<size_t>(gram_batch_windows(m_loc / W, W)) * W * W);
+    if (exact && W > WIDE_W) ws.pre = take(wt + 3 * static_cast<size_t>(W));
     ws.bytes = off;
     return ws;
 }
 
 inline bool shapes_ok_mt(int nb, int W, int T) {
-    return W >= 1 && W <= 1024 && T >= 1 && T <= T_MAX && nb > 0 && nb % 128 == 0;
+    return W >= 1 && T >= 1 && nb > 0 && nb % 128 == 0;
+}
+
+// The exact recurrence of a window (grid T): one launch, or one a piece of
+// WIDE_W markers above it; pre: the pieces' (T + 3) W floats.
+inline int launch_exact_mt_draw(const float* mrow, int C, int K, int T, const int* order_w,
+                                int W, const float* part_s1, const float* part_s2,
+                                const float* part_v, int n_tiles, const float* G,
+                                const float* sc, float* out, float* coef, float* pre,
+                                cudaStream_t stream) {
+    const bool pieced = W > WIDE_W;
+    auto* const draw =
+        pieced ? by_components(K, exact_mt_draw_kernel<4, true, true>,
+                               exact_mt_draw_kernel<8, false, true>,
+                               exact_mt_draw_kernel<K_MAX, false, true>,
+                               exact_mt_draw_kernel<K_ANY, false, true>)
+               : by_components(K, exact_mt_draw_kernel<4, true>, exact_mt_draw_kernel<8, false>,
+                               exact_mt_draw_kernel<K_MAX, false>,
+                               exact_mt_draw_kernel<K_ANY, false>);
+    const size_t smem = exact_draw_smem(pieced ? WIDE_W : W);
+    HYDRA_CHECK(allow_smem(draw, smem));
+    for (int p0 = 0; p0 < W; p0 += WIDE_W) {
+        const int wp = std::min(WIDE_W, W - p0);
+        draw<<<T, cdiv(wp, 32) * 32, smem, stream>>>(mrow, C, K, T, order_w, W, part_s1,
+                                                     part_s2, part_v, n_tiles, G, sc, out, coef,
+                                                     p0, pre);
+        HYDRA_CHECK_LAUNCH();
+    }
+    return 0;
 }
 
 // Windows w_begin .. w_end - 1 of a sweep (0 .. m_loc / W for a whole one).
@@ -827,7 +1022,7 @@ int run_sweep_mt(bool exact, const uint8_t* pk, float* eps, const float* tm,
                  const float* mrow, const int* order, const float* sc, float* out,
                  void* ws_base, int m_loc, int nb, int W, int K, int T, int complete,
                  int w_begin, int w_end, cudaStream_t stream) {
-    if (!shapes_ok_mt(nb, W, T) || m_loc <= 0 || m_loc % W || K < 2 || K > K_MAX ||
+    if (!shapes_ok_mt(nb, W, T) || m_loc <= 0 || m_loc % W || K < 2 ||
         tm == nullptr || (exact && !complete) || (exact && 4LL * nb > GRAM_I8_MAX_NPAD) ||
         w_begin < 0 || w_end > m_loc / W || w_begin > w_end)
         return static_cast<int>(cudaErrorInvalidValue);
@@ -838,15 +1033,11 @@ int run_sweep_mt(bool exact, const uint8_t* pk, float* eps, const float* tm,
     const int n_tiles = cdiv(nb, MT_STATS_TB);
     const int mode = !complete ? MODE_MISSING
                                : (exact ? MODE_EXACT_COMPLETE : MODE_STALE_COMPLETE);
-    const size_t draw_smem = exact_draw_smem(W);
-    auto* const draw = by_components(K, exact_mt_draw_kernel<4, true>,
-                                     exact_mt_draw_kernel<8, false>,
-                                     exact_mt_draw_kernel<K_MAX, false>);
     auto* const stale_draw = by_components(K, stale_draw_mt_kernel<4>, stale_draw_mt_kernel<8>,
-                                           stale_draw_mt_kernel<K_MAX>);
+                                           stale_draw_mt_kernel<K_MAX>,
+                                           stale_draw_mt_kernel<K_ANY>);
     const StaleDrawArgs dr{mrow, C, K, ws.part_s1, ws.part_s2, n_tiles, sc, out};
-    const bool fold = !exact && W <= MT_FOLD_MAX_W;
-    if (exact) HYDRA_CHECK(allow_smem(draw, draw_smem));
+    const bool fold = !exact && W <= MT_FOLD_MAX_W && K <= K_MAX && T <= T_MAX;
     for (int w = w_begin; w < w_end; ++w) {
         const int* order_w = order + static_cast<size_t>(w) * W;
         const int* next_w = w + 1 < n_windows ? order_w + W : nullptr;
@@ -865,14 +1056,16 @@ int run_sweep_mt(bool exact, const uint8_t* pk, float* eps, const float* tm,
             continue;
         }
         if (exact) {
-            draw<<<T, cdiv(W, 32) * 32, draw_smem, stream>>>(
-                mrow, C, K, T, order_w, W, ws.part_s1, ws.part_s2, ws.part_v, n_tiles,
-                ws.gram + static_cast<size_t>(w % batch) * W * W, sc, out, ws.coef);
+            err = launch_exact_mt_draw(mrow, C, K, T, order_w, W, ws.part_s1, ws.part_s2,
+                                       ws.part_v, n_tiles,
+                                       ws.gram + static_cast<size_t>(w % batch) * W * W, sc,
+                                       out, ws.coef, ws.pre, stream);
+            if (err) return err;
         } else {
             stale_draw<<<cdiv(static_cast<long long>(W) * T, MT_DRAW_THREADS), MT_DRAW_THREADS,
                          0, stream>>>(dr, T, order_w, W, complete, ws.coef);
+            HYDRA_CHECK_LAUNCH();
         }
-        HYDRA_CHECK_LAUNCH();
         err = launch_axpy_mt(pk, nb, order_w, W, T, ws.coef, 1, complete, tm, eps, stream);
         if (err) return err;
     }
@@ -982,22 +1175,36 @@ int hydra_mt_window_recurrence(const void* G, const void* num0, const void* mrow
                                int n_mix, int n_traits, int shared, void* stream) {
     using namespace hydra;
     const int W = window, T = n_traits, K = n_mix;
-    if (W < 1 || W > 1024 || T < 1 || T > T_MAX || K < 2 || K > K_MAX)
-        return static_cast<int>(cudaErrorInvalidValue);
+    if (W < 1 || T < 1 || K < 2) return static_cast<int>(cudaErrorInvalidValue);
     const int C = T * (N_FIXED + 3 * K - 2);
-    const size_t smem = exact_draw_smem(W);
-    auto* const rec = shared ? by_components(K, window_recurrence_mt_kernel<4, true, true>,
-                                             window_recurrence_mt_kernel<8, false, true>,
-                                             window_recurrence_mt_kernel<K_MAX, false, true>)
-                             : by_components(K, window_recurrence_mt_kernel<4, true, false>,
-                                             window_recurrence_mt_kernel<8, false, false>,
-                                             window_recurrence_mt_kernel<K_MAX, false, false>);
+    const bool pieced = W > WIDE_W;
+    auto* const rec =
+        pieced ? (shared ? by_components(K, window_recurrence_mt_kernel<4, true, true, true>,
+                                         window_recurrence_mt_kernel<8, false, true, true>,
+                                         window_recurrence_mt_kernel<K_MAX, false, true, true>,
+                                         window_recurrence_mt_kernel<K_ANY, false, true, true>)
+                         : by_components(K, window_recurrence_mt_kernel<4, true, false, true>,
+                                         window_recurrence_mt_kernel<8, false, false, true>,
+                                         window_recurrence_mt_kernel<K_MAX, false, false, true>,
+                                         window_recurrence_mt_kernel<K_ANY, false, false, true>))
+        : shared ? by_components(K, window_recurrence_mt_kernel<4, true, true>,
+                                 window_recurrence_mt_kernel<8, false, true>,
+                                 window_recurrence_mt_kernel<K_MAX, false, true>,
+                                 window_recurrence_mt_kernel<K_ANY, false, true>)
+                 : by_components(K, window_recurrence_mt_kernel<4, true, false>,
+                                 window_recurrence_mt_kernel<8, false, false>,
+                                 window_recurrence_mt_kernel<K_MAX, false, false>,
+                                 window_recurrence_mt_kernel<K_ANY, false, false>);
+    const size_t smem = exact_draw_smem(pieced ? WIDE_W : W);
     HYDRA_CHECK(allow_smem(rec, smem));
-    rec<<<T, cdiv(W, 32) * 32, smem, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(G), static_cast<const float*>(num0),
-        static_cast<const float*>(mrow), C, K, T, static_cast<const int*>(rows), W,
-        static_cast<const float*>(i2se), static_cast<float*>(out));
-    HYDRA_CHECK_LAUNCH();
+    for (int p0 = 0; p0 < W; p0 += WIDE_W) {
+        const int wp = std::min(WIDE_W, W - p0);
+        rec<<<T, cdiv(wp, 32) * 32, smem, static_cast<cudaStream_t>(stream)>>>(
+            static_cast<const float*>(G), static_cast<const float*>(num0),
+            static_cast<const float*>(mrow), C, K, T, static_cast<const int*>(rows), W,
+            static_cast<const float*>(i2se), static_cast<float*>(out), p0);
+        HYDRA_CHECK_LAUNCH();
+    }
     return 0;
 }
 

@@ -45,7 +45,6 @@ from typing import Optional
 import torch
 
 from hydra_tpu_torch.ops.decode import decode_h, decode_planes_hp
-from hydra_tpu_torch.ops.sweep_kernel import K_MAX, W_MAX
 
 f32 = torch.float32
 
@@ -53,7 +52,6 @@ f32 = torch.float32
 #   0 mave, 1 mstd, 2 bold, 3 u, 4 nrm, 5 act,
 #   6..6+K-1 logl_static, 6+K..6+2K-2 inv_denomk, 6+2K-1..6+3K-3 sd_k
 N_FIXED_BLOCKS = 6
-T_MAX = 16        # csrc/sweep_kernel.cuh
 
 
 def mt_mrow_width(k: int, t: int) -> int:
@@ -295,6 +293,100 @@ def mt_window_recurrence_ref(gram, num0, mrow, i_2se, *, n_mix: int,
     return res[0], res[1], res[2], res[3]
 
 
+# ---- the float64 witness of a knife-edge draw -----------------------------
+# Two f32 computations of one exact chain (the kernel's fmaf update of num,
+# the plain version's multiply then add) can take adjacent components at a
+# draw whose u s lies within their rounding of a cumulative-probability
+# boundary; the chains then go on apart. first_differences finds such
+# chains; recurrence_edge and sweep_exact_mt_edge decide in float64 whether
+# the first differing draw is on a knife edge.
+U32 = 2.0 ** -24                  # f32 unit roundoff
+
+
+def first_differences(comp_a, comp_b, window: int):
+    """(w, j, t) of every chain (window w, trait t) whose components differ
+    (comp_* (n, T) in sweep-position order), j its first differing step."""
+    T = comp_a.shape[1]
+    diff = (comp_a != comp_b).reshape(-1, window, T)
+    return [(w, int(diff[w, :, t].nonzero()[0]), t)
+            for w, t in diff.any(dim=1).nonzero().tolist()]
+
+
+@torch.inference_mode()
+def recurrence_edge(g_row, num0, db, blk, i2se, n_mix: int, comps,
+                    num0_err: float = 0.0, points: int = 257) -> bool:
+    """Whether step j = len(db) of one trait's chain is a knife edge between
+    the components ``comps``: in float64, num = num0 + sum_i g_row[i] db[i]
+    from the chain's earlier steps (db, one chain's own history), and the
+    clamped draw of its column block ``blk`` (3K+4,) over num +- the f32
+    forward error bound of that sum ((j + 2) u sum |terms|, plus num0_err)
+    takes each of ``comps`` (0 where the block's act is 0, as comp * act)."""
+    f64 = torch.float64
+    terms = g_row[:len(db)].to(f64) * db.to(f64)
+    num = float(num0) + float(terms.sum())
+    err = ((len(db) + 2) * U32 * (abs(float(num0)) + float(terms.abs().sum()))
+           + num0_err)
+    x = num + err * torch.linspace(-1.0, 1.0, points, dtype=f64,
+                                   device=blk.device)
+    b = blk.to(f64)
+    n0, K = N_FIXED_BLOCKS, n_mix
+    logl, invd = b[n0:n0 + K], b[n0 + K:n0 + 2 * K - 1]
+    ls = torch.cat([logl[:1].expand(points, 1),
+                    logl[1:] + x[:, None] * invd * x[:, None] * float(i2se)],
+                   dim=1)
+    pr = torch.exp(torch.clamp(ls - ls.max(dim=1, keepdim=True).values,
+                               min=-60.0))
+    cs = pr.cumsum(dim=1)
+    taken = set(((b[3] * cs[:, -1:] > cs[:, :-1]).sum(dim=1)
+                 * int(b[5] != 0)).tolist())
+    return set(int(c) for c in comps) <= taken
+
+
+@torch.inference_mode()
+def sweep_exact_mt_edge(pk, eps, tm, mrow, i_2se, dNm1, out, *, window: int,
+                        n_mix: int, order, w: int, j: int, t: int,
+                        comps) -> bool:
+    """recurrence_edge for step j of trait t in window w of an exact
+    multi-trait sweep (sweep_exact_mt_ref's chain), from the sweep's own
+    draws ``out`` (m_loc, 3T): the earlier windows' residual updates and
+    the window's Gram and num0 replayed in float64, num0's error bounded
+    by its sums' (n_pad + W + 4 terms)."""
+    f64 = torch.float64
+    T, W = eps.shape[1], window
+    order = _order(order, pk.shape[0], pk.device)
+    eps, tm = eps.to(f64), tm.to(f64)
+    dnm1 = dNm1.to(f64)
+    n_real = float(dnm1[0]) + 1.0
+
+    def window_of(v):
+        slots = order[v * W:(v + 1) * W]
+        b = _blocks(mrow[slots], T).to(f64)
+        db = b[:, 2] - out[slots][:, :T].to(f64)
+        return slots, b, db
+
+    for v in range(w):
+        slots, b, db = window_of(v)
+        c1 = db * b[:, 1]
+        csum = 2.0 * c1.sum(dim=0) - (c1 * b[:, 0]).sum(dim=0)
+        eps = eps + (csum - decode_h(pk[slots], f64).T @ c1) * tm
+    slots, b, db = window_of(w)
+    g, _ = decode_planes_hp(pk[slots])
+    g = g.to(f64)
+    ma, ms = b[j, 0, 0], b[j, 1, 0]
+    v_all = g.sum(dim=1)
+    mave, mstd = b[:, 0, 0], b[:, 1, 0]
+    g_row = (ms * mstd) * (g[j] @ g.T - ma * v_all - g[j].sum() * mave
+                           + n_real * ma * mave)
+    s1, s2 = g[j] @ eps[:, t], eps[:, t].sum()
+    num0 = b[j, 1, t] * (s1 - b[j, 0, t] * s2) + b[j, 2, t] * dnm1[t]
+    abs_sum = (g[j].abs() @ eps[:, t].abs()
+               + b[j, 0, t].abs() * eps[:, t].abs().sum())
+    num0_err = float((eps.shape[0] + W + 4) * U32 * (
+        b[j, 1, t].abs() * abs_sum + (b[j, 2, t] * dnm1[t]).abs()))
+    return recurrence_edge(g_row, num0, db[:j, t], b[j, :, t], i_2se[t],
+                           n_mix, comps, num0_err)
+
+
 def _lib():
     from hydra_tpu_torch.ops import _build
     return _build.load("sweep_kernel_mt.cu")
@@ -310,13 +402,12 @@ def _raise(lib, what, err):
 
 
 def check_card_shapes(nb: int, window: int, n_traits: int) -> None:
-    """What the CUDA kernels take (csrc/sweep_kernel_mt.cu)."""
-    if not 1 <= window <= W_MAX:
-        raise ValueError(f"the CUDA kernels take 1 <= window <= {W_MAX}, "
-                         f"got {window}")
-    if not 1 <= n_traits <= T_MAX:
-        raise ValueError(f"the CUDA kernels take 1..{T_MAX} traits, got "
-                         f"{n_traits}")
+    """What the CUDA kernels take (csrc/sweep_kernel_mt.cu): any window
+    and trait count (above 1,024 markers and 16 traits their wide arms),
+    packed rows of a multiple of 128 bytes."""
+    if window < 1 or n_traits < 1:
+        raise ValueError(f"the kernels take a window and traits of 1 or "
+                         f"more, got window {window}, {n_traits} traits")
     if nb % 128:
         raise ValueError(f"packed width {nb} is not a multiple of 128 bytes "
                          "(individuals pad to 512, data/genotypes.py)")
@@ -334,9 +425,9 @@ def _launch(name, exact, pk, eps, tm, mrow, i_2se, dNm1, window, n_mix,
     m_loc, nb = pk.shape
     T = eps.shape[1]
     check_card_shapes(nb, window, T)
-    if not 2 <= n_mix <= K_MAX:
-        raise ValueError(f"the CUDA sweep takes 2..{K_MAX} mixture "
-                         f"components, got {n_mix}")
+    if n_mix < 2:
+        raise ValueError(f"the sweep takes 2 or more mixture components, "
+                         f"got {n_mix}")
     if order is None:
         order = torch.arange(m_loc, device=dev, dtype=torch.int32)
     if order.dtype != torch.int32:
@@ -421,10 +512,9 @@ def mt_window_recurrence(gram, num0, mrow, i_2se, *, n_mix: int,
         raise ValueError(f"no recurrence kernel for device {num0.device}")
     dev = num0.device
     W, T = num0.shape
-    if not 1 <= W <= W_MAX or not 1 <= T <= T_MAX or not 2 <= n_mix <= K_MAX:
-        raise ValueError(f"the CUDA recurrence takes W <= {W_MAX}, T <= "
-                         f"{T_MAX} and 2..{K_MAX} components, got W={W}, "
-                         f"T={T}, K={n_mix}")
+    if n_mix < 2:
+        raise ValueError(f"the recurrence takes 2 or more mixture "
+                         f"components, got {n_mix}")
     if rows is None:
         rows = torch.arange(W, device=dev, dtype=torch.int32)
     if rows.dtype != torch.int32:

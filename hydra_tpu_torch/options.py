@@ -196,7 +196,11 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="hydra-tpu-torch",
         description="Bayesian whole-genome regression on PyTorch + CUDA "
-                    "(hydra rebuild)",
+                    "(hydra rebuild). Any --window, mixture size (--S, "
+                    "--groupMixtureFile) and number of --pheno traits runs, "
+                    "as in the JAX package; a run raises before reading data "
+                    "only for an --ind-shards or --dcn-slices that does not "
+                    "divide the ranks and a --n-devices D without D ranks.",
         allow_abbrev=False,
     )
     a = p.add_argument
@@ -254,7 +258,9 @@ def build_parser() -> argparse.ArgumentParser:
     a("--v0t", dest="v0t", type=float, default=3.0)
     a("--interleave-phenotypes", action="store_true", dest="interleave")
     # accelerator knobs (no reference equivalent)
-    a("--window", dest="window", type=int, default=0)
+    a("--window", dest="window", type=int, default=0,
+      help="markers a window (any width: above 1,024 the CUDA kernels run "
+           "their wide arms)")
     a("--stale", action="store_true", dest="stale",
       help="use stale-window semantics instead of exact Gram-corrected Gibbs")
     a("--n-devices", dest="n_devices", type=int, default=0,
@@ -265,7 +271,7 @@ def build_parser() -> argparse.ArgumentParser:
     a("--ind-shards", dest="ind_shards", type=int, default=1,
       help="I chunks of the individuals a marker shard (BayesRRm, BayesFH, "
            "BayesW and multi-trait BayesRRm; I must divide the ranks): rank "
-           "r holds marker shard r // I and chunk r % I of the residual and "
+           "r holds marker shard r // I and chunk r %% I of the residual and "
            "byte columns, and each window's statistics are summed over the "
            "shard's I ranks before the draw. --check-RAM: a device's share "
            "of such a run")

@@ -43,8 +43,6 @@ from hydra_tpu_torch.data.genotypes import Dataset, load_dataset, marker_shards
 from hydra_tpu_torch.io import groups as groups_io
 from hydra_tpu_torch.io import pheno as pheno_io
 from hydra_tpu_torch.io import plink
-from hydra_tpu_torch.ops.sweep_kernel import K_MAX, W_MAX
-from hydra_tpu_torch.ops.sweep_kernel_mt import T_MAX
 from hydra_tpu_torch.options import Options
 from hydra_tpu_torch.outputs.restart import (RestartData,
                                              last_save_iteration,
@@ -71,14 +69,10 @@ def check_supported(opt: Options) -> None:
     divide the ranks (the JAX ``make_mesh`` raises the same,
     hydra_tpu/parallel/mesh.py:57-60);
     --n-devices other than 0 or the number of ranks (each rank is one
-    device, so D > 1 needs D ranks under a launcher); and the port's own
-    limits, which the JAX package does not have: W > W_MAX (one draw thread
-    a marker, ops/sweep_kernel.py), more than K_MAX mixture components or
-    T_MAX traits (csrc/sweep_kernel.cuh)."""
-    is_bw = opt.bayes_type == "bayesWMPI"
-    # BayesW reads the first of several --pheno files, as the JAX CLI
-    # (hydra_tpu/cli.py sends every bayesWMPI run to run_bayesw)
-    multi = opt.multi_phen and not is_bw
+    device, so D > 1 needs D ranks under a launcher). Any window width,
+    mixture size and trait count runs, as in the JAX package: above 1,024
+    markers a window, 16 components or 16 traits the CUDA kernels take
+    their wide arms (csrc/sweep_kernel.cuh)."""
     world = distributed.world_size()
     # --check-RAM estimates a device's share of a --ind-shards run without
     # launching it
@@ -107,20 +101,6 @@ def check_supported(opt: Options) -> None:
     if opt.n_devices not in (0, world):
         raise ValueError(f"--n-devices {opt.n_devices} differs from the "
                          f"{world} ranks of this launch (0 takes them all)")
-    if host_only:
-        return
-    over = []
-    if opt.window > W_MAX:
-        over.append(f"--window {opt.window} (at most {W_MAX}: one draw "
-                    "thread a marker)")
-    k = mixture_components(opt)
-    if k > K_MAX:
-        over.append(f"{k} mixture components (at most {K_MAX})")
-    if multi and len(opt.phenotype_files) > T_MAX:
-        over.append(f"{len(opt.phenotype_files)} traits (at most {T_MAX})")
-    if over:
-        raise NotImplementedError("beyond the limits of hydra_tpu_torch's "
-                                  "CUDA kernels: " + "; ".join(over))
 
 
 def note_ignored_flags(opt: Options) -> None:

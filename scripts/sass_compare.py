@@ -7,11 +7,14 @@ with the toolkit, from the root of one checkout:
 
     python3 scripts/sass_compare.py build/parent .
 
-A kernel whose template gained a trailing ``bool`` argument that defaults
-to false is matched to its old name (``...Lb0EEEv`` -> ``...EEv``), so a
-change that adds such a flag can show that the instantiations without it
-compile as before. Prints, per source, the kernels with identical SASS, the
-ones that differ and the ones only one tree has.
+A kernel is matched by its demangled name without its return type and
+parameter list and without trailing ``false`` template arguments
+(``c++filt``, else ``cu++filt``): a change that adds a trailing ``bool`` flag defaulting to
+false, or appends parameters for the flag's arm, can show that the
+instantiations without it compile as before. Prints each tree's build
+seconds (every source at once, as ``_build.build`` at first use), then,
+per source, the kernels with identical SASS, the ones that differ and the
+ones only one tree has.
 """
 
 from __future__ import annotations
@@ -19,39 +22,80 @@ from __future__ import annotations
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
+import time
 
-CUOBJDUMP = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                         "bin", "cuobjdump")
+CUDA_BIN = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin")
+CUOBJDUMP = os.path.join(CUDA_BIN, "cuobjdump")
 
 
 def build(tree):
-    """{source: library path} of tree's kernels, built there."""
+    """{source: library path} of tree's kernels, built there; prints the
+    build's seconds."""
     code = ("import json; from hydra_tpu_torch.ops import _build; "
             "_build.build(); print(json.dumps({s: _build.library_path(s) "
             "for s in _build.SOURCES}))")
+    t0 = time.perf_counter()
     out = subprocess.run([sys.executable, "-c", code], cwd=tree, check=True,
                          capture_output=True, text=True).stdout
+    print(f"{tree}: built in {time.perf_counter() - t0:.1f} s", flush=True)
     return json.loads(out.strip().splitlines()[-1])
 
 
+def _key(demangled):
+    """A demangled kernel name without its return type and parameter list
+    (the last top-level parenthesized group), its trailing false template
+    arguments dropped (``<4, true, false>`` -> ``<4, true>``, ``<false>``
+    -> none)."""
+    d = demangled.strip()
+    if d.endswith(")"):
+        depth = 0
+        for i in range(len(d) - 1, -1, -1):
+            depth += {")": 1, "(": -1}.get(d[i], 0)
+            if depth == 0:
+                d = d[:i]
+                break
+    d = d.split(" ", 1)[1] if d.startswith("void ") else d
+    for false in ("false", "(bool)0"):
+        while d.endswith(f", {false}>"):
+            d = d[:-len(f", {false}>")] + ">"
+        if d.endswith(f"<{false}>"):
+            d = d[:-len(f"<{false}>")]
+    return d
+
+
+def demangle(names):
+    """{mangled: key} (_key of the demangled name; c++filt, else
+    cu++filt)."""
+    filt = next((c for c in (shutil.which("c++filt") or "",
+                             os.path.join(CUDA_BIN, "cu++filt"))
+                 if c and os.path.exists(c)), None)
+    if filt is None:
+        return {n: n for n in names}
+    out = subprocess.run([filt], input="\n".join(names), capture_output=True,
+                         text=True, check=True).stdout.splitlines()
+    return {n: _key(d) for n, d in zip(names, out)}
+
+
 def sass(lib):
-    """{kernel name (a false trailing flag dropped): SASS lines, addresses
-    and encodings left out}."""
+    """{kernel key (demangle): SASS lines, addresses and encodings left
+    out}."""
     out = subprocess.run([CUOBJDUMP, "-sass", lib], capture_output=True,
                          text=True, check=True).stdout
     funcs, name = {}, None
     for ln in out.splitlines():
         m = re.match(r"\s+Function : (\S+)", ln)
         if m:
-            name = m.group(1).replace("Lb0EEEv", "EEv")
+            name = m.group(1)
             funcs[name] = []
         elif name is not None and "/*" in ln:
             body = re.sub(r"/\*[0-9a-f]{4,}\*/", "", ln).split(";")[0].strip()
             if body:
                 funcs[name].append(body)
-    return funcs
+    keys = demangle(list(funcs))
+    return {keys[n]: body for n, body in funcs.items()}
 
 
 def main(argv) -> int:

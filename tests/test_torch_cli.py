@@ -5,7 +5,8 @@ absent (a restart with covariates among them), NotImplementedError for
 what the port does not run on several devices, and the launcher named for
 --n-devices without ranks. Restarts and covariates are
 tests/test_torch_restart.py's; sparse input, --bed-to-sparse, --check-RAM
-and the port's up-front limits are tests/test_torch_host_paths.py's."""
+and the runs the port's kernel limits once refused are
+tests/test_torch_host_paths.py's."""
 
 import json
 import os

@@ -32,16 +32,17 @@ torch.set_num_threads(1)
 K = 4
 
 
-def make_inputs(m, nb, seed, missing, n_pad_markers, k=K):
+def make_inputs(m, nb, seed, missing, n_pad_markers, k=K, miss_frac=0.05):
     """Packed genotypes, residual, mask and mrow rows of k mixture
-    components. The last 37 individuals are padding (missing-coded, eps =
-    0, mask = 0); pad markers (all missing, act = 0) sit at random slots."""
+    components (``miss_frac`` of the calls missing when ``missing``). The
+    last 37 individuals are padding (missing-coded, eps = 0, mask = 0); pad
+    markers (all missing, act = 0) sit at random slots."""
     rs = np.random.RandomState(seed)
     geno = rs.randint(0, 3, (m, 4 * nb))
     code = np.select([geno == 0, geno == 1, geno == 2],
                      [0b11, 0b10, 0b00]).astype(np.uint8)
     if missing:
-        code[rs.random_sample(code.shape) < 0.05] = 0b01
+        code[rs.random_sample(code.shape) < miss_frac] = 0b01
     n = 4 * nb - 37
     code[:, n:] = 0b01
     pads = rs.choice(m, n_pad_markers, replace=False)
@@ -1023,9 +1024,11 @@ def _card_inputs(m, nb, missing, seed, dev, n_pad_markers=3, k=K, n=None):
     return pk, eps, mask, mrow, n, pads
 
 
-def _bw_card_sampler(m, nb, missing, window, seed, dev):
-    """A BayesW sampler (block schedule, K=4, Q=9) on ``_card_inputs``'s
-    genotypes without pad markers, with their own marker statistics."""
+def _bw_card_sampler(m, nb, missing, window, seed, dev,
+                     s_grid=(0.001, 0.01, 0.1)):
+    """A BayesW sampler (block schedule, K = len(s_grid) + 1 (4), Q=9) on
+    ``_card_inputs``'s genotypes without pad markers, with their own marker
+    statistics."""
     from hydra_tpu_torch.data.genotypes import (Dataset, GenotypeData,
                                                 make_default_groups)
     from hydra_tpu_torch.ops.decode import crumbs
@@ -1042,7 +1045,7 @@ def _bw_card_sampler(m, nb, missing, window, seed, dev):
                         n_pad=4 * nb, m=m, mave=mave_h, mstd=mstd_h,
                         msd=1.0 / mstd_h, n1=None, n2=None,
                         nm=(n - real.sum(1)).cpu().numpy())
-    groups, mS = make_default_groups(m, [0.001, 0.01, 0.1])
+    groups, mS = make_default_groups(m, list(s_grid))
     rs = np.random.RandomState(seed)
     y = 4.0 + (np.log(rs.exponential(1.0, n)) + 0.5772) / 8.0
     ds = Dataset(geno=geno, y=y, groups=groups, num_groups=1, mS=mS,
@@ -1931,3 +1934,287 @@ def test_cuda_planes_stats_workspace_per_stream():
         assert not bool(ws[:512].any())
     for s, w in zip(got, want):
         assert torch.equal(s, w)
+
+
+# ------------------------------------------------------------- wide arms --
+# Windows above 1,024 markers, more than 16 mixture components and more
+# than 16 traits: the kernels' wide arms (csrc/sweep_kernel.cuh: WIDE_W,
+# WIDE_W, K_ANY; T_MAX trait groups) against their plain versions.
+WIDE_K = 20
+S_GRID_20 = tuple(float(x) for x in np.geomspace(1e-4, 0.5, WIDE_K - 1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_mix", [K, WIDE_K])
+@pytest.mark.parametrize("window", [1025, 2048])
+@pytest.mark.parametrize("exact,missing", [(False, False), (False, True),
+                                           (True, False), (True, True)])
+def test_cuda_wide_sweep_matches_plain(exact, missing, window, n_mix):
+    """Stale and exact sweeps of two windows above 1,024 markers (1,025: a
+    piece of one marker; 2,048: two whole pieces), K = 4 and 20, complete
+    and 5% missing calls, on a shuffled window order: the kernels against
+    their plain versions with test_cuda_kernel_matches_plain's tolerances,
+    components equal, bitwise repeatable."""
+    dev = _card()
+    m = 2 * window
+    pk, eps, mask, mrow, n, _ = _card_inputs(m, 128, missing, 17 + window,
+                                             dev, n_pad_markers=9, k=n_mix)
+    order = tsk.block_order(torch.tensor([1, 0], device=dev), window)
+    kw = dict(window=window, n_mix=n_mix, complete=not missing,
+              ind_mask=mask, order=order)
+    fn = tsk.sweep_exact if exact else tsk.sweep_stale
+    ref = tsk.sweep_exact_ref if exact else tsk.sweep_stale_ref
+    e_k, o_k = fn(pk, eps, mrow, 0.7, float(n - 1), **kw)
+    e_k2, o_k2 = fn(pk, eps, mrow, 0.7, float(n - 1), **kw)
+    e_r, o_r = ref(pk, eps, mrow, 0.7, float(n - 1), **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(e_k, e_k2) and torch.equal(o_k, o_k2)
+    torch.testing.assert_close(e_k, e_r, atol=5e-4, rtol=1e-3)
+    torch.testing.assert_close(o_k[:, 0], o_r[:, 0], atol=5e-4, rtol=1e-3)
+    assert torch.equal(o_k[:, 1], o_r[:, 1])
+    assert torch.unique(o_k[:, 1]).numel() >= 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_mix", [K, WIDE_K])
+@pytest.mark.parametrize("window,sub_window", [(2048, 1024), (2048, 2048),
+                                               (64, 64)])
+def test_cuda_wide_sd_matches_plain(window, sub_window, n_mix):
+    """The single-decode stale sweep with sub-windows at and above 1,024
+    markers and at K = 20 (no fold: its own draw launch) against its plain
+    version, and with one sub-window a window bit for bit sweep_stale."""
+    dev = _card()
+    m = 2 * window
+    pk, eps, mask, mrow, n, _ = _card_inputs(m, 128, True, 5, dev, k=n_mix)
+    kw = dict(window=window, n_mix=n_mix, complete=False, ind_mask=mask)
+    args = (pk, eps, mrow, 0.7, float(n - 1))
+    e_k, o_k = tsk.sweep_stale_sd(*args, sub_window=sub_window, **kw)
+    e_r, o_r = tsk.sweep_stale_sd_ref(*args, sub_window=sub_window, **kw)
+    e_2p, o_2p = tsk.sweep_stale(*args, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(e_k, e_r, atol=5e-4, rtol=1e-3)
+    torch.testing.assert_close(o_k[:, 0], o_r[:, 0], atol=5e-4, rtol=1e-3)
+    assert torch.equal(o_k[:, 1], o_r[:, 1])
+    if sub_window == window:
+        assert torch.equal(e_k, e_2p) and torch.equal(o_k, o_2p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_mix", [K, 12, WIDE_K])
+@pytest.mark.parametrize("window", [64, 1025, 1536, 2048])
+def test_cuda_wide_window_gibbs_matches_plain(window, n_mix):
+    """window_gibbs above 1,024 markers (pieces of 1,024, each catching up
+    on the earlier pieces' steps) and at K = 20 (the constants staged in
+    shared memory where they fit, else read in place) against the plain
+    version: test_cuda_window_gibbs_matches_plain's checks."""
+    test_cuda_window_gibbs_matches_plain(window, n_mix)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [2048])
+@pytest.mark.parametrize("nb", [128, 640])
+@pytest.mark.parametrize("missing", [False, True])
+@pytest.mark.parametrize("path", ["window_axpy", "window_stats",
+                                  "sweep_stale", "sweep_exact",
+                                  "sweep_stale_sd", "sweep_stale_bw",
+                                  "window_level_sums"])
+def test_cuda_wide_stream_kernels_bitwise(path, missing, nb, window):
+    """The wide axpy (coefficients staged a chunk at a time) and the stats
+    and levels passes at W = 2,048 bit for bit their plain versions:
+    test_cuda_stream_kernels_bitwise's checks."""
+    test_cuda_stream_kernels_bitwise(path, window, nb, missing)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path,window,nb,n_traits,missing", [
+    (path, window, nb, n_traits, missing)
+    for path in ("window_stats_mt", "window_axpy_mt", "sweep_stale_mt",
+                 "sweep_exact_mt")
+    for window, n_traits in ((64, 20), (200, 17), (1025, 4), (2048, 20))
+    for nb in (128, 640)
+    for missing in (False, True)
+    if not (path == "sweep_exact_mt" and missing)])
+def test_cuda_wide_mt_stream_kernels_bitwise(path, window, nb, n_traits,
+                                             missing):
+    """The multi-trait passes in groups of 16 traits (T = 17, 20) and at
+    windows above 1,024 markers bit for bit their plain versions in the
+    kernels' order: test_cuda_mt_stream_kernels_bitwise's checks."""
+    test_cuda_mt_stream_kernels_bitwise(path, window, nb, n_traits, missing)
+
+
+# Cases of test_cuda_wide_mt_recurrence_matches_plain (source, W, T, K)
+# whose chains meet a knife-edge draw: 40,960 draws of 20 components
+# (778,240 boundary comparisons, four times the largest case of
+# test_cuda_mt_recurrence_matches_plain), where in one chain (a window's
+# trait) the kernel's fused update of num (one rounding a step, the plain
+# version's two) leaves a draw on the other side of a cumulative-probability
+# boundary than the plain version's, and the chain goes on from there.
+WIDE_MT_KNIFE_EDGE = {("sweep", 2048, 20, WIDE_K),
+                      ("per_trait", 2048, 20, WIDE_K)}
+
+
+def _chains_agree_but_one(k, r, T, W, witness, order=None):
+    """Components (W positions of each window, T traits) of the kernel's
+    and the plain version's chains: equal in every chain but at most one,
+    and in that chain equal up to its first difference, which moves the
+    draw to an adjacent component on a knife edge: ``witness(w, j, t,
+    comps)``, the float64 draw over num's f32 error bound from the kernel's
+    own history (sweep_kernel_mt.recurrence_edge), takes both components.
+    Returns the other chains' mask (positions x traits)."""
+    from hydra_tpu_torch.ops.sweep_kernel_mt import first_differences
+    ck, cr = (c if order is None else c[order.long()] for c in (k, r))
+    chains = first_differences(ck, cr, W)
+    assert len(chains) <= 1, chains
+    keep = torch.ones_like(ck, dtype=torch.bool)
+    for w, j, t in chains:
+        a, b = float(ck[w * W + j, t]), float(cr[w * W + j, t])
+        assert abs(a - b) == 1.0
+        assert witness(w, j, t, (a, b)), (
+            f"window {w} trait {t} step {j}: components {a:g} and {b:g} are "
+            "not both within f32 rounding of the float64 draw")
+        keep[w * W + j:(w + 1) * W, t] = False
+    return keep
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_mix", [K, WIDE_K])
+@pytest.mark.parametrize("n_traits", [4, 20])
+@pytest.mark.parametrize("window", [64, 1025, 2048])
+@pytest.mark.parametrize("source", ["sweep", "shared", "per_trait"])
+def test_cuda_wide_mt_recurrence_matches_plain(source, window, n_traits,
+                                               n_mix):
+    """The multi-trait exact recurrences in pieces of 1,024 markers, at 20
+    traits and at K = 20: test_cuda_mt_recurrence_matches_plain's checks;
+    in WIDE_MT_KNIFE_EDGE's cases, bitwise repeatable, components equal in
+    every chain but the knife-edge one (_chains_agree_but_one, its first
+    difference witnessed in float64), and every draw of the other chains
+    within the sweep tolerance (the sweep: eps of the other traits too)."""
+    from hydra_tpu_torch.ops import sweep_kernel_mt as tskmt
+    if (source, window, n_traits, n_mix) not in WIDE_MT_KNIFE_EDGE:
+        test_cuda_mt_recurrence_matches_plain(source, window, n_traits, n_mix)
+        return
+    dev = _card()
+    T = n_traits
+    args, kw = mt_recurrence_inputs(source, window, T, n_mix, dev)
+    fn, ref = ((tskmt.sweep_exact_mt, tskmt.sweep_exact_mt_ref)
+               if source == "sweep" else
+               (tskmt.mt_window_recurrence, tskmt.mt_window_recurrence_ref))
+    k1, k2 = fn(*args, **kw), fn(*args, **kw)
+    r = ref(*args, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(k1, k2))
+    if source == "sweep":
+        order = kw["order"]
+
+        def witness(w, j, t, comps):
+            return tskmt.sweep_exact_mt_edge(*args, k1[1], j=j, w=w, t=t,
+                                             comps=comps, **kw)
+
+        keep = _chains_agree_but_one(k1[1][:, T:2 * T], r[1][:, T:2 * T], T,
+                                     window, witness, order)
+        for c in range(3):
+            a, b = (o[1][:, c * T:(c + 1) * T][order.long()] for o in (k1, r))
+            torch.testing.assert_close(a[keep], b[keep], atol=5e-4, rtol=1e-3)
+        whole = keep.all(dim=0)                 # traits without the edge
+        torch.testing.assert_close(k1[0][:, whole], r[0][:, whole],
+                                   atol=5e-4, rtol=1e-3)
+        return
+    gram, num0, mrow, i2se = args
+    blk = mrow[kw["rows"].long()].reshape(window, -1, T)
+
+    def witness(w, j, t, comps):
+        return tskmt.recurrence_edge(gram[t, j], num0[j, t], k1[3][:j, t],
+                                     blk[j, :, t], i2se[t], n_mix, comps)
+
+    keep = _chains_agree_but_one(k1[1], r[1], T, window, witness)
+    for a, b in zip(k1, r):
+        torch.testing.assert_close(a[keep], b[keep], atol=5e-4, rtol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stale", [True, False])
+def test_cuda_wide_mt_sweep_nan_matches_plain(stale):
+    """T = 20, K = 20, 10% NaN phenotypes: the stale whole sweep (no fold:
+    its own draw launch, the passes in two trait groups) and the exact
+    per-window path's recurrence (mt_window_recurrence on a per-trait Gram)
+    against their plain versions on the card: components equal, the
+    sweep tolerances."""
+    from hydra_tpu_torch.ops import sweep_kernel_mt as tskmt
+    dev = _card()
+    T, W = 20, 64
+    pk, eps, tm, mrow, dnm1, n, _ = _card_mt_inputs(4 * W, 128, T, False,
+                                                     False, 23, dev,
+                                                     k=WIDE_K)
+    i2se = torch.linspace(0.6, 0.9, T, device=dev)
+    kw = dict(window=W, n_mix=WIDE_K, complete=True)
+    if stale:
+        e_k, o_k = tskmt.sweep_stale_mt(pk, eps, tm, mrow, i2se, dnm1, **kw)
+        e_r, o_r = tskmt.sweep_stale_mt_ref(pk, eps, tm, mrow, i2se, dnm1,
+                                            **kw)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(e_k, e_r, atol=5e-4, rtol=1e-3)
+        torch.testing.assert_close(o_k[:, :T], o_r[:, :T], atol=5e-4,
+                                   rtol=1e-3)
+        assert torch.equal(o_k[:, T:2 * T], o_r[:, T:2 * T])
+        return
+    rows = torch.arange(W, dtype=torch.int32, device=dev)
+    num0 = 30.0 * torch.randn(W, T, device=dev)
+    x = torch.randn(T, W, 1024, device=dev)
+    gram = (x @ x.transpose(1, 2)).contiguous()
+    k = tskmt.mt_window_recurrence(gram, num0, mrow, i2se, n_mix=WIDE_K,
+                                   rows=rows)
+    r = tskmt.mt_window_recurrence_ref(gram, num0, mrow, i2se, n_mix=WIDE_K,
+                                       rows=rows)
+    torch.cuda.synchronize()
+    assert torch.equal(k[1], r[1])
+    for a, b in zip(k, r):
+        torch.testing.assert_close(a, b, atol=5e-4, rtol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window,n_mix", [(2048, 4), (1025, WIDE_K), (64, 40)])
+def test_cuda_wide_bw_sweep_matches_plain(window, n_mix):
+    """sweep_stale_bw above 1,024 markers (the wide axpy with the vi
+    refresh), at K = 20 (a component a lane) and K = 40 (bw_draw_kernel's
+    WIDE_K arm: the components in the warp's shared memory) against its
+    plain version: components equal, eps and out within the sweep
+    tolerance (knife-edge slice states may differ in a last bit), bitwise
+    repeatable."""
+    from hydra_tpu_torch.samplers.bayesw import gh_table
+    dev = _card()
+    grid = tuple(float(x) for x in np.geomspace(1e-4, 0.5, n_mix - 1))
+    s = _bw_card_sampler(2 * window, 128, True, window, 5, dev, s_grid=grid)
+    st = s.init_state()
+    g = torch.Generator(device=dev).manual_seed(window + n_mix)
+    p = torch.rand((1, n_mix), generator=g, device=dev) + 0.1
+    st.pi_l = p / p.sum()
+    m = s.cfg.m_loc
+    nz = torch.rand(m, generator=g, device=dev) < 0.2
+    st.beta = torch.where(nz, 0.02 * torch.randn(m, generator=g, device=dev),
+                          0.0)
+    vi = torch.exp(st.alpha * st.eps - tskbw.EULER_MASCHERONI) * s.ind_mask
+    mrow = s.build_mrow(st, st.alpha, s.slot_noise(0))
+    gh_x, gh_w = (torch.tensor(a, dtype=torch.float32, device=dev)
+                  for a in gh_table(9))
+    args = (s.packed, st.eps, vi, mrow, gh_x, gh_w, st.alpha)
+    kw = dict(window=window, n_mix=n_mix, complete=s.cfg.complete,
+              ind_mask=s.ind_mask, order=s.sweep_order(0))
+    e_k, o_k = tskbw.sweep_stale_bw(*args, **kw)
+    e_k2, o_k2 = tskbw.sweep_stale_bw(*args, **kw)
+    e_r, o_r = tskbw.sweep_stale_bw_ref(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(e_k, e_k2) and torch.equal(o_k, o_k2)
+    assert torch.equal(o_k[:, 1], o_r[:, 1])
+    assert int((o_k[:, 1] > 0).sum()) >= 2
+    torch.testing.assert_close(e_k, e_r, atol=5e-4, rtol=1e-3)
+    torch.testing.assert_close(o_k, o_r, atol=5e-4, rtol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_pad", [512, 50_176])
+@pytest.mark.parametrize("window", [1025, 2048, 3000])
+def test_cuda_wide_planes_bitwise(window, n_pad):
+    """Both planes kernels above 1,024 rows (the stats in launches of
+    1,024 rows, the axpy reading c1 in place) bit for bit their plain
+    versions: test_cuda_planes_bitwise's checks."""
+    test_cuda_planes_bitwise(window, n_pad)

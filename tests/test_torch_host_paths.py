@@ -1,7 +1,7 @@
 """The port's host-side paths against the JAX package (CPU): the sparse
 genotype files (``io/sparse.py``, ``--bed-to-sparse``), sparse input to a
-chain, ``--check-RAM`` (``diag/ramcheck.py``), the up-front refusals of the
-port's kernel limits, and the schedule each new CLI path records (.rng.0)
+chain, ``--check-RAM`` (``diag/ramcheck.py``), the runs the port's kernel
+limits once refused (W > 1024, K > 16, T > 16), and the schedule each new CLI path records (.rng.0)
 beside the JAX CLI's under the same explicit ``--schedule``."""
 
 import json
@@ -167,15 +167,37 @@ def test_check_ram_sparse_matches_jax(bed, tmp_path):
 
 @pytest.mark.parametrize("extra,what", [
     (["--window", "1025"], "--window 1025"),
-    (["--S", ",".join(["0.01"] * 16)], "17 mixture components"),
-    (["--pheno", ",".join(["p"] * 17)], "17 traits"),
+    (["--S", ",".join(f"{0.001 * (i + 1):g}" for i in range(16))],
+     "17 mixture components"),
+    (["--pheno", "17 traits"], "17 traits"),
 ])
-def test_port_limits_refused_before_reading(tmp_path, extra, what):
-    """W > 1024, K > 16 and T > 16 raise before any data is read: the
-    .bed and phenotypes named here do not exist."""
-    argv = _argv(str(tmp_path / "missing"), tmp_path / "o")
-    with pytest.raises(NotImplementedError, match=what):
-        cli.main(argv + extra)
+def test_port_limits_refused_before_reading(bed, tmp_path, extra, what):
+    """What the port once refused before reading any data (W > 1024, K >
+    16, T > 16) now runs, as in the JAX package: the same argv on the
+    small .bed through both CLIs under the same explicit --schedule (each
+    CLI resolves auto by its own backend), exit 0, the same records
+    (.rng.0: seed,
+    iteration, window, exact, schedule; the csv's iteration column; the
+    .bet header), and the port's csv h2 in (0, 1)."""
+    if what == "17 traits":
+        extra = ["--pheno", ",".join(
+            bed + (".phen" if i % 2 == 0 else ".t1.phen") for i in range(17))]
+    recs = []
+    for name, main in (("t", cli.main), ("j", jcli.main)):
+        argv = _argv(bed, tmp_path / name, *extra, "--chain-length", "5",
+                     "--thin", "1", "--schedule", "marker")
+        assert main(argv) == 0, what
+        base = tmp_path / name / ("run.t16" if what == "17 traits" else "run")
+        rec = json.load(open(f"{base}.rng.0"))
+        rec.pop("hypers", None)
+        rows = [ln.split(",") for ln in open(f"{base}.csv") if ln.strip()]
+        header = np.fromfile(f"{base}.bet", dtype=np.uint32, count=1)
+        recs.append((rec, [r[0] for r in rows], int(header[0])))
+        if name == "t":
+            h2 = [float(r[3 + int(r[1])]) for r in rows]
+            assert all(0.0 < v < 1.0 for v in h2), h2
+    assert recs[0] == recs[1]
+    assert recs[0][2] == M and len(recs[0][1]) == 5
 
 
 CLI_PATHS = {
