@@ -8,7 +8,21 @@ Run from the repository root on a machine with a CUDA card:
 Phases, each printing its wall time:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
      builds the kernels from hydra_tpu_torch/csrc with nvcc (one nvcc per
-     source, started together).
+     source, started together) and the OpenMP .bed helper
+     (csrc/bedio.cpp) with g++.
+  1b. the host's ingest: a .bed of M=100,000 x N=50,000 (1.25 GB, 2%
+     missing calls, 10 NA phenotypes; hydra_tpu_torch.io.simulate, its
+     genotypes packed by the helper's bed_generate) loaded through
+     load_dataset, the CLI's path: seconds of the read, the NA removal,
+     the padding, the counts, the rest, the h-recode and the upload to
+     the card, and to a BayesRRm sampler's first sweep (one line, "host
+     ingest"); bed_remove_individuals, bed_counts and bed_hpack bit for
+     bit their plain versions on the first 4,096 rows; --bed-to-sparse
+     and its plain converter (the numpy loop it replaced) on 10,000 of the
+     markers, each in GB/s of .bed read and of bytes written, their nine
+     files byte for byte equal, beside a plain buffered write of as many
+     bytes. (The load path on its plain numpy versions is timed by
+     ``scripts/profile_phases_torch.py --models ingest``.)
   2. sweep_stale / sweep_exact against their plain PyTorch versions on the
      card at main-path shapes (M=4,096 x N=50,000, W=64 and 128, complete
      and missing genotypes, block window permutation; exact also at W=256
@@ -713,6 +727,202 @@ def print_stream_bounds(W, nb, launches, stats=True, axpy=True,
          f"({ax[1]})"] if axpy else [])
     print(f"  bound per window (W={W}, nb={nb}): {', '.join(parts)}; "
           f"{launches} launches a sweep each", flush=True)
+
+
+# phase 1b: the .bed panel (seed, missing calls, NA phenotypes), the rows
+# whose helper passes are held bit for bit against their plain versions,
+# and the converter's markers (both converters timed, their files held
+# equal)
+INGEST = dict(m=100_000, n=50_000, seed=21, missing=0.02, na=10,
+              check_rows=4_096, sparse_m=10_000)
+
+
+@contextlib.contextmanager
+def patched(pairs):
+    """Each (module, attribute, value) of ``pairs`` set for the block, then
+    restored."""
+    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in pairs]
+    for mod, attr, value in pairs:
+        setattr(mod, attr, value)
+    try:
+        yield
+    finally:
+        for mod, attr, value in saved:
+            setattr(mod, attr, value)
+
+
+def timed(times, label, fn):
+    """fn, each call's seconds added to times[label]."""
+    def wrapped(*a, **k):
+        t0 = time.perf_counter()
+        out = fn(*a, **k)
+        times[label] = times.get(label, 0.0) + time.perf_counter() - t0
+        return out
+    return wrapped
+
+
+def ingest_load(torch, np, base, n, dev=None):
+    """load_dataset (the CLI's path) on ``base``'s .bed and phenotype of n
+    individuals, its host passes timed: the read, the NA removal, the
+    padding, the counts and the statistics; then the h-recode of the
+    packed rows and their upload to the card (what the samplers do at
+    construction), and a BayesRRm exact W=128 sampler's construction and
+    first sweep. The
+    stages are timed through the modules' attributes at the call, so a
+    caller that has set them to other versions times those. dev: the card
+    unless given (the CPU, to try the phase without one). Returns ({stage:
+    seconds}, dataset)."""
+    from hydra_tpu_torch import native
+    from hydra_tpu_torch.data import genotypes
+    from hydra_tpu_torch.io import plink
+    from hydra_tpu_torch.io.pheno import read_phenotype_file
+    from hydra_tpu_torch.ops import decode
+    from hydra_tpu_torch.samplers.bayesrrm import BayesRRm
+    dev = dev or torch.device("cuda")
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+    times = {}
+    stages = [(plink, "read_bed", "read"),
+              (native, "bed_remove_individuals", "NA removal"),
+              (genotypes, "_pad_packed_columns", "padding"),
+              (native, "bed_counts", "counts")]
+    sync()
+    t0 = time.perf_counter()
+    with patched([(mod, attr, timed(times, label, getattr(mod, attr)))
+                  for mod, attr, label in stages]):
+        pheno = read_phenotype_file(base + ".phen", n)
+        ds = genotypes.load_dataset(base, pheno)
+    times["phenotype, statistics and the rest"] = (
+        time.perf_counter() - t0 - sum(times.values()))
+    t1 = time.perf_counter()
+    hp = decode.hpack_bytes(ds.geno.packed)
+    times["h-recode"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    pk = torch.from_numpy(hp).to(dev)
+    sync()
+    times["upload"] = time.perf_counter() - t1
+    times["seconds to the upload"] = time.perf_counter() - t0
+    del pk, hp
+    t1 = time.perf_counter()
+    s = BayesRRm(ds, window=128, exact=True, seed=1, device=dev)
+    st, _ = s.step(s.init_state(), 0)
+    sync()
+    times["sampler and first sweep"] = time.perf_counter() - t1
+    times["seconds to the first sweep"] = time.perf_counter() - t0
+    if not bool(torch.isfinite(st.eps).all()):
+        raise AssertionError("ingest: non-finite residual after a sweep")
+    return times, ds
+
+
+def print_ingest(label, times, card):
+    print(f"host ingest {label}: " + json.dumps(
+        {k: round(v, 4) for k, v in times.items()})
+        + f"  [{card}; host CPUs {os.cpu_count()}]", flush=True)
+
+
+def phase_host_ingest(torch, np, tmp, card, dev=None):
+    """The host's ingest at M=100,000 x N=50,000 (1.25 GB of .bed, 2%
+    missing calls, 10 NA phenotypes; hydra_tpu_torch.io.simulate from its
+    seed): the load path's stages with the OpenMP helper (ingest_load),
+    the helper's counts, h-recode and NA removal bit for bit their plain
+    versions on the first check_rows rows, and --bed-to-sparse and its
+    plain converter on the first sparse_m markers, each in GB/s of .bed
+    read and of bytes written, their files byte for byte equal, beside the
+    host's buffered write of as many bytes."""
+    from hydra_tpu_torch import native
+    from hydra_tpu_torch.data.genotypes import marker_counts
+    from hydra_tpu_torch.io import plink
+    from hydra_tpu_torch.io import sparse as sparse_io
+    from hydra_tpu_torch.io.simulate import write_panel
+    from hydra_tpu_torch.ops.decode import hpack_bytes_ref
+    r = INGEST
+    m, n = r["m"], r["n"]
+    base = os.path.join(tmp, "ingest")
+    t0 = time.perf_counter()
+    truth = write_panel(base, m, n, r["seed"], missing=r["missing"],
+                        na=r["na"])
+    print(f"panel M={m:,} x N={n:,} ({os.path.getsize(base + '.bed'):,} "
+          f"bytes of .bed) written in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    times, ds = ingest_load(torch, np, base, n, dev=dev)
+    print_ingest("with the OpenMP helper", times, card)
+    frac = float(ds.geno.nm.sum()) / (m * ds.geno.n)
+    if not 0.015 < frac < 0.025 or ds.geno.n != n - r["na"]:
+        raise AssertionError(f"ingest: {frac:.4f} missing calls, "
+                             f"n={ds.geno.n}")
+    # the helper against its plain versions, bit for bit
+    rows = r["check_rows"]
+    raw = plink.read_bed(base + ".bed", n, m, 0, rows)
+    na = truth["na_indices"]
+    got, want = (native.bed_remove_individuals(raw, n, na),
+                 plink.remove_individuals_packed(raw, n, na))
+    kept = ds.geno.packed[:rows]
+    checks = {"bed_remove_individuals": (got, want),
+              "bed_counts": (np.stack([c.astype(np.float64) for c in
+                                       native.bed_counts(kept, ds.geno.n)]),
+                             np.stack(marker_counts(kept, ds.geno.n))),
+              "bed_hpack": (native.bed_hpack(kept), hpack_bytes_ref(kept))}
+    for name, (a, b) in checks.items():
+        if a.dtype != b.dtype or a.shape != b.shape or not np.array_equal(
+                a, b):
+            raise AssertionError(f"ingest: {name} differs from its plain "
+                                 "version")
+        print(f"ingest: {name} bit for bit its plain version on "
+              f"{rows:,} rows", flush=True)
+    del ds
+    # --bed-to-sparse and its plain converter on the first sparse_m markers
+    nbytes = plink.bed_bytes_per_marker(n)
+    mm = r["sparse_m"]
+    with open(base + ".bed", "rb") as fh, \
+            open(os.path.join(tmp, "s10k.bed"), "wb") as out:
+        out.write(fh.read(3 + mm * nbytes))
+    sp = os.path.join(tmp, "sparse")
+    os.makedirs(sp)
+    written = {}
+    for name, fn in (("helper", sparse_io.write_sparse_files),
+                     ("plain", sparse_io.write_sparse_files_ref)):
+        t1 = time.perf_counter()
+        fn(os.path.join(tmp, "s10k.bed"), n, mm, os.path.join(sp, name))
+        dt = time.perf_counter() - t1
+        written[name] = sum(os.path.getsize(os.path.join(sp, f))
+                            for f in os.listdir(sp) if f.startswith(name))
+        print(f"--bed-to-sparse ({name} converter): {mm:,} markers x "
+              f"N={n:,} ({mm * nbytes:,} bytes of .bed, {written[name]:,} "
+              f"bytes written) in {dt:.3f} s = "
+              f"{mm * nbytes / dt / 1e9:.3f} GB/s of .bed, "
+              f"{written[name] / dt / 1e9:.3f} GB/s written  [{card}; host "
+              f"CPUs {os.cpu_count()}]", flush=True)
+    for ext in ("ss1", "ss2", "ssm", "sl1", "sl2", "slm", "si1", "si2",
+                "sim", "dim"):
+        with open(os.path.join(sp, f"helper.{ext}"), "rb") as a, \
+                open(os.path.join(sp, f"plain.{ext}"), "rb") as b:
+            while True:
+                x, y = a.read(1 << 26), b.read(1 << 26)
+                if x != y:
+                    raise AssertionError(f"ingest: --bed-to-sparse .{ext} "
+                                         "differs from the plain converter's")
+                if not x:
+                    break
+    print(f"ingest: --bed-to-sparse byte for byte the plain converter on "
+          f"{mm:,} markers", flush=True)
+    for f in os.listdir(sp):
+        if f.startswith("plain"):
+            os.remove(os.path.join(sp, f))
+    # the host's buffered write rate (page cache, no fsync, as the
+    # converters write): as many bytes in 8 MiB writes to one file
+    chunk = np.zeros(1 << 23, np.uint8)
+    t1 = time.perf_counter()
+    with open(os.path.join(sp, "write_rate"), "wb") as fh:
+        left = written["helper"]
+        while left > 0:
+            fh.write(memoryview(chunk)[:min(left, chunk.size)])
+            left -= chunk.size
+    dt = time.perf_counter() - t1
+    print(f"buffered write of {written['helper']:,} bytes: {dt:.3f} s = "
+          f"{written['helper'] / dt / 1e9:.3f} GB/s  [{card}; host CPUs "
+          f"{os.cpu_count()}]", flush=True)
 
 
 def phase_kernels(torch, sk, card):
@@ -1422,6 +1632,8 @@ def phase_wide_real_size(torch, np, ds, pk, card):
         if exact:
             print_exact_bounds(window, nb, mrow_width(K), True,
                                s.cfg.n_windows)
+        else:
+            print_stale_draw_bound(window, nb, mrow_width(K))
         del s
     groups, mS = make_default_groups(ds.geno.m, list(WIDE_VARIANCES))
     ds20 = dataclasses.replace(ds, groups=groups, mS=mS)
@@ -1623,6 +1835,21 @@ def print_exact_bounds(W, nb, C, complete=True, n_windows=1):
           f" {1e3 * gram[0]:.4f} us ({gram[1]}; a window of a batch of "
           f"{batch}), exact_draw_kernel {1e3 * draw[0]:.4f} us ({draw[1]})",
           flush=True)
+
+
+def print_stale_draw_bound(W, nb, C):
+    """The least time of a stale window's separate draw launch
+    (stale_draw_kernel, above STALE_FOLD_MAX_W): in, the window's order
+    (W ints), the stats partials s1 and s2 a tile and row (reduce_tile_pair;
+    the stale draw has no v), each marker's mrow row (C = N_FIXED + 3 K - 2
+    floats, all of which stale_draw reads at K) and the two scale floats;
+    out, 4 floats a marker and coef (2 W + 1); ~100 f32 operations a draw
+    (the exact draw's bound without the Gram and the rank-1 update)."""
+    n_tiles = -(-nb // 512)
+    draw = bound(4 * W + 8 * n_tiles * W + 4 * W * C + 8 + 16 * W
+                 + 4 * (2 * W + 1), {"f32": 100.0 * W})
+    print(f"  bound per window (W={W}, nb={nb}): stale_draw_kernel "
+          f"{1e3 * draw[0]:.4f} us ({draw[1]})", flush=True)
 
 
 def print_bw_bounds(W, nb, C, complete, Q, launches):
@@ -3121,7 +3348,8 @@ def print_library_times(torch, np, card):
     window_stats' exact branch) against torch.mm f32 of the window's
     decoded, standardized rows, W=128 and W=64. Then the exact sweeps'
     batched Grams (window_grams, where the tree has it) of 1 and 64 windows
-    of W=128 (complete data also 256; missing data also W=64), device us a
+    of W=128 (complete data also 256, and 4 of W=2,048; missing data also
+    W=64), device us a
     window (a batch of 1 is one unsplit launch, the alternative to
     window_stats' split one), beside
     torch.bmm of the same windows' decoded rows, bf16 (exact) for complete
@@ -3130,7 +3358,11 @@ def print_library_times(torch, np, card):
     torch.mv and torch.mm of the standardized rows, two calls.
     window_axpy's device time is every kernel of one call (the wrapper's
     glue, where a tree has any, included); on missing data also at W=64,
-    beside torch.addmv of the 2W decoded rows [g; m]. Returns
+    beside torch.addmv of the 2W decoded rows [g; m]. The wide arms:
+    stats_kernel at W=2,048 (through window_stats, stale) beside torch.mv,
+    window_axpy's wide axpy at W=2,048 beside torch.addmv, and
+    window_stats_mt's and window_axpy_mt's kernels at T=20 (two groups of
+    traits), W=64, complete, beside torch.mm of the decoded rows. Returns
     {wrapper: {library_ms (CUDA events a call), device_ms,
     library_device_ms, library}} for window_stats, window_axpy and
     window_level_sums."""
@@ -3271,15 +3503,54 @@ def print_library_times(torch, np, card):
 
     # one window (one block a tile over all the individuals: the batch of
     # 1, beside window_stats' split launch above), 64 windows (192 blocks:
-    # fewer than 2 an SM) and 256 (768)
-    W = 128
-    for n_win in (1, 64, 256):
+    # fewer than 2 an SM) and 256 (768); and the wide arm's batch of 4
+    # W=2,048 windows
+    for W, n_win in ((128, 1), (128, 64), (128, 256), (2048, 4)):
         order = windows(W, n_win)
         xb = decode_planes_hp(pk[order.long()])[0].view(
             n_win, W, n_pad).to(torch.bfloat16)
         batched("complete gram", order, W, n_win, [("torch.bmm bf16", dev_us(
             lambda: torch.bmm(xb, xb.transpose(1, 2)), "bmm")[1])])
         del xb
+    # the wide arms of the packed passes (W=2,048): stats_kernel through
+    # window_stats (stale rows h), window_axpy's wide axpy; and the
+    # multi-trait passes in groups of 16 traits (T=20, W=64, complete)
+    W = 2048
+    rows = torch.randperm(m, generator=gen, device=dev)[:W].to(torch.int32)
+    slots = rows.long()
+    h = decode_h(pk[slots])
+    h[:, n:] = 0.0
+    mw, sw = mave[slots].contiguous(), mstd[slots].contiguous()
+    show(f"stats_kernel W={W} stale", dev_us(
+        lambda: wk.window_stats(pk, eps, mw, sw, False, True, float(n),
+                                rows), "stats", ["::stats_kernel"]),
+         [("torch.mv", dev_us(lambda: torch.mv(h, eps), "mv")[1])])
+    x = 2.0 - h
+    x[:, n:] = 0.0
+    del h
+    c1 = 0.01 * torch.randn(W, generator=gen, device=dev)
+    c2 = -c1 * mw
+    show(f"wide axpy (window_axpy's axpy_kernel) W={W}", dev_us(
+        lambda: wk.window_axpy(pk, c1, c2, True, rows), "window_axpy",
+        ["axpy_kernel"]), [("torch.addmv", dev_us(
+            lambda: torch.addmv(eps, x.t(), c1), "addmv")[1])])
+    del x
+    W, T = 64, 20
+    rows = torch.randperm(m, generator=gen, device=dev)[:W].to(torch.int32)
+    g = decode_planes_hp(pk[rows.long()])[0]
+    eps_t = 0.8 * torch.randn(n_pad, T, generator=gen, device=dev)
+    eps_t[n:] = 0.0
+    c1 = 0.01 * torch.randn(T, W, generator=gen, device=dev)
+    c2 = torch.zeros(T, W, device=dev)
+    show(f"stats_mt_kernel T={T} W={W} complete", dev_us(
+        lambda: wk.window_stats_mt(pk, eps_t, True, rows), "stats_mt",
+        ["stats_mt_kernel"]), [("torch.mm", dev_us(
+            lambda: torch.mm(g, eps_t), "mm")[1])])
+    show(f"axpy_mt_kernel T={T} W={W} complete", dev_us(
+        lambda: wk.window_axpy_mt(pk, c1, c2, True, rows), "axpy_mt",
+        ["axpy_mt_kernel"]), [("torch.mm", dev_us(
+            lambda: torch.mm(g.t(), c1.t()), "mm")[1])])
+    del g, eps_t
     # the missing-data Gram beside torch.mm f32 of the window's decoded,
     # standardized rows (2% missing calls, its own generator), one window
     # of W=128 and of W=64; then batched, beside torch.bmm f32
@@ -5844,6 +6115,15 @@ def main() -> int:
             if ("registers" in ln or "spill" in ln or "Compiling" in ln
                     or ln.endswith(".cu:")):
                 print("  ptxas:", ln.strip().replace("ptxas info    : ", ""))
+        t0 = time.perf_counter()
+        _build.load_host()
+        print(f"the .bed helper built with g++ in "
+              f"{time.perf_counter() - t0:.1f} s: "
+              f"{_build.host_library_path()}", flush=True)
+    with tempfile.TemporaryDirectory() as tmp, phase(
+            "1b: host ingest (M=100,000 x N=50,000 .bed, 2% missing calls, "
+            "10 NA phenotypes)"):
+        phase_host_ingest(torch, np, tmp, card)
     with phase("2: kernels vs plain versions (M=4,096 x N=50,000)"):
         rec = phase_kernels(torch, sk, card)
     with phase("2b: BayesW kernels vs plain versions (N=50,000)"):

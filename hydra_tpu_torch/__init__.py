@@ -19,6 +19,11 @@ this package mirrors its module names so each counterpart is easy to find:
   hydra_tpu_torch.outputs.restart  read_restart: the saved state of a chain
                                    (``--restart``), from whichever
                                    generation the csv names
+  hydra_tpu_torch.io.simulate      simulated HWE panels (.bed with missing
+                                   calls, phenotype of a chosen h2)
+  hydra_tpu_torch.native           the OpenMP .bed helper (csrc/bedio.cpp,
+                                   built with g++ at first use): counts,
+                                   NA removal, h-recode, sparse fill
   hydra_tpu_torch.ops.decode       h-pack + plain torch decode, the
                                    standardized window (float64 branch)
   hydra_tpu_torch.ops.sweep_kernel     sweep_stale / sweep_exact /
@@ -44,6 +49,8 @@ this package mirrors its module names so each counterpart is easy to find:
                                    ind_sum over the grid's groups
                                    (all_reduce only)
   hydra_tpu_torch.utils.dist       torch.Generator distributions
+  hydra_tpu_torch.utils.compression / .gadgets  zlib float64 columns;
+                                   Timer, tokenize (own copies)
   hydra_tpu_torch.utils.slice_sampler  fixed-budget slice sampling
   hydra_tpu_torch.samplers.bayesrrm / .bayesrrm_mt / .bayesw  the
                                    samplers: every branch of the JAX
@@ -58,11 +65,14 @@ this package mirrors its module names so each counterpart is easy to find:
 
 scripts/soak_restart_torch.py SIGKILLs a CLI chain, restarts it and holds
 every record after the restart byte for byte to the uninterrupted run;
-scripts/run_multiprocess_torch.py starts D ranks of the CLI on one host.
+scripts/run_multiprocess_torch.py starts D ranks of the CLI on one host;
+scripts/ess_certification_torch.py runs chains of the CLI and tables their
+ESS per second; scripts/profile_phases_torch.py splits a sampler's step
+into its host phases.
 
 Nothing here imports JAX or ``hydra_tpu``: the modules the port shares with
-the JAX package in behaviour (options, io, data, outputs, postproc) are its
-own copies, held against the originals by tests/test_torch_isolation.py
+the JAX package in behaviour (options, io, data, outputs, postproc, the
+.bed helper, utils) are its own copies, held against the originals by tests/test_torch_isolation.py
 (postproc: tests/test_torch_postproc.py).
 """
 

@@ -10,9 +10,12 @@ planes are zero there and contribute nothing to any reduction).
 
 ``GenotypeData``, ``Dataset``, ``make_default_groups``, ``shard_layout`` and
 ``pad_individuals`` keep the JAX package's names and behaviour. The host
-passes use the numpy paths (``io/plink.py``); the JAX package's optional
-OpenMP helper is not loaded. ``load_dataset`` reads ``.bed`` or sparse
-input (``io/sparse.py``).
+passes run the port's OpenMP helper (``native.py``, ``csrc/bedio.cpp``):
+``bed_remove_individuals`` for the missing-phenotype correction and
+``bed_counts`` for the marker statistics, as the JAX package does;
+``marker_counts`` and ``io.plink.remove_individuals_packed`` are their
+plain numpy versions. ``load_dataset`` reads ``.bed`` or sparse input
+(``io/sparse.py``).
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from hydra_tpu_torch import native
 from hydra_tpu_torch.io import plink
 from hydra_tpu_torch.io import sparse as sparse_io
 from hydra_tpu_torch.io.groups import assign_blocks_to_tasks
@@ -76,7 +80,8 @@ def marker_counts(packed: np.ndarray, n: int, block_bytes: int = 1 << 24
                   ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """(n1, n2, nm) per marker over the first n individuals: genotype-1,
     genotype-2 and missing counts, decoded a block of rows at a time so the
-    host never holds a dense (M, N) plane."""
+    host never holds a dense (M, N) plane. The plain version of
+    ``native.bed_counts`` (float64 here)."""
     m, nb = packed.shape
     out = np.zeros((3, m), dtype=np.float64)
     step = max(1, block_bytes // max(4 * nb, 1))
@@ -120,12 +125,14 @@ class GenotypeData:
     @staticmethod
     def from_packed(packed: np.ndarray, n: int, na_indices: np.ndarray) -> "GenotypeData":
         if len(na_indices):
-            packed = plink.remove_individuals_packed(packed, n, na_indices)
+            packed = native.bed_remove_individuals(packed, n, na_indices)
             n = n - len(na_indices)
         m = packed.shape[0]
         n_pad = pad_individuals(n)
         packed = _pad_packed_columns(packed, n, n_pad)
-        n1, n2, nm = marker_counts(packed, n)
+        # over the first n individuals: the pad crumbs are coded missing
+        n1, n2, nm = (c.astype(np.float64)
+                      for c in native.bed_counts(packed, n))
         dn = float(n)
         with np.errstate(divide="ignore", invalid="ignore"):
             mave = (n1 + 2.0 * n2) / (dn - nm)

@@ -1,9 +1,10 @@
 """hydra sparse-genotype files: reader, writer and the packed-byte rebuild.
 
-The port's own copy of ``hydra_tpu/io/sparse.py`` (same files, same bytes;
-numpy only). The reference's 9-file representation
-(write_sparse_data_files BayesRRm.cpp:437-770; load_data_from_sparse_files
-data.cpp:742-823):
+The port's own copy of ``hydra_tpu/io/sparse.py`` (same files, same bytes).
+The converter runs the OpenMP helper (``native.bed_counts`` and
+``native.bed_sparse_fill``), the readers numpy. The reference's 9-file
+representation (write_sparse_data_files BayesRRm.cpp:437-770;
+load_data_from_sparse_files data.cpp:742-823):
 
     basename.ss{1,2,m}  per-marker start offsets   (uint64, Mtot entries)
     basename.sl{1,2,m}  per-marker element counts  (uint64, Mtot entries)
@@ -19,11 +20,14 @@ is the ``--bed-to-sparse`` converter.
 
 from __future__ import annotations
 
+import queue
+import threading
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import numpy as np
 
+from hydra_tpu_torch import native
 from hydra_tpu_torch.io.plink import (MISSING_CODE, bed_bytes_per_marker,
                                       decode_bed_numpy, read_bed)
 
@@ -47,8 +51,81 @@ class SparseGenotypes:
 
 def write_sparse_files(bed_path: str, n: int, m: int, out_basename: str,
                        block_size: int = 8192) -> None:
-    """Convert a .bed to the 9-file sparse representation (--bed-to-sparse):
-    a block of markers at a time, each tag's indices in marker order."""
+    """Convert a .bed to the 9-file sparse representation (--bed-to-sparse),
+    as the JAX package's converter (``hydra_tpu/io/sparse.py:60-160``): a
+    block of markers at a time, ``bed_counts`` sizing each marker's slices
+    and ``bed_sparse_fill`` writing the individuals in parallel over
+    markers. The block's bytes and three rotating sets of index buffers are
+    reused from block to block (fresh pages fault in slowly on cloud
+    hosts), and a writer thread appends a block's ``.si`` bytes while the
+    next block is read, counted and filled; its error is raised after the
+    join. With a queue of depth 1, set k is idle again by the time block
+    k + 3 fills it. ``write_sparse_files_ref`` is the plain version."""
+    files = {t: open(out_basename + f".si{t}", "wb") for t in TAGS}
+    starts = {t: [] for t in TAGS}
+    lengths = {t: [] for t in TAGS}
+    offs = dict.fromkeys(TAGS, 0)
+    pk_buf = np.empty(block_size * bed_bytes_per_marker(n), np.uint8)
+    idx_sets = [[np.empty(0, np.uint32) for _ in TAGS] for _ in range(3)]
+    wq: "queue.Queue" = queue.Queue(maxsize=1)
+    werr = []
+
+    def writer():
+        while True:
+            item = wq.get()
+            if item is None:
+                return
+            try:
+                for fh, view in item:
+                    fh.write(view)
+            except Exception as e:  # raised after the join
+                werr.append(e)
+
+    wthread = threading.Thread(target=writer, daemon=True)
+    wthread.start()
+    try:
+        for bi, blk_start in enumerate(range(0, m, block_size)):
+            blk = min(block_size, m - blk_start)
+            packed = read_bed(bed_path, n, m, blk_start, blk, out=pk_buf)
+            counts = native.bed_counts(packed, n)
+            local = [np.concatenate(([0], np.cumsum(c[:-1], dtype=np.int64)))
+                     for c in counts]
+            bufs = idx_sets[bi % 3]
+            for k, cnt in enumerate(counts):
+                need = int(cnt.sum())
+                if bufs[k].size < need:
+                    bufs[k] = np.empty(int(need * 1.3), np.uint32)
+            idx = native.bed_sparse_fill(packed, n, *local, *counts,
+                                         out=bufs)
+            wq.put([(files[t], memoryview(i)) for t, i in zip(TAGS, idx)])
+            for tag, first, cnt in zip(TAGS, local, counts):
+                starts[tag].extend((offs[tag] + first).tolist())
+                lengths[tag].extend(cnt.tolist())
+                offs[tag] += int(cnt.sum())
+    finally:
+        wq.put(None)
+        wthread.join()
+        for fh in files.values():
+            fh.close()
+    if werr:
+        raise werr[0]
+    _write_index_files(out_basename, n, m, starts, lengths)
+
+
+def _write_index_files(out_basename, n, m, starts, lengths):
+    for tag in TAGS:
+        np.asarray(starts[tag], dtype=np.uint64).tofile(
+            out_basename + f".ss{tag}")
+        np.asarray(lengths[tag], dtype=np.uint64).tofile(
+            out_basename + f".sl{tag}")
+    with open(out_basename + ".dim", "w") as fh:
+        fh.write(f"{n} {m}\n")
+
+
+def write_sparse_files_ref(bed_path: str, n: int, m: int, out_basename: str,
+                           block_size: int = 8192) -> None:
+    """Plain version of ``write_sparse_files``: a block of markers at a
+    time decoded with numpy, each tag's indices by ``np.nonzero``."""
     starts = {t: [] for t in TAGS}
     lengths = {t: [] for t in TAGS}
     offs = dict.fromkeys(TAGS, 0)
@@ -72,13 +149,7 @@ def write_sparse_files(bed_path: str, n: int, m: int, out_basename: str,
     finally:
         for fh in files.values():
             fh.close()
-    for tag in TAGS:
-        np.asarray(starts[tag], dtype=np.uint64).tofile(
-            out_basename + f".ss{tag}")
-        np.asarray(lengths[tag], dtype=np.uint64).tofile(
-            out_basename + f".sl{tag}")
-    with open(out_basename + ".dim", "w") as fh:
-        fh.write(f"{n} {m}\n")
+    _write_index_files(out_basename, n, m, starts, lengths)
 
 
 def read_dim(basename: str) -> Tuple[int, int]:

@@ -1,10 +1,15 @@
-"""Build and load the CUDA kernels (``csrc/*.cu``) with nvcc + ctypes.
+"""Build and load the CUDA kernels (``csrc/*.cu``) with nvcc + ctypes, and
+the host helper (``csrc/bedio.cpp``) with g++.
 
 Each source compiles at first use into its own shared library with a plain
 C interface under ``hydra_tpu_torch/_build/`` (listed in ``.gitignore``),
 named by the hash of the source, the shared header and the flags, so an
 edit rebuilds and an unchanged tree reuses the library. ``build`` starts
-one nvcc per source at once. Nothing here runs at import time.
+one nvcc per source at once. ``load_host`` builds the OpenMP ``.bed``
+helper with g++ alone (no CUDA toolkit needed: the CPU runs it too); its
+name also hashes the compiler's path and version and the target options
+that ``-march=native`` resolves to on this CPU, since it binds the library
+to the CPU that built it. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -71,6 +76,9 @@ _SIGNATURES = {
     },
 }
 
+HOST_SOURCE = "bedio.cpp"
+HOST_FLAGS = ("-O3", "-march=native", "-fopenmp", "-shared", "-fPIC")
+
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 
@@ -97,22 +105,75 @@ def library_path(source: str) -> str:
     return os.path.join(BUILD_DIR, f"libhydra_{stem}_{h.hexdigest()[:16]}.so")
 
 
+def _gxx() -> str:
+    path = shutil.which("g++")
+    if not path:
+        raise RuntimeError("g++ not found on PATH; the .bed helper "
+                           "(csrc/bedio.cpp) is built from source at first "
+                           "use")
+    return path
+
+
+def host_library_path() -> str:
+    """The helper's library: named by the hash of its source, its flags,
+    the compiler's path and ``--version``, and the target options its flags
+    resolve to here (``-Q --help=target``: what ``-march=native`` names on
+    this CPU), so a build directory carried to another CPU rebuilds."""
+    gxx = _gxx()
+    h = hashlib.sha256(" ".join((gxx,) + HOST_FLAGS).encode())
+    for query in (["--version"], [*HOST_FLAGS, "-Q", "--help=target"]):
+        h.update(subprocess.run([gxx, *query], capture_output=True, text=True,
+                                check=True, timeout=60).stdout.encode())
+    with open(os.path.join(CSRC, HOST_SOURCE), "rb") as fh:
+        h.update(fh.read())
+    return os.path.join(BUILD_DIR, f"libhydra_bedio_{h.hexdigest()[:16]}.so")
+
+
+def _locked(fn):
+    """fn() under the build directory's file lock: processes that share it
+    (the ranks of one run, the workers of a test run) take turns, so one of
+    them builds and the rest find the library."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(os.path.join(BUILD_DIR, ".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            return fn()
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+
+
+def _build_host(path: str) -> None:
+    if os.path.exists(path):
+        return
+    tmp = f"{path}.{os.getpid()}.tmp"
+    res = subprocess.run([_gxx(), *HOST_FLAGS, os.path.join(CSRC, HOST_SOURCE),
+                          "-o", tmp], capture_output=True, text=True,
+                         timeout=600)
+    if res.returncode != 0:
+        raise RuntimeError(f"g++ {HOST_SOURCE} failed ({res.returncode}):\n"
+                           f"{res.stderr}")
+    os.replace(tmp, path)
+
+
+def load_host() -> ctypes.CDLL:
+    """The loaded ``.bed`` helper, built with g++ at the first call (never
+    nvcc). A failed build raises with the compiler's stderr."""
+    with _lock:
+        if HOST_SOURCE not in _libs:
+            path = host_library_path()
+            _locked(lambda: _build_host(path))
+            _libs[HOST_SOURCE] = ctypes.CDLL(path)
+        return _libs[HOST_SOURCE]
+
+
 def build(ptxas_verbose: bool = False) -> str:
     """Compile every source whose library is missing, one nvcc per source,
     all started together.
 
     Returns the compilers' stderr (with ``-Xptxas -v``: registers, shared
     memory and spills per kernel); "" when every library was cached.
-    Processes that share the build directory (the ranks of one run) take
-    turns through a file lock, so one of them builds and the rest find the
-    libraries."""
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    with open(os.path.join(BUILD_DIR, ".lock"), "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
-        try:
-            return _build_missing(ptxas_verbose)
-        finally:
-            fcntl.flock(lock, fcntl.LOCK_UN)
+    Processes that share the build directory take turns (``_locked``)."""
+    return _locked(lambda: _build_missing(ptxas_verbose))
 
 
 def _build_missing(ptxas_verbose: bool) -> str:

@@ -2,8 +2,9 @@
 
 The device format is the reference package's "hpack" (``hydra_tpu/ops/
 decode.py``): each 2-bit crumb stores h = 2 - genotype, 3 = missing, and
-crumb k of byte b is individual 4b + k. ``hpack_bytes`` is the port's own
-numpy copy of that module's.
+crumb k of byte b is individual 4b + k. ``hpack_bytes`` runs the OpenMP
+helper's ``bed_hpack`` (``native.py``), as that module's does;
+``hpack_bytes_ref`` is its plain numpy version.
 
 ``decode_planes_hp`` / ``decode_planes`` are the plain decode the plain sweep
 versions use; the CUDA kernels decode crumbs in registers instead
@@ -17,11 +18,19 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from hydra_tpu_torch import native
+
 
 def hpack_bytes(packed: np.ndarray) -> np.ndarray:
-    """PLINK-coded packed bytes -> h-packed device bytes: the bitwise form
-    of the crumb map 0->0, 1->3, 2->1, 3->2, out = (L << 1) | (L ^ H) with
-    L/H the crumb low/high bit planes."""
+    """PLINK-coded packed bytes -> h-packed device bytes (the helper's
+    ``bed_hpack``, an OpenMP pass; same shape)."""
+    return native.bed_hpack(packed)
+
+
+def hpack_bytes_ref(packed: np.ndarray) -> np.ndarray:
+    """Plain version of ``hpack_bytes``: the bitwise form of the crumb map
+    0->0, 1->3, 2->1, 3->2, out = (L << 1) | (L ^ H) with L/H the crumb
+    low/high bit planes."""
     lo = packed & np.uint8(0x55)
     hi = (packed >> np.uint8(1)) & np.uint8(0x55)
     return ((lo << np.uint8(1)) | (lo ^ hi)).astype(np.uint8)

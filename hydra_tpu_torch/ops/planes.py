@@ -6,7 +6,10 @@ device, into int8 planes (M, n_pad) in INDIVIDUAL order (0/1/2; missing
 genotypes and pad individuals 0); each window then streams one byte per
 genotype instead of decoding 2-bit crumbs. The JAX package's
 flat-deinterleaved layout was a TPU workaround and is not kept: here the
-residual pairs with a plane row as it is.
+residual pairs with a plane row as it is. So is the JAX package's host
+expansion of the planes (its OpenMP ``bed_expand_planes``, there for the
+TPU's slow host link): the port binds and tests it (``native.py``), but
+``build_planes`` decodes on the card.
 
   build_planes(pk) -> (M, 4*NB) int8 planes of h-packed rows
   window_stats_planes(planes, eps, rows) -> s1 (W,) = planes[rows] @ eps

@@ -214,7 +214,9 @@ def test_cli_runs_without_jax(bed, bw_bed, tmp_path):
     """The card's machine has no JAX: block it, and the JAX package, before
     anything imports, then run BayesRRm, multi-trait BayesRRm and BayesW,
     and a BayesRRm chain with covariates cut at 10 iterations and
-    restarted (``--restart``)."""
+    restarted (``--restart``); the .bed helper (``native``), and the two
+    scripts: ``profile_phases_torch.py`` at M=300 x N=400, and
+    ``ess_certification_torch.py`` imported."""
     out = tmp_path / "nojax"
     mt = _mt_argv(bed, out, write_mt_phenos(bed, 2, 0.1, seed=2))
     cov = tmp_path / "c.cov"
@@ -233,6 +235,14 @@ def test_cli_runs_without_jax(bed, bw_bed, tmp_path):
             f"assert cli.main({[*rst, '--chain-length', '11']!r}) == 0\n"
             f"assert cli.main({[*rst, '--restart', '--chain-length', '21']!r})"
             " == 0\n"
+            "from hydra_tpu_torch import native\n"
+            "import numpy as np, runpy\n"
+            "pk = np.arange(48, dtype=np.uint8).reshape(2, 24)\n"
+            "assert native.bed_counts(pk, 96)[2].tolist() == [22, 18]\n"
+            "runpy.run_path('scripts/ess_certification_torch.py')\n"
+            "prof = runpy.run_path('scripts/profile_phases_torch.py')\n"
+            "assert prof['main'](['--device', 'cpu', '--m', '300', '--n', "
+            "'400', '--steps', '1']) == 0\n"
             f"sys.exit(cli.main({['--device', 'cpu', *_bw_argv(bw_bed, out)]!r}))\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=300,

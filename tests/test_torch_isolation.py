@@ -1,7 +1,9 @@
 """The port stands alone: no module of ``hydra_tpu_torch`` (its
-``parallel/`` package included; nor ``chip_smoke.py``,
-``scripts/soak_restart_torch.py`` or ``scripts/run_multiprocess_torch.py``)
-imports JAX or the JAX package, and the port's own copies
+``parallel/`` package and ``native.py`` included; nor ``chip_smoke.py``,
+``scripts/soak_restart_torch.py``, ``scripts/run_multiprocess_torch.py``,
+``scripts/ess_certification_torch.py`` or
+``scripts/profile_phases_torch.py``) imports JAX or the JAX package, nor
+loads the JAX package's ``.bed`` helper library, and the port's own copies
 of the option parser, readers, dataset assembly and writers behave as the
 JAX package's do on the same inputs."""
 
@@ -40,8 +42,9 @@ def _port_sources():
             if f.endswith(".py"):
                 yield os.path.join(d, f)
     yield os.path.join(REPO, "chip_smoke.py")
-    yield os.path.join(REPO, "scripts", "soak_restart_torch.py")
-    yield os.path.join(REPO, "scripts", "run_multiprocess_torch.py")
+    for script in ("soak_restart_torch.py", "run_multiprocess_torch.py",
+                   "ess_certification_torch.py", "profile_phases_torch.py"):
+        yield os.path.join(REPO, "scripts", script)
 
 
 def _forbidden(module: str) -> bool:
@@ -192,6 +195,35 @@ def test_port_sources_include_the_parallel_package():
     names = {os.path.relpath(p, REPO) for p in _port_sources()}
     assert {os.path.join("hydra_tpu_torch", "parallel", f)
             for f in ("distributed.py", "mesh.py")} <= names
+    assert {os.path.join("hydra_tpu_torch", "native.py"),
+            os.path.join("scripts", "ess_certification_torch.py"),
+            os.path.join("scripts", "profile_phases_torch.py")} <= names
+
+
+def test_port_loads_no_library_of_the_jax_package():
+    """No source of the port names the JAX package's helper library or its
+    directory; the port's own helper is built under hydra_tpu_torch."""
+    bad = [os.path.relpath(p, REPO) for p in _port_sources()
+           if "libbedio" in open(p).read()
+           or ("hydra_tpu/native" in open(p).read()
+               and not p.endswith("native.py"))]
+    assert not bad, bad
+    from hydra_tpu_torch.ops import _build
+    assert _build.host_library_path().startswith(
+        os.path.join(REPO, "hydra_tpu_torch", "_build") + os.sep)
+
+
+@pytest.mark.parametrize("port,original", [
+    ("hydra_tpu_torch/csrc/bedio.cpp", "hydra_tpu/native/bedio.cpp"),
+    ("hydra_tpu_torch/utils/compression.py", "hydra_tpu/utils/compression.py"),
+    ("hydra_tpu_torch/utils/gadgets.py", "hydra_tpu/utils/gadgets.py"),
+])
+def test_copied_sources_are_byte_for_byte(port, original):
+    """The helper's source and the two small utilities are the JAX
+    package's files, byte for byte."""
+    with open(os.path.join(REPO, port), "rb") as a, \
+            open(os.path.join(REPO, original), "rb") as b:
+        assert a.read() == b.read()
 
 
 def test_null_writer_is_a_copy():
